@@ -8,7 +8,9 @@ Hand-written CUDA kernels live in `csrc/` and are compiled with nvcc at
 their first launch, never at import (see `_build.py`).
 
 Ported so far: paged GPT serving (`serving.PagedBatcher`) with the
-paged-attention decode kernel.
+paged-attention decode kernel, and the GPT training step
+(`models.transformer.make_train_step`, `optim.functional`) with the
+packed-qkv flash-attention forward and backward kernels.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` source is compiled by `nvcc` for Hopper (`sm_90a`) into
+Every `csrc/*.cu` source is compiled by `nvcc` for Hopper (`sm_90a`), all
+sources at once in parallel processes, and the objects are linked into
 one shared library with a plain C interface, which `ctypes` loads. No
 source includes PyTorch's headers, so a build takes seconds. The library
 is named after a hash of the sources and the flags and is written under
@@ -11,6 +12,7 @@ is imported: the first kernel launch builds (`load_library`).
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -23,7 +25,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "neuronika_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 600
 
 
@@ -57,15 +59,29 @@ def build(force: bool = False) -> pathlib.Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = BUILD_DIR / f"{out.name}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [f"{tag}.{src.stem}.o" for src in SOURCES]
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+            list(pool.map(_run, ([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                  str(src)] for src, obj in zip(SOURCES,
+                                                                objs))))
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tag}.tmp", *objs])
+        os.replace(f"{tag}.tmp", out)   # atomic: no process sees half of it
+    finally:
+        for f in (*objs, f"{tag}.tmp"):
+            pathlib.Path(f).unlink(missing_ok=True)
+    return out
+
+
+def _run(cmd) -> None:
+    """Run one nvcc command; raise with its output if it fails."""
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=NVCC_TIMEOUT_S)
     if proc.returncode:
         raise RuntimeError(f"nvcc exited {proc.returncode}:\n{' '.join(cmd)}"
                            f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)        # atomic: a concurrent process never sees half
-    return out
 
 
 @functools.cache
@@ -79,5 +95,22 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [i, p, p, p, p, p, p,          # dtype, q, pk, pv, table,
                    i, i, i, i, i, i, i, i,       # pos, out; B KV G hd NB BS
                    ctypes.c_float, p]            # MB window; scale, stream
+    fn.restype = i
+    f = ctypes.c_float
+    fn = lib.nk_flash_fwd_qkv
+    fn.argtypes = [i, p, p, p,                   # dtype, qkv, out, lse
+                   i, i, i, i, i,                # B S H KV hd
+                   f, i, i, p]                   # scale causal fast, stream
+    fn.restype = i
+    for name in ("nk_flash_bwd_dq_qkv", "nk_flash_bwd_dkv_qkv"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, p, p, p, p, p,         # dtype, qkv o lse do dqkv
+                       i, i, i, i, i,            # B S H KV hd
+                       f, i, p]                  # scale causal, stream
+        fn.restype = i
+    fn = lib.nk_flash_bwd_fused_qkv
+    fn.argtypes = [i, p, p, p, p, p, p,          # dtype, qkv o lse do
+                   i, i, i, i, i,                # dq_acc dqkv; B S H KV hd
+                   f, i, p]                      # scale causal, stream
     fn.restype = i
     return lib

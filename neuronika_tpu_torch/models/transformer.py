@@ -1,5 +1,5 @@
-"""GPT-2-style transformer, paged serving slice (counterpart of
-`neuronika_tpu/models/transformer.py`).
+"""GPT-2-style transformer: the paged serving slice and the training step
+(counterpart of `neuronika_tpu/models/transformer.py`).
 
 Params are a plain dict of tensors with the JAX tree's names and shapes:
 per-layer tensors are STACKED on a leading `n_layer` axis under "blocks",
@@ -9,8 +9,13 @@ dtype once for serving.
 
 Ported: the learned-position / LayerNorm / GELU / tied-head GPT with GQA
 and sliding-window attention, the paged KV cache, unbucketed paged
-prefill, the paged decode step and per-row sampling. The other variants
-raise `NotImplementedError` from `GPTConfig`.
+prefill, the paged decode step and per-row sampling; and for training
+`hidden_states`, `forward`, `loss_fn`, `opt_init`, `opt_state_from_jax`,
+`make_train_step` (Adam, clipping, accumulation) and `flops_per_token`,
+whose attention runs the packed-qkv flash op (`ops/flash_attention.py`).
+The other variants raise `NotImplementedError` from `GPTConfig`, and so
+do in-kernel dropout, remat policies other than "full", the fused
+cross-entropy and sliding windows on the flash path.
 
 Rounding that differs from the JAX package in bf16 (f32 is unaffected):
 * a bf16 matmul here returns bf16 (f32 accumulation inside), where JAX
@@ -18,7 +23,9 @@ Rounding that differs from the JAX package in bf16 (f32 is unaffected):
   once; here the product is rounded before the bias add;
 * the paged-attention kernel and its plain version keep the softmax
   weights in f32 for PV (JAX's kernel casts them to v's dtype);
-LM-head logits are f32 in both, as sampling needs.
+LM-head logits are f32 in both, as sampling needs. In training,
+`matmul_out="f32"` and the f32 logits come from bf16 GEMMs with an f32
+result (`_dot_f32`), as JAX's `preferred_element_type=f32`.
 """
 
 from __future__ import annotations
@@ -30,9 +37,13 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from .._tree import tree_leaves, tree_map, tree_unflatten
 from ..device import resolve
+from ..ops.flash_attention import flash_attention_qkv
 from ..ops.paged_attention import paged_attention
+from ..optim.functional import adam_init, adam_update, clip_by_global_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +68,32 @@ class GPTConfig:
     # sliding-window attention: attend the last `window` tokens (0 = full)
     window: int = 0
     n_experts: int = 0
+    # training fields (JAX names and defaults; see the JAX GPTConfig)
+    dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
+    # "auto"/"on": the packed flash-attention op (the CUDA kernels for
+    # CUDA tensors, their plain versions on the CPU); "off": the composite
+    flash: str = "auto"
+    # checkpoint each block in training (policy "full" only)
+    remat: bool = True
+    remat_policy: str = "full"
+    # TPU tile size; accepted, the CUDA kernels choose their own tiles
+    flash_block: int = 256
+    # fused linear + cross-entropy kernel ("on" is not ported)
+    fused_ce: str = "auto"
+    # body matmul outputs: "f32" (bf16 product, f32 result, bias added in
+    # f32) or "compute" (result in `dtype`)
+    matmul_out: str = "f32"
+    # LM-head logits materialised in "f32" or the "compute" dtype
+    logits_dtype: str = "f32"
+    # accepted; the layers always run as a Python loop
+    scan_layers: bool = True
+    # flash softmax: "safe" (running max) or "fast" (none)
+    flash_softmax: str = "safe"
+    # flash backward: "split" (dq kernel, then dk/dv kernel) or "fused"
+    flash_bwd: str = "split"
+    # Adam m/v dtype: "f32" or "bf16" (update math in f32)
+    opt_state_dtype: str = "f32"
 
     def __post_init__(self):
         for name, want in (("pos_emb", "learned"), ("norm", "layer"),
@@ -70,6 +106,24 @@ class GPTConfig:
             raise NotImplementedError("mixture-of-experts is not ported yet")
         if not self.tied_head:
             raise NotImplementedError("an untied LM head is not ported yet")
+        for name, allowed in (("flash", ("auto", "on", "off")),
+                              ("fused_ce", ("auto", "on", "off")),
+                              ("matmul_out", ("f32", "compute")),
+                              ("logits_dtype", ("f32", "compute")),
+                              ("flash_softmax", ("safe", "fast")),
+                              ("flash_bwd", ("split", "fused")),
+                              ("opt_state_dtype", ("f32", "bf16"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r}: want one "
+                                 f"of {allowed}")
+        if self.remat and self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r} is not ported yet (only "
+                f"'full'; ROADMAP.md queue 1 item 6)")
+        if self.fused_ce == "on":
+            raise NotImplementedError(
+                "fused_ce='on' (the fused linear + cross-entropy kernels "
+                "K8-K10) is not ported yet (ROADMAP.md queue 1 item 6)")
 
 
 def _kv_heads(cfg: GPTConfig) -> int:
@@ -84,12 +138,6 @@ def _qkv_width(cfg: GPTConfig) -> int:
 def _require_causal(cfg: GPTConfig, what: str) -> None:
     if not cfg.causal:
         raise ValueError(f"{what} needs a causal model (cfg.causal=True)")
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 # --------------------------------------------------------------------------
@@ -150,12 +198,12 @@ def params_from_jax(tree, device="cpu") -> Dict:
                 dev, torch.bfloat16)
         return torch.from_numpy(np.array(a)).to(dev)     # a writable copy
 
-    return _tree_map(conv, tree)
+    return tree_map(conv, tree)
 
 
 def _layer(blocks: Dict, i: int) -> Dict:
     """Layer i's view of the stacked block params."""
-    return _tree_map(lambda t: t[i], blocks)
+    return tree_map(lambda t: t[i], blocks)
 
 
 # --------------------------------------------------------------------------
@@ -186,6 +234,50 @@ def _unpack_qkv(qkv, cfg: GPTConfig):
     return parts[..., :G, :], parts[..., G, :], parts[..., G + 1, :]
 
 
+class _DotF32(torch.autograd.Function):
+    """a @ b for bf16 operands with an f32 result (JAX's `jnp.dot(...,
+    preferred_element_type=f32)`): `torch.mm(..., out_dtype=float32)`, a
+    cuBLAS GEMM that accumulates and writes f32. Its backward rounds the
+    f32 cotangent to the operands' dtype and runs bf16 GEMMs."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(a.shape[:-1] + (b.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = (g2 @ b.T).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            db = a.reshape(-1, a.shape[-1]).T @ g2
+        return da, db
+
+
+def _dot_f32(a, b):
+    """a @ b with an f32 result. f32 operands: a plain f32 matmul. bf16 on
+    the card: `_DotF32`. bf16 on the CPU: the operands widened exactly, so
+    only the summation order differs from the card."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.device.type == "cuda":
+        return _DotF32.apply(a, b)
+    return torch.matmul(a.float(), b.float())
+
+
+def _body_dot(x, w, cfg: GPTConfig):
+    """Body matmul honouring cfg.matmul_out: "compute" returns the product
+    in the compute dtype; "f32" returns it in f32 (bias then added in f32
+    by `_badd`), as JAX's `_body_dot`."""
+    if cfg.matmul_out == "compute":
+        return torch.matmul(x, w.to(cfg.dtype))
+    return _dot_f32(x, w.to(cfg.dtype))
+
+
 def _head_w(params, cfg: GPTConfig):
     """(V, D) LM-head weight: the tied wte."""
     return params["wte"]
@@ -193,9 +285,8 @@ def _head_w(params, cfg: GPTConfig):
 
 def _lm_head(x, params, cfg: GPTConfig):
     """Logits in f32, like JAX's `jnp.dot(..., preferred_element_type=f32)`:
-    the compute-dtype operands are widened exactly, so only the summation
-    order differs."""
-    return torch.matmul(x.float(), _head_w(params, cfg).float().T)
+    a compute-dtype GEMM with an f32 result (`_dot_f32`)."""
+    return _dot_f32(x, _head_w(params, cfg).to(x.dtype).T)
 
 
 def _qdot(x, w, cfg: GPTConfig):
@@ -204,12 +295,14 @@ def _qdot(x, w, cfg: GPTConfig):
     return torch.matmul(x, w.to(cfg.dtype))
 
 
-def _mlp(x, blk, cfg: GPTConfig):
+def _mlp(x, blk, cfg: GPTConfig, dot=None):
     """Dense GELU MLP (JAX's `_mlp` / `_decode_mlp` for mlp="gelu").
-    `jax.nn.gelu` defaults to the tanh approximation, and so does this."""
-    h = _badd(_qdot(x, blk["fc_in"], cfg), blk, "fc_in_b", cfg)
+    `jax.nn.gelu` defaults to the tanh approximation, and so does this.
+    `dot` is the matmul: `_qdot` for serving, `_body_dot` in training."""
+    dot = dot or _qdot
+    h = _badd(dot(x, blk["fc_in"], cfg), blk, "fc_in_b", cfg)
     h = F.gelu(h, approximate="tanh")
-    return _badd(_qdot(h, blk["fc_out"], cfg), blk, "fc_out_b", cfg)
+    return _badd(dot(h, blk["fc_out"], cfg), blk, "fc_out_b", cfg)
 
 
 def _cast_decode_params(params, cfg: GPTConfig):
@@ -491,3 +584,209 @@ def sample_logits_batched(logits, seeds, steps, temperature, top_k, top_p,
             out[b] = _sample_row(logits[b], g, float(t), int(top_k[b]),
                                  float(top_p[b]), float(min_p[b]))
     return out
+
+
+# --------------------------------------------------------------------------
+# training: forward, loss and the train step
+
+
+def _use_flash(cfg: GPTConfig) -> bool:
+    """The packed flash op unless cfg.flash is "off". The op itself routes
+    by device: the CUDA kernels for CUDA tensors, the plain versions for
+    CPU tensors (so "auto" and "on" agree)."""
+    return cfg.flash != "off"
+
+
+def _split_qkv(qkv, cfg: GPTConfig, B, S):
+    """Group-major packed (B, S, W) -> q (B,H,S,hd), k/v (B,H,S,hd), KV
+    heads repeated up to H (GQA) for the composite path."""
+    H = cfg.n_head
+    KV = _kv_heads(cfg)
+    hd = cfg.d_model // H
+    q, k, v = _unpack_qkv(qkv, cfg)
+    q = q.reshape(B, S, H, hd).transpose(1, 2)
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=1)
+        v = v.repeat_interleave(H // KV, dim=1)
+    return q, k, v
+
+
+def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
+    """Attention sublayer of the training forward (JAX's `_attention`,
+    learned positions). `seed` (an int or None) seeds composite dropout, so
+    a checkpointed block redraws the same mask when it is recomputed."""
+    if cfg.window and not cfg.causal:
+        raise ValueError(
+            "cfg.window (sliding-window attention) requires causal=True")
+    B, S, D = x.shape
+    H = cfg.n_head
+    hd = D // H
+    qkv = _badd(_body_dot(x, blk["qkv"], cfg), blk, "qkv_b", cfg)
+    drop = cfg.dropout if train else 0.0
+    if _use_flash(cfg):
+        if cfg.window:
+            raise NotImplementedError(
+                "sliding-window attention on the flash path (the split-"
+                "layout kernels K5-K7) is not ported yet (ROADMAP.md queue "
+                "1 item 6); use flash='off'")
+        if drop > 0.0:
+            raise NotImplementedError(
+                "attention dropout in training on the flash path (in-kernel "
+                "dropout) is not ported yet (ROADMAP.md queue 1 item 6); "
+                "use flash='off'")
+        # the packed kernels read head blocks straight from qkv: no split,
+        # transpose or GQA-repeat copies
+        out = flash_attention_qkv(
+            qkv, H, _kv_heads(cfg), cfg.causal, None, cfg.flash_block,
+            cfg.flash_block, fast_softmax=cfg.flash_softmax == "fast",
+            fused_bwd=cfg.flash_bwd == "fused")
+    else:
+        q, k, v = _split_qkv(qkv, cfg, B, S)
+        att = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+        att = att / math.sqrt(hd)
+        if cfg.causal:
+            mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+            if cfg.window:
+                mask &= ~torch.ones(S, S, dtype=torch.bool,
+                                    device=x.device).tril(-cfg.window)
+            att = att.masked_fill(~mask, -1e30)
+        att = torch.softmax(att, -1).to(cfg.dtype)
+        if drop > 0.0:
+            if seed is None:
+                raise ValueError("dropout in training needs a generator")
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+            keep = torch.rand(att.shape, generator=gen,
+                              device=x.device) >= drop
+            att = torch.where(keep, att / (1.0 - drop), 0.0).to(cfg.dtype)
+        out = torch.einsum("bhqk,bhkd->bhqd", att.float(), v.float())
+        out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, D)
+    out = _body_dot(out, blk["proj"], cfg)
+    return _badd(out, blk, "proj_b", cfg)
+
+
+def _block(x, blk, cfg: GPTConfig, train: bool, seed):
+    h1 = _layer_norm(x, blk["ln1"], cfg.norm_eps)
+    x = x + _attention(h1, blk, cfg, train, seed)
+    h2 = _layer_norm(x, blk["ln2"], cfg.norm_eps)
+    return x + _mlp(h2, blk, cfg, _body_dot)
+
+
+def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
+                  generator: torch.Generator | None = None):
+    """tokens (B, S) int -> final hidden states (B, S, D) in the compute
+    dtype. The embedding sum is taken in f32, then cast (as JAX). Layers
+    run as a Python loop (`scan_layers` has no effect); with cfg.remat in
+    training each block is checkpointed (policy "full": only its input is
+    kept). `generator` drives composite dropout."""
+    B, S = tokens.shape
+    x = (params["wte"][tokens.long()] + params["wpe"][:S]).to(cfg.dtype)
+    seeds = [None] * cfg.n_layer
+    if train and cfg.dropout > 0.0 and generator is not None:
+        seeds = torch.randint(0, 2 ** 62, (cfg.n_layer,), generator=generator,
+                              device=generator.device).tolist()
+    for i in range(cfg.n_layer):
+        blk = _layer(params["blocks"], i)
+        if cfg.remat and train:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, x, blk, cfg, train, seeds[i], use_reentrant=False)
+        else:
+            x = _block(x, blk, cfg, train, seeds[i])
+    return _layer_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def forward(params, tokens, cfg: GPTConfig, *, train: bool = False,
+            generator: torch.Generator | None = None):
+    """tokens (B, S) -> logits (B, S, V) in f32 (`_lm_head`)."""
+    x = hidden_states(params, tokens, cfg, train=train, generator=generator)
+    return _lm_head(x, params, cfg)
+
+
+def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
+            generator: torch.Generator | None = None):
+    """Mean token cross-entropy: the tied LM head (a compute-dtype GEMM
+    with an f32 result, or a compute-dtype result with
+    logits_dtype="compute"), then logsumexp minus the gathered target logit
+    on f32 logits."""
+    x = hidden_states(params, tokens, cfg, train=train, generator=generator)
+    if cfg.logits_dtype == "compute":
+        logits = torch.matmul(x, _head_w(params, cfg).to(cfg.dtype).T)
+    else:
+        logits = _lm_head(x, params, cfg)
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, -1)
+    tgt = logits32.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def opt_init(params, cfg: GPTConfig):
+    """Adam state for `params`, honouring cfg.opt_state_dtype."""
+    dt = torch.bfloat16 if cfg.opt_state_dtype == "bf16" else None
+    return adam_init(params, state_dtype=dt)
+
+
+def opt_state_from_jax(state, device="cpu"):
+    """A JAX Adam state ({"m", "v", "step"}; numpy or JAX arrays) -> the
+    port's: m and v trees with bf16 leaves kept bf16, step a 0-d f32
+    tensor. A JAX run can then be resumed with `make_train_step`."""
+    dev = resolve(device)
+    return {"m": params_from_jax(state["m"], dev),
+            "v": params_from_jax(state["v"], dev),
+            "step": torch.tensor(float(np.asarray(state["step"])),
+                                 dtype=torch.float32, device=dev)}
+
+
+def make_train_step(cfg: GPTConfig, grad_clip: float = 0.0,
+                    accum_steps: int = 1):
+    """One training step: forward, backward (optional global-norm clipping
+    and `accum_steps`-way accumulation over microbatches) and Adam.
+
+    Returns step(params, opt_state, tokens, targets, lr, generator) ->
+    (params, opt_state, loss). The params and the Adam moments are updated
+    IN PLACE (JAX donates both trees), so no second copy of either is held;
+    the returned trees are the ones passed in. Accumulation runs the
+    microbatches in a Python loop, sums their grads and divides by
+    `accum_steps`."""
+
+    def loss_grads(params, tokens, targets, generator):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        tree = tree_unflatten(params, leaves)
+        loss = loss_fn(tree, tokens, targets, cfg, train=True,
+                       generator=generator)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), list(grads)
+
+    def step(params, opt_state, tokens, targets, lr, generator=None):
+        if accum_steps > 1:
+            B = tokens.shape[0]
+            if B % accum_steps:
+                raise ValueError(
+                    f"accum_steps ({accum_steps}) must divide batch ({B})")
+            loss, grads = 0.0, None
+            for mt, mg in zip(tokens.chunk(accum_steps),
+                              targets.chunk(accum_steps)):
+                l, g = loss_grads(params, mt, mg, generator)
+                loss = loss + l
+                grads = g if grads is None else [a + b for a, b in
+                                                 zip(grads, g)]
+            loss = loss / accum_steps
+            grads = [g / accum_steps for g in grads]
+        else:
+            loss, grads = loss_grads(params, tokens, targets, generator)
+        grads = tree_unflatten(params, grads)
+        if grad_clip > 0.0:
+            grads, _ = clip_by_global_norm(grads, grad_clip)
+        params, opt_state = adam_update(params, grads, opt_state, lr)
+        return params, opt_state, loss
+
+    return step
+
+
+def flops_per_token(cfg: GPTConfig, seq: int) -> float:
+    """Training FLOPs/token (fwd+bwd ~ 3x fwd; causal attention counted at
+    S/2 average keys, the PaLM convention), as the JAX package counts."""
+    p_block = 3 * cfg.d_model**2 + cfg.d_model**2 + 2 * cfg.d_model * cfg.d_ff
+    p_matmul = cfg.n_layer * p_block + cfg.vocab_size * cfg.d_model
+    attn = cfg.n_layer * 2 * seq * cfg.d_model
+    return 3.0 * (2.0 * p_matmul + 2.0 * attn)

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ._tree import tree_map
 from .device import resolve
 from .models import transformer as T
 
@@ -94,7 +95,7 @@ class ContinuousBatcher:
         self.cfg = cfg
         self.device = resolve(device)
         # cast ONCE: the step is called per token
-        self.params = T._tree_map(
+        self.params = tree_map(
             lambda t: t.to(self.device),
             T.prepare_decode_params(params, cfg))
         self.n_slots = n_slots

@@ -12,7 +12,8 @@ setup(
     name="neuronika_tpu",
     version="0.5.0",
     packages=["neuronika_tpu", "neuronika_tpu_torch",
-              "neuronika_tpu_torch.models", "neuronika_tpu_torch.ops"],
+              "neuronika_tpu_torch.models", "neuronika_tpu_torch.ops",
+              "neuronika_tpu_torch.optim"],
     # the PyTorch port's CUDA sources, compiled by nvcc at first use
     package_data={"neuronika_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[

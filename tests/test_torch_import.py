@@ -16,9 +16,13 @@ from neuronika_tpu_torch.serving import ContinuousBatcher, PagedBatcher
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
+           "neuronika_tpu_torch._tree",
            "neuronika_tpu_torch.device", "neuronika_tpu_torch.serving",
            "neuronika_tpu_torch.models.transformer",
-           "neuronika_tpu_torch.ops.paged_attention")
+           "neuronika_tpu_torch.ops.paged_attention",
+           "neuronika_tpu_torch.ops.flash_attention",
+           "neuronika_tpu_torch.optim",
+           "neuronika_tpu_torch.optim.functional")
 
 
 def _cfg(**kw):
