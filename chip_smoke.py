@@ -29,10 +29,28 @@ nvidia-smi. Phases, each printing one line or a few:
      with the GPTConfig defaults (split backward, remat, f32 Adam state),
      which launch K2a and K2b once per layer and step;
   7. the kernel route against the plain route (flash="off") in f32 on a
-     small hd-128 model: loss and every gradient leaf, split and fused.
-With --profile, one more step of phase 6 runs under torch.profiler: its
-device time by kernel kind is printed and its kernel table written to
-TABLE_PATH.
+     small hd-128 model: loss and every gradient leaf, split and fused;
+  8. the define-by-run tier's flagship: `build_var_model_batched` at the
+     same width (S 2048, B 16, bf16) with `enable_kernels(True)`, trained
+     by `optim.Adam(1e-4).train_step` on the log-softmax + NLL loss: 1
+     warm-up and 5 timed steps, K1, the fused K2 and K4 counted;
+  9. the Var tier's 2-d model, `build_var_model` (d768, 8 layers, 6 heads,
+     vocab 16384, S 1024, f32), with every `mm` on K3 and every softmax on
+     K4: 1 warm-up and 5 timed steps, launches held exact;
+ 10. the Var tier's kernel route on the card against its plain route on
+     the CPU, f32, small models: loss and every parameter gradient.
+Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
+their plain versions (ragged, transposed views, the 2-d model's forward
+products and the VJP products of its LM head and MLP as the VJPs lay them
+out, the flagship's (32768, 16384) log-softmax) and times them there.
+Every kernel's time is printed beside its plain version's, the one
+PyTorch call that computes the same function (where there is one) and the
+bound: the larger of its bytes over 3.35 TB/s and its FLOPs over the peak
+of its type (989 TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM.
+With --profile, one more step of phase 6 and one of phase 8 run under
+torch.profiler: each one's device time by kernel kind is printed and its
+kernel table written to TABLE_PATH (phase 8's beside it, "_var" added to
+the name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -42,7 +60,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -55,6 +75,20 @@ F32_TOL = 1e-5
 # output to bf16 once: they may differ by one bf16 ulp of |o| (2^-6 for
 # |o| < 4) plus f32 summation order
 BF16_TOL = 2e-2
+
+
+# H100 SXM: HBM bytes/s and dense peaks by operand type (NVIDIA's data
+# sheet; f32 is FFMA outside the tensor cores)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    """(least time in ms, "bytes" or "operations"): the larger of the bytes
+    over the memory rate and the FLOPs over the type's peak."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check(ok, msg: str) -> None:
@@ -129,12 +163,15 @@ def phase_kernels(rng, paged_attention, reference):
     BS, KV, hd = 16, 12, 128
     live = sum((p // BS + 1) * BS for p in shape["pos"][:7]) + 64 * BS
     gbytes = live * KV * hd * 2 * 2 / 1e9
+    # bound: those K/V bytes (the q and out rows are 0.05% of them)
+    bound = bound_ms(gbytes * 1e9, 4 * live * KV * hd, torch.bfloat16)
     print(f"phase 3 kernels: paged_attention max_abs_err "
           f"{json.dumps(errs)} (tol f32 {F32_TOL}, bf16 {BF16_TOL}); "
           f"bf16 B8 KV12 G1 hd128 BS16 MB64: kernel {kern_ms:.4f} ms "
           f"({gbytes / kern_ms * 1e3:.0f} GB/s of K/V, warm L2), plain "
-          f"{plain_ms:.4f} ms")
-    return errs["bfloat16/mha/w0"], kern_ms, plain_ms
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); no "
+          f"single PyTorch call computes a paged decode step")
+    return errs["bfloat16/mha/w0"], kern_ms, plain_ms, bound
 
 
 def serve(PagedBatcher, params, cfg, prompts, max_news, **kw):
@@ -281,18 +318,51 @@ def phase_flash_kernels(rng, FA):
     # dv, dk; fused all five. Causal: half of the S x S pairs.
     passes = {"flash_fwd_qkv": 2, "flash_bwd_dq_qkv": 3,
               "flash_bwd_dkv_qkv": 4, "flash_bwd_fused_qkv": 5}
+    lib_fwd, lib_bwd = sdpa_ms(qkv, do, H, hd)
+    # bytes each kernel must move: qkv (and out, lse, do in the backward)
+    # read once, its outputs written once
+    W, D = 3 * H * hd, H * hd
+    el = B * S * 2
+    nbytes = {"flash_fwd_qkv": el * (W + D) + B * H * S * 4,
+              "flash_bwd_dq_qkv": el * (W + 2 * D + D) + B * H * S * 4,
+              "flash_bwd_dkv_qkv": el * (W + 2 * D + 2 * D) + B * H * S * 4,
+              "flash_bwd_fused_qkv": el * (W + 2 * D + W) + B * H * S * 4}
     result, line = {}, []
     for kname, (k_ms, p_ms) in times.items():
-        tflops = 2 * passes[kname] * B * H * S * S * hd / 2 / k_ms / 1e9
-        result[kname] = (errs[kname], k_ms, p_ms)
-        line.append(f"{kname} {k_ms:.3f} ms ({tflops:.1f} TFLOP/s) vs "
-                    f"plain {p_ms:.3f} ms")
+        flops = 2 * passes[kname] * B * H * S * S * hd / 2
+        bound = bound_ms(nbytes[kname], flops, torch.bfloat16)
+        lib = lib_fwd if kname == "flash_fwd_qkv" else lib_bwd
+        result[kname] = (errs[kname], k_ms, p_ms, lib, bound)
+        line.append(f"{kname} {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} "
+                    f"TFLOP/s) vs plain {p_ms:.3f} ms, SDPA {lib:.3f} ms, "
+                    f"bound {bound[0]:.3f} ms")
     torch.cuda.synchronize()
     print("phase 3 kernels: flash attention within bounds (f32 "
           f"{FLASH_F32_TOL}, bf16 {FLASH_BF16_REL} of max); bf16 B16 S2048 "
           f"H12 hd128 causal fast: " + "; ".join(line) + " (the plain "
-          "backward computes all of d_qkv)")
+          "backward and SDPA's backward compute all of d_qkv)")
     return result
+
+
+def sdpa_ms(qkv, do, H, hd):
+    """Times of F.scaled_dot_product_attention (causal) on the strided q,
+    k, v views of the packed MHA qkv, and of its backward to d_qkv (one
+    `torch.autograd.grad` call over the saved graph). Timed only: the port
+    never calls it."""
+    import torch.nn.functional as F
+
+    B, S, _ = qkv.shape
+    x = qkv.detach().requires_grad_()
+    parts = x.view(B, S, H, 3, hd)
+    q, k, v = (parts[:, :, :, i].transpose(1, 2) for i in range(3))
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 5)
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    g = do.view(B, S, H, hd).transpose(1, 2)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, x, g, retain_graph=True),
+                  5)
+    del out
+    return fwd, bwd
 
 
 TRAIN_CFG = dict(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
@@ -329,26 +399,25 @@ def train_steps(T, FA, cfg, n_warm, n_timed, batch, lr, profile=None):
     launches = {k.__name__: k.launches for k in FA.KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if profile:
-        profile_step(step, params, opt, toks, tgts, lr, gen, profile)
+        profile_step(lambda: step(params, opt, toks, tgts, lr, gen),
+                     "one headline step", profile)
     losses = [float(l) for l in losses]
     del params, opt
     torch.cuda.empty_cache()
     return losses, launches, step_s, peak
 
 
-def profile_step(step, params, opt, toks, tgts, lr, gen, path):
-    """One more step under torch.profiler: prints its device time by
-    kernel kind and the device's idle share of the step, and writes the
+def profile_step(run, label, path):
+    """One more step, `run()`, under torch.profiler: prints its device time
+    by kernel kind and the device's idle share of the step, and writes the
     kernel table to `path`."""
-    import os
-
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, opt, toks, tgts, lr, gen)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = {}
@@ -361,6 +430,9 @@ def profile_step(step, params, opt, toks, tgts, lr, gen, path):
         kind = ("K2 fused" if "flash_bwd_kv_kernel" in n or "dq_store" in n
                 else "K2a dq" if "flash_bwd_dq" in n
                 else "K1 fwd" if "flash_fwd" in n
+                else "K3 matmul" if "sgemm_kernel" in n or "hgemm_kernel" in n
+                else "K4 softmax" if "softmax_cached" in n
+                or "softmax_online" in n
                 else "GEMM" if any(g in n for g in ("nvjet", "gemm", "xmma",
                                                     "cutlass"))
                 else "LayerNorm" if "layer_norm" in n or "GammaBeta" in n
@@ -371,7 +443,7 @@ def profile_step(step, params, opt, toks, tgts, lr, gen, path):
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=200))
-    print(f"profile: one headline step, {wall_ms:.1f} ms host time under "
+    print(f"profile: {label}, {wall_ms:.1f} ms host time under "
           f"the profiler, {busy:.1f} ms on the device (idle share "
           f"{1 - busy / wall_ms:.3f}): " + ", ".join(
               f"{k} {v:.1f} ms ({v / busy:.1%})"
@@ -469,19 +541,351 @@ def phase_routes(T, FA):
           + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
 
 
+def bf16_ulp(x_max: float) -> float:
+    """One bf16 ulp at |x| = x_max (8 significand bits)."""
+    return 2.0 ** (np.floor(np.log2(x_max)) - 7)
+
+
+def within(out, ref, key):
+    """Max abs error of a K3/K4 result against its plain version, checked
+    against 1e-5 of the largest |entry| in f32 and one bf16 ulp of it in
+    bf16. Returns (err, bound)."""
+    check(out.dtype == ref.dtype and out.shape == ref.shape,
+          f"{key}: kernel gave {out.dtype} {tuple(out.shape)}")
+    top = float(ref.float().abs().max())
+    tol = F32_TOL * top if ref.dtype == torch.float32 else bf16_ulp(top)
+    err = float((out.float() - ref.float()).abs().max())
+    check(err <= tol, f"{key}: max abs err {err} > {tol}")
+    return err, tol
+
+
+def mm_operands(rng, case, dtype):
+    """A and B of a K3 case, laid out as the path lays them out: "T" views
+    are transposes of row-major storage, as the VJPs and `t()` hand them
+    over; "head" is the 2-d model's LM head x @ wte.t(), "head-dx" and
+    "head-dw" its two VJP products g @ wte and x.T @ g; "mlp" the first
+    MLP product x @ w1, "mlp-dx" its VJP g @ w1.T; "scores" one head's
+    q_h @ k_h.t(), chunk views of the (S, d) projections."""
+    def dev(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to("cuda", dtype)
+
+    name, M, K, N = case
+    if name in ("ragged", "head-dx", "mlp"):
+        return dev(M, K), dev(K, N)
+    if name == "ragged-both-T":
+        return dev(K, M).T, dev(N, K).T
+    if name == "head":
+        return dev(M, K), dev(N, K).T
+    if name == "head-dw":
+        return dev(K, M).T, dev(K, N)
+    if name == "mlp-dx":
+        return dev(M, K), dev(N, K).T
+    q, k = dev(M, 768), dev(N, 768)          # scores: d 768, hd K
+    return q[:, :K], k[:, :K].T
+
+
+MM_CASES = (("ragged", 1000, 760, 1030), ("ragged-both-T", 1000, 760, 1030),
+            ("head", 1024, 768, 16384), ("scores", 1024, 128, 1024),
+            ("head-dx", 1024, 16384, 768), ("head-dw", 768, 1024, 16384),
+            ("mlp", 1024, 768, 3072), ("mlp-dx", 1024, 3072, 768))
+SM_CASES = ((64, 1000), (64, 16384), (4, 20000))
+
+
+def phase_mm_softmax(MM, SM):
+    """Phase 3, K3 and K4: each against its plain version on the card at
+    the cases above and at the paths' shapes, then timed there (kernel,
+    plain, plain, kernel), with the one PyTorch call that computes the
+    same function. Returns {kernel: (max_abs_err, ms, plain_ms,
+    library_ms, (bound_ms, bound_by))} at the JSON line's shapes: the 2-d
+    model's f32 LM head for K3, the flagship's (32768, 16384) f32
+    log-softmax for K4."""
+    rng = np.random.default_rng(3)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in MM_CASES:
+            a, b = mm_operands(rng, case, dtype)
+            key = f"matmul {str(dtype)[6:]}/{case[0]}"
+            errs[key] = within(MM.matmul(a, b), MM.matmul_reference(a, b),
+                               key)[0]
+        for rows, cols in SM_CASES:
+            x = torch.from_numpy(3 * rng.standard_normal(
+                (rows, cols), dtype=np.float32)).to("cuda", dtype)
+            for log in (False, True):
+                key = f"softmax {str(dtype)[6:]}/{rows}x{cols}/log={log}"
+                errs[key] = within(
+                    SM.softmax_last_axis(x, log=log),
+                    SM.softmax_last_axis_reference(x, log=log), key)[0]
+    torch.cuda.synchronize()
+    print("phase 3 kernels: matmul and softmax within bounds (1e-5 of "
+          "max |entry| in f32, one bf16 ulp of it in bf16): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+    result, line = {}, []
+    # K3 at the 2-d model's LM head (f32, B = wte.t()), and its scores
+    for case, dtype in ((MM_CASES[2], torch.float32),
+                        (MM_CASES[3], torch.float32),
+                        (MM_CASES[2], torch.bfloat16)):
+        a, b = mm_operands(rng, case, dtype)
+        err, _ = within(MM.matmul(a, b), MM.matmul_reference(a, b),
+                        f"matmul {case[0]}")
+        _, M, K, N = case
+        pa = cuda_ms(lambda: MM.matmul_reference(a, b), 10)
+        ka = cuda_ms(lambda: MM.matmul(a, b), 10)
+        kb = cuda_ms(lambda: MM.matmul(a, b), 10)
+        pb = cuda_ms(lambda: MM.matmul_reference(a, b), 10)
+        lib = cuda_ms(lambda: torch.mm(a, b), 10)
+        k_ms, p_ms = min(ka, kb), min(pa, pb)
+        item = a.element_size()
+        bound = bound_ms((M * K + K * N + M * N) * item, 2 * M * K * N, dtype)
+        line.append(f"{str(dtype)[6:]} {case[0]} ({M}, {K}) @ ({K}, {N}): "
+                    f"kernel {k_ms:.4f} ms "
+                    f"({2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s), plain "
+                    f"{p_ms:.4f} ms, torch.mm {lib:.4f} ms, bound "
+                    f"{bound[0]:.4f} ms ({bound[1]})")
+        if "matmul" not in result:
+            result["matmul"] = (err, k_ms, p_ms, lib, bound)
+        del a, b
+    # K4 at the flagship's loss head, then the 2-d model's two shapes
+    for rows, cols, log in ((32768, 16384, True), (1024, 16384, True),
+                            (1024, 1024, False)):
+        x = torch.from_numpy(3 * rng.standard_normal(
+            (rows, cols), dtype=np.float32)).to("cuda")
+        err, _ = within(SM.softmax_last_axis(x, log=log),
+                        SM.softmax_last_axis_reference(x, log=log),
+                        f"softmax {rows}x{cols}")
+        torch.cuda.empty_cache()
+        lib_fn = torch.log_softmax if log else torch.softmax
+        iters = 5 if rows > 10000 else 50
+        pa = cuda_ms(lambda: SM.softmax_last_axis_reference(x, log=log),
+                     iters)
+        ka = cuda_ms(lambda: SM.softmax_last_axis(x, log=log), iters)
+        kb = cuda_ms(lambda: SM.softmax_last_axis(x, log=log), iters)
+        pb = cuda_ms(lambda: SM.softmax_last_axis_reference(x, log=log),
+                     iters)
+        lib = cuda_ms(lambda: lib_fn(x, -1), iters)
+        k_ms, p_ms = min(ka, kb), min(pa, pb)
+        # one read and one write of f32; about 5 f32 operations an element
+        bound = bound_ms(2 * rows * cols * 4, 5 * rows * cols, torch.float32)
+        line.append(f"f32 {'log_softmax' if log else 'softmax'} ({rows}, "
+                    f"{cols}): kernel {k_ms:.4f} ms "
+                    f"({2 * rows * cols * 4 / k_ms / 1e6:.0f} GB/s), plain "
+                    f"{p_ms:.4f} ms, torch {lib:.4f} ms, bound "
+                    f"{bound[0]:.4f} ms ({bound[1]})")
+        if "softmax" not in result:
+            result["softmax"] = (err, k_ms, p_ms, lib, bound)
+        del x
+        torch.cuda.empty_cache()
+    print("phase 3 kernels, times: " + "; ".join(line))
+    return result
+
+
+# the bench's two Var-tier configurations (bench.py:165-189, :228-244)
+VAR_FLAGSHIP = dict(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
+                    d_ff=6144, max_seq=2048)
+VAR_LEGACY = dict(vocab_size=16384, n_layer=8, n_head=6, d_model=768,
+                  d_ff=3072, max_seq=1024)
+
+
+# the kernels a Var path may launch, in the order launch lists use
+VAR_KERNELS = ("flash_fwd_qkv", "flash_bwd_fused_qkv", "matmul", "softmax")
+
+
+def var_kernels(FA, MM, SM):
+    return (FA.flash_fwd_qkv, FA.flash_bwd_fused_qkv, MM.matmul,
+            SM.softmax_last_axis)
+
+
+def var_train(optim, params, loss, n_timed, kernels, want, phase):
+    """Adam(1e-4) on `params`: 1 warm-up and `n_timed` fused steps on
+    `loss`, the timed ones queued without a sync (block=False) and ended by
+    one; checks that the loss is finite and falls and that the timed steps
+    launched `want` (a list over `kernels`). Returns the optimizer, the
+    losses, the step time in s, the peak memory in GiB, the tape's op
+    count and the launches read from the kernels' counts."""
+    from neuronika_tpu_torch._engine.executor import _plan
+
+    opt = optim.Adam(1e-4)
+    opt.register_all(params)
+    n_ops = len(_plan(loss.node)[0])
+    losses = [opt.train_step(loss)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    vals = []
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        opt.train_step(loss, block=False)
+        vals.append(loss.data())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    launches = [k.launches for k in kernels]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses += [float(v) for v in vals]
+    check(all(np.isfinite(losses)), f"{phase}: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
+    check(launches == want, f"{phase}: launches {launches}, want {want} "
+                            f"({', '.join(VAR_KERNELS)})")
+    return opt, losses, step_s, peak, n_ops, launches
+
+
+def phase_var_flagship(nk, T, optim, FA, MM, SM, profile=None):
+    """Phase 8: `build_var_model_batched` at d1536 L8 H12 V16384 S2048 B16
+    bf16 with the kernels on; Adam(1e-4) fused steps on the bench's loss.
+    Per step: K1 twice a layer (forward, and again in the flash VJP for its
+    lse), the fused K2 once a layer, K4 once (the loss head), no K3."""
+    B, S, n = 16, 2048, 5
+    cfg = T.GPTConfig(dtype=torch.bfloat16, dropout=0.0, flash_block=512,
+                      **VAR_FLAGSHIP)
+    nk.enable_kernels(True)
+    np.random.seed(0)
+    params, fwd = T.build_var_model_batched(cfg, batch=B, seq=S,
+                                            device="cuda")
+    V, L = cfg.vocab_size, cfg.n_layer
+    ids = np.random.randint(0, V, (B, S)).astype("float32")
+    tgt = np.roll(ids, -1, axis=1).reshape(-1)
+    loss = fwd(nk.from_ndarray(ids, device="cuda")).reshape(
+        (B * S, V)).log_softmax(1).t().nll(
+        nk.from_ndarray(tgt, device="cuda"), nk.Reduction.Mean)
+    want = [2 * L * n, L * n, 0, n]
+    opt, losses, step_s, peak, n_ops, launches = var_train(
+        optim, params, loss, n, var_kernels(FA, MM, SM), want, "phase 8")
+    tok_s = B * S / step_s
+    mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
+    print(f"phase 8 Var flagship: build_var_model_batched d1536 L8 H12 "
+          f"V16384 S2048 B16 bf16, Adam(1e-4) train_step, kernels on: step "
+          f"{step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f} (of "
+          f"989 TFLOP/s), peak {peak:.2f} GiB, {n_ops} tape ops; losses "
+          f"{[round(l, 4) for l in losses]}; launches in {n} steps: K1 "
+          f"{launches[0]}, fused K2 {launches[1]}, K3 {launches[2]}, K4 "
+          f"{launches[3]}")
+    if profile:
+        root, ext = os.path.splitext(profile)
+        profile_step(lambda: opt.train_step(loss), "one Var flagship step",
+                     f"{root}_var{ext}")
+    del params, fwd, opt, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    nk.enable_kernels(False)
+    return dict(zip(VAR_KERNELS, launches))
+
+
+def legacy_counts(cfg):
+    """K3 and K4 launches of one step of `build_var_model`: per layer the
+    q, k, v, output and three MLP products plus 2 per head (the MLP's
+    first product is recorded twice, as the JAX builder writes it), and
+    the LM head; each `mm` VJP runs two more. K4: one softmax per head and
+    layer, and the loss's log-softmax."""
+    fwd = cfg.n_layer * (7 + 2 * cfg.n_head) + 1
+    return 3 * fwd, cfg.n_layer * cfg.n_head + 1
+
+
+def phase_var_legacy(nk, T, optim, FA, MM, SM):
+    """Phase 9: `build_var_model` at d768 L8 H6 V16384 S1024 f32 with the
+    kernels on: every `mm` on K3, every softmax on K4."""
+    S, n = 1024, 5
+    cfg = T.GPTConfig(dtype=torch.float32, **VAR_LEGACY)
+    nk.enable_kernels(True)
+    np.random.seed(0)
+    params, fwd = T.build_var_model(cfg, batch=1, seq=S, device="cuda")
+    ids = np.random.randint(0, cfg.vocab_size, (S,)).astype("float32")
+    loss = fwd(nk.from_ndarray(ids, device="cuda")).log_softmax(1).t().nll(
+        nk.from_ndarray(np.roll(ids, -1), device="cuda"), nk.Reduction.Mean)
+    k3, k4 = legacy_counts(cfg)
+    want = [0, 0, k3 * n, k4 * n]
+    opt, losses, step_s, peak, n_ops, launches = var_train(
+        optim, params, loss, n, var_kernels(FA, MM, SM), want, "phase 9")
+    tok_s = S / step_s
+    flops = T.flops_per_token(cfg, S) * tok_s
+    print(f"phase 9 Var 2-d model: build_var_model d768 L8 H6 V16384 S1024 "
+          f"f32, Adam(1e-4) train_step, kernels on: step "
+          f"{step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU "
+          f"{flops / 989e12:.4f} (of 989 TFLOP/s; {flops / 67e12:.4f} of the "
+          f"67 TFLOP/s f32 peak), peak {peak:.2f} GiB, {n_ops} tape ops; "
+          f"losses {[round(l, 4) for l in losses]}; launches in {n} steps:"
+          f" K3 {launches[2]} ({k3 // 3} forward and {2 * k3 // 3} in VJPs a"
+          f" step), K4 {launches[3]}")
+    del params, fwd, opt, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    nk.enable_kernels(False)
+    return dict(zip(VAR_KERNELS, launches))
+
+
+# phase 10: small models of both kinds, hd 128 so the flash op takes K1/K2
+VAR_ROUTE_CFG = dict(vocab_size=512, n_layer=2, n_head=2, d_model=256,
+                     d_ff=1024, max_seq=256)
+
+
+def phase_var_routes(nk, T, FA, MM, SM):
+    """Phase 10: the Var tier's kernel route (on the card, kernels on: K1,
+    the fused K2, K3 and K4) against its plain route (the same graph on
+    the CPU, every op plain), f32, for a small `build_var_model_batched`
+    (d256 H2 hd128 L2 S256 B2) and a small `build_var_model` (d256 H2 L2
+    S256): the loss and every parameter gradient, within phase 7's bounds
+    (two exact routes that differ in summation order only)."""
+    cfg = T.GPTConfig(dtype=torch.float32, dropout=0.0, **VAR_ROUTE_CFG)
+    B, S, V, L = 2, 256, cfg.vocab_size, cfg.n_layer
+    kernels = var_kernels(FA, MM, SM)
+    k3, k4 = legacy_counts(cfg)
+    rng = np.random.default_rng(4)
+    errs = {}
+    for name, build, batch, shape, want in (
+            ("batched", T.build_var_model_batched, B, (B, S),
+             [2 * L, L, 0, 1]),
+            ("2-d", T.build_var_model, 1, (S,), [0, 0, k3, k4])):
+        ids = rng.integers(0, V, size=shape).astype(np.float32)
+        tgt = np.roll(ids, -1, axis=-1).reshape(-1)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            nk.enable_kernels(dev == "cuda")
+            np.random.seed(1)
+            params, fwd = build(cfg, batch=batch, seq=S, device=dev)
+            logits = fwd(nk.from_ndarray(ids, device=dev))
+            loss = logits.reshape((-1, V)).log_softmax(1).t().nll(
+                nk.from_ndarray(tgt, device=dev), nk.Reduction.Mean)
+            before = [k.launches for k in kernels]
+            loss.forward()
+            loss.backward(1.0)
+            torch.cuda.synchronize()
+            used = [k.launches - b for k, b in zip(kernels, before)]
+            res[dev] = (loss.item(), [p.grad().cpu() for p in params], used)
+        nk.enable_kernels(False)
+        check(res["cuda"][2] == want, f"phase 10 {name}: launches "
+                                      f"{res['cuda'][2]}, want {want}")
+        d_loss = abs(res["cuda"][0] - res["cpu"][0])
+        d_grad = max(float((a - b).abs().max())
+                     for a, b in zip(res["cuda"][1], res["cpu"][1]))
+        errs[name] = (res["cpu"][0], d_loss, d_grad)
+        check(d_loss <= ROUTE_LOSS_TOL,
+              f"phase 10 {name}: loss {res['cuda'][0]} vs {res['cpu'][0]}")
+        check(d_grad <= ROUTE_GRAD_TOL, f"phase 10 {name}: grad err "
+                                        f"{d_grad}")
+    print("phase 10 Var kernel route (card) vs plain route (CPU): f32 d256 "
+          "H2 hd128 L2 S256; loss, |d loss|, max |d grad|: "
+          + ", ".join(f"{k} {a:.6f}, {b:.3g}, {c:.3g}"
+                      for k, (a, b, c) in errs.items())
+          + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
                         help="profile one more headline train step and "
-                             "write its kernel table here")
+                             "one more Var flagship step and write their "
+                             "kernel tables here (and *_var)")
     profile = parser.parse_args().profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
               "CUDA GPU", file=sys.stderr)
         return 1
-    from neuronika_tpu_torch import _build
+    import neuronika_tpu_torch as nk
+    from neuronika_tpu_torch import _build, optim
     from neuronika_tpu_torch.models import transformer as T
     from neuronika_tpu_torch.ops import flash_attention as FA
+    from neuronika_tpu_torch.ops import matmul as MM
+    from neuronika_tpu_torch.ops import softmax as SM
     from neuronika_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference)
     from neuronika_tpu_torch.serving import PagedBatcher
@@ -508,9 +912,10 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
-    err, kern_ms, plain_ms = phase_kernels(rng, paged_attention,
-                                           paged_attention_reference)
+    err, kern_ms, plain_ms, paged_bound = phase_kernels(
+        rng, paged_attention, paged_attention_reference)
     flash = phase_flash_kernels(rng, FA)
+    mm_sm = phase_mm_softmax(MM, SM)
 
     # 4. serving end to end at full width
     cfg = T.GPTConfig(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
@@ -566,6 +971,11 @@ def main() -> int:
     head, split = phase_train(T, FA, profile)
     phase_routes(T, FA)
 
+    # 8-10. the define-by-run tier
+    flag = phase_var_flagship(nk, T, optim, FA, MM, SM, profile)
+    legacy = phase_var_legacy(nk, T, optim, FA, MM, SM)
+    phase_var_routes(nk, T, FA, MM, SM)
+
     src = "neuronika_tpu_torch/csrc/flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
     kernels = [{
@@ -573,17 +983,32 @@ def main() -> int:
         "source": "neuronika_tpu_torch/csrc/paged_attention.cu",
         "replaces": "neuronika_tpu/ops/pallas/paged_attention.py:44",
         "launches": launches, "max_abs_err": err, "ms": kern_ms,
-        "plain_ms": plain_ms}]
+        "plain_ms": plain_ms, "bound_ms": paged_bound[0],
+        "bound_by": paged_bound[1], "library_ms": None}]
     # K2c (:1109) and K2d (:1194) are one CUDA kernel; it names the first
     for name, line, counts in (("flash_fwd_qkv", 639, head),
                                ("flash_bwd_dq_qkv", 708, split),
                                ("flash_bwd_dkv_qkv", 755, split),
                                ("flash_bwd_fused_qkv", 1109, head)):
-        e, ms, p_ms = flash[name]
+        e, ms, p_ms, lib, bound = flash[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{at}{line}",
                         "launches": counts[name], "max_abs_err": e,
-                        "ms": ms, "plain_ms": p_ms})
+                        "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1], "library_ms": lib})
+    # K3 runs on the 2-d model's path, K4 on both Var paths (phases 8, 9)
+    for name, source, replaces in (
+            ("matmul", "neuronika_tpu_torch/csrc/matmul.cu",
+             "neuronika_tpu/ops/pallas/matmul.py:30"),
+            ("softmax", "neuronika_tpu_torch/csrc/softmax.cu",
+             "neuronika_tpu/ops/pallas/softmax.py:19")):
+        e, ms, p_ms, lib, bound = mm_sm[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": flag[name] + legacy[name],
+                        "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": lib})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -113,4 +113,13 @@ def load_library() -> ctypes.CDLL:
                    i, i, i, i, i,                # dq_acc dqkv; B S H KV hd
                    f, i, p]                      # scale causal, stream
     fn.restype = i
+    ll = ctypes.c_longlong
+    fn = lib.nk_matmul
+    fn.argtypes = [i, p, p, p,                   # dtype, a, b, c
+                   i, i, i,                      # M N K
+                   ll, ll, ll, ll, p]            # sam sak sbk sbn, stream
+    fn.restype = i
+    fn = lib.nk_softmax
+    fn.argtypes = [i, p, p, i, i, i, p]          # dtype, x, y, rows, cols,
+    fn.restype = i                               # log, stream
     return lib

@@ -790,3 +790,178 @@ def flops_per_token(cfg: GPTConfig, seq: int) -> float:
     p_matmul = cfg.n_layer * p_block + cfg.vocab_size * cfg.d_model
     attn = cfg.n_layer * 2 * seq * cfg.d_model
     return 3.0 * (2.0 * p_matmul + 2.0 * attn)
+
+
+# --------------------------------------------------------------------------
+# the define-by-run tier's GPTs (`build_var_model_batched`, `build_var_model`)
+#
+# Weights are drawn from `np.random` in the JAX builders' order and with
+# their casts, so one `np.random.seed` gives both packages the same
+# weights; `device=None` means `config.device`.
+
+
+def build_var_model_batched(cfg: GPTConfig, batch: int, seq: int,
+                            dropout_status=None, device=None):
+    """Batched GPT block stack on the Var ops: a fused qkv `matmul`, the
+    `flash_attention` Var op (on the card the K1 forward and fused K2
+    backward kernels), primitive-op LayerNorm and SiLU MLP, parameters in
+    ``cfg.dtype`` and an f32 loss head via `astype`. Returns (params,
+    forward_fn), forward_fn mapping float ids (B, S) to f32 logits
+    (B, S, V)."""
+    import neuronika_tpu_torch as nk
+
+    d, H, L = cfg.d_model, cfg.n_head, cfg.n_layer
+    scale = 0.02
+    dt = cfg.dtype
+
+    def p(shape):
+        return nk.from_ndarray(
+            scale * np.random.randn(*shape).astype("float32"), dtype=dt,
+            device=device).requires_grad()
+
+    def ones(n):
+        return nk.ones(n, dt, device).requires_grad()
+
+    def zeros(n):
+        return nk.zeros(n, dt, device).requires_grad()
+
+    wte = p((cfg.vocab_size, d))
+    wpe = p((seq, d))
+    blocks = []
+    for _ in range(L):
+        blocks.append({
+            "g1": ones(d), "b1": zeros(d), "g2": ones(d), "b2": zeros(d),
+            # packed group-major qkv (MHA: groups of [q_h | k_h | v_h])
+            "wqkv": p((d, 3 * d)), "wo": p((d, d)),
+            "w1": p((d, cfg.d_ff)), "b1m": zeros(cfg.d_ff),
+            "w2": p((cfg.d_ff, d)), "b2m": zeros(d),
+        })
+    gf, bf = ones(d), zeros(d)
+    params = [wte, wpe, gf, bf]
+    for blk in blocks:
+        params.extend(blk.values())
+
+    def layer_norm(x, gamma, beta):
+        mu = x.mean(2)
+        centered = x - mu
+        var = (centered * centered).mean(2)
+        return centered / (var + 1e-5).sqrt() * gamma + beta
+
+    def attention(x, blk):
+        qkv = x.matmul(blk["wqkv"])
+        ctx = qkv.flash_attention(
+            H, causal=True, dropout=cfg.dropout,
+            status=dropout_status if cfg.dropout > 0.0 else None,
+            block=cfg.flash_block)
+        return ctx.matmul(blk["wo"])
+
+    def mlp(x, blk):
+        h = x.matmul(blk["w1"]) + blk["b1m"]
+        h = h.sigmoid() * h  # SiLU from primitive ops
+        return h.matmul(blk["w2"]) + blk["b2m"]
+
+    def fwd(ids):
+        x = wte.embed(ids) + wpe
+        for blk in blocks:
+            x = x + attention(layer_norm(x, blk["g1"], blk["b1"]), blk)
+            x = x + mlp(layer_norm(x, blk["g2"], blk["b2"]), blk)
+        x = layer_norm(x, gf, bf)
+        return x.matmul(wte.t()).astype("float32")
+
+    return params, fwd
+
+
+def build_var_model(cfg: GPTConfig, batch: int, seq: int, device=None):
+    """The GPT-2 block stack from the reference's 2-d primitive ops (`mm`,
+    `softmax`, `chunks`, `cat`, elementwise), one (S, .) sequence per graph,
+    heads chunked along the feature axis, causality by an additive mask, in
+    f32. With kernels on, every `mm` runs K3 and every softmax K4. Returns
+    (params, forward_fn), forward_fn mapping float ids (S,) to logits
+    (S, V)."""
+    import neuronika_tpu_torch as nk
+
+    d, H, L = cfg.d_model, cfg.n_head, cfg.n_layer
+    hd = d // H
+    scale = 0.02
+
+    def p(shape):
+        return nk.from_ndarray(scale * _np_randn(shape),
+                               device=device).requires_grad()
+
+    def ones(n):
+        return nk.ones(n, device=device).requires_grad()
+
+    def zeros(n):
+        return nk.zeros(n, device=device).requires_grad()
+
+    wte = p((cfg.vocab_size, d))
+    wpe = p((seq, d))
+    blocks = []
+    for _ in range(L):
+        blocks.append({
+            "g1": ones(d), "b1": zeros(d), "g2": ones(d), "b2": zeros(d),
+            "wq": p((d, d)), "wk": p((d, d)), "wv": p((d, d)), "wo": p((d, d)),
+            "w1": p((d, cfg.d_ff)), "b1m": zeros(cfg.d_ff),
+            "w2": p((cfg.d_ff, d)), "b2m": zeros(d),
+        })
+    gf, bf = ones(d), zeros(d)
+    params = [wte, wpe, gf, bf]
+    for blk in blocks:
+        params.extend(blk.values())
+
+    # causal additive mask (S, S): 0 on and below the diagonal, -1e9 above
+    mask = nk.from_ndarray(np.where(np.tril(np.ones((seq, seq))) > 0, 0.0,
+                                    -1e9).astype(np.float32), device=device)
+
+    def layer_norm(x, gamma, beta):
+        mu = x.mean(1)
+        centered = x - mu
+        var = (centered * centered).mean(1)
+        return centered / (var + 1e-5).sqrt() * gamma + beta
+
+    def attention(x, blk):
+        q, k, v = x.mm(blk["wq"]), x.mm(blk["wk"]), x.mm(blk["wv"])
+        qs, ks, vs = (t.chunks((seq, hd)) for t in (q, k, v))
+        heads = []
+        for h in range(H):
+            att = qs[h].mm(ks[h].t()) * (1.0 / math.sqrt(hd)) + mask
+            heads.append(att.softmax(1).mm(vs[h]))
+        ctx = heads[0].cat(heads[1:], 1) if H > 1 else heads[0]
+        return ctx.mm(blk["wo"])
+
+    def mlp(x, blk):
+        h = ((x.mm(blk["w1"]) + blk["b1m"]).sigmoid()
+             * (x.mm(blk["w1"]) + blk["b1m"]))
+        return h.mm(blk["w2"]) + blk["b2m"]
+
+    def fwd(ids):
+        x = wte.embed(ids) + wpe
+        for blk in blocks:
+            x = x + attention(layer_norm(x, blk["g1"], blk["b1"]), blk)
+            x = x + mlp(layer_norm(x, blk["g2"], blk["b2"]), blk)
+        x = layer_norm(x, gf, bf)
+        return x.mm(wte.t())
+
+    return params, fwd
+
+
+def _np_randn(shape):
+    return np.random.randn(*shape).astype(np.float32)
+
+
+def load_var_params(params, arrays) -> None:
+    """Assign numpy arrays (e.g. `[np.asarray(p.data()) for p in
+    jax_params]`, bfloat16 included) to a Var builder's parameters, in
+    order, checking each shape and dtype."""
+    from ..ops.functional import dtype_name
+
+    if len(params) != len(arrays):
+        raise ValueError(f"{len(arrays)} arrays for {len(params)} params")
+    for i, (p, a) in enumerate(zip(params, arrays)):
+        a = np.asarray(a)
+        if a.shape != p.shape:
+            raise ValueError(f"param {i}: shape {a.shape}, want {p.shape}")
+        if a.dtype.name != dtype_name(p.dtype):
+            raise TypeError(f"param {i}: dtype {a.dtype.name}, want "
+                            f"{dtype_name(p.dtype)}")
+        p.assign(a)

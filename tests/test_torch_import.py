@@ -22,7 +22,13 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch.ops.paged_attention",
            "neuronika_tpu_torch.ops.flash_attention",
            "neuronika_tpu_torch.optim",
-           "neuronika_tpu_torch.optim.functional")
+           "neuronika_tpu_torch.optim.functional",
+           "neuronika_tpu_torch.config", "neuronika_tpu_torch.variable",
+           "neuronika_tpu_torch._engine.node",
+           "neuronika_tpu_torch._engine.executor",
+           "neuronika_tpu_torch.ops.functional",
+           "neuronika_tpu_torch.ops.matmul",
+           "neuronika_tpu_torch.ops.softmax")
 
 
 def _cfg(**kw):
@@ -43,14 +49,30 @@ def _batcher(params, **kw):
 
 
 def test_import_pulls_in_neither_jax_nor_triton():
+    """Nor does it build: no kernel library is loaded by an import."""
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in ('jax', 'triton') if m in sys.modules]\n"
-            "if bad: raise SystemExit(f'imported {bad}')\n")
+            "if bad: raise SystemExit(f'imported {bad}')\n"
+            "from neuronika_tpu_torch import _build\n"
+            "if _build.load_library.cache_info().currsize:\n"
+            "    raise SystemExit('an import loaded the kernels')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("name", [
+    "Var", "VarDiff", "Reduction", "StatusCell", "seed", "enable_kernels",
+    "from_ndarray", "zeros", "ones", "full", "rand", "eye", "linspace",
+    "logspace", "geomspace", "range", "cat", "stack", "Zero", "Constant",
+    "Reflective", "Replicative", "Param", "Learnable", "to_device",
+    "device_of"])
+def test_package_exposes_the_define_by_run_surface(name):
+    import neuronika_tpu_torch as nk
+
+    assert name in nk.__all__ and getattr(nk, name) is not None
 
 
 @pytest.mark.parametrize("kw", [dict(quant="int8"), dict(quant="int4"),
