@@ -38,19 +38,39 @@ nvidia-smi. Phases, each printing one line or a few:
      vocab 16384, S 1024, f32), with every `mm` on K3 and every softmax on
      K4: 1 warm-up and 5 timed steps, launches held exact;
  10. the Var tier's kernel route on the card against its plain route on
-     the CPU, f32, small models: loss and every parameter gradient.
+     the CPU, f32, small models: loss and every parameter gradient;
+ 11. the train step of Mistral 7B at its published widths (d4096, 32 heads
+     over 8 kv heads, hd 128, d_ff 14336, vocab 32000, window 4096; Jiang
+     et al. 2023, Table 1) cut from 32 to 4 layers, S 8192, batch 2, bf16,
+     the GPTConfig defaults (remat "full", f32 Adam), random weights from a
+     seed: 2 warm-up and 5 timed steps with a finite, falling loss and
+     exactly 2 L launches of K5 (remat re-runs it), L of K6 and L of K7 a
+     step;
+ 12. the split kernel route against the plain route (flash="off") in f32
+     on small llama and Mistral models (hd 128, GQA, window < S): loss and
+     every gradient leaf.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
-out, the flagship's (32768, 16384) log-softmax) and times them there.
+out, the flagship's (32768, 16384) log-softmax) and times them there; and
+the split-layout flash kernels (K5 forward, K6 dq, K7 dk/dv) against
+their plain versions over f32 and bf16, causal, windows 1, 6, 100 and
+>= S, full attention with Sq != Skv, hd 64 and 128 and a ragged S, then
+at B1 H8 S8192 hd128 window 4096 bf16, where each is timed beside its
+plain version and SDPA (with the band as a boolean mask), and at phase
+11's shape (B2 H32 S8192), where they are checked (the plain versions
+over 8 heads at a time), three planted faults are read against the same
+bound and must fail it, and each is timed alone. Their bf16 results are
+also held in norm: ||kernel - plain|| <= 1e-2 ||plain|| + 2^-15
+sqrt(numel).
 Every kernel's time is printed beside its plain version's, the one
 PyTorch call that computes the same function (where there is one) and the
 bound: the larger of its bytes over 3.35 TB/s and its FLOPs over the peak
 of its type (989 TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM.
-With --profile, one more step of phase 6 and one of phase 8 run under
+With --profile, one more step of phases 6, 8 and 11 runs under
 torch.profiler: each one's device time by kernel kind is printed and its
-kernel table written to TABLE_PATH (phase 8's beside it, "_var" added to
-the name).
+kernel table written to TABLE_PATH (phase 8's and 11's beside it, "_var"
+and "_mistral" added to the name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -373,10 +393,13 @@ HEADLINE = dict(remat=False, scan_layers=False, flash_softmax="fast",
                 matmul_out="compute")
 
 
-def train_steps(T, FA, cfg, n_warm, n_timed, batch, lr, profile=None):
+def train_steps(T, FA, cfg, n_warm, n_timed, batch, lr, profile=None,
+                label="one headline step", heldout=None):
     """Run warm-up then timed train steps on fresh params (torch.Generator
-    seed 0). Returns the losses, the launch counts of the timed steps, the
-    step time in s and the peak memory in GiB."""
+    seed 0). Returns the losses, the launch counts of the timed steps (both
+    flash families), the step time in s, the peak memory in GiB and the
+    eval loss of the trained params on the `heldout` batch (None without
+    one)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_params(gen, cfg, "cuda")
     opt = T.opt_init(params, cfg)
@@ -388,7 +411,8 @@ def train_steps(T, FA, cfg, n_warm, n_timed, batch, lr, profile=None):
         losses.append(loss)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in FA.KERNELS:
+    kernels = FA.KERNELS + FA.SPLIT_KERNELS
+    for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
     for _ in range(n_timed):
@@ -396,15 +420,19 @@ def train_steps(T, FA, cfg, n_warm, n_timed, batch, lr, profile=None):
         losses.append(loss)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n_timed
-    launches = {k.__name__: k.launches for k in FA.KERNELS}
+    launches = {k.__name__: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if profile:
-        profile_step(lambda: step(params, opt, toks, tgts, lr, gen),
-                     "one headline step", profile)
+        profile_step(lambda: step(params, opt, toks, tgts, lr, gen), label,
+                     profile)
+    held = None
+    if heldout is not None:
+        with torch.no_grad():
+            held = float(T.loss_fn(params, *heldout, cfg))
     losses = [float(l) for l in losses]
     del params, opt
     torch.cuda.empty_cache()
-    return losses, launches, step_s, peak
+    return losses, launches, step_s, peak, held
 
 
 def profile_step(run, label, path):
@@ -427,7 +455,11 @@ def profile_step(run, label, path):
         n = e.key
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3
-        kind = ("K2 fused" if "flash_bwd_kv_kernel" in n or "dq_store" in n
+        kind = ("K5 fwd" if "split_fwd" in n
+                else "K6 dq" if "split_bwd_dq" in n
+                else "K7 dk/dv" if "split_bwd_dkv" in n
+                else "K2 fused" if "flash_bwd_kv_kernel" in n
+                or "dq_store" in n
                 else "K2a dq" if "flash_bwd_dq" in n
                 else "K1 fwd" if "flash_fwd" in n
                 else "K3 matmul" if "sgemm_kernel" in n or "hgemm_kernel" in n
@@ -461,8 +493,8 @@ def phase_train(T, FA, profile):
     batch = (torch.from_numpy(toks).to("cuda"),
              torch.from_numpy(tgts).to("cuda"))
     cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **HEADLINE)
-    losses, launches, step_s, peak = train_steps(T, FA, cfg, 2, 5, batch,
-                                                 5e-4, profile)
+    losses, launches, step_s, peak, _ = train_steps(T, FA, cfg, 2, 5, batch,
+                                                    5e-4, profile)
     L, n = cfg.n_layer, 5
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -479,8 +511,8 @@ def phase_train(T, FA, profile):
           f"launches {launches}")
     head = launches
     cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG)
-    losses, launches, step_s, peak = train_steps(T, FA, cfg, 1, 2, batch,
-                                                 5e-4)
+    losses, launches, step_s, peak, _ = train_steps(T, FA, cfg, 1, 2, batch,
+                                                    5e-4)
     check(all(np.isfinite(losses)), f"non-finite loss (defaults): {losses}")
     check(launches["flash_bwd_dq_qkv"] == L * 2
           and launches["flash_bwd_dkv_qkv"] == L * 2
@@ -500,43 +532,53 @@ ROUTE_LOSS_TOL = 1e-5
 ROUTE_GRAD_TOL = 2e-5
 
 
-def phase_routes(T, FA):
-    """Phase 7: kernel route vs plain route (flash="off"), f32, hd 128."""
+def route_run(T, params, cfg0, kernels, **kw):
+    """The loss and every gradient leaf of one f32 forward and backward on
+    a fixed B2 S256 batch (numpy seed 1) with cfg0 updated by kw, and the
+    launches of `kernels` it made."""
     from neuronika_tpu_torch._tree import tree_leaves, tree_unflatten
 
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg0.vocab_size,
+                                         size=(2, 256))).to("cuda")
+    cfg = dataclasses.replace(cfg0, **kw)
+    before = [k.launches for k in kernels]
+    leaves = [p.detach().clone().requires_grad_()
+              for p in tree_leaves(params)]
+    loss = T.loss_fn(tree_unflatten(params, leaves), toks, toks.roll(-1, 1),
+                     cfg, train=True)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return (float(loss.detach()), grads,
+            [k.launches - b for k, b in zip(kernels, before)])
+
+
+def route_errs(phase, ref, run):
+    """|d loss| and max |d grad| of `run` against `ref` (route_run
+    results), checked against phase 7's bounds."""
+    e_l = abs(run[0] - ref[0])
+    e_g = max(float((a - b).abs().max()) for a, b in zip(run[1], ref[1]))
+    check(e_l <= ROUTE_LOSS_TOL, f"{phase}: loss {run[0]} vs plain {ref[0]}")
+    check(e_g <= ROUTE_GRAD_TOL, f"{phase}: grad err {e_g}")
+    return e_l, e_g
+
+
+def phase_routes(T, FA):
+    """Phase 7: kernel route vs plain route (flash="off"), f32, hd 128."""
     cfg0 = T.GPTConfig(vocab_size=512, n_layer=2, n_head=2, d_model=256,
                        d_ff=1024, max_seq=256, dtype=torch.float32,
                        remat=False)
     params = T.init_params(torch.Generator(device="cuda").manual_seed(1),
                            cfg0, "cuda")
-    rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, 512, size=(2, 256))).to("cuda")
-    tgts = toks.roll(-1, 1)
-
-    def run(**kw):
-        cfg = dataclasses.replace(cfg0, **kw)
-        leaves = [p.detach().clone().requires_grad_()
-                  for p in tree_leaves(params)]
-        loss = T.loss_fn(tree_unflatten(params, leaves), toks, tgts, cfg,
-                         train=True)
-        return float(loss.detach()), torch.autograd.grad(loss, leaves)
-
-    ref_loss, ref_grads = run(flash="off")
+    ref = route_run(T, params, cfg0, FA.KERNELS, flash="off")
     errs = {}
     for bwd in ("split", "fused"):
-        before = [k.launches for k in FA.KERNELS]
-        loss, grads = run(flash="on", flash_bwd=bwd)
-        torch.cuda.synchronize()
-        used = [k.launches - b for k, b in zip(FA.KERNELS, before)]
-        check(used[0] == cfg0.n_layer, f"phase 7 {bwd}: launches {used}")
-        e_g = max(float((a - b).abs().max())
-                  for a, b in zip(grads, ref_grads))
-        errs[bwd] = (abs(loss - ref_loss), e_g)
-        check(abs(loss - ref_loss) <= ROUTE_LOSS_TOL,
-              f"phase 7 {bwd}: loss {loss} vs plain {ref_loss}")
-        check(e_g <= ROUTE_GRAD_TOL, f"phase 7 {bwd}: grad err {e_g}")
+        run = route_run(T, params, cfg0, FA.KERNELS, flash="on",
+                        flash_bwd=bwd)
+        check(run[2][0] == cfg0.n_layer, f"phase 7 {bwd}: launches {run[2]}")
+        errs[bwd] = route_errs(f"phase 7 {bwd}", ref, run)
     print(f"phase 7 kernel vs plain route: f32 d256 H2 hd128 L2 S256 B2, "
-          f"loss {ref_loss:.6f}; |d loss|, max |d grad| per leaf: "
+          f"loss {ref[0]:.6f}; |d loss|, max |d grad| per leaf: "
           + ", ".join(f"{k} {a:.3g}, {b:.3g}" for k, (a, b) in errs.items())
           + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
 
@@ -869,12 +911,393 @@ def phase_var_routes(nk, T, FA, MM, SM):
           + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
 
 
+# split-layout flash cases (K5-K7): (name, B, H, Sq, Skv, causal, window,
+# hd); windows cut the 64-row tiles anywhere or cover all of S
+SPLIT_CASES = (
+    ("causal-hd128", 2, 4, 512, 512, True, 0, 128),
+    ("window1-hd128", 2, 4, 512, 512, True, 1, 128),
+    ("window6-hd64", 2, 4, 512, 512, True, 6, 64),
+    ("window100-hd128-S1000", 2, 4, 1000, 1000, True, 100, 128),
+    ("window-ge-S-hd64", 2, 4, 512, 512, True, 600, 64),
+    ("full-Sq300-Skv777-hd128", 2, 4, 300, 777, False, 0, 128),
+    ("full-Sq512-Skv256-hd64", 2, 4, 512, 256, False, 0, 64),
+)
+# f32: the same math in another summation order (dq, dk, dv sum up to S
+# products per element: their bound is relative to the largest gradient
+# entry, at least 1)
+SPLIT_F32_TOL = {"out": 1e-5, "grads": 2e-5}
+# bf16: both sides round p and ds to bf16 at the same points but sum in
+# other orders, so a rounding flips by one ulp (2^-8 relative) here and
+# there. Each entry is held as FLASH_BF16_REL, but those bounds sit above
+# a typical entry at long S, so each of out, dq, dk and dv is also held in
+# norm to the values compared: ||a - ref|| <= SPLIT_BF16_REL ||ref|| +
+# SPLIT_BF16_FLOOR sqrt(numel). The floor is for gradients that are f32
+# rounding noise around 0 (window 1: dq = dk = 0, up to ~3e-6 an entry).
+# At B2 H32 S8192 window 4096 an entry of out or dq is ~0.026, and the
+# planted faults that check_split reads there (split_faults) must fail
+# this bound.
+SPLIT_BF16_REL, SPLIT_BF16_FLOOR = 1e-2, 2 ** -15
+# (batch, head) pairs per plain-version call: its (S, S) f32 scores
+SPLIT_HEADS = 8
+LOG2E = 1.4426950408889634
+# FLOPs per in-band (q row, k row) pair: K5 s and p.v; K6 s, dp and ds.k;
+# K7 s, dp, p^T.do and ds^T.q
+SPLIT_FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dq": 6,
+                        "flash_bwd_dkv": 8}
+# hd-wide rows each kernel must move once: q, k, v (and do) read, out (dq;
+# dk and dv) written; besides, f32 lse (and delta) per q row
+SPLIT_ROWS_MOVED = {"flash_fwd": (4, 1), "flash_bwd_dq": (5, 2),
+                    "flash_bwd_dkv": (6, 2)}
+
+
+def band_pairs(S, causal, window):
+    """(q, k) pairs of one (batch, head) in the band, Sq == Skv == S when
+    causal: what the kernels must compute."""
+    if not causal:
+        return S * S
+    w = min(window or S, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def split_bound(name, B, H, S, hd, causal, window):
+    """bound_ms of one split kernel on bf16 (B, H, S, hd) inputs."""
+    rows, f32_rows = SPLIT_ROWS_MOVED[name]
+    nbytes = B * H * S * (rows * hd * 2 + f32_rows * 4)
+    flops = SPLIT_FLOPS_PER_PAIR[name] * hd * B * H * band_pairs(
+        S, causal, window)
+    return bound_ms(nbytes, flops, torch.bfloat16), flops
+
+
+def split_case(g, B, H, Sq, Skv, hd, dtype, strided=True):
+    """q, k, v and do on the card; strided: every other head of a wider
+    tensor, as the model hands over v."""
+    def rand(S):
+        t = torch.randn(B, 2 * H if strided else H, S, hd, generator=g,
+                        device="cuda").to(dtype)
+        return t[:, ::2] if strided else t
+
+    return rand(Sq), rand(Skv), rand(Skv), rand(Sq)
+
+
+def diff_stats(a, ref):
+    """[||a - ref||^2, ||ref||^2, max |a - ref|, max |ref|, numel]."""
+    d = a.double() - ref.double()
+    return np.array([float(d.square().sum()),
+                     float(ref.double().square().sum()),
+                     float(d.abs().max()), float(ref.abs().max()),
+                     d.numel()])
+
+
+def norm_reading(stats):
+    """Stats of the chunks of one tensor -> (||a - ref|| / ||ref||, the
+    bf16 bound on that ratio, max |a - ref|, max |ref|)."""
+    s = np.array(stats)
+    e2, r2, n = s[:, 0].sum(), s[:, 1].sum(), s[:, 4].sum()
+    ref = max(float(np.sqrt(r2)), 1e-30)
+    return (float(np.sqrt(e2)) / ref,
+            SPLIT_BF16_REL + SPLIT_BF16_FLOOR * float(np.sqrt(n)) / ref,
+            float(s[:, 2].max()), float(s[:, 3].max()))
+
+
+def band_p(q, k, lse, i0, j0, window):
+    """The kernels' p = exp2(min(s - lse, 0)) of q rows i0.. against k rows
+    j0.. in f32, 0 outside the causal band of `window` > 0."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s * (q.shape[-1] ** -0.5 * LOG2E)
+    rows = i0 + torch.arange(q.shape[2], device=q.device)[:, None]
+    cols = j0 + torch.arange(k.shape[2], device=q.device)[None, :]
+    keep = (cols <= rows) & (rows - cols < window)
+    return torch.exp2(torch.clamp(s - lse[..., None], max=0.0)) * keep
+
+
+def split_faults(q, k, v, do, out, lse, delta, dq, dk, dv, window):
+    """What three planted faults would return, from the kernels' results on
+    one chunk of heads (causal, `window` > 0, S/2 >= 64):
+    K5 skipping k rows S/2 .. S/2 + 63 (one k tile) for every q row; K6
+    writing 0 past q row 511; K7 missing q rows S/2 .. S/2 + 31 (one inner
+    q tile) from every dk and dv row."""
+    S, sc = q.shape[2], q.shape[-1] ** -0.5
+    j = slice(S // 2, S // 2 + 64)
+    p = band_p(q, k[:, :, j], lse, 0, j.start, window)
+    c = torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, j].float())
+    out_f = (out.float() - c) / (1 - p.sum(-1, keepdim=True))
+    dq_f = dq.clone()
+    dq_f[:, :, 512:] = 0
+    i = slice(S // 2, S // 2 + 32)
+    p = band_p(q[:, :, i], k, lse[:, :, i], i.start, 0, window)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do[:, :, i].float(), v.float())
+    ds = p * (dp - delta[:, :, i, None]) * sc
+    dk_f = dk.float() - torch.einsum("bhqk,bhqd->bhkd", ds,
+                                     q[:, :, i].float())
+    dv_f = dv.float() - torch.einsum("bhqk,bhqd->bhkd", p,
+                                     do[:, :, i].float())
+    return out_f, dq_f, dk_f, dv_f
+
+
+def check_split(FA, key, q, k, v, do, causal, window, faults=False):
+    """K5, K6 and K7 against their plain versions on one input, the plain
+    versions run on SPLIT_HEADS (batch, head) pairs at a time; raises on a
+    mismatch. With `faults`, also reads split_faults' planted faults
+    against the same plain versions and raises unless each fails the bf16
+    bound. Returns {kernel name: max abs err} and the plain (lse, delta)."""
+    B, H = q.shape[:2]
+    parts = [(slice(b, b + 1), slice(h, h + SPLIT_HEADS))
+             for b in range(B) for h in range(0, H, SPLIT_HEADS)]
+    names = ("out", "dq", "dk", "dv")
+    stats = {n: [] for n in names}
+    fault = {n: [] for n in names}
+    out, lse = FA.flash_fwd(q, k, v, causal, window=window)
+    rout, rlse = torch.empty_like(out), torch.empty_like(lse)
+    for c in parts:
+        rout[c], rlse[c] = FA.flash_attention_fwd_reference(
+            q[c], k[c], v[c], causal, window=window)
+        stats["out"].append(diff_stats(out[c], rout[c]))
+    delta = (do.float() * rout.float()).sum(-1)
+    dq = FA.flash_bwd_dq(q, k, v, do, rlse, delta, causal, window=window)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, rlse, delta, causal,
+                              window=window)
+    for c in parts:
+        args = (q[c], k[c], v[c], do[c])
+        want = FA.flash_attention_bwd_reference(
+            *args, rlse[c], delta[c], causal, window=window)
+        for n, a, w in zip(names[1:], (dq[c], dk[c], dv[c]), want):
+            stats[n].append(diff_stats(a, w))
+        if faults:
+            for n, a, w in zip(names, split_faults(
+                    *args, out[c], rlse[c], delta[c], dq[c], dk[c], dv[c],
+                    window), (rout[c],) + want):
+                fault[n].append(diff_stats(a, w))
+        del want
+    torch.cuda.synchronize()
+    e_lse = float((lse - rlse).abs().max())
+    got = {n: norm_reading(stats[n]) for n in names}
+    del out, rout, lse, dq, dk, dv
+    errs = {"flash_fwd": got["out"][2], "flash_bwd_dq": got["dq"][2],
+            "flash_bwd_dkv": max(got["dk"][2], got["dv"][2])}
+    print(f"  {key}: ||err||/||ref|| " + ", ".join(
+        f"{n} {got[n][0]:.3g} (bound {got[n][1]:.3g})" for n in names)
+          + f"; max abs err out {errs['flash_fwd']:.3g}, lse {e_lse:.3g}, "
+          f"dq {errs['flash_bwd_dq']:.3g}, dk/dv {errs['flash_bwd_dkv']:.3g}")
+    kname = dict(zip(names, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                             "flash_bwd_dkv")))
+    f32 = q.dtype == torch.float32
+    top = max(got[n][3] for n in names[1:])
+    for n in names:
+        if f32:
+            tol = (SPLIT_F32_TOL["out"] if n == "out" else
+                   SPLIT_F32_TOL["grads"] * max(1.0, top))
+        else:
+            tol = (FLASH_BF16_REL["out"] * float(v.float().abs().max())
+                   if n == "out" else FLASH_BF16_REL["d_qkv"] * top)
+            check(got[n][0] <= got[n][1], f"{kname[n]} {key}: {n} "
+                  f"||err||/||ref|| {got[n][0]} > {got[n][1]}")
+        check(got[n][2] <= tol, f"{kname[n]} {key}: {n} max abs err "
+                                f"{got[n][2]} > {tol}")
+    check(e_lse <= (F32_TOL if f32 else 1e-3),
+          f"flash_fwd {key}: lse err {e_lse}")
+    if faults:
+        read = {n: norm_reading(fault[n]) for n in names}
+        S = q.shape[2]
+        print(f"  {key} planted faults, ||err||/||ref||: out with k rows "
+              f"{S // 2}..{S // 2 + 63} skipped {read['out'][0]:.3g}, dq 0 "
+              f"past row 511 {read['dq'][0]:.3g}, dk {read['dk'][0]:.3g} "
+              f"and dv {read['dv'][0]:.3g} without q rows {S // 2}.."
+              f"{S // 2 + 31}")
+        for n in names:
+            check(read[n][0] > read[n][1], f"{key}: a planted fault in {n} "
+                  f"reads {read[n][0]} <= bound {read[n][1]}")
+    return errs, (rlse, delta)
+
+
+def sdpa_band_ms(q, k, v, do, window):
+    """Times of F.scaled_dot_product_attention on (B, H, S, hd) q, k, v
+    with the causal band as a boolean mask (is_causal for window 0), and of
+    its backward to q, k, v (one `torch.autograd.grad` over the saved
+    graph). Timed only: the port never calls it."""
+    import torch.nn.functional as F
+
+    S = q.shape[2]
+    mask, causal = None, True
+    if window:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        causal = False
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*xs, attn_mask=mask,
+                                              is_causal=causal)
+
+    f_ms = cuda_ms(fwd, 5)
+    out = fwd()
+    b_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, do,
+                                               retain_graph=True), 5)
+    del out
+    return f_ms, b_ms
+
+
+def phase_split_flash(FA):
+    """Phase 3, split-layout flash part: K5, K6 and K7 against their plain
+    versions over the small cases, then checked and timed at B1 H8 S8192
+    hd128 window 4096 bf16 (beside the plain versions and SDPA; the times
+    the JSON line reports), then checked, with the planted faults read, and
+    timed alone at phase 11's shape (B2 H32 S8192; the errors the JSON line
+    reports). Returns {kernel: (max_abs_err at B2 H32, ms, plain_ms,
+    library_ms, bound at B1 H8)}."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, H, Sq, Skv, causal, window, hd in SPLIT_CASES:
+            q, k, v, do = split_case(g, B, H, Sq, Skv, hd, dtype)
+            check_split(FA, f"{str(dtype)[6:]}/{name}", q, k, v, do, causal,
+                        window)
+    B, H, S, hd, W = 1, 8, 8192, 128, 4096
+    q, k, v, do = split_case(g, B, H, S, S, hd, torch.bfloat16, False)
+    _, (lse, delta) = check_split(FA, "bfloat16/B1-H8-S8192-hd128-w4096",
+                                  q, k, v, do, True, W)
+    kern = {"flash_fwd": lambda: FA.flash_fwd(q, k, v, window=W),
+            "flash_bwd_dq": lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                    window=W),
+            "flash_bwd_dkv": lambda: FA.flash_bwd_dkv(q, k, v, do, lse,
+                                                      delta, window=W)}
+    plain = {"flash_fwd": lambda: FA.flash_attention_fwd_reference(
+                 q, k, v, window=W),
+             "bwd": lambda: FA.flash_attention_bwd_reference(
+                 q, k, v, do, lse, delta, window=W)}
+    # plain, kernel, kernel, plain; one plain backward computes dq, dk, dv
+    p_a = {n: cuda_ms(fn, 2) for n, fn in plain.items()}
+    k_ms = {n: min(cuda_ms(fn, 5), cuda_ms(fn, 5)) for n, fn in kern.items()}
+    p_ms = {n: min(cuda_ms(fn, 2), p_a[n]) for n, fn in plain.items()}
+    torch.cuda.empty_cache()
+    lib_fwd, lib_bwd = sdpa_band_ms(q, k, v, do, W)
+    timed, line = {}, []
+    for name, ms in k_ms.items():
+        bound, flops = split_bound(name, B, H, S, hd, True, W)
+        plain_ms = p_ms["flash_fwd" if name == "flash_fwd" else "bwd"]
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
+        timed[name] = (ms, plain_ms, lib, bound)
+        line.append(f"{name} {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s) "
+                    f"vs plain {plain_ms:.3f} ms, SDPA {lib:.3f} ms, bound "
+                    f"{bound[0]:.3f} ms ({bound[1]})")
+    print("phase 3 kernels: split flash attention within bounds (f32 "
+          f"max abs {SPLIT_F32_TOL}, bf16 each entry {FLASH_BF16_REL} of max "
+          f"and in norm {SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an "
+          f"entry); bf16 B1 H8 S8192 hd128 "
+          f"causal window 4096 ({band_pairs(S, True, W)} pairs a head): "
+          + "; ".join(line) + " (the plain backward and SDPA's backward "
+          "compute dq, dk and dv together)")
+    del q, k, v, do, lse, delta, kern, plain
+    torch.cuda.empty_cache()
+
+    B, H = 2, 32
+    q, k, v, do = split_case(g, B, H, S, S, hd, torch.bfloat16, False)
+    errs, (lse, delta) = check_split(
+        FA, "bfloat16/B2-H32-S8192-hd128-w4096", q, k, v, do, True, W,
+        faults=True)
+    torch.cuda.empty_cache()
+    kern = {"flash_fwd": lambda: FA.flash_fwd(q, k, v, window=W),
+            "flash_bwd_dq": lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                    window=W),
+            "flash_bwd_dkv": lambda: FA.flash_bwd_dkv(q, k, v, do, lse,
+                                                      delta, window=W)}
+    line = []
+    for name, fn in kern.items():
+        ms = cuda_ms(fn, 5)
+        bound, flops = split_bound(name, B, H, S, hd, True, W)
+        line.append(f"{name} {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                    f"bound {bound[0]:.3f} ms ({bound[1]})")
+    print(f"phase 3 kernels: split flash alone at phase 11's shape, bf16 B2 "
+          f"H32 S8192 hd128 window 4096 ({B * H * band_pairs(S, True, W)} "
+          f"pairs): " + "; ".join(line))
+    del q, k, v, do, lse, delta, kern
+    torch.cuda.empty_cache()
+    return {n: (errs[n],) + t for n, t in timed.items()}
+
+
+# Mistral 7B's published widths (Jiang et al. 2023, "Mistral 7B", Table 1;
+# window 4096 from mistral_config), depth cut from 32 to 4 layers: f32
+# params, grads and Adam state of all 32 layers (~116 GB) exceed the 80 GB
+# card
+MISTRAL_7B = dict(vocab_size=32000, n_layer=4, n_head=32, n_kv_head=8,
+                  d_model=4096, d_ff=14336, max_seq=8192)
+
+
+def phase_mistral(T, FA, profile):
+    """Phase 11: the Mistral 7B train step (4 layers, S 8192, B 2, bf16,
+    the GPTConfig defaults). Returns the timed steps' launch counts."""
+    rng = np.random.default_rng(0)
+    B, S, n = 2, 8192, 5
+    cfg = T.mistral_config(dtype=torch.bfloat16, **MISTRAL_7B)
+
+    def batch():
+        toks = rng.integers(0, cfg.vocab_size, size=(B, S))
+        return (torch.from_numpy(toks).to("cuda"),
+                torch.from_numpy(np.roll(toks, -1, axis=1)).to("cuda"))
+
+    path = None
+    if profile:
+        root, ext = os.path.splitext(profile)
+        path = f"{root}_mistral{ext}"
+    losses, launches, step_s, peak, held = train_steps(
+        T, FA, cfg, 2, n, batch(), 3e-4, path, "one Mistral 7B (L4) step",
+        heldout=batch())
+    L = cfg.n_layer
+    check(all(np.isfinite(losses)), f"phase 11: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"phase 11: loss did not fall: {losses}")
+    # the steps repeat one batch, which the model memorises; on fresh
+    # uniform tokens nothing that cannot see its target beats ln(V)
+    # (a leak through the causal band or the window would)
+    check(held >= 0.9 * np.log(cfg.vocab_size),
+          f"phase 11: held-out loss {held} < 0.9 ln(V): the model sees its "
+          f"targets")
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=2 * L * n, flash_bwd_dq=L * n, flash_bwd_dkv=L * n)
+    check(launches == want, f"phase 11: launches {launches}, want {want}")
+    tok_s = B * S / step_s
+    mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
+    print(f"phase 11 train: Mistral 7B widths (d4096 H32 KV8 hd128 d_ff "
+          f"14336 V32000 window 4096) at L4, S8192 B2 bf16, remat, f32 Adam: "
+          f"step {step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU "
+          f"{mfu:.4f} (of 989 TFLOP/s, flops_per_token), peak {peak:.2f} "
+          f"GiB; losses {[round(l, 4) for l in losses]}, on a fresh batch "
+          f"{held:.4f} (ln V {np.log(cfg.vocab_size):.4f}); launches in {n} "
+          f"steps: K5 {launches['flash_fwd']}, K6 "
+          f"{launches['flash_bwd_dq']}, K7 {launches['flash_bwd_dkv']}")
+    return launches
+
+
+def phase_split_routes(T, FA):
+    """Phase 12: the split kernel route (K5-K7) against the plain route
+    (flash="off") in f32 on small llama and Mistral models: d256, 2 heads
+    over 1 kv head (hd 128), L 2, S 256, Mistral's window 100."""
+    errs = {}
+    for name, preset, kw in (("llama", T.llama_config, {}),
+                             ("mistral", T.mistral_config,
+                              dict(window=100))):
+        cfg0 = preset(vocab_size=512, n_layer=2, n_head=2, n_kv_head=1,
+                      d_model=256, d_ff=512, max_seq=256,
+                      dtype=torch.float32, remat=False, **kw)
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(2),
+                               cfg0, "cuda")
+        ref = route_run(T, params, cfg0, FA.SPLIT_KERNELS, flash="off")
+        run = route_run(T, params, cfg0, FA.SPLIT_KERNELS, flash="on")
+        L = cfg0.n_layer
+        check(ref[2] == [0, 0, 0] and run[2] == [L, L, L],
+              f"phase 12 {name}: launches {run[2]}, want {[L] * 3}")
+        errs[name] = (ref[0],) + route_errs(f"phase 12 {name}", ref, run)
+    print("phase 12 split kernel route vs plain route: f32 d256 H2 KV1 "
+          "hd128 L2 S256 B2; loss, |d loss|, max |d grad| per leaf: "
+          + ", ".join(f"{k} {a:.6f}, {b:.3g}, {c:.3g}"
+                      for k, (a, b, c) in errs.items())
+          + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
-                        help="profile one more headline train step and "
-                             "one more Var flagship step and write their "
-                             "kernel tables here (and *_var)")
+                        help="profile one more headline train step, "
+                             "Var flagship step and Mistral 7B step and "
+                             "write their kernel tables here (and *_var, "
+                             "*_mistral)")
     profile = parser.parse_args().profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -916,6 +1339,7 @@ def main() -> int:
         rng, paged_attention, paged_attention_reference)
     flash = phase_flash_kernels(rng, FA)
     mm_sm = phase_mm_softmax(MM, SM)
+    sflash = phase_split_flash(FA)
 
     # 4. serving end to end at full width
     cfg = T.GPTConfig(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
@@ -976,7 +1400,14 @@ def main() -> int:
     legacy = phase_var_legacy(nk, T, optim, FA, MM, SM)
     phase_var_routes(nk, T, FA, MM, SM)
 
-    src = "neuronika_tpu_torch/csrc/flash_attention_qkv.cu"
+    # 11. the Mistral 7B train step; 12. split kernel vs plain route in f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    mistral = phase_mistral(T, FA, profile)
+    phase_split_routes(T, FA)
+
+    csrc = "neuronika_tpu_torch/csrc/"
+    src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -1009,6 +1440,17 @@ def main() -> int:
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib})
+    # K5-K7 run on phase 11's path; their errors are at its B2 H32 S8192,
+    # their times at B1 H8 S8192 (where the plain versions fit)
+    for name, line in (("flash_fwd", 91), ("flash_bwd_dq", 177),
+                       ("flash_bwd_dkv", 243)):
+        e, ms, p_ms, lib, bound = sflash[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"{csrc}flash_attention.cu",
+                        "replaces": f"{at}{line}",
+                        "launches": mistral[name], "max_abs_err": e,
+                        "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1], "library_ms": lib})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

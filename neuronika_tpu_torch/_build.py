@@ -4,7 +4,8 @@ Every `csrc/*.cu` source is compiled by `nvcc` for Hopper (`sm_90a`), all
 sources at once in parallel processes, and the objects are linked into
 one shared library with a plain C interface, which `ctypes` loads. No
 source includes PyTorch's headers, so a build takes seconds. The library
-is named after a hash of the sources and the flags and is written under
+is named after a hash of the sources, the headers they share
+(`csrc/*.cuh`) and the flags and is written under
 `build/neuronika_tpu_torch/` beside the package, so an unchanged checkout
 reuses it and a changed source is rebuilt. Nothing is built when a module
 is imported: the first kernel launch builds (`load_library`).
@@ -23,6 +24,7 @@ import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG.parent / "build" / "neuronika_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -46,7 +48,7 @@ def _nvcc() -> str:
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libneuronika_tpu_torch_kernels.{h.hexdigest()[:16]}.so"
@@ -113,6 +115,21 @@ def load_library() -> ctypes.CDLL:
                    i, i, i, i, i,                # dq_acc dqkv; B S H KV hd
                    f, i, p]                      # scale causal, stream
     fn.restype = i
+    fn = lib.nk_flash_fwd
+    fn.argtypes = [i, p, p, p, p, p, p,          # dtype, q k v out lse,
+                   i, i, i, i, i,                # strides; B H Sq Skv hd
+                   f, i, i, p]                   # scale causal window, stream
+    fn.restype = i
+    fn = lib.nk_flash_bwd_dq
+    fn.argtypes = [i, p, p, p, p, p, p, p, p,    # dtype, q k v do lse delta
+                   i, i, i, i, i,                # dq strides; B H Sq Skv hd
+                   f, i, i, p]                   # scale causal window, stream
+    fn.restype = i
+    fn = lib.nk_flash_bwd_dkv
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, p,  # dtype, q k v do lse
+                   i, i, i, i, i,                # delta dk dv strides; B H
+                   f, i, i, p]                   # Sq Skv hd; scale causal
+    fn.restype = i                               # window, stream
     ll = ctypes.c_longlong
     fn = lib.nk_matmul
     fn.argtypes = [i, p, p, p,                   # dtype, a, b, c

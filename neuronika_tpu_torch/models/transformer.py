@@ -1,4 +1,4 @@
-"""GPT-2-style transformer: the paged serving slice and the training step
+"""GPT-style transformers: the paged serving slice and the training step
 (counterpart of `neuronika_tpu/models/transformer.py`).
 
 Params are a plain dict of tensors with the JAX tree's names and shapes:
@@ -7,15 +7,20 @@ so a JAX-initialised tree converts unchanged (`params_from_jax`). Params
 live in f32; `prepare_decode_params` casts the big matrices to the compute
 dtype once for serving.
 
-Ported: the learned-position / LayerNorm / GELU / tied-head GPT with GQA
-and sliding-window attention, the paged KV cache, unbucketed paged
-prefill, the paged decode step and per-row sampling; and for training
-`hidden_states`, `forward`, `loss_fn`, `opt_init`, `opt_state_from_jax`,
-`make_train_step` (Adam, clipping, accumulation) and `flops_per_token`,
-whose attention runs the packed-qkv flash op (`ops/flash_attention.py`).
-The other variants raise `NotImplementedError` from `GPTConfig`, and so
-do in-kernel dropout, remat policies other than "full", the fused
-cross-entropy and sliding windows on the flash path.
+Ported: the GPT-2 stack (learned positions, LayerNorm, GELU, tied head)
+and the llama/Mistral stack (`llama_config`, `mistral_config`: rotary
+positions, RMSNorm, SwiGLU, no biases, an untied `lm_head`), each with GQA
+and sliding-window attention; the paged KV cache (rotary keys are cached
+after rotation), unbucketed paged prefill, the paged decode step and
+per-row sampling; and for training `hidden_states`, `forward`, `loss_fn`,
+`opt_init`, `opt_state_from_jax`, `make_train_step` (Adam, clipping,
+accumulation) and `flops_per_token`. Training attention runs the packed
+flash op (K1/K2) for learned positions without a window, and the split
+flash op (K5-K7, `ops/flash_attention.py`) on q/k/v split out of the
+packed projection, rotated under rope, with or without a window.
+Mixture-of-experts raises `NotImplementedError` from `GPTConfig`, and so
+do remat policies other than "full" and the fused cross-entropy;
+in-kernel dropout raises on both flash paths.
 
 Rounding that differs from the JAX package in bf16 (f32 is unaffected):
 * a bf16 matmul here returns bf16 (f32 accumulation inside), where JAX
@@ -41,7 +46,7 @@ import torch.utils.checkpoint
 
 from .._tree import tree_leaves, tree_map, tree_unflatten
 from ..device import resolve
-from ..ops.flash_attention import flash_attention_qkv
+from ..ops.flash_attention import flash_attention, flash_attention_qkv
 from ..ops.paged_attention import paged_attention
 from ..optim.functional import adam_init, adam_update, clip_by_global_norm
 
@@ -58,11 +63,17 @@ class GPTConfig:
     d_model: int = 256
     d_ff: int = 1024
     max_seq: int = 256
+    # "learned" (a wpe table) or "rope" (rotary, GPT-NeoX half-split, on
+    # q/k; no wpe param)
     pos_emb: str = "learned"
+    rope_theta: float = 10000.0
+    # "layer" (LayerNorm, scale and bias) or "rms" (RMSNorm, scale only)
     norm: str = "layer"
     norm_eps: float = 1e-5
+    # "gelu" or "swiglu" (silu(x @ fc_gate) * (x @ fc_in) -> fc_out)
     mlp: str = "gelu"
     bias: bool = True
+    # the LM head is wte (tied) or a separate "lm_head" (V, D) param
     tied_head: bool = True
     causal: bool = True
     # sliding-window attention: attend the last `window` tokens (0 = full)
@@ -71,8 +82,8 @@ class GPTConfig:
     # training fields (JAX names and defaults; see the JAX GPTConfig)
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
-    # "auto"/"on": the packed flash-attention op (the CUDA kernels for
-    # CUDA tensors, their plain versions on the CPU); "off": the composite
+    # "auto"/"on": the flash-attention ops (the CUDA kernels for CUDA
+    # tensors, their plain versions on the CPU); "off": the composite
     flash: str = "auto"
     # checkpoint each block in training (policy "full" only)
     remat: bool = True
@@ -96,17 +107,12 @@ class GPTConfig:
     opt_state_dtype: str = "f32"
 
     def __post_init__(self):
-        for name, want in (("pos_emb", "learned"), ("norm", "layer"),
-                           ("mlp", "gelu")):
-            if getattr(self, name) != want:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only {want!r})")
         if self.n_experts:
             raise NotImplementedError("mixture-of-experts is not ported yet")
-        if not self.tied_head:
-            raise NotImplementedError("an untied LM head is not ported yet")
-        for name, allowed in (("flash", ("auto", "on", "off")),
+        for name, allowed in (("pos_emb", ("learned", "rope")),
+                              ("norm", ("layer", "rms")),
+                              ("mlp", ("gelu", "swiglu")),
+                              ("flash", ("auto", "on", "off")),
                               ("fused_ce", ("auto", "on", "off")),
                               ("matmul_out", ("f32", "compute")),
                               ("logits_dtype", ("f32", "compute")),
@@ -124,6 +130,23 @@ class GPTConfig:
             raise NotImplementedError(
                 "fused_ce='on' (the fused linear + cross-entropy kernels "
                 "K8-K10) is not ported yet (ROADMAP.md queue 1 item 6)")
+
+
+def llama_config(**kw) -> GPTConfig:
+    """Llama-family preset: rotary positions, RMSNorm, SwiGLU MLP, no
+    biases, untied LM head. Any GPTConfig field can be overridden."""
+    base = dict(pos_emb="rope", norm="rms", mlp="swiglu", bias=False,
+                tied_head=False)
+    base.update(kw)
+    return GPTConfig(**base)
+
+
+def mistral_config(**kw) -> GPTConfig:
+    """Mistral-family preset: the llama stack plus sliding-window
+    attention (default window 4096)."""
+    base = dict(window=4096)
+    base.update(kw)
+    return llama_config(**base)
 
 
 def _kv_heads(cfg: GPTConfig) -> int:
@@ -147,8 +170,10 @@ def _require_causal(cfg: GPTConfig, what: str) -> None:
 def init_params(generator: torch.Generator, cfg: GPTConfig,
                 device) -> Dict:
     """GPT-2 style init: N(0, 0.02), residual projections scaled by
-    1/sqrt(2*n_layer); f32. Values are drawn on `generator`'s device and
-    placed on `device`. They do not reproduce JAX's draws from a key."""
+    1/sqrt(2*n_layer); f32; the JAX tree's structure (rms norms carry only
+    a scale, no wpe under rope, fc_gate for SwiGLU, lm_head when untied, no
+    *_b without bias). Values are drawn on `generator`'s device and placed
+    on `device`. They do not reproduce JAX's draws from a key."""
     dev = resolve(device)
     std = 0.02
     resid_std = std / math.sqrt(2.0 * cfg.n_layer)
@@ -164,8 +189,10 @@ def init_params(generator: torch.Generator, cfg: GPTConfig,
         return torch.zeros(shape, dtype=torch.float32, device=dev)
 
     def ln(*shape):
-        return {"scale": torch.ones(shape, dtype=torch.float32, device=dev),
-                "bias": zeros(*shape)}
+        p = {"scale": torch.ones(shape, dtype=torch.float32, device=dev)}
+        if cfg.norm == "layer":
+            p["bias"] = zeros(*shape)
+        return p
 
     blocks = {
         "ln1": ln(L, D),
@@ -179,10 +206,18 @@ def init_params(generator: torch.Generator, cfg: GPTConfig,
         "fc_out": normal((L, F_, D), resid_std),
         "fc_out_b": zeros(L, D),
     }
+    if cfg.mlp == "swiglu":
+        blocks["fc_gate"] = normal((L, D, F_))
+        blocks["fc_gate_b"] = zeros(L, F_)
     if not cfg.bias:
         blocks = {k: v for k, v in blocks.items() if not k.endswith("_b")}
-    return {"wte": normal((cfg.vocab_size, D)), "ln_f": ln(D),
-            "blocks": blocks, "wpe": normal((cfg.max_seq, D))}
+    params = {"wte": normal((cfg.vocab_size, D)), "ln_f": ln(D),
+              "blocks": blocks}
+    if cfg.pos_emb == "learned":
+        params["wpe"] = normal((cfg.max_seq, D))
+    if not cfg.tied_head:
+        params["lm_head"] = normal((cfg.vocab_size, D))
+    return params
 
 
 def params_from_jax(tree, device="cpu") -> Dict:
@@ -211,9 +246,32 @@ def _layer(blocks: Dict, i: int) -> Dict:
 
 
 def _layer_norm(x, p, eps=1e-5):
-    """LayerNorm with f32 statistics; result in x's dtype."""
-    return F.layer_norm(x.float(), x.shape[-1:], p["scale"].float(),
+    """LayerNorm or RMSNorm, dispatched on the param structure (rms params
+    carry only a scale), with f32 statistics; result in x's dtype."""
+    x32 = x.float()
+    if "bias" not in p:
+        ms = (x32 * x32).mean(-1, keepdim=True)
+        return (x32 * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+    return F.layer_norm(x32, x.shape[-1:], p["scale"].float(),
                         p["bias"].float(), eps).to(x.dtype)
+
+
+def _rope_cos_sin(cfg: GPTConfig, positions):
+    """cos/sin tables for rotary embedding: positions (...,) int ->
+    (..., hd/2) f32 each (GPT-NeoX half-split convention)."""
+    hd = cfg.d_model // cfg.n_head
+    inv = cfg.rope_theta ** (-torch.arange(0, hd, 2, dtype=torch.float32,
+                                           device=positions.device) / hd)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _apply_rope(x, cos, sin):
+    """Rotate the last axis of x (..., hd) by the (..., hd/2) tables
+    (broadcasting over leading axes), in f32; result in x's dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
 
 
 def _badd(t, blk, name, cfg: GPTConfig):
@@ -279,8 +337,9 @@ def _body_dot(x, w, cfg: GPTConfig):
 
 
 def _head_w(params, cfg: GPTConfig):
-    """(V, D) LM-head weight: the tied wte."""
-    return params["wte"]
+    """(V, D) LM-head weight: a separate lm_head param when untied
+    (cfg.tied_head=False, llama family), else the shared wte."""
+    return params["lm_head"] if "lm_head" in params else params["wte"]
 
 
 def _lm_head(x, params, cfg: GPTConfig):
@@ -296,12 +355,17 @@ def _qdot(x, w, cfg: GPTConfig):
 
 
 def _mlp(x, blk, cfg: GPTConfig, dot=None):
-    """Dense GELU MLP (JAX's `_mlp` / `_decode_mlp` for mlp="gelu").
-    `jax.nn.gelu` defaults to the tanh approximation, and so does this.
+    """Dense MLP (JAX's `_mlp` / `_decode_mlp`): GELU, whose tanh
+    approximation is `jax.nn.gelu`'s default, or SwiGLU, silu(g) * h with
+    g in f32 (the product promotes to f32 before the cast, as in JAX).
     `dot` is the matmul: `_qdot` for serving, `_body_dot` in training."""
     dot = dot or _qdot
     h = _badd(dot(x, blk["fc_in"], cfg), blk, "fc_in_b", cfg)
-    h = F.gelu(h, approximate="tanh")
+    if cfg.mlp == "swiglu":
+        g = _badd(dot(x, blk["fc_gate"], cfg), blk, "fc_gate_b", cfg)
+        h = (F.silu(g.float()) * h).to(cfg.dtype)
+    else:
+        h = F.gelu(h, approximate="tanh")
     return _badd(dot(h, blk["fc_out"], cfg), blk, "fc_out_b", cfg)
 
 
@@ -310,11 +374,13 @@ def _cast_decode_params(params, cfg: GPTConfig):
     (decode is weight-bandwidth-bound); LayerNorm params and biases stay
     f32."""
     p = dict(params)
-    p["wte"] = params["wte"].to(cfg.dtype)
-    p["wpe"] = params["wpe"].to(cfg.dtype)
+    for name in ("wte", "wpe", "lm_head"):
+        if name in params:
+            p[name] = params[name].to(cfg.dtype)
     b = dict(params["blocks"])
-    for name in ("qkv", "proj", "fc_in", "fc_out"):
-        b[name] = b[name].to(cfg.dtype)
+    for name in ("qkv", "proj", "fc_in", "fc_out", "fc_gate"):
+        if name in b:
+            b[name] = b[name].to(cfg.dtype)
     p["blocks"] = b
     return p
 
@@ -332,13 +398,19 @@ def prepare_decode_params(params, cfg: GPTConfig, quant: str | None = None):
     return _cast_decode_params(params, cfg)
 
 
-def _decode_qkv(x, blk, cfg: GPTConfig):
-    """q (B,KV,G,1,hd), new-token k/v (B,KV,1,hd) for one layer."""
+def _decode_qkv(x, blk, cfg: GPTConfig, pos):
+    """q (B,KV,G,1,hd), new-token k/v (B,KV,1,hd) for one layer. Under
+    rope, q and k are rotated by their positions `pos` (B,), so keys enter
+    the cache after rotation and cached reads need none."""
     h = _layer_norm(x, blk["ln1"], cfg.norm_eps)
     qkv = _badd(_qdot(h, blk["qkv"], cfg), blk, "qkv_b", cfg)
     # grouped-query attention without repeating K/V: the group axis is
     # folded into the query side (G = H/KV queries share a KV head)
     q, k, v = _unpack_qkv(qkv, cfg)      # q (B,1,KV,G,hd), k/v (B,1,KV,hd)
+    if cfg.pos_emb == "rope":
+        cos, sin = _rope_cos_sin(cfg, pos)                  # (B, hd/2)
+        q = _apply_rope(q, cos[:, None, None, None], sin[:, None, None, None])
+        k = _apply_rope(k, cos[:, None, None], sin[:, None, None])
     return (q.permute(0, 2, 3, 1, 4), k.permute(0, 2, 1, 3),
             v.permute(0, 2, 1, 3))
 
@@ -380,7 +452,12 @@ def _prefill_body(params, cache, prompt, cfg: GPTConfig):
     B, P = prompt.shape
     hd = cfg.d_model // cfg.n_head
     dev = prompt.device
-    x = (params["wte"][prompt] + params["wpe"][:P]).to(cfg.dtype)
+    x = params["wte"][prompt]
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"][:P]
+    x = x.to(cfg.dtype)
+    if cfg.pos_emb == "rope":
+        r_cos, r_sin = _rope_cos_sin(cfg, torch.arange(P, device=dev))
     iq = torch.arange(P, device=dev)[:, None]
     ik = torch.arange(P, device=dev)[None, :]
     keep = ik <= iq
@@ -391,6 +468,9 @@ def _prefill_body(params, cache, prompt, cfg: GPTConfig):
         h = _layer_norm(x, blk["ln1"], cfg.norm_eps)
         qkv = _badd(_qdot(h, blk["qkv"], cfg), blk, "qkv_b", cfg)
         q, k, v = _unpack_qkv(qkv, cfg)
+        if cfg.pos_emb == "rope":      # q/k (B,P,KV,{G,}hd): rotate by P
+            q = _apply_rope(q, r_cos[:, None, None], r_sin[:, None, None])
+            k = _apply_rope(k, r_cos[:, None], r_sin[:, None])
         q = q.permute(0, 2, 3, 1, 4)                     # (B,KV,G,P,hd)
         k = k.permute(0, 2, 1, 3)                        # (B,KV,P,hd)
         v = v.permute(0, 2, 1, 3)
@@ -502,7 +582,8 @@ def _paged_decode_body(params, cache, tokens, active, table,
     hd = cfg.d_model // cfg.n_head
     pos_w = pos.clamp(max=MB * BS - 1)                   # clamp idle slots
     x = params["wte"][tokens.long()]
-    x = x + params["wpe"][pos_w.clamp(max=cfg.max_seq - 1).long()]
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"][pos_w.clamp(max=cfg.max_seq - 1).long()]
     x = x.to(cfg.dtype)[:, None, :]
     t_long = table.long()
     bar = torch.arange(B, device=tokens.device)
@@ -511,7 +592,7 @@ def _paged_decode_body(params, cache, tokens, active, table,
     keep = active[:, None, None]
     for i in range(cfg.n_layer):
         blk = _layer(params["blocks"], i)
-        q, k_new, v_new = _decode_qkv(x, blk, cfg)
+        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos)
         pk_l, pv_l = cache["pk"][i], cache["pv"][i]
         # two advanced indices split by a slice: the batch axis comes first,
         # (B, KV, hd), matching k_new[:, :, 0]
@@ -591,9 +672,9 @@ def sample_logits_batched(logits, seeds, steps, temperature, top_k, top_p,
 
 
 def _use_flash(cfg: GPTConfig) -> bool:
-    """The packed flash op unless cfg.flash is "off". The op itself routes
-    by device: the CUDA kernels for CUDA tensors, the plain versions for
-    CPU tensors (so "auto" and "on" agree)."""
+    """A flash op unless cfg.flash is "off". The ops themselves route by
+    device: the CUDA kernels for CUDA tensors, the plain versions for CPU
+    tensors (so "auto" and "on" agree)."""
     return cfg.flash != "off"
 
 
@@ -615,8 +696,12 @@ def _split_qkv(qkv, cfg: GPTConfig, B, S):
 
 def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
     """Attention sublayer of the training forward (JAX's `_attention`,
-    learned positions). `seed` (an int or None) seeds composite dropout, so
-    a checkpointed block redraws the same mask when it is recomputed."""
+    single device). Learned positions without a window take the packed
+    flash op; rope or a window split q/k/v out of the packed projection
+    (rotating q and k under rope) for the split flash op or, with
+    flash="off", the composite. `seed` (an int or None) seeds composite
+    dropout, so a checkpointed block redraws the same mask when it is
+    recomputed."""
     if cfg.window and not cfg.causal:
         raise ValueError(
             "cfg.window (sliding-window attention) requires causal=True")
@@ -625,25 +710,29 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
     hd = D // H
     qkv = _badd(_body_dot(x, blk["qkv"], cfg), blk, "qkv_b", cfg)
     drop = cfg.dropout if train else 0.0
-    if _use_flash(cfg):
-        if cfg.window:
-            raise NotImplementedError(
-                "sliding-window attention on the flash path (the split-"
-                "layout kernels K5-K7) is not ported yet (ROADMAP.md queue "
-                "1 item 6); use flash='off'")
-        if drop > 0.0:
-            raise NotImplementedError(
-                "attention dropout in training on the flash path (in-kernel "
-                "dropout) is not ported yet (ROADMAP.md queue 1 item 6); "
-                "use flash='off'")
+    flash = _use_flash(cfg)
+    if flash and drop > 0.0:
+        raise NotImplementedError(
+            "attention dropout in training on the flash path (in-kernel "
+            "dropout) is not ported yet (ROADMAP.md queue 1 item 6); "
+            "use flash='off'")
+    if flash and cfg.pos_emb == "learned" and not cfg.window:
         # the packed kernels read head blocks straight from qkv: no split,
         # transpose or GQA-repeat copies
         out = flash_attention_qkv(
             qkv, H, _kv_heads(cfg), cfg.causal, None, cfg.flash_block,
             cfg.flash_block, fast_softmax=cfg.flash_softmax == "fast",
             fused_bwd=cfg.flash_bwd == "fused")
+        return _badd(_body_dot(out, blk["proj"], cfg), blk, "proj_b", cfg)
+    q, k, v = _split_qkv(qkv, cfg, B, S)
+    if cfg.pos_emb == "rope":
+        cos, sin = _rope_cos_sin(cfg, torch.arange(S, device=x.device))
+        q = _apply_rope(q, cos, sin)
+        k = _apply_rope(k, cos, sin)
+    if flash:
+        out = flash_attention(q, k, v, cfg.causal, None, cfg.flash_block,
+                              cfg.flash_block, cfg.window)
     else:
-        q, k, v = _split_qkv(qkv, cfg, B, S)
         att = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
         att = att / math.sqrt(hd)
         if cfg.causal:
@@ -661,9 +750,8 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
                               device=x.device) >= drop
             att = torch.where(keep, att / (1.0 - drop), 0.0).to(cfg.dtype)
         out = torch.einsum("bhqk,bhkd->bhqd", att.float(), v.float())
-        out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, D)
-    out = _body_dot(out, blk["proj"], cfg)
-    return _badd(out, blk, "proj_b", cfg)
+    out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, D)
+    return _badd(_body_dot(out, blk["proj"], cfg), blk, "proj_b", cfg)
 
 
 def _block(x, blk, cfg: GPTConfig, train: bool, seed):
@@ -681,7 +769,10 @@ def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
     training each block is checkpointed (policy "full": only its input is
     kept). `generator` drives composite dropout."""
     B, S = tokens.shape
-    x = (params["wte"][tokens.long()] + params["wpe"][:S]).to(cfg.dtype)
+    x = params["wte"][tokens.long()]
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"][:S]
+    x = x.to(cfg.dtype)
     seeds = [None] * cfg.n_layer
     if train and cfg.dropout > 0.0 and generator is not None:
         seeds = torch.randint(0, 2 ** 62, (cfg.n_layer,), generator=generator,
@@ -705,7 +796,7 @@ def forward(params, tokens, cfg: GPTConfig, *, train: bool = False,
 
 def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
             generator: torch.Generator | None = None):
-    """Mean token cross-entropy: the tied LM head (a compute-dtype GEMM
+    """Mean token cross-entropy: the LM head (a compute-dtype GEMM
     with an f32 result, or a compute-dtype result with
     logits_dtype="compute"), then logsumexp minus the gathered target logit
     on f32 logits."""

@@ -1,28 +1,38 @@
-"""Flash attention on the packed qkv projection, forward and backward
-(counterpart of `flash_attention_qkv` in
-`neuronika_tpu/ops/pallas/attention.py`).
+"""Flash attention, forward and backward (counterpart of
+`neuronika_tpu/ops/pallas/attention.py`), in two layouts.
 
-Layout contract (kv-group-major, as `_unpack_qkv` in the models):
+The packed qkv projection (`flash_attention_qkv`), kv-group-major as
+`_unpack_qkv` in the models:
   qkv    (B, S, W), W = H*hd + 2*KV*hd: KV groups of (G+2) hd-wide chunks,
          group g = [q_{gG} ... q_{gG+G-1} | k_g | v_g], G = H // KV
   out    (B, S, H*hd) head-major, in qkv's dtype
   lse    (B, H, S) f32, base 2 (m + log2(l); m = 0 in "fast" mode), with
          no lane padding
   d_qkv  (B, S, W) in the packed layout
+Its forward launches K1 and its backward the K2 kernels of
+`csrc/flash_attention_qkv.cu`: the split pair (dq, then dk/dv) or, with
+`fused_bwd`, the fused kernel that stands for both of the TPU's fused
+backwards.
 
-`flash_attention_qkv` is differentiable (`FlashAttentionQKV`). For CUDA
-tensors its forward launches the K1 kernel and its backward the K2
-kernels of `csrc/flash_attention_qkv.cu`: the split pair (dq, then dk/dv)
-or, with `fused_bwd`, the fused kernel that stands for both of the TPU's
-fused backwards. CPU tensors take the plain versions below, which use the
-kernels' own math (exp2 domain, `p` and `ds` rounded to the input dtype
-before their products) and keep every sum in f32.
+The split layout (`flash_attention`): q (B, H, Sq, hd), k and v (B, H,
+Skv, hd), any strides with a unit last axis; out (B, H, Sq, hd) in q's
+dtype; lse (B, H, Sq) f32 base 2. Causal (Sq == Skv), sliding-window
+(causal only) or full with Sq != Skv. Its forward launches K5 and its
+backward K6 (dq) and K7 (dk, dv) of `csrc/flash_attention.cu`, which take
+lse and delta = rowsum(dO.O) as inputs (ring attention feeds its own).
 
-There is no in-kernel dropout yet; the model refuses dropout on this path.
+Both ops are differentiable. CUDA tensors launch the kernels or raise:
+head dims 64 and 128, f32 and bf16; other head dims and f16 raise
+`NotImplementedError` (ROADMAP.md queue 1 item 6). CPU tensors take the
+plain versions below, which use the kernels' own math (exp2 domain, `p`
+and `ds` rounded to the input dtype before their products) and keep every
+sum in f32. There is no in-kernel dropout yet; the model refuses dropout
+on both flash paths.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -139,6 +149,75 @@ def flash_attention_qkv_bwd_reference(qkv, out, lse, do, n_head: int,
                        dk.permute(0, 2, 1, 3)[:, :, :, None],
                        dv.permute(0, 2, 1, 3)[:, :, :, None]], dim=3)
     return d_qkv.reshape(B, S, W).to(dt)
+
+
+def _split_geometry(q, k, v, causal, window):
+    """(B, H, Sq, Skv, hd) of split-layout q (B, H, Sq, hd), k and v (B, H,
+    Skv, hd); raises the JAX wrapper's errors on what the kernels do not
+    compute."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"want q (B, H, Sq, hd) and k, v (B, H, Skv, hd); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    Skv = k.shape[2]
+    if causal and Skv != Sq:
+        raise ValueError("causal attention requires matching q/kv lengths")
+    if window and not causal:
+        raise ValueError("sliding window requires causal attention")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    return B, H, Sq, Skv, hd
+
+
+def _band_scores(q, k, scale, causal, window):
+    """Masked exp2-domain scores (B, H, Sq, Skv) in f32: keys col <= row
+    and row - col < window."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s * (scale * LOG2E)
+    if causal:
+        Sq, Skv = s.shape[2:]
+        rows = torch.arange(Sq, device=q.device)[:, None]
+        cols = torch.arange(Skv, device=q.device)[None, :]
+        keep = cols <= rows
+        if window:
+            keep &= rows - cols < window
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+def flash_attention_fwd_reference(q, k, v, causal: bool = True, scale=None,
+                                  window: int = 0):
+    """Plain version of K5: (out (B, H, Sq, hd) in q's dtype, lse (B, H,
+    Sq) f32 base 2). Runs on any device."""
+    _split_geometry(q, k, v, causal, window)
+    s = _band_scores(q, k, _scale(scale, q.shape[-1]), causal, window)
+    m = s.amax(-1)
+    p = torch.exp2(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
+    return (o / l[..., None]).to(q.dtype), m + torch.log2(l)
+
+
+def flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                  causal: bool = True, scale=None,
+                                  window: int = 0):
+    """Plain version of K6 and K7: (dq, dk, dv) in q's dtype from the
+    saved lse and delta = rowsum(dO.O), both (B, H, Sq) f32, with the
+    kernels' math: p = exp2(min(s - lse, 0)), ds = p (dp - delta) scale.
+    Runs on any device."""
+    _split_geometry(q, k, v, causal, window)
+    sc = _scale(scale, q.shape[-1])
+    dt = q.dtype
+    s = _band_scores(q, k, sc, causal, window)
+    p = torch.exp2(torch.clamp(s - lse[..., None], max=0.0))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * sc).to(dt).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -281,6 +360,129 @@ KERNELS = (flash_fwd_qkv, flash_bwd_dq_qkv, flash_bwd_dkv_qkv,
            flash_bwd_fused_qkv)
 
 
+def _split_operands(q, k, v, causal, window, *grads):
+    """Checks of the split-layout kernels. Returns (B, H, Sq, Skv, hd) and
+    q, k, v (then do) with their last axis unit-strided and their base and
+    strides 16-byte aligned (a copy of any that is not)."""
+    B, H, Sq, Skv, hd = _split_geometry(q, k, v, causal, window)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels need CUDA tensors; q is on {dev}")
+    _kernel_dtype_and_hd(q.dtype, hd)
+    if not 1 <= B <= 65535 or not 1 <= H <= 65535 or min(Sq, Skv) < 1:
+        raise ValueError(f"batch {B} or heads {H} outside 1..65535, or an "
+                         f"empty sequence")
+    ts = (q, k, v) + grads
+    for t in ts[1:]:
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"operands on {t.device} {t.dtype}, q on {dev} "
+                             f"{q.dtype}")
+    return (B, H, Sq, Skv, hd), tuple(_aligned(t) for t in ts)
+
+
+def _kernel_dtype_and_hd(dtype, hd):
+    if dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"{dtype} on the split flash kernels is not ported (f32 and "
+            f"bf16 only; ROADMAP.md queue 1 item 6)")
+    if hd not in _HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dim {hd} on the split flash kernels is not ported "
+            f"({_HEAD_DIMS}; ROADMAP.md queue 1 item 6)")
+
+
+def _aligned(t):
+    """t itself if the kernels can read it through its strides, else a
+    contiguous copy."""
+    unit = 16 // t.element_size()
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(st % unit == 0 for st in t.stride()[:-1]))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(*ts):
+    """(batch, head, row) strides of each tensor, as one C array."""
+    flat = [st for t in ts for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _rows(name, t, shape, dev):
+    """lse or delta: f32 (B, H, Sq), contiguous, on `dev`."""
+    if t.device != dev or t.dtype != torch.float32 \
+            or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: want f32 {shape} on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def flash_fwd(q, k, v, causal=True, scale=None, window=0):
+    """K5 on the card: (out (B, H, Sq, hd) in q's dtype, lse (B, H, Sq) f32
+    base 2). Adds one to `flash_fwd.launches`."""
+    (B, H, Sq, Skv, hd), (q, k, v) = _split_operands(q, k, v, causal,
+                                                     window)
+    from .._build import load_library
+
+    out = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch(load_library().nk_flash_fwd, "flash_fwd", _DTYPES[q.dtype],
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), _strides(q, k, v), B, H, Sq, Skv, hd,
+                _scale(scale, hd), int(causal), int(window), _stream(q))
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None,
+                 window=0):
+    """K6 on the card: dq (B, H, Sq, hd) from the saved lse and delta (B,
+    H, Sq) f32. Adds one to `flash_bwd_dq.launches`."""
+    (B, H, Sq, Skv, hd), (q, k, v, do) = _split_operands(
+        q, k, v, causal, window, do)
+    lse, delta = (_rows(n, t, (B, H, Sq), q.device)
+                  for n, t in (("lse", lse), ("delta", delta)))
+    from .._build import load_library
+
+    dq = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch(load_library().nk_flash_bwd_dq, "flash_bwd_dq",
+                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), _strides(q, k, v, do), B, H, Sq, Skv, hd,
+                _scale(scale, hd), int(causal), int(window), _stream(q))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=None,
+                  window=0):
+    """K7 on the card: (dk, dv), each (B, H, Skv, hd), from the saved lse
+    and delta (B, H, Sq) f32. Adds one to `flash_bwd_dkv.launches`."""
+    (B, H, Sq, Skv, hd), (q, k, v, do) = _split_operands(
+        q, k, v, causal, window, do)
+    lse, delta = (_rows(n, t, (B, H, Sq), q.device)
+                  for n, t in (("lse", lse), ("delta", delta)))
+    from .._build import load_library
+
+    dk = torch.empty((B, H, Skv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        _launch(load_library().nk_flash_bwd_dkv, "flash_bwd_dkv",
+                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do), B, H,
+                Sq, Skv, hd, _scale(scale, hd), int(causal), int(window),
+                _stream(q))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+for _fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    _fn.launches = 0
+
+SPLIT_KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+
+
 # --------------------------------------------------------------------------
 # the differentiable op
 
@@ -347,3 +549,50 @@ def flash_attention_qkv(qkv, n_head: int, n_kv_head: int = 0,
     _qkv_geometry(qkv, n_head, n_kv_head)
     return FlashAttentionQKV.apply(qkv, n_head, n_kv_head, causal, scale,
                                    fast_softmax, fused_bwd)
+
+
+class FlashAttention(torch.autograd.Function):
+    """out = attention(q, k, v) in the split layout; saves (q, k, v, out,
+    lse). Forward: K5 on CUDA tensors, the plain forward on CPU tensors.
+    Backward: delta = rowsum(dO.O) in f32 by a plain reduction, then K6 and
+    K7; the plain backward on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        if _on_cpu(q, k, v):
+            out, lse = flash_attention_fwd_reference(q, k, v, causal, scale,
+                                                     window)
+        else:
+            out, lse = flash_fwd(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, window = ctx.args
+        delta = (do.float() * out.float()).sum(-1)
+        if _on_cpu(q, do):
+            dq, dk, dv = flash_attention_bwd_reference(
+                q, k, v, do, lse, delta, causal, scale, window)
+        else:
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, window)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
+                                   window)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None,
+                    block_q: int = 256, block_k: int = 256, window: int = 0):
+    """q (B, H, Sq, hd), k and v (B, H, Skv, hd) -> (B, H, Sq, hd),
+    differentiable: softmax(q.k^T scale) v with an optional causal mask and
+    sliding `window` (each query sees its last `window` keys, itself
+    included; causal only); the kernels skip tiles outside the band.
+
+    `block_q`/`block_k` are accepted for signature parity with the JAX
+    function, where they size the TPU's VMEM tiles; the CUDA kernels choose
+    their own tiles and mask any ragged S, so both are ignored. A CUDA
+    tensor the kernels cannot take raises `NotImplementedError`."""
+    del block_q, block_k
+    return FlashAttention.apply(q, k, v, causal, scale, window)

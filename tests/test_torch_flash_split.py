@@ -1,0 +1,307 @@
+"""The port's split-layout flash attention (neuronika_tpu_torch/ops/
+flash_attention.py: K5, K6, K7 and the `flash_attention` op) against the
+JAX package: the plain forward and backward against JAX's Pallas kernels
+`_fwd_call` / `_bwd_call` run in interpret mode (as tests/test_pallas.py
+runs them on the CPU), the op against JAX's `flash_attention` custom VJP
+under `jax.vjp` and against the composite `reference_attention`; on the
+card, each CUDA kernel against its plain version. Inputs come from numpy
+seeds."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuronika_tpu.ops.pallas import attention as JA
+from neuronika_tpu_torch.ops import flash_attention as FA
+
+# f32: the same exp2-domain math in another summation order
+TOL = 2e-5
+# JAX's tiles (they must divide S there; the port's kernels need not)
+BLOCK = 16
+
+# (id, Sq, Skv, causal, window): the causal band, windows that cut tiles
+# anywhere (1, 6 and 17 against 16-row tiles) or cover all of S, and full
+# cross attention with Sq != Skv
+CASES = [("causal", 64, 64, True, 0), ("window1", 64, 64, True, 1),
+         ("window6", 64, 64, True, 6), ("window17", 64, 64, True, 17),
+         ("window-ge-S", 64, 64, True, 100),
+         ("full-Sq32-Skv48", 32, 48, False, 0)]
+IDS = [c[0] for c in CASES]
+
+
+def _inputs(Sq, Skv, B=1, H=2, hd=32, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Sq, hd), dtype=np.float32)
+    k = rng.standard_normal((B, H, Skv, hd), dtype=np.float32)
+    v = rng.standard_normal((B, H, Skv, hd), dtype=np.float32)
+    do = rng.standard_normal((B, H, Sq, hd), dtype=np.float32)
+    return q, k, v, do
+
+
+def _t(*arrays, dtype=torch.float32):
+    return [torch.from_numpy(np.array(a, np.float32)).to(dtype)
+            for a in arrays]
+
+
+def _err(a, b):
+    a = a.detach().float().numpy() if isinstance(a, torch.Tensor) else a
+    return float(np.abs(np.asarray(a, np.float32)
+                        - np.asarray(b, np.float32)).max())
+
+
+def _jax_fwd(q, k, v, causal, window):
+    sc = q.shape[-1] ** -0.5
+    return JA._fwd_call(*map(jnp.asarray, (q, k, v)), sc, causal, BLOCK,
+                        BLOCK, True, window=window)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_forward_matches_jax_kernel(case):
+    """K5: out and the base-2 lse (JAX's first lse lane)."""
+    _, Sq, Skv, causal, window = case
+    q, k, v, _ = _inputs(Sq, Skv)
+    out, lse = FA.flash_attention_fwd_reference(*_t(q, k, v), causal,
+                                                window=window)
+    jout, jlse = _jax_fwd(q, k, v, causal, window)
+    assert out.shape == (1, 2, Sq, 32) and lse.shape == (1, 2, Sq)
+    assert out.dtype == torch.float32 and lse.dtype == torch.float32
+    assert _err(out, jout) <= TOL
+    assert _err(lse, np.asarray(jlse)[..., 0]) <= TOL
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_backward_matches_jax_kernels(case):
+    """K6 and K7 from the same out, lse and dO on both sides; the port
+    takes delta = rowsum(dO.O) as an input, JAX's wrapper computes it."""
+    _, Sq, Skv, causal, window = case
+    q, k, v, do = _inputs(Sq, Skv, seed=1)
+    jout, jlse = _jax_fwd(q, k, v, causal, window)
+    want = JA._bwd_call(*map(jnp.asarray, (q, k, v)), jout, jlse,
+                        jnp.asarray(do), q.shape[-1] ** -0.5, causal, BLOCK,
+                        BLOCK, True, window=window)
+    out, lse = np.asarray(jout), np.asarray(jlse)[..., 0]
+    delta = (do * out).sum(-1)
+    got = FA.flash_attention_bwd_reference(*_t(q, k, v, do, lse, delta),
+                                           causal, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert _err(a, b) <= TOL, name
+
+
+def _port_vjp(q, k, v, do, causal, window, fn=FA.flash_attention):
+    qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
+    out = fn(qt, kt, vt, causal, window=window)
+    out.backward(torch.from_numpy(do).to(out.dtype))
+    return out, qt.grad, kt.grad, vt.grad
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_op_matches_jax_custom_vjp(case):
+    """The differentiable op (plain K5, then K6/K7 on the CPU) against
+    JAX's `flash_attention` under `jax.vjp`, its kernels in interpret
+    mode: the output and all three gradients."""
+    _, Sq, Skv, causal, window = case
+    q, k, v, do = _inputs(Sq, Skv, seed=2)
+    jout, vjp = jax.vjp(
+        lambda a, b, c: JA.flash_attention(a, b, c, causal, None, BLOCK,
+                                           BLOCK, True, window),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    out, *grads = _port_vjp(q, k, v, do, causal, window)
+    assert _err(out, jout) <= TOL
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        assert _err(a, b) <= TOL, name
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_op_autograd_matches_reference_attention(case):
+    """The op against autograd through the composite oracle, and that
+    oracle against JAX's `reference_attention` where it is defined
+    (JAX's composite takes no window)."""
+    _, Sq, Skv, causal, window = case
+    q, k, v, do = _inputs(Sq, Skv, seed=3)
+    ours = _port_vjp(q, k, v, do, causal, window)
+    ref = _port_vjp(q, k, v, do, causal, window, FA.reference_attention)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), ours, ref):
+        assert _err(a, b.detach().numpy()) <= TOL, name
+    if not window:
+        want = JA.reference_attention(*map(jnp.asarray, (q, k, v)), causal)
+        assert _err(ref[0], want) <= TOL
+
+
+# bf16 inputs against the f32 oracle on the same (rounded) inputs. Each
+# side rounds p (and ds) to bf16 before a product and the result once;
+# each rounding is within 2^-8 relative, so each entry of the output is
+# within 2^-6 of max |v| and of a gradient within 2^-5 of its largest
+# entry (dq and dk share dv's scale, and with window 1 they are rounding
+# noise around 0). Those bounds sit near a typical entry, so each tensor
+# is also held in norm to the values compared: ||a - b|| <= BF16_REL ||b||
+# + BF16_FLOOR sqrt(numel), the rule chip_smoke.py holds K5-K7 to. Here
+# the plain versions read at most 2.9e-3 of ||b||; the floor is for
+# window 1's dq and dk (f32 noise of ~1e-7 an entry).
+BF16_OUT, BF16_GRAD = 2 ** -6, 2 ** -5
+BF16_REL, BF16_FLOOR = 1e-2, 2 ** -15
+
+
+def _within_norm(a, b):
+    a = a.detach().float().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a, np.float32)
+    b = b.detach().float().cpu().numpy() if isinstance(b, torch.Tensor) \
+        else np.asarray(b, np.float32)
+    return (np.linalg.norm(a - b)
+            <= BF16_REL * np.linalg.norm(b) + BF16_FLOOR * np.sqrt(b.size))
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_bf16_plain_versions_within_bound_of_f32_oracle(case):
+    _, Sq, Skv, causal, window = case
+    q, k, v, do = (a.astype(jnp.bfloat16).astype(np.float32)
+                   for a in _inputs(Sq, Skv, seed=4))
+    jout, jlse = _jax_fwd(q, k, v, causal, window)
+    want = JA._bwd_call(*map(jnp.asarray, (q, k, v)), jout, jlse,
+                        jnp.asarray(do), q.shape[-1] ** -0.5, causal, BLOCK,
+                        BLOCK, True, window=window)
+    qb, kb, vb, dob = _t(q, k, v, do, dtype=torch.bfloat16)
+    out, lse = FA.flash_attention_fwd_reference(qb, kb, vb, causal,
+                                                window=window)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _err(out, jout) <= BF16_OUT * np.abs(v).max()
+    assert _within_norm(out, jout)
+    delta = (dob.float() * out.float()).sum(-1)
+    got = FA.flash_attention_bwd_reference(qb, kb, vb, dob, lse, delta,
+                                           causal, window=window)
+    top = max(float(np.abs(np.asarray(b)).max()) for b in want)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        assert _err(a, b) <= BF16_GRAD * top, name
+        assert _within_norm(a, b), name
+
+
+def test_refusals_match_jax():
+    """causal needs Sq == Skv and a window needs causal, on both sides;
+    the port refuses before any work."""
+    q, k, v, _ = _inputs(32, 48)
+    for causal, window, match in ((True, 0, "matching"),
+                                  (False, 4, "window")):
+        kv = (k, v) if causal else (q, q)
+        with pytest.raises(ValueError, match=match):
+            JA._fwd_call(*map(jnp.asarray, (q, *kv)), 1.0, causal, BLOCK,
+                         BLOCK, True, window=window)
+        with pytest.raises(ValueError, match=match):
+            FA.flash_attention(*_t(q, *kv), causal, window=window)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    q, k, v, do = _t(*_inputs(16, 16))
+    before = [f.launches for f in FA.SPLIT_KERNELS]
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_fwd(q, k, v)
+    lse = torch.zeros(1, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_bwd_dkv(q, k, v, do, lse, lse)
+    assert [f.launches for f in FA.SPLIT_KERNELS] == before
+
+
+# --------------------------------------------------------------------------
+# on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# (id, B, H, Sq, Skv, causal, window): the band against 64-row tiles
+# (windows 1, 6, 65, 100, >= S), ragged S, Sq != Skv
+GPU_CASES = [("causal", 2, 3, 256, 256, True, 0),
+             ("window1", 2, 3, 256, 256, True, 1),
+             ("window6", 2, 3, 256, 256, True, 6),
+             ("window65", 2, 3, 256, 256, True, 65),
+             ("window100-ragged", 1, 2, 1000, 1000, True, 100),
+             ("window-ge-S", 1, 2, 200, 200, True, 300),
+             ("full-Sq200-Skv333", 2, 2, 200, 333, False, 0)]
+# f32: the same math in another summation order; bf16: each entry within
+# BF16_OUT of max |v| (out) or BF16_GRAD of the largest gradient entry,
+# rounding points that may flip by one ulp on either side, and each
+# tensor in norm as above
+GPU_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (BF16_OUT,
+                                                         BF16_GRAD)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GPU_CASES, ids=[c[0] for c in GPU_CASES])
+def test_kernels_match_plain_versions_on_gpu(cuda, case, dtype, hd):
+    """K5, K6 and K7 against their plain versions on the same inputs;
+    q, k and v are strided views (every other head of a wider tensor)."""
+    _, B, H, Sq, Skv, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rand(S):
+        return torch.randn(B, 2 * H, S, hd, generator=g, device=cuda,
+                           dtype=torch.float32).to(dtype)[:, ::2]
+
+    q, k, v, do = rand(Sq), rand(Skv), rand(Skv), rand(Sq)
+    assert not q.is_contiguous()
+    before = [f.launches for f in FA.SPLIT_KERNELS]
+    out, lse = FA.flash_fwd(q, k, v, causal, window=window)
+    rout, rlse = FA.flash_attention_fwd_reference(q, k, v, causal,
+                                                  window=window)
+    delta = (do.float() * rout.float()).sum(-1)
+    dq = FA.flash_bwd_dq(q, k, v, do, rlse, delta, causal, window=window)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, rlse, delta, causal,
+                              window=window)
+    want = FA.flash_attention_bwd_reference(q, k, v, do, rlse, delta, causal,
+                                            window=window)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(FA.SPLIT_KERNELS, before)] \
+        == [1, 1, 1]
+    o_tol, g_tol = GPU_TOL[dtype]
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        o_tol *= float(v.float().abs().max())
+    assert out.dtype == dtype and out.shape == rout.shape
+    assert float((out.float() - rout.float()).abs().max()) <= o_tol
+    assert not bf16 or _within_norm(out, rout)
+    assert float((lse - rlse).abs().max()) <= (
+        1e-5 if dtype == torch.float32 else 1e-3)
+    top = max(float(b.float().abs().max()) for b in want)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        bound = g_tol * (max(1.0, top) if dtype == torch.float32 else top)
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert float((a.float() - b.float()).abs().max()) <= bound, name
+        assert not bf16 or _within_norm(a, b), name
+
+
+@pytest.mark.cuda
+def test_op_routes_cuda_tensors_to_the_kernels(cuda):
+    """The op on the card: K5 once, K6 and K7 once each, and the same
+    output and gradients as on the CPU (f32, hd 128, window 6)."""
+    q, k, v, do = _inputs(100, 100, B=2, H=2, hd=128, seed=5)
+    before = [f.launches for f in FA.SPLIT_KERNELS]
+    dev = [t.to(cuda).requires_grad_() for t in _t(q, k, v)]
+    out = FA.flash_attention(*dev, True, window=6)
+    out.backward(torch.from_numpy(do).to(cuda))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(FA.SPLIT_KERNELS, before)] \
+        == [1, 1, 1]
+    cpu = _port_vjp(q, k, v, do, True, 6)
+    for name, a, b in zip(("out", "dq", "dk", "dv"),
+                          (out, *(t.grad for t in dev)), cpu):
+        assert _err(a.cpu(), b.detach().numpy()) <= TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype", [(32, torch.float32),
+                                      (128, torch.float16)],
+                         ids=["hd32", "f16"])
+def test_shapes_the_kernels_cannot_take_are_refused(cuda, hd, dtype):
+    q = torch.zeros(1, 2, 16, hd, device=cuda, dtype=dtype)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FA.flash_attention(q, q, q)

@@ -104,11 +104,10 @@ def test_dense_slot_batcher_is_not_ported(params):
         ContinuousBatcher(params, _cfg(), 2, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(pos_emb="rope"), dict(norm="rms"),
-                                dict(mlp="swiglu"), dict(n_experts=2),
-                                dict(tied_head=False)],
-                         ids=["rope", "rms", "swiglu", "moe", "untied"])
+@pytest.mark.parametrize("kw", [dict(n_experts=2)], ids=["moe"])
 def test_unported_model_variants_raise(kw):
+    """(rope, rms, swiglu and an untied head are ported: each is held
+    against JAX by test_torch_llama.py::test_single_variant_matches_jax.)"""
     with pytest.raises(NotImplementedError):
         _cfg(**kw)
 

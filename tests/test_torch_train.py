@@ -66,10 +66,10 @@ def _tree_err(t_tree, j_tree):
                for k in tl)
 
 
-def _port_grads(tp, tcfg, toks, tgts):
+def _port_grads(tp, tcfg, toks, tgts, train=True):
     leaves = [p.clone().requires_grad_() for p in tree_leaves(tp)]
     loss = TT.loss_fn(tree_unflatten(tp, leaves), torch.from_numpy(toks),
-                      torch.from_numpy(tgts), tcfg, train=True)
+                      torch.from_numpy(tgts), tcfg, train=train)
     loss.backward()
     return loss, tree_unflatten(tp, [p.grad for p in leaves])
 
@@ -268,9 +268,7 @@ def test_composite_dropout_is_seeded_and_survives_remat():
 
 @pytest.mark.parametrize("kw,train,match", [
     (dict(dropout=0.1), True, "dropout"),
-    (dict(window=8), True, "window"),
-    (dict(window=8), False, "window"),
-], ids=["flash-dropout", "flash-window-train", "flash-window-eval"])
+], ids=["flash-dropout"])
 def test_flash_path_refuses_what_it_cannot_run(kw, train, match):
     cfg = TT.GPTConfig(vocab_size=64, n_layer=1, n_head=2, d_model=64,
                        d_ff=128, max_seq=32, dtype=torch.float32, **kw)
@@ -279,6 +277,21 @@ def test_flash_path_refuses_what_it_cannot_run(kw, train, match):
     with pytest.raises(NotImplementedError, match=match):
         TT.loss_fn(tp, toks, toks, cfg, train=train,
                    generator=torch.Generator())
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_flash_window_matches_jax(train):
+    """A window takes the flash path through the split op (plain K5-K7 on
+    the CPU), in training and in eval, and gives JAX's loss (and, in
+    training, its gradients) on its composite path."""
+    jcfg, tcfg = _cfgs(window=8, n_layer=2)
+    jp, tp = _params(jcfg)
+    toks, tgts = _batch(jcfg, S=32)
+    jloss, jgrads = jax.value_and_grad(JT.loss_fn)(
+        jp, jnp.asarray(toks), jnp.asarray(tgts), jcfg, train=train)
+    loss, grads = _port_grads(tp, tcfg, toks, tgts, train)
+    assert abs(float(loss.detach()) - float(jloss)) <= TOL
+    assert _tree_err(grads, jgrads) <= GRAD_TOL
 
 
 @pytest.mark.parametrize("kw", [dict(remat_policy="names"),
