@@ -48,7 +48,24 @@ nvidia-smi. Phases, each printing one line or a few:
      step;
  12. the split kernel route against the plain route (flash="off") in f32
      on small llama and Mistral models (hd 128, GQA, window < S): loss and
-     every gradient leaf.
+     every gradient leaf;
+ 13. ResNet-18 training at its published widths (He et al. 2016, Table 1;
+     GroupNorm for BatchNorm, imagenet stem, 1000 classes), bf16,
+     conv_impl "pallas", 224x224 images at batch 64 from a seed, SGD with
+     momentum 0.9 and lr 0.1: 2 warm-up and 5 timed steps with a finite,
+     falling loss and K12 launched once a conv forward and once a stride-1
+     conv's dx, K13 once a stride-1 conv's dw (counts derived from the
+     config); step time, images/s, conv MFU, peak memory. One more step
+     records the operands of every K12 and K13 call at each distinct
+     shape (forward, stride-1 dx, dw), and each is held against its plain
+     version, bf16 per entry and in norm, with a planted fault in each
+     kernel read at a ResNet-18 shape;
+ 14. the conv kernel routes against the plain routes in f32: a small
+     ResNet of both stems on the card against the CPU (logits, loss, every
+     gradient), a small Var graph of pooled 1-d, 2-d (stride, dilation,
+     groups) and 3-d convolutions under use_kernels with conv_route
+     "force" (K12, K14, K15) against the library route on the CPU, launch
+     counts exact; and the tier "auto" picks for bench.py's conv shapes.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -62,15 +79,22 @@ plain version and SDPA (with the band as a boolean mask), and at phase
 over 8 heads at a time), three planted faults are read against the same
 bound and must fail it, and each is timed alone. Their bf16 results are
 also held in norm: ||kernel - plain|| <= 1e-2 ||plain|| + 2^-15
-sqrt(numel).
+sqrt(numel), and so are K1's and K2's, with two planted faults read at the
+headline shape. Phase 3 then holds the direct convolutions (K12 at strides
+1-3, dilation, groups, a 7x7/2 conv on 3 channels and a 1x1/2 one; K13
+with a split reduction; K14; a strided 1-d conv on K12; K15 with
+dilation) against their plain versions in f32 and bf16, and at bench.py's
+conv shapes checks them, reads a planted fault per kernel against the same
+norm bound and times each beside its plain version and one library call
+(F.conv2d, torch.nn.grad.conv2d_weight, F.conv1d, F.conv3d).
 Every kernel's time is printed beside its plain version's, the one
 PyTorch call that computes the same function (where there is one) and the
 bound: the larger of its bytes over 3.35 TB/s and its FLOPs over the peak
 of its type (989 TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM.
-With --profile, one more step of phases 6, 8 and 11 runs under
+With --profile, one more step of phases 6, 8, 11 and 13 runs under
 torch.profiler: each one's device time by kernel kind is printed and its
-kernel table written to TABLE_PATH (phase 8's and 11's beside it, "_var"
-and "_mistral" added to the name).
+kernel table written to TABLE_PATH (phase 8's, 11's and 13's beside it,
+"_var", "_mistral" and "_resnet" added to the name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -80,8 +104,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -249,10 +275,33 @@ def flash_case(rng, B, H, KV, hd, S, dtype):
     return qkv.to("cuda", dtype), do.to("cuda", dtype)
 
 
-def check_flash(FA, key, qkv, do, H, KV, causal, fast):
+def flash_faults(qkv, out, lse, fused, H):
+    """What two planted faults would return at a causal MHA shape (S/2 >=
+    512): K1 skipping k rows S/2 .. S/2 + 63 (one k tile) for every q row,
+    and the fused K2 writing dq = 0 past q row 511."""
+    B, S, W = qkv.shape
+    hd = W // (3 * H)
+    q, k, v = (qkv.view(B, S, H, 3, hd)[:, :, :, i].permute(0, 2, 1, 3)
+               for i in range(3))
+    j = slice(S // 2, S // 2 + 64)
+    p = band_p(q, k[:, :, j], lse, 0, j.start, S)
+    c = torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, j].float())
+    o = out.view(B, S, H, hd).permute(0, 2, 1, 3).float()
+    out_f = ((o - c) / (1 - p.sum(-1, keepdim=True))).permute(
+        0, 2, 1, 3).reshape(B, S, H * hd)
+    fused_f = fused.clone()
+    fused_f.view(B, S, H, 3, hd)[:, 512:, :, 0] = 0
+    return out_f, fused_f
+
+
+def check_flash(FA, key, qkv, do, H, KV, causal, fast, faults=False):
     """K1, the split pair K2a+K2b and the fused K2 against the plain
-    versions on one input; raises on a mismatch. Returns {kernel name: max
-    abs err} and K1's (out, lse)."""
+    versions on one input; raises on a mismatch. bf16 results are held per
+    entry and in norm (SPLIT_BF16_REL, as K5-K7); with `faults` (causal
+    MHA), flash_faults' two planted faults are read against the same plain
+    versions and must fail the norm bound. Returns {kernel name: max abs
+    err}, K1's (out, lse) and {tensor: (||err||/||ref||, bound)} of the
+    norm readings and the faults (empty in f32)."""
     B, S, _ = qkv.shape
     G = H // KV
     out, lse = FA.flash_fwd_qkv(qkv, H, KV, causal, fast_softmax=fast)
@@ -273,15 +322,32 @@ def check_flash(FA, key, qkv, do, H, KV, causal, fast):
              else FLASH_BF16_REL["d_qkv"] * g_max)
     e_out = float((out.float() - rout.float()).abs().max())
     e_lse = float((lse - rlse).abs().max())
+    parts = split.view(B, S, KV, G + 2, -1)
+    rparts = ref.view(B, S, KV, G + 2, -1)
+    reads = {}
+    if not f32:
+        reads = {"out": norm_reading([diff_stats(out, rout)]),
+                 "dq": norm_reading([diff_stats(parts[:, :, :, :G],
+                                                rparts[:, :, :, :G])]),
+                 "dkv": norm_reading([diff_stats(parts[:, :, :, G:],
+                                                 rparts[:, :, :, G:])]),
+                 "fused": norm_reading([diff_stats(fused, ref)])}
+        if faults:
+            out_f, fused_f = flash_faults(qkv, out, lse, fused, H)
+            reads["fault out"] = norm_reading([diff_stats(out_f, rout)])
+            reads["fault fused"] = norm_reading([diff_stats(fused_f, ref)])
+            del out_f, fused_f
     del rout, rlse
-    parts = (split.float() - ref.float()).abs().reshape(B, S, KV, G + 2, -1)
-    e_dq = float(parts[:, :, :, :G].max())
-    e_dkv = float(parts[:, :, :, G:].max())
-    del parts, split
+    diff = (parts.float() - rparts.float()).abs()
+    e_dq = float(diff[:, :, :, :G].max())
+    e_dkv = float(diff[:, :, :, G:].max())
+    del diff, parts, split
     e_fused = float((fused.float() - ref.float()).abs().max())
     print(f"  {key}: out {e_out:.3g} (tol {o_tol:.3g}), lse {e_lse:.3g}, "
           f"dq {e_dq:.3g}, dkv {e_dkv:.3g}, fused {e_fused:.3g} "
-          f"(tol {g_tol:.3g})")
+          f"(tol {g_tol:.3g})" + ("; ||err||/||ref|| " + ", ".join(
+              f"{n} {r[0]:.3g} (bound {r[1]:.3g})" for n, r in reads.items())
+              if reads else ""))
     check(e_out <= o_tol, f"flash_fwd_qkv {key}: out err {e_out}")
     check(e_lse <= (FLASH_F32_TOL if f32 else 1e-3),
           f"flash_fwd_qkv {key}: lse err {e_lse}")
@@ -289,7 +355,12 @@ def check_flash(FA, key, qkv, do, H, KV, causal, fast):
             "flash_bwd_dkv_qkv": e_dkv, "flash_bwd_fused_qkv": e_fused}
     for kname, e in list(errs.items())[1:]:
         check(e <= g_tol, f"{kname} {key}: err {e} > {g_tol}")
-    return errs, (out, lse)
+    for n, (r, bound, _, _) in reads.items():
+        if n.startswith("fault"):
+            check(r > bound, f"{key}: planted {n} reads {r} <= bound {bound}")
+        else:
+            check(r <= bound, f"{key}: {n} ||err||/||ref|| {r} > {bound}")
+    return errs, (out, lse), {n: r[:2] for n, r in reads.items()}
 
 
 def phase_flash_kernels(rng, FA):
@@ -303,12 +374,13 @@ def phase_flash_kernels(rng, FA):
             qkv, do = flash_case(rng, 2, H, KV, hd, S, dtype)
             check_flash(FA, f"{str(dtype)[6:]}/{name}", qkv, do, H, KV,
                         causal, fast)
+            del qkv, do
 
     B, H, S, hd = 16, 12, 2048, 128
     qkv, do = flash_case(rng, B, H, H, hd, S, torch.bfloat16)
-    errs, (out, lse) = check_flash(FA, "bfloat16/headline-B16-S2048-mha-"
-                                   "hd128-causal-fast", qkv, do, H, H, True,
-                                   True)
+    errs, (out, lse), reads = check_flash(
+        FA, "bfloat16/headline-B16-S2048-mha-hd128-causal-fast", qkv, do, H,
+        H, True, True, faults=True)
     # time at the same shape: plain, kernel, kernel, plain
     d_qkv = torch.empty_like(qkv)
     fwd = (lambda: FA.flash_fwd_qkv(qkv, H, fast_softmax=True),
@@ -358,9 +430,13 @@ def phase_flash_kernels(rng, FA):
                     f"bound {bound[0]:.3f} ms")
     torch.cuda.synchronize()
     print("phase 3 kernels: flash attention within bounds (f32 "
-          f"{FLASH_F32_TOL}, bf16 {FLASH_BF16_REL} of max); bf16 B16 S2048 "
-          f"H12 hd128 causal fast: " + "; ".join(line) + " (the plain "
-          "backward and SDPA's backward compute all of d_qkv)")
+          f"{FLASH_F32_TOL}, bf16 {FLASH_BF16_REL} of max and in norm "
+          f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); "
+          "headline ||err||/||ref|| " + ", ".join(
+              f"{n} {r:.3g} (bound {b:.3g})" for n, (r, b) in reads.items())
+          + "; bf16 B16 S2048 H12 hd128 causal fast: " + "; ".join(line)
+          + " (the plain backward and SDPA's backward compute all of "
+          "d_qkv)")
     return result
 
 
@@ -455,7 +531,11 @@ def profile_step(run, label, path):
         n = e.key
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3
-        kind = ("K5 fwd" if "split_fwd" in n
+        kind = ("K12-K15 conv" if "conv_mma<false>" in n
+                or "conv_ffma<false>" in n
+                else "K13 conv dw" if "conv_mma<true>" in n
+                or "conv_ffma<true>" in n or "conv_dw_reduce" in n
+                else "K5 fwd" if "split_fwd" in n
                 else "K6 dq" if "split_bwd_dq" in n
                 else "K7 dk/dv" if "split_bwd_dkv" in n
                 else "K2 fused" if "flash_bwd_kv_kernel" in n
@@ -465,6 +545,8 @@ def profile_step(run, label, path):
                 else "K3 matmul" if "sgemm_kernel" in n or "hgemm_kernel" in n
                 else "K4 softmax" if "softmax_cached" in n
                 or "softmax_online" in n
+                else "library conv" if any(c in n for c in (
+                    "dgrad", "wgrad", "conv", "Conv"))
                 else "GEMM" if any(g in n for g in ("nvjet", "gemm", "xmma",
                                                     "cutlass"))
                 else "LayerNorm" if "layer_norm" in n or "GammaBeta" in n
@@ -1291,13 +1373,576 @@ def phase_split_routes(T, FA):
           + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
 
 
+# --------------------------------------------------------------------------
+# the conv tier: K12-K15 (phase 3), ResNet-18 training (phase 13), kernel
+# routes against plain routes (phase 14)
+
+# small and ragged cases: (name, kernel, x shape (channels last), w shape
+# (*taps, Ci/groups, Co), stride, dilation, groups); "k12-1d" is a strided
+# 1-d conv, which runs on K12
+CONV_CASES = (
+    ("s1", "k12", (2, 13, 12, 8), (3, 3, 8, 16), (1, 1), (1, 1), 1),
+    ("s2", "k12", (2, 13, 12, 8), (3, 3, 8, 16), (2, 2), (1, 1), 1),
+    ("s3", "k12", (2, 16, 15, 8), (3, 3, 8, 16), (3, 3), (1, 1), 1),
+    ("dil2-co300", "k12", (2, 14, 14, 8), (3, 3, 8, 300), (1, 1), (2, 2), 1),
+    ("g2", "k12", (2, 10, 10, 8), (3, 3, 4, 12), (1, 1), (1, 1), 2),
+    ("g4-s2", "k12", (2, 10, 10, 16), (3, 3, 4, 8), (2, 2), (1, 1), 4),
+    ("ci3-7x7-s2", "k12", (2, 230, 230, 3), (7, 7, 3, 64), (2, 2), (1, 1), 1),
+    ("1x1-s2", "k12", (4, 56, 56, 64), (1, 1, 64, 128), (2, 2), (1, 1), 1),
+    ("ragged-ci256", "k12", (3, 29, 31, 256), (3, 3, 256, 200), (1, 1),
+     (1, 1), 1),
+    ("conv1d-d2", "k14", (2, 333, 64), (3, 64, 72), (1,), (2,), 1),
+    ("conv1d-s2", "k12-1d", (2, 333, 64), (3, 64, 72), (2,), (1,), 1),
+    ("conv3d-d2", "k15", (2, 9, 10, 11, 16), (3, 2, 3, 16, 24), (1, 1, 1),
+     (2, 1, 2), 1),
+)
+# K13: (name, x shape, g shape, (kh, kw), dilation)
+DW_CASES = (
+    ("k3", (3, 10, 10, 24), (3, 8, 8, 20), (3, 3), (1, 1)),
+    ("k3-dil2", (2, 12, 11, 8), (2, 8, 7, 16), (3, 3), (2, 2)),
+    ("k1", (4, 28, 28, 64), (4, 28, 28, 128), (1, 1), (1, 1)),
+    ("resnet-stage1-B16", (16, 58, 58, 64), (16, 56, 56, 64), (3, 3),
+     (1, 1)),
+)
+
+
+def conv_call(C, kind, x, w, stride, dilation, groups):
+    """The kernel wrapper a case runs."""
+    if kind == "k12":
+        return C.conv2d_direct_nhwc(x, w, dilation, stride, groups=groups)
+    if kind in ("k14", "k12-1d"):
+        return C.conv1d_direct_nwc(x, w, dilation[0], stride[0])
+    return C.conv3d_direct_ndhwc(x, w, dilation)
+
+
+def conv_within(out, ref, key, dtype):
+    """A K12-K15 or K13 result against its plain version, by the inputs'
+    `dtype`. f32: each entry within 1e-5 of max(1, max |ref|) (the same
+    products summed in another order). bf16: each entry within one bf16
+    ulp of max |ref| and in norm ||out - ref|| <= SPLIT_BF16_REL ||ref|| +
+    SPLIT_BF16_FLOOR sqrt(numel); K12, K14 and K15 round one f32 sum on
+    both sides, and K13's f32 output sums up to 200,704 products a CTA
+    split at a time in the tensor cores' accumulator, which does not round
+    as FFMA does. Returns (max abs err, ||err||/||ref||, its bound)."""
+    check(out.dtype == ref.dtype and out.shape == ref.shape,
+          f"{key}: kernel gave {out.dtype} {tuple(out.shape)}, plain "
+          f"{ref.dtype} {tuple(ref.shape)}")
+    top = float(ref.float().abs().max())
+    err = float((out.float() - ref.float()).abs().max())
+    rel, bound, _, _ = norm_reading([diff_stats(out, ref)])
+    if dtype == torch.float32:
+        tol = F32_TOL * max(1.0, top)
+    else:
+        tol = bf16_ulp(top)
+        check(rel <= bound, f"{key}: ||err||/||ref|| {rel} > {bound}")
+    check(err <= tol, f"{key}: max abs err {err} > {tol}")
+    return err, rel, bound
+
+
+def conv_fault(C, name, x, w, ref):
+    """Reads one planted fault against the plain result `ref` of a stride-1,
+    unit-dilation conv and raises unless it fails the norm bound: K12, K14,
+    K15 dropping the first tap (the kernel run on w with that tap zeroed);
+    K13 dropping the partial of its first split (the kernel run on the
+    gradient, passed as w, with the pixels of that split zeroed). Returns
+    the reading."""
+    if name == "conv2d_dw_nhwc":
+        kh, kw, ci, co = ref.shape
+        _, chunk = C._dw_splits(kh * kw * ci, co, w[..., 0].numel())
+        g0 = w.clone()
+        g0.view(-1, co)[:chunk] = 0
+        bad = C.conv2d_dw_nhwc(x, g0, kh, kw)
+    else:
+        w0 = w.clone()
+        w0.view(-1, *w.shape[-2:])[0] = 0
+        bad = {"conv2d_direct_nhwc": C.conv2d_direct_nhwc,
+               "conv1d_direct_nwc": C.conv1d_direct_nwc,
+               "conv3d_direct_ndhwc": C.conv3d_direct_ndhwc}[name](x, w0)
+    rel, bound, _, _ = norm_reading([diff_stats(bad, ref)])
+    check(rel > bound, f"{name}: a planted fault reads {rel} <= bound "
+                       f"{bound}")
+    return rel
+
+
+def phase_conv_kernels(C):
+    """Phase 3, conv part: K12-K15 against their plain versions over the
+    small cases in f32 and bf16, then at bench.py's conv shapes in bf16
+    (:817-888, SAME: the kernels on the padded input), where each is also
+    held against a planted fault and timed beside its plain version, one
+    library call and its bound. Returns {kernel: (max_abs_err, ms,
+    plain_ms, library_ms, (bound_ms, bound_by))} at those shapes."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for name, kind, xs, ws, stride, dil, groups in CONV_CASES:
+            x, w = rnd(*xs, dtype=dtype), rnd(*ws, dtype=dtype, scale=0.1)
+            errs[f"{dt}/{name}"] = conv_within(
+                conv_call(C, kind, x, w, stride, dil, groups),
+                C.conv_nd_reference(x, w, stride, dil, groups),
+                f"{kind} {dt}/{name}", dtype)[:2]
+        for name, xs, gs, k, dil in DW_CASES:
+            x, gg = rnd(*xs, dtype=dtype), rnd(*gs, dtype=dtype)
+            errs[f"{dt}/dw-{name}"] = conv_within(
+                C.conv2d_dw_nhwc(x, gg, *k, dil),
+                C.conv_dw_reference(x, gg, k, dil), f"k13 {dt}/{name}",
+                dtype)[:2]
+    torch.cuda.synchronize()
+    print("phase 3 kernels: conv K12-K15 within bounds (f32 1e-5 of max "
+          "|entry|; bf16 one ulp of it and in norm "
+          f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); max "
+          "abs err, ||err||/||ref||: " + ", ".join(
+              f"{k} {a:.3g}, {r:.2g}" for k, (a, r) in errs.items()))
+
+    # bench.py's shapes, SAME, bf16: (kernel, x padded, w, library call)
+    B = 64
+    x2 = rnd(B, 58, 58, 256)
+    w2 = rnd(3, 3, 256, 256, scale=(256 * 9) ** -0.5)
+    g2 = rnd(B, 56, 56, 256)
+    x1 = rnd(B, 3138, 256)
+    w1 = rnd(3, 256, 256, scale=(256 * 3) ** -0.5)
+    x3 = rnd(32, 16, 16, 16, 128)
+    w3 = rnd(3, 3, 3, 128, 128, scale=(128 * 27) ** -0.5)
+    n2, n3 = x2.permute(0, 3, 1, 2), x3.permute(0, 4, 1, 2, 3)
+    w2n = w2.permute(3, 2, 0, 1)
+    cases = {
+        "conv2d_direct_nhwc": (
+            "64x56x56x256 k3", (x2, w2),
+            lambda: C.conv2d_direct_nhwc(x2, w2),
+            lambda: C.conv_nd_reference(x2, w2, (1, 1), (1, 1)),
+            lambda: F.conv2d(n2, w2n), "F.conv2d"),
+        "conv2d_dw_nhwc": (
+            "64x56x56x256 k3 dw", (x2, g2),
+            lambda: C.conv2d_dw_nhwc(x2, g2, 3, 3),
+            lambda: C.conv_dw_reference(x2, g2, (3, 3), (1, 1)),
+            lambda: torch.nn.grad.conv2d_weight(n2, w2n.shape,
+                                                g2.permute(0, 3, 1, 2)),
+            "torch.nn.grad.conv2d_weight"),
+        "conv1d_direct_nwc": (
+            "64x3136x256 k3", (x1, w1),
+            lambda: C.conv1d_direct_nwc(x1, w1),
+            lambda: C.conv_nd_reference(x1, w1, (1,), (1,)),
+            lambda: F.conv1d(x1.transpose(1, 2), w1.permute(2, 1, 0)),
+            "F.conv1d"),
+        "conv3d_direct_ndhwc": (
+            "32x14^3x128 k3", (x3, w3),
+            lambda: C.conv3d_direct_ndhwc(x3, w3),
+            lambda: C.conv_nd_reference(x3, w3, (1, 1, 1), (1, 1, 1)),
+            lambda: F.conv3d(n3, w3.permute(4, 3, 0, 1, 2)), "F.conv3d"),
+    }
+    result, line = {}, []
+    for name, (shape, ins, kern, plain, lib, lib_name) in cases.items():
+        out, ref = kern(), plain()
+        err, rel, bound_n = conv_within(out, ref, f"{name} {shape}",
+                                        torch.bfloat16)
+        fault = conv_fault(C, name, *ins, ref)
+        n_out = out.numel()
+        del out, ref
+        torch.cuda.empty_cache()
+        pa = cuda_ms(plain, 2)
+        ka, kb = cuda_ms(kern, 10), cuda_ms(kern, 10)
+        pb = cuda_ms(plain, 2)
+        lib_ms = cuda_ms(lib, 10)
+        torch.cuda.empty_cache()
+        k_ms, p_ms = min(ka, kb), min(pa, pb)
+        # FLOPs: 2 per tap product of every output entry (K13: of every
+        # pixel of the gradient); bytes: each input read once, the output
+        # written once (K13's in f32)
+        if name == "conv2d_dw_nhwc":
+            flops = 2 * g2.numel() * n_out // g2.shape[-1]
+            nbytes = (x2.numel() + g2.numel()) * 2 + n_out * 4
+        else:
+            x, w = ins
+            flops = 2 * n_out * (w.numel() // w.shape[-1])
+            nbytes = (x.numel() + w.numel() + n_out) * 2
+        bound = bound_ms(nbytes, flops, torch.bfloat16)
+        result[name] = (err, k_ms, p_ms, lib_ms, bound)
+        line.append(f"{name} {shape}: kernel {k_ms:.3f} ms "
+                    f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.3f} "
+                    f"ms, {lib_name} {lib_ms:.3f} ms, bound {bound[0]:.3f} ms "
+                    f"({bound[1]}, {flops:.4g} FLOPs); max abs err {err:.3g}"
+                    f", ||err||/||ref|| {rel:.3g} (bound {bound_n:.3g}), "
+                    f"planted fault {fault:.3g}")
+    del x1, x2, x3, w1, w2, w3, g2, n2, n3, w2n, cases
+    torch.cuda.empty_cache()
+    print("phase 3 kernels, conv at bench.py's shapes (bf16, SAME; faults: "
+          "K12/K14/K15 without their first tap, K13 without its first "
+          "split's partial): " + "; ".join(line))
+    return result
+
+
+# ResNet-18's published widths (He et al. 2016, "Deep Residual Learning for
+# Image Recognition", Table 1) with the repo's GroupNorm for BatchNorm
+RESNET18 = dict(stages=(2, 2, 2, 2), width=64, num_classes=1000,
+                stem="imagenet")
+
+
+def resnet_conv_flops(cfg, B, size):
+    """Forward conv FLOPs of one batch, counted from the shapes: 2 B Ho Wo
+    kh kw Ci Co a conv, SAME padding."""
+    s0, k0 = (1, 3) if cfg.stem == "cifar" else (2, 7)
+    h = -(-size // s0)
+    flops = 2 * B * h * h * k0 * k0 * 3 * cfg.width
+    if cfg.stem == "imagenet":
+        h = -(-h // 2)                        # the stem's max pool
+    c_in = cfg.width
+    for si, n_blocks in enumerate(cfg.stages):
+        c_out = cfg.width * 2 ** si
+        for bi in range(n_blocks):
+            s = 2 if (bi == 0 and si > 0) else 1
+            h = -(-h // s)
+            flops += 2 * B * h * h * 9 * (c_in * c_out + c_out * c_out)
+            if s != 1 or c_in != c_out:
+                flops += 2 * B * h * h * c_in * c_out
+            c_in = c_out
+    return flops
+
+
+def conv_launch_want(R, cfg, steps):
+    """K12-K15 launches of `steps` ResNet train steps on conv_impl "pallas":
+    K12 once a conv forward and once a stride-1 conv's dx (the stem's input,
+    the image, needs none), K13 once a stride-1 conv's dw."""
+    strides = R.conv_strides(cfg)
+    dx = strides[1:].count(1)
+    return {"conv2d_direct_nhwc": steps * (len(strides) + dx),
+            "conv2d_dw_nhwc": steps * strides.count(1),
+            "conv1d_direct_nwc": 0, "conv3d_direct_ndhwc": 0}
+
+
+def record_convs(C, run):
+    """Runs `run()` with K12's and K13's wrappers, and the stride-1 dx
+    around K12, wrapped to keep contiguous copies of the operands of the
+    first call at each distinct shape and role: "fwd", "dx" (K12 on the
+    padded gradient with the flipped, io-swapped kernel) or "dw". The
+    kernels launch as usual; launches during `run` go to the wrappers'
+    copies of the counters, not to the kernels' own. Returns {(role, x
+    shape, w or g shape, stride or taps, dilation, groups): (x, w or g)}."""
+    seen, role = {}, ["fwd"]
+    k12, k13, dx = (C.conv2d_direct_nhwc, C.conv2d_dw_nhwc,
+                    C.conv2d_input_grad_nhwc)
+
+    def keep(key, x, w):
+        if key not in seen:
+            seen[key] = tuple(t.detach().clone(
+                memory_format=torch.contiguous_format) for t in (x, w))
+
+    @functools.wraps(k12)
+    def rec12(x, w, dilation=(1, 1), stride=(1, 1), *, groups=1, **kw):
+        keep((role[0], tuple(x.shape), tuple(w.shape), C._as_tuple(stride, 2),
+              C._as_tuple(dilation, 2), groups), x, w)
+        return k12(x, w, dilation, stride, groups=groups, **kw)
+
+    @functools.wraps(k13)
+    def rec13(x, g, kh, kw, dilation=(1, 1), **kwargs):
+        keep(("dw", tuple(x.shape), tuple(g.shape), (kh, kw),
+              C._as_tuple(dilation, 2), 1), x, g)
+        return k13(x, g, kh, kw, dilation, **kwargs)
+
+    @functools.wraps(dx)
+    def recdx(*args, **kwargs):
+        role[0] = "dx"
+        try:
+            return dx(*args, **kwargs)
+        finally:
+            role[0] = "fwd"
+
+    C.conv2d_direct_nhwc, C.conv2d_dw_nhwc = rec12, rec13
+    C.conv2d_input_grad_nhwc = recdx
+    try:
+        run()
+    finally:
+        C.conv2d_direct_nhwc, C.conv2d_dw_nhwc = k12, k13
+        C.conv2d_input_grad_nhwc = dx
+    return seen
+
+
+def unit_scaled(t):
+    """t times the power of two that brings max |t| into [1, 2): exact in
+    f32 and bf16, so a kernel's result on it is its result on t, scaled."""
+    top = float(t.float().abs().max())
+    return t * 2.0 ** -np.floor(np.log2(top)) if top > 0 else t
+
+
+def check_recorded_convs(C, records):
+    """Each recorded K12/K13 call (record_convs) against its plain version
+    on the same operands, each brought to unit scale by a power of two (so
+    that the norm bound's floor, set for entries of order one, reads as at
+    phase 3's shapes): held per entry and in norm by conv_within. Then one
+    planted fault per kernel (conv_fault), read at the widest dx (K12) and
+    at the dw of the fewest splits above one (K13), must fail the norm
+    bound. Returns the largest max abs err
+    of each kernel (in the kernel's output units at unit-scaled operands)
+    and the printed readings."""
+    errs = {"conv2d_direct_nhwc": 0.0, "conv2d_dw_nhwc": 0.0}
+    line, faults = [], {}
+    for key in sorted(records, key=str):
+        role, xs, ws, st, dil, groups = key
+        x, w = (unit_scaled(t) for t in records[key])
+        dtype = torch.promote_types(x.dtype, w.dtype)
+        if role == "dw":
+            name = "conv2d_dw_nhwc"
+            out = C.conv2d_dw_nhwc(x, w, *st, dil)
+            ref = C.conv_dw_reference(x, w, st, dil)
+        else:
+            name = "conv2d_direct_nhwc"
+            out = C.conv2d_direct_nhwc(x, w, dil, st, groups=groups)
+            ref = C.conv_nd_reference(x, w, st, dil, groups)
+        err, rel, bound = conv_within(out, ref, f"phase 13 {key}", dtype)
+        errs[name] = max(errs[name], err)
+        line.append(f"{role} {xs}*{ws} {'k' if role == 'dw' else 's'}"
+                    f"{st[0]}: {err:.3g}, {rel:.2g}")
+        # where to plant: K12's widest dx; K13's dw of the fewest splits
+        # above one (a split there is the largest share of the sum), else
+        # any dw
+        if role == "dx":
+            rank = -xs[-1]
+        else:
+            rank = C._dw_splits(st[0] * st[1] * xs[-1], ws[-1],
+                                math.prod(ws[:-1]))[0]
+            rank = rank if rank > 1 else math.inf
+        if role != "fwd" and (role not in faults or rank < faults[role][0]):
+            faults[role] = (rank, xs, ws, x, w, ref)
+        del out, ref
+    read = {}
+    for role, name in (("dx", "conv2d_direct_nhwc"),
+                       ("dw", "conv2d_dw_nhwc")):
+        _, xs, ws, x, w, ref = faults[role]
+        read[role] = (xs, ws, conv_fault(C, name, x, w, ref))
+    faults.clear()
+    torch.cuda.empty_cache()
+    return errs, "; ".join(line), read
+
+
+def phase_resnet(R, C, profile):
+    """Phase 13: ResNet-18 (RESNET18, bf16, conv_impl "pallas") on 224x224
+    images at batch 64 (numpy seed 0), SGD with momentum 0.9 and lr 0.1: 2
+    warm-up and 5 timed steps on the repeated batch, launches held exact;
+    then one more step records every K12 and K13 call's operands, held
+    against the plain versions (check_recorded_convs). Returns the timed
+    steps' launch counts and the largest max abs err of K12 and K13 at
+    this path's shapes."""
+    B, size, n = 64, 224, 5
+    cfg = R.ResNetConfig(dtype=torch.bfloat16, conv_impl="pallas",
+                         **RESNET18)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0.0, 1.0, (B, size, size, 3)).astype(
+        np.float32)).to("cuda")
+    y = torch.from_numpy(rng.integers(0, cfg.num_classes, B)).to("cuda")
+    params = R.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    buf = R.momentum_init(params)
+    step = R.make_train_step(cfg, momentum=0.9)
+    losses = []
+    for _ in range(2):
+        params, buf, loss = step(params, buf, x, y, 0.1)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in C.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        params, buf, loss = step(params, buf, x, y, 0.1)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    launches = {k.__name__: k.launches for k in C.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"phase 13: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"phase 13: loss did not fall: {losses}")
+    want = conv_launch_want(R, cfg, n)
+    check(launches == want, f"phase 13: launches {launches}, want {want}")
+    flops = resnet_conv_flops(cfg, B, size)
+    mfu = 3 * flops / step_s / 989e12
+    print(f"phase 13 ResNet-18: imagenet stem, widths 64-512, 1000 classes, "
+          f"GroupNorm, bf16, conv_impl pallas, 224x224 B64, SGD momentum 0.9 "
+          f"lr 0.1: step {step_s * 1e3:.2f} ms, {B / step_s:.1f} images/s, "
+          f"conv MFU {mfu:.4f} (3 x {flops:.4g} forward conv FLOPs a step, "
+          f"of 989 TFLOP/s), peak {peak:.2f} GiB; losses "
+          f"{[round(v, 4) for v in losses]}; launches in {n} steps: K12 "
+          f"{launches['conv2d_direct_nhwc']}, K13 "
+          f"{launches['conv2d_dw_nhwc']}")
+    records = record_convs(C, lambda: step(params, buf, x, y, 0.1))
+    roles = [k[0] for k in records]
+    errs, line, read = check_recorded_convs(C, records)
+    del records
+    print(f"phase 13 K12/K13 at ResNet-18's shapes (one more step's operands, "
+          f"each distinct shape: {roles.count('fwd')} forward, "
+          f"{roles.count('dx')} dx, {roles.count('dw')} dw; unit-scaled by "
+          f"powers of two; bf16 within one ulp of max |entry| and in norm "
+          f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry), max "
+          f"abs err, ||err||/||ref||: {line}; planted faults, ||err||/||ref||"
+          f": K12 dx without its first tap at {read['dx'][0]}*{read['dx'][1]}"
+          f" {read['dx'][2]:.3g}, K13 without its first split's partial at "
+          f"{read['dw'][0]}*{read['dw'][1]} {read['dw'][2]:.3g}")
+    if profile:
+        root, ext = os.path.splitext(profile)
+        profile_step(lambda: step(params, buf, x, y, 0.1),
+                     "one ResNet-18 step", f"{root}_resnet{ext}")
+    del params, buf, x, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+# phase 14's Var conv graph: (name, kernel shape, input shape, stride,
+# dilation, groups, (pool, window), the kernel the forward launches)
+VAR_CONV_CASES = (
+    ("1d-d2", (8, 4, 3), (2, 4, 40), (1,), (2,), 1, ("max_pool", (2,)),
+     "conv1d_direct_nwc"),
+    ("1d-s2", (8, 4, 3), (2, 4, 40), (2,), (1,), 1, ("avg_pool", (3,)),
+     "conv2d_direct_nhwc"),
+    ("2d-s2", (8, 4, 3, 3), (2, 4, 17, 16), (2, 2), (1, 1), 1,
+     ("max_pool", (2, 2)), "conv2d_direct_nhwc"),
+    ("2d-d2", (8, 4, 3, 3), (2, 4, 17, 16), (1, 1), (2, 2), 1,
+     ("avg_pool", (2, 2)), "conv2d_direct_nhwc"),
+    ("2d-g2", (8, 2, 3, 3), (2, 4, 12, 12), (1, 1), (1, 1), 2,
+     ("max_pool", (3, 3)), "conv2d_direct_nhwc"),
+    ("3d-d2", (6, 4, 2, 2, 2), (2, 4, 7, 8, 6), (1, 1, 1), (1, 2, 1), 1,
+     ("avg_pool", (2, 2, 2)), "conv3d_direct_ndhwc"),
+)
+# bench.py:897-913, the shapes whose conv tier the JAX bench records
+ROUTE_SHAPES = (
+    ("conv2d_56x56x256_s1", 2, (1, 1), dict(batch=64)),
+    ("conv2d_56x56x256_s2", 2, (2, 2), dict(batch=64)),
+    ("conv2d_28x28x512_B4", 2, (1, 1), dict(
+        batch=4, ksize=3, sample_bytes=30 * 28 * 512 * 2,
+        weight_bytes=9 * 512 * 512 * 2)),
+    ("conv1d_3136x256", 1, (1,), dict(batch=64)),
+    ("conv1d_3136x256_B4", 1, (1,), dict(
+        batch=4, ksize=3, sample_bytes=3139 * 256 * 2,
+        weight_bytes=3 * 256 * 256 * 2)),
+    ("conv3d_14x128", 3, (1, 1, 1), dict(batch=32)),
+)
+
+
+def phase_conv_routes(nk, R, C):
+    """Phase 14: the conv kernel routes on the card against the plain
+    routes on the CPU, f32, within phase 7's bounds: a small ResNet
+    (stages (1, 1), width 16, both stems, conv_impl "pallas": K12/K13 on
+    the card, their plain versions on the CPU) on its logits, loss and
+    every gradient; and a small Var graph of 1-d, 2-d and 3-d convolutions,
+    each pooled, under use_kernels with conv_route "force" (K12, K14, K15)
+    against the library route on the CPU, on its loss and every gradient.
+    Launch counts are held exact, each run's counted from 0. Then the tier
+    "auto" picks for the shapes bench.py names. Returns the Var graph's
+    launches on the card."""
+    from neuronika_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
+
+    def zero_counts():
+        for k in C.KERNELS:
+            k.launches = 0
+
+    def counts():
+        return {k.__name__: k.launches for k in C.KERNELS}
+
+    errs = {}
+    for stem, size in (("cifar", 16), ("imagenet", 32)):
+        cfg = R.ResNetConfig(stages=(1, 1), width=16, num_classes=10,
+                             stem=stem, conv_impl="pallas")
+        params = R.init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+        rng = np.random.default_rng(5)
+        xv = rng.uniform(0.0, 1.0, (2, size, size, 3)).astype(np.float32)
+        yv = rng.integers(0, cfg.num_classes, 2)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            x, y = torch.from_numpy(xv).to(dev), torch.from_numpy(yv).to(dev)
+            with torch.no_grad():
+                logits = R.forward(p, x, cfg).cpu()
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in tree_leaves(p)]
+            zero_counts()
+            loss = R.loss_fn(tree_unflatten(p, leaves), x, y, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            res[dev] = (logits, float(loss.detach()),
+                        [t.cpu() for t in grads], counts())
+        want = conv_launch_want(R, cfg, 1)
+        check(res["cuda"][3] == want, f"phase 14 resnet-{stem}: launches "
+                                      f"{res['cuda'][3]}, want {want}")
+        e_logit = float((res["cuda"][0] - res["cpu"][0]).abs().max())
+        e_loss = abs(res["cuda"][1] - res["cpu"][1])
+        e_grad = max(float((a - b).abs().max())
+                     for a, b in zip(res["cuda"][2], res["cpu"][2]))
+        errs[f"resnet-{stem}"] = (res["cpu"][1], max(e_logit, e_loss),
+                                  e_grad)
+        check(max(e_logit, e_loss) <= ROUTE_LOSS_TOL,
+              f"phase 14 resnet-{stem}: logits/loss err {e_logit}, {e_loss}")
+        check(e_grad <= ROUTE_GRAD_TOL,
+              f"phase 14 resnet-{stem}: grad err {e_grad}")
+
+    rng = np.random.default_rng(9)
+    arrays = [((0.2 * rng.standard_normal(ks)).astype(np.float32),
+               rng.standard_normal(xs).astype(np.float32))
+              for _, ks, xs, *_ in VAR_CONV_CASES]
+    res = {}
+    old_route = nk.config.conv_route
+    for dev in ("cpu", "cuda"):
+        nk.enable_kernels(dev == "cuda")
+        nk.config.conv_route = "force"
+        leaves, loss = [], None
+        for (name, _, _, s, d, groups, (pool, win), _), (kv, xv) in zip(
+                VAR_CONV_CASES, arrays):
+            k = nk.from_ndarray(kv, device=dev).requires_grad()
+            x = nk.from_ndarray(xv, device=dev).requires_grad()
+            leaves += [k, x]
+            term = getattr(k.convolution(x, s, d, groups), pool)(win).pow(
+                2).mean()
+            loss = term if loss is None else loss + term
+        zero_counts()
+        loss.forward()
+        loss.backward(1.0)
+        torch.cuda.synchronize()
+        res[dev] = (loss.item(), [v.grad().cpu() for v in leaves], counts())
+    nk.enable_kernels(False)
+    nk.config.conv_route = old_route
+    want = {k.__name__: 0 for k in C.KERNELS}
+    for case in VAR_CONV_CASES:
+        want[case[-1]] += 1
+    check(res["cuda"][2] == want, f"phase 14 Var convs: launches "
+                                  f"{res['cuda'][2]}, want {want}")
+    e_loss = abs(res["cuda"][0] - res["cpu"][0])
+    e_grad = max(float((a - b).abs().max())
+                 for a, b in zip(res["cuda"][1], res["cpu"][1]))
+    errs["var-convs"] = (res["cpu"][0], e_loss, e_grad)
+    check(e_loss <= ROUTE_LOSS_TOL, f"phase 14 Var convs: loss err {e_loss}")
+    check(e_grad <= ROUTE_GRAD_TOL, f"phase 14 Var convs: grad err {e_grad}")
+
+    nk.config.conv_route = "auto"
+    routes = {name: C.route_conv2d(nd, stride, (1,) * nd, 1, on_card=True,
+                                   **kw)
+              for name, nd, stride, kw in ROUTE_SHAPES}
+    nk.config.conv_route = old_route
+    print("phase 14 conv kernel routes (card) vs plain routes (CPU), f32: "
+          "ResNet stages (1, 1) width 16 B2 (cifar 16x16, imagenet 32x32), "
+          "conv_impl pallas; Var graph of 1-d, 2-d (stride, dilation, "
+          "groups) and 3-d convolutions, each pooled, kernels on with "
+          "conv_route force; loss, |d logits or loss|, max |d grad|: "
+          + ", ".join(f"{k} {a:.6f}, {b:.3g}, {c:.3g}"
+                      for k, (a, b, c) in errs.items())
+          + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL}); launches "
+          f"{res['cuda'][2]} (Var graph); conv_route auto on the card "
+          f"picks {json.dumps(routes)} (the JAX package's table, measured "
+          f"on a TPU v5e, untimed on the H100)")
+    return res["cuda"][2]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
                         help="profile one more headline train step, "
-                             "Var flagship step and Mistral 7B step and "
-                             "write their kernel tables here (and *_var, "
-                             "*_mistral)")
+                             "Var flagship step, Mistral 7B step and "
+                             "ResNet-18 step and write their kernel tables "
+                             "here (and *_var, *_mistral, *_resnet)")
     profile = parser.parse_args().profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -1305,7 +1950,9 @@ def main() -> int:
         return 1
     import neuronika_tpu_torch as nk
     from neuronika_tpu_torch import _build, optim
+    from neuronika_tpu_torch.models import resnet as R
     from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.ops import conv as C
     from neuronika_tpu_torch.ops import flash_attention as FA
     from neuronika_tpu_torch.ops import matmul as MM
     from neuronika_tpu_torch.ops import softmax as SM
@@ -1340,6 +1987,7 @@ def main() -> int:
     flash = phase_flash_kernels(rng, FA)
     mm_sm = phase_mm_softmax(MM, SM)
     sflash = phase_split_flash(FA)
+    convk = phase_conv_kernels(C)
 
     # 4. serving end to end at full width
     cfg = T.GPTConfig(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
@@ -1406,6 +2054,12 @@ def main() -> int:
     mistral = phase_mistral(T, FA, profile)
     phase_split_routes(T, FA)
 
+    # 13. ResNet-18 training on K12/K13; 14. conv kernel vs plain routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet, resnet_errs = phase_resnet(R, C, profile)
+    var_convs = phase_conv_routes(nk, R, C)
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -1451,6 +2105,25 @@ def main() -> int:
                         "launches": mistral[name], "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib})
+    # K12 and K13 run on phase 13's path (launches, and errors on its
+    # operands brought to unit scale), K14 and K15 on phase 14's Var graph
+    # (launches; errors at bench.py's shapes); times at bench.py's shapes
+    # (phase 3)
+    for name, line, path in (
+            ("conv2d_direct_nhwc", 46, resnet),
+            ("conv2d_dw_nhwc", 334, resnet),
+            ("conv1d_direct_nwc", 574, var_convs),
+            ("conv3d_direct_ndhwc", 733, var_convs)):
+        e, ms, p_ms, lib, bound = convk[name]
+        e = resnet_errs.get(name, e)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"{csrc}conv.cu",
+                        "replaces": f"neuronika_tpu/ops/pallas/conv.py:{line}",
+                        "launches": path[name],
+                        "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": lib})
+    print(smi[0])           # again, so that the end of the output holds it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

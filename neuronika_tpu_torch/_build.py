@@ -139,4 +139,13 @@ def load_library() -> ctypes.CDLL:
     fn = lib.nk_softmax
     fn.argtypes = [i, p, p, i, i, i, p]          # dtype, x, y, rows, cols,
     fn.restype = i                               # log, stream
+    geo = ctypes.POINTER(ctypes.c_int)           # 19 ints, csrc/conv.cu
+    for name in ("nk_conv1d", "nk_conv2d", "nk_conv3d"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, p, p, p, geo, p]       # dtype, x, w, out, geo,
+        fn.restype = i                           # stream
+    fn = lib.nk_conv_dw
+    fn.argtypes = [i, p, p, p, p, geo,           # dtype, x, g, ws, out, geo
+                   i, i, p]                      # splits, chunk, stream
+    fn.restype = i
     return lib

@@ -1,12 +1,19 @@
 """Global configuration of the port (counterpart of `neuronika_tpu/config.py`).
 
-Three switches, each with the JAX package's meaning:
+Four switches, each with the JAX package's meaning:
 * `use_kernels` (JAX `use_pallas`): route the define-by-run `mm` and
   last-axis `softmax`/`log_softmax` ops to the hand-written CUDA kernels
-  (K3, K4) for CUDA tensors. Opt-in, read from `NEURONIKA_TPU_TORCH_KERNELS`;
-  `enable_kernels` toggles it and clears the executor caches, as
-  `enable_pallas` does. The flash-attention op is gated by the device and
-  shape alone, as the JAX op is gated by the backend.
+  (K3, K4) for CUDA tensors, and `convolution` to the direct-conv kernels
+  (K12, K14, K15) where `conv_route` lets it. Opt-in, read from
+  `NEURONIKA_TPU_TORCH_KERNELS`; `enable_kernels` toggles it and clears the
+  executor caches, as `enable_pallas` does. The flash-attention op is gated
+  by the device and shape alone, as the JAX op is gated by the backend.
+* `conv_route` (JAX `pallas_conv_route`), read from
+  `NEURONIKA_TPU_TORCH_CONV`: "auto" lets `ops.conv.route_conv2d`'s
+  per-shape table pick the conv tier under `use_kernels`; "force" always
+  takes the direct-conv kernels (their plain versions on the CPU). The
+  table is the JAX package's, measured on a TPU v5e; nobody has timed its
+  choices on the H100 (ROADMAP.md queue 1 item 8).
 * `device`: where the factories put new leaves, "cuda" unless a caller sets
   "cpu" (JAX's default backend plays this part).
 * the global seed stream used by `rand` and dropout: `seed(s)` and
@@ -25,6 +32,8 @@ class _Config(threading.local):
     def __init__(self) -> None:
         self.use_kernels: bool = (
             os.environ.get("NEURONIKA_TPU_TORCH_KERNELS", "0") == "1")
+        self.conv_route: str = os.environ.get("NEURONIKA_TPU_TORCH_CONV",
+                                              "auto")
         self.device: str = "cuda"
         self._gen = None
 

@@ -1,0 +1,438 @@
+"""K12-K15: direct convolutions (counterpart of
+`neuronika_tpu/ops/pallas/conv.py`).
+
+Layouts are the JAX package's: channels last, kernels (*taps, Ci/groups,
+Co), VALID (a caller pads first). The kernel wrappers:
+  `conv2d_direct_nhwc`  K12: x (N, H, W, Ci) * w (kh, kw, Ci/g, Co), any
+                        stride, dilation and groups, taken natively in one
+                        launch (JAX decomposes strides into phases);
+  `conv2d_dw_nhwc`      K13: the weight gradient of a stride-1 2-d conv,
+                        (kh, kw, Ci, Co) in f32;
+  `conv1d_direct_nwc`   K14 at stride 1: x (N, L, Ci) * w (k, Ci, Co); a
+                        strided 1-d conv runs on K12 as a (1, L) image;
+  `conv3d_direct_ndhwc` K15: x (N, D, H, W, Ci) * w (kd, kh, kw, Ci, Co),
+                        stride 1.
+For CUDA tensors each launches its kernel of `csrc/conv.cu` (FFMA for f32,
+mma.sync for bf16, f32 accumulation, the output in x's dtype) and adds one
+to its `launches`; other tensors take the plain version beside it, an
+im2col built from strided views and one f32 product, rounded once. The
+block-size and `interpret` arguments of the JAX functions size the TPU's
+VMEM blocks and are accepted and ignored.
+
+Around them: `conv2d_input_grad_nhwc`, the stride-1 input gradient on
+K12; the NCHW facade and gradients (`conv2d_direct`,
+`conv2d_direct_input_grad`, `conv2d_direct_kernel_grad`), permutes
+around the NHWC functions; `conv2d_pallas_nhwc`, the differentiable NHWC
+conv of the ResNet model (stride-1 backward on K12 and K13, strided
+backward by the library's transposed convolution, as JAX leaves it to
+XLA); `route_conv2d`, the JAX package's per-shape tier table, measured on
+a TPU v5e and not re-decided on the H100; and `_same_pads`, TF/lax SAME
+padding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..config import config
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT_MAX = 2 ** 31 - 1
+# K13: split the pixel reduction so that the CTAs fill the 132 SMs, two
+# each, in ONE wave (a second, nearly empty wave costs as much as the
+# first), each reducing at least _SPLIT_MIN pixels
+_SPLIT_MIN = 1024
+_TARGET_CTAS = 264
+_TILE = 128
+
+
+def _out_len(n, k, s, d):
+    return (n - d * (k - 1) - 1) // s + 1
+
+
+def _as_tuple(v, r):
+    return tuple(v) if isinstance(v, (tuple, list)) else (int(v),) * r
+
+
+def _check(x, w, stride, dilation, groups):
+    """Output spatial sizes of x (N, *S, Ci) * w (*k, Ci/groups, Co);
+    raises ValueError on a mismatch."""
+    r = len(stride)
+    if x.dim() != r + 2 or w.dim() != r + 2:
+        raise ValueError(f"a rank-{r} conv takes x (N, *{r} dims, Ci) and w "
+                         f"(*{r} taps, Ci/groups, Co), got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    if min(stride) < 1 or min(dilation) < 1 or groups < 1:
+        raise ValueError("stride, dilation and groups must be positive")
+    ci, (cig, co) = x.shape[-1], w.shape[-2:]
+    if cig * groups != ci or co % groups:
+        raise ValueError(f"channel/group mismatch: Ci {ci}, kernel "
+                         f"{tuple(w.shape)}, groups {groups}")
+    out = tuple(_out_len(n, k, s, d) for n, k, s, d in
+                zip(x.shape[1:-1], w.shape[:r], stride, dilation))
+    if min(out) <= 0:
+        raise ValueError("kernel larger than input")
+    return out
+
+
+def _patches(x, ksize, out, stride, dilation):
+    """The im2col of x (N, *S, Ci) in f32: (N * prod(out), prod(ksize),
+    Ci), a copy built from one strided view."""
+    xf = x.float().contiguous()
+    st = xf.stride()
+    r = len(ksize)
+    view = xf.as_strided(
+        (x.shape[0], *out, *ksize, x.shape[-1]),
+        (st[0], *(s * st[1 + i] for i, s in enumerate(stride)),
+         *(d * st[1 + i] for i, d in enumerate(dilation)), st[-1]))
+    return view.reshape(x.shape[0] * math.prod(out), math.prod(ksize),
+                        x.shape[-1])
+
+
+def conv_nd_reference(x, w, stride, dilation, groups=1):
+    """Plain version of K12, K14 and K15 (and of K12 on a strided 1-d
+    conv): x (N, *S, Ci) * w (*k, Ci/groups, Co), VALID, any rank: the
+    im2col of x times w per group, in f32, rounded once to x's dtype. Runs
+    on any device."""
+    stride, dilation = tuple(stride), tuple(dilation)
+    out = _check(x, w, stride, dilation, groups)
+    r, co = len(stride), w.shape[-1]
+    p = _patches(x, w.shape[:r], out, stride, dilation)
+    p = p.reshape(p.shape[0], p.shape[1], groups, -1)
+    wm = w.float().reshape(p.shape[1], w.shape[-2], groups, co // groups)
+    y = torch.einsum("mtgc,tcgo->mgo", p, wm)
+    return y.reshape(x.shape[0], *out, co).to(x.dtype)
+
+
+def conv_dw_reference(x, g, ksize, dilation):
+    """Plain version of K13 at any rank: the weight gradient of the
+    stride-1 VALID conv of x (N, *S, Ci) whose output gradient is g (N,
+    *O, Co): the im2col of x, transposed, times g, in f32 -> (*ksize, Ci,
+    Co) f32."""
+    out, ci, co = tuple(g.shape[1:-1]), x.shape[-1], g.shape[-1]
+    r = len(ksize)
+    p = _patches(x, ksize, out, (1,) * r, dilation)
+    dw = p.reshape(p.shape[0], -1).T @ g.float().reshape(-1, co)
+    return dw.reshape(*ksize, ci, co)
+
+
+def _c_geo(x, w_taps, out, co, stride, dilation, groups):
+    """The C entry points' geometry (rank 3, unit leading dims padded in)."""
+    lead = 3 - len(out)
+    dims = (1,) * lead
+    g = (x.shape[0], *dims, *x.shape[1:-1], x.shape[-1], *dims, *out, co,
+         *dims, *w_taps, *dims, *stride, *dims, *dilation, groups)
+    return (ctypes.c_int * 19)(*g)
+
+
+def _card_operands(x, w, what):
+    """x and w as contiguous tensors of their promoted dtype on x's card;
+    raises on what the kernels cannot take."""
+    if x.device != w.device:
+        raise ValueError(f"operands on {x.device} and {w.device}")
+    ct = torch.promote_types(x.dtype, w.dtype)
+    if ct not in _DTYPES:
+        raise TypeError(f"{what} takes {', '.join(map(str, _DTYPES))}, not "
+                        f"{ct}")
+    return x.to(ct).contiguous(), w.to(ct).contiguous(), ct
+
+
+def _launch(fn, cname, x, w, stride, dilation, groups, out):
+    """Launch forward kernel `cname` of x * w into a new (N, *out, Co)
+    tensor; adds one to fn.launches."""
+    xc, wc, ct = _card_operands(x, w, fn.__name__)
+    co = w.shape[-1]
+    m = x.shape[0] * math.prod(out)
+    if m > _INT_MAX or math.prod(w.shape[:-1]) * groups > _INT_MAX:
+        raise ValueError(f"{fn.__name__}: {m} output pixels exceed the "
+                         f"kernel's int32 indexing")
+    y = torch.empty((x.shape[0], *out, co), dtype=ct, device=x.device)
+    from .._build import load_library
+
+    r = len(out)
+    with torch.cuda.device(x.device):
+        err = getattr(load_library(), cname)(
+            _DTYPES[ct], xc.data_ptr(), wc.data_ptr(), y.data_ptr(),
+            _c_geo(x, w.shape[:r], out, co, stride, dilation, groups),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError "
+                           f"{err}")
+    fn.launches += 1
+    return y if ct == x.dtype else y.to(x.dtype)
+
+
+def conv2d_direct_nhwc(x, w, dilation=(1, 1), stride=(1, 1), *,
+                       groups: int = 1, block_h: int = 0,
+                       block_co: int = 256, interpret: bool = False):
+    """K12: x (N, H, W, Ci) * w (kh, kw, Ci/groups, Co), VALID -> (N, Ho,
+    Wo, Co) in x's dtype, f32 accumulation. Strided and dilated at once,
+    in one launch. CUDA tensors: the kernel; others: `conv_nd_reference`."""
+    del block_h, block_co, interpret
+    stride, dilation = _as_tuple(stride, 2), _as_tuple(dilation, 2)
+    out = _check(x, w, stride, dilation, groups)
+    if x.device.type != "cuda":
+        return conv_nd_reference(x, w, stride, dilation, groups)
+    return _launch(conv2d_direct_nhwc, "nk_conv2d", x, w, stride, dilation,
+                   groups, out)
+
+
+def conv1d_direct_nwc(x, w, dilation=1, stride=1, *, out_ncw=False,
+                      interpret=False):
+    """x (N, L, Ci) * w (k, Ci, Co), VALID -> (N, Lout, Co), or (N, Co,
+    Lout) when `out_ncw` (a transpose after the kernel). Stride 1: K14,
+    adding one to `conv1d_direct_nwc.launches`; strided: K12 on the (1, L)
+    image with (1, k) taps, as JAX lowers it. CPU tensors: the plain
+    versions."""
+    del interpret
+    if w.dim() == 3 and w.shape[1] != x.shape[-1]:
+        raise ValueError("channel mismatch (grouped conv1d: use the library "
+                         "convolution)")
+    if stride != 1:
+        a = conv2d_direct_nhwc(x[:, None], w[None], (1, dilation),
+                               (1, stride))[:, 0]
+    else:
+        out = _check(x, w, (1,), (dilation,), 1)
+        if x.device.type != "cuda":
+            a = conv_nd_reference(x, w, (1,), (dilation,))
+        else:
+            a = _launch(conv1d_direct_nwc, "nk_conv1d", x, w, (1,),
+                        (dilation,), 1, out)
+    return a.transpose(1, 2) if out_ncw else a
+
+
+def conv3d_direct_ndhwc(x, w, dilation=(1, 1, 1), *, block_d: int = 0,
+                        block_co: int = 256, interpret: bool = False):
+    """K15: x (N, D, H, W, Ci) * w (kd, kh, kw, Ci, Co), stride 1, VALID ->
+    NDHWC in x's dtype, f32 accumulation. CUDA tensors: the kernel; others:
+    `conv_nd_reference`."""
+    del block_d, block_co, interpret
+    dilation = _as_tuple(dilation, 3)
+    if w.dim() == 5 and w.shape[3] != x.shape[-1]:
+        raise ValueError("channel mismatch (groups != 1 not supported here)")
+    out = _check(x, w, (1, 1, 1), dilation, 1)
+    if x.device.type != "cuda":
+        return conv_nd_reference(x, w, (1, 1, 1), dilation)
+    return _launch(conv3d_direct_ndhwc, "nk_conv3d", x, w, (1, 1, 1),
+                   dilation, 1, out)
+
+
+def _dw_splits(rows, co, pixels):
+    """(splits, pixels a split) for K13: at most _TARGET_CTAS CTAs, each
+    reducing at least _SPLIT_MIN pixels, in multiples of 32."""
+    tiles = -(-rows // _TILE) * -(-co // _TILE)
+    splits = max(1, min(_TARGET_CTAS // tiles, pixels // _SPLIT_MIN))
+    chunk = -(-pixels // splits)
+    chunk = -(-chunk // 32) * 32
+    return -(-pixels // chunk), chunk
+
+
+def conv2d_dw_nhwc(x, g, kh: int, kw: int, dilation=(1, 1), *,
+                   block_ci: int = 128, block_co: int = 128,
+                   interpret: bool = False):
+    """K13: d(kernel) of the stride-1 VALID NHWC conv, x (N, H, W, Ci) and
+    the output gradient g (N, Ho, Wo, Co) -> (kh, kw, Ci, Co) f32. CUDA
+    tensors: the kernel (split over the pixels, partials summed in a fixed
+    order), adding one to `conv2d_dw_nhwc.launches`; others:
+    `conv_dw_reference`."""
+    del block_ci, block_co, interpret
+    dh, dw_ = _as_tuple(dilation, 2)
+    if x.dim() != 4 or g.dim() != 4 or x.shape[0] != g.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} must be "
+                         f"(N, H, W, C) of one batch")
+    N, H, W, Ci = x.shape
+    _, Ho, Wo, Co = g.shape
+    if (min(kh, kw, dh, dw_, Ho, Wo) < 1 or Ho + dh * (kh - 1) > H
+            or Wo + dw_ * (kw - 1) > W):
+        raise ValueError(f"g {tuple(g.shape)} is no output of a {kh}x{kw} "
+                         f"conv (dilation {dh, dw_}) of x {tuple(x.shape)}")
+    if x.device.type != "cuda":
+        return conv_dw_reference(x, g, (kh, kw), (dh, dw_))
+    xc, gc, ct = _card_operands(x, g, "conv2d_dw_nhwc")
+    pixels, rows = N * Ho * Wo, kh * kw * Ci
+    if pixels > _INT_MAX or rows > _INT_MAX:
+        raise ValueError("conv2d_dw_nhwc: sizes exceed the kernel's int32 "
+                         "indexing")
+    out = torch.empty((kh, kw, Ci, Co), dtype=torch.float32, device=x.device)
+    splits, chunk = _dw_splits(rows, Co, pixels)
+    ws = (torch.empty((splits, rows, Co), dtype=torch.float32,
+                      device=x.device) if splits > 1 else out)
+    from .._build import load_library
+
+    with torch.cuda.device(x.device):
+        err = load_library().nk_conv_dw(
+            _DTYPES[ct], xc.data_ptr(), gc.data_ptr(), ws.data_ptr(),
+            out.data_ptr(),
+            _c_geo(x, (kh, kw), (Ho, Wo), Co, (1, 1), (dh, dw_), 1),
+            splits, chunk, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"conv2d_dw_nhwc kernel launch failed: cudaError "
+                           f"{err}")
+    conv2d_dw_nhwc.launches += 1
+    return out
+
+
+for _fn in (conv2d_direct_nhwc, conv2d_dw_nhwc, conv1d_direct_nwc,
+            conv3d_direct_ndhwc):
+    _fn.launches = 0
+
+KERNELS = (conv2d_direct_nhwc, conv2d_dw_nhwc, conv1d_direct_nwc,
+           conv3d_direct_ndhwc)
+
+
+# --------------------------------------------------------------------------
+# NCHW facade and the stride-1 gradients by composition
+
+
+def conv2d_direct(x, w, dilation=(1, 1), stride=(1, 1), *, groups: int = 1,
+                  block_h: int = 0, interpret: bool = False):
+    """NCHW facade over K12: x (N, Ci, H, W) * w (Co, Ci/groups, kh, kw) ->
+    (N, Co, Ho, Wo), VALID."""
+    del block_h, interpret
+    out = conv2d_direct_nhwc(x.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0),
+                             dilation, stride, groups=groups)
+    return out.permute(0, 3, 1, 2)
+
+
+def conv2d_input_grad_nhwc(g, w, dilation=(1, 1)):
+    """d(input) of a stride-1 VALID NHWC conv of kernel w (kh, kw, Ci, Co):
+    the full correlation of g (N, Ho, Wo, Co) with the spatially flipped,
+    io-swapped kernel, on K12 -> (N, H, W, Ci)."""
+    dh, dw_ = _as_tuple(dilation, 2)
+    kh, kw = w.shape[0], w.shape[1]
+    gpad = _pad_nhwc(g, (dh * (kh - 1),) * 2, (dw_ * (kw - 1),) * 2)
+    return conv2d_direct_nhwc(gpad, w.flip(0, 1).transpose(2, 3), (dh, dw_))
+
+
+def conv2d_direct_input_grad(g, w, dilation=(1, 1), *, interpret=False):
+    """d(input) of a stride-1 VALID conv (NCHW): `conv2d_input_grad_nhwc`
+    on permuted views."""
+    del interpret
+    dx = conv2d_input_grad_nhwc(g.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0),
+                                dilation)
+    return dx.permute(0, 3, 1, 2)
+
+
+def conv2d_direct_kernel_grad(x, g, *, interpret=False):
+    """d(kernel) of a stride-1, dilation-1 VALID conv (NCHW), on K13."""
+    del interpret
+    kh = x.shape[2] - g.shape[2] + 1
+    kw = x.shape[3] - g.shape[3] + 1
+    dw = conv2d_dw_nhwc(x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1), kh, kw)
+    return dw.permute(3, 2, 0, 1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# the per-shape tier table
+
+
+def route_conv2d(nd: int, stride, dilation, groups: int,
+                 training: bool = True, batch: int = 0, ksize: int = 0,
+                 sample_bytes: int = 0, weight_bytes: int = 0, *,
+                 on_card: bool = False) -> str:
+    """The JAX package's per-shape tier choice for the direct conv kernels,
+    "pallas" or "xla" (the library convolution), copied as it stands:
+    `config.conv_route == "force"` always picks the kernels; otherwise the
+    kernels take stride-1, unit-dilation, ungrouped k3 convs of rank 1 or 2
+    at batch <= 4 whose padded sample fits 2 MB and kernel 6 MB, when the
+    tensors are `on_card`. The table was measured on a TPU v5e; it has not
+    been re-decided on the H100 (ROADMAP.md queue 1 item 8)."""
+    del training
+    if config.conv_route == "force":
+        return "pallas"
+    small = (0 < batch <= 4 and groups == 1 and ksize == 3
+             and 0 < sample_bytes <= 2e6 and 0 < weight_bytes <= 6e6
+             and on_card)
+    if nd == 2 and small and tuple(stride) == (1, 1) \
+            and tuple(dilation) == (1, 1):
+        return "pallas"
+    if nd == 1 and small and tuple(stride) == (1,) \
+            and tuple(dilation) == (1,):
+        return "pallas"
+    return "xla"
+
+
+# --------------------------------------------------------------------------
+# the differentiable NHWC conv of models/resnet.py
+
+
+def _same_pads(size, k, s):
+    """lax/TF SAME: out = ceil(size / s); the padding split with the smaller
+    half first."""
+    out = -(-size // s)
+    pad = max((out - 1) * s + k - size, 0)
+    lo = pad // 2
+    return lo, pad - lo
+
+
+def _pads(x, w, stride, padding):
+    if padding == "SAME":
+        return (_same_pads(x.shape[1], w.shape[0], stride[0]),
+                _same_pads(x.shape[2], w.shape[1], stride[1]))
+    if padding != "VALID":
+        raise ValueError(f"unknown padding {padding!r}")
+    return (0, 0), (0, 0)
+
+
+def _pad_nhwc(x, ph, pw, value=0.0):
+    if not any(ph + pw):
+        return x
+    return F.pad(x, (0, 0, *pw, *ph), value=value)
+
+
+class _ConvNHWC(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ph, pw = _pads(x, w, stride, padding)
+        ctx.save_for_backward(x, w)
+        ctx.geometry = stride, ph, pw
+        return conv2d_direct_nhwc(_pad_nhwc(x, ph, pw), w, (1, 1), stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, ph, pw = ctx.geometry
+        need_x, need_w = ctx.needs_input_grad[:2]
+        kh, kw = w.shape[0], w.shape[1]
+        xp = _pad_nhwc(x, ph, pw)
+        dx = dw = None
+        if stride == (1, 1):
+            g = g.contiguous()
+            if need_x:
+                # dx of the padded input, its padding border cropped
+                dx = conv2d_input_grad_nhwc(g, w)
+                dx = dx[:, ph[0]:dx.shape[1] - ph[1],
+                        pw[0]:dx.shape[2] - pw[1]]
+            if need_w:
+                dw = conv2d_dw_nhwc(xp, g, kh, kw).to(w.dtype)
+            return dx, dw, None, None
+        # strided: the library's transposed convolution of the padded VALID
+        # conv (JAX leaves this to XLA's transpose of the lax conv), on
+        # contiguous NCHW copies: on the CPU, both transposes of channels-last
+        # views corrupt the heap (seen with PyTorch 2.13, 1x1/2 kernels)
+        xn = xp.permute(0, 3, 1, 2).contiguous()
+        wn = w.permute(3, 2, 0, 1).contiguous()
+        gn = g.permute(0, 3, 1, 2).contiguous()
+        if need_x:
+            dxp = torch.nn.grad.conv2d_input(xn.shape, wn, gn, stride)
+            dx = dxp[:, :, ph[0]:dxp.shape[2] - ph[1],
+                     pw[0]:dxp.shape[3] - pw[1]].permute(0, 2, 3, 1)
+        if need_w:
+            dw = torch.nn.grad.conv2d_weight(xn, wn.shape, gn,
+                                             stride).permute(2, 3, 1, 0)
+        return dx, dw, None, None
+
+
+def conv2d_pallas_nhwc(x, w, stride=(1, 1), padding="SAME",
+                       interpret: bool = False):
+    """NHWC * HWIO conv on the kernel tier, SAME or VALID, any stride;
+    differentiable. The forward runs K12 on the padded input. At stride 1
+    the backward runs K12 for dx (on the padded gradient, with the flipped,
+    io-swapped kernel) and K13 for dw; a strided backward is the library's
+    transposed convolution."""
+    del interpret
+    return _ConvNHWC.apply(x, w, _as_tuple(stride, 2), padding)

@@ -32,12 +32,18 @@ Kernel routes, for CUDA tensors:
   same flag; their VJPs stay plain torch, as they are plain XLA in JAX;
 * `flash_attention` runs the packed flash kernels (K1 forward, the fused K2
   backward) whenever the tensor is on the card and K1 takes its shape, as
-  the JAX op runs its Pallas kernel whenever the backend is a TPU.
-Everything else, and every op on the CPU, is plain torch.
+  the JAX op runs its Pallas kernel whenever the backend is a TPU;
+* `convolution` runs the direct-conv kernels (K12 for 2-d, K14 for 1-d,
+  K15 for 3-d; `ops/conv.py`) under the same flag where
+  `config.conv_route` and JAX's shape gates send it there; its VJP and
+  every other shape are the library convolution, as they are XLA's in JAX.
+Everything else is plain torch, and so is every op on the CPU apart from
+the kernels' plain versions that the routes above reach there.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import config
+from .conv import (conv1d_direct_nwc, conv2d_direct, conv3d_direct_ndhwc,
+                   route_conv2d)
 from .flash_attention import (_DTYPES as _FLASH_DTYPES, _HEAD_DIMS, _MAX_G,
                               flash_bwd_fused_qkv, flash_fwd_qkv)
 from .matmul import matmul as kernel_matmul
@@ -515,18 +523,140 @@ def _pad_vjp(e, p, o, g):
 _register("pad", _pad_fwd, _pad_vjp)
 
 # --------------------------------------------------------------------------
-# the conv tier: not ported yet
+# convolution: input (N, Ci, *spatial), kernel (Co, Ci/groups, *k), VALID
+# (padding composes through `pad`); extra = (stride, dilation, groups). The
+# operand order is (kernel, input): the reference's receiver is the kernel.
+
+_LIB_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_LIB_CONV_INPUT = {1: torch.nn.grad.conv1d_input,
+                   2: torch.nn.grad.conv2d_input,
+                   3: torch.nn.grad.conv3d_input}
+_LIB_CONV_WEIGHT = {1: torch.nn.grad.conv1d_weight,
+                    2: torch.nn.grad.conv2d_weight,
+                    3: torch.nn.grad.conv3d_weight}
 
 
-def _conv_tier(*args, **kwargs):
-    raise NotImplementedError(
-        "convolution and pooling (the conv tier with its kernels K12-K15) "
-        "are not ported yet (ROADMAP.md queue 1 item 8)")
+def _conv_lib(e, kernel, inp):
+    """The library convolution (JAX's lax conv): promoted operands, f32
+    accumulation, the result in the input's dtype."""
+    stride, dilation, groups = e
+    k, x = _promote(kernel, inp)
+    return _LIB_CONV[len(stride)](x, k, stride=stride, dilation=dilation,
+                                  groups=groups).to(inp.dtype)
 
 
-_register("convolution", _conv_tier, _conv_tier)
-_register("max_pool", _conv_tier, _conv_tier)
-_register("avg_pool", _conv_tier, _conv_tier)
+def _conv_use_kernels(e, kernel, inp) -> bool:
+    """Whether `convolution` takes the direct-conv kernels: under
+    `use_kernels`, when `conv_route` is "force" or the per-shape table picks
+    them for tensors on the card (JAX's route, with `on_tpu()` read as
+    "the tensors are on the card"; the table was measured on a TPU v5e
+    and its "auto" choices are untimed on the H100)."""
+    if not config.use_kernels:
+        return False
+    stride, dilation, groups = e
+    nd = len(stride)
+    kw = {"batch": inp.shape[0]}
+    if nd in (1, 2):
+        k = kernel.shape[2:]
+        # the padded sample and the kernel the TPU kernel holds in VMEM
+        sample = (((inp.shape[2] + 2) * inp.shape[3]) if nd == 2
+                  else inp.shape[2] + k[0])
+        kw.update(ksize=k[0] if len(set(k)) == 1 else 0,
+                  sample_bytes=sample * inp.shape[1] * inp.element_size(),
+                  weight_bytes=kernel.numel() * kernel.element_size())
+    return route_conv2d(nd, stride, dilation, groups,
+                        on_card=inp.device.type == "cuda",
+                        **kw) == "pallas"
+
+
+def _conv_fwd(e, kernel, inp):
+    """Under the kernel route, JAX's shape gates: 2-d with stride 1 or
+    dilation 1 -> K12 (any groups: the TPU's lane-alignment gate on groups
+    does not apply); 1-d with groups 1 -> K14 (K12 when strided); 3-d with
+    stride 1 and groups 1 -> K15. Everything else is the library
+    convolution, as JAX sends it to XLA."""
+    stride, dilation, groups = e
+    nd = len(stride)
+    if _conv_use_kernels(e, kernel, inp):
+        if nd == 2 and (stride == (1, 1) or dilation == (1, 1)):
+            return conv2d_direct(inp, kernel, dilation, stride, groups=groups)
+        if nd == 1 and groups == 1:
+            return conv1d_direct_nwc(inp.transpose(1, 2),
+                                     kernel.permute(2, 1, 0), dilation[0],
+                                     stride[0]).transpose(1, 2)
+        if nd == 3 and groups == 1 and stride == (1, 1, 1):
+            out = conv3d_direct_ndhwc(inp.permute(0, 2, 3, 4, 1),
+                                      kernel.permute(2, 3, 4, 1, 0), dilation)
+            return out.permute(0, 4, 1, 2, 3)
+    return _conv_lib(e, kernel, inp)
+
+
+def _conv_vjp(e, p, o, g):
+    # the transposed library convolutions, whichever route ran forward (JAX
+    # transposes the lax conv)
+    stride, dilation, groups = e
+    kernel, inp = p
+    # contiguous operands: see ops/conv.py on channels-last views
+    k, x = (t.contiguous() for t in _promote(kernel, inp))
+    g = g.to(x.dtype).contiguous()
+    nd = len(stride)
+    dk = _LIB_CONV_WEIGHT[nd](x, k.shape, g, stride, dilation=dilation,
+                              groups=groups)
+    dx = _LIB_CONV_INPUT[nd](x.shape, k, g, stride, dilation=dilation,
+                             groups=groups)
+    return dk.to(kernel.dtype), dx.to(inp.dtype)
+
+
+_register("convolution", _conv_fwd, _conv_vjp)
+
+# --------------------------------------------------------------------------
+# pooling: VALID windows over the trailing len(window) axes; extra =
+# (window, stride). Plain torch, as it is plain XLA in JAX.
+
+
+def _windows(a, window, stride):
+    """A view of `a` with every window: (*lead, *out, *window)."""
+    lead = a.dim() - len(window)
+    for i, (w, s) in enumerate(zip(window, stride)):
+        a = a.unfold(lead + i, w, s)
+    return a
+
+
+def _max_pool_fwd(e, a):
+    window, stride = e
+    return _windows(a, window, stride).flatten(-len(window)).amax(-1)
+
+
+def _max_pool_vjp(e, p, o, g):
+    # the gradient goes to the first maximum of each window (XLA's
+    # select-and-scatter), summed where windows overlap
+    window, stride = e
+    (x,) = p
+    win = _windows(x, window, stride).flatten(-len(window))
+    pos = _windows(torch.arange(x.numel(), device=x.device).reshape(x.shape),
+                   window, stride).flatten(-len(window))
+    src = pos.gather(-1, win.argmax(-1, keepdim=True))
+    dx = torch.zeros(x.numel(), dtype=g.dtype, device=g.device)
+    return (dx.index_add_(0, src.reshape(-1), g.reshape(-1)).reshape(
+        x.shape),)
+
+
+def _avg_pool_fwd(e, a):
+    window, stride = e
+    return _windows(a, window, stride).sum(
+        tuple(range(-len(window), 0))) / math.prod(window)
+
+
+def _avg_pool_vjp(e, p, o, g):
+    (x,) = p
+    with torch.enable_grad():
+        t = x.detach().requires_grad_()
+        (dx,) = torch.autograd.grad(_avg_pool_fwd(e, t), t, g)
+    return (dx,)
+
+
+_register("max_pool", _max_pool_fwd, _max_pool_vjp)
+_register("avg_pool", _avg_pool_fwd, _avg_pool_vjp)
 
 # --------------------------------------------------------------------------
 # losses: scalar criteria with reduction "sum" or "mean"; extra =

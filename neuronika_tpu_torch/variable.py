@@ -384,9 +384,9 @@ class Var:
 
     # ---------------------------------------------------------- convolution
     def convolution(self, input, stride, dilation, groups: int = 1):
-        """n-d convolution; the receiver is the KERNEL and the argument the
-        input. Not ported yet: raises NotImplementedError after checking its
-        arguments."""
+        """n-d convolution; the receiver is the KERNEL (Co, Ci/groups, *k)
+        and the argument the input (N, Ci, *spatial), VALID. The arguments
+        are checked as the reference checks them."""
         stride_t, dil_t = _int_tuple(stride), _int_tuple(dilation)
         inp = self._peer(input)
         nd = inp.ndim - 2

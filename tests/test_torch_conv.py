@@ -1,0 +1,379 @@
+"""K12-K15 (neuronika_tpu_torch/ops/conv.py): the plain versions against
+JAX's Pallas kernels run in interpret mode (as tests/test_pallas.py runs
+them on the CPU), the NCHW facade and the composed stride-1 gradients,
+`conv2d_pallas_nhwc` with its gradients against `jax.vjp` of JAX's, the
+route table and SAME padding; and, on the card, each CUDA kernel against
+its plain version. Inputs come from numpy seeds; sizes stay small (H, W <=
+16, channels <= 16) so that JAX's interpret mode stays quick. f32 bounds:
+TOL (1e-5) of the largest |entry| of the reference."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuronika_tpu.ops.pallas import conv as JC
+from neuronika_tpu_torch.config import config
+from neuronika_tpu_torch.ops import conv as TC
+from tests.conftest import TOL
+
+# gradients sum more products (dw over the batch and every pixel)
+GRAD_TOL = 1e-4
+
+
+def _randn(*shape, seed=0, scale=1.0):
+    return (scale * np.random.default_rng(seed).standard_normal(shape)
+            ).astype(np.float32)
+
+
+def _close(out, ref, tol=TOL):
+    """max |out - ref| <= tol * max |ref| (at least tol)."""
+    out = out.detach().numpy() if isinstance(out, torch.Tensor) else out
+    ref = np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    err = float(np.abs(out - ref).max())
+    assert err <= tol * max(1.0, float(np.abs(ref).max())), err
+
+
+# (x shape NHWC, kernel (kh, kw, Ci/groups, Co), stride, dilation, groups)
+K12_CASES = {
+    "s1": ((2, 13, 12, 8), (3, 3, 8, 16), (1, 1), (1, 1), 1),
+    "s2": ((2, 13, 12, 8), (3, 3, 8, 16), (2, 2), (1, 1), 1),
+    "s3x2": ((2, 13, 12, 8), (3, 3, 8, 16), (3, 2), (1, 1), 1),
+    "s3": ((1, 16, 15, 4), (3, 3, 4, 8), (3, 3), (1, 1), 1),
+    "dil2": ((1, 14, 14, 8), (3, 3, 8, 12), (1, 1), (2, 2), 1),
+    "dil2x1-k3x2": ((2, 11, 9, 5), (3, 2, 5, 7), (1, 1), (2, 1), 1),
+    "g2": ((2, 10, 10, 8), (3, 3, 4, 12), (1, 1), (1, 1), 2),
+    "g4": ((2, 10, 9, 16), (3, 3, 4, 8), (1, 1), (1, 1), 4),
+    "g2-s2": ((2, 10, 10, 8), (3, 3, 4, 12), (2, 2), (1, 1), 2),
+    "ci3-7x7-s2": ((2, 16, 16, 3), (7, 7, 3, 8), (2, 2), (1, 1), 1),
+    "1x1-s2": ((2, 9, 8, 16), (1, 1, 16, 8), (2, 2), (1, 1), 1),
+}
+
+
+@pytest.mark.parametrize("name", list(K12_CASES))
+def test_plain_conv2d_matches_jax_kernel(name):
+    xs, ws, stride, dil, groups = K12_CASES[name]
+    x, w = _randn(*xs), _randn(*ws, seed=1, scale=0.3)
+    ref = JC.conv2d_direct_nhwc(jnp.asarray(x), jnp.asarray(w), dil, stride,
+                                groups=groups, interpret=True)
+    out = TC.conv2d_direct_nhwc(torch.from_numpy(x), torch.from_numpy(w),
+                                dil, stride, groups=groups)
+    assert out.dtype == torch.float32
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("d,s", [((2, 2), (2, 2)), ((2, 1), (3, 2))])
+def test_plain_conv2d_strided_and_dilated_matches_lax(d, s):
+    """K12 takes a stride and a dilation at once (JAX's phase decomposition
+    refuses the pair): against lax's conv."""
+    x, w = _randn(2, 15, 14, 6), _randn(3, 3, 6, 8, seed=1, scale=0.3)
+    ref = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), s, "VALID", rhs_dilation=d,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    _close(TC.conv2d_direct_nhwc(torch.from_numpy(x), torch.from_numpy(w),
+                                 d, s), ref)
+
+
+def test_plain_conv2d_bf16_matches_jax_kernel():
+    """bf16 at stride 1: both round one f32 sum of exact products, so one
+    bf16 ulp of the largest entry bounds them."""
+    x, w = _randn(2, 10, 9, 8), _randn(3, 3, 8, 16, seed=1, scale=0.3)
+    ref = np.asarray(JC.conv2d_direct_nhwc(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+        interpret=True), np.float32)
+    out = TC.conv2d_direct_nhwc(torch.from_numpy(x).bfloat16(),
+                                torch.from_numpy(w).bfloat16())
+    assert out.dtype == torch.bfloat16
+    top = np.abs(ref).max()
+    assert np.abs(out.float().numpy() - ref).max() <= 2.0 ** (
+        np.floor(np.log2(top)) - 7)
+
+
+# (x NHWC, g NHWC, kh, kw, dilation)
+K13_CASES = {
+    "k3": ((3, 10, 10, 12), (3, 8, 8, 16), 3, 3, (1, 1)),
+    "k3-ragged": ((2, 13, 11, 5), (2, 11, 9, 7), 3, 3, (1, 1)),
+    "k1": ((2, 7, 6, 8), (2, 7, 6, 4), 1, 1, (1, 1)),
+    "k3x2-dil2": ((2, 12, 11, 8), (2, 8, 9, 16), 3, 2, (2, 2)),
+}
+
+
+@pytest.mark.parametrize("name", list(K13_CASES))
+def test_plain_conv_dw_matches_jax_kernel(name):
+    xs, gs, kh, kw, dil = K13_CASES[name]
+    x, g = _randn(*xs), _randn(*gs, seed=1)
+    ref = JC.conv2d_dw_nhwc(jnp.asarray(x), jnp.asarray(g), kh, kw, dil,
+                            interpret=True)
+    out = TC.conv2d_dw_nhwc(torch.from_numpy(x), torch.from_numpy(g), kh, kw,
+                            dil)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (kh, kw, xs[3],
+                                                               gs[3])
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("d,s,ncw", [(1, 1, False), (2, 1, False),
+                                     (1, 2, False), (1, 3, False),
+                                     (1, 1, True), (1, 2, True)])
+def test_plain_conv1d_matches_jax_kernel(d, s, ncw):
+    x, w = _randn(2, 33, 8), _randn(3, 8, 16, seed=1, scale=0.3)
+    ref = JC.conv1d_direct_nwc(jnp.asarray(x), jnp.asarray(w), d, s,
+                               out_ncw=ncw, interpret=True)
+    out = TC.conv1d_direct_nwc(torch.from_numpy(x), torch.from_numpy(w), d, s,
+                               out_ncw=ncw)
+    _close(out.contiguous(), ref)
+
+
+@pytest.mark.parametrize("k,dil,xs", [
+    ((3, 3, 3), (1, 1, 1), (2, 6, 7, 9, 8)),
+    ((2, 3, 2), (1, 1, 1), (1, 5, 6, 7, 4)),
+    ((2, 2, 2), (2, 2, 2), (2, 6, 7, 9, 8)),
+    ((3, 1, 2), (1, 2, 3), (1, 7, 5, 11, 3))])
+def test_plain_conv3d_matches_jax_kernel(k, dil, xs):
+    x, w = _randn(*xs), _randn(*k, xs[-1], 12, seed=1, scale=0.3)
+    ref = JC.conv3d_direct_ndhwc(jnp.asarray(x), jnp.asarray(w), dil,
+                                 interpret=True)
+    out = TC.conv3d_direct_ndhwc(torch.from_numpy(x), torch.from_numpy(w),
+                                 dil)
+    _close(out, ref)
+
+
+def test_nchw_facade_and_composed_gradients_match_jax():
+    """conv2d_direct (NCHW), conv2d_direct_input_grad (K12 on the padded
+    gradient) and conv2d_direct_kernel_grad (K13)."""
+    x, w = _randn(2, 6, 11, 10), _randn(8, 6, 3, 3, seed=1, scale=0.3)
+    g = _randn(2, 8, 9, 8, seed=2)
+    jx, jw, jg = map(jnp.asarray, (x, w, g))
+    tx, tw, tg = map(torch.from_numpy, (x, w, g))
+    _close(TC.conv2d_direct(tx, tw), JC.conv2d_direct(jx, jw, interpret=True))
+    _close(TC.conv2d_direct_input_grad(tg, tw),
+           JC.conv2d_direct_input_grad(jg, jw, interpret=True))
+    _close(TC.conv2d_direct_kernel_grad(tx, tg),
+           JC.conv2d_direct_kernel_grad(jx, jg, interpret=True))
+    # dilated input gradient
+    g2 = _randn(2, 8, 7, 6, seed=3)
+    _close(TC.conv2d_direct_input_grad(torch.from_numpy(g2), tw, (2, 2)),
+           JC.conv2d_direct_input_grad(jnp.asarray(g2), jw, (2, 2),
+                                       interpret=True))
+
+
+@pytest.mark.parametrize("stride,pad", [((1, 1), "SAME"), ((1, 1), "VALID"),
+                                        ((2, 2), "SAME"), ((2, 2), "VALID"),
+                                        ((2, 1), "SAME")])
+def test_conv2d_pallas_nhwc_and_gradients_match_jax(stride, pad):
+    """The forward and torch.autograd's dx, dw against `jax.vjp` of JAX's
+    custom-VJP entry (interpret mode) on one numpy cotangent. Stride 1
+    runs K12/K13 compositions on both sides; a strided backward is the
+    library's transposed conv here and XLA's there."""
+    x, w = _randn(2, 11, 10, 8), _randn(3, 3, 8, 16, seed=1, scale=0.3)
+    jout, vjp = jax.vjp(
+        lambda a, b: JC.conv2d_pallas_nhwc(a, b, stride, pad, True),
+        jnp.asarray(x), jnp.asarray(w))
+    g = _randn(*jout.shape, seed=2)
+    jdx, jdw = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    out = TC.conv2d_pallas_nhwc(tx, tw, stride, pad)
+    dx, dw = torch.autograd.grad(out, (tx, tw), torch.from_numpy(g))
+    _close(out, jout)
+    _close(dx, jdx, GRAD_TOL)
+    _close(dw, jdw, GRAD_TOL)
+
+
+def test_same_pads_match_jax():
+    """Smaller half first: 7x7/2 on 224 pads (2, 3), 3x3/2 on 56 (0, 1)."""
+    for size in range(1, 40):
+        for k in (1, 2, 3, 7):
+            for s in (1, 2, 3):
+                assert TC._same_pads(size, k, s) == JC._same_pads(size, k, s)
+    assert TC._same_pads(224, 7, 2) == (2, 3)
+    assert TC._same_pads(56, 3, 2) == (0, 1)
+    assert TC._same_pads(112, 3, 2) == (0, 1)
+
+
+ROUTES = [  # (nd, stride, dilation, groups, kwargs)
+    (2, (1, 1), (1, 1), 1, dict(batch=4, ksize=3, sample_bytes=1e6,
+                                weight_bytes=1e6)),
+    (2, (1, 1), (1, 1), 1, dict(batch=8, ksize=3, sample_bytes=1e6,
+                                weight_bytes=1e6)),
+    (2, (2, 2), (1, 1), 1, dict(batch=2, ksize=3, sample_bytes=1e6,
+                                weight_bytes=1e6)),
+    (2, (1, 1), (1, 1), 2, dict(batch=2, ksize=3, sample_bytes=1e6,
+                                weight_bytes=1e6)),
+    (2, (1, 1), (1, 1), 1, dict(batch=2, ksize=3, sample_bytes=5e6,
+                                weight_bytes=1e6)),
+    (1, (1,), (1,), 1, dict(batch=1, ksize=3, sample_bytes=1e6,
+                            weight_bytes=1e6)),
+    (1, (1,), (2,), 1, dict(batch=1, ksize=3, sample_bytes=1e6,
+                            weight_bytes=1e6)),
+    (3, (1, 1, 1), (1, 1, 1), 1, dict(batch=1)),
+    (2, (1, 1), (1, 1), 1, {}),
+]
+
+
+@pytest.mark.parametrize("route", ROUTES, ids=range(len(ROUTES)))
+def test_route_table_is_jaxs(route, monkeypatch):
+    """The copied table gives JAX's answer when JAX sees a TPU and the port
+    sees the card, and "xla" off them; "force" picks the kernels."""
+    import importlib
+
+    nd, stride, dil, groups, kw = route
+    monkeypatch.setattr(importlib.import_module("neuronika_tpu.config"),
+                        "on_tpu", lambda: True)
+    want = JC.route_conv2d(nd, stride, dil, groups, **kw)
+    assert TC.route_conv2d(nd, stride, dil, groups, on_card=True, **kw) == want
+    assert TC.route_conv2d(nd, stride, dil, groups, on_card=False,
+                           **kw) == "xla"
+    old = config.conv_route
+    try:
+        config.conv_route = "force"
+        assert TC.route_conv2d(nd, stride, dil, groups, **kw) == "pallas"
+    finally:
+        config.conv_route = old
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: TC.conv2d_direct_nhwc(torch.zeros(1, 5, 5, 4),
+                                   torch.zeros(3, 3, 3, 8)), "channel"),
+    (lambda: TC.conv2d_direct_nhwc(torch.zeros(1, 5, 5, 4),
+                                   torch.zeros(3, 3, 2, 6), groups=4),
+     "channel"),
+    (lambda: TC.conv2d_direct_nhwc(torch.zeros(1, 2, 5, 4),
+                                   torch.zeros(3, 3, 4, 8)), "larger"),
+    (lambda: TC.conv2d_direct_nhwc(torch.zeros(5, 5, 4),
+                                   torch.zeros(3, 3, 4, 8)), "rank-2"),
+    (lambda: TC.conv1d_direct_nwc(torch.zeros(1, 9, 4),
+                                  torch.zeros(3, 2, 8)), "channel"),
+    (lambda: TC.conv3d_direct_ndhwc(torch.zeros(1, 4, 4, 4, 4),
+                                    torch.zeros(2, 2, 2, 2, 8)), "channel"),
+    (lambda: TC.conv2d_dw_nhwc(torch.zeros(1, 5, 5, 4),
+                               torch.zeros(1, 4, 3, 8), 3, 3), "no output"),
+    (lambda: TC.conv2d_pallas_nhwc(torch.zeros(1, 5, 5, 4),
+                                   torch.zeros(3, 3, 4, 8), 1, "FULL"),
+     "padding"),
+], ids=["ci", "groups", "small", "rank", "1d-ci", "3d-ci", "dw-shape",
+        "padding"])
+def test_wrappers_refuse_bad_arguments(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_counters_do_not_move_on_the_cpu():
+    before = [k.launches for k in TC.KERNELS]
+    x = torch.from_numpy(_randn(1, 8, 8, 4))
+    TC.conv2d_direct_nhwc(x, torch.from_numpy(_randn(3, 3, 4, 4)))
+    TC.conv2d_dw_nhwc(x, torch.from_numpy(_randn(1, 6, 6, 4)), 3, 3)
+    TC.conv1d_direct_nwc(x[0], torch.from_numpy(_randn(3, 4, 4)))
+    TC.conv3d_direct_ndhwc(x[None], torch.from_numpy(_randn(1, 3, 3, 4, 4)))
+    assert [k.launches for k in TC.KERNELS] == before
+
+
+# --------------------------------------------------------------------------
+# on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_close(out, ref, dtype):
+    """f32: 1e-5 of the largest entry (FFMA in another order); bf16: the
+    norm rule of chip_smoke.py, ||out - ref|| <= 1e-2 ||ref|| + 2^-15
+    sqrt(numel) (one rounding of an f32 sum on both sides)."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    d = (out.double() - ref.double())
+    if dtype == torch.float32:
+        top = float(ref.abs().max())
+        assert float(d.abs().max()) <= 1e-5 * max(1.0, top)
+    else:
+        assert float(d.norm()) <= 1e-2 * float(ref.double().norm()) \
+            + 2 ** -15 * d.numel() ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(K12_CASES))
+def test_conv2d_kernel_matches_plain_on_gpu(cuda, name, dtype):
+    xs, ws, stride, dil, groups = K12_CASES[name]
+    x = torch.from_numpy(_randn(*xs)).to(cuda, dtype)
+    w = torch.from_numpy(_randn(*ws, seed=1, scale=0.3)).to(cuda, dtype)
+    before = TC.conv2d_direct_nhwc.launches
+    out = TC.conv2d_direct_nhwc(x, w, dil, stride, groups=groups)
+    ref = TC.conv_nd_reference(x, w, stride, dil, groups)
+    torch.cuda.synchronize()
+    assert TC.conv2d_direct_nhwc.launches == before + 1
+    _card_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(K13_CASES) + ["large"])
+def test_conv_dw_kernel_matches_plain_on_gpu(cuda, name, dtype):
+    """"large" splits the pixel reduction over many CTAs."""
+    xs, gs, kh, kw, dil = K13_CASES.get(
+        name, ((8, 30, 30, 16), (8, 28, 28, 24), 3, 3, (1, 1)))
+    x = torch.from_numpy(_randn(*xs)).to(cuda, dtype)
+    g = torch.from_numpy(_randn(*gs, seed=1)).to(cuda, dtype)
+    before = TC.conv2d_dw_nhwc.launches
+    out = TC.conv2d_dw_nhwc(x, g, kh, kw, dil)
+    ref = TC.conv_dw_reference(x, g, (kh, kw), dil)
+    torch.cuda.synchronize()
+    assert TC.conv2d_dw_nhwc.launches == before + 1
+    assert out.dtype == torch.float32
+    top = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= 1e-5 * max(1.0, top) * (
+        1 if dtype == torch.float32 else 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv1d_and_conv3d_kernels_match_plain_on_gpu(cuda, dtype):
+    x = torch.from_numpy(_randn(2, 33, 8)).to(cuda, dtype)
+    w = torch.from_numpy(_randn(3, 8, 16, seed=1)).to(cuda, dtype)
+    before = TC.conv1d_direct_nwc.launches, TC.conv2d_direct_nhwc.launches
+    for d, s in ((1, 1), (2, 1), (1, 2)):
+        _card_close(TC.conv1d_direct_nwc(x, w, d, s),
+                    TC.conv_nd_reference(x, w, (s,), (d,)), dtype)
+    # stride 1 on K14 twice, stride 2 on K12 once
+    assert (TC.conv1d_direct_nwc.launches - before[0],
+            TC.conv2d_direct_nhwc.launches - before[1]) == (2, 1)
+    x = torch.from_numpy(_randn(2, 6, 7, 9, 8)).to(cuda, dtype)
+    w = torch.from_numpy(_randn(2, 2, 2, 8, 16, seed=1)).to(cuda, dtype)
+    before = TC.conv3d_direct_ndhwc.launches
+    _card_close(TC.conv3d_direct_ndhwc(x, w, (2, 1, 2)),
+                TC.conv_nd_reference(x, w, (1, 1, 1), (2, 1, 2)), dtype)
+    assert TC.conv3d_direct_ndhwc.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_conv2d_pallas_nhwc_on_gpu_matches_the_cpu(cuda):
+    x, w = _randn(2, 11, 10, 8), _randn(3, 3, 8, 16, seed=1, scale=0.3)
+    g = _randn(2, 11, 10, 16, seed=2)
+    res = []
+    for dev in ("cpu", cuda):
+        tx = torch.from_numpy(x).to(dev).requires_grad_()
+        tw = torch.from_numpy(w).to(dev).requires_grad_()
+        out = TC.conv2d_pallas_nhwc(tx, tw)
+        res.append([t.detach().cpu() for t in (out, *torch.autograd.grad(
+            out, (tx, tw), torch.from_numpy(g).to(dev)))])
+    for a, b in zip(*res):
+        _close(a, b.numpy(), GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_they_cannot_run(cuda):
+    x = torch.zeros(1, 8, 8, 4, device=cuda)
+    with pytest.raises(TypeError):
+        TC.conv2d_direct_nhwc(x.half(), torch.zeros(3, 3, 4, 4, device=cuda,
+                                                    dtype=torch.half))
+    with pytest.raises(ValueError, match="operands on"):
+        TC.conv2d_direct_nhwc(x, torch.zeros(3, 3, 4, 4))

@@ -1,6 +1,7 @@
 """neuronika_tpu_torch's import boundary and the options it refuses.
 
-The port must import without jax (the reference) and without triton, and
+The port must import without jax (the reference), without triton and
+without anything of the JAX package (`neuronika_tpu`), and
 every option that is not ported yet must raise rather than be ignored."""
 
 import os
@@ -28,7 +29,9 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch._engine.executor",
            "neuronika_tpu_torch.ops.functional",
            "neuronika_tpu_torch.ops.matmul",
-           "neuronika_tpu_torch.ops.softmax")
+           "neuronika_tpu_torch.ops.softmax",
+           "neuronika_tpu_torch.ops.conv",
+           "neuronika_tpu_torch.models.resnet")
 
 
 def _cfg(**kw):
@@ -52,7 +55,8 @@ def test_import_pulls_in_neither_jax_nor_triton():
     """Nor does it build: no kernel library is loaded by an import."""
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
-            "bad = [m for m in ('jax', 'triton') if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'triton', 'neuronika_tpu') "
+            "if m in sys.modules]\n"
             "if bad: raise SystemExit(f'imported {bad}')\n"
             "from neuronika_tpu_torch import _build\n"
             "if _build.load_library.cache_info().currsize:\n"

@@ -2,7 +2,10 @@
 (neuronika_tpu_torch/ops/functional.py) against the JAX package's
 `OPS[name].fwd` / `.vjp` on the CPU: the same numpy inputs from a seed go
 through both, forward within TOL (1e-5) and every VJP within 1e-4 (as
-tests/test_var_attention.py bounds them). The conv tier raises."""
+tests/test_var_attention.py bounds them). The conv tier (`convolution`,
+`max_pool`, `avg_pool`) is held the same way, and `convolution` again with
+the kernels on: the port's direct-conv route (their plain versions on the
+CPU) against JAX's Pallas kernels in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +19,6 @@ from neuronika_tpu_torch.ops.functional import OPS as TOPS
 from tests.conftest import TOL, assert_close
 
 VJP_TOL = 1e-4
-CONV_TIER = ("convolution", "max_pool", "avg_pool")
 
 
 @pytest.fixture(autouse=True)
@@ -100,6 +102,25 @@ def _cases():
           np.where(_r(3, 4) > 0.5, 0.0, _r(3, 4, lo=0.0, hi=1.0))]),
         ("nll-mean", "nll", ("mean",), [3 * _r(5, 4), _ids(5, 4)]),
         ("nll-sum", "nll", ("sum",), [3 * _r(5, 2, 3), _ids(5, 2, 3)]),
+        # the conv tier: operands (kernel (Co, Ci/groups, *k), input (N, Ci,
+        # *spatial)); extra (stride, dilation, groups) / (window, stride)
+        ("convolution", "convolution", ((1, 1), (1, 1), 1),
+         [_r(4, 3, 3, 3), _r(2, 3, 8, 7)]),
+        ("convolution-1d-s2-d2", "convolution", ((2,), (2,), 1),
+         [_r(5, 3, 3), _r(2, 3, 17)]),
+        ("convolution-2d-s2x3", "convolution", ((2, 3), (1, 1), 1),
+         [_r(6, 4, 3, 2), _r(2, 4, 11, 10)]),
+        ("convolution-2d-d2-g2", "convolution", ((1, 1), (2, 2), 2),
+         [_r(6, 2, 3, 3), _r(2, 4, 10, 9)]),
+        ("convolution-3d-d2", "convolution", ((1, 1, 1), (2, 1, 2), 1),
+         [_r(4, 3, 2, 2, 2), _r(2, 3, 6, 5, 7)]),
+        ("max_pool", "max_pool", ((2, 2), (2, 2)), [_r(2, 3, 6, 7)]),
+        ("max_pool-1d-overlap", "max_pool", ((3,), (1,)), [_r(2, 3, 9)]),
+        ("max_pool-3d", "max_pool", ((2, 2, 3), (2, 1, 2)),
+         [_r(2, 2, 5, 4, 7)]),
+        ("avg_pool", "avg_pool", ((2, 2), (2, 2)), [_r(2, 3, 6, 7)]),
+        ("avg_pool-overlap", "avg_pool", ((3, 2), (2, 1)), [_r(2, 3, 7, 6)]),
+        ("avg_pool-1d", "avg_pool", ((4,), (3,)), [_r(2, 3, 13)]),
     ]
     out = [(cid, name, extra, xs, None) for cid, name, extra, xs in c]
     # stochastic ops, at the settings where both packages are exact: eval
@@ -159,7 +180,7 @@ def test_op_forward_and_vjp_match_jax(cid, name, extra, xs, train):
 
 def test_every_registered_op_has_a_case():
     covered = {c[1] for c in CASES}
-    assert covered | set(CONV_TIER) == set(TOPS)
+    assert covered == set(TOPS)
     # JAX's nn.recurrent registers its scan ops into the same table; they
     # come with the nn tier (ROADMAP.md queue 1 item 5)
     assert set(JOPS) - set(TOPS) <= {"lstm_scan", "gru_scan"}
@@ -175,20 +196,83 @@ def test_astype_to_bf16_matches_jax():
                                   np.asarray(jout, np.float32))
 
 
-@pytest.mark.parametrize("call", [
-    lambda nk: nk.zeros((2, 3, 8, 8)).requires_grad().convolution(
-        nk.zeros((1, 3, 10, 10)), 1, 1),
-    lambda nk: nk.zeros((1, 2, 4, 4)).max_pool((2, 2)),
-    lambda nk: nk.zeros((1, 2, 4, 4)).avg_pool(2),
-], ids=["convolution", "max_pool", "avg_pool"])
-def test_conv_tier_refuses(call):
+# the kernel route of `convolution`: K12 (2-d, stride 1 or dilation 1, any
+# groups), K14 (1-d; strided on K12), K15 (3-d, stride 1); (kernel shape,
+# input shape, stride, dilation, groups)
+KERNEL_CONVS = [
+    ((4, 3, 3, 3), (2, 3, 9, 8), (1, 1), (1, 1), 1),
+    ((6, 4, 3, 3), (2, 4, 11, 10), (2, 2), (1, 1), 1),
+    ((6, 2, 3, 2), (2, 4, 10, 9), (1, 1), (2, 1), 2),
+    ((8, 1, 3, 3), (1, 4, 9, 9), (1, 1), (1, 1), 4),
+    ((5, 3, 3), (2, 3, 17), (1,), (2,), 1),
+    ((5, 3, 3), (2, 3, 17), (2,), (1,), 1),
+    ((4, 3, 2, 2, 2), (2, 3, 6, 5, 7), (1, 1, 1), (2, 1, 2), 1),
+]
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["off", "on"])
+@pytest.mark.parametrize("case", KERNEL_CONVS,
+                         ids=["2d", "2d-s2", "2d-d2-g2", "2d-depthwise",
+                              "1d-d2", "1d-s2", "3d-d2"])
+def test_convolution_with_kernels_on_and_off_matches_jax(case, kernels):
+    """"on": the port's kernel route with conv_route "force" (the kernels'
+    plain versions here) against JAX's `enable_pallas(True,
+    interpret=True)`, whose Pallas kernels run in interpret mode."""
+    from neuronika_tpu.config import enable_pallas
+    from neuronika_tpu_torch import enable_kernels
+
+    kshape, xshape, stride, dilation, groups = case
+    rng = np.random.default_rng(7)
+    k = rng.standard_normal(kshape).astype(np.float32)
+    x = rng.standard_normal(xshape).astype(np.float32)
+    e = (stride, dilation, groups)
+    old_route = config.conv_route
+    try:
+        enable_pallas(kernels, interpret=True)
+        enable_kernels(kernels)
+        config.conv_route = "force"
+        jout = JOPS["convolution"].fwd(e, jnp.asarray(k), jnp.asarray(x))
+        tout = TOPS["convolution"].fwd(e, torch.from_numpy(k),
+                                       torch.from_numpy(x))
+        g = rng.standard_normal(jout.shape).astype(np.float32)
+        jg = JOPS["convolution"].vjp(e, (jnp.asarray(k), jnp.asarray(x)),
+                                     jout, jnp.asarray(g))
+        tg = TOPS["convolution"].vjp(e, (torch.from_numpy(k),
+                                         torch.from_numpy(x)), tout,
+                                     torch.from_numpy(g))
+    finally:
+        enable_pallas(False)
+        enable_kernels(False)
+        config.conv_route = old_route
+    assert tuple(tout.shape) == tuple(jout.shape)
+    assert_close(tout.numpy(), jout, tol=TOL)
+    for a, b in zip(tg, jg):
+        assert tuple(a.shape) == tuple(b.shape)
+        assert_close(a.numpy(), b, tol=VJP_TOL)
+
+
+def test_conv_tier_through_the_var_surface_matches_jax():
+    """kernel.convolution(input) -> max_pool -> avg_pool -> sum, forward
+    and backward, as a user writes it in both packages."""
+    import neuronika_tpu as jk
     import neuronika_tpu_torch as nk
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        call(nk)
+    rng = np.random.default_rng(8)
+    kv = rng.standard_normal((4, 3, 3, 3)).astype(np.float32)
+    xv = rng.standard_normal((2, 3, 14, 13)).astype(np.float32)
+    res = []
+    for pkg in (nk, jk):
+        k = pkg.from_ndarray(kv).requires_grad()
+        x = pkg.from_ndarray(xv).requires_grad()
+        y = k.convolution(x, 1, 1).max_pool((2, 2)).avg_pool(2, 1).sum()
+        y.forward()
+        y.backward(1.0)
+        res.append([np.asarray(v) for v in (y.data(), k.grad(), x.grad())])
+    for a, b in zip(*res):
+        assert_close(a, b, tol=VJP_TOL)
 
 
-def test_conv_arguments_are_checked_before_the_refusal():
+def test_conv_arguments_are_checked():
     import neuronika_tpu_torch as nk
 
     with pytest.raises(ValueError, match="groups"):
