@@ -27,9 +27,15 @@ nvidia-smi. Phases, each printing one line or a few:
      steps with a finite, falling loss and K1 and the fused backward
      launched once per layer and step; then 1 warm-up and 2 counted steps
      with the GPTConfig defaults (split backward, remat, f32 Adam state),
-     which launch K2a and K2b once per layer and step;
+     which launch K2a and K2b once per layer and step; then the headline
+     with fused_ce="on": 2 warm-up and 5 timed steps through the fused
+     linear cross-entropy (K8 once a step, K9 and K10 once each in its
+     backward, held exact), its step time, tokens/s, MFU and peak memory
+     printed beside the composite headline's;
   7. the kernel route against the plain route (flash="off") in f32 on a
      small hd-128 model: loss and every gradient leaf, split and fused;
+     and the fused CE route (fused_ce "on" against "off", vocab 1024) for
+     a tied GPT and an untied llama-style head;
   8. the define-by-run tier's flagship: `build_var_model_batched` at the
      same width (S 2048, B 16, bf16) with `enable_kernels(True)`, trained
      by `optim.Adam(1e-4).train_step` on the log-softmax + NLL loss: 1
@@ -86,15 +92,29 @@ with a split reduction; K14; a strided 1-d conv on K12; K15 with
 dilation) against their plain versions in f32 and bf16, and at bench.py's
 conv shapes checks them, reads a planted fault per kernel against the same
 norm bound and times each beside its plain version and one library call
-(F.conv2d, torch.nn.grad.conv2d_weight, F.conv1d, F.conv3d).
+(F.conv2d, torch.nn.grad.conv2d_weight, F.conv1d, F.conv3d); and times
+the conv route at batch 1, 2 and 4 (K12 against F.conv2d at ResNet-18's
+four stride-1 k3 stage shapes, K14 against F.conv1d at 3136x256, bf16,
+forwards), which `route_conv2d` follows on the card. Last in phase 3, the
+fused linear cross-entropy (K8 forward, K9 dx, K10 dW) against its plain
+versions in f32 and bf16 (N512 D64 V1024, a ragged N300 D72 V1000, a
+tied-head-wide D256, and D4160, whose 9 slices run K9 and K10 without a
+cluster), then at phase 6's LM head (bf16 N32768 D1536
+V16384), held per entry and in norm, with a planted fault per kernel (K8
+without one vocabulary tile, K9 without that tile's term, K10 without one
+row block's partial), and timed beside its plain version, the composite
+head (`_lm_head` + logsumexp + gather: forward, backward, both) and its
+bound.
 Every kernel's time is printed beside its plain version's, the one
-PyTorch call that computes the same function (where there is one) and the
-bound: the larger of its bytes over 3.35 TB/s and its FLOPs over the peak
-of its type (989 TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM.
-With --profile, one more step of phases 6, 8, 11 and 13 runs under
-torch.profiler: each one's device time by kernel kind is printed and its
-kernel table written to TABLE_PATH (phase 8's, 11's and 13's beside it,
-"_var", "_mistral" and "_resnet" added to the name).
+PyTorch call that computes the same function (where there is one; for
+K8-K10 the composite head, several calls) and the bound: the larger of
+its bytes over 3.35 TB/s and its FLOPs over the peak of its type (989
+TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM.
+With --profile, one more step of phases 6 (the headline and its fused-CE
+run), 8, 11 and 13 runs under torch.profiler: each one's device time by
+kernel kind is printed and its kernel table written to TABLE_PATH (the
+others beside it, "_fused_ce", "_var", "_mistral" and "_resnet" added to
+the name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -469,12 +489,12 @@ HEADLINE = dict(remat=False, scan_layers=False, flash_softmax="fast",
                 matmul_out="compute")
 
 
-def train_steps(T, FA, cfg, n_warm, n_timed, batch, lr, profile=None,
+def train_steps(T, kernels, cfg, n_warm, n_timed, batch, lr, profile=None,
                 label="one headline step", heldout=None):
     """Run warm-up then timed train steps on fresh params (torch.Generator
-    seed 0). Returns the losses, the launch counts of the timed steps (both
-    flash families), the step time in s, the peak memory in GiB and the
-    eval loss of the trained params on the `heldout` batch (None without
+    seed 0). Returns the losses, the launch counts of `kernels` in the
+    timed steps, the step time in s, the peak memory in GiB and the eval
+    loss of the trained params on the `heldout` batch (None without
     one)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_params(gen, cfg, "cuda")
@@ -487,7 +507,6 @@ def train_steps(T, FA, cfg, n_warm, n_timed, batch, lr, profile=None,
         losses.append(loss)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels = FA.KERNELS + FA.SPLIT_KERNELS
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -531,7 +550,10 @@ def profile_step(run, label, path):
         n = e.key
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3
-        kind = ("K12-K15 conv" if "conv_mma<false>" in n
+        kind = ("K8 ce fwd" if "ce_fwd_kernel" in n
+                else "K9 ce dx" if "ce_grad_kernel" in n and "true>" in n
+                else "K10 ce dw" if "ce_grad_kernel" in n
+                else "K12-K15 conv" if "conv_mma<false>" in n
                 or "conv_ffma<false>" in n
                 else "K13 conv dw" if "conv_mma<true>" in n
                 or "conv_ffma<true>" in n or "conv_dw_reduce" in n
@@ -565,27 +587,34 @@ def profile_step(run, label, path):
           + f"; table in {path}")
 
 
-def phase_train(T, FA, profile):
+def train_kernels(FA, CE):
+    """Every kernel a GPT train step may launch."""
+    return FA.KERNELS + FA.SPLIT_KERNELS + CE.KERNELS
+
+
+def phase_train(T, FA, CE, profile):
     """Phase 6: the train step at full width; returns the launch counts of
-    the headline run and of the defaults run."""
+    the headline run, of the defaults run and of the fused-CE run."""
     rng = np.random.default_rng(0)
     B, S = 16, 2048
     toks = rng.integers(0, TRAIN_CFG["vocab_size"], size=(B, S))
     tgts = np.roll(toks, -1, axis=1)
     batch = (torch.from_numpy(toks).to("cuda"),
              torch.from_numpy(tgts).to("cuda"))
+    kernels = train_kernels(FA, CE)
     cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **HEADLINE)
-    losses, launches, step_s, peak, _ = train_steps(T, FA, cfg, 2, 5, batch,
-                                                    5e-4, profile)
+    losses, launches, step_s, peak, _ = train_steps(
+        T, kernels, cfg, 2, 5, batch, 5e-4, profile)
     L, n = cfg.n_layer, 5
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd_qkv=L * n, flash_bwd_fused_qkv=L * n)
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    check(launches["flash_fwd_qkv"] == L * n
-          and launches["flash_bwd_fused_qkv"] == L * n
-          and launches["flash_bwd_dq_qkv"] == 0,
-          f"headline launches {launches}, want {L * n} fwd and fused")
+    check(launches == want, f"headline launches {launches}, want {want}")
     tok_s = B * S / step_s
     mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
+    head_line = (f"step {step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU "
+                 f"{mfu:.4f}, peak {peak:.2f} GiB")
     print(f"phase 6 train: d1536 L8 H12 V16384 S2048 B16 bf16, fused bwd, "
           f"no remat, bf16 Adam: step {step_s * 1e3:.1f} ms, "
           f"{tok_s:.0f} tokens/s, MFU {mfu:.4f} (of 989 TFLOP/s), peak "
@@ -593,19 +622,44 @@ def phase_train(T, FA, profile):
           f"launches {launches}")
     head = launches
     cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG)
-    losses, launches, step_s, peak, _ = train_steps(T, FA, cfg, 1, 2, batch,
-                                                    5e-4)
+    losses, launches, step_s, peak, _ = train_steps(T, kernels, cfg, 1, 2,
+                                                    batch, 5e-4)
+    want = dict.fromkeys(launches, 0)     # remat re-runs the forward
+    want.update(flash_fwd_qkv=2 * L * 2, flash_bwd_dq_qkv=L * 2,
+                flash_bwd_dkv_qkv=L * 2)
     check(all(np.isfinite(losses)), f"non-finite loss (defaults): {losses}")
-    check(launches["flash_bwd_dq_qkv"] == L * 2
-          and launches["flash_bwd_dkv_qkv"] == L * 2
-          and launches["flash_bwd_fused_qkv"] == 0,
-          f"defaults launches {launches}, want {L * 2} dq and dkv")
+    check(launches == want, f"defaults launches {launches}, want {want}")
     print(f"phase 6 train, GPTConfig defaults (split bwd, remat, f32 Adam, "
           f"f32 matmul outputs), 1 warm-up and 2 counted steps: step "
           f"{step_s * 1e3:.1f} ms, "
           f"{B * S / step_s:.0f} tokens/s, peak {peak:.2f} GiB; losses "
           f"{[round(l, 4) for l in losses]}; launches {launches}")
-    return head, launches
+    split = launches
+    # the headline with the fused linear cross-entropy: rows 32768 and
+    # vocab 16384 pass JAX's gate, so K8 runs once a step and K9, K10 once
+    # each in its backward
+    cfg = T.GPTConfig(dtype=torch.bfloat16, fused_ce="on", **TRAIN_CFG,
+                      **HEADLINE)
+    path = None
+    if profile:
+        root, ext = os.path.splitext(profile)
+        path = f"{root}_fused_ce{ext}"
+    losses, launches, step_s, peak, _ = train_steps(
+        T, kernels, cfg, 2, n, batch, 5e-4, path,
+        "one fused-CE headline step")
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd_qkv=L * n, flash_bwd_fused_qkv=L * n, ce_fwd=n,
+                ce_dx=n, ce_dw=n)
+    check(all(np.isfinite(losses)), f"non-finite loss (fused CE): {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall (fused CE): {losses}")
+    check(launches == want, f"fused-CE launches {launches}, want {want}")
+    tok_s = B * S / step_s
+    mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
+    print(f"phase 6 train, the headline with fused_ce='on' (K8-K10): step "
+          f"{step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f}, peak "
+          f"{peak:.2f} GiB (the composite headline above: {head_line}); "
+          f"losses {[round(l, 4) for l in losses]}; launches {launches}")
+    return head, split, launches
 
 
 # phase 7 bounds (f32): loss and gradients of two exact routes that differ
@@ -645,8 +699,11 @@ def route_errs(phase, ref, run):
     return e_l, e_g
 
 
-def phase_routes(T, FA):
-    """Phase 7: kernel route vs plain route (flash="off"), f32, hd 128."""
+def phase_routes(T, FA, CE):
+    """Phase 7: kernel route vs plain route (flash="off"), f32, hd 128;
+    then the fused CE route (fused_ce="on": K8-K10) against the composite
+    head ("off") at vocab 1024, where B2 S256 passes the gate, for a tied
+    GPT and an untied llama-style head, launches held exact."""
     cfg0 = T.GPTConfig(vocab_size=512, n_layer=2, n_head=2, d_model=256,
                        d_ff=1024, max_seq=256, dtype=torch.float32,
                        remat=False)
@@ -663,6 +720,27 @@ def phase_routes(T, FA):
           f"loss {ref[0]:.6f}; |d loss|, max |d grad| per leaf: "
           + ", ".join(f"{k} {a:.3g}, {b:.3g}" for k, (a, b) in errs.items())
           + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
+    errs, used = {}, []
+    for name, preset, kw in (
+            ("gpt-tied", T.GPTConfig, dict(d_ff=1024)),
+            ("llama-untied", T.llama_config, dict(n_kv_head=1, d_ff=512))):
+        cfg0 = preset(vocab_size=1024, n_layer=2, n_head=2, d_model=256,
+                      max_seq=256, dtype=torch.float32, remat=False, **kw)
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(3),
+                               cfg0, "cuda")
+        ref = route_run(T, params, cfg0, CE.KERNELS, fused_ce="off")
+        run = route_run(T, params, cfg0, CE.KERNELS, fused_ce="on")
+        check(ref[2] == [0, 0, 0] and run[2] == [1, 1, 1],
+              f"phase 7 fused CE {name}: launches {run[2]}, want [1, 1, 1]")
+        errs[name] = (ref[0],) + route_errs(f"phase 7 fused CE {name}", ref,
+                                            run)
+        used.append(run[2])
+    print("phase 7 fused CE route (K8-K10) vs composite head: f32 d256 H2 "
+          "hd128 L2 S256 B2 V1024; loss, |d loss|, max |d grad| per leaf: "
+          + ", ".join(f"{k} {a:.6f}, {b:.3g}, {c:.3g}"
+                      for k, (a, b, c) in errs.items())
+          + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL}); CE launches "
+          f"{used}")
 
 
 def bf16_ulp(x_max: float) -> float:
@@ -1303,7 +1381,7 @@ MISTRAL_7B = dict(vocab_size=32000, n_layer=4, n_head=32, n_kv_head=8,
                   d_model=4096, d_ff=14336, max_seq=8192)
 
 
-def phase_mistral(T, FA, profile):
+def phase_mistral(T, FA, CE, profile):
     """Phase 11: the Mistral 7B train step (4 layers, S 8192, B 2, bf16,
     the GPTConfig defaults). Returns the timed steps' launch counts."""
     rng = np.random.default_rng(0)
@@ -1320,8 +1398,8 @@ def phase_mistral(T, FA, profile):
         root, ext = os.path.splitext(profile)
         path = f"{root}_mistral{ext}"
     losses, launches, step_s, peak, held = train_steps(
-        T, FA, cfg, 2, n, batch(), 3e-4, path, "one Mistral 7B (L4) step",
-        heldout=batch())
+        T, train_kernels(FA, CE), cfg, 2, n, batch(), 3e-4, path,
+        "one Mistral 7B (L4) step", heldout=batch())
     L = cfg.n_layer
     check(all(np.isfinite(losses)), f"phase 11: non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"phase 11: loss did not fall: {losses}")
@@ -1575,6 +1653,257 @@ def phase_conv_kernels(C):
     print("phase 3 kernels, conv at bench.py's shapes (bf16, SAME; faults: "
           "K12/K14/K15 without their first tap, K13 without its first "
           "split's partial): " + "; ".join(line))
+    return result
+
+
+# the stride-1 k3 convs of ResNet-18's four stages, (H = W, channels), each
+# of which passes route_conv2d's size test at batch <= 4
+ROUTE_CONV2D = ((56, 64), (28, 128), (14, 256), (7, 512))
+ROUTE_CONV1D = (3136, 256)          # bench.py's conv1d shape
+ROUTE_BATCHES = (1, 2, 4)
+
+
+def phase_conv_route_times(C):
+    """Phase 3, the conv route on the card: K12 against F.conv2d at the
+    ROUTE_CONV2D shapes and K14 against F.conv1d at ROUTE_CONV1D, batch 1,
+    2 and 4, forwards, bf16, SAME (the kernels on the padded input, the
+    library on channels-last views of it), each checked against its plain
+    version and timed in turns (kernel, library, library, kernel). Returns
+    {(rank, batch, length, channels): (kernel ms, library ms)}."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    cases = []
+    for B in ROUTE_BATCHES:
+        for hw, ch in ROUTE_CONV2D:
+            x, w = rnd(B, hw + 2, hw + 2, ch), rnd(3, 3, ch, ch,
+                                                    scale=(9 * ch) ** -0.5)
+            xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+            cases.append(((2, B, hw, ch), x, w,
+                          functools.partial(C.conv2d_direct_nhwc, x, w),
+                          functools.partial(F.conv2d, xn, wn),
+                          functools.partial(C.conv_nd_reference, x, w,
+                                            (1, 1), (1, 1))))
+        L, ch = ROUTE_CONV1D
+        x, w = rnd(B, L + 2, ch), rnd(3, ch, ch, scale=(3 * ch) ** -0.5)
+        cases.append(((1, B, L, ch), x, w,
+                      functools.partial(C.conv1d_direct_nwc, x, w),
+                      functools.partial(F.conv1d, x.transpose(1, 2),
+                                        w.permute(2, 1, 0)),
+                      functools.partial(C.conv_nd_reference, x, w, (1,),
+                                        (1,))))
+    times, line = {}, []
+    for key, x, w, kern, lib, plain in cases:
+        conv_within(kern(), plain(), f"route {key}", torch.bfloat16)
+        ka, la = cuda_ms(kern, 50), cuda_ms(lib, 50)
+        lb, kb = cuda_ms(lib, 50), cuda_ms(kern, 50)
+        times[key] = (min(ka, kb), min(la, lb))
+        rank, B, n, ch = key
+        line.append(f"{'conv2d' if rank == 2 else 'conv1d'} B{B} "
+                    f"{n}{'x' + str(n) if rank == 2 else ''}x{ch}: kernel "
+                    f"{times[key][0]:.4f} ms, library {times[key][1]:.4f} ms")
+    for rank in (2, 1):
+        won = sum(k < l for (r, *_), (k, l) in times.items() if r == rank)
+        n = sum(r == rank for r, *_ in times)
+        line.append(f"rank {rank}: the kernel faster at {won} of {n}")
+    print("phase 3 conv route at batch <= 4 (bf16, SAME, forwards; "
+          "K12 vs F.conv2d, K14 vs F.conv1d): " + "; ".join(line))
+    return times
+
+
+# --------------------------------------------------------------------------
+# the fused linear cross-entropy: K8-K10 (phase 3), phase 6's fused run,
+# phase 7's fused route
+
+# small and ragged cases: (name, N, D, V); "tied" has the width of a tied
+# head on a small GPT; "9-slices" cuts D into more slices than a portable
+# cluster holds, so K9 and K10 run without one, each slice computing its
+# own logits
+CE_CASES = (("N512-D64-V1024", 512, 64, 1024),
+            ("ragged-N300-D72-V1000", 300, 72, 1000),
+            ("tied-N512-D256-V1024", 512, 256, 1024),
+            ("9-slices-N256-D4160-V520", 256, 4160, 520))
+# phase 6's LM head: B S rows of the headline step, d_model, vocab
+CE_HEAD = (16 * 2048, 1536, 16384)
+CE_LINES = {"ce_fwd": 37, "ce_dx": 77, "ce_dw": 101}   # cross_entropy.py
+CE_TILE = 128       # the kernels' stream tile (vocabulary or rows)
+
+
+def ce_case(g, N, D, V, dtype):
+    """x ~ N(0, 1) (hidden states after the final norm), w ~ 0.02 N(0, 1)
+    (the init's scale), uniform targets and the backward's row weights
+    1/N, on the card."""
+    x = torch.randn(N, D, generator=g, device="cuda").to(dtype)
+    w = (0.02 * torch.randn(V, D, generator=g, device="cuda")).to(dtype)
+    t = torch.randint(0, V, (N,), generator=g, device="cuda")
+    return x, w, t, torch.full((N,), 1.0 / N, device="cuda")
+
+
+def ce_within(out, ref, key):
+    """A K9/K10 result against its plain version, both scaled by the power
+    of two that brings max |ref| into [1, 2) (exact; dx and dW are of
+    order g = 1/N, under the norm bound's floor otherwise), then held by
+    conv_within's rule. Returns (max abs err unscaled, ||err||/||ref||,
+    its bound, the scale)."""
+    scale = 2.0 ** -np.floor(np.log2(float(ref.float().abs().max())))
+    err, rel, bound = conv_within(out * scale, ref * scale, key, ref.dtype)
+    return float(err / scale), rel, bound, scale
+
+
+def ce_pg(x, w, t, lse, g, rows, cols):
+    """cast((exp(logits - lse) - onehot) g) of rows x cols of the logits,
+    as the kernels and their plain versions form it (f32, then x's
+    dtype)."""
+    logits = x[rows].float() @ w[cols].float().T
+    i = torch.arange(x.shape[0], device=x.device)[rows]
+    j = torch.arange(w.shape[0], device=x.device)[cols]
+    onehot = (t[i][:, None] == j[None, :]).float()
+    p = torch.exp(logits - lse[rows][:, None]) - onehot
+    return (p * g[rows][:, None]).to(x.dtype), logits, onehot
+
+
+def check_ce(CE, key, x, w, t, g, faults=False):
+    """K8, K9 and K10 against their plain versions on one input (K9 and
+    K10 fed the plain lse); raises on a mismatch. K8's loss and lse are
+    f32: each entry within 1e-5 of max(1, max |lse|). With `faults`, three
+    planted faults are read against the same plain versions and must fail
+    their bounds: K8 skipping the first vocabulary tile, K9 without that
+    tile's term, K10 without the first row block's partial (one tile of
+    CE_TILE each). Returns {kernel: max abs err} and the printed readings."""
+    loss, lse = CE.ce_fwd(x, w, t)
+    rloss, rlse = CE.ce_fwd_reference(x, w, t)
+    dx, dw = CE.ce_dx(x, w, t, rlse, g), CE.ce_dw(x, w, t, rlse, g)
+    rdx = CE.ce_dx_reference(x, w, t, rlse, g)
+    rdw = CE.ce_dw_reference(x, w, t, rlse, g)
+    torch.cuda.synchronize()
+    top = max(1.0, float(rlse.abs().max()))
+    e_fwd = max(float((loss - rloss).abs().max()),
+                float((lse - rlse).abs().max()))
+    check(loss.shape == lse.shape == rlse.shape and e_fwd <= F32_TOL * top,
+          f"ce_fwd {key}: max abs err {e_fwd} > {F32_TOL * top}")
+    got = {"ce_dx": ce_within(dx, rdx, f"ce_dx {key}"),
+           "ce_dw": ce_within(dw, rdw, f"ce_dw {key}")}
+    errs = {"ce_fwd": e_fwd, "ce_dx": got["ce_dx"][0],
+            "ce_dw": got["ce_dw"][0]}
+    text = (f"  {key}: ce_fwd {e_fwd:.3g} (tol {F32_TOL * top:.3g}); "
+            + ", ".join(f"{n} {a:.3g}, ||err||/||ref|| {r:.3g} (bound "
+                        f"{b:.3g})" for n, (a, r, b, _) in got.items()))
+    if faults:
+        tile, every = slice(0, CE_TILE), slice(None)
+        # K8: lse without the tile's exp-sum; the target logit without the
+        # tile's targets
+        pg, logits, onehot = ce_pg(x, w, t, rlse, g, every, tile)
+        p_tile = torch.exp(logits - rlse[:, None]).sum(-1)
+        lse_f = rlse + torch.log1p(-p_tile)
+        loss_f = lse_f - ((rlse - rloss) - (logits * onehot).sum(-1))
+        e8 = float((loss_f - rloss).abs().max())
+        check(e8 > F32_TOL * top, f"ce_fwd {key}: a planted fault reads "
+                                  f"{e8} <= {F32_TOL * top}")
+        dx_f = dx.float() - pg.float() @ w[tile].float()
+        pg, _, _ = ce_pg(x, w, t, rlse, g, tile, every)
+        dw_f = dw.float() - pg.float().T @ x[tile].float()
+        read = {}
+        for n, bad, ref in (("ce_dx", dx_f, rdx), ("ce_dw", dw_f, rdw)):
+            s = got[n][3]
+            read[n] = norm_reading([diff_stats(bad * s, ref.float() * s)])
+            check(read[n][0] > read[n][1], f"{n} {key}: a planted fault "
+                  f"reads {read[n][0]} <= bound {read[n][1]}")
+        del logits, onehot, pg, dx_f, dw_f
+        text += (f"; planted faults: ce_fwd without vocabulary tile 0 max "
+                 f"abs err {e8:.3g}, ce_dx without its term "
+                 f"||err||/||ref|| {read['ce_dx'][0]:.3g}, ce_dw without "
+                 f"row block 0 {read['ce_dw'][0]:.3g}")
+    print(text)
+    return errs
+
+
+def ce_composite(T, cfg):
+    """loss_fn's composite head as a function of (x, w, t): `_lm_head`
+    (the head GEMM with an f32 result), logsumexp and the gathered target
+    logit, mean over rows."""
+    def run(x, w, t):
+        logits = T._lm_head(x, {"wte": w}, cfg).float()
+        lse = torch.logsumexp(logits, -1)
+        return (lse - logits.gather(-1, t[:, None])[:, 0]).mean()
+
+    return run
+
+
+def phase_ce_kernels(CE, T):
+    """Phase 3, fused CE part: K8, K9 and K10 against their plain versions
+    over CE_CASES in f32 and bf16, then at phase 6's head (bf16 N 32768 D
+    1536 V 16384), where the planted faults are read and each kernel is
+    timed beside its plain version, the composite head (two or more calls,
+    not one library call: forward, backward from its saved graph, and both)
+    and its bound. Returns {kernel: (max_abs_err, ms, plain_ms,
+    composite_ms, (bound_ms, bound_by))}: the composite's forward for K8,
+    its backward (dx and dW together) for K9 and K10."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, N, D, V in CE_CASES:
+            check_ce(CE, f"{str(dtype)[6:]}/{name}",
+                     *ce_case(g, N, D, V, dtype))
+    N, D, V = CE_HEAD
+    x, w, t, gr = ce_case(g, N, D, V, torch.bfloat16)
+    errs = check_ce(CE, f"bfloat16/head-N{N}-D{D}-V{V}", x, w, t, gr,
+                    faults=True)
+    torch.cuda.empty_cache()
+    _, lse = CE.ce_fwd(x, w, t)
+    fns = {"ce_fwd": (lambda: CE.ce_fwd(x, w, t),
+                      lambda: CE.ce_fwd_reference(x, w, t)),
+           "ce_dx": (lambda: CE.ce_dx(x, w, t, lse, gr),
+                     lambda: CE.ce_dx_reference(x, w, t, lse, gr)),
+           "ce_dw": (lambda: CE.ce_dw(x, w, t, lse, gr),
+                     lambda: CE.ce_dw_reference(x, w, t, lse, gr))}
+    times = {}
+    for name, (kern, plain) in fns.items():
+        pa = cuda_ms(plain, 2)
+        ka, kb = cuda_ms(kern, 3), cuda_ms(kern, 3)
+        pb = cuda_ms(plain, 2)
+        times[name] = (min(ka, kb), min(pa, pb))
+        torch.cuda.empty_cache()
+    comp = ce_composite(T, T.GPTConfig(vocab_size=V, d_model=D,
+                                       dtype=torch.bfloat16))
+    xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+    c_fwd = cuda_ms(lambda: comp(x, w, t), 3)
+    c_all = cuda_ms(lambda: torch.autograd.grad(comp(xr, wr, t), (xr, wr)),
+                    3)
+    saved = comp(xr, wr, t)
+    c_bwd = cuda_ms(lambda: torch.autograd.grad(saved, (xr, wr),
+                                                retain_graph=True), 3)
+    del saved, xr, wr
+    torch.cuda.empty_cache()
+    # bytes: x and w read once, targets (int32), lse and row weights (f32)
+    # as a kernel reads them, its outputs written once
+    io = (N * D + V * D) * 2
+    nbytes = {"ce_fwd": io + N * 4 + 2 * N * 4,
+              "ce_dx": io + 3 * N * 4 + N * D * 2,
+              "ce_dw": io + 3 * N * 4 + V * D * 2}
+    passes = {"ce_fwd": 2, "ce_dx": 4, "ce_dw": 4}
+    result, line = {}, []
+    for name, (k_ms, p_ms) in times.items():
+        flops = passes[name] * N * V * D
+        bound = bound_ms(nbytes[name], flops, torch.bfloat16)
+        lib = c_fwd if name == "ce_fwd" else c_bwd
+        result[name] = (errs[name], k_ms, p_ms, lib, bound)
+        line.append(f"{name} {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} "
+                    f"TFLOP/s) vs plain {p_ms:.3f} ms, bound "
+                    f"{bound[0]:.3f} ms ({bound[1]})")
+    print("phase 3 kernels: fused CE within bounds (f32 outputs and f32 "
+          f"gradients 1e-5 of max |entry|; bf16 gradients one ulp of it and "
+          f"in norm {SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an "
+          f"entry); bf16 N{N} D{D} V{V}: " + "; ".join(line)
+          + f"; composite (_lm_head + logsumexp + gather, several calls, "
+          f"no single library call) forward {c_fwd:.3f} ms, backward "
+          f"{c_bwd:.3f} ms, both {c_all:.3f} ms; fused K8 + K9 + K10 "
+          f"{sum(t[0] for t in times.values()):.3f} ms")
+    del x, w, t, gr, lse, fns
+    torch.cuda.empty_cache()
     return result
 
 
@@ -1931,8 +2260,9 @@ def phase_conv_routes(nk, R, C):
                       for k, (a, b, c) in errs.items())
           + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL}); launches "
           f"{res['cuda'][2]} (Var graph); conv_route auto on the card "
-          f"picks {json.dumps(routes)} (the JAX package's table, measured "
-          f"on a TPU v5e, untimed on the H100)")
+          f"picks {json.dumps(routes)} (the JAX package's table with its "
+          f"rank-2 row on the library, as phase 3's batch 1-4 timings "
+          f"decide)")
     return res["cuda"][2]
 
 
@@ -1940,9 +2270,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
                         help="profile one more headline train step, "
-                             "Var flagship step, Mistral 7B step and "
-                             "ResNet-18 step and write their kernel tables "
-                             "here (and *_var, *_mistral, *_resnet)")
+                             "fused-CE headline step, Var flagship step, "
+                             "Mistral 7B step and ResNet-18 step and write "
+                             "their kernel tables here (and *_fused_ce, "
+                             "*_var, *_mistral, *_resnet)")
     profile = parser.parse_args().profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -1953,6 +2284,7 @@ def main() -> int:
     from neuronika_tpu_torch.models import resnet as R
     from neuronika_tpu_torch.models import transformer as T
     from neuronika_tpu_torch.ops import conv as C
+    from neuronika_tpu_torch.ops import cross_entropy as CE
     from neuronika_tpu_torch.ops import flash_attention as FA
     from neuronika_tpu_torch.ops import matmul as MM
     from neuronika_tpu_torch.ops import softmax as SM
@@ -1988,6 +2320,8 @@ def main() -> int:
     mm_sm = phase_mm_softmax(MM, SM)
     sflash = phase_split_flash(FA)
     convk = phase_conv_kernels(C)
+    phase_conv_route_times(C)
+    cek = phase_ce_kernels(CE, T)
 
     # 4. serving end to end at full width
     cfg = T.GPTConfig(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
@@ -2040,8 +2374,8 @@ def main() -> int:
     # 6. the train step at full width; 7. kernel vs plain route in f32
     del params
     torch.cuda.empty_cache()
-    head, split = phase_train(T, FA, profile)
-    phase_routes(T, FA)
+    head, split, fused_ce = phase_train(T, FA, CE, profile)
+    phase_routes(T, FA, CE)
 
     # 8-10. the define-by-run tier
     flag = phase_var_flagship(nk, T, optim, FA, MM, SM, profile)
@@ -2051,7 +2385,7 @@ def main() -> int:
     # 11. the Mistral 7B train step; 12. split kernel vs plain route in f32
     gc.collect()
     torch.cuda.empty_cache()
-    mistral = phase_mistral(T, FA, profile)
+    mistral = phase_mistral(T, FA, CE, profile)
     phase_split_routes(T, FA)
 
     # 13. ResNet-18 training on K12/K13; 14. conv kernel vs plain routes
@@ -2123,6 +2457,18 @@ def main() -> int:
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib})
+    # K8-K10 run on phase 6's fused-CE path (launches), checked and timed
+    # at its LM head (phase 3); library_ms is the composite head's time
+    # (forward for K8, its backward for K9 and K10), several calls
+    for name, line in CE_LINES.items():
+        e, ms, p_ms, lib, bound = cek[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"{csrc}cross_entropy.cu",
+                        "replaces": "neuronika_tpu/ops/pallas/"
+                                    f"cross_entropy.py:{line}",
+                        "launches": fused_ce[name], "max_abs_err": e,
+                        "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1], "library_ms": lib})
     print(smi[0])           # again, so that the end of the output holds it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

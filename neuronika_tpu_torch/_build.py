@@ -148,4 +148,13 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [i, p, p, p, p, geo,           # dtype, x, g, ws, out, geo
                    i, i, p]                      # splits, chunk, stream
     fn.restype = i
+    fn = lib.nk_ce_fwd
+    fn.argtypes = [i, p, p, p, p, p,             # dtype, x, w, tgt, loss, lse
+                   i, i, i, p]                   # N V D, stream
+    fn.restype = i
+    for name in ("nk_ce_dx", "nk_ce_dw"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, p, p, p, p, p, p,      # dtype, x, w, tgt, lse, g,
+                       i, i, i, p]               # out; N V D, stream
+        fn.restype = i
     return lib

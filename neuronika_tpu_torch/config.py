@@ -12,8 +12,8 @@ Four switches, each with the JAX package's meaning:
   `NEURONIKA_TPU_TORCH_CONV`: "auto" lets `ops.conv.route_conv2d`'s
   per-shape table pick the conv tier under `use_kernels`; "force" always
   takes the direct-conv kernels (their plain versions on the CPU). The
-  table is the JAX package's, measured on a TPU v5e; nobody has timed its
-  choices on the H100 (ROADMAP.md queue 1 item 8).
+  table is the JAX package's, measured on a TPU v5e, with its on-card
+  rank-2 row sent to the library by H100 timings (`ops.conv.route_conv2d`).
 * `device`: where the factories put new leaves, "cuda" unless a caller sets
   "cpu" (JAX's default backend plays this part).
 * the global seed stream used by `rand` and dropout: `seed(s)` and

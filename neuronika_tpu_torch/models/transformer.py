@@ -18,9 +18,10 @@ accumulation) and `flops_per_token`. Training attention runs the packed
 flash op (K1/K2) for learned positions without a window, and the split
 flash op (K5-K7, `ops/flash_attention.py`) on q/k/v split out of the
 packed projection, rotated under rope, with or without a window.
-Mixture-of-experts raises `NotImplementedError` from `GPTConfig`, and so
-do remat policies other than "full" and the fused cross-entropy;
-in-kernel dropout raises on both flash paths.
+`fused_ce="on"` takes the loss through the fused linear cross-entropy
+(K8-K10, `ops/cross_entropy.py`) under JAX's gate. Mixture-of-experts
+raises `NotImplementedError` from `GPTConfig`, and so do remat policies
+other than "full"; in-kernel dropout raises on both flash paths.
 
 Rounding that differs from the JAX package in bf16 (f32 is unaffected):
 * a bf16 matmul here returns bf16 (f32 accumulation inside), where JAX
@@ -46,6 +47,7 @@ import torch.utils.checkpoint
 
 from .._tree import tree_leaves, tree_map, tree_unflatten
 from ..device import resolve
+from ..ops.cross_entropy import fused_linear_cross_entropy
 from ..ops.flash_attention import flash_attention, flash_attention_qkv
 from ..ops.paged_attention import paged_attention
 from ..optim.functional import adam_init, adam_update, clip_by_global_norm
@@ -90,7 +92,8 @@ class GPTConfig:
     remat_policy: str = "full"
     # TPU tile size; accepted, the CUDA kernels choose their own tiles
     flash_block: int = 256
-    # fused linear + cross-entropy kernel ("on" is not ported)
+    # fused linear + cross-entropy ("on": K8-K10 where rows % 256 == 0 and
+    # vocab_size % 1024 == 0, as JAX gates it; "auto" and "off": composite)
     fused_ce: str = "auto"
     # body matmul outputs: "f32" (bf16 product, f32 result, bias added in
     # f32) or "compute" (result in `dtype`)
@@ -126,10 +129,6 @@ class GPTConfig:
             raise NotImplementedError(
                 f"remat_policy={self.remat_policy!r} is not ported yet (only "
                 f"'full'; ROADMAP.md queue 1 item 6)")
-        if self.fused_ce == "on":
-            raise NotImplementedError(
-                "fused_ce='on' (the fused linear + cross-entropy kernels "
-                "K8-K10) is not ported yet (ROADMAP.md queue 1 item 6)")
 
 
 def llama_config(**kw) -> GPTConfig:
@@ -794,13 +793,28 @@ def forward(params, tokens, cfg: GPTConfig, *, train: bool = False,
     return _lm_head(x, params, cfg)
 
 
+def _use_fused_ce(cfg: GPTConfig, rows: int) -> bool:
+    """JAX's gate, unchanged: the fused kernels take no ragged shape there,
+    and the two paths round differently, so the port fuses where JAX does."""
+    if cfg.fused_ce != "on":
+        return False
+    return rows % 256 == 0 and cfg.vocab_size % 1024 == 0
+
+
 def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
             generator: torch.Generator | None = None):
-    """Mean token cross-entropy: the LM head (a compute-dtype GEMM
-    with an f32 result, or a compute-dtype result with
-    logits_dtype="compute"), then logsumexp minus the gathered target logit
-    on f32 logits."""
+    """Mean token cross-entropy. Under `_use_fused_ce`: the fused linear
+    cross-entropy (K8-K10) on the hidden states and the head weight in the
+    compute dtype, whatever `logits_dtype` says, as JAX. Otherwise the LM
+    head (a compute-dtype GEMM with an f32 result, or a compute-dtype
+    result with logits_dtype="compute"), then logsumexp minus the gathered
+    target logit on f32 logits."""
+    B, S = tokens.shape
     x = hidden_states(params, tokens, cfg, train=train, generator=generator)
+    if _use_fused_ce(cfg, B * S):
+        return fused_linear_cross_entropy(
+            x.reshape(B * S, cfg.d_model), _head_w(params, cfg).to(cfg.dtype),
+            targets.reshape(B * S))
     if cfg.logits_dtype == "compute":
         logits = torch.matmul(x, _head_w(params, cfg).to(cfg.dtype).T)
     else:

@@ -25,9 +25,9 @@ K12; the NCHW facade and gradients (`conv2d_direct`,
 around the NHWC functions; `conv2d_pallas_nhwc`, the differentiable NHWC
 conv of the ResNet model (stride-1 backward on K12 and K13, strided
 backward by the library's transposed convolution, as JAX leaves it to
-XLA); `route_conv2d`, the JAX package's per-shape tier table, measured on
-a TPU v5e and not re-decided on the H100; and `_same_pads`, TF/lax SAME
-padding.
+XLA); `route_conv2d`, the JAX package's per-shape tier table (measured on
+a TPU v5e) with its on-card rows re-decided by H100 timings; and
+`_same_pads`, TF/lax SAME padding.
 """
 
 from __future__ import annotations
@@ -334,22 +334,22 @@ def route_conv2d(nd: int, stride, dilation, groups: int,
                  training: bool = True, batch: int = 0, ksize: int = 0,
                  sample_bytes: int = 0, weight_bytes: int = 0, *,
                  on_card: bool = False) -> str:
-    """The JAX package's per-shape tier choice for the direct conv kernels,
-    "pallas" or "xla" (the library convolution), copied as it stands:
-    `config.conv_route == "force"` always picks the kernels; otherwise the
-    kernels take stride-1, unit-dilation, ungrouped k3 convs of rank 1 or 2
-    at batch <= 4 whose padded sample fits 2 MB and kernel 6 MB, when the
-    tensors are `on_card`. The table was measured on a TPU v5e; it has not
-    been re-decided on the H100 (ROADMAP.md queue 1 item 8)."""
+    """The per-shape tier choice for the direct conv kernels, "pallas" or
+    "xla" (the library convolution). `config.conv_route == "force"` always
+    picks the kernels. Otherwise the JAX package's table, measured on a
+    TPU v5e, sends stride-1, unit-dilation, ungrouped k3 convs of rank 1 or
+    2 at batch <= 4 whose padded sample fits 2 MB and kernel 6 MB to the
+    kernels; on the card (`on_card`) its rank-1 row stands, since K14 beat
+    F.conv1d there at batch 1-4, and its rank-2 row goes to the library,
+    since K12 lost to F.conv2d at all twelve ResNet-18 stage shapes at
+    batch 1-4 (H100 timings, `chip_smoke.py` phase 3; PERF.md). Off the
+    card it is "xla", as JAX's table off a TPU."""
     del training
     if config.conv_route == "force":
         return "pallas"
     small = (0 < batch <= 4 and groups == 1 and ksize == 3
              and 0 < sample_bytes <= 2e6 and 0 < weight_bytes <= 6e6
              and on_card)
-    if nd == 2 and small and tuple(stride) == (1, 1) \
-            and tuple(dilation) == (1, 1):
-        return "pallas"
     if nd == 1 and small and tuple(stride) == (1,) \
             and tuple(dilation) == (1,):
         return "pallas"

@@ -549,8 +549,9 @@ def _conv_use_kernels(e, kernel, inp) -> bool:
     """Whether `convolution` takes the direct-conv kernels: under
     `use_kernels`, when `conv_route` is "force" or the per-shape table picks
     them for tensors on the card (JAX's route, with `on_tpu()` read as
-    "the tensors are on the card"; the table was measured on a TPU v5e
-    and its "auto" choices are untimed on the H100)."""
+    "the tensors are on the card"; the table was measured on a TPU v5e,
+    and `route_conv2d` sends its rank-2 row to the library on the card,
+    where K12 lost to it at batch 1-4)."""
     if not config.use_kernels:
         return False
     stride, dilation, groups = e

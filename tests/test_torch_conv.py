@@ -214,17 +214,22 @@ ROUTES = [  # (nd, stride, dilation, groups, kwargs)
 
 @pytest.mark.parametrize("route", ROUTES, ids=range(len(ROUTES)))
 def test_route_table_is_jaxs(route, monkeypatch):
-    """The copied table gives JAX's answer when JAX sees a TPU and the port
-    sees the card, and "xla" off them; "force" picks the kernels."""
+    """On the card, the H100 table: JAX's answer on a TPU for rank 1 (K14
+    beat F.conv1d at batch 1-4) and the library for rank 2 (K12 lost to
+    F.conv2d at every ResNet-18 stage shape at batch 1-4). Off the card,
+    JAX's answer off a TPU ("xla"). "force" picks the kernels."""
     import importlib
 
     nd, stride, dil, groups, kw = route
-    monkeypatch.setattr(importlib.import_module("neuronika_tpu.config"),
-                        "on_tpu", lambda: True)
-    want = JC.route_conv2d(nd, stride, dil, groups, **kw)
+    jcfg = importlib.import_module("neuronika_tpu.config")
+    monkeypatch.setattr(jcfg, "on_tpu", lambda: False)
+    off = JC.route_conv2d(nd, stride, dil, groups, **kw)
+    monkeypatch.setattr(jcfg, "on_tpu", lambda: True)
+    want = "xla" if nd == 2 else JC.route_conv2d(nd, stride, dil, groups,
+                                                 **kw)
     assert TC.route_conv2d(nd, stride, dil, groups, on_card=True, **kw) == want
     assert TC.route_conv2d(nd, stride, dil, groups, on_card=False,
-                           **kw) == "xla"
+                           **kw) == off == "xla"
     old = config.conv_route
     try:
         config.conv_route = "force"

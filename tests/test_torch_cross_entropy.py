@@ -1,0 +1,358 @@
+"""The fused linear cross-entropy of the port (neuronika_tpu_torch/ops/
+cross_entropy.py, K8-K10, and `loss_fn` with fused_ce="on") against the
+JAX package on the CPU: the plain versions against JAX's Pallas kernels in
+interpret mode (as tests/test_pallas.py runs them), in f32, in bf16 and on
+a ragged shape; the "divisible" check; the slice (a tied GPT and an untied
+llama head) against JAX's hidden states and fused kernels and against its
+composite loss; two Adam steps with the fused loss against the composite;
+JAX's gate; and, on the card, each CUDA kernel against its plain version.
+Inputs come from numpy seeds; params from the JAX tree through
+`params_from_jax`."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuronika_tpu.models import transformer as JT
+from neuronika_tpu.ops.pallas import cross_entropy as JCE
+from neuronika_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
+from neuronika_tpu_torch.models import transformer as TT
+from neuronika_tpu_torch.ops import cross_entropy as CE
+from tests.conftest import TOL
+from tests.test_torch_train import (GRAD_TOL, LR, _adam_params_close,
+                                    _batch, _port_grads, _tree_err)
+
+# bf16: both sides sum exact bf16 products in f32 in another order, round
+# p g to bf16 (a rounding may flip by one bf16 ulp where the f32 values
+# differ in their last bits) and round dx and dW once: held in norm to one
+# bf16 ulp (2^-8) of the result's norm, and each entry to two bf16 ulps of
+# the largest entry
+BF16_NORM_REL = 2 ** -8
+BF16_ENTRY_ULPS = 2
+
+
+def _case(N, D, V, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, D), dtype=np.float32)
+    w = (0.05 * rng.standard_normal((V, D))).astype(np.float32)
+    t = rng.integers(0, V, size=N).astype(np.int32)
+    return x, w, t
+
+
+def _jax_run(x, w, t, dtype, *blocks):
+    """JAX's fused loss (interpret mode) and its gradients in dtype."""
+    def f(a, b):
+        return JCE.fused_linear_cross_entropy(a, b, jnp.asarray(t), *blocks)
+
+    xj, wj = jnp.asarray(x, dtype), jnp.asarray(w, dtype)
+    loss, (dx, dw) = jax.value_and_grad(f, argnums=(0, 1))(xj, wj)
+    return (float(loss), np.asarray(dx, np.float32),
+            np.asarray(dw, np.float32))
+
+
+def _port_run(x, w, t, dtype, *blocks):
+    xt = torch.from_numpy(x).to(dtype).requires_grad_()
+    wt = torch.from_numpy(w).to(dtype).requires_grad_()
+    loss = CE.fused_linear_cross_entropy(xt, wt, torch.from_numpy(t),
+                                         *blocks)
+    loss.backward()
+    assert loss.dtype == torch.float32
+    assert xt.grad.dtype == wt.grad.dtype == dtype
+    return (float(loss.detach()), xt.grad.float().numpy(),
+            wt.grad.float().numpy())
+
+
+def _bf16_close(a, ref, what):
+    """||a - ref|| <= BF16_NORM_REL ||ref||, every entry within
+    BF16_ENTRY_ULPS bf16 ulps of max |ref|."""
+    top = float(np.abs(ref).max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    err = np.linalg.norm(a - ref)
+    assert err <= BF16_NORM_REL * np.linalg.norm(ref), (what, err)
+    assert np.abs(a - ref).max() <= BF16_ENTRY_ULPS * ulp, what
+
+
+def test_plain_versions_match_jax_kernels_f32():
+    """N 512, D 64, V 1024 with JAX's blocks 128 and 256: loss, dx, dW."""
+    x, w, t = _case(512, 64, 1024)
+    jl, jdx, jdw = _jax_run(x, w, t, jnp.float32, 128, 256, True)
+    tl, tdx, tdw = _port_run(x, w, t, torch.float32, 128, 256, True)
+    assert abs(tl - jl) <= TOL
+    assert np.abs(tdx - jdx).max() <= TOL
+    assert np.abs(tdw - jdw).max() <= TOL
+    ref = CE.reference_linear_cross_entropy(torch.from_numpy(x),
+                                            torch.from_numpy(w),
+                                            torch.from_numpy(t))
+    assert abs(tl - float(ref)) <= TOL
+
+
+def test_plain_versions_match_jax_kernels_bf16():
+    x, w, t = _case(512, 64, 1024, seed=1)
+    jl, jdx, jdw = _jax_run(x, w, t, jnp.bfloat16, 128, 256, True)
+    tl, tdx, tdw = _port_run(x, w, t, torch.bfloat16, 128, 256, True)
+    # the loss is f32 on both sides, from the same bf16 operands
+    assert abs(tl - jl) <= TOL
+    _bf16_close(tdx, jdx, "dx")
+    _bf16_close(tdw, jdw, "dw")
+
+
+def test_ragged_shape_with_default_blocks_matches_jax():
+    """N 300, V 1000: JAX's default blocks take the whole of each."""
+    x, w, t = _case(300, 72, 1000, seed=2)
+    jl, jdx, jdw = _jax_run(x, w, t, jnp.float32, None, 1024, True)
+    tl, tdx, tdw = _port_run(x, w, t, torch.float32)
+    assert abs(tl - jl) <= TOL
+    assert np.abs(tdx - jdx).max() <= TOL
+    assert np.abs(tdw - jdw).max() <= TOL
+
+
+def test_blocks_that_do_not_divide_raise_as_in_jax():
+    x, w, t = torch.zeros(100, 64), torch.zeros(1000, 64), torch.zeros(
+        100, dtype=torch.int32)
+    with pytest.raises(ValueError, match="divisible"):
+        JCE.fused_linear_cross_entropy(jnp.asarray(x.numpy()),
+                                       jnp.asarray(w.numpy()),
+                                       jnp.asarray(t.numpy()), 64, 256, True)
+    with pytest.raises(ValueError, match="divisible"):
+        CE.fused_linear_cross_entropy(x, w, t, 64, 256, True)
+
+
+@pytest.mark.parametrize("call,err", [
+    (lambda: CE.ce_fwd(torch.zeros(4, 8), torch.zeros(16, 9),
+                       torch.zeros(4, dtype=torch.int32)), ValueError),
+    (lambda: CE.ce_fwd(torch.zeros(4, 8), torch.zeros(16, 8),
+                       torch.zeros(5, dtype=torch.int32)), ValueError),
+    (lambda: CE.ce_fwd(torch.zeros(4, 8), torch.zeros(16, 8).bfloat16(),
+                       torch.zeros(4, dtype=torch.int32)), TypeError),
+    (lambda: CE.ce_fwd(torch.zeros(4, 8), torch.zeros(16, 8),
+                       torch.zeros(4)), TypeError),
+], ids=["width", "targets", "dtypes", "float-targets"])
+def test_wrappers_refuse_bad_operands(call, err):
+    with pytest.raises(err):
+        call()
+
+
+def test_targets_out_of_range_match_no_column():
+    """As in the TPU kernels' masks: no target logit, no onehot."""
+    x, w, t = _case(16, 8, 32, seed=3)
+    t[:3] = (-1, 32, 1000)
+    xt, wt, tt = (torch.from_numpy(a) for a in (x, w, t))
+    loss, lse = CE.ce_fwd(xt, wt, tt)
+    logits = xt @ wt.T
+    assert torch.allclose(lse, torch.logsumexp(logits, -1), atol=TOL)
+    assert torch.allclose(loss[:3], lse[:3], atol=0.0)
+    g = torch.full((16,), 0.5)
+    dx = CE.ce_dx(xt, wt, tt, lse, g)
+    p = torch.softmax(logits, -1)
+    assert torch.allclose(dx[:3], 0.5 * p[:3] @ wt, atol=TOL)
+
+
+def test_gpt_config_accepts_fused_ce_on():
+    cfg = TT.GPTConfig(fused_ce="on")
+    assert cfg.fused_ce == "on"
+
+
+# the slice: a tied GPT (vocab 1024, L2, d128, hd 64, which the flash
+# kernels take on the card) and an untied llama head; B2 S128 gives 256
+# rows, so the gate fires
+SLICE = dict(vocab_size=1024, n_layer=2, n_head=2, d_model=128, d_ff=256,
+             max_seq=128)
+HEADS = {"gpt-tied": (JT.GPTConfig, TT.GPTConfig),
+         "llama-untied": (JT.llama_config, TT.llama_config)}
+
+
+def _slice_cfgs(head, **kw):
+    jfn, tfn = HEADS[head]
+    base = dict(SLICE, **kw)
+    return (jfn(dtype=jnp.float32, flash="off", **base),
+            tfn(dtype=torch.float32, fused_ce="on", **base))
+
+
+def _jax_fused_loss(params, toks, tgts, cfg):
+    """JAX's fused branch of loss_fn, with the kernels in interpret mode
+    (its loss_fn passes no interpret flag, which the CPU refuses)."""
+    B, S = toks.shape
+    x, _ = JT.hidden_states(params, toks, cfg, train=True)
+    return JCE.fused_linear_cross_entropy(
+        x.reshape(B * S, cfg.d_model),
+        JT._head_w(params, cfg).astype(cfg.dtype), tgts.reshape(B * S),
+        None, 1024, True)
+
+
+@pytest.mark.parametrize("head", list(HEADS))
+def test_fused_loss_fn_matches_jax(head):
+    """The port's loss_fn with fused_ce="on" (plain K8-K10 on the CPU)
+    against JAX's hidden states + fused kernels, and against JAX's
+    composite loss_fn: loss and every gradient leaf."""
+    jcfg, tcfg = _slice_cfgs(head)
+    jp = JT.init_params(jax.random.key(0), jcfg)
+    tp = TT.params_from_jax(jax.tree.map(np.asarray, jp))
+    assert ("lm_head" in tp) == (head == "llama-untied")
+    toks, tgts = _batch(jcfg, B=2, S=128)
+    jt, jg = jnp.asarray(toks), jnp.asarray(tgts)
+    calls = []
+    fused = CE.fused_linear_cross_entropy
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return fused(*a, **k)
+
+    TT.fused_linear_cross_entropy, old = spy, TT.fused_linear_cross_entropy
+    try:
+        loss, grads = _port_grads(tp, tcfg, toks, tgts)
+    finally:
+        TT.fused_linear_cross_entropy = old
+    assert calls == [(256, 128)]
+    jloss, jgrads = jax.value_and_grad(_jax_fused_loss)(jp, jt, jg, jcfg)
+    assert abs(float(loss.detach()) - float(jloss)) <= TOL
+    assert _tree_err(grads, jgrads) <= GRAD_TOL
+    closs, cgrads = jax.value_and_grad(JT.loss_fn)(jp, jt, jg, jcfg,
+                                                   train=True)
+    assert abs(float(loss.detach()) - float(closs)) <= TOL
+    assert _tree_err(grads, cgrads) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("head", list(HEADS))
+def test_fused_eval_loss_runs_under_no_grad(head):
+    _, tcfg = _slice_cfgs(head)
+    tp = TT.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
+    toks, tgts = (torch.from_numpy(a) for a in _batch(tcfg, B=2, S=128))
+    with torch.no_grad():
+        on = TT.loss_fn(tp, toks, tgts, tcfg)
+        off = TT.loss_fn(tp, toks, tgts,
+                         dataclasses.replace(tcfg, fused_ce="off"))
+    assert abs(float(on) - float(off)) <= TOL
+
+
+@pytest.mark.parametrize("accum", [1, 2], ids=["plain", "accum"])
+def test_two_adam_steps_fused_against_composite(accum):
+    """make_train_step with fused_ce="on" and "off" from the same params:
+    the losses within TOL, the params within 2 lr a step (Adam's first
+    step moves a noise-level gradient by +-lr). With accum_steps 2 each
+    microbatch (B2 S128) still passes the gate."""
+    _, tcfg = _slice_cfgs("gpt-tied")
+    tp0 = TT.init_params(torch.Generator().manual_seed(1), tcfg, "cpu")
+    runs = {}
+    for mode in ("on", "off"):
+        cfg = dataclasses.replace(tcfg, fused_ce=mode)
+        tp = tree_map(torch.clone, tp0)
+        opt = TT.opt_init(tp, cfg)
+        step = TT.make_train_step(cfg, accum_steps=accum)
+        losses = []
+        for i in range(2):
+            toks, tgts = _batch(cfg, B=2 * accum, S=128, seed=i)
+            tp, opt, loss = step(tp, opt, torch.from_numpy(toks),
+                                 torch.from_numpy(tgts), LR)
+            losses.append(float(loss))
+        runs[mode] = (losses, tp)
+    assert np.abs(np.subtract(runs["on"][0], runs["off"][0])).max() <= TOL
+    _adam_params_close(runs["on"][1], tree_map(torch.Tensor.numpy,
+                                               runs["off"][1]), 2)
+
+
+@pytest.mark.parametrize("B,S,V,fires", [
+    (2, 128, 1024, True), (2, 100, 1024, False), (2, 128, 1000, False),
+    (1, 128, 1024, False)], ids=["fires", "rows", "vocab", "rows-128"])
+def test_gate_is_jaxs(B, S, V, fires):
+    """The ops function is called only where rows % 256 == 0 and V % 1024
+    == 0, as JAX's `_use_fused_ce`; "auto" never fuses."""
+    cfg = TT.GPTConfig(vocab_size=V, n_layer=1, n_head=2, d_model=32,
+                       d_ff=64, max_seq=128, dtype=torch.float32,
+                       fused_ce="on")
+    jcfg = JT.GPTConfig(vocab_size=V, fused_ce="on")
+    assert JT._use_fused_ce(jcfg, B * S) == fires
+    assert TT._use_fused_ce(cfg, B * S) == fires
+    assert not TT._use_fused_ce(dataclasses.replace(cfg, fused_ce="auto"),
+                                B * S)
+    tp = TT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.zeros(B, S, dtype=torch.long)
+    calls = []
+    old = TT.fused_linear_cross_entropy
+    TT.fused_linear_cross_entropy = lambda *a: calls.append(1) or old(*a)
+    try:
+        TT.loss_fn(tp, toks, toks, cfg)
+    finally:
+        TT.fused_linear_cross_entropy = old
+    assert calls == ([1] if fires else [])
+
+
+# --------------------------------------------------------------------------
+# on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_case(cuda, N, D, V, dtype, seed=0):
+    x, w, t = _case(N, D, V, seed)
+    xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    tt = torch.from_numpy(t).to(cuda)
+    g = torch.full((N,), 1.0 / N, device=cuda)
+    return xt, wt, tt, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,D,V", [(512, 64, 1024), (300, 72, 1000),
+                                   (256, 256, 1024), (129, 1536, 700),
+                                   (64, 33, 130), (64, 4160, 130)])
+def test_kernels_match_plain_on_gpu(cuda, N, D, V, dtype):
+    """K8: loss and lse within 1e-5 of max(1, max |lse|). K9, K10: f32
+    within 1e-5 of the largest entry; bf16 held as the CPU tests hold JAX
+    (norm and entries). D 1536 runs K9/K10 as clusters of 3 slices; D 4160
+    cuts more slices than a portable cluster holds (no cluster)."""
+    x, w, t, g = _card_case(cuda, N, D, V, dtype)
+    before = [k.launches for k in CE.KERNELS]
+    loss, lse = CE.ce_fwd(x, w, t)
+    dx = CE.ce_dx(x, w, t, lse, g)
+    dw = CE.ce_dw(x, w, t, lse, g)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(CE.KERNELS, before)] == [1, 1, 1]
+    rloss, rlse = CE.ce_fwd_reference(x, w, t)
+    top = max(1.0, float(rlse.abs().max()))
+    assert float((lse - rlse).abs().max()) <= TOL * top
+    assert float((loss - rloss).abs().max()) <= TOL * top
+    for out, ref in ((dx, CE.ce_dx_reference(x, w, t, rlse, g)),
+                     (dw, CE.ce_dw_reference(x, w, t, rlse, g))):
+        assert out.dtype == dtype and out.shape == ref.shape
+        a, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
+        if dtype == torch.float32:
+            assert np.abs(a - r).max() <= TOL * np.abs(r).max()
+        else:
+            _bf16_close(a, r, "grad")
+
+
+@pytest.mark.cuda
+def test_fused_route_matches_composite_on_gpu(cuda):
+    """f32 tied GPT, B2 S128: loss_fn with fused_ce on and off on the card,
+    K8-K10 launched once each by the fused route."""
+    _, tcfg = _slice_cfgs("gpt-tied", remat=False)
+    tp = TT.init_params(torch.Generator(device=cuda).manual_seed(0), tcfg,
+                        cuda)
+    toks, tgts = (torch.from_numpy(a).to(cuda)
+                  for a in _batch(tcfg, B=2, S=128))
+    runs = {}
+    for mode in ("on", "off"):
+        before = [k.launches for k in CE.KERNELS]
+        leaves = [p.clone().requires_grad_() for p in tree_leaves(tp)]
+        loss = TT.loss_fn(tree_unflatten(tp, leaves), toks, tgts,
+                          dataclasses.replace(tcfg, fused_ce=mode),
+                          train=True)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[mode] = (float(loss), grads,
+                      [k.launches - b for k, b in zip(CE.KERNELS, before)])
+    assert runs["on"][2] == [1, 1, 1] and runs["off"][2] == [0, 0, 0]
+    assert abs(runs["on"][0] - runs["off"][0]) <= TOL
+    assert max(float((a - b).abs().max())
+               for a, b in zip(runs["on"][1], runs["off"][1])) <= GRAD_TOL

@@ -31,6 +31,7 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch.ops.matmul",
            "neuronika_tpu_torch.ops.softmax",
            "neuronika_tpu_torch.ops.conv",
+           "neuronika_tpu_torch.ops.cross_entropy",
            "neuronika_tpu_torch.models.resnet")
 
 

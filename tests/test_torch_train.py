@@ -295,9 +295,8 @@ def test_flash_window_matches_jax(train):
 
 
 @pytest.mark.parametrize("kw", [dict(remat_policy="names"),
-                                dict(remat_policy="dots"),
-                                dict(fused_ce="on")],
-                         ids=["remat-names", "remat-dots", "fused_ce-on"])
+                                dict(remat_policy="dots")],
+                         ids=["remat-names", "remat-dots"])
 def test_unported_training_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.GPTConfig(**kw)
