@@ -14,7 +14,9 @@ nvidia-smi. Phases, each printing one line or a few:
      and bf16, causal and full, MHA and GQA, hd 128 and 64, fast and safe
      softmax and a ragged S, then checked and timed at the headline train
      step's shape (bf16 B16 S2048 H12 KV12 hd128, causal, fast softmax),
-     where the kernels' errors are the ones the JSON line reports;
+     where the kernels' errors are the ones the JSON line reports, two
+     launches of the fused backward must give the same bits, and each
+     kernel's TFLOP/s is printed beside SDPA's;
   4. paged GPT serving end to end at full width (d1536, 8 layers, 12
      heads, d_ff 6144, vocab 16384, max_seq 1024, bf16, random weights
      from a seed): 16 greedy requests through PagedBatcher, with the
@@ -401,6 +403,11 @@ def phase_flash_kernels(rng, FA):
     errs, (out, lse), reads = check_flash(
         FA, "bfloat16/headline-B16-S2048-mha-hd128-causal-fast", qkv, do, H,
         H, True, True, faults=True)
+    # the fused backward sums dq in a fixed order: two launches, same bits
+    again = [FA.flash_bwd_fused_qkv(qkv, out, lse, do, H) for _ in range(2)]
+    check(torch.equal(*again), "flash_bwd_fused_qkv: two launches on the "
+          "same inputs differ")
+    del again
     # time at the same shape: plain, kernel, kernel, plain
     d_qkv = torch.empty_like(qkv)
     fwd = (lambda: FA.flash_fwd_qkv(qkv, H, fast_softmax=True),
@@ -445,16 +452,21 @@ def phase_flash_kernels(rng, FA):
         bound = bound_ms(nbytes[kname], flops, torch.bfloat16)
         lib = lib_fwd if kname == "flash_fwd_qkv" else lib_bwd
         result[kname] = (errs[kname], k_ms, p_ms, lib, bound)
+        # SDPA's forward runs K1's 2 products, its backward the fused 5
+        lib_flops = ((2 if kname == "flash_fwd_qkv" else 5)
+                     * B * H * S * S * hd)
         line.append(f"{kname} {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} "
-                    f"TFLOP/s) vs plain {p_ms:.3f} ms, SDPA {lib:.3f} ms, "
-                    f"bound {bound[0]:.3f} ms")
+                    f"TFLOP/s) vs plain {p_ms:.3f} ms, SDPA {lib:.3f} ms "
+                    f"({lib_flops / lib / 1e9:.1f} TFLOP/s), bound "
+                    f"{bound[0]:.3f} ms")
     torch.cuda.synchronize()
     print("phase 3 kernels: flash attention within bounds (f32 "
           f"{FLASH_F32_TOL}, bf16 {FLASH_BF16_REL} of max and in norm "
           f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); "
           "headline ||err||/||ref|| " + ", ".join(
               f"{n} {r:.3g} (bound {b:.3g})" for n, (r, b) in reads.items())
-          + "; bf16 B16 S2048 H12 hd128 causal fast: " + "; ".join(line)
+          + "; fused backward bit-identical over two launches; bf16 B16 "
+          "S2048 H12 hd128 causal fast: " + "; ".join(line)
           + " (the plain backward and SDPA's backward compute all of "
           "d_qkv)")
     return result
@@ -561,7 +573,7 @@ def profile_step(run, label, path):
                 else "K6 dq" if "split_bwd_dq" in n
                 else "K7 dk/dv" if "split_bwd_dkv" in n
                 else "K2 fused" if "flash_bwd_kv_kernel" in n
-                or "dq_store" in n
+                or "dq_store" in n or "bwd_stats" in n or "dq_cast" in n
                 else "K2a dq" if "flash_bwd_dq" in n
                 else "K1 fwd" if "flash_fwd" in n
                 else "K3 matmul" if "sgemm_kernel" in n or "hgemm_kernel" in n

@@ -104,16 +104,20 @@ def load_library() -> ctypes.CDLL:
                    i, i, i, i, i,                # B S H KV hd
                    f, i, i, p]                   # scale causal fast, stream
     fn.restype = i
-    for name in ("nk_flash_bwd_dq_qkv", "nk_flash_bwd_dkv_qkv"):
-        fn = getattr(lib, name)
-        fn.argtypes = [i, p, p, p, p, p,         # dtype, qkv o lse do dqkv
-                       i, i, i, i, i,            # B S H KV hd
-                       f, i, p]                  # scale causal, stream
-        fn.restype = i
-    fn = lib.nk_flash_bwd_fused_qkv
-    fn.argtypes = [i, p, p, p, p, p, p,          # dtype, qkv o lse do
-                   i, i, i, i, i,                # dq_acc dqkv; B S H KV hd
+    fn = lib.nk_flash_bwd_dq_qkv
+    fn.argtypes = [i, p, p, p, p, p,             # dtype, qkv o lse do dqkv
+                   i, i, i, i, i,                # B S H KV hd
                    f, i, p]                      # scale causal, stream
+    fn.restype = i
+    fn = lib.nk_flash_bwd_dkv_qkv
+    fn.argtypes = [i, p, p, p, p, p, p,          # dtype, qkv o lse do stats
+                   i, i, i, i, i,                # dqkv; B S H KV hd
+                   f, i, p]                      # scale causal, stream
+    fn.restype = i
+    fn = lib.nk_flash_bwd_fused_qkv
+    fn.argtypes = [i, p, p, p, p, p, p, p, p,    # dtype, qkv o lse do stats
+                   i, i, i, i, i,                # dq_acc turn dqkv; B S H
+                   f, i, p]                      # KV hd; scale causal, stream
     fn.restype = i
     fn = lib.nk_flash_fwd
     fn.argtypes = [i, p, p, p, p, p, p,          # dtype, q k v out lse,

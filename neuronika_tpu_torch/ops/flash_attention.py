@@ -314,6 +314,20 @@ def flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
     return d_qkv
 
 
+def _bwd_stats(qkv, n_head):
+    """bf16: the dk/dv walk's (lse, delta) scratch, (B, H, S padded to 64,
+    2) f32, which its pre-pass fills; f32 needs none (None)."""
+    if qkv.dtype != torch.bfloat16:
+        return None
+    B, S = qkv.shape[:2]
+    return torch.empty((B, n_head, -(-S // 64) * 64, 2), dtype=torch.float32,
+                       device=qkv.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
                       causal=True, scale=None):
     """K2b on the card: writes the k and v chunks of `d_qkv`. Adds one to
@@ -322,32 +336,45 @@ def flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
     _check(qkv, n_head, n_kv_head, ("d_qkv", d_qkv, qkv.dtype, (B, S, W)))
     from .._build import load_library
 
+    stats = _bwd_stats(qkv, n_head)
     with torch.cuda.device(qkv.device):
         _launch(load_library().nk_flash_bwd_dkv_qkv, "flash_bwd_dkv_qkv",
                 _DTYPES[qkv.dtype], qkv.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), do.data_ptr(), d_qkv.data_ptr(), B, S,
-                n_head, KV, hd, _scale(scale, hd), int(causal), _stream(qkv))
+                lse.data_ptr(), do.data_ptr(), _ptr(stats), d_qkv.data_ptr(),
+                B, S, n_head, KV, hd, _scale(scale, hd), int(causal),
+                _stream(qkv))
     flash_bwd_dkv_qkv.launches += 1
     return d_qkv
 
 
 def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
                         scale=None):
-    """K2c/K2d on the card: all of d_qkv (B, S, W) from one walk. dq is
-    summed with f32 atomics in a scratch buffer, so its last bits may
-    change from run to run. Adds one to `flash_bwd_fused_qkv.launches`."""
+    """K2c/K2d on the card: all of d_qkv (B, S, W) from one walk. In bf16
+    the k tiles add their dq terms in a fixed order, so the result is the
+    same bits from run to run; in f32 they add by atomics, whose order,
+    and so the last bits, may change. Adds one to
+    `flash_bwd_fused_qkv.launches`."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
     from .._build import load_library
 
     d_qkv = torch.empty_like(qkv)
-    dq_acc = torch.zeros((B, S, n_head * hd), dtype=torch.float32,
-                         device=qkv.device)
+    stats = _bwd_stats(qkv, n_head)
+    if stats is None:
+        dq_acc = torch.zeros((B, S, n_head * hd), dtype=torch.float32,
+                             device=qkv.device)
+        turn = None
+    else:   # q-tile-major, rows padded by 8 (csrc/flash_attention_qkv.cu)
+        n_qt = -(-S // 64)
+        dq_acc = torch.empty((B, n_head, n_qt, 64, hd + 8),
+                             dtype=torch.float32, device=qkv.device)
+        turn = torch.zeros((B, n_head, n_qt), dtype=torch.int32,
+                           device=qkv.device)
     with torch.cuda.device(qkv.device):
         _launch(load_library().nk_flash_bwd_fused_qkv,
                 "flash_bwd_fused_qkv", _DTYPES[qkv.dtype], qkv.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), do.data_ptr(),
-                dq_acc.data_ptr(), d_qkv.data_ptr(), B, S, n_head, KV, hd,
-                _scale(scale, hd), int(causal), _stream(qkv))
+                out.data_ptr(), lse.data_ptr(), do.data_ptr(), _ptr(stats),
+                dq_acc.data_ptr(), _ptr(turn), d_qkv.data_ptr(), B, S,
+                n_head, KV, hd, _scale(scale, hd), int(causal), _stream(qkv))
     flash_bwd_fused_qkv.launches += 1
     return d_qkv
 

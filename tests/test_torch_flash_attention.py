@@ -212,20 +212,42 @@ CARD = {
     "gqa-hd64": dict(B=2, S=256, H=6, KV=2, hd=64),
     "g8-ragged": dict(B=1, S=200, H=8, KV=1, hd=64),
 }
+# f32's bound is absolute, sized for these shapes: at S 2065 with G 8,
+# where entries reach about 4.6, kernel and plain version differ by more
+# than 2e-5
+F32_CARD = list(CARD)
+# bf16 (the Hopper kernels) also at ragged S, both head dims and every
+# group size the wrappers take
+CARD.update({f"S{S}-hd{hd}-G{G}": dict(B=1 if S > 1000 else 2, S=S,
+                                        H=G * (1 if G == 8 else 2),
+                                        KV=1 if G == 8 else 2, hd=hd)
+             for S in (1, 63, 65, 200, 2048 + 17) for hd in (64, 128)
+             for G in (1, 2, 4, 8)})
+CARD_CASES = ([(n, torch.float32) for n in F32_CARD]
+              + [(n, torch.bfloat16) for n in CARD])
+
+
+def _norm_ok(got, ref):
+    """||got - ref|| <= 1e-2 ||ref|| + 2^-15 sqrt(numel), the norm bound
+    that chip_smoke.py holds the bf16 flash kernels to."""
+    d = float((got.float() - ref.float()).norm())
+    return d <= 1e-2 * float(ref.float().norm()) + 2 ** -15 * got.numel() ** 0.5
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("fast", [False, True], ids=["safe", "fast"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("name", list(CARD))
+@pytest.mark.parametrize("name,dtype", CARD_CASES,
+                         ids=[f"{n}-{'f32' if d == torch.float32 else 'bf16'}"
+                              for n, d in CARD_CASES])
 def test_kernels_match_plain_versions_on_gpu(cuda, name, causal, fast,
                                              dtype):
     """K1, K2a, K2b and the fused K2 against the plain versions on the
-    same inputs. f32: 1e-5 class. bf16: both round p and ds to bf16 at the
-    same places but sum in other orders, so a rounding may flip by one
-    bf16 ulp: bound 2^-6 of max|o| for out and 2^-5 of max|d_qkv|."""
+    same inputs. f32: 1e-5 class. bf16 (K1, K2b and the fused K2 are the
+    wgmma/TMA kernels): both round p and ds to bf16 at the same places but
+    sum in other orders, so a rounding may flip by one bf16 ulp: bound
+    2^-6 of max|o| for out and 2^-5 of max|d_qkv| per entry, and in norm
+    1e-2 of the reference's."""
     c = CARD[name]
     H, KV = c["H"], c["KV"]
     qkv, do = _card_case(cuda, dtype, **c)
@@ -246,9 +268,27 @@ def test_kernels_match_plain_versions_on_gpu(cuda, name, causal, fast,
     g_tol = 2e-5 if f32 else 2 ** -5 * float(ref.float().abs().max())
     assert float((out.float() - rout.float()).abs().max()) <= o_tol
     assert float((lse - rlse).abs().max()) <= (1e-5 if f32 else 1e-3)
+    assert f32 or _norm_ok(out, rout)
     for got in (split, fused):
         assert got.dtype == dtype and got.shape == qkv.shape
         assert float((got.float() - ref.float()).abs().max()) <= g_tol
+        assert f32 or _norm_ok(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_fused_backward_is_bit_identical_across_runs_on_gpu(cuda, causal):
+    """bf16: the fused K2 sums dq over k tiles in a fixed order, so two
+    launches on the same inputs give the same bits (the fault it had when
+    it summed by atomics)."""
+    H, KV, hd, B, S = 8, 2, 128, 2, 1000
+    qkv, do = _card_case(cuda, torch.bfloat16, B, S, H, KV, hd, seed=11)
+    out, lse = FA.flash_fwd_qkv(qkv, H, KV, causal)
+    first = FA.flash_bwd_fused_qkv(qkv, out, lse, do, H, KV, causal)
+    again = [FA.flash_bwd_fused_qkv(qkv, out, lse, do, H, KV, causal)
+             for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, a) for a in again)
 
 
 @pytest.mark.cuda
