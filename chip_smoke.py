@@ -15,8 +15,10 @@ nvidia-smi. Phases, each printing one line or a few:
      softmax and a ragged S, then checked and timed at the headline train
      step's shape (bf16 B16 S2048 H12 KV12 hd128, causal, fast softmax),
      where the kernels' errors are the ones the JSON line reports, two
-     launches of the fused backward must give the same bits, and each
-     kernel's TFLOP/s is printed beside SDPA's;
+     launches of the fused backward (and of K2a) must give the same bits
+     (the fused backward in f32 too, at B2 S1000 H8 KV2), and each
+     kernel's TFLOP/s is printed beside SDPA's, with the split pair as the
+     backward runs it (one pre-pass for K2a and K2b);
   4. paged GPT serving end to end at full width (d1536, 8 layers, 12
      heads, d_ff 6144, vocab 16384, max_seq 1024, bf16, random weights
      from a seed): 16 greedy requests through PagedBatcher, with the
@@ -77,7 +79,10 @@ nvidia-smi. Phases, each printing one line or a few:
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
-out, the flagship's (32768, 16384) log-softmax) and times them there; and
+out, the flagship's (32768, 16384) log-softmax) and times them there; K3's
+results must be the same bits over two launches, and its split-K products
+(the projections, the LM head's dx, the MLP's dx, one head's P V) must
+fail the bound with their last K slice dropped (a planted fault); and
 the split-layout flash kernels (K5 forward, K6 dq, K7 dk/dv) against
 their plain versions over f32 and bf16, causal, windows 1, 6, 100 and
 >= S, full attention with Sq != Skv, hd 64 and 128 and a ragged S, then
@@ -87,8 +92,8 @@ plain version and SDPA (with the band as a boolean mask), and at phase
 over 8 heads at a time), three planted faults are read against the same
 bound and must fail it, and each is timed alone. Their bf16 results are
 also held in norm: ||kernel - plain|| <= 1e-2 ||plain|| + 2^-15
-sqrt(numel), and so are K1's and K2's, with two planted faults read at the
-headline shape. Phase 3 then holds the direct convolutions (K12 at strides
+sqrt(numel), and so are K1's and K2's, with three planted faults (K1, K2a,
+the fused K2) read at the headline shape. Phase 3 then holds the direct convolutions (K12 at strides
 1-3, dilation, groups, a 7x7/2 conv on 3 channels and a 1x1/2 one; K13
 with a split reduction; K14; a strided 1-d conv on K12; K15 with
 dilation) against their plain versions in f32 and bf16, and at bench.py's
@@ -111,12 +116,13 @@ Every kernel's time is printed beside its plain version's, the one
 PyTorch call that computes the same function (where there is one; for
 K8-K10 the composite head, several calls) and the bound: the larger of
 its bytes over 3.35 TB/s and its FLOPs over the peak of its type (989
-TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM.
-With --profile, one more step of phases 6 (the headline and its fused-CE
-run), 8, 11 and 13 runs under torch.profiler: each one's device time by
-kernel kind is printed and its kernel table written to TABLE_PATH (the
-others beside it, "_fused_ce", "_var", "_mistral" and "_resnet" added to
-the name).
+TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM; for K3 in f32, the least time of
+f32-accurate products on the card, 3 TF32 products at 495 TFLOP/s (165).
+With --profile, one more step of phases 6 (the headline, the defaults and
+the fused-CE run), 8, 9, 11 and 13 runs under torch.profiler: each one's
+device time by kernel kind is printed and its kernel table written to
+TABLE_PATH (the others beside it, "_split", "_fused_ce", "_var", "_var2d",
+"_mistral" and "_resnet" added to the name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -149,13 +155,16 @@ BF16_TOL = 2e-2
 # sheet; f32 is FFMA outside the tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the least time for f32-accurate products on this card, whatever computes
+# them: three TF32 tensor-core products (3xTF32) at 495 TFLOP/s
+F32_ACCURATE_FLOPS = 495e12 / 3
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+def bound_ms(nbytes: float, flops: float, dtype, peak=None) -> tuple:
     """(least time in ms, "bytes" or "operations"): the larger of the bytes
-    over the memory rate and the FLOPs over the type's peak."""
+    over the memory rate and the FLOPs over the type's peak (or `peak`)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -297,10 +306,11 @@ def flash_case(rng, B, H, KV, hd, S, dtype):
     return qkv.to("cuda", dtype), do.to("cuda", dtype)
 
 
-def flash_faults(qkv, out, lse, fused, H):
-    """What two planted faults would return at a causal MHA shape (S/2 >=
+def flash_faults(qkv, out, lse, do, split, fused, H):
+    """What three planted faults would return at a causal MHA shape (S/2 >=
     512): K1 skipping k rows S/2 .. S/2 + 63 (one k tile) for every q row,
-    and the fused K2 writing dq = 0 past q row 511."""
+    K2a's dq without that k tile's term dS K, and the fused K2 writing dq =
+    0 past q row 511. Returns (out, split d_qkv, fused d_qkv) so faulted."""
     B, S, W = qkv.shape
     hd = W // (3 * H)
     q, k, v = (qkv.view(B, S, H, 3, hd)[:, :, :, i].permute(0, 2, 1, 3)
@@ -311,17 +321,28 @@ def flash_faults(qkv, out, lse, fused, H):
     o = out.view(B, S, H, hd).permute(0, 2, 1, 3).float()
     out_f = ((o - c) / (1 - p.sum(-1, keepdim=True))).permute(
         0, 2, 1, 3).reshape(B, S, H * hd)
+    del c
+    # the k tile's dS = p (dP - delta) scale, as the kernels round it
+    g = do.view(B, S, H, hd).permute(0, 2, 1, 3).float()
+    delta = (g * o).sum(-1, keepdim=True)
+    ds = (p * (torch.einsum("bhqd,bhkd->bhqk", g, v[:, :, j].float())
+               - delta) * hd ** -0.5).to(qkv.dtype).float()
+    del p, g, o
+    split_f = split.clone()
+    dq = split_f.view(B, S, H, 3, hd)[:, :, :, 0]
+    dq -= torch.einsum("bhqk,bhkd->bqhd", ds, k[:, :, j].float()).to(
+        qkv.dtype)
     fused_f = fused.clone()
     fused_f.view(B, S, H, 3, hd)[:, 512:, :, 0] = 0
-    return out_f, fused_f
+    return out_f, split_f, fused_f
 
 
 def check_flash(FA, key, qkv, do, H, KV, causal, fast, faults=False):
     """K1, the split pair K2a+K2b and the fused K2 against the plain
     versions on one input; raises on a mismatch. bf16 results are held per
     entry and in norm (SPLIT_BF16_REL, as K5-K7); with `faults` (causal
-    MHA), flash_faults' two planted faults are read against the same plain
-    versions and must fail the norm bound. Returns {kernel name: max abs
+    MHA), flash_faults' three planted faults are read against the same
+    plain versions and must fail the norm bound. Returns {kernel name: max abs
     err}, K1's (out, lse) and {tensor: (||err||/||ref||, bound)} of the
     norm readings and the faults (empty in f32)."""
     B, S, _ = qkv.shape
@@ -355,10 +376,14 @@ def check_flash(FA, key, qkv, do, H, KV, causal, fast, faults=False):
                                                  rparts[:, :, :, G:])]),
                  "fused": norm_reading([diff_stats(fused, ref)])}
         if faults:
-            out_f, fused_f = flash_faults(qkv, out, lse, fused, H)
+            out_f, split_f, fused_f = flash_faults(qkv, out, lse, do, split,
+                                                   fused, H)
             reads["fault out"] = norm_reading([diff_stats(out_f, rout)])
+            reads["fault dq"] = norm_reading([diff_stats(
+                split_f.view(B, S, KV, G + 2, -1)[:, :, :, :G],
+                rparts[:, :, :, :G])])
             reads["fault fused"] = norm_reading([diff_stats(fused_f, ref)])
-            del out_f, fused_f
+            del out_f, split_f, fused_f
     del rout, rlse
     diff = (parts.float() - rparts.float()).abs()
     e_dq = float(diff[:, :, :, :G].max())
@@ -397,16 +422,31 @@ def phase_flash_kernels(rng, FA):
             check_flash(FA, f"{str(dtype)[6:]}/{name}", qkv, do, H, KV,
                         causal, fast)
             del qkv, do
+    # the fused backward sums dq over k tiles in a fixed order in f32 too:
+    # two launches, same bits (GQA, ragged S, both masks)
+    for causal in (True, False):
+        qkv, do = flash_case(rng, 2, 8, 2, 128, 1000, torch.float32)
+        out, lse = FA.flash_fwd_qkv(qkv, 8, 2, causal)
+        again = [FA.flash_bwd_fused_qkv(qkv, out, lse, do, 8, 2, causal)
+                 for _ in range(2)]
+        check(torch.equal(*again), f"flash_bwd_fused_qkv f32 causal={causal}"
+              ": two launches on the same inputs differ")
+        del qkv, do, out, lse, again
 
     B, H, S, hd = 16, 12, 2048, 128
     qkv, do = flash_case(rng, B, H, H, hd, S, torch.bfloat16)
     errs, (out, lse), reads = check_flash(
         FA, "bfloat16/headline-B16-S2048-mha-hd128-causal-fast", qkv, do, H,
         H, True, True, faults=True)
-    # the fused backward sums dq in a fixed order: two launches, same bits
+    # the fused backward sums dq in a fixed order, and K2a owns its dq
+    # rows: two launches of each, same bits
     again = [FA.flash_bwd_fused_qkv(qkv, out, lse, do, H) for _ in range(2)]
     check(torch.equal(*again), "flash_bwd_fused_qkv: two launches on the "
           "same inputs differ")
+    again = [FA.flash_bwd_dq_qkv(qkv, out, lse, do, torch.zeros_like(qkv), H)
+             for _ in range(2)]
+    check(torch.equal(*again), "flash_bwd_dq_qkv: two launches on the same "
+          "inputs differ")
     del again
     # time at the same shape: plain, kernel, kernel, plain
     d_qkv = torch.empty_like(qkv)
@@ -433,6 +473,13 @@ def phase_flash_kernels(rng, FA):
     pb = cuda_ms(plain_bwd, 2)
     for k in bwd:       # one plain backward computes all of d_qkv
         times[k] = (min(ks[k]), min(pa, pb))
+
+    def split_pair():   # as FlashAttentionQKV.backward runs it
+        st = FA.flash_bwd_stats_qkv(qkv, out, lse, do, H)
+        FA.flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, H, stats=st)
+        FA.flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, H, stats=st)
+
+    pair_ms = min(cuda_ms(split_pair, 5), cuda_ms(split_pair, 5))
     # matmul passes per (q, k) tile: fwd s, pv; dq s, dp, dq; dkv s, dp,
     # dv, dk; fused all five. Causal: half of the S x S pairs.
     passes = {"flash_fwd_qkv": 2, "flash_bwd_dq_qkv": 3,
@@ -465,8 +512,10 @@ def phase_flash_kernels(rng, FA):
           f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); "
           "headline ||err||/||ref|| " + ", ".join(
               f"{n} {r:.3g} (bound {b:.3g})" for n, (r, b) in reads.items())
-          + "; fused backward bit-identical over two launches; bf16 B16 "
+          + "; fused backward (and f32 at B2 S1000 H8 KV2) and K2a "
+          "bit-identical over two launches; bf16 B16 "
           "S2048 H12 hd128 causal fast: " + "; ".join(line)
+          + f"; the split pair (one pre-pass, K2a, K2b) {pair_ms:.3f} ms"
           + " (the plain backward and SDPA's backward compute all of "
           "d_qkv)")
     return result
@@ -572,11 +621,13 @@ def profile_step(run, label, path):
                 else "K5 fwd" if "split_fwd" in n
                 else "K6 dq" if "split_bwd_dq" in n
                 else "K7 dk/dv" if "split_bwd_dkv" in n
-                else "K2 fused" if "flash_bwd_kv_kernel" in n
-                or "dq_store" in n or "bwd_stats" in n or "dq_cast" in n
+                else "K2 pre-pass" if "bwd_stats" in n
+                else "K2c fused" if "flash_bwd_kv_kernel" in n
+                and "true>" in n or "dq_store" in n or "dq_cast" in n
+                else "K2b dk/dv" if "flash_bwd_kv_kernel" in n
                 else "K2a dq" if "flash_bwd_dq" in n
                 else "K1 fwd" if "flash_fwd" in n
-                else "K3 matmul" if "sgemm_kernel" in n or "hgemm_kernel" in n
+                else "K3 matmul" if "k3_" in n
                 else "K4 softmax" if "softmax_cached" in n
                 or "softmax_online" in n
                 else "library conv" if any(c in n for c in (
@@ -634,8 +685,13 @@ def phase_train(T, FA, CE, profile):
           f"launches {launches}")
     head = launches
     cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG)
-    losses, launches, step_s, peak, _ = train_steps(T, kernels, cfg, 1, 2,
-                                                    batch, 5e-4)
+    path = None
+    if profile:
+        root, ext = os.path.splitext(profile)
+        path = f"{root}_split{ext}"
+    losses, launches, step_s, peak, _ = train_steps(
+        T, kernels, cfg, 1, 2, batch, 5e-4, path,
+        "one defaults (split backward) step")
     want = dict.fromkeys(launches, 0)     # remat re-runs the forward
     want.update(flash_fwd_qkv=2 * L * 2, flash_bwd_dq_qkv=L * 2,
                 flash_bwd_dkv_qkv=L * 2)
@@ -778,15 +834,18 @@ def mm_operands(rng, case, dtype):
     are transposes of row-major storage, as the VJPs and `t()` hand them
     over; "head" is the 2-d model's LM head x @ wte.t(), "head-dx" and
     "head-dw" its two VJP products g @ wte and x.T @ g; "mlp" the first
-    MLP product x @ w1, "mlp-dx" its VJP g @ w1.T; "scores" one head's
-    q_h @ k_h.t(), chunk views of the (S, d) projections."""
+    MLP product x @ w1, "mlp-dx" its VJP g @ w1.T; "proj" a q, k, v or
+    output projection x @ w; "scores" one head's q_h @ k_h.t(), chunk
+    views of the (S, d) projections; "pv" one head's p @ v_h."""
     def dev(*shape):
         return torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to("cuda", dtype)
 
     name, M, K, N = case
-    if name in ("ragged", "head-dx", "mlp"):
+    if name in ("ragged", "head-dx", "mlp", "proj"):
         return dev(M, K), dev(K, N)
+    if name == "pv":                          # one head's chunk of v
+        return dev(M, K), dev(K, 768)[:, :N]
     if name == "ragged-both-T":
         return dev(K, M).T, dev(N, K).T
     if name == "head":
@@ -802,7 +861,11 @@ def mm_operands(rng, case, dtype):
 MM_CASES = (("ragged", 1000, 760, 1030), ("ragged-both-T", 1000, 760, 1030),
             ("head", 1024, 768, 16384), ("scores", 1024, 128, 1024),
             ("head-dx", 1024, 16384, 768), ("head-dw", 768, 1024, 16384),
-            ("mlp", 1024, 768, 3072), ("mlp-dx", 1024, 3072, 768))
+            ("mlp", 1024, 768, 3072), ("mlp-dx", 1024, 3072, 768),
+            ("proj", 1024, 768, 768), ("pv", 1024, 1024, 128))
+# the K3 cases whose 128 x 128 tiles of C do not fill the card's 132 SMs,
+# so the kernel splits K
+MM_SPLIT_CASES = ("head-dx", "pv", "proj", "mlp-dx")
 SM_CASES = ((64, 1000), (64, 16384), (4, 20000))
 
 
@@ -815,13 +878,30 @@ def phase_mm_softmax(MM, SM):
     model's f32 LM head for K3, the flagship's (32768, 16384) f32
     log-softmax for K4."""
     rng = np.random.default_rng(3)
-    errs = {}
+    errs, faults = {}, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         for case in MM_CASES:
             a, b = mm_operands(rng, case, dtype)
             key = f"matmul {str(dtype)[6:]}/{case[0]}"
-            errs[key] = within(MM.matmul(a, b), MM.matmul_reference(a, b),
-                               key)[0]
+            out = MM.matmul(a, b)
+            ref = MM.matmul_reference(a, b)
+            errs[key], tol = within(out, ref, key)
+            check(torch.equal(out, MM.matmul(a, b)),
+                  f"{key}: two launches on the same inputs differ")
+            _, M, K, N = case
+            splits = MM.split_k(M, N, K, dtype, sms)
+            check((splits > 1) == (case[0] in MM_SPLIT_CASES),
+                  f"{key}: {splits} K slices")
+            if splits > 1:   # planted fault: the last K slice dropped
+                bk = MM._STAGE_K[dtype]
+                k0 = (splits - 1) * -(-K // bk) // splits * bk
+                bad = (out.float() - a[:, k0:].float() @ b[k0:].float()).to(
+                    dtype)
+                faults[key] = float((bad.float() - ref.float()).abs().max())
+                check(faults[key] > tol, f"{key}: planted fault reads "
+                                         f"{faults[key]} <= {tol}")
+            del a, b, out, ref
         for rows, cols in SM_CASES:
             x = torch.from_numpy(3 * rng.standard_normal(
                 (rows, cols), dtype=np.float32)).to("cuda", dtype)
@@ -833,7 +913,10 @@ def phase_mm_softmax(MM, SM):
     torch.cuda.synchronize()
     print("phase 3 kernels: matmul and softmax within bounds (1e-5 of "
           "max |entry| in f32, one bf16 ulp of it in bf16): "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + "; matmul bit-identical over two launches; planted faults (the "
+          "last K slice of a split-K product dropped), max abs err: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in faults.items()))
 
     result, line = {}, []
     # K3 at the 2-d model's LM head (f32, B = wte.t()), and its scores
@@ -851,7 +934,9 @@ def phase_mm_softmax(MM, SM):
         lib = cuda_ms(lambda: torch.mm(a, b), 10)
         k_ms, p_ms = min(ka, kb), min(pa, pb)
         item = a.element_size()
-        bound = bound_ms((M * K + K * N + M * N) * item, 2 * M * K * N, dtype)
+        bound = bound_ms((M * K + K * N + M * N) * item, 2 * M * K * N, dtype,
+                         F32_ACCURATE_FLOPS if dtype == torch.float32
+                         else None)
         line.append(f"{str(dtype)[6:]} {case[0]} ({M}, {K}) @ ({K}, {N}): "
                     f"kernel {k_ms:.4f} ms "
                     f"({2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s), plain "
@@ -995,7 +1080,7 @@ def legacy_counts(cfg):
     return 3 * fwd, cfg.n_layer * cfg.n_head + 1
 
 
-def phase_var_legacy(nk, T, optim, FA, MM, SM):
+def phase_var_legacy(nk, T, optim, FA, MM, SM, profile=None):
     """Phase 9: `build_var_model` at d768 L8 H6 V16384 S1024 f32 with the
     kernels on: every `mm` on K3, every softmax on K4."""
     S, n = 1024, 5
@@ -1020,6 +1105,10 @@ def phase_var_legacy(nk, T, optim, FA, MM, SM):
           f"losses {[round(l, 4) for l in losses]}; launches in {n} steps:"
           f" K3 {launches[2]} ({k3 // 3} forward and {2 * k3 // 3} in VJPs a"
           f" step), K4 {launches[3]}")
+    if profile:
+        root, ext = os.path.splitext(profile)
+        profile_step(lambda: opt.train_step(loss), "one Var 2-d step",
+                     f"{root}_var2d{ext}")
     del params, fwd, opt, loss
     gc.collect()
     torch.cuda.empty_cache()
@@ -2282,10 +2371,12 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
                         help="profile one more headline train step, "
-                             "fused-CE headline step, Var flagship step, "
-                             "Mistral 7B step and ResNet-18 step and write "
-                             "their kernel tables here (and *_fused_ce, "
-                             "*_var, *_mistral, *_resnet)")
+                             "defaults (split backward) step, fused-CE "
+                             "headline step, Var flagship step, Var 2-d "
+                             "step, Mistral 7B step and ResNet-18 step and "
+                             "write their kernel tables here (and *_split, "
+                             "*_fused_ce, *_var, *_var2d, *_mistral, "
+                             "*_resnet)")
     profile = parser.parse_args().profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -2391,7 +2482,7 @@ def main() -> int:
 
     # 8-10. the define-by-run tier
     flag = phase_var_flagship(nk, T, optim, FA, MM, SM, profile)
-    legacy = phase_var_legacy(nk, T, optim, FA, MM, SM)
+    legacy = phase_var_legacy(nk, T, optim, FA, MM, SM, profile)
     phase_var_routes(nk, T, FA, MM, SM)
 
     # 11. the Mistral 7B train step; 12. split kernel vs plain route in f32

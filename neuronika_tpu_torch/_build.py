@@ -104,16 +104,16 @@ def load_library() -> ctypes.CDLL:
                    i, i, i, i, i,                # B S H KV hd
                    f, i, i, p]                   # scale causal fast, stream
     fn.restype = i
-    fn = lib.nk_flash_bwd_dq_qkv
-    fn.argtypes = [i, p, p, p, p, p,             # dtype, qkv o lse do dqkv
-                   i, i, i, i, i,                # B S H KV hd
-                   f, i, p]                      # scale causal, stream
+    fn = lib.nk_flash_bwd_stats_qkv
+    fn.argtypes = [i, p, p, p, p,                # dtype, o lse do stats
+                   i, i, i, i, p]                # B S H hd, stream
     fn.restype = i
-    fn = lib.nk_flash_bwd_dkv_qkv
-    fn.argtypes = [i, p, p, p, p, p, p,          # dtype, qkv o lse do stats
-                   i, i, i, i, i,                # dqkv; B S H KV hd
-                   f, i, p]                      # scale causal, stream
-    fn.restype = i
+    for name in ("nk_flash_bwd_dq_qkv", "nk_flash_bwd_dkv_qkv"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, p, p, p, p, p, i, p,   # dtype, qkv o lse do stats
+                       i, i, i, i, i,            # have_stats dqkv; B S H KV
+                       f, i, p]                  # hd; scale causal, stream
+        fn.restype = i
     fn = lib.nk_flash_bwd_fused_qkv
     fn.argtypes = [i, p, p, p, p, p, p, p, p,    # dtype, qkv o lse do stats
                    i, i, i, i, i,                # dq_acc turn dqkv; B S H
@@ -138,7 +138,9 @@ def load_library() -> ctypes.CDLL:
     fn = lib.nk_matmul
     fn.argtypes = [i, p, p, p,                   # dtype, a, b, c
                    i, i, i,                      # M N K
-                   ll, ll, ll, ll, p]            # sam sak sbk sbn, stream
+                   ll, ll, ll, ll,               # sam sak sbk sbn
+                   p, p, p, i, p]                # a_pack b_pack ws splits,
+                                                 # stream
     fn.restype = i
     fn = lib.nk_softmax
     fn.argtypes = [i, p, p, i, i, i, p]          # dtype, x, y, rows, cols,

@@ -4,7 +4,8 @@
 // Replaces four TPU kernels of neuronika_tpu/ops/pallas/attention.py:
 //   K1  _fwd_kernel_qkv               -> flash_fwd_kernel_sm90 (bf16),
 //                                        flash_fwd_kernel (f32)
-//   K2a _bwd_dq_kernel_qkv            -> flash_bwd_dq_kernel
+//   K2a _bwd_dq_kernel_qkv            -> flash_bwd_dq_kernel_sm90 (bf16),
+//                                        flash_bwd_dq_kernel (f32)
 //   K2b _bwd_dkv_kernel_qkv           -> flash_bwd_kv_kernel_sm90<FUSED =
 //                                        false> (bf16), flash_bwd_kv_kernel
 //                                        <FUSED = false> (f32)
@@ -37,33 +38,40 @@
 //
 // bf16, the training path (the Hopper kernels, second half of the file):
 //   * every product is a wgmma, the only way to the tensor cores' full
-//     rate (the mma.sync kernels below reach 13% and 6% of it at the
-//     headline shape, B16 S2048 H12 hd128 causal). Scores stay
-//     in the accumulator registers; P and dS are rounded to bf16 there, as
-//     the TPU kernel rounds them, and feed the next wgmma as its register
-//     A operand, with no trip through shared memory;
+//     rate (earlier mma.sync versions reached 6-13% of it at the headline
+//     shape, B16 S2048 H12 hd128 causal). Scores
+//     stay in the accumulator registers; P and dS are rounded to bf16
+//     there, as the TPU kernel rounds them, and feed the next wgmma as its
+//     register A operand, with no trip through shared memory;
 //   * TMA with mbarriers: a producer thread keeps 64 x 64 swizzled boxes
-//     of Q, K, V, dO in flight through a two-stage ring, so loads overlap
-//     the products and no __syncthreads sits between them; a 3-d map over
-//     (W, S, B) reads rows past S as zeros;
-//   * a CTA is two consumer warpgroups of 64 rows (128 q rows in K1, 128 k
-//     rows in K2) and the producer warpgroup, whose registers setmaxnreg
-//     hands to the consumers (240 each);
-//   * K1 launches its q tiles from the last: causal rows longest first;
-//   * K2 reads delta from a pre-pass (bwd_stats_kernel), once per row
-//     instead of once per k tile, and runs on a persistent grid. The fused
-//     dq is summed in a fixed order of k tiles (turn counters, bulk
+//     of Q, K, V, dO in flight through a ring (two stages, three for K2a's
+//     K/V), so loads overlap the products and no __syncthreads sits
+//     between them; a 3-d map over (W, S, B) reads rows past S as zeros;
+//   * a CTA is two consumer warpgroups of 64 rows (128 q rows in K1 and
+//     K2a, 128 k rows in K2b/K2c) and the producer warpgroup, whose
+//     registers setmaxnreg hands to the consumers (240 each);
+//   * K1 and K2a launch their q tiles from the last: causal rows longest
+//     first. K2a walks 64-row k tiles so that S, dP and its dQ fit in
+//     registers, and keeps dQ there for the whole walk: a CTA owns its dq
+//     rows, so K2a needs no atomics and gives the same bits every run;
+//   * the backward reads (lse, delta) from a pre-pass (bwd_stats_kernel),
+//     once per row instead of once per k tile; the split backward runs it
+//     once for both K2a and K2b. K2b and K2c run on a persistent grid. The
+//     fused dq is summed in a fixed order of k tiles (turn counters, bulk
 //     reduce-add by a writer warp), so the fused backward gives the same
 //     bits every run.
-// f32 and K2a keep the mma.sync/FFMA kernels (first half): wgmma has no
-// f32 FFMA path, and f32, run with FFMA (not TF32), agrees with the plain
-// PyTorch version to 1e-5. The f32 fused backward still sums dq with
-// atomics (its last bits vary run to run); the split pair is
-// deterministic. K2a is the next kernel to move to wgmma.
+// f32 keeps the mma.sync/FFMA kernels (first half): wgmma has no f32
+// FFMA path, and f32, run with FFMA (not TF32), agrees with the plain
+// PyTorch version to 1e-5 of its largest entry. The f32 fused backward also
+// sums dq in a fixed k-tile order (turn counters on a persistent grid of
+// resident CTAs, plain loads and stores), so it too is bit-identical from
+// run to run.
 // Helpers: flash_tiles.cuh (the mma.sync tiles, shared with the
 // split-layout kernels of flash_attention.cu) and hopper.cuh (PTX for
-// TMA, mbarriers, wgmma). Not done yet: in-kernel dropout, and overlapping
-// one tile's softmax with the next tile's products inside a warpgroup.
+// TMA, mbarriers, wgmma). Not done yet: in-kernel dropout, overlapping one
+// tile's softmax with the next tile's products inside a warpgroup, and
+// K2a's 64-row k tiles at 128 (its registers: S, dP and dQ at 64 x 128
+// would take 192 f32 a thread before the fragments).
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda link (see encoder)
 #include <math.h>
@@ -297,18 +305,27 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------- backward: dk/dv (and fused dq)
-// grid (ceil(S / kBK), KV, B); warp w owns k rows w*16 .. w*16 + 15 of the
-// CTA's k/v tile and, for each of the G q heads of the group, walks the q
-// tiles from the causal edge to S (_bwd_dkv_kernel_qkv). FUSED also adds
-// each tile's dS K into the f32 dq scratch (_bwd_fused_kernel_qkv and its
-// blocked twin), so one walk yields dq, dk and dv.
+// Items (k tile kt, kv group g, batch b), kt fastest; warp w owns k rows
+// w*16 .. w*16 + 15 of the item's k/v tile and, for each of the G q heads
+// of the group, walks the q tiles from the causal edge to S
+// (_bwd_dkv_kernel_qkv). FUSED also adds each tile's dS K into the f32 dq
+// scratch (_bwd_fused_kernel_qkv and its blocked twin), so one walk yields
+// dq, dk and dv. The adds go in k-tile order, as the TPU's grid order sums
+// them: the item of k tile kt waits until the turn counter of (b, h, q
+// tile) reads kt, stores (kt = 0) or adds its part with plain loads and
+// stores, and passes the turn on; so the result is the same bits every
+// run. FUSED runs on a persistent grid of CTAs that are all resident, each
+// taking its items in order: an item waits only on the one before it, so
+// the lowest unfinished item can always run. Without FUSED a CTA takes one
+// item.
 template <typename T, int HD, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kv_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
                         const float* __restrict__ lse,
                         const T* __restrict__ dout, T* __restrict__ dqkv,
-                        float* __restrict__ dq_acc, int S, int H, int G,
-                        float scale, float qscale, int causal) {
+                        float* __restrict__ dq_acc, int* __restrict__ dq_turn,
+                        int B, int S, int H, int G, float scale, float qscale,
+                        int causal) {
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBQb + Ty<T>::kPad;
   constexpr int NTS = kBQb / 8, NTO = HD / 8;
@@ -322,105 +339,129 @@ __global__ void __launch_bounds__(kThreads)
   float* lse_s = reinterpret_cast<float*>(dSTs + kBK * LDP);
   float* delta_s = lse_s + kBQb;
 
-  const int j0 = blockIdx.x * kBK, g = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = lane >> 2, c = (lane & 3) * 2;
-  const size_t W = (size_t)(H + 2 * (H / G)) * HD;
-  const size_t HHD = (size_t)H * HD;
-  const T* base = qkv + (size_t)b * S * W;
-  const size_t koff = (size_t)(g * (G + 2) + G) * HD;
-  load_tile<T, HD>(Ks, LD, base + koff, W, j0, kBK, S);
-  load_tile<T, HD>(Vs, LD, base + koff + HD, W, j0, kBK, S);
+  const int KV = H / G;
+  const int n_kt = (S + kBK - 1) / kBK;
+  const int n_items = n_kt * KV * B;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int kt = item % n_kt, g = (item / n_kt) % KV, b = item / (n_kt * KV);
+    const int j0 = kt * kBK;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int r = lane >> 2, c = (lane & 3) * 2;
+    const size_t W = (size_t)(H + 2 * KV) * HD;
+    const size_t HHD = (size_t)H * HD;
+    const T* base = qkv + (size_t)b * S * W;
+    const size_t koff = (size_t)(g * (G + 2) + G) * HD;
+    __syncthreads();  // the previous item's tiles are no longer read
+    load_tile<T, HD>(Ks, LD, base + koff, W, j0, kBK, S);
+    load_tile<T, HD>(Vs, LD, base + koff + HD, W, j0, kBK, S);
 
-  const T* Kw = Ks + warp * 16 * LD;
-  const T* Vw = Vs + warp * 16 * LD;
-  T* PTw = PTs + warp * 16 * LDP;
-  T* dSTw = dSTs + warp * 16 * LDP;
-  const int jr[2] = {j0 + warp * 16 + r, j0 + warp * 16 + r + 8};
-  float dk[NTO][4], dv[NTO][4];
-  zero(dk);
-  zero(dv);
+    const T* Kw = Ks + warp * 16 * LD;
+    const T* Vw = Vs + warp * 16 * LD;
+    T* PTw = PTs + warp * 16 * LDP;
+    T* dSTw = dSTs + warp * 16 * LDP;
+    const int jr[2] = {j0 + warp * 16 + r, j0 + warp * 16 + r + 8};
+    float dk[NTO][4], dv[NTO][4];
+    zero(dk);
+    zero(dv);
 
-  const int n_it = (S + kBQb - 1) / kBQb;
-  const int it0 = causal ? j0 / kBQb : 0;
-  for (int mem = 0; mem < G; ++mem) {
-    const int h = g * G + mem;
-    const T* qsrc = base + (size_t)(g * (G + 2) + mem) * HD;
-    const T* dosrc = dout + (size_t)b * S * HHD + (size_t)h * HD;
-    for (int it = it0; it < n_it; ++it) {
-      const int i0 = it * kBQb;
-      __syncthreads();  // the previous q tile is no longer read
-      load_tile<T, HD>(Qs, LD, qsrc, W, i0, kBQb, S);
-      load_tile<T, HD>(dOs, LD, dosrc, HHD, i0, kBQb, S);
-      __syncthreads();
-      row_stats<T, HD>(delta_s, lse_s, dOs, LD, o, lse, b, h, H, S, i0,
-                       kBQb);
-      __syncthreads();
-      float sT[NTS][4], dpT[NTS][4];
-      zero(sT);
-      zero(dpT);
-      warp_gemm<T, NTS, HD, false, false>(sT, Kw, LD, Qs, LD, lane);
-      warp_gemm<T, NTS, HD, false, false>(dpT, Vw, LD, dOs, LD, lane);
-#pragma unroll
-      for (int nt = 0; nt < NTS; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int li = nt * 8 + c + (e & 1), i = i0 + li;
-          const int j = jr[e >> 1];
-          float v = sT[nt][e] * qscale;
-          if (i >= S || j >= S || (causal && j > i)) v = kNegInf;
-          const float p = exp2f(v - lse_s[li]);
-          const float ds = p * (dpT[nt][e] - delta_s[li]) * scale;
-          const int at = (r + 8 * (e >> 1)) * LDP + li;
-          PTw[at] = Ty<T>::from(p);
-          dSTw[at] = Ty<T>::from(ds);
-        }
-      __syncwarp();
-      warp_gemm<T, NTO, kBQb, false, true>(dv, PTw, LDP, dOs, LD, lane);
-      warp_gemm<T, NTO, kBQb, false, true>(dk, dSTw, LDP, Qs, LD, lane);
-      if (FUSED) {
-        // dq[i] += sum_j dS[i][j] K[j]: every warp's dS^T rows are needed,
-        // so the CTA syncs; warps split the (kBQb x HD) result into RB row
-        // blocks of 16 and CG column groups, 32 columns at a time
+    const int n_it = (S + kBQb - 1) / kBQb;
+    const int it0 = causal ? j0 / kBQb : 0;
+    for (int mem = 0; mem < G; ++mem) {
+      const int h = g * G + mem;
+      const T* qsrc = base + (size_t)(g * (G + 2) + mem) * HD;
+      const T* dosrc = dout + (size_t)b * S * HHD + (size_t)h * HD;
+      for (int it = it0; it < n_it; ++it) {
+        const int i0 = it * kBQb;
+        __syncthreads();  // the previous q tile is no longer read
+        load_tile<T, HD>(Qs, LD, qsrc, W, i0, kBQb, S);
+        load_tile<T, HD>(dOs, LD, dosrc, HHD, i0, kBQb, S);
         __syncthreads();
-        constexpr int RB = kBQb / 16, CG = kWarps / RB, CW = HD / CG;
-        const int rb = warp % RB, cg = warp / RB;
+        row_stats<T, HD>(delta_s, lse_s, dOs, LD, o, lse, b, h, H, S, i0,
+                         kBQb);
+        __syncthreads();
+        float sT[NTS][4], dpT[NTS][4];
+        zero(sT);
+        zero(dpT);
+        warp_gemm<T, NTS, HD, false, false>(sT, Kw, LD, Qs, LD, lane);
+        warp_gemm<T, NTS, HD, false, false>(dpT, Vw, LD, dOs, LD, lane);
 #pragma unroll
-        for (int cc = 0; cc < CW; cc += 32) {
-          float part[4][4];
-          zero(part);
-          warp_gemm<T, 4, kBK, true, true>(part, dSTs + rb * 16, LDP,
-                                           Ks + cg * CW + cc, LD, lane);
+        for (int nt = 0; nt < NTS; ++nt)
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int i = i0 + rb * 16 + r + 8 * x;
-            if (i >= S) continue;
-            float* drow = dq_acc + ((size_t)b * S + i) * HHD +
-                          (size_t)h * HD + cg * CW + cc;
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              atomicAdd(drow + nt * 8 + c, part[nt][2 * x]);
-              atomicAdd(drow + nt * 8 + c + 1, part[nt][2 * x + 1]);
-            }
+          for (int e = 0; e < 4; ++e) {
+            const int li = nt * 8 + c + (e & 1), i = i0 + li;
+            const int j = jr[e >> 1];
+            float v = sT[nt][e] * qscale;
+            if (i >= S || j >= S || (causal && j > i)) v = kNegInf;
+            const float p = exp2f(v - lse_s[li]);
+            const float ds = p * (dpT[nt][e] - delta_s[li]) * scale;
+            const int at = (r + 8 * (e >> 1)) * LDP + li;
+            PTw[at] = Ty<T>::from(p);
+            dSTw[at] = Ty<T>::from(ds);
           }
+        __syncwarp();
+        warp_gemm<T, NTO, kBQb, false, true>(dv, PTw, LDP, dOs, LD, lane);
+        warp_gemm<T, NTO, kBQb, false, true>(dk, dSTw, LDP, Qs, LD, lane);
+        if (FUSED) {
+          // dq[i] += sum_j dS[i][j] K[j]: every warp's dS^T rows are needed,
+          // so the CTA syncs; warps split the (kBQb x HD) result into RB row
+          // blocks of 16 and CG column groups, 32 columns at a time
+          __syncthreads();
+          constexpr int RB = kBQb / 16, CG = kWarps / RB, CW = HD / CG;
+          const int rb = warp % RB, cg = warp / RB;
+          float part[CW / 32][4][4];
+#pragma unroll
+          for (int cc = 0; cc < CW / 32; ++cc) {
+            zero(part[cc]);
+            warp_gemm<T, 4, kBK, true, true>(part[cc], dSTs + rb * 16, LDP,
+                                             Ks + cg * CW + 32 * cc, LD, lane);
+          }
+          // this k tile's turn on the q tile's rows of dq
+          int* turn = dq_turn + ((size_t)b * H + h) * n_it + it;
+          if (threadIdx.x == 0 && kt > 0)
+            while (ld_acquire(turn) < kt) __nanosleep(32);
+          __syncthreads();
+#pragma unroll
+          for (int cc = 0; cc < CW / 32; ++cc)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int i = i0 + rb * 16 + r + 8 * x;
+              if (i >= S) continue;
+              float* drow = dq_acc + ((size_t)b * S + i) * HHD +
+                            (size_t)h * HD + cg * CW + 32 * cc;
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) {
+                float2* at = reinterpret_cast<float2*>(drow + nt * 8 + c);
+                float2 v = make_float2(part[cc][nt][2 * x],
+                                       part[cc][nt][2 * x + 1]);
+                if (kt > 0) {  // from L2, not a stale L1 line
+                  const float2 was = __ldcg(at);
+                  v.x += was.x;
+                  v.y += was.y;
+                }
+                *at = v;
+              }
+            }
+          __threadfence();
+          __syncthreads();
+          if (threadIdx.x == 0) st_release(turn, kt + 1);
         }
       }
     }
-  }
 
 #pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const int j = jr[x];
-    if (j >= S) continue;
-    T* drow = dqkv + ((size_t)b * S + j) * W + koff;
+    for (int x = 0; x < 2; ++x) {
+      const int j = jr[x];
+      if (j >= S) continue;
+      T* drow = dqkv + ((size_t)b * S + j) * W + koff;
 #pragma unroll
-    for (int nt = 0; nt < NTO; ++nt) {
-      drow[nt * 8 + c] = Ty<T>::from(dk[nt][2 * x]);
-      drow[nt * 8 + c + 1] = Ty<T>::from(dk[nt][2 * x + 1]);
-      drow[HD + nt * 8 + c] = Ty<T>::from(dv[nt][2 * x]);
-      drow[HD + nt * 8 + c + 1] = Ty<T>::from(dv[nt][2 * x + 1]);
+      for (int nt = 0; nt < NTO; ++nt) {
+        drow[nt * 8 + c] = Ty<T>::from(dk[nt][2 * x]);
+        drow[nt * 8 + c + 1] = Ty<T>::from(dk[nt][2 * x + 1]);
+        drow[HD + nt * 8 + c] = Ty<T>::from(dv[nt][2 * x]);
+        drow[HD + nt * 8 + c + 1] = Ty<T>::from(dv[nt][2 * x + 1]);
+      }
     }
-  }
+  }  // items
 }
 
 // the fused backward's f32 dq scratch (B, S, H hd) -> dq chunks of dqkv
@@ -463,11 +504,6 @@ constexpr int kBQh = 64;   // K2: q rows per step of the walk
 // bytes of a rows x 64 bf16 panel (one 128-byte swizzled row each)
 __host__ __device__ constexpr uint32_t panel_bytes(int rows) {
   return (uint32_t)rows * 128;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
 // a ROWS x (64 P) tile at (col, row) of batch b, as P panels of ROWS rows,
@@ -724,6 +760,185 @@ __global__ void bwd_stats_kernel(const bf16* __restrict__ o,
     if (lane == 0)
       stats[rw] = s < S ? make_float2(lse[bh * S + s], acc)
                         : make_float2(0.f, 0.f);
+  }
+}
+
+constexpr int kBKd = 64;     // K2a: k rows per step of the walk
+constexpr int kDqStages = 3;  // K2a: depth of the K/V ring
+
+template <int HD>
+struct DqSmem {
+  static constexpr int P = HD / 64;
+  static constexpr uint32_t kQ = P * panel_bytes(kBM);
+  static constexpr uint32_t kKV = P * panel_bytes(kBKd);
+  static constexpr uint32_t kOffDO = kQ;
+  static constexpr uint32_t kOffK = 2 * kQ;
+  static constexpr uint32_t kOffV = kOffK + kDqStages * kKV;
+  static constexpr uint32_t kOffStats = kOffV + kDqStages * kKV;
+  static constexpr uint32_t kOffBar = kOffStats + kBM * 8;
+  static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kDqStages) + 1024;
+};
+
+// ------------------------------------------------------ K2a on Hopper
+// grid (H, B, ceil(S / 128)), q tiles from the last (causal rows longest
+// first). Consumer warpgroup w owns q rows i0 + 64 w .. + 63 and keeps
+// their dQ (64 x HD f32) in registers for the whole walk: the CTA owns its
+// dq rows, so there is nothing to add across CTAs and the result is the
+// same bits every run. The producer loads Q, dO and the rows' (lse, delta)
+// once and K, V through a ring of kDqStages 64-row stages. Per k tile: S =
+// Q K^T and dP = dO V^T (wgmma, all four operands K-major from the TMA
+// tiles), p = exp2(S scale log2e - lse) and dS = p (dP - delta) scale on
+// the accumulator registers, rounded to bf16 into A fragments as the TPU
+// kernel rounds ds, then dQ += dS K (wgmma, A from registers, K MN-major,
+// as K1's P V). 64-row k tiles keep S, dP and dQ (32 + 32 + 64 P f32 a
+// thread) within the consumers' 240 registers.
+template <int HD>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap qkv_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const float2* __restrict__ stats,
+                             bf16* __restrict__ dqkv, int S, int H, int G,
+                             float scale, float qscale, int causal) {
+  using Sm = DqSmem<HD>;
+  constexpr int P = Sm::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Qs = smem;
+  unsigned char* dOs = smem + Sm::kOffDO;
+  unsigned char* Ks = smem + Sm::kOffK;
+  unsigned char* Vs = smem + Sm::kOffV;
+  const float2* stats_s = reinterpret_cast<float2*>(smem + Sm::kOffStats);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Sm::kOffBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBM;
+  const int g = h / G;
+  const int S_pad = (S + kBQh - 1) / kBQh * kBQh;
+  const int n_all = (S + kBKd - 1) / kBKd;
+  const int n_kt = causal ? min((i0 + kBM - 1) / kBKd + 1, n_all) : n_all;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer warpgroup
+    regs_dec<kRegsProducer>();
+    if (threadIdx.x == kConsumers) {
+      // stats rows stop at S_pad, a multiple of 64 past i0
+      const int nst = min(kBM, S_pad - i0);
+      mbar_expect_tx(q_full, 2 * Sm::kQ + nst * 8);
+      tma_tile<kBM, P>(Qs, &qkv_map, q_full, (g * (G + 2) + h % G) * HD, i0,
+                       b);
+      tma_tile<kBM, P>(dOs, &do_map, q_full, h * HD, i0, b);
+      bulk_load(smem + Sm::kOffStats,
+                stats + ((size_t)b * H + h) * S_pad + i0, nst * 8,
+                q_full);
+      const int kcol = (g * (G + 2) + G) * HD;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kDqStages;
+        mbar_wait(empty + s, ((kt / kDqStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * Sm::kKV);
+        tma_tile<kBKd, P>(Ks + s * Sm::kKV, &qkv_map, full + s, kcol,
+                          kt * kBKd, b);
+        tma_tile<kBKd, P>(Vs + s * Sm::kKV, &qkv_map, full + s, kcol + HD,
+                          kt * kBKd, b);
+      }
+    }
+  } else {  // consumer warpgroups
+    regs_inc<kRegsConsumer>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int c = (lane & 3) * 2;
+    const int lrow = wg * 64 + warp * 16 + (lane >> 2);
+    const int row[2] = {i0 + lrow, i0 + lrow + 8};
+    const int r0 = i0 + wg * 64;  // this warpgroup's first row
+    float dq[P][32];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[p][i] = 0.f;
+    const uint32_t q_addr = smem_u32(Qs), do_addr = smem_u32(dOs);
+    mbar_wait(q_full, 0);
+    // rows past S_pad were not loaded: (0, 0) keeps their masked terms 0
+    float2 st[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      st[x] = row[x] < S ? stats_s[lrow + 8 * x] : make_float2(0.f, 0.f);
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kDqStages, ph = (kt / kDqStages) & 1;
+      const int j0 = kt * kBKd;
+      if (causal && j0 > r0 + 63) {  // above this warpgroup's diagonal:
+        mbar_arrive(empty + s);      // only the walk's last tile
+        continue;
+      }
+      const uint32_t k_addr = smem_u32(Ks + s * Sm::kKV);
+      const uint32_t v_addr = smem_u32(Vs + s * Sm::kKV);
+      float sc[32], dp[32];
+      mbar_wait(full + s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_ss<0, 0>(sc, kmajor<kBM>(q_addr, wg * 64, k),
+                       kmajor<kBKd>(k_addr, 0, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_ss<0, 0>(dp, kmajor<kBM>(do_addr, wg * 64, k),
+                       kmajor<kBKd>(v_addr, 0, k), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(sc);
+      keep(dp);
+
+      // the mask is needed only past S or across this warpgroup's diagonal
+      const bool edge = j0 + kBKd > S || r0 + 64 > S ||
+                        (causal && j0 + kBKd - 1 > r0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int x = (i >> 1) & 1;
+        const int col = j0 + 8 * (i / 4) + c + (i & 1);
+        const bool out =
+            edge && (col >= S || row[x] >= S || (causal && col > row[x]));
+        const float p = out ? 0.f : exp2f(sc[i] * qscale - st[x].x);
+        sc[i] = p * (dp[i] - st[x].y) * scale;
+      }
+      uint32_t ds[kBKd / 16][4];
+      to_a_frags<kBKd>(ds, sc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBKd / 16; ++k)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          wgmma_rs<1>(dq[p], ds[k], mnmajor<kBKd>(k_addr, p, k));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < P; ++p) keep(dq[p]);
+      keep(ds);
+      mbar_arrive(empty + s);
+    }
+
+    const size_t W = (size_t)(H + 2 * (H / G)) * HD;
+    const size_t qoff = (size_t)(g * (G + 2) + h % G) * HD;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (row[x] >= S) continue;
+      bf16* drow = dqkv + ((size_t)b * S + row[x]) * W + qoff;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(drow + 64 * p + 8 * j + c) =
+              __floats2bfloat162_rn(dq[p][4 * j + 2 * x],
+                                    dq[p][4 * j + 2 * x + 1]);
+    }
   }
 }
 
@@ -1110,8 +1325,9 @@ struct Args {
   void* out;   // forward: out; backward: dqkv
   void* lse_out;
   float* dq_acc;
-  void* stats;  // bf16 dk/dv walk: (B, H, S_pad) (lse, delta) scratch
-  int* turn;    // bf16 fused: (B, H, ceil(S / 64)) zeroed dq turn counters
+  void* stats;  // bf16 backward: (B, H, S_pad) (lse, delta) scratch
+  int* turn;    // fused: zeroed dq turn counters, one per (b, h, q tile)
+  int have_stats;  // bf16 K2a, K2b: the caller ran the pre-pass into stats
   int B, S, H, KV, hd, causal, fast;
   float scale;
   cudaStream_t stream;
@@ -1155,14 +1371,27 @@ cudaError_t bwd_dq(const Args& a) {
 template <typename T, int HD, bool FUSED>
 cudaError_t bwd_kv(const Args& a) {
   const size_t smem = kv_smem<T, HD>();
-  cudaError_t err = allow_smem(flash_bwd_kv_kernel<T, HD, FUSED>, smem);
+  const auto kernel = flash_bwd_kv_kernel<T, HD, FUSED>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err) return err;
-  const dim3 grid((a.S + kBK - 1) / kBK, a.KV, a.B);
-  flash_bwd_kv_kernel<T, HD, FUSED><<<grid, kThreads, smem, a.stream>>>(
+  const long long items = (long long)((a.S + kBK - 1) / kBK) * a.KV * a.B;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  long long grid = items;
+  if (FUSED) {  // every CTA resident at once: the turns never wait on one
+    int sms = 0, per_sm = 0;
+    err = sm_count(&sms);
+    if (!err)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, smem);
+    if (err) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    grid = items < (long long)sms * per_sm ? items : (long long)sms * per_sm;
+  }
+  kernel<<<(unsigned)grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.qkv), static_cast<const T*>(a.o),
       static_cast<const float*>(a.lse), static_cast<const T*>(a.dout),
-      static_cast<T*>(a.out), a.dq_acc, a.S, a.H, a.H / a.KV, a.scale,
-      a.scale * kLog2e, a.causal);
+      static_cast<T*>(a.out), a.dq_acc, a.turn, a.B, a.S, a.H, a.H / a.KV,
+      a.scale, a.scale * kLog2e, a.causal);
   err = cudaGetLastError();
   if (err || !FUSED) return err;
   const size_t n = (size_t)a.B * a.S * a.H * HD;
@@ -1172,51 +1401,17 @@ cudaError_t bwd_kv(const Args& a) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time through the
-// runtime's entry-point query, so the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                              cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // a bf16 (B, S, width) tensor as a 3-d TMA map with 64 x 64 boxes, 128-byte
 // swizzle; rows past S (and columns past width) read as zeros
 cudaError_t make_map(CUtensorMap* map, const void* base, int width, int S,
                      int B) {
-  const EncodeTiled enc = encoder();
-  if (!enc) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
                                  (cuuint64_t)width * S * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, elem[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                         const_cast<void*>(base), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  const cuuint32_t box[3] = {64, 64, 1};
+  return make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
+                     strides, box);
 }
 
 template <int HD>
@@ -1236,9 +1431,9 @@ cudaError_t fwd_sm90(const Args& a) {
   return cudaGetLastError();
 }
 
-// the pre-pass (lse, delta), then the walk on a persistent grid
-template <int HD, bool FUSED>
-cudaError_t bwd_kv_sm90(const Args& a) {
+// the pre-pass: (lse, delta) rows (B, H, S padded to 64) into a.stats
+template <int HD>
+cudaError_t bwd_stats(const Args& a) {
   const int n_qt = (a.S + kBQh - 1) / kBQh;
   const size_t rows = (size_t)a.B * a.H * n_qt * kBQh;
   const int sblocks = (int)((rows + 7) / 8 < 8192 ? (rows + 7) / 8 : 8192);
@@ -1246,7 +1441,36 @@ cudaError_t bwd_kv_sm90(const Args& a) {
       static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<float2*>(a.stats), a.B,
       a.H, a.S, n_qt * kBQh);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// K2a on Hopper: the pre-pass unless the caller ran it, then the q tiles
+template <int HD>
+cudaError_t bwd_dq_sm90(const Args& a) {
+  cudaError_t err = a.have_stats ? cudaSuccess : bwd_stats<HD>(a);
+  if (err) return err;
+  CUtensorMap qkv_map, do_map;
+  err = make_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
+  if (!err) err = make_map(&do_map, a.dout, a.H * HD, a.S, a.B);
+  if (err) return err;
+  const size_t smem = DqSmem<HD>::kBytes;
+  err = allow_smem(flash_bwd_dq_kernel_sm90<HD>, smem);
+  if (err) return err;
+  const dim3 grid(a.H, a.B, (a.S + kBM - 1) / kBM);
+  if (grid.z > 65535) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel_sm90<HD><<<grid, kHopperThreads, smem, a.stream>>>(
+      qkv_map, do_map, static_cast<const float2*>(a.stats),
+      static_cast<bf16*>(a.out), a.S, a.H, a.H / a.KV, a.scale,
+      a.scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
+// the pre-pass (unless the caller ran it; the fused walk always runs it),
+// then the walk on a persistent grid
+template <int HD, bool FUSED>
+cudaError_t bwd_kv_sm90(const Args& a) {
+  cudaError_t err =
+      a.have_stats && !FUSED ? cudaSuccess : bwd_stats<HD>(a);
   if (err) return err;
   CUtensorMap qkv_map, do_map;
   err = make_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
@@ -1255,10 +1479,8 @@ cudaError_t bwd_kv_sm90(const Args& a) {
   const size_t smem = KvSmem<HD, FUSED>::kBytes;
   err = allow_smem(flash_bwd_kv_kernel_sm90<HD, FUSED>, smem);
   if (err) return err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         dev);
+  int sms = 0;
+  err = sm_count(&sms);
   if (err) return err;
   const long long items =
       (long long)((a.S + kBN - 1) / kBN) * a.B * a.KV;
@@ -1277,16 +1499,16 @@ cudaError_t bwd_kv_sm90(const Args& a) {
   return cudaGetLastError();
 }
 
-enum Which { kFwd, kDq, kDkv, kFused };
+enum Which { kFwd, kStats, kDq, kDkv, kFused };
 
-// bf16 K1 and the bf16 dk/dv walk take the Hopper kernels; f32 and K2a
-// keep the mma.sync/FFMA ones
+// bf16 takes the Hopper kernels; f32 keeps the mma.sync/FFMA ones
 template <typename T, int HD>
 cudaError_t dispatch(Which w, const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
     switch (w) {
       case kFwd: return fwd_sm90<HD>(a);
-      case kDq: return bwd_dq<T, HD>(a);
+      case kStats: return bwd_stats<HD>(a);
+      case kDq: return bwd_dq_sm90<HD>(a);
       case kDkv: return bwd_kv_sm90<HD, false>(a);
       case kFused: return bwd_kv_sm90<HD, true>(a);
     }
@@ -1329,41 +1551,55 @@ extern "C" int nk_flash_fwd_qkv(int dtype, const void* qkv, void* out,
                                 int hd, float scale, int causal, int fast,
                                 void* stream) {
   Args a{qkv, nullptr, nullptr, nullptr, out, lse, nullptr, nullptr, nullptr,
-         B, S, H, KV, hd, causal, fast, scale,
+         0, B, S, H, KV, hd, causal, fast, scale,
          static_cast<cudaStream_t>(stream)};
   return run(dtype, kFwd, a);
 }
 
-// the q chunks of dqkv (B, S, W)
+// bf16 only: the backward's pre-pass, stats f32 (B, H, 64 ceil(S / 64), 2)
+// = (lse, rowsum(dO . O)) per row, rows past S (0, 0); K2a and K2b take it
+// with have_stats = 1, so a split backward runs it once
+extern "C" int nk_flash_bwd_stats_qkv(int dtype, const void* o,
+                                      const void* lse, const void* dout,
+                                      void* stats, int B, int S, int H,
+                                      int hd, void* stream) {
+  Args a{nullptr, o, lse, dout, nullptr, nullptr, nullptr, stats, nullptr,
+         0, B, S, H, H, hd, 0, 0, 0.f, static_cast<cudaStream_t>(stream)};
+  return run(dtype, kStats, a);
+}
+
+// the q chunks of dqkv (B, S, W); bf16: stats as above, filled here unless
+// have_stats (unused in f32)
 extern "C" int nk_flash_bwd_dq_qkv(int dtype, const void* qkv, const void* o,
                                    const void* lse, const void* dout,
-                                   void* dqkv, int B, int S, int H, int KV,
-                                   int hd, float scale, int causal,
-                                   void* stream) {
-  Args a{qkv, o, lse, dout, dqkv, nullptr, nullptr, nullptr, nullptr,
-         B, S, H, KV, hd, causal, 0, scale,
+                                   void* stats, int have_stats, void* dqkv,
+                                   int B, int S, int H, int KV, int hd,
+                                   float scale, int causal, void* stream) {
+  Args a{qkv, o, lse, dout, dqkv, nullptr, nullptr, stats, nullptr,
+         have_stats, B, S, H, KV, hd, causal, 0, scale,
          static_cast<cudaStream_t>(stream)};
   return run(dtype, kDq, a);
 }
 
-// the k and v chunks of dqkv (B, S, W); stats is f32 (B, H, 64 ceil(S /
-// 64), 2) scratch for the bf16 kernel (unused in f32)
+// the k and v chunks of dqkv (B, S, W); stats as for dq
 extern "C" int nk_flash_bwd_dkv_qkv(int dtype, const void* qkv,
                                     const void* o, const void* lse,
-                                    const void* dout, void* stats, void* dqkv,
-                                    int B, int S, int H, int KV, int hd,
-                                    float scale, int causal, void* stream) {
+                                    const void* dout, void* stats,
+                                    int have_stats, void* dqkv, int B, int S,
+                                    int H, int KV, int hd, float scale,
+                                    int causal, void* stream) {
   Args a{qkv, o, lse, dout, dqkv, nullptr, nullptr, stats, nullptr,
-         B, S, H, KV, hd, causal, 0, scale,
+         have_stats, B, S, H, KV, hd, causal, 0, scale,
          static_cast<cudaStream_t>(stream)};
   return run(dtype, kDkv, a);
 }
 
-// all of dqkv (B, S, W). bf16: stats as above, dq_acc f32 (B, H,
-// ceil(S / 64), 64, hd + 8) scratch and turn, int32 (B, H, ceil(S / 64))
-// that the caller zeroes; dq is summed in a fixed order, so the result is
-// the same bits every run. f32: dq_acc is f32 (B, S, H hd) scratch that
-// the caller zeroes (stats and turn unused).
+// all of dqkv (B, S, W); dq is summed over k tiles in a fixed order, so the
+// result is the same bits every run. bf16: stats as above (always filled
+// here), dq_acc f32 (B, H, ceil(S / 64), 64, hd + 8) scratch and turn,
+// int32 (B, H, ceil(S / 64)) that the caller zeroes. f32: dq_acc f32 (B, S,
+// H hd) scratch and turn, int32 (B, H, ceil(S / 32)) that the caller
+// zeroes (stats unused).
 extern "C" int nk_flash_bwd_fused_qkv(int dtype, const void* qkv,
                                       const void* o, const void* lse,
                                       const void* dout, void* stats,
@@ -1371,7 +1607,7 @@ extern "C" int nk_flash_bwd_fused_qkv(int dtype, const void* qkv,
                                       int B, int S, int H, int KV, int hd,
                                       float scale, int causal, void* stream) {
   Args a{qkv, o, lse, dout, dqkv, nullptr, static_cast<float*>(dq_acc),
-         stats, static_cast<int*>(turn),
+         stats, static_cast<int*>(turn), 0,
          B, S, H, KV, hd, causal, 0, scale,
          static_cast<cudaStream_t>(stream)};
   return run(dtype, kFused, a);

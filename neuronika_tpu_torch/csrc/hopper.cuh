@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the warp-specialised
-// flash-attention kernels of flash_attention_qkv.cu: mbarriers, TMA tile
-// loads, bulk copies, wgmma descriptors and products, register
-// reallocation and named barriers. Plain C++ and PTX: no CUTLASS, so the
-// source builds in seconds.
+// kernels of flash_attention_qkv.cu and matmul.cu: mbarriers, TMA tile
+// loads, bulk copies, wgmma descriptors and products (bf16 and TF32),
+// register reallocation and named barriers; on the host, TMA map encoding
+// and the SM count. Plain C++ and PTX: no CUTLASS, so the source builds in
+// seconds.
 //
 // Shared-memory tiles are kept in the layout that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: 64 bf16 columns (128 bytes) a row, rows
@@ -12,6 +13,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda link (encoder)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -20,6 +22,12 @@ namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// swizzled tiles start on 1024-byte boundaries
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
 // ------------------------------------------------------------- mbarriers
@@ -284,6 +292,94 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x 128 f32) += A (64 x 8) . B (8 x 128), TF32 operands (f32 bit
+// patterns whose low 13 mantissa bits the tensor cores ignore), both
+// K-major in shared memory: TF32 wgmma has no transpose bits. A k8 slice
+// is 32 bytes of a 128-byte row, as a bf16 k16 slice is. scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ------------------------------------------------------- host: TMA maps
+
+// cuTensorMapEncodeTiled from the driver, found at run time through the
+// runtime's entry-point query, so the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                              cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 3-d tensor (dims innermost first, strides of dims 1 and 2 in bytes)
+// as a TMA map with 128-byte swizzle; coordinates past a dim read as zeros
+inline cudaError_t make_map_3d(CUtensorMap* map, CUtensorMapDataType type,
+                               const void* base, const cuuint64_t (&dims)[3],
+                               const cuuint64_t (&strides)[2],
+                               const cuuint32_t (&box)[3]) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return cudaErrorSymbolNotFound;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, type, 3, const_cast<void*>(base), dims, strides,
+                         box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the SMs of the current device, for persistent grids
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (!err)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 }  // namespace

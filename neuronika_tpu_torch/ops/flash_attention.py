@@ -297,26 +297,9 @@ def flash_fwd_qkv(qkv, n_head, n_kv_head=0, causal=True, scale=None,
     return out, lse
 
 
-def flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
-                     causal=True, scale=None):
-    """K2a on the card: writes the q chunks of `d_qkv` (B, S, W). Adds one
-    to `flash_bwd_dq_qkv.launches`."""
-    B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
-    _check(qkv, n_head, n_kv_head, ("d_qkv", d_qkv, qkv.dtype, (B, S, W)))
-    from .._build import load_library
-
-    with torch.cuda.device(qkv.device):
-        _launch(load_library().nk_flash_bwd_dq_qkv, "flash_bwd_dq_qkv",
-                _DTYPES[qkv.dtype], qkv.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), do.data_ptr(), d_qkv.data_ptr(), B, S,
-                n_head, KV, hd, _scale(scale, hd), int(causal), _stream(qkv))
-    flash_bwd_dq_qkv.launches += 1
-    return d_qkv
-
-
 def _bwd_stats(qkv, n_head):
-    """bf16: the dk/dv walk's (lse, delta) scratch, (B, H, S padded to 64,
-    2) f32, which its pre-pass fills; f32 needs none (None)."""
+    """bf16: the backward's (lse, delta) scratch, (B, H, S padded to 64, 2)
+    f32, which its pre-pass fills; f32 needs none (None)."""
     if qkv.dtype != torch.bfloat16:
         return None
     B, S = qkv.shape[:2]
@@ -328,47 +311,89 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
-                      causal=True, scale=None):
-    """K2b on the card: writes the k and v chunks of `d_qkv`. Adds one to
-    `flash_bwd_dkv_qkv.launches`."""
+def flash_bwd_stats_qkv(qkv, out, lse, do, n_head, n_kv_head=0):
+    """The bf16 backward's pre-pass, (lse, rowsum(dO.O)) per row into a
+    new (B, H, S padded to 64, 2) f32 tensor, which K2a and K2b take as
+    `stats` so that a split backward runs it once; None in f32, whose
+    kernels compute their own."""
+    B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
+    stats = _bwd_stats(qkv, n_head)
+    if stats is not None:
+        from .._build import load_library
+
+        with torch.cuda.device(qkv.device):
+            _launch(load_library().nk_flash_bwd_stats_qkv,
+                    "flash_bwd_stats_qkv", _DTYPES[qkv.dtype], out.data_ptr(),
+                    lse.data_ptr(), do.data_ptr(), stats.data_ptr(), B, S,
+                    n_head, hd, _stream(qkv))
+    return stats
+
+
+def _split_bwd(entry, name, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
+               causal, scale, stats):
+    """Launch K2a or K2b (`entry`) into `d_qkv`; bf16 runs the pre-pass
+    itself unless given `stats` from `flash_bwd_stats_qkv`."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
     _check(qkv, n_head, n_kv_head, ("d_qkv", d_qkv, qkv.dtype, (B, S, W)))
+    have = stats is not None
+    if have:
+        _check(qkv, n_head, n_kv_head,
+               ("stats", stats, torch.float32,
+                (B, n_head, -(-S // 64) * 64, 2)))
+    else:
+        stats = _bwd_stats(qkv, n_head)
     from .._build import load_library
 
-    stats = _bwd_stats(qkv, n_head)
     with torch.cuda.device(qkv.device):
-        _launch(load_library().nk_flash_bwd_dkv_qkv, "flash_bwd_dkv_qkv",
-                _DTYPES[qkv.dtype], qkv.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), do.data_ptr(), _ptr(stats), d_qkv.data_ptr(),
-                B, S, n_head, KV, hd, _scale(scale, hd), int(causal),
-                _stream(qkv))
+        _launch(getattr(load_library(), entry), name, _DTYPES[qkv.dtype],
+                qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                _ptr(stats), int(have), d_qkv.data_ptr(), B, S, n_head, KV,
+                hd, _scale(scale, hd), int(causal), _stream(qkv))
+    return d_qkv
+
+
+def flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
+                     causal=True, scale=None, stats=None):
+    """K2a on the card: writes the q chunks of `d_qkv` (B, S, W). `stats`:
+    the pre-pass's result (bf16), or None to run it here. Adds one to
+    `flash_bwd_dq_qkv.launches`."""
+    _split_bwd("nk_flash_bwd_dq_qkv", "flash_bwd_dq_qkv", qkv, out, lse, do,
+               d_qkv, n_head, n_kv_head, causal, scale, stats)
+    flash_bwd_dq_qkv.launches += 1
+    return d_qkv
+
+
+def flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
+                      causal=True, scale=None, stats=None):
+    """K2b on the card: writes the k and v chunks of `d_qkv`. `stats` as
+    for `flash_bwd_dq_qkv`. Adds one to `flash_bwd_dkv_qkv.launches`."""
+    _split_bwd("nk_flash_bwd_dkv_qkv", "flash_bwd_dkv_qkv", qkv, out, lse,
+               do, d_qkv, n_head, n_kv_head, causal, scale, stats)
     flash_bwd_dkv_qkv.launches += 1
     return d_qkv
 
 
 def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
                         scale=None):
-    """K2c/K2d on the card: all of d_qkv (B, S, W) from one walk. In bf16
-    the k tiles add their dq terms in a fixed order, so the result is the
-    same bits from run to run; in f32 they add by atomics, whose order,
-    and so the last bits, may change. Adds one to
-    `flash_bwd_fused_qkv.launches`."""
+    """K2c/K2d on the card: all of d_qkv (B, S, W) from one walk. The k
+    tiles add their dq terms in a fixed order (turn counters), so the
+    result is the same bits from run to run, in f32 and in bf16. Adds one
+    to `flash_bwd_fused_qkv.launches`."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
     from .._build import load_library
 
     d_qkv = torch.empty_like(qkv)
     stats = _bwd_stats(qkv, n_head)
-    if stats is None:
-        dq_acc = torch.zeros((B, S, n_head * hd), dtype=torch.float32,
+    if stats is None:   # f32: 32-row q tiles, dq rows as in d_qkv
+        dq_acc = torch.empty((B, S, n_head * hd), dtype=torch.float32,
                              device=qkv.device)
-        turn = None
+        n_qt = -(-S // 32)
     else:   # q-tile-major, rows padded by 8 (csrc/flash_attention_qkv.cu)
         n_qt = -(-S // 64)
         dq_acc = torch.empty((B, n_head, n_qt, 64, hd + 8),
                              dtype=torch.float32, device=qkv.device)
-        turn = torch.zeros((B, n_head, n_qt), dtype=torch.int32,
-                           device=qkv.device)
+    turn = torch.zeros((B, n_head, n_qt), dtype=torch.int32,
+                       device=qkv.device)
     with torch.cuda.device(qkv.device):
         _launch(load_library().nk_flash_bwd_fused_qkv,
                 "flash_bwd_fused_qkv", _DTYPES[qkv.dtype], qkv.data_ptr(),
@@ -553,12 +578,13 @@ class FlashAttentionQKV(torch.autograd.Function):
         elif fused_bwd:
             d_qkv = flash_bwd_fused_qkv(qkv, out, lse, do, n_head,
                                         n_kv_head, causal, scale)
-        else:
+        else:   # one pre-pass for both kernels
             d_qkv = torch.empty_like(qkv)
+            stats = flash_bwd_stats_qkv(qkv, out, lse, do, n_head, n_kv_head)
             flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head,
-                             causal, scale)
+                             causal, scale, stats)
             flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head,
-                              causal, scale)
+                              causal, scale, stats)
         return d_qkv, None, None, None, None, None, None
 
 

@@ -83,6 +83,84 @@ def test_plain_matmul_bf16_and_mixed_match_jax():
     assert mixed.dtype == torch.bfloat16
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, on its f32 bit pattern: what `cvt.rna.tf32.f32` gives."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 1.5 * ulp, 3.0, -0.0], dtype=torch.float32)
+    want = [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0, -0.0]
+    assert _tf32(x).tolist() == want
+
+
+# phase 9's products (build_var_model d768 L8 H6 V16384 S1024), (M, K, N):
+# rows cut to 64, since the error of an entry depends on K, not on M
+TF32X3_CASES = {"proj": (64, 768, 768), "mlp": (64, 768, 3072),
+                "mlp-dx": (64, 3072, 768), "head": (64, 768, 16384),
+                "head-dx": (64, 16384, 768), "head-dw": (64, 1024, 16384),
+                "scores": (64, 128, 1024), "pv": (64, 1024, 128)}
+
+
+@pytest.mark.parametrize("case", list(TF32X3_CASES))
+def test_three_tf32_products_hold_the_f32_bound(case):
+    """The arithmetic of K3's f32 design, emulated: each operand split
+    into hi = tf32(x) and lo = tf32(x - hi); each 32-deep k step sums
+    a_lo b_hi + a_hi b_lo + a_hi b_hi (products of TF32 values are exact
+    in f32), and the steps add in order into an f32 sum. Held to 1e-5 of
+    max |entry| against the plain version, the bound chip_smoke.py holds
+    the kernel to."""
+    M, K, N = TF32X3_CASES[case]
+    a = torch.from_numpy(_randn(M, K, seed=2))
+    b = torch.from_numpy(_randn(K, N, seed=3))
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    total = torch.zeros(M, N)
+    for k0 in range(0, K, 32):
+        ks = slice(k0, k0 + 32)
+        total += (a_lo[:, ks] @ b_hi[ks] + a_hi[:, ks] @ b_lo[ks]
+                  + a_hi[:, ks] @ b_hi[ks])
+    ref = MM.matmul_reference(a, b)
+    top = float(ref.abs().max())
+    assert float((total - ref).abs().max()) <= 1e-5 * top
+    # one TF32 product alone does not hold it: the bound has teeth
+    assert float((a_hi @ b_hi - ref).abs().max()) > 1e-5 * top
+
+
+def test_split_k_fills_the_card_at_the_paths_shapes():
+    """Slices of K for 132 SMs: products of fewer than 132 output tiles
+    split, each slice keeping 4 k steps or more; the rest do not."""
+    want = {(1024, 768, 768): 2, (1024, 3072, 768): 2,
+            (1024, 16384, 768): 2, (1024, 1024, 128): 8,
+            (1024, 128, 1024): 1, (1024, 768, 16384): 1,
+            (768, 1024, 16384): 1, (1024, 768, 3072): 1,
+            (1000, 760, 1030): 1}
+    got = {(M, K, N): MM.split_k(M, N, K, torch.float32, 132)
+           for M, K, N in want}
+    assert got == want
+    assert MM.split_k(1024, 128, 1024, torch.bfloat16, 132) == 4
+
+
+def test_operands_read_in_place_only_where_tma_can():
+    """bf16 operands K-major with a 16-byte row stride go to the kernel as
+    they lie; transposed or ragged ones, and every f32 operand (split into
+    TF32 planes), are copied first."""
+    x = torch.zeros(64, 96, dtype=torch.bfloat16)
+    assert MM._in_place(x, *x.stride(), 64, 96)
+    assert not MM._in_place(x.float(), *x.stride(), 64, 96)
+    t = x.T                                  # (96, 64), k stride 64
+    assert not MM._in_place(t, *t.stride(), 96, 64)
+    r = torch.zeros(64, 100, dtype=torch.bfloat16)[:, :90]
+    assert not MM._in_place(r, *r.stride(), 64, 90)   # row stride 100
+    c = x[:, 8:]                             # base 16 bytes on
+    assert MM._in_place(c, *c.stride(), 64, 88)
+    assert not MM._in_place(x[:, 1:], *x[:, 1:].stride(), 64, 95)
+
+
 def test_matmul_refuses_bad_operands():
     with pytest.raises(ValueError, match="2-d"):
         MM.matmul(torch.zeros(2, 3, 4), torch.zeros(4, 5))
@@ -170,16 +248,21 @@ def _card_mm(cuda, m, k, n, dtype, trans):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (1000, 760, 1030),
-                                   (1, 96, 33), (257, 8, 3)])
+                                   (1, 96, 33), (257, 8, 3),
+                                   (1024, 768, 768), (1024, 16384, 768),
+                                   (1024, 1024, 128)])
 def test_matmul_kernel_matches_plain_on_gpu(cuda, m, k, n, dtype, trans):
-    """f32: 1e-5 of the largest entry (FFMA in another order); bf16: one
-    bf16 ulp of the largest entry (one rounding of an f32 sum)."""
+    """f32: 1e-5 of the largest entry (3xTF32 on the tensor cores); bf16:
+    one bf16 ulp of the largest entry (one rounding of an f32 sum). The
+    last three are phase 9's split-K products (projection, LM-head dx,
+    per-head P V); two launches give the same bits."""
     a, b = _card_mm(cuda, m, k, n, dtype, trans)
     before = MM.matmul.launches
     out = MM.matmul(a, b)
     ref = MM.matmul_reference(a, b)
     torch.cuda.synchronize()
     assert MM.matmul.launches == before + 1
+    assert torch.equal(out, MM.matmul(a, b))
     assert out.dtype == dtype and out.shape == (m, n)
     top = float(ref.float().abs().max())
     tol = 1e-5 * top if dtype == torch.float32 else _bf16_ulp(top)
