@@ -85,12 +85,14 @@ results must be the same bits over two launches, and its split-K products
 fail the bound with their last K slice dropped (a planted fault); and
 the split-layout flash kernels (K5 forward, K6 dq, K7 dk/dv) against
 their plain versions over f32 and bf16, causal, windows 1, 6, 100 and
->= S, full attention with Sq != Skv, hd 64 and 128 and a ragged S, then
-at B1 H8 S8192 hd128 window 4096 bf16, where each is timed beside its
-plain version and SDPA (with the band as a boolean mask), and at phase
-11's shape (B2 H32 S8192), where they are checked (the plain versions
-over 8 heads at a time), three planted faults are read against the same
-bound and must fail it, and each is timed alone. Their bf16 results are
+>= S, windows on either side of the bf16 K6/K7's 64-row steps and
+128-row CTAs (63, 64, 65, 127, 128, 129), full attention with Sq != Skv,
+hd 64 and 128 and ragged S, then at B1 H8 S8192 hd128 window 4096 bf16,
+where each is timed beside its plain version and SDPA (with the band as
+a boolean mask), and at phase 11's shape (B2 H32 S8192), where they are
+checked (the plain versions over 8 heads at a time), three planted faults
+are read against the same bound and must fail it, two launches of K6 and
+of K7 must give the same bits, and each is timed alone. Their bf16 results are
 also held in norm: ||kernel - plain|| <= 1e-2 ||plain|| + 2^-15
 sqrt(numel), and so are K1's and K2's, with three planted faults (K1, K2a,
 the fused K2) read at the headline shape. Phase 3 then holds the direct convolutions (K12 at strides
@@ -1173,7 +1175,10 @@ def phase_var_routes(nk, T, FA, MM, SM):
 
 
 # split-layout flash cases (K5-K7): (name, B, H, Sq, Skv, causal, window,
-# hd); windows cut the 64-row tiles anywhere or cover all of S
+# hd); windows cut the 64-row tiles anywhere or cover all of S; then the
+# bf16 K6/K7 geometry (64-row steps, 128-row CTAs): windows on either side
+# of a step or a CTA, ragged S with a window below 128, and full attention
+# ragged on both sides
 SPLIT_CASES = (
     ("causal-hd128", 2, 4, 512, 512, True, 0, 128),
     ("window1-hd128", 2, 4, 512, 512, True, 1, 128),
@@ -1182,6 +1187,12 @@ SPLIT_CASES = (
     ("window-ge-S-hd64", 2, 4, 512, 512, True, 600, 64),
     ("full-Sq300-Skv777-hd128", 2, 4, 300, 777, False, 0, 128),
     ("full-Sq512-Skv256-hd64", 2, 4, 512, 256, False, 0, 64),
+    *((f"window{w}-hd{hd}-S384", 2, 4, 384, 384, True, w, hd)
+      for w, hd in ((63, 128), (64, 64), (65, 128), (127, 64), (128, 128),
+                    (129, 64))),
+    ("window100-hd128-S129", 2, 4, 129, 129, True, 100, 128),
+    ("window37-hd64-S1000", 2, 4, 1000, 1000, True, 37, 64),
+    ("full-Sq130-Skv1000-hd128", 2, 4, 130, 1000, False, 0, 128),
 )
 # f32: the same math in another summation order (dq, dk, dv sum up to S
 # products per element: their bound is relative to the largest gradient
@@ -1275,8 +1286,8 @@ def split_faults(q, k, v, do, out, lse, delta, dq, dk, dv, window):
     """What three planted faults would return, from the kernels' results on
     one chunk of heads (causal, `window` > 0, S/2 >= 64):
     K5 skipping k rows S/2 .. S/2 + 63 (one k tile) for every q row; K6
-    writing 0 past q row 511; K7 missing q rows S/2 .. S/2 + 31 (one inner
-    q tile) from every dk and dv row."""
+    writing 0 past q row 511; K7 missing q rows S/2 .. S/2 + 31 (half of
+    one of its 64-row q steps) from every dk and dv row."""
     S, sc = q.shape[2], q.shape[-1] ** -0.5
     j = slice(S // 2, S // 2 + 64)
     p = band_p(q, k[:, :, j], lse, 0, j.start, window)
@@ -1455,6 +1466,16 @@ def phase_split_flash(FA):
         FA, "bfloat16/B2-H32-S8192-hd128-w4096", q, k, v, do, True, W,
         faults=True)
     torch.cuda.empty_cache()
+    # each CTA of K6 and K7 owns its output rows: two launches, same bits
+    for name, fn in (("flash_bwd_dq", lambda: (FA.flash_bwd_dq(
+            q, k, v, do, lse, delta, window=W),)),
+                     ("flash_bwd_dkv", lambda: FA.flash_bwd_dkv(
+                         q, k, v, do, lse, delta, window=W))):
+        a, b = fn(), fn()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{name} B2 H32 S8192: two launches on the same inputs differ")
+        del a, b
+    torch.cuda.empty_cache()
     kern = {"flash_fwd": lambda: FA.flash_fwd(q, k, v, window=W),
             "flash_bwd_dq": lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta,
                                                     window=W),
@@ -1468,7 +1489,8 @@ def phase_split_flash(FA):
                     f"bound {bound[0]:.3f} ms ({bound[1]})")
     print(f"phase 3 kernels: split flash alone at phase 11's shape, bf16 B2 "
           f"H32 S8192 hd128 window 4096 ({B * H * band_pairs(S, True, W)} "
-          f"pairs): " + "; ".join(line))
+          f"pairs; K6 and K7 bit-identical over two launches): "
+          + "; ".join(line))
     del q, k, v, do, lse, delta, kern
     torch.cuda.empty_cache()
     return {n: (errs[n],) + t for n, t in timed.items()}

@@ -1,15 +1,18 @@
 // Flash attention on (B, H, S, hd) q, k, v, forward and backward, on Hopper.
 //
 // Replaces three TPU kernels of neuronika_tpu/ops/pallas/attention.py:
-//   K5 _fwd_kernel      -> split_fwd_kernel
-//   K6 _bwd_dq_kernel   -> split_bwd_dq_kernel
-//   K7 _bwd_dkv_kernel  -> split_bwd_dkv_kernel
+//   K5 _fwd_kernel      -> split_fwd_kernel (f32 and bf16)
+//   K6 _bwd_dq_kernel   -> split_bwd_dq_kernel_sm90 (bf16),
+//                          split_bwd_dq_kernel (f32)
+//   K7 _bwd_dkv_kernel  -> split_bwd_dkv_kernel_sm90 (bf16),
+//                          split_bwd_dkv_kernel (f32)
 //
 // Contract (that of ops/flash_attention.py's flash_fwd, flash_bwd_dq and
 // flash_bwd_dkv):
 //   q (B, H, Sq, hd), k and v (B, H, Skv, hd), do (B, H, Sq, hd): strided
 //        views are read through their (batch, head, row) strides; the last
-//        axis has stride 1, and base and strides are 16-byte aligned;
+//        axis has stride 1, and base and strides are 16-byte aligned (no
+//        stride 0 on an axis longer than 1);
 //   out, dq (B, H, Sq, hd) and dk, dv (B, H, Skv, hd): contiguous, in the
 //        inputs' dtype;
 //   lse, delta (B, H, Sq) f32, contiguous; lse is base 2 (m + log2(l)).
@@ -23,67 +26,50 @@
 // forward, 6 hd in dq and 8 hd in dk/dv, against 2 hd bytes read per row
 // once; at S 8192 and a 4096 window that is far above the card's ~295
 // flop/byte, so the tensor cores and the softmax's exp2/FMA work are the
-// limit. The design keeps every S x S quantity on chip:
-//   * a CTA holds a 64-row q tile (K5, K6) or a 64-row k/v tile (K7) in
-//     shared memory and walks only the other side's tiles that meet the
-//     causal/window band: tiles above the diagonal and tiles wholly below
-//     the window are never visited; a tile crossing the diagonal, the
-//     window's lower edge or the ragged end of S evaluates the mask
-//     rows >= cols && rows - cols < window, interior tiles skip it;
-//   * every product runs as mma.sync m16n8k16 (bf16 operands, f32
-//     accumulation) from shared memory, each warp owning 16 rows
-//     (flash_tiles.cuh); p and ds are rounded to the input dtype before
-//     their products, where the TPU kernels round them;
-//   * the f32 instantiation runs the same tiles with FFMA.
-// Not done yet: wgmma, TMA, warp specialisation, GQA without the repeated
-// k/v, and in-kernel dropout.
+// limit. Every S x S quantity stays on chip, and a CTA walks only the
+// other side's tiles that meet the causal/window band: tiles above the
+// diagonal and tiles wholly below the window are never visited; a tile
+// crossing the diagonal, the window's lower edge or the ragged end of S
+// evaluates the mask rows >= cols && rows - cols < window (struct Band,
+// flash_sm90.cuh), interior tiles skip it.
+//
+// The bf16 backward (K6, K7) runs the Hopper walks that the packed K2a and
+// K2b run (flash_sm90.cuh: wgmma, TMA through mbarrier rings, a producer
+// warpgroup, setmaxnreg), through a tile policy of this layout: each
+// operand is a 4-d TMA map over (hd, S, H, B) built from its own strides,
+// 64 x 64 boxes with 128-byte swizzle, rows past Sq or Skv zero-filled;
+// the rows' lse and delta come from their two f32 arrays by plain loads of
+// a stats warp of the producer warpgroup (a bulk copy would need
+// 16-byte-aligned rows, which a ragged Sq breaks), 0 past Sq. K6: 128 q rows a CTA, dQ in registers over
+// the band's 64-row k tiles, from max(0, i0 - window + 1) / 64; K7: 128 k
+// rows a CTA on a persistent grid, dK and dV in registers over the band's
+// 64-row q tiles, from the diagonal to the last row whose window holds the
+// CTA's last key. Each CTA owns its output rows: no atomics, the same bits
+// every run.
+// K5 and the f32 K6/K7 run on mma.sync m16n8k16 (bf16 operands, f32
+// accumulation) from shared memory, each warp owning 16 rows of a 64-row
+// tile (flash_tiles.cuh), with synchronous tile loads; the f32
+// instantiation runs the same tiles with FFMA (wgmma has no FFMA path, and
+// f32 is the oracle route). p and ds are rounded to the input dtype before
+// their products, where the TPU kernels round them.
+// Not done yet: K5 on wgmma and TMA, GQA without the repeated k/v (K2b's
+// walk over a kv group's G heads per k tile carries over), and in-kernel
+// dropout.
 
 #include <math.h>
 
-#include "flash_tiles.cuh"
+#include <type_traits>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;   // K5 and K6: q rows per CTA (16 per warp)
-constexpr int kBK = 64;   // k rows per tile (K7: per CTA, 16 per warp)
-constexpr int kBQb = 32;  // K7: q rows per inner tile
+constexpr int kBQ = 64;   // K5 and f32 K6: q rows per CTA (16 per warp)
+constexpr int kBK = 64;   // k rows per tile (f32 K7: per CTA, 16 per warp)
+constexpr int kBQb = 32;  // f32 K7: q rows per inner tile
 
 struct Strides {  // elements between batches, heads and rows
   long long b, h, s;
-};
-
-struct Band {
-  int Sq, Skv, causal, window;
-
-  // key (row i, col j) is masked out
-  __device__ bool masked(int i, int j) const {
-    return j >= Skv ||
-           (causal && (j > i || (window > 0 && i - j >= window)));
-  }
-  // the rectangle rows [i0, i0 + ni) x cols [j0, j0 + nj) needs the mask
-  __device__ bool edge(int i0, int ni, int j0, int nj) const {
-    return j0 + nj > Skv || i0 + ni > Sq ||
-           (causal && (j0 + nj - 1 > i0 ||
-                       (window > 0 && i0 + ni - 1 - j0 >= window)));
-  }
-  // k tiles [*kt0, *kt1) of size nj meeting q rows [i0, i0 + ni)
-  __device__ void k_tiles(int i0, int ni, int nj, int* kt0, int* kt1) const {
-    *kt0 = 0;
-    *kt1 = (Skv + nj - 1) / nj;
-    if (!causal) return;
-    const int last = min(i0 + ni, Sq) - 1;
-    *kt1 = min(*kt1, last / nj + 1);
-    if (window > 0) *kt0 = max(0, i0 - window + 1) / nj;
-  }
-  // q tiles [*it0, *it1) of size ni meeting key rows [j0, j0 + nj): from
-  // the diagonal to the last row whose window still holds key j0 + nj - 1
-  __device__ void q_tiles(int j0, int nj, int ni, int* it0, int* it1) const {
-    *it0 = 0;
-    *it1 = (Sq + ni - 1) / ni;
-    if (!causal) return;
-    *it0 = j0 / ni;
-    if (window > 0) *it1 = min(*it1, (j0 + nj + window - 2) / ni + 1);
-  }
 };
 
 // ---------------------------------------------------------------- K5
@@ -197,7 +183,7 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
-// ---------------------------------------------------------------- K6
+// ---------------------------------------------------------------- K6, f32
 // grid (ceil(Sq / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15 and
 // walks the k tiles of the band.
 template <typename T, int HD>
@@ -208,6 +194,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta, T* __restrict__ dq,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
                         int H, Band band, float scale, float qscale) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 runs split_bwd_dq_kernel_sm90");
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBK + Ty<T>::kPad;
   constexpr int NTS = kBK / 8, NTO = HD / 8;
@@ -284,7 +272,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------- K7
+// ---------------------------------------------------------------- K7, f32
 // grid (ceil(Skv / kBK), H, B); warp w owns key rows w*16 .. w*16 + 15 of
 // the CTA's k/v tile and walks the q tiles of the band, from the diagonal
 // to the last row whose window holds the tile's last key.
@@ -297,6 +285,8 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ dv, Strides sq, Strides sk,
                          Strides sv, Strides sdo, int H, Band band,
                          float scale, float qscale) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 runs split_bwd_dkv_kernel_sm90");
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBQb + Ty<T>::kPad;
   constexpr int NTS = kBQb / 8, NTO = HD / 8;
@@ -374,6 +364,126 @@ __global__ void __launch_bounds__(kThreads)
       dv[at + nt * 8 + c + 1] = Ty<T>::from(dva[nt][2 * x + 1]);
     }
   }
+}
+
+// ------------------------------------------------- K6 and K7, bf16, Hopper
+// The split layout as a tile policy of the Hopper walks (flash_sm90.cuh):
+// q, k, v and dO each through a 4-d TMA map over (hd, S, H, B); lse and
+// delta (B, H, Sq) f32 loaded by the producer warp's 32 lanes; dq, dk, dv
+// (B, H, S, hd) contiguous. No GQA here: k/v head g serves q head g.
+template <int HD>
+struct SplitTiles {
+  static constexpr bool kStatsWarp = true;
+  static constexpr bool kClamp = true;
+  // this producer's four maps and stats loads spill at 24 registers; at hd
+  // 64 the consumers can spare 8 (none spills), at hd 128 they cannot
+  static constexpr int kRegsProducer = HD == 64 ? 40 : 24;
+  static constexpr int kRegsConsumer = HD == 64 ? 232 : 240;
+  static constexpr int P = HD / 64;
+  const CUtensorMap *q, *k, *v, *dout;
+  const float* lse;
+  const float* delta;
+  bf16 *dq, *dk, *dv;
+  Band band;
+  int B, H;
+  static constexpr int G = 1;
+  int KV;
+
+  // ROWS x HD of a map at (row, h, b), as P panels of 64-row boxes
+  template <int ROWS>
+  __device__ static void tile(unsigned char* dst, const CUtensorMap* map,
+                              uint64_t* bar, int b, int h, int row) {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int rb = 0; rb < ROWS / 64; ++rb)
+        tma_load_4d(dst + p * panel_bytes(ROWS) + rb * panel_bytes(64), map,
+                    bar, 64 * p, row + 64 * rb, h, b);
+  }
+  template <int ROWS>
+  __device__ void q_tile(unsigned char* dst, uint64_t* bar, int b, int h,
+                         int row) const {
+    tile<ROWS>(dst, q, bar, b, h, row);
+  }
+  template <int ROWS>
+  __device__ void do_tile(unsigned char* dst, uint64_t* bar, int b, int h,
+                          int row) const {
+    tile<ROWS>(dst, dout, bar, b, h, row);
+  }
+  template <int ROWS>
+  __device__ void k_tile(unsigned char* dst, uint64_t* bar, int b, int g,
+                         int row) const {
+    tile<ROWS>(dst, k, bar, b, g, row);
+  }
+  template <int ROWS>
+  __device__ void v_tile(unsigned char* dst, uint64_t* bar, int b, int g,
+                         int row) const {
+    tile<ROWS>(dst, v, bar, b, g, row);
+  }
+  __device__ uint32_t stats_tx(int, int, int, int) const { return 0; }
+  __device__ void stats(float2* dst, uint64_t*, int b, int h, int row0,
+                        int n, int lane) const {
+    const size_t base = ((size_t)b * H + h) * band.Sq;
+    for (int r = lane; r < n; r += 32) {
+      const int row = row0 + r;
+      dst[r] = row < band.Sq
+                   ? make_float2(lse[base + row], delta[base + row])
+                   : make_float2(0.f, 0.f);
+    }
+  }
+  __device__ void store_dq(int b, int h, int row, int col, float lo,
+                           float hi) const {
+    *reinterpret_cast<__nv_bfloat162*>(
+        dq + (((size_t)b * H + h) * band.Sq + row) * HD + col) =
+        __floats2bfloat162_rn(lo, hi);
+  }
+  __device__ void store_dkv(int b, int g, int row, int col, float k0,
+                            float k1, float v0, float v1) const {
+    const size_t at = (((size_t)b * H + g) * band.Skv + row) * HD + col;
+    *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+        __floats2bfloat162_rn(k0, k1);
+    *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+};
+
+// K6: grid (H, B, ceil(Sq / 128)), q tiles from the last (the longest
+// walks first under a causal band); the walk is dq_walk
+template <int HD>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    split_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dq, int B, int H, Band band,
+                             float scale, float qscale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SplitTiles<HD> t{&q_map, &k_map, &v_map, &do_map, lse, delta, dq,
+                         nullptr, nullptr, band, B, H, H};
+  dq_walk<HD>(t, align1024(smem_raw), blockIdx.x, blockIdx.y,
+              (gridDim.z - 1 - blockIdx.z) * kBM, scale, qscale);
+}
+
+// K7: a persistent grid over (k tile, batch, head) items, k-tile-major
+// (the longest walks first); the walk is kv_walk
+template <int HD>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    split_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              int B, int H, Band band, float scale,
+                              float qscale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SplitTiles<HD> t{&q_map, &k_map, &v_map, &do_map, lse, delta,
+                         nullptr, dk, dv, band, B, H, H};
+  kv_walk<HD, false>(t, align1024(smem_raw), nullptr, nullptr, scale,
+                     qscale);
 }
 
 // ------------------------------------------------------------------- host
@@ -459,14 +569,88 @@ cudaError_t bwd_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// a bf16 (B, H, S, hd) operand, read through its (batch, head, row)
+// strides, as a 4-d TMA map over (hd, S, H, B) with 64 x 64 boxes; an axis
+// of length 1 never steps, so its stride is set to a valid one
+cudaError_t split_map(CUtensorMap* map, const void* base, Strides st, int B,
+                      int H, int S, int hd) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                           (cuuint64_t)st.b * 2};
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1)
+      strides[i] = i ? strides[i - 1] * dims[i] : (cuuint64_t)hd * 2;
+    if (strides[i] == 0) return cudaErrorInvalidValue;
+  }
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
+                  strides, box);
+}
+
+// the maps of q, k, v and do
+cudaError_t split_maps(CUtensorMap (&m)[4], const Args& a) {
+  const void* base[4] = {a.q, a.k, a.v, a.dout};
+  const Strides st[4] = {a.sq, a.sk, a.sv, a.sdo};
+  const int S[4] = {a.band.Sq, a.band.Skv, a.band.Skv, a.band.Sq};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err =
+        split_map(&m[i], base[i], st[i], a.B, a.H, S[i], a.hd);
+    if (err) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int HD>
+cudaError_t bwd_dq_sm90(const Args& a) {
+  CUtensorMap m[4];
+  cudaError_t err = split_maps(m, a);
+  if (err) return err;
+  const size_t smem = DqSmem<HD>::kBytes;
+  err = allow_smem(split_bwd_dq_kernel_sm90<HD>, smem);
+  if (err) return err;
+  const dim3 grid(a.H, a.B, (a.band.Sq + kBM - 1) / kBM);
+  if (grid.z > 65535) return cudaErrorInvalidValue;
+  split_bwd_dq_kernel_sm90<HD><<<grid, kHopperThreads, smem, a.stream>>>(
+      m[0], m[1], m[2], m[3], a.lse_in, a.delta, static_cast<bf16*>(a.out),
+      a.B, a.H, a.band, a.scale, a.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t bwd_dkv_sm90(const Args& a) {
+  CUtensorMap m[4];
+  cudaError_t err = split_maps(m, a);
+  if (err) return err;
+  const size_t smem = KvSmem<HD, false>::kBytes;
+  err = allow_smem(split_bwd_dkv_kernel_sm90<HD>, smem);
+  if (err) return err;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err) return err;
+  const long long items =
+      (long long)((a.band.Skv + kBN - 1) / kBN) * a.B * a.H;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);
+  split_bwd_dkv_kernel_sm90<HD><<<grid, kHopperThreads, smem, a.stream>>>(
+      m[0], m[1], m[2], m[3], a.lse_in, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.B, a.H, a.band, a.scale,
+      a.scale * kLog2e);
+  return cudaGetLastError();
+}
+
 enum Which { kFwd, kDq, kDkv };
 
+// the bf16 backward takes the Hopper kernels; K5 and f32 the mma.sync/FFMA
 template <typename T, int HD>
 cudaError_t dispatch(Which w, const Args& a) {
-  switch (w) {
-    case kFwd: return fwd<T, HD>(a);
-    case kDq: return bwd_dq<T, HD>(a);
-    case kDkv: return bwd_dkv<T, HD>(a);
+  if (w == kFwd) return fwd<T, HD>(a);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (w == kDq) return bwd_dq_sm90<HD>(a);
+    if (w == kDkv) return bwd_dkv_sm90<HD>(a);
+  } else {
+    if (w == kDq) return bwd_dq<T, HD>(a);
+    if (w == kDkv) return bwd_dkv<T, HD>(a);
   }
   return cudaErrorInvalidValue;
 }

@@ -67,8 +67,10 @@
 // resident CTAs, plain loads and stores), so it too is bit-identical from
 // run to run.
 // Helpers: flash_tiles.cuh (the mma.sync tiles, shared with the
-// split-layout kernels of flash_attention.cu) and hopper.cuh (PTX for
-// TMA, mbarriers, wgmma). Not done yet: in-kernel dropout, overlapping one
+// split-layout kernels of flash_attention.cu), hopper.cuh (PTX for TMA,
+// mbarriers, wgmma) and flash_sm90.cuh (the K2a and K2b/K2c walks, which
+// the split layout's K6 and K7 run too; PackedTiles below says where this
+// layout's tiles and results are). Not done yet: in-kernel dropout, overlapping one
 // tile's softmax with the next tile's products inside a warpgroup, and
 // K2a's 64-row k tiles at 128 (its registers: S, dP and dQ at 64 x 128
 // would take 192 f32 a thread before the fragments).
@@ -78,8 +80,7 @@
 
 #include <type_traits>
 
-#include "flash_tiles.cuh"
-#include "hopper.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -482,29 +483,11 @@ __global__ void dq_store_kernel(const float* __restrict__ dq_acc,
 }
 
 // ===================================================== Hopper, bf16 only
-// K1 and the K2 dk/dv walk on wgmma, TMA and mbarriers. A CTA is two
-// consumer warpgroups (256 threads, 64 rows each) and one producer
-// warpgroup, one thread of which keeps TMA loads in flight through a
-// two-stage ring (the other three warps exit at once); setmaxnreg moves
-// registers from the producer to the consumers.
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kConsumers = 256;
-constexpr int kHopperThreads = kConsumers + 128;
-constexpr int kStages = 2;
-// setmaxnreg moves registers only within the CTA's launch allotment (384
-// threads x 168): the producer warpgroup gives up 144 a thread, which the
-// consumers take (128 x 24 + 256 x 240 = 384 x 168)
-constexpr int kRegsProducer = 24, kRegsConsumer = 240;
-constexpr int kBM = 128;   // K1: q rows per CTA
-constexpr int kBN = 128;   // K1: k rows per tile; K2: k rows per CTA
-constexpr int kBQh = 64;   // K2: q rows per step of the walk
-
-// bytes of a rows x 64 bf16 panel (one 128-byte swizzled row each)
-__host__ __device__ constexpr uint32_t panel_bytes(int rows) {
-  return (uint32_t)rows * 128;
-}
+// K1 here, K2a and K2b/K2c through the walks of flash_sm90.cuh, on wgmma,
+// TMA and mbarriers. A CTA is two consumer warpgroups (256 threads, 64
+// rows each) and one producer warpgroup, one thread of which keeps TMA
+// loads in flight through a ring; setmaxnreg moves registers from the
+// producer to the consumers.
 
 // a ROWS x (64 P) tile at (col, row) of batch b, as P panels of ROWS rows,
 // each loaded as 64-row boxes; rows past S arrive as zeros
@@ -519,32 +502,6 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst,
     for (int rb = 0; rb < ROWS / 64; ++rb)
       tma_load_3d(dst + p * panel_bytes(ROWS) + rb * panel_bytes(64), map,
                   bar, col + 64 * p, row + 64 * rb, b);
-}
-
-// K-major descriptor of the k16 slice k of a tile whose panels hold ROWS
-// rows, starting `row_off` rows in
-template <int ROWS>
-__device__ __forceinline__ uint64_t kmajor(uint32_t base, int row_off,
-                                           int k) {
-  return sw128_desc(base + (k / 4) * panel_bytes(ROWS) +
-                    panel_bytes(row_off) + (k % 4) * 32);
-}
-
-// MN-major descriptor of the k16 slice k (rows 16 k ..) of panel p
-template <int ROWS>
-__device__ __forceinline__ uint64_t mnmajor(uint32_t base, int p, int k) {
-  return sw128_desc(base + p * panel_bytes(ROWS) + k * panel_bytes(16));
-}
-
-// the A fragments of an accumulator's 16-column slices, rounded to bf16
-template <int N>
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4],
-                                           const float (&d)[N / 2]) {
-#pragma unroll
-  for (int k = 0; k < N / 16; ++k)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      a[k][q] = pack_bf16(d[8 * k + 2 * q], d[8 * k + 2 * q + 1]);
 }
 
 template <int HD>
@@ -763,226 +720,93 @@ __global__ void bwd_stats_kernel(const bf16* __restrict__ o,
   }
 }
 
-constexpr int kBKd = 64;     // K2a: k rows per step of the walk
-constexpr int kDqStages = 3;  // K2a: depth of the K/V ring
-
+// The packed layout as a tile policy of the Hopper walks (flash_sm90.cuh):
+// q head h is chunk (h / G)(G + 2) + h % G of qkv, its k and v the chunks
+// (h / G)(G + 2) + G and + 1; dO is (B, S, H hd); the rows' (lse, delta)
+// come from the pre-pass (float2 rows, S padded to 64) by bulk copy.
 template <int HD>
-struct DqSmem {
+struct PackedTiles {
+  static constexpr bool kStatsWarp = false;
+  static constexpr bool kClamp = false;
+  static constexpr int kRegsProducer = 24, kRegsConsumer = 240;
   static constexpr int P = HD / 64;
-  static constexpr uint32_t kQ = P * panel_bytes(kBM);
-  static constexpr uint32_t kKV = P * panel_bytes(kBKd);
-  static constexpr uint32_t kOffDO = kQ;
-  static constexpr uint32_t kOffK = 2 * kQ;
-  static constexpr uint32_t kOffV = kOffK + kDqStages * kKV;
-  static constexpr uint32_t kOffStats = kOffV + kDqStages * kKV;
-  static constexpr uint32_t kOffBar = kOffStats + kBM * 8;
-  static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kDqStages) + 1024;
+  const CUtensorMap* qkv;
+  const CUtensorMap* dout;
+  const float2* pre;  // the pre-pass's (lse, delta) rows
+  bf16* dqkv;
+  Band band;
+  int B, H, G, KV;
+
+  __device__ int W() const { return (H + 2 * KV) * HD; }
+  __device__ int qcol(int h) const { return ((h / G) * (G + 2) + h % G) * HD; }
+  __device__ int kcol(int g) const { return (g * (G + 2) + G) * HD; }
+  template <int ROWS>
+  __device__ void q_tile(unsigned char* dst, uint64_t* bar, int b, int h,
+                         int row) const {
+    tma_tile<ROWS, P>(dst, qkv, bar, qcol(h), row, b);
+  }
+  template <int ROWS>
+  __device__ void do_tile(unsigned char* dst, uint64_t* bar, int b, int h,
+                          int row) const {
+    tma_tile<ROWS, P>(dst, dout, bar, h * HD, row, b);
+  }
+  template <int ROWS>
+  __device__ void k_tile(unsigned char* dst, uint64_t* bar, int b, int g,
+                         int row) const {
+    tma_tile<ROWS, P>(dst, qkv, bar, kcol(g), row, b);
+  }
+  template <int ROWS>
+  __device__ void v_tile(unsigned char* dst, uint64_t* bar, int b, int g,
+                         int row) const {
+    tma_tile<ROWS, P>(dst, qkv, bar, kcol(g) + HD, row, b);
+  }
+  // the pre-pass's rows stop at S padded to 64, a multiple of 64 past row0
+  __device__ uint32_t stats_tx(int, int, int row0, int n) const {
+    const int S_pad = (band.Sq + kBQh - 1) / kBQh * kBQh;
+    return min(n, S_pad - row0) * 8;
+  }
+  // issued by the TMA thread with the stage's tiles
+  __device__ void stats(float2* dst, uint64_t* bar, int b, int h, int row0,
+                        int n, int) const {
+    const int S_pad = (band.Sq + kBQh - 1) / kBQh * kBQh;
+    bulk_load(dst, pre + ((size_t)b * H + h) * S_pad + row0,
+              stats_tx(b, h, row0, n), bar);
+  }
+  __device__ void store_dq(int b, int h, int row, int col, float lo,
+                           float hi) const {
+    *reinterpret_cast<__nv_bfloat162*>(
+        dqkv + ((size_t)b * band.Sq + row) * W() + qcol(h) + col) =
+        __floats2bfloat162_rn(lo, hi);
+  }
+  __device__ void store_dkv(int b, int g, int row, int col, float k0,
+                            float k1, float v0, float v1) const {
+    bf16* drow = dqkv + ((size_t)b * band.Sq + row) * W() + kcol(g) + col;
+    *reinterpret_cast<__nv_bfloat162*>(drow) = __floats2bfloat162_rn(k0, k1);
+    *reinterpret_cast<__nv_bfloat162*>(drow + HD) =
+        __floats2bfloat162_rn(v0, v1);
+  }
 };
 
 // ------------------------------------------------------ K2a on Hopper
 // grid (H, B, ceil(S / 128)), q tiles from the last (causal rows longest
-// first). Consumer warpgroup w owns q rows i0 + 64 w .. + 63 and keeps
-// their dQ (64 x HD f32) in registers for the whole walk: the CTA owns its
-// dq rows, so there is nothing to add across CTAs and the result is the
-// same bits every run. The producer loads Q, dO and the rows' (lse, delta)
-// once and K, V through a ring of kDqStages 64-row stages. Per k tile: S =
-// Q K^T and dP = dO V^T (wgmma, all four operands K-major from the TMA
-// tiles), p = exp2(S scale log2e - lse) and dS = p (dP - delta) scale on
-// the accumulator registers, rounded to bf16 into A fragments as the TPU
-// kernel rounds ds, then dQ += dS K (wgmma, A from registers, K MN-major,
-// as K1's P V). 64-row k tiles keep S, dP and dQ (32 + 32 + 64 P f32 a
-// thread) within the consumers' 240 registers.
+// first); the walk is dq_walk (flash_sm90.cuh)
 template <int HD>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap qkv_map,
                              const __grid_constant__ CUtensorMap do_map,
                              const float2* __restrict__ stats,
-                             bf16* __restrict__ dqkv, int S, int H, int G,
-                             float scale, float qscale, int causal) {
-  using Sm = DqSmem<HD>;
-  constexpr int P = Sm::P;
+                             bf16* __restrict__ dqkv, int B, int S, int H,
+                             int G, float scale, float qscale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  unsigned char* Qs = smem;
-  unsigned char* dOs = smem + Sm::kOffDO;
-  unsigned char* Ks = smem + Sm::kOffK;
-  unsigned char* Vs = smem + Sm::kOffV;
-  const float2* stats_s = reinterpret_cast<float2*>(smem + Sm::kOffStats);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Sm::kOffBar);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kDqStages;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBM;
-  const int g = h / G;
-  const int S_pad = (S + kBQh - 1) / kBQh * kBQh;
-  const int n_all = (S + kBKd - 1) / kBKd;
-  const int n_kt = causal ? min((i0 + kBM - 1) / kBKd + 1, n_all) : n_all;
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kDqStages; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kConsumers);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer warpgroup
-    regs_dec<kRegsProducer>();
-    if (threadIdx.x == kConsumers) {
-      // stats rows stop at S_pad, a multiple of 64 past i0
-      const int nst = min(kBM, S_pad - i0);
-      mbar_expect_tx(q_full, 2 * Sm::kQ + nst * 8);
-      tma_tile<kBM, P>(Qs, &qkv_map, q_full, (g * (G + 2) + h % G) * HD, i0,
-                       b);
-      tma_tile<kBM, P>(dOs, &do_map, q_full, h * HD, i0, b);
-      bulk_load(smem + Sm::kOffStats,
-                stats + ((size_t)b * H + h) * S_pad + i0, nst * 8,
-                q_full);
-      const int kcol = (g * (G + 2) + G) * HD;
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kDqStages;
-        mbar_wait(empty + s, ((kt / kDqStages) & 1) ^ 1);
-        mbar_expect_tx(full + s, 2 * Sm::kKV);
-        tma_tile<kBKd, P>(Ks + s * Sm::kKV, &qkv_map, full + s, kcol,
-                          kt * kBKd, b);
-        tma_tile<kBKd, P>(Vs + s * Sm::kKV, &qkv_map, full + s, kcol + HD,
-                          kt * kBKd, b);
-      }
-    }
-  } else {  // consumer warpgroups
-    regs_inc<kRegsConsumer>();
-    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-    const int c = (lane & 3) * 2;
-    const int lrow = wg * 64 + warp * 16 + (lane >> 2);
-    const int row[2] = {i0 + lrow, i0 + lrow + 8};
-    const int r0 = i0 + wg * 64;  // this warpgroup's first row
-    float dq[P][32];
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) dq[p][i] = 0.f;
-    const uint32_t q_addr = smem_u32(Qs), do_addr = smem_u32(dOs);
-    mbar_wait(q_full, 0);
-    // rows past S_pad were not loaded: (0, 0) keeps their masked terms 0
-    float2 st[2];
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-      st[x] = row[x] < S ? stats_s[lrow + 8 * x] : make_float2(0.f, 0.f);
-
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt % kDqStages, ph = (kt / kDqStages) & 1;
-      const int j0 = kt * kBKd;
-      if (causal && j0 > r0 + 63) {  // above this warpgroup's diagonal:
-        mbar_arrive(empty + s);      // only the walk's last tile
-        continue;
-      }
-      const uint32_t k_addr = smem_u32(Ks + s * Sm::kKV);
-      const uint32_t v_addr = smem_u32(Vs + s * Sm::kKV);
-      float sc[32], dp[32];
-      mbar_wait(full + s, ph);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k)
-        wgmma_ss<0, 0>(sc, kmajor<kBM>(q_addr, wg * 64, k),
-                       kmajor<kBKd>(k_addr, 0, k), k > 0);
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k)
-        wgmma_ss<0, 0>(dp, kmajor<kBM>(do_addr, wg * 64, k),
-                       kmajor<kBKd>(v_addr, 0, k), k > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      keep(sc);
-      keep(dp);
-
-      // the mask is needed only past S or across this warpgroup's diagonal
-      const bool edge = j0 + kBKd > S || r0 + 64 > S ||
-                        (causal && j0 + kBKd - 1 > r0);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int x = (i >> 1) & 1;
-        const int col = j0 + 8 * (i / 4) + c + (i & 1);
-        const bool out =
-            edge && (col >= S || row[x] >= S || (causal && col > row[x]));
-        const float p = out ? 0.f : exp2f(sc[i] * qscale - st[x].x);
-        sc[i] = p * (dp[i] - st[x].y) * scale;
-      }
-      uint32_t ds[kBKd / 16][4];
-      to_a_frags<kBKd>(ds, sc);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < kBKd / 16; ++k)
-#pragma unroll
-        for (int p = 0; p < P; ++p)
-          wgmma_rs<1>(dq[p], ds[k], mnmajor<kBKd>(k_addr, p, k));
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int p = 0; p < P; ++p) keep(dq[p]);
-      keep(ds);
-      mbar_arrive(empty + s);
-    }
-
-    const size_t W = (size_t)(H + 2 * (H / G)) * HD;
-    const size_t qoff = (size_t)(g * (G + 2) + h % G) * HD;
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      if (row[x] >= S) continue;
-      bf16* drow = dqkv + ((size_t)b * S + row[x]) * W + qoff;
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(drow + 64 * p + 8 * j + c) =
-              __floats2bfloat162_rn(dq[p][4 * j + 2 * x],
-                                    dq[p][4 * j + 2 * x + 1]);
-    }
-  }
+  const PackedTiles<HD> t{&qkv_map, &do_map, stats, dqkv,
+                          Band{S, S, causal, 0}, B, H, G, H / G};
+  dq_walk<HD>(t, align1024(smem_raw), blockIdx.x, blockIdx.y,
+              (gridDim.z - 1 - blockIdx.z) * kBM, scale, qscale);
 }
 
-template <int HD, bool FUSED>
-struct KvSmem {
-  static constexpr int P = HD / 64;
-  static constexpr int LDQ = HD + 8;  // f32 dq rows, padded against conflicts
-  static constexpr uint32_t kKV = P * panel_bytes(kBN);
-  static constexpr uint32_t kQ = P * panel_bytes(kBQh);
-  static constexpr uint32_t kOffV = kKV;
-  static constexpr uint32_t kOffQ = 2 * kKV;
-  static constexpr uint32_t kOffDO = kOffQ + kStages * kQ;
-  static constexpr uint32_t kOffDS = kOffDO + kStages * kQ;
-  static constexpr uint32_t kOffStats = kOffDS + panel_bytes(kBN);
-  static constexpr uint32_t kOffDQ = kOffStats + kStages * kBQh * 8;
-  static constexpr uint32_t kOffBar =
-      kOffDQ + (FUSED ? 2 * kBQh * LDQ * 4 : 0);
-  static constexpr size_t kBytes = kOffBar + 8 * (6 + 2 * kStages) + 1024;
-};
-
 // ------------------------------------ K2 dk/dv walk (and fused dq), Hopper
-// A persistent grid (at most one CTA an SM) walks items (k tile kt, batch
-// b, kv group g), item i on CTA i % grid. Consumer warpgroup w owns k rows
-// j0 + 64 w .. + 63 with dK and dV in registers; for each of the group's G
-// heads the walk takes 64-row q tiles over the causal part: S^T = K Q^T
-// and dP^T = V dO^T (wgmma from shared memory), P^T = exp2(S^T - lse) and
-// dS^T = P^T (dP^T - delta) scale on the registers, rounded to bf16 into A
-// fragments; dV += P^T dO and dK += dS^T Q (wgmma, A from registers, dO
-// and Q MN-major).
-// FUSED stages dS^T in shared memory (swizzled), computes dQ = dS K
-// (warpgroup w: columns 64 w ..) and stages it as f32 in one of two
-// buffers. A writer warp of the producer warpgroup adds each staged tile
-// into the f32 dq scratch, one bulk copy a tile, in k-tile order: the CTA
-// of k tile kt waits until the turn counter of (b, h, q tile) reads kt,
-// stores (kt = 0) or reduce-adds the tile and, once it has landed, passes
-// the turn on. The consumers only wait for a free buffer, so the chain of
-// turns runs beside the products. FUSED takes the items (b, g)-major and
-// walks q from the last tile down: k tile kt then trails kt - 1 by one q
-// tile, and the few (b, g) in flight keep their scratch in L2. Without
-// the chain, K2b takes them kt-major (the longest causal walks first) and
-// walks q up from the causal edge.
-// No deadlock: an item waits only on the item before it (same b, g, k tile
-// kt - 1), and each CTA takes its items in order, so the lowest unfinished
-// item can always run.
+// a persistent grid over (k tile, batch, kv group) items; the walk is
+// kv_walk (flash_sm90.cuh), FUSED = K2c/K2d
 template <int HD, bool FUSED>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     flash_bwd_kv_kernel_sm90(const __grid_constant__ CUtensorMap qkv_map,
@@ -992,282 +816,10 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                              float* __restrict__ dq_acc,
                              int* __restrict__ dq_turn, int B, int S, int H,
                              int G, float scale, float qscale, int causal) {
-  using Sm = KvSmem<HD, FUSED>;
-  constexpr int P = Sm::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  unsigned char* Ks = smem;
-  unsigned char* Vs = smem + Sm::kOffV;
-  unsigned char* Qs = smem + Sm::kOffQ;
-  unsigned char* dOs = smem + Sm::kOffDO;
-  unsigned char* dSt = smem + Sm::kOffDS;
-  float2* stats_s = reinterpret_cast<float2*>(smem + Sm::kOffStats);
-  float* dq_s = reinterpret_cast<float*>(smem + Sm::kOffDQ);
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + Sm::kOffBar);
-  uint64_t* kv_empty = kv_full + 1;
-  uint64_t* full = kv_empty + 1;
-  uint64_t* empty = full + kStages;
-  uint64_t* dq_full = empty + kStages;  // FUSED: the two dq buffers
-  uint64_t* dq_empty = dq_full + 2;
-
-  const int KV = H / G;
-  const int n_kt = (S + kBN - 1) / kBN, n_qt = (S + kBQh - 1) / kBQh;
-  const int S_pad = n_qt * kBQh;
-  const int n_items = n_kt * B * KV;
-  const size_t W = (size_t)(H + 2 * KV) * HD;
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    mbar_init(kv_empty, kConsumers);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kConsumers);
-    }
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(dq_full + s, kConsumers);
-      mbar_init(dq_empty + s, 1);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer warpgroup
-    regs_dec<kRegsProducer>();
-    if (threadIdx.x == kConsumers) {
-      int it = 0, n = 0;
-      for (int item = blockIdx.x; item < n_items;
-           item += gridDim.x, ++n) {
-        const int kt = FUSED ? item % n_kt : item / (B * KV);
-        const int bg = FUSED ? item / n_kt : item % (B * KV);
-        const int b = bg / KV, g = bg % KV;
-        const int kcol = (g * (G + 2) + G) * HD;
-        mbar_wait(kv_empty, (n & 1) ^ 1);
-        mbar_expect_tx(kv_full, 2 * Sm::kKV);
-        tma_tile<kBN, P>(Ks, &qkv_map, kv_full, kcol, kt * kBN, b);
-        tma_tile<kBN, P>(Vs, &qkv_map, kv_full, kcol + HD, kt * kBN, b);
-        const int qt0 = causal ? kt * kBN / kBQh : 0;
-        for (int mem = 0; mem < G; ++mem) {
-          const int h = g * G + mem;
-          for (int qq = 0, qt = FUSED ? n_qt - 1 : qt0; qq < n_qt - qt0;
-               ++qq, ++it, qt += FUSED ? -1 : 1) {
-            const int s = it % kStages;
-            mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
-            mbar_expect_tx(full + s, 2 * Sm::kQ + kBQh * 8);
-            tma_tile<kBQh, P>(Qs + s * Sm::kQ, &qkv_map, full + s,
-                              (g * (G + 2) + mem) * HD, qt * kBQh, b);
-            tma_tile<kBQh, P>(dOs + s * Sm::kQ, &do_map, full + s, h * HD,
-                              qt * kBQh, b);
-            bulk_load(stats_s + s * kBQh,
-                      stats + ((size_t)b * H + h) * S_pad + qt * kBQh,
-                      kBQh * 8, full + s);
-          }
-        }
-      }
-    } else if (FUSED && threadIdx.x / 32 == kConsumers / 32 + 1) {
-      // the dq writer warp. A tile's adds are finished (waited for, turn
-      // passed on, buffer freed) once the next tile is staged, so they fly
-      // while the consumers compute; and always before the writer waits
-      // for a turn, so that it never holds one back while it waits.
-      const int lane = threadIdx.x % 32;
-      int it = 0, prev_kt = -1;
-      int* prev_turn = nullptr;
-      auto finish = [&](int buf) {
-        bulk_wait();
-        __syncwarp();
-        if (lane == 0) {
-          fence_proxy_async();
-          st_release(prev_turn, prev_kt + 1);
-          mbar_arrive(dq_empty + buf);
-        }
-      };
-      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-        const int kt = FUSED ? item % n_kt : item / (B * KV);
-        const int bg = FUSED ? item / n_kt : item % (B * KV);
-        const int b = bg / KV, g = bg % KV;
-        const int qt0 = causal ? kt * kBN / kBQh : 0;
-        for (int mem = 0; mem < G; ++mem) {
-          const int h = g * G + mem;
-          for (int qq = 0, qt = FUSED ? n_qt - 1 : qt0; qq < n_qt - qt0;
-               ++qq, ++it, qt += FUSED ? -1 : 1) {
-            const int buf = it % 2, i0 = qt * kBQh;
-            int* turn = dq_turn + ((size_t)b * H + h) * n_qt + qt;
-            mbar_wait(dq_full + buf, (it / 2) & 1);
-            if (prev_turn) finish(buf ^ 1);
-            if (lane == 0 && kt > 0)
-              while (ld_acquire(turn) < kt) __nanosleep(32);
-            __syncwarp();
-            fence_proxy_async();
-            if (lane == 0) {
-              const float* src = dq_s + buf * kBQh * Sm::LDQ;
-              float* dst = dq_acc + (((size_t)b * H + h) * n_qt + qt) *
-                                        (kBQh * Sm::LDQ);
-              if (kt == 0)
-                bulk_store(dst, src, kBQh * Sm::LDQ * 4);
-              else
-                bulk_add_f32(dst, src, kBQh * Sm::LDQ * 4);
-            }
-            bulk_commit();
-            prev_turn = turn;
-            prev_kt = kt;
-          }
-        }
-      }
-      if (prev_turn) finish((it - 1) % 2);
-    }
-  } else {  // consumer warpgroups
-    regs_inc<kRegsConsumer>();
-    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-    const int r = lane >> 2, c = (lane & 3) * 2;
-    const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
-    int it = 0, n = 0;
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
-      const int kt = FUSED ? item % n_kt : item / (B * KV);
-      const int bg = FUSED ? item / n_kt : item % (B * KV);
-      const int b = bg / KV, g = bg % KV;
-      const int j0 = kt * kBN;
-      const int krow[2] = {j0 + wg * 64 + warp * 16 + r,
-                           j0 + wg * 64 + warp * 16 + r + 8};
-      float dk[P][32], dv[P][32];
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) dk[p][i] = dv[p][i] = 0.f;
-      mbar_wait(kv_full, n & 1);
-
-      const int qt0 = causal ? j0 / kBQh : 0;
-      for (int mem = 0; mem < G; ++mem) {
-        const int h = g * G + mem;
-        for (int qq = 0, qt = FUSED ? n_qt - 1 : qt0; qq < n_qt - qt0;
-             ++qq, ++it, qt += FUSED ? -1 : 1) {
-          const int s = it % kStages, ph = (it / kStages) & 1;
-          const int i0 = qt * kBQh;
-          const uint32_t q_addr = smem_u32(Qs + s * Sm::kQ);
-          const uint32_t do_addr = smem_u32(dOs + s * Sm::kQ);
-          const float2* st_s = stats_s + s * kBQh;
-          float st[32], dpt[32];
-          mbar_wait(full + s, ph);
-          wgmma_fence();
-#pragma unroll
-          for (int k = 0; k < HD / 16; ++k)
-            wgmma_ss<0, 0>(st, kmajor<kBN>(k_addr, wg * 64, k),
-                           kmajor<kBQh>(q_addr, 0, k), k > 0);
-#pragma unroll
-          for (int k = 0; k < HD / 16; ++k)
-            wgmma_ss<0, 0>(dpt, kmajor<kBN>(v_addr, wg * 64, k),
-                           kmajor<kBQh>(do_addr, 0, k), k > 0);
-          wgmma_commit();
-          wgmma_wait<0>();
-          keep(st);
-          keep(dpt);
-
-          const bool edge = i0 + kBQh > S || j0 + kBN > S ||
-                            (causal && j0 + wg * 64 + 63 > i0);
-#pragma unroll
-          for (int i = 0; i < 32; ++i) {
-            const int li = 8 * (i / 4) + c + (i & 1);
-            const int x = (i >> 1) & 1;
-            const float2 ld = st_s[li];
-            float v = st[i] * qscale;
-            if (edge && (i0 + li >= S || krow[x] >= S ||
-                         (causal && krow[x] > i0 + li)))
-              v = kNegInf;
-            const float p = exp2f(v - ld.x);
-            st[i] = p;
-            dpt[i] = p * (dpt[i] - ld.y) * scale;
-          }
-          uint32_t pt[4][4], dst[4][4];
-          to_a_frags<kBQh>(pt, st);
-          to_a_frags<kBQh>(dst, dpt);
-          wgmma_fence();
-#pragma unroll
-          for (int k = 0; k < kBQh / 16; ++k)
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-              wgmma_rs<1>(dv[p], pt[k], mnmajor<kBQh>(do_addr, p, k));
-              wgmma_rs<1>(dk[p], dst[k], mnmajor<kBQh>(q_addr, p, k));
-            }
-          wgmma_commit();
-          if constexpr (!FUSED) {
-            wgmma_wait<0>();
-            keep(pt);
-            keep(dst);
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-              keep(dk[p]);
-              keep(dv[p]);
-            }
-            mbar_arrive(empty + s);
-          } else {
-            // dS^T (128 k rows x 64 q) into the swizzled tile: fragment q of
-            // slice k holds rows +8 (q & 1), columns 16 k + 8 (q >> 1) + c
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const int R = wg * 64 + warp * 16 + r + 8 * (q & 1);
-                const int C = 16 * k + 8 * (q >> 1) + c;
-                *reinterpret_cast<uint32_t*>(
-                    dSt + R * 128 + (((C >> 3) ^ (R & 7)) << 4) + (C & 7) * 2) =
-                    dst[k][q];
-              }
-            fence_async_smem();
-            named_sync(1, kConsumers);  // all of dS^T is staged
-            wgmma_wait<0>();            // dV, dK done: the q stage is free
-            keep(pt);
-            keep(dst);
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-              keep(dk[p]);
-              keep(dv[p]);
-            }
-            mbar_arrive(empty + s);
-            const int buf = it % 2;
-            if (wg < P) {
-              float dq[32];
-              wgmma_fence();
-#pragma unroll
-              for (int k = 0; k < kBN / 16; ++k)
-                wgmma_ss<1, 1>(dq, mnmajor<kBN>(smem_u32(dSt), 0, k),
-                               mnmajor<kBN>(k_addr, wg, k), k > 0);
-              wgmma_commit();
-              float* dq_b = dq_s + buf * kBQh * Sm::LDQ;
-              mbar_wait(dq_empty + buf, ((it / 2) & 1) ^ 1);
-              wgmma_wait<0>();
-              keep(dq);
-#pragma unroll
-              for (int i = 0; i < 32; i += 2) {
-                const int rr = warp * 16 + r + 8 * ((i >> 1) & 1);
-                *reinterpret_cast<float2*>(
-                    dq_b + rr * Sm::LDQ + wg * 64 + 8 * (i / 4) + c) =
-                    make_float2(dq[i], dq[i + 1]);
-              }
-              fence_async_smem();
-            }
-            mbar_arrive(dq_full + buf);
-            named_sync(1, kConsumers);  // both have read dS^T
-          }
-        }
-      }
-      mbar_arrive(kv_empty);
-
-      const size_t koff = (size_t)(g * (G + 2) + G) * HD;
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        if (krow[x] >= S) continue;
-        bf16* drow = dqkv + ((size_t)b * S + krow[x]) * W + koff;
-#pragma unroll
-        for (int p = 0; p < P; ++p)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int col = 64 * p + 8 * j + c, i = 4 * j + 2 * x;
-            *reinterpret_cast<__nv_bfloat162*>(drow + col) =
-                __floats2bfloat162_rn(dk[p][i], dk[p][i + 1]);
-            *reinterpret_cast<__nv_bfloat162*>(drow + HD + col) =
-                __floats2bfloat162_rn(dv[p][i], dv[p][i + 1]);
-          }
-      }
-    }
-  }
+  const PackedTiles<HD> t{&qkv_map, &do_map, stats, dqkv,
+                          Band{S, S, causal, 0}, B, H, G, H / G};
+  kv_walk<HD, FUSED>(t, align1024(smem_raw), dq_acc, dq_turn, scale, qscale);
 }
 
 // the bf16 fused walk's f32 dq scratch (B, H, ceil(S / 64), 64, LDQ) ->
@@ -1403,22 +955,22 @@ cudaError_t bwd_kv(const Args& a) {
 
 // a bf16 (B, S, width) tensor as a 3-d TMA map with 64 x 64 boxes, 128-byte
 // swizzle; rows past S (and columns past width) read as zeros
-cudaError_t make_map(CUtensorMap* map, const void* base, int width, int S,
-                     int B) {
+cudaError_t packed_map(CUtensorMap* map, const void* base, int width, int S,
+                       int B) {
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
                                  (cuuint64_t)width * S * 2};
   const cuuint32_t box[3] = {64, 64, 1};
-  return make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
-                     strides, box);
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
+                  strides, box);
 }
 
 template <int HD>
 cudaError_t fwd_sm90(const Args& a) {
   CUtensorMap map;
   const int W = (a.H + 2 * a.KV) * HD;
-  cudaError_t err = make_map(&map, a.qkv, W, a.S, a.B);
+  cudaError_t err = packed_map(&map, a.qkv, W, a.S, a.B);
   if (err) return err;
   const size_t smem = FwdSmem<HD>::kBytes;
   err = allow_smem(flash_fwd_kernel_sm90<HD>, smem);
@@ -1450,8 +1002,8 @@ cudaError_t bwd_dq_sm90(const Args& a) {
   cudaError_t err = a.have_stats ? cudaSuccess : bwd_stats<HD>(a);
   if (err) return err;
   CUtensorMap qkv_map, do_map;
-  err = make_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
-  if (!err) err = make_map(&do_map, a.dout, a.H * HD, a.S, a.B);
+  err = packed_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
+  if (!err) err = packed_map(&do_map, a.dout, a.H * HD, a.S, a.B);
   if (err) return err;
   const size_t smem = DqSmem<HD>::kBytes;
   err = allow_smem(flash_bwd_dq_kernel_sm90<HD>, smem);
@@ -1460,7 +1012,7 @@ cudaError_t bwd_dq_sm90(const Args& a) {
   if (grid.z > 65535) return cudaErrorInvalidValue;
   flash_bwd_dq_kernel_sm90<HD><<<grid, kHopperThreads, smem, a.stream>>>(
       qkv_map, do_map, static_cast<const float2*>(a.stats),
-      static_cast<bf16*>(a.out), a.S, a.H, a.H / a.KV, a.scale,
+      static_cast<bf16*>(a.out), a.B, a.S, a.H, a.H / a.KV, a.scale,
       a.scale * kLog2e, a.causal);
   return cudaGetLastError();
 }
@@ -1473,8 +1025,8 @@ cudaError_t bwd_kv_sm90(const Args& a) {
       a.have_stats && !FUSED ? cudaSuccess : bwd_stats<HD>(a);
   if (err) return err;
   CUtensorMap qkv_map, do_map;
-  err = make_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
-  if (!err) err = make_map(&do_map, a.dout, a.H * HD, a.S, a.B);
+  err = packed_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
+  if (!err) err = packed_map(&do_map, a.dout, a.H * HD, a.S, a.B);
   if (err) return err;
   const size_t smem = KvSmem<HD, FUSED>::kBytes;
   err = allow_smem(flash_bwd_kv_kernel_sm90<HD, FUSED>, smem);

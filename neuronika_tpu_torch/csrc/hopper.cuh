@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the warp-specialised
-// kernels of flash_attention_qkv.cu and matmul.cu: mbarriers, TMA tile
-// loads, bulk copies, wgmma descriptors and products (bf16 and TF32),
-// register reallocation and named barriers; on the host, TMA map encoding
-// and the SM count. Plain C++ and PTX: no CUTLASS, so the source builds in
-// seconds.
+// kernels of flash_attention_qkv.cu, flash_attention.cu and matmul.cu:
+// mbarriers, TMA tile loads (3-d and 4-d maps), bulk copies, wgmma
+// descriptors and products (bf16 and TF32), register reallocation and
+// named barriers; on the host, TMA map encoding and the SM count. Plain
+// C++ and PTX: no CUTLASS, so the source builds in seconds.
 //
 // Shared-memory tiles are kept in the layout that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: 64 bf16 columns (128 bytes) a row, rows
@@ -83,6 +83,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one box of a 4-d tensor map (coordinates innermost first)
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -356,17 +368,20 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// a 3-d tensor (dims innermost first, strides of dims 1 and 2 in bytes)
-// as a TMA map with 128-byte swizzle; coordinates past a dim read as zeros
-inline cudaError_t make_map_3d(CUtensorMap* map, CUtensorMapDataType type,
-                               const void* base, const cuuint64_t (&dims)[3],
-                               const cuuint64_t (&strides)[2],
-                               const cuuint32_t (&box)[3]) {
+// an N-d tensor (dims innermost first, strides of dims 1 .. N - 1 in
+// bytes) as a TMA map with 128-byte swizzle; coordinates past a dim read
+// as zeros
+template <int N>
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, const cuuint64_t (&dims)[N],
+                            const cuuint64_t (&strides)[N - 1],
+                            const cuuint32_t (&box)[N]) {
   const EncodeTiled enc = encoder();
   if (!enc) return cudaErrorSymbolNotFound;
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = enc(map, type, 3, const_cast<void*>(base), dims, strides,
-                         box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  cuuint32_t elem[N];
+  for (int i = 0; i < N; ++i) elem[i] = 1;
+  const CUresult r = enc(map, type, N, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

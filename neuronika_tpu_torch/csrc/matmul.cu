@@ -409,8 +409,8 @@ cudaError_t operand_map(CUtensorMap* map, const PackJob<T>& j) {
   const cuuint64_t row = (cuuint64_t)(j.out ? j.Kp : j.s_r) * sizeof(T);
   const cuuint64_t strides[2] = {row, row * j.R};
   const cuuint32_t box[3] = {G::kBK, kBM, 1};
-  return make_map_3d(map, G::kType, j.out ? (const void*)j.out : j.x, dims,
-                     strides, box);
+  return make_map(map, G::kType, j.out ? (const void*)j.out : j.x, dims,
+                  strides, box);
 }
 
 // the gemm kernel's shared-memory allowance and the SM count, set and read

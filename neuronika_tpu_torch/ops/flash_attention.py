@@ -444,12 +444,61 @@ def _kernel_dtype_and_hd(dtype, hd):
 
 
 def _aligned(t):
-    """t itself if the kernels can read it through its strides, else a
+    """t itself if the kernels can read it through its strides (a unit last
+    axis, 16-byte base and strides, which is also what a TMA map needs, and
+    no stride 0 on an axis longer than 1, which a map cannot step), else a
     contiguous copy."""
     unit = 16 // t.element_size()
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(st % unit == 0 for st in t.stride()[:-1]))
+          and all(st % unit == 0 and (st or n == 1)
+                  for st, n in zip(t.stride()[:-1], t.shape[:-1])))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+# the bf16 K6/K7 walks (csrc/flash_sm90.cuh): a CTA holds 128 rows of one
+# side as two warpgroups of 64 and steps over the other side in 64-row tiles
+_CTA_ROWS, _STEP_ROWS = 128, 64
+
+
+def _band_none(Sq, Skv, causal, window, i0, ni, j0, nj):
+    """`Band::none`: rows [i0, i0 + ni) x keys [j0, j0 + nj) hold no key of
+    the band."""
+    return i0 >= Sq or j0 >= Skv or (causal and (
+        j0 > i0 + ni - 1 or (window > 0 and i0 - (j0 + nj - 1) >= window)))
+
+
+def split_walk(Sq, Skv, causal=True, window=0):
+    """The tiles the bf16 K6 and K7 visit, as the device code walks them
+    (`Band::k_tiles`, `Band::q_tiles` and `Band::none` in
+    csrc/flash_sm90.cuh), for checking on the host that the band is covered
+    once. Returns {"dq": [...], "dkv": [...]}: for each warpgroup step that
+    computes, its (row0, rows, key0, keys) rectangle. K6's grid is ceil(Sq /
+    128) q tiles a (batch, head); K7's items are ceil(Skv / 128) k tiles a
+    (batch, head), on a persistent grid of at most one CTA an SM."""
+    C, T = _CTA_ROWS, _STEP_ROWS
+    n_k, n_q = -(-Skv // T), -(-Sq // T)
+    dq, dkv = [], []
+    for i0 in range(0, Sq, C):          # K6: k tiles of the CTA's band
+        kt0, kt1 = 0, n_k
+        if causal:
+            kt1 = min(kt1, (min(i0 + C, Sq) - 1) // T + 1)
+            if window:
+                kt0 = max(0, i0 - window + 1) // T
+        for r0 in (i0, i0 + T):
+            dq += [(r0, T, kt * T, T) for kt in range(kt0, kt1)
+                   if not _band_none(Sq, Skv, causal, window, r0, T, kt * T,
+                                     T)]
+    for j0 in range(0, Skv, C):         # K7: q tiles of the CTA's band
+        it0, it1 = 0, n_q
+        if causal:
+            it0 = j0 // T
+            if window:
+                it1 = min(it1, (j0 + C + window - 2) // T + 1)
+        for jw in (j0, j0 + T):
+            dkv += [(it * T, T, jw, T) for it in range(it0, it1)
+                    if not _band_none(Sq, Skv, causal, window, it * T, T,
+                                      jw, T)]
+    return {"dq": dq, "dkv": dkv}
 
 
 def _strides(*ts):

@@ -193,6 +193,61 @@ def test_refusals_match_jax():
             FA.flash_attention(*_t(q, *kv), causal, window=window)
 
 
+def _mistral_operands(preset, dtype, B=2, S=48):
+    """q, k, v as the model hands them to `flash_attention`: `_split_qkv`
+    of a random packed projection, then rope on q and k."""
+    from neuronika_tpu_torch.models import transformer as T
+
+    cfg = preset(vocab_size=64, n_layer=1, n_head=32, n_kv_head=8,
+                 d_model=4096, d_ff=64, max_seq=S, dtype=dtype)
+    g = torch.Generator().manual_seed(0)
+    qkv = torch.randn(B, S, T._qkv_width(cfg), generator=g).to(dtype)
+    q, k, v = T._split_qkv(qkv, cfg, B, S)
+    if cfg.pos_emb == "rope":
+        cos, sin = T._rope_cos_sin(cfg, torch.arange(S))
+        q, k = T._apply_rope(q, cos, sin), T._apply_rope(k, cos, sin)
+    return cfg, (q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("preset", ["mistral", "learned-window-mha"])
+def test_model_operands_pass_aligned_unchanged(preset, dtype):
+    """At Mistral's head geometry (H32 KV8 hd128; rope, GQA repeated) and
+    with the q, k, v views of the packed projection that a learned-position
+    windowed model hands over (H32 KV32: head stride 3 hd), every operand
+    of the split flash op passes `_aligned` as itself: the kernels (the
+    bf16 backward's TMA maps included) read it with no copy."""
+    from neuronika_tpu_torch.models import transformer as T
+
+    if preset == "mistral":
+        cfg, ops = _mistral_operands(T.mistral_config, dtype)
+        assert (cfg.n_head, cfg.n_kv_head, cfg.window) == (32, 8, 4096)
+    else:
+        cfg = T.GPTConfig(vocab_size=64, n_layer=1, n_head=32,
+                          d_model=4096, d_ff=64, max_seq=48, window=16,
+                          dtype=dtype)
+        qkv = torch.randn(2, 48, T._qkv_width(cfg)).to(dtype)
+        ops = T._split_qkv(qkv, cfg, 2, 48)
+        assert not ops[0].is_contiguous()
+    for t in ops:
+        assert t.shape == (2, 32, 48, 128)
+        assert FA._aligned(t) is t
+
+
+def test_aligned_copies_what_a_map_cannot_step():
+    """A stride 0 on an axis longer than 1 (an expanded gradient) or a
+    stride that is not a multiple of 16 bytes gets a contiguous copy; a
+    stride 0 on an axis of length 1 is kept."""
+    base = torch.randn(1, 1, 8, 64, dtype=torch.bfloat16)
+    for t in (base.expand(2, 3, 8, 64),
+              torch.randn(2, 1, 8, 68, dtype=torch.bfloat16)[..., :64]):
+        c = FA._aligned(t)
+        assert c is not t and c.is_contiguous() and torch.equal(c, t)
+    one = base.as_strided((1, 1, 8, 64), (0, 0, 64, 1))
+    assert FA._aligned(one) is one
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     q, k, v, do = _t(*_inputs(16, 16))
     before = [f.launches for f in FA.SPLIT_KERNELS]
@@ -216,20 +271,56 @@ def cuda():
 
 
 # (id, B, H, Sq, Skv, causal, window): the band against 64-row tiles
-# (windows 1, 6, 65, 100, >= S), ragged S, Sq != Skv
+# (windows 1, 6, 65, 100, >= S), ragged S, Sq != Skv; then the bf16 K6/K7
+# geometry of 64-row steps and 128-row CTAs: windows on either side of one
+# step or one CTA (63, 64, 65, 127, 128, 129), ragged S below a CTA's rows
+# with a window below 128, and full attention ragged on both sides
 GPU_CASES = [("causal", 2, 3, 256, 256, True, 0),
              ("window1", 2, 3, 256, 256, True, 1),
              ("window6", 2, 3, 256, 256, True, 6),
              ("window65", 2, 3, 256, 256, True, 65),
              ("window100-ragged", 1, 2, 1000, 1000, True, 100),
              ("window-ge-S", 1, 2, 200, 200, True, 300),
-             ("full-Sq200-Skv333", 2, 2, 200, 333, False, 0)]
+             ("full-Sq200-Skv333", 2, 2, 200, 333, False, 0),
+             *((f"window{w}-S384", 1, 2, 384, 384, True, w)
+               for w in (63, 64, 65, 127, 128, 129)),
+             ("window100-S129", 2, 2, 129, 129, True, 100),
+             ("window37-S1000", 1, 2, 1000, 1000, True, 37),
+             ("full-Sq130-Skv1000", 2, 2, 130, 1000, False, 0)]
 # f32: the same math in another summation order; bf16: each entry within
 # BF16_OUT of max |v| (out) or BF16_GRAD of the largest gradient entry,
 # rounding points that may flip by one ulp on either side, and each
 # tensor in norm as above
 GPU_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (BF16_OUT,
                                                          BF16_GRAD)}
+
+
+# the bands of both test tables (S <= 1000), for the host's mirror of the
+# bf16 K6/K7 walk (runs on the CPU)
+WALK_CASES = ([(f"cpu-{c[0]}",) + c[1:5] for c in CASES]
+              + [(f"gpu-{c[0]}",) + c[3:7] for c in GPU_CASES])
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=[c[0] for c in WALK_CASES])
+def test_split_walk_visits_every_band_pair_once(case):
+    """`split_walk` (the bf16 K6/K7 walk over 128-row CTAs and 64-row
+    steps, as csrc/flash_sm90.cuh runs it) covers each in-band (q, k) pair
+    of a band exactly once, for dq (over q tiles) and for dk/dv (over k
+    tiles), and visits no step that holds none."""
+    _, Sq, Skv, causal, window = case
+    rows = np.arange(Sq)[:, None]
+    cols = np.arange(Skv)[None, :]
+    band = np.ones((Sq, Skv), bool)
+    if causal:
+        band = (cols <= rows) & ((rows - cols < window) if window else True)
+    walk = FA.split_walk(Sq, Skv, causal, window)
+    for name, steps in walk.items():
+        seen = np.zeros((Sq, Skv), np.int32)
+        for i0, ni, j0, nj in steps:
+            seen[i0:i0 + ni, j0:j0 + nj] += 1
+            assert band[i0:i0 + ni, j0:j0 + nj].any(), (name, i0, j0)
+        assert (seen[band] == 1).all(), name
+        assert seen.max() == 1, name
 
 
 @pytest.mark.cuda
@@ -277,6 +368,62 @@ def test_kernels_match_plain_versions_on_gpu(cuda, case, dtype, hd):
         assert a.dtype == dtype and a.shape == b.shape, name
         assert float((a.float() - b.float()).abs().max()) <= bound, name
         assert not bf16 or _within_norm(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernels_read_views_of_a_packed_projection_on_gpu(cuda, dtype):
+    """K5, K6 and K7 on q, k, v that are views of one packed (B, S, W)
+    tensor, as `_split_qkv` makes them without GQA (head stride 3 hd, row
+    stride W): the bf16 backward's 4-d TMA maps step over heads that are
+    not dense. Held as test_kernels_match_plain_versions_on_gpu holds
+    them."""
+    B, H, S, hd, window = 2, 4, 300, 128, 100
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(B, S, H, 3, hd, generator=g, device=cuda).to(dtype)
+    q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn(B, H, S, hd, generator=g, device=cuda).to(dtype)
+    assert q.stride() == (S * 3 * H * hd, 3 * hd, 3 * H * hd, 1)
+    assert all(FA._aligned(t) is t for t in (q, k, v))
+    out, lse = FA.flash_fwd(q, k, v, True, window=window)
+    rout, rlse = FA.flash_attention_fwd_reference(q, k, v, True,
+                                                  window=window)
+    delta = (do.float() * rout.float()).sum(-1)
+    dq = FA.flash_bwd_dq(q, k, v, do, rlse, delta, True, window=window)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, rlse, delta, True, window=window)
+    want = FA.flash_attention_bwd_reference(q, k, v, do, rlse, delta, True,
+                                            window=window)
+    torch.cuda.synchronize()
+    o_tol, g_tol = GPU_TOL[dtype]
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        o_tol *= float(v.float().abs().max())
+    assert float((out.float() - rout.float()).abs().max()) <= o_tol
+    top = max(float(b.float().abs().max()) for b in want)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        bound = g_tol * (max(1.0, top) if not bf16 else top)
+        assert float((a.float() - b.float()).abs().max()) <= bound, name
+        assert not bf16 or _within_norm(a, b), name
+
+
+@pytest.mark.cuda
+def test_backward_kernels_are_bit_identical_across_runs_on_gpu(cuda):
+    """Each CTA of K6 and K7 owns its output rows (no atomics): two
+    launches on the same inputs give the same bits (bf16 B2 H4 S1000,
+    window 100, hd 128)."""
+    B, H, S, hd, window = 2, 4, 1000, 128, 100
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, do = (torch.randn(B, H, S, hd, generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    _, lse = FA.flash_attention_fwd_reference(q, k, v, True, window=window)
+    delta = torch.randn(B, H, S, generator=g, device=cuda)
+    runs = [(FA.flash_bwd_dq(q, k, v, do, lse, delta, True, window=window),
+             *FA.flash_bwd_dkv(q, k, v, do, lse, delta, True, window=window))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

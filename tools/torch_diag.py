@@ -1,4 +1,4 @@
-"""Four measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Six measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -8,6 +8,16 @@ make, run on one CUDA card from the root of a checkout:
         TREE_ROOT, with that checkout's own package and chip_smoke.py; run
         it for two checkouts in turns (A, B, B, A) on one card to
         compare them;
+    python3 tools/torch_diag.py mistral TREE_ROOT
+        the same for chip_smoke.py phase 11's step: Mistral 7B's widths at
+        L4, S8192 B2 bf16, window 4096 (1 warm-up and 4 timed steps);
+    python3 tools/torch_diag.py kernels TREE_ROOT
+        CUDA-event times of the checkout's flash kernels: K5, K6 and K7 at
+        bf16 B1 H8 and B2 H32 S8192 hd128 window 4096 (chip_smoke.py phase
+        3's shapes; SDPA's band-masked backward beside them at B1 H8), and
+        K1, K2a (with its own pre-pass), K2b, the split pair and the fused
+        K2 at the headline (bf16 B16 S2048 H12 hd128 causal, fast softmax);
+        the best of two runs of 5 launches each, as phase 3 times them;
     python3 tools/torch_diag.py f32-noise
         the f32 packed-qkv flash backward (K2a + K2b, the fused K2) and its
         plain version against an exact f64 backward, per chunk (dq, dk,
@@ -61,6 +71,96 @@ def step(root):
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     torch.cuda.empty_cache()
     cs.phase_var_legacy(nk, T, optim, FA, MM, SM)
+
+
+def _tree(root):
+    """chip_smoke and the flash ops of the checkout at `root`."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import chip_smoke as cs
+    from neuronika_tpu_torch import _build
+    from neuronika_tpu_torch.ops import flash_attention as FA
+
+    _build.load_library()
+    return root, cs, FA
+
+
+def mistral(root):
+    import numpy as np
+
+    root, cs, FA = _tree(root)
+    from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.ops import cross_entropy as CE
+
+    rng = np.random.default_rng(0)
+    B, S = 2, 8192
+    cfg = T.mistral_config(dtype=torch.bfloat16, **cs.MISTRAL_7B)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S))
+    batch = (torch.from_numpy(toks).to("cuda"),
+             torch.from_numpy(np.roll(toks, -1, axis=1)).to("cuda"))
+    losses, launches, step_s, peak, _ = cs.train_steps(
+        T, cs.train_kernels(FA, CE), cfg, 1, 4, batch, 3e-4)
+    print(f"{root}: Mistral L4 step {step_s * 1e3:.2f} ms, peak {peak:.2f} "
+          f"GiB, losses {[round(l, 4) for l in losses]}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
+
+def kernels(root):
+    import numpy as np
+
+    root, cs, FA = _tree(root)
+
+    def best(fn):
+        return min(cs.cuda_ms(fn, 5), cs.cuda_ms(fn, 5))
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    S, hd, W = 8192, 128, 4096
+    for B, H in ((1, 8), (2, 32)):
+        q, k, v, do = cs.split_case(g, B, H, S, S, hd, torch.bfloat16, False)
+        out, lse = FA.flash_fwd(q, k, v, window=W)
+        delta = (do.float() * out.float()).sum(-1)
+        line = []
+        for name, fn in (
+                ("flash_fwd", lambda: FA.flash_fwd(q, k, v, window=W)),
+                ("flash_bwd_dq", lambda: FA.flash_bwd_dq(
+                    q, k, v, do, lse, delta, window=W)),
+                ("flash_bwd_dkv", lambda: FA.flash_bwd_dkv(
+                    q, k, v, do, lse, delta, window=W))):
+            ms = best(fn)
+            bound, flops = cs.split_bound(name, B, H, S, hd, True, W)
+            line.append(f"{name} {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+                        f"TFLOP/s, bound {bound[0]:.3f})")
+        if B == 1:
+            line.append(f"SDPA backward "
+                        f"{cs.sdpa_band_ms(q, k, v, do, W)[1]:.3f} ms")
+        print(f"{root}: bf16 B{B} H{H} S{S} hd{hd} window {W}: "
+              + "; ".join(line), flush=True)
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    B, H, S = 16, 12, 2048
+    qkv, do = cs.flash_case(np.random.default_rng(0), B, H, H, hd, S,
+                            torch.bfloat16)
+    out, lse = FA.flash_fwd_qkv(qkv, H, fast_softmax=True)
+    d_qkv = torch.empty_like(qkv)
+
+    def pair():
+        st = FA.flash_bwd_stats_qkv(qkv, out, lse, do, H)
+        FA.flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, H, stats=st)
+        FA.flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, H, stats=st)
+
+    line = [f"{name} {best(fn):.3f} ms" for name, fn in (
+        ("flash_fwd_qkv", lambda: FA.flash_fwd_qkv(qkv, H,
+                                                   fast_softmax=True)),
+        ("flash_bwd_dq_qkv", lambda: FA.flash_bwd_dq_qkv(
+            qkv, out, lse, do, d_qkv, H)),
+        ("flash_bwd_dkv_qkv", lambda: FA.flash_bwd_dkv_qkv(
+            qkv, out, lse, do, d_qkv, H)),
+        ("split pair", pair),
+        ("flash_bwd_fused_qkv", lambda: FA.flash_bwd_fused_qkv(
+            qkv, out, lse, do, H)))]
+    print(f"{root}: bf16 B{B} S{S} H{H} hd{hd} causal fast: "
+          + "; ".join(line), flush=True)
 
 
 def f32_fused(root):
@@ -197,6 +297,10 @@ if __name__ == "__main__":
         step(sys.argv[2])
     elif sys.argv[1:] == ["f32-noise"]:
         f32_noise()
+    elif sys.argv[1:2] == ["mistral"] and len(sys.argv) == 3:
+        mistral(sys.argv[2])
+    elif sys.argv[1:2] == ["kernels"] and len(sys.argv) == 3:
+        kernels(sys.argv[2])
     elif sys.argv[1:2] == ["f32-fused"] and len(sys.argv) == 3:
         f32_fused(sys.argv[2])
     elif sys.argv[1:2] == ["host"] and len(sys.argv) == 3:
