@@ -64,7 +64,8 @@ nvidia-smi. Phases, each printing one line or a few:
      conv_impl "pallas", 224x224 images at batch 64 from a seed, SGD with
      momentum 0.9 and lr 0.1: 2 warm-up and 5 timed steps with a finite,
      falling loss and K12 launched once a conv forward and once a stride-1
-     conv's dx, K13 once a stride-1 conv's dw (counts derived from the
+     conv's dx, K13 once a stride-1 conv's dw, every call but the stem's
+     on the Hopper kernels of csrc/conv_sm90.cu (counts derived from the
      config); step time, images/s, conv MFU, peak memory. One more step
      records the operands of every K12 and K13 call at each distinct
      shape (forward, stride-1 dx, dw), and each is held against its plain
@@ -98,7 +99,10 @@ sqrt(numel), and so are K1's and K2's, with three planted faults (K1, K2a,
 the fused K2) read at the headline shape. Phase 3 then holds the direct convolutions (K12 at strides
 1-3, dilation, groups, a 7x7/2 conv on 3 channels and a 1x1/2 one; K13
 with a split reduction; K14; a strided 1-d conv on K12; K15 with
-dilation) against their plain versions in f32 and bf16, and at bench.py's
+dilation; in bf16 the Hopper K12 and K13 at ResNet-18's stage shapes, a
+dx, tiles across samples, channel tails and non-square dilated taps, each
+call's kernel counted against conv_route's choice) against their plain
+versions in f32 and bf16, and at bench.py's
 conv shapes checks them, reads a planted fault per kernel against the same
 norm bound and times each beside its plain version and one library call
 (F.conv2d, torch.nn.grad.conv2d_weight, F.conv1d, F.conv3d); and times
@@ -616,10 +620,12 @@ def profile_step(run, label, path):
         kind = ("K8 ce fwd" if "ce_fwd_kernel" in n
                 else "K9 ce dx" if "ce_grad_kernel" in n and "true>" in n
                 else "K10 ce dw" if "ce_grad_kernel" in n
+                else "K12 conv (sm90)" if "conv_sm90_fwd" in n
+                else "K13 conv dw" if "conv_sm90_dw" in n
+                or "conv_mma<true>" in n or "conv_ffma<true>" in n
+                or "conv_dw_reduce" in n
                 else "K12-K15 conv" if "conv_mma<false>" in n
                 or "conv_ffma<false>" in n
-                else "K13 conv dw" if "conv_mma<true>" in n
-                or "conv_ffma<true>" in n or "conv_dw_reduce" in n
                 else "K5 fwd" if "split_fwd" in n
                 else "K6 dq" if "split_bwd_dq" in n
                 else "K7 dk/dv" if "split_bwd_dkv" in n
@@ -1596,6 +1602,22 @@ CONV_CASES = (
     ("conv1d-s2", "k12-1d", (2, 333, 64), (3, 64, 72), (2,), (1,), 1),
     ("conv3d-d2", "k15", (2, 9, 10, 11, 16), (3, 2, 3, 16, 24), (1, 1, 1),
      (2, 1, 2), 1),
+    # on the Hopper K12 in bf16 (conv_route "sm90"): ResNet-18's stride-1
+    # stage convs at batch 2, stage 1's dx (the padded gradient), tiles
+    # spanning samples, Ci and Co tails, non-square taps with dilation
+    ("stage1-B2", "k12", (2, 58, 58, 64), (3, 3, 64, 64), (1, 1), (1, 1), 1),
+    ("stage2-B2", "k12", (2, 30, 30, 128), (3, 3, 128, 128), (1, 1), (1, 1),
+     1),
+    ("stage3-B2", "k12", (2, 16, 16, 256), (3, 3, 256, 256), (1, 1), (1, 1),
+     1),
+    ("stage4-B2", "k12", (2, 9, 9, 512), (3, 3, 512, 512), (1, 1), (1, 1),
+     1),
+    ("stage1-dx-B2", "k12", (2, 60, 60, 64), (3, 3, 64, 64), (1, 1), (1, 1),
+     1),
+    ("samples", "k12", (7, 7, 7, 32), (3, 3, 32, 64), (1, 1), (1, 1), 1),
+    ("tails", "k12", (3, 11, 13, 200), (3, 3, 200, 200), (1, 1), (1, 1), 1),
+    ("k3x2-dil2x1", "k12", (2, 13, 11, 24), (3, 2, 24, 136), (1, 1), (2, 1),
+     1),
 )
 # K13: (name, x shape, g shape, (kh, kw), dilation)
 DW_CASES = (
@@ -1604,6 +1626,11 @@ DW_CASES = (
     ("k1", (4, 28, 28, 64), (4, 28, 28, 128), (1, 1), (1, 1)),
     ("resnet-stage1-B16", (16, 58, 58, 64), (16, 56, 56, 64), (3, 3),
      (1, 1)),
+    ("stage4-B2", (2, 9, 9, 512), (2, 7, 7, 512), (3, 3), (1, 1)),
+    ("dil2", (2, 14, 15, 64), (2, 10, 11, 128), (3, 3), (2, 2)),
+    ("samples", (7, 7, 7, 32), (7, 5, 5, 64), (3, 3), (1, 1)),
+    ("tails", (3, 11, 13, 200), (3, 9, 11, 72), (3, 3), (1, 1)),
+    ("k3x2-dil2x1", (2, 13, 11, 24), (2, 9, 10, 136), (3, 2), (2, 1)),
 )
 
 
@@ -1649,7 +1676,8 @@ def conv_fault(C, name, x, w, ref):
     the reading."""
     if name == "conv2d_dw_nhwc":
         kh, kw, ci, co = ref.shape
-        _, chunk = C._dw_splits(kh * kw * ci, co, w[..., 0].numel())
+        _, _, chunk = C.dw_plan(kh, kw, ci, co, w[..., 0].numel(),
+                                torch.promote_types(x.dtype, w.dtype))
         g0 = w.clone()
         g0.view(-1, co)[:chunk] = 0
         bad = C.conv2d_dw_nhwc(x, g0, kh, kw)
@@ -1681,24 +1709,39 @@ def phase_conv_kernels(C):
                 * scale).to(dtype)
 
     errs = {}
+    sm90 = {"conv2d_direct_nhwc": 0, "conv2d_dw_nhwc": 0}
+    for k in (C.conv2d_direct_nhwc, C.conv2d_dw_nhwc):
+        k.sm90_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
         for name, kind, xs, ws, stride, dil, groups in CONV_CASES:
+            sm90["conv2d_direct_nhwc"] += kind in ("k12", "k12-1d") and \
+                C.conv_route("fwd", dtype, xs[-1], ws[-1], groups,
+                             ((1,) + stride)[-2:], ((1,) + dil)[-2:],
+                             ((1,) + ws[:-2])[-2:]) == "sm90"
             x, w = rnd(*xs, dtype=dtype), rnd(*ws, dtype=dtype, scale=0.1)
             errs[f"{dt}/{name}"] = conv_within(
                 conv_call(C, kind, x, w, stride, dil, groups),
                 C.conv_nd_reference(x, w, stride, dil, groups),
                 f"{kind} {dt}/{name}", dtype)[:2]
         for name, xs, gs, k, dil in DW_CASES:
+            sm90["conv2d_dw_nhwc"] += C.dw_plan(
+                *k, xs[-1], gs[-1], math.prod(gs[:-1]), dtype,
+                dil)[0] == "sm90"
             x, gg = rnd(*xs, dtype=dtype), rnd(*gs, dtype=dtype)
             errs[f"{dt}/dw-{name}"] = conv_within(
                 C.conv2d_dw_nhwc(x, gg, *k, dil),
                 C.conv_dw_reference(x, gg, k, dil), f"k13 {dt}/{name}",
                 dtype)[:2]
     torch.cuda.synchronize()
+    ran = {k.__name__: k.sm90_launches for k in (C.conv2d_direct_nhwc,
+                                                 C.conv2d_dw_nhwc)}
+    check(ran == sm90 and min(sm90.values()) > 0,
+          f"phase 3: Hopper K12/K13 launches {ran}, conv_route sends {sm90}")
     print("phase 3 kernels: conv K12-K15 within bounds (f32 1e-5 of max "
           "|entry|; bf16 one ulp of it and in norm "
-          f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); max "
+          f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); "
+          f"on the Hopper K12/K13 (csrc/conv_sm90.cu): {ran}; max "
           "abs err, ||err||/||ref||: " + ", ".join(
               f"{k} {a:.3g}, {r:.2g}" for k, (a, r) in errs.items()))
 
@@ -1740,7 +1783,11 @@ def phase_conv_kernels(C):
     }
     result, line = {}, []
     for name, (shape, ins, kern, plain, lib, lib_name) in cases.items():
+        fn = getattr(C, name)
+        before = getattr(fn, "sm90_launches", None)    # K12, K13
         out, ref = kern(), plain()
+        check(before is None or fn.sm90_launches == before + 1,
+              f"phase 3: {name} {shape} did not run the Hopper kernel")
         err, rel, bound_n = conv_within(out, ref, f"{name} {shape}",
                                         torch.bfloat16)
         fault = conv_fault(C, name, *ins, ref)
@@ -2068,6 +2115,17 @@ def conv_launch_want(R, cfg, steps):
             "conv1d_direct_nwc": 0, "conv3d_direct_ndhwc": 0}
 
 
+def conv_sm90_want(R, cfg, steps):
+    """The K12 and K13 calls of `steps` bf16 ResNet train steps that
+    conv_route sends to the Hopper kernels: every conv but the stem (its 3
+    input channels give TMA a 6-byte row) forward, and every stride-1
+    conv's dx and dw (conv_launch_want's, none of them the stem's)."""
+    strides = R.conv_strides(cfg)
+    s1 = strides[1:].count(1)
+    return {"conv2d_direct_nhwc": steps * (len(strides) - 1 + s1),
+            "conv2d_dw_nhwc": steps * s1}
+
+
 def record_convs(C, run):
     """Runs `run()` with K12's and K13's wrappers, and the stride-1 dx
     around K12, wrapped to keep contiguous copies of the operands of the
@@ -2156,8 +2214,8 @@ def check_recorded_convs(C, records):
         if role == "dx":
             rank = -xs[-1]
         else:
-            rank = C._dw_splits(st[0] * st[1] * xs[-1], ws[-1],
-                                math.prod(ws[:-1]))[0]
+            rank = C.dw_plan(*st, xs[-1], ws[-1], math.prod(ws[:-1]),
+                             dtype, dil)[1]
             rank = rank if rank > 1 else math.inf
         if role != "fwd" and (role not in faults or rank < faults[role][0]):
             faults[role] = (rank, xs, ws, x, w, ref)
@@ -2199,6 +2257,8 @@ def phase_resnet(R, C, profile):
     torch.cuda.reset_peak_memory_stats()
     for k in C.KERNELS:
         k.launches = 0
+    for k in (C.conv2d_direct_nhwc, C.conv2d_dw_nhwc):
+        k.sm90_launches = 0
     t0 = time.perf_counter()
     for _ in range(n):
         params, buf, loss = step(params, buf, x, y, 0.1)
@@ -2206,12 +2266,17 @@ def phase_resnet(R, C, profile):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n
     launches = {k.__name__: k.launches for k in C.KERNELS}
+    sm90 = {k.__name__: k.sm90_launches for k in (C.conv2d_direct_nhwc,
+                                                  C.conv2d_dw_nhwc)}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
     check(all(np.isfinite(losses)), f"phase 13: non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"phase 13: loss did not fall: {losses}")
     want = conv_launch_want(R, cfg, n)
     check(launches == want, f"phase 13: launches {launches}, want {want}")
+    want = conv_sm90_want(R, cfg, n)
+    check(sm90 == want, f"phase 13: Hopper K12/K13 launches {sm90}, want "
+                        f"{want}")
     flops = resnet_conv_flops(cfg, B, size)
     mfu = 3 * flops / step_s / 989e12
     print(f"phase 13 ResNet-18: imagenet stem, widths 64-512, 1000 classes, "
@@ -2220,8 +2285,9 @@ def phase_resnet(R, C, profile):
           f"conv MFU {mfu:.4f} (3 x {flops:.4g} forward conv FLOPs a step, "
           f"of 989 TFLOP/s), peak {peak:.2f} GiB; losses "
           f"{[round(v, 4) for v in losses]}; launches in {n} steps: K12 "
-          f"{launches['conv2d_direct_nhwc']}, K13 "
-          f"{launches['conv2d_dw_nhwc']}")
+          f"{launches['conv2d_direct_nhwc']} (on the Hopper kernel "
+          f"{sm90['conv2d_direct_nhwc']}), K13 {launches['conv2d_dw_nhwc']} "
+          f"(Hopper {sm90['conv2d_dw_nhwc']})")
     records = record_convs(C, lambda: step(params, buf, x, y, 0.1))
     roles = [k[0] for k in records]
     errs, line, read = check_recorded_convs(C, records)
@@ -2567,16 +2633,17 @@ def main() -> int:
     # K12 and K13 run on phase 13's path (launches, and errors on its
     # operands brought to unit scale), K14 and K15 on phase 14's Var graph
     # (launches; errors at bench.py's shapes); times at bench.py's shapes
-    # (phase 3)
-    for name, line, path in (
-            ("conv2d_direct_nhwc", 46, resnet),
-            ("conv2d_dw_nhwc", 334, resnet),
-            ("conv1d_direct_nwc", 574, var_convs),
-            ("conv3d_direct_ndhwc", 733, var_convs)):
+    # (phase 3); K12 and K13 there, and on phase 13's path in bf16 but for
+    # the stem, run csrc/conv_sm90.cu
+    for name, line, path, source in (
+            ("conv2d_direct_nhwc", 46, resnet, "conv_sm90.cu"),
+            ("conv2d_dw_nhwc", 334, resnet, "conv_sm90.cu"),
+            ("conv1d_direct_nwc", 574, var_convs, "conv.cu"),
+            ("conv3d_direct_ndhwc", 733, var_convs, "conv.cu")):
         e, ms, p_ms, lib, bound = convk[name]
         e = resnet_errs.get(name, e)
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"{csrc}conv.cu",
+                        "source": f"{csrc}{source}",
                         "replaces": f"neuronika_tpu/ops/pallas/conv.py:{line}",
                         "launches": path[name],
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,

@@ -146,14 +146,16 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [i, p, p, i, i, i, p]          # dtype, x, y, rows, cols,
     fn.restype = i                               # log, stream
     geo = ctypes.POINTER(ctypes.c_int)           # 19 ints, csrc/conv.cu
-    for name in ("nk_conv1d", "nk_conv2d", "nk_conv3d"):
+    for name in ("nk_conv1d", "nk_conv2d", "nk_conv3d",
+                 "nk_conv2d_sm90"):              # and csrc/conv_sm90.cu
         fn = getattr(lib, name)
         fn.argtypes = [i, p, p, p, geo, p]       # dtype, x, w, out, geo,
         fn.restype = i                           # stream
-    fn = lib.nk_conv_dw
-    fn.argtypes = [i, p, p, p, p, geo,           # dtype, x, g, ws, out, geo
-                   i, i, p]                      # splits, chunk, stream
-    fn.restype = i
+    for name in ("nk_conv_dw", "nk_conv_dw_sm90"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, p, p, p, p, geo,       # dtype, x, g, ws, out,
+                       i, i, p]                  # geo, splits, chunk,
+        fn.restype = i                           # stream
     fn = lib.nk_ce_fwd
     fn.argtypes = [i, p, p, p, p, p,             # dtype, x, w, tgt, loss, lse
                    i, i, i, p]                   # N V D, stream

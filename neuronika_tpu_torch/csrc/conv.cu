@@ -1,5 +1,12 @@
 // Direct convolutions on Hopper, as implicit GEMMs: K12, K13, K14, K15.
 //
+// The bf16 K12 and K13 of groups 1 with channels that are multiples of 8
+// moved to csrc/conv_sm90.cu (wgmma fed by TMA im2col loads, warp
+// specialised, persistent): every ResNet-18 conv but the stem, and its
+// stride-1 dx and dw. ops/conv.py::conv_route sends by shape alone what
+// stays here: f32 (conv_ffma), grouped convs, channel counts that are not
+// multiples of 8 (the ImageNet stem's Ci = 3), K14 and K15.
+//
 // Replaces four kernels of neuronika_tpu/ops/pallas/conv.py:
 //   K12 _conv2d_nhwc_kernel  stride-1 NHWC 2-d conv with dilation and groups
 //                            (strided convs by s*s phases in JAX; also the
@@ -53,8 +60,8 @@
 //     reduction over every output pixel (200,704 at B64), so the reduction
 //     is split over CTAs (blockIdx.z), each writing an f32 partial, and a
 //     second pass sums the partials in split order: deterministic.
-// Not done yet: wgmma, TMA or cp.async stages, a 64-wide N tile for
-// Co = 64, a persistent schedule.
+// Not done here: wgmma, TMA or cp.async stages, a 64-wide N tile for
+// Co = 64, a persistent schedule (all in conv_sm90.cu, for what it takes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

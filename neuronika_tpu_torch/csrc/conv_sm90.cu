@@ -1,0 +1,504 @@
+// K12 and K13 in bf16 on Hopper: warp-specialised implicit GEMMs on wgmma,
+// with the im2col operand loaded by TMA's im2col mode.
+//
+// Replaces, for bf16 convs of groups 1 whose channels are multiples of 8
+// (TMA's 16-byte strides), two kernels of neuronika_tpu/ops/pallas/conv.py:
+//   K12 _conv2d_nhwc_kernel  a VALID NHWC 2-d conv, any dilation, stride 1
+//                            to 8 (the stride-1 input gradient runs here
+//                            too, on the padded gradient) -> nk_conv2d_sm90
+//   K13 _dw_kernel           the weight gradient of a stride-1 conv, summed
+//                            over the batch, f32     -> nk_conv_dw_sm90
+// Every other conv (f32, groups, the ImageNet stem's 3 channels, K14, K15)
+// stays on csrc/conv.cu; ops/conv.py::conv_route decides by shape alone.
+// The TPU kernels sum shifted MXU matmuls over flat VMEM windows; none of
+// that carries over.
+//
+//   forward (K12): M = output pixels (n, oh, ow), N = Co, K = (tap, 64-
+//     channel panel) steps; A(m, (t, c)) = x[n, oh sh + th dh, ow sw + tw
+//     dw, c], B((t, c), co) = w[th, tw, c, co].
+//   weight gradient (K13): M = (tap, 64-channel panel) row blocks, N = Co,
+//     K = output pixels; dw = A^T G with A as above and G (pixels, Co).
+//
+// What bounds them on the H100: at ResNet-18's and the bench's shapes a
+// conv does 100-300 operations a byte, so the bf16 peak (989 TFLOP/s).
+// The design, matmul.cu's pattern:
+//   * A's tile is one TMA im2col load: its base pixels walk the output
+//     positions in (n, oh, ow) order across rows and samples (the order of
+//     the output and of G's rows), the tap enters as the load's offsets,
+//     dilation through them, stride through the map's traversal strides;
+//     pixels past the last sample and channels past Ci arrive as zeros.
+//     Rows are 64 channels (128 bytes), 128-byte swizzled: K-major for
+//     K12's A, MN-major (the transpose bit) for K13's.
+//   * B is read in place, MN-major, by tiled maps: the weights
+//     (Co, Ci, taps) for K12, whose panels past Ci read as zeros as A's
+//     channels do; G (Co, pixels) for K13. An operand wider than 64
+//     columns is 64-column panels, LBO apart (sw128_desc_mn).
+//   * A CTA is two consumer warpgroups (wgmma m64nBNk16 into f32
+//     registers) and a producer warpgroup whose one thread keeps a ring of
+//     TMA loads in flight on mbarriers (K12 8 stages at BN 64 and 5 at
+//     128, the most that fit beside its epilogue rows; K13 6, and 4 at BN
+//     256); setmaxnreg moves the producer's registers to the consumers.
+//     The grid is persistent, one CTA an SM, work items in a fixed order,
+//     so one item's epilogue overlaps the next one's loads. BN follows Co:
+//     64 at Co <= 64, else 128 (K12) and up to 256 (K13, whose tile count
+//     sets how many SMs its one wave of splits fills).
+//   * K12: a CTA tile is 128 pixels x BN; the epilogue goes from registers
+//     through padded shared rows to 16-byte stores, rows >= M and columns
+//     >= Co masked.
+//   * K13: a CTA tile is two row blocks (one a warpgroup) x BN, over one
+//     split of the pixels (a multiple of 64, so no load crosses into the
+//     next split); each split writes an f32 partial and a second pass sums
+//     them in split order: the same bits every launch. The splits fill at
+//     most one wave of the SMs (ops/conv.py::_dw_plan_sm90).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+typedef long long ll;
+using bf16 = __nv_bfloat16;
+
+constexpr int kConsumers = 256;          // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 128;
+constexpr int kRegsProducer = 24, kRegsConsumer = 240;
+constexpr uint32_t kPanel = 64 * 128;    // 64 rows of 64 bf16: 8 KB
+constexpr int kStep = 64;                // K13: pixels a k step
+
+// A VALID 2-d conv, channels last
+struct Geo {
+  int N, H, W, Ci, Ho, Wo, Co, kh, kw, sh, sw, dh, dw;
+  int P;       // 64-channel panels, ceil(Ci / 64)
+  int M;       // output pixels N Ho Wo
+};
+
+template <int BN>
+struct FwdCfg {
+  static constexpr int kStages = BN == 64 ? 8 : 5;   // ring of TMA loads
+  static constexpr uint32_t kA = 128 * 128;           // 128 pixels x 64 ch
+  static constexpr uint32_t kStage = kA + (BN / 64) * kPanel;
+  static constexpr uint32_t kOutLd = BN * 2 + 16;     // padded row, bytes
+  static constexpr uint32_t kOut = 128 * kOutLd;
+  static constexpr size_t kSmem =
+      (size_t)kStages * kStage + kOut + 16 * kStages + 1024;
+};
+
+template <int BN>
+struct DwCfg {
+  static constexpr int kStages = BN == 256 ? 4 : 6;
+  static constexpr uint32_t kA = 2 * kPanel;          // a row block a wg
+  static constexpr uint32_t kStage = kA + (BN / 64) * kPanel;
+  static constexpr size_t kSmem =
+      (size_t)kStages * kStage + 16 * kStages + 1024;
+};
+
+__device__ __forceinline__ void pixel(const Geo& g, int m, int* n, int* oh,
+                                      int* ow) {
+  *ow = m % g.Wo;
+  const int t = m / g.Wo;
+  *oh = t % g.Ho;
+  *n = t / g.Ho;
+}
+
+// (tap, panel) step or row block j -> its channel origin and tap offsets
+__device__ __forceinline__ void tap_of(const Geo& g, int j, int* c0,
+                                       uint16_t* ow, uint16_t* oh,
+                                       int* tap) {
+  *tap = j / g.P;
+  *c0 = (j - *tap * g.P) * 64;
+  const int th = *tap / g.kw;
+  *ow = (uint16_t)((*tap - th * g.kw) * g.dw);
+  *oh = (uint16_t)(th * g.dh);
+}
+
+template <int kStages>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------------------ K12
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_sm90_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap w_map,
+                         bf16* __restrict__ out, const Geo g) {
+  using C = FwdCfg<BN>;
+  constexpr int kStages = C::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* obuf = smem + kStages * C::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(obuf + C::kOut);
+  uint64_t* empty = full + kStages;
+  const int tiles_n = (g.Co + BN - 1) / BN;
+  const int items = (g.M + 127) / 128 * tiles_n;
+  const int steps = g.kh * g.kw * g.P;
+  init_ring<kStages>(full, empty);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer warpgroup: one thread issues every load
+    regs_dec<kRegsProducer>();
+    if (threadIdx.x != kConsumers) return;
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int m0 = item / tiles_n * 128, n0 = item % tiles_n * BN;
+      int n, oh, ow;
+      pixel(g, m0, &n, &oh, &ow);
+      for (int j = 0; j < steps; ++j, ++it) {
+        const int s = it % kStages;
+        int c0, tap;
+        uint16_t tw, th;
+        tap_of(g, j, &c0, &tw, &th, &tap);
+        unsigned char* st = smem + s * C::kStage;
+        mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, C::kStage);
+        tma_load_im2col_4d(st, &x_map, full + s, c0, ow * g.sw, oh * g.sh, n,
+                           tw, th);
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          tma_load_3d(st + C::kA + b * kPanel, &w_map, full + s, n0 + 64 * b,
+                      c0, tap);
+      }
+    }
+    return;
+  }
+  // consumer warpgroups: rows 64 wg .. 64 wg + 63 of each tile
+  regs_inc<kRegsConsumer>();
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const uint32_t base = smem_u32(smem);
+  unsigned char* ob = obuf + wg * 64 * C::kOutLd;
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int m0 = item / tiles_n * 128, n0 = item % tiles_n * BN;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < steps; ++j) {
+      const int s = (it + j) % kStages;
+      mbar_wait(full + s, ((it + j) / kStages) & 1);
+      const uint32_t st = base + s * C::kStage;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_ss<0, 1>(acc, sw128_desc(st + wg * 64 * 128 + 32 * k),
+                       sw128_desc_mn(st + C::kA + k * 2048, kPanel),
+                       j > 0 || k > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      keep(acc);
+      if (j > 0) mbar_arrive(empty + (it + j - 1) % kStages);
+    }
+    wgmma_wait<0>();
+    keep(acc);
+    mbar_arrive(empty + (it + steps - 1) % kStages);
+    it += steps;
+    // acc[4 q + 2 x + e]: row 16 warp + lane / 4 + 8 x, column 8 q + 2
+    // (lane % 4) + e; through padded rows (conflict-free bf16x2 stores)
+    // to 16-byte stores along the output rows
+    const int r = warp * 16 + lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (r + 8 * x) * C::kOutLd +
+                                           (8 * q + c) * 2) =
+            __floats2bfloat162_rn(acc[4 * q + 2 * x], acc[4 * q + 2 * x + 1]);
+    named_sync(1 + wg, 128);
+    constexpr int kChunks = BN / 8;
+#pragma unroll 4
+    for (int i = threadIdx.x % 128; i < 64 * kChunks; i += 128) {
+      const int row = i / kChunks, ck = i % kChunks;
+      const int m = m0 + wg * 64 + row, col = n0 + 8 * ck;
+      if (m < g.M && col < g.Co)
+        *reinterpret_cast<uint4*>(out + (ll)m * g.Co + col) =
+            *reinterpret_cast<const uint4*>(ob + row * C::kOutLd + ck * 16);
+    }
+    named_sync(1 + wg, 128);
+  }
+}
+
+// ------------------------------------------------------------------ K13
+// item = (split, row-block pair, column tile), splits slowest; split sp
+// reduces pixels [sp chunk, min(M, (sp + 1) chunk)) into part[sp]
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_sm90_dw_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap g_map,
+                        float* __restrict__ part, const Geo g, int splits,
+                        int chunk) {
+  using C = DwCfg<BN>;
+  constexpr int kStages = C::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * C::kStage);
+  uint64_t* empty = full + kStages;
+  const int blocks = g.kh * g.kw * g.P;            // row blocks of 64
+  const int tiles_n = (g.Co + BN - 1) / BN;
+  const int tiles = (blocks + 1) / 2 * tiles_n;
+  const int items = tiles * splits;
+  init_ring<kStages>(full, empty);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    regs_dec<kRegsProducer>();
+    if (threadIdx.x != kConsumers) return;
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int sp = item / tiles, t = item % tiles;
+      const int rb = t / tiles_n * 2, n0 = t % tiles_n * BN;
+      const int k0 = sp * chunk, k1 = min(g.M, k0 + chunk);
+      int c0[2], tap;
+      uint16_t tw[2], th[2];
+      for (int w = 0; w < 2; ++w)   // a missing second block loads the first
+        tap_of(g, min(rb + w, blocks - 1), c0 + w, tw + w, th + w, &tap);
+      for (int m = k0; m < k1; m += kStep, ++it) {
+        const int s = it % kStages;
+        int n, oh, ow;
+        pixel(g, m, &n, &oh, &ow);
+        unsigned char* st = smem + s * C::kStage;
+        mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, C::kStage);
+        for (int w = 0; w < 2; ++w)
+          tma_load_im2col_4d(st + w * kPanel, &x_map, full + s, c0[w], ow, oh,
+                             n, tw[w], th[w]);
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          tma_load_3d(st + C::kA + b * kPanel, &g_map, full + s, n0 + 64 * b,
+                      m, 0);
+      }
+    }
+    return;
+  }
+  regs_inc<kRegsConsumer>();
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const uint32_t base = smem_u32(smem);
+  const size_t rows = (size_t)g.kh * g.kw * g.Ci;
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int sp = item / tiles, t = item % tiles;
+    const int rb = t / tiles_n * 2 + wg, n0 = t % tiles_n * BN;
+    const int k0 = sp * chunk, k1 = min(g.M, k0 + chunk);
+    const int steps = (k1 - k0 + kStep - 1) / kStep;
+    const bool mine = rb < blocks;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    // a warpgroup without a row block still frees each stage, after its
+    // full barrier, so that every stage sees both warpgroups' arrivals
+    for (int j = 0; j < steps; ++j) {
+      const int s = (it + j) % kStages;
+      mbar_wait(full + s, ((it + j) / kStages) & 1);
+      if (!mine) {
+        mbar_arrive(empty + s);
+        continue;
+      }
+      const uint32_t st = base + s * C::kStage;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_ss<1, 1>(acc, sw128_desc(st + wg * kPanel + k * 2048),
+                       sw128_desc_mn(st + C::kA + k * 2048, kPanel),
+                       j > 0 || k > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      keep(acc);
+      if (j > 0) mbar_arrive(empty + (it + j - 1) % kStages);
+    }
+    if (mine) {
+      wgmma_wait<0>();
+      keep(acc);
+      mbar_arrive(empty + (it + steps - 1) % kStages);
+      int c0, tap;
+      uint16_t tw, th;
+      tap_of(g, rb, &c0, &tw, &th, &tap);
+      float* dst = part + (size_t)sp * rows * g.Co;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int ch = c0 + warp * 16 + lane / 4 + 8 * x;
+        if (ch >= g.Ci) continue;
+        float* row = dst + ((size_t)tap * g.Ci + ch) * g.Co;
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q) {
+          const int col = n0 + 8 * q + 2 * (lane % 4);
+          if (col < g.Co)
+            *reinterpret_cast<float2*>(row + col) =
+                make_float2(acc[4 * q + 2 * x], acc[4 * q + 2 * x + 1]);
+        }
+      }
+    }
+    it += steps;
+  }
+}
+
+// K13's second pass: out[i] = the splits' partials at i, added in split
+// order (n4 float4s)
+__global__ void conv_sm90_dw_reduce(const float4* __restrict__ ws,
+                                    float4* __restrict__ out, ll n4,
+                                    int splits) {
+  for (ll i = blockIdx.x * (ll)blockDim.x + threadIdx.x; i < n4;
+       i += (ll)gridDim.x * blockDim.x) {
+    float4 s = ws[i];
+    for (int z = 1; z < splits; ++z) {
+      const float4 v = ws[z * n4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out[i] = s;
+  }
+}
+
+// geo: N D H W Ci  Do Ho Wo Co  kd kh kw  sd sh sw  dd dh dw  groups, as
+// csrc/conv.cu reads it. Returns false unless the conv is 2-d, groups 1,
+// every size positive, the channels multiples of 8, the strides at most 8
+// (TMA's traversal strides), (k - 1) d at most 128 (the im2col corner
+// range), every output window inside the input and the pixels within int.
+bool parse(const int* a, Geo& g) {
+  for (int i = 0; i < 19; ++i)
+    if (a[i] < 1) return false;
+  if (a[1] != 1 || a[5] != 1 || a[9] != 1 || a[18] != 1) return false;
+  g = Geo{a[0], a[2], a[3], a[4], a[6], a[7], a[8], a[10], a[11],
+          a[13], a[14], a[16], a[17], 0, 0};
+  if (g.Ci % 8 || g.Co % 8 || g.sh > 8 || g.sw > 8 ||
+      (g.kh - 1) * (ll)g.dh > 128 || (g.kw - 1) * (ll)g.dw > 128)
+    return false;
+  if ((ll)(g.Ho - 1) * g.sh + (ll)g.dh * (g.kh - 1) >= g.H ||
+      (ll)(g.Wo - 1) * g.sw + (ll)g.dw * (g.kw - 1) >= g.W)
+    return false;
+  const ll M = (ll)g.N * g.Ho * g.Wo;
+  if (M > INT32_MAX - 128) return false;
+  g.M = (int)M;
+  g.P = (g.Ci + 63) / 64;
+  return true;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// each kernel's shared-memory allowance, set once per device; the SMs
+template <auto kernel>
+cudaError_t prepare(size_t smem, int* sms) {
+  static int known[64];  // SMs of each device prepared so far
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 64 && known[dev]) {
+    *sms = known[dev];
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!err) err = sm_count(sms);
+  if (!err && dev < 64) known[dev] = *sms;
+  return err;
+}
+
+template <int BN>
+cudaError_t fwd(const Geo& g, const bf16* x, const bf16* w, bf16* out,
+                cudaStream_t stream) {
+  CUtensorMap x_map, w_map;
+  cudaError_t err = make_im2col_map(&x_map, x, g.N, g.H, g.W, g.Ci, g.kh,
+                                    g.kw, g.dh, g.dw, g.sh, g.sw, 64, 128);
+  if (err) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)g.Co, (cuuint64_t)g.Ci,
+                              (cuuint64_t)g.kh * g.kw};
+  const cuuint64_t strides[2] = {(cuuint64_t)g.Co * 2,
+                                 (cuuint64_t)g.Co * 2 * g.Ci};
+  const cuuint32_t box[3] = {64, 64, 1};
+  err = make_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, dims, strides,
+                 box);
+  int sms = 0;
+  if (!err)
+    err = prepare<conv_sm90_fwd_kernel<BN>>(FwdCfg<BN>::kSmem, &sms);
+  if (err) return err;
+  const ll items = (ll)((g.M + 127) / 128) * ((g.Co + BN - 1) / BN);
+  conv_sm90_fwd_kernel<BN><<<(int)(items < sms ? items : sms), kThreads,
+                             FwdCfg<BN>::kSmem, stream>>>(x_map, w_map, out,
+                                                          g);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t dw(const Geo& g, const bf16* x, const bf16* gout, float* part,
+               int splits, int chunk, cudaStream_t stream) {
+  CUtensorMap x_map, g_map;
+  cudaError_t err = make_im2col_map(&x_map, x, g.N, g.H, g.W, g.Ci, g.kh,
+                                    g.kw, g.dh, g.dw, 1, 1, 64, kStep);
+  if (err) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)g.Co, (cuuint64_t)g.M, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)g.Co * 2,
+                                 (cuuint64_t)g.Co * 2 * g.M};
+  const cuuint32_t box[3] = {64, kStep, 1};
+  err = make_map(&g_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, gout, dims,
+                 strides, box);
+  int sms = 0;
+  if (!err) err = prepare<conv_sm90_dw_kernel<BN>>(DwCfg<BN>::kSmem, &sms);
+  if (err) return err;
+  const ll blocks = (ll)g.kh * g.kw * g.P;
+  const ll items = (blocks + 1) / 2 * ((g.Co + BN - 1) / BN) * splits;
+  conv_sm90_dw_kernel<BN><<<(int)(items < sms ? items : sms), kThreads,
+                            DwCfg<BN>::kSmem, stream>>>(x_map, g_map, part, g,
+                                                        splits, chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K12: x (N, H, W, Ci) * w (kh, kw, Ci, Co) -> out (N, Ho, Wo, Co), all
+// contiguous and 16-byte aligned, dtype 1 (bf16: nk_conv2d's signature);
+// geo as `parse` reads it.
+extern "C" int nk_conv2d_sm90(int dtype, const void* x, const void* w,
+                              void* out, const int* geo, void* stream) {
+  Geo g;
+  if (dtype != 1 || !parse(geo, g) || !aligned16(x) || !aligned16(w) ||
+      !aligned16(out))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  return g.Co <= 64 ? fwd<64>(g, xb, wb, ob, s) : fwd<128>(g, xb, wb, ob, s);
+}
+
+// K13: dw (kh, kw, Ci, Co) f32 of the stride-1 conv `geo` from x and the
+// output gradient gout (N, Ho, Wo, Co), dtype 1 (bf16: nk_conv_dw's
+// signature). The pixels are cut into `splits` ranges of `chunk` (a
+// multiple of 64, every range non-empty); with more than one split each
+// writes its partial to ws (splits, kh kw Ci, Co) f32 and a second pass
+// sums them into out in split order.
+extern "C" int nk_conv_dw_sm90(int dtype, const void* x, const void* gout,
+                               void* ws, void* out, const int* geo,
+                               int splits, int chunk, void* stream) {
+  Geo g;
+  if (dtype != 1 || !parse(geo, g) || geo[13] != 1 || geo[14] != 1 ||
+      splits < 1 || chunk < 1 || chunk % kStep ||
+      (ll)(splits - 1) * chunk >= g.M ||
+      (ll)splits * chunk < g.M || !aligned16(x) || !aligned16(gout) ||
+      !aligned16(out) || (splits > 1 && !aligned16(ws)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(splits > 1 ? ws : out);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(gout);
+  cudaError_t err =
+      g.Co <= 64    ? dw<64>(g, xb, gb, part, splits, chunk, s)
+      : g.Co <= 128 ? dw<128>(g, xb, gb, part, splits, chunk, s)
+                    : dw<256>(g, xb, gb, part, splits, chunk, s);
+  if (err || splits == 1) return err;
+  const ll n4 = (ll)g.kh * g.kw * g.Ci * g.Co / 4;
+  const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
+  conv_sm90_dw_reduce<<<blocks, 256, 0, s>>>(
+      static_cast<const float4*>(ws), static_cast<float4*>(out), n4, splits);
+  return cudaGetLastError();
+}

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the warp-specialised
-// kernels of flash_attention_qkv.cu, flash_attention.cu and matmul.cu:
-// mbarriers, TMA tile loads (3-d and 4-d maps), bulk copies, wgmma
-// descriptors and products (bf16 and TF32), register reallocation and
-// named barriers; on the host, TMA map encoding and the SM count. Plain
-// C++ and PTX: no CUTLASS, so the source builds in seconds.
+// kernels of flash_attention_qkv.cu, flash_attention.cu, matmul.cu and
+// conv_sm90.cu: mbarriers, TMA tile loads (3-d and 4-d maps) and im2col
+// loads, bulk copies, wgmma descriptors and products (bf16 and TF32),
+// register reallocation and named barriers; on the host, TMA map encoding
+// (tiled and im2col) and the SM count. Plain C++ and PTX: no CUTLASS, so
+// the source builds in seconds.
 //
 // Shared-memory tiles are kept in the layout that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: 64 bf16 columns (128 bytes) a row, rows
@@ -98,6 +99,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
+// one column of an im2col map over an NHWC tensor (make_im2col_map): the
+// map's pixels-per-column output pixels in (n, h, w) order from the base
+// pixel at input coordinates (w, h) of sample n, each as the map's
+// channels from channel c of the input pixel (w + ow, h + oh), the tap's
+// offsets; pixels past the last sample and channels past C read as zeros
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst, const void* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int h, int n,
+                                                   uint16_t ow, uint16_t oh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier"
+      "::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h), "r"(n), "h"(ow), "h"(oh)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -186,10 +204,19 @@ __device__ __forceinline__ void fence_async_smem() {
 // row for each k16 slice; SBO 1024 bytes is the stride of 8-row groups.
 // MN-major (the output axis contiguous, a transposed operand): each k16
 // slice is 16 rows, 2048 bytes on; SBO is again the stride of 8 rows along
-// k, and LBO that of 64-column blocks along m/n (unused here: every
-// MN-major product is at most 64 wide).
+// k, and LBO that of 64-column blocks along m/n (unused here: see
+// sw128_desc_mn for wider products).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// An MN-major operand wider than 64: its 64-column blocks (each rows of
+// 128 bytes, 8-row groups 1024 bytes apart) lie `lbo` bytes apart
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr,
+                                                  uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -275,6 +302,56 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// the same at N = 256 (d: 64 x 256 f32, 128 values a thread)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
@@ -382,6 +459,64 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
   for (int i = 0; i < N; ++i) elem[i] = 1;
   const CUresult r = enc(map, type, N, const_cast<void*>(base), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// cuTensorMapEncodeIm2col, found as cuTensorMapEncodeTiled is
+typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const int*, const int*,
+                                 cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeIm2col encoder_im2col() {
+  static const EncodeIm2col fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeIm2col", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &f,
+                                              cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeIm2col>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 NHWC tensor (N, H, W, C) as an im2col map for a VALID conv with
+// taps (kh, kw), dilation (dh, dw) and stride (sh, sw): a load's base
+// pixels walk the output positions of each sample in (h, w) order, w
+// fastest, stepping by the stride (the bounding box runs from 0 to the
+// last base position, dim - 1 - (k - 1) d, the rank-4 corner range being
+// [-128, 127]); each column is `pixels` rows of `channels` (<= 64: one
+// 128-byte row each) with 128-byte swizzle. Corners and strides are given
+// innermost first, as the dims.
+inline cudaError_t make_im2col_map(CUtensorMap* map, const void* base, int N,
+                                   int H, int W, int C, int kh, int kw,
+                                   int dh, int dw, int sh, int sw,
+                                   int channels, int pixels) {
+  const EncodeIm2col enc = encoder_im2col();
+  if (!enc) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint64_t row = (cuuint64_t)C * 2;
+  const cuuint64_t strides[3] = {row, row * W, row * W * H};
+  const int lower[2] = {0, 0};
+  const int upper[2] = {-(kw - 1) * dw, -(kh - 1) * dh};
+  const cuuint32_t elem[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(base), dims, strides, lower, upper,
+                         (cuuint32_t)channels, (cuuint32_t)pixels, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

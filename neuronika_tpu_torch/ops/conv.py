@@ -12,12 +12,17 @@ Co), VALID (a caller pads first). The kernel wrappers:
                         strided 1-d conv runs on K12 as a (1, L) image;
   `conv3d_direct_ndhwc` K15: x (N, D, H, W, Ci) * w (kd, kh, kw, Ci, Co),
                         stride 1.
-For CUDA tensors each launches its kernel of `csrc/conv.cu` (FFMA for f32,
-mma.sync for bf16, f32 accumulation, the output in x's dtype) and adds one
-to its `launches`; other tensors take the plain version beside it, an
-im2col built from strided views and one f32 product, rounded once. The
-block-size and `interpret` arguments of the JAX functions size the TPU's
-VMEM blocks and are accepted and ignored.
+For CUDA tensors each launches a kernel and adds one to its `launches`;
+other tensors take the plain version beside it, an im2col built from
+strided views and one f32 product, rounded once. `conv_route` picks the
+kernel of a K12 or K13 call by its shape: the Hopper kernels of
+`csrc/conv_sm90.cu` (wgmma fed by TMA im2col loads; bf16, groups 1,
+channels multiples of 8), which also add one to the wrapper's
+`sm90_launches`, or `csrc/conv.cu`'s (FFMA for f32, mma.sync for bf16),
+which run K14, K15 and every other K12 and K13 call. Both accumulate in
+f32 and give the output in x's dtype. The block-size and `interpret`
+arguments of the JAX functions size the TPU's VMEM blocks and are
+accepted and ignored.
 
 Around them: `conv2d_input_grad_nhwc`, the stride-1 input gradient on
 K12; the NCHW facade and gradients (`conv2d_direct`,
@@ -48,6 +53,11 @@ _INT_MAX = 2 ** 31 - 1
 _SPLIT_MIN = 1024
 _TARGET_CTAS = 264
 _TILE = 128
+# the Hopper K13: pixels a k step, and at least _SM90_MIN_STEPS steps a
+# split, the splits filling at most one wave of the card's SMs
+_SMS = 132
+_SM90_STEP = 64
+_SM90_MIN_STEPS = 8
 
 
 def _out_len(n, k, s, d):
@@ -120,6 +130,65 @@ def conv_dw_reference(x, g, ksize, dilation):
     return dw.reshape(*ksize, ci, co)
 
 
+def conv_route(kind: str, dtype, ci: int, co: int, groups: int = 1,
+               stride=(1, 1), dilation=(1, 1), ksize=(1, 1)) -> str:
+    """The kernel that runs a K12 call ("fwd": a 2-d conv, or the stride-1
+    input gradient, which is one) or a K13 call ("dw": the weight gradient
+    of a stride-1 2-d conv) on the card, by shape alone, before launch:
+      "sm90"      `csrc/conv_sm90.cu`, the Hopper kernels: bf16, groups 1,
+                  Ci and Co multiples of 8 (TMA's rows are multiples of 16
+                  bytes), strides at most 8 (the im2col map's traversal
+                  strides), (k - 1) * dilation at most 128 on each axis
+                  (its corner range); any dilation. Every stride-1 conv,
+                  dx and dw of ResNet-18, and its strided 3x3 and 1x1
+                  convs;
+      "conv_mma"  `csrc/conv.cu`'s mma.sync kernel: every other bf16 call
+                  (groups; the ImageNet stem, Ci = 3; channel counts not
+                  multiples of 8);
+      "conv_ffma" `csrc/conv.cu`'s FFMA kernel: f32.
+    K14 and K15 always run on `csrc/conv.cu`. Not a fallback: a failure of
+    the chosen kernel raises."""
+    if kind not in ("fwd", "dw"):
+        raise ValueError(f"kind {kind!r}: fwd or dw")
+    if dtype == torch.float32:
+        return "conv_ffma"
+    sm90 = (dtype == torch.bfloat16 and groups == 1 and ci % 8 == 0
+            and co % 8 == 0 and max(stride) <= 8
+            and (kind == "fwd" or tuple(stride) == (1, 1))
+            and all((k - 1) * d <= 128 for k, d in zip(ksize, dilation)))
+    return "sm90" if sm90 else "conv_mma"
+
+
+def _dw_plan_sm90(taps, ci, co, pixels):
+    """(splits, pixels a split) for the Hopper K13: its tiles are two
+    64-channel row blocks of one tap each by 64 (Co <= 64), 128 (Co <=
+    128) or 256 columns;
+    the pixels are cut into runs of whole 64-pixel k steps, at least
+    _SM90_MIN_STEPS each, so that tiles x splits fill at most one wave of
+    the _SMS SMs (one split when the tiles alone fill it)."""
+    bn = 64 if co <= 64 else 128 if co <= 128 else 256
+    tiles = -(-(taps * -(-ci // 64)) // 2) * -(-co // bn)
+    steps = -(-pixels // _SM90_STEP)
+    splits = max(1, min(_SMS // tiles, steps // _SM90_MIN_STEPS))
+    per = -(-steps // splits)
+    return -(-steps // per), per * _SM90_STEP
+
+
+def dw_plan(kh, kw, ci, co, pixels, dtype, dilation=(1, 1)):
+    """(route, splits, pixels a split) of a K13 call: `conv_route`'s choice
+    and that kernel's cut of the pixel reduction."""
+    route = conv_route("dw", dtype, ci, co, dilation=dilation,
+                       ksize=(kh, kw))
+    if route == "sm90":
+        return (route, *_dw_plan_sm90(kh * kw, ci, co, pixels))
+    return (route, *_dw_splits(kh * kw * ci, co, pixels))
+
+
+def _aligned(t):
+    """t, or a copy of it where its data does not start on 16 bytes."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _c_geo(x, w_taps, out, co, stride, dilation, groups):
     """The C entry points' geometry (rank 3, unit leading dims padded in)."""
     lead = 3 - len(out)
@@ -143,11 +212,13 @@ def _card_operands(x, w, what):
 
 def _launch(fn, cname, x, w, stride, dilation, groups, out):
     """Launch forward kernel `cname` of x * w into a new (N, *out, Co)
-    tensor; adds one to fn.launches."""
+    tensor; adds one to fn.launches (and to fn.sm90_launches for the
+    Hopper K12)."""
     xc, wc, ct = _card_operands(x, w, fn.__name__)
+    xc, wc = _aligned(xc), _aligned(wc)
     co = w.shape[-1]
     m = x.shape[0] * math.prod(out)
-    if m > _INT_MAX or math.prod(w.shape[:-1]) * groups > _INT_MAX:
+    if m > _INT_MAX - _TILE or math.prod(w.shape[:-1]) * groups > _INT_MAX:
         raise ValueError(f"{fn.__name__}: {m} output pixels exceed the "
                          f"kernel's int32 indexing")
     y = torch.empty((x.shape[0], *out, co), dtype=ct, device=x.device)
@@ -160,9 +231,11 @@ def _launch(fn, cname, x, w, stride, dilation, groups, out):
             _c_geo(x, w.shape[:r], out, co, stride, dilation, groups),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"{fn.__name__} kernel launch ({cname}) failed: "
+                           f"cudaError {err}")
     fn.launches += 1
+    if cname == "nk_conv2d_sm90":
+        fn.sm90_launches += 1
     return y if ct == x.dtype else y.to(x.dtype)
 
 
@@ -171,14 +244,19 @@ def conv2d_direct_nhwc(x, w, dilation=(1, 1), stride=(1, 1), *,
                        block_co: int = 256, interpret: bool = False):
     """K12: x (N, H, W, Ci) * w (kh, kw, Ci/groups, Co), VALID -> (N, Ho,
     Wo, Co) in x's dtype, f32 accumulation. Strided and dilated at once,
-    in one launch. CUDA tensors: the kernel; others: `conv_nd_reference`."""
+    in one launch. CUDA tensors: the kernel `conv_route` picks; others:
+    `conv_nd_reference`."""
     del block_h, block_co, interpret
     stride, dilation = _as_tuple(stride, 2), _as_tuple(dilation, 2)
     out = _check(x, w, stride, dilation, groups)
     if x.device.type != "cuda":
         return conv_nd_reference(x, w, stride, dilation, groups)
-    return _launch(conv2d_direct_nhwc, "nk_conv2d", x, w, stride, dilation,
-                   groups, out)
+    sm90 = conv_route("fwd", torch.promote_types(x.dtype, w.dtype),
+                      x.shape[-1], w.shape[-1], groups, stride, dilation,
+                      w.shape[:2]) == "sm90"
+    return _launch(conv2d_direct_nhwc,
+                   "nk_conv2d_sm90" if sm90 else "nk_conv2d", x, w, stride,
+                   dilation, groups, out)
 
 
 def conv1d_direct_nwc(x, w, dilation=1, stride=1, *, out_ncw=False,
@@ -236,9 +314,10 @@ def conv2d_dw_nhwc(x, g, kh: int, kw: int, dilation=(1, 1), *,
                    interpret: bool = False):
     """K13: d(kernel) of the stride-1 VALID NHWC conv, x (N, H, W, Ci) and
     the output gradient g (N, Ho, Wo, Co) -> (kh, kw, Ci, Co) f32. CUDA
-    tensors: the kernel (split over the pixels, partials summed in a fixed
-    order), adding one to `conv2d_dw_nhwc.launches`; others:
-    `conv_dw_reference`."""
+    tensors: the kernel `conv_route` picks (split over the pixels as
+    `dw_plan` says, partials summed in a fixed order), adding one to
+    `conv2d_dw_nhwc.launches` (and to `sm90_launches` on the Hopper
+    kernel); others: `conv_dw_reference`."""
     del block_ci, block_co, interpret
     dh, dw_ = _as_tuple(dilation, 2)
     if x.dim() != 4 or g.dim() != 4 or x.shape[0] != g.shape[0]:
@@ -252,33 +331,41 @@ def conv2d_dw_nhwc(x, g, kh: int, kw: int, dilation=(1, 1), *,
                          f"conv (dilation {dh, dw_}) of x {tuple(x.shape)}")
     if x.device.type != "cuda":
         return conv_dw_reference(x, g, (kh, kw), (dh, dw_))
-    xc, gc, ct = _card_operands(x, g, "conv2d_dw_nhwc")
+    fn = conv2d_dw_nhwc
+    xc, gc, ct = _card_operands(x, g, fn.__name__)
     pixels, rows = N * Ho * Wo, kh * kw * Ci
-    if pixels > _INT_MAX or rows > _INT_MAX:
+    if pixels > _INT_MAX - _TILE or rows > _INT_MAX:
         raise ValueError("conv2d_dw_nhwc: sizes exceed the kernel's int32 "
                          "indexing")
+    route, splits, chunk = dw_plan(kh, kw, Ci, Co, pixels, ct,
+                                   (dh, dw_))
     out = torch.empty((kh, kw, Ci, Co), dtype=torch.float32, device=x.device)
-    splits, chunk = _dw_splits(rows, Co, pixels)
     ws = (torch.empty((splits, rows, Co), dtype=torch.float32,
                       device=x.device) if splits > 1 else out)
+    geo = _c_geo(x, (kh, kw), (Ho, Wo), Co, (1, 1), (dh, dw_), 1)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     from .._build import load_library
 
+    xc, gc = _aligned(xc), _aligned(gc)
     with torch.cuda.device(x.device):
-        err = load_library().nk_conv_dw(
+        err = getattr(load_library(),
+                      "nk_conv_dw_sm90" if route == "sm90" else "nk_conv_dw")(
             _DTYPES[ct], xc.data_ptr(), gc.data_ptr(), ws.data_ptr(),
-            out.data_ptr(),
-            _c_geo(x, (kh, kw), (Ho, Wo), Co, (1, 1), (dh, dw_), 1),
-            splits, chunk, torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), geo, splits, chunk, stream)
     if err:
-        raise RuntimeError(f"conv2d_dw_nhwc kernel launch failed: cudaError "
-                           f"{err}")
-    conv2d_dw_nhwc.launches += 1
+        raise RuntimeError(f"conv2d_dw_nhwc ({route}) kernel launch failed: "
+                           f"cudaError {err}")
+    fn.launches += 1
+    fn.sm90_launches += route == "sm90"
     return out
 
 
 for _fn in (conv2d_direct_nhwc, conv2d_dw_nhwc, conv1d_direct_nwc,
             conv3d_direct_ndhwc):
     _fn.launches = 0
+# calls of K12 and K13 that ran the Hopper kernels (conv_route "sm90")
+conv2d_direct_nhwc.sm90_launches = 0
+conv2d_dw_nhwc.sm90_launches = 0
 
 KERNELS = (conv2d_direct_nhwc, conv2d_dw_nhwc, conv1d_direct_nwc,
            conv3d_direct_ndhwc)

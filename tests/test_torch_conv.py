@@ -2,8 +2,10 @@
 JAX's Pallas kernels run in interpret mode (as tests/test_pallas.py runs
 them on the CPU), the NCHW facade and the composed stride-1 gradients,
 `conv2d_pallas_nhwc` with its gradients against `jax.vjp` of JAX's, the
-route table and SAME padding; and, on the card, each CUDA kernel against
-its plain version. Inputs come from numpy seeds; sizes stay small (H, W <=
+route table, the kernel route of every ResNet-18 conv, the Hopper K13's
+split plan and SAME padding; and, on the card, each CUDA kernel against
+its plain version (the Hopper K12 and K13 at ResNet-18's stage shapes and
+ragged ones too). Inputs come from numpy seeds; sizes stay small (H, W <=
 16, channels <= 16) so that JAX's interpret mode stays quick. f32 bounds:
 TOL (1e-5) of the largest |entry| of the reference."""
 
@@ -15,6 +17,7 @@ import torch
 
 from neuronika_tpu.ops.pallas import conv as JC
 from neuronika_tpu_torch.config import config
+from neuronika_tpu_torch.models import resnet as TR
 from neuronika_tpu_torch.ops import conv as TC
 from tests.conftest import TOL
 
@@ -264,6 +267,85 @@ def test_wrappers_refuse_bad_arguments(call, match):
         call()
 
 
+def _resnet18_convs():
+    """(name, Ci, Co, k, stride) of every conv of ResNet-18's forward
+    (ImageNet stem), in `conv_strides` order."""
+    cfg = TR.ResNetConfig(stem="imagenet")
+    convs, c_in = [("stem", 3, cfg.width, 7, 2)], cfg.width
+    for si, n_blocks in enumerate(cfg.stages):
+        c_out = cfg.width * 2 ** si
+        for bi in range(n_blocks):
+            s = 2 if (bi == 0 and si > 0) else 1
+            convs += [(f"s{si}b{bi}w1", c_in, c_out, 3, s),
+                      (f"s{si}b{bi}w2", c_out, c_out, 3, 1)]
+            if s != 1 or c_in != c_out:
+                convs.append((f"s{si}b{bi}proj", c_in, c_out, 1, s))
+            c_in = c_out
+    assert [c[-1] for c in convs] == TR.conv_strides(cfg)
+    return convs
+
+
+@pytest.mark.parametrize("conv", _resnet18_convs(), ids=lambda c: c[0])
+def test_conv_route_of_resnet18(conv):
+    """bf16: every conv but the stem (Ci = 3) on the Hopper kernel, and so
+    every stride-1 conv's dx (K12 on the flipped, io-swapped kernel) and dw
+    (K13); f32 on the FFMA kernel."""
+    _, ci, co, k, s = conv
+    bf = torch.bfloat16
+    want = "conv_mma" if ci == 3 else "sm90"
+    assert TC.conv_route("fwd", bf, ci, co, 1, (s, s), (1, 1),
+                         (k, k)) == want
+    assert TC.conv_route("fwd", torch.float32, ci, co, 1, (s, s), (1, 1),
+                         (k, k)) == "conv_ffma"
+    if s == 1:
+        assert TC.conv_route("fwd", bf, co, ci, 1, (1, 1), (1, 1),
+                             (k, k)) == "sm90"
+        assert TC.conv_route("dw", bf, ci, co, ksize=(k, k)) == "sm90"
+
+
+@pytest.mark.parametrize("args,want", [
+    (("fwd", torch.bfloat16, 64, 64, 2), "conv_mma"),           # groups
+    (("fwd", torch.bfloat16, 12, 64), "conv_mma"),              # Ci % 8
+    (("fwd", torch.bfloat16, 64, 20), "conv_mma"),              # Co % 8
+    (("fwd", torch.bfloat16, 200, 72), "sm90"),                 # tails
+    (("dw", torch.bfloat16, 200, 72), "sm90"),
+    (("dw", torch.bfloat16, 3, 64), "conv_mma"),
+    (("dw", torch.float32, 64, 64), "conv_ffma"),
+    (("fwd", torch.bfloat16, 64, 64, 1, (1, 1), (2, 2), (3, 3)), "sm90"),
+    (("fwd", torch.bfloat16, 64, 64, 1, (3, 2)), "sm90"),
+    (("fwd", torch.bfloat16, 64, 64, 1, (9, 1)), "conv_mma"),   # stride > 8
+    (("fwd", torch.bfloat16, 64, 64, 1, (1, 1), (65, 1), (3, 1)),
+     "conv_mma"),                                               # corner
+    (("dw", torch.bfloat16, 64, 64, 1, (2, 2)), "conv_mma"),
+    (("fwd", torch.float16, 64, 64), "conv_mma"),
+], ids=["groups", "ci12", "co20", "tails", "dw-tails", "dw-ci3", "dw-f32",
+        "dil2", "s3x2", "s9", "dil65", "dw-s2", "f16"])
+def test_conv_route_by_shape(args, want):
+    assert TC.conv_route(*args) == want
+
+
+@pytest.mark.parametrize("taps,ci,co,pixels", [
+    (9, 64, 64, 64 * 56 * 56), (9, 128, 128, 64 * 28 * 28),
+    (9, 256, 256, 64 * 14 * 14), (9, 512, 512, 64 * 7 * 7),
+    (9, 256, 256, 64 * 56 * 56), (1, 64, 128, 4 * 28 * 28),
+    (9, 8, 16, 2 * 9 * 8), (6, 200, 72, 3 * 11 * 13), (9, 16, 24, 1),
+    (1, 8, 8, 100_003)])
+def test_dw_plan_covers_every_pixel_once(taps, ci, co, pixels):
+    """The Hopper K13's splits: runs of whole 64-pixel k steps, every one
+    non-empty, that cover the pixels once and in order; tiles x splits at
+    most one wave of 132 SMs, unless the tiles alone exceed it."""
+    splits, chunk = TC._dw_plan_sm90(taps, ci, co, pixels)
+    assert chunk % 64 == 0 and splits >= 1
+    runs = [(s * chunk, min(pixels, (s + 1) * chunk)) for s in range(splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == pixels
+    assert all(a < b for a, b in runs)
+    assert all(b == a2 for (_, b), (a2, _) in zip(runs, runs[1:]))
+    tiles = -(-(taps * -(-ci // 64)) // 2) * -(-co // (
+        64 if co <= 64 else 128 if co <= 128 else 256))
+    assert tiles * splits <= 132 or splits == 1
+    assert TC.dw_plan(3, 3, ci, co, pixels, torch.bfloat16)[0] == "sm90"
+
+
 def test_counters_do_not_move_on_the_cpu():
     before = [k.launches for k in TC.KERNELS]
     x = torch.from_numpy(_randn(1, 8, 8, 4))
@@ -272,6 +354,8 @@ def test_counters_do_not_move_on_the_cpu():
     TC.conv1d_direct_nwc(x[0], torch.from_numpy(_randn(3, 4, 4)))
     TC.conv3d_direct_ndhwc(x[None], torch.from_numpy(_randn(1, 3, 3, 4, 4)))
     assert [k.launches for k in TC.KERNELS] == before
+    assert TC.conv2d_direct_nhwc.sm90_launches == 0
+    assert TC.conv2d_dw_nhwc.sm90_launches == 0
 
 
 # --------------------------------------------------------------------------
@@ -382,3 +466,98 @@ def test_kernel_wrappers_refuse_what_they_cannot_run(cuda):
                                                     dtype=torch.half))
     with pytest.raises(ValueError, match="operands on"):
         TC.conv2d_direct_nhwc(x, torch.zeros(3, 3, 4, 4))
+
+
+# the Hopper K12 (bf16): (x shape, w shape, stride, dilation); ResNet-18's
+# four stride-1 stage convs at batch 2 (padded input), stage 1's dx (the
+# padded gradient), dilation 2, M not a multiple of 128 with tiles that
+# span samples (5 x 5 outputs), Ci and Co tails, non-square taps with
+# dilation (2, 1), ResNet's strided 3x3 and 1x1 convs and stride (3, 2)
+SM90_K12_CASES = {
+    "stage1": ((2, 58, 58, 64), (3, 3, 64, 64), (1, 1), (1, 1)),
+    "stage2": ((2, 30, 30, 128), (3, 3, 128, 128), (1, 1), (1, 1)),
+    "stage3": ((2, 16, 16, 256), (3, 3, 256, 256), (1, 1), (1, 1)),
+    "stage4": ((2, 9, 9, 512), (3, 3, 512, 512), (1, 1), (1, 1)),
+    "stage1-dx": ((2, 60, 60, 64), (3, 3, 64, 64), (1, 1), (1, 1)),
+    "dil2": ((2, 14, 15, 64), (3, 3, 64, 128), (1, 1), (2, 2)),
+    "samples": ((7, 7, 7, 32), (3, 3, 32, 64), (1, 1), (1, 1)),
+    "tails": ((3, 11, 13, 200), (3, 3, 200, 200), (1, 1), (1, 1)),
+    "k3x2-dil2x1": ((2, 13, 11, 24), (3, 2, 24, 136), (1, 1), (2, 1)),
+    "s2": ((2, 57, 57, 64), (3, 3, 64, 128), (2, 2), (1, 1)),
+    "1x1-s2": ((2, 56, 56, 64), (1, 1, 64, 128), (2, 2), (1, 1)),
+    "s3x2": ((2, 16, 15, 16), (3, 3, 16, 8), (3, 2), (1, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SM90_K12_CASES))
+def test_sm90_conv2d_matches_plain_on_gpu(cuda, name):
+    xs, ws, stride, dil = SM90_K12_CASES[name]
+    x = torch.from_numpy(_randn(*xs)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(_randn(*ws, seed=1, scale=(ws[0] * ws[1] * ws[2])
+                                ** -0.5)).to(cuda, torch.bfloat16)
+    assert TC.conv_route("fwd", torch.bfloat16, xs[-1], ws[-1], 1, stride,
+                         dil, ws[:2]) == "sm90"
+    before = (TC.conv2d_direct_nhwc.launches,
+              TC.conv2d_direct_nhwc.sm90_launches)
+    out = TC.conv2d_direct_nhwc(x, w, dil, stride)
+    ref = TC.conv_nd_reference(x, w, stride, dil)
+    torch.cuda.synchronize()
+    assert (TC.conv2d_direct_nhwc.launches,
+            TC.conv2d_direct_nhwc.sm90_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    _card_close(out, ref, torch.bfloat16)
+    # one bf16 ulp of the largest entry, as both round one f32 sum
+    top = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 2.0 ** (
+        np.floor(np.log2(top)) - 7)
+
+
+# the Hopper K13: (x shape, g shape, kh, kw, dilation)
+SM90_K13_CASES = {
+    "stage1": ((2, 58, 58, 64), (2, 56, 56, 64), 3, 3, (1, 1)),
+    "stage2": ((2, 30, 30, 128), (2, 28, 28, 128), 3, 3, (1, 1)),
+    "stage3": ((2, 16, 16, 256), (2, 14, 14, 256), 3, 3, (1, 1)),
+    "stage4": ((2, 9, 9, 512), (2, 7, 7, 512), 3, 3, (1, 1)),
+    "dil2": ((2, 14, 15, 64), (2, 10, 11, 128), 3, 3, (2, 2)),
+    "samples": ((7, 7, 7, 32), (7, 5, 5, 64), 3, 3, (1, 1)),
+    "tails": ((3, 11, 13, 200), (3, 9, 11, 72), 3, 3, (1, 1)),
+    "k3x2-dil2x1": ((2, 13, 11, 24), (2, 9, 10, 136), 3, 2, (2, 1)),
+    "1x1": ((4, 28, 28, 64), (4, 28, 28, 128), 1, 1, (1, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SM90_K13_CASES))
+def test_sm90_conv_dw_matches_plain_on_gpu(cuda, name):
+    """f32 out of bf16 operands: the tensor cores' f32 sums against the
+    plain f32 product, within 4e-5 of the largest entry (phase 3's K13
+    bound) and in norm within 1e-5 of ||ref||."""
+    xs, gs, kh, kw, dil = SM90_K13_CASES[name]
+    x = torch.from_numpy(_randn(*xs)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(_randn(*gs, seed=1)).to(cuda, torch.bfloat16)
+    assert TC.dw_plan(kh, kw, xs[-1], gs[-1], gs[0] * gs[1] * gs[2],
+                      torch.bfloat16, dil)[0] == "sm90"
+    before = TC.conv2d_dw_nhwc.launches, TC.conv2d_dw_nhwc.sm90_launches
+    out = TC.conv2d_dw_nhwc(x, g, kh, kw, dil)
+    ref = TC.conv_dw_reference(x, g, (kh, kw), dil)
+    torch.cuda.synchronize()
+    assert (TC.conv2d_dw_nhwc.launches,
+            TC.conv2d_dw_nhwc.sm90_launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.float32
+    d = (out.double() - ref.double())
+    assert float(d.abs().max()) <= 4e-5 * max(1.0, float(ref.abs().max()))
+    assert float(d.norm()) <= 1e-5 * float(ref.double().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xs,gs", [
+    ((16, 58, 58, 64), (16, 56, 56, 64)),
+    ((16, 9, 9, 512), (16, 7, 7, 512))], ids=["stage1", "stage4"])
+def test_sm90_conv_dw_gives_the_same_bits_twice(cuda, xs, gs):
+    x = torch.from_numpy(_randn(*xs)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(_randn(*gs, seed=1)).to(cuda, torch.bfloat16)
+    a = TC.conv2d_dw_nhwc(x, g, 3, 3)
+    b = TC.conv2d_dw_nhwc(x, g, 3, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

@@ -1,4 +1,4 @@
-"""Six measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Eight measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -27,14 +27,30 @@ make, run on one CUDA card from the root of a checkout:
         CUDA-event time of the f32 fused flash backward (the kernel that
         phases 7 and 10 of chip_smoke.py run) of the checkout at TREE_ROOT,
         at B4 S2048 H12 hd128 causal, beside its bound (FFMA's 67 TFLOP/s);
+    python3 tools/torch_diag.py conv TREE_ROOT
+        CUDA-event times of the checkout's K12 and K13 (bf16) at the table
+        shape of chip_smoke.py phase 3 (64x56x56x256 -> 256, k3) and at
+        every distinct shape and role (forward, stride-1 dx, dw) that one
+        step of phase 13's ResNet-18 (224x224 B64 bf16, conv_impl
+        "pallas") calls them with, each beside cuDNN's call for the same
+        function (F.conv2d, torch.nn.grad.conv2d_weight; TF32 off) and
+        its bound, and the sums over the step's calls; device time a call
+        from torch.profiler, the best of two runs of 20 calls each;
+    python3 tools/torch_diag.py resnet TREE_ROOT
+        phase 13's ResNet-18 train step of the checkout: 2 warm-up and 5
+        timed steps, twice, with its K12 and K13 launch counts;
     python3 tools/torch_diag.py host TREE_ROOT
         the host's time for one K3 call (`ops.matmul.matmul`) of the
-        checkout at TREE_ROOT at three of phase 9's f32 products: 200 calls
-        issued back to back (fewer launches than the card's queue holds),
-        in all and with the kernel library replaced by a stub that launches
-        nothing (the Python wrapper alone), beside the CUDA-event time.
+        checkout at TREE_ROOT at three of phase 9's f32 products, and for
+        one K12 and one K13 call at ResNet-18's stage-4 conv at batch 1
+        (bf16) beside F.conv2d's: 200 calls issued back to back (fewer
+        launches than the card's queue holds), in all and with the kernel
+        library replaced by a stub that launches nothing (the Python
+        wrapper alone), beside the device time (CUDA events for K3, the
+        profiler for the convs).
 """
 
+import functools
 import math
 import os
 import sys
@@ -186,11 +202,14 @@ def f32_fused(root):
 def host(root):
     import time
 
+    import torch.nn.functional as F
+
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     os.chdir(root)
     import chip_smoke as cs
     from neuronika_tpu_torch import _build
+    from neuronika_tpu_torch.ops import conv as C
     from neuronika_tpu_torch.ops import matmul as MM
 
     lib = _build.load_library()
@@ -199,16 +218,25 @@ def host(root):
         def __getattr__(self, name):
             return lambda *args: 0
 
-    def issue_us(a, b, n=200):
+    def issue_us(fn, n=200):
         for _ in range(20):
-            MM.matmul(a, b)
+            fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            MM.matmul(a, b)
+            fn()
         t = time.perf_counter() - t0
         torch.cuda.synchronize()
         return t / n * 1e6
+
+    def line(name, fn, dev_us):
+        full = issue_us(fn)
+        _build.load_library = lambda: Stub()
+        wrapper = issue_us(fn)
+        _build.load_library = lambda: lib
+        print(f"{root}: {name}: host {full:.1f} us a call ({wrapper:.1f} in "
+              f"the Python wrapper), {dev_us:.1f} us a call on the device",
+              flush=True)
 
     x = torch.randn(1024, 768, device="cuda")
     w = torch.randn(768, 768, device="cuda")
@@ -219,13 +247,200 @@ def host(root):
                         v[:, :128]),
                        ("scores q_h @ k_h.t() (1024, 128) @ (128, 1024)",
                         x[:, :128], v[:, :128].t())):
-        full = issue_us(a, b)
-        dev = cs.cuda_ms(lambda: MM.matmul(a, b), 50) * 1e3
-        _build.load_library = lambda: Stub()
-        wrapper = issue_us(a, b)
-        _build.load_library = lambda: lib
-        print(f"{root}: {name}: host {full:.1f} us a call ({wrapper:.1f} in "
-              f"the Python wrapper), {dev:.1f} us a call by CUDA events",
+        line(name, functools.partial(MM.matmul, a, b),
+             cs.cuda_ms(lambda: MM.matmul(a, b), 50) * 1e3)
+    # the conv wrappers at batch 1 (ResNet-18's stage-4 conv), bf16; device
+    # time from the profiler
+    xc = torch.randn(1, 9, 9, 512, device="cuda").bfloat16()
+    wc = (0.01 * torch.randn(3, 3, 512, 512, device="cuda")).bfloat16()
+    gc = torch.randn(1, 7, 7, 512, device="cuda").bfloat16()
+    for name, fn in (
+            ("K12 (1, 9, 9, 512) * (3, 3, 512, 512) bf16",
+             functools.partial(C.conv2d_direct_nhwc, xc, wc)),
+            ("K13 of the same conv",
+             functools.partial(C.conv2d_dw_nhwc, xc, gc, 3, 3))):
+        line(name, fn, _device_ms(fn, 20) * 1e3)
+    fn = functools.partial(F.conv2d, xc.permute(0, 3, 1, 2),
+                           wc.permute(3, 2, 0, 1))
+    print(f"{root}: F.conv2d of the same conv: host {issue_us(fn):.1f} us a "
+          f"call, {_device_ms(fn, 20) * 1e3:.1f} us a call on the device",
+          flush=True)
+
+
+def _resnet(root):
+    """chip_smoke, the conv ops and phase 13's ResNet-18 train step (its
+    config, params, momentum buffers, batch and step function) of the
+    checkout at `root`."""
+    import numpy as np
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import chip_smoke as cs
+    from neuronika_tpu_torch import _build
+    from neuronika_tpu_torch.models import resnet as R
+    from neuronika_tpu_torch.ops import conv as C
+
+    _build.load_library()
+    torch.backends.cudnn.allow_tf32 = False
+    B, size = 64, 224
+    cfg = R.ResNetConfig(dtype=torch.bfloat16, conv_impl="pallas",
+                         **cs.RESNET18)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0.0, 1.0, (B, size, size, 3)).astype(
+        np.float32)).to("cuda")
+    y = torch.from_numpy(rng.integers(0, cfg.num_classes, B)).to("cuda")
+    params = R.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    return (root, cs, C, R, cfg, params, R.momentum_init(params), x, y,
+            R.make_train_step(cfg, momentum=0.9))
+
+
+def _device_ms(fn, n):
+    """Device time of the kernels one fn() launches, from torch.profiler
+    over n calls after 3 warm-up calls: back-to-back CUDA events would
+    time the host's issue rate at the small ResNet-18 shapes, whose
+    kernels take less time than a call's host work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / n / 1e3
+
+
+def resnet(root):
+    import time
+
+    root, cs, C, R, cfg, params, buf, x, y, step = _resnet(root)
+    for _ in range(2):
+        params, buf, loss = step(params, buf, x, y, 0.1)
+    for run in range(2):
+        torch.cuda.synchronize()
+        for k in C.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(5):
+            params, buf, loss = step(params, buf, x, y, 0.1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"{root}: ResNet-18 224x224 B64 bf16 step {ms:.2f} ms (run "
+              f"{run + 1}), loss {float(loss):.4f}, launches in 5 steps: K12 "
+              f"{C.conv2d_direct_nhwc.launches}, K13 "
+              f"{C.conv2d_dw_nhwc.launches}", flush=True)
+
+
+def conv(root):
+    import collections
+
+    import torch.nn.functional as F
+
+    root, cs, C, R, cfg, params, buf, x, y, step = _resnet(root)
+    params, buf, _ = step(params, buf, x, y, 0.1)
+    # one step's K12/K13 calls: operands of the first call at each shape
+    # and role, and the calls at each
+    seen, calls, role = {}, collections.Counter(), ["fwd"]
+    k12, k13, dx = (C.conv2d_direct_nhwc, C.conv2d_dw_nhwc,
+                    C.conv2d_input_grad_nhwc)
+
+    def keep(key, a, b):
+        calls[key] += 1
+        if key not in seen:
+            seen[key] = tuple(t.detach().clone(
+                memory_format=torch.contiguous_format) for t in (a, b))
+
+    @functools.wraps(k12)
+    def rec12(a, w, dilation=(1, 1), stride=(1, 1), *, groups=1, **kw):
+        keep((role[0], tuple(a.shape), tuple(w.shape),
+              C._as_tuple(stride, 2), C._as_tuple(dilation, 2), groups), a, w)
+        return k12(a, w, dilation, stride, groups=groups, **kw)
+
+    @functools.wraps(k13)
+    def rec13(a, g, kh, kw, dilation=(1, 1), **kwargs):
+        keep(("dw", tuple(a.shape), tuple(g.shape), (kh, kw),
+              C._as_tuple(dilation, 2), 1), a, g)
+        return k13(a, g, kh, kw, dilation, **kwargs)
+
+    @functools.wraps(dx)
+    def recdx(*args, **kwargs):
+        role[0] = "dx"
+        try:
+            return dx(*args, **kwargs)
+        finally:
+            role[0] = "fwd"
+
+    C.conv2d_direct_nhwc, C.conv2d_dw_nhwc = rec12, rec13
+    C.conv2d_input_grad_nhwc = recdx
+    try:
+        step(params, buf, x, y, 0.1)
+        torch.cuda.synchronize()
+    finally:
+        C.conv2d_direct_nhwc, C.conv2d_dw_nhwc = k12, k13
+        C.conv2d_input_grad_nhwc = dx
+    del params, buf
+    torch.cuda.empty_cache()
+
+    def best(fn):
+        return min(_device_ms(fn, 20), _device_ms(fn, 20))
+
+    def time_call(role, a, b, st, dil, groups):
+        """(kernel ms, cuDNN ms, bound ms) of one K12 or K13 call."""
+        an = a.permute(0, 3, 1, 2)
+        if role == "dw":
+            kern = functools.partial(C.conv2d_dw_nhwc, a, b, *st, dil)
+            lib = functools.partial(
+                torch.nn.grad.conv2d_weight, an,
+                (b.shape[-1], a.shape[-1], *st), b.permute(0, 3, 1, 2),
+                dilation=dil)
+            flops = 2 * b.numel() * st[0] * st[1] * a.shape[-1]
+            nbytes = (a.numel() + b.numel()) * 2 + \
+                st[0] * st[1] * a.shape[-1] * b.shape[-1] * 4
+        else:
+            kern = functools.partial(C.conv2d_direct_nhwc, a, b, dil, st,
+                                     groups=groups)
+            lib = functools.partial(F.conv2d, an, b.permute(3, 2, 0, 1),
+                                    stride=st, dilation=dil, groups=groups)
+            n_out = kern().numel()
+            flops = 2 * n_out * (b.numel() // b.shape[-1])
+            nbytes = (a.numel() + b.numel() + n_out) * 2
+        bound = cs.bound_ms(nbytes, flops, torch.bfloat16)[0]
+        return best(kern), best(lib), bound
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    xt, wt = rnd(64, 58, 58, 256), rnd(3, 3, 256, 256, scale=(9 * 256) ** -0.5)
+    gt = rnd(64, 56, 56, 256)
+    for role, b, st in (("fwd", wt, (1, 1)), ("dw", gt, (3, 3))):
+        k, lib, bound = time_call(role, xt, b, st, (1, 1), 1)
+        print(f"{root}: table shape 64x56x56x256 k3 {role}: kernel {k:.4f} "
+              f"ms, cuDNN {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
+    del xt, wt, gt
+    sums = collections.defaultdict(lambda: [0.0, 0.0, 0.0, 0])
+    for key in sorted(seen, key=str):
+        role, xs, ws, st, dil, groups = key
+        k, lib, bound = time_call(role, *seen[key], st, dil, groups)
+        n = calls[key]
+        tot = sums["K13" if role == "dw" else "K12"]
+        for i, v in enumerate((k, lib, bound, 1)):
+            tot[i] += n * v
+        print(f"{root}: {role} {xs}*{ws} {'k' if role == 'dw' else 's'}"
+              f"{st[0]} x{n} a step: kernel {k:.4f} ms, cuDNN {lib:.4f} ms, "
+              f"bound {bound:.4f} ms", flush=True)
+    for name, (k, lib, bound, n) in sorted(sums.items()):
+        print(f"{root}: {name} over one step's calls ({n} calls): kernel "
+              f"{k:.3f} ms, cuDNN {lib:.3f} ms, bound {bound:.3f} ms",
               flush=True)
 
 
@@ -305,5 +520,9 @@ if __name__ == "__main__":
         f32_fused(sys.argv[2])
     elif sys.argv[1:2] == ["host"] and len(sys.argv) == 3:
         host(sys.argv[2])
+    elif sys.argv[1:2] == ["conv"] and len(sys.argv) == 3:
+        conv(sys.argv[2])
+    elif sys.argv[1:2] == ["resnet"] and len(sys.argv) == 3:
+        resnet(sys.argv[2])
     else:
         sys.exit(__doc__)
