@@ -18,7 +18,16 @@ nvidia-smi. Phases, each printing one line or a few:
      launches of the fused backward (and of K2a) must give the same bits
      (the fused backward in f32 too, at B2 S1000 H8 KV2), and each
      kernel's TFLOP/s is printed beside SDPA's, with the split pair as the
-     backward runs it (one pre-pass for K2a and K2b);
+     backward runs it (one pre-pass for K2a and K2b); then attention
+     dropout: every flash kernel (K1, K2a, K2b, the fused K2, K5, K6, K7)
+     with in-kernel dropout against its plain twin, which draws the same
+     keep mask (`keep_mask`), at rates 0.1 and 0.5 with two seeds each,
+     over the flash cases above in f32 and bf16 and six of the split
+     cases (windows, ragged S, Sq != Skv), at each case's bounds; K1's
+     and K5's masks read back with q = 0 and a one-hot v and held equal to
+     keep_mask bit for bit; and each kernel checked at rate 0.1 and timed
+     with and without dropout at the table shapes (the JSON line's
+     dropout_ms and dropout_max_abs_err);
   4. paged GPT serving end to end at full width (d1536, 8 layers, 12
      heads, d_ff 6144, vocab 16384, max_seq 1024, bf16, random weights
      from a seed): 16 greedy requests through PagedBatcher, with the
@@ -35,11 +44,16 @@ nvidia-smi. Phases, each printing one line or a few:
      with fused_ce="on": 2 warm-up and 5 timed steps through the fused
      linear cross-entropy (K8 once a step, K9 and K10 once each in its
      backward, held exact), its step time, tokens/s, MFU and peak memory
-     printed beside the composite headline's;
+     printed beside the composite headline's; and the headline at
+     dropout=0.1 (GPT-2's attn_pdrop), 1 warm-up and 3 timed steps with a
+     finite, falling loss and K1 and the fused K2 launched once per layer
+     and step, its step time, tokens/s and peak beside the headline's;
   7. the kernel route against the plain route (flash="off") in f32 on a
-     small hd-128 model: loss and every gradient leaf, split and fused;
-     and the fused CE route (fused_ce "on" against "off", vocab 1024) for
-     a tied GPT and an untied llama-style head;
+     small hd-128 model: loss and every gradient leaf, split and fused,
+     then at dropout=0.3 (the composite draws the kernels' mask) packed
+     with both backwards and split (llama, GQA, a window); and the fused
+     CE route (fused_ce "on" against "off", vocab 1024) for a tied GPT and
+     an untied llama-style head;
   8. the define-by-run tier's flagship: `build_var_model_batched` at the
      same width (S 2048, B 16, bf16) with `enable_kernels(True)`, trained
      by `optim.Adam(1e-4).train_step` on the log-softmax + NLL loss: 1
@@ -55,7 +69,9 @@ nvidia-smi. Phases, each printing one line or a few:
      the GPTConfig defaults (remat "full", f32 Adam), random weights from a
      seed: 2 warm-up and 5 timed steps with a finite, falling loss and
      exactly 2 L launches of K5 (remat re-runs it), L of K6 and L of K7 a
-     step;
+     step; then one step at dropout=0.1 cut to 2 layers (K5-K7's dropout
+     at full width), its launches held exact, beside the same step
+     without dropout;
  12. the split kernel route against the plain route (flash="off") in f32
      on small llama and Mistral models (hd 128, GQA, window < S): loss and
      every gradient leaf;
@@ -124,11 +140,12 @@ K8-K10 the composite head, several calls) and the bound: the larger of
 its bytes over 3.35 TB/s and its FLOPs over the peak of its type (989
 TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM; for K3 in f32, the least time of
 f32-accurate products on the card, 3 TF32 products at 495 TFLOP/s (165).
-With --profile, one more step of phases 6 (the headline, the defaults and
-the fused-CE run), 8, 9, 11 and 13 runs under torch.profiler: each one's
-device time by kernel kind is printed and its kernel table written to
-TABLE_PATH (the others beside it, "_split", "_fused_ce", "_var", "_var2d",
-"_mistral" and "_resnet" added to the name).
+With --profile, one more step of phases 6 (the headline, the dropout run,
+the defaults and the fused-CE run), 8, 9, 11 and 13 runs under
+torch.profiler: each one's device time by kernel kind is printed and its
+kernel table written to TABLE_PATH (the others beside it, "_dropout",
+"_split", "_fused_ce", "_var", "_var2d", "_mistral" and "_resnet" added to
+the name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -143,6 +160,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -343,25 +361,29 @@ def flash_faults(qkv, out, lse, do, split, fused, H):
     return out_f, split_f, fused_f
 
 
-def check_flash(FA, key, qkv, do, H, KV, causal, fast, faults=False):
+def check_flash(FA, key, qkv, do, H, KV, causal, fast, faults=False,
+                seed=0, rate=0.0):
     """K1, the split pair K2a+K2b and the fused K2 against the plain
-    versions on one input; raises on a mismatch. bf16 results are held per
-    entry and in norm (SPLIT_BF16_REL, as K5-K7); with `faults` (causal
-    MHA), flash_faults' three planted faults are read against the same
-    plain versions and must fail the norm bound. Returns {kernel name: max abs
-    err}, K1's (out, lse) and {tensor: (||err||/||ref||, bound)} of the
-    norm readings and the faults (empty in f32)."""
+    versions on one input, with attention dropout at `rate` from `seed`;
+    raises on a mismatch. bf16 results are held per entry and in norm
+    (SPLIT_BF16_REL, as K5-K7); with `faults` (causal MHA), flash_faults'
+    three planted faults are read against the same plain versions and must
+    fail the norm bound. Returns {kernel name: max abs err}, K1's (out,
+    lse) and {tensor: (||err||/||ref||, bound)} of the norm readings and
+    the faults (empty in f32)."""
     B, S, _ = qkv.shape
     G = H // KV
-    out, lse = FA.flash_fwd_qkv(qkv, H, KV, causal, fast_softmax=fast)
-    rout, rlse = FA.flash_attention_qkv_fwd_reference(qkv, H, KV, causal,
-                                                      fast_softmax=fast)
+    drop = dict(seed=seed, rate=rate)
+    out, lse = FA.flash_fwd_qkv(qkv, H, KV, causal, fast_softmax=fast,
+                                **drop)
+    rout, rlse = FA.flash_attention_qkv_fwd_reference(
+        qkv, H, KV, causal, fast_softmax=fast, **drop)
     split = torch.empty_like(qkv)
-    FA.flash_bwd_dq_qkv(qkv, out, lse, do, split, H, KV, causal)
-    FA.flash_bwd_dkv_qkv(qkv, out, lse, do, split, H, KV, causal)
-    fused = FA.flash_bwd_fused_qkv(qkv, out, lse, do, H, KV, causal)
+    FA.flash_bwd_dq_qkv(qkv, out, lse, do, split, H, KV, causal, **drop)
+    FA.flash_bwd_dkv_qkv(qkv, out, lse, do, split, H, KV, causal, **drop)
+    fused = FA.flash_bwd_fused_qkv(qkv, out, lse, do, H, KV, causal, **drop)
     ref = FA.flash_attention_qkv_bwd_reference(qkv, out, lse, do, H, KV,
-                                               causal)
+                                               causal, **drop)
     torch.cuda.synchronize()
     f32 = qkv.dtype == torch.float32
     o_max = float(rout.float().abs().max())
@@ -597,6 +619,13 @@ def train_steps(T, kernels, cfg, n_warm, n_timed, batch, lr, profile=None,
     return losses, launches, step_s, peak, held
 
 
+def fused_walk(name):
+    """A flash_bwd_kv_kernel's FUSED flag, its second-to-last template
+    argument (<HD, FUSED, DROPOUT> on Hopper, <T, HD, FUSED, DROPOUT>)."""
+    m = re.search(r"flash_bwd_kv_kernel\w*<([^>]*)>", name)
+    return bool(m) and m.group(1).split(",")[-2].strip() == "true"
+
+
 def profile_step(run, label, path):
     """One more step, `run()`, under torch.profiler: prints its device time
     by kernel kind and the device's idle share of the step, and writes the
@@ -631,7 +660,7 @@ def profile_step(run, label, path):
                 else "K7 dk/dv" if "split_bwd_dkv" in n
                 else "K2 pre-pass" if "bwd_stats" in n
                 else "K2c fused" if "flash_bwd_kv_kernel" in n
-                and "true>" in n or "dq_store" in n or "dq_cast" in n
+                and fused_walk(n) or "dq_store" in n or "dq_cast" in n
                 else "K2b dk/dv" if "flash_bwd_kv_kernel" in n
                 else "K2a dq" if "flash_bwd_dq" in n
                 else "K1 fwd" if "flash_fwd" in n
@@ -692,6 +721,29 @@ def phase_train(T, FA, CE, profile):
           f"{peak:.2f} GiB; losses {[round(l, 4) for l in losses]}; "
           f"launches {launches}")
     head = launches
+    # the headline at GPT-2's attn_pdrop (Radford et al. 2019): in-kernel
+    # dropout in K1 and the fused K2
+    cfg = T.GPTConfig(dtype=torch.bfloat16, dropout=0.1, **TRAIN_CFG,
+                      **HEADLINE)
+    nd = 3
+    path = None
+    if profile:
+        root, ext = os.path.splitext(profile)
+        path = f"{root}_dropout{ext}"
+    losses, launches, step_s, peak, _ = train_steps(
+        T, kernels, cfg, 1, nd, batch, 5e-4, path,
+        "one dropout=0.1 headline step")
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd_qkv=L * nd, flash_bwd_fused_qkv=L * nd)
+    check(all(np.isfinite(losses)), f"non-finite loss (dropout): {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall (dropout): {losses}")
+    check(launches == want, f"dropout launches {launches}, want {want}")
+    tok_s = B * S / step_s
+    print(f"phase 6 train, the headline with dropout=0.1 (in-kernel, K1 and "
+          f"the fused K2), 1 warm-up and {nd} timed steps: step "
+          f"{step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, peak {peak:.2f} GiB "
+          f"(without dropout: {head_line}); losses "
+          f"{[round(l, 4) for l in losses]}; launches {launches}")
     cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG)
     path = None
     if profile:
@@ -747,7 +799,8 @@ ROUTE_GRAD_TOL = 2e-5
 def route_run(T, params, cfg0, kernels, **kw):
     """The loss and every gradient leaf of one f32 forward and backward on
     a fixed B2 S256 batch (numpy seed 1) with cfg0 updated by kw, and the
-    launches of `kernels` it made."""
+    launches of `kernels` it made. Dropout draws its layers' seeds from a
+    generator seeded 9, so both routes drop the same entries."""
     from neuronika_tpu_torch._tree import tree_leaves, tree_unflatten
 
     rng = np.random.default_rng(1)
@@ -758,7 +811,8 @@ def route_run(T, params, cfg0, kernels, **kw):
     leaves = [p.detach().clone().requires_grad_()
               for p in tree_leaves(params)]
     loss = T.loss_fn(tree_unflatten(params, leaves), toks, toks.roll(-1, 1),
-                     cfg, train=True)
+                     cfg, train=True,
+                     generator=torch.Generator(device="cuda").manual_seed(9))
     grads = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
     return (float(loss.detach()), grads,
@@ -795,6 +849,33 @@ def phase_routes(T, FA, CE):
     print(f"phase 7 kernel vs plain route: f32 d256 H2 hd128 L2 S256 B2, "
           f"loss {ref[0]:.6f}; |d loss|, max |d grad| per leaf: "
           + ", ".join(f"{k} {a:.3g}, {b:.3g}" for k, (a, b) in errs.items())
+          + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
+    # dropout 0.3: the composite draws the kernels' keep_mask, so the
+    # routes drop the same entries; packed (both backwards) and split
+    # (llama, GQA, a window)
+    errs, L = {}, cfg0.n_layer
+    for name, preset, kw, kern, want in (
+            ("packed-split", T.GPTConfig, dict(flash_bwd="split"),
+             FA.KERNELS, [L, L, L, 0]),
+            ("packed-fused", T.GPTConfig, dict(flash_bwd="fused"),
+             FA.KERNELS, [L, 0, 0, L]),
+            ("split-llama-window", T.llama_config,
+             dict(n_kv_head=1, window=100), FA.SPLIT_KERNELS, [L, L, L])):
+        cfg = preset(vocab_size=512, n_layer=2, n_head=2, d_model=256,
+                     d_ff=1024, max_seq=256, dtype=torch.float32,
+                     remat=False, dropout=0.3, **kw)
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(4),
+                               cfg, "cuda")
+        ref = route_run(T, params, cfg, kern, flash="off")
+        run = route_run(T, params, cfg, kern, flash="on")
+        check(ref[2] == [0] * len(kern) and run[2] == want,
+              f"phase 7 dropout {name}: launches {run[2]}, want {want}")
+        errs[name] = (ref[0],) + route_errs(f"phase 7 dropout {name}", ref,
+                                            run)
+    print("phase 7 kernel vs plain route at dropout=0.3 (f32 d256 H2 hd128 "
+          "L2 S256 B2; loss, |d loss|, max |d grad| per leaf): "
+          + ", ".join(f"{k} {a:.6f}, {b:.3g}, {c:.3g}"
+                      for k, (a, b, c) in errs.items())
           + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
     errs, used = {}, []
     for name, preset, kw in (
@@ -1312,32 +1393,40 @@ def split_faults(q, k, v, do, out, lse, delta, dq, dk, dv, window):
     return out_f, dq_f, dk_f, dv_f
 
 
-def check_split(FA, key, q, k, v, do, causal, window, faults=False):
-    """K5, K6 and K7 against their plain versions on one input, the plain
-    versions run on SPLIT_HEADS (batch, head) pairs at a time; raises on a
-    mismatch. With `faults`, also reads split_faults' planted faults
-    against the same plain versions and raises unless each fails the bf16
-    bound. Returns {kernel name: max abs err} and the plain (lse, delta)."""
+def check_split(FA, key, q, k, v, do, causal, window, faults=False, seed=0,
+                rate=0.0):
+    """K5, K6 and K7 against their plain versions on one input, with
+    attention dropout at `rate` from `seed`, the plain versions run on
+    SPLIT_HEADS (batch, head) pairs at a time (with dropout on the whole
+    input at once, as the mask keys by absolute batch and head); raises on
+    a mismatch. With `faults`,
+    also reads split_faults' planted faults against the same plain
+    versions and raises unless each fails the bf16 bound. Returns {kernel
+    name: max abs err} and the plain (lse, delta)."""
     B, H = q.shape[:2]
     parts = [(slice(b, b + 1), slice(h, h + SPLIT_HEADS))
              for b in range(B) for h in range(0, H, SPLIT_HEADS)]
+    if rate:
+        parts = [(slice(0, B), slice(0, H))]
     names = ("out", "dq", "dk", "dv")
     stats = {n: [] for n in names}
     fault = {n: [] for n in names}
-    out, lse = FA.flash_fwd(q, k, v, causal, window=window)
+    drop = dict(seed=seed, rate=rate)
+    out, lse = FA.flash_fwd(q, k, v, causal, window=window, **drop)
     rout, rlse = torch.empty_like(out), torch.empty_like(lse)
     for c in parts:
         rout[c], rlse[c] = FA.flash_attention_fwd_reference(
-            q[c], k[c], v[c], causal, window=window)
+            q[c], k[c], v[c], causal, window=window, **drop)
         stats["out"].append(diff_stats(out[c], rout[c]))
     delta = (do.float() * rout.float()).sum(-1)
-    dq = FA.flash_bwd_dq(q, k, v, do, rlse, delta, causal, window=window)
+    dq = FA.flash_bwd_dq(q, k, v, do, rlse, delta, causal, window=window,
+                         **drop)
     dk, dv = FA.flash_bwd_dkv(q, k, v, do, rlse, delta, causal,
-                              window=window)
+                              window=window, **drop)
     for c in parts:
         args = (q[c], k[c], v[c], do[c])
         want = FA.flash_attention_bwd_reference(
-            *args, rlse[c], delta[c], causal, window=window)
+            *args, rlse[c], delta[c], causal, window=window, **drop)
         for n, a, w in zip(names[1:], (dq[c], dk[c], dv[c]), want):
             stats[n].append(diff_stats(a, w))
         if faults:
@@ -1502,6 +1591,159 @@ def phase_split_flash(FA):
     return {n: (errs[n],) + t for n, t in timed.items()}
 
 
+# attention dropout (phase 3): two rates, two seeds each (one above 2^32,
+# so that the seed's high word keys the hash too); every dropout body is
+# held against its plain twin under each, at its case's bounds
+DROPOUT_DRAWS = ((0.1, 11), (0.1, 2 ** 40 + 3), (0.5, 12),
+                 (0.5, 2 ** 63 + 5))
+# the split cases run with dropout: windows across the bf16 walks' steps,
+# ragged S and Sq != Skv
+DROPOUT_SPLIT = ("window6-hd64", "window100-hd128-S1000",
+                 "full-Sq300-Skv777-hd128", "window65-hd128-S384",
+                 "window37-hd64-S1000", "full-Sq130-Skv1000-hd128")
+
+
+def readout_masks(FA, dtype, hd, rate, seed):
+    """Each forward kernel's dropout mask read back and held equal to
+    `keep_mask` bit for bit. With q = 0 every score is 0, so p = 1 on each
+    row's band and l counts it; with v one-hot on a key range of width hd
+    (v[j, j % hd] = 1), out[i, j % hd] = keep(i, j) / ((1 - rate) l): it
+    is nonzero exactly where key j is kept in row i's band. K1 on packed
+    GQA (B2 H4 KV2 S300, causal and full), K5 with a window (S300 w77) and
+    with Sq 130 != Skv 300; every key range of S. Returns the entries
+    compared."""
+    n_cmp = 0
+
+    def held(name, got, want):
+        nonlocal n_cmp
+        check(torch.equal(got, want), f"{name} {str(dtype)[6:]} hd{hd} "
+              f"rate {rate} seed {seed}: mask read back differs from "
+              f"keep_mask in {int((got != want).sum())} entries")
+        n_cmp += got.numel()
+
+    B, H, KV, S = 2, 4, 2, 300
+    G = H // KV
+    i = torch.arange(S, device="cuda")
+    for causal in (True, False):
+        keep = FA.keep_mask(seed, B, H, S, S, rate, "cuda")
+        if causal:
+            keep &= i[None, :] <= i[:, None]
+        for j0 in range(0, S, hd):
+            idx = torch.arange(j0, min(S, j0 + hd), device="cuda")
+            qkv = torch.zeros(B, S, KV, G + 2, hd, device="cuda")
+            qkv[:, :, :, G] = torch.randn(B, S, KV, hd, device="cuda")
+            qkv[:, idx, :, G + 1, idx % hd] = 1.0
+            out, _ = FA.flash_fwd_qkv(qkv.reshape(B, S, -1).to(dtype), H, KV,
+                                      causal, seed=seed, rate=rate)
+            got = out.view(B, S, H, hd).permute(0, 2, 1, 3)[..., idx % hd]
+            held("flash_fwd_qkv", got != 0, keep[..., idx])
+    for Sq, causal, window in ((S, True, 77), (130, False, 0)):
+        keep = FA.keep_mask(seed, B, H, Sq, S, rate, "cuda")
+        if causal:
+            keep &= ((i[None, :] <= i[:, None])
+                     & (i[:, None] - i[None, :] < window))
+        for j0 in range(0, S, hd):
+            idx = torch.arange(j0, min(S, j0 + hd), device="cuda")
+            q = torch.zeros(B, H, Sq, hd, device="cuda", dtype=dtype)
+            k = torch.randn(B, H, S, hd, device="cuda").to(dtype)
+            v = torch.zeros(B, H, S, hd, device="cuda")
+            v[:, :, idx, idx % hd] = 1.0
+            out, _ = FA.flash_fwd(q, k, v.to(dtype), causal, window=window,
+                                  seed=seed, rate=rate)
+            held("flash_fwd", out[..., idx % hd] != 0, keep[..., idx])
+    return n_cmp
+
+
+def phase_dropout_kernels(FA):
+    """Phase 3, attention dropout: every flash kernel with dropout against
+    its plain twin (same `keep_mask`) at its case's bounds, over
+    DROPOUT_DRAWS: K1, K2a+K2b and the fused K2 on FLASH_CASES in f32 and
+    bf16, K5-K7 on DROPOUT_SPLIT; each forward kernel's mask read back bit
+    for bit (readout_masks); then each kernel checked at rate 0.1 and timed
+    with and without dropout at the table shapes (bf16 B16 S2048 H12 hd128
+    causal fast; B1 H8 S8192 hd128 window 4096). Returns {kernel name:
+    (max abs err at rate 0.1 at its table shape, ms with dropout, ms
+    without)}."""
+    rng = np.random.default_rng(7)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n_cases = n_cmp = 0
+    for rate, seed in DROPOUT_DRAWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, H, KV, hd, S, causal, fast in FLASH_CASES:
+                qkv, do = flash_case(rng, 2, H, KV, hd, S, dtype)
+                check_flash(FA, f"{str(dtype)[6:]}/{name}/rate{rate}/seed"
+                            f"{seed}", qkv, do, H, KV, causal, fast,
+                            seed=seed, rate=rate)
+                n_cases += 1
+            for case in SPLIT_CASES:
+                name, B, H, Sq, Skv, causal, window, hd = case
+                if name not in DROPOUT_SPLIT:
+                    continue
+                q, k, v, do = split_case(g, B, H, Sq, Skv, hd, dtype)
+                check_split(FA, f"{str(dtype)[6:]}/{name}/rate{rate}/seed"
+                            f"{seed}", q, k, v, do, causal, window,
+                            seed=seed, rate=rate)
+                n_cases += 1
+            for hd in (64, 128):
+                n_cmp += readout_masks(FA, dtype, hd, rate, seed)
+    torch.cuda.empty_cache()
+
+    out = {}
+    rate, seed = 0.1, 5
+    drop = dict(seed=seed, rate=rate)
+    B, H, S, hd = 16, 12, 2048, 128
+    qkv, do = flash_case(rng, B, H, H, hd, S, torch.bfloat16)
+    errs, (o, lse), _ = check_flash(
+        FA, "bfloat16/headline-B16-S2048-mha-hd128-causal-fast/rate0.1", qkv,
+        do, H, H, True, True, seed=seed, rate=rate)
+    torch.cuda.empty_cache()
+    d_qkv = torch.empty_like(qkv)
+    st = FA.flash_bwd_stats_qkv(qkv, o, lse, do, H)
+    kern = {"flash_fwd_qkv": lambda **d: FA.flash_fwd_qkv(
+                qkv, H, fast_softmax=True, **d),
+            "flash_bwd_dq_qkv": lambda **d: FA.flash_bwd_dq_qkv(
+                qkv, o, lse, do, d_qkv, H, stats=st, **d),
+            "flash_bwd_dkv_qkv": lambda **d: FA.flash_bwd_dkv_qkv(
+                qkv, o, lse, do, d_qkv, H, stats=st, **d),
+            "flash_bwd_fused_qkv": lambda **d: FA.flash_bwd_fused_qkv(
+                qkv, o, lse, do, H, **d)}
+    for name, fn in kern.items():    # without, with, with, without
+        a = cuda_ms(fn, 5)
+        d = min(cuda_ms(lambda: fn(**drop), 5), cuda_ms(lambda: fn(**drop),
+                                                           5))
+        out[name] = (errs[name], d, min(a, cuda_ms(fn, 5)))
+    del qkv, do, o, lse, d_qkv, st, kern
+    torch.cuda.empty_cache()
+
+    B, H, S, hd, W = 1, 8, 8192, 128, 4096
+    q, k, v, do = split_case(g, B, H, S, S, hd, torch.bfloat16, False)
+    errs, (lse, delta) = check_split(
+        FA, "bfloat16/B1-H8-S8192-hd128-w4096/rate0.1", q, k, v, do, True, W,
+        seed=seed, rate=rate)
+    torch.cuda.empty_cache()
+    kern = {"flash_fwd": lambda **d: FA.flash_fwd(q, k, v, window=W, **d),
+            "flash_bwd_dq": lambda **d: FA.flash_bwd_dq(
+                q, k, v, do, lse, delta, window=W, **d),
+            "flash_bwd_dkv": lambda **d: FA.flash_bwd_dkv(
+                q, k, v, do, lse, delta, window=W, **d)}
+    for name, fn in kern.items():
+        a = cuda_ms(fn, 5)
+        d = min(cuda_ms(lambda: fn(**drop), 5), cuda_ms(lambda: fn(**drop),
+                                                           5))
+        out[name] = (errs[name], d, min(a, cuda_ms(fn, 5)))
+    del q, k, v, do, lse, delta, kern
+    torch.cuda.empty_cache()
+    print(f"phase 3 kernels: attention dropout within the cases' bounds "
+          f"against the plain twins ({n_cases} cases over rates and seeds "
+          f"{DROPOUT_DRAWS}); K1 and K5 masks read back equal to keep_mask "
+          f"in all {n_cmp} entries; at rate 0.1 (bf16 B16 S2048 H12 hd128 "
+          f"causal fast; B1 H8 S8192 hd128 window 4096), with vs without "
+          f"dropout: " + "; ".join(
+              f"{n} {d:.3f} vs {a:.3f} ms (+{(d / a - 1) * 100:.0f}%, max "
+              f"abs err {e:.3g})" for n, (e, d, a) in out.items()))
+    return out
+
+
 # Mistral 7B's published widths (Jiang et al. 2023, "Mistral 7B", Table 1;
 # window 4096 from mistral_config), depth cut from 32 to 4 layers: f32
 # params, grads and Adam state of all 32 layers (~116 GB) exceed the 80 GB
@@ -1551,6 +1793,27 @@ def phase_mistral(T, FA, CE, profile):
           f"{held:.4f} (ln V {np.log(cfg.vocab_size):.4f}); launches in {n} "
           f"steps: K5 {launches['flash_fwd']}, K6 "
           f"{launches['flash_bwd_dq']}, K7 {launches['flash_bwd_dkv']}")
+    # one step at dropout 0.1, 2 layers: K5-K7's dropout at full width;
+    # then the same step without dropout, for its cost
+    steps = {}
+    for rate in (0.1, 0.0):
+        cfg = T.mistral_config(dtype=torch.bfloat16, dropout=rate,
+                               **dict(MISTRAL_7B, n_layer=2))
+        steps[rate] = train_steps(T, train_kernels(FA, CE), cfg, 1, 1,
+                                  batch(), 3e-4)
+    losses, d_launches, d_step_s, d_peak, _ = steps[0.1]
+    L = cfg.n_layer
+    want = dict.fromkeys(d_launches, 0)
+    want.update(flash_fwd=2 * L, flash_bwd_dq=L, flash_bwd_dkv=L)
+    check(all(np.isfinite(losses)), f"phase 11 dropout: loss {losses}")
+    check(d_launches == want,
+          f"phase 11 dropout: launches {d_launches}, want {want}")
+    print(f"phase 11 train at dropout=0.1, L2 (in-kernel in K5-K7), 1 warm-up"
+          f" and 1 timed step: {d_step_s * 1e3:.1f} ms (without dropout "
+          f"{steps[0.0][2] * 1e3:.1f} ms), peak {d_peak:.2f} GiB, losses "
+          f"{[round(l, 4) for l in losses]}; launches K5 "
+          f"{d_launches['flash_fwd']}, K6 {d_launches['flash_bwd_dq']}, K7 "
+          f"{d_launches['flash_bwd_dkv']}")
     return launches
 
 
@@ -2459,10 +2722,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
                         help="profile one more headline train step, "
-                             "defaults (split backward) step, fused-CE "
-                             "headline step, Var flagship step, Var 2-d "
-                             "step, Mistral 7B step and ResNet-18 step and "
-                             "write their kernel tables here (and *_split, "
+                             "dropout headline step, defaults (split "
+                             "backward) step, fused-CE headline step, Var "
+                             "flagship step, Var 2-d step, Mistral 7B step "
+                             "and ResNet-18 step and write their kernel "
+                             "tables here (and *_dropout, *_split, "
                              "*_fused_ce, *_var, *_var2d, *_mistral, "
                              "*_resnet)")
     profile = parser.parse_args().profile
@@ -2510,6 +2774,7 @@ def main() -> int:
     flash = phase_flash_kernels(rng, FA)
     mm_sm = phase_mm_softmax(MM, SM)
     sflash = phase_split_flash(FA)
+    dflash = phase_dropout_kernels(FA)
     convk = phase_conv_kernels(C)
     phase_conv_route_times(C)
     cek = phase_ce_kernels(CE, T)
@@ -2605,7 +2870,9 @@ def main() -> int:
                         "replaces": f"{at}{line}",
                         "launches": counts[name], "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
-                        "bound_by": bound[1], "library_ms": lib})
+                        "bound_by": bound[1], "library_ms": lib,
+                        "dropout_ms": dflash[name][1],
+                        "dropout_max_abs_err": dflash[name][0]})
     # K3 runs on the 2-d model's path, K4 on both Var paths (phases 8, 9)
     for name, source, replaces in (
             ("matmul", "neuronika_tpu_torch/csrc/matmul.cu",
@@ -2629,7 +2896,9 @@ def main() -> int:
                         "replaces": f"{at}{line}",
                         "launches": mistral[name], "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
-                        "bound_by": bound[1], "library_ms": lib})
+                        "bound_by": bound[1], "library_ms": lib,
+                        "dropout_ms": dflash[name][1],
+                        "dropout_max_abs_err": dflash[name][0]})
     # K12 and K13 run on phase 13's path (launches, and errors on its
     # operands brought to unit scale), K14 and K15 on phase 14's Var graph
     # (launches; errors at bench.py's shapes); times at bench.py's shapes

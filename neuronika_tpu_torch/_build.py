@@ -99,11 +99,13 @@ def load_library() -> ctypes.CDLL:
                    ctypes.c_float, p]            # MB window; scale, stream
     fn.restype = i
     f = ctypes.c_float
+    # every flash kernel's dropout: seed, threshold, inv_keep
+    drop = [ctypes.c_uint64, ctypes.c_uint32, f]
     fn = lib.nk_flash_fwd_qkv
     fn.argtypes = [i, p, p, p,                   # dtype, qkv, out, lse
                    i, i, i, i, i,                # B S H KV hd
-                   f, i, i, p]                   # scale causal fast, stream
-    fn.restype = i
+                   f, i, i, *drop, p]            # scale causal fast, drop,
+    fn.restype = i                               # stream
     fn = lib.nk_flash_bwd_stats_qkv
     fn.argtypes = [i, p, p, p, p,                # dtype, o lse do stats
                    i, i, i, i, p]                # B S H hd, stream
@@ -112,28 +114,28 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [i, p, p, p, p, p, i, p,   # dtype, qkv o lse do stats
                        i, i, i, i, i,            # have_stats dqkv; B S H KV
-                       f, i, p]                  # hd; scale causal, stream
-        fn.restype = i
+                       f, i, *drop, p]           # hd; scale causal, drop,
+        fn.restype = i                           # stream
     fn = lib.nk_flash_bwd_fused_qkv
     fn.argtypes = [i, p, p, p, p, p, p, p, p,    # dtype, qkv o lse do stats
                    i, i, i, i, i,                # dq_acc turn dqkv; B S H
-                   f, i, p]                      # KV hd; scale causal, stream
-    fn.restype = i
+                   f, i, *drop, p]               # KV hd; scale causal, drop,
+    fn.restype = i                               # stream
     fn = lib.nk_flash_fwd
     fn.argtypes = [i, p, p, p, p, p, p,          # dtype, q k v out lse,
                    i, i, i, i, i,                # strides; B H Sq Skv hd
-                   f, i, i, p]                   # scale causal window, stream
-    fn.restype = i
+                   f, i, i, *drop, p]            # scale causal window, drop,
+    fn.restype = i                               # stream
     fn = lib.nk_flash_bwd_dq
     fn.argtypes = [i, p, p, p, p, p, p, p, p,    # dtype, q k v do lse delta
                    i, i, i, i, i,                # dq strides; B H Sq Skv hd
-                   f, i, i, p]                   # scale causal window, stream
-    fn.restype = i
+                   f, i, i, *drop, p]            # scale causal window, drop,
+    fn.restype = i                               # stream
     fn = lib.nk_flash_bwd_dkv
     fn.argtypes = [i, p, p, p, p, p, p, p, p, p,  # dtype, q k v do lse
                    i, i, i, i, i,                # delta dk dv strides; B H
-                   f, i, i, p]                   # Sq Skv hd; scale causal
-    fn.restype = i                               # window, stream
+                   f, i, i, *drop, p]            # Sq Skv hd; scale causal
+    fn.restype = i                               # window, drop, stream
     ll = ctypes.c_longlong
     fn = lib.nk_matmul
     fn.argtypes = [i, p, p, p,                   # dtype, a, b, c

@@ -52,9 +52,14 @@
 // instantiation runs the same tiles with FFMA (wgmma has no FFMA path, and
 // f32 is the oracle route). p and ds are rounded to the input dtype before
 // their products, where the TPU kernels round them.
-// Not done yet: K5 on wgmma and TMA, GQA without the repeated k/v (K2b's
-// walk over a kv group's G heads per k tile carries over), and in-kernel
-// dropout.
+// Attention dropout (dropout.cuh): each kernel has a DROPOUT template flag;
+// set, the keep bit of every (q row, key) is drawn on every tile of the
+// band, K5 zeroes the dropped p before P V and scales the output by 1 / (1 -
+// rate), K6 and K7 drop dp and the p of dV; unset, the code is that of no
+// dropout. The mask is keyed by the q head h, as the model repeats k/v over
+// a GQA group before this layout.
+// Not done yet: K5 on wgmma and TMA, and GQA without the repeated k/v (K2b's
+// walk over a kv group's G heads per k tile carries over).
 
 #include <math.h>
 
@@ -74,12 +79,13 @@ struct Strides {  // elements between batches, heads and rows
 
 // ---------------------------------------------------------------- K5
 // grid (ceil(Sq / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15.
-template <typename T, int HD>
+template <typename T, int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
     split_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, Strides sq, Strides sk,
-                     Strides sv, int H, Band band, float qscale) {
+                     Strides sv, int H, Band band, float qscale,
+                     Dropout drop) {
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBK + Ty<T>::kPad;
   constexpr int NTS = kBK / 8, NTO = HD / 8;
@@ -134,12 +140,19 @@ __global__ void __launch_bounds__(kThreads)
       alpha[x] = exp2f(m[x] - m_new[x]);
     }
     float sum[2] = {0.f, 0.f};
+    bool kp[2][2];  // DROPOUT: keep bits of this column pair in both rows
 #pragma unroll
     for (int nt = 0; nt < NTS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_new[e >> 1]);
-        sum[e >> 1] += p;
+        float p = exp2f(s[nt][e] - m_new[e >> 1]);
+        sum[e >> 1] += p;  // l stays unmasked
+        if constexpr (DROPOUT) {
+          if (e == 0)
+            for (int x = 0; x < 2; ++x)
+              drop.cols2(b, h, row[x], j0 + nt * 8 + c, kp[x][0], kp[x][1]);
+          if (!kp[e >> 1][e & 1]) p = 0.f;
+        }
         Pw[(r + 8 * (e >> 1)) * LDP + nt * 8 + c + (e & 1)] = Ty<T>::from(p);
       }
 #pragma unroll
@@ -159,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int x = 0; x < 2; ++x) {
     const int rw = row[x];
     if (rw >= band.Sq) continue;
-    const float inv = 1.f / l[x];
+    const float inv = (DROPOUT ? drop.inv_keep : 1.f) / l[x];
     const size_t at = ((size_t)b * H + h) * band.Sq + rw;
     T* orow = out + at * HD;
 #pragma unroll
@@ -186,14 +199,15 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
 // ---------------------------------------------------------------- K6, f32
 // grid (ceil(Sq / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15 and
 // walks the k tiles of the band.
-template <typename T, int HD>
+template <typename T, int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
     split_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
-                        int H, Band band, float scale, float qscale) {
+                        int H, Band band, float scale, float qscale,
+                        Dropout drop) {
   static_assert(std::is_same<T, float>::value,
                 "bf16 runs split_bwd_dq_kernel_sm90");
   constexpr int LD = HD + Ty<T>::kPad;
@@ -240,6 +254,7 @@ __global__ void __launch_bounds__(kThreads)
     warp_gemm<T, NTS, HD, false, false>(s, Qw, LD, Ks, LD, lane);
     warp_gemm<T, NTS, HD, false, false>(dp, dOw, LD, Vs, LD, lane);
     const bool edge = band.edge(i0, kBQ, j0, kBK);
+    bool kp[2][2];  // DROPOUT: keep bits of this column pair in both rows
 #pragma unroll
     for (int nt = 0; nt < NTS; ++nt)
 #pragma unroll
@@ -252,7 +267,15 @@ __global__ void __launch_bounds__(kThreads)
         // p <= 1 whenever lse covers the row; the clamp keeps a foreign
         // lse (ring attention's future blocks) from overflowing exp2
         const float p = exp2f(fminf(x - lse_s[lrow], 0.f));
-        const float ds = p * (dp[nt][e] - delta_s[lrow]) * scale;
+        float d = dp[nt][e];
+        if constexpr (DROPOUT) {
+          if (e == 0)
+            for (int y = 0; y < 2; ++y)
+              drop.cols2(b, h, i0 + lr[y], j0 + nt * 8 + c, kp[y][0],
+                         kp[y][1]);
+          d = kp[e >> 1][e & 1] ? d * drop.inv_keep : 0.f;
+        }
+        const float ds = p * (d - delta_s[lrow]) * scale;
         dSw[(r + 8 * (e >> 1)) * LDP + nt * 8 + c + (e & 1)] = Ty<T>::from(ds);
       }
     __syncwarp();
@@ -276,7 +299,7 @@ __global__ void __launch_bounds__(kThreads)
 // grid (ceil(Skv / kBK), H, B); warp w owns key rows w*16 .. w*16 + 15 of
 // the CTA's k/v tile and walks the q tiles of the band, from the diagonal
 // to the last row whose window holds the tile's last key.
-template <typename T, int HD>
+template <typename T, int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
     split_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -284,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, Strides sq, Strides sk,
                          Strides sv, Strides sdo, int H, Band band,
-                         float scale, float qscale) {
+                         float scale, float qscale, Dropout drop) {
   static_assert(std::is_same<T, float>::value,
                 "bf16 runs split_bwd_dkv_kernel_sm90");
   constexpr int LD = HD + Ty<T>::kPad;
@@ -333,6 +356,7 @@ __global__ void __launch_bounds__(kThreads)
     warp_gemm<T, NTS, HD, false, false>(sT, Kw, LD, Qs, LD, lane);
     warp_gemm<T, NTS, HD, false, false>(dpT, Vw, LD, dOs, LD, lane);
     const bool edge = band.edge(i0, kBQb, j0, kBK);
+    bool kp[2][2];  // DROPOUT: keep bits of this q row pair at both keys
 #pragma unroll
     for (int nt = 0; nt < NTS; ++nt)
 #pragma unroll
@@ -341,9 +365,18 @@ __global__ void __launch_bounds__(kThreads)
         float x = sT[nt][e] * qscale;
         if (edge && (i >= band.Sq || band.masked(i, jr[e >> 1]))) x = kNegInf;
         const float p = exp2f(fminf(x - lse_s[li], 0.f));  // see K6
-        const float ds = p * (dpT[nt][e] - delta_s[li]) * scale;
+        float pv = p, d = dpT[nt][e];
+        if constexpr (DROPOUT) {
+          if (e == 0)
+            for (int y = 0; y < 2; ++y)
+              drop.rows2(b, h, i0 + nt * 8 + c, jr[y], kp[y][0], kp[y][1]);
+          const bool keep = kp[e >> 1][e & 1];
+          pv = keep ? p * drop.inv_keep : 0.f;
+          d = keep ? d * drop.inv_keep : 0.f;
+        }
+        const float ds = p * (d - delta_s[li]) * scale;
         const int at = (r + 8 * (e >> 1)) * LDP + li;
-        PTw[at] = Ty<T>::from(p);
+        PTw[at] = Ty<T>::from(pv);
         dSTw[at] = Ty<T>::from(ds);
       }
     __syncwarp();
@@ -449,7 +482,7 @@ struct SplitTiles {
 
 // K6: grid (H, B, ceil(Sq / 128)), q tiles from the last (the longest
 // walks first under a causal band); the walk is dq_walk
-template <int HD>
+template <int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     split_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
@@ -458,17 +491,18 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              bf16* __restrict__ dq, int B, int H, Band band,
-                             float scale, float qscale) {
+                             float scale, float qscale, Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const SplitTiles<HD> t{&q_map, &k_map, &v_map, &do_map, lse, delta, dq,
                          nullptr, nullptr, band, B, H, H};
-  dq_walk<HD>(t, align1024(smem_raw), blockIdx.x, blockIdx.y,
-              (gridDim.z - 1 - blockIdx.z) * kBM, scale, qscale);
+  dq_walk<HD, DROPOUT>(t, align1024(smem_raw), blockIdx.x, blockIdx.y,
+                       (gridDim.z - 1 - blockIdx.z) * kBM, scale, qscale,
+                       drop);
 }
 
 // K7: a persistent grid over (k tile, batch, head) items, k-tile-major
 // (the longest walks first); the walk is kv_walk
-template <int HD>
+template <int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     split_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap k_map,
@@ -478,12 +512,12 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                               const float* __restrict__ delta,
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               int B, int H, Band band, float scale,
-                              float qscale) {
+                              float qscale, Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const SplitTiles<HD> t{&q_map, &k_map, &v_map, &do_map, lse, delta,
                          nullptr, dk, dv, band, B, H, H};
-  kv_walk<HD, false>(t, align1024(smem_raw), nullptr, nullptr, scale,
-                     qscale);
+  kv_walk<HD, false, DROPOUT>(t, align1024(smem_raw), nullptr, nullptr,
+                              scale, qscale, drop);
 }
 
 // ------------------------------------------------------------------- host
@@ -518,6 +552,7 @@ struct Args {
   Band band;
   float scale;
   cudaStream_t stream;
+  Dropout drop;  // threshold 0: no dropout
 };
 
 // above 48 KB a kernel's dynamic shared memory must be allowed explicitly
@@ -528,44 +563,44 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool DROP>
 cudaError_t fwd(const Args& a) {
   const size_t smem = fwd_smem<T, HD>();
-  cudaError_t err = allow_smem(split_fwd_kernel<T, HD>, smem);
+  cudaError_t err = allow_smem(split_fwd_kernel<T, HD, DROP>, smem);
   if (err) return err;
   const dim3 grid((a.band.Sq + kBQ - 1) / kBQ, a.H, a.B);
-  split_fwd_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+  split_fwd_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse_out, a.sq,
-      a.sk, a.sv, a.H, a.band, a.scale * kLog2e);
+      a.sk, a.sv, a.H, a.band, a.scale * kLog2e, a.drop);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool DROP>
 cudaError_t bwd_dq(const Args& a) {
   const size_t smem = dq_smem<T, HD>();
-  cudaError_t err = allow_smem(split_bwd_dq_kernel<T, HD>, smem);
+  cudaError_t err = allow_smem(split_bwd_dq_kernel<T, HD, DROP>, smem);
   if (err) return err;
   const dim3 grid((a.band.Sq + kBQ - 1) / kBQ, a.H, a.B);
-  split_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+  split_bwd_dq_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
       a.delta, static_cast<T*>(a.out), a.sq, a.sk, a.sv, a.sdo, a.H, a.band,
-      a.scale, a.scale * kLog2e);
+      a.scale, a.scale * kLog2e, a.drop);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool DROP>
 cudaError_t bwd_dkv(const Args& a) {
   const size_t smem = dkv_smem<T, HD>();
-  cudaError_t err = allow_smem(split_bwd_dkv_kernel<T, HD>, smem);
+  cudaError_t err = allow_smem(split_bwd_dkv_kernel<T, HD, DROP>, smem);
   if (err) return err;
   const dim3 grid((a.band.Skv + kBK - 1) / kBK, a.H, a.B);
-  split_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+  split_bwd_dkv_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
       a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk,
-      a.sv, a.sdo, a.H, a.band, a.scale, a.scale * kLog2e);
+      a.sv, a.sdo, a.H, a.band, a.scale, a.scale * kLog2e, a.drop);
   return cudaGetLastError();
 }
 
@@ -601,29 +636,30 @@ cudaError_t split_maps(CUtensorMap (&m)[4], const Args& a) {
   return cudaSuccess;
 }
 
-template <int HD>
+template <int HD, bool DROP>
 cudaError_t bwd_dq_sm90(const Args& a) {
   CUtensorMap m[4];
   cudaError_t err = split_maps(m, a);
   if (err) return err;
   const size_t smem = DqSmem<HD>::kBytes;
-  err = allow_smem(split_bwd_dq_kernel_sm90<HD>, smem);
+  err = allow_smem(split_bwd_dq_kernel_sm90<HD, DROP>, smem);
   if (err) return err;
   const dim3 grid(a.H, a.B, (a.band.Sq + kBM - 1) / kBM);
   if (grid.z > 65535) return cudaErrorInvalidValue;
-  split_bwd_dq_kernel_sm90<HD><<<grid, kHopperThreads, smem, a.stream>>>(
+  split_bwd_dq_kernel_sm90<HD, DROP><<<grid, kHopperThreads, smem,
+                                       a.stream>>>(
       m[0], m[1], m[2], m[3], a.lse_in, a.delta, static_cast<bf16*>(a.out),
-      a.B, a.H, a.band, a.scale, a.scale * kLog2e);
+      a.B, a.H, a.band, a.scale, a.scale * kLog2e, a.drop);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool DROP>
 cudaError_t bwd_dkv_sm90(const Args& a) {
   CUtensorMap m[4];
   cudaError_t err = split_maps(m, a);
   if (err) return err;
   const size_t smem = KvSmem<HD, false>::kBytes;
-  err = allow_smem(split_bwd_dkv_kernel_sm90<HD>, smem);
+  err = allow_smem(split_bwd_dkv_kernel_sm90<HD, DROP>, smem);
   if (err) return err;
   int sms = 0;
   err = sm_count(&sms);
@@ -632,33 +668,41 @@ cudaError_t bwd_dkv_sm90(const Args& a) {
       (long long)((a.band.Skv + kBN - 1) / kBN) * a.B * a.H;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
   const int grid = (int)(items < sms ? items : sms);
-  split_bwd_dkv_kernel_sm90<HD><<<grid, kHopperThreads, smem, a.stream>>>(
+  split_bwd_dkv_kernel_sm90<HD, DROP><<<grid, kHopperThreads, smem,
+                                        a.stream>>>(
       m[0], m[1], m[2], m[3], a.lse_in, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.B, a.H, a.band, a.scale,
-      a.scale * kLog2e);
+      a.scale * kLog2e, a.drop);
   return cudaGetLastError();
 }
 
 enum Which { kFwd, kDq, kDkv };
 
 // the bf16 backward takes the Hopper kernels; K5 and f32 the mma.sync/FFMA
-template <typename T, int HD>
+template <typename T, int HD, bool DROP>
 cudaError_t dispatch(Which w, const Args& a) {
-  if (w == kFwd) return fwd<T, HD>(a);
+  if (w == kFwd) return fwd<T, HD, DROP>(a);
   if constexpr (std::is_same<T, bf16>::value) {
-    if (w == kDq) return bwd_dq_sm90<HD>(a);
-    if (w == kDkv) return bwd_dkv_sm90<HD>(a);
+    if (w == kDq) return bwd_dq_sm90<HD, DROP>(a);
+    if (w == kDkv) return bwd_dkv_sm90<HD, DROP>(a);
   } else {
-    if (w == kDq) return bwd_dq<T, HD>(a);
-    if (w == kDkv) return bwd_dkv<T, HD>(a);
+    if (w == kDq) return bwd_dq<T, HD, DROP>(a);
+    if (w == kDkv) return bwd_dkv<T, HD, DROP>(a);
   }
   return cudaErrorInvalidValue;
 }
 
+// the DROPOUT instantiations when the threshold is not 0
+template <typename T, int HD>
+cudaError_t dispatch_drop(Which w, const Args& a) {
+  if (a.drop.threshold != 0) return dispatch<T, HD, true>(w, a);
+  return dispatch<T, HD, false>(w, a);
+}
+
 template <typename T>
 cudaError_t dispatch_hd(Which w, const Args& a) {
-  if (a.hd == 64) return dispatch<T, 64>(w, a);
-  if (a.hd == 128) return dispatch<T, 128>(w, a);
+  if (a.hd == 64) return dispatch_drop<T, 64>(w, a);
+  if (a.hd == 128) return dispatch_drop<T, 128>(w, a);
   return cudaErrorInvalidValue;
 }
 
@@ -677,19 +721,28 @@ Strides strides_of(const long long* s, int i) {
   return {s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
+Dropout dropout_of(unsigned long long seed, unsigned threshold,
+                   float inv_keep) {
+  return Dropout{(uint32_t)seed, (uint32_t)(seed >> 32), threshold, inv_keep};
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes). dtype: 0 = float32, 1 = bfloat16; hd
 // 64 or 128. `strides` holds (batch, head, row) strides in elements: q, k, v
-// for the forward, then do for the backward. Each returns a cudaError_t: 0
-// when the launch was accepted.
+// for the forward, then do for the backward. Attention dropout
+// (dropout.cuh): seed, threshold = min(floor(rate 2^32), 2^32 - 1) and
+// inv_keep = 1 / (1 - rate); threshold 0 runs without it. Each returns a
+// cudaError_t: 0 when the launch was accepted.
 
 // out (B, H, Sq, hd) and lse (B, H, Sq) f32
 extern "C" int nk_flash_fwd(int dtype, const void* q, const void* k,
                             const void* v, void* out, void* lse,
                             const long long* strides, int B, int H, int Sq,
                             int Skv, int hd, float scale, int causal,
-                            int window, void* stream) {
+                            int window, unsigned long long seed,
+                            unsigned threshold, float inv_keep,
+                            void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.out = out;
   a.lse_out = static_cast<float*>(lse);
@@ -700,6 +753,7 @@ extern "C" int nk_flash_fwd(int dtype, const void* q, const void* k,
   a.band = Band{Sq, Skv, causal, window};
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.drop = dropout_of(seed, threshold, inv_keep);
   return run(dtype, kFwd, a);
 }
 
@@ -709,7 +763,9 @@ extern "C" int nk_flash_bwd_dq(int dtype, const void* q, const void* k,
                                const void* lse, const void* delta, void* dq,
                                const long long* strides, int B, int H, int Sq,
                                int Skv, int hd, float scale, int causal,
-                               int window, void* stream) {
+                               int window, unsigned long long seed,
+                               unsigned threshold, float inv_keep,
+                               void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.out = dq;
   a.lse_in = static_cast<const float*>(lse);
@@ -722,6 +778,7 @@ extern "C" int nk_flash_bwd_dq(int dtype, const void* q, const void* k,
   a.band = Band{Sq, Skv, causal, window};
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.drop = dropout_of(seed, threshold, inv_keep);
   return run(dtype, kDq, a);
 }
 
@@ -731,7 +788,9 @@ extern "C" int nk_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                 const void* lse, const void* delta, void* dk,
                                 void* dv, const long long* strides, int B,
                                 int H, int Sq, int Skv, int hd, float scale,
-                                int causal, int window, void* stream) {
+                                int causal, int window,
+                                unsigned long long seed, unsigned threshold,
+                                float inv_keep, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.dk = dk; a.dv = dv;
   a.lse_in = static_cast<const float*>(lse);
@@ -744,5 +803,6 @@ extern "C" int nk_flash_bwd_dkv(int dtype, const void* q, const void* k,
   a.band = Band{Sq, Skv, causal, window};
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.drop = dropout_of(seed, threshold, inv_keep);
   return run(dtype, kDkv, a);
 }

@@ -70,10 +70,14 @@
 // split-layout kernels of flash_attention.cu), hopper.cuh (PTX for TMA,
 // mbarriers, wgmma) and flash_sm90.cuh (the K2a and K2b/K2c walks, which
 // the split layout's K6 and K7 run too; PackedTiles below says where this
-// layout's tiles and results are). Not done yet: in-kernel dropout, overlapping one
-// tile's softmax with the next tile's products inside a warpgroup, and
-// K2a's 64-row k tiles at 128 (its registers: S, dP and dQ at 64 x 128
-// would take 192 f32 a thread before the fragments).
+// layout's tiles and results are). Attention dropout: every kernel has a
+// DROPOUT template flag; set, it draws the keep bit of each (row, col) from
+// dropout.cuh on every tile (interior tiles included), zeroes the dropped p
+// before P V and scales the output by 1 / (1 - rate) in K1, and drops dp and
+// the p of dV in K2; unset, the code is that of no dropout. Not done yet:
+// overlapping one tile's softmax with the next tile's products inside a
+// warpgroup, and K2a's 64-row k tiles at 128 (its registers: S, dP and dQ
+// at 64 x 128 would take 192 f32 a thread before the fragments).
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda link (see encoder)
 #include <math.h>
@@ -114,11 +118,11 @@ __device__ __forceinline__ void row_stats(float* delta_s, float* lse_s,
 
 // ---------------------------------------------------------------- forward
 // grid (ceil(S / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15.
-template <typename T, int HD>
+template <typename T, int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                      float* __restrict__ lse, int S, int H, int G,
-                     float qscale, int causal, int fast) {
+                     float qscale, int causal, int fast, Dropout drop) {
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBK + Ty<T>::kPad;
   constexpr int NTS = kBK / 8, NTO = HD / 8;
@@ -180,12 +184,19 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     float sum[2] = {0.f, 0.f};
+    bool kp[2][2];  // DROPOUT: keep bits of this column pair in both rows
 #pragma unroll
     for (int nt = 0; nt < NTS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_new[e >> 1]);
-        sum[e >> 1] += p;
+        float p = exp2f(s[nt][e] - m_new[e >> 1]);
+        sum[e >> 1] += p;  // l stays unmasked
+        if constexpr (DROPOUT) {
+          if (e == 0)
+            for (int x = 0; x < 2; ++x)
+              drop.cols2(b, h, row[x], j0 + nt * 8 + c, kp[x][0], kp[x][1]);
+          if (!kp[e >> 1][e & 1]) p = 0.f;
+        }
         Pw[(r + 8 * (e >> 1)) * LDP + nt * 8 + c + (e & 1)] = Ty<T>::from(p);
       }
 #pragma unroll
@@ -207,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int x = 0; x < 2; ++x) {
     const int rw = row[x];
     if (rw >= S) continue;
-    const float inv = 1.f / l[x];
+    const float inv = (DROPOUT ? drop.inv_keep : 1.f) / l[x];
     T* orow = out + ((size_t)b * S + rw) * H * HD + (size_t)h * HD;
 #pragma unroll
     for (int nt = 0; nt < NTO; ++nt) {
@@ -222,13 +233,13 @@ __global__ void __launch_bounds__(kThreads)
 // -------------------------------------------------------- backward: dq only
 // grid (ceil(S / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15 and
 // walks the k tiles up to the causal edge, as _bwd_dq_kernel_qkv does.
-template <typename T, int HD>
+template <typename T, int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
                         const float* __restrict__ lse,
                         const T* __restrict__ dout, T* __restrict__ dqkv,
                         int S, int H, int G, float scale, float qscale,
-                        int causal) {
+                        int causal, Dropout drop) {
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBK + Ty<T>::kPad;
   constexpr int NTS = kBK / 8, NTO = HD / 8;
@@ -276,6 +287,7 @@ __global__ void __launch_bounds__(kThreads)
     zero(dp);
     warp_gemm<T, NTS, HD, false, false>(s, Qw, LD, Ks, LD, lane);
     warp_gemm<T, NTS, HD, false, false>(dp, dOw, LD, Vs, LD, lane);
+    bool kp[2][2];  // DROPOUT: keep bits of this column pair in both rows
 #pragma unroll
     for (int nt = 0; nt < NTS; ++nt)
 #pragma unroll
@@ -285,7 +297,15 @@ __global__ void __launch_bounds__(kThreads)
         float v = s[nt][e] * qscale;
         if (col >= S || rw >= S || (causal && col > rw)) v = kNegInf;
         const float p = exp2f(v - lse_s[lrow]);
-        const float ds = p * (dp[nt][e] - delta_s[lrow]) * scale;
+        float d = dp[nt][e];
+        if constexpr (DROPOUT) {
+          if (e == 0)
+            for (int x = 0; x < 2; ++x)
+              drop.cols2(b, h, i0 + lr[x], j0 + nt * 8 + c, kp[x][0],
+                         kp[x][1]);
+          d = kp[e >> 1][e & 1] ? d * drop.inv_keep : 0.f;
+        }
+        const float ds = p * (d - delta_s[lrow]) * scale;
         dSw[(r + 8 * (e >> 1)) * LDP + nt * 8 + c + (e & 1)] = Ty<T>::from(ds);
       }
     __syncwarp();
@@ -319,14 +339,14 @@ __global__ void __launch_bounds__(kThreads)
 // taking its items in order: an item waits only on the one before it, so
 // the lowest unfinished item can always run. Without FUSED a CTA takes one
 // item.
-template <typename T, int HD, bool FUSED>
+template <typename T, int HD, bool FUSED, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kv_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
                         const float* __restrict__ lse,
                         const T* __restrict__ dout, T* __restrict__ dqkv,
                         float* __restrict__ dq_acc, int* __restrict__ dq_turn,
                         int B, int S, int H, int G, float scale, float qscale,
-                        int causal) {
+                        int causal, Dropout drop) {
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBQb + Ty<T>::kPad;
   constexpr int NTS = kBQb / 8, NTO = HD / 8;
@@ -385,6 +405,7 @@ __global__ void __launch_bounds__(kThreads)
         zero(dpT);
         warp_gemm<T, NTS, HD, false, false>(sT, Kw, LD, Qs, LD, lane);
         warp_gemm<T, NTS, HD, false, false>(dpT, Vw, LD, dOs, LD, lane);
+        bool kp[2][2];  // DROPOUT: keep bits of this q row pair at both keys
 #pragma unroll
         for (int nt = 0; nt < NTS; ++nt)
 #pragma unroll
@@ -394,9 +415,19 @@ __global__ void __launch_bounds__(kThreads)
             float v = sT[nt][e] * qscale;
             if (i >= S || j >= S || (causal && j > i)) v = kNegInf;
             const float p = exp2f(v - lse_s[li]);
-            const float ds = p * (dpT[nt][e] - delta_s[li]) * scale;
+            float pv = p, d = dpT[nt][e];
+            if constexpr (DROPOUT) {
+              if (e == 0)
+                for (int x = 0; x < 2; ++x)
+                  drop.rows2(b, h, i0 + nt * 8 + c, jr[x], kp[x][0],
+                             kp[x][1]);
+              const bool k = kp[e >> 1][e & 1];
+              pv = k ? p * drop.inv_keep : 0.f;
+              d = k ? d * drop.inv_keep : 0.f;
+            }
+            const float ds = p * (d - delta_s[li]) * scale;
             const int at = (r + 8 * (e >> 1)) * LDP + li;
-            PTw[at] = Ty<T>::from(p);
+            PTw[at] = Ty<T>::from(pv);
             dSTw[at] = Ty<T>::from(ds);
           }
         __syncwarp();
@@ -524,12 +555,12 @@ struct FwdSmem {
 // A from registers, V MN-major). The producer loads Q once and K, V
 // through the ring, K and V on separate barriers so that S starts before
 // V has landed.
-template <int HD>
+template <int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap qkv_map,
                           bf16* __restrict__ out, float* __restrict__ lse,
                           int S, int H, int G, float qscale, int causal,
-                          int fast) {
+                          int fast, Dropout drop) {
   using Sm = FwdSmem<HD>;
   constexpr int P = Sm::P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -643,6 +674,15 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         l[x] = l[x] * alpha[x] + quad_sum(sum[x]);
         m[x] = m_new[x];
       }
+      if constexpr (DROPOUT) {  // every tile, after l: zero the dropped p
+#pragma unroll
+        for (int i = 0; i < kBN / 2; i += 2) {
+          bool k0, k1;
+          drop.cols2(b, h, row[(i >> 1) & 1], j0 + 8 * (i / 4) + c, k0, k1);
+          if (!k0) sc[i] = 0.f;
+          if (!k1) sc[i + 1] = 0.f;
+        }
+      }
       if (!fast) {
 #pragma unroll
         for (int p = 0; p < P; ++p)
@@ -670,7 +710,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       if (row[x] >= S) continue;
-      const float inv = 1.f / l[x];
+      const float inv = (DROPOUT ? drop.inv_keep : 1.f) / l[x];
       bf16* orow = out + ((size_t)b * S + row[x]) * H * HD + (size_t)h * HD;
 #pragma unroll
       for (int p = 0; p < P; ++p)
@@ -790,24 +830,26 @@ struct PackedTiles {
 // ------------------------------------------------------ K2a on Hopper
 // grid (H, B, ceil(S / 128)), q tiles from the last (causal rows longest
 // first); the walk is dq_walk (flash_sm90.cuh)
-template <int HD>
+template <int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap qkv_map,
                              const __grid_constant__ CUtensorMap do_map,
                              const float2* __restrict__ stats,
                              bf16* __restrict__ dqkv, int B, int S, int H,
-                             int G, float scale, float qscale, int causal) {
+                             int G, float scale, float qscale, int causal,
+                             Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const PackedTiles<HD> t{&qkv_map, &do_map, stats, dqkv,
                           Band{S, S, causal, 0}, B, H, G, H / G};
-  dq_walk<HD>(t, align1024(smem_raw), blockIdx.x, blockIdx.y,
-              (gridDim.z - 1 - blockIdx.z) * kBM, scale, qscale);
+  dq_walk<HD, DROPOUT>(t, align1024(smem_raw), blockIdx.x, blockIdx.y,
+                       (gridDim.z - 1 - blockIdx.z) * kBM, scale, qscale,
+                       drop);
 }
 
 // ------------------------------------ K2 dk/dv walk (and fused dq), Hopper
 // a persistent grid over (k tile, batch, kv group) items; the walk is
 // kv_walk (flash_sm90.cuh), FUSED = K2c/K2d
-template <int HD, bool FUSED>
+template <int HD, bool FUSED, bool DROPOUT>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     flash_bwd_kv_kernel_sm90(const __grid_constant__ CUtensorMap qkv_map,
                              const __grid_constant__ CUtensorMap do_map,
@@ -815,11 +857,13 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                              bf16* __restrict__ dqkv,
                              float* __restrict__ dq_acc,
                              int* __restrict__ dq_turn, int B, int S, int H,
-                             int G, float scale, float qscale, int causal) {
+                             int G, float scale, float qscale, int causal,
+                             Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const PackedTiles<HD> t{&qkv_map, &do_map, stats, dqkv,
                           Band{S, S, causal, 0}, B, H, G, H / G};
-  kv_walk<HD, FUSED>(t, align1024(smem_raw), dq_acc, dq_turn, scale, qscale);
+  kv_walk<HD, FUSED, DROPOUT>(t, align1024(smem_raw), dq_acc, dq_turn, scale,
+                              qscale, drop);
 }
 
 // the bf16 fused walk's f32 dq scratch (B, H, ceil(S / 64), 64, LDQ) ->
@@ -883,6 +927,7 @@ struct Args {
   int B, S, H, KV, hd, causal, fast;
   float scale;
   cudaStream_t stream;
+  Dropout drop;  // threshold 0: no dropout
 };
 
 // above 48 KB a kernel's dynamic shared memory must be allowed explicitly
@@ -893,37 +938,37 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool DROP>
 cudaError_t fwd(const Args& a) {
   const size_t smem = fwd_smem<T, HD>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, HD>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, HD, DROP>, smem);
   if (err) return err;
   const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, a.B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+  flash_fwd_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.qkv), static_cast<T*>(a.out),
       static_cast<float*>(a.lse_out), a.S, a.H, a.H / a.KV,
-      a.scale * kLog2e, a.causal, a.fast);
+      a.scale * kLog2e, a.causal, a.fast, a.drop);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool DROP>
 cudaError_t bwd_dq(const Args& a) {
   const size_t smem = dq_smem<T, HD>();
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, HD>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, HD, DROP>, smem);
   if (err) return err;
   const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dq_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.qkv), static_cast<const T*>(a.o),
       static_cast<const float*>(a.lse), static_cast<const T*>(a.dout),
       static_cast<T*>(a.out), a.S, a.H, a.H / a.KV, a.scale,
-      a.scale * kLog2e, a.causal);
+      a.scale * kLog2e, a.causal, a.drop);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool FUSED>
+template <typename T, int HD, bool FUSED, bool DROP>
 cudaError_t bwd_kv(const Args& a) {
   const size_t smem = kv_smem<T, HD>();
-  const auto kernel = flash_bwd_kv_kernel<T, HD, FUSED>;
+  const auto kernel = flash_bwd_kv_kernel<T, HD, FUSED, DROP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err) return err;
   const long long items = (long long)((a.S + kBK - 1) / kBK) * a.KV * a.B;
@@ -943,7 +988,7 @@ cudaError_t bwd_kv(const Args& a) {
       static_cast<const T*>(a.qkv), static_cast<const T*>(a.o),
       static_cast<const float*>(a.lse), static_cast<const T*>(a.dout),
       static_cast<T*>(a.out), a.dq_acc, a.turn, a.B, a.S, a.H, a.H / a.KV,
-      a.scale, a.scale * kLog2e, a.causal);
+      a.scale, a.scale * kLog2e, a.causal, a.drop);
   err = cudaGetLastError();
   if (err || !FUSED) return err;
   const size_t n = (size_t)a.B * a.S * a.H * HD;
@@ -966,20 +1011,20 @@ cudaError_t packed_map(CUtensorMap* map, const void* base, int width, int S,
                   strides, box);
 }
 
-template <int HD>
+template <int HD, bool DROP>
 cudaError_t fwd_sm90(const Args& a) {
   CUtensorMap map;
   const int W = (a.H + 2 * a.KV) * HD;
   cudaError_t err = packed_map(&map, a.qkv, W, a.S, a.B);
   if (err) return err;
   const size_t smem = FwdSmem<HD>::kBytes;
-  err = allow_smem(flash_fwd_kernel_sm90<HD>, smem);
+  err = allow_smem(flash_fwd_kernel_sm90<HD, DROP>, smem);
   if (err) return err;
   const dim3 grid(a.H, a.B, (a.S + kBM - 1) / kBM);
   if (grid.z > 65535) return cudaErrorInvalidValue;
-  flash_fwd_kernel_sm90<HD><<<grid, kHopperThreads, smem, a.stream>>>(
+  flash_fwd_kernel_sm90<HD, DROP><<<grid, kHopperThreads, smem, a.stream>>>(
       map, static_cast<bf16*>(a.out), static_cast<float*>(a.lse_out), a.S,
-      a.H, a.H / a.KV, a.scale * kLog2e, a.causal, a.fast);
+      a.H, a.H / a.KV, a.scale * kLog2e, a.causal, a.fast, a.drop);
   return cudaGetLastError();
 }
 
@@ -997,7 +1042,7 @@ cudaError_t bwd_stats(const Args& a) {
 }
 
 // K2a on Hopper: the pre-pass unless the caller ran it, then the q tiles
-template <int HD>
+template <int HD, bool DROP>
 cudaError_t bwd_dq_sm90(const Args& a) {
   cudaError_t err = a.have_stats ? cudaSuccess : bwd_stats<HD>(a);
   if (err) return err;
@@ -1006,20 +1051,21 @@ cudaError_t bwd_dq_sm90(const Args& a) {
   if (!err) err = packed_map(&do_map, a.dout, a.H * HD, a.S, a.B);
   if (err) return err;
   const size_t smem = DqSmem<HD>::kBytes;
-  err = allow_smem(flash_bwd_dq_kernel_sm90<HD>, smem);
+  err = allow_smem(flash_bwd_dq_kernel_sm90<HD, DROP>, smem);
   if (err) return err;
   const dim3 grid(a.H, a.B, (a.S + kBM - 1) / kBM);
   if (grid.z > 65535) return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel_sm90<HD><<<grid, kHopperThreads, smem, a.stream>>>(
+  flash_bwd_dq_kernel_sm90<HD, DROP><<<grid, kHopperThreads, smem,
+                                       a.stream>>>(
       qkv_map, do_map, static_cast<const float2*>(a.stats),
       static_cast<bf16*>(a.out), a.B, a.S, a.H, a.H / a.KV, a.scale,
-      a.scale * kLog2e, a.causal);
+      a.scale * kLog2e, a.causal, a.drop);
   return cudaGetLastError();
 }
 
 // the pre-pass (unless the caller ran it; the fused walk always runs it),
 // then the walk on a persistent grid
-template <int HD, bool FUSED>
+template <int HD, bool FUSED, bool DROP>
 cudaError_t bwd_kv_sm90(const Args& a) {
   cudaError_t err =
       a.have_stats && !FUSED ? cudaSuccess : bwd_stats<HD>(a);
@@ -1029,7 +1075,7 @@ cudaError_t bwd_kv_sm90(const Args& a) {
   if (!err) err = packed_map(&do_map, a.dout, a.H * HD, a.S, a.B);
   if (err) return err;
   const size_t smem = KvSmem<HD, FUSED>::kBytes;
-  err = allow_smem(flash_bwd_kv_kernel_sm90<HD, FUSED>, smem);
+  err = allow_smem(flash_bwd_kv_kernel_sm90<HD, FUSED, DROP>, smem);
   if (err) return err;
   int sms = 0;
   err = sm_count(&sms);
@@ -1037,11 +1083,11 @@ cudaError_t bwd_kv_sm90(const Args& a) {
   const long long items =
       (long long)((a.S + kBN - 1) / kBN) * a.B * a.KV;
   const int grid = (int)(items < sms ? items : sms);
-  flash_bwd_kv_kernel_sm90<HD, FUSED><<<grid, kHopperThreads, smem,
-                                        a.stream>>>(
+  flash_bwd_kv_kernel_sm90<HD, FUSED, DROP><<<grid, kHopperThreads, smem,
+                                              a.stream>>>(
       qkv_map, do_map, static_cast<const float2*>(a.stats),
       static_cast<bf16*>(a.out), a.dq_acc, a.turn, a.B, a.S, a.H,
-      a.H / a.KV, a.scale, a.scale * kLog2e, a.causal);
+      a.H / a.KV, a.scale, a.scale * kLog2e, a.causal, a.drop);
   err = cudaGetLastError();
   if (err || !FUSED) return err;
   const size_t n = (size_t)a.B * a.S * a.H * HD / 2;
@@ -1054,31 +1100,40 @@ cudaError_t bwd_kv_sm90(const Args& a) {
 enum Which { kFwd, kStats, kDq, kDkv, kFused };
 
 // bf16 takes the Hopper kernels; f32 keeps the mma.sync/FFMA ones
-template <typename T, int HD>
+template <typename T, int HD, bool DROP>
 cudaError_t dispatch(Which w, const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
     switch (w) {
-      case kFwd: return fwd_sm90<HD>(a);
+      case kFwd: return fwd_sm90<HD, DROP>(a);
       case kStats: return bwd_stats<HD>(a);
-      case kDq: return bwd_dq_sm90<HD>(a);
-      case kDkv: return bwd_kv_sm90<HD, false>(a);
-      case kFused: return bwd_kv_sm90<HD, true>(a);
+      case kDq: return bwd_dq_sm90<HD, DROP>(a);
+      case kDkv: return bwd_kv_sm90<HD, false, DROP>(a);
+      case kFused: return bwd_kv_sm90<HD, true, DROP>(a);
     }
   } else {
     switch (w) {
-      case kFwd: return fwd<T, HD>(a);
-      case kDq: return bwd_dq<T, HD>(a);
-      case kDkv: return bwd_kv<T, HD, false>(a);
-      case kFused: return bwd_kv<T, HD, true>(a);
+      case kFwd: return fwd<T, HD, DROP>(a);
+      case kDq: return bwd_dq<T, HD, DROP>(a);
+      case kDkv: return bwd_kv<T, HD, false, DROP>(a);
+      case kFused: return bwd_kv<T, HD, true, DROP>(a);
+      case kStats: break;
     }
   }
   return cudaErrorInvalidValue;
 }
 
+// the pre-pass has no dropout; every other kernel runs its DROPOUT
+// instantiation when the threshold is not 0
+template <typename T, int HD>
+cudaError_t dispatch_drop(Which w, const Args& a) {
+  if (a.drop.threshold != 0 && w != kStats) return dispatch<T, HD, true>(w, a);
+  return dispatch<T, HD, false>(w, a);
+}
+
 template <typename T>
 cudaError_t dispatch_hd(Which w, const Args& a) {
-  if (a.hd == 64) return dispatch<T, 64>(w, a);
-  if (a.hd == 128) return dispatch<T, 128>(w, a);
+  if (a.hd == 64) return dispatch_drop<T, 64>(w, a);
+  if (a.hd == 128) return dispatch_drop<T, 128>(w, a);
   return cudaErrorInvalidValue;
 }
 
@@ -1091,20 +1146,29 @@ int run(int dtype, Which w, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+Dropout dropout_of(unsigned long long seed, unsigned threshold,
+                   float inv_keep) {
+  return Dropout{(uint32_t)seed, (uint32_t)(seed >> 32), threshold, inv_keep};
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes). dtype: 0 = float32, 1 = bfloat16;
-// hd 64 or 128; any KV dividing H. Each returns a cudaError_t: 0 when the
-// launch was accepted.
+// hd 64 or 128; any KV dividing H. Attention dropout (dropout.cuh): seed,
+// threshold = min(floor(rate 2^32), 2^32 - 1) and inv_keep = 1 / (1 -
+// rate); threshold 0 runs without it. Each returns a cudaError_t: 0 when
+// the launch was accepted.
 
 // out (B, S, H hd) and lse (B, H, S) f32 from qkv (B, S, W)
 extern "C" int nk_flash_fwd_qkv(int dtype, const void* qkv, void* out,
                                 void* lse, int B, int S, int H, int KV,
                                 int hd, float scale, int causal, int fast,
-                                void* stream) {
+                                unsigned long long seed, unsigned threshold,
+                                float inv_keep, void* stream) {
   Args a{qkv, nullptr, nullptr, nullptr, out, lse, nullptr, nullptr, nullptr,
          0, B, S, H, KV, hd, causal, fast, scale,
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream),
+         dropout_of(seed, threshold, inv_keep)};
   return run(dtype, kFwd, a);
 }
 
@@ -1116,7 +1180,8 @@ extern "C" int nk_flash_bwd_stats_qkv(int dtype, const void* o,
                                       void* stats, int B, int S, int H,
                                       int hd, void* stream) {
   Args a{nullptr, o, lse, dout, nullptr, nullptr, nullptr, stats, nullptr,
-         0, B, S, H, H, hd, 0, 0, 0.f, static_cast<cudaStream_t>(stream)};
+         0, B, S, H, H, hd, 0, 0, 0.f, static_cast<cudaStream_t>(stream),
+         Dropout{}};
   return run(dtype, kStats, a);
 }
 
@@ -1126,10 +1191,14 @@ extern "C" int nk_flash_bwd_dq_qkv(int dtype, const void* qkv, const void* o,
                                    const void* lse, const void* dout,
                                    void* stats, int have_stats, void* dqkv,
                                    int B, int S, int H, int KV, int hd,
-                                   float scale, int causal, void* stream) {
+                                   float scale, int causal,
+                                   unsigned long long seed,
+                                   unsigned threshold, float inv_keep,
+                                   void* stream) {
   Args a{qkv, o, lse, dout, dqkv, nullptr, nullptr, stats, nullptr,
          have_stats, B, S, H, KV, hd, causal, 0, scale,
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream),
+         dropout_of(seed, threshold, inv_keep)};
   return run(dtype, kDq, a);
 }
 
@@ -1139,10 +1208,13 @@ extern "C" int nk_flash_bwd_dkv_qkv(int dtype, const void* qkv,
                                     const void* dout, void* stats,
                                     int have_stats, void* dqkv, int B, int S,
                                     int H, int KV, int hd, float scale,
-                                    int causal, void* stream) {
+                                    int causal, unsigned long long seed,
+                                    unsigned threshold, float inv_keep,
+                                    void* stream) {
   Args a{qkv, o, lse, dout, dqkv, nullptr, nullptr, stats, nullptr,
          have_stats, B, S, H, KV, hd, causal, 0, scale,
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream),
+         dropout_of(seed, threshold, inv_keep)};
   return run(dtype, kDkv, a);
 }
 
@@ -1157,10 +1229,14 @@ extern "C" int nk_flash_bwd_fused_qkv(int dtype, const void* qkv,
                                       const void* dout, void* stats,
                                       void* dq_acc, void* turn, void* dqkv,
                                       int B, int S, int H, int KV, int hd,
-                                      float scale, int causal, void* stream) {
+                                      float scale, int causal,
+                                      unsigned long long seed,
+                                      unsigned threshold, float inv_keep,
+                                      void* stream) {
   Args a{qkv, o, lse, dout, dqkv, nullptr, static_cast<float*>(dq_acc),
          stats, static_cast<int*>(turn), 0,
          B, S, H, KV, hd, causal, 0, scale,
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream),
+         dropout_of(seed, threshold, inv_keep)};
   return run(dtype, kFused, a);
 }

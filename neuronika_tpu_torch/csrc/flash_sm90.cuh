@@ -31,9 +31,16 @@
 // product is a wgmma; the scores stay in the accumulator registers, and P
 // and dS are rounded to bf16 there, as the TPU kernels round them, into
 // the A fragments of the next wgmma.
+//
+// Both walks take a DROPOUT flag: set, each computed tile draws its keep
+// bits from dropout.cuh (interior tiles too: the mask-free fast path of the
+// band does not skip them), dp = keep ? dp inv_keep : 0 before dS, and the
+// dk/dv walk feeds keep ? p inv_keep : 0 to dV; unset, the code is that of
+// no dropout.
 
 #pragma once
 
+#include "dropout.cuh"
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
 
@@ -183,10 +190,10 @@ struct DqSmem {
 // f32 a thread) within the consumers' 240 registers. A warpgroup whose 64
 // rows miss a tile of the walk (above its diagonal, below its window, past
 // Sq) only waits for the tile and frees it; interior tiles skip the mask.
-template <int HD, class Tiles>
+template <int HD, bool DROPOUT, class Tiles>
 __device__ __forceinline__ void dq_walk(const Tiles& t, unsigned char* smem,
                                         int h, int b, int i0, float scale,
-                                        float qscale) {
+                                        float qscale, const Dropout& drop) {
   using Sm = DqSmem<HD>;
   constexpr int P = Sm::P;
   unsigned char* Qs = smem;
@@ -287,13 +294,19 @@ __device__ __forceinline__ void dq_walk(const Tiles& t, unsigned char* smem,
       // accumulator entry i: row 16 warp + lane / 4 + 8 ((i / 2) % 2),
       // column 8 (i / 4) + c + i % 2
       const bool edge = band.edge(r0, 64, j0, kBKd);
+      bool kp[2];  // DROPOUT: keep bits of the column pair of entries i, i+1
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int x = (i >> 1) & 1;
         const int col = j0 + 8 * (i / 4) + c + (i & 1);
         const float p = band_p<Tiles::kClamp>(
             edge && (col < lo[x] || col >= hi[x]), sc[i] * qscale - st[x].x);
-        sc[i] = p * (dp[i] - st[x].y) * scale;
+        float d = dp[i];
+        if constexpr (DROPOUT) {
+          if ((i & 1) == 0) drop.cols2(b, h, row[x], col, kp[0], kp[1]);
+          d = kp[i & 1] ? d * drop.inv_keep : 0.f;
+        }
+        sc[i] = p * (d - st[x].y) * scale;
       }
       uint32_t ds[kBKd / 16][4];
       to_a_frags<kBKd>(ds, sc);
@@ -389,11 +402,12 @@ struct KvItem {
 // L2. No deadlock: an item waits only on the item before it (same b, g, k
 // tile kt - 1), and each CTA takes its items in order, so the lowest
 // unfinished item can always run.
-template <int HD, bool FUSED, class Tiles>
+template <int HD, bool FUSED, bool DROPOUT, class Tiles>
 __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
                                         float* __restrict__ dq_acc,
                                         int* __restrict__ dq_turn,
-                                        float scale, float qscale) {
+                                        float scale, float qscale,
+                                        const Dropout& drop) {
   using Sm = KvSmem<HD, FUSED>;
   constexpr int P = Sm::P;
   unsigned char* Ks = smem;
@@ -575,6 +589,7 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
               hi[x] -= i0;
             }
           }
+          bool kp[2];  // DROPOUT: keep bits of the q row pair of i, i + 1
 #pragma unroll
           for (int i = 0; i < 32; ++i) {
             const int li = 8 * (i / 4) + c + (i & 1);
@@ -582,8 +597,16 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
             const float2 ld = st_s[li];
             const float p = band_p<Tiles::kClamp>(li < lo[x] || li >= hi[x],
                                                   st[i] * qscale - ld.x);
-            st[i] = p;
-            dpt[i] = p * (dpt[i] - ld.y) * scale;
+            float pv = p, d = dpt[i];
+            if constexpr (DROPOUT) {
+              if ((i & 1) == 0)
+                drop.rows2(w.b, w.g * G + mem, i0 + li, krow0 + 8 * x, kp[0],
+                           kp[1]);
+              pv = kp[i & 1] ? p * drop.inv_keep : 0.f;
+              d = kp[i & 1] ? d * drop.inv_keep : 0.f;
+            }
+            st[i] = pv;
+            dpt[i] = p * (d - ld.y) * scale;
           }
           uint32_t pt[4][4], dst[4][4];
           to_a_frags<kBQh>(pt, st);

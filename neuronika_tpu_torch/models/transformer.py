@@ -19,9 +19,12 @@ flash op (K1/K2) for learned positions without a window, and the split
 flash op (K5-K7, `ops/flash_attention.py`) on q/k/v split out of the
 packed projection, rotated under rope, with or without a window.
 `fused_ce="on"` takes the loss through the fused linear cross-entropy
-(K8-K10, `ops/cross_entropy.py`) under JAX's gate. Mixture-of-experts
-raises `NotImplementedError` from `GPTConfig`, and so do remat policies
-other than "full"; in-kernel dropout raises on both flash paths.
+(K8-K10, `ops/cross_entropy.py`) under JAX's gate. Attention dropout runs
+inside the flash kernels, each layer's mask keyed by a seed drawn from the
+step's generator (`keep_mask`); the composite (flash="off", or "auto"
+where the kernels cannot take the shape) draws the same mask.
+Mixture-of-experts, sequence parallelism and remat policies other than
+"full" raise `NotImplementedError` from `GPTConfig`.
 
 Rounding that differs from the JAX package in bf16 (f32 is unaffected):
 * a bf16 matmul here returns bf16 (f32 accumulation inside), where JAX
@@ -48,7 +51,10 @@ import torch.utils.checkpoint
 from .._tree import tree_leaves, tree_map, tree_unflatten
 from ..device import resolve
 from ..ops.cross_entropy import fused_linear_cross_entropy
-from ..ops.flash_attention import flash_attention, flash_attention_qkv
+from ..ops.flash_attention import (_DTYPES as _FLASH_DTYPES, _HEAD_DIMS,
+                                   _MAX_G, flash_attention,
+                                   flash_attention_dropout,
+                                   flash_attention_qkv, keep_mask)
 from ..ops.paged_attention import paged_attention
 from ..optim.functional import adam_init, adam_update, clip_by_global_norm
 
@@ -80,12 +86,20 @@ class GPTConfig:
     causal: bool = True
     # sliding-window attention: attend the last `window` tokens (0 = full)
     window: int = 0
+    # mixture-of-experts and sequence parallelism (JAX's fields): only the
+    # defaults, a dense MLP on one device, are ported
     n_experts: int = 0
+    moe_impl: str = "dense"
+    moe_capacity: float = 2.0
+    moe_aux_weight: float = 0.0
+    seq_parallel: bool = False
     # training fields (JAX names and defaults; see the JAX GPTConfig)
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
-    # "auto"/"on": the flash-attention ops (the CUDA kernels for CUDA
-    # tensors, their plain versions on the CPU); "off": the composite
+    # "on": the flash-attention ops (the CUDA kernels for CUDA tensors,
+    # their plain versions on the CPU); "auto": the same, but the composite
+    # where the kernels cannot take the shape on the card (head dim not 64
+    # or 128, f16, more than 8 q heads per kv head); "off": the composite
     flash: str = "auto"
     # checkpoint each block in training (policy "full" only)
     remat: bool = True
@@ -112,6 +126,14 @@ class GPTConfig:
     def __post_init__(self):
         if self.n_experts:
             raise NotImplementedError("mixture-of-experts is not ported yet")
+        for name, default in (("moe_impl", "dense"), ("moe_capacity", 2.0),
+                              ("moe_aux_weight", 0.0),
+                              ("seq_parallel", False)):
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} is not ported yet "
+                    f"(only {default!r}: mixture-of-experts and sequence "
+                    f"parallelism, ROADMAP.md queue 1 items 3 and 5)")
         for name, allowed in (("pos_emb", ("learned", "rope")),
                               ("norm", ("layer", "rms")),
                               ("mlp", ("gelu", "swiglu")),
@@ -128,7 +150,7 @@ class GPTConfig:
         if self.remat and self.remat_policy != "full":
             raise NotImplementedError(
                 f"remat_policy={self.remat_policy!r} is not ported yet (only "
-                f"'full'; ROADMAP.md queue 1 item 6)")
+                f"'full'; ROADMAP.md queue 1 item 3)")
 
 
 def llama_config(**kw) -> GPTConfig:
@@ -670,11 +692,26 @@ def sample_logits_batched(logits, seeds, steps, temperature, top_k, top_p,
 # training: forward, loss and the train step
 
 
-def _use_flash(cfg: GPTConfig) -> bool:
-    """A flash op unless cfg.flash is "off". The ops themselves route by
-    device: the CUDA kernels for CUDA tensors, the plain versions for CPU
-    tensors (so "auto" and "on" agree)."""
-    return cfg.flash != "off"
+def _use_flash(cfg: GPTConfig, x) -> bool:
+    """A flash op unless cfg.flash is "off", or "auto" on the card where
+    the kernels cannot take the shape (head dim not 64 or 128, a dtype
+    other than f32 and bf16, more than 8 q heads per kv head), as JAX's
+    "auto" takes the composite where its kernel does not qualify; "on"
+    raises there. The ops route by device: the CUDA kernels for CUDA
+    tensors, the plain versions, which take any shape, for CPU tensors."""
+    if cfg.flash == "off":
+        return False
+    hd, G = cfg.d_model // cfg.n_head, cfg.n_head // _kv_heads(cfg)
+    if (x.device.type != "cuda" or cfg.dtype in _FLASH_DTYPES
+            and hd in _HEAD_DIMS and G <= _MAX_G):
+        return True
+    if cfg.flash == "auto":
+        return False
+    raise NotImplementedError(
+        f"flash='on' on the card: the kernels take {tuple(_FLASH_DTYPES)}, "
+        f"head dim {_HEAD_DIMS} and at most {_MAX_G} q heads per kv head, "
+        f"not {cfg.dtype}, head dim {hd}, {G}; flash='auto' takes the "
+        f"composite (ROADMAP.md queue 1 item 3)")
 
 
 def _split_qkv(qkv, cfg: GPTConfig, B, S):
@@ -698,9 +735,9 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
     single device). Learned positions without a window take the packed
     flash op; rope or a window split q/k/v out of the packed projection
     (rotating q and k under rope) for the split flash op or, with
-    flash="off", the composite. `seed` (an int or None) seeds composite
-    dropout, so a checkpointed block redraws the same mask when it is
-    recomputed."""
+    flash="off", the composite. `seed` (an int or None) keys the dropout
+    mask (`keep_mask`) of the kernels and of the composite alike, so a
+    checkpointed block redraws the same mask when it is recomputed."""
     if cfg.window and not cfg.causal:
         raise ValueError(
             "cfg.window (sliding-window attention) requires causal=True")
@@ -709,26 +746,28 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
     hd = D // H
     qkv = _badd(_body_dot(x, blk["qkv"], cfg), blk, "qkv_b", cfg)
     drop = cfg.dropout if train else 0.0
-    flash = _use_flash(cfg)
-    if flash and drop > 0.0:
-        raise NotImplementedError(
-            "attention dropout in training on the flash path (in-kernel "
-            "dropout) is not ported yet (ROADMAP.md queue 1 item 6); "
-            "use flash='off'")
+    if drop > 0.0 and seed is None:
+        raise ValueError("dropout in training needs a generator")
+    flash = _use_flash(cfg, x)
     if flash and cfg.pos_emb == "learned" and not cfg.window:
         # the packed kernels read head blocks straight from qkv: no split,
         # transpose or GQA-repeat copies
         out = flash_attention_qkv(
             qkv, H, _kv_heads(cfg), cfg.causal, None, cfg.flash_block,
             cfg.flash_block, fast_softmax=cfg.flash_softmax == "fast",
-            fused_bwd=cfg.flash_bwd == "fused")
+            fused_bwd=cfg.flash_bwd == "fused", dropout=drop,
+            seed=seed or 0)
         return _badd(_body_dot(out, blk["proj"], cfg), blk, "proj_b", cfg)
     q, k, v = _split_qkv(qkv, cfg, B, S)
     if cfg.pos_emb == "rope":
         cos, sin = _rope_cos_sin(cfg, torch.arange(S, device=x.device))
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
-    if flash:
+    if flash and drop > 0.0:
+        out = flash_attention_dropout(q, k, v, seed, cfg.causal, None,
+                                      cfg.flash_block, cfg.flash_block, drop,
+                                      cfg.window)
+    elif flash:
         out = flash_attention(q, k, v, cfg.causal, None, cfg.flash_block,
                               cfg.flash_block, cfg.window)
     else:
@@ -741,12 +780,8 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
                                     device=x.device).tril(-cfg.window)
             att = att.masked_fill(~mask, -1e30)
         att = torch.softmax(att, -1).to(cfg.dtype)
-        if drop > 0.0:
-            if seed is None:
-                raise ValueError("dropout in training needs a generator")
-            gen = torch.Generator(device=x.device).manual_seed(seed)
-            keep = torch.rand(att.shape, generator=gen,
-                              device=x.device) >= drop
+        if drop > 0.0:   # the kernels' mask: the routes drop alike
+            keep = keep_mask(seed, B, H, S, S, drop, x.device)
             att = torch.where(keep, att / (1.0 - drop), 0.0).to(cfg.dtype)
         out = torch.einsum("bhqk,bhkd->bhqd", att.float(), v.float())
     out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, D)
@@ -766,7 +801,7 @@ def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
     dtype. The embedding sum is taken in f32, then cast (as JAX). Layers
     run as a Python loop (`scan_layers` has no effect); with cfg.remat in
     training each block is checkpointed (policy "full": only its input is
-    kept). `generator` drives composite dropout."""
+    kept). `generator` draws each layer's attention-dropout seed."""
     B, S = tokens.shape
     x = params["wte"][tokens.long()]
     if cfg.pos_emb == "learned":

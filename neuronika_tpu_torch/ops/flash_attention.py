@@ -14,20 +14,28 @@ Its forward launches K1 and its backward the K2 kernels of
 `fused_bwd`, the fused kernel that stands for both of the TPU's fused
 backwards.
 
-The split layout (`flash_attention`): q (B, H, Sq, hd), k and v (B, H,
-Skv, hd), any strides with a unit last axis; out (B, H, Sq, hd) in q's
-dtype; lse (B, H, Sq) f32 base 2. Causal (Sq == Skv), sliding-window
-(causal only) or full with Sq != Skv. Its forward launches K5 and its
-backward K6 (dq) and K7 (dk, dv) of `csrc/flash_attention.cu`, which take
-lse and delta = rowsum(dO.O) as inputs (ring attention feeds its own).
+The split layout (`flash_attention`, and `flash_attention_dropout`): q (B,
+H, Sq, hd), k and v (B, H, Skv, hd), any strides with a unit last axis;
+out (B, H, Sq, hd) in q's dtype; lse (B, H, Sq) f32 base 2. Causal (Sq ==
+Skv), sliding-window (causal only) or full with Sq != Skv. Its forward
+launches K5 and its backward K6 (dq) and K7 (dk, dv) of
+`csrc/flash_attention.cu`, which take lse and delta = rowsum(dO.O) as
+inputs (ring attention feeds its own).
+
+Attention dropout runs inside every kernel (`csrc/dropout.cuh`): the keep
+bit of (seed, batch, query head, row, col) is a word of Philox4x32-10 at
+the absolute position, so the forward and every backward kernel
+regenerate the same mask whatever their tiles; `keep_mask` is its plain
+twin, bit for bit. As in the TPU kernels, the softmax statistics stay
+unmasked, the dropped p are zeroed before P V and the output is scaled by
+1 / (1 - rate); the backward drops dp and the p of dV the same way.
 
 Both ops are differentiable. CUDA tensors launch the kernels or raise:
 head dims 64 and 128, f32 and bf16; other head dims and f16 raise
-`NotImplementedError` (ROADMAP.md queue 1 item 6). CPU tensors take the
+`NotImplementedError` (ROADMAP.md queue 1 item 3). CPU tensors take the
 plain versions below, which use the kernels' own math (exp2 domain, `p`
 and `ds` rounded to the input dtype before their products) and keep every
-sum in f32. There is no in-kernel dropout yet; the model refuses dropout
-on both flash paths.
+sum in f32.
 """
 
 from __future__ import annotations
@@ -58,6 +66,90 @@ def _qkv_geometry(qkv, n_head, n_kv_head):
 
 def _scale(scale, hd):
     return 1.0 / math.sqrt(hd) if scale is None else float(scale)
+
+
+# --------------------------------------------------------------------------
+# the dropout keep mask (csrc/dropout.cuh), bit for bit
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, x):
+    """(hi, lo) words of m * x for a u32 constant m and u32 values x in an
+    int64 tensor, from 16-bit limbs of m so that no product leaves int64."""
+    t = (m & 0xFFFF) * x                    # < 2^48
+    u = (m >> 16) * x + (t >> 16)           # < 2^49; m x = 2^16 u + t % 2^16
+    return u >> 16, ((u & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 of counters (c0, c1, c2, c3), u32 values in int64
+    tensors (broadcast together), under key (k0, k1): the four words."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _M32
+        k1 = (k1 + _PHILOX_W[1]) & _M32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate: float) -> int:
+    """An entry is dropped when its word is below this (`_tile_keep_mask`'s
+    threshold: keep with probability 1 - rate)."""
+    return min(int(rate * 4294967296.0), _M32)
+
+
+def keep_mask(seed: int, B: int, H: int, Sq: int, Skv: int, rate: float,
+              device="cpu"):
+    """bool (B, H, Sq, Skv): True where attention dropout at `rate` keeps
+    the probability of (batch b, query head h, row, col) under `seed`, the
+    same bits as the kernels draw. The word of (row, col) is word 2 (row %
+    2) + col % 2 of Philox4x32-10 at counter (col // 2, row // 2, h, b),
+    keyed by the seed's low and high 32 bits; keep <=> word >=
+    `dropout_threshold(rate)`. A "meta" device needs no draws."""
+    if torch.device(device).type == "meta":
+        return torch.ones((B, H, Sq, Skv), dtype=torch.bool, device=device)
+    if rate >= 1.0:
+        return torch.zeros((B, H, Sq, Skv), dtype=torch.bool, device=device)
+    seed = int(seed) & ((1 << 64) - 1)
+    k0, k1 = seed & _M32, seed >> 32
+    thr = dropout_threshold(rate)
+    R, C = -(-Sq // 2), -(-Skv // 2)
+    i64 = dict(dtype=torch.int64, device=device)
+    cols = torch.arange(C, **i64)
+    heads = torch.arange(H, **i64)[:, None, None]
+    out = torch.empty((B, H, 2 * R, 2 * C), dtype=torch.bool, device=device)
+    step = max(1, (1 << 22) // (H * C))     # block rows a chunk
+    for b in range(B):
+        for r0 in range(0, R, step):
+            rows = torch.arange(r0, min(R, r0 + step), **i64)[:, None]
+            w = philox4x32_10(cols, rows, heads, torch.tensor(b, **i64), k0,
+                              k1)
+            w = [t.expand(H, rows.shape[0], C) >= thr for t in w]
+            out[b, :, 2 * r0:2 * r0 + 2 * rows.shape[0]] = torch.stack(
+                [torch.stack(w[:2], -1), torch.stack(w[2:], -1)], 2
+            ).reshape(H, 2 * rows.shape[0], 2 * C)
+    return out[:, :, :Sq, :Skv]
+
+
+def _inv_keep(rate: float) -> float:
+    """1 / (1 - rate) as the kernels take it (an f32)."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+
+
+def _dropped(t, keep, rate):
+    """keep ? t / (1 - rate) : 0, as the kernels drop p and dp."""
+    return torch.where(keep, t * _inv_keep(rate), 0.0)
+
+
+def _normalised(o, l, rate):
+    """The forward's o / l, scaled by 1 / (1 - rate) under dropout."""
+    if rate == 0.0:
+        return o / l[..., None]
+    return o * (_inv_keep(rate) / l[..., None])
 
 
 def reference_attention(q, k, v, causal: bool = True, scale=None,
@@ -100,12 +192,21 @@ def _scores(q, k, scale, causal):
     return s
 
 
+def _check_rate(rate):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+
+
 def flash_attention_qkv_fwd_reference(qkv, n_head: int, n_kv_head: int = 0,
                                       causal: bool = True, scale=None,
-                                      fast_softmax: bool = False):
+                                      fast_softmax: bool = False,
+                                      seed: int = 0, rate: float = 0.0):
     """Plain version of K1: (out (B, S, H*hd) in qkv's dtype, lse (B, H, S)
-    f32 base 2). Runs on any device."""
+    f32 base 2). With `rate` > 0, attention dropout by `keep_mask(seed,
+    ...)`: l and lse unmasked, the dropped p zeroed before P V, the output
+    scaled by 1 / (1 - rate). Runs on any device."""
     B, S, W, KV, hd = _qkv_geometry(qkv, n_head, n_kv_head)
+    _check_rate(rate)
     q, k, v = _unpack(qkv, n_head, n_kv_head)
     s = _scores(q, k, _scale(scale, hd), causal)
     if fast_softmax:
@@ -114,8 +215,11 @@ def flash_attention_qkv_fwd_reference(qkv, n_head: int, n_kv_head: int = 0,
         m = s.amax(-1)
     p = torch.exp2(s - m[..., None])
     l = p.sum(-1)
+    if rate > 0.0:
+        keep = keep_mask(seed, B, n_head, S, S, rate, qkv.device)
+        p = p.masked_fill(~keep.view(B, KV, n_head // KV, S, S), 0.0)
     o = torch.einsum("bkgqs,bksd->bkgqd", p.to(qkv.dtype).float(), v.float())
-    o = o / l[..., None]
+    o = _normalised(o, l, rate)
     out = o.to(qkv.dtype).permute(0, 3, 1, 2, 4).reshape(B, S, n_head * hd)
     lse = (m + torch.log2(l)).reshape(B, n_head, S)
     return out, lse
@@ -123,11 +227,15 @@ def flash_attention_qkv_fwd_reference(qkv, n_head: int, n_kv_head: int = 0,
 
 def flash_attention_qkv_bwd_reference(qkv, out, lse, do, n_head: int,
                                       n_kv_head: int = 0, causal: bool = True,
-                                      scale=None):
+                                      scale=None, seed: int = 0,
+                                      rate: float = 0.0):
     """Plain version of K2: d_qkv (B, S, W) in qkv's dtype, with the
     kernels' math: delta = rowsum(dO.O), p = exp2(s - lse),
-    ds = p (dp - delta) scale. Runs on any device."""
+    ds = p (dp - delta) scale; with `rate` > 0, dp and the p of dV dropped
+    by `keep_mask(seed, ...)` and scaled by 1 / (1 - rate). Runs on any
+    device."""
     B, S, W, KV, hd = _qkv_geometry(qkv, n_head, n_kv_head)
+    _check_rate(rate)
     G = n_head // KV
     sc = _scale(scale, hd)
     q, k, v = _unpack(qkv, n_head, n_kv_head)
@@ -141,8 +249,13 @@ def flash_attention_qkv_bwd_reference(qkv, out, lse, do, n_head: int,
     p = torch.exp2(_scores(q, k, sc, causal)
                    - lse.reshape(B, KV, G, S)[..., None])
     dp = torch.einsum("bkgqd,bksd->bkgqs", do_h, v.float())
+    pv = p      # the p of dV
+    if rate > 0.0:
+        keep = keep_mask(seed, B, n_head, S, S, rate, qkv.device).view(
+            B, KV, G, S, S)
+        pv, dp = _dropped(p, keep, rate), _dropped(dp, keep, rate)
     ds = (p * (dp - delta[..., None]) * sc).to(dt).float()
-    dv = torch.einsum("bkgqs,bkgqd->bksd", p.to(dt).float(), do_h)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", pv.to(dt).float(), do_h)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, q.float())
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float())
     d_qkv = torch.cat([dq.permute(0, 3, 1, 2, 4),
@@ -188,33 +301,46 @@ def _band_scores(q, k, scale, causal, window):
 
 
 def flash_attention_fwd_reference(q, k, v, causal: bool = True, scale=None,
-                                  window: int = 0):
+                                  window: int = 0, seed: int = 0,
+                                  rate: float = 0.0):
     """Plain version of K5: (out (B, H, Sq, hd) in q's dtype, lse (B, H,
-    Sq) f32 base 2). Runs on any device."""
-    _split_geometry(q, k, v, causal, window)
+    Sq) f32 base 2); dropout as in `flash_attention_qkv_fwd_reference`.
+    Runs on any device."""
+    B, H, Sq, Skv, _ = _split_geometry(q, k, v, causal, window)
+    _check_rate(rate)
     s = _band_scores(q, k, _scale(scale, q.shape[-1]), causal, window)
     m = s.amax(-1)
     p = torch.exp2(s - m[..., None])
     l = p.sum(-1)
+    if rate > 0.0:
+        p = p.masked_fill(~keep_mask(seed, B, H, Sq, Skv, rate, q.device),
+                          0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
-    return (o / l[..., None]).to(q.dtype), m + torch.log2(l)
+    return _normalised(o, l, rate).to(q.dtype), m + torch.log2(l)
 
 
 def flash_attention_bwd_reference(q, k, v, do, lse, delta,
                                   causal: bool = True, scale=None,
-                                  window: int = 0):
+                                  window: int = 0, seed: int = 0,
+                                  rate: float = 0.0):
     """Plain version of K6 and K7: (dq, dk, dv) in q's dtype from the
     saved lse and delta = rowsum(dO.O), both (B, H, Sq) f32, with the
-    kernels' math: p = exp2(min(s - lse, 0)), ds = p (dp - delta) scale.
-    Runs on any device."""
-    _split_geometry(q, k, v, causal, window)
+    kernels' math: p = exp2(min(s - lse, 0)), ds = p (dp - delta) scale;
+    dropout as in `flash_attention_qkv_bwd_reference`. Runs on any
+    device."""
+    B, H, Sq, Skv, _ = _split_geometry(q, k, v, causal, window)
+    _check_rate(rate)
     sc = _scale(scale, q.shape[-1])
     dt = q.dtype
     s = _band_scores(q, k, sc, causal, window)
     p = torch.exp2(torch.clamp(s - lse[..., None], max=0.0))
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    pv = p      # the p of dV
+    if rate > 0.0:
+        keep = keep_mask(seed, B, H, Sq, Skv, rate, q.device)
+        pv, dp = _dropped(p, keep, rate), _dropped(dp, keep, rate)
     ds = (p * (dp - delta[..., None]) * sc).to(dt).float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), do.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", pv.to(dt).float(), do.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
     return dq.to(dt), dk.to(dt), dv.to(dt)
@@ -269,6 +395,16 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _drop(seed, rate):
+    """The dropout arguments of every flash entry point: (seed as a u64,
+    threshold, inv_keep); threshold 0 runs the kernels without dropout."""
+    _check_rate(rate)
+    if rate == 0.0:
+        return 0, 0, 1.0
+    return int(seed) & ((1 << 64) - 1), dropout_threshold(rate), \
+        _inv_keep(rate)
+
+
 def _bwd_operands(qkv, out, lse, do, n_head, n_kv_head):
     B, S, W, KV, hd = _qkv_geometry(qkv, n_head, n_kv_head)
     o_shape = (B, S, n_head * hd)
@@ -279,9 +415,11 @@ def _bwd_operands(qkv, out, lse, do, n_head, n_kv_head):
 
 
 def flash_fwd_qkv(qkv, n_head, n_kv_head=0, causal=True, scale=None,
-                  fast_softmax=False):
-    """K1 on the card: (out, lse). Adds one to `flash_fwd_qkv.launches`."""
+                  fast_softmax=False, seed=0, rate=0.0):
+    """K1 on the card: (out, lse), with attention dropout at `rate` drawn
+    from `seed` (`keep_mask`). Adds one to `flash_fwd_qkv.launches`."""
     B, S, W, KV, hd = _check(qkv, n_head, n_kv_head)
+    drop = _drop(seed, rate)
     from .._build import load_library
 
     lib = load_library()
@@ -292,7 +430,7 @@ def flash_fwd_qkv(qkv, n_head, n_kv_head=0, causal=True, scale=None,
         _launch(lib.nk_flash_fwd_qkv, "flash_fwd_qkv", _DTYPES[qkv.dtype],
                 qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, S, n_head,
                 KV, hd, _scale(scale, hd), int(causal), int(fast_softmax),
-                _stream(qkv))
+                *drop, _stream(qkv))
     flash_fwd_qkv.launches += 1
     return out, lse
 
@@ -330,10 +468,11 @@ def flash_bwd_stats_qkv(qkv, out, lse, do, n_head, n_kv_head=0):
 
 
 def _split_bwd(entry, name, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
-               causal, scale, stats):
+               causal, scale, stats, seed, rate):
     """Launch K2a or K2b (`entry`) into `d_qkv`; bf16 runs the pre-pass
     itself unless given `stats` from `flash_bwd_stats_qkv`."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
+    drop = _drop(seed, rate)
     _check(qkv, n_head, n_kv_head, ("d_qkv", d_qkv, qkv.dtype, (B, S, W)))
     have = stats is not None
     if have:
@@ -348,38 +487,41 @@ def _split_bwd(entry, name, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
         _launch(getattr(load_library(), entry), name, _DTYPES[qkv.dtype],
                 qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
                 _ptr(stats), int(have), d_qkv.data_ptr(), B, S, n_head, KV,
-                hd, _scale(scale, hd), int(causal), _stream(qkv))
+                hd, _scale(scale, hd), int(causal), *drop, _stream(qkv))
     return d_qkv
 
 
 def flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
-                     causal=True, scale=None, stats=None):
+                     causal=True, scale=None, stats=None, seed=0, rate=0.0):
     """K2a on the card: writes the q chunks of `d_qkv` (B, S, W). `stats`:
-    the pre-pass's result (bf16), or None to run it here. Adds one to
-    `flash_bwd_dq_qkv.launches`."""
+    the pre-pass's result (bf16), or None to run it here; `seed`, `rate`:
+    the forward's dropout. Adds one to `flash_bwd_dq_qkv.launches`."""
     _split_bwd("nk_flash_bwd_dq_qkv", "flash_bwd_dq_qkv", qkv, out, lse, do,
-               d_qkv, n_head, n_kv_head, causal, scale, stats)
+               d_qkv, n_head, n_kv_head, causal, scale, stats, seed, rate)
     flash_bwd_dq_qkv.launches += 1
     return d_qkv
 
 
 def flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
-                      causal=True, scale=None, stats=None):
-    """K2b on the card: writes the k and v chunks of `d_qkv`. `stats` as
-    for `flash_bwd_dq_qkv`. Adds one to `flash_bwd_dkv_qkv.launches`."""
+                      causal=True, scale=None, stats=None, seed=0, rate=0.0):
+    """K2b on the card: writes the k and v chunks of `d_qkv`. `stats`,
+    `seed` and `rate` as for `flash_bwd_dq_qkv`. Adds one to
+    `flash_bwd_dkv_qkv.launches`."""
     _split_bwd("nk_flash_bwd_dkv_qkv", "flash_bwd_dkv_qkv", qkv, out, lse,
-               do, d_qkv, n_head, n_kv_head, causal, scale, stats)
+               do, d_qkv, n_head, n_kv_head, causal, scale, stats, seed, rate)
     flash_bwd_dkv_qkv.launches += 1
     return d_qkv
 
 
 def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
-                        scale=None):
-    """K2c/K2d on the card: all of d_qkv (B, S, W) from one walk. The k
-    tiles add their dq terms in a fixed order (turn counters), so the
-    result is the same bits from run to run, in f32 and in bf16. Adds one
-    to `flash_bwd_fused_qkv.launches`."""
+                        scale=None, seed=0, rate=0.0):
+    """K2c/K2d on the card: all of d_qkv (B, S, W) from one walk, with the
+    forward's dropout (`seed`, `rate`). The k tiles add their dq terms in a
+    fixed order (turn counters), so the result is the same bits from run
+    to run, in f32 and in bf16. Adds one to
+    `flash_bwd_fused_qkv.launches`."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
+    drop = _drop(seed, rate)
     from .._build import load_library
 
     d_qkv = torch.empty_like(qkv)
@@ -399,7 +541,8 @@ def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
                 "flash_bwd_fused_qkv", _DTYPES[qkv.dtype], qkv.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), do.data_ptr(), _ptr(stats),
                 dq_acc.data_ptr(), _ptr(turn), d_qkv.data_ptr(), B, S,
-                n_head, KV, hd, _scale(scale, hd), int(causal), _stream(qkv))
+                n_head, KV, hd, _scale(scale, hd), int(causal), *drop,
+                _stream(qkv))
     flash_bwd_fused_qkv.launches += 1
     return d_qkv
 
@@ -436,11 +579,11 @@ def _kernel_dtype_and_hd(dtype, hd):
     if dtype not in _DTYPES:
         raise NotImplementedError(
             f"{dtype} on the split flash kernels is not ported (f32 and "
-            f"bf16 only; ROADMAP.md queue 1 item 6)")
+            f"bf16 only; ROADMAP.md queue 1 item 3)")
     if hd not in _HEAD_DIMS:
         raise NotImplementedError(
             f"head dim {hd} on the split flash kernels is not ported "
-            f"({_HEAD_DIMS}; ROADMAP.md queue 1 item 6)")
+            f"({_HEAD_DIMS}; ROADMAP.md queue 1 item 3)")
 
 
 def _aligned(t):
@@ -516,11 +659,13 @@ def _rows(name, t, shape, dev):
     return t.contiguous()
 
 
-def flash_fwd(q, k, v, causal=True, scale=None, window=0):
+def flash_fwd(q, k, v, causal=True, scale=None, window=0, seed=0, rate=0.0):
     """K5 on the card: (out (B, H, Sq, hd) in q's dtype, lse (B, H, Sq) f32
-    base 2). Adds one to `flash_fwd.launches`."""
+    base 2), with attention dropout at `rate` drawn from `seed`. Adds one
+    to `flash_fwd.launches`."""
     (B, H, Sq, Skv, hd), (q, k, v) = _split_operands(q, k, v, causal,
                                                      window)
+    drop = _drop(seed, rate)
     from .._build import load_library
 
     out = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
@@ -529,17 +674,20 @@ def flash_fwd(q, k, v, causal=True, scale=None, window=0):
         _launch(load_library().nk_flash_fwd, "flash_fwd", _DTYPES[q.dtype],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), _strides(q, k, v), B, H, Sq, Skv, hd,
-                _scale(scale, hd), int(causal), int(window), _stream(q))
+                _scale(scale, hd), int(causal), int(window), *drop,
+                _stream(q))
     flash_fwd.launches += 1
     return out, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None,
-                 window=0):
+                 window=0, seed=0, rate=0.0):
     """K6 on the card: dq (B, H, Sq, hd) from the saved lse and delta (B,
-    H, Sq) f32. Adds one to `flash_bwd_dq.launches`."""
+    H, Sq) f32, with the forward's dropout (`seed`, `rate`). Adds one to
+    `flash_bwd_dq.launches`."""
     (B, H, Sq, Skv, hd), (q, k, v, do) = _split_operands(
         q, k, v, causal, window, do)
+    drop = _drop(seed, rate)
     lse, delta = (_rows(n, t, (B, H, Sq), q.device)
                   for n, t in (("lse", lse), ("delta", delta)))
     from .._build import load_library
@@ -550,17 +698,20 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None,
                 _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), _strides(q, k, v, do), B, H, Sq, Skv, hd,
-                _scale(scale, hd), int(causal), int(window), _stream(q))
+                _scale(scale, hd), int(causal), int(window), *drop,
+                _stream(q))
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=None,
-                  window=0):
+                  window=0, seed=0, rate=0.0):
     """K7 on the card: (dk, dv), each (B, H, Skv, hd), from the saved lse
-    and delta (B, H, Sq) f32. Adds one to `flash_bwd_dkv.launches`."""
+    and delta (B, H, Sq) f32, with the forward's dropout (`seed`, `rate`).
+    Adds one to `flash_bwd_dkv.launches`."""
     (B, H, Sq, Skv, hd), (q, k, v, do) = _split_operands(
         q, k, v, causal, window, do)
+    drop = _drop(seed, rate)
     lse, delta = (_rows(n, t, (B, H, Sq), q.device)
                   for n, t in (("lse", lse), ("delta", delta)))
     from .._build import load_library
@@ -573,7 +724,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=None,
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do), B, H,
                 Sq, Skv, hd, _scale(scale, hd), int(causal), int(window),
-                _stream(q))
+                *drop, _stream(q))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -598,91 +749,101 @@ def _on_cpu(*ts):
 
 
 class FlashAttentionQKV(torch.autograd.Function):
-    """out = attention(qkv); saves (qkv, out, lse). Forward: K1 on CUDA
-    tensors, the plain forward on CPU tensors. Backward: the split K2a +
-    K2b pair, or the fused kernel with `fused_bwd`; the plain backward on
-    CPU tensors."""
+    """out = attention(qkv); saves (qkv, out, lse) and the dropout seed.
+    Forward: K1 on CUDA tensors, the plain forward on CPU tensors.
+    Backward: the split K2a + K2b pair, or the fused kernel with
+    `fused_bwd`; the plain backward on CPU tensors. Every one regenerates
+    the forward's dropout mask from the seed."""
 
     @staticmethod
     def forward(ctx, qkv, n_head, n_kv_head, causal, scale, fast_softmax,
-                fused_bwd):
+                fused_bwd, seed, rate):
+        drop = dict(seed=seed, rate=rate)
         if _on_cpu(qkv):
             out, lse = flash_attention_qkv_fwd_reference(
-                qkv, n_head, n_kv_head, causal, scale, fast_softmax)
+                qkv, n_head, n_kv_head, causal, scale, fast_softmax, **drop)
         else:
             out, lse = flash_fwd_qkv(qkv, n_head, n_kv_head, causal, scale,
-                                     fast_softmax)
+                                     fast_softmax, **drop)
         ctx.save_for_backward(qkv, out, lse)
-        ctx.args = (n_head, n_kv_head, causal, scale, fused_bwd)
+        ctx.args = (n_head, n_kv_head, causal, scale, fused_bwd, drop)
         return out
 
     @staticmethod
     def backward(ctx, do):
         qkv, out, lse = ctx.saved_tensors
-        n_head, n_kv_head, causal, scale, fused_bwd = ctx.args
+        n_head, n_kv_head, causal, scale, fused_bwd, drop = ctx.args
         do = do.contiguous()
         if _on_cpu(qkv, do):
             d_qkv = flash_attention_qkv_bwd_reference(
-                qkv, out, lse, do, n_head, n_kv_head, causal, scale)
+                qkv, out, lse, do, n_head, n_kv_head, causal, scale, **drop)
         elif fused_bwd:
             d_qkv = flash_bwd_fused_qkv(qkv, out, lse, do, n_head,
-                                        n_kv_head, causal, scale)
+                                        n_kv_head, causal, scale, **drop)
         else:   # one pre-pass for both kernels
             d_qkv = torch.empty_like(qkv)
             stats = flash_bwd_stats_qkv(qkv, out, lse, do, n_head, n_kv_head)
             flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head,
-                             causal, scale, stats)
+                             causal, scale, stats, **drop)
             flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head,
-                              causal, scale, stats)
-        return d_qkv, None, None, None, None, None, None
+                              causal, scale, stats, **drop)
+        return d_qkv, None, None, None, None, None, None, None, None
 
 
 def flash_attention_qkv(qkv, n_head: int, n_kv_head: int = 0,
                         causal: bool = True, scale=None, block_q: int = 256,
                         block_k: int = 256, fast_softmax: bool = False,
-                        fused_bwd: bool = False):
+                        fused_bwd: bool = False, dropout: float = 0.0,
+                        seed: int = 0):
     """Layout-native flash attention on the packed qkv projection (see the
     module docstring): (B, S, W) -> (B, S, H*hd) head-major, differentiable.
+    `dropout` > 0 drops attention probabilities inside the kernels with
+    the mask `keep_mask(seed, ...)` (an int seed; JAX's f32 seed array
+    becomes its value).
 
     `block_q`/`block_k` are accepted for signature parity with the JAX
     function, where they size the TPU's VMEM tiles; the CUDA kernels choose
     their own tiles and mask any ragged S, so both are ignored."""
     del block_q, block_k
     _qkv_geometry(qkv, n_head, n_kv_head)
+    _check_rate(dropout)
     return FlashAttentionQKV.apply(qkv, n_head, n_kv_head, causal, scale,
-                                   fast_softmax, fused_bwd)
+                                   fast_softmax, fused_bwd, int(seed),
+                                   float(dropout))
 
 
 class FlashAttention(torch.autograd.Function):
     """out = attention(q, k, v) in the split layout; saves (q, k, v, out,
-    lse). Forward: K5 on CUDA tensors, the plain forward on CPU tensors.
-    Backward: delta = rowsum(dO.O) in f32 by a plain reduction, then K6 and
-    K7; the plain backward on CPU tensors."""
+    lse) and the dropout seed. Forward: K5 on CUDA tensors, the plain
+    forward on CPU tensors. Backward: delta = rowsum(dO.O) in f32 by a
+    plain reduction, then K6 and K7; the plain backward on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window):
+    def forward(ctx, q, k, v, causal, scale, window, seed, rate):
+        drop = dict(seed=seed, rate=rate)
         if _on_cpu(q, k, v):
             out, lse = flash_attention_fwd_reference(q, k, v, causal, scale,
-                                                     window)
+                                                     window, **drop)
         else:
-            out, lse = flash_fwd(q, k, v, causal, scale, window)
+            out, lse = flash_fwd(q, k, v, causal, scale, window, **drop)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, scale, window)
+        ctx.args = (causal, scale, window, drop)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, scale, window = ctx.args
+        causal, scale, window, drop = ctx.args
         delta = (do.float() * out.float()).sum(-1)
         if _on_cpu(q, do):
             dq, dk, dv = flash_attention_bwd_reference(
-                q, k, v, do, lse, delta, causal, scale, window)
+                q, k, v, do, lse, delta, causal, scale, window, **drop)
         else:
-            dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, window)
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, window,
+                              **drop)
             dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
-                                   window)
-        return dq, dk, dv, None, None, None
+                                   window, **drop)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, scale=None,
@@ -697,4 +858,18 @@ def flash_attention(q, k, v, causal: bool = True, scale=None,
     their own tiles and mask any ragged S, so both are ignored. A CUDA
     tensor the kernels cannot take raises `NotImplementedError`."""
     del block_q, block_k
-    return FlashAttention.apply(q, k, v, causal, scale, window)
+    return FlashAttention.apply(q, k, v, causal, scale, window, 0, 0.0)
+
+
+def flash_attention_dropout(q, k, v, seed, causal: bool = True, scale=None,
+                            block_q: int = 256, block_k: int = 256,
+                            rate: float = 0.1, window: int = 0):
+    """`flash_attention` with attention dropout at `rate` inside the
+    kernels (JAX's `flash_attention_dropout`, its argument order without
+    `interpret`): the mask `keep_mask(seed, ...)` is regenerated from the
+    integer `seed` by the forward and both backward kernels, so no mask
+    tensor exists. Block sizes are accepted and ignored."""
+    del block_q, block_k
+    _check_rate(rate)
+    return FlashAttention.apply(q, k, v, causal, scale, window, int(seed),
+                                float(rate))

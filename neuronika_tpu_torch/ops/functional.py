@@ -31,8 +31,10 @@ Kernel routes, for CUDA tensors:
 * last-axis `softmax`/`log_softmax` run K4 (`ops/softmax.py`) under the
   same flag; their VJPs stay plain torch, as they are plain XLA in JAX;
 * `flash_attention` runs the packed flash kernels (K1 forward, the fused K2
-  backward) whenever the tensor is on the card and K1 takes its shape, as
-  the JAX op runs its Pallas kernel whenever the backend is a TPU;
+  backward, attention dropout inside both) whenever the tensor is on the
+  card and K1 takes its shape, as the JAX op runs its Pallas kernel
+  whenever the backend is a TPU and the shape qualifies; other shapes take
+  the composite, which draws the kernels' dropout mask;
 * `convolution` runs the direct-conv kernels (K12 for 2-d, K14 for 1-d,
   K15 for 3-d; `ops/conv.py`) under the same flag where
   `config.conv_route` and JAX's shape gates send it there; its VJP and
@@ -54,7 +56,7 @@ from ..config import config
 from .conv import (conv1d_direct_nwc, conv2d_direct, conv3d_direct_ndhwc,
                    route_conv2d)
 from .flash_attention import (_DTYPES as _FLASH_DTYPES, _HEAD_DIMS, _MAX_G,
-                              flash_bwd_fused_qkv, flash_fwd_qkv)
+                              flash_bwd_fused_qkv, flash_fwd_qkv, keep_mask)
 from .matmul import matmul as kernel_matmul
 from .softmax import softmax_last_axis
 
@@ -400,8 +402,8 @@ def _attn_geometry(n_head, n_kv_head, width):
 
 def _attn_xla(qkv, n_head, n_kv_head, causal, rate, key):
     """The composite (JAX's `_attn_xla`): the kernel's group-major unpack,
-    f32 scores, softmax, optional dropout, PV in f32, result in qkv's
-    dtype."""
+    f32 scores, softmax, optional dropout with the kernels' mask
+    (`keep_mask` keyed by `key`), PV in f32, result in qkv's dtype."""
     b, s, w = qkv.shape
     kv, hd = _attn_geometry(n_head, n_kv_head, w)
     g_sz = n_head // kv
@@ -419,43 +421,35 @@ def _attn_xla(qkv, n_head, n_kv_head, causal, rate, key):
         scores = scores.masked_fill(~mask, float("-inf"))
     weights = torch.softmax(scores, dim=-1)
     if rate > 0.0:
-        keep = _keep_mask(key, weights.shape, 1.0 - rate, qkv.device)
+        keep = keep_mask(key, b, n_head, s, s, rate, qkv.device)
         weights = torch.where(keep, weights / (1.0 - rate), 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype).float(),
                        v.float()).to(qkv.dtype)
     return out.permute(0, 2, 1, 3).reshape(b, s, n_head * hd)
 
 
-def _attn_use_kernel(qkv, n_head, n_kv_head):
-    """True on the card, where the op runs K1/K2; False for CPU and meta
-    tensors, which run the composite. Raises for a CUDA tensor the kernels
-    cannot take: they take f32 or bf16, head dim 64 or 128 and at most 8
-    query heads per kv head. (JAX gates on the backend and on the TPU's
-    S % 128 and hd % 128 tiling; the CUDA kernels mask any S.)"""
-    if qkv.device.type != "cuda":
+def _attn_use_kernel(qkv, n_head, n_kv_head, rate):
+    """True on the card where the kernels take the shape, and the op runs
+    K1/K2: f32 or bf16, head dim 64 or 128, at most 8 query heads per kv
+    head, a dropout rate below 1. False elsewhere, and for CPU and meta
+    tensors: those run the composite, as JAX's op takes its composite where
+    the backend is no TPU or the shape does not qualify (JAX gates on the
+    TPU's S % 128 and hd % 128 tiling; the CUDA kernels mask any S)."""
+    if qkv.device.type != "cuda" or rate >= 1.0:
         return False
     kv, hd = _attn_geometry(n_head, n_kv_head, qkv.shape[-1])
-    if (qkv.dtype not in _FLASH_DTYPES or hd not in _HEAD_DIMS
-            or n_head % kv or n_head // kv > _MAX_G):
-        raise NotImplementedError(
-            f"flash_attention on the card runs K1/K2, which take f32 or bf16,"
-            f" head dim {_HEAD_DIMS} and at most {_MAX_G} query heads per kv"
-            f" head, not {qkv.dtype}, head dim {hd}, H {n_head}, KV {kv}; "
-            "extending them is ROADMAP.md queue 1 item 6")
-    return True
+    return (qkv.dtype in _FLASH_DTYPES and hd in _HEAD_DIMS
+            and n_head % kv == 0 and n_head // kv <= _MAX_G)
 
 
 def _attn_fwd(e, qkv, *, key, train):
     n_head, n_kv_head, causal, rate, _ = e
     rate = float(rate) if train else 0.0
-    if rate > 0.0 and qkv.device.type == "cuda":
-        raise NotImplementedError(
-            "attention dropout on the card needs in-kernel dropout in K1/K2, "
-            "which is not ported yet (ROADMAP.md queue 1 item 6)")
-    if _attn_use_kernel(qkv, n_head, n_kv_head):
-        # `block` sizes the TPU's tiles; the CUDA kernels choose their own
+    if _attn_use_kernel(qkv, n_head, n_kv_head, rate):
+        # `block` sizes the TPU's tiles; the CUDA kernels choose their own.
+        # The mask is keyed by the executor's seed, as the composite's.
         out, _ = flash_fwd_qkv(qkv.contiguous(), n_head, n_kv_head, causal,
-                               fast_softmax=True)
+                               fast_softmax=True, seed=key, rate=rate)
         return out
     return _attn_xla(qkv, n_head, n_kv_head, causal, rate, key)
 
@@ -463,17 +457,18 @@ def _attn_fwd(e, qkv, *, key, train):
 def _attn_vjp(e, p, o, g, *, key, train):
     n_head, n_kv_head, causal, rate, _ = e
     qkv = p[0]
-    if _attn_use_kernel(qkv, n_head, n_kv_head):
+    rate = float(rate) if train else 0.0
+    if _attn_use_kernel(qkv, n_head, n_kv_head, rate):
         # The tape keeps the op's output but not K1's lse, so K1 runs again
         # for it (JAX's `jax.vjp` re-traces the forward the same way): each
-        # step launches K1 twice per attention op, then the fused K2.
+        # step launches K1 twice per attention op, then the fused K2, both
+        # with the forward's seed.
         qkv = qkv.contiguous()
         _, lse = flash_fwd_qkv(qkv, n_head, n_kv_head, causal,
-                               fast_softmax=True)
+                               fast_softmax=True, seed=key, rate=rate)
         return (flash_bwd_fused_qkv(qkv, o.contiguous(), lse,
                                     g.to(qkv.dtype).contiguous(), n_head,
-                                    n_kv_head, causal),)
-    rate = float(rate) if train else 0.0
+                                    n_kv_head, causal, seed=key, rate=rate),)
     with torch.enable_grad():
         q = qkv.detach().requires_grad_()
         out = _attn_xla(q, n_head, n_kv_head, causal, rate, key)

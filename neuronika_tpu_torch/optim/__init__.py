@@ -12,7 +12,7 @@ hyperparameters are f32 scalars, as JAX traces them.
 
 `functional` holds the functional tier's Adam and clipping over params
 trees. AMSGrad, AdamW, Lion, Adafactor, Muon, Adagrad, RMSProp and
-`lr_scheduler` are not ported yet (ROADMAP.md queue 1 item 5).
+`lr_scheduler` are not ported yet (ROADMAP.md queue 1 item 2).
 """
 
 from __future__ import annotations

@@ -353,9 +353,10 @@ class Var:
         """Fused multi-head attention on the packed group-major qkv
         projection `self` (B, S, (H + 2 KV) hd) -> (B, S, H hd) head-major.
         On the card: the flash kernels (K1 with fast softmax, the fused K2
-        backward), which take f32 or bf16 at head dim 64 or 128 and raise
-        `NotImplementedError` on other inputs or on dropout in training; on
-        the CPU the same math as a composite. Dropout is status-gated like
+        backward, attention dropout inside both) where they take the input,
+        f32 or bf16 at head dim 64 or 128 with at most 8 query heads per kv
+        head; elsewhere, and on the CPU, the same math as a composite,
+        which draws the kernels' dropout mask. Dropout is status-gated like
         `Var.dropout`."""
         if not 0.0 <= dropout <= 1.0:
             raise ValueError(f"dropout probability has to be between 0 and "

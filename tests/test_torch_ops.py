@@ -182,7 +182,7 @@ def test_every_registered_op_has_a_case():
     covered = {c[1] for c in CASES}
     assert covered == set(TOPS)
     # JAX's nn.recurrent registers its scan ops into the same table; they
-    # come with the nn tier (ROADMAP.md queue 1 item 5)
+    # come with the nn tier (ROADMAP.md queue 1 item 2)
     assert set(JOPS) - set(TOPS) <= {"lstm_scan", "gru_scan"}
     assert set(TOPS) <= set(JOPS)
 

@@ -270,13 +270,77 @@ def test_composite_dropout_is_seeded_and_survives_remat():
     (dict(dropout=0.1), True, "dropout"),
 ], ids=["flash-dropout"])
 def test_flash_path_refuses_what_it_cannot_run(kw, train, match):
+    """What the flash path once refused now runs: attention dropout in
+    training is in the kernels (their plain twins on the CPU), with a
+    finite loss that differs from eval's; without a generator to draw the
+    layers' seeds it still raises."""
     cfg = TT.GPTConfig(vocab_size=64, n_layer=1, n_head=2, d_model=64,
-                       d_ff=128, max_seq=32, dtype=torch.float32, **kw)
+                       d_ff=128, max_seq=32, dtype=torch.float32,
+                       flash="on", **kw)
     tp = TT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    toks = torch.zeros(1, 16, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=match):
-        TT.loss_fn(tp, toks, toks, cfg, train=train,
-                   generator=torch.Generator())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 64,
+                                                              (1, 16)))
+    loss = TT.loss_fn(tp, toks, toks, cfg, train=train,
+                      generator=torch.Generator())
+    assert np.isfinite(float(loss))
+    assert float(loss) != float(TT.loss_fn(tp, toks, toks, cfg))
+    with pytest.raises(ValueError, match=f"{match} in training needs a "
+                                         "generator"):
+        TT.loss_fn(tp, toks, toks, cfg, train=train)
+
+
+# ROADMAP.md open fault 1: GPTConfig's default flash="auto" with dropout
+FAULT1 = dict(vocab_size=64, d_model=64, n_head=2, n_layer=1, max_seq=16,
+              dropout=0.1)
+
+
+def test_auto_flash_trains_with_dropout_like_jax():
+    """The fault's config (head dim 32) with the default flash trains on
+    the CPU: finite losses that fall over Adam steps, and over 16 seeds
+    the mean training loss agrees with JAX's `loss_fn(train=True)` over 16
+    keys within 4 standard errors of their difference (the masks differ:
+    JAX draws jax.random bits, the port its Philox keep mask)."""
+    jcfg = JT.GPTConfig(dtype=jnp.float32, **FAULT1)
+    tcfg = TT.GPTConfig(dtype=torch.float32, **FAULT1)
+    assert tcfg.flash == "auto"
+    jp, tp = _params(jcfg)
+    toks, tgts = _batch(jcfg, S=16)
+    jloss = jax.jit(lambda k: JT.loss_fn(jp, jnp.asarray(toks),
+                                         jnp.asarray(tgts), jcfg, train=True,
+                                         key=k))
+    jl = [float(jloss(jax.random.key(i))) for i in range(16)]
+    tt, tg = torch.from_numpy(toks), torch.from_numpy(tgts)
+    tl = [float(TT.loss_fn(tp, tt, tg, tcfg, train=True,
+                           generator=torch.Generator().manual_seed(i)))
+          for i in range(16)]
+    assert all(np.isfinite(tl))
+    se = np.sqrt((np.var(jl) + np.var(tl)) / 16)
+    assert abs(np.mean(tl) - np.mean(jl)) <= 4 * se, (np.mean(tl),
+                                                      np.mean(jl), se)
+    step = TT.make_train_step(tcfg)
+    opt = TT.opt_init(tp, tcfg)
+    gen = torch.Generator().manual_seed(0)
+    losses = []
+    for _ in range(4):
+        tp, opt, loss = step(tp, opt, tt, tg, 1e-2, gen)
+        losses.append(float(loss))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+def test_config_takes_every_jax_field():
+    """ROADMAP.md open fault 2: the port's GPTConfig is built from every
+    field of JAX's at its default; the fields of features the port lacks
+    (mixture-of-experts, sequence parallelism) refuse other values."""
+    jcfg = JT.GPTConfig()
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    kw["dtype"] = torch.bfloat16
+    cfg = TT.GPTConfig(**kw)
+    for name, value in kw.items():
+        assert getattr(cfg, name) == value, name
+    for name, value in (("moe_impl", "sparse"), ("moe_capacity", 1.25),
+                        ("moe_aux_weight", 0.01), ("seq_parallel", True)):
+        with pytest.raises(NotImplementedError, match=name):
+            TT.GPTConfig(**{name: value})
 
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
@@ -356,6 +420,29 @@ def test_kernel_route_matches_plain_route_on_gpu(cuda, bwd):
     assert abs(runs["on"][0] - runs["off"][0]) <= TOL
     assert max(float((a - b).abs().max())
                for a, b in zip(runs["on"][1], runs["off"][1])) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_auto_flash_takes_the_composite_at_head_dim_32_on_gpu(cuda):
+    """ROADMAP.md open fault 1 on the card: at head dim 32 the kernels
+    cannot run, so flash="auto" takes the composite (no kernel launches,
+    the loss of flash="off" with the same mask) where "on" raises."""
+    from neuronika_tpu_torch.ops import flash_attention as FA
+
+    cfg = TT.GPTConfig(dtype=torch.float32, **FAULT1)
+    tp = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                        cuda)
+    toks, tgts = (torch.from_numpy(a).to(cuda) for a in _batch(cfg, S=16))
+    before = [k.launches for k in FA.KERNELS]
+    loss = {f: float(TT.loss_fn(
+        tp, toks, tgts, dataclasses.replace(cfg, flash=f), train=True,
+        generator=torch.Generator(device=cuda).manual_seed(1)))
+        for f in ("auto", "off")}
+    assert [k.launches for k in FA.KERNELS] == before
+    assert np.isfinite(loss["auto"]) and loss["auto"] == loss["off"]
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        TT.loss_fn(tp, toks, tgts, dataclasses.replace(cfg, flash="on"),
+                   train=True, generator=torch.Generator(device=cuda))
 
 
 @pytest.mark.cuda

@@ -317,11 +317,30 @@ def test_kernel_route_matches_plain_route_on_gpu(cuda, batched):
 
 @pytest.mark.cuda
 def test_flash_dropout_on_the_card_is_refused(cuda):
-    nk.config.device = "cuda"
-    x = nk.from_ndarray(np.zeros((1, 16, 3 * 2 * 64), np.float32))
-    y = x.flash_attention(2, dropout=0.1, status=nk.StatusCell(True))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        y.forward()
+    """Attention dropout on the card is no longer refused: K1 and the fused
+    K2 drop inside the kernels, keyed by the executor's seed, and the
+    output and gradient equal the CPU composite's, which draws the same
+    mask from the same seed (the global stream seeded alike)."""
+    data = np.random.default_rng(0).standard_normal((2, 64, 3 * 2 * 64))
+    g = np.random.default_rng(1).standard_normal((2, 64, 2 * 64))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        nk.config.device = dev
+        nk.seed(123)
+        x = nk.from_ndarray(data).requires_grad()
+        w = nk.from_ndarray(g)
+        before = FA.flash_fwd_qkv.launches
+        y = x.flash_attention(2, dropout=0.1, status=nk.StatusCell(True))
+        loss = (y * w).sum()
+        loss.forward()
+        loss.backward(1.0)
+        torch.cuda.synchronize()
+        res[dev] = (y.data().float().cpu().numpy(),
+                    x.grad().float().cpu().numpy(),
+                    FA.flash_fwd_qkv.launches - before)
+    assert res["cuda"][2] == 2 and res["cpu"][2] == 0
+    assert_close(res["cuda"][0], res["cpu"][0], tol=TOL)
+    assert_close(res["cuda"][1], res["cpu"][1], tol=2e-5)
 
 
 @pytest.mark.cuda
@@ -332,17 +351,20 @@ def test_flash_dropout_on_the_card_is_refused(cuda):
 ], ids=["hd256", "f16", "g16"])
 def test_flash_shapes_the_kernels_cannot_take_are_refused(cuda, width, n_kv,
                                                           dtype):
-    """On the card the op runs K1/K2 or raises; it never drops to the
-    composite. The CPU composite runs the same inputs."""
+    """On the card the op runs K1/K2 where they take the shape and, as
+    JAX's op where its kernel does not qualify, the composite elsewhere:
+    these shapes launch no kernel and give the CPU composite's output."""
     n_head = 2 if n_kv == 0 else 16
     data = np.random.default_rng(0).standard_normal((1, 16, width))
+    out = {}
     for dev in ("cpu", "cuda"):
         nk.config.device = dev
         x = nk.from_ndarray(data, dtype=dtype)
         y = x.flash_attention(n_head, n_kv)
-        if dev == "cpu":
-            y.forward()
-            assert np.isfinite(y.data().float().numpy()).all()
-        else:
-            with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-                y.forward()
+        before = FA.flash_fwd_qkv.launches
+        y.forward()
+        assert FA.flash_fwd_qkv.launches == before
+        out[dev] = y.data().float().cpu().numpy()
+        assert np.isfinite(out[dev]).all()
+    assert_close(out["cuda"], out["cpu"],
+                 tol=TOL if dtype == torch.float32 else 1e-2)

@@ -1,4 +1,4 @@
-"""Eight measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Nine measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -8,6 +8,11 @@ make, run on one CUDA card from the root of a checkout:
         TREE_ROOT, with that checkout's own package and chip_smoke.py; run
         it for two checkouts in turns (A, B, B, A) on one card to
         compare them;
+    python3 tools/torch_diag.py headline TREE_ROOT
+        chip_smoke.py phase 6's headline train step (fused flash backward,
+        no remat, fast softmax, bf16 Adam; d1536 L8 H12 V16384 S2048 B16
+        bf16) of the checkout at TREE_ROOT, 1 warm-up and 4 timed steps;
+        run it for two checkouts in turns to compare them;
     python3 tools/torch_diag.py mistral TREE_ROOT
         the same for chip_smoke.py phase 11's step: Mistral 7B's widths at
         L4, S8192 B2 bf16, window 4096 (1 warm-up and 4 timed steps);
@@ -100,6 +105,26 @@ def _tree(root):
 
     _build.load_library()
     return root, cs, FA
+
+
+def headline(root):
+    import numpy as np
+
+    root, cs, FA = _tree(root)
+    from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.ops import cross_entropy as CE
+
+    rng = np.random.default_rng(0)
+    B, S = 16, 2048
+    toks = rng.integers(0, cs.TRAIN_CFG["vocab_size"], size=(B, S))
+    batch = (torch.from_numpy(toks).to("cuda"),
+             torch.from_numpy(np.roll(toks, -1, axis=1)).to("cuda"))
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **cs.TRAIN_CFG, **cs.HEADLINE)
+    losses, launches, step_s, peak, _ = cs.train_steps(
+        T, cs.train_kernels(FA, CE), cfg, 1, 4, batch, 5e-4)
+    print(f"{root}: headline step {step_s * 1e3:.2f} ms, peak {peak:.2f} "
+          f"GiB, losses {[round(l, 4) for l in losses]}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
 
 
 def mistral(root):
@@ -512,6 +537,8 @@ if __name__ == "__main__":
         step(sys.argv[2])
     elif sys.argv[1:] == ["f32-noise"]:
         f32_noise()
+    elif sys.argv[1:2] == ["headline"] and len(sys.argv) == 3:
+        headline(sys.argv[2])
     elif sys.argv[1:2] == ["mistral"] and len(sys.argv) == 3:
         mistral(sys.argv[2])
     elif sys.argv[1:2] == ["kernels"] and len(sys.argv) == 3:
