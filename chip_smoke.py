@@ -43,7 +43,8 @@ nvidia-smi. Phases, each printing one line or a few:
      which launch K2a and K2b once per layer and step; then the headline
      with fused_ce="on": 2 warm-up and 5 timed steps through the fused
      linear cross-entropy (K8 once a step, K9 and K10 once each in its
-     backward, held exact), its step time, tokens/s, MFU and peak memory
+     backward, K10 on the Hopper kernel of csrc/cross_entropy_sm90.cu,
+     held exact), its step time, tokens/s, MFU and peak memory
      printed beside the composite headline's; and the headline at
      dropout=0.1 (GPT-2's attn_pdrop), 1 warm-up and 3 timed steps with a
      finite, falling loss and K1 and the fused K2 launched once per layer
@@ -92,7 +93,9 @@ nvidia-smi. Phases, each printing one line or a few:
      gradient), a small Var graph of pooled 1-d, 2-d (stride, dilation,
      groups) and 3-d convolutions under use_kernels with conv_route
      "force" (K12, K14, K15) against the library route on the CPU, launch
-     counts exact; and the tier "auto" picks for bench.py's conv shapes.
+     counts exact; the tier "auto" picks for bench.py's conv shapes; and a
+     bf16 Var 3-d conv under "force" on the Hopper K15, held against its
+     plain version.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -116,8 +119,10 @@ the fused K2) read at the headline shape. Phase 3 then holds the direct convolut
 1-3, dilation, groups, a 7x7/2 conv on 3 channels and a 1x1/2 one; K13
 with a split reduction; K14; a strided 1-d conv on K12; K15 with
 dilation; in bf16 the Hopper K12 and K13 at ResNet-18's stage shapes, a
-dx, tiles across samples, channel tails and non-square dilated taps, each
-call's kernel counted against conv_route's choice) against their plain
+dx, tiles across samples, channel tails and non-square dilated taps, and
+the Hopper K15 with ragged boxes, channel tails, dilation 2 and (k - 1) d
+at the rank-5 corner range's 16 (18 runs csrc/conv.cu), each call's
+kernel counted against conv_route's choice) against their plain
 versions in f32 and bf16, and at bench.py's
 conv shapes checks them, reads a planted fault per kernel against the same
 norm bound and times each beside its plain version and one library call
@@ -127,13 +132,15 @@ four stride-1 k3 stage shapes, K14 against F.conv1d at 3136x256, bf16,
 forwards), which `route_conv2d` follows on the card. Last in phase 3, the
 fused linear cross-entropy (K8 forward, K9 dx, K10 dW) against its plain
 versions in f32 and bf16 (N512 D64 V1024, a ragged N300 D72 V1000, a
-tied-head-wide D256, and D4160, whose 9 slices run K9 and K10 without a
-cluster), then at phase 6's LM head (bf16 N32768 D1536
+tied-head-wide D256, D4160, whose 9 slices run K9 and K10 without a
+cluster, and ragged N, V and D at D 1000 and 1536), the bf16 K10 on the
+Hopper kernel wherever ce_grad_route sends it (counted), then at phase
+6's LM head (bf16 N32768 D1536
 V16384), held per entry and in norm, with a planted fault per kernel (K8
 without one vocabulary tile, K9 without that tile's term, K10 without one
-row block's partial), and timed beside its plain version, the composite
-head (`_lm_head` + logsumexp + gather: forward, backward, both) and its
-bound.
+row block's partial), K10 launched twice for the same bits, and timed
+beside its plain version, the composite head (`_lm_head` + logsumexp +
+gather: forward, backward, both) and its bound.
 Every kernel's time is printed beside its plain version's, the one
 PyTorch call that computes the same function (where there is one; for
 K8-K10 the composite head, several calls) and the bound: the larger of
@@ -582,9 +589,10 @@ def train_steps(T, kernels, cfg, n_warm, n_timed, batch, lr, profile=None,
                 label="one headline step", heldout=None):
     """Run warm-up then timed train steps on fresh params (torch.Generator
     seed 0). Returns the losses, the launch counts of `kernels` in the
-    timed steps, the step time in s, the peak memory in GiB and the eval
-    loss of the trained params on the `heldout` batch (None without
-    one)."""
+    timed steps (and, as "name.sm90", of those that count their Hopper
+    kernel's launches apart), the step time in s, the peak memory in GiB
+    and the eval loss of the trained params on the `heldout` batch (None
+    without one)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_params(gen, cfg, "cuda")
     opt = T.opt_init(params, cfg)
@@ -596,8 +604,11 @@ def train_steps(T, kernels, cfg, n_warm, n_timed, batch, lr, profile=None,
         losses.append(loss)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    sm90 = [k for k in kernels if hasattr(k, "sm90_launches")]
     for k in kernels:
         k.launches = 0
+    for k in sm90:
+        k.sm90_launches = 0
     t0 = time.perf_counter()
     for _ in range(n_timed):
         params, opt, loss = step(params, opt, toks, tgts, lr, gen)
@@ -605,6 +616,7 @@ def train_steps(T, kernels, cfg, n_warm, n_timed, batch, lr, profile=None,
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n_timed
     launches = {k.__name__: k.launches for k in kernels}
+    launches.update({f"{k.__name__}.sm90": k.sm90_launches for k in sm90})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if profile:
         profile_step(lambda: step(params, opt, toks, tgts, lr, gen), label,
@@ -647,8 +659,10 @@ def profile_step(run, label, path):
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3
         kind = ("K8 ce fwd" if "ce_fwd_kernel" in n
+                else "K10 ce dw (sm90)" if "ce_dw_sm90" in n
                 else "K9 ce dx" if "ce_grad_kernel" in n and "true>" in n
                 else "K10 ce dw" if "ce_grad_kernel" in n
+                else "K15 conv3d (sm90)" if "conv3d_sm90" in n
                 else "K12 conv (sm90)" if "conv_sm90_fwd" in n
                 else "K13 conv dw" if "conv_sm90_dw" in n
                 or "conv_mma<true>" in n or "conv_ffma<true>" in n
@@ -765,7 +779,7 @@ def phase_train(T, FA, CE, profile):
     split = launches
     # the headline with the fused linear cross-entropy: rows 32768 and
     # vocab 16384 pass JAX's gate, so K8 runs once a step and K9, K10 once
-    # each in its backward
+    # each in its backward, K10 on the Hopper kernel
     cfg = T.GPTConfig(dtype=torch.bfloat16, fused_ce="on", **TRAIN_CFG,
                       **HEADLINE)
     path = None
@@ -776,8 +790,9 @@ def phase_train(T, FA, CE, profile):
         T, kernels, cfg, 2, n, batch, 5e-4, path,
         "one fused-CE headline step")
     want = dict.fromkeys(launches, 0)
-    want.update(flash_fwd_qkv=L * n, flash_bwd_fused_qkv=L * n, ce_fwd=n,
-                ce_dx=n, ce_dw=n)
+    want.update({"flash_fwd_qkv": L * n, "flash_bwd_fused_qkv": L * n,
+                 "ce_fwd": n, "ce_dx": n, "ce_dw": n,
+                 "ce_dw.sm90": n})    # K10 on csrc/cross_entropy_sm90.cu
     check(all(np.isfinite(losses)), f"non-finite loss (fused CE): {losses}")
     check(losses[-1] < losses[0], f"loss did not fall (fused CE): {losses}")
     check(launches == want, f"fused-CE launches {launches}, want {want}")
@@ -1865,6 +1880,17 @@ CONV_CASES = (
     ("conv1d-s2", "k12-1d", (2, 333, 64), (3, 64, 72), (2,), (1,), 1),
     ("conv3d-d2", "k15", (2, 9, 10, 11, 16), (3, 2, 3, 16, 24), (1, 1, 1),
      (2, 1, 2), 1),
+    # bf16 on the Hopper K15 (conv_route "sm90"): the table's taps and
+    # widths at batch 3 with a ragged box, Ci and Co tails with dilation 2,
+    # (k - 1) d = 16 (the rank-5 corner range); past it, conv.cu's kernel
+    ("conv3d-k3-c128", "k15", (3, 7, 9, 8, 128), (3, 3, 3, 128, 128),
+     (1, 1, 1), (1, 1, 1), 1),
+    ("conv3d-tails-d2", "k15", (2, 12, 12, 12, 72), (3, 3, 3, 72, 136),
+     (1, 1, 1), (2, 2, 1), 1),
+    ("conv3d-corner16", "k15", (1, 20, 6, 6, 8), (3, 1, 1, 8, 8), (1, 1, 1),
+     (8, 1, 1), 1),
+    ("conv3d-corner18", "k15", (1, 22, 6, 6, 8), (3, 1, 1, 8, 8), (1, 1, 1),
+     (9, 1, 1), 1),
     # on the Hopper K12 in bf16 (conv_route "sm90"): ResNet-18's stride-1
     # stage convs at batch 2, stage 1's dx (the padded gradient), tiles
     # spanning samples, Ci and Co tails, non-square taps with dilation
@@ -1972,8 +1998,9 @@ def phase_conv_kernels(C):
                 * scale).to(dtype)
 
     errs = {}
-    sm90 = {"conv2d_direct_nhwc": 0, "conv2d_dw_nhwc": 0}
-    for k in (C.conv2d_direct_nhwc, C.conv2d_dw_nhwc):
+    hopper = (C.conv2d_direct_nhwc, C.conv2d_dw_nhwc, C.conv3d_direct_ndhwc)
+    sm90 = dict.fromkeys((k.__name__ for k in hopper), 0)
+    for k in hopper:
         k.sm90_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
@@ -1982,6 +2009,9 @@ def phase_conv_kernels(C):
                 C.conv_route("fwd", dtype, xs[-1], ws[-1], groups,
                              ((1,) + stride)[-2:], ((1,) + dil)[-2:],
                              ((1,) + ws[:-2])[-2:]) == "sm90"
+            sm90["conv3d_direct_ndhwc"] += kind == "k15" and C.conv_route(
+                "fwd", dtype, xs[-1], ws[-1], groups, stride, dil,
+                ws[:3]) == "sm90"
             x, w = rnd(*xs, dtype=dtype), rnd(*ws, dtype=dtype, scale=0.1)
             errs[f"{dt}/{name}"] = conv_within(
                 conv_call(C, kind, x, w, stride, dil, groups),
@@ -1997,14 +2027,14 @@ def phase_conv_kernels(C):
                 C.conv_dw_reference(x, gg, k, dil), f"k13 {dt}/{name}",
                 dtype)[:2]
     torch.cuda.synchronize()
-    ran = {k.__name__: k.sm90_launches for k in (C.conv2d_direct_nhwc,
-                                                 C.conv2d_dw_nhwc)}
+    ran = {k.__name__: k.sm90_launches for k in hopper}
     check(ran == sm90 and min(sm90.values()) > 0,
-          f"phase 3: Hopper K12/K13 launches {ran}, conv_route sends {sm90}")
+          f"phase 3: Hopper K12/K13/K15 launches {ran}, conv_route sends "
+          f"{sm90}")
     print("phase 3 kernels: conv K12-K15 within bounds (f32 1e-5 of max "
           "|entry|; bf16 one ulp of it and in norm "
           f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); "
-          f"on the Hopper K12/K13 (csrc/conv_sm90.cu): {ran}; max "
+          f"on the Hopper K12/K13/K15 (csrc/conv_sm90.cu): {ran}; max "
           "abs err, ||err||/||ref||: " + ", ".join(
               f"{k} {a:.3g}, {r:.2g}" for k, (a, r) in errs.items()))
 
@@ -2047,7 +2077,7 @@ def phase_conv_kernels(C):
     result, line = {}, []
     for name, (shape, ins, kern, plain, lib, lib_name) in cases.items():
         fn = getattr(C, name)
-        before = getattr(fn, "sm90_launches", None)    # K12, K13
+        before = getattr(fn, "sm90_launches", None)    # K12, K13, K15
         out, ref = kern(), plain()
         check(before is None or fn.sm90_launches == before + 1,
               f"phase 3: {name} {shape} did not run the Hopper kernel")
@@ -2160,7 +2190,12 @@ def phase_conv_route_times(C):
 CE_CASES = (("N512-D64-V1024", 512, 64, 1024),
             ("ragged-N300-D72-V1000", 300, 72, 1000),
             ("tied-N512-D256-V1024", 512, 256, 1024),
-            ("9-slices-N256-D4160-V520", 256, 4160, 520))
+            ("9-slices-N256-D4160-V520", 256, 4160, 520),
+            # bf16 K10 on the Hopper kernel (ce_grad_route "sm90"): ragged
+            # N, V and D (6 slices, the last 40 wide), the head's D 1536 (8
+            # slices, one cluster) at ragged N and V
+            ("ragged-N777-D1000-V555", 777, 1000, 555),
+            ("ragged-N1000-D1536-V300", 1000, 1536, 300))
 # phase 6's LM head: B S rows of the headline step, d_model, vocab
 CE_HEAD = (16 * 2048, 1536, 16384)
 CE_LINES = {"ce_fwd": 37, "ce_dx": 77, "ce_dw": 101}   # cross_entropy.py
@@ -2277,8 +2312,10 @@ def phase_ce_kernels(CE, T):
     composite_ms, (bound_ms, bound_by))}: the composite's forward for K8,
     its backward (dx and dW together) for K9 and K10."""
     g = torch.Generator(device="cuda").manual_seed(8)
+    CE.ce_dw.sm90_launches, routed = 0, 0
     for dtype in (torch.float32, torch.bfloat16):
         for name, N, D, V in CE_CASES:
+            routed += CE.ce_grad_route("dw", dtype, D) == "sm90"
             check_ce(CE, f"{str(dtype)[6:]}/{name}",
                      *ce_case(g, N, D, V, dtype))
     N, D, V = CE_HEAD
@@ -2287,6 +2324,15 @@ def phase_ce_kernels(CE, T):
                     faults=True)
     torch.cuda.empty_cache()
     _, lse = CE.ce_fwd(x, w, t)
+    # K10 at the head twice: the same bits (each CTA sums in a fixed order)
+    d1, d2 = CE.ce_dw(x, w, t, lse, gr), CE.ce_dw(x, w, t, lse, gr)
+    torch.cuda.synchronize()
+    check(torch.equal(d1, d2), "ce_dw at the head: two launches differ")
+    del d1, d2
+    routed += 1 + 2
+    check(CE.ce_dw.sm90_launches == routed and routed > 3,
+          f"phase 3: Hopper K10 launches {CE.ce_dw.sm90_launches}, "
+          f"ce_grad_route sends {routed}")
     fns = {"ce_fwd": (lambda: CE.ce_fwd(x, w, t),
                       lambda: CE.ce_fwd_reference(x, w, t)),
            "ce_dx": (lambda: CE.ce_dx(x, w, t, lse, gr),
@@ -2334,7 +2380,9 @@ def phase_ce_kernels(CE, T):
           + f"; composite (_lm_head + logsumexp + gather, several calls, "
           f"no single library call) forward {c_fwd:.3f} ms, backward "
           f"{c_bwd:.3f} ms, both {c_all:.3f} ms; fused K8 + K9 + K10 "
-          f"{sum(t[0] for t in times.values()):.3f} ms")
+          f"{sum(t[0] for t in times.values()):.3f} ms; K10 on the Hopper "
+          f"kernel (csrc/cross_entropy_sm90.cu) {routed} times, the same "
+          f"bits twice at the head")
     del x, w, t, gr, lse, fns
     torch.cuda.empty_cache()
     return result
@@ -2614,8 +2662,10 @@ def phase_conv_routes(nk, R, C):
     each pooled, under use_kernels with conv_route "force" (K12, K14, K15)
     against the library route on the CPU, on its loss and every gradient.
     Launch counts are held exact, each run's counted from 0. Then the tier
-    "auto" picks for the shapes bench.py names. Returns the Var graph's
-    launches on the card."""
+    "auto" picks for the shapes bench.py names. Last, the same route in
+    bf16 on the card: a Var 3-d conv on the Hopper K15, held against its
+    plain version. Returns the Var graphs' launches on the card (f32 and
+    bf16)."""
     from neuronika_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
 
     def zero_counts():
@@ -2698,6 +2748,35 @@ def phase_conv_routes(nk, R, C):
     check(e_loss <= ROUTE_LOSS_TOL, f"phase 14 Var convs: loss err {e_loss}")
     check(e_grad <= ROUTE_GRAD_TOL, f"phase 14 Var convs: grad err {e_grad}")
 
+    # the forced route in bf16 on the card: the Var 3-d conv (dilation
+    # (2, 1, 2), a ragged box) on the Hopper K15, held against its plain
+    # version by phase 3's bf16 rule
+    nk.enable_kernels(True)
+    nk.config.conv_route = "force"
+    kv = (0.2 * rng.standard_normal((16, 8, 3, 2, 3))).astype(np.float32)
+    xv = rng.standard_normal((2, 8, 9, 10, 11)).astype(np.float32)
+    kb = nk.from_ndarray(kv, dtype=torch.bfloat16, device="cuda")
+    xb = nk.from_ndarray(xv, dtype=torch.bfloat16, device="cuda")
+    zero_counts()
+    C.conv3d_direct_ndhwc.sm90_launches = 0
+    yb = kb.convolution(xb, (1, 1, 1), (2, 1, 2))
+    yb.forward()
+    torch.cuda.synchronize()
+    nk.enable_kernels(False)
+    nk.config.conv_route = old_route
+    ref = C.conv_nd_reference(
+        xb.data().permute(0, 2, 3, 4, 1), kb.data().permute(2, 3, 4, 1, 0),
+        (1, 1, 1), (2, 1, 2)).permute(0, 4, 1, 2, 3)
+    e_bf16 = conv_within(yb.data(), ref, "phase 14 bf16 Var conv3d",
+                         torch.bfloat16)
+    k15 = (C.conv3d_direct_ndhwc.launches,
+           C.conv3d_direct_ndhwc.sm90_launches)
+    check(k15 == (1, 1) and sum(counts().values()) == 1,
+          f"phase 14 bf16 Var conv3d: launches {counts()}, Hopper K15 "
+          f"{k15[1]}, want one launch, on the Hopper kernel")
+    launches = dict(res["cuda"][2])
+    launches["conv3d_direct_ndhwc"] += 1
+
     nk.config.conv_route = "auto"
     routes = {name: C.route_conv2d(nd, stride, (1,) * nd, 1, on_card=True,
                                    **kw)
@@ -2711,11 +2790,14 @@ def phase_conv_routes(nk, R, C):
           + ", ".join(f"{k} {a:.6f}, {b:.3g}, {c:.3g}"
                       for k, (a, b, c) in errs.items())
           + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL}); launches "
-          f"{res['cuda'][2]} (Var graph); conv_route auto on the card "
+          f"{res['cuda'][2]} (Var graph); bf16 Var conv3d on the Hopper "
+          f"K15 (conv_route force): max abs err {e_bf16[0]:.3g}, "
+          f"||err||/||ref|| {e_bf16[1]:.3g} (bound {e_bf16[2]:.3g}); "
+          f"conv_route auto on the card "
           f"picks {json.dumps(routes)} (the JAX package's table with its "
           f"rank-2 row on the library, as phase 3's batch 1-4 timings "
           f"decide)")
-    return res["cuda"][2]
+    return launches
 
 
 def main() -> int:
@@ -2902,13 +2984,14 @@ def main() -> int:
     # K12 and K13 run on phase 13's path (launches, and errors on its
     # operands brought to unit scale), K14 and K15 on phase 14's Var graph
     # (launches; errors at bench.py's shapes); times at bench.py's shapes
-    # (phase 3); K12 and K13 there, and on phase 13's path in bf16 but for
-    # the stem, run csrc/conv_sm90.cu
+    # (phase 3); K12, K13 and K15 there, K12 and K13 on phase 13's path in
+    # bf16 but for the stem, and K15 in phase 14's bf16 Var conv, run
+    # csrc/conv_sm90.cu
     for name, line, path, source in (
             ("conv2d_direct_nhwc", 46, resnet, "conv_sm90.cu"),
             ("conv2d_dw_nhwc", 334, resnet, "conv_sm90.cu"),
             ("conv1d_direct_nwc", 574, var_convs, "conv.cu"),
-            ("conv3d_direct_ndhwc", 733, var_convs, "conv.cu")):
+            ("conv3d_direct_ndhwc", 733, var_convs, "conv_sm90.cu")):
         e, ms, p_ms, lib, bound = convk[name]
         e = resnet_errs.get(name, e)
         kernels.append({"name": name, "route": "cuda",
@@ -2921,10 +3004,13 @@ def main() -> int:
     # K8-K10 run on phase 6's fused-CE path (launches), checked and timed
     # at its LM head (phase 3); library_ms is the composite head's time
     # (forward for K8, its backward for K9 and K10), several calls
+    # K10 in bf16 runs csrc/cross_entropy_sm90.cu (phase 6's launches
+    # counted there: fused_ce["ce_dw.sm90"])
     for name, line in CE_LINES.items():
         e, ms, p_ms, lib, bound = cek[name]
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"{csrc}cross_entropy.cu",
+                        "source": f"{csrc}cross_entropy"
+                                  f"{'_sm90' if name == 'ce_dw' else ''}.cu",
                         "replaces": "neuronika_tpu/ops/pallas/"
                                     f"cross_entropy.py:{line}",
                         "launches": fused_ce[name], "max_abs_err": e,

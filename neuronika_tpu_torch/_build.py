@@ -149,7 +149,7 @@ def load_library() -> ctypes.CDLL:
     fn.restype = i                               # log, stream
     geo = ctypes.POINTER(ctypes.c_int)           # 19 ints, csrc/conv.cu
     for name in ("nk_conv1d", "nk_conv2d", "nk_conv3d",
-                 "nk_conv2d_sm90"):              # and csrc/conv_sm90.cu
+                 "nk_conv2d_sm90", "nk_conv3d_sm90"):  # and conv_sm90.cu
         fn = getattr(lib, name)
         fn.argtypes = [i, p, p, p, geo, p]       # dtype, x, w, out, geo,
         fn.restype = i                           # stream
@@ -162,7 +162,8 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [i, p, p, p, p, p,             # dtype, x, w, tgt, loss, lse
                    i, i, i, p]                   # N V D, stream
     fn.restype = i
-    for name in ("nk_ce_dx", "nk_ce_dw"):
+    for name in ("nk_ce_dx", "nk_ce_dw",
+                 "nk_ce_dw_sm90"):               # csrc/cross_entropy_sm90.cu
         fn = getattr(lib, name)
         fn.argtypes = [i, p, p, p, p, p, p,      # dtype, x, w, tgt, lse, g,
                        i, i, i, p]               # out; N V D, stream

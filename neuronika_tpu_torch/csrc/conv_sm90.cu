@@ -1,14 +1,18 @@
-// K12 and K13 in bf16 on Hopper: warp-specialised implicit GEMMs on wgmma,
-// with the im2col operand loaded by TMA's im2col mode.
+// K12, K13 and K15 in bf16 on Hopper: warp-specialised implicit GEMMs on
+// wgmma, with the im2col operand loaded by TMA's im2col mode.
 //
 // Replaces, for bf16 convs of groups 1 whose channels are multiples of 8
-// (TMA's 16-byte strides), two kernels of neuronika_tpu/ops/pallas/conv.py:
+// (TMA's 16-byte strides), three kernels of neuronika_tpu/ops/pallas/
+// conv.py:
 //   K12 _conv2d_nhwc_kernel  a VALID NHWC 2-d conv, any dilation, stride 1
 //                            to 8 (the stride-1 input gradient runs here
 //                            too, on the padded gradient) -> nk_conv2d_sm90
 //   K13 _dw_kernel           the weight gradient of a stride-1 conv, summed
 //                            over the batch, f32     -> nk_conv_dw_sm90
-// Every other conv (f32, groups, the ImageNet stem's 3 channels, K14, K15)
+//   K15 _conv3d_kernel       a VALID stride-1 NDHWC 3-d conv, any dilation
+//                            with (k - 1) d <= 16 (the rank-5 im2col corner
+//                            range)                   -> nk_conv3d_sm90
+// Every other conv (f32, groups, the ImageNet stem's 3 channels, K14)
 // stays on csrc/conv.cu; ops/conv.py::conv_route decides by shape alone.
 // The TPU kernels sum shifted MXU matmuls over flat VMEM windows; none of
 // that carries over.
@@ -42,6 +46,10 @@
 //     so one item's epilogue overlaps the next one's loads. BN follows Co:
 //     64 at Co <= 64, else 128 (K12) and up to 256 (K13, whose tile count
 //     sets how many SMs its one wave of splits fills).
+//   * K12 and K15 are one body (fwd_body): K15 loads A through a 5-d
+//     im2col map over (N, D, H, W, C), its base pixels walking (n, od,
+//     oh, ow) across planes and samples and the tap's three offsets
+//     (tw, th, td); K walks kd kh kw taps x Ci / 64 panels.
 //   * K12: a CTA tile is 128 pixels x BN; the epilogue goes from registers
 //     through padded shared rows to 16-byte stores, rows >= M and columns
 //     >= Co masked.
@@ -68,11 +76,11 @@ constexpr int kRegsProducer = 24, kRegsConsumer = 240;
 constexpr uint32_t kPanel = 64 * 128;    // 64 rows of 64 bf16: 8 KB
 constexpr int kStep = 64;                // K13: pixels a k step
 
-// A VALID 2-d conv, channels last
+// A VALID 2-d or 3-d conv, channels last (2-d: D = Do = kd = dd = 1)
 struct Geo {
-  int N, H, W, Ci, Ho, Wo, Co, kh, kw, sh, sw, dh, dw;
+  int N, D, H, W, Ci, Do, Ho, Wo, Co, kd, kh, kw, sh, sw, dd, dh, dw;
   int P;       // 64-channel panels, ceil(Ci / 64)
-  int M;       // output pixels N Ho Wo
+  int M;       // output pixels N Do Ho Wo
 };
 
 template <int BN>
@@ -95,23 +103,26 @@ struct DwCfg {
       (size_t)kStages * kStage + 16 * kStages + 1024;
 };
 
-__device__ __forceinline__ void pixel(const Geo& g, int m, int* n, int* oh,
-                                      int* ow) {
+__device__ __forceinline__ void pixel(const Geo& g, int m, int* n, int* od,
+                                      int* oh, int* ow) {
   *ow = m % g.Wo;
-  const int t = m / g.Wo;
+  int t = m / g.Wo;
   *oh = t % g.Ho;
-  *n = t / g.Ho;
+  t /= g.Ho;
+  *od = t % g.Do;
+  *n = t / g.Do;
 }
 
 // (tap, panel) step or row block j -> its channel origin and tap offsets
 __device__ __forceinline__ void tap_of(const Geo& g, int j, int* c0,
                                        uint16_t* ow, uint16_t* oh,
-                                       int* tap) {
+                                       uint16_t* od, int* tap) {
   *tap = j / g.P;
   *c0 = (j - *tap * g.P) * 64;
-  const int th = *tap / g.kw;
-  *ow = (uint16_t)((*tap - th * g.kw) * g.dw);
-  *oh = (uint16_t)(th * g.dh);
+  const int t = *tap / g.kw, td = t / g.kh;
+  *ow = (uint16_t)((*tap - t * g.kw) * g.dw);
+  *oh = (uint16_t)((t - td * g.kh) * g.dh);
+  *od = (uint16_t)(td * g.dd);
 }
 
 template <int kStages>
@@ -126,12 +137,13 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
   __syncthreads();
 }
 
-// ------------------------------------------------------------------ K12
-template <int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-    conv_sm90_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
-                         const __grid_constant__ CUtensorMap w_map,
-                         bf16* __restrict__ out, const Geo g) {
+// ------------------------------------------------------------ K12, K15
+// RANK 4: x_map is K12's 4-d im2col map; RANK 5: K15's 5-d one
+template <int BN, int RANK>
+__device__ __forceinline__ void fwd_body(const CUtensorMap& x_map,
+                                         const CUtensorMap& w_map,
+                                         bf16* __restrict__ out,
+                                         const Geo& g) {
   using C = FwdCfg<BN>;
   constexpr int kStages = C::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -141,7 +153,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* empty = full + kStages;
   const int tiles_n = (g.Co + BN - 1) / BN;
   const int items = (g.M + 127) / 128 * tiles_n;
-  const int steps = g.kh * g.kw * g.P;
+  const int steps = g.kd * g.kh * g.kw * g.P;
   init_ring<kStages>(full, empty);
 
   const int wg = threadIdx.x / 128;
@@ -151,18 +163,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     int it = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       const int m0 = item / tiles_n * 128, n0 = item % tiles_n * BN;
-      int n, oh, ow;
-      pixel(g, m0, &n, &oh, &ow);
+      int n, od, oh, ow;
+      pixel(g, m0, &n, &od, &oh, &ow);
       for (int j = 0; j < steps; ++j, ++it) {
         const int s = it % kStages;
         int c0, tap;
-        uint16_t tw, th;
-        tap_of(g, j, &c0, &tw, &th, &tap);
+        uint16_t tw, th, td;
+        tap_of(g, j, &c0, &tw, &th, &td, &tap);
         unsigned char* st = smem + s * C::kStage;
         mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
         mbar_expect_tx(full + s, C::kStage);
-        tma_load_im2col_4d(st, &x_map, full + s, c0, ow * g.sw, oh * g.sh, n,
-                           tw, th);
+        if constexpr (RANK == 5)
+          tma_load_im2col_5d(st, &x_map, full + s, c0, ow, oh, od, n, tw, th,
+                             td);
+        else
+          tma_load_im2col_4d(st, &x_map, full + s, c0, ow * g.sw, oh * g.sh,
+                             n, tw, th);
 #pragma unroll
         for (int b = 0; b < BN / 64; ++b)
           tma_load_3d(st + C::kA + b * kPanel, &w_map, full + s, n0 + 64 * b,
@@ -226,6 +242,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// two entry points over one body, so that a profile tells K12 from K15
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_sm90_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap w_map,
+                         bf16* __restrict__ out, const Geo g) {
+  fwd_body<BN, 4>(x_map, w_map, out, g);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3d_sm90_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap w_map,
+                           bf16* __restrict__ out, const Geo g) {
+  fwd_body<BN, 5>(x_map, w_map, out, g);
+}
+
 // ------------------------------------------------------------------ K13
 // item = (split, row-block pair, column tile), splits slowest; split sp
 // reduces pixels [sp chunk, min(M, (sp + 1) chunk)) into part[sp]
@@ -257,13 +290,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int rb = t / tiles_n * 2, n0 = t % tiles_n * BN;
       const int k0 = sp * chunk, k1 = min(g.M, k0 + chunk);
       int c0[2], tap;
-      uint16_t tw[2], th[2];
+      uint16_t tw[2], th[2], td;
       for (int w = 0; w < 2; ++w)   // a missing second block loads the first
-        tap_of(g, min(rb + w, blocks - 1), c0 + w, tw + w, th + w, &tap);
+        tap_of(g, min(rb + w, blocks - 1), c0 + w, tw + w, th + w, &td,
+               &tap);
       for (int m = k0; m < k1; m += kStep, ++it) {
         const int s = it % kStages;
-        int n, oh, ow;
-        pixel(g, m, &n, &oh, &ow);
+        int n, od, oh, ow;
+        pixel(g, m, &n, &od, &oh, &ow);
         unsigned char* st = smem + s * C::kStage;
         mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
         mbar_expect_tx(full + s, C::kStage);
@@ -318,8 +352,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       keep(acc);
       mbar_arrive(empty + (it + steps - 1) % kStages);
       int c0, tap;
-      uint16_t tw, th;
-      tap_of(g, rb, &c0, &tw, &th, &tap);
+      uint16_t tw, th, td;
+      tap_of(g, rb, &c0, &tw, &th, &td, &tap);
       float* dst = part + (size_t)sp * rows * g.Co;
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
@@ -359,23 +393,30 @@ __global__ void conv_sm90_dw_reduce(const float4* __restrict__ ws,
 }
 
 // geo: N D H W Ci  Do Ho Wo Co  kd kh kw  sd sh sw  dd dh dw  groups, as
-// csrc/conv.cu reads it. Returns false unless the conv is 2-d, groups 1,
-// every size positive, the channels multiples of 8, the strides at most 8
-// (TMA's traversal strides), (k - 1) d at most 128 (the im2col corner
-// range), every output window inside the input and the pixels within int.
-bool parse(const int* a, Geo& g) {
+// csrc/conv.cu reads it. Returns false unless the conv is of groups 1,
+// every size positive, the channels multiples of 8, every output window
+// inside the input, the pixels within int, and by rank: 2-d (rank 4: D, Do
+// and kd 1) with strides at most 8 (TMA's traversal strides) and (k - 1) d
+// at most 128 (the rank-4 im2col corner range), or 3-d (rank 5) of stride
+// 1 with (k - 1) d at most 16 on each axis (the rank-5 corner range).
+bool parse(const int* a, Geo& g, int rank) {
   for (int i = 0; i < 19; ++i)
     if (a[i] < 1) return false;
-  if (a[1] != 1 || a[5] != 1 || a[9] != 1 || a[18] != 1) return false;
-  g = Geo{a[0], a[2], a[3], a[4], a[6], a[7], a[8], a[10], a[11],
-          a[13], a[14], a[16], a[17], 0, 0};
+  if (a[18] != 1) return false;
+  g = Geo{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9], a[10],
+          a[11], a[13], a[14], a[15], a[16], a[17], 0, 0};
+  const ll corner = rank == 5 ? 16 : 128;
+  if (rank == 4 && (g.D != 1 || g.Do != 1 || g.kd != 1)) return false;
+  if (rank == 5 && (a[12] != 1 || g.sh != 1 || g.sw != 1)) return false;
   if (g.Ci % 8 || g.Co % 8 || g.sh > 8 || g.sw > 8 ||
-      (g.kh - 1) * (ll)g.dh > 128 || (g.kw - 1) * (ll)g.dw > 128)
+      (g.kd - 1) * (ll)g.dd > corner || (g.kh - 1) * (ll)g.dh > corner ||
+      (g.kw - 1) * (ll)g.dw > corner)
     return false;
-  if ((ll)(g.Ho - 1) * g.sh + (ll)g.dh * (g.kh - 1) >= g.H ||
+  if ((ll)(g.Do - 1) + (ll)g.dd * (g.kd - 1) >= g.D ||
+      (ll)(g.Ho - 1) * g.sh + (ll)g.dh * (g.kh - 1) >= g.H ||
       (ll)(g.Wo - 1) * g.sw + (ll)g.dw * (g.kw - 1) >= g.W)
     return false;
-  const ll M = (ll)g.N * g.Ho * g.Wo;
+  const ll M = (ll)g.N * g.Do * g.Ho * g.Wo;
   if (M > INT32_MAX - 128) return false;
   g.M = (int)M;
   g.P = (g.Ci + 63) / 64;
@@ -404,28 +445,32 @@ cudaError_t prepare(size_t smem, int* sms) {
   return err;
 }
 
-template <int BN>
+template <int BN, int RANK>
 cudaError_t fwd(const Geo& g, const bf16* x, const bf16* w, bf16* out,
                 cudaStream_t stream) {
   CUtensorMap x_map, w_map;
-  cudaError_t err = make_im2col_map(&x_map, x, g.N, g.H, g.W, g.Ci, g.kh,
-                                    g.kw, g.dh, g.dw, g.sh, g.sw, 64, 128);
+  cudaError_t err =
+      RANK == 5 ? make_im2col_map_5d(&x_map, x, g.N, g.D, g.H, g.W, g.Ci,
+                                     g.kd, g.kh, g.kw, g.dd, g.dh, g.dw, 64,
+                                     128)
+                : make_im2col_map(&x_map, x, g.N, g.H, g.W, g.Ci, g.kh, g.kw,
+                                  g.dh, g.dw, g.sh, g.sw, 64, 128);
   if (err) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)g.Co, (cuuint64_t)g.Ci,
-                              (cuuint64_t)g.kh * g.kw};
+                              (cuuint64_t)g.kd * g.kh * g.kw};
   const cuuint64_t strides[2] = {(cuuint64_t)g.Co * 2,
                                  (cuuint64_t)g.Co * 2 * g.Ci};
   const cuuint32_t box[3] = {64, 64, 1};
   err = make_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, dims, strides,
                  box);
+  constexpr auto kernel = RANK == 5 ? conv3d_sm90_fwd_kernel<BN>
+                                    : conv_sm90_fwd_kernel<BN>;
   int sms = 0;
-  if (!err)
-    err = prepare<conv_sm90_fwd_kernel<BN>>(FwdCfg<BN>::kSmem, &sms);
+  if (!err) err = prepare<kernel>(FwdCfg<BN>::kSmem, &sms);
   if (err) return err;
   const ll items = (ll)((g.M + 127) / 128) * ((g.Co + BN - 1) / BN);
-  conv_sm90_fwd_kernel<BN><<<(int)(items < sms ? items : sms), kThreads,
-                             FwdCfg<BN>::kSmem, stream>>>(x_map, w_map, out,
-                                                          g);
+  kernel<<<(int)(items < sms ? items : sms), kThreads, FwdCfg<BN>::kSmem,
+           stream>>>(x_map, w_map, out, g);
   return cudaGetLastError();
 }
 
@@ -461,14 +506,31 @@ cudaError_t dw(const Geo& g, const bf16* x, const bf16* gout, float* part,
 extern "C" int nk_conv2d_sm90(int dtype, const void* x, const void* w,
                               void* out, const int* geo, void* stream) {
   Geo g;
-  if (dtype != 1 || !parse(geo, g) || !aligned16(x) || !aligned16(w) ||
+  if (dtype != 1 || !parse(geo, g, 4) || !aligned16(x) || !aligned16(w) ||
       !aligned16(out))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* ob = static_cast<bf16*>(out);
-  return g.Co <= 64 ? fwd<64>(g, xb, wb, ob, s) : fwd<128>(g, xb, wb, ob, s);
+  return g.Co <= 64 ? fwd<64, 4>(g, xb, wb, ob, s)
+                    : fwd<128, 4>(g, xb, wb, ob, s);
+}
+
+// K15: x (N, D, H, W, Ci) * w (kd, kh, kw, Ci, Co) -> out (N, Do, Ho, Wo,
+// Co), stride 1, otherwise as nk_conv2d_sm90 (nk_conv3d's signature).
+extern "C" int nk_conv3d_sm90(int dtype, const void* x, const void* w,
+                              void* out, const int* geo, void* stream) {
+  Geo g;
+  if (dtype != 1 || !parse(geo, g, 5) || !aligned16(x) || !aligned16(w) ||
+      !aligned16(out))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  return g.Co <= 64 ? fwd<64, 5>(g, xb, wb, ob, s)
+                    : fwd<128, 5>(g, xb, wb, ob, s);
 }
 
 // K13: dw (kh, kw, Ci, Co) f32 of the stride-1 conv `geo` from x and the
@@ -481,7 +543,7 @@ extern "C" int nk_conv_dw_sm90(int dtype, const void* x, const void* gout,
                                void* ws, void* out, const int* geo,
                                int splits, int chunk, void* stream) {
   Geo g;
-  if (dtype != 1 || !parse(geo, g) || geo[13] != 1 || geo[14] != 1 ||
+  if (dtype != 1 || !parse(geo, g, 4) || geo[13] != 1 || geo[14] != 1 ||
       splits < 1 || chunk < 1 || chunk % kStep ||
       (ll)(splits - 1) * chunk >= g.M ||
       (ll)splits * chunk < g.M || !aligned16(x) || !aligned16(gout) ||

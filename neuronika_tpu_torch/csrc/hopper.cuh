@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the warp-specialised
-// kernels of flash_attention_qkv.cu, flash_attention.cu, matmul.cu and
-// conv_sm90.cu: mbarriers, TMA tile loads (3-d and 4-d maps) and im2col
-// loads, bulk copies, wgmma descriptors and products (bf16 and TF32),
-// register reallocation and named barriers; on the host, TMA map encoding
-// (tiled and im2col) and the SM count. Plain C++ and PTX: no CUTLASS, so
+// kernels of flash_attention_qkv.cu, flash_attention.cu, matmul.cu,
+// conv_sm90.cu and cross_entropy_sm90.cu: mbarriers (also across a
+// cluster), TMA tile loads (3-d and 4-d maps) and im2col loads (4-d and
+// 5-d), bulk copies, distributed shared memory, wgmma descriptors and
+// products (bf16 and TF32), register reallocation and named barriers; on
+// the host, TMA map encoding (tiled and im2col) and the SM count. Plain C++ and PTX: no CUTLASS, so
 // the source builds in seconds.
 //
 // Shared-memory tiles are kept in the layout that TMA writes with
@@ -116,6 +117,23 @@ __device__ __forceinline__ void tma_load_im2col_4d(void* dst, const void* map,
       : "memory");
 }
 
+// the same over an NDHWC tensor (make_im2col_map_5d): base pixel at input
+// coordinates (w, h, d) of sample n, the tap's offsets (ow, oh, od)
+__device__ __forceinline__ void tma_load_im2col_5d(void* dst, const void* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int h, int d, int n,
+                                                   uint16_t ow, uint16_t oh,
+                                                   uint16_t od) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.im2col.mbarrier"
+      "::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2], "
+      "{%8, %9, %10};\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h), "r"(d), "r"(n), "h"(ow),
+      "h"(oh), "h"(od)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -158,6 +176,64 @@ __device__ __forceinline__ void bulk_wait() {
 // order the generic proxy's accesses against the async proxy's (TMA, bulk)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------- clusters
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster (all of them still running)
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of this CTA's shared `p` in CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// one arrival on a barrier of any CTA of the cluster (a map_rank address),
+// releasing this thread's writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait that acquires what the arrivals released at cluster scope
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int phase) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "%1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// 16 bytes of any CTA's shared memory in the cluster (a map_rank address)
+__device__ __forceinline__ void ld_cluster(uint32_t (&v)[4], uint32_t addr) {
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
 }
 
 // --------------------------------------------------- registers, barriers
@@ -514,6 +590,35 @@ inline cudaError_t make_im2col_map(CUtensorMap* map, const void* base, int N,
   const int upper[2] = {-(kw - 1) * dw, -(kh - 1) * dh};
   const cuuint32_t elem[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(base), dims, strides, lower, upper,
+                         (cuuint32_t)channels, (cuuint32_t)pixels, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 NDHWC tensor (N, D, H, W, C) as an im2col map for a VALID
+// stride-1 conv with taps (kd, kh, kw) and dilation (dd, dh, dw): as
+// make_im2col_map, a load's base pixels walking the output positions of
+// each sample in (d, h, w) order, w fastest; the rank-5 corner range is
+// [-16, 15], so (k - 1) d <= 16 on each axis.
+inline cudaError_t make_im2col_map_5d(CUtensorMap* map, const void* base,
+                                      int N, int D, int H, int W, int C,
+                                      int kd, int kh, int kw, int dd, int dh,
+                                      int dw, int channels, int pixels) {
+  const EncodeIm2col enc = encoder_im2col();
+  if (!enc) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)D, (cuuint64_t)N};
+  const cuuint64_t row = (cuuint64_t)C * 2;
+  const cuuint64_t strides[4] = {row, row * W, row * W * H,
+                                 row * W * H * D};
+  const int lower[3] = {0, 0, 0};
+  const int upper[3] = {-(kw - 1) * dw, -(kh - 1) * dh, -(kd - 1) * dd};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
                          const_cast<void*>(base), dims, strides, lower, upper,
                          (cuuint32_t)channels, (cuuint32_t)pixels, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -10,12 +10,16 @@ are never materialised by the kernels. Three wrappers carry it:
   `ce_dw`   K10: dW = sum_i cast(p g)^T x_i in w's dtype;
 with p = exp(logit - lse) - onehot(target), g the row weights (N,) f32 and
 cast() the rounding of p g to x's dtype before the second product, as the
-TPU kernels round it. For CUDA tensors each launches its kernel of
-`csrc/cross_entropy.cu` (mma.sync for bf16, FFMA for f32, f32
-accumulation) and adds one to its `launches`; any other tensor takes the
-plain version beside it, the same math in f32 from the operands widened
-exactly. A target outside [0, V) matches no column: its target logit is 0
-and it subtracts no onehot, as in the TPU kernels.
+TPU kernels round it. For CUDA tensors each launches its kernel and adds
+one to its `launches`: `csrc/cross_entropy.cu` (mma.sync for bf16, FFMA
+for f32, f32 accumulation) for K8, K9 and f32 K10; for bf16 K10 the kernel
+`ce_grad_route` picks by shape, the Hopper kernel of
+`csrc/cross_entropy_sm90.cu` (wgmma, TMA, a cluster of D slices sharing
+the logits; it also adds one to `ce_dw.sm90_launches`) or the template.
+Any other tensor takes the plain version beside it, the same math in f32
+from the operands widened exactly. A target outside [0, V) matches no
+column: its target logit is 0 and it subtracts no onehot, as in the TPU
+kernels.
 
 The block sizes of the JAX function size the TPU's VMEM blocks: its check
 that they divide rows and vocabulary is kept (the "divisible" error), and
@@ -29,6 +33,10 @@ import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
+# the Hopper K10's tiles (csrc/cross_entropy_sm90.cu: kOwn, kStream,
+# kSlice, kMaxCluster): W rows a CTA, x rows a stream tile, D columns a
+# CTA's accumulator, CTAs a cluster (the portable cluster size)
+SM90_OWN, SM90_STREAM, SM90_SLICE, SM90_MAX_CLUSTER = 128, 128, 192, 8
 
 
 def _shapes(x, w, targets):
@@ -114,6 +122,35 @@ def _card(fn, x, w, targets, *rows):
             *(r.float().contiguous() for r in rows))
 
 
+def ce_grad_route(kind: str, dtype, D: int) -> str:
+    """The kernel that runs a K9 ("dx") or K10 ("dw") call on the card, by
+    shape alone, before launch: "sm90", `csrc/cross_entropy_sm90.cu`'s
+    Hopper kernel, for bf16 K10 with D a multiple of 8 (TMA's rows are
+    multiples of 16 bytes) cut into at most SM90_MAX_CLUSTER slices of
+    SM90_SLICE columns (D <= 1536: one cluster holds a W block's slices);
+    "ce_grad", `csrc/cross_entropy.cu`'s template, otherwise (K9; f32;
+    wider D; D not a multiple of 8). Not a fallback: a failure of the
+    chosen kernel raises."""
+    if kind not in ("dx", "dw"):
+        raise ValueError(f"kind {kind!r}: dx or dw")
+    sm90 = (kind == "dw" and dtype == torch.bfloat16 and D % 8 == 0
+            and -(-D // SM90_SLICE) <= SM90_MAX_CLUSTER)
+    return "sm90" if sm90 else "ce_grad"
+
+
+def ce_dw_plan_sm90(N: int, V: int, D: int):
+    """The Hopper K10's launch, as `nk_ce_dw_sm90` cuts it: (cluster size,
+    grid (slices, W blocks), the D columns [d0, d1) of each slice, rounds
+    of the stream walk). Slice s holds columns s SM90_SLICE .. up to D; a
+    round takes one stream tile of SM90_STREAM x rows a CTA of the
+    cluster."""
+    cs = -(-D // SM90_SLICE)
+    slices = [(s * SM90_SLICE, min(D, (s + 1) * SM90_SLICE))
+              for s in range(cs)]
+    tiles = -(-N // SM90_STREAM)
+    return cs, (cs, -(-V // SM90_OWN)), slices, -(-tiles // cs)
+
+
 def _launched(fn, err):
     if err:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError "
@@ -141,40 +178,52 @@ def ce_fwd(x, w, targets):
     return loss, lse
 
 
-def _grad(fn, cname, out_rows, x, w, targets, lse, g_rows):
+def _grad(fn, kind, x, w, targets, lse, g_rows):
+    """Launch the K9 ("dx") or K10 ("dw") kernel `ce_grad_route` picks."""
     xc, wc, tc, lc, gc = _card(fn, x, w, targets, lse, g_rows)
     N, V, D = x.shape[0], w.shape[0], x.shape[1]
-    out = torch.empty((out_rows, D), dtype=x.dtype, device=x.device)
+    sm90 = ce_grad_route(kind, x.dtype, D) == "sm90"
+    if sm90:   # TMA reads from 16-byte aligned bases
+        xc, wc = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (xc, wc))
+    out = torch.empty((N if kind == "dx" else V, D), dtype=x.dtype,
+                      device=x.device)
     from .._build import load_library
 
     with torch.cuda.device(x.device):
-        err = getattr(load_library(), cname)(
+        err = getattr(load_library(), f"nk_ce_{kind}{'_sm90' * sm90}")(
             _DTYPES[x.dtype], xc.data_ptr(), wc.data_ptr(), tc.data_ptr(),
             lc.data_ptr(), gc.data_ptr(), out.data_ptr(), N, V, D,
             torch.cuda.current_stream(x.device).cuda_stream)
     _launched(fn, err)
+    fn.sm90_launches += sm90
     return out
 
 
 def ce_dx(x, w, targets, lse, g_rows):
-    """K9: dx (N, D) in x's dtype. CUDA tensors: the kernel, adding one to
+    """K9: dx (N, D) in x's dtype. CUDA tensors: the kernel `ce_grad_route`
+    picks (the template, in this version), adding one to
     `ce_dx.launches`; others: `ce_dx_reference`."""
     if x.device.type != "cuda":
         return ce_dx_reference(x, w, targets, lse, g_rows)
-    return _grad(ce_dx, "nk_ce_dx", x.shape[0], x, w, targets, lse, g_rows)
+    return _grad(ce_dx, "dx", x, w, targets, lse, g_rows)
 
 
 def ce_dw(x, w, targets, lse, g_rows):
     """K10: dW (V, D) in w's dtype, deterministic (each CTA sums its rows'
-    terms in order). CUDA tensors: the kernel, adding one to
-    `ce_dw.launches`; others: `ce_dw_reference`."""
+    terms in order). CUDA tensors: the kernel `ce_grad_route` picks, adding
+    one to `ce_dw.launches` (and to `ce_dw.sm90_launches` on the Hopper
+    kernel); others: `ce_dw_reference`."""
     if x.device.type != "cuda":
         return ce_dw_reference(x, w, targets, lse, g_rows)
-    return _grad(ce_dw, "nk_ce_dw", w.shape[0], x, w, targets, lse, g_rows)
+    return _grad(ce_dw, "dw", x, w, targets, lse, g_rows)
 
 
 for _fn in (ce_fwd, ce_dx, ce_dw):
     _fn.launches = 0
+# calls of K9 and K10 that ran the Hopper kernel (ce_grad_route "sm90")
+ce_dx.sm90_launches = 0
+ce_dw.sm90_launches = 0
 
 KERNELS = (ce_fwd, ce_dx, ce_dw)
 

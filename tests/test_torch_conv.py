@@ -324,6 +324,39 @@ def test_conv_route_by_shape(args, want):
     assert TC.conv_route(*args) == want
 
 
+@pytest.mark.parametrize("args,want", [
+    ((torch.bfloat16, 128, 128), "sm90"),                       # table
+    ((torch.bfloat16, 16, 24, 1, (2, 1, 2), (3, 2, 3)), "sm90"),
+    ((torch.bfloat16, 8, 8, 1, (16, 1, 1), (2, 1, 1)), "sm90"),  # corner
+    ((torch.bfloat16, 8, 8, 1, (1, 1, 1), (17, 1, 1)), "sm90"),
+    ((torch.float32, 128, 128), "conv_ffma"),
+    ((torch.bfloat16, 3, 64), "conv_mma"),                      # Ci = 3
+    ((torch.bfloat16, 64, 20), "conv_mma"),                     # Co % 8
+    ((torch.bfloat16, 64, 64, 2), "conv_mma"),                  # groups
+    ((torch.bfloat16, 8, 8, 1, (17, 1, 1), (2, 1, 1)), "conv_mma"),
+    ((torch.bfloat16, 8, 8, 1, (1, 3, 1), (1, 7, 1)), "conv_mma"),
+    ((torch.bfloat16, 8, 8, 1, (1, 1, 9), (1, 1, 3)), "conv_mma"),
+], ids=["table", "dil2", "d16", "k17", "f32", "ci3", "co20", "groups",
+        "d17", "d3k7", "d9k3"])
+def test_conv_route_rank3(args, want):
+    """K15: bf16, groups 1, channels multiples of 8 and (k - 1) d <= 16 on
+    every axis (the rank-5 im2col corner range) on the Hopper kernel."""
+    dtype, ci, co, *rest = args
+    groups, dil, k = rest + [1, (1, 1, 1), (3, 3, 3)][len(rest):]
+    assert TC.conv_route("fwd", dtype, ci, co, groups, (1, 1, 1), dil,
+                         k) == want
+
+
+@pytest.mark.parametrize("args", [
+    ("dw", torch.bfloat16, 8, 8, 1, (1, 1, 1), (1, 1, 1), (3, 3, 3)),
+    ("fwd", torch.bfloat16, 8, 8, 1, (1, 1), (1, 1), (3, 3, 3)),
+    ("fwd", torch.bfloat16, 8, 8, 1, (1,), (1,), (3,)),
+], ids=["dw-3d", "mismatch", "rank1"])
+def test_conv_route_refuses_what_no_kernel_takes(args):
+    with pytest.raises(ValueError):
+        TC.conv_route(*args)
+
+
 @pytest.mark.parametrize("taps,ci,co,pixels", [
     (9, 64, 64, 64 * 56 * 56), (9, 128, 128, 64 * 28 * 28),
     (9, 256, 256, 64 * 14 * 14), (9, 512, 512, 64 * 7 * 7),
@@ -356,6 +389,7 @@ def test_counters_do_not_move_on_the_cpu():
     assert [k.launches for k in TC.KERNELS] == before
     assert TC.conv2d_direct_nhwc.sm90_launches == 0
     assert TC.conv2d_dw_nhwc.sm90_launches == 0
+    assert TC.conv3d_direct_ndhwc.sm90_launches == 0
 
 
 # --------------------------------------------------------------------------
@@ -561,3 +595,61 @@ def test_sm90_conv_dw_gives_the_same_bits_twice(cuda, xs, gs):
     b = TC.conv2d_dw_nhwc(x, g, 3, 3)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# the Hopper K15 (bf16): (x shape, w shape, dilation); dilation on some
+# axes, a ragged box on every axis, Ci and Co tails, (k - 1) d = 16 (the
+# rank-5 corner range) and the table's widths at batch 2
+SM90_K15_CASES = {
+    "k2-dil2x1x2": ((2, 6, 7, 9, 8), (2, 2, 2, 8, 16), (2, 1, 2)),
+    "ragged": ((2, 9, 10, 11, 16), (3, 2, 3, 16, 24), (2, 1, 2)),
+    "k3-c64": ((3, 5, 6, 7, 64), (3, 3, 3, 64, 64), (1, 1, 1)),
+    "tails": ((2, 12, 12, 12, 72), (3, 3, 3, 72, 136), (2, 2, 1)),
+    "corner16": ((1, 20, 6, 6, 8), (3, 1, 1, 8, 8), (8, 1, 1)),
+    "table-B2": ((2, 16, 16, 16, 128), (3, 3, 3, 128, 128), (1, 1, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SM90_K15_CASES))
+def test_sm90_conv3d_matches_plain_on_gpu(cuda, name):
+    """In norm as _card_close, and each entry within one bf16 ulp of the
+    largest: both round one f32 sum."""
+    xs, ws, dil = SM90_K15_CASES[name]
+    x = torch.from_numpy(_randn(*xs)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(_randn(*ws, seed=1, scale=(
+        ws[0] * ws[1] * ws[2] * ws[3]) ** -0.5)).to(cuda, torch.bfloat16)
+    assert TC.conv_route("fwd", torch.bfloat16, xs[-1], ws[-1], 1,
+                         (1, 1, 1), dil, ws[:3]) == "sm90"
+    k15 = TC.conv3d_direct_ndhwc
+    before = k15.launches, k15.sm90_launches
+    out = k15(x, w, dil)
+    ref = TC.conv_nd_reference(x, w, (1, 1, 1), dil)
+    torch.cuda.synchronize()
+    assert (k15.launches, k15.sm90_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    _card_close(out, ref, torch.bfloat16)
+    top = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 2.0 ** (
+        np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,xs,ws,dil", [
+    (torch.float32, (2, 6, 7, 9, 8), (3, 3, 3, 8, 16), (1, 1, 1)),
+    (torch.bfloat16, (1, 22, 6, 6, 8), (3, 1, 1, 8, 8), (9, 1, 1)),
+    (torch.bfloat16, (2, 6, 7, 9, 12), (3, 3, 3, 12, 16), (1, 1, 1)),
+], ids=["f32", "corner18", "ci12"])
+def test_conv3d_route_falls_to_conv_cu_on_gpu(cuda, dtype, xs, ws, dil):
+    """What the Hopper K15 does not take runs csrc/conv.cu's kernel."""
+    x = torch.from_numpy(_randn(*xs)).to(cuda, dtype)
+    w = torch.from_numpy(_randn(*ws, seed=1, scale=0.3)).to(cuda, dtype)
+    assert TC.conv_route("fwd", dtype, xs[-1], ws[-1], 1, (1, 1, 1), dil,
+                         ws[:3]) != "sm90"
+    k15 = TC.conv3d_direct_ndhwc
+    before = k15.launches, k15.sm90_launches
+    out = k15(x, w, dil)
+    ref = TC.conv_nd_reference(x, w, (1, 1, 1), dil)
+    torch.cuda.synchronize()
+    assert (k15.launches, k15.sm90_launches) == (before[0] + 1, before[1])
+    _card_close(out, ref, dtype)

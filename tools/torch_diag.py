@@ -1,4 +1,4 @@
-"""Nine measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Eleven measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -41,6 +41,16 @@ make, run on one CUDA card from the root of a checkout:
         function (F.conv2d, torch.nn.grad.conv2d_weight; TF32 off) and
         its bound, and the sums over the step's calls; device time a call
         from torch.profiler, the best of two runs of 20 calls each;
+    python3 tools/torch_diag.py ce TREE_ROOT
+        CUDA-event times of the checkout's K8, K9 and K10 at chip_smoke.py
+        phase 6's LM head (bf16 N32768 D1536 V16384; the best of two runs
+        of 3 launches each, as phase 3 times them) and phase 6's headline
+        step with fused_ce="on" (1 warm-up and 4 timed steps); run it for
+        two checkouts in turns to compare them;
+    python3 tools/torch_diag.py conv3d TREE_ROOT
+        CUDA-event time of the checkout's K15 at the table shape of
+        chip_smoke.py phase 3 (bf16 32x16^3x128 -> 128, k3; the best of two
+        runs of 20 launches) beside F.conv3d's and the bound;
     python3 tools/torch_diag.py resnet TREE_ROOT
         phase 13's ResNet-18 train step of the checkout: 2 warm-up and 5
         timed steps, twice, with its K12 and K13 launch counts;
@@ -202,6 +212,66 @@ def kernels(root):
             qkv, out, lse, do, H)))]
     print(f"{root}: bf16 B{B} S{S} H{H} hd{hd} causal fast: "
           + "; ".join(line), flush=True)
+
+
+def ce(root):
+    import numpy as np
+
+    root, cs, FA = _tree(root)
+    from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.ops import cross_entropy as CE
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    N, D, V = cs.CE_HEAD
+    x, w, t, gr = cs.ce_case(g, N, D, V, torch.bfloat16)
+    _, lse = CE.ce_fwd(x, w, t)
+    line = []
+    for name, fn in (("ce_fwd", lambda: CE.ce_fwd(x, w, t)),
+                     ("ce_dx", lambda: CE.ce_dx(x, w, t, lse, gr)),
+                     ("ce_dw", lambda: CE.ce_dw(x, w, t, lse, gr))):
+        ms = min(cs.cuda_ms(fn, 3), cs.cuda_ms(fn, 3))
+        line.append(f"{name} {ms:.3f} ms")
+    print(f"{root}: bf16 N{N} D{D} V{V}: " + ", ".join(line), flush=True)
+    del x, w, t, gr, lse
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    B, S = 16, 2048
+    toks = rng.integers(0, cs.TRAIN_CFG["vocab_size"], size=(B, S))
+    batch = (torch.from_numpy(toks).to("cuda"),
+             torch.from_numpy(np.roll(toks, -1, axis=1)).to("cuda"))
+    cfg = T.GPTConfig(dtype=torch.bfloat16, fused_ce="on", **cs.TRAIN_CFG,
+                      **cs.HEADLINE)
+    losses, launches, step_s, peak, _ = cs.train_steps(
+        T, cs.train_kernels(FA, CE), cfg, 1, 4, batch, 5e-4)
+    print(f"{root}: fused-CE headline step {step_s * 1e3:.2f} ms, peak "
+          f"{peak:.2f} GiB, losses {[round(l, 4) for l in losses]}, "
+          f"launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+
+
+def conv3d(root):
+    import torch.nn.functional as F
+
+    root, cs, _ = _tree(root)
+    from neuronika_tpu_torch.ops import conv as C
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(32, 16, 16, 16, 128, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    w = (torch.randn(3, 3, 3, 128, 128, generator=g, device="cuda")
+         * (27 * 128) ** -0.5).to(torch.bfloat16)
+    xn, wn = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
+    n_out = 32 * 14 ** 3 * 128
+    flops = 2 * n_out * 27 * 128
+    bound = cs.bound_ms((x.numel() + w.numel() + n_out) * 2, flops,
+                        torch.bfloat16)[0]
+    k = min(cs.cuda_ms(lambda: C.conv3d_direct_ndhwc(x, w), 20),
+            cs.cuda_ms(lambda: C.conv3d_direct_ndhwc(x, w), 20))
+    lib = min(cs.cuda_ms(lambda: F.conv3d(xn, wn), 20),
+              cs.cuda_ms(lambda: F.conv3d(xn, wn), 20))
+    print(f"{root}: K15 bf16 32x16^3x128 k3: kernel {k:.4f} ms "
+          f"({flops / k / 1e9:.1f} TFLOP/s), F.conv3d {lib:.4f} ms, bound "
+          f"{bound:.4f} ms", flush=True)
 
 
 def f32_fused(root):
@@ -549,6 +619,10 @@ if __name__ == "__main__":
         host(sys.argv[2])
     elif sys.argv[1:2] == ["conv"] and len(sys.argv) == 3:
         conv(sys.argv[2])
+    elif sys.argv[1:2] == ["ce"] and len(sys.argv) == 3:
+        ce(sys.argv[2])
+    elif sys.argv[1:2] == ["conv3d"] and len(sys.argv) == 3:
+        conv3d(sys.argv[2])
     elif sys.argv[1:2] == ["resnet"] and len(sys.argv) == 3:
         resnet(sys.argv[2])
     else:
