@@ -43,7 +43,7 @@ nvidia-smi. Phases, each printing one line or a few:
      which launch K2a and K2b once per layer and step; then the headline
      with fused_ce="on": 2 warm-up and 5 timed steps through the fused
      linear cross-entropy (K8 once a step, K9 and K10 once each in its
-     backward, K10 on the Hopper kernel of csrc/cross_entropy_sm90.cu,
+     backward, both on the Hopper kernel of csrc/cross_entropy_sm90.cu,
      held exact), its step time, tokens/s, MFU and peak memory
      printed beside the composite headline's; and the headline at
      dropout=0.1 (GPT-2's attn_pdrop), 1 warm-up and 3 timed steps with a
@@ -111,8 +111,9 @@ hd 64 and 128 and ragged S, then at B1 H8 S8192 hd128 window 4096 bf16,
 where each is timed beside its plain version and SDPA (with the band as
 a boolean mask), and at phase 11's shape (B2 H32 S8192), where they are
 checked (the plain versions over 8 heads at a time), three planted faults
-are read against the same bound and must fail it, two launches of K6 and
-of K7 must give the same bits, and each is timed alone. Their bf16 results are
+are read against the same bound and must fail it, two launches of K5, of
+K6 and of K7 must give the same bits, and each is timed alone; the bf16
+K5-K7 run the Hopper walks of csrc/flash_sm90.cuh. Their bf16 results are
 also held in norm: ||kernel - plain|| <= 1e-2 ||plain|| + 2^-15
 sqrt(numel), and so are K1's and K2's, with three planted faults (K1, K2a,
 the fused K2) read at the headline shape. Phase 3 then holds the direct convolutions (K12 at strides
@@ -133,12 +134,13 @@ forwards), which `route_conv2d` follows on the card. Last in phase 3, the
 fused linear cross-entropy (K8 forward, K9 dx, K10 dW) against its plain
 versions in f32 and bf16 (N512 D64 V1024, a ragged N300 D72 V1000, a
 tied-head-wide D256, D4160, whose 9 slices run K9 and K10 without a
-cluster, and ragged N, V and D at D 1000 and 1536), the bf16 K10 on the
-Hopper kernel wherever ce_grad_route sends it (counted), then at phase
-6's LM head (bf16 N32768 D1536
+cluster, and ragged N, V and D at D 1000 and 1536), the bf16 K9 and K10
+on the Hopper kernel wherever ce_grad_route sends them (counted), then at
+phase 6's LM head (bf16 N32768 D1536
 V16384), held per entry and in norm, with a planted fault per kernel (K8
 without one vocabulary tile, K9 without that tile's term, K10 without one
-row block's partial), K10 launched twice for the same bits, and timed
+row block's partial), K9 and K10 launched twice each for the same bits,
+and timed
 beside its plain version, the composite head (`_lm_head` + logsumexp +
 gather: forward, backward, both) and its bound.
 Every kernel's time is printed beside its plain version's, the one
@@ -659,7 +661,9 @@ def profile_step(run, label, path):
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3
         kind = ("K8 ce fwd" if "ce_fwd_kernel" in n
-                else "K10 ce dw (sm90)" if "ce_dw_sm90" in n
+                else "K9 ce dx (sm90)" if "ce_grad_sm90" in n
+                and "<true>" in n
+                else "K10 ce dw (sm90)" if "ce_grad_sm90" in n
                 else "K9 ce dx" if "ce_grad_kernel" in n and "true>" in n
                 else "K10 ce dw" if "ce_grad_kernel" in n
                 else "K15 conv3d (sm90)" if "conv3d_sm90" in n
@@ -669,6 +673,7 @@ def profile_step(run, label, path):
                 or "conv_dw_reduce" in n
                 else "K12-K15 conv" if "conv_mma<false>" in n
                 or "conv_ffma<false>" in n
+                else "K5 fwd (sm90)" if "split_fwd_kernel_sm90" in n
                 else "K5 fwd" if "split_fwd" in n
                 else "K6 dq" if "split_bwd_dq" in n
                 else "K7 dk/dv" if "split_bwd_dkv" in n
@@ -779,7 +784,7 @@ def phase_train(T, FA, CE, profile):
     split = launches
     # the headline with the fused linear cross-entropy: rows 32768 and
     # vocab 16384 pass JAX's gate, so K8 runs once a step and K9, K10 once
-    # each in its backward, K10 on the Hopper kernel
+    # each in its backward, both on the Hopper kernel
     cfg = T.GPTConfig(dtype=torch.bfloat16, fused_ce="on", **TRAIN_CFG,
                       **HEADLINE)
     path = None
@@ -792,7 +797,8 @@ def phase_train(T, FA, CE, profile):
     want = dict.fromkeys(launches, 0)
     want.update({"flash_fwd_qkv": L * n, "flash_bwd_fused_qkv": L * n,
                  "ce_fwd": n, "ce_dx": n, "ce_dw": n,
-                 "ce_dw.sm90": n})    # K10 on csrc/cross_entropy_sm90.cu
+                 "ce_dx.sm90": n,     # K9 and K10 on
+                 "ce_dw.sm90": n})    # csrc/cross_entropy_sm90.cu
     check(all(np.isfinite(losses)), f"non-finite loss (fused CE): {losses}")
     check(losses[-1] < losses[0], f"loss did not fall (fused CE): {losses}")
     check(launches == want, f"fused-CE launches {launches}, want {want}")
@@ -1576,9 +1582,11 @@ def phase_split_flash(FA):
         FA, "bfloat16/B2-H32-S8192-hd128-w4096", q, k, v, do, True, W,
         faults=True)
     torch.cuda.empty_cache()
-    # each CTA of K6 and K7 owns its output rows: two launches, same bits
-    for name, fn in (("flash_bwd_dq", lambda: (FA.flash_bwd_dq(
-            q, k, v, do, lse, delta, window=W),)),
+    # each CTA of K5, K6 and K7 owns its output rows: two launches, same
+    # bits
+    for name, fn in (("flash_fwd", lambda: FA.flash_fwd(q, k, v, window=W)),
+                     ("flash_bwd_dq", lambda: (FA.flash_bwd_dq(
+                         q, k, v, do, lse, delta, window=W),)),
                      ("flash_bwd_dkv", lambda: FA.flash_bwd_dkv(
                          q, k, v, do, lse, delta, window=W))):
         a, b = fn(), fn()
@@ -1599,7 +1607,7 @@ def phase_split_flash(FA):
                     f"bound {bound[0]:.3f} ms ({bound[1]})")
     print(f"phase 3 kernels: split flash alone at phase 11's shape, bf16 B2 "
           f"H32 S8192 hd128 window 4096 ({B * H * band_pairs(S, True, W)} "
-          f"pairs; K6 and K7 bit-identical over two launches): "
+          f"pairs; K5, K6 and K7 bit-identical over two launches): "
           + "; ".join(line))
     del q, k, v, do, lse, delta, kern
     torch.cuda.empty_cache()
@@ -2191,9 +2199,9 @@ CE_CASES = (("N512-D64-V1024", 512, 64, 1024),
             ("ragged-N300-D72-V1000", 300, 72, 1000),
             ("tied-N512-D256-V1024", 512, 256, 1024),
             ("9-slices-N256-D4160-V520", 256, 4160, 520),
-            # bf16 K10 on the Hopper kernel (ce_grad_route "sm90"): ragged
-            # N, V and D (6 slices, the last 40 wide), the head's D 1536 (8
-            # slices, one cluster) at ragged N and V
+            # bf16 K9 and K10 on the Hopper kernel (ce_grad_route "sm90"):
+            # ragged N, V and D (6 slices, the last 40 wide), the head's D
+            # 1536 (8 slices, one cluster) at ragged N and V
             ("ragged-N777-D1000-V555", 777, 1000, 555),
             ("ragged-N1000-D1536-V300", 1000, 1536, 300))
 # phase 6's LM head: B S rows of the headline step, d_model, vocab
@@ -2312,10 +2320,14 @@ def phase_ce_kernels(CE, T):
     composite_ms, (bound_ms, bound_by))}: the composite's forward for K8,
     its backward (dx and dW together) for K9 and K10."""
     g = torch.Generator(device="cuda").manual_seed(8)
-    CE.ce_dw.sm90_launches, routed = 0, 0
+    grads = {"dx": CE.ce_dx, "dw": CE.ce_dw}
+    routed = dict.fromkeys(grads, 0)
+    for fn in grads.values():
+        fn.sm90_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         for name, N, D, V in CE_CASES:
-            routed += CE.ce_grad_route("dw", dtype, D) == "sm90"
+            for kind in grads:
+                routed[kind] += CE.ce_grad_route(kind, dtype, D) == "sm90"
             check_ce(CE, f"{str(dtype)[6:]}/{name}",
                      *ce_case(g, N, D, V, dtype))
     N, D, V = CE_HEAD
@@ -2324,15 +2336,18 @@ def phase_ce_kernels(CE, T):
                     faults=True)
     torch.cuda.empty_cache()
     _, lse = CE.ce_fwd(x, w, t)
-    # K10 at the head twice: the same bits (each CTA sums in a fixed order)
-    d1, d2 = CE.ce_dw(x, w, t, lse, gr), CE.ce_dw(x, w, t, lse, gr)
-    torch.cuda.synchronize()
-    check(torch.equal(d1, d2), "ce_dw at the head: two launches differ")
-    del d1, d2
-    routed += 1 + 2
-    check(CE.ce_dw.sm90_launches == routed and routed > 3,
-          f"phase 3: Hopper K10 launches {CE.ce_dw.sm90_launches}, "
-          f"ce_grad_route sends {routed}")
+    # K9 and K10 at the head twice: the same bits (each CTA sums in a fixed
+    # order)
+    for kind, fn in grads.items():
+        d1, d2 = fn(x, w, t, lse, gr), fn(x, w, t, lse, gr)
+        torch.cuda.synchronize()
+        check(torch.equal(d1, d2), f"ce_{kind} at the head: two launches "
+                                   f"differ")
+        del d1, d2
+        routed[kind] += 1 + 2
+        check(fn.sm90_launches == routed[kind] and routed[kind] > 3,
+              f"phase 3: Hopper ce_{kind} launches {fn.sm90_launches}, "
+              f"ce_grad_route sends {routed[kind]}")
     fns = {"ce_fwd": (lambda: CE.ce_fwd(x, w, t),
                       lambda: CE.ce_fwd_reference(x, w, t)),
            "ce_dx": (lambda: CE.ce_dx(x, w, t, lse, gr),
@@ -2380,9 +2395,9 @@ def phase_ce_kernels(CE, T):
           + f"; composite (_lm_head + logsumexp + gather, several calls, "
           f"no single library call) forward {c_fwd:.3f} ms, backward "
           f"{c_bwd:.3f} ms, both {c_all:.3f} ms; fused K8 + K9 + K10 "
-          f"{sum(t[0] for t in times.values()):.3f} ms; K10 on the Hopper "
-          f"kernel (csrc/cross_entropy_sm90.cu) {routed} times, the same "
-          f"bits twice at the head")
+          f"{sum(t[0] for t in times.values()):.3f} ms; on the Hopper "
+          f"kernel (csrc/cross_entropy_sm90.cu) K9 {routed['dx']} and K10 "
+          f"{routed['dw']} times, each the same bits twice at the head")
     del x, w, t, gr, lse, fns
     torch.cuda.empty_cache()
     return result
@@ -3004,13 +3019,13 @@ def main() -> int:
     # K8-K10 run on phase 6's fused-CE path (launches), checked and timed
     # at its LM head (phase 3); library_ms is the composite head's time
     # (forward for K8, its backward for K9 and K10), several calls
-    # K10 in bf16 runs csrc/cross_entropy_sm90.cu (phase 6's launches
-    # counted there: fused_ce["ce_dw.sm90"])
+    # K9 and K10 in bf16 run csrc/cross_entropy_sm90.cu (phase 6's
+    # launches counted there: fused_ce["ce_dx.sm90"], ["ce_dw.sm90"])
     for name, line in CE_LINES.items():
         e, ms, p_ms, lib, bound = cek[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}cross_entropy"
-                                  f"{'_sm90' if name == 'ce_dw' else ''}.cu",
+                                  f"{'' if name == 'ce_fwd' else '_sm90'}.cu",
                         "replaces": "neuronika_tpu/ops/pallas/"
                                     f"cross_entropy.py:{line}",
                         "launches": fused_ce[name], "max_abs_err": e,

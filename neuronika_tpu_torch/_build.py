@@ -162,7 +162,7 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [i, p, p, p, p, p,             # dtype, x, w, tgt, loss, lse
                    i, i, i, p]                   # N V D, stream
     fn.restype = i
-    for name in ("nk_ce_dx", "nk_ce_dw",
+    for name in ("nk_ce_dx", "nk_ce_dw", "nk_ce_dx_sm90",
                  "nk_ce_dw_sm90"):               # csrc/cross_entropy_sm90.cu
         fn = getattr(lib, name)
         fn.argtypes = [i, p, p, p, p, p, p,      # dtype, x, w, tgt, lse, g,

@@ -51,7 +51,11 @@
 //   * Ragged N, V and D are masked in the loads (cp.async zero-fills a
 //     chunk past the edge where D is a multiple of a chunk and the bases
 //     are aligned; element loads otherwise); no divisibility rule.
-// Not done yet: wgmma, TMA, a persistent schedule.
+// bf16 K9 and K10 with D a multiple of 8 and at most 1536 run the Hopper
+// kernel of cross_entropy_sm90.cu instead (wgmma, TMA, a cluster of
+// 192-column slices; ops/cross_entropy.py::ce_grad_route); this template
+// serves K8, f32 K9/K10, and bf16 K9/K10 with other D.
+// Not done yet: K8 on wgmma and TMA, a persistent schedule.
 
 #include <cooperative_groups.h>
 #include <math.h>

@@ -1,66 +1,74 @@
-// K10 in bf16 on Hopper: the fused cross-entropy weight gradient on wgmma,
-// TMA and a thread block cluster.
+// K9 and K10 in bf16 on Hopper: the fused cross-entropy input and weight
+// gradients on wgmma, TMA and a thread block cluster.
 //
 // Replaces, for bf16 operands whose D is a multiple of 8 (TMA's 16-byte
-// rows) and at most kMaxCluster kSlice-wide slices (1536), the kernel
-//   K10 _ce_dw_kernel (neuronika_tpu/ops/pallas/cross_entropy.py)
+// rows) and at most kMaxCluster kSlice-wide slices (1536), the kernels
+//   K9  _ce_dx_kernel (neuronika_tpu/ops/pallas/cross_entropy.py)
+//       dx = sum_j cast(g_i (exp(x_i W_j^T - lse_i) - onehot(t_i)_j)) W_j
+//   K10 _ce_dw_kernel
 //       dW = sum_i cast(g_i (exp(x_i W^T - lse_i) - onehot(t_i)))^T x_i
 // with x (N, D), W (V, D) bf16 row-major, targets (N,) int32, lse and the
 // row weights g (N,) f32, and cast() the rounding of p g to bf16 before the
-// second product, as the TPU kernel rounds it. f32 K10 and all of K9 stay
-// on cross_entropy.cu's template; ops/cross_entropy.py::ce_grad_route
+// second product, as the TPU kernels round it. f32 K9/K10 stay on
+// cross_entropy.cu's template; ops/cross_entropy.py::ce_grad_route
 // decides by shape alone.
 //
 // What bounds it: 4 N V D operations against (N + V) D bytes; at the GPT
 // train step's N 32768, V 16384, D 1536 the tensor cores (989 TFLOP/s).
-// It has the shape of the flash dk/dv walk, W rows as the keys and x rows
-// as the queries, with the lse of each stream (x) row known (no online
-// softmax); the difference is the depth: D is 1536, so the output is
-// sliced.
+// It has the shape of the flash dk/dv walk: one operand's rows are owned
+// (the keys there), the other's streamed (the queries), with the lse of
+// each x row known (no online softmax); the difference is the depth: D is
+// 1536, so the output is sliced. One body serves both kernels
+// (ce_grad_sm90_kernel<DX>): K10 owns W rows and streams x, K9 owns x rows
+// and streams W; only which map is which, and the side of the per-row
+// lse, g and target, differ.
 //
 // The design:
-//   * A CTA owns kOwn = 128 W rows (two consumer warpgroups of 64) and one
-//     kSlice = 192-column slice of D: its dW accumulator is 64 x 192 f32 a
-//     warpgroup (96 registers a thread). The ceil(D / 192) slices of one W
-//     block are one cluster (8 CTAs at D 1536); the cluster rank is the
-//     slice.
-//   * The x rows are walked in tiles of kStream = 128, in rounds of cs
-//     tiles (cs the cluster size). In round r, CTA u computes the logits
-//     of tile r cs + u over all of D: SS wgmma m64n128k16, W and x both
-//     K-major in 64-column 128-byte-swizzled panels that a producer thread
-//     keeps in flight through a ring of mbarriers (a stage: one W panel
-//     and one x panel of 128 rows). It turns them into cast(p g) in
-//     registers, as wgmma A fragments, and writes those to its own shared
-//     memory (double-buffered by round parity), in fragment order: the
-//     thread of the same index in every CTA holds the same rows of every
-//     tile.
+//   * A CTA owns kOwn = 128 rows (two consumer warpgroups of 64) and one
+//     kSlice = 192-column slice of D: its output accumulator is 64 x 192
+//     f32 a warpgroup (96 registers a thread). The ceil(D / 192) slices of
+//     one own block are one cluster (8 CTAs at D 1536); the cluster rank
+//     is the slice.
+//   * The stream rows are walked in tiles of kStream = 128, in rounds of
+//     cs tiles (cs the cluster size). In round r, CTA u computes the
+//     logits of tile r cs + u over all of D: SS wgmma m64n128k16, both
+//     operands K-major in 64-column 128-byte-swizzled panels that a
+//     producer thread keeps in flight through a ring of mbarriers (a
+//     stage: one own panel and one stream panel of 128 rows). It turns
+//     them into cast(p g) in registers, as wgmma A fragments (M the own
+//     rows, K the stream rows), and writes those to its own shared memory
+//     (double-buffered by round parity), in fragment order: the thread of
+//     the same index in every CTA holds the same rows of every tile.
 //   * One mbarrier a round per CTA, counting one release-arrival from each
 //     CTA of the cluster, says that every tile of the round is written.
-//     Then each CTA runs dW_slice += P_v . x_v[:, slice] over the round's
-//     tiles, half a tile (64 x rows) a step: RS wgmma with P_v's A
-//     fragments read from CTA v's shared memory (ld.shared::cluster
+//     Then each CTA runs out_slice += P_v . stream_v[:, slice] over the
+//     round's tiles, half a tile (64 stream rows) a step: RS wgmma with
+//     P_v's A fragments read from CTA v's shared memory (ld.shared::cluster
 //     straight into registers, the next half's issued while the current
 //     half's products run) and the half's slice from the ring, MN-major
 //     (the transpose bit), one product per 64-column panel. CTA u takes
 //     the tiles in the order u, u + 1, .. (mod cs): at each step every
 //     CTA reads a different peer, where one order for all had every CTA
 //     read the same peer at once (11.0 against 8.5 ms, 64-row tiles, at
-//     the head shape on an H100). A round's wait also proves that every CTA finished
-//     reading the buffer the next round overwrites: it read those before
-//     it arrived. The logits are computed once, 4 N V D in all.
-//   * Each CTA sums its stream tiles in a fixed order: dW is the same bits
-//     every launch, with no atomics and no second pass.
-//   * Rows past N arrive as zeros from TMA; their p is masked to 0 (lse
-//     +inf, g 0). W rows past V and columns past D are masked at the store.
-//     The one-hot compares the absolute vocabulary index.
-// Each CTA reads its W block's panels from L2 once a round: 384 KB of the
-// 1.15 MB a round moves at D 1536. Times on an H100 SXM (700 W) at the
-// head shape: multicasting the panels across the cluster (each CTA
+//     the head shape on an H100). A round's wait also proves that every
+//     CTA finished reading the buffer the next round overwrites: it read
+//     those before it arrived. The logits are computed once, 4 N V D in
+//     all.
+//   * Each CTA sums its stream tiles in a fixed order: dx and dW are the
+//     same bits every launch, with no atomics and no second pass.
+//   * Rows past either end arrive as zeros from TMA. K10's stream rows
+//     past N get p = 0 from lse +inf and g 0; K9's stream rows past V would
+//     read p = exp(-lse), so their columns are masked to p = 0, and its own
+//     rows past N get lse +inf and g 0. Own rows past the end and columns
+//     past D are masked at the store. The one-hot compares the absolute
+//     vocabulary index. K10 loads the stream rows' statistics a round, K9
+//     its own rows' once.
+// Each CTA reads its own block's panels from L2 once a round: 384 KB of
+// the 1.15 MB a round moves at D 1536. Times of K10 on an H100 SXM (700 W)
+// at the head shape: multicasting the panels across the cluster (each CTA
 // loading 16 of the 128 rows) made K10 slower, 19.6 against 11.0 ms with
 // 64-row tiles, as every stage then waited for all 8 CTAs' consumers;
-// 128-row tiles halve W's share instead (8.6 -> 6.0 ms).
-// Written so that K9 can run on it: K9 swaps the owned and streamed
-// operands, and the per-row lse, g and target move to the owned side.
+// 128-row tiles halve the own block's share instead (8.6 -> 6.0 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,8 +82,8 @@ namespace {
 typedef long long ll;
 using bf16 = __nv_bfloat16;
 
-constexpr int kOwn = 128;                // W rows a CTA: two warpgroups
-constexpr int kStream = 128;             // x rows a tile
+constexpr int kOwn = 128;                // own rows a CTA: two warpgroups
+constexpr int kStream = 128;             // stream rows a tile
 constexpr int kSlice = 192;              // D columns a CTA accumulates
 constexpr int kSlicePanels = kSlice / 64;
 constexpr int kMaxCluster = 8;           // the portable cluster size
@@ -83,8 +91,8 @@ constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;
 constexpr int kRegsProducer = 24, kRegsConsumer = 240;
 constexpr uint32_t kPanel = 64 * 128;    // 64 rows of 64 bf16: 8 KB
-// a stage: the logits' W panel and x panel (128 rows each: 32 KB), or
-// half a tile's slice (64 x rows x 3 panels: 24 KB)
+// a stage: the logits' own panel and stream panel (128 rows each: 32 KB),
+// or half a tile's slice (64 stream rows x 3 panels: 24 KB)
 constexpr uint32_t kLogitsBytes = 4 * kPanel, kHalfBytes = 3 * kPanel;
 constexpr uint32_t kStage = kLogitsBytes;
 constexpr int kStages = 5;
@@ -104,7 +112,7 @@ __device__ __forceinline__ void load_frags(Frags& a, uint32_t peer, int h) {
     ld_cluster(a[k], peer + (4 * h + k) * 128 * 16);
 }
 
-// dW (3 panels of 64 x 64) += P (64 x 64 stream rows) . their slice
+// out (3 panels of 64 x 64) += P (64 x 64 stream rows) . their slice
 __device__ __forceinline__ void slice_product(float (&acc)[kSlicePanels][32],
                                               const Frags& a, uint32_t st) {
 #pragma unroll
@@ -114,27 +122,31 @@ __device__ __forceinline__ void slice_product(float (&acc)[kSlicePanels][32],
       wgmma_rs<1>(acc[p], a[k], sw128_desc(st + p * kPanel + k * 2048));
 }
 
+// DX: K9 (x rows owned, W rows streamed) or K10 (W rows owned, x rows
+// streamed); own_map has boxes of 64 x kOwn rows, stream_map of 64 x 64
+template <bool DX>
 __global__ void __launch_bounds__(kThreads, 1)
-    ce_dw_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
-                      const __grid_constant__ CUtensorMap w_map,
-                      const int* __restrict__ tgt,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ g, bf16* __restrict__ dw,
-                      int N, int V, int D) {
+    ce_grad_sm90_kernel(const __grid_constant__ CUtensorMap own_map,
+                        const __grid_constant__ CUtensorMap stream_map,
+                        const int* __restrict__ tgt,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ g, bf16* __restrict__ out,
+                        int N, int V, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* ptile = smem + kStages * kStage;    // [2][kPTile]
   uint64_t* full = reinterpret_cast<uint64_t*>(ptile + 2 * kPTile);
   uint64_t* empty = full + kStages;
   uint64_t* ready = empty + kStages;
-  float* s_lse = reinterpret_cast<float*>(ready + 1);  // the own tile's
-  float* s_g = s_lse + kStream;                        // stream rows
-  int* s_t = reinterpret_cast<int*>(s_g + kStream);
+  float* s_lse = reinterpret_cast<float*>(ready + 1);  // K10: the stream
+  float* s_g = s_lse + kStream;                        // rows of the own
+  int* s_t = reinterpret_cast<int*>(s_g + kStream);    // tile
+  const int n_own = DX ? N : V, n_stream = DX ? V : N;
   const int cs = (int)gridDim.x;
   const int rank = (int)cluster_rank();
-  const int j0 = blockIdx.y * kOwn, d0 = rank * kSlice;
+  const int o0 = blockIdx.y * kOwn, d0 = rank * kSlice;
   const int kd = (D + 63) / 64;                        // logits k steps
-  const int ntiles = (N + kStream - 1) / kStream;
+  const int ntiles = (n_stream + kStream - 1) / kStream;
   const int rounds = (ntiles + cs - 1) / cs;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -152,18 +164,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x != kConsumers) return;
     int it = 0;
     for (int r = 0; r < rounds; ++r) {
-      const int own = (r * cs + rank) * kStream;
+      const int s0 = (r * cs + rank) * kStream;
       for (int k = 0; k < kd + 2 * cs; ++k, ++it) {
         const int s = it % kStages;
         unsigned char* st = smem + s * kStage;
         mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
-        if (k < kd) {         // logits: W panel k, the own tile's x panel k
+        if (k < kd) {   // logits: own panel k, the own stream tile's panel k
           mbar_expect_tx(full + s, kLogitsBytes);
-          tma_load_3d(st, &w_map, full + s, 64 * k, j0, 0);
+          tma_load_3d(st, &own_map, full + s, 64 * k, o0, 0);
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            tma_load_3d(st + (2 + h) * kPanel, &x_map, full + s, 64 * k,
-                        own + 64 * h, 0);
+            tma_load_3d(st + (2 + h) * kPanel, &stream_map, full + s, 64 * k,
+                        s0 + 64 * h, 0);
         } else {              // half (k - kd) % 2 of the slice of the
           const int i = k - kd;   // round's (rank + (k - kd) / 2)-th tile
           const int row = (r * cs + (rank + i / 2) % cs) * kStream +
@@ -171,8 +183,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_expect_tx(full + s, kHalfBytes);
 #pragma unroll
           for (int p = 0; p < kSlicePanels; ++p)
-            tma_load_3d(st + p * kPanel, &x_map, full + s, d0 + 64 * p, row,
-                        0);
+            tma_load_3d(st + p * kPanel, &stream_map, full + s, d0 + 64 * p,
+                        row, 0);
         }
       }
     }
@@ -181,6 +193,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   regs_inc<kRegsConsumer>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const uint32_t base = smem_u32(smem);
+  // K9: the lse, g and target of this thread's own rows (those of orow
+  // below), loaded once (rows past N: p = 0)
+  float r_lse[2] = {0.f, 0.f}, r_g[2] = {0.f, 0.f};
+  int r_t[2] = {-1, -1};
+  if constexpr (DX) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int i = o0 + wg * 64 + warp * 16 + lane / 4 + 8 * x;
+      const bool in = i < N;
+      r_lse[x] = in ? lse[i] : INFINITY;
+      r_g[x] = in ? g[i] : 0.f;
+      r_t[x] = in ? tgt[i] : -1;
+    }
+  }
   float acc[kSlicePanels][32];
 #pragma unroll
   for (int p = 0; p < kSlicePanels; ++p)
@@ -188,15 +214,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
   int it = 0;
   for (int r = 0; r < rounds; ++r) {
-    const int own = (r * cs + rank) * kStream;
-    if (threadIdx.x < kStream) {   // read after the logits' barrier
-      const int i = own + threadIdx.x;
+    const int s0 = (r * cs + rank) * kStream;
+    if (!DX && threadIdx.x < kStream) {   // read after the logits' barrier
+      const int i = s0 + threadIdx.x;
       const bool in = i < N;
       s_lse[threadIdx.x] = in ? lse[i] : INFINITY;
       s_g[threadIdx.x] = in ? g[i] : 0.f;
       s_t[threadIdx.x] = in ? tgt[i] : -1;
     }
-    // logits of the own tile: S (64 W rows x 128 x rows) over all of D
+    // logits of the own stream tile: S (64 own rows x 128 stream rows)
+    // over all of D
     float sc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) sc[i] = 0.f;
@@ -217,23 +244,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<0>();
     keep(sc);
     mbar_arrive(empty + (it - 1) % kStages);
-    named_sync(1, kConsumers);   // the tile's statistics written
-    // cast(p g) as A fragments: sc[4 j + e] is W row 16 warp + lane / 4 +
-    // 8 (e / 2) of the warpgroup's 64, x row 8 j + 2 (lane % 4) + e % 2;
-    // k16 slice k of the x rows is register group own_a[k]
-    const int vrow = j0 + wg * 64 + warp * 16 + lane / 4;
+    if constexpr (!DX) named_sync(1, kConsumers);   // statistics written
+    // cast(p g) as A fragments: sc[4 j + e] is own row orow + 8 (e / 2),
+    // stream row s0 + 8 j + 2 (lane % 4) + e % 2; k16 slice k of the
+    // stream rows is register group own_a[k]. K10 keys p by the stream
+    // row's statistics and compares its target with the own (vocabulary)
+    // row; K9 by the own row's, comparing its target with the stream row,
+    // and stream rows past V (TMA's zeros, whose p would be exp(-lse))
+    // are masked to 0.
+    const int orow = o0 + wg * 64 + warp * 16 + lane / 4;
     uint32_t own_a[8][4];
 #pragma unroll
     for (int k = 0; k < 8; ++k)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int idx = 8 * k + 2 * q, j = vrow + 8 * (q & 1);
+        const int idx = 8 * k + 2 * q, x = q & 1, j = orow + 8 * x;
         float pv[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 16 * k + 8 * (q >> 1) + 2 * (lane % 4) + e;
-          pv[e] = (expf(sc[idx + e] - s_lse[c]) -
-                   (s_t[c] == j ? 1.f : 0.f)) * s_g[c];
+          if constexpr (DX) {
+            const int col = s0 + c;
+            pv[e] = col < V ? (expf(sc[idx + e] - r_lse[x]) -
+                               (r_t[x] == col ? 1.f : 0.f)) * r_g[x]
+                            : 0.f;
+          } else {
+            pv[e] = (expf(sc[idx + e] - s_lse[c]) -
+                     (s_t[c] == j ? 1.f : 0.f)) * s_g[c];
+          }
         }
         own_a[k][q] = pack_bf16(pv[0], pv[1]);
       }
@@ -247,11 +285,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     named_sync(1, kConsumers);   // the whole tile written
     if (threadIdx.x < cs) mbar_arrive_cluster(map_rank(ready, threadIdx.x));
     mbar_wait_cluster(ready, r & 1);
-    // dW_slice += P_v . x_v[:, slice] over the round's tiles, half a tile
-    // (64 x rows) a step, CTA u in the order u, u + 1, .. (mod cs), so
-    // that at each step every CTA reads a different peer; two fragment
-    // buffers, the next half's read from its CTA while this half's
-    // products run
+    // out_slice += P_v . stream_v[:, slice] over the round's tiles, half a
+    // tile (64 stream rows) a step, CTA u in the order u, u + 1, .. (mod
+    // cs), so that at each step every CTA reads a different peer; two
+    // fragment buffers, the next half's read from its CTA while this
+    // half's products run
     Frags a0, a1;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -293,20 +331,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x < cs) mbar_arrive_cluster(map_rank(ready, threadIdx.x));
   mbar_wait_cluster(ready, rounds & 1);
 
-  // acc[p][4 q + 2 x + e]: W row 16 warp + lane / 4 + 8 x, column 64 p +
-  // 8 q + 2 (lane % 4) + e of the slice
+  // acc[p][4 q + 2 x + e]: own row 16 warp + lane / 4 + 8 x of the
+  // warpgroup's 64, column 64 p + 8 q + 2 (lane % 4) + e of the slice
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
-    const int row = j0 + wg * 64 + warp * 16 + lane / 4 + 8 * x;
-    if (row >= V) continue;
-    bf16* orow = dw + (ll)row * D;
+    const int row = o0 + wg * 64 + warp * 16 + lane / 4 + 8 * x;
+    if (row >= n_own) continue;
+    bf16* dst = out + (ll)row * D;
 #pragma unroll
     for (int p = 0; p < kSlicePanels; ++p)
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int col = d0 + 64 * p + 8 * q + 2 * (lane % 4);
         if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
               __floats2bfloat162_rn(acc[p][4 * q + 2 * x],
                                     acc[p][4 * q + 2 * x + 1]);
       }
@@ -317,39 +355,38 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-}  // namespace
-
-// K10 in bf16 (dtype 1: nk_ce_dw's signature): dW (V, D) bf16 from x (N,
-// D) and w (V, D) bf16, tgt (N,) int32, lse and g (N,) f32, all contiguous,
-// x, w and dw 16-byte aligned; D a multiple of 8 and at most kMaxCluster
-// slices of kSlice. Launches ceil(V / kOwn) clusters of ceil(D / kSlice)
-// CTAs.
-extern "C" int nk_ce_dw_sm90(int dtype, const void* x, const void* w,
-                             const int* tgt, const float* lse, const float* g,
-                             void* dw, int N, int V, int D, void* stream) {
+// K9 (DX) or K10 in bf16: ceil(n_own / kOwn) clusters of ceil(D / kSlice)
+// CTAs, own and stream rows as DX says
+template <bool DX>
+int launch(const void* x, const void* w, const int* tgt, const float* lse,
+           const float* g, void* out, int N, int V, int D, void* stream) {
   const int cs = (D + kSlice - 1) / kSlice;
-  if (dtype != 1 || N < 1 || V < 1 || D < 1 || D % 8 || cs > kMaxCluster ||
-      !aligned16(x) || !aligned16(w) || !aligned16(dw))
+  if (N < 1 || V < 1 || D < 1 || D % 8 || cs > kMaxCluster ||
+      !aligned16(x) || !aligned16(w) || !aligned16(out))
     return cudaErrorInvalidValue;
-  CUtensorMap x_map, w_map;
+  const void* own = DX ? x : w;
+  const void* strm = DX ? w : x;
+  const int n_own = DX ? N : V, n_stream = DX ? V : N;
+  CUtensorMap own_map, stream_map;
   const cuuint64_t row = (cuuint64_t)D * 2;
-  const cuuint64_t xd[3] = {(cuuint64_t)D, (cuuint64_t)N, 1};
-  const cuuint64_t xs[2] = {row, row * N};
-  const cuuint32_t xb[3] = {64, 64, 1};
-  cudaError_t err = make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, xd,
-                             xs, xb);
-  const cuuint64_t wd[3] = {(cuuint64_t)D, (cuuint64_t)V, 1};
-  const cuuint64_t ws[2] = {row, row * V};
-  const cuuint32_t wb[3] = {64, kOwn, 1};
+  const cuuint64_t od[3] = {(cuuint64_t)D, (cuuint64_t)n_own, 1};
+  const cuuint64_t os[2] = {row, row * n_own};
+  const cuuint32_t ob[3] = {64, kOwn, 1};
+  cudaError_t err = make_map(&own_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, own,
+                             od, os, ob);
+  const cuuint64_t sd[3] = {(cuuint64_t)D, (cuuint64_t)n_stream, 1};
+  const cuuint64_t ss[2] = {row, row * n_stream};
+  const cuuint32_t sb[3] = {64, 64, 1};
   if (!err)
-    err = make_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, wd, ws, wb);
+    err = make_map(&stream_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, strm, sd,
+                   ss, sb);
   if (!err)
-    err = cudaFuncSetAttribute(ce_dw_sm90_kernel,
+    err = cudaFuncSetAttribute(ce_grad_sm90_kernel<DX>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kSmem);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, (V + kOwn - 1) / kOwn);
+  cfg.gridDim = dim3(cs, (n_own + kOwn - 1) / kOwn);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -360,8 +397,29 @@ extern "C" int nk_ce_dw_sm90(int dtype, const void* x, const void* w,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ce_dw_sm90_kernel, x_map, w_map, tgt, lse,
-                           g, static_cast<bf16*>(dw), N, V, D);
+  err = cudaLaunchKernelEx(&cfg, ce_grad_sm90_kernel<DX>, own_map,
+                           stream_map, tgt, lse, g, static_cast<bf16*>(out),
+                           N, V, D);
   if (err) return err;
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// K9 and K10 in bf16 (dtype 1; the signatures of nk_ce_dx and nk_ce_dw):
+// dx (N, D) or dW (V, D) bf16 from x (N, D) and w (V, D) bf16, tgt (N,)
+// int32, lse and g (N,) f32, all contiguous, x, w and the output 16-byte
+// aligned; D a multiple of 8 and at most kMaxCluster slices of kSlice.
+extern "C" int nk_ce_dx_sm90(int dtype, const void* x, const void* w,
+                             const int* tgt, const float* lse, const float* g,
+                             void* dx, int N, int V, int D, void* stream) {
+  if (dtype != 1) return cudaErrorInvalidValue;
+  return launch<true>(x, w, tgt, lse, g, dx, N, V, D, stream);
+}
+
+extern "C" int nk_ce_dw_sm90(int dtype, const void* x, const void* w,
+                             const int* tgt, const float* lse, const float* g,
+                             void* dw, int N, int V, int D, void* stream) {
+  if (dtype != 1) return cudaErrorInvalidValue;
+  return launch<false>(x, w, tgt, lse, g, dw, N, V, D, stream);
 }

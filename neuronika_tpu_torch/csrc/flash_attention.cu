@@ -1,7 +1,8 @@
 // Flash attention on (B, H, S, hd) q, k, v, forward and backward, on Hopper.
 //
 // Replaces three TPU kernels of neuronika_tpu/ops/pallas/attention.py:
-//   K5 _fwd_kernel      -> split_fwd_kernel (f32 and bf16)
+//   K5 _fwd_kernel      -> split_fwd_kernel_sm90 (bf16),
+//                          split_fwd_kernel (f32)
 //   K6 _bwd_dq_kernel   -> split_bwd_dq_kernel_sm90 (bf16),
 //                          split_bwd_dq_kernel (f32)
 //   K7 _bwd_dkv_kernel  -> split_bwd_dkv_kernel_sm90 (bf16),
@@ -33,33 +34,35 @@
 // evaluates the mask rows >= cols && rows - cols < window (struct Band,
 // flash_sm90.cuh), interior tiles skip it.
 //
-// The bf16 backward (K6, K7) runs the Hopper walks that the packed K2a and
+// bf16 (K5, K6, K7) runs the Hopper walks that the packed K1, K2a and
 // K2b run (flash_sm90.cuh: wgmma, TMA through mbarrier rings, a producer
 // warpgroup, setmaxnreg), through a tile policy of this layout: each
 // operand is a 4-d TMA map over (hd, S, H, B) built from its own strides,
 // 64 x 64 boxes with 128-byte swizzle, rows past Sq or Skv zero-filled;
 // the rows' lse and delta come from their two f32 arrays by plain loads of
 // a stats warp of the producer warpgroup (a bulk copy would need
-// 16-byte-aligned rows, which a ragged Sq breaks), 0 past Sq. K6: 128 q rows a CTA, dQ in registers over
-// the band's 64-row k tiles, from max(0, i0 - window + 1) / 64; K7: 128 k
-// rows a CTA on a persistent grid, dK and dV in registers over the band's
-// 64-row q tiles, from the diagonal to the last row whose window holds the
-// CTA's last key. Each CTA owns its output rows: no atomics, the same bits
-// every run.
-// K5 and the f32 K6/K7 run on mma.sync m16n8k16 (bf16 operands, f32
-// accumulation) from shared memory, each warp owning 16 rows of a 64-row
-// tile (flash_tiles.cuh), with synchronous tile loads; the f32
-// instantiation runs the same tiles with FFMA (wgmma has no FFMA path, and
-// f32 is the oracle route). p and ds are rounded to the input dtype before
-// their products, where the TPU kernels round them.
+// 16-byte-aligned rows, which a ragged Sq breaks), 0 past Sq. K5: 128 q
+// rows a CTA, O in registers over the band's 128-row k tiles, from
+// max(0, i0 - window + 1) / 128, K and V through a two-stage ring, P
+// rounded to bf16 in registers as the A operand of P V; K6: 128 q rows a
+// CTA, dQ in registers over the band's 64-row k tiles; K7: 128 k rows a
+// CTA on a persistent grid, dK and dV in registers over the band's 64-row
+// q tiles, from the diagonal to the last row whose window holds the CTA's
+// last key. Each CTA owns its output rows: no atomics, the same bits every
+// run.
+// f32 (K5, K6, K7) runs mma.sync-shaped tiles from shared memory, each
+// warp owning 16 rows of a 64-row tile (flash_tiles.cuh), with synchronous
+// tile loads, on FFMA (wgmma has no FFMA path, and f32 is the oracle
+// route). p and ds are rounded to the input dtype before their products,
+// where the TPU kernels round them.
 // Attention dropout (dropout.cuh): each kernel has a DROPOUT template flag;
 // set, the keep bit of every (q row, key) is drawn on every tile of the
 // band, K5 zeroes the dropped p before P V and scales the output by 1 / (1 -
 // rate), K6 and K7 drop dp and the p of dV; unset, the code is that of no
 // dropout. The mask is keyed by the q head h, as the model repeats k/v over
 // a GQA group before this layout.
-// Not done yet: K5 on wgmma and TMA, and GQA without the repeated k/v (K2b's
-// walk over a kv group's G heads per k tile carries over).
+// Not done yet: GQA without the repeated k/v (K2b's walk over a kv group's
+// G heads per k tile carries over).
 
 #include <math.h>
 
@@ -69,7 +72,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;   // K5 and f32 K6: q rows per CTA (16 per warp)
+constexpr int kBQ = 64;   // f32 K5 and K6: q rows per CTA (16 per warp)
 constexpr int kBK = 64;   // k rows per tile (f32 K7: per CTA, 16 per warp)
 constexpr int kBQb = 32;  // f32 K7: q rows per inner tile
 
@@ -77,7 +80,7 @@ struct Strides {  // elements between batches, heads and rows
   long long b, h, s;
 };
 
-// ---------------------------------------------------------------- K5
+// ---------------------------------------------------------------- K5, f32
 // grid (ceil(Sq / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15.
 template <typename T, int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
@@ -86,6 +89,8 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ lse, Strides sq, Strides sk,
                      Strides sv, int H, Band band, float qscale,
                      Dropout drop) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 runs split_fwd_kernel_sm90");
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBK + Ty<T>::kPad;
   constexpr int NTS = kBK / 8, NTO = HD / 8;
@@ -399,15 +404,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------- K6 and K7, bf16, Hopper
+// --------------------------------------------- K5, K6 and K7, bf16, Hopper
 // The split layout as a tile policy of the Hopper walks (flash_sm90.cuh):
 // q, k, v and dO each through a 4-d TMA map over (hd, S, H, B); lse and
-// delta (B, H, Sq) f32 loaded by the producer warp's 32 lanes; dq, dk, dv
-// (B, H, S, hd) contiguous. No GQA here: k/v head g serves q head g.
+// delta (B, H, Sq) f32 loaded by the producer warp's 32 lanes; out, dq,
+// dk, dv (B, H, S, hd) and the forward's lse (B, H, Sq) contiguous. No GQA
+// here: k/v head g serves q head g.
 template <int HD>
 struct SplitTiles {
   static constexpr bool kStatsWarp = true;
   static constexpr bool kClamp = true;
+  static constexpr bool kFast = false;
   // this producer's four maps and stats loads spill at 24 registers; at hd
   // 64 the consumers can spare 8 (none spills), at hd 128 they cannot
   static constexpr int kRegsProducer = HD == 64 ? 40 : 24;
@@ -421,6 +428,8 @@ struct SplitTiles {
   int B, H;
   static constexpr int G = 1;
   int KV;
+  bf16* out = nullptr;       // K5
+  float* lse_out = nullptr;  // K5
 
   // ROWS x HD of a map at (row, h, b), as P panels of 64-row boxes
   template <int ROWS>
@@ -464,6 +473,15 @@ struct SplitTiles {
                    : make_float2(0.f, 0.f);
     }
   }
+  __device__ void store_o(int b, int h, int row, int col, float lo,
+                          float hi) const {
+    *reinterpret_cast<__nv_bfloat162*>(
+        out + (((size_t)b * H + h) * band.Sq + row) * HD + col) =
+        __floats2bfloat162_rn(lo, hi);
+  }
+  __device__ void store_lse(int b, int h, int row, float v) const {
+    lse_out[((size_t)b * H + h) * band.Sq + row] = v;
+  }
   __device__ void store_dq(int b, int h, int row, int col, float lo,
                            float hi) const {
     *reinterpret_cast<__nv_bfloat162*>(
@@ -479,6 +497,25 @@ struct SplitTiles {
         __floats2bfloat162_rn(v0, v1);
   }
 };
+
+// K5: grid (H, B, ceil(Sq / 128)), q tiles from the last (the longest
+// walks first under a causal band); the walk is fwd_walk. The forward has
+// no dO: its policy holds no map for it.
+template <int HD, bool DROPOUT>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    split_fwd_kernel_sm90(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          bf16* __restrict__ out, float* __restrict__ lse,
+                          int B, int H, Band band, float qscale,
+                          Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SplitTiles<HD> t{&q_map, &k_map, &v_map, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, band, B, H, H, out, lse};
+  fwd_walk<HD, DROPOUT>(t, align1024(smem_raw), blockIdx.x, blockIdx.y,
+                        (gridDim.z - 1 - blockIdx.z) * kBM, qscale, false,
+                        drop);
+}
 
 // K6: grid (H, B, ceil(Sq / 128)), q tiles from the last (the longest
 // walks first under a causal band); the walk is dq_walk
@@ -623,17 +660,33 @@ cudaError_t split_map(CUtensorMap* map, const void* base, Strides st, int B,
                   strides, box);
 }
 
-// the maps of q, k, v and do
-cudaError_t split_maps(CUtensorMap (&m)[4], const Args& a) {
+// the maps of q, k, v and (n = 4, the backward) do
+cudaError_t split_maps(CUtensorMap* m, const Args& a, int n = 4) {
   const void* base[4] = {a.q, a.k, a.v, a.dout};
   const Strides st[4] = {a.sq, a.sk, a.sv, a.sdo};
   const int S[4] = {a.band.Sq, a.band.Skv, a.band.Skv, a.band.Sq};
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < n; ++i) {
     const cudaError_t err =
         split_map(&m[i], base[i], st[i], a.B, a.H, S[i], a.hd);
     if (err) return err;
   }
   return cudaSuccess;
+}
+
+template <int HD, bool DROP>
+cudaError_t fwd_sm90(const Args& a) {
+  CUtensorMap m[3];
+  cudaError_t err = split_maps(m, a, 3);
+  if (err) return err;
+  const size_t smem = FwdSmem<HD>::kBytes;
+  err = allow_smem(split_fwd_kernel_sm90<HD, DROP>, smem);
+  if (err) return err;
+  const dim3 grid(a.H, a.B, (a.band.Sq + kBM - 1) / kBM);
+  if (grid.z > 65535) return cudaErrorInvalidValue;
+  split_fwd_kernel_sm90<HD, DROP><<<grid, kHopperThreads, smem, a.stream>>>(
+      m[0], m[1], m[2], static_cast<bf16*>(a.out), a.lse_out, a.B, a.H,
+      a.band, a.scale * kLog2e, a.drop);
+  return cudaGetLastError();
 }
 
 template <int HD, bool DROP>
@@ -678,14 +731,15 @@ cudaError_t bwd_dkv_sm90(const Args& a) {
 
 enum Which { kFwd, kDq, kDkv };
 
-// the bf16 backward takes the Hopper kernels; K5 and f32 the mma.sync/FFMA
+// bf16 takes the Hopper kernels; f32 the FFMA ones
 template <typename T, int HD, bool DROP>
 cudaError_t dispatch(Which w, const Args& a) {
-  if (w == kFwd) return fwd<T, HD, DROP>(a);
   if constexpr (std::is_same<T, bf16>::value) {
+    if (w == kFwd) return fwd_sm90<HD, DROP>(a);
     if (w == kDq) return bwd_dq_sm90<HD, DROP>(a);
     if (w == kDkv) return bwd_dkv_sm90<HD, DROP>(a);
   } else {
+    if (w == kFwd) return fwd<T, HD, DROP>(a);
     if (w == kDq) return bwd_dq<T, HD, DROP>(a);
     if (w == kDkv) return bwd_dkv<T, HD, DROP>(a);
   }

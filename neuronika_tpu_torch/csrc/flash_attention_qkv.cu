@@ -68,16 +68,18 @@
 // run to run.
 // Helpers: flash_tiles.cuh (the mma.sync tiles, shared with the
 // split-layout kernels of flash_attention.cu), hopper.cuh (PTX for TMA,
-// mbarriers, wgmma) and flash_sm90.cuh (the K2a and K2b/K2c walks, which
-// the split layout's K6 and K7 run too; PackedTiles below says where this
-// layout's tiles and results are). Attention dropout: every kernel has a
-// DROPOUT template flag; set, it draws the keep bit of each (row, col) from
-// dropout.cuh on every tile (interior tiles included), zeroes the dropped p
-// before P V and scales the output by 1 / (1 - rate) in K1, and drops dp and
-// the p of dV in K2; unset, the code is that of no dropout. Not done yet:
-// overlapping one tile's softmax with the next tile's products inside a
-// warpgroup, and K2a's 64-row k tiles at 128 (its registers: S, dP and dQ
-// at 64 x 128 would take 192 f32 a thread before the fragments).
+// mbarriers, wgmma) and flash_sm90.cuh (the K1, K2a and K2b/K2c walks,
+// which the split layout's K5, K6 and K7 run too; PackedTiles below says
+// where this layout's tiles and results are). Attention dropout: every
+// kernel has a DROPOUT template flag; set, it draws the keep bit of each
+// (row, col) from dropout.cuh on every tile (interior tiles included),
+// zeroes the dropped p before P V and scales the output by 1 / (1 - rate)
+// in K1, and drops dp and the p of dV in K2; unset, the code is that of no
+// dropout. Not done yet: K2a's 64-row k tiles at 128 (its registers: S, dP
+// and dQ at 64 x 128 would take 192 f32 a thread before the fragments).
+// Tried and dropped: the forward's two warpgroups taking turns (each
+// issuing S of tile n with P V of tile n - 1, its softmax beside the
+// other's products) ran slower than fwd_walk on an H100 SXM at 700 W.
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda link (see encoder)
 #include <math.h>
@@ -514,8 +516,8 @@ __global__ void dq_store_kernel(const float* __restrict__ dq_acc,
 }
 
 // ===================================================== Hopper, bf16 only
-// K1 here, K2a and K2b/K2c through the walks of flash_sm90.cuh, on wgmma,
-// TMA and mbarriers. A CTA is two consumer warpgroups (256 threads, 64
+// K1, K2a and K2b/K2c through the walks of flash_sm90.cuh, on wgmma, TMA
+// and mbarriers. A CTA is two consumer warpgroups (256 threads, 64
 // rows each) and one producer warpgroup, one thread of which keeps TMA
 // loads in flight through a ring; setmaxnreg moves registers from the
 // producer to the consumers.
@@ -533,196 +535,6 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst,
     for (int rb = 0; rb < ROWS / 64; ++rb)
       tma_load_3d(dst + p * panel_bytes(ROWS) + rb * panel_bytes(64), map,
                   bar, col + 64 * p, row + 64 * rb, b);
-}
-
-template <int HD>
-struct FwdSmem {
-  static constexpr int P = HD / 64;
-  static constexpr uint32_t kQ = P * panel_bytes(kBM);
-  static constexpr uint32_t kKV = P * panel_bytes(kBN);
-  static constexpr uint32_t kOffK = kQ;
-  static constexpr uint32_t kOffV = kOffK + kStages * kKV;
-  static constexpr uint32_t kOffBar = kOffV + kStages * kKV;
-  static constexpr size_t kBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;
-};
-
-// ------------------------------------------------------ K1 on Hopper
-// grid (H, B, ceil(S / 128)), q tiles from the last: under a causal mask
-// the longest rows start first. Consumer warpgroup w owns q rows i0 + 64 w
-// .. + 63. Per k tile: S = Q K^T (wgmma, both operands K-major from the
-// TMA tiles), the softmax on the accumulator registers (exp2 domain; fast
-// mode keeps m = 0), P rounded to bf16 into A fragments, O += P V (wgmma,
-// A from registers, V MN-major). The producer loads Q once and K, V
-// through the ring, K and V on separate barriers so that S starts before
-// V has landed.
-template <int HD, bool DROPOUT>
-__global__ void __launch_bounds__(kHopperThreads, 1)
-    flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap qkv_map,
-                          bf16* __restrict__ out, float* __restrict__ lse,
-                          int S, int H, int G, float qscale, int causal,
-                          int fast, Dropout drop) {
-  using Sm = FwdSmem<HD>;
-  constexpr int P = Sm::P;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  unsigned char* Qs = smem;
-  unsigned char* Ks = smem + Sm::kOffK;
-  unsigned char* Vs = smem + Sm::kOffV;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Sm::kOffBar);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kStages;
-  uint64_t* empty = v_full + kStages;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBM;
-  const int g = h / G;
-  const int n_all = (S + kBN - 1) / kBN;
-  const int n_kt = causal ? min((i0 + kBM - 1) / kBN + 1, n_all) : n_all;
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(k_full + s, 1);
-      mbar_init(v_full + s, 1);
-      mbar_init(empty + s, kConsumers);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer warpgroup
-    regs_dec<kRegsProducer>();
-    if (threadIdx.x == kConsumers) {
-      const int kcol = (g * (G + 2) + G) * HD;
-      mbar_expect_tx(q_full, Sm::kQ);
-      tma_tile<kBM, P>(Qs, &qkv_map, q_full, (g * (G + 2) + h % G) * HD, i0,
-                       b);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages;
-        mbar_wait(empty + s, ((kt / kStages) & 1) ^ 1);
-        mbar_expect_tx(k_full + s, Sm::kKV);
-        tma_tile<kBN, P>(Ks + s * Sm::kKV, &qkv_map, k_full + s, kcol,
-                         kt * kBN, b);
-        mbar_expect_tx(v_full + s, Sm::kKV);
-        tma_tile<kBN, P>(Vs + s * Sm::kKV, &qkv_map, v_full + s, kcol + HD,
-                         kt * kBN, b);
-      }
-    }
-  } else {  // consumer warpgroups
-    regs_inc<kRegsConsumer>();
-    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-    const int c = (lane & 3) * 2;
-    const int row0 = i0 + wg * 64 + warp * 16 + (lane >> 2);
-    const int row[2] = {row0, row0 + 8};
-    float m[2] = {fast ? 0.f : kNegInf, fast ? 0.f : kNegInf};
-    float l[2] = {0.f, 0.f};
-    float o[P][32];
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
-    const uint32_t q_addr = smem_u32(Qs);
-    mbar_wait(q_full, 0);
-
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt % kStages, ph = (kt / kStages) & 1;
-      const int j0 = kt * kBN;
-      const uint32_t k_addr = smem_u32(Ks + s * Sm::kKV);
-      const uint32_t v_addr = smem_u32(Vs + s * Sm::kKV);
-      float sc[kBN / 2];
-      mbar_wait(k_full + s, ph);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k)
-        wgmma_ss<0, 0>(sc, kmajor<kBM>(q_addr, wg * 64, k),
-                       kmajor<kBN>(k_addr, 0, k), k > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      keep(sc);
-
-      // the mask is needed only past S or across the diagonal of this
-      // warpgroup's rows
-      const bool edge =
-          j0 + kBN > S || (causal && j0 + kBN - 1 > i0 + wg * 64);
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
-        const int x = (i >> 1) & 1;
-        const int col = j0 + 8 * (i / 4) + c + (i & 1);
-        float v = sc[i] * qscale;
-        if (edge && (col >= S || (causal && col > row[x]))) v = kNegInf;
-        sc[i] = v;
-        mx[x] = fmaxf(mx[x], v);
-      }
-      float alpha[2] = {1.f, 1.f}, m_new[2] = {m[0], m[1]};
-      if (!fast) {
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          m_new[x] = fmaxf(m[x], quad_max(mx[x]));
-          alpha[x] = exp2f(m[x] - m_new[x]);
-        }
-      }
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) {
-        const int x = (i >> 1) & 1;
-        sc[i] = exp2f(sc[i] - m_new[x]);
-        sum[x] += sc[i];
-      }
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        l[x] = l[x] * alpha[x] + quad_sum(sum[x]);
-        m[x] = m_new[x];
-      }
-      if constexpr (DROPOUT) {  // every tile, after l: zero the dropped p
-#pragma unroll
-        for (int i = 0; i < kBN / 2; i += 2) {
-          bool k0, k1;
-          drop.cols2(b, h, row[(i >> 1) & 1], j0 + 8 * (i / 4) + c, k0, k1);
-          if (!k0) sc[i] = 0.f;
-          if (!k1) sc[i + 1] = 0.f;
-        }
-      }
-      if (!fast) {
-#pragma unroll
-        for (int p = 0; p < P; ++p)
-#pragma unroll
-          for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i >> 1) & 1];
-      }
-      uint32_t pa[kBN / 16][4];
-      to_a_frags<kBN>(pa, sc);
-
-      mbar_wait(v_full + s, ph);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < kBN / 16; ++k)
-#pragma unroll
-        for (int p = 0; p < P; ++p)
-          wgmma_rs<1>(o[p], pa[k], mnmajor<kBN>(v_addr, p, k));
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int p = 0; p < P; ++p) keep(o[p]);
-      keep(pa);
-      mbar_arrive(empty + s);
-    }
-
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      if (row[x] >= S) continue;
-      const float inv = (DROPOUT ? drop.inv_keep : 1.f) / l[x];
-      bf16* orow = out + ((size_t)b * S + row[x]) * H * HD + (size_t)h * HD;
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 64 * p + 8 * j + c) =
-              __floats2bfloat162_rn(o[p][4 * j + 2 * x] * inv,
-                                    o[p][4 * j + 2 * x + 1] * inv);
-      if ((lane & 3) == 0)
-        lse[((size_t)b * H + h) * S + row[x]] = m[x] + log2f(l[x]);
-    }
-  }
 }
 
 // ------------------------------------- K2 pre-pass: (lse, delta) per row
@@ -768,6 +580,7 @@ template <int HD>
 struct PackedTiles {
   static constexpr bool kStatsWarp = false;
   static constexpr bool kClamp = false;
+  static constexpr bool kFast = true;
   static constexpr int kRegsProducer = 24, kRegsConsumer = 240;
   static constexpr int P = HD / 64;
   const CUtensorMap* qkv;
@@ -776,6 +589,8 @@ struct PackedTiles {
   bf16* dqkv;
   Band band;
   int B, H, G, KV;
+  bf16* out = nullptr;       // K1: (B, S, H hd)
+  float* lse_out = nullptr;  // K1: (B, H, S)
 
   __device__ int W() const { return (H + 2 * KV) * HD; }
   __device__ int qcol(int h) const { return ((h / G) * (G + 2) + h % G) * HD; }
@@ -812,6 +627,15 @@ struct PackedTiles {
     bulk_load(dst, pre + ((size_t)b * H + h) * S_pad + row0,
               stats_tx(b, h, row0, n), bar);
   }
+  __device__ void store_o(int b, int h, int row, int col, float lo,
+                          float hi) const {
+    *reinterpret_cast<__nv_bfloat162*>(
+        out + ((size_t)b * band.Sq + row) * H * HD + (size_t)h * HD + col) =
+        __floats2bfloat162_rn(lo, hi);
+  }
+  __device__ void store_lse(int b, int h, int row, float v) const {
+    lse_out[((size_t)b * H + h) * band.Sq + row] = v;
+  }
   __device__ void store_dq(int b, int h, int row, int col, float lo,
                            float hi) const {
     *reinterpret_cast<__nv_bfloat162*>(
@@ -826,6 +650,25 @@ struct PackedTiles {
         __floats2bfloat162_rn(v0, v1);
   }
 };
+
+// ------------------------------------------------------ K1 on Hopper
+// grid (H, B, ceil(S / 128)), q tiles from the last: under a causal mask
+// the longest rows start first; the walk is fwd_walk (flash_sm90.cuh),
+// with K1's fast softmax (m = 0) where `fast` is set
+template <int HD, bool DROPOUT>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap qkv_map,
+                          bf16* __restrict__ out, float* __restrict__ lse,
+                          int S, int H, int G, float qscale, int causal,
+                          int fast, Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const PackedTiles<HD> t{&qkv_map, nullptr, nullptr, nullptr,
+                          Band{S, S, causal, 0}, (int)gridDim.y, H, G,
+                          H / G, out, lse};
+  fwd_walk<HD, DROPOUT>(t, align1024(smem_raw), blockIdx.x, blockIdx.y,
+                        (gridDim.z - 1 - blockIdx.z) * kBM, qscale,
+                        fast != 0, drop);
+}
 
 // ------------------------------------------------------ K2a on Hopper
 // grid (H, B, ceil(S / 128)), q tiles from the last (causal rows longest

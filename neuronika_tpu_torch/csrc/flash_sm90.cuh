@@ -1,8 +1,8 @@
-// The Hopper (sm_90a) backward walks of flash attention, shared by both
-// layouts: flash_attention_qkv.cu runs them on the packed qkv projection
-// (K2a, K2b, K2c/K2d), flash_attention.cu on (B, H, S, hd) q, k, v (K6,
-// K7). The walks are written once; a layout is a "tile policy" that says
-// where a tile comes from and where a result goes:
+// The Hopper (sm_90a) flash walks, shared by both layouts:
+// flash_attention_qkv.cu runs them on the packed qkv projection (K1, K2a,
+// K2b, K2c/K2d), flash_attention.cu on (B, H, S, hd) q, k, v (K5, K6, K7).
+// The walks (fwd_walk, dq_walk, kv_walk) are written once; a layout is a
+// "tile policy" that says where a tile comes from and where a result goes:
 //   kStatsWarp  false when the rows' (lse, delta) arrive by bulk copy with
 //             the stage's tiles (a pre-pass wrote them as float2 rows), true
 //             when a stats warp of the producer warpgroup loads them from
@@ -11,6 +11,7 @@
 //             168 registers (128 p + 256 c = 64512);
 //   kClamp    p = exp2(min(s - lse, 0)) (the split kernels: a foreign lse,
 //             as ring attention feeds, must not overflow) or exp2(s - lse);
+//   kFast     the forward may run K1's fast softmax (m = 0);
 //   band      the causal / window / Sq != Skv band (struct Band);
 //   H, G, KV  q heads, q heads per k/v head, k/v heads;
 //   q_tile<ROWS>(dst, bar, b, h, row), do_tile: ROWS x HD of q / dO of
@@ -20,6 +21,8 @@
 //             by copy; stats(dst, bar, b, h, row0, n, lane): float2 (lse,
 //             delta) of q rows row0 .. row0 + n - 1 into shared memory, 0
 //             past Sq;
+//   store_o(b, h, row, col, lo, hi), store_lse(b, h, row, v): the
+//             forward's bf16 output pair and a row's base-2 lse;
 //   store_dq(b, h, row, col, lo, hi), store_dkv(b, g, row, col, dk0, dk1,
 //             dv0, dv1): a bf16 pair of an output row.
 //
@@ -32,11 +35,12 @@
 // and dS are rounded to bf16 there, as the TPU kernels round them, into
 // the A fragments of the next wgmma.
 //
-// Both walks take a DROPOUT flag: set, each computed tile draws its keep
+// Every walk takes a DROPOUT flag: set, each computed tile draws its keep
 // bits from dropout.cuh (interior tiles too: the mask-free fast path of the
-// band does not skip them), dp = keep ? dp inv_keep : 0 before dS, and the
-// dk/dv walk feeds keep ? p inv_keep : 0 to dV; unset, the code is that of
-// no dropout.
+// band does not skip them); the forward zeroes the dropped p before P V
+// and scales the output by 1 / (1 - rate), the dq walk takes dp = keep ? dp
+// inv_keep : 0 before dS, and the dk/dv walk feeds keep ? p inv_keep : 0
+// to dV; unset, the code is that of no dropout.
 
 #pragma once
 
@@ -55,9 +59,8 @@ constexpr int kStages = 2;
 // threads x 168): the producer warpgroup gives up 144 a thread, which the
 // consumers take (128 x 24 + 256 x 240 = 384 x 168); a tile policy may
 // shift that split (128 x 40 + 256 x 232)
-constexpr int kRegsProducer = 24, kRegsConsumer = 240;
-constexpr int kBM = 128;   // K1: q rows per CTA
-constexpr int kBN = 128;   // K1: k rows per tile; K2b/K7: k rows per CTA
+constexpr int kBM = 128;   // K1/K5: q rows per CTA
+constexpr int kBN = 128;   // K1/K5: k rows per tile; K2b/K7: k rows per CTA
 constexpr int kBQh = 64;   // K2b/K7: q rows per step of the walk
 constexpr int kBKd = 64;     // K2a/K6: k rows per step of the walk
 constexpr int kDqStages = 3;  // K2a/K6: depth of the K/V ring
@@ -160,6 +163,202 @@ __host__ __device__ constexpr int q_stage_arrivals() {
 template <bool CLAMP>
 __device__ __forceinline__ float band_p(bool out, float e) {
   return out ? 0.f : exp2f(CLAMP ? fminf(e, 0.f) : e);
+}
+
+template <int HD>
+struct FwdSmem {
+  static constexpr int P = HD / 64;
+  static constexpr uint32_t kQ = P * panel_bytes(kBM);
+  static constexpr uint32_t kKV = P * panel_bytes(kBN);
+  static constexpr uint32_t kOffK = kQ;
+  static constexpr uint32_t kOffV = kOffK + kStages * kKV;
+  static constexpr uint32_t kOffBar = kOffV + kStages * kKV;
+  static constexpr size_t kBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+// ---------------------------------------------------- the forward (K1, K5)
+// One CTA: q rows i0 .. i0 + 127 of head h, batch b; consumer warpgroup w
+// owns q rows i0 + 64 w .. + 63. The producer loads Q once and K, V
+// through a ring of kStages 128-row stages over the k tiles of the band
+// (Band::k_tiles), K and V on separate barriers so that S starts before V
+// has landed. Per k tile: S = Q K^T (wgmma, both operands K-major from the
+// TMA tiles), the online softmax on the accumulator registers (exp2
+// domain), P rounded to bf16 into A fragments, O += P V (wgmma, A from
+// registers, V MN-major). Only edge tiles (Band::edge) evaluate the mask,
+// from each row's key interval [lo, hi); a masked score is the finite
+// kNegInf, so a row whose first tile holds none of its keys sums p = 1
+// there, and alpha = 0 wipes that on its first real key (with -inf it
+// would be NaN). A warpgroup whose 64 rows meet no key of a tile waits
+// for the tile and frees it, as dq_walk does. `fast` keeps m = 0 (no
+// running max, no rescale); it exists only where Tiles::kFast is set
+// (K1's fast softmax), so K5's code has no such branch.
+template <int HD, bool DROPOUT, class Tiles>
+__device__ __forceinline__ void fwd_walk(const Tiles& t, unsigned char* smem,
+                                         int h, int b, int i0, float qscale,
+                                         bool fast_arg, const Dropout& drop) {
+  using Sm = FwdSmem<HD>;
+  constexpr int P = Sm::P;
+  const bool fast = Tiles::kFast && fast_arg;
+  unsigned char* Qs = smem;
+  unsigned char* Ks = smem + Sm::kOffK;
+  unsigned char* Vs = smem + Sm::kOffV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Sm::kOffBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+  const Band& band = t.band;
+  int kt0, kt1;
+  band.k_tiles(i0, kBM, kBN, &kt0, &kt1);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer warpgroup
+    regs_dec<Tiles::kRegsProducer>();
+    if (threadIdx.x == kConsumers) {
+      const int g = h / t.G;
+      mbar_expect_tx(q_full, Sm::kQ);
+      t.template q_tile<kBM>(Qs, q_full, b, h, i0);
+      for (int kt = kt0; kt < kt1; ++kt) {
+        const int n = kt - kt0, s = n % kStages;
+        mbar_wait(empty + s, ((n / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full + s, Sm::kKV);
+        t.template k_tile<kBN>(Ks + s * Sm::kKV, k_full + s, b, g, kt * kBN);
+        mbar_expect_tx(v_full + s, Sm::kKV);
+        t.template v_tile<kBN>(Vs + s * Sm::kKV, v_full + s, b, g, kt * kBN);
+      }
+    }
+  } else {  // consumer warpgroups
+    regs_inc<Tiles::kRegsConsumer>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int c = (lane & 3) * 2;
+    const int r0 = i0 + wg * 64;  // this warpgroup's first row
+    const int row[2] = {r0 + warp * 16 + (lane >> 2),
+                        r0 + warp * 16 + (lane >> 2) + 8};
+    // the keys of each row's band, [lo, hi), fixed for the whole walk
+    int lo[2], hi[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) band.keys(row[x], &lo[x], &hi[x]);
+    float m[2] = {fast ? 0.f : kNegInf, fast ? 0.f : kNegInf};
+    float l[2] = {0.f, 0.f};
+    float o[P][32];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+    const uint32_t q_addr = smem_u32(Qs);
+    mbar_wait(q_full, 0);
+
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int n = kt - kt0;
+      const int s = n % kStages, ph = (n / kStages) & 1;
+      const int j0 = kt * kBN;
+      if (band.none(r0, 64, j0, kBN)) {  // wait, so that this arrival
+        mbar_wait(k_full + s, ph);       // counts for this tile's round
+        mbar_wait(v_full + s, ph);
+        mbar_arrive(empty + s);
+        continue;
+      }
+      const uint32_t k_addr = smem_u32(Ks + s * Sm::kKV);
+      const uint32_t v_addr = smem_u32(Vs + s * Sm::kKV);
+      float sc[kBN / 2];
+      mbar_wait(k_full + s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_ss<0, 0>(sc, kmajor<kBM>(q_addr, wg * 64, k),
+                       kmajor<kBN>(k_addr, 0, k), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(sc);
+
+      // accumulator entry i: row 16 warp + lane / 4 + 8 ((i / 2) % 2),
+      // column j0 + 8 (i / 4) + c + i % 2
+      const bool edge = band.edge(r0, 64, j0, kBN);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int x = (i >> 1) & 1;
+        const int col = j0 + 8 * (i / 4) + c + (i & 1);
+        float v = sc[i] * qscale;
+        if (edge && (col < lo[x] || col >= hi[x])) v = kNegInf;
+        sc[i] = v;
+        mx[x] = fmaxf(mx[x], v);
+      }
+      float alpha[2] = {1.f, 1.f}, m_new[2] = {m[0], m[1]};
+      if (!fast) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          m_new[x] = fmaxf(m[x], quad_max(mx[x]));
+          alpha[x] = exp2f(m[x] - m_new[x]);
+        }
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int x = (i >> 1) & 1;
+        sc[i] = exp2f(sc[i] - m_new[x]);
+        sum[x] += sc[i];
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        l[x] = l[x] * alpha[x] + quad_sum(sum[x]);
+        m[x] = m_new[x];
+      }
+      if constexpr (DROPOUT) {  // every tile, after l: zero the dropped p
+#pragma unroll
+        for (int i = 0; i < kBN / 2; i += 2) {
+          bool k0, k1;
+          drop.cols2(b, h, row[(i >> 1) & 1], j0 + 8 * (i / 4) + c, k0, k1);
+          if (!k0) sc[i] = 0.f;
+          if (!k1) sc[i + 1] = 0.f;
+        }
+      }
+      if (!fast) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i >> 1) & 1];
+      }
+      uint32_t pa[kBN / 16][4];
+      to_a_frags<kBN>(pa, sc);
+
+      mbar_wait(v_full + s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBN / 16; ++k)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          wgmma_rs<1>(o[p], pa[k], mnmajor<kBN>(v_addr, p, k));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < P; ++p) keep(o[p]);
+      keep(pa);
+      mbar_arrive(empty + s);
+    }
+
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (row[x] >= band.Sq) continue;
+      const float inv = (DROPOUT ? drop.inv_keep : 1.f) / l[x];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          t.store_o(b, h, row[x], 64 * p + 8 * j + c,
+                    o[p][4 * j + 2 * x] * inv, o[p][4 * j + 2 * x + 1] * inv);
+      if ((lane & 3) == 0) t.store_lse(b, h, row[x], m[x] + log2f(l[x]));
+    }
+  }
 }
 
 template <int HD>

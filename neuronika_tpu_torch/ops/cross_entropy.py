@@ -12,10 +12,11 @@ with p = exp(logit - lse) - onehot(target), g the row weights (N,) f32 and
 cast() the rounding of p g to x's dtype before the second product, as the
 TPU kernels round it. For CUDA tensors each launches its kernel and adds
 one to its `launches`: `csrc/cross_entropy.cu` (mma.sync for bf16, FFMA
-for f32, f32 accumulation) for K8, K9 and f32 K10; for bf16 K10 the kernel
-`ce_grad_route` picks by shape, the Hopper kernel of
+for f32, f32 accumulation) for K8 and f32 K9/K10; for bf16 K9 and K10 the
+kernel `ce_grad_route` picks by shape, the Hopper kernel of
 `csrc/cross_entropy_sm90.cu` (wgmma, TMA, a cluster of D slices sharing
-the logits; it also adds one to `ce_dw.sm90_launches`) or the template.
+the logits; it also adds one to `ce_dx.sm90_launches` or
+`ce_dw.sm90_launches`) or the template.
 Any other tensor takes the plain version beside it, the same math in f32
 from the operands widened exactly. A target outside [0, V) matches no
 column: its target logit is 0 and it subtracts no onehot, as in the TPU
@@ -33,9 +34,10 @@ import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
-# the Hopper K10's tiles (csrc/cross_entropy_sm90.cu: kOwn, kStream,
-# kSlice, kMaxCluster): W rows a CTA, x rows a stream tile, D columns a
-# CTA's accumulator, CTAs a cluster (the portable cluster size)
+# the Hopper K9/K10's tiles (csrc/cross_entropy_sm90.cu: kOwn, kStream,
+# kSlice, kMaxCluster): own rows a CTA (x for K9, W for K10), stream rows
+# a tile, D columns a CTA's accumulator, CTAs a cluster (the portable
+# cluster size)
 SM90_OWN, SM90_STREAM, SM90_SLICE, SM90_MAX_CLUSTER = 128, 128, 192, 8
 
 
@@ -125,30 +127,34 @@ def _card(fn, x, w, targets, *rows):
 def ce_grad_route(kind: str, dtype, D: int) -> str:
     """The kernel that runs a K9 ("dx") or K10 ("dw") call on the card, by
     shape alone, before launch: "sm90", `csrc/cross_entropy_sm90.cu`'s
-    Hopper kernel, for bf16 K10 with D a multiple of 8 (TMA's rows are
+    Hopper kernel, for bf16 with D a multiple of 8 (TMA's rows are
     multiples of 16 bytes) cut into at most SM90_MAX_CLUSTER slices of
-    SM90_SLICE columns (D <= 1536: one cluster holds a W block's slices);
-    "ce_grad", `csrc/cross_entropy.cu`'s template, otherwise (K9; f32;
+    SM90_SLICE columns (D <= 1536: one cluster holds an own block's
+    slices); "ce_grad", `csrc/cross_entropy.cu`'s template, otherwise (f32;
     wider D; D not a multiple of 8). Not a fallback: a failure of the
     chosen kernel raises."""
     if kind not in ("dx", "dw"):
         raise ValueError(f"kind {kind!r}: dx or dw")
-    sm90 = (kind == "dw" and dtype == torch.bfloat16 and D % 8 == 0
+    sm90 = (dtype == torch.bfloat16 and D % 8 == 0
             and -(-D // SM90_SLICE) <= SM90_MAX_CLUSTER)
     return "sm90" if sm90 else "ce_grad"
 
 
-def ce_dw_plan_sm90(N: int, V: int, D: int):
-    """The Hopper K10's launch, as `nk_ce_dw_sm90` cuts it: (cluster size,
-    grid (slices, W blocks), the D columns [d0, d1) of each slice, rounds
-    of the stream walk). Slice s holds columns s SM90_SLICE .. up to D; a
-    round takes one stream tile of SM90_STREAM x rows a CTA of the
-    cluster."""
+def ce_grad_plan_sm90(kind: str, N: int, V: int, D: int):
+    """The Hopper K9 ("dx") or K10 ("dw") launch, as `nk_ce_dx_sm90` and
+    `nk_ce_dw_sm90` cut it: (cluster size, grid (slices, own blocks), the
+    D columns [d0, d1) of each slice, rounds of the stream walk). K9 owns
+    x rows and streams W, K10 the reverse. Slice s holds columns s
+    SM90_SLICE .. up to D; a round takes one stream tile of SM90_STREAM
+    rows a CTA of the cluster."""
+    if kind not in ("dx", "dw"):
+        raise ValueError(f"kind {kind!r}: dx or dw")
+    own, stream = (N, V) if kind == "dx" else (V, N)
     cs = -(-D // SM90_SLICE)
     slices = [(s * SM90_SLICE, min(D, (s + 1) * SM90_SLICE))
               for s in range(cs)]
-    tiles = -(-N // SM90_STREAM)
-    return cs, (cs, -(-V // SM90_OWN)), slices, -(-tiles // cs)
+    tiles = -(-stream // SM90_STREAM)
+    return cs, (cs, -(-own // SM90_OWN)), slices, -(-tiles // cs)
 
 
 def _launched(fn, err):
@@ -201,9 +207,10 @@ def _grad(fn, kind, x, w, targets, lse, g_rows):
 
 
 def ce_dx(x, w, targets, lse, g_rows):
-    """K9: dx (N, D) in x's dtype. CUDA tensors: the kernel `ce_grad_route`
-    picks (the template, in this version), adding one to
-    `ce_dx.launches`; others: `ce_dx_reference`."""
+    """K9: dx (N, D) in x's dtype, deterministic (each CTA sums its rows'
+    terms in order). CUDA tensors: the kernel `ce_grad_route` picks, adding
+    one to `ce_dx.launches` (and to `ce_dx.sm90_launches` on the Hopper
+    kernel); others: `ce_dx_reference`."""
     if x.device.type != "cuda":
         return ce_dx_reference(x, w, targets, lse, g_rows)
     return _grad(ce_dx, "dx", x, w, targets, lse, g_rows)

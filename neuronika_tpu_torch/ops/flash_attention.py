@@ -598,8 +598,9 @@ def _aligned(t):
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-# the bf16 K6/K7 walks (csrc/flash_sm90.cuh): a CTA holds 128 rows of one
-# side as two warpgroups of 64 and steps over the other side in 64-row tiles
+# the bf16 K5-K7 walks (csrc/flash_sm90.cuh): a CTA holds 128 rows of one
+# side as two warpgroups of 64 and steps over the other side in 64-row
+# tiles (K6, K7) or 128-row tiles (K5)
 _CTA_ROWS, _STEP_ROWS = 128, 64
 
 
@@ -642,6 +643,29 @@ def split_walk(Sq, Skv, causal=True, window=0):
                     if not _band_none(Sq, Skv, causal, window, it * T, T,
                                       jw, T)]
     return {"dq": dq, "dkv": dkv}
+
+
+def fwd_walk(Sq, Skv, causal=True, window=0):
+    """The tiles the bf16 K5 visits, as the device code walks them
+    (`fwd_walk` in csrc/flash_sm90.cuh: `Band::k_tiles` over 128-row k
+    tiles a 128-row CTA, minus the tiles a warpgroup's 64 rows skip by
+    `Band::none`), for checking on the host that the band is covered once.
+    Returns, for each warpgroup step that computes, its (row0, rows, key0,
+    keys) rectangle. K5's grid is ceil(Sq / 128) q tiles a (batch,
+    head)."""
+    C, T = _CTA_ROWS, _STEP_ROWS
+    steps = []
+    for i0 in range(0, Sq, C):
+        kt0, kt1 = 0, -(-Skv // C)
+        if causal:
+            kt1 = min(kt1, (min(i0 + C, Sq) - 1) // C + 1)
+            if window:
+                kt0 = max(0, i0 - window + 1) // C
+        for r0 in (i0, i0 + T):
+            steps += [(r0, T, kt * C, C) for kt in range(kt0, kt1)
+                      if not _band_none(Sq, Skv, causal, window, r0, T,
+                                        kt * C, C)]
+    return steps
 
 
 def _strides(*ts):

@@ -158,13 +158,16 @@ def test_targets_out_of_range_match_no_column():
     ("dw", torch.bfloat16, 64, 130, 1544, "ce_grad"),      # 9 slices
     ("dw", torch.bfloat16, 64, 130, 33, "ce_grad"),        # D % 8
     ("dw", torch.float32, 32768, 16384, 1536, "ce_grad"),
-    ("dx", torch.bfloat16, 32768, 16384, 1536, "ce_grad"),
+    ("dx", torch.bfloat16, 32768, 16384, 1536, "sm90"),
     ("dx", torch.float32, 512, 1024, 64, "ce_grad"),
+    ("dx", torch.bfloat16, 64, 130, 1544, "ce_grad"),      # 9 slices
+    ("dx", torch.bfloat16, 64, 130, 33, "ce_grad"),        # D % 8
 ], ids=["head", "d72", "d1000", "d1544", "d33", "f32", "k9-bf16",
-        "k9-f32"])
+        "k9-f32", "k9-d1544", "k9-d33"])
 def test_ce_grad_route_by_shape(kind, dtype, N, V, D, want):
-    """bf16 K10 with D a multiple of 8 in at most 8 slices of 192 on the
-    Hopper kernel; f32 K10 and K9 in either dtype on the template."""
+    """bf16 K9 and K10 with D a multiple of 8 in at most 8 slices of 192
+    on the Hopper kernel; f32, wider D and D not a multiple of 8 on the
+    template."""
     assert CE.ce_grad_route(kind, dtype, D) == want
 
 
@@ -179,30 +182,49 @@ def _cu_constants(path):
             re.findall(r"constexpr int (k\w+) = (\d+);", text)}
 
 
-@pytest.mark.parametrize("N,V,D", [
+PLAN_SHAPES = [
     (32768, 16384, 1536), (300, 1000, 72), (777, 555, 1000), (64, 130, 8),
-    (129, 700, 1536), (1, 1, 192), (513, 129, 200), (4096, 257, 1528)])
-def test_ce_dw_plan_sm90_covers_every_column_once(N, V, D):
-    """The Hopper K10's cut, mirrored from csrc/cross_entropy_sm90.cu's
-    tile widths: the slices cover D's columns once and in order, one
-    cluster of at most 8 CTAs holds them, each accumulator at most 192
-    wide; the W blocks cover V and the rounds of cs tiles cover N."""
+    (129, 700, 1536), (1, 1, 192), (513, 129, 200), (4096, 257, 1528)]
+
+
+def _plan_covers(kind, N, V, D):
+    """The Hopper K9/K10's cut, as ce_grad_plan_sm90 mirrors it: the
+    slices cover D's columns once and in order, one cluster of at most 8
+    CTAs holds them, each accumulator at most 192 wide; the own blocks
+    cover the own rows and the rounds of cs tiles the stream rows."""
     cu = _cu_constants("cross_entropy_sm90.cu")
     assert (cu["kOwn"], cu["kStream"], cu["kSlice"], cu["kMaxCluster"]) == (
         CE.SM90_OWN, CE.SM90_STREAM, CE.SM90_SLICE, CE.SM90_MAX_CLUSTER)
-    cs, grid, slices, rounds = CE.ce_dw_plan_sm90(N, V, D)
+    own, stream = (N, V) if kind == "dx" else (V, N)
+    cs, grid, slices, rounds = CE.ce_grad_plan_sm90(kind, N, V, D)
     assert grid[0] == cs == len(slices) <= CE.SM90_MAX_CLUSTER
     cols = [c for a, b in slices for c in range(a, b)]
     assert cols == list(range(D))
     assert all(0 < b - a <= CE.SM90_SLICE for a, b in slices)
-    assert grid[1] * CE.SM90_OWN >= V > (grid[1] - 1) * CE.SM90_OWN
-    tiles = -(-N // CE.SM90_STREAM)
+    assert grid[1] * CE.SM90_OWN >= own > (grid[1] - 1) * CE.SM90_OWN
+    tiles = -(-stream // CE.SM90_STREAM)
     assert rounds * cs >= tiles > (rounds - 1) * cs
-    assert CE.ce_grad_route("dw", torch.bfloat16, D) == "sm90"
+    assert CE.ce_grad_route(kind, torch.bfloat16, D) == "sm90"
+
+
+@pytest.mark.parametrize("N,V,D", PLAN_SHAPES)
+def test_ce_dw_plan_sm90_covers_every_column_once(N, V, D):
+    """K10 owns W blocks over V and streams x over N, mirrored from
+    csrc/cross_entropy_sm90.cu's tile widths."""
+    _plan_covers("dw", N, V, D)
+
+
+@pytest.mark.parametrize("N,V,D", PLAN_SHAPES)
+def test_ce_dx_plan_sm90_covers_every_column_once(N, V, D):
+    """K9 owns x blocks over N and streams W over V, mirrored from
+    csrc/cross_entropy_sm90.cu's tile widths."""
+    _plan_covers("dx", N, V, D)
 
 
 def test_counters_do_not_move_on_the_cpu():
-    before = [k.launches for k in CE.KERNELS] + [CE.ce_dw.sm90_launches]
+    sm90 = (CE.ce_dx, CE.ce_dw)
+    before = ([k.launches for k in CE.KERNELS]
+              + [k.sm90_launches for k in sm90])
     x, w, t = (torch.from_numpy(a) for a in _case(64, 16, 128, seed=4))
     x, w = x.bfloat16(), w.bfloat16()
     _, lse = CE.ce_fwd(x, w, t)
@@ -210,7 +232,7 @@ def test_counters_do_not_move_on_the_cpu():
     CE.ce_dx(x, w, t, lse, g)
     CE.ce_dw(x, w, t, lse, g)
     assert [k.launches for k in CE.KERNELS] + [
-        CE.ce_dw.sm90_launches] == before
+        k.sm90_launches for k in sm90] == before
 
 
 def test_gpt_config_accepts_fused_ce_on():
@@ -441,6 +463,27 @@ def test_sm90_ce_dw_matches_plain_on_gpu(cuda, N, D, V):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V", [(512, 64, 1024), (300, 72, 1000),
+                                   (777, 1000, 555), (129, 1536, 700),
+                                   (64, 40, 130), (1000, 1536, 300)])
+def test_sm90_ce_dx_matches_plain_on_gpu(cuda, N, D, V):
+    """The Hopper K9 (bf16): ragged N, V (stream rows past V masked) and
+    D, one to eight slices, held as the CPU tests hold JAX (norm and
+    entries)."""
+    x, w, t, g = _card_case(cuda, N, D, V, torch.bfloat16, seed=5)
+    assert CE.ce_grad_route("dx", torch.bfloat16, D) == "sm90"
+    _, lse = CE.ce_fwd_reference(x, w, t)
+    before = CE.ce_dx.launches, CE.ce_dx.sm90_launches
+    dx = CE.ce_dx(x, w, t, lse, g)
+    torch.cuda.synchronize()
+    assert (CE.ce_dx.launches, CE.ce_dx.sm90_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    ref = CE.ce_dx_reference(x, w, t, lse, g)
+    assert dx.dtype == torch.bfloat16 and dx.shape == ref.shape
+    _bf16_close(dx.float().cpu().numpy(), ref.float().cpu().numpy(), "dx")
+
+
+@pytest.mark.cuda
 def test_sm90_ce_dw_gives_the_same_bits_twice(cuda):
     x, w, t, g = _card_case(cuda, 4096, 1536, 2048, torch.bfloat16, seed=6)
     _, lse = CE.ce_fwd(x, w, t)
@@ -450,22 +493,30 @@ def test_sm90_ce_dw_gives_the_same_bits_twice(cuda):
 
 
 @pytest.mark.cuda
+def test_sm90_ce_dx_gives_the_same_bits_twice(cuda):
+    x, w, t, g = _card_case(cuda, 4096, 1536, 2048, torch.bfloat16, seed=6)
+    _, lse = CE.ce_fwd(x, w, t)
+    a, b = CE.ce_dx(x, w, t, lse, g), CE.ce_dx(x, w, t, lse, g)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,dtype,D", [
     ("dw", torch.bfloat16, 1544), ("dw", torch.float32, 1536),
-    ("dx", torch.bfloat16, 1536)], ids=["dw-9-slices", "dw-f32", "dx"])
+    ("dx", torch.bfloat16, 1544)], ids=["dw-9-slices", "dw-f32", "dx"])
 def test_ce_grads_route_to_the_template_on_gpu(cuda, kind, dtype, D):
-    """K9, f32 K10 and a D past one cluster run cross_entropy.cu."""
+    """f32 K10 and a D past one cluster (K9 or K10) run cross_entropy.cu."""
     N, V = 192, 300
     x, w, t, g = _card_case(cuda, N, D, V, dtype, seed=7)
     assert CE.ce_grad_route(kind, dtype, D) == "ce_grad"
     _, lse = CE.ce_fwd_reference(x, w, t)
     fn, ref_fn = ((CE.ce_dw, CE.ce_dw_reference) if kind == "dw"
                   else (CE.ce_dx, CE.ce_dx_reference))
-    before = fn.launches, CE.ce_dw.sm90_launches
+    before = fn.launches, fn.sm90_launches
     out = fn(x, w, t, lse, g)
     torch.cuda.synchronize()
-    assert (fn.launches, CE.ce_dw.sm90_launches) == (before[0] + 1,
-                                                     before[1])
+    assert (fn.launches, fn.sm90_launches) == (before[0] + 1, before[1])
     a, r = (v.float().cpu().numpy() for v in (out, ref_fn(x, w, t, lse, g)))
     if dtype == torch.float32:
         assert np.abs(a - r).max() <= TOL * np.abs(r).max()

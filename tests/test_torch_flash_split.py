@@ -323,6 +323,27 @@ def test_split_walk_visits_every_band_pair_once(case):
         assert seen.max() == 1, name
 
 
+@pytest.mark.parametrize("case", WALK_CASES, ids=[c[0] for c in WALK_CASES])
+def test_fwd_walk_visits_every_band_pair_once(case):
+    """`fwd_walk` (the bf16 K5 walk: 128-row k tiles a 128-row CTA, each
+    warpgroup's 64 rows skipping the tiles that hold none of their keys,
+    as csrc/flash_sm90.cuh runs it) covers each in-band (q, k) pair of a
+    band exactly once and visits no step that holds none."""
+    _, Sq, Skv, causal, window = case
+    rows = np.arange(Sq)[:, None]
+    cols = np.arange(Skv)[None, :]
+    band = np.ones((Sq, Skv), bool)
+    if causal:
+        band = (cols <= rows) & ((rows - cols < window) if window else True)
+    seen = np.zeros((Sq, Skv), np.int32)
+    for i0, ni, j0, nj in FA.fwd_walk(Sq, Skv, causal, window):
+        assert (ni, nj) == (64, 128)
+        seen[i0:i0 + ni, j0:j0 + nj] += 1
+        assert band[i0:i0 + ni, j0:j0 + nj].any(), (i0, j0)
+    assert (seen[band] == 1).all()
+    assert seen.max() == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -423,6 +444,23 @@ def test_backward_kernels_are_bit_identical_across_runs_on_gpu(cuda):
             for _ in range(2)]
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["plain", "dropout"])
+def test_forward_kernel_is_bit_identical_across_runs_on_gpu(cuda, rate):
+    """Each CTA of the bf16 K5 owns its q rows: two launches on the same
+    inputs give the same out and lse bits (B2 H4 S1000, window 100, hd
+    128), with and without dropout."""
+    B, H, S, hd, window = 2, 4, 1000, 128, 100
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(B, H, S, hd, generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    runs = [FA.flash_fwd(q, k, v, True, window=window, seed=7, rate=rate)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse"), *runs):
         assert torch.equal(a, b), name
 
 

@@ -17,12 +17,13 @@ make, run on one CUDA card from the root of a checkout:
         the same for chip_smoke.py phase 11's step: Mistral 7B's widths at
         L4, S8192 B2 bf16, window 4096 (1 warm-up and 4 timed steps);
     python3 tools/torch_diag.py kernels TREE_ROOT
-        CUDA-event times of the checkout's flash kernels: K5, K6 and K7 at
-        bf16 B1 H8 and B2 H32 S8192 hd128 window 4096 (chip_smoke.py phase
-        3's shapes; SDPA's band-masked backward beside them at B1 H8), and
-        K1, K2a (with its own pre-pass), K2b, the split pair and the fused
-        K2 at the headline (bf16 B16 S2048 H12 hd128 causal, fast softmax);
-        the best of two runs of 5 launches each, as phase 3 times them;
+        CUDA-event times of the checkout's flash kernels: K5 (also at
+        dropout 0.1), K6 and K7 at bf16 B1 H8 and B2 H32 S8192 hd128 window
+        4096 (chip_smoke.py phase 3's shapes; SDPA's band-masked backward
+        beside them at B1 H8), and K1 (also at dropout 0.1), K2a (with its
+        own pre-pass), K2b, the split pair and the fused K2 at the headline
+        (bf16 B16 S2048 H12 hd128 causal, fast softmax); the best of two
+        runs of 5 launches each, as phase 3 times them;
     python3 tools/torch_diag.py f32-noise
         the f32 packed-qkv flash backward (K2a + K2b, the fused K2) and its
         plain version against an exact f64 backward, per chunk (dq, dk,
@@ -44,9 +45,11 @@ make, run on one CUDA card from the root of a checkout:
     python3 tools/torch_diag.py ce TREE_ROOT
         CUDA-event times of the checkout's K8, K9 and K10 at chip_smoke.py
         phase 6's LM head (bf16 N32768 D1536 V16384; the best of two runs
-        of 3 launches each, as phase 3 times them) and phase 6's headline
-        step with fused_ce="on" (1 warm-up and 4 timed steps); run it for
-        two checkouts in turns to compare them;
+        of 3 launches each, as phase 3 times them, each after 2 s of an
+        idle card: right after the other Hopper CE kernel one reads about
+        4% slower on an H100 at 700 W) and phase 6's headline step with
+        fused_ce="on" (1 warm-up and 4 timed steps); run it for two
+        checkouts in turns to compare them;
     python3 tools/torch_diag.py conv3d TREE_ROOT
         CUDA-event time of the checkout's K15 at the table shape of
         chip_smoke.py phase 3 (bf16 32x16^3x128 -> 128, k3; the best of two
@@ -69,6 +72,7 @@ import functools
 import math
 import os
 import sys
+import time
 
 import torch
 
@@ -174,12 +178,15 @@ def kernels(root):
         line = []
         for name, fn in (
                 ("flash_fwd", lambda: FA.flash_fwd(q, k, v, window=W)),
+                ("flash_fwd dropout 0.1", lambda: FA.flash_fwd(
+                    q, k, v, window=W, seed=3, rate=0.1)),
                 ("flash_bwd_dq", lambda: FA.flash_bwd_dq(
                     q, k, v, do, lse, delta, window=W)),
                 ("flash_bwd_dkv", lambda: FA.flash_bwd_dkv(
                     q, k, v, do, lse, delta, window=W))):
             ms = best(fn)
-            bound, flops = cs.split_bound(name, B, H, S, hd, True, W)
+            bound, flops = cs.split_bound(name.split()[0], B, H, S, hd, True,
+                                          W)
             line.append(f"{name} {ms:.3f} ms ({flops / ms / 1e9:.1f} "
                         f"TFLOP/s, bound {bound[0]:.3f})")
         if B == 1:
@@ -203,6 +210,8 @@ def kernels(root):
     line = [f"{name} {best(fn):.3f} ms" for name, fn in (
         ("flash_fwd_qkv", lambda: FA.flash_fwd_qkv(qkv, H,
                                                    fast_softmax=True)),
+        ("flash_fwd_qkv dropout 0.1", lambda: FA.flash_fwd_qkv(
+            qkv, H, fast_softmax=True, seed=3, rate=0.1)),
         ("flash_bwd_dq_qkv", lambda: FA.flash_bwd_dq_qkv(
             qkv, out, lse, do, d_qkv, H)),
         ("flash_bwd_dkv_qkv", lambda: FA.flash_bwd_dkv_qkv(
@@ -229,6 +238,8 @@ def ce(root):
     for name, fn in (("ce_fwd", lambda: CE.ce_fwd(x, w, t)),
                      ("ce_dx", lambda: CE.ce_dx(x, w, t, lse, gr)),
                      ("ce_dw", lambda: CE.ce_dw(x, w, t, lse, gr))):
+        torch.cuda.synchronize()
+        time.sleep(2)
         ms = min(cs.cuda_ms(fn, 3), cs.cuda_ms(fn, 3))
         line.append(f"{name} {ms:.3f} ms")
     print(f"{root}: bf16 N{N} D{D} V{V}: " + ", ".join(line), flush=True)
@@ -295,8 +306,6 @@ def f32_fused(root):
 
 
 def host(root):
-    import time
-
     import torch.nn.functional as F
 
     root = os.path.abspath(root)
@@ -413,8 +422,6 @@ def _device_ms(fn, n):
 
 
 def resnet(root):
-    import time
-
     root, cs, C, R, cfg, params, buf, x, y, step = _resnet(root)
     for _ in range(2):
         params, buf, loss = step(params, buf, x, y, 0.1)
