@@ -8,8 +8,13 @@ nvidia-smi. Phases, each printing one line or a few:
   2. build: nvcc compiles the kernels from neuronika_tpu_torch/csrc/, one
      process per source;
   3. every kernel against its plain PyTorch version on the card, with
-     error bounds and CUDA-event times: paged attention (K11) at the
-     serving path's shapes; flash attention forward (K1), the split
+     error bounds and CUDA-event times: paged attention (K11, each
+     sequence split over CTAs as paged_split_plan cuts it) at the serving
+     path's shapes and at one long sequence (B1 KV12 MB512, pos 8191;
+     also under a window across split boundaries), a planted fault (one
+     split's partial dropped) read at both, two launches the same bits,
+     and timed there and at phase 4's serving shape (8 live slots at
+     contexts 33-192); flash attention forward (K1), the split
      backward pair (K2a, K2b) and the fused backward (K2c/K2d) over f32
      and bf16, causal and full, MHA and GQA, hd 128 and 64, fast and safe
      softmax and a ragged S, then checked and timed at the headline train
@@ -43,8 +48,9 @@ nvidia-smi. Phases, each printing one line or a few:
      which launch K2a and K2b once per layer and step; then the headline
      with fused_ce="on": 2 warm-up and 5 timed steps through the fused
      linear cross-entropy (K8 once a step, K9 and K10 once each in its
-     backward, both on the Hopper kernel of csrc/cross_entropy_sm90.cu,
-     held exact), its step time, tokens/s, MFU and peak memory
+     backward, all three on the Hopper kernels of
+     csrc/cross_entropy_sm90.cu, held exact), its step time, tokens/s, MFU
+     and peak memory
      printed beside the composite headline's; and the headline at
      dropout=0.1 (GPT-2's attn_pdrop), 1 warm-up and 3 timed steps with a
      finite, falling loss and K1 and the fused K2 launched once per layer
@@ -134,15 +140,16 @@ forwards), which `route_conv2d` follows on the card. Last in phase 3, the
 fused linear cross-entropy (K8 forward, K9 dx, K10 dW) against its plain
 versions in f32 and bf16 (N512 D64 V1024, a ragged N300 D72 V1000, a
 tied-head-wide D256, D4160, whose 9 slices run K9 and K10 without a
-cluster, and ragged N, V and D at D 1000 and 1536), the bf16 K9 and K10
-on the Hopper kernel wherever ce_grad_route sends them (counted), then at
-phase 6's LM head (bf16 N32768 D1536
-V16384), held per entry and in norm, with a planted fault per kernel (K8
-without one vocabulary tile, K9 without that tile's term, K10 without one
-row block's partial), K9 and K10 launched twice each for the same bits,
-and timed
-beside its plain version, the composite head (`_lm_head` + logsumexp +
-gather: forward, backward, both) and its bound.
+cluster, and ragged N, V and D at D 1000 and 1536), the bf16 K8, K9 and
+K10 on the Hopper kernels wherever ce_fwd_route and ce_grad_route send
+them (counted), then at phase 6's LM head (bf16 N32768 D1536 V16384),
+held per entry and in norm, with a planted fault per kernel (K8 without
+its last cluster rank's vocabulary range, K9 without one vocabulary
+tile's term, K10 without one row block's partial), each launched twice
+for the same bits, and timed beside its plain version, the composite head
+(`_lm_head` + logsumexp + gather: forward, backward, both), for K8 the
+logits product alone (`torch.mm`, f32 out: a floor, not the same
+function) and its bound.
 Every kernel's time is printed beside its plain version's, the one
 PyTorch call that computes the same function (where there is one; for
 K8-K10 the composite head, several calls) and the bound: the larger of
@@ -221,6 +228,27 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of the kernels one fn() launches, from
+    torch.profiler over `iters` calls after 3 warm-up calls: where a
+    call's host work takes longer than its kernels (K11 at decode shapes),
+    back-to-back CUDA events time the host's issue rate instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
+
+
 def paged_case(rng, *, B, KV, G, hd, BS, MB, pos, inactive, dtype):
     """Random q and pool, a shuffled block table; lanes in `inactive` get
     the decode step's idle-lane form (zero table row, pos MB*BS-1)."""
@@ -242,46 +270,125 @@ def paged_case(rng, *, B, KV, G, hd, BS, MB, pos, inactive, dtype):
             dev(pos))
 
 
-def phase_kernels(rng, paged_attention, reference):
-    """Phase 3: the paged-attention kernel against its plain version."""
-    shape = dict(B=8, hd=128, BS=16, MB=64,
-                 pos=[0, 15, 16, 500, 1023, 700, 129, 0], inactive=[7])
-    errs = {}
+# K11's shapes beyond the table's (tools/torch_diag.py paged times the
+# same three): one long sequence (12 CTAs in one-CTA-a-sequence form, 43
+# splits of 12 blocks here) and phase 4's serving shape, 8 live slots at
+# contexts 33-192
+PAGED_TABLE = dict(B=8, hd=128, BS=16, MB=64,
+                   pos=[0, 15, 16, 500, 1023, 700, 129, 0], inactive=[7])
+PAGED_LONG = dict(B=1, KV=12, G=1, hd=128, BS=16, MB=512, pos=[8191],
+                  inactive=[])
+PAGED_SERVING = dict(B=8, KV=12, G=1, hd=128, BS=16, MB=64,
+                     pos=[33, 57, 96, 128, 150, 170, 192, 80], inactive=[])
+
+
+def paged_bound(args, window=0):
+    """(bound_ms, bound_by) of one K11 call: the K and V rows of every block
+    it must walk (from the one holding the window's first key to the one
+    holding pos; an idle lane walks all MB) read once; q and out are
+    0.05% of them."""
+    q, pk, _, table, pos = args
+    _, KV, G, hd = q.shape
+    BS = pk.shape[2]
+    rows = 0
+    for p in pos.tolist():
+        p = min(p, table.shape[1] * BS - 1)
+        lo = max(p - window + 1, 0) if window else 0
+        rows += (p // BS + 1 - lo // BS) * BS
+    return bound_ms(rows * KV * hd * 2 * q.element_size(),
+                    4 * rows * KV * G * hd, q.dtype)
+
+
+def paged_fault(PA, args, window):
+    """The plain version with one split's partial dropped (split 1, which
+    holds attended keys of the long lanes), as a kernel that lost it would
+    merge: the planted fault phase 3 reads."""
+    q, pk, pv, table, pos = args
+    bps = PA._plan(q.shape[0], q.shape[1], table.shape[1], q.device)[1]
+    m, l, acc = PA._split_partials(q, pk, pv, table, pos, window, bps)
+    m[..., 1] = -math.inf
+    return PA._merge_splits(m, l, acc).to(q.dtype)
+
+
+def phase_kernels(rng, PA):
+    """Phase 3: the paged-attention kernel (K11) against its plain version
+    at the table shape and the long shape, a planted fault per shape (one
+    split's partial dropped) and the same bits twice; then timed at the
+    table, long and serving shapes. Returns the table shape's bf16 error
+    and {shape: (kernel ms, plain ms, (bound_ms, bound_by), the kernel's
+    ms a call back to back)}, the first two device times."""
+    reference = PA.paged_attention_reference
+
+    def held(out, ref, tol):
+        """(max abs err, ||err||/||ref||, whether out is within bounds):
+        each entry within tol; bf16 also in norm (SPLIT_BF16_REL of ||ref||
+        plus SPLIT_BF16_FLOOR an entry), since at the long shape an entry
+        of out is ~0.03 and one split's 192 of 8192 keys move it by less
+        than BF16_TOL."""
+        err = float((out.float() - ref.float()).abs().max())
+        if ref.dtype != torch.bfloat16:
+            return err, None, err <= tol
+        rel, bound = norm_reading([diff_stats(out.float(), ref.float())])[:2]
+        return err, rel, err <= tol and rel <= bound
+
+    errs, rels, faults = {}, {}, {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for name, KV, G in (("mha", 12, 1), ("gqa", 2, 6)):
-            args = paged_case(rng, KV=KV, G=G, dtype=dtype, **shape)
-            for window in (0, 9):
-                out = paged_attention(*args, window=window)
-                ref = reference(*args, window=window)
-                torch.cuda.synchronize()
-                check(out.dtype == dtype and out.shape == ref.shape,
-                      f"kernel output {out.dtype} {tuple(out.shape)}")
-                err = float((out.float() - ref.float()).abs().max())
-                key = f"{str(dtype)[6:]}/{name}/w{window}"
-                errs[key] = err
-                check(err <= tol, f"paged_attention {key}: max abs err "
-                                  f"{err} > {tol}")
-    # time at the serving path's shape and dtype: plain, kernel, kernel,
-    # plain in one call
-    args = paged_case(rng, KV=12, G=1, dtype=torch.bfloat16, **shape)
-    plain_a = cuda_ms(lambda: reference(*args), 20)
-    kern_a = cuda_ms(lambda: paged_attention(*args), 200)
-    kern_b = cuda_ms(lambda: paged_attention(*args), 200)
-    plain_b = cuda_ms(lambda: reference(*args), 20)
-    kern_ms, plain_ms = min(kern_a, kern_b), min(plain_a, plain_b)
-    # bytes the kernel must read: the K and V rows of every block it walks
-    BS, KV, hd = 16, 12, 128
-    live = sum((p // BS + 1) * BS for p in shape["pos"][:7]) + 64 * BS
-    gbytes = live * KV * hd * 2 * 2 / 1e9
-    # bound: those K/V bytes (the q and out rows are 0.05% of them)
-    bound = bound_ms(gbytes * 1e9, 4 * live * KV * hd, torch.bfloat16)
+        cases = [(f"table-{name}", dict(PAGED_TABLE, KV=KV, G=G), window)
+                 for name, KV, G in (("mha", 12, 1), ("gqa", 2, 6))
+                 for window in (0, 9)]
+        # the long sequence, also under a window across a split boundary
+        # (splits of 192 keys)
+        cases += [("long", PAGED_LONG, 0), ("long", PAGED_LONG, 300)]
+        for name, shape, window in cases:
+            args = paged_case(rng, dtype=dtype, **shape)
+            out = PA.paged_attention(*args, window=window)
+            ref = reference(*args, window=window)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype and out.shape == ref.shape,
+                  f"kernel output {out.dtype} {tuple(out.shape)}")
+            key = f"{str(dtype)[6:]}/{name}/w{window}"
+            errs[key], rels[key], ok = held(out, ref, tol)
+            check(ok, f"paged_attention {key}: max abs err {errs[key]}, "
+                      f"||err||/||ref|| {rels[key]}: out of bounds")
+            if window == 0 and name in ("table-mha", "long"):
+                reading = held(paged_fault(PA, args, window), ref, tol)
+                faults[key] = reading[:2]
+                check(not reading[2], f"paged_attention {key}: a planted "
+                      f"fault reads {reading[:2]}, within bounds")
+                again = PA.paged_attention(*args, window=window)
+                check(torch.equal(out, again), f"paged_attention {key}: "
+                                               f"two launches differ")
+    # times in bf16, plain, kernel, kernel, plain in one call: device time
+    # (the profiler), and the kernel's calls issued back to back (CUDA
+    # events: the host's issue rate where that is slower)
+    times = {}
+    for name, shape in (("table", dict(PAGED_TABLE, KV=12, G=1)),
+                        ("long", PAGED_LONG), ("serving", PAGED_SERVING)):
+        args = paged_case(rng, dtype=torch.bfloat16, **shape)
+
+        def kern():
+            PA.paged_attention(*args)
+
+        plain_a = device_ms(lambda: reference(*args), 20)
+        kern_a, kern_b = device_ms(kern, 200), device_ms(kern, 200)
+        plain_b = device_ms(lambda: reference(*args), 20)
+        times[name] = (min(kern_a, kern_b), min(plain_a, plain_b),
+                       paged_bound(args), cuda_ms(kern, 200))
     print(f"phase 3 kernels: paged_attention max_abs_err "
-          f"{json.dumps(errs)} (tol f32 {F32_TOL}, bf16 {BF16_TOL}); "
-          f"bf16 B8 KV12 G1 hd128 BS16 MB64: kernel {kern_ms:.4f} ms "
-          f"({gbytes / kern_ms * 1e3:.0f} GB/s of K/V, warm L2), plain "
-          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); no "
-          f"single PyTorch call computes a paged decode step")
-    return errs["bfloat16/mha/w0"], kern_ms, plain_ms, bound
+          f"{json.dumps(errs)} (tol f32 {F32_TOL}, bf16 {BF16_TOL} and in "
+          f"norm {SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry: "
+          f"bf16 ||err||/||ref|| "
+          f"{json.dumps({k: v for k, v in rels.items() if v is not None})}); "
+          f"planted faults (split 1's partial dropped; max abs err, "
+          f"||err||/||ref||) {json.dumps(faults)}, each two launches the "
+          f"same bits; bf16 G1 "
+          f"hd128 BS16 (split as paged_split_plan cuts it; device time, "
+          f"warm L2 but at the long shape's 50 MB): " + "; ".join(
+              f"{name} kernel {k:.4f} ms ({b2b:.4f} ms a call back to "
+              f"back), plain {p:.4f} ms, bound {b[0]:.4f} ms ({b[1]})"
+              for name, (k, p, b, b2b) in times.items())
+          + "; no single PyTorch call computes a paged decode step")
+    return errs["bfloat16/table-mha/w0"], times
 
 
 def serve(PagedBatcher, params, cfg, prompts, max_news, **kw):
@@ -660,7 +767,8 @@ def profile_step(run, label, path):
         n = e.key
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3
-        kind = ("K8 ce fwd" if "ce_fwd_kernel" in n
+        kind = ("K8 ce fwd (sm90)" if "ce_fwd_sm90" in n
+                else "K8 ce fwd" if "ce_fwd_kernel" in n
                 else "K9 ce dx (sm90)" if "ce_grad_sm90" in n
                 and "<true>" in n
                 else "K10 ce dw (sm90)" if "ce_grad_sm90" in n
@@ -784,7 +892,7 @@ def phase_train(T, FA, CE, profile):
     split = launches
     # the headline with the fused linear cross-entropy: rows 32768 and
     # vocab 16384 pass JAX's gate, so K8 runs once a step and K9, K10 once
-    # each in its backward, both on the Hopper kernel
+    # each in its backward, all three on the Hopper kernels
     cfg = T.GPTConfig(dtype=torch.bfloat16, fused_ce="on", **TRAIN_CFG,
                       **HEADLINE)
     path = None
@@ -797,8 +905,9 @@ def phase_train(T, FA, CE, profile):
     want = dict.fromkeys(launches, 0)
     want.update({"flash_fwd_qkv": L * n, "flash_bwd_fused_qkv": L * n,
                  "ce_fwd": n, "ce_dx": n, "ce_dw": n,
-                 "ce_dx.sm90": n,     # K9 and K10 on
-                 "ce_dw.sm90": n})    # csrc/cross_entropy_sm90.cu
+                 "ce_fwd.sm90": n,    # K8, K9 and K10 on
+                 "ce_dx.sm90": n,     # csrc/cross_entropy_sm90.cu
+                 "ce_dw.sm90": n})
     check(all(np.isfinite(losses)), f"non-finite loss (fused CE): {losses}")
     check(losses[-1] < losses[0], f"loss did not fall (fused CE): {losses}")
     check(launches == want, f"fused-CE launches {launches}, want {want}")
@@ -2248,9 +2357,11 @@ def check_ce(CE, key, x, w, t, g, faults=False):
     K10 fed the plain lse); raises on a mismatch. K8's loss and lse are
     f32: each entry within 1e-5 of max(1, max |lse|). With `faults`, three
     planted faults are read against the same plain versions and must fail
-    their bounds: K8 skipping the first vocabulary tile, K9 without that
-    tile's term, K10 without the first row block's partial (one tile of
-    CE_TILE each). Returns {kernel: max abs err} and the printed readings."""
+    their bounds: K8 without a vocabulary range (on the Hopper kernel the
+    last cluster rank's, as ce_fwd_plan_sm90 cuts it; else the first tile
+    of CE_TILE rows), K9 without the first vocabulary tile's term, K10
+    without the first row block's partial (CE_TILE rows each). Returns
+    {kernel: max abs err}."""
     loss, lse = CE.ce_fwd(x, w, t)
     rloss, rlse = CE.ce_fwd_reference(x, w, t)
     dx, dw = CE.ce_dx(x, w, t, rlse, g), CE.ce_dw(x, w, t, rlse, g)
@@ -2271,15 +2382,20 @@ def check_ce(CE, key, x, w, t, g, faults=False):
                         f"{b:.3g})" for n, (a, r, b, _) in got.items()))
     if faults:
         tile, every = slice(0, CE_TILE), slice(None)
-        # K8: lse without the tile's exp-sum; the target logit without the
-        # tile's targets
-        pg, logits, onehot = ce_pg(x, w, t, rlse, g, every, tile)
-        p_tile = torch.exp(logits - rlse[:, None]).sum(-1)
-        lse_f = rlse + torch.log1p(-p_tile)
+        N, D = x.shape
+        gone = tile
+        if CE.ce_fwd_route(x.dtype, D) == "sm90":
+            gone = slice(*CE.ce_fwd_plan_sm90(N, w.shape[0], D)[2][-1])
+        # K8: lse without the range's exp-sum; the target logit without the
+        # range's targets
+        _, logits, onehot = ce_pg(x, w, t, rlse, g, every, gone)
+        p_gone = torch.exp(logits - rlse[:, None]).sum(-1)
+        lse_f = rlse + torch.log1p(-p_gone)
         loss_f = lse_f - ((rlse - rloss) - (logits * onehot).sum(-1))
         e8 = float((loss_f - rloss).abs().max())
         check(e8 > F32_TOL * top, f"ce_fwd {key}: a planted fault reads "
                                   f"{e8} <= {F32_TOL * top}")
+        pg, _, _ = ce_pg(x, w, t, rlse, g, every, tile)
         dx_f = dx.float() - pg.float() @ w[tile].float()
         pg, _, _ = ce_pg(x, w, t, rlse, g, tile, every)
         dw_f = dw.float() - pg.float().T @ x[tile].float()
@@ -2290,8 +2406,9 @@ def check_ce(CE, key, x, w, t, g, faults=False):
             check(read[n][0] > read[n][1], f"{n} {key}: a planted fault "
                   f"reads {read[n][0]} <= bound {read[n][1]}")
         del logits, onehot, pg, dx_f, dw_f
-        text += (f"; planted faults: ce_fwd without vocabulary tile 0 max "
-                 f"abs err {e8:.3g}, ce_dx without its term "
+        text += (f"; planted faults: ce_fwd without vocabulary rows "
+                 f"{gone.start}-{gone.stop} max abs err {e8:.3g}, ce_dx "
+                 f"without vocabulary tile 0's term "
                  f"||err||/||ref|| {read['ce_dx'][0]:.3g}, ce_dw without "
                  f"row block 0 {read['ce_dw'][0]:.3g}")
     print(text)
@@ -2321,11 +2438,13 @@ def phase_ce_kernels(CE, T):
     its backward (dx and dW together) for K9 and K10."""
     g = torch.Generator(device="cuda").manual_seed(8)
     grads = {"dx": CE.ce_dx, "dw": CE.ce_dw}
-    routed = dict.fromkeys(grads, 0)
-    for fn in grads.values():
+    kinds = {"fwd": CE.ce_fwd, **grads}
+    routed = dict.fromkeys(kinds, 0)
+    for fn in kinds.values():
         fn.sm90_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         for name, N, D, V in CE_CASES:
+            routed["fwd"] += CE.ce_fwd_route(dtype, D) == "sm90"
             for kind in grads:
                 routed[kind] += CE.ce_grad_route(kind, dtype, D) == "sm90"
             check_ce(CE, f"{str(dtype)[6:]}/{name}",
@@ -2336,10 +2455,14 @@ def phase_ce_kernels(CE, T):
                     faults=True)
     torch.cuda.empty_cache()
     _, lse = CE.ce_fwd(x, w, t)
-    # K9 and K10 at the head twice: the same bits (each CTA sums in a fixed
-    # order)
-    for kind, fn in grads.items():
-        d1, d2 = fn(x, w, t, lse, gr), fn(x, w, t, lse, gr)
+    # K8, K9 and K10 at the head twice: the same bits (each CTA, and K8's
+    # cluster merge, sum in a fixed order); K8 ran once more just above
+    routed["fwd"] += 1
+    for kind, fn in kinds.items():
+        if kind == "fwd":
+            d1, d2 = torch.stack(fn(x, w, t)), torch.stack(fn(x, w, t))
+        else:
+            d1, d2 = fn(x, w, t, lse, gr), fn(x, w, t, lse, gr)
         torch.cuda.synchronize()
         check(torch.equal(d1, d2), f"ce_{kind} at the head: two launches "
                                    f"differ")
@@ -2347,7 +2470,7 @@ def phase_ce_kernels(CE, T):
         routed[kind] += 1 + 2
         check(fn.sm90_launches == routed[kind] and routed[kind] > 3,
               f"phase 3: Hopper ce_{kind} launches {fn.sm90_launches}, "
-              f"ce_grad_route sends {routed[kind]}")
+              f"the routes send {routed[kind]}")
     fns = {"ce_fwd": (lambda: CE.ce_fwd(x, w, t),
                       lambda: CE.ce_fwd_reference(x, w, t)),
            "ce_dx": (lambda: CE.ce_dx(x, w, t, lse, gr),
@@ -2372,6 +2495,10 @@ def phase_ce_kernels(CE, T):
                                                 retain_graph=True), 3)
     del saved, xr, wr
     torch.cuda.empty_cache()
+    # a floor for K8, not the same function: the logits product alone (x
+    # W^T, bf16 operands, f32 out), which K8 computes and never stores
+    mm_ms = cuda_ms(lambda: torch.mm(x, w.T, out_dtype=torch.float32), 3)
+    torch.cuda.empty_cache()
     # bytes: x and w read once, targets (int32), lse and row weights (f32)
     # as a kernel reads them, its outputs written once
     io = (N * D + V * D) * 2
@@ -2394,10 +2521,13 @@ def phase_ce_kernels(CE, T):
           f"entry); bf16 N{N} D{D} V{V}: " + "; ".join(line)
           + f"; composite (_lm_head + logsumexp + gather, several calls, "
           f"no single library call) forward {c_fwd:.3f} ms, backward "
-          f"{c_bwd:.3f} ms, both {c_all:.3f} ms; fused K8 + K9 + K10 "
+          f"{c_bwd:.3f} ms, both {c_all:.3f} ms; torch.mm of the logits "
+          f"alone (x W^T, f32 out; a floor, not the same function) "
+          f"{mm_ms:.3f} ms; fused K8 + K9 + K10 "
           f"{sum(t[0] for t in times.values()):.3f} ms; on the Hopper "
-          f"kernel (csrc/cross_entropy_sm90.cu) K9 {routed['dx']} and K10 "
-          f"{routed['dw']} times, each the same bits twice at the head")
+          f"kernels (csrc/cross_entropy_sm90.cu) K8 {routed['fwd']}, K9 "
+          f"{routed['dx']} and K10 {routed['dw']} times, each the same "
+          f"bits twice at the head")
     del x, w, t, gr, lse, fns
     torch.cuda.empty_cache()
     return result
@@ -2840,8 +2970,7 @@ def main() -> int:
     from neuronika_tpu_torch.ops import flash_attention as FA
     from neuronika_tpu_torch.ops import matmul as MM
     from neuronika_tpu_torch.ops import softmax as SM
-    from neuronika_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_reference)
+    from neuronika_tpu_torch.ops import paged_attention as PA
     from neuronika_tpu_torch.serving import PagedBatcher
 
     # 1. environment
@@ -2866,8 +2995,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
-    err, kern_ms, plain_ms, paged_bound = phase_kernels(
-        rng, paged_attention, paged_attention_reference)
+    err, paged = phase_kernels(rng, PA)
     flash = phase_flash_kernels(rng, FA)
     mm_sm = phase_mm_softmax(MM, SM)
     sflash = phase_split_flash(FA)
@@ -2889,10 +3017,10 @@ def main() -> int:
                for n in lens]
     serve(PagedBatcher, params, cfg, prompts[:1], [4], **pool)   # warm-up
     torch.cuda.reset_peak_memory_stats()
-    paged_attention.launches = 0
+    PA.paged_attention.launches = 0
     pb, outs, steps, finite, wall = serve(PagedBatcher, params, cfg,
                                           prompts, max_news, **pool)
-    launches = paged_attention.launches
+    launches = PA.paged_attention.launches
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     check(all(o.shape == (m,) for o, m in zip(outs, max_news)),
           "a request did not return max_new tokens")
@@ -2950,13 +3078,19 @@ def main() -> int:
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
+    # K11's times at the table shape; its long and serving shapes beside
+    kern_ms, plain_ms, bound, _ = paged["table"]
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "neuronika_tpu_torch/csrc/paged_attention.cu",
         "replaces": "neuronika_tpu/ops/pallas/paged_attention.py:44",
         "launches": launches, "max_abs_err": err, "ms": kern_ms,
-        "plain_ms": plain_ms, "bound_ms": paged_bound[0],
-        "bound_by": paged_bound[1], "library_ms": None}]
+        "plain_ms": plain_ms, "bound_ms": bound[0],
+        "bound_by": bound[1], "library_ms": None,
+        "back_to_back_ms": paged["table"][3],
+        "long_ms": paged["long"][0], "long_bound_ms": paged["long"][2][0],
+        "serving_ms": paged["serving"][0],
+        "serving_bound_ms": paged["serving"][2][0]}]
     # K2c (:1109) and K2d (:1194) are one CUDA kernel; it names the first
     for name, line, counts in (("flash_fwd_qkv", 639, head),
                                ("flash_bwd_dq_qkv", 708, split),
@@ -3018,14 +3152,13 @@ def main() -> int:
                         "library_ms": lib})
     # K8-K10 run on phase 6's fused-CE path (launches), checked and timed
     # at its LM head (phase 3); library_ms is the composite head's time
-    # (forward for K8, its backward for K9 and K10), several calls
-    # K9 and K10 in bf16 run csrc/cross_entropy_sm90.cu (phase 6's
-    # launches counted there: fused_ce["ce_dx.sm90"], ["ce_dw.sm90"])
+    # (forward for K8, its backward for K9 and K10), several calls. In
+    # bf16 all three run csrc/cross_entropy_sm90.cu (phase 6's launches
+    # counted there: fused_ce["ce_fwd.sm90"], ["ce_dx.sm90"], ...)
     for name, line in CE_LINES.items():
         e, ms, p_ms, lib, bound = cek[name]
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"{csrc}cross_entropy"
-                                  f"{'' if name == 'ce_fwd' else '_sm90'}.cu",
+                        "source": f"{csrc}cross_entropy_sm90.cu",
                         "replaces": "neuronika_tpu/ops/pallas/"
                                     f"cross_entropy.py:{line}",
                         "launches": fused_ce[name], "max_abs_err": e,

@@ -96,7 +96,8 @@ def load_library() -> ctypes.CDLL:
     fn = lib.nk_paged_attention
     fn.argtypes = [i, p, p, p, p, p, p,          # dtype, q, pk, pv, table,
                    i, i, i, i, i, i, i, i,       # pos, out; B KV G hd NB BS
-                   ctypes.c_float, p]            # MB window; scale, stream
+                   ctypes.c_float, i, i, p, p,   # MB window; scale, splits,
+                   p]                            # bps, part, count, stream
     fn.restype = i
     f = ctypes.c_float
     # every flash kernel's dropout: seed, threshold, inv_keep
@@ -158,10 +159,11 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [i, p, p, p, p, geo,       # dtype, x, g, ws, out,
                        i, i, p]                  # geo, splits, chunk,
         fn.restype = i                           # stream
-    fn = lib.nk_ce_fwd
-    fn.argtypes = [i, p, p, p, p, p,             # dtype, x, w, tgt, loss, lse
-                   i, i, i, p]                   # N V D, stream
-    fn.restype = i
+    for name in ("nk_ce_fwd", "nk_ce_fwd_sm90"):  # cross_entropy_sm90.cu
+        fn = getattr(lib, name)
+        fn.argtypes = [i, p, p, p, p, p,         # dtype, x, w, tgt, loss,
+                       i, i, i, p]               # lse; N V D, stream
+        fn.restype = i
     for name in ("nk_ce_dx", "nk_ce_dw", "nk_ce_dx_sm90",
                  "nk_ce_dw_sm90"):               # csrc/cross_entropy_sm90.cu
         fn = getattr(lib, name)

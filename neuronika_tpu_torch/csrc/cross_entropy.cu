@@ -51,11 +51,12 @@
 //   * Ragged N, V and D are masked in the loads (cp.async zero-fills a
 //     chunk past the edge where D is a multiple of a chunk and the bases
 //     are aligned; element loads otherwise); no divisibility rule.
-// bf16 K9 and K10 with D a multiple of 8 and at most 1536 run the Hopper
-// kernel of cross_entropy_sm90.cu instead (wgmma, TMA, a cluster of
-// 192-column slices; ops/cross_entropy.py::ce_grad_route); this template
-// serves K8, f32 K9/K10, and bf16 K9/K10 with other D.
-// Not done yet: K8 on wgmma and TMA, a persistent schedule.
+// bf16 K8 with D a multiple of 8, and bf16 K9 and K10 with D a multiple
+// of 8 and at most 1536, run the Hopper kernels of cross_entropy_sm90.cu
+// instead (wgmma, TMA, thread block clusters; ops/cross_entropy.py::
+// ce_fwd_route, ce_grad_route); this template serves f32 K8-K10 and bf16
+// at other D.
+// Not done yet: a persistent schedule.
 
 #include <cooperative_groups.h>
 #include <math.h>

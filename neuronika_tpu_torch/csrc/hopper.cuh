@@ -232,6 +232,14 @@ __device__ __forceinline__ void ld_cluster(uint32_t (&v)[4], uint32_t addr) {
                : "memory");
 }
 
+// 16 bytes into any CTA's shared memory in the cluster (a map_rank address)
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 __device__ __forceinline__ void fence_cluster() {
   asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
 }

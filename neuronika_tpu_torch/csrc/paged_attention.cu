@@ -19,18 +19,36 @@
 // K/V element pair -- far below the ~295 flop/byte at which the card's
 // tensor cores would become the limit. So the loop moves no byte it does not
 // need and keeps as many loads in flight as it can:
-//   * one CTA per (sequence, kv head) walks only the logical blocks
-//     m_lo .. pos/BS and reads table[b, m] itself (the TPU grid visits, and
-//     copies, all MB table entries, dead ones included);
+//   * the sequence is split (flash-decoding): the grid is (KV, B, splits),
+//     and CTA z of a (sequence, kv head) walks the logical blocks
+//     [z bps, (z + 1) bps) that meet m_lo .. pos/BS, reading table[b, m]
+//     itself (the TPU grid visits, and copies, all MB table entries, dead
+//     ones included). The host picks splits and bps from B*KV, MB and the
+//     SM count alone (ops/paged_attention.py::paged_split_plan), never from
+//     pos, so a decode step does not wait on the card;
 //   * q stays in registers, pre-scaled by log2(e)/sqrt(hd) (exp2 domain);
 //   * a group of lanes reads one K or V row, 16 bytes a thread, neighbouring
 //     lanes on neighbouring addresses; each group loads kUnroll rows of K and
 //     V before it computes on any of them;
 //   * every group keeps its own online-softmax state in registers; groups
 //     merge by warp shuffles, then warps through shared memory in a fixed
-//     order (deterministic) -- no scratch in device memory, no LSE padding.
-// Not done yet: splitting one long sequence over several CTAs
-// (flash-decoding), TMA or wgmma. With B*KV below the 132 SMs, SMs idle.
+//     order;
+//   * every CTA of a (sequence, kv head) knows from pos which splits meet
+//     its attended blocks; a split that meets none ends at once (its
+//     partial would be m = -inf, l = 0, weight 0 in the merge). A split
+//     alone in them writes the output. Otherwise each writes its partial
+//     (m, l, acc[G][hd]) in f32 to the scratch `part` and counts itself
+//     on its (b, kv)'s counter; the CTA that counts last merges the
+//     partials in split order, writes the output and resets the counter
+//     to 0. Every partial is fixed by its inputs and the order is fixed,
+//     so the result is the same bits every launch, whichever CTA merges,
+//     and there is no second launch;
+//   * the table entries of a step's rows are read a step ahead.
+// A producer warp feeding an mbarrier ring by 1-d bulk copies
+// (cp.async.bulk) in place of the register loads ran slower at walks of
+// 11-12 blocks a CTA on an H100 (its 48 KB ring and 288 threads left 3-4
+// CTAs an SM): 0.0200 against 0.0172 ms at B8 KV12 hd128 bf16. Tensor
+// cores stay idle by design: G <= 8 query rows.
 //
 // Inactive decode lanes come with an all-zero table row and pos clamped to
 // MB*BS-1: they read scratch block 0, which is valid memory, and their output
@@ -47,7 +65,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
-constexpr int kUnroll = 2;
+constexpr int kMaxSplits = 256;   // ops/paged_attention.py: SPLIT_MAX
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -87,30 +105,113 @@ __device__ __forceinline__ float safe_max(float m) {
   return m == -INFINITY ? 0.f : m;
 }
 
+// After a split's partial is written (pb: the first of the n partials of
+// its (sequence, kv head) that take part, G (HD + 2) floats a split):
+// count the split in; the CTA that counts last merges the n in split order
+// into ob and resets the counter. The other CTAs' partials are read from L2
+// (they are not in this SM's L1), the splits' m and l all at once into
+// shared memory, each group's max by one warp, then each element's sums
+// over the splits, the acc loads of several splits in flight together. A
+// split whose blocks were all outside the pool (m = -inf: weight 0) adds
+// nothing.
 template <typename T, int HD, int MAXG>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void count_and_merge(const float* pb, int n,
+                                                int G, int* cnt, T* ob) {
+  __shared__ bool last;
+  __shared__ float sw[kMaxSplits * MAXG], sl[kMaxSplits * MAXG];
+  __threadfence();   // the partial is visible before it is counted
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(cnt, 1) == n - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int pw = G * (HD + 2);
+  for (int t = threadIdx.x; t < n * G; t += kThreads) {
+    const float* py = pb + (size_t)(t / G) * pw;
+    sw[t] = __ldcg(py + t % G);
+    sl[t] = __ldcg(py + G + t % G);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < G) {   // G <= kWarps: warp g turns group g's m into weights
+    float mm = -INFINITY;
+    for (int y = lane; y < n; y += 32) mm = fmaxf(mm, sw[y * G + warp]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(kFull, mm, off));
+    const float mu = safe_max(mm);
+    for (int y = lane; y < n; y += 32)
+      sw[y * G + warp] = exp2f(sw[y * G + warp] - mu);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
+    const int g = i / HD;
+    float l = 0.f, a = 0.f;
+#pragma unroll 4
+    for (int y = 0; y < n; ++y) {
+      const float w = sw[y * G + g];
+      if (w == 0.f) continue;   // adds exactly 0
+      l += sl[y * G + g] * w;
+      a += __ldcg(pb + (size_t)y * pw + 2 * G + i) * w;
+    }
+    ob[i] = Vec<T>::store(a / l);
+  }
+  if (threadIdx.x == 0) *cnt = 0;   // ready for the next launch
+}
+
+// G = 1 at hd <= 128 (the decode path) fits 4 CTAs an SM in 64 registers a
+// thread: paged_split_plan's SPLIT_CTAS_PER_SM, one wave at the long shape
+template <typename T, int HD, int MAXG>
+__global__ void __launch_bounds__(kThreads, MAXG == 1 && HD <= 128 ? 4 : 1)
     paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                            const T* __restrict__ pv,
                            const int* __restrict__ table,
                            const int* __restrict__ pos_arr,
                            T* __restrict__ out, int KV, int G, int NB, int BS,
-                           int MB, int window, float qscale) {
+                           int MB, int window, float qscale, int bps,
+                           float* __restrict__ part, int* __restrict__ count) {
   constexpr int VEC = Vec<T>::N;
   constexpr int LPT = (HD / VEC < 32) ? HD / VEC : 32;  // lanes per row
   constexpr int CH = HD / (LPT * VEC);  // 16-byte chunks per lane and row
   constexpr int EPL = CH * VEC;         // row elements per lane
   constexpr int RPW = 32 / LPT;         // rows a warp reads at once
   constexpr int NGRP = kWarps * RPW;    // row groups per CTA
+  // rows a row group loads before it computes: 4 at G = 1 (the decode
+  // path's multi-head attention), 2 where 8 query heads' registers leave
+  // no room
+  constexpr int kUnroll = MAXG == 1 ? 4 : 2;
   static_assert(HD % (LPT * VEC) == 0, "head dim must split into 16B chunks");
 
   const int kv = blockIdx.x;
   const int b = blockIdx.y;
+  const int z = blockIdx.z, splits = (int)gridDim.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int sub = lane / LPT;  // row group within the warp
   const int li = lane % LPT;   // lane within the row group
   const int grp = warp * RPW + sub;
   // this lane holds row elements (c * LPT + li) * VEC + e, c < CH, e < VEC
+
+  int pos = pos_arr[b];
+  pos = min(pos, MB * BS - 1);
+  const int lo = window > 0 ? max(pos - window + 1, 0) : 0;
+  // whole blocks from the one holding lo up to the one holding pos, within
+  // this split's blocks [z bps, (z + 1) bps); keys past pos are masked
+  const int t_begin = max((lo / BS) * BS, z * bps * BS);
+  const int t_end = min(pos < 0 ? t_begin : (pos / BS + 1) * BS,
+                        min(MB, (z + 1) * bps) * BS);
+  // the splits z_lo .. z_hi meet the attended blocks lo / BS .. pos / BS
+  // (every CTA of the sequence knows which): a split outside them ends
+  // here, its partial would be m = -inf, l = 0; a split alone in them
+  // writes the output itself; otherwise each writes its partial m[G], l[G],
+  // acc[G][HD] (G (HD + 2) floats at [b][kv][z]) and the last merges them
+  const int z_lo = lo / BS / bps, z_hi = pos < 0 ? z_lo : pos / BS / bps;
+  if (z < z_lo || z > z_hi) return;
+  const int pw = G * (HD + 2);
+  float* pb = part + (((size_t)b * KV + kv) * splits + z_lo) * pw;
+  float* pz = pb + (size_t)(z - z_lo) * pw;
+  int* cnt = count + (size_t)b * KV + kv;
+  T* ob = out + ((size_t)b * KV + kv) * G * HD;
 
   float qr[MAXG][EPL];
   const T* qb = q + ((size_t)b * KV + kv) * G * HD;
@@ -132,13 +233,6 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  int pos = pos_arr[b];
-  pos = min(pos, MB * BS - 1);
-  const int lo = window > 0 ? max(pos - window + 1, 0) : 0;
-  const int t_begin = (lo / BS) * BS;
-  // whole blocks up to the one holding pos; keys past pos are masked
-  const int t_end = pos < 0 ? t_begin : (pos / BS + 1) * BS;
-
   float m[MAXG], l[MAXG], acc[MAXG][EPL];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
@@ -149,15 +243,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int* trow = table + (size_t)b * MB;
+  // the table entries of a step's rows are read a step ahead, so a step's
+  // K and V loads wait on no other load
+  constexpr int kStep = NGRP * kUnroll;
+  int next[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int col = t_begin + u * NGRP + grp;
+    next[u] = col < t_end ? __ldg(trow + col / BS) : -1;
+  }
   // the trip count is the same for every lane, so the shuffles below always
   // run on full warps; rows past t_end are loaded as zeros and masked
-  for (int base = t_begin; base < t_end; base += NGRP * kUnroll) {
+  for (int base = t_begin; base < t_end; base += kStep) {
     uint4 kr[kUnroll][CH], vr[kUnroll][CH];
     bool keep[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int col = base + u * NGRP + grp;
-      const int blk = col < t_end ? __ldg(trow + col / BS) : -1;
+      const int blk = next[u];
       const bool live = blk >= 0 && blk < NB;
       keep[u] = live && col >= lo && col <= pos;
 #pragma unroll
@@ -172,6 +275,11 @@ __global__ void __launch_bounds__(kThreads)
           vr[u][c] = make_uint4(0u, 0u, 0u, 0u);
         }
       }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int col = base + kStep + u * NGRP + grp;
+      next[u] = col < t_end ? __ldg(trow + col / BS) : -1;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -239,13 +347,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int g = 0; g < MAXG; ++g) sm_m[warp][g] = m[g];
   }
   __syncthreads();
-  float scale_w[MAXG];
+  float scale_w[MAXG], mx[MAXG];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    float mx = -INFINITY;
+    mx[g] = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    scale_w[g] = exp2f(m[g] - safe_max(mx));
+    for (int w = 0; w < kWarps; ++w) mx[g] = fmaxf(mx[g], sm_m[w][g]);
+    scale_w[g] = exp2f(m[g] - safe_max(mx[g]));
   }
   for (int w = 0; w < kWarps; ++w) {
     if (warp == w && sub == 0) {
@@ -266,56 +374,70 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  T* ob = out + ((size_t)b * KV + kv) * G * HD;
-  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
-    const int g = i / HD;
-    ob[i] = Vec<T>::store(sm_acc[g][i % HD] / sm_l[g]);
+  if (z_lo == z_hi) {
+    for (int i = threadIdx.x; i < G * HD; i += kThreads) {
+      const int g = i / HD;
+      ob[i] = Vec<T>::store(sm_acc[g][i % HD] / sm_l[g]);
+    }
+    return;
   }
+  for (int i = threadIdx.x; i < G * HD; i += kThreads)
+    pz[2 * G + i] = sm_acc[i / HD][i % HD];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+      if (g < G) {
+        pz[g] = mx[g];
+        pz[G + g] = sm_l[g];
+      }
+  }
+  count_and_merge<T, HD, MAXG>(pb, z_hi - z_lo + 1, G, cnt, ob);
 }
+
+// the launch's shape beside the pointers: splits CTAs of bps logical blocks
+// each per (sequence, kv head); part and count only with splits > 1
+struct Shape {
+  int B, KV, G, NB, BS, MB, window, splits, bps;
+  float qscale;
+  float* part;
+  int* count;
+};
 
 template <typename T, int HD, int MAXG>
 cudaError_t launch(const void* q, const void* pk, const void* pv,
-                   const void* table, const void* pos, void* out, int B,
-                   int KV, int G, int NB, int BS, int MB, int window,
-                   float qscale, cudaStream_t stream) {
-  const dim3 grid(KV, B);
+                   const void* table, const void* pos, void* out,
+                   const Shape& s, cudaStream_t stream) {
+  const dim3 grid(s.KV, s.B, s.splits);
   paged_attention_kernel<T, HD, MAXG><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pk),
       static_cast<const T*>(pv), static_cast<const int*>(table),
-      static_cast<const int*>(pos), static_cast<T*>(out), KV, G, NB, BS, MB,
-      window, qscale);
+      static_cast<const int*>(pos), static_cast<T*>(out), s.KV, s.G, s.NB,
+      s.BS, s.MB, s.window, s.qscale, s.bps, s.part, s.count);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_g(const void* q, const void* pk, const void* pv,
-                     const void* table, const void* pos, void* out, int B,
-                     int KV, int G, int NB, int BS, int MB, int window,
-                     float qscale, cudaStream_t stream) {
+                     const void* table, const void* pos, void* out,
+                     const Shape& s, cudaStream_t stream) {
   // G = 1 (plain multi-head attention) gets its own instance so that the
   // guarded per-group loops cost nothing
-  if (G == 1)
-    return launch<T, HD, 1>(q, pk, pv, table, pos, out, B, KV, G, NB, BS, MB,
-                            window, qscale, stream);
-  return launch<T, HD, kMaxG>(q, pk, pv, table, pos, out, B, KV, G, NB, BS,
-                              MB, window, qscale, stream);
+  if (s.G == 1)
+    return launch<T, HD, 1>(q, pk, pv, table, pos, out, s, stream);
+  return launch<T, HD, kMaxG>(q, pk, pv, table, pos, out, s, stream);
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* pk, const void* pv,
-                      const void* table, const void* pos, void* out, int B,
-                      int KV, int G, int NB, int BS, int MB, int window,
-                      float qscale, cudaStream_t stream) {
+                      const void* table, const void* pos, void* out,
+                      const Shape& s, cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_g<T, 64>(q, pk, pv, table, pos, out, B, KV, G, NB, BS, MB,
-                             window, qscale, stream);
+      return launch_g<T, 64>(q, pk, pv, table, pos, out, s, stream);
     case 128:
-      return launch_g<T, 128>(q, pk, pv, table, pos, out, B, KV, G, NB, BS,
-                              MB, window, qscale, stream);
+      return launch_g<T, 128>(q, pk, pv, table, pos, out, s, stream);
     case 256:
-      return launch_g<T, 256>(q, pk, pv, table, pos, out, B, KV, G, NB, BS,
-                              MB, window, qscale, stream);
+      return launch_g<T, 256>(q, pk, pv, table, pos, out, s, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -324,22 +446,30 @@ cudaError_t launch_hd(int hd, const void* q, const void* pk, const void* pv,
 }  // namespace
 
 // C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
+// splits CTAs of bps logical blocks each per (sequence, kv head), splits =
+// ceil(MB / bps); with splits > 1, part is f32 scratch of B KV splits G
+// (hd + 2) floats and count B KV int32 zeros, which the kernel leaves at 0.
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int nk_paged_attention(int dtype, const void* q, const void* pk,
                                   const void* pv, const void* table,
                                   const void* pos, void* out, int B, int KV,
                                   int G, int hd, int NB, int BS, int MB,
-                                  int window, float scale, void* stream) {
+                                  int window, float scale, int splits,
+                                  int bps, void* part, void* count,
+                                  void* stream) {
   if (B < 1 || KV < 1 || G < 1 || G > kMaxG || NB < 1 || BS < 1 || MB < 1 ||
-      window < 0 || B > 65535)
+      window < 0 || B > 65535 || bps < 1 || splits < 1 ||
+      splits > kMaxSplits ||
+      splits != (MB + bps - 1) / bps ||
+      (splits > 1 && (part == nullptr || count == nullptr)))
     return cudaErrorInvalidValue;
-  const float qscale = scale * kLog2e;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Shape s{B,   KV,     G,      NB,  BS,
+                MB,  window, splits, bps, scale * kLog2e,
+                static_cast<float*>(part), static_cast<int*>(count)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_hd<float>(hd, q, pk, pv, table, pos, out, B, KV, G, NB, BS,
-                            MB, window, qscale, s);
+    return launch_hd<float>(hd, q, pk, pv, table, pos, out, s, st);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, pk, pv, table, pos, out, B, KV, G,
-                                    NB, BS, MB, window, qscale, s);
+    return launch_hd<__nv_bfloat16>(hd, q, pk, pv, table, pos, out, s, st);
   return cudaErrorInvalidValue;
 }

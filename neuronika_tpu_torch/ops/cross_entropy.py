@@ -12,11 +12,12 @@ with p = exp(logit - lse) - onehot(target), g the row weights (N,) f32 and
 cast() the rounding of p g to x's dtype before the second product, as the
 TPU kernels round it. For CUDA tensors each launches its kernel and adds
 one to its `launches`: `csrc/cross_entropy.cu` (mma.sync for bf16, FFMA
-for f32, f32 accumulation) for K8 and f32 K9/K10; for bf16 K9 and K10 the
-kernel `ce_grad_route` picks by shape, the Hopper kernel of
-`csrc/cross_entropy_sm90.cu` (wgmma, TMA, a cluster of D slices sharing
-the logits; it also adds one to `ce_dx.sm90_launches` or
-`ce_dw.sm90_launches`) or the template.
+for f32, f32 accumulation) or, for bf16, the kernel of
+`csrc/cross_entropy_sm90.cu` (wgmma, TMA, thread block clusters) that
+`ce_fwd_route` (K8: a cluster of vocabulary ranges sharing an x block) or
+`ce_grad_route` (K9, K10: a cluster of D slices sharing the logits) picks
+by shape; a launch of that kernel also adds one to the wrapper's
+`sm90_launches`.
 Any other tensor takes the plain version beside it, the same math in f32
 from the operands widened exactly. A target outside [0, V) matches no
 column: its target logit is 0 and it subtracts no onehot, as in the TPU
@@ -34,11 +35,12 @@ import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
-# the Hopper K9/K10's tiles (csrc/cross_entropy_sm90.cu: kOwn, kStream,
-# kSlice, kMaxCluster): own rows a CTA (x for K9, W for K10), stream rows
-# a tile, D columns a CTA's accumulator, CTAs a cluster (the portable
-# cluster size)
+# the Hopper K8-K10's tiles (csrc/cross_entropy_sm90.cu: kOwn, kStream,
+# kSlice, kMaxCluster, kFwdStream): own rows a CTA (x for K8 and K9, W for
+# K10), stream rows a K9/K10 tile, D columns a CTA's accumulator, CTAs a
+# cluster (the portable cluster size), W rows a K8 vocabulary tile
 SM90_OWN, SM90_STREAM, SM90_SLICE, SM90_MAX_CLUSTER = 128, 128, 192, 8
+SM90_FWD_STREAM = 256
 
 
 def _shapes(x, w, targets):
@@ -124,6 +126,38 @@ def _card(fn, x, w, targets, *rows):
             *(r.float().contiguous() for r in rows))
 
 
+def ce_fwd_route(dtype, D: int) -> str:
+    """The kernel that runs a K8 call on the card, by shape alone, before
+    launch: "sm90", `csrc/cross_entropy_sm90.cu`'s Hopper kernel, for bf16
+    with D a multiple of 8 (TMA's rows are multiples of 16 bytes), at any D
+    (it holds no D-wide accumulator); "ce_fwd", `csrc/cross_entropy.cu`'s
+    template, otherwise (f32; D not a multiple of 8). Not a fallback: a
+    failure of the chosen kernel raises."""
+    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "ce_fwd"
+
+
+def ce_fwd_plan_sm90(N: int, V: int, D: int):
+    """The Hopper K8 launch, as `nk_ce_fwd_sm90` cuts it: (cluster size,
+    grid (cluster size, x blocks), the vocabulary rows [v0, v1) of each
+    cluster rank). The cs CTAs of a cluster share one block of SM90_OWN x
+    rows; of the T = ceil(V / SM90_FWD_STREAM) vocabulary tiles rank r
+    takes [r T // cs, (r + 1) T // cs), cs = min(SM90_MAX_CLUSTER, T). D
+    does not enter the cut."""
+    del D
+    tiles = -(-V // SM90_FWD_STREAM)
+    cs = min(SM90_MAX_CLUSTER, tiles)
+    ranges = [(r * tiles // cs * SM90_FWD_STREAM,
+               min(V, (r + 1) * tiles // cs * SM90_FWD_STREAM))
+              for r in range(cs)]
+    return cs, (cs, -(-N // SM90_OWN)), ranges
+
+
+def _aligned16(*ts):
+    """The tensors, each cloned unless its base is 16-byte aligned (TMA
+    reads from such bases)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
 def ce_grad_route(kind: str, dtype, D: int) -> str:
     """The kernel that runs a K9 ("dx") or K10 ("dw") call on the card, by
     shape alone, before launch: "sm90", `csrc/cross_entropy_sm90.cu`'s
@@ -165,22 +199,28 @@ def _launched(fn, err):
 
 
 def ce_fwd(x, w, targets):
-    """K8: (loss, lse), (N,) f32 each. CUDA tensors: the kernel, adding one
-    to `ce_fwd.launches`; others: `ce_fwd_reference`."""
+    """K8: (loss, lse), (N,) f32 each. CUDA tensors: the kernel
+    `ce_fwd_route` picks, adding one to `ce_fwd.launches` (and to
+    `ce_fwd.sm90_launches` on the Hopper kernel); others:
+    `ce_fwd_reference`."""
     if x.device.type != "cuda":
         return ce_fwd_reference(x, w, targets)
     xc, wc, tc = _card(ce_fwd, x, w, targets)
     N, V, D = x.shape[0], w.shape[0], x.shape[1]
+    sm90 = ce_fwd_route(x.dtype, D) == "sm90"
+    if sm90:
+        xc, wc = _aligned16(xc, wc)
     loss = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
     from .._build import load_library
 
     with torch.cuda.device(x.device):
-        err = load_library().nk_ce_fwd(
+        err = getattr(load_library(), f"nk_ce_fwd{'_sm90' * sm90}")(
             _DTYPES[x.dtype], xc.data_ptr(), wc.data_ptr(), tc.data_ptr(),
             loss.data_ptr(), lse.data_ptr(), N, V, D,
             torch.cuda.current_stream(x.device).cuda_stream)
     _launched(ce_fwd, err)
+    ce_fwd.sm90_launches += sm90
     return loss, lse
 
 
@@ -189,9 +229,8 @@ def _grad(fn, kind, x, w, targets, lse, g_rows):
     xc, wc, tc, lc, gc = _card(fn, x, w, targets, lse, g_rows)
     N, V, D = x.shape[0], w.shape[0], x.shape[1]
     sm90 = ce_grad_route(kind, x.dtype, D) == "sm90"
-    if sm90:   # TMA reads from 16-byte aligned bases
-        xc, wc = (t if t.data_ptr() % 16 == 0 else t.clone()
-                  for t in (xc, wc))
+    if sm90:
+        xc, wc = _aligned16(xc, wc)
     out = torch.empty((N if kind == "dx" else V, D), dtype=x.dtype,
                       device=x.device)
     from .._build import load_library
@@ -226,11 +265,11 @@ def ce_dw(x, w, targets, lse, g_rows):
     return _grad(ce_dw, "dw", x, w, targets, lse, g_rows)
 
 
+# launches, and those that ran the Hopper kernel (ce_fwd_route,
+# ce_grad_route "sm90")
 for _fn in (ce_fwd, ce_dx, ce_dw):
     _fn.launches = 0
-# calls of K9 and K10 that ran the Hopper kernel (ce_grad_route "sm90")
-ce_dx.sm90_launches = 0
-ce_dw.sm90_launches = 0
+    _fn.sm90_launches = 0
 
 KERNELS = (ce_fwd, ce_dx, ce_dw)
 

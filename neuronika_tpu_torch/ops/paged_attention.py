@@ -15,10 +15,16 @@ CUDA tensors and takes `paged_attention_reference`, the plain PyTorch
 version, only for CPU tensors. The reference keeps the softmax weights in
 f32 for the PV product where the TPU kernel casts them to v's dtype first;
 in f32 the two agree to 1e-5.
+
+The kernel splits each sequence's logical blocks over CTAs
+(flash-decoding): `paged_split_plan` picks the cut from the shapes alone,
+and `paged_attention_split_reference` is the plain twin of its math, each
+split's partial softmax merged in split order.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -26,6 +32,95 @@ import torch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 _MAX_G = 8
+LOG2E = 1.4426950408889634
+# the split plan: CTAs wanted a card SM (256 threads each), the fewest
+# logical blocks a split walks (a split's fixed cost, its q load and its
+# partial, against the blocks it reads), and the most splits the kernel's
+# merge takes (csrc/paged_attention.cu: kMaxSplits)
+SPLIT_CTAS_PER_SM = 4
+SPLIT_MIN_BLOCKS = 4
+SPLIT_MAX = 256
+H100_SMS = 132
+
+
+def _gather(pk, pv, table):
+    """pk[table], pv[table] as contiguous (B, KV, MB BS, hd) caches."""
+    B, MB = table.shape
+    _, KV, BS, hd = pk.shape
+    t = table.long()
+    return (p[t].permute(0, 2, 1, 3, 4).reshape(B, KV, MB * BS, hd)
+            for p in (pk, pv))
+
+
+def paged_split_plan(B: int, KV: int, MB: int, sms: int = H100_SMS):
+    """(splits, bps): each (sequence, kv head) runs `splits` CTAs, split z
+    walking the logical blocks [z bps, min(MB, (z + 1) bps)) that meet its
+    attended range. From B KV, MB and the card's SM count only, never from
+    pos (reading pos to the host would wait on every decode step): enough
+    CTAs for SPLIT_CTAS_PER_SM a SM, no split under SPLIT_MIN_BLOCKS
+    blocks, at most SPLIT_MAX splits, and no empty split at the end
+    (splits = ceil(MB / bps))."""
+    want = -(-SPLIT_CTAS_PER_SM * sms // (B * KV))
+    splits = max(1, min(want, MB // SPLIT_MIN_BLOCKS, SPLIT_MAX))
+    bps = -(-MB // splits)
+    return -(-MB // bps), bps
+
+
+def _split_partials(q, pk, pv, table, pos, window, bps):
+    """Each split's partial softmax, as the kernel forms it, in f32 and
+    the exp2 domain: m (B, KV, G, splits), the max of the split's scores
+    (-inf where it meets no attended key), l the sum of exp2(s - m) there
+    (0), acc (B, KV, G, splits, hd) the p-weighted sum of its v rows (0)."""
+    B, KV, G, hd = q.shape
+    MB = table.shape[1]
+    BS = pk.shape[2]
+    splits = -(-MB // bps)
+    lk, lv = _gather(pk, pv, table)
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(), lk.float())
+    s = s * (LOG2E / math.sqrt(hd))
+    idx = torch.arange(MB * BS, device=q.device)
+    p_b = pos.long().view(B, 1, 1, 1)
+    keep = idx <= p_b
+    if window:
+        keep &= p_b - idx < window
+    pad = splits * bps * BS - MB * BS      # the last split's missing keys
+    s = torch.nn.functional.pad(s.masked_fill(~keep, -math.inf), (0, pad),
+                                value=-math.inf)
+    v = torch.nn.functional.pad(lv.float(), (0, 0, 0, pad))
+    s = s.view(B, KV, G, splits, bps * BS)
+    m = s.amax(-1)
+    p = torch.exp2(s - torch.where(m == -math.inf, 0.0, m)[..., None])
+    acc = torch.einsum("bkgzs,bkzsd->bkgzd", p,
+                       v.view(B, KV, splits, bps * BS, hd))
+    return m, p.sum(-1), acc
+
+
+def _merge_splits(m, l, acc):
+    """The splits' partials merged in f32 in split order, as the kernel's
+    last CTA merges them; an empty split (m = -inf) adds nothing."""
+    top = m.amax(-1)
+    mu = torch.where(top == -math.inf, 0.0, top)
+    tot_l = torch.zeros_like(mu)
+    tot = torch.zeros_like(acc[..., 0, :])
+    for z in range(m.shape[-1]):
+        w = torch.exp2(m[..., z] - mu)
+        tot_l = tot_l + l[..., z] * w
+        tot = tot + acc[..., z, :] * w[..., None]
+    return tot / tot_l[..., None]
+
+
+def paged_attention_split_reference(q, pk, pv, table, pos, *,
+                                    window: int = 0, bps: int | None = None):
+    """Plain twin of the kernel's split-and-merge math: the keys cut into
+    splits of `bps` logical blocks (by default `paged_split_plan`'s for an
+    H100), each split's partial softmax, merged in f32 in split order.
+    Result in q's dtype. Runs on any device."""
+    B, KV = q.shape[:2]
+    if bps is None:
+        bps = paged_split_plan(B, KV, table.shape[1])[1]
+    out = _merge_splits(*_split_partials(q, pk, pv, table, pos, window,
+                                         bps))
+    return out.to(q.dtype)
 
 
 def paged_attention_reference(q, pk, pv, table, pos, *, window: int = 0):
@@ -35,9 +130,7 @@ def paged_attention_reference(q, pk, pv, table, pos, *, window: int = 0):
     B, KV, G, hd = q.shape
     MB = table.shape[1]
     BS = pk.shape[2]
-    t = table.long()
-    lk = pk[t].permute(0, 2, 1, 3, 4).reshape(B, KV, MB * BS, hd)
-    lv = pv[t].permute(0, 2, 1, 3, 4).reshape(B, KV, MB * BS, hd)
+    lk, lv = _gather(pk, pv, table)
     s = torch.einsum("bkgd,bksd->bkgs", q.float(), lk.float())
     s = s / math.sqrt(hd)
     idx = torch.arange(MB * BS, device=q.device)
@@ -109,13 +202,21 @@ def paged_attention(q, pk, pv, table, pos, *, window: int = 0):
     lib = load_library()
     B, KV, G, hd = q.shape
     NB, _, BS, _ = pk.shape
+    MB = table.shape[1]
+    splits, bps = _plan(B, KV, MB, q.device)
     out = torch.empty_like(q)
+    part_ptr = count_ptr = None
+    if splits > 1:
+        part, count = _scratch(q.device, B * KV * splits * G * (hd + 2),
+                               B * KV)
+        part_ptr, count_ptr = part.data_ptr(), count.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.nk_paged_attention(
             _DTYPES[q.dtype], q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
             table.data_ptr(), pos.data_ptr(), out.data_ptr(), B, KV, G, hd,
-            NB, BS, table.shape[1], window, 1.0 / math.sqrt(hd), stream)
+            NB, BS, MB, window, 1.0 / math.sqrt(hd), splits, bps,
+            part_ptr, count_ptr, stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
@@ -124,3 +225,31 @@ def paged_attention(q, pk, pv, table, pos, *, window: int = 0):
 
 
 paged_attention.launches = 0
+
+
+# A decode loop calls the wrapper every layer of every host-bound step, so
+# the plan is worked out once a shape and the scratch is kept between
+# launches (launches on one stream run in turn; each leaves the counters
+# at 0 again)
+
+
+@functools.cache
+def _plan(B: int, KV: int, MB: int, device):
+    """paged_split_plan for `device`'s SM count."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return paged_split_plan(B, KV, MB, sms)
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device, n_part: int, n_count: int):
+    """At least n_part f32 for the splits' partials and n_count int32
+    split counters at 0, on `device`."""
+    part, count = _SCRATCH.get(device, (None, None))
+    if part is None or part.numel() < n_part or count.numel() < n_count:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+        count = torch.zeros(max(n_count, 1024), dtype=torch.int32,
+                            device=device)
+        _SCRATCH[device] = part, count
+    return part, count

@@ -171,6 +171,22 @@ def test_ce_grad_route_by_shape(kind, dtype, N, V, D, want):
     assert CE.ce_grad_route(kind, dtype, D) == want
 
 
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 1536, "sm90"),     # phase 6's head
+    (torch.bfloat16, 72, "sm90"),
+    (torch.bfloat16, 4160, "sm90"),     # wider than K9/K10's cluster: K8
+    (torch.bfloat16, 8, "sm90"),        # holds no D-wide accumulator
+    (torch.bfloat16, 33, "ce_fwd"),     # D % 8: TMA's 16-byte rows
+    (torch.bfloat16, 1540, "ce_fwd"),
+    (torch.float32, 1536, "ce_fwd"),
+    (torch.float32, 64, "ce_fwd"),
+], ids=["head", "d72", "d4160", "d8", "d33", "d1540", "f32", "f32-d64"])
+def test_ce_fwd_route_by_shape(dtype, D, want):
+    """bf16 K8 with D a multiple of 8 on the Hopper kernel, at any D; f32
+    and D not a multiple of 8 on the template."""
+    assert CE.ce_fwd_route(dtype, D) == want
+
+
 def _cu_constants(path):
     """The `constexpr int kName = value;` lines of a CUDA source."""
     import pathlib
@@ -221,18 +237,41 @@ def test_ce_dx_plan_sm90_covers_every_column_once(N, V, D):
     _plan_covers("dx", N, V, D)
 
 
+@pytest.mark.parametrize("N,V,D", PLAN_SHAPES + [(256, 520, 4160),
+                                                 (300, 2300, 4160)])
+def test_ce_fwd_plan_sm90_covers_every_vocab_tile_once(N, V, D):
+    """K8 owns x blocks over N, a cluster's CTAs sharing one, and cuts the
+    vocabulary into contiguous rank ranges of whole SM90_FWD_STREAM-row
+    tiles, mirrored from csrc/cross_entropy_sm90.cu: every vocabulary row
+    in exactly one rank's range, in rank order, none empty, at most a
+    portable cluster of ranks; D does not enter the cut."""
+    cu = _cu_constants("cross_entropy_sm90.cu")
+    assert (cu["kOwn"], cu["kFwdStream"], cu["kMaxCluster"]) == (
+        CE.SM90_OWN, CE.SM90_FWD_STREAM, CE.SM90_MAX_CLUSTER)
+    cs, grid, ranges = CE.ce_fwd_plan_sm90(N, V, D)
+    assert grid[0] == cs == len(ranges) <= CE.SM90_MAX_CLUSTER
+    assert grid[1] * CE.SM90_OWN >= N > (grid[1] - 1) * CE.SM90_OWN
+    rows = [v for a, b in ranges for v in range(a, b)]
+    assert rows == list(range(V))
+    assert all(b > a and a % CE.SM90_FWD_STREAM == 0 for a, b in ranges)
+    tiles = -(-V // CE.SM90_FWD_STREAM)
+    assert cs == min(CE.SM90_MAX_CLUSTER, tiles)
+    assert CE.ce_fwd_plan_sm90(N, V, 8) == (cs, grid, ranges)
+    assert CE.ce_fwd_route(torch.bfloat16, D) == "sm90"
+
+
 def test_counters_do_not_move_on_the_cpu():
-    sm90 = (CE.ce_dx, CE.ce_dw)
-    before = ([k.launches for k in CE.KERNELS]
-              + [k.sm90_launches for k in sm90])
+    def counts():
+        return [(k.launches, k.sm90_launches) for k in CE.KERNELS]
+
+    before = counts()
     x, w, t = (torch.from_numpy(a) for a in _case(64, 16, 128, seed=4))
     x, w = x.bfloat16(), w.bfloat16()
     _, lse = CE.ce_fwd(x, w, t)
     g = torch.full((64,), 1 / 64)
     CE.ce_dx(x, w, t, lse, g)
     CE.ce_dw(x, w, t, lse, g)
-    assert [k.launches for k in CE.KERNELS] + [
-        k.sm90_launches for k in sm90] == before
+    assert counts() == before
 
 
 def test_gpt_config_accepts_fused_ce_on():
@@ -522,3 +561,57 @@ def test_ce_grads_route_to_the_template_on_gpu(cuda, kind, dtype, D):
         assert np.abs(a - r).max() <= TOL * np.abs(r).max()
     else:
         _bf16_close(a, r, kind)
+
+
+# chip_smoke.py's CE_CASES (N, D, V): every one routes bf16 K8 to the
+# Hopper kernel; and one vocabulary tile (a cluster of one CTA)
+SM90_FWD_CASES = [(512, 64, 1024), (300, 72, 1000), (512, 256, 1024),
+                  (256, 4160, 520), (777, 1000, 555), (1000, 1536, 300),
+                  (64, 40, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V", SM90_FWD_CASES)
+def test_sm90_ce_fwd_matches_plain_on_gpu(cuda, N, D, V):
+    """The Hopper K8 (bf16): ragged N, V and D, one to eight cluster
+    ranks; loss and lse within 1e-5 of max(1, max |lse|), and targets
+    outside [0, V) matching no column."""
+    x, w, t, _ = _card_case(cuda, N, D, V, torch.bfloat16, seed=9)
+    t[:3] = torch.tensor([-1, V, 2 ** 30], dtype=t.dtype)
+    assert CE.ce_fwd_route(torch.bfloat16, D) == "sm90"
+    before = CE.ce_fwd.launches, CE.ce_fwd.sm90_launches
+    loss, lse = CE.ce_fwd(x, w, t)
+    torch.cuda.synchronize()
+    assert (CE.ce_fwd.launches, CE.ce_fwd.sm90_launches) == (
+        before[0] + 1, before[1] + 1)
+    rloss, rlse = CE.ce_fwd_reference(x, w, t)
+    top = max(1.0, float(rlse.abs().max()))
+    assert loss.dtype == lse.dtype == torch.float32
+    assert float((lse - rlse).abs().max()) <= TOL * top
+    assert float((loss - rloss).abs().max()) <= TOL * top
+
+
+@pytest.mark.cuda
+def test_sm90_ce_fwd_gives_the_same_bits_twice(cuda):
+    x, w, t, _ = _card_case(cuda, 4096, 1536, 16384, torch.bfloat16,
+                            seed=6)
+    a, b = CE.ce_fwd(x, w, t), CE.ce_fwd(x, w, t)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_ce_fwd_routes_to_the_template_on_gpu(cuda):
+    """f32 K8 and bf16 K8 with D not a multiple of 8 run cross_entropy.cu."""
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 33)):
+        x, w, t, _ = _card_case(cuda, 192, D, 300, dtype, seed=7)
+        assert CE.ce_fwd_route(dtype, D) == "ce_fwd"
+        before = CE.ce_fwd.launches, CE.ce_fwd.sm90_launches
+        loss, lse = CE.ce_fwd(x, w, t)
+        torch.cuda.synchronize()
+        assert (CE.ce_fwd.launches, CE.ce_fwd.sm90_launches) == (
+            before[0] + 1, before[1])
+        rloss, rlse = CE.ce_fwd_reference(x, w, t)
+        top = max(1.0, float(rlse.abs().max()))
+        assert float((lse - rlse).abs().max()) <= TOL * top
+        assert float((loss - rloss).abs().max()) <= TOL * top

@@ -10,8 +10,10 @@ import torch
 
 from neuronika_tpu.ops.pallas.paged_attention import \
     paged_attention as jax_paged_attention
+from neuronika_tpu_torch.ops import paged_attention as PA
 from neuronika_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_reference)
+    paged_attention, paged_attention_reference,
+    paged_attention_split_reference, paged_split_plan)
 
 F32_TOL = 1e-5
 
@@ -97,6 +99,84 @@ def test_window_and_gqa_change_the_result():
     assert (full[:, :, 0] - full[:, :, 1]).abs().max() > 1e-2
 
 
+# (B, KV, MB): the tests' cases, chip_smoke.py phase 3's table and long
+# shapes, its GQA case, one sequence of one block, a batch that fills the
+# card without a split, and MB not a multiple of the split
+SPLIT_SHAPES = [(3, 2, 4), (5, 2, 4), (8, 12, 64), (1, 12, 512), (8, 2, 64),
+                (1, 1, 1), (64, 12, 64), (2, 3, 37), (1, 1, 1000),
+                (1, 1, 4096)]
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("B,KV,MB", SPLIT_SHAPES)
+def test_split_plan_covers_each_block_once(B, KV, MB, sms):
+    """Every logical block of a (sequence, kv head) lies in exactly one
+    split, the splits in order and none empty; a split holds at least
+    SPLIT_MIN_BLOCKS blocks unless one split takes them all; more CTAs than
+    the card's SPLIT_CTAS_PER_SM a SM are never asked for."""
+    splits, bps = paged_split_plan(B, KV, MB, sms)
+    blocks = [m for z in range(splits)
+              for m in range(z * bps, min(MB, (z + 1) * bps))]
+    assert blocks == list(range(MB))
+    assert (splits - 1) * bps < MB <= splits * bps
+    assert splits == 1 or bps >= PA.SPLIT_MIN_BLOCKS
+    assert splits == 1 or B * KV * (splits - 1) < PA.SPLIT_CTAS_PER_SM * sms
+    assert splits <= PA.SPLIT_MAX
+
+
+def test_split_cap_is_the_kernels():
+    """The plan never asks for more splits than the kernel's merge takes
+    (csrc/paged_attention.cu: kMaxSplits), even for one very long
+    sequence on a large card."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(PA.__file__).parent.parent / "csrc" /
+           "paged_attention.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxSplits = (\d+);",
+                         src).group(1)) == PA.SPLIT_MAX
+    assert paged_split_plan(1, 1, 1 << 16, 1000)[0] <= PA.SPLIT_MAX
+
+
+def test_long_context_splits():
+    """The shapes the split was made for: one sequence of 8192 keys, 12 kv
+    heads, cut into 43 splits of 12 blocks; phase 4's serving shape into
+    6 of 11."""
+    assert paged_split_plan(1, 12, 512) == (43, 12)
+    assert paged_split_plan(8, 12, 64) == (6, 11)
+
+
+@pytest.mark.parametrize("bps", [1, 3, None], ids=["bps1", "bps3", "plan"])
+@pytest.mark.parametrize("window", [0, 9])
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_twin_matches_jax_kernel_f32(name, window, bps):
+    """The plain twin of the kernel's split-and-merge math against the JAX
+    kernel: splits of one block (most of them empty past pos or before the
+    window), of three (the last one ragged) and the plan's."""
+    case = _case(**CASES[name])
+    out = paged_attention_split_reference(*_torch(case), window=window,
+                                          bps=bps)
+    assert out.dtype == torch.float32 and out.shape == case[0].shape
+    err = np.abs(out.numpy() - _jax(case, window)).max()
+    assert err < F32_TOL, err
+
+
+def test_split_twin_empty_splits_and_a_dropped_partial():
+    """An empty split leaves m = -inf and l = 0 and adds nothing to the
+    merge; dropping a split that holds attended keys moves the result."""
+    q, pk, pv, table, pos = _torch(_case(**CASES["edges-inactive"]))
+    m, l, acc = PA._split_partials(q, pk, pv, table, pos, 0, 1)
+    assert m.shape == (5, 2, 1, 4) and acc.shape == (5, 2, 1, 4, 128)
+    empty = m == -np.inf                       # pos 0 and 15: splits 1-3
+    assert bool(empty[0, :, :, 1:].all()) and bool((l[empty] == 0).all())
+    assert not bool(empty[3].any())            # pos 63 meets every split
+    full = PA._merge_splits(m, l, acc)
+    ref = paged_attention_reference(q, pk, pv, table, pos)
+    assert float((full - ref).abs().max()) < F32_TOL
+    m[:, :, :, 1] = -np.inf
+    assert float((PA._merge_splits(m, l, acc) - ref).abs().max()) > 1e-2
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -139,3 +219,64 @@ def test_kernel_wrapper_refuses_what_it_cannot_run(cuda):
                         pv[..., :96].contiguous(), table, pos)
     with pytest.raises(ValueError, match="is on"):
         paged_attention(q, pk.cpu(), pv, table, pos)
+
+
+def _long_case(dtype, device, hd=128, KV=12, G=1, B=1, MB=512, pos=None,
+               inactive=(), seed=4):
+    """phase 3's long-context shape (B1 KV12 hd128 BS16 MB512 at pos 8191)
+    and its variants, on the card."""
+    pos = [MB * 16 - 1] * B if pos is None else pos
+    return _torch(_case(B=B, KV=KV, G=G, hd=hd, BS=16, MB=MB, seed=seed,
+                        pos=pos, inactive=inactive), dtype, device)
+
+
+# (name, _long_case arguments, window): each cut into several splits by
+# paged_split_plan
+SPLIT_CASES = [
+    ("long", dict(), 0),
+    ("long-window-across-splits", dict(), 300),     # splits of 192 keys
+    ("gqa-g6", dict(KV=2, G=6, B=3, MB=64, pos=[700, 1023, 5]), 0),
+    ("gqa-g6-window", dict(KV=2, G=6, B=3, MB=64, pos=[700, 1023, 5]), 100),
+    ("hd64", dict(hd=64, B=4, MB=64, pos=[0, 200, 1023, 513]), 0),
+    ("hd256", dict(hd=256, KV=4, B=2, MB=96, pos=[1535, 400]), 37),
+    ("idle-lanes", dict(B=4, MB=64, pos=[0, 300, 16, 900], inactive=[1, 3]),
+     0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,kw,window", SPLIT_CASES,
+                         ids=[c[0] for c in SPLIT_CASES])
+def test_split_kernel_matches_plain_version_on_gpu(cuda, name, kw, window,
+                                                   dtype, tol):
+    """The split kernel (more than one CTA per sequence and kv head, merged
+    by the last one in) against the plain version and its split twin."""
+    args = _long_case(dtype, cuda, **kw)
+    B, KV = args[0].shape[:2]
+    assert PA._plan(B, KV, args[3].shape[1], args[0].device)[0] > 1
+    before = paged_attention.launches
+    out = paged_attention(*args, window=window)
+    ref = paged_attention_reference(*args, window=window)
+    twin = paged_attention_split_reference(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float((out.float() - twin.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_kernel_gives_the_same_bits_twice(cuda, dtype):
+    """Whichever CTA of a sequence comes last and merges, the splits merge
+    in split order; the counters are back at 0 after each launch."""
+    args = _long_case(dtype, cuda, B=2, pos=[8191, 3000])
+    a = paged_attention(*args, window=1000)
+    b = paged_attention(*args, window=1000)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert int(PA._scratch(cuda, 0, 24)[1][:24].abs().sum()) == 0

@@ -1,4 +1,4 @@
-"""Eleven measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Thirteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -50,6 +50,25 @@ make, run on one CUDA card from the root of a checkout:
         4% slower on an H100 at 700 W) and phase 6's headline step with
         fused_ce="on" (1 warm-up and 4 timed steps); run it for two
         checkouts in turns to compare them;
+    python3 tools/torch_diag.py paged TREE_ROOT
+        CUDA-event times of the checkout's K11 (paged decode attention,
+        bf16 G1 hd128 BS16) at chip_smoke.py phase 3's table shape (B8 KV12
+        MB64, its pos list and an idle lane), at the long-context shape (B1
+        KV12 MB512 at pos 8191) and at phase 4's serving shape (B8 KV12
+        MB64, contexts 33-192): the device time a call from torch.profiler
+        (the best of two runs of 200 calls) beside the time a call of 200
+        issued back to back (CUDA events, as phase 3 times them: where the
+        host's work for a call takes longer than the kernel, that is the
+        host's issue rate); run it for two checkouts in turns to compare
+        them;
+    python3 tools/torch_diag.py serve TREE_ROOT
+        chip_smoke.py phase 4's serving run of the checkout at TREE_ROOT
+        (16 greedy requests through PagedBatcher at d1536 L8 bf16, after
+        its one-request warm-up): tokens/s, TTFT and ITL (host clock) and
+        the decode steps; then the run once more under torch.profiler:
+        its device time in all and K11's (the host's time there is the
+        profiler's too); run it for two checkouts in turns to compare
+        them;
     python3 tools/torch_diag.py conv3d TREE_ROOT
         CUDA-event time of the checkout's K15 at the table shape of
         chip_smoke.py phase 3 (bf16 32x16^3x128 -> 128, k3; the best of two
@@ -59,9 +78,10 @@ make, run on one CUDA card from the root of a checkout:
         timed steps, twice, with its K12 and K13 launch counts;
     python3 tools/torch_diag.py host TREE_ROOT
         the host's time for one K3 call (`ops.matmul.matmul`) of the
-        checkout at TREE_ROOT at three of phase 9's f32 products, and for
-        one K12 and one K13 call at ResNet-18's stage-4 conv at batch 1
-        (bf16) beside F.conv2d's: 200 calls issued back to back (fewer
+        checkout at TREE_ROOT at three of phase 9's f32 products, for one
+        K12 and one K13 call at ResNet-18's stage-4 conv at batch 1 (bf16)
+        beside F.conv2d's, and for one K11 call at phase 4's serving shape
+        (the `paged` mode's): 200 calls issued back to back (fewer
         launches than the card's queue holds), in all and with the kernel
         library replaced by a stub that launches nothing (the Python
         wrapper alone), beside the device time (CUDA events for K3, the
@@ -260,6 +280,75 @@ def ce(root):
           flush=True)
 
 
+# K11's three shapes (chip_smoke.py phase 3): name, then paged_case's
+# arguments
+PAGED_SHAPES = (
+    ("table B8 KV12 MB64", dict(B=8, KV=12, MB=64, inactive=[7], pos=[
+        0, 15, 16, 500, 1023, 700, 129, 0])),
+    ("long B1 KV12 MB512", dict(B=1, KV=12, MB=512, inactive=[],
+                                pos=[8191])),
+    ("serving B8 KV12 MB64", dict(B=8, KV=12, MB=64, inactive=[], pos=[
+        33, 57, 96, 128, 150, 170, 192, 80])))
+
+
+def paged(root):
+    import numpy as np
+
+    root, cs, _ = _tree(root)
+    from neuronika_tpu_torch.ops.paged_attention import paged_attention
+
+    line = []
+    for name, shape in PAGED_SHAPES:
+        args = cs.paged_case(np.random.default_rng(0), G=1, hd=128, BS=16,
+                             dtype=torch.bfloat16, **shape)
+
+        def run():
+            paged_attention(*args)
+
+        dev = min(_device_ms(run, 200), _device_ms(run, 200))
+        ms = min(cs.cuda_ms(run, 200), cs.cuda_ms(run, 200))
+        line.append(f"{name} device {dev:.4f} ms, back to back {ms:.4f} ms")
+    print(f"{root}: K11 bf16 G1 hd128 BS16: " + "; ".join(line), flush=True)
+
+
+def serve(root):
+    import numpy as np
+
+    root, cs, _ = _tree(root)
+    from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.serving import PagedBatcher
+
+    cfg = T.GPTConfig(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
+                      d_ff=6144, max_seq=1024, dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    pool = dict(n_slots=8, n_blocks=513, block_size=16)
+    rng = np.random.default_rng(0)
+    lens = rng.choice([32, 64, 128], size=16)
+    max_news = [int(m) for m in rng.choice([32, 64], size=16)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in lens]
+    cs.serve(PagedBatcher, params, cfg, prompts[:1], [4], **pool)
+    pb, outs, steps, _, wall = cs.serve(PagedBatcher, params, cfg, prompts,
+                                        max_news, **pool)
+    met = pb.metrics
+    n_tok = sum(len(o) for o in outs)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cs.serve(PagedBatcher, params, cfg, prompts, max_news, **pool)
+    dev = {e.key: e.self_device_time_total / 1e3
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    k11 = sum(ms for name, ms in dev.items() if "paged_attention" in name)
+    print(f"{root}: serving {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tok/s; ttft_mean "
+          f"{met['ttft_mean_s'] * 1e3:.2f} ms, itl_mean "
+          f"{met['itl_mean_s'] * 1e3:.3f} ms; {steps} decode steps; under "
+          f"the profiler {sum(dev.values()):.1f} ms on the device, K11 "
+          f"{k11:.2f} ms", flush=True)
+
+
 def conv3d(root):
     import torch.nn.functional as F
 
@@ -306,6 +395,7 @@ def f32_fused(root):
 
 
 def host(root):
+    import numpy as np
     import torch.nn.functional as F
 
     root = os.path.abspath(root)
@@ -369,6 +459,13 @@ def host(root):
     print(f"{root}: F.conv2d of the same conv: host {issue_us(fn):.1f} us a "
           f"call, {_device_ms(fn, 20) * 1e3:.1f} us a call on the device",
           flush=True)
+    from neuronika_tpu_torch.ops.paged_attention import paged_attention
+
+    name, shape = PAGED_SHAPES[2]
+    fn = functools.partial(paged_attention, *cs.paged_case(
+        np.random.default_rng(0), G=1, hd=128, BS=16, dtype=torch.bfloat16,
+        **shape))
+    line(f"K11 bf16 G1 hd128 BS16, {name}", fn, _device_ms(fn, 200) * 1e3)
 
 
 def _resnet(root):
@@ -628,6 +725,10 @@ if __name__ == "__main__":
         conv(sys.argv[2])
     elif sys.argv[1:2] == ["ce"] and len(sys.argv) == 3:
         ce(sys.argv[2])
+    elif sys.argv[1:2] == ["paged"] and len(sys.argv) == 3:
+        paged(sys.argv[2])
+    elif sys.argv[1:2] == ["serve"] and len(sys.argv) == 3:
+        serve(sys.argv[2])
     elif sys.argv[1:2] == ["conv3d"] and len(sys.argv) == 3:
         conv3d(sys.argv[2])
     elif sys.argv[1:2] == ["resnet"] and len(sys.argv) == 3:
