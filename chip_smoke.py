@@ -99,9 +99,11 @@ nvidia-smi. Phases, each printing one line or a few:
      gradient), a small Var graph of pooled 1-d, 2-d (stride, dilation,
      groups) and 3-d convolutions under use_kernels with conv_route
      "force" (K12, K14, K15) against the library route on the CPU, launch
-     counts exact; the tier "auto" picks for bench.py's conv shapes; and a
-     bf16 Var 3-d conv under "force" on the Hopper K15, held against its
-     plain version.
+     counts exact; the tier "auto" picks for bench.py's conv shapes; and
+     bf16 Var 1-d and 3-d convs under "force" on the Hopper K14 and K15,
+     their forwards held against their plain versions, the 1-d conv's
+     gradients (the library's transposed convolutions) against the plain
+     route's.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -126,12 +128,16 @@ the fused K2) read at the headline shape. Phase 3 then holds the direct convolut
 1-3, dilation, groups, a 7x7/2 conv on 3 channels and a 1x1/2 one; K13
 with a split reduction; K14; a strided 1-d conv on K12; K15 with
 dilation; in bf16 the Hopper K12 and K13 at ResNet-18's stage shapes, a
-dx, tiles across samples, channel tails and non-square dilated taps, and
-the Hopper K15 with ragged boxes, channel tails, dilation 2 and (k - 1) d
-at the rank-5 corner range's 16 (18 runs csrc/conv.cu), each call's
-kernel counted against conv_route's choice) against their plain
+dx, tiles across samples, channel tails and non-square dilated taps, the
+Hopper K14 with channel tails, dilation 2, tiles across samples, the
+table's widths at batch 2 and (k - 1) d at the rank-3 corner range's
+32768 (32769 runs csrc/conv.cu), and the Hopper K15 with ragged boxes,
+channel tails, dilation 2 and (k - 1) d at the rank-5 corner range's 16
+(18 runs csrc/conv.cu), each call's kernel counted against conv_route's
+choice) against their plain
 versions in f32 and bf16, and at bench.py's
-conv shapes checks them, reads a planted fault per kernel against the same
+conv shapes checks them on the Hopper kernels, reads two launches' bits
+(the same) and a planted fault per kernel against the same
 norm bound and times each beside its plain version and one library call
 (F.conv2d, torch.nn.grad.conv2d_weight, F.conv1d, F.conv3d); and times
 the conv route at batch 1, 2 and 4 (K12 against F.conv2d at ResNet-18's
@@ -775,6 +781,7 @@ def profile_step(run, label, path):
                 else "K9 ce dx" if "ce_grad_kernel" in n and "true>" in n
                 else "K10 ce dw" if "ce_grad_kernel" in n
                 else "K15 conv3d (sm90)" if "conv3d_sm90" in n
+                else "K14 conv1d (sm90)" if "conv1d_sm90" in n
                 else "K12 conv (sm90)" if "conv_sm90_fwd" in n
                 else "K13 conv dw" if "conv_sm90_dw" in n
                 or "conv_mma<true>" in n or "conv_ffma<true>" in n
@@ -1995,6 +2002,17 @@ CONV_CASES = (
      (1, 1), 1),
     ("conv1d-d2", "k14", (2, 333, 64), (3, 64, 72), (1,), (2,), 1),
     ("conv1d-s2", "k12-1d", (2, 333, 64), (3, 64, 72), (2,), (1,), 1),
+    # bf16 on the Hopper K14 (conv_route "sm90"): Ci and Co tails with
+    # dilation 2, tiles across samples, the table's widths at batch 2,
+    # (k - 1) d = 32768 (the rank-3 corner range); past it, conv.cu's
+    ("conv1d-tails-d2", "k14", (2, 333, 72), (3, 72, 136), (1,), (2,), 1),
+    ("conv1d-samples", "k14", (7, 45, 32), (3, 32, 64), (1,), (1,), 1),
+    ("conv1d-table-B2", "k14", (2, 3138, 256), (3, 256, 256), (1,), (1,),
+     1),
+    ("conv1d-corner32768", "k14", (1, 32833, 8), (3, 8, 16), (1,),
+     (16384,), 1),
+    ("conv1d-corner32769", "k14", (1, 32835, 8), (2, 8, 8), (1,),
+     (32769,), 1),
     ("conv3d-d2", "k15", (2, 9, 10, 11, 16), (3, 2, 3, 16, 24), (1, 1, 1),
      (2, 1, 2), 1),
     # bf16 on the Hopper K15 (conv_route "sm90"): the table's taps and
@@ -2102,9 +2120,10 @@ def conv_fault(C, name, x, w, ref):
 def phase_conv_kernels(C):
     """Phase 3, conv part: K12-K15 against their plain versions over the
     small cases in f32 and bf16, then at bench.py's conv shapes in bf16
-    (:817-888, SAME: the kernels on the padded input), where each is also
-    held against a planted fault and timed beside its plain version, one
-    library call and its bound. Returns {kernel: (max_abs_err, ms,
+    (:817-888, SAME: the kernels on the padded input), where each runs its
+    Hopper kernel, gives the same bits twice, is held against a planted
+    fault and is timed beside its plain version, one library call and its
+    bound. Returns {kernel: (max_abs_err, ms,
     plain_ms, library_ms, (bound_ms, bound_by))} at those shapes."""
     import torch.nn.functional as F
 
@@ -2115,9 +2134,8 @@ def phase_conv_kernels(C):
                 * scale).to(dtype)
 
     errs = {}
-    hopper = (C.conv2d_direct_nhwc, C.conv2d_dw_nhwc, C.conv3d_direct_ndhwc)
-    sm90 = dict.fromkeys((k.__name__ for k in hopper), 0)
-    for k in hopper:
+    sm90 = dict.fromkeys((k.__name__ for k in C.KERNELS), 0)
+    for k in C.KERNELS:
         k.sm90_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
@@ -2126,6 +2144,9 @@ def phase_conv_kernels(C):
                 C.conv_route("fwd", dtype, xs[-1], ws[-1], groups,
                              ((1,) + stride)[-2:], ((1,) + dil)[-2:],
                              ((1,) + ws[:-2])[-2:]) == "sm90"
+            sm90["conv1d_direct_nwc"] += kind == "k14" and C.conv_route(
+                "fwd", dtype, xs[-1], ws[-1], groups, stride, dil,
+                ws[:1]) == "sm90"
             sm90["conv3d_direct_ndhwc"] += kind == "k15" and C.conv_route(
                 "fwd", dtype, xs[-1], ws[-1], groups, stride, dil,
                 ws[:3]) == "sm90"
@@ -2144,14 +2165,14 @@ def phase_conv_kernels(C):
                 C.conv_dw_reference(x, gg, k, dil), f"k13 {dt}/{name}",
                 dtype)[:2]
     torch.cuda.synchronize()
-    ran = {k.__name__: k.sm90_launches for k in hopper}
+    ran = {k.__name__: k.sm90_launches for k in C.KERNELS}
     check(ran == sm90 and min(sm90.values()) > 0,
-          f"phase 3: Hopper K12/K13/K15 launches {ran}, conv_route sends "
+          f"phase 3: Hopper K12-K15 launches {ran}, conv_route sends "
           f"{sm90}")
     print("phase 3 kernels: conv K12-K15 within bounds (f32 1e-5 of max "
           "|entry|; bf16 one ulp of it and in norm "
           f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); "
-          f"on the Hopper K12/K13/K15 (csrc/conv_sm90.cu): {ran}; max "
+          f"on the Hopper K12-K15 (csrc/conv_sm90.cu): {ran}; max "
           "abs err, ||err||/||ref||: " + ", ".join(
               f"{k} {a:.3g}, {r:.2g}" for k, (a, r) in errs.items()))
 
@@ -2194,12 +2215,14 @@ def phase_conv_kernels(C):
     result, line = {}, []
     for name, (shape, ins, kern, plain, lib, lib_name) in cases.items():
         fn = getattr(C, name)
-        before = getattr(fn, "sm90_launches", None)    # K12, K13, K15
+        before = fn.sm90_launches
         out, ref = kern(), plain()
-        check(before is None or fn.sm90_launches == before + 1,
+        check(fn.sm90_launches == before + 1,
               f"phase 3: {name} {shape} did not run the Hopper kernel")
         err, rel, bound_n = conv_within(out, ref, f"{name} {shape}",
                                         torch.bfloat16)
+        check(torch.equal(kern(), out),
+              f"phase 3: {name} {shape} gave other bits a second time")
         fault = conv_fault(C, name, *ins, ref)
         n_out = out.numel()
         del out, ref
@@ -2230,9 +2253,10 @@ def phase_conv_kernels(C):
                     f"planted fault {fault:.3g}")
     del x1, x2, x3, w1, w2, w3, g2, n2, n3, w2n, cases
     torch.cuda.empty_cache()
-    print("phase 3 kernels, conv at bench.py's shapes (bf16, SAME; faults: "
-          "K12/K14/K15 without their first tap, K13 without its first "
-          "split's partial): " + "; ".join(line))
+    print("phase 3 kernels, conv at bench.py's shapes (bf16, SAME; each on "
+          "its Hopper kernel, the same bits twice; faults: K12/K14/K15 "
+          "without their first tap, K13 without its first split's "
+          "partial): " + "; ".join(line))
     return result
 
 
@@ -2247,8 +2271,9 @@ def phase_conv_route_times(C):
     """Phase 3, the conv route on the card: K12 against F.conv2d at the
     ROUTE_CONV2D shapes and K14 against F.conv1d at ROUTE_CONV1D, batch 1,
     2 and 4, forwards, bf16, SAME (the kernels on the padded input, the
-    library on channels-last views of it), each checked against its plain
-    version and timed in turns (kernel, library, library, kernel). Returns
+    library on channels-last views of it), each on its Hopper kernel,
+    checked against its plain version and timed in turns (kernel, library,
+    library, kernel). Returns
     {(rank, batch, length, channels): (kernel ms, library ms)}."""
     import torch.nn.functional as F
 
@@ -2279,7 +2304,13 @@ def phase_conv_route_times(C):
                                         (1,))))
     times, line = {}, []
     for key, x, w, kern, lib, plain in cases:
-        conv_within(kern(), plain(), f"route {key}", torch.bfloat16)
+        fn = C.conv2d_direct_nhwc if key[0] == 2 else C.conv1d_direct_nwc
+        before = fn.sm90_launches
+        out = kern()
+        check(fn.sm90_launches == before + 1,
+              f"phase 3 route {key}: not on the Hopper kernel")
+        conv_within(out, plain(), f"route {key}", torch.bfloat16)
+        del out
         ka, la = cuda_ms(kern, 50), cuda_ms(lib, 50)
         lb, kb = cuda_ms(lib, 50), cuda_ms(kern, 50)
         times[key] = (min(ka, kb), min(la, lb))
@@ -2809,8 +2840,9 @@ def phase_conv_routes(nk, R, C):
     Launch counts are held exact, each run's counted from 0. Then the tier
     "auto" picks for the shapes bench.py names. Last, the same route in
     bf16 on the card: a Var 3-d conv on the Hopper K15, held against its
-    plain version. Returns the Var graphs' launches on the card (f32 and
-    bf16)."""
+    plain version, and a Var 1-d conv on the Hopper K14, its forward held
+    against its plain version and its gradients against the plain route's.
+    Returns the Var graphs' launches on the card (f32 and bf16)."""
     from neuronika_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
 
     def zero_counts():
@@ -2922,6 +2954,52 @@ def phase_conv_routes(nk, R, C):
     launches = dict(res["cuda"][2])
     launches["conv3d_direct_ndhwc"] += 1
 
+    # a bf16 Var 1-d conv (channels multiples of 8, dilation 2, output
+    # positions ragged against the 128-row tiles) under "force" on the
+    # Hopper K14 against the plain route (the library convolution) on the
+    # card: the forward held against its plain version by phase 3's bf16
+    # rule; the loss sum(y * G) hands both routes' backwards (the library's
+    # transposed convolutions) the same output gradient G, so their
+    # gradients are held to each other by the same rule
+    kv = (0.2 * rng.standard_normal((24, 16, 3))).astype(np.float32)
+    xv = rng.standard_normal((3, 16, 150)).astype(np.float32)
+    gv = rng.standard_normal((3, 24, 146)).astype(np.float32)
+    var1d = {}
+    for forced in (True, False):
+        nk.enable_kernels(forced)
+        nk.config.conv_route = "force" if forced else old_route
+        kb = nk.from_ndarray(kv, dtype=torch.bfloat16,
+                             device="cuda").requires_grad()
+        xb = nk.from_ndarray(xv, dtype=torch.bfloat16,
+                             device="cuda").requires_grad()
+        yb = kb.convolution(xb, (1,), (2,))
+        loss = (yb * nk.from_ndarray(gv, dtype=torch.bfloat16,
+                                     device="cuda")).sum()
+        zero_counts()
+        C.conv1d_direct_nwc.sm90_launches = 0
+        loss.forward()
+        loss.backward(1.0)
+        torch.cuda.synchronize()
+        var1d[forced] = (yb.data(), kb.grad(), xb.grad(), counts(),
+                         C.conv1d_direct_nwc.sm90_launches)
+    nk.enable_kernels(False)
+    nk.config.conv_route = old_route
+    y1, dk1, dx1, n1, k14 = var1d[True]
+    check(n1["conv1d_direct_nwc"] == 1 and k14 == 1
+          and sum(n1.values()) == 1 and sum(var1d[False][3].values()) == 0,
+          f"phase 14 bf16 Var conv1d: launches {n1}, Hopper K14 {k14} "
+          f"(plain route {var1d[False][3]}), want one launch, on the "
+          f"Hopper kernel, and none on the plain route")
+    ref = C.conv_nd_reference(xb.data().transpose(1, 2),
+                              kb.data().permute(2, 1, 0), (1,),
+                              (2,)).transpose(1, 2)
+    e_1d = [conv_within(y1, ref, "phase 14 bf16 Var conv1d", torch.bfloat16)]
+    for key, a, b in (("dk", dk1, var1d[False][1]),
+                      ("dx", dx1, var1d[False][2])):
+        e_1d.append(conv_within(a, b, f"phase 14 bf16 Var conv1d {key}",
+                                torch.bfloat16))
+    launches["conv1d_direct_nwc"] += 1
+
     nk.config.conv_route = "auto"
     routes = {name: C.route_conv2d(nd, stride, (1,) * nd, 1, on_card=True,
                                    **kw)
@@ -2938,6 +3016,11 @@ def phase_conv_routes(nk, R, C):
           f"{res['cuda'][2]} (Var graph); bf16 Var conv3d on the Hopper "
           f"K15 (conv_route force): max abs err {e_bf16[0]:.3g}, "
           f"||err||/||ref|| {e_bf16[1]:.3g} (bound {e_bf16[2]:.3g}); "
+          f"bf16 Var conv1d on the Hopper K14 (forward against its plain "
+          f"version; dk, dx against the plain route's): max abs err, "
+          f"||err||/||ref|| (bound) "
+          + ", ".join(f"{a:.3g}, {r:.3g} ({b:.3g})" for a, r, b in e_1d)
+          + "; "
           f"conv_route auto on the card "
           f"picks {json.dumps(routes)} (the JAX package's table with its "
           f"rank-2 row on the library, as phase 3's batch 1-4 timings "
@@ -3131,15 +3214,15 @@ def main() -> int:
                         "dropout_ms": dflash[name][1],
                         "dropout_max_abs_err": dflash[name][0]})
     # K12 and K13 run on phase 13's path (launches, and errors on its
-    # operands brought to unit scale), K14 and K15 on phase 14's Var graph
+    # operands brought to unit scale), K14 and K15 on phase 14's Var graphs
     # (launches; errors at bench.py's shapes); times at bench.py's shapes
-    # (phase 3); K12, K13 and K15 there, K12 and K13 on phase 13's path in
-    # bf16 but for the stem, and K15 in phase 14's bf16 Var conv, run
+    # (phase 3); all four there, K12 and K13 on phase 13's path in bf16 but
+    # for the stem, and K14 and K15 in phase 14's bf16 Var convs, run
     # csrc/conv_sm90.cu
     for name, line, path, source in (
             ("conv2d_direct_nhwc", 46, resnet, "conv_sm90.cu"),
             ("conv2d_dw_nhwc", 334, resnet, "conv_sm90.cu"),
-            ("conv1d_direct_nwc", 574, var_convs, "conv.cu"),
+            ("conv1d_direct_nwc", 574, var_convs, "conv_sm90.cu"),
             ("conv3d_direct_ndhwc", 733, var_convs, "conv_sm90.cu")):
         e, ms, p_ms, lib, bound = convk[name]
         e = resnet_errs.get(name, e)

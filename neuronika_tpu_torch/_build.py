@@ -149,7 +149,7 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [i, p, p, i, i, i, p]          # dtype, x, y, rows, cols,
     fn.restype = i                               # log, stream
     geo = ctypes.POINTER(ctypes.c_int)           # 19 ints, csrc/conv.cu
-    for name in ("nk_conv1d", "nk_conv2d", "nk_conv3d",
+    for name in ("nk_conv1d", "nk_conv2d", "nk_conv3d", "nk_conv1d_sm90",
                  "nk_conv2d_sm90", "nk_conv3d_sm90"):  # and conv_sm90.cu
         fn = getattr(lib, name)
         fn.argtypes = [i, p, p, p, geo, p]       # dtype, x, w, out, geo,

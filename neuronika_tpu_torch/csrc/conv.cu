@@ -1,12 +1,13 @@
 // Direct convolutions on Hopper, as implicit GEMMs: K12, K13, K14, K15.
 //
-// The bf16 K12, K13 and K15 of groups 1 with channels that are multiples
-// of 8 moved to csrc/conv_sm90.cu (wgmma fed by TMA im2col loads, warp
-// specialised, persistent): every ResNet-18 conv but the stem, and its
-// stride-1 dx and dw, and 3-d convs whose (k - 1) d is at most 16.
-// ops/conv.py::conv_route sends by shape alone what stays here: f32
-// (conv_ffma), grouped convs, channel counts that are not multiples of 8
-// (the ImageNet stem's Ci = 3), wider 3-d taps, and K14.
+// The bf16 K12, K13, K14 and K15 of groups 1 with channels that are
+// multiples of 8 moved to csrc/conv_sm90.cu (wgmma fed by TMA im2col
+// loads, warp specialised, persistent): every ResNet-18 conv but the stem,
+// and its stride-1 dx and dw, 1-d convs whose (k - 1) d is at most 32768
+// and 3-d convs whose (k - 1) d is at most 16. ops/conv.py::conv_route
+// sends by shape alone what stays here: f32 (conv_ffma), grouped convs,
+// channel counts that are not multiples of 8 (the ImageNet stem's Ci = 3)
+// and wider taps.
 //
 // Replaces four kernels of neuronika_tpu/ops/pallas/conv.py:
 //   K12 _conv2d_nhwc_kernel  stride-1 NHWC 2-d conv with dilation and groups

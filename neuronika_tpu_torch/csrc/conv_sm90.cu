@@ -1,25 +1,29 @@
-// K12, K13 and K15 in bf16 on Hopper: warp-specialised implicit GEMMs on
-// wgmma, with the im2col operand loaded by TMA's im2col mode.
+// K12, K13, K14 and K15 in bf16 on Hopper: warp-specialised implicit
+// GEMMs on wgmma, with the im2col operand loaded by TMA's im2col mode.
 //
 // Replaces, for bf16 convs of groups 1 whose channels are multiples of 8
-// (TMA's 16-byte strides), three kernels of neuronika_tpu/ops/pallas/
+// (TMA's 16-byte strides), four kernels of neuronika_tpu/ops/pallas/
 // conv.py:
 //   K12 _conv2d_nhwc_kernel  a VALID NHWC 2-d conv, any dilation, stride 1
 //                            to 8 (the stride-1 input gradient runs here
 //                            too, on the padded gradient) -> nk_conv2d_sm90
 //   K13 _dw_kernel           the weight gradient of a stride-1 conv, summed
 //                            over the batch, f32     -> nk_conv_dw_sm90
+//   K14 _conv1d_kernel       a VALID stride-1 NWC 1-d conv, any dilation
+//                            with (k - 1) d <= 32768 (the rank-3 im2col
+//                            corner range)             -> nk_conv1d_sm90
 //   K15 _conv3d_kernel       a VALID stride-1 NDHWC 3-d conv, any dilation
 //                            with (k - 1) d <= 16 (the rank-5 im2col corner
 //                            range)                   -> nk_conv3d_sm90
-// Every other conv (f32, groups, the ImageNet stem's 3 channels, K14)
-// stays on csrc/conv.cu; ops/conv.py::conv_route decides by shape alone.
-// The TPU kernels sum shifted MXU matmuls over flat VMEM windows; none of
-// that carries over.
+// (The rank-4 corner range bounds K12's (k - 1) d at 128 on each axis.)
+// Every other conv (f32, groups, the ImageNet stem's 3 channels, wider
+// taps) stays on csrc/conv.cu; ops/conv.py::conv_route decides by shape
+// alone. The TPU kernels sum shifted MXU matmuls over flat VMEM windows;
+// none of that carries over.
 //
-//   forward (K12): M = output pixels (n, oh, ow), N = Co, K = (tap, 64-
-//     channel panel) steps; A(m, (t, c)) = x[n, oh sh + th dh, ow sw + tw
-//     dw, c], B((t, c), co) = w[th, tw, c, co].
+//   forward (K12, K14, K15): M = output pixels (n, od, oh, ow), N = Co,
+//     K = (tap, 64-channel panel) steps; A(m, (t, c)) = x[n, oh sh + th dh,
+//     ow sw + tw dw, c], B((t, c), co) = w[th, tw, c, co].
 //   weight gradient (K13): M = (tap, 64-channel panel) row blocks, N = Co,
 //     K = output pixels; dw = A^T G with A as above and G (pixels, Co).
 //
@@ -32,27 +36,36 @@
 //     dilation through them, stride through the map's traversal strides;
 //     pixels past the last sample and channels past Ci arrive as zeros.
 //     Rows are 64 channels (128 bytes), 128-byte swizzled: K-major for
-//     K12's A, MN-major (the transpose bit) for K13's.
+//     the forward's A, MN-major (the transpose bit) for K13's.
 //   * B is read in place, MN-major, by tiled maps: the weights
-//     (Co, Ci, taps) for K12, whose panels past Ci read as zeros as A's
-//     channels do; G (Co, pixels) for K13. An operand wider than 64
-//     columns is 64-column panels, LBO apart (sw128_desc_mn).
+//     (Co, Ci, taps) for the forward, whose panels past Ci read as zeros
+//     as A's channels do; G (Co, pixels) for K13. An operand wider than
+//     64 columns is 64-column panels, LBO apart (sw128_desc_mn).
 //   * A CTA is two consumer warpgroups (wgmma m64nBNk16 into f32
 //     registers) and a producer warpgroup whose one thread keeps a ring of
-//     TMA loads in flight on mbarriers (K12 8 stages at BN 64 and 5 at
-//     128, the most that fit beside its epilogue rows; K13 6, and 4 at BN
-//     256); setmaxnreg moves the producer's registers to the consumers.
-//     The grid is persistent, one CTA an SM, work items in a fixed order,
-//     so one item's epilogue overlaps the next one's loads. BN follows Co:
-//     64 at Co <= 64, else 128 (K12) and up to 256 (K13, whose tile count
-//     sets how many SMs its one wave of splits fills).
-//   * K12 and K15 are one body (fwd_body): K15 loads A through a 5-d
-//     im2col map over (N, D, H, W, C), its base pixels walking (n, od,
-//     oh, ow) across planes and samples and the tap's three offsets
-//     (tw, th, td); K walks kd kh kw taps x Ci / 64 panels.
-//   * K12: a CTA tile is 128 pixels x BN; the epilogue goes from registers
-//     through padded shared rows to 16-byte stores, rows >= M and columns
-//     >= Co masked.
+//     TMA loads in flight on mbarriers (the forward: as many stages as fit
+//     beside its output staging, 8 at BN 64, 6 at 128, 4 at 256; K13 6,
+//     and 4 at BN 256); setmaxnreg moves the producer's registers to the
+//     consumers. The grid is persistent, one CTA an SM, work items in a
+//     fixed order, so one item's epilogue overlaps the next one's loads.
+//     BN follows Co: 64 at Co <= 64, else 128 (K12, K15) or 256 (K14 at
+//     Co > 128, whose tiles reduce only k taps x Ci / 64 steps, 12 at the
+//     table shape: 256 columns cut the L2 traffic a product by a quarter
+//     against 128, and A is read once where Co <= 256; K13, whose tile
+//     count sets how many SMs its one wave of splits fills).
+//   * K12, K14 and K15 are one body (fwd_body) over an im2col map of rank
+//     4, 3 or 5: K14's over (N, L, C), its base pixels walking (n, ol)
+//     across samples and the tap's one offset tw; K15's over (N, D, H, W,
+//     C), its base pixels walking (n, od, oh, ow) across planes and
+//     samples and the tap's three offsets (tw, th, td); K walks the taps x
+//     Ci / 64 panels.
+//   * The forward's tile is 128 pixels x BN. Its epilogue stays off the
+//     tensor cores' path: each warpgroup writes its 64 rows into 64-column
+//     panels in TMA's swizzle (conflict-free bf16x2 stores), one thread
+//     stores them by TMA (rows >= M and columns >= Co fall outside the
+//     output map and are not written) and the warpgroup goes on to its
+//     next tile's products; the staging is reused once the store has read
+//     it (128 columns a pass, two passes at BN 256, so 4 stages fit).
 //   * K13: a CTA tile is two row blocks (one a warpgroup) x BN, over one
 //     split of the pixels (a multiple of 64, so no load crosses into the
 //     next split); each split writes an f32 partial and a second pass sums
@@ -76,22 +89,31 @@ constexpr int kRegsProducer = 24, kRegsConsumer = 240;
 constexpr uint32_t kPanel = 64 * 128;    // 64 rows of 64 bf16: 8 KB
 constexpr int kStep = 64;                // K13: pixels a k step
 
-// A VALID 2-d or 3-d conv, channels last (2-d: D = Do = kd = dd = 1)
+// A VALID 1-d, 2-d or 3-d conv, channels last (2-d: D = Do = kd = dd =
+// 1; 1-d: also H = Ho = kh = dh = 1)
 struct Geo {
   int N, D, H, W, Ci, Do, Ho, Wo, Co, kd, kh, kw, sh, sw, dd, dh, dw;
   int P;       // 64-channel panels, ceil(Ci / 64)
   int M;       // output pixels N Do Ho Wo
 };
 
+constexpr size_t kSmemMax = 232448;      // a block's shared memory, bytes
+
 template <int BN>
 struct FwdCfg {
-  static constexpr int kStages = BN == 64 ? 8 : 5;   // ring of TMA loads
   static constexpr uint32_t kA = 128 * 128;           // 128 pixels x 64 ch
   static constexpr uint32_t kStage = kA + (BN / 64) * kPanel;
-  static constexpr uint32_t kOutLd = BN * 2 + 16;     // padded row, bytes
-  static constexpr uint32_t kOut = 128 * kOutLd;
+  // the epilogue's staging: each warpgroup's 64 rows, kEpiCols columns a
+  // pass (BN, or two passes of 128 at BN 256), as 64-column panels
+  static constexpr int kEpiCols = BN < 128 ? BN : 128;
+  static constexpr uint32_t kOut = 2 * (kEpiCols / 64) * kPanel;
+  // ring of TMA loads: as many stages as fit beside the staging, at most 8
+  static constexpr int kFit = (int)((kSmemMax - kOut - 1024 - 16 * 8) /
+                                    kStage);
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
   static constexpr size_t kSmem =
       (size_t)kStages * kStage + kOut + 16 * kStages + 1024;
+  static_assert(kSmem <= kSmemMax && kStages >= 4, "shared memory");
 };
 
 template <int BN>
@@ -137,12 +159,13 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
   __syncthreads();
 }
 
-// ------------------------------------------------------------ K12, K15
-// RANK 4: x_map is K12's 4-d im2col map; RANK 5: K15's 5-d one
+// ------------------------------------------------------- K12, K14, K15
+// RANK 3: x_map is K14's 3-d im2col map; 4: K12's 4-d one; 5: K15's 5-d
+// one. o_map: the output (Co, M) as 64 x 64 tiles
 template <int BN, int RANK>
 __device__ __forceinline__ void fwd_body(const CUtensorMap& x_map,
                                          const CUtensorMap& w_map,
-                                         bf16* __restrict__ out,
+                                         const CUtensorMap& o_map,
                                          const Geo& g) {
   using C = FwdCfg<BN>;
   constexpr int kStages = C::kStages;
@@ -173,7 +196,9 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& x_map,
         unsigned char* st = smem + s * C::kStage;
         mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
         mbar_expect_tx(full + s, C::kStage);
-        if constexpr (RANK == 5)
+        if constexpr (RANK == 3)
+          tma_load_im2col_3d(st, &x_map, full + s, c0, ow, n, tw);
+        else if constexpr (RANK == 5)
           tma_load_im2col_5d(st, &x_map, full + s, c0, ow, oh, od, n, tw, th,
                              td);
         else
@@ -190,8 +215,8 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& x_map,
   // consumer warpgroups: rows 64 wg .. 64 wg + 63 of each tile
   regs_inc<kRegsConsumer>();
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const bool lead = threadIdx.x % 128 == 0;
   const uint32_t base = smem_u32(smem);
-  unsigned char* ob = obuf + wg * 64 * C::kOutLd;
   int it = 0;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int m0 = item / tiles_n * 128, n0 = item % tiles_n * BN;
@@ -218,45 +243,70 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& x_map,
     mbar_arrive(empty + (it + steps - 1) % kStages);
     it += steps;
     // acc[4 q + 2 x + e]: row 16 warp + lane / 4 + 8 x, column 8 q + 2
-    // (lane % 4) + e; through padded rows (conflict-free bf16x2 stores)
-    // to 16-byte stores along the output rows
+    // (lane % 4) + e
     const int r = warp * 16 + lane / 4, c = 2 * (lane % 4);
+    // this warpgroup's 64 rows, kEpiCols columns a pass, as 64-column
+    // panels in TMA's 128-byte swizzle (chunk q of row r at q ^ r % 8:
+    // a warp's bf16x2 stores fall on 32 banks); one thread stores them
+    constexpr int kCols = C::kEpiCols;
+    unsigned char* ob = obuf + wg * (kCols / 64) * kPanel;
 #pragma unroll
-    for (int q = 0; q < BN / 8; ++q)
+    for (int h = 0; h < BN / kCols; ++h) {
+      if (lead) bulk_wait_read();   // the last store out of ob has read it
+      named_sync(1 + wg, 128);
 #pragma unroll
-      for (int x = 0; x < 2; ++x)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (r + 8 * x) * C::kOutLd +
-                                           (8 * q + c) * 2) =
-            __floats2bfloat162_rn(acc[4 * q + 2 * x], acc[4 * q + 2 * x + 1]);
-    named_sync(1 + wg, 128);
-    constexpr int kChunks = BN / 8;
-#pragma unroll 4
-    for (int i = threadIdx.x % 128; i < 64 * kChunks; i += 128) {
-      const int row = i / kChunks, ck = i % kChunks;
-      const int m = m0 + wg * 64 + row, col = n0 + 8 * ck;
-      if (m < g.M && col < g.Co)
-        *reinterpret_cast<uint4*>(out + (ll)m * g.Co + col) =
-            *reinterpret_cast<const uint4*>(ob + row * C::kOutLd + ck * 16);
+      for (int q = 0; q < kCols / 8; ++q)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int row = r + 8 * x, qq = h * kCols / 8 + q;
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + (q / 8) * kPanel + row * 128 +
+              (((q % 8) ^ (row % 8)) * 16) + c * 2) =
+              __floats2bfloat162_rn(acc[4 * qq + 2 * x],
+                                    acc[4 * qq + 2 * x + 1]);
+        }
+      fence_async_smem();
+      named_sync(1 + wg, 128);
+      if (lead && m0 + 64 * wg < g.M) {
+#pragma unroll
+        for (int p = 0; p < kCols / 64; ++p)
+          if (n0 + h * kCols + 64 * p < g.Co)
+            tma_store_2d(&o_map, ob + p * kPanel, n0 + h * kCols + 64 * p,
+                         m0 + 64 * wg);
+        bulk_commit();
+      }
     }
-    named_sync(1 + wg, 128);
   }
+  if (lead) bulk_wait();   // the stores have read shared memory and landed
 }
 
-// two entry points over one body, so that a profile tells K12 from K15
+// three entry points over one body, so that a profile tells K12, K14 and
+// K15 apart
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_sm90_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
                          const __grid_constant__ CUtensorMap w_map,
-                         bf16* __restrict__ out, const Geo g) {
-  fwd_body<BN, 4>(x_map, w_map, out, g);
+                         const __grid_constant__ CUtensorMap o_map,
+                         const Geo g) {
+  fwd_body<BN, 4>(x_map, w_map, o_map, g);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv1d_sm90_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap w_map,
+                           const __grid_constant__ CUtensorMap o_map,
+                           const Geo g) {
+  fwd_body<BN, 3>(x_map, w_map, o_map, g);
 }
 
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3d_sm90_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
                            const __grid_constant__ CUtensorMap w_map,
-                           bf16* __restrict__ out, const Geo g) {
-  fwd_body<BN, 5>(x_map, w_map, out, g);
+                           const __grid_constant__ CUtensorMap o_map,
+                           const Geo g) {
+  fwd_body<BN, 5>(x_map, w_map, o_map, g);
 }
 
 // ------------------------------------------------------------------ K13
@@ -395,19 +445,24 @@ __global__ void conv_sm90_dw_reduce(const float4* __restrict__ ws,
 // geo: N D H W Ci  Do Ho Wo Co  kd kh kw  sd sh sw  dd dh dw  groups, as
 // csrc/conv.cu reads it. Returns false unless the conv is of groups 1,
 // every size positive, the channels multiples of 8, every output window
-// inside the input, the pixels within int, and by rank: 2-d (rank 4: D, Do
-// and kd 1) with strides at most 8 (TMA's traversal strides) and (k - 1) d
-// at most 128 (the rank-4 im2col corner range), or 3-d (rank 5) of stride
-// 1 with (k - 1) d at most 16 on each axis (the rank-5 corner range).
+// inside the input, the pixels within int, and by rank: 1-d (rank 3: D,
+// H, their outputs and taps 1) of stride 1 with (k - 1) d at most 32768
+// (the rank-3 im2col corner range), 2-d (rank 4: D, Do and kd 1) with
+// strides at most 8 (TMA's traversal strides) and (k - 1) d at most 128
+// (the rank-4 corner range), or 3-d (rank 5) of stride 1 with (k - 1) d at
+// most 16 on each axis (the rank-5 corner range).
 bool parse(const int* a, Geo& g, int rank) {
   for (int i = 0; i < 19; ++i)
     if (a[i] < 1) return false;
   if (a[18] != 1) return false;
   g = Geo{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9], a[10],
           a[11], a[13], a[14], a[15], a[16], a[17], 0, 0};
-  const ll corner = rank == 5 ? 16 : 128;
+  const ll corner = rank == 3 ? 32768 : rank == 5 ? 16 : 128;
+  if (rank == 3 && (g.D != 1 || g.H != 1 || g.Do != 1 || g.Ho != 1 ||
+                    g.kd != 1 || g.kh != 1))
+    return false;
   if (rank == 4 && (g.D != 1 || g.Do != 1 || g.kd != 1)) return false;
-  if (rank == 5 && (a[12] != 1 || g.sh != 1 || g.sw != 1)) return false;
+  if (rank != 4 && (a[12] != 1 || g.sh != 1 || g.sw != 1)) return false;
   if (g.Ci % 8 || g.Co % 8 || g.sh > 8 || g.sw > 8 ||
       (g.kd - 1) * (ll)g.dd > corner || (g.kh - 1) * (ll)g.dh > corner ||
       (g.kw - 1) * (ll)g.dw > corner)
@@ -445,16 +500,29 @@ cudaError_t prepare(size_t smem, int* sms) {
   return err;
 }
 
+// the entry point of a rank (only that one is instantiated)
+template <int BN, int RANK>
+constexpr auto fwd_kernel() {
+  if constexpr (RANK == 3)
+    return conv1d_sm90_fwd_kernel<BN>;
+  else if constexpr (RANK == 5)
+    return conv3d_sm90_fwd_kernel<BN>;
+  else
+    return conv_sm90_fwd_kernel<BN>;
+}
+
 template <int BN, int RANK>
 cudaError_t fwd(const Geo& g, const bf16* x, const bf16* w, bf16* out,
                 cudaStream_t stream) {
-  CUtensorMap x_map, w_map;
+  CUtensorMap x_map, w_map, o_map;
   cudaError_t err =
-      RANK == 5 ? make_im2col_map_5d(&x_map, x, g.N, g.D, g.H, g.W, g.Ci,
-                                     g.kd, g.kh, g.kw, g.dd, g.dh, g.dw, 64,
-                                     128)
-                : make_im2col_map(&x_map, x, g.N, g.H, g.W, g.Ci, g.kh, g.kw,
-                                  g.dh, g.dw, g.sh, g.sw, 64, 128);
+      RANK == 3   ? make_im2col_map_3d(&x_map, x, g.N, g.W, g.Ci, g.kw, g.dw,
+                                       64, 128)
+      : RANK == 5 ? make_im2col_map_5d(&x_map, x, g.N, g.D, g.H, g.W, g.Ci,
+                                       g.kd, g.kh, g.kw, g.dd, g.dh, g.dw, 64,
+                                       128)
+                  : make_im2col_map(&x_map, x, g.N, g.H, g.W, g.Ci, g.kh,
+                                    g.kw, g.dh, g.dw, g.sh, g.sw, 64, 128);
   if (err) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)g.Co, (cuuint64_t)g.Ci,
                               (cuuint64_t)g.kd * g.kh * g.kw};
@@ -463,14 +531,20 @@ cudaError_t fwd(const Geo& g, const bf16* x, const bf16* w, bf16* out,
   const cuuint32_t box[3] = {64, 64, 1};
   err = make_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, dims, strides,
                  box);
-  constexpr auto kernel = RANK == 5 ? conv3d_sm90_fwd_kernel<BN>
-                                    : conv_sm90_fwd_kernel<BN>;
+  const cuuint64_t odims[2] = {(cuuint64_t)g.Co, (cuuint64_t)g.M};
+  const cuuint64_t ostrides[1] = {(cuuint64_t)g.Co * 2};
+  const cuuint32_t obox[2] = {64, 64};
+  if (!err)
+    err = make_map(&o_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, odims,
+                   ostrides, obox);
+  constexpr auto kernel = fwd_kernel<BN, RANK>();
+  constexpr size_t smem = FwdCfg<BN>::kSmem;
   int sms = 0;
-  if (!err) err = prepare<kernel>(FwdCfg<BN>::kSmem, &sms);
+  if (!err) err = prepare<kernel>(smem, &sms);
   if (err) return err;
   const ll items = (ll)((g.M + 127) / 128) * ((g.Co + BN - 1) / BN);
-  kernel<<<(int)(items < sms ? items : sms), kThreads, FwdCfg<BN>::kSmem,
-           stream>>>(x_map, w_map, out, g);
+  kernel<<<(int)(items < sms ? items : sms), kThreads, smem, stream>>>(
+      x_map, w_map, o_map, g);
   return cudaGetLastError();
 }
 
@@ -515,6 +589,23 @@ extern "C" int nk_conv2d_sm90(int dtype, const void* x, const void* w,
   bf16* ob = static_cast<bf16*>(out);
   return g.Co <= 64 ? fwd<64, 4>(g, xb, wb, ob, s)
                     : fwd<128, 4>(g, xb, wb, ob, s);
+}
+
+// K14: x (N, L, Ci) * w (k, Ci, Co) -> out (N, Lo, Co), stride 1,
+// otherwise as nk_conv2d_sm90 (nk_conv1d's signature).
+extern "C" int nk_conv1d_sm90(int dtype, const void* x, const void* w,
+                              void* out, const int* geo, void* stream) {
+  Geo g;
+  if (dtype != 1 || !parse(geo, g, 3) || !aligned16(x) || !aligned16(w) ||
+      !aligned16(out))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  return g.Co <= 64    ? fwd<64, 3>(g, xb, wb, ob, s)
+         : g.Co <= 128 ? fwd<128, 3>(g, xb, wb, ob, s)
+                       : fwd<256, 3>(g, xb, wb, ob, s);
 }
 
 // K15: x (N, D, H, W, Ci) * w (kd, kh, kw, Ci, Co) -> out (N, Do, Ho, Wo,

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the warp-specialised
 // kernels of flash_attention_qkv.cu, flash_attention.cu, matmul.cu,
 // conv_sm90.cu and cross_entropy_sm90.cu: mbarriers (also across a
-// cluster), TMA tile loads (3-d and 4-d maps) and im2col loads (4-d and
-// 5-d), bulk copies, distributed shared memory, wgmma descriptors and
+// cluster), TMA tile loads (3-d and 4-d maps) and im2col loads (3-d, 4-d
+// and 5-d), 2-d tile stores, bulk copies, distributed shared memory, wgmma descriptors and
 // products (bf16 and TF32), register reallocation and named barriers; on
 // the host, TMA map encoding (tiled and im2col) and the SM count. Plain C++ and PTX: no CUTLASS, so
 // the source builds in seconds.
@@ -100,6 +100,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
+// one column of an im2col map over an NWC tensor (make_im2col_map_3d): the
+// map's pixels-per-column output positions in (n, w) order from the base
+// position w of sample n, each as the map's channels from channel c of
+// input position w + ow, the tap's offset; positions past the last sample
+// and channels past C read as zeros
+__device__ __forceinline__ void tma_load_im2col_3d(void* dst, const void* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int n,
+                                                   uint16_t ow) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.im2col.mbarrier"
+      "::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2], {%6};\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(n), "h"(ow)
+      : "memory");
+}
+
 // one column of an im2col map over an NHWC tensor (make_im2col_map): the
 // map's pixels-per-column output pixels in (n, h, w) order from the base
 // pixel at input coordinates (w, h) of sample n, each as the map's
@@ -131,6 +148,18 @@ __device__ __forceinline__ void tma_load_im2col_5d(void* dst, const void* map,
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h), "r"(d), "r"(n), "h"(ow),
       "h"(oh), "h"(od)
+      : "memory");
+}
+
+// one box of shared memory (in the map's swizzled layout) to a 2-d tensor
+// map's tile at (c0, c1), innermost first; what lies past the dims is not
+// written. Tracked by bulk groups (bulk_commit, bulk_wait_read)
+__device__ __forceinline__ void tma_store_2d(const void* map, const void* src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -171,6 +200,13 @@ __device__ __forceinline__ void bulk_commit() {
 
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// wait until this thread's bulk groups have read their shared-memory
+// sources (the buffers may be written again; the writes may still be in
+// flight)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // order the generic proxy's accesses against the async proxy's (TMA, bulk)
@@ -598,6 +634,31 @@ inline cudaError_t make_im2col_map(CUtensorMap* map, const void* base, int N,
   const int upper[2] = {-(kw - 1) * dw, -(kh - 1) * dh};
   const cuuint32_t elem[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(base), dims, strides, lower, upper,
+                         (cuuint32_t)channels, (cuuint32_t)pixels, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 NWC tensor (N, W, C) as an im2col map for a VALID stride-1 1-d
+// conv with k taps and dilation d: as make_im2col_map, a load's base
+// positions walking the output positions of each sample; the rank-3
+// corner range is [-2^15, 2^15 - 1], so (k - 1) d <= 32768.
+inline cudaError_t make_im2col_map_3d(CUtensorMap* map, const void* base,
+                                      int N, int W, int C, int k, int d,
+                                      int channels, int pixels) {
+  const EncodeIm2col enc = encoder_im2col();
+  if (!enc) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)N};
+  const cuuint64_t row = (cuuint64_t)C * 2;
+  const cuuint64_t strides[2] = {row, row * W};
+  const int lower[1] = {0};
+  const int upper[1] = {-(k - 1) * d};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                          const_cast<void*>(base), dims, strides, lower, upper,
                          (cuuint32_t)channels, (cuuint32_t)pixels, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,

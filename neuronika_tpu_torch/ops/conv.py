@@ -8,19 +8,20 @@ Co), VALID (a caller pads first). The kernel wrappers:
                         launch (JAX decomposes strides into phases);
   `conv2d_dw_nhwc`      K13: the weight gradient of a stride-1 2-d conv,
                         (kh, kw, Ci, Co) in f32;
-  `conv1d_direct_nwc`   K14 at stride 1: x (N, L, Ci) * w (k, Ci, Co); a
-                        strided 1-d conv runs on K12 as a (1, L) image;
+  `conv1d_direct_nwc`   K14 at stride 1: x (N, L, Ci) * w (k, Ci, Co), any
+                        dilation; a strided 1-d conv runs on K12 as a
+                        (1, L) image;
   `conv3d_direct_ndhwc` K15: x (N, D, H, W, Ci) * w (kd, kh, kw, Ci, Co),
                         stride 1.
 For CUDA tensors each launches a kernel and adds one to its `launches`;
 other tensors take the plain version beside it, an im2col built from
 strided views and one f32 product, rounded once. `conv_route` picks the
-kernel of a K12, K13 or K15 call by its shape: the Hopper kernels of
-`csrc/conv_sm90.cu` (wgmma fed by TMA im2col loads; bf16, groups 1,
-channels multiples of 8), which also add one to the wrapper's
-`sm90_launches`, or `csrc/conv.cu`'s (FFMA for f32, mma.sync for bf16),
-which run K14 and every other K12, K13 and K15 call. Both accumulate in
-f32 and give the output in x's dtype. The block-size and `interpret`
+kernel of a K12, K13, K14 or K15 call by its shape: the Hopper kernels of
+`csrc/conv_sm90.cu` (wgmma fed by TMA im2col loads of rank 3, 4 or 5;
+bf16, groups 1, channels multiples of 8), which also add one to the
+wrapper's `sm90_launches`, or `csrc/conv.cu`'s (FFMA for f32, mma.sync
+for bf16), which run every other call. Both accumulate in f32 and give
+the output in x's dtype. The block-size and `interpret`
 arguments of the JAX functions size the TPU's VMEM blocks and are
 accepted and ignored.
 
@@ -59,9 +60,9 @@ _SMS = 132
 _SM90_STEP = 64
 _SM90_MIN_STEPS = 8
 # the Hopper kernels' im2col corner range, by the rank of the input: the
-# largest (k - 1) * dilation an axis may have (TMA's rank-4 corners are 8
-# bits, its rank-5 corners 5)
-_SM90_CORNER = {4: 128, 5: 16}
+# largest (k - 1) * dilation an axis may have (TMA's rank-3 corners are 16
+# bits, its rank-4 corners 8, its rank-5 corners 5)
+_SM90_CORNER = {3: 2 ** 15, 4: 128, 5: 16}
 
 
 def _out_len(n, k, s, d):
@@ -136,34 +137,35 @@ def conv_dw_reference(x, g, ksize, dilation):
 
 def conv_route(kind: str, dtype, ci: int, co: int, groups: int = 1,
                stride=(1, 1), dilation=(1, 1), ksize=(1, 1)) -> str:
-    """The kernel that runs, on the card, a K12 call ("fwd" with 2-d taps:
-    a 2-d conv, or the stride-1 input gradient, which is one), a K15 call
-    ("fwd" with 3-d taps: a stride-1 3-d conv) or a K13 call ("dw": the
-    weight gradient of a stride-1 2-d conv), by shape alone, before
-    launch:
+    """The kernel that runs, on the card, a K14 call ("fwd" with 1-d taps: a
+    stride-1 1-d conv), a K12 call ("fwd" with 2-d taps: a 2-d conv, or the
+    stride-1 input gradient, which is one), a K15 call ("fwd" with 3-d
+    taps: a stride-1 3-d conv) or a K13 call ("dw": the weight gradient of
+    a stride-1 2-d conv), by shape alone, before launch:
       "sm90"      `csrc/conv_sm90.cu`, the Hopper kernels: bf16, groups 1,
                   Ci and Co multiples of 8 (TMA's rows are multiples of 16
                   bytes), strides at most 8 (the im2col map's traversal
-                  strides; K15 takes stride 1 only), (k - 1) * dilation at
-                  most 128 on each axis of a 2-d conv and 16 of a 3-d one
-                  (the corner range of TMA's rank-4 and rank-5 im2col
-                  maps); any dilation. Every stride-1 conv, dx and dw of
-                  ResNet-18, its strided 3x3 and 1x1 convs, and k3 3-d
-                  convs up to dilation 8;
+                  strides; K14 and K15 take stride 1 only), (k - 1) *
+                  dilation at most 32768 for a 1-d conv, 128 on each axis
+                  of a 2-d conv and 16 of a 3-d one (the corner range of
+                  TMA's rank-3, rank-4 and rank-5 im2col maps); any
+                  dilation. Every stride-1 conv, dx and dw of ResNet-18,
+                  its strided 3x3 and 1x1 convs, k3 1-d convs up to
+                  dilation 16384 and k3 3-d convs up to dilation 8;
       "conv_mma"  `csrc/conv.cu`'s mma.sync kernel: every other bf16 call
                   (groups; the ImageNet stem, Ci = 3; channel counts not
                   multiples of 8; wider taps);
       "conv_ffma" `csrc/conv.cu`'s FFMA kernel: f32.
-    K14 always runs on `csrc/conv.cu`. Not a fallback: a failure of the
-    chosen kernel raises."""
+    Not a fallback: a failure of the chosen kernel raises."""
     if kind not in ("fwd", "dw"):
         raise ValueError(f"kind {kind!r}: fwd or dw")
     rank = len(ksize) + 2
     if rank not in _SM90_CORNER or (kind == "dw" and rank != 4) or not (
             len(stride) == len(dilation) == len(ksize)):
-        raise ValueError(f"conv_route takes 2-d taps (fwd, dw) or 3-d taps "
-                         f"(fwd) with matching strides and dilations, got "
-                         f"{kind} {ksize}, {stride}, {dilation}")
+        raise ValueError(f"conv_route takes 1-d, 2-d or 3-d taps (fwd) or "
+                         f"2-d taps (dw) with matching strides and "
+                         f"dilations, got {kind} {ksize}, {stride}, "
+                         f"{dilation}")
     if dtype == torch.float32:
         return "conv_ffma"
     corner = _SM90_CORNER[rank]
@@ -228,7 +230,7 @@ def _card_operands(x, w, what):
 def _launch(fn, cname, x, w, stride, dilation, groups, out):
     """Launch forward kernel `cname` of x * w into a new (N, *out, Co)
     tensor; adds one to fn.launches (and to fn.sm90_launches for the
-    Hopper K12 and K15)."""
+    Hopper K12, K14 and K15)."""
     xc, wc, ct = _card_operands(x, w, fn.__name__)
     xc, wc = _aligned(xc), _aligned(wc)
     co = w.shape[-1]
@@ -249,8 +251,7 @@ def _launch(fn, cname, x, w, stride, dilation, groups, out):
         raise RuntimeError(f"{fn.__name__} kernel launch ({cname}) failed: "
                            f"cudaError {err}")
     fn.launches += 1
-    if cname in ("nk_conv2d_sm90", "nk_conv3d_sm90"):
-        fn.sm90_launches += 1
+    fn.sm90_launches += cname.endswith("_sm90")
     return y if ct == x.dtype else y.to(x.dtype)
 
 
@@ -278,9 +279,10 @@ def conv1d_direct_nwc(x, w, dilation=1, stride=1, *, out_ncw=False,
                       interpret=False):
     """x (N, L, Ci) * w (k, Ci, Co), VALID -> (N, Lout, Co), or (N, Co,
     Lout) when `out_ncw` (a transpose after the kernel). Stride 1: K14,
-    adding one to `conv1d_direct_nwc.launches`; strided: K12 on the (1, L)
-    image with (1, k) taps, as JAX lowers it. CPU tensors: the plain
-    versions."""
+    the kernel `conv_route` picks, adding one to
+    `conv1d_direct_nwc.launches` (and to `sm90_launches` on the Hopper
+    kernel); strided: K12 on the (1, L) image with (1, k) taps, as JAX
+    lowers it. CPU tensors: the plain versions."""
     del interpret
     if w.dim() == 3 and w.shape[1] != x.shape[-1]:
         raise ValueError("channel mismatch (grouped conv1d: use the library "
@@ -293,8 +295,12 @@ def conv1d_direct_nwc(x, w, dilation=1, stride=1, *, out_ncw=False,
         if x.device.type != "cuda":
             a = conv_nd_reference(x, w, (1,), (dilation,))
         else:
-            a = _launch(conv1d_direct_nwc, "nk_conv1d", x, w, (1,),
-                        (dilation,), 1, out)
+            sm90 = conv_route("fwd", torch.promote_types(x.dtype, w.dtype),
+                              x.shape[-1], w.shape[-1], 1, (1,),
+                              (dilation,), w.shape[:1]) == "sm90"
+            a = _launch(conv1d_direct_nwc,
+                        "nk_conv1d_sm90" if sm90 else "nk_conv1d", x, w,
+                        (1,), (dilation,), 1, out)
     return a.transpose(1, 2) if out_ncw else a
 
 
@@ -384,10 +390,8 @@ def conv2d_dw_nhwc(x, g, kh: int, kw: int, dilation=(1, 1), *,
 for _fn in (conv2d_direct_nhwc, conv2d_dw_nhwc, conv1d_direct_nwc,
             conv3d_direct_ndhwc):
     _fn.launches = 0
-# calls of K12, K13 and K15 that ran the Hopper kernels (conv_route "sm90")
-conv2d_direct_nhwc.sm90_launches = 0
-conv2d_dw_nhwc.sm90_launches = 0
-conv3d_direct_ndhwc.sm90_launches = 0
+    # the calls that ran the Hopper kernels (conv_route "sm90")
+    _fn.sm90_launches = 0
 
 KERNELS = (conv2d_direct_nhwc, conv2d_dw_nhwc, conv1d_direct_nwc,
            conv3d_direct_ndhwc)

@@ -347,10 +347,33 @@ def test_conv_route_rank3(args, want):
                          k) == want
 
 
+@pytest.mark.parametrize("args,want", [
+    ((torch.bfloat16, 256, 256), "sm90"),                       # table
+    ((torch.bfloat16, 256, 256, 1, (16384,)), "sm90"),          # corner
+    ((torch.bfloat16, 8, 8, 1, (32768,), (2,)), "sm90"),
+    ((torch.bfloat16, 72, 136, 1, (2,)), "sm90"),               # tails
+    ((torch.bfloat16, 24, 40, 1, (1,), (1,)), "sm90"),          # k1
+    ((torch.float32, 256, 256), "conv_ffma"),
+    ((torch.bfloat16, 4, 12), "conv_mma"),                      # phase 14's
+    ((torch.bfloat16, 64, 64, 2), "conv_mma"),                  # groups
+    ((torch.bfloat16, 256, 256, 1, (16385,)), "conv_mma"),      # past it
+    ((torch.bfloat16, 8, 8, 1, (32769,), (2,)), "conv_mma"),
+    ((torch.bfloat16, 64, 64, 1, (1,), (3,), (2,)), "conv_mma"),  # stride
+], ids=["table", "d16384", "k2-d32768", "tails", "k1", "f32", "ci4-co12",
+        "groups", "d16385", "k2-d32769", "s2"])
+def test_conv_route_rank1(args, want):
+    """K14: bf16, groups 1, stride 1, channels multiples of 8 and (k - 1) d
+    <= 32768 (the rank-3 im2col corner range) on the Hopper kernel."""
+    dtype, ci, co, *rest = args
+    groups, dil, k, stride = rest + [1, (1,), (3,), (1,)][len(rest):]
+    assert TC.conv_route("fwd", dtype, ci, co, groups, stride, dil,
+                         k) == want
+
+
 @pytest.mark.parametrize("args", [
     ("dw", torch.bfloat16, 8, 8, 1, (1, 1, 1), (1, 1, 1), (3, 3, 3)),
     ("fwd", torch.bfloat16, 8, 8, 1, (1, 1), (1, 1), (3, 3, 3)),
-    ("fwd", torch.bfloat16, 8, 8, 1, (1,), (1,), (3,)),
+    ("dw", torch.bfloat16, 8, 8, 1, (1,), (1,), (3,)),
 ], ids=["dw-3d", "mismatch", "rank1"])
 def test_conv_route_refuses_what_no_kernel_takes(args):
     with pytest.raises(ValueError):
@@ -387,8 +410,13 @@ def test_counters_do_not_move_on_the_cpu():
     TC.conv1d_direct_nwc(x[0], torch.from_numpy(_randn(3, 4, 4)))
     TC.conv3d_direct_ndhwc(x[None], torch.from_numpy(_randn(1, 3, 3, 4, 4)))
     assert [k.launches for k in TC.KERNELS] == before
+    # a shape conv_route sends to the Hopper K14 on the card
+    TC.conv1d_direct_nwc(torch.from_numpy(_randn(1, 64, 8)).bfloat16(),
+                         torch.from_numpy(_randn(3, 8, 8)).bfloat16())
+    assert [k.launches for k in TC.KERNELS] == before
     assert TC.conv2d_direct_nhwc.sm90_launches == 0
     assert TC.conv2d_dw_nhwc.sm90_launches == 0
+    assert TC.conv1d_direct_nwc.sm90_launches == 0
     assert TC.conv3d_direct_ndhwc.sm90_launches == 0
 
 
@@ -632,6 +660,79 @@ def test_sm90_conv3d_matches_plain_on_gpu(cuda, name):
     top = float(ref.float().abs().max())
     assert float((out.float() - ref.float()).abs().max()) <= 2.0 ** (
         np.floor(np.log2(top)) - 7)
+
+
+# the Hopper K14 (bf16): (x shape, w shape, dilation); output positions
+# ragged across samples (M not a multiple of 128), Ci and Co tails, Co <=
+# 64 and <= 128 (narrower tiles), one tap, dilation 2, a large dilation,
+# (k - 1) d = 32768 (the rank-3 corner range) and the table's widths at
+# batch 2
+SM90_K14_CASES = {
+    "ragged": ((3, 301, 64), (3, 64, 192), 1),
+    "tails-d2": ((2, 333, 72), (3, 72, 136), 2),
+    "co64-d2": ((2, 200, 16), (3, 16, 64), 2),
+    "co128-k5": ((2, 517, 128), (5, 128, 128), 3),
+    "k1-co40": ((2, 100, 24), (1, 24, 40), 1),
+    "dil1000": ((1, 3000, 8), (3, 8, 24), 1000),
+    "corner32768": ((1, 32833, 8), (3, 8, 16), 16384),
+    "table-B2": ((2, 3138, 256), (3, 256, 256), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SM90_K14_CASES))
+def test_sm90_conv1d_matches_plain_on_gpu(cuda, name):
+    """In norm as _card_close, and each entry within one bf16 ulp of the
+    largest: both round one f32 sum."""
+    xs, ws, dil = SM90_K14_CASES[name]
+    x = torch.from_numpy(_randn(*xs)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(_randn(*ws, seed=1, scale=(ws[0] * ws[1])
+                                ** -0.5)).to(cuda, torch.bfloat16)
+    assert TC.conv_route("fwd", torch.bfloat16, xs[-1], ws[-1], 1, (1,),
+                         (dil,), ws[:1]) == "sm90"
+    k14 = TC.conv1d_direct_nwc
+    before = k14.launches, k14.sm90_launches
+    out = k14(x, w, dil)
+    ref = TC.conv_nd_reference(x, w, (1,), (dil,))
+    torch.cuda.synchronize()
+    assert (k14.launches, k14.sm90_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    _card_close(out, ref, torch.bfloat16)
+    top = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 2.0 ** (
+        np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.cuda
+def test_sm90_conv1d_gives_the_same_bits_twice(cuda):
+    x = torch.from_numpy(_randn(4, 3138, 256)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(_randn(3, 256, 256, seed=1, scale=0.04)).to(
+        cuda, torch.bfloat16)
+    a = TC.conv1d_direct_nwc(x, w)
+    b = TC.conv1d_direct_nwc(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,xs,ws,dil", [
+    (torch.float32, (2, 300, 64), (3, 64, 64), 1),
+    (torch.bfloat16, (1, 32835, 8), (2, 8, 8), 32769),
+    (torch.bfloat16, (2, 300, 12), (3, 12, 16), 2),
+], ids=["f32", "corner32769", "ci12"])
+def test_conv1d_route_falls_to_conv_cu_on_gpu(cuda, dtype, xs, ws, dil):
+    """What the Hopper K14 does not take runs csrc/conv.cu's kernel."""
+    x = torch.from_numpy(_randn(*xs)).to(cuda, dtype)
+    w = torch.from_numpy(_randn(*ws, seed=1, scale=0.3)).to(cuda, dtype)
+    assert TC.conv_route("fwd", dtype, xs[-1], ws[-1], 1, (1,), (dil,),
+                         ws[:1]) != "sm90"
+    k14 = TC.conv1d_direct_nwc
+    before = k14.launches, k14.sm90_launches
+    out = k14(x, w, dil)
+    ref = TC.conv_nd_reference(x, w, (1,), (dil,))
+    torch.cuda.synchronize()
+    assert (k14.launches, k14.sm90_launches) == (before[0] + 1, before[1])
+    _card_close(out, ref, dtype)
 
 
 @pytest.mark.cuda

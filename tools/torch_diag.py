@@ -1,4 +1,4 @@
-"""Thirteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Fourteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -73,6 +73,14 @@ make, run on one CUDA card from the root of a checkout:
         CUDA-event time of the checkout's K15 at the table shape of
         chip_smoke.py phase 3 (bf16 32x16^3x128 -> 128, k3; the best of two
         runs of 20 launches) beside F.conv3d's and the bound;
+    python3 tools/torch_diag.py conv1d TREE_ROOT
+        CUDA-event times of the checkout's K14 (bf16, k3, 256 -> 256
+        channels) at the table shape of chip_smoke.py phase 3 (B64 L3138 ->
+        3136; the best of two runs of 20 launches) and at phase 3's route
+        shapes (B1, B2 and B4 at L3136; 50 launches, in turns with the
+        library), each beside F.conv1d's and the bound, and the kernel
+        that ran (Hopper or csrc/conv.cu); run it for two checkouts in
+        turns to compare them;
     python3 tools/torch_diag.py resnet TREE_ROOT
         phase 13's ResNet-18 train step of the checkout: 2 warm-up and 5
         timed steps, twice, with its K12 and K13 launch counts;
@@ -372,6 +380,46 @@ def conv3d(root):
     print(f"{root}: K15 bf16 32x16^3x128 k3: kernel {k:.4f} ms "
           f"({flops / k / 1e9:.1f} TFLOP/s), F.conv3d {lib:.4f} ms, bound "
           f"{bound:.4f} ms", flush=True)
+
+
+def conv1d(root):
+    import torch.nn.functional as F
+
+    root, cs, _ = _tree(root)
+    from neuronika_tpu_torch.ops import conv as C
+
+    k14 = C.conv1d_direct_nwc
+    g = torch.Generator(device="cuda").manual_seed(6)
+    line = []
+    for B, iters in ((64, 20), (1, 50), (2, 50), (4, 50)):
+        x = torch.randn(B, 3138, 256, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        w = (torch.randn(3, 256, 256, generator=g, device="cuda")
+             * (3 * 256) ** -0.5).to(torch.bfloat16)
+        xn, wn = x.transpose(1, 2), w.permute(2, 1, 0)
+        n_out = B * 3136 * 256
+        flops = 2 * n_out * 3 * 256
+        bound = cs.bound_ms((x.numel() + w.numel() + n_out) * 2, flops,
+                            torch.bfloat16)[0]
+        before = getattr(k14, "sm90_launches", None)
+        k14(x, w)
+        hopper = before is not None and k14.sm90_launches == before + 1
+
+        def kern():
+            return k14(x, w)
+
+        def lib():
+            return F.conv1d(xn, wn)
+
+        ka, la = cs.cuda_ms(kern, iters), cs.cuda_ms(lib, iters)
+        lb, kb = cs.cuda_ms(lib, iters), cs.cuda_ms(kern, iters)
+        k, lib_ms = min(ka, kb), min(la, lb)
+        line.append(f"B{B}: K14 ({'sm90' if hopper else 'conv.cu'}) "
+                    f"{k:.4f} ms ({flops / k / 1e9:.1f} TFLOP/s, "
+                    f"{bound / k:.1%} of bound), F.conv1d {lib_ms:.4f} ms, "
+                    f"bound {bound:.4f} ms")
+    print(f"{root}: K14 bf16 L3136 256->256 k3: " + "; ".join(line),
+          flush=True)
 
 
 def f32_fused(root):
@@ -731,6 +779,8 @@ if __name__ == "__main__":
         serve(sys.argv[2])
     elif sys.argv[1:2] == ["conv3d"] and len(sys.argv) == 3:
         conv3d(sys.argv[2])
+    elif sys.argv[1:2] == ["conv1d"] and len(sys.argv) == 3:
+        conv1d(sys.argv[2])
     elif sys.argv[1:2] == ["resnet"] and len(sys.argv) == 3:
         resnet(sys.argv[2])
     else:
