@@ -103,7 +103,19 @@ nvidia-smi. Phases, each printing one line or a few:
      bf16 Var 1-d and 3-d convs under "force" on the Hopper K14 and K15,
      their forwards held against their plain versions, the 1-d conv's
      gradients (the library's transposed convolutions) against the plain
-     route's.
+     route's;
+ 15. the define-by-run layer kit (nn, optim, data, utils) on the card
+     under use_kernels, launches held exact: the twins of the JAX
+     package's quickstart (5 epochs, K3), MNIST CNN (MnistCNN at its class
+     defaults, 28 x 28, batch 64, 3 epochs of 256, conv_route "force": K12,
+     K3, K4; its step time and peak memory; then in eval mode the card's
+     kernel route against the CPU's plain route, loss and every gradient)
+     and char-RNN (LSTM and GRU cells, hidden 96, 30 steps over lengths
+     8/12/16: K3, K4), the scan ops nn.LSTM and nn.GRU on the card against
+     the CPU, and the reference's conv x optimizer sweep (a strided,
+     dilated, grouped Conv1d on the library, a stride-1 Conv1d on K14 and
+     a Conv3d on K15, each trained 8 steps by each of the ten optimizers;
+     the losses fall and the card's kernels match the CPU's).
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -2795,6 +2807,7 @@ def phase_resnet(R, C, profile):
     del params, buf, x, step
     gc.collect()
     torch.cuda.empty_cache()
+    launches.update({f"{k}.sm90": v for k, v in sm90.items()})
     return launches, errs
 
 
@@ -2889,6 +2902,7 @@ def phase_conv_routes(nk, R, C):
               f"phase 14 resnet-{stem}: grad err {e_grad}")
 
     rng = np.random.default_rng(9)
+    hopper = [k for k in C.KERNELS if hasattr(k, "sm90_launches")]
     arrays = [((0.2 * rng.standard_normal(ks)).astype(np.float32),
                rng.standard_normal(xs).astype(np.float32))
               for _, ks, xs, *_ in VAR_CONV_CASES]
@@ -2907,10 +2921,13 @@ def phase_conv_routes(nk, R, C):
                 2).mean()
             loss = term if loss is None else loss + term
         zero_counts()
+        for k in hopper:
+            k.sm90_launches = 0
         loss.forward()
         loss.backward(1.0)
         torch.cuda.synchronize()
         res[dev] = (loss.item(), [v.grad().cpu() for v in leaves], counts())
+    hop = {f"{k.__name__}.sm90": k.sm90_launches for k in hopper}
     nk.enable_kernels(False)
     nk.config.conv_route = old_route
     want = {k.__name__: 0 for k in C.KERNELS}
@@ -2951,8 +2968,9 @@ def phase_conv_routes(nk, R, C):
     check(k15 == (1, 1) and sum(counts().values()) == 1,
           f"phase 14 bf16 Var conv3d: launches {counts()}, Hopper K15 "
           f"{k15[1]}, want one launch, on the Hopper kernel")
-    launches = dict(res["cuda"][2])
+    launches = {**res["cuda"][2], **hop}
     launches["conv3d_direct_ndhwc"] += 1
+    launches["conv3d_direct_ndhwc.sm90"] += 1
 
     # a bf16 Var 1-d conv (channels multiples of 8, dilation 2, output
     # positions ragged against the 128-row tiles) under "force" on the
@@ -2999,6 +3017,7 @@ def phase_conv_routes(nk, R, C):
         e_1d.append(conv_within(a, b, f"phase 14 bf16 Var conv1d {key}",
                                 torch.bfloat16))
     launches["conv1d_direct_nwc"] += 1
+    launches["conv1d_direct_nwc.sm90"] += 1
 
     nk.config.conv_route = "auto"
     routes = {name: C.route_conv2d(nd, stride, (1,) * nd, 1, on_card=True,
@@ -3026,6 +3045,387 @@ def phase_conv_routes(nk, R, C):
           f"rank-2 row on the library, as phase 3's batch 1-4 timings "
           f"decide)")
     return launches
+
+
+# phase 15: the define-by-run layer kit through the JAX package's three
+# examples' twins and the reference's conv x optimizer sweep
+# (BASELINE.md:21-24). The kernels the kit reaches, in the order the JSON
+# line names them
+KIT_KERNELS = ("matmul", "softmax", "conv2d_direct_nhwc",
+               "conv1d_direct_nwc", "conv3d_direct_ndhwc")
+# the sweep: (name, kernel shape, input shape, stride, dilation, groups);
+# the stride-1 convs take K14 and K15 under conv_route "force", the
+# strided, dilated, grouped 1-d conv the library (tests/
+# test_torch_gradcheck_sweep.py runs the same cases on the CPU against JAX)
+KIT_SWEEP_CASES = (
+    ("conv1d_grouped", (4, 2, 3), (2, 4, 12), (2,), (2,), 2),
+    ("conv1d", (4, 4, 3), (2, 4, 12), (1,), (1,), 1),
+    ("conv3d", (4, 2, 2, 2, 2), (2, 2, 5, 5, 5), (1, 1, 1), (1, 1, 1), 1),
+)
+KIT_SWEEP_LAUNCH = {"conv1d": "conv1d_direct_nwc",
+                    "conv3d": "conv3d_direct_ndhwc"}
+# the sweep's kernels after 8 steps, card against CPU: both routes are f32
+# and differ in summation order only, and every update is at most about
+# lr = 1e-2 an entry; held to phase 7's gradient bound. Muon's is looser:
+# its Newton-Schulz iteration over the conv3d kernel's 2 x 2 slices (slope
+# 3.4445 at 0, five times) amplifies a rounding difference about 3x a step
+# (on the CPU, the kernels' plain versions against the library route: 4e-8
+# after one step, 1.7e-5 after eight); 1e-3 is 60 times that and a tenth
+# of one step of lr 1e-2
+KIT_PARAM_TOL = ROUTE_GRAD_TOL
+KIT_MUON_TOL = 1e-3
+
+
+def kit_optimizers(optim):
+    """The ten optimizers of the sweep, each at lr 1e-2."""
+    return {
+        "sgd": lambda: optim.StochasticGD(0.01),
+        "sgd_nesterov": lambda: optim.StochasticGD(0.01, momentum=0.9,
+                                                   nesterov=True),
+        "adam": lambda: optim.Adam(0.01),
+        "amsgrad": lambda: optim.AMSGrad(0.01),
+        "adamw": lambda: optim.AdamW(0.01),
+        "lion": lambda: optim.Lion(0.01),
+        "adafactor": lambda: optim.Adafactor(0.01),
+        "muon": lambda: optim.Muon(0.01),
+        "adagrad": lambda: optim.Adagrad(0.01),
+        "rmsprop": lambda: optim.RMSProp(0.01, alpha=0.9, momentum=0.5,
+                                         centered=True),
+    }
+
+
+def phase_layer_kit(nk, C, MM, SM, card):
+    """Phase 15: the layer kit on the card under `enable_kernels()`, every
+    run's launches counted from 0 and summed:
+    (a) the quickstart twin, 5 epochs (3->5->5->1, SGD with L2(0.0),
+        batches of 2 with drop_last, the model's JSON round trip): finite
+        losses, K3 exactly 3 launches an `mm_t` a step (its forward and
+        its VJP's two products); then one forward and backward of its
+        network on its first batch, the same weights on the card's kernel
+        route and the CPU's plain route, the loss and every parameter
+        gradient within phase 7's bounds;
+    (b) MnistCNN at its class defaults (channels 16, hidden 64, dropout
+        0.25, 28 x 28), batch 64, Adam(1e-3, L2(1e-4)), 3 epochs of 256
+        synthetic digits, conv_route "force": the loss falls; K12 twice a
+        step, K3 6 and K4 once, exactly; the step time and peak memory
+        (and how far it rose above what earlier phases left allocated);
+        then in eval mode the same weights and batch on the card's kernel
+        route against the CPU's plain route, the loss and every parameter
+        gradient within phase 7's bounds;
+    (c) CharRNN, LSTM and GRU cells, hidden 96, batch 8, lengths 8/12/16
+        in turn, Adam(1e-2), 30 steps: the loss falls; K3 9 T launches a
+        step of length T (3 cell and readout products a character, each
+        with its two VJP products), K4 T; then one CharRNN loss of each
+        cell on fixed windows (T 16), card kernels against CPU plain as in
+        (b); then nn.LSTM and nn.GRU (the scan ops, plain torch on both
+        devices, so no hand-written kernel) on the card against the CPU
+        within the same bounds;
+    and every K3 and K4 call of the route checks' card runs is recorded
+    (the first at each shape, layout and mode) and held against its plain
+    version there, by phase 3's rule (`within`);
+    (d) the sweep: each case's kernel trained 8 steps by each of the ten
+        optimizers on the card (kernels on, "force") and on the CPU (the
+        plain route): the loss falls on the card, and the card's kernel
+        after 8 steps matches the CPU's within KIT_PARAM_TOL (Muon's
+        within KIT_MUON_TOL).
+    Returns the launches summed over (a)-(d)'s training runs (the route
+    checks' launches are not counted), and the conv kernels' launches among
+    them on the Hopper kernels (under "name.sm90"; none, since the kit is
+    f32)."""
+    from neuronika_tpu_torch import models, nn, optim
+    from neuronika_tpu_torch.examples import char_rnn, mnist_cnn, quickstart
+    from neuronika_tpu_torch.examples import on_device
+    from neuronika_tpu_torch.ops import functional as F
+
+    fns = (MM.matmul, SM.softmax_last_axis, *C.KERNELS)
+    sm90 = [k for k in C.KERNELS if hasattr(k, "sm90_launches")]
+
+    def zero_counts():
+        for f in fns:
+            f.launches = 0
+        for f in sm90:
+            f.sm90_launches = 0
+
+    def counts():
+        got = {f.__name__: f.launches for f in fns}
+        got["softmax"] = got.pop("softmax_last_axis")
+        return {k: got.get(k, 0) for k in KIT_KERNELS}
+
+    total = dict.fromkeys(KIT_KERNELS, 0)
+    total_sm90 = {f"{k.__name__}.sm90": 0 for k in sm90}
+
+    def run(fn, want, what):
+        """fn() on the card from counts of 0: checks the launches against
+        `want` (kernel -> count, others 0), and that no conv ran on a Hopper
+        kernel (f32 takes conv.cu), and adds them to the total."""
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        exp = {k: want.get(k, 0) for k in KIT_KERNELS}
+        check(got == exp, f"phase 15 {what}: launches {got}, want {exp}")
+        for k, v in got.items():
+            total[k] += v
+        hop = {f"{k.__name__}.sm90": k.sm90_launches for k in sm90}
+        check(not any(hop.values()), f"phase 15 {what}: f32 convs on the "
+                                     f"Hopper kernels: {hop}")
+        for k, v in hop.items():
+            total_sm90[k] += v
+        return out
+
+    # the first K3 and K4 operands at each shape, layout and mode that the
+    # route checks' card runs hand the kernels (through the op registry's
+    # own references to the wrappers)
+    seen_mm, seen_sm = {}, {}
+
+    def rec_mm(a, b, **kw):
+        key = (tuple(a.shape), a.stride(), tuple(b.shape), b.stride(),
+               a.dtype)
+        if key not in seen_mm:
+            seen_mm[key] = (a.detach().clone(), b.detach().clone())
+        return MM.matmul(a, b, **kw)
+
+    def rec_sm(x, *, log=False, **kw):
+        key = (tuple(x.shape), log, x.dtype)
+        if key not in seen_sm:
+            seen_sm[key] = x.detach().clone()
+        return SM.softmax_last_axis(x, log=log, **kw)
+
+    def route_check(build, loss_of, want, what):
+        """One forward and backward of loss_of(model), the model built by
+        build() with the same weights, on the card's kernel route and the
+        CPU's plain route, each inside on_device: the card's launches held
+        to `want` (not counted in the total), its K3 and K4 operands
+        recorded, and the loss and every parameter gradient within phase
+        7's bounds. Returns (CPU loss, |d loss|, max |d grad|)."""
+        with on_device("cpu"):
+            weights = [p.data().numpy() for p in build().parameters()]
+        res = {}
+        for dev in ("cpu", "cuda"):
+            nk.enable_kernels(dev == "cuda")
+            with on_device(dev):
+                m = build()
+                nn.params_from_jax(m, weights)
+                orig = F.kernel_matmul, F.softmax_last_axis
+                if dev == "cuda":
+                    F.kernel_matmul, F.softmax_last_axis = rec_mm, rec_sm
+                try:
+                    loss = loss_of(m)
+                    zero_counts()
+                    loss.forward()
+                    loss.backward(1.0)
+                    torch.cuda.synchronize()
+                finally:
+                    F.kernel_matmul, F.softmax_last_axis = orig
+            res[dev] = (loss.item(), [p.grad().cpu() for p in m.parameters()],
+                        counts())
+        nk.enable_kernels(True)
+        exp = {k: want.get(k, 0) for k in KIT_KERNELS}
+        check(res["cuda"][2] == exp, f"phase 15 {what} route: launches "
+                                     f"{res['cuda'][2]}, want {exp}")
+        e_loss = abs(res["cuda"][0] - res["cpu"][0])
+        e_grad = max(float((a - b).abs().max())
+                     for a, b in zip(res["cuda"][1], res["cpu"][1]))
+        check(e_loss <= ROUTE_LOSS_TOL and e_grad <= ROUTE_GRAD_TOL,
+              f"phase 15 {what} route: |d loss| {e_loss}, max |d grad| "
+              f"{e_grad}")
+        return res["cpu"][0], e_loss, e_grad
+
+    def route_note(r):
+        return (f"loss {r[0]:.6f}, |d loss| {r[1]:.3g}, max |d grad| "
+                f"{r[2]:.3g}")
+
+    old_route = nk.config.conv_route
+    nk.enable_kernels(True)
+    nk.config.conv_route = "force"
+    lines = []
+
+    # (a) 5 epochs of 2 batches, 3 Linear layers a batch
+    qs = run(lambda: quickstart.main(device="cuda", steps=5, verbose=False),
+             {"matmul": 5 * 2 * 3 * 3}, "quickstart")
+    check(all(np.isfinite(qs)), f"phase 15 quickstart: losses {qs}")
+
+    def quickstart_loss(m):
+        x, y = next(iter(quickstart.load_dataset().batch(2).drop_last()))
+        return nn.loss.mse_loss(m.forward(nk.from_ndarray(x)),
+                                nk.from_ndarray(y), nn.loss.Reduction.Mean)
+
+    qr = route_check(quickstart.NeuralNetwork, quickstart_loss,
+                     {"matmul": 3 * 3}, "quickstart")
+    lines.append(f"(a) quickstart twin 3-5-5-1, SGD, 5 epochs: losses "
+                 f"{[round(l, 4) for l in qs]}, K3 {5 * 2 * 3 * 3}; its "
+                 f"first batch, card vs CPU: {route_note(qr)}")
+
+    # (b) MnistCNN at its defaults: a 1-epoch warm-up, then 3 timed epochs
+    cnn = dict(channels=16, hidden=64, dropout=0.25, image=28, n=256,
+               batch=64, verbose=False)
+    mnist_cnn.main(device="cuda", steps=1, **cnn)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    steps = 3 * 256 // 64
+    t0 = time.perf_counter()
+    ml = run(lambda: mnist_cnn.main(device="cuda", steps=3, **cnn),
+             {"conv2d_direct_nhwc": 2 * steps, "matmul": 6 * steps,
+              "softmax": steps}, "MnistCNN")
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(ml)) and ml[-1] < ml[0],
+          f"phase 15 MnistCNN: losses {ml}")
+    rng = np.random.default_rng(7)
+    X, Y = mnist_cnn.synthetic_digits(64, rng)
+
+    def mnist_loss(m):
+        m.eval()
+        return m.forward(nk.from_ndarray(X)).log_softmax(1).t().nll(
+            nk.from_ndarray(Y), nk.Reduction.Mean)
+
+    mr = route_check(models.MnistCNN, mnist_loss,
+                     {"conv2d_direct_nhwc": 2, "matmul": 6, "softmax": 1},
+                     "MnistCNN eval")
+    lines.append(
+        f"(b) MnistCNN c16 h64 p0.25 28x28 B64, Adam(1e-3, L2(1e-4)), 3 "
+        f"epochs of 256, conv_route force: losses {ml[0]:.4f} -> "
+        f"{ml[-1]:.4f}; step {step_ms:.2f} ms (host wall time, 12 steps), "
+        f"peak {peak:.3f} GiB, {peak - base:.3f} above the {base:.3f} GiB "
+        f"allocated before the run; eval route card vs CPU: "
+        f"{route_note(mr)} (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
+
+    # (c) CharRNN, 30 steps over lengths 8, 12, 16 in turn
+    lengths = (8, 12, 16)
+    chars_t = sum(lengths[s % 3] for s in range(30))
+    for cell in ("lstm", "gru"):
+        t0 = time.perf_counter()
+        cl = run(lambda: char_rnn.main(device="cuda", steps=30, cell=cell,
+                                       lengths=lengths, sample=0,
+                                       verbose=False),
+                 {"matmul": 9 * chars_t, "softmax": chars_t},
+                 f"CharRNN {cell}")
+        rnn_ms = (time.perf_counter() - t0) / 30 * 1e3
+        check(all(np.isfinite(cl)) and np.mean(cl[-3:]) < np.mean(cl[:3]),
+              f"phase 15 CharRNN {cell}: losses {cl}")
+        lines.append(f"(c) CharRNN {cell} h96 B8, Adam(1e-2), 30 steps: "
+                     f"loss {np.mean(cl[:3]):.4f} -> {np.mean(cl[-3:]):.4f} "
+                     f"(mean of the first and last 3), step {rnn_ms:.1f} ms "
+                     f"(host wall time), K3 {9 * chars_t}, K4 {chars_t}")
+    # one CharRNN loss a cell on fixed windows of the twin's text, T 16 B8
+    vocab = sorted(set(char_rnn.TEXT))
+    ids = np.array([vocab.index(c) for c in char_rnn.TEXT], dtype=np.int64)
+    starts = np.random.default_rng(11).integers(0, len(ids) - 17, size=8)
+    tokens = np.stack([ids[s:s + 16] for s in starts])
+    target = np.stack([ids[s + 1:s + 17] for s in starts])
+    rnn_route = {}
+    for cell in ("lstm", "gru"):
+        rnn_route[cell] = route_check(
+            lambda: models.CharRNN(len(vocab), 96, cell),
+            lambda m: m.loss(tokens, target),
+            {"matmul": 9 * 16, "softmax": 16}, f"CharRNN {cell}")
+    lines.append("(c) CharRNN h96 on fixed windows T16 B8, card vs CPU: "
+                 + ", ".join(f"{k} {route_note(r)}"
+                             for k, r in rnn_route.items())
+                 + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL}); K3 "
+                 f"{9 * 16}, K4 16 each")
+    # the K3 and K4 calls of (a)-(c)'s route checks, each against its plain
+    # version at the shape the path gave it
+    mm_err = sm_err = 0.0
+    for (sa, _, sb, _, _), (a, b) in seen_mm.items():
+        mm_err = max(mm_err, within(MM.matmul(a, b), MM.matmul_reference(
+            a, b), f"phase 15 matmul {sa} @ {sb}")[0])
+    for (sx, log, _), x in seen_sm.items():
+        sm_err = max(sm_err, within(
+            SM.softmax_last_axis(x, log=log),
+            SM.softmax_last_axis_reference(x, log=log),
+            f"phase 15 softmax {sx} log={log}")[0])
+    check(seen_mm and seen_sm, "phase 15: no K3 or K4 call recorded")
+    lines.append(
+        f"K3 at the {len(seen_mm)} shapes and layouts, K4 at the "
+        f"{len(seen_sm)} shapes, of (a)-(c)'s route checks on the card, each "
+        f"against its plain version (1e-5 of max |entry|): max abs err "
+        f"{mm_err:.3g}, {sm_err:.3g}; K3's (M, K, N): "
+        + ", ".join(sorted({f"({a[0]}, {a[1]}, {b[1]})"
+                            for a, _, b, _, _ in seen_mm})))
+    scan = {}
+    xv = rng.standard_normal((16, 8, 24)).astype(np.float32)
+    gv = rng.standard_normal((16, 8, 96)).astype(np.float32)
+    for kind in ("LSTM", "GRU"):
+        with on_device("cpu"):
+            weights = [p.data().numpy()
+                       for p in getattr(nn, kind)(24, 96).parameters()]
+        res = {}
+        for dev in ("cpu", "cuda"):
+            with on_device(dev):
+                layer = getattr(nn, kind)(24, 96)
+            nn.params_from_jax(layer, weights)
+            x = nk.from_ndarray(xv, device=dev).requires_grad()
+            out = layer.forward(x)
+            loss = (out * nk.from_ndarray(gv, device=dev)).sum()
+            loss.forward()
+            loss.backward(1.0)
+            res[dev] = [out.data().cpu(), x.grad().cpu()] + [
+                p.grad().cpu() for p in layer.parameters()]
+        e_out = float((res["cuda"][0] - res["cpu"][0]).abs().max())
+        e_grad = max(float((a - b).abs().max())
+                     for a, b in zip(res["cuda"][1:], res["cpu"][1:]))
+        check(e_out <= ROUTE_LOSS_TOL and e_grad <= ROUTE_GRAD_TOL,
+              f"phase 15 nn.{kind}: max |d out| {e_out}, max |d grad| "
+              f"{e_grad}")
+        scan[kind] = (e_out, e_grad)
+    lines.append(
+        "(c) scan ops card vs CPU, T16 B8 I24 H96 (plain torch on both "
+        "devices; no hand-written kernel runs in them): " + ", ".join(
+            f"nn.{k} max |d out| {a:.3g}, max |d grad| {b:.3g}"
+            for k, (a, b) in scan.items())
+        + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL})")
+
+    # (d) the conv x optimizer sweep, card against CPU
+    def sweep(make, case, dev):
+        _, ks, xs, stride, dil, groups = case
+        g = np.random.default_rng(2)
+        kv = (0.3 * g.standard_normal(ks)).astype(np.float32)
+        kernel = nk.from_ndarray(kv, device=dev).requires_grad()
+        x = nk.from_ndarray(g.standard_normal(xs).astype(np.float32),
+                            device=dev)
+        opt = make()
+        opt.register(kernel)
+        losses = []
+        for _ in range(8):
+            loss = kernel.convolution(x, stride, dil, groups).pow(2).mean()
+            loss.forward()
+            loss.backward(1.0)
+            opt.step()
+            opt.zero_grad()
+            losses.append(loss.item())
+        return losses, kernel.data().cpu()
+
+    worst = [0.0, 0.0]          # max |d kernel|: the others, Muon
+    for name, make in kit_optimizers(optim).items():
+        for case in KIT_SWEEP_CASES:
+            nk.enable_kernels(False)
+            _, ref = sweep(make, case, "cpu")
+            nk.enable_kernels(True)
+            launch = KIT_SWEEP_LAUNCH.get(case[0])
+            cl, got = run(lambda: sweep(make, case, "cuda"),
+                          {launch: 8} if launch else {},
+                          f"sweep {case[0]} {name}")
+            err = float((got - ref).abs().max())
+            check(cl[-1] < cl[0], f"phase 15 sweep {case[0]} {name}: "
+                                  f"losses {cl}")
+            tol = KIT_MUON_TOL if name == "muon" else KIT_PARAM_TOL
+            check(err <= tol, f"phase 15 sweep {case[0]} {name}: max |d "
+                              f"kernel| {err} (bound {tol})")
+            worst[name == "muon"] = max(worst[name == "muon"], err)
+    lines.append(f"(d) conv1d (stride 2, dilation 2, groups 2; library), "
+                 f"conv1d and conv3d (stride 1; K14, K15) x 10 optimizers, "
+                 f"8 steps each: losses fall, card vs CPU kernels max |d| "
+                 f"{worst[0]:.3g} (bound {KIT_PARAM_TOL}), Muon's "
+                 f"{worst[1]:.3g} (bound {KIT_MUON_TOL})")
+
+    nk.enable_kernels(False)
+    nk.config.conv_route = old_route
+    print(f"phase 15 layer kit on the card ({card}), kernels on: "
+          + "; ".join(lines) + f"; launches {total}, on the Hopper conv "
+          f"kernels {total_sm90}")
+    return {**total, **total_sm90}
 
 
 def main() -> int:
@@ -3158,6 +3558,11 @@ def main() -> int:
     resnet, resnet_errs = phase_resnet(R, C, profile)
     var_convs = phase_conv_routes(nk, R, C)
 
+    # 15. the define-by-run layer kit: the examples' twins and the sweep
+    gc.collect()
+    torch.cuda.empty_cache()
+    kit = phase_layer_kit(nk, C, MM, SM, smi[0])
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -3187,7 +3592,8 @@ def main() -> int:
                         "bound_by": bound[1], "library_ms": lib,
                         "dropout_ms": dflash[name][1],
                         "dropout_max_abs_err": dflash[name][0]})
-    # K3 runs on the 2-d model's path, K4 on both Var paths (phases 8, 9)
+    # K3 runs on the 2-d model's path, K4 on both Var paths (phases 8, 9);
+    # both on the layer kit's (phase 15)
     for name, source, replaces in (
             ("matmul", "neuronika_tpu_torch/csrc/matmul.cu",
              "neuronika_tpu/ops/pallas/matmul.py:30"),
@@ -3196,7 +3602,7 @@ def main() -> int:
         e, ms, p_ms, lib, bound = mm_sm[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": flag[name] + legacy[name],
+                        "launches": flag[name] + legacy[name] + kit[name],
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib})
@@ -3215,10 +3621,13 @@ def main() -> int:
                         "dropout_max_abs_err": dflash[name][0]})
     # K12 and K13 run on phase 13's path (launches, and errors on its
     # operands brought to unit scale), K14 and K15 on phase 14's Var graphs
-    # (launches; errors at bench.py's shapes); times at bench.py's shapes
+    # (launches; errors at bench.py's shapes); K12, K14 and K15 on the layer
+    # kit's too (phase 15's launches added); times at bench.py's shapes
     # (phase 3); all four there, K12 and K13 on phase 13's path in bf16 but
     # for the stem, and K14 and K15 in phase 14's bf16 Var convs, run
-    # csrc/conv_sm90.cu
+    # csrc/conv_sm90.cu; the f32 launches (the stem, phase 14's f32 Var
+    # graph, all of phase 15's) run csrc/conv.cu: launches_by_source splits
+    # `launches` by the wrappers' sm90_launches
     for name, line, path, source in (
             ("conv2d_direct_nhwc", 46, resnet, "conv_sm90.cu"),
             ("conv2d_dw_nhwc", 334, resnet, "conv_sm90.cu"),
@@ -3226,10 +3635,14 @@ def main() -> int:
             ("conv3d_direct_ndhwc", 733, var_convs, "conv_sm90.cu")):
         e, ms, p_ms, lib, bound = convk[name]
         e = resnet_errs.get(name, e)
+        n = path[name] + kit.get(name, 0)
+        hop = path[f"{name}.sm90"] + kit.get(f"{name}.sm90", 0)
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}{source}",
                         "replaces": f"neuronika_tpu/ops/pallas/conv.py:{line}",
-                        "launches": path[name],
+                        "launches": n,
+                        "launches_by_source": {f"{csrc}{source}": hop,
+                                               f"{csrc}conv.cu": n - hop},
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib})

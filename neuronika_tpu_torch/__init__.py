@@ -24,8 +24,13 @@ Quickstart, the define-by-run tier (as the JAX package's):
 (K3, K4) for tensors on the card.
 
 Ported so far: the define-by-run tier (`Var`/`VarDiff`, the executor, the
-op registry, the factories, `optim` with SGD and Adam, the Var GPT
-builders), paged GPT serving (`serving.PagedBatcher`) with the
+op registry, the factories, the Var GPT builders) and its layer kit: `nn`
+(layers, `init`, `loss`, the scan-node `LSTM`/`GRU`), `device` (`Device`,
+`devices`, `default_device`), `optim` (SGD, Adam, AMSGrad, AdamW, Lion,
+Adafactor, Muon, Adagrad, RMSProp, `lr_scheduler`), `data`, `utils`
+(`serde`, `gradcheck`), the small Var models (`models.MLP`, `MnistCNN`,
+`CharRNN`) and twins of the JAX package's quickstart, MNIST CNN and
+char-RNN examples (`neuronika_tpu_torch.examples`); paged GPT serving (`serving.PagedBatcher`) with the
 paged-attention decode kernel, and the functional GPT training step
 (`models.transformer.make_train_step`, `optim.functional`) with the
 packed-qkv flash-attention forward and backward kernels.
@@ -49,7 +54,8 @@ __all__ = [
     "from_ndarray", "zeros", "ones", "full", "rand", "eye",
     "linspace", "logspace", "geomspace", "range", "cat", "stack",
     "Zero", "Constant", "Reflective", "Replicative",
-    "optim", "models", "device", "to_device", "device_of",
+    "nn", "optim", "data", "models", "utils", "device",
+    "Device", "devices", "default_device", "to_device", "device_of",
     "Param", "Learnable",
 ]
 
@@ -182,8 +188,9 @@ def stack(lhs, rhs, axis: int):
     return _apply("stack", _pair(lhs, rhs), (int(axis),))
 
 
-from . import device, models, optim  # noqa: E402
-from .device import device_of, to_device  # noqa: E402
+from . import nn, optim, data, models, utils, device  # noqa: E402
+from .device import (Device, default_device, device_of, devices,  # noqa: E402
+                     to_device)
 
 # a learnable parameter IS a differentiable variable
 Param = VarDiff

@@ -13,7 +13,9 @@ setup(
     version="0.5.0",
     packages=["neuronika_tpu", "neuronika_tpu_torch",
               "neuronika_tpu_torch._engine", "neuronika_tpu_torch.models",
-              "neuronika_tpu_torch.ops", "neuronika_tpu_torch.optim"],
+              "neuronika_tpu_torch.ops", "neuronika_tpu_torch.optim",
+              "neuronika_tpu_torch.nn", "neuronika_tpu_torch.data",
+              "neuronika_tpu_torch.utils", "neuronika_tpu_torch.examples"],
     # the PyTorch port's CUDA sources, compiled by nvcc at first use
     package_data={"neuronika_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[

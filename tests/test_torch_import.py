@@ -32,7 +32,20 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch.ops.softmax",
            "neuronika_tpu_torch.ops.conv",
            "neuronika_tpu_torch.ops.cross_entropy",
-           "neuronika_tpu_torch.models.resnet")
+           "neuronika_tpu_torch.models.resnet",
+           "neuronika_tpu_torch.nn", "neuronika_tpu_torch.nn.init",
+           "neuronika_tpu_torch.nn.loss", "neuronika_tpu_torch.nn.recurrent",
+           "neuronika_tpu_torch.optim.lr_scheduler",
+           "neuronika_tpu_torch.optim._newton_schulz",
+           "neuronika_tpu_torch.data", "neuronika_tpu_torch.utils",
+           "neuronika_tpu_torch.utils.serde",
+           "neuronika_tpu_torch.utils.gradcheck",
+           "neuronika_tpu_torch.models.mlp", "neuronika_tpu_torch.models.cnn",
+           "neuronika_tpu_torch.models.rnn",
+           "neuronika_tpu_torch.examples",
+           "neuronika_tpu_torch.examples.quickstart",
+           "neuronika_tpu_torch.examples.mnist_cnn",
+           "neuronika_tpu_torch.examples.char_rnn")
 
 
 def _cfg(**kw):
@@ -73,7 +86,8 @@ def test_import_pulls_in_neither_jax_nor_triton():
     "from_ndarray", "zeros", "ones", "full", "rand", "eye", "linspace",
     "logspace", "geomspace", "range", "cat", "stack", "Zero", "Constant",
     "Reflective", "Replicative", "Param", "Learnable", "to_device",
-    "device_of"])
+    "device_of", "nn", "data", "utils", "Device", "devices",
+    "default_device"])
 def test_package_exposes_the_define_by_run_surface(name):
     import neuronika_tpu_torch as nk
 

@@ -121,6 +121,12 @@ def _cases():
         ("avg_pool", "avg_pool", ((2, 2), (2, 2)), [_r(2, 3, 6, 7)]),
         ("avg_pool-overlap", "avg_pool", ((3, 2), (2, 1)), [_r(2, 3, 7, 6)]),
         ("avg_pool-1d", "avg_pool", ((4,), (3,)), [_r(2, 3, 13)]),
+        # the recurrent scans: operands (x (T, B, I), w_ih, w_hh, b_ih,
+        # b_hh), gates x hidden 4 (LSTM) and 3 (GRU) x 4
+        ("lstm_scan", "lstm_scan", (),
+         [_r(5, 2, 3), _r(16, 3), _r(16, 4), _r(16), _r(16)]),
+        ("gru_scan", "gru_scan", (),
+         [_r(5, 2, 3), _r(12, 3), _r(12, 4), _r(12), _r(12)]),
     ]
     out = [(cid, name, extra, xs, None) for cid, name, extra, xs in c]
     # stochastic ops, at the settings where both packages are exact: eval
@@ -181,10 +187,8 @@ def test_op_forward_and_vjp_match_jax(cid, name, extra, xs, train):
 def test_every_registered_op_has_a_case():
     covered = {c[1] for c in CASES}
     assert covered == set(TOPS)
-    # JAX's nn.recurrent registers its scan ops into the same table; they
-    # come with the nn tier (ROADMAP.md queue 1 item 2)
-    assert set(JOPS) - set(TOPS) <= {"lstm_scan", "gru_scan"}
-    assert set(TOPS) <= set(JOPS)
+    # the nn tier's scan ops included: the two registries hold the same ops
+    assert set(TOPS) == set(JOPS)
 
 
 def test_astype_to_bf16_matches_jax():
