@@ -115,7 +115,20 @@ nvidia-smi. Phases, each printing one line or a few:
      the CPU, and the reference's conv x optimizer sweep (a strided,
      dilated, grouped Conv1d on the library, a stride-1 Conv1d on K14 and
      a Conv3d on K15, each trained 8 steps by each of the ten optimizers;
-     the losses fall and the card's kernels match the CPU's).
+     the losses fall and the card's kernels match the CPU's);
+ 16. the language-model loop: `train.Trainer` at phase 6's headline
+     configuration (warmup-cosine lr, clipping, a JSONL log, eval and
+     checkpoints every 2 steps in a temporary directory, 4 steps; its
+     first loss equal to make_train_step's, K1 and the fused K2 counted
+     exact, a fresh Trainer resumed from step 2 giving steps 3 and 4 the
+     same losses bit for bit; its step, eval and checkpoint times beside
+     phase 6's step); dense generation at phase 4's model (bf16 greedy
+     tokens the same from generate, make_generate and one-beam search, f32
+     greedy tokens of generate the same as PagedBatcher(kernel="on")'s on
+     phase 5's requests, seeded top-k sampling repeatable and inside each
+     step's top 50; tokens/s); and the twins of the JAX package's
+     text_pipeline and gpt_train examples at their sizes (losses fall;
+     gpt_train's K1/K2 launches exact).
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -195,8 +208,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -840,7 +855,8 @@ def train_kernels(FA, CE):
 
 def phase_train(T, FA, CE, profile):
     """Phase 6: the train step at full width; returns the launch counts of
-    the headline run, of the defaults run and of the fused-CE run."""
+    the headline run, of the defaults run and of the fused-CE run, and the
+    headline's step time in ms."""
     rng = np.random.default_rng(0)
     B, S = 16, 2048
     toks = rng.integers(0, TRAIN_CFG["vocab_size"], size=(B, S))
@@ -857,6 +873,7 @@ def phase_train(T, FA, CE, profile):
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(launches == want, f"headline launches {launches}, want {want}")
+    head_ms = step_s * 1e3
     tok_s = B * S / step_s
     mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
     head_line = (f"step {step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU "
@@ -936,7 +953,7 @@ def phase_train(T, FA, CE, profile):
           f"{step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f}, peak "
           f"{peak:.2f} GiB (the composite headline above: {head_line}); "
           f"losses {[round(l, 4) for l in losses]}; launches {launches}")
-    return head, split, launches
+    return head, split, launches, head_ms
 
 
 # phase 7 bounds (f32): loss and gradients of two exact routes that differ
@@ -3428,6 +3445,314 @@ def phase_layer_kit(nk, C, MM, SM, card):
     return {**total, **total_sm90}
 
 
+# --------------------------------------------------------------------------
+# phase 16: the language-model loop (Trainer, eval, checkpoints, dense
+# generation, the text-pipeline and GPT example twins)
+
+# the Trainer run: warmup-cosine lr (warmup 2 of 6 steps), clipping,
+# eval and a checkpoint every 2 steps, keep 2; fit takes 4 steps
+LOOP_RUN = dict(lr=3e-4, warmup_steps=2, total_steps=6, grad_clip=1.0,
+                checkpoint_every=2, keep=2, eval_every=2)
+LOOP_STEPS = 4
+# dense generation: phase 4's model, 8 prompts of 64 tokens, 64 new each
+GEN_B, GEN_P, GEN_NEW, GEN_TOP_K = 8, 64, 64, 50
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def loop_trainer(T, train, data, utils, FA, CE, head_step_ms):
+    """Phase 16 (a): `Trainer` at phase 6's headline configuration on
+    random token windows (`data.lm_windows`), B16 S2048; returns the
+    launch counts of its first fit and a summary line."""
+    from neuronika_tpu_torch._tree import tree_map
+
+    B, S = 16, 2048
+    V = TRAIN_CFG["vocab_size"]
+    rng = np.random.default_rng(16)
+    toks, tgts = data.lm_windows(
+        rng.integers(0, V, size=(LOOP_STEPS + 1) * B * S + 1), S)
+    batches = [(toks[i * B:(i + 1) * B], tgts[i * B:(i + 1) * B])
+               for i in range(LOOP_STEPS)]
+    held = (toks[LOOP_STEPS * B:], tgts[LOOP_STEPS * B:])
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **HEADLINE)
+    L = cfg.n_layer
+    kernels = train_kernels(FA, CE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        def trainer(log):
+            return train.Trainer(
+                cfg, generator=torch.Generator("cuda").manual_seed(0),
+                checkpoint_dir=os.path.join(tmp, "ck"),
+                log_path=os.path.join(tmp, log),
+                eval_batches=lambda: [held], **LOOP_RUN)
+
+        tr = trainer("first.jsonl")
+        # make_train_step from the same params, Adam state, batch and lr
+        p0 = tree_map(torch.clone, tr.params)
+        o0 = tree_map(torch.clone, tr.opt_state)
+        ref = T.make_train_step(cfg, grad_clip=LOOP_RUN["grad_clip"])(
+            p0, o0, torch.from_numpy(batches[0][0]).cuda(),
+            torch.from_numpy(batches[0][1]).cuda(),
+            torch.tensor(tr.lr_fn(0), dtype=torch.float32), tr.generator)[2]
+        ref = float(ref)
+        del p0, o0
+        torch.cuda.empty_cache()
+        # the evals inside fit, timed from a drained queue
+        fit_evals, evaluate = [], tr.evaluate
+
+        def timed_eval(b):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = evaluate(b)
+            fit_evals.append((time.perf_counter() - t) * 1e3)
+            return r
+
+        tr.evaluate = timed_eval
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        tr.fit(iter(batches), steps=LOOP_STEPS)
+        fit_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs = read_jsonl(os.path.join(tmp, "first.jsonl"))
+        check(len(recs) == LOOP_STEPS, f"phase 16: {len(recs)} records")
+        check([r["lr"] for r in recs]
+              == [tr.lr_fn(i) for i in range(LOOP_STEPS)],
+              f"phase 16: lr {[r['lr'] for r in recs]}")
+        losses = [r["loss"] for r in recs]
+        check(all(np.isfinite(losses)), f"phase 16: losses {losses}")
+        check(losses[0] == ref, f"phase 16: the Trainer's first loss "
+                                f"{losses[0]} != make_train_step's {ref}")
+        n_eval = LOOP_STEPS // LOOP_RUN["eval_every"]
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_fwd_qkv=L * (LOOP_STEPS + n_eval),
+                    flash_bwd_fused_qkv=L * LOOP_STEPS)
+        check(launches == want, f"phase 16 trainer launches {launches}, "
+                                f"want {want}")
+        ev = tr.last_eval["loss"]
+        check(np.isfinite(ev) and ev >= 0.9 * math.log(V),
+              f"phase 16: eval loss {ev} < 0.9 ln V on a held-out batch")
+        check(tr._ckpt.steps() == [2, 4], f"phase 16: checkpoints "
+                                          f"{tr._ckpt.steps()}")
+        step_ms = [r.get("step_ms") for r in recs]
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a fresh Trainer with the same arguments resumes step 2
+        tr = trainer("resumed.jsonl")
+        check(tr.resume(2) == 2, "phase 16: resume did not restore step 2")
+        tr.fit(iter(batches[2:]), steps=LOOP_STEPS)
+        again = [r["loss"] for r in read_jsonl(
+            os.path.join(tmp, "resumed.jsonl"))]
+        check(again == losses[2:], f"phase 16: resumed losses {again} != "
+                                   f"{losses[2:]}")
+
+        # the checkpoint's cost, on a Checkpointer of its own
+        ck = utils.Checkpointer(os.path.join(tmp, "timed"), keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(tr.step_num, tr._state())
+        snap_s = time.perf_counter() - t0
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        size = dir_bytes(os.path.join(tmp, "timed"))
+        t0 = time.perf_counter()
+        tr.evaluate([held])
+        eval_s = time.perf_counter() - t0
+        # the trainer's own step with its one sync (float(loss)), after
+        # the run: 3 steps on the resumed state
+        b0 = batches[0]
+        float(tr.train_step(*b0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            float(tr.train_step(*b0))
+        own_ms = (time.perf_counter() - t0) / 3 * 1e3
+        del tr, ck
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = (f"(a) Trainer at the headline (d1536 L8 H12 V16384 S2048 B16 "
+            f"bf16, fused bwd, bf16 Adam), {LOOP_STEPS} steps in "
+            f"{fit_s:.2f} s: losses {[round(l, 4) for l in losses]} (first "
+            f"= make_train_step's, bit for bit; steps 3-4 the same after a "
+            f"resume from step 2), JSONL step_ms {step_ms} (eval at steps "
+            f"2 and 4, checkpoint after step 2), the Trainer's own step "
+            f"{own_ms:.1f} ms with its float(loss) sync against phase 6's "
+            f"{head_step_ms:.1f} ms; eval loss {ev:.4f} (ln V "
+            f"{math.log(V):.4f}) in {eval_s * 1e3:.1f} ms alone, "
+            f"{[round(t, 1) for t in fit_evals]} ms inside fit; checkpoint "
+            f"{size / 2 ** 30:.3f} GiB, snapshot to host {snap_s:.3f} s, "
+            f"on disk after {save_s:.3f} s; peak {peak:.2f} GiB; launches "
+            f"{launches}")
+    return launches, line
+
+
+def loop_generate(T, PA, PagedBatcher, prompts):
+    """Phase 16 (b): dense generation at phase 4's width (random weights,
+    torch.Generator seed 0); `prompts` are phase 5's requests. Returns the
+    paged-attention launches of its f32 identity and a summary line."""
+    cfg = T.GPTConfig(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
+                      d_ff=6144, max_seq=1024, dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    rng = np.random.default_rng(16)
+    batch = rng.integers(0, cfg.vocab_size, size=(GEN_B, GEN_P),
+                         dtype=np.int32)
+    on_dev = T.make_generate(cfg, GEN_NEW)
+    runs = {"generate": lambda: T.generate(params, cfg, batch, GEN_NEW),
+            "make_generate": lambda: on_dev(params, batch).cpu().numpy()}
+    for run in runs.values():                           # warm-up
+        run()
+    times = {name: [] for name in runs}
+    out = {}
+    # in turns: generate, make_generate, make_generate, generate
+    for name in ("generate", "make_generate", "make_generate", "generate"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = runs[name]()
+        times[name].append(time.perf_counter() - t0)
+    host, dev = out["generate"], out["make_generate"]
+    host_s, dev_s = min(times["generate"]), min(times["make_generate"])
+    beams, scores = T.make_beam_search(cfg, GEN_NEW, 1)(params, batch)
+    beams = beams[:, 0].cpu().numpy()
+    check(np.array_equal(host, dev) and np.array_equal(host, beams),
+          "phase 16: bf16 greedy tokens differ between generate, "
+          "make_generate and one-beam search")
+    check(bool(torch.isfinite(scores).all()), "phase 16: beam scores")
+
+    # seeded sampling repeats, and each token is inside its step's top k,
+    # read from the same prefill and decode steps fed the sampled tokens
+    temp = 0.8
+    samp = T.make_generate(cfg, GEN_NEW, temperature=temp, top_k=GEN_TOP_K)
+    a = samp(params, batch, torch.Generator("cuda").manual_seed(7))
+    b = samp(params, batch, torch.Generator("cuda").manual_seed(7))
+    check(torch.equal(a, b), "phase 16: seeded sampling did not repeat")
+    prep = T.prepare_decode_params(params, cfg)
+    cache = T.init_kv_cache(cfg, GEN_B, device="cuda")
+    logits, cache = T.make_prefill(cfg)(prep, cache, a[:, :GEN_P])
+    decode = T.make_decode_step(cfg)
+    inside = torch.ones((), dtype=torch.bool, device="cuda")
+    for t in range(GEN_NEW):
+        tok = a[:, GEN_P + t]
+        lt = logits.float() / temp
+        kth = torch.topk(lt, GEN_TOP_K, -1).values[:, -1]
+        inside &= (lt.gather(1, tok.long()[:, None])[:, 0] >= kth).all()
+        if t + 1 < GEN_NEW:
+            logits, cache = decode(prep, cache, tok)
+    check(bool(inside), f"phase 16: a sampled token outside its step's "
+                        f"top {GEN_TOP_K}")
+    distinct = len({tuple(r) for r in a.cpu().numpy()[:, GEN_P:]})
+    del prep, cache, params
+    torch.cuda.empty_cache()
+
+    # f32: the dense cache against the paged kernel (K11) on phase 5's
+    # requests, greedy
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg32, "cuda")
+    news = [16] * len(prompts)
+    PA.paged_attention.launches = 0
+    _, paged, steps, finite, _ = serve(
+        PagedBatcher, params, cfg32, prompts, news, n_slots=4,
+        n_blocks=257, block_size=16, kernel="on")
+    k11 = PA.paged_attention.launches
+    check(finite, "phase 16: non-finite logits (f32, kernel='on')")
+    check(k11 == cfg32.n_layer * steps, f"phase 16: K11 launches {k11}")
+    for p, want, n in zip(prompts, paged, news):
+        got = T.generate(params, cfg32, p[None], n)[0, len(p):]
+        check(np.array_equal(got, want), f"phase 16: f32 dense generate "
+                                         f"{got} != paged {want}")
+    del params
+    torch.cuda.empty_cache()
+    n_tok = GEN_B * GEN_NEW
+    line = (f"(b) generation at phase 4's model (d1536 L8 H12 V16384, bf16, "
+            f"max_seq 1024), {GEN_B} prompts of {GEN_P} + {GEN_NEW} greedy "
+            f"tokens: generate, make_generate and one-beam search "
+            f"identical; make_generate {n_tok / dev_s:.1f} tok/s "
+            f"({[round(t, 4) for t in times['make_generate']]} s), "
+            f"generate {n_tok / host_s:.1f} tok/s "
+            f"({[round(t, 4) for t in times['generate']]} s; the faster of "
+            f"two runs in turns, after a warm-up; host-bound, not "
+            f"targets); seeded sampling "
+            f"(T {temp}, top-k {GEN_TOP_K}) repeats, every token inside "
+            f"its step's top {GEN_TOP_K}, {distinct} distinct rows of "
+            f"{GEN_B}; f32 greedy dense generate = PagedBatcher("
+            f"kernel='on') on phase 5's {len(prompts)} requests x 16 "
+            f"tokens ({k11} K11 launches)")
+    return k11, line
+
+
+def loop_examples(FA, text_pipeline, gpt_train):
+    """Phase 16 (c): the twins of the JAX package's text_pipeline and
+    gpt_train examples at their sizes on the card; returns the flash
+    launches and a summary line."""
+    kernels = FA.KERNELS + FA.SPLIT_KERNELS
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    tp = text_pipeline.main(device="cuda")
+    tp_s = time.perf_counter() - t0
+    tp_launch = {k.__name__: k.launches for k in kernels}
+    # head dim 32: "auto" flash takes the composite on the card
+    check(not any(tp_launch.values()), f"phase 16: text_pipeline launches "
+                                       f"{tp_launch}")
+    check(tp["losses"][-1] < tp["losses"][0] and np.isfinite(
+        tp["eval"]["loss"]), f"phase 16: text_pipeline losses "
+                             f"{tp['losses'][::20]}, eval {tp['eval']}")
+    t0 = time.perf_counter()
+    gt = gpt_train.main(device="cuda")
+    gt_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    # bf16 hd 64, remat: K1 twice a layer and step, K2a and K2b once
+    n, L = len(gt["losses"]), 2
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd_qkv=2 * L * n, flash_bwd_dq_qkv=L * n,
+                flash_bwd_dkv_qkv=L * n)
+    check(launches == want, f"phase 16 gpt_train launches {launches}, "
+                            f"want {want}")
+    check(gt["losses"][-1] < gt["losses"][0] and all(
+        np.isfinite(gt["losses"])), f"phase 16: gpt_train losses "
+                                    f"{gt['losses'][::50]}")
+    line = (f"(c) text_pipeline twin ({len(tp['losses'])} steps, f32, "
+            f"{tp_s:.2f} s): loss {tp['losses'][0]:.3f} -> "
+            f"{tp['losses'][-1]:.3f}, eval {tp['eval']['loss']:.3f}, "
+            f"generated {tp['text']!r}; gpt_train twin ({n} steps, bf16, "
+            f"{gt_s:.2f} s): loss {gt['losses'][0]:.3f} -> "
+            f"{gt['losses'][-1]:.3f}; launches {launches}")
+    return launches, line
+
+
+def phase_lm_loop(T, FA, CE, PA, PagedBatcher, prompts, head_step_ms):
+    """Phase 16: the language-model loop; returns the K1/K2 launches of
+    (a) and (c) summed, and the K11 launches of (b)."""
+    from neuronika_tpu_torch import data, train, utils
+    from neuronika_tpu_torch.examples import gpt_train, text_pipeline
+
+    t0 = time.perf_counter()
+    trained, a = loop_trainer(T, train, data, utils, FA, CE, head_step_ms)
+    k11, b = loop_generate(T, PA, PagedBatcher, prompts)
+    examples, c = loop_examples(FA, text_pipeline, gpt_train)
+    wall = time.perf_counter() - t0
+    print(f"phase 16 language-model loop ({wall:.1f} s): {a}; {b}; {c}")
+    flash = {k: trained.get(k, 0) + examples.get(k, 0)
+             for k in set(trained) | set(examples)}
+    return flash, k11
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
@@ -3538,7 +3863,7 @@ def main() -> int:
     # 6. the train step at full width; 7. kernel vs plain route in f32
     del params
     torch.cuda.empty_cache()
-    head, split, fused_ce = phase_train(T, FA, CE, profile)
+    head, split, fused_ce, head_ms = phase_train(T, FA, CE, profile)
     phase_routes(T, FA, CE)
 
     # 8-10. the define-by-run tier
@@ -3563,6 +3888,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     kit = phase_layer_kit(nk, C, MM, SM, smi[0])
 
+    # 16. the language-model loop: Trainer, eval, checkpoints, dense
+    # generation, the text-pipeline and GPT example twins
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop, loop_k11 = phase_lm_loop(T, FA, CE, PA, PagedBatcher, prompts[:4],
+                                   head_ms)
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -3572,14 +3904,18 @@ def main() -> int:
         "name": "paged_attention", "route": "cuda",
         "source": "neuronika_tpu_torch/csrc/paged_attention.cu",
         "replaces": "neuronika_tpu/ops/pallas/paged_attention.py:44",
-        "launches": launches, "max_abs_err": err, "ms": kern_ms,
+        "launches": launches + loop_k11,
+        "launches_by_phase": {"4": launches, "16": loop_k11},
+        "max_abs_err": err, "ms": kern_ms,
         "plain_ms": plain_ms, "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None,
         "back_to_back_ms": paged["table"][3],
         "long_ms": paged["long"][0], "long_bound_ms": paged["long"][2][0],
         "serving_ms": paged["serving"][0],
         "serving_bound_ms": paged["serving"][2][0]}]
-    # K2c (:1109) and K2d (:1194) are one CUDA kernel; it names the first
+    # K2c (:1109) and K2d (:1194) are one CUDA kernel; it names the first.
+    # Phase 6's launches (the headline, or for K2a/K2b the defaults run)
+    # and phase 16's (the Trainer: K1, K2c; gpt_train's twin: K1, K2a, K2b)
     for name, line, counts in (("flash_fwd_qkv", 639, head),
                                ("flash_bwd_dq_qkv", 708, split),
                                ("flash_bwd_dkv_qkv", 755, split),
@@ -3587,7 +3923,10 @@ def main() -> int:
         e, ms, p_ms, lib, bound = flash[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{at}{line}",
-                        "launches": counts[name], "max_abs_err": e,
+                        "launches": counts[name] + loop[name],
+                        "launches_by_phase": {"6": counts[name],
+                                              "16": loop[name]},
+                        "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,
                         "dropout_ms": dflash[name][1],

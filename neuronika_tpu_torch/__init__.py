@@ -33,7 +33,14 @@ Adafactor, Muon, Adagrad, RMSProp, `lr_scheduler`), `data`, `utils`
 char-RNN examples (`neuronika_tpu_torch.examples`); paged GPT serving (`serving.PagedBatcher`) with the
 paged-attention decode kernel, and the functional GPT training step
 (`models.transformer.make_train_step`, `optim.functional`) with the
-packed-qkv flash-attention forward and backward kernels.
+packed-qkv flash-attention forward and backward kernels; and the
+language-model loop around it: `train.Trainer` (schedule, clipping,
+accumulation, JSONL metrics, checkpoints, resume, eval), the eval step
+(`make_eval_step`, `evaluate`), dense KV-cache generation (`generate`,
+`make_generate`, `make_beam_search`, `make_prefill`, `make_decode_step`),
+all the functional optimizer rules, `utils.checkpoint`, `utils.metrics`,
+`utils.save_pytree`/`load_pytree`, `data.BpeTokenizer`, and twins of the
+text-pipeline and GPT examples.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ __all__ = [
     "from_ndarray", "zeros", "ones", "full", "rand", "eye",
     "linspace", "logspace", "geomspace", "range", "cat", "stack",
     "Zero", "Constant", "Reflective", "Replicative",
-    "nn", "optim", "data", "models", "utils", "device",
+    "nn", "optim", "data", "models", "utils", "device", "train",
     "Device", "devices", "default_device", "to_device", "device_of",
     "Param", "Learnable",
 ]
@@ -188,7 +195,7 @@ def stack(lhs, rhs, axis: int):
     return _apply("stack", _pair(lhs, rhs), (int(axis),))
 
 
-from . import nn, optim, data, models, utils, device  # noqa: E402
+from . import nn, optim, data, models, utils, device, train  # noqa: E402
 from .device import (Device, default_device, device_of, devices,  # noqa: E402
                      to_device)
 

@@ -16,6 +16,7 @@ not ported.
   `shuffle_with_seed`.
 * `Batch`/`LabeledBatch` with `drop_last()`; `KFold`/`LabeledKFold`
   consecutive-fold cross validation; `lm_windows` for next-token windows.
+* `BpeTokenizer` (`data/tokenizer.py`), the byte-level BPE tokenizer.
 
 The `*_fn` loaders hand the per-record closure the parsed field values
 (numeric fields as floats, everything else as str).
@@ -32,10 +33,12 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .tokenizer import BpeTokenizer
+
 __all__ = [
     "DataLoader", "LabeledDataLoader", "Dataset", "LabeledDataset",
     "Batch", "LabeledBatch", "KFold", "LabeledKFold", "SetKFold",
-    "prefetch_to_device", "lm_windows",
+    "prefetch_to_device", "lm_windows", "BpeTokenizer",
 ]
 
 

@@ -12,12 +12,18 @@ and the llama/Mistral stack (`llama_config`, `mistral_config`: rotary
 positions, RMSNorm, SwiGLU, no biases, an untied `lm_head`), each with GQA
 and sliding-window attention; the paged KV cache (rotary keys are cached
 after rotation), unbucketed paged prefill, the paged decode step and
-per-row sampling; and for training `hidden_states`, `forward`, `loss_fn`,
+per-row sampling; dense KV-cache generation (`init_kv_cache`,
+`make_prefill`, `make_decode_step`, `sample_logits`, `generate`,
+`make_generate`, `make_beam_search`; the decode position stays on the
+device); for training `hidden_states`, `forward`, `loss_fn`,
 `opt_init`, `opt_state_from_jax`, `make_train_step` (Adam, clipping,
-accumulation) and `flops_per_token`. Training attention runs the packed
-flash op (K1/K2) for learned positions without a window, and the split
-flash op (K5-K7, `ops/flash_attention.py`) on q/k/v split out of the
-packed projection, rotated under rope, with or without a window.
+accumulation) and `flops_per_token`; and `make_eval_step`/`evaluate`.
+Quantised weights and KV caches, speculative decoding and meshes raise
+`NotImplementedError` naming their ROADMAP.md item. Training attention
+runs the packed flash op (K1/K2) for learned positions without a window,
+and the split flash op (K5-K7, `ops/flash_attention.py`) on q/k/v split
+out of the packed projection, rotated under rope, with or without a
+window.
 `fused_ce="on"` takes the loss through the fused linear cross-entropy
 (K8-K10, `ops/cross_entropy.py`) under JAX's gate. Attention dropout runs
 inside the flash kernels, each layer's mask keyed by a seed drawn from the
@@ -40,6 +46,7 @@ result (`_dot_f32`), as JAX's `preferred_element_type=f32`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict
 
@@ -49,6 +56,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from .._tree import tree_leaves, tree_map, tree_unflatten
+from ..config import config
 from ..device import resolve
 from ..ops.cross_entropy import fused_linear_cross_entropy
 from ..ops.flash_attention import (_DTYPES as _FLASH_DTYPES, _HEAD_DIMS,
@@ -408,7 +416,8 @@ def _cast_decode_params(params, cfg: GPTConfig):
 
 def _check_quant(quant) -> None:
     if quant not in (None, "none"):
-        raise NotImplementedError(f"quant={quant!r} is not ported yet")
+        raise NotImplementedError(f"quant={quant!r} is not ported yet "
+                                  f"(ROADMAP.md queue 1 item 4)")
 
 
 def prepare_decode_params(params, cfg: GPTConfig, quant: str | None = None):
@@ -508,6 +517,267 @@ def _prefill_body(params, cache, prompt, cfg: GPTConfig):
     x = _layer_norm(x[:, -1], params["ln_f"], cfg.norm_eps)
     cache["pos"] = cache["pos"] + P
     return _lm_head(x, params, cfg), cache
+
+
+# --------------------------------------------------------------------------
+# dense KV-cache generation: a (L, B, KV, max_seq, hd) cache per batch
+
+
+def init_kv_cache(cfg: GPTConfig, batch: int, quant: str | None = None,
+                  device=None):
+    """Per-layer K/V buffers (L, B, KV, max_seq, hd) in the compute dtype
+    and the position, a 0-d int32 tensor, on `device` (default
+    `config.device`). With GQA the cache is n_head/n_kv_head times smaller.
+    `quant` other than None or "none" is not ported."""
+    _check_quant(quant)
+    dev = resolve(config.device if device is None else device)
+    hd = cfg.d_model // cfg.n_head
+    shape = (cfg.n_layer, batch, _kv_heads(cfg), cfg.max_seq, hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _decode_step_body(params, cache, token, cfg: GPTConfig):
+    """One decode step on PREPARED params: (params, cache, token (B,)) ->
+    (logits (B, V) f32, cache). The new token's K/V are written in place at
+    `cache["pos"]`, a device tensor, so a step never waits for the host
+    (JAX's `dynamic_update_slice` at `pos`); attention runs over the whole
+    cache with positions past `pos` (and outside the window) masked."""
+    pos = cache["pos"]
+    B = token.shape[0]
+    at = pos.view(1).long()
+    x = params["wte"][token.long()][:, None, :]
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"].index_select(0, at)
+    x = x.to(cfg.dtype)
+    pos_b = at.repeat(B)
+    for i in range(cfg.n_layer):
+        blk = _layer(params["blocks"], i)
+        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos_b)
+        lk, lv = cache["k"][i], cache["v"][i]
+        lk.index_copy_(2, at, k_new)
+        lv.index_copy_(2, at, v_new)
+        x = _decode_block(x, blk, q, lk, lv, pos_b, cfg)
+    x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return _lm_head(x[:, 0], params, cfg), cache
+
+
+def make_decode_step(cfg: GPTConfig, quant: str | None = None):
+    """Single-token decode: (params, cache, token (B,)) -> (logits (B, V),
+    cache). The cache is updated in place (JAX donates it). The params are
+    cast to the compute dtype on each call, as JAX casts them in-program;
+    `prepare_decode_params` once makes that cast free."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_quant(quant)
+
+    @torch.no_grad()
+    def step(params, cache, token):
+        return _decode_step_body(_cast_decode_params(params, cfg), cache,
+                                 token, cfg)
+
+    return step
+
+
+def make_prefill(cfg: GPTConfig, quant: str | None = None):
+    """Batched prefill: (params, cache, prompt (B, P)) -> (last-position
+    logits (B, V), cache filled through position P-1), in place. Pair with
+    `make_decode_step` of the same quant mode."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_quant(quant)
+
+    @torch.no_grad()
+    def pre(params, cache, prompt):
+        return _prefill_body(_cast_decode_params(params, cfg), cache,
+                             prompt, cfg)
+
+    return pre
+
+
+def sample_logits(logits, generator: torch.Generator | None = None,
+                  temperature: float = 0.0, top_k: int = 0,
+                  top_p: float = 0.0, min_p: float = 0.0):
+    """One sampling step over (B, V) logits -> (B,) int32 tokens, all rows
+    at once: greedy at temperature 0 (argmax, the first index on ties),
+    else the temperature-scaled logits filtered in JAX's order (min-p, then
+    top-k, then top-p; each keeps the top token) and sampled by Gumbel-max,
+    as `jax.random.categorical`, with noise from `generator` (on the
+    logits' device; None draws from torch's default generator). No host
+    sync. The draws do not reproduce JAX's bits."""
+    if temperature <= 0.0:
+        return logits.argmax(-1).to(torch.int32)
+    lt = logits.float() / temperature
+    neg = float("-inf")
+    if min_p > 0.0:
+        probs = torch.softmax(lt, -1)
+        lt = lt.masked_fill(probs < min_p * probs.amax(-1, keepdim=True), neg)
+    if top_k > 0:
+        kth = torch.topk(lt, min(top_k, lt.shape[-1]), -1).values[..., -1:]
+        lt = lt.masked_fill(lt < kth, neg)
+    if top_p > 0.0:
+        sorted_desc = torch.sort(lt, -1, descending=True).values
+        probs = torch.softmax(sorted_desc, -1)
+        keep = torch.cumsum(probs, -1) - probs < top_p
+        cutoff = torch.where(keep, sorted_desc, float("inf")).amin(
+            -1, keepdim=True)
+        lt = lt.masked_fill(lt < cutoff, neg)
+    u = torch.rand(lt.shape, generator=generator, device=lt.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+    return (lt + gumbel).argmax(-1).to(torch.int32)
+
+
+def _prompt_tensor(prompt, cfg: GPTConfig, max_new: int, dev):
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+    if prompt.dim() != 2:
+        raise ValueError(f"prompt must be (B, P), got {tuple(prompt.shape)}")
+    if prompt.shape[1] + max_new > cfg.max_seq:
+        raise ValueError(f"prompt length {prompt.shape[1]} + max_new "
+                         f"{max_new} exceeds max_seq {cfg.max_seq}")
+    return prompt
+
+
+def make_generate(cfg: GPTConfig, max_new: int, temperature: float = 0.0,
+                  top_k: int = 0, top_p: float = 0.0, min_p: float = 0.0,
+                  repetition_penalty: float = 1.0,
+                  quant: str | None = None, mesh=None):
+    """Generation that stays on the device: a batched prefill, then
+    `max_new` sampled tokens, each fed to a decode step, with no fetch to
+    the host between steps (the one sync is the caller's read of the
+    result).
+
+    Sampling controls: `temperature`/`top_k`/`top_p`/`min_p` (see
+    `sample_logits`) and `repetition_penalty` (CTRL-style: logits of tokens
+    already in the prompt or generated so far are divided by the penalty
+    when positive, multiplied when negative; 1.0 disables).
+
+    Returns gen(params, prompt (B, P), generator=None) -> (B, P + max_new)
+    int32 on the params' device; P + max_new must fit cfg.max_seq. `quant`
+    and `mesh` (tensor-parallel serving) are not ported."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_quant(quant)
+    if mesh is not None:
+        raise NotImplementedError("make_generate(mesh=...): tensor-parallel "
+                                  "serving is not ported yet (ROADMAP.md "
+                                  "queue 1 item 5)")
+    rp = repetition_penalty
+
+    @torch.no_grad()
+    def gen(params, prompt, generator: torch.Generator | None = None):
+        params = _cast_decode_params(params, cfg)   # once, outside the loop
+        dev = params["wte"].device
+        prompt = _prompt_tensor(prompt, cfg, max_new, dev)
+        B, P = prompt.shape
+        cache = init_kv_cache(cfg, B, device=dev)
+        logits, cache = _prefill_body(params, cache, prompt, cfg)
+        out = torch.empty((B, P + max_new), dtype=torch.int32, device=dev)
+        out[:, :P] = prompt
+        seen = None
+        if rp != 1.0:
+            seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
+                               device=dev)
+            seen.scatter_(1, prompt.long(), True)
+        for t in range(max_new):
+            lg = logits
+            if seen is not None:
+                lg = torch.where(seen, torch.where(lg > 0, lg / rp, lg * rp),
+                                 lg)
+            nxt = sample_logits(lg, generator, temperature, top_k, top_p,
+                                min_p)
+            out[:, P + t] = nxt
+            if seen is not None:
+                seen.scatter_(1, nxt[:, None].long(), True)
+            if t + 1 < max_new:      # the last token's logits go unused
+                logits, cache = _decode_step_body(params, cache, nxt, cfg)
+        return out
+
+    return gen
+
+
+def generate(params, cfg: GPTConfig, prompt, max_new: int,
+             generator: torch.Generator | None = None,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0):
+    """Greedy / temperature / top-k / nucleus sampling with the KV cache,
+    JAX's host loop: a batched prefill (`make_prefill`), then one decode
+    step (`make_decode_step`) per token, each token fetched to the host.
+    Runs on the params' device; returns a (B, P + max_new) int32 numpy
+    array."""
+    params = prepare_decode_params(params, cfg)     # the steps' casts: free
+    decode = make_decode_step(cfg)
+    dev = params["wte"].device
+    prompt = _prompt_tensor(prompt, cfg, max_new, dev)
+    cache = init_kv_cache(cfg, prompt.shape[0], device=dev)
+    logits, cache = make_prefill(cfg)(params, cache, prompt)
+    out = [prompt.cpu().numpy()]
+    for t in range(max_new):
+        nxt = sample_logits(logits, generator, temperature, top_k, top_p)
+        out.append(nxt.cpu().numpy()[:, None])
+        if t + 1 < max_new:
+            logits, cache = decode(params, cache, nxt)
+    return np.concatenate(out, axis=1)
+
+
+def make_beam_search(cfg: GPTConfig, max_new: int, n_beams: int,
+                     quant: str | None = None):
+    """Beam search on the device: a batched prefill, then `max_new` steps,
+    each expanding every beam over the vocabulary, keeping the `n_beams`
+    highest-scoring continuations per batch row and reordering the KV
+    cache to the surviving parents (a batch-axis gather, as JAX's).
+
+    Returns search(params, prompt (B, P)) -> (tokens (B, K, P + max_new)
+    int32, scores (B, K) f32), beams best first by total log-probability.
+    Ties between equal scores go to the lower flat index (beam-major over
+    the vocabulary), as `lax.top_k` breaks them: a stable sort."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_quant(quant)
+    K = n_beams
+
+    @torch.no_grad()
+    def search(params, prompt):
+        params = _cast_decode_params(params, cfg)
+        dev = params["wte"].device
+        prompt = _prompt_tensor(prompt, cfg, max_new, dev)
+        B, P = prompt.shape
+        V = cfg.vocab_size
+        cache = init_kv_cache(cfg, B, device=dev)
+        logits, cache = _prefill_body(params, cache, prompt, cfg)
+        # replicate to B*K rows, b-major: row = b*K + k
+        cache["k"] = cache["k"].repeat_interleave(K, dim=1)
+        cache["v"] = cache["v"].repeat_interleave(K, dim=1)
+        logits = logits.repeat_interleave(K, dim=0)
+        # only beam 0 is live at first (the others are copies of it)
+        scores = torch.full((B, K), float("-inf"), device=dev)
+        scores[:, 0] = 0.0
+        buf = torch.zeros((B, K, max_new), dtype=torch.int32, device=dev)
+        rows = torch.arange(B, device=dev)[:, None]
+        for t in range(max_new):
+            logp = torch.log_softmax(logits.float(), -1)
+            total = (scores.reshape(B * K, 1) + logp).reshape(B, K * V)
+            top_s, top_i = torch.sort(total, stable=True, dim=-1,
+                                      descending=True)
+            top_s, top_i = top_s[:, :K], top_i[:, :K]
+            parent = top_i // V
+            token = (top_i % V).to(torch.int32)
+            flat = (rows * K + parent).reshape(-1)
+            cache["k"] = cache["k"].index_select(1, flat)
+            cache["v"] = cache["v"].index_select(1, flat)
+            buf = buf[rows, parent]
+            buf[:, :, t] = token
+            scores = top_s
+            if t + 1 < max_new:
+                logits, cache = _decode_step_body(params, cache,
+                                                  token.reshape(-1), cfg)
+        toks = torch.cat([prompt[:, None].expand(B, K, P), buf], dim=2)
+        return toks, scores
+
+    return search
+
+
+def make_speculative_generate(*args, **kwargs):
+    """Greedy speculative decoding: not ported yet."""
+    raise NotImplementedError("speculative decoding "
+                              "(make_speculative_generate) is not ported yet "
+                              "(ROADMAP.md queue 1 item 4)")
 
 
 # --------------------------------------------------------------------------
@@ -858,6 +1128,50 @@ def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
     lse = torch.logsumexp(logits32, -1)
     tgt = logits32.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - tgt).mean()
+
+
+@functools.lru_cache(maxsize=32)
+def make_eval_step(cfg: GPTConfig, *, pad_id: int | None = None):
+    """Evaluation step: (params, tokens, targets) -> (summed token CE, token
+    count), both f32 0-d tensors. Dropout is off (the config is replaced
+    with dropout 0, as JAX does), the LM-head logits are f32, and positions
+    whose TARGET equals `pad_id` are left out, so dataset-level perplexity
+    is exact under ragged batching. Cached on (cfg, pad_id)."""
+    ecfg = dataclasses.replace(cfg, dropout=0.0)
+
+    @torch.no_grad()
+    def step(params, tokens, targets):
+        B, S = tokens.shape
+        x = hidden_states(params, tokens, ecfg, train=False)
+        logits = _lm_head(x, params, ecfg)
+        lse = torch.logsumexp(logits, -1)
+        tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+        per_pos = lse - tgt
+        if pad_id is not None:
+            w = (targets != pad_id).float()
+            return (per_pos * w).sum(), w.sum()
+        return per_pos.sum(), torch.tensor(float(B * S), device=lse.device)
+
+    return step
+
+
+def evaluate(params, cfg: GPTConfig, batches, *, pad_id: int | None = None):
+    """Host loop over an iterable of (tokens, targets) batches (arrays or
+    tensors, moved to the params' device) -> dict with the dataset-level
+    mean token loss, perplexity and token count. One sync per batch."""
+    step = make_eval_step(cfg, pad_id=pad_id)
+    dev = params["wte"].device
+    total = count = 0.0
+    for tokens, targets in batches:
+        s, n = step(params, torch.as_tensor(tokens, device=dev),
+                    torch.as_tensor(targets, device=dev))
+        total += float(s)
+        count += float(n)
+    if count == 0:
+        raise ValueError("evaluate() received no tokens")
+    loss = total / count
+    return {"loss": loss, "perplexity": math.exp(min(loss, 700.0)),
+            "tokens": int(count)}
 
 
 def opt_init(params, cfg: GPTConfig):

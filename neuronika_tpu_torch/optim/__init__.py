@@ -15,8 +15,9 @@ hyperparameters are f32 scalars, as JAX traces them. State takes the
 parameter's dtype (or `state_dtype` where offered) but for Adafactor's
 and Muon's, which are f32, as in JAX.
 
-`functional` holds the functional tier's Adam and clipping over params
-trees; its other rules are not ported yet (ROADMAP.md queue 1 item 2).
+`functional` holds the functional tier's rules over params trees (SGD,
+Adam, AMSGrad, Adagrad, RMSProp, AdamW, Lion, Muon, Adafactor, EMA,
+`warmup_cosine_schedule`, clipping), updating in place.
 """
 
 from __future__ import annotations

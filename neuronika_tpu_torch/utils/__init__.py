@@ -1,17 +1,25 @@
 """Utilities of the port (counterpart of `neuronika_tpu/utils/`): JSON and
-NPZ serialization of variables, layers, models and optimizer state
-(`serde`), and finite-difference gradient checking (`gradcheck`). The
-JAX package's metrics, checkpoint, hub, aot, profiler and hf modules are
-not ported yet."""
+NPZ serialization of variables, layers, models, optimizer state and
+functional params trees (`serde`, `save_pytree`/`load_pytree` in the JAX
+package's layout), train-state checkpoints (`checkpoint.Checkpointer`,
+torch-native where the JAX package uses orbax), the JSONL metrics logger
+(`metrics.MetricsLogger`) and finite-difference gradient checking
+(`gradcheck`). The JAX package's hub, aot, profiler and hf modules are not
+ported yet (ROADMAP.md queue 1 items 3 and 5)."""
 
-from . import serde
+from . import checkpoint, metrics, serde
+from .checkpoint import Checkpointer, restore_train_state, save_train_state
 from .gradcheck import gradcheck
+from .metrics import MetricsLogger
 from .serde import (dumps, load_layer, load_npz, load_optimizer,
-                    load_state_dict, loads, save_layer, save_npz,
-                    save_optimizer, state_dict, var_from_dict, var_to_dict)
+                    load_pytree, load_state_dict, loads, save_layer,
+                    save_npz, save_optimizer, save_pytree, state_dict,
+                    var_from_dict, var_to_dict)
 
 __all__ = [
     "serde", "gradcheck", "dumps", "loads", "var_to_dict", "var_from_dict",
     "save_layer", "load_layer", "state_dict", "load_state_dict",
     "save_npz", "load_npz", "save_optimizer", "load_optimizer",
+    "save_pytree", "load_pytree", "metrics", "MetricsLogger",
+    "checkpoint", "Checkpointer", "save_train_state", "restore_train_state",
 ]

@@ -14,6 +14,7 @@ import torch
 from neuronika_tpu_torch import device as D
 from neuronika_tpu_torch.models import transformer as T
 from neuronika_tpu_torch.serving import ContinuousBatcher, PagedBatcher
+from neuronika_tpu_torch.train import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
@@ -45,7 +46,12 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch.examples",
            "neuronika_tpu_torch.examples.quickstart",
            "neuronika_tpu_torch.examples.mnist_cnn",
-           "neuronika_tpu_torch.examples.char_rnn")
+           "neuronika_tpu_torch.examples.char_rnn",
+           "neuronika_tpu_torch.train", "neuronika_tpu_torch.utils.metrics",
+           "neuronika_tpu_torch.utils.checkpoint",
+           "neuronika_tpu_torch.data.tokenizer",
+           "neuronika_tpu_torch.examples.text_pipeline",
+           "neuronika_tpu_torch.examples.gpt_train")
 
 
 def _cfg(**kw):
@@ -87,7 +93,7 @@ def test_import_pulls_in_neither_jax_nor_triton():
     "logspace", "geomspace", "range", "cat", "stack", "Zero", "Constant",
     "Reflective", "Replicative", "Param", "Learnable", "to_device",
     "device_of", "nn", "data", "utils", "Device", "devices",
-    "default_device"])
+    "default_device", "train"])
 def test_package_exposes_the_define_by_run_surface(name):
     import neuronika_tpu_torch as nk
 
@@ -129,6 +135,26 @@ def test_unported_model_variants_raise(kw):
     against JAX by test_torch_llama.py::test_single_variant_matches_jax.)"""
     with pytest.raises(NotImplementedError):
         _cfg(**kw)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: T.init_kv_cache(_cfg(), 2, quant="int8-kv", device="cpu"),
+    lambda: T.make_decode_step(_cfg(), quant="int8"),
+    lambda: T.make_prefill(_cfg(), quant="int4"),
+    lambda: T.make_generate(_cfg(), 4, quant="int8"),
+    lambda: T.make_generate(_cfg(), 4, mesh=object()),
+    lambda: T.make_beam_search(_cfg(), 4, 2, quant="int8"),
+    lambda: T.make_speculative_generate(_cfg(), _cfg(), 4),
+    lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object()),
+    lambda: Trainer(_cfg(), generator=torch.Generator(), fsdp=True),
+], ids=["init_kv_cache-quant", "make_decode_step-quant",
+        "make_prefill-quant", "make_generate-quant", "make_generate-mesh",
+        "make_beam_search-quant", "make_speculative_generate",
+        "Trainer-mesh", "Trainer-fsdp"])
+def test_unported_loop_options_raise_and_name_their_queue_item(call):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 "
+                                                  r"item [45]"):
+        call()
 
 
 def test_kernel_on_refuses_cpu_tensors(params):
