@@ -128,7 +128,28 @@ nvidia-smi. Phases, each printing one line or a few:
      phase 5's requests, seeded top-k sampling repeatable and inside each
      step's top 50; tokens/s); and the twins of the JAX package's
      text_pipeline and gpt_train examples at their sizes (losses fall;
-     gpt_train's K1/K2 launches exact).
+     gpt_train's K1/K2 launches exact);
+ 17. the other model families at published widths, bf16, 2 warm-up and 3
+     timed steps each (step time, tokens or images a second, peak memory,
+     launches derived from the config and held exact): BERT-base MLM
+     (Devlin et al. 2019; B32 S512, f32 Adam, remat: K1 and K2 without a
+     causal mask) and one classifier step; t5-base's widths (Raffel et al.
+     2020) on this repo's encoder-decoder (source 512, target 128, B16:
+     K1/K2 in the encoder, K5-K7 in the decoder's causal self-attention
+     and its cross-attention at Sq 128, Skv 512) and greedy generation of
+     8 tokens; ViT-B/16 (Dosovitskiy et al. 2021; 224x224, B64; plain
+     PyTorch, no kernel); the Switch MoE GPT (Fedus et al. 2022: 8
+     experts, sort dispatch, capacity 1.25, aux weight 0.01) at phase 6's
+     width, B16 S2048, then in f32 on a small model its three dispatches
+     against each other, their decode logits, and generate's greedy
+     tokens against PagedBatcher(kernel="on") (K11); LoRA and QLoRA (rank
+     8 on qkv and proj) at phase 6's headline, the base bit for bit the
+     same, the adapters moved, the persistent state's bytes; the kernel
+     routes on the card against the plain routes on the CPU (f32, small:
+     a BERT, a T5 at Sq != Skv with its greedy tokens, an MoE GPT per
+     dispatch) within phase 7's bounds; and the twin of the JAX package's
+     resnet_cifar example at its size (bf16, conv_impl "pallas": K12 and
+     K13 held exact).
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -188,11 +209,12 @@ its bytes over 3.35 TB/s and its FLOPs over the peak of its type (989
 TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM; for K3 in f32, the least time of
 f32-accurate products on the card, 3 TF32 products at 495 TFLOP/s (165).
 With --profile, one more step of phases 6 (the headline, the dropout run,
-the defaults and the fused-CE run), 8, 9, 11 and 13 runs under
-torch.profiler: each one's device time by kernel kind is printed and its
-kernel table written to TABLE_PATH (the others beside it, "_dropout",
-"_split", "_fused_ce", "_var", "_var2d", "_mistral" and "_resnet" added to
-the name).
+the defaults and the fused-CE run), 8, 9, 11, 13 and 17 (BERT, T5, ViT,
+MoE, LoRA, QLoRA) runs under torch.profiler: each one's device time by
+kernel kind is printed and its kernel table written to TABLE_PATH (the
+others beside it, "_dropout", "_split", "_fused_ce", "_var", "_var2d",
+"_mistral", "_resnet", "_bert", "_t5", "_vit", "_moe", "_lora" and
+"_qlora" added to the name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -740,35 +762,19 @@ def train_steps(T, kernels, cfg, n_warm, n_timed, batch, lr, profile=None,
     opt = T.opt_init(params, cfg)
     step = T.make_train_step(cfg)
     toks, tgts = batch
-    losses = []
-    for _ in range(n_warm):
+
+    def run():
+        nonlocal params, opt
         params, opt, loss = step(params, opt, toks, tgts, lr, gen)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    sm90 = [k for k in kernels if hasattr(k, "sm90_launches")]
-    for k in kernels:
-        k.launches = 0
-    for k in sm90:
-        k.sm90_launches = 0
-    t0 = time.perf_counter()
-    for _ in range(n_timed):
-        params, opt, loss = step(params, opt, toks, tgts, lr, gen)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / n_timed
-    launches = {k.__name__: k.launches for k in kernels}
-    launches.update({f"{k.__name__}.sm90": k.sm90_launches for k in sm90})
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if profile:
-        profile_step(lambda: step(params, opt, toks, tgts, lr, gen), label,
-                     profile)
+        return loss
+
+    losses, launches, step_s, peak = model_steps(
+        run, kernels, n_warm, n_timed, profile, label)
     held = None
     if heldout is not None:
         with torch.no_grad():
             held = float(T.loss_fn(params, *heldout, cfg))
-    losses = [float(l) for l in losses]
-    del params, opt
+    del params, opt, run
     torch.cuda.empty_cache()
     return losses, launches, step_s, peak, held
 
@@ -1431,7 +1437,10 @@ def phase_var_routes(nk, T, FA, MM, SM):
 # hd); windows cut the 64-row tiles anywhere or cover all of S; then the
 # bf16 K6/K7 geometry (64-row steps, 128-row CTAs): windows on either side
 # of a step or a CTA, ragged S with a window below 128, and full attention
-# ragged on both sides
+# ragged on both sides; then phase 17's T5 shapes (H12 hd64): the
+# decoder's causal self-attention at S128 and cross-attention at Sq 128
+# over Skv 512, and greedy generation's steps, causal at Sq = Skv 1 to 8
+# and cross-attention at Sq 1 to 8 over Skv 512 (less than one q tile)
 SPLIT_CASES = (
     ("causal-hd128", 2, 4, 512, 512, True, 0, 128),
     ("window1-hd128", 2, 4, 512, 512, True, 1, 128),
@@ -1446,6 +1455,11 @@ SPLIT_CASES = (
     ("window100-hd128-S129", 2, 4, 129, 129, True, 100, 128),
     ("window37-hd64-S1000", 2, 4, 1000, 1000, True, 37, 64),
     ("full-Sq130-Skv1000-hd128", 2, 4, 130, 1000, False, 0, 128),
+    ("t5-causal-S128-hd64", 2, 12, 128, 128, True, 0, 64),
+    ("t5-full-Sq128-Skv512-hd64", 2, 12, 128, 512, False, 0, 64),
+    *((f"t5-causal-S{n}-hd64", 2, 12, n, n, True, 0, 64) for n in (1, 5, 8)),
+    *((f"t5-full-Sq{n}-Skv512-hd64", 2, 12, n, 512, False, 0, 64)
+      for n in (1, 5, 8)),
 )
 # f32: the same math in another summation order (dq, dk, dv sum up to S
 # products per element: their bound is relative to the largest gradient
@@ -3753,17 +3767,612 @@ def phase_lm_loop(T, FA, CE, PA, PagedBatcher, prompts, head_step_ms):
     return flash, k11
 
 
+# --------------------------------------------------------------------------
+# phase 17: the other model families (BERT, T5, ViT, the MoE GPT, LoRA and
+# QLoRA, the resnet_cifar twin)
+
+# Devlin et al. 2019, BERT-base (MLM at B32 S512)
+BERT_BASE = dict(vocab_size=30522, n_layer=12, n_head=12, d_model=768,
+                 d_ff=3072, max_seq=512)
+# Raffel et al. 2020, t5-base's widths, on this repo's encoder-decoder
+# (learned positions, LayerNorm, GELU, no relative attention bias)
+T5_BASE = dict(vocab_size=32128, n_layer=12, n_head=12, d_model=768,
+               d_ff=3072, max_src=512, max_tgt=128)
+# Dosovitskiy et al. 2021, Table 1: ViT-B/16 on 224x224, 1000 classes
+VIT_B16 = dict(image=224, patch=16, d_model=768, n_layer=12, n_head=12,
+               d_ff=3072, num_classes=1000)
+# phase 6's width with 8 Switch experts (Fedus et al. 2022: training
+# capacity factor 1.25, aux weight alpha 0.01)
+MOE = dict(n_experts=8, moe_impl="sort", moe_capacity=1.25,
+           moe_aux_weight=0.01)
+MODEL_WARM, MODEL_TIMED = 2, 3
+# the small f32 models of phase 17's card-against-CPU checks (hd 128)
+MODEL_SMALL = dict(vocab_size=512, n_layer=2, n_head=2, d_model=256,
+                   max_seq=256, dtype=torch.float32)
+
+
+def model_steps(run, kernels, n_warm=MODEL_WARM, n_timed=MODEL_TIMED,
+                profile=None, label=""):
+    """`run()` takes one train step and returns its loss tensor: n_warm
+    warm-up steps, then n_timed timed ones (and, with a `profile` path, one
+    more under the profiler). Returns the losses, the launches of
+    `kernels` in the timed steps (launch_counts), the step time in s and
+    the peak memory of the timed steps in GiB."""
+    losses = [run() for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "sm90_launches"):
+            k.sm90_launches = 0
+    t0 = time.perf_counter()
+    losses += [run() for _ in range(n_timed)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    launches = launch_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if profile:
+        profile_step(run, label, profile)
+    return [float(l) for l in losses], launches, step_s, peak
+
+
+def launch_counts(kernels):
+    """{name: launches} of `kernels`, and {"name.sm90": launches of its
+    Hopper kernel} for those that count them apart."""
+    counts = {k.__name__: k.launches for k in kernels}
+    counts.update({f"{k.__name__}.sm90": k.sm90_launches for k in kernels
+                   if hasattr(k, "sm90_launches")})
+    return counts
+
+
+def profile_path(profile, name):
+    """TABLE_PATH with "_name" before its extension, or None."""
+    if not profile:
+        return None
+    root, ext = os.path.splitext(profile)
+    return f"{root}_{name}{ext}"
+
+
+def want_launches(kernels, **counts):
+    """launch_counts' keys, all 0 but `counts`."""
+    want = dict.fromkeys(launch_counts(kernels), 0)
+    want.update(counts)
+    return want
+
+
+def counted(kernels, run):
+    """run(), and the launches of `kernels` it made (launch_counts)."""
+    before = launch_counts(kernels)
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in launch_counts(kernels).items()}
+
+
+def tree_numel(tree) -> int:
+    from neuronika_tpu_torch._tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def tree_bytes(*trees) -> int:
+    from neuronika_tpu_torch._tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree_leaves(tree))
+
+
+def models_bert(T, B_, OF, kernels, profile=None):
+    """Phase 17 (a): BERT-base MLM pre-training, bf16, B32 S512, the
+    GPTConfig defaults (remat: K1 twice a layer, split K2), then one
+    classifier step. Returns the MLM run's launches and a summary line."""
+    cfg = B_.bert_config(dtype=torch.bfloat16, flash="on", **BERT_BASE)
+    L, n, B, S = cfg.n_layer, MODEL_TIMED, 32, 512
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = T.init_params(gen, cfg, "cuda")
+    opt = T.opt_init(params, cfg)
+    step = B_.make_mlm_train_step(cfg)
+    toks = torch.from_numpy(np.random.default_rng(17).integers(
+        0, cfg.vocab_size - 1, size=(B, S))).cuda()
+    losses, launches, step_s, peak = model_steps(
+        lambda: step(params, opt, toks, 1e-4, gen)[2], kernels,
+        profile=profile_path(profile, "bert"), label="one BERT-base step")
+    check(all(np.isfinite(losses)), f"phase 17 BERT: MLM losses {losses}")
+    want = want_launches(kernels, flash_fwd_qkv=2 * L * n,
+                         flash_bwd_dq_qkv=L * n, flash_bwd_dkv_qkv=L * n)
+    check(launches == want, f"phase 17 BERT: launches {launches}, want "
+                            f"{want}")
+    del opt
+    head = B_.init_classifier(gen, cfg, 2, device="cuda")
+    copt = OF.adam_init([params, head])
+    cstep = B_.make_classifier_train_step(cfg, 2)
+    labels = torch.arange(B, device="cuda") % 2
+    (_, _, _, closs), ran = counted(kernels, lambda: cstep(
+        params, head, copt, toks, labels, 1e-4, gen))
+    want = want_launches(kernels, flash_fwd_qkv=2 * L, flash_bwd_dq_qkv=L,
+                         flash_bwd_dkv_qkv=L)
+    check(ran == want and math.isfinite(float(closs)),
+          f"phase 17 BERT classifier: loss {float(closs)}, launches {ran}")
+    del params, copt, head
+    torch.cuda.empty_cache()
+    return launches, (
+        f"(a) BERT-base (L12 d768 H12 d_ff 3072 V30522, bf16, f32 Adam, "
+        f"remat) MLM at B32 S512: step {step_s * 1e3:.1f} ms, "
+        f"{B * S / step_s:.0f} tokens/s, peak {peak:.2f} GiB; losses "
+        f"{[round(v, 4) for v in losses]}; K1 {launches['flash_fwd_qkv']}"
+        f", K2a {launches['flash_bwd_dq_qkv']}, K2b "
+        f"{launches['flash_bwd_dkv_qkv']} (non-causal); one classifier "
+        f"step, loss {float(closs):.4f}")
+
+
+def models_t5(T5, OF, kernels, profile=None):
+    """Phase 17 (b): t5-base's widths, bf16, source 512, target 128, B16:
+    the encoder on K1/K2, the decoder's causal self-attention (S128) and
+    cross-attention (Sq 128, Skv 512) on K5-K7; then greedy_generate for
+    8 tokens. Returns the train run's launches, the generation's and a
+    summary line."""
+    cfg = T5.Seq2SeqConfig(dtype=torch.bfloat16, flash="on", **T5_BASE)
+    L, n, B = cfg.n_layer, MODEL_TIMED, 16
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = T5.init_params(gen, cfg, "cuda")
+    opt = OF.adam_init(params)
+    step = T5.make_train_step(cfg)
+    rng = np.random.default_rng(17)
+    src = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 512))).cuda()
+    tgt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 129))).cuda()
+    losses, launches, step_s, peak = model_steps(
+        lambda: step(params, opt, src, tgt[:, :-1], tgt[:, 1:], 1e-4, gen)[2],
+        kernels, profile=profile_path(profile, "t5"),
+        label="one t5-base step")
+    check(all(np.isfinite(losses)), f"phase 17 T5: losses {losses}")
+    want = want_launches(
+        kernels, flash_fwd_qkv=2 * L * n, flash_bwd_dq_qkv=L * n,
+        flash_bwd_dkv_qkv=L * n, flash_fwd=2 * L * n, flash_bwd_dq=2 * L * n,
+        flash_bwd_dkv=2 * L * n)
+    check(launches == want, f"phase 17 T5: launches {launches}, want {want}")
+    del opt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ran = counted(kernels, lambda: T5.greedy_generate(
+        params, src, cfg, bos_id=0, max_new=8))
+    gen_s = time.perf_counter() - t0
+    want = want_launches(kernels, flash_fwd_qkv=L, flash_fwd=2 * L * 8)
+    check(out.shape == (B, 9) and out.min() >= 0
+          and out.max() < cfg.vocab_size and ran == want,
+          f"phase 17 T5 generate: {out.shape}, launches {ran}, want {want}")
+    del params
+    torch.cuda.empty_cache()
+    return launches, ran, (
+        f"(b) t5-base widths (12 + 12 layers, d768 H12 d_ff 3072 V32128; "
+        f"learned positions, LayerNorm, GELU, no relative bias), bf16, f32 "
+        f"Adam, source 512, target 128, B16: step {step_s * 1e3:.1f} ms, "
+        f"{B * 128 / step_s:.0f} target tokens/s ({B * 640 / step_s:.0f} "
+        f"source + target), peak {peak:.2f} GiB; losses "
+        f"{[round(v, 4) for v in losses]}; launches {launches}; "
+        f"greedy_generate, 8 tokens for 16 sources, {gen_s:.3f} s, "
+        f"launches {ran}")
+
+
+def models_vit(V, OF, kernels, profile=None):
+    """Phase 17 (c): ViT-B/16 on 224x224, B64, bf16 (weights stored in
+    bf16 and Adam state in their dtype, JAX's ViT rule): no kernel."""
+    cfg = V.ViTConfig(dtype=torch.bfloat16, **VIT_B16)
+    B = 64
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = V.init_params(gen, cfg, "cuda")
+    opt = OF.adam_init(params)
+    step = V.make_train_step(cfg)
+    x = torch.rand((B, 224, 224, 3), generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
+    losses, launches, step_s, peak = model_steps(
+        lambda: step(params, opt, x, y, 1e-4)[2], kernels,
+        profile=profile_path(profile, "vit"), label="one ViT-B/16 step")
+    check(all(np.isfinite(losses)), f"phase 17 ViT: losses {losses}")
+    check(not any(launches.values()), f"phase 17 ViT: launches {launches}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return (f"(c) ViT-B/16 (L12 d768 H12 MLP 3072, 224x224, 1000 classes), "
+            f"bf16 weights and Adam state, B64: step {step_s * 1e3:.1f} ms, "
+            f"{B / step_s:.1f} images/s, peak {peak:.2f} GiB; losses "
+            f"{[round(v, 4) for v in losses]}; no kernel")
+
+
+def models_moe(T, PA, PagedBatcher, kernels, profile=None):
+    """Phase 17 (d): the Switch MoE GPT at phase 6's width (8 experts, sort
+    dispatch, capacity 1.25, aux 0.01; GPTConfig defaults: remat, split
+    K2, f32 Adam), B16 S2048; then in f32 on a small model: the three
+    dispatches agree at full capacity, sparse and sort at capacity 1.0,
+    their decode logits agree, and generate's greedy tokens equal
+    PagedBatcher(kernel="on")'s (K11). Returns the train run's launches,
+    the K11 launches and a summary line."""
+    rng = np.random.default_rng(0)
+    B, S = 16, 2048
+    toks = rng.integers(0, TRAIN_CFG["vocab_size"], size=(B, S))
+    batch = (torch.from_numpy(toks).cuda(),
+             torch.from_numpy(np.roll(toks, -1, axis=1)).cuda())
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **MOE)
+    L, n = cfg.n_layer, MODEL_TIMED
+    losses, launches, step_s, peak, _ = train_steps(
+        T, kernels, cfg, MODEL_WARM, n, batch, 5e-4,
+        profile_path(profile, "moe"), "one MoE GPT step")
+    # the parameter count from a fresh tree's leaves
+    n_params = tree_numel(T.init_params(torch.Generator("cuda"), cfg, "cuda"))
+    check(all(np.isfinite(losses)), f"phase 17 MoE: losses {losses}")
+    want = dict.fromkeys(launches, 0)     # the ".sm90" counts of K8-K10
+    want.update(flash_fwd_qkv=2 * L * n, flash_bwd_dq_qkv=L * n,
+                flash_bwd_dkv_qkv=L * n)
+    check(launches == want, f"phase 17 MoE: launches {launches}, want "
+                            f"{want}")
+    line = (f"(d) Switch MoE GPT (d1536 L8 H12 d_ff 6144 V16384, 8 experts, "
+            f"sort dispatch, capacity 1.25, aux 0.01; {n_params / 1e9:.3f} B "
+            f"params), bf16, f32 Adam, remat, B16 S2048: step "
+            f"{step_s * 1e3:.1f} ms, {B * S / step_s:.0f} tokens/s, peak "
+            f"{peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; "
+            f"launches {launches}")
+
+    # f32, small: the dispatches against each other
+    base = dict(MODEL_SMALL, d_ff=512, n_experts=4)
+    params = T.init_params(torch.Generator("cuda").manual_seed(5),
+                           T.GPTConfig(**base), "cuda")
+    x = torch.from_numpy(rng.integers(0, 512, size=(2, 64))).cuda()
+
+    def logits(impl, cap):
+        return T.forward(params, x, T.GPTConfig(moe_impl=impl,
+                                                moe_capacity=cap, **base))
+
+    full = {impl: logits(impl, 8.0) for impl in ("dense", "sparse", "sort")}
+    e_full = max(float((full[i] - full["dense"]).abs().max())
+                 for i in ("sparse", "sort"))
+    e_drop = float((logits("sparse", 1.0) - logits("sort", 1.0)).abs().max())
+    check(e_full <= F32_TOL and e_drop <= F32_TOL,
+          f"phase 17 MoE dispatch: full capacity {e_full}, capacity 1.0 "
+          f"sparse vs sort {e_drop}")
+    toks8 = torch.from_numpy(rng.integers(0, 512, size=(8, 6))).cuda()
+    dec = {}
+    for impl in ("dense", "sparse", "sort"):
+        cfg32 = T.GPTConfig(moe_impl=impl, moe_capacity=0.25, **base)
+        step = T.make_decode_step(cfg32)
+        cache = T.init_kv_cache(cfg32, 8, device="cuda")
+        for t in range(6):
+            lg, cache = step(params, cache, toks8[:, t])
+        dec[impl] = lg
+    e_dec = max(float((dec[i] - dec["dense"]).abs().max())
+                for i in ("sparse", "sort"))
+    check(e_dec <= 1e-6, f"phase 17 MoE decode logits differ by {e_dec}")
+    # serving: prefill through sort at capacity 1.0 (tokens drop as in
+    # generate's one-prompt prefill), decode by the dense routing on K11
+    cfg32 = T.GPTConfig(moe_impl="sort", moe_capacity=1.0, **base)
+    prompts = [rng.integers(0, 512, size=m, dtype=np.int32)
+               for m in (17, 40, 64, 9)]
+    PA.paged_attention.launches = 0
+    _, paged, steps, finite, _ = serve(
+        PagedBatcher, params, cfg32, prompts, [12] * 4, n_slots=2,
+        n_blocks=64, block_size=16, kernel="on")
+    k11 = PA.paged_attention.launches
+    check(finite and k11 == cfg32.n_layer * steps,
+          f"phase 17 MoE serving: finite {finite}, K11 {k11}")
+    for p, want_tok in zip(prompts, paged):
+        got = T.generate(params, cfg32, p[None], 12)[0, len(p):]
+        check(np.array_equal(got, want_tok), f"phase 17 MoE: generate "
+                                             f"{got} != paged {want_tok}")
+    del params
+    torch.cuda.empty_cache()
+    line += (f"; f32 d256 E4: dense, sparse and sort logits within "
+             f"{e_full:.3g} at capacity 8, sparse vs sort {e_drop:.3g} at "
+             f"1.0 (bound {F32_TOL}), decode logits within {e_dec:.3g} "
+             f"(bound 1e-6), generate = PagedBatcher(kernel='on') on 4 "
+             f"requests x 12 tokens ({k11} K11 launches)")
+    return launches, k11, line
+
+
+def models_lora(T, LR, OF, kernels, profile=None):
+    """Phase 17 (e): LoRA and QLoRA (rank 8 on qkv and proj) at phase 6's
+    headline (d1536 L8 S2048 B16 bf16, fused K2, no remat): the base
+    unchanged bit for bit, the adapters moved, the persistent training
+    state. Returns the launches of both runs summed and a summary line."""
+    from neuronika_tpu_torch._tree import tree_leaves
+
+    rng = np.random.default_rng(0)
+    B, S = 16, 2048
+    toks = rng.integers(0, TRAIN_CFG["vocab_size"], size=(B, S))
+    tt = torch.from_numpy(toks).cuda()
+    tg = torch.from_numpy(np.roll(toks, -1, axis=1)).cuda()
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **HEADLINE)
+    L, n = cfg.n_layer, MODEL_TIMED
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = T.init_params(gen, cfg, "cuda")
+    n_base = tree_numel(params)
+    full_state = n_base * (4 + 2 * 2)      # f32 params, bf16 Adam m and v
+    total, parts = {}, []
+    for kind in ("lora", "qlora"):
+        base = LR.qlora_quantize_base(params) if kind == "qlora" else params
+        lora = LR.lora_init(gen, params, 8)
+        opt = OF.adam_init(lora)
+        step = (LR.make_qlora_train_step if kind == "qlora"
+                else LR.make_lora_train_step)(cfg)
+        before = [t.clone() for t in tree_leaves(base)]
+        losses, launches, step_s, peak = model_steps(
+            lambda: step(base, lora, opt, tt, tg, 5e-4, gen)[2], kernels,
+            profile=profile_path(profile, kind), label=f"one {kind} step")
+        check(all(np.isfinite(losses)), f"phase 17 {kind}: {losses}")
+        want = want_launches(kernels, flash_fwd_qkv=L * n,
+                             flash_bwd_fused_qkv=L * n)
+        check(launches == want, f"phase 17 {kind}: launches {launches}, "
+                                f"want {want}")
+        check(all(torch.equal(a, b) for a, b in zip(tree_leaves(base),
+                                                    before)),
+              f"phase 17 {kind}: the base moved")
+        check(all(float(ab["B"].abs().max()) > 0 for ab in lora.values()),
+              f"phase 17 {kind}: an adapter did not move")
+        state = tree_bytes(base, lora, opt)
+        parts.append(
+            f"{kind} step {step_s * 1e3:.1f} ms, {B * S / step_s:.0f} "
+            f"tokens/s, peak {peak:.2f} GiB, persistent state (base + "
+            f"{LR.lora_param_count(lora) / 1e6:.2f} M adapters + their Adam)"
+            f" {state / 2 ** 30:.3f} GiB, losses "
+            f"{[round(v, 4) for v in losses]}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del base, lora, opt, before
+    del params
+    torch.cuda.empty_cache()
+    return total, (
+        f"(e) at phase 6's headline (d1536 L8 S2048 B16 bf16, rank 8 on "
+        f"qkv and proj, alpha 8): " + "; ".join(parts)
+        + f"; full fine-tuning's persistent state (f32 params, bf16 m and "
+        f"v) {full_state / 2 ** 30:.3f} GiB; the base bit for bit the same "
+        f"and every adapter moved in both; launches each: K1 {L * n}, the "
+        f"fused K2 {L * n}")
+
+
+def card_vs_cpu(what, params, loss_of, kernels, want):
+    """loss_of(tree, device) -> loss: its value and every gradient leaf on
+    the card (the kernels; launches held to `want`) and on the CPU (the
+    plain versions; no launch), within phase 7's bounds. Returns the CPU
+    loss, |d loss| and max |d grad|."""
+    from neuronika_tpu_torch._tree import tree_leaves, tree_unflatten
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).clone().requires_grad_()
+                  for t in tree_leaves(params)]
+
+        def run():
+            loss = loss_of(tree_unflatten(params, leaves), dev)
+            return loss, torch.autograd.grad(loss, leaves)
+
+        (loss, grads), ran = counted(kernels, run)
+        res[dev] = (float(loss.detach()), [g.cpu() for g in grads], ran)
+    check(not any(res["cpu"][2].values()) and res["cuda"][2] == want,
+          f"phase 17 {what}: launches {res['cuda'][2]}, want {want}")
+    return (res["cpu"][0],) + route_errs(f"phase 17 {what}", res["cpu"],
+                                         res["cuda"])
+
+
+# phase 17 (f), bf16: one MoE layer (`_moe_mlp`) on the card (the gate
+# by `_DotF32`, the experts' GEMMs by `_BmmF32`, bf16 operands with f32
+# results) against the CPU (operands widened exactly to f32) on the same
+# bf16 input. Both round to bf16 at the same points and sum in other
+# orders, so an entry rounded near a half-ulp moves by one ulp (2^-8
+# relative) here and there: the output, the loss and each gradient are
+# held in norm to MOE_BF16_REL of the CPU's. A planted fault must fail
+# that bound: the CPU's layer with experts 0 and 1 trading weights (the
+# tokens routed to one run the other's FFN).
+MOE_BF16_REL = 2 ** -6
+
+
+def moe_bf16_routes(T):
+    """Phase 17 (f), bf16: per dispatch, one MoE layer (D256 F512 E4, B2
+    S128, capacity 1.0) on the card against the CPU: the output, the loss
+    (the output's mean against a fixed random tensor, plus the aux loss)
+    and its gradients to x, the gate and every expert leaf (random
+    weights and biases, numpy seed 7), each held in norm to MOE_BF16_REL;
+    the swapped-expert fault must fail it. Returns {dispatch: (the largest
+    ratio, the fault's)}."""
+    rng = np.random.default_rng(7)
+    D, F_, E = 256, 512, 4
+
+    def rand(*shape, s=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * s).astype(np.float32))
+
+    leaves0 = {"gate": rand(D, E, s=D ** -0.5), "fc_in": rand(E, D, F_,
+               s=D ** -0.5), "fc_in_b": rand(E, F_, s=0.1),
+               "fc_out": rand(E, F_, D, s=F_ ** -0.5),
+               "fc_out_b": rand(E, D, s=0.1)}
+    x0 = rand(2, 128, D).to(torch.bfloat16)
+    r = rand(2, 128, D)
+    names = ("out", "loss", "x") + tuple(leaves0)
+    swap = torch.tensor([1, 0, 2, 3])
+
+    def run(cfg, dev, fault=False):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in leaves0.items()}
+        x = x0.to(dev).requires_grad_()
+        blk = {k: v[swap.to(dev)] if fault and k != "gate" else v
+               for k, v in leaves.items()}
+        out, aux = T._moe_mlp(x, blk, cfg)
+        loss = (out.float() * r.to(dev)).mean() + aux
+        grads = torch.autograd.grad(loss, [x, *leaves.values()])
+        return [t.detach().float().cpu() for t in (out, loss, *grads)]
+
+    def ratios(got, ref):
+        return {n: float((a - b).norm() / b.norm())
+                for n, a, b in zip(names, got, ref)}
+
+    res = {}
+    for impl in ("dense", "sparse", "sort"):
+        cfg = T.GPTConfig(**dict(MODEL_SMALL, dtype=torch.bfloat16),
+                          d_ff=F_, n_experts=E, moe_impl=impl,
+                          moe_capacity=1.0)
+        ref = run(cfg, "cpu")
+        card = ratios(run(cfg, "cuda"), ref)
+        fault = max(ratios(run(cfg, "cpu", fault=True), ref).values())
+        worst = max(card, key=card.get)
+        check(card[worst] <= MOE_BF16_REL,
+              f"phase 17 MoE bf16 {impl}: {worst} ||err||/||ref|| "
+              f"{card[worst]} > {MOE_BF16_REL} ({card})")
+        check(fault > MOE_BF16_REL, f"phase 17 MoE bf16 {impl}: the "
+              f"swapped-expert fault reads {fault} <= {MOE_BF16_REL}")
+        res[impl] = (card[worst], fault)
+    return res
+
+
+def models_routes(T, B_, T5, kernels):
+    """Phase 17 (f): the kernel route on the card against the plain route
+    on the CPU, f32, d256 H2 (hd 128) L2: a BERT's MLM loss (B2 S256), a
+    T5's loss (source 256, target 96) and its greedy tokens, an MoE GPT's
+    loss per dispatch (capacity 1.0, aux 0.01); each within phase 7's
+    bounds, launches exact. Then a bf16 MoE layer per dispatch
+    (moe_bf16_routes)."""
+    from neuronika_tpu_torch._tree import tree_map
+
+    rng = np.random.default_rng(3)
+    L, errs = 2, {}
+    cfg = B_.bert_config(d_ff=1024, remat=False, flash="on", **MODEL_SMALL)
+    params = T.init_params(torch.Generator("cuda").manual_seed(1), cfg,
+                           "cuda")
+    toks = torch.from_numpy(rng.integers(0, 511, size=(2, 256)))
+    c, lab, w = B_.mask_tokens(torch.Generator().manual_seed(3), toks, 511,
+                               512)
+    errs["bert"] = card_vs_cpu(
+        "BERT", params, lambda p, d: B_.mlm_loss_fn(
+            p, c.to(d), lab.to(d), w.to(d), cfg, train=True), kernels,
+        want_launches(kernels, flash_fwd_qkv=L, flash_bwd_dq_qkv=L,
+                      flash_bwd_dkv_qkv=L))
+    t5cfg = T5.Seq2SeqConfig(vocab_size=512, n_layer=2, n_head=2,
+                             d_model=256, d_ff=512, max_src=256,
+                             max_tgt=128, dtype=torch.float32, flash="on")
+    params = T5.init_params(torch.Generator("cuda").manual_seed(2), t5cfg,
+                            "cuda")
+    src = torch.from_numpy(rng.integers(0, 512, size=(2, 256)))
+    tgt = torch.from_numpy(rng.integers(0, 512, size=(2, 97)))
+    errs["t5"] = card_vs_cpu(
+        "T5", params, lambda p, d: T5.loss_fn(
+            p, src.to(d), tgt[:, :-1].to(d), tgt[:, 1:].to(d), t5cfg,
+            train=True), kernels,
+        want_launches(kernels, flash_fwd_qkv=2 * L, flash_bwd_dq_qkv=L,
+                      flash_bwd_dkv_qkv=L, flash_fwd=2 * L,
+                      flash_bwd_dq=2 * L, flash_bwd_dkv=2 * L))
+    card = T5.greedy_generate(params, src, t5cfg, bos_id=0, max_new=6)
+    cpu = T5.greedy_generate(tree_map(lambda t: t.cpu(), params), src,
+                             t5cfg, bos_id=0, max_new=6)
+    check(np.array_equal(card, cpu), f"phase 17 T5: greedy tokens card "
+                                     f"{card} vs CPU {cpu}")
+    for impl in ("dense", "sparse", "sort"):
+        cfg = T.GPTConfig(d_ff=512, remat=False, n_experts=4,
+                          moe_impl=impl, moe_capacity=1.0,
+                          moe_aux_weight=0.01, **MODEL_SMALL)
+        params = T.init_params(torch.Generator("cuda").manual_seed(4), cfg,
+                               "cuda")
+        errs[f"moe-{impl}"] = card_vs_cpu(
+            f"MoE {impl}", params, lambda p, d: T.loss_fn(
+                p, toks.to(d), toks.roll(-1, 1).to(d), cfg, train=True),
+            kernels, want_launches(kernels, flash_fwd_qkv=L,
+                                   flash_bwd_dq_qkv=L, flash_bwd_dkv_qkv=L))
+    bf16 = moe_bf16_routes(T)
+    return ("(f) kernel route (card) vs plain route (CPU), f32 d256 H2 hd128 "
+            "L2; loss, |d loss|, max |d grad| per leaf: " + ", ".join(
+                f"{k} {a:.6f}, {b:.3g}, {c:.3g}"
+                for k, (a, b, c) in errs.items())
+            + f" (bounds {ROUTE_LOSS_TOL}, {ROUTE_GRAD_TOL}); T5 greedy "
+            f"tokens the same on both; bf16 MoE layer (D256 F512 E4, B2 "
+            f"S128), largest ||err||/||ref|| of output, loss and gradients "
+            f"against the CPU, beside the swapped-expert fault's: " + ", ".join(
+                f"{k} {a:.3g} (fault {b:.3g})" for k, (a, b) in bf16.items())
+            + f" (bound {MOE_BF16_REL})")
+
+
+def models_resnet_cifar(R, C, resnet_cifar):
+    """Phase 17 (g): the resnet_cifar twin at the example's size (300
+    steps, B64, 32x32, stages (2, 2, 2), width 32; bf16, conv_impl
+    "pallas"), K12/K13 launches derived from the config and held exact.
+    Returns its launches (with "name.sm90" counts) and a summary line."""
+    cfg = R.ResNetConfig(stages=(2, 2, 2), width=32, num_classes=10)
+    k12, k13 = C.conv2d_direct_nhwc, C.conv2d_dw_nhwc
+    for k in C.KERNELS:
+        k.launches = 0
+    for k in (k12, k13):
+        k.sm90_launches = 0
+    t0 = time.perf_counter()
+    out = resnet_cifar.main(device="cuda", verbose=False)
+    wall = time.perf_counter() - t0
+    steps, fwd = len(out["losses"]), len(R.conv_strides(cfg))
+    launches = {k.__name__: k.launches for k in C.KERNELS}
+    want = conv_launch_want(R, cfg, steps)
+    want["conv2d_direct_nhwc"] += fwd            # the eval forward
+    check(launches == want, f"phase 17 resnet_cifar: launches {launches}, "
+                            f"want {want}")
+    sm90 = {k.__name__: k.sm90_launches for k in (k12, k13)}
+    want = conv_sm90_want(R, cfg, steps)
+    want["conv2d_direct_nhwc"] += fwd - 1        # all but the stem
+    check(sm90 == want, f"phase 17 resnet_cifar: Hopper launches {sm90}, "
+                        f"want {want}")
+    losses = out["losses"]
+    check(all(np.isfinite(losses)) and np.mean(losses[-20:]) < losses[0],
+          f"phase 17 resnet_cifar: losses {losses[::30]}")
+    launches.update({f"{k}.sm90": v for k, v in sm90.items()})
+    return launches, (
+        f"(g) resnet_cifar twin (stages (2, 2, 2), width 32, bf16, "
+        f"conv_impl pallas, {steps} steps of B64): {wall:.2f} s, loss "
+        f"{losses[0]:.3f} -> {np.mean(losses[-20:]):.3f} (mean of the last "
+        f"20), synthetic accuracy {out['accuracy']:.3f}; K12 "
+        f"{launches['conv2d_direct_nhwc']} (Hopper "
+        f"{sm90['conv2d_direct_nhwc']}), K13 {launches['conv2d_dw_nhwc']} "
+        f"(Hopper {sm90['conv2d_dw_nhwc']})")
+
+
+def phase_models(T, FA, CE, PA, C, R, PagedBatcher, profile=None):
+    """Phase 17: the model families; returns the launches by kernel name
+    (the conv rows' Hopper counts as "name.sm90"). With a `profile` path,
+    one more step of each timed run is profiled (the profile step's
+    launches are not counted)."""
+    from neuronika_tpu_torch.examples import resnet_cifar
+    from neuronika_tpu_torch.models import bert as B_
+    from neuronika_tpu_torch.models import lora as LR
+    from neuronika_tpu_torch.models import t5 as T5
+    from neuronika_tpu_torch.models import vit as V
+    from neuronika_tpu_torch.optim import functional as OF
+
+    kernels = train_kernels(FA, CE)
+    t0 = time.perf_counter()
+
+    def done(line):
+        print(f"phase 17 {line}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    bert, line = models_bert(T, B_, OF, kernels, profile)
+    done(line)
+    t5_train, t5_gen, line = models_t5(T5, OF, kernels, profile)
+    done(line)
+    done(models_vit(V, OF, kernels, profile))
+    moe, k11, line = models_moe(T, PA, PagedBatcher, kernels, profile)
+    done(line)
+    lora, line = models_lora(T, LR, OF, kernels, profile)
+    done(line)
+    done(models_routes(T, B_, T5, kernels))
+    convs, line = models_resnet_cifar(R, C, resnet_cifar)
+    done(line)
+    print(f"phase 17 model families: {time.perf_counter() - t0:.1f} s")
+    launches = {"paged_attention": k11, **convs}
+    for run in (bert, t5_train, t5_gen, moe, lora):
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
                         help="profile one more headline train step, "
                              "dropout headline step, defaults (split "
                              "backward) step, fused-CE headline step, Var "
-                             "flagship step, Var 2-d step, Mistral 7B step "
-                             "and ResNet-18 step and write their kernel "
-                             "tables here (and *_dropout, *_split, "
+                             "flagship step, Var 2-d step, Mistral 7B step, "
+                             "ResNet-18 step and phase 17's BERT, T5, ViT, "
+                             "MoE, LoRA and QLoRA steps and write their "
+                             "kernel tables here (and *_dropout, *_split, "
                              "*_fused_ce, *_var, *_var2d, *_mistral, "
-                             "*_resnet)")
+                             "*_resnet, *_bert, *_t5, *_vit, *_moe, "
+                             "*_lora, *_qlora)")
     profile = parser.parse_args().profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -3895,6 +4504,12 @@ def main() -> int:
     loop, loop_k11 = phase_lm_loop(T, FA, CE, PA, PagedBatcher, prompts[:4],
                                    head_ms)
 
+    # 17. the model families: BERT, T5, ViT, the MoE GPT, LoRA and QLoRA,
+    # the resnet_cifar twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    models = phase_models(T, FA, CE, PA, C, R, PagedBatcher, profile)
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -3904,8 +4519,9 @@ def main() -> int:
         "name": "paged_attention", "route": "cuda",
         "source": "neuronika_tpu_torch/csrc/paged_attention.cu",
         "replaces": "neuronika_tpu/ops/pallas/paged_attention.py:44",
-        "launches": launches + loop_k11,
-        "launches_by_phase": {"4": launches, "16": loop_k11},
+        "launches": launches + loop_k11 + models["paged_attention"],
+        "launches_by_phase": {"4": launches, "16": loop_k11,
+                              "17": models["paged_attention"]},
         "max_abs_err": err, "ms": kern_ms,
         "plain_ms": plain_ms, "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None,
@@ -3914,8 +4530,10 @@ def main() -> int:
         "serving_ms": paged["serving"][0],
         "serving_bound_ms": paged["serving"][2][0]}]
     # K2c (:1109) and K2d (:1194) are one CUDA kernel; it names the first.
-    # Phase 6's launches (the headline, or for K2a/K2b the defaults run)
-    # and phase 16's (the Trainer: K1, K2c; gpt_train's twin: K1, K2a, K2b)
+    # Phase 6's launches (the headline, or for K2a/K2b the defaults run),
+    # phase 16's (the Trainer: K1, K2c; gpt_train's twin: K1, K2a, K2b) and
+    # phase 17's (BERT, the T5 encoder, the MoE GPT: K1, K2a, K2b; LoRA and
+    # QLoRA: K1, K2c)
     for name, line, counts in (("flash_fwd_qkv", 639, head),
                                ("flash_bwd_dq_qkv", 708, split),
                                ("flash_bwd_dkv_qkv", 755, split),
@@ -3923,9 +4541,10 @@ def main() -> int:
         e, ms, p_ms, lib, bound = flash[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{at}{line}",
-                        "launches": counts[name] + loop[name],
+                        "launches": counts[name] + loop[name] + models[name],
                         "launches_by_phase": {"6": counts[name],
-                                              "16": loop[name]},
+                                              "16": loop[name],
+                                              "17": models[name]},
                         "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,
@@ -3945,15 +4564,19 @@ def main() -> int:
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib})
-    # K5-K7 run on phase 11's path; their errors are at its B2 H32 S8192,
-    # their times at B1 H8 S8192 (where the plain versions fit)
+    # K5-K7 run on phase 11's path and phase 17's (the T5 decoder); their
+    # errors are at phase 11's B2 H32 S8192, their times at B1 H8 S8192
+    # (where the plain versions fit)
     for name, line in (("flash_fwd", 91), ("flash_bwd_dq", 177),
                        ("flash_bwd_dkv", 243)):
         e, ms, p_ms, lib, bound = sflash[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}flash_attention.cu",
                         "replaces": f"{at}{line}",
-                        "launches": mistral[name], "max_abs_err": e,
+                        "launches": mistral[name] + models[name],
+                        "launches_by_phase": {"11": mistral[name],
+                                              "17": models[name]},
+                        "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,
                         "dropout_ms": dflash[name][1],
@@ -3961,7 +4584,9 @@ def main() -> int:
     # K12 and K13 run on phase 13's path (launches, and errors on its
     # operands brought to unit scale), K14 and K15 on phase 14's Var graphs
     # (launches; errors at bench.py's shapes); K12, K14 and K15 on the layer
-    # kit's too (phase 15's launches added); times at bench.py's shapes
+    # kit's too (phase 15's launches added), K12 and K13 on phase 17's
+    # resnet_cifar twin (added; its stem on csrc/conv.cu); times at
+    # bench.py's shapes
     # (phase 3); all four there, K12 and K13 on phase 13's path in bf16 but
     # for the stem, and K14 and K15 in phase 14's bf16 Var convs, run
     # csrc/conv_sm90.cu; the f32 launches (the stem, phase 14's f32 Var
@@ -3974,8 +4599,9 @@ def main() -> int:
             ("conv3d_direct_ndhwc", 733, var_convs, "conv_sm90.cu")):
         e, ms, p_ms, lib, bound = convk[name]
         e = resnet_errs.get(name, e)
-        n = path[name] + kit.get(name, 0)
-        hop = path[f"{name}.sm90"] + kit.get(f"{name}.sm90", 0)
+        n = path[name] + kit.get(name, 0) + models.get(name, 0)
+        hop = (path[f"{name}.sm90"] + kit.get(f"{name}.sm90", 0)
+               + models.get(f"{name}.sm90", 0))
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}{source}",
                         "replaces": f"neuronika_tpu/ops/pallas/conv.py:{line}",

@@ -1,7 +1,8 @@
 """Twins of the JAX package's examples (`examples/quickstart.py`,
-`mnist_cnn.py`, `char_rnn.py`, `text_pipeline.py`, `gpt_train.py`): the
-same recipes on the port, each a `main(device=..., ...)` that returns its
-losses (the last two a dict of their results). Run one with
+`mnist_cnn.py`, `char_rnn.py`, `text_pipeline.py`, `gpt_train.py`,
+`resnet_cifar.py`): the same recipes on the port, each a
+`main(device=..., ...)` that returns its losses (the last three a dict of
+their results). Run one with
 
     python -m neuronika_tpu_torch.examples.quickstart
 

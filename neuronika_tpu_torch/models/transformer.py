@@ -29,8 +29,14 @@ window.
 inside the flash kernels, each layer's mask keyed by a seed drawn from the
 step's generator (`keep_mask`); the composite (flash="off", or "auto"
 where the kernels cannot take the shape) draws the same mask.
-Mixture-of-experts, sequence parallelism and remat policies other than
-"full" raise `NotImplementedError` from `GPTConfig`.
+Mixture-of-experts (`n_experts`; top-1 gated, Switch-style) routes by
+`moe_impl`: "dense" (every expert on every token, gated), "sparse" (per-
+expert capacity, one-hot dispatch) and "sort" (the same routing by a
+stable argsort and row scatter/gather); "ep" takes the sparse path, as
+JAX's does without a mesh, and a decode step (S == 1) always takes the
+dense, no-drop routing. The expert GEMMs run on cuBLAS, as JAX's on XLA.
+Sequence parallelism and remat policies other than "full" raise
+`NotImplementedError` from `GPTConfig`.
 
 Rounding that differs from the JAX package in bf16 (f32 is unaffected):
 * a bf16 matmul here returns bf16 (f32 accumulation inside), where JAX
@@ -94,12 +100,16 @@ class GPTConfig:
     causal: bool = True
     # sliding-window attention: attend the last `window` tokens (0 = full)
     window: int = 0
-    # mixture-of-experts and sequence parallelism (JAX's fields): only the
-    # defaults, a dense MLP on one device, are ported
+    # mixture-of-experts FFN: 0 = dense MLP; > 0 = top-1 gated experts
+    # (gelu only), dispatched by moe_impl ("dense", "sparse", "sort"; "ep"
+    # runs "sparse" on one device) with per-expert capacity
+    # ceil(moe_capacity * tokens / n_experts) and the Switch load-balancing
+    # loss E * sum_e f_e P_e added to the training loss at moe_aux_weight
     n_experts: int = 0
     moe_impl: str = "dense"
     moe_capacity: float = 2.0
     moe_aux_weight: float = 0.0
+    # sequence parallelism (JAX's field): only False, one device, is ported
     seq_parallel: bool = False
     # training fields (JAX names and defaults; see the JAX GPTConfig)
     dropout: float = 0.0
@@ -132,17 +142,12 @@ class GPTConfig:
     opt_state_dtype: str = "f32"
 
     def __post_init__(self):
-        if self.n_experts:
-            raise NotImplementedError("mixture-of-experts is not ported yet")
-        for name, default in (("moe_impl", "dense"), ("moe_capacity", 2.0),
-                              ("moe_aux_weight", 0.0),
-                              ("seq_parallel", False)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only {default!r}: mixture-of-experts and sequence "
-                    f"parallelism, ROADMAP.md queue 1 items 3 and 5)")
+        if self.seq_parallel:
+            raise NotImplementedError(
+                "seq_parallel=True is not ported yet (sequence parallelism "
+                "needs a mesh; ROADMAP.md queue 1 item 5)")
         for name, allowed in (("pos_emb", ("learned", "rope")),
+                              ("moe_impl", ("dense", "sparse", "sort", "ep")),
                               ("norm", ("layer", "rms")),
                               ("mlp", ("gelu", "swiglu")),
                               ("flash", ("auto", "on", "off")),
@@ -201,8 +206,10 @@ def init_params(generator: torch.Generator, cfg: GPTConfig,
     """GPT-2 style init: N(0, 0.02), residual projections scaled by
     1/sqrt(2*n_layer); f32; the JAX tree's structure (rms norms carry only
     a scale, no wpe under rope, fc_gate for SwiGLU, lm_head when untied, no
-    *_b without bias). Values are drawn on `generator`'s device and placed
-    on `device`. They do not reproduce JAX's draws from a key."""
+    *_b without bias; with experts a gate (L, D, E) and expert fc_in (L, E,
+    D, F), fc_out (L, E, F, D) with biases (L, E, F), (L, E, D)). Values
+    are drawn on `generator`'s device and placed on `device`. They do not
+    reproduce JAX's draws from a key."""
     dev = resolve(device)
     std = 0.02
     resid_std = std / math.sqrt(2.0 * cfg.n_layer)
@@ -230,11 +237,25 @@ def init_params(generator: torch.Generator, cfg: GPTConfig,
         "qkv_b": zeros(L, W),
         "proj": normal((L, D, D), resid_std),
         "proj_b": zeros(L, D),
-        "fc_in": normal((L, D, F_)),
-        "fc_in_b": zeros(L, F_),
-        "fc_out": normal((L, F_, D), resid_std),
-        "fc_out_b": zeros(L, D),
     }
+    if cfg.n_experts:
+        if cfg.mlp != "gelu":
+            raise ValueError("mlp='swiglu' is dense-MLP only (n_experts=0)")
+        E = cfg.n_experts
+        blocks.update({
+            "gate": normal((L, D, E)),
+            "fc_in": normal((L, E, D, F_)),
+            "fc_in_b": zeros(L, E, F_),
+            "fc_out": normal((L, E, F_, D), resid_std),
+            "fc_out_b": zeros(L, E, D),
+        })
+    else:
+        blocks.update({
+            "fc_in": normal((L, D, F_)),
+            "fc_in_b": zeros(L, F_),
+            "fc_out": normal((L, F_, D), resid_std),
+            "fc_out_b": zeros(L, D),
+        })
     if cfg.mlp == "swiglu":
         blocks["fc_gate"] = normal((L, D, F_))
         blocks["fc_gate_b"] = zeros(L, F_)
@@ -387,7 +408,10 @@ def _mlp(x, blk, cfg: GPTConfig, dot=None):
     """Dense MLP (JAX's `_mlp` / `_decode_mlp`): GELU, whose tanh
     approximation is `jax.nn.gelu`'s default, or SwiGLU, silu(g) * h with
     g in f32 (the product promotes to f32 before the cast, as in JAX).
-    `dot` is the matmul: `_qdot` for serving, `_body_dot` in training."""
+    `dot` is the matmul: `_qdot` for serving, `_body_dot` in training.
+    With experts, the mixture (`_moe_mlp`) without its aux loss."""
+    if cfg.n_experts:
+        return _moe_mlp(x, blk, cfg)[0]
     dot = dot or _qdot
     h = _badd(dot(x, blk["fc_in"], cfg), blk, "fc_in_b", cfg)
     if cfg.mlp == "swiglu":
@@ -396,6 +420,166 @@ def _mlp(x, blk, cfg: GPTConfig, dot=None):
     else:
         h = F.gelu(h, approximate="tanh")
     return _badd(dot(h, blk["fc_out"], cfg), blk, "fc_out_b", cfg)
+
+
+# --------------------------------------------------------------------------
+# mixture-of-experts FFN (top-1 gate; JAX's `_moe_*`)
+
+
+def _moe_mlp(x, blk, cfg: GPTConfig):
+    """(out, aux) of the expert FFN on x (B, S, D). A single-token step (S
+    == 1) always takes the dense, no-drop routing: capacity would count
+    over the batch there and drop tokens mid-generation. Otherwise
+    `moe_impl` picks; "ep" has no mesh here, so it is "sparse"."""
+    if x.shape[1] == 1:
+        return _moe_mlp_dense(x, blk, cfg)
+    if cfg.moe_impl in ("sparse", "ep"):
+        return _moe_mlp_sparse(x, blk, cfg)
+    if cfg.moe_impl == "sort":
+        return _moe_mlp_sort(x, blk, cfg)
+    return _moe_mlp_dense(x, blk, cfg)
+
+
+def _moe_gate(x, blk, cfg: GPTConfig):
+    """Top-1 routing: the gate probabilities' max, argmax (the first index
+    on ties, as `jnp.argmax`) and the (..., E) f32 probabilities."""
+    probs = torch.softmax(_dot_f32(x, blk["gate"].to(cfg.dtype)), -1)
+    return probs.amax(-1), probs.argmax(-1), probs
+
+
+def _moe_aux_loss(sel, probs, n_experts: int):
+    """Switch load-balancing loss: E * sum_e f_e P_e (uniform routing: 1)."""
+    f = F.one_hot(sel.reshape(-1), n_experts).float().mean(0)
+    p = probs.reshape(-1, n_experts).mean(0)
+    return n_experts * (f * p).sum()
+
+
+class _BmmF32(torch.autograd.Function):
+    """x (E or 1, N, K) @ w (E, K, M) -> (E, N, M) for bf16 operands with
+    an f32 result: one `torch.bmm(..., out_dtype=float32)` over the
+    experts, x broadcast over them when its first dim is 1. Its backward
+    rounds the f32 cotangent to the operands' dtype and runs bf16 GEMMs
+    (`_DotF32`'s rule); a broadcast x sums its experts' gradients in f32
+    and rounds once."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.bmm(x.expand(w.shape[0], -1, -1), w,
+                         out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            if x.shape[0] == w.shape[0]:
+                dx = torch.bmm(g, w.mT)
+            else:
+                dx = torch.bmm(g, w.mT, out_dtype=torch.float32).sum(
+                    0, keepdim=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(x.expand(w.shape[0], -1, -1).mT, g)
+        return dx, dw
+
+
+def _expert_dot(x, w):
+    """x (E or 1, N, K) @ w (E, K, M) -> (E, N, M) f32, an f32 result from
+    operands in their dtype (JAX's `ecd,edf->ecf` einsum with
+    `preferred_element_type=f32`): bf16 on the card by `_BmmF32`,
+    otherwise exactly widened operands (`_dot_f32`'s rule)."""
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        return _BmmF32.apply(x, w)
+    return torch.matmul(x.float(), w.float())
+
+
+def _experts(xe, blk, cfg: GPTConfig):
+    """The expert FFNs on their rows xe (E or 1, N, D) in the compute
+    dtype -> (E, N, D) in the compute dtype: fc_in (f32 result, bias in
+    f32), GELU in the compute dtype, fc_out (f32 result, bias in f32)."""
+    h = _expert_dot(xe, blk["fc_in"].to(cfg.dtype))
+    if "fc_in_b" in blk:
+        h = h + blk["fc_in_b"][:, None, :]
+    h = F.gelu(h.to(cfg.dtype), approximate="tanh")
+    o = _expert_dot(h, blk["fc_out"].to(cfg.dtype))
+    if "fc_out_b" in blk:
+        o = o + blk["fc_out_b"][:, None, :]
+    return o.to(cfg.dtype)
+
+
+def _moe_mlp_dense(x, blk, cfg: GPTConfig):
+    """Dense dispatch: every expert runs every token and the top-1 gate
+    weights the combine (E x the FFN FLOPs, no token dropped)."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    top, sel, probs = _moe_gate(x, blk, cfg)
+    aux = _moe_aux_loss(sel, probs, E)
+    combine = (F.one_hot(sel, E).float() * top[..., None]).to(cfg.dtype)
+    o = _experts(x.reshape(1, B * S, D), blk, cfg)            # (E, N, D)
+    y = torch.einsum("end,ne->nd", o.float(),
+                     combine.reshape(B * S, E).float())
+    return y.to(cfg.dtype).reshape(B, S, D), aux
+
+
+def _capacity(cfg: GPTConfig, N: int) -> int:
+    return max(int(math.ceil(cfg.moe_capacity * N / cfg.n_experts)), 1)
+
+
+def _moe_mlp_sparse(x, blk, cfg: GPTConfig):
+    """Switch-style capacity dispatch by one-hot products: token n goes to
+    slot (e, c) of its top expert e, c its rank among e's tokens in
+    position order; tokens past the capacity C are dropped (their output
+    is 0, so they pass through the residual)."""
+    B, S, D = x.shape
+    E, N = cfg.n_experts, B * S
+    C = _capacity(cfg, N)
+    xf = x.reshape(N, D)
+    top, sel, probs = _moe_gate(xf, blk, cfg)
+    aux = _moe_aux_loss(sel, probs, E)
+    onehot = F.one_hot(sel, E).float()                        # (N, E)
+    pos = torch.cumsum(onehot, 0) * onehot - 1.0
+    keep = (pos < C) & (onehot > 0)
+    pos = torch.where(keep, pos, 0.0).long()
+    slot = F.one_hot(pos, C).float() * keep[..., None]        # (N, E, C)
+    dt = cfg.dtype
+    expert_in = torch.einsum("nec,nd->ecd", slot.to(dt).float(),
+                             xf.to(dt).float()).to(dt)        # (E, C, D)
+    o = _experts(expert_in, blk, cfg)
+    combine = slot * top[:, None, None]
+    y = torch.einsum("nec,ecd->nd", combine.to(dt).float(), o.float())
+    return y.to(dt).reshape(B, S, D), aux
+
+
+def _moe_mlp_sort(x, blk, cfg: GPTConfig):
+    """The sparse routing by a stable argsort on the expert id and row
+    scatter/gather: the same kept tokens (a stable sort keeps position
+    order within an expert) without the (N, E, C) one-hot products."""
+    B, S, D = x.shape
+    E, N = cfg.n_experts, B * S
+    C = _capacity(cfg, N)
+    dt = cfg.dtype
+    xf = x.reshape(N, D)
+    top, sel, probs = _moe_gate(xf, blk, cfg)
+    aux = _moe_aux_loss(sel, probs, E)
+    order = torch.argsort(sel, stable=True)
+    sel_sorted = sel[order]
+    counts = torch.bincount(sel, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(N, device=x.device) - starts[sel_sorted]
+    keep = rank < C
+    dst = torch.where(keep, sel_sorted * C + rank, E * C)    # E*C: trash
+    # row gathers by index_select: its backward is an index_add, where
+    # advanced indexing's sorts the indices first
+    buf = torch.zeros((E * C + 1, D), dtype=dt, device=x.device)
+    expert_in = buf.index_copy(0, dst, xf.index_select(0, order).to(dt))
+    o = _experts(expert_in[:-1].reshape(E, C, D), blk, cfg).reshape(E * C, D)
+    gathered = torch.where(keep[:, None],
+                           o.index_select(0, dst.clamp(max=E * C - 1)),
+                           torch.zeros((), dtype=dt, device=x.device))
+    y = torch.zeros((N, D), dtype=dt, device=x.device).index_copy(
+        0, order, gathered)
+    return (y * top[:, None].to(dt)).reshape(B, S, D), aux
 
 
 def _cast_decode_params(params, cfg: GPTConfig):
@@ -407,11 +591,43 @@ def _cast_decode_params(params, cfg: GPTConfig):
         if name in params:
             p[name] = params[name].to(cfg.dtype)
     b = dict(params["blocks"])
-    for name in ("qkv", "proj", "fc_in", "fc_out", "fc_gate"):
+    for name in ("qkv", "proj", "fc_in", "fc_out", "fc_gate", "gate"):
         if name in b:
             b[name] = b[name].to(cfg.dtype)
     p["blocks"] = b
     return p
+
+
+def _quant_w4(w, group: int = 128):
+    """Group-wise symmetric int4 over the contraction axis (the second to
+    last): values in [-7, 7], one f32 scale per `group` rows of that axis
+    (all of it when `group` does not divide it), round half to even, two
+    consecutive rows packed into one int8 byte, the even row in the low
+    nibble; JAX's `_quant_w4`, bit for bit. Returns {"q4p": int8 (...,
+    K/g, g/2, N), "s4": f32 (..., K/g, 1, N)}."""
+    K, N = w.shape[-2], w.shape[-1]
+    if K % 2:
+        raise ValueError(f"int4 packing needs an even contraction dim, "
+                         f"got {K}")
+    g = group if K % group == 0 else K
+    w32 = w.float().reshape(w.shape[:-2] + (K // g, g, N))
+    s = w32.abs().amax(-2, keepdim=True).clamp(min=1e-8) / 7.0
+    q = torch.round(w32 / s).clamp(-7, 7).to(torch.int8)
+    lo, hi = q[..., 0::2, :], q[..., 1::2, :]
+    return {"q4p": (lo & 0x0F) | (hi << 4), "s4": s}
+
+
+def dequant_w4(w: dict, dtype) -> torch.Tensor:
+    """Inverse of `_quant_w4`: the nibbles unpacked by two arithmetic
+    shifts, scaled per group in f32, emitted in `dtype` at the original
+    (..., K, N) shape (JAX's `dequant_w4`)."""
+    p, s = w["q4p"], w["s4"]
+    lo = (p << 4) >> 4                          # sign-extend the low nibble
+    hi = p >> 4
+    q = torch.stack([lo, hi], dim=-2).reshape(
+        p.shape[:-2] + (p.shape[-2] * 2, p.shape[-1]))
+    wd = (q.float() * s).to(dtype)
+    return wd.reshape(wd.shape[:-3] + (-1, wd.shape[-1]))
 
 
 def _check_quant(quant) -> None:
@@ -1059,10 +1275,15 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
 
 
 def _block(x, blk, cfg: GPTConfig, train: bool, seed):
+    """(x, aux): the block's output and, with experts, its layer's MoE aux
+    loss (None without)."""
     h1 = _layer_norm(x, blk["ln1"], cfg.norm_eps)
     x = x + _attention(h1, blk, cfg, train, seed)
     h2 = _layer_norm(x, blk["ln2"], cfg.norm_eps)
-    return x + _mlp(h2, blk, cfg, _body_dot)
+    if cfg.n_experts:
+        m, aux = _moe_mlp(h2, blk, cfg)
+        return x + m, aux
+    return x + _mlp(h2, blk, cfg, _body_dot), None
 
 
 def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
@@ -1071,7 +1292,15 @@ def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
     dtype. The embedding sum is taken in f32, then cast (as JAX). Layers
     run as a Python loop (`scan_layers` has no effect); with cfg.remat in
     training each block is checkpointed (policy "full": only its input is
-    kept). `generator` draws each layer's attention-dropout seed."""
+    kept). `generator` draws each layer's attention-dropout seed. MoE aux
+    losses are dropped here (`_hidden_aux` keeps them)."""
+    return _hidden_aux(params, tokens, cfg, train, generator)[0]
+
+
+def _hidden_aux(params, tokens, cfg: GPTConfig, train: bool = False,
+                generator: torch.Generator | None = None):
+    """`hidden_states` and the MoE aux losses summed over layers (JAX's
+    `hidden_states` pair); the sum is None without experts."""
     B, S = tokens.shape
     x = params["wte"][tokens.long()]
     if cfg.pos_emb == "learned":
@@ -1081,14 +1310,17 @@ def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
     if train and cfg.dropout > 0.0 and generator is not None:
         seeds = torch.randint(0, 2 ** 62, (cfg.n_layer,), generator=generator,
                               device=generator.device).tolist()
+    aux = None
     for i in range(cfg.n_layer):
         blk = _layer(params["blocks"], i)
         if cfg.remat and train:
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 _block, x, blk, cfg, train, seeds[i], use_reentrant=False)
         else:
-            x = _block(x, blk, cfg, train, seeds[i])
-    return _layer_norm(x, params["ln_f"], cfg.norm_eps)
+            x, a = _block(x, blk, cfg, train, seeds[i])
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return _layer_norm(x, params["ln_f"], cfg.norm_eps), aux
 
 
 def forward(params, tokens, cfg: GPTConfig, *, train: bool = False,
@@ -1113,21 +1345,24 @@ def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
     compute dtype, whatever `logits_dtype` says, as JAX. Otherwise the LM
     head (a compute-dtype GEMM with an f32 result, or a compute-dtype
     result with logits_dtype="compute"), then logsumexp minus the gathered
-    target logit on f32 logits."""
+    target logit on f32 logits. With experts, `moe_aux_weight` times the
+    summed aux loss is added."""
     B, S = tokens.shape
-    x = hidden_states(params, tokens, cfg, train=train, generator=generator)
+    x, aux = _hidden_aux(params, tokens, cfg, train, generator)
     if _use_fused_ce(cfg, B * S):
-        return fused_linear_cross_entropy(
+        ce = fused_linear_cross_entropy(
             x.reshape(B * S, cfg.d_model), _head_w(params, cfg).to(cfg.dtype),
             targets.reshape(B * S))
-    if cfg.logits_dtype == "compute":
-        logits = torch.matmul(x, _head_w(params, cfg).to(cfg.dtype).T)
     else:
-        logits = _lm_head(x, params, cfg)
-    logits32 = logits.float()
-    lse = torch.logsumexp(logits32, -1)
-    tgt = logits32.gather(-1, targets.long()[..., None])[..., 0]
-    return (lse - tgt).mean()
+        if cfg.logits_dtype == "compute":
+            logits = torch.matmul(x, _head_w(params, cfg).to(cfg.dtype).T)
+        else:
+            logits = _lm_head(x, params, cfg)
+        logits32 = logits.float()
+        lse = torch.logsumexp(logits32, -1)
+        tgt = logits32.gather(-1, targets.long()[..., None])[..., 0]
+        ce = (lse - tgt).mean()
+    return ce if aux is None else ce + cfg.moe_aux_weight * aux
 
 
 @functools.lru_cache(maxsize=32)
