@@ -149,7 +149,22 @@ nvidia-smi. Phases, each printing one line or a few:
      a BERT, a T5 at Sq != Skv with its greedy tokens, an MoE GPT per
      dispatch) within phase 7's bounds; and the twin of the JAX package's
      resnet_cifar example at its size (bf16, conv_impl "pallas": K12 and
-     K13 held exact).
+     K13 held exact);
+ 18. the rest of serving at phase 4's width (bf16, seeded random weights):
+     the W8A8 product (torch._int_mm) with the int8 weight row- and
+     column-major; 32 requests (prompts 64-700 tokens, half behind a
+     256-token prefix, max_new 32-128, every 4th sampled) through
+     PagedBatcher with kernel "on", prefill_chunk 256, pow2 buckets, the
+     registered prefix, a deferred burst and run(multi_step=8), in bf16,
+     int8 and int4 (tokens/s, TTFT, ITL, peak memory, decode-weight
+     bytes, greedy agreement with bf16), K11 held to n_layer launches a
+     decode step and each window to one device-to-host sync; the dense
+     ContinuousBatcher in bf16 and int8-kv; two rank-8 S-LoRA adapters in
+     a mixed batch; speculative decoding (gamma 4, the target as its own
+     draft and its first two blocks as a draft); and f32 greedy tokens of
+     every option (all at once, multi-step, grouped, prefix, chunked,
+     bucketed) equal to the plain per-step PagedBatcher's, speculative
+     equal to make_generate's.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -223,6 +238,7 @@ without CUDA it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -4360,6 +4376,349 @@ def phase_models(T, FA, CE, PA, C, R, PagedBatcher, profile=None):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 18: the rest of serving (quantized weights, the dense-slot batcher,
+# chunked, bucketed and grouped prefill, the prefix cache, multi-step
+# windows, S-LoRA adapters, speculative decoding) at phase 4's width
+
+SERVE18 = dict(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
+               d_ff=6144, max_seq=1024)
+SERVE18_POOL = dict(n_slots=8, n_blocks=513, block_size=16)
+SERVE18_FEATURES = dict(prefill_chunk=256, prefill_bucket="pow2")
+SERVE18_PREFIX, SERVE18_WINDOW = 256, 8
+
+
+def serve18_requests(rng, vocab, n, prefix, new_lo=32, new_hi=128,
+                     sampled_every=4):
+    """n requests: prompts of 64-700 tokens, the even ones behind `prefix`
+    (so 257-700 tokens), max_new in [new_lo, new_hi]; every
+    `sampled_every`-th request samples (temperature 0.8, top-k 50, top-p
+    0.9, its own seed), the others are greedy. Returns (prompts, max_news,
+    submit kwargs)."""
+    prompts, news, kws = [], [], []
+    for i in range(n):
+        if i % 2 == 0:
+            tail = int(rng.integers(1, 701 - prefix.size))
+            p = np.concatenate([prefix, rng.integers(0, vocab, tail)])
+        else:
+            p = rng.integers(0, vocab, int(rng.integers(64, 701)))
+        prompts.append(p.astype(np.int32))
+        news.append(int(rng.integers(new_lo, new_hi + 1)))
+        kws.append(dict(temperature=0.8, top_k=50, top_p=0.9, seed=i)
+                   if sampled_every and i % sampled_every == 3 else {})
+    return prompts, news, kws
+
+
+class Serve18Meter:
+    """Counts a batcher's decode steps (one a per-step call, k a window),
+    its windows, and the device-to-host syncs inside each window (CUDA's
+    sync debug mode warns once a synchronizing call; the syncs of the
+    admissions a window ends with are left out)."""
+
+    def __init__(self, pb, syncs: bool = False):
+        self.steps = self.windows = 0
+        self.window_syncs = []
+        self.rec = None
+        step, many, admit, step_many = (pb._step, pb._many_prog, pb._admit,
+                                        pb.step_many)
+        self._admit_syncs = 0
+        self._in_window = False
+
+        def counted_step(*a):
+            self.steps += 1
+            return step(*a)
+
+        def counted_many(k):
+            fn = many(k)
+
+            def run(*a):
+                self.steps += k
+                self.windows += 1
+                self._in_window = True
+                return fn(*a)
+            return run
+
+        def counted_admit():
+            n0 = self._n()
+            admit()
+            self._admit_syncs += self._n() - n0
+
+        def counted_step_many(k):
+            self._in_window = False
+            n0, a0 = self._n(), self._admit_syncs
+            step_many(k)
+            if self._in_window:
+                self.window_syncs.append(
+                    self._n() - n0 - (self._admit_syncs - a0))
+
+        pb._step, pb._many_prog = counted_step, counted_many
+        if syncs:
+            pb._admit, pb.step_many = counted_admit, counted_step_many
+
+    def _n(self):
+        return 0 if self.rec is None else sum(
+            "synchroniz" in str(w.message) for w in self.rec)
+
+
+def serve18_run(S, params, cfg, reqs, cls="PagedBatcher", prefix=None,
+                multi_step=SERVE18_WINDOW, defer=True, syncs=False,
+                adapters=(), grouped=True, **kw):
+    """The requests through a fresh batcher on the card; returns (outputs
+    in order, wall s, metrics, meter, batcher, peak GiB)."""
+    import warnings
+
+    pool = (SERVE18_POOL if cls == "PagedBatcher"
+            else {"n_slots": SERVE18_POOL["n_slots"]})
+    b = getattr(S, cls)(params, cfg, device="cuda", **pool, **kw)
+    if not grouped:
+        b._group_prefill = False
+    for ad in adapters:
+        b.register_adapter(ad)
+    if prefix is not None:
+        b.register_prefix(prefix)
+    meter = Serve18Meter(b, syncs)
+    prompts, news, kws = reqs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        if syncs:
+            meter.rec = rec
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            ctx = b.defer_admission() if defer else contextlib.nullcontext()
+            with ctx:
+                rids = [b.submit(p, m, **k)
+                        for p, m, k in zip(prompts, news, kws)]
+            done = b.run(multi_step=multi_step)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    outs = [done[r] for r in rids]
+    check(all(o.shape == (m,) for o, m in zip(outs, news)),
+          f"phase 18 {cls}: a request did not return max_new tokens")
+    return outs, wall, b.metrics, meter, b, peak
+
+
+def serve18_line(name, outs, wall, met, peak=None):
+    n_tok = sum(len(o) for o in outs)
+    line = (f"{name}{' ' if name else ''}{n_tok / wall:.1f} tok/s ({n_tok} tokens in "
+            f"{wall:.3f} s), ttft_mean {met['ttft_mean_s'] * 1e3:.1f} ms, "
+            f"itl_mean {met['itl_mean_s'] * 1e3:.3f} ms")
+    return line + (f", peak {peak:.2f} GiB" if peak is not None else "")
+
+
+def serve18_k11(PA, cfg, meter, before, name):
+    """Check K11's launches since `before` against n_layer x the decode
+    steps the scheduler ran; returns them."""
+    n = PA.paged_attention.launches - before
+    check(n == cfg.n_layer * meter.steps,
+          f"phase 18 {name}: paged_attention launches {n} != n_layer "
+          f"{cfg.n_layer} x decode steps {meter.steps}")
+    return n
+
+
+def agree(a_outs, b_outs, greedy):
+    """(requests whose tokens are all the same, of the greedy ones)."""
+    return sum(np.array_equal(a, b) for a, b, g in zip(a_outs, b_outs, greedy)
+               if g), sum(greedy)
+
+
+def serve18_int8_layouts(T):
+    """The W8A8 product (`transformer._int8_mm`: torch._int_mm, exact in
+    int32) at phase 18's decode shapes, 8 rows by each layer matrix and
+    the head, with the int8 weight stored row-major and column-major:
+    both exact against a float64 product; CUDA-event times."""
+    g = torch.Generator("cuda").manual_seed(0)
+    d, f, V = SERVE18["d_model"], SERVE18["d_ff"], SERVE18["vocab_size"]
+    parts = []
+    for K, N in ((d, 3 * d), (d, d), (d, f), (f, d), (d, V)):
+        x = torch.randint(-127, 128, (8, K), generator=g, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                          dtype=torch.int8)
+        want = x.double() @ w.double()
+        times = []
+        for ww in (w, w.mT.contiguous().mT):
+            check(torch.equal(T._int8_mm(x, ww).double(), want),
+                  f"phase 18: the int8 product {K}x{N} is not exact")
+            times.append(cuda_ms(lambda: T._int8_mm(x, ww), 50))
+        parts.append(f"{K}x{N} row-major {times[0]:.4f} / column-major "
+                     f"{times[1]:.4f} ms")
+    return ("W8A8 product at 8 rows (torch._int_mm, exact; weight layout "
+            "row- / column-major): " + "; ".join(parts))
+
+
+def phase_serving_rest(T, PA, S, LR, smi_line, n_req=32, f32_req=8,
+                       spec_new=64):
+    """Phase 18: the rest of serving at phase 4's width. Returns the K11
+    launches of its paged runs."""
+    from neuronika_tpu_torch._tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **SERVE18)
+    params = T.init_params(torch.Generator("cuda").manual_seed(0), cfg,
+                           "cuda")
+    rng = np.random.default_rng(18)
+    prefix = rng.integers(0, cfg.vocab_size, SERVE18_PREFIX).astype(np.int32)
+    reqs = serve18_requests(rng, cfg.vocab_size, n_req, prefix)
+    greedy = [not k for k in reqs[2]]
+    k11 = 0
+    lines = [serve18_int8_layouts(T)]
+    feat = dict(kernel="on", **SERVE18_FEATURES)
+
+    # (a) the full PagedBatcher in bf16 and with int8 and int4 weights
+    res = {}
+    for quant in (None, "int8", "int4"):
+        warm = ([p[:80] for p in reqs[0][:2]], [4, 4], [{}, {}])
+        serve18_run(S, params, cfg, warm, prefix=prefix, quant=quant,
+                    **feat)
+        before = PA.paged_attention.launches
+        outs, wall, met, meter, b, peak = serve18_run(
+            S, params, cfg, reqs, prefix=prefix, quant=quant,
+            syncs=quant is None, **feat)
+        k11 += serve18_k11(PA, cfg, meter, before, f"quant={quant}")
+        res[quant] = (outs, wall, met, meter, tree_bytes(b.params), peak)
+        del b
+    outs, wall, met, meter, wbytes, peak = res[None]
+    ws = meter.window_syncs
+    check(ws and max(ws) == 1,
+          f"phase 18: device-to-host syncs per window {sorted(set(ws))}, "
+          f"want 1 (the one read of the window's tokens)")
+    lines.append(
+        f"(a) PagedBatcher kernel='on', prefill_chunk 256, bucket pow2, a "
+        f"256-token prefix, defer_admission, run(multi_step=8), {n_req} "
+        f"requests (prompts 64-700, max_new 32-128, every 4th sampled): "
+        + serve18_line("bf16", outs, wall, met, peak)
+        + f"; {meter.steps} decode steps ({meter.windows} windows of up to "
+        f"8), K11 launches = {cfg.n_layer} x steps; syncs per window "
+        f"{min(ws)}-{max(ws)} over {len(ws)} windows")
+    for quant in ("int8", "int4"):
+        q_outs, q_wall, q_met, _, q_bytes, q_peak = res[quant]
+        same, of = agree(q_outs, outs, greedy)
+        lines.append(
+            serve18_line(quant, q_outs, q_wall, q_met, q_peak)
+            + f"; decode weights {q_bytes / 2 ** 20:.1f} MiB vs bf16 "
+            f"{wbytes / 2 ** 20:.1f} MiB; greedy requests equal to bf16's: "
+            f"{same} of {of}")
+
+    # (b) the dense-slot ContinuousBatcher, bf16 and int8-kv
+    for quant in (None, "int8-kv"):
+        d_outs, d_wall, d_met, _, b, d_peak = serve18_run(
+            S, params, cfg, reqs, cls="ContinuousBatcher", prefix=prefix,
+            quant=quant, **SERVE18_FEATURES)
+        same, of = agree(d_outs, outs, greedy)
+        lines.append(f"(b) ContinuousBatcher quant={quant}: "
+                     + serve18_line("", d_outs, d_wall, d_met, d_peak)
+                     + f"; greedy requests equal to paged bf16's: {same} of "
+                     f"{of}")
+        del b
+
+    # (c) two S-LoRA adapters (rank 8 on qkv and proj) in a mixed batch
+    ads = []
+    for seed in (1, 2):
+        g = torch.Generator("cuda").manual_seed(seed)
+        ad = LR.lora_init(g, params, 8)
+        for ab in ad.values():
+            ab["B"] = 0.02 * torch.randn(ab["B"].shape, generator=g,
+                                         device="cuda")
+        ads.append(ad)
+    a_reqs = (reqs[0], reqs[1], [dict(k, adapter=i % 3)
+                                 for i, k in enumerate(reqs[2])])
+    before = PA.paged_attention.launches
+    a_outs, a_wall, a_met, meter, b, _ = serve18_run(
+        S, params, cfg, a_reqs, adapters=ads, prefix=prefix, **feat)
+    k11 += serve18_k11(PA, cfg, meter, before, "adapters")
+    base_same = sum(np.array_equal(x, y) for x, y, k, g in
+                    zip(a_outs, outs, a_reqs[2], greedy)
+                    if g and k["adapter"] == 0)
+    lines.append(f"(c) two adapters, rank 8 on qkv and proj, requests "
+                 f"cycling adapters 0/1/2: "
+                 + serve18_line("", a_outs, a_wall, a_met)
+                 + f"; {meter.steps} decode steps, K11 = {cfg.n_layer} x "
+                 f"steps; base "
+                 f"requests equal to (a)'s: {base_same}")
+    del b
+
+    # (d) speculative decoding, gamma 4: the target as its own draft, and
+    # its first two blocks (with its embedding and head) as the draft
+    prompt = rng.integers(0, cfg.vocab_size, (1, 128)).astype(np.int32)
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+    params2 = dict(params, blocks=tree_map(lambda t: t[:2], params["blocks"]))
+    plain = T.make_generate(cfg, spec_new)
+    plain(params, prompt)                                 # warm-up
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    ref = plain(params, prompt).cpu().numpy()
+    plain_tps = spec_new / (time.perf_counter() - ts)
+    spec_line = [f"(d) speculative gamma 4, B1, prompt 128, {spec_new} new: "
+                 f"plain make_generate {plain_tps:.1f} tok/s"]
+    for name, (dcfg, dparams) in (("self-draft", (cfg, params)),
+                                  ("2-block draft", (cfg2, params2))):
+        spec = T.make_speculative_generate(cfg, dcfg, spec_new, gamma=4)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        toks, passes = spec(params, dparams, prompt)
+        toks = toks.cpu().numpy()
+        tps = spec_new / (time.perf_counter() - ts)
+        if name == "self-draft":
+            check(passes <= -(-spec_new // 5) + 1,
+                  f"phase 18: self-draft took {passes} target passes")
+        spec_line.append(f"{name} {passes} target passes, {tps:.1f} tok/s, "
+                         f"{int((toks == ref).all())} (1 = equal) against "
+                         f"bf16 greedy")
+    lines.append("; ".join(spec_line))
+    torch.cuda.empty_cache()
+
+    # (e) f32 greedy identities at the same width
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rng = np.random.default_rng(181)
+    r32 = serve18_requests(rng, cfg.vocab_size, f32_req, prefix,
+                           new_lo=16, new_hi=24, sampled_every=0)
+    one = dict(kernel="on", multi_step=1, defer=False, grouped=False)
+    before = PA.paged_attention.launches
+    ref_outs, *_, meter, b, _ = serve18_run(S, params, cfg32, r32, **one)
+    k11 += serve18_k11(PA, cfg32, meter, before, "f32 per-step")
+    del b
+    runs = {
+        "every feature": dict(prefix=prefix, **feat),
+        "multi_step 8": dict(one, multi_step=SERVE18_WINDOW),
+        "grouped (defer)": dict(one, defer=True, grouped=True),
+        "prefix": dict(one, prefix=prefix),
+        "chunked 256": dict(one, prefill_chunk=256),
+        "bucketed pow2": dict(one, prefill_bucket="pow2"),
+    }
+    for name, kw in runs.items():
+        before = PA.paged_attention.launches
+        o, *_, meter, b, _ = serve18_run(S, params, cfg32, r32, **kw)
+        k11 += serve18_k11(PA, cfg32, meter, before, f"f32 {name}")
+        check(all(np.array_equal(x, y) for x, y in zip(o, ref_outs)),
+              f"phase 18: f32 greedy tokens of '{name}' differ from the "
+              f"plain per-step PagedBatcher's")
+        del b
+    g32 = T.make_generate(cfg32, 32)(params, prompt).cpu().numpy()
+    s32, passes = T.make_speculative_generate(cfg32, dataclasses.replace(
+        cfg2, dtype=torch.float32), 32, gamma=4)(params, params2, prompt)
+    check(np.array_equal(s32.cpu().numpy(), g32),
+          "phase 18: f32 speculative tokens differ from make_generate's")
+    lines.append(f"(e) f32 greedy tokens identical to the plain per-step "
+                 f"PagedBatcher (kernel='on', exact one-by-one prefill) on "
+                 f"{f32_req} requests for: " + ", ".join(runs)
+                 + f"; speculative (2-block draft, {passes} passes) = "
+                 f"make_generate over 32 tokens")
+    del params, params2
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in lines:
+        print(f"phase 18 {line} [{smi_line}]")
+    print(f"phase 18 rest of serving: {time.perf_counter() - t0:.1f} s, "
+          f"{k11} K11 launches [{smi_line}]")
+    return k11
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
@@ -4388,6 +4747,8 @@ def main() -> int:
     from neuronika_tpu_torch.ops import matmul as MM
     from neuronika_tpu_torch.ops import softmax as SM
     from neuronika_tpu_torch.ops import paged_attention as PA
+    from neuronika_tpu_torch import serving as S
+    from neuronika_tpu_torch.models import lora as LR
     from neuronika_tpu_torch.serving import PagedBatcher
 
     # 1. environment
@@ -4510,6 +4871,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     models = phase_models(T, FA, CE, PA, C, R, PagedBatcher, profile)
 
+    # 18. the rest of serving: quantized weights, the dense-slot batcher,
+    # chunked, bucketed and grouped prefill, the prefix cache, multi-step
+    # windows, S-LoRA adapters, speculative decoding
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving18 = phase_serving_rest(T, PA, S, LR, smi[0])
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -4519,9 +4887,11 @@ def main() -> int:
         "name": "paged_attention", "route": "cuda",
         "source": "neuronika_tpu_torch/csrc/paged_attention.cu",
         "replaces": "neuronika_tpu/ops/pallas/paged_attention.py:44",
-        "launches": launches + loop_k11 + models["paged_attention"],
+        "launches": (launches + loop_k11 + models["paged_attention"]
+                     + serving18),
         "launches_by_phase": {"4": launches, "16": loop_k11,
-                              "17": models["paged_attention"]},
+                              "17": models["paged_attention"],
+                              "18": serving18},
         "max_abs_err": err, "ms": kern_ms,
         "plain_ms": plain_ms, "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None,

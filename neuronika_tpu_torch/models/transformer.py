@@ -1,5 +1,5 @@
-"""GPT-style transformers: the paged serving slice and the training step
-(counterpart of `neuronika_tpu/models/transformer.py`).
+"""GPT-style transformers: serving and the training step (counterpart
+of `neuronika_tpu/models/transformer.py`).
 
 Params are a plain dict of tensors with the JAX tree's names and shapes:
 per-layer tensors are STACKED on a leading `n_layer` axis under "blocks",
@@ -10,16 +10,22 @@ dtype once for serving.
 Ported: the GPT-2 stack (learned positions, LayerNorm, GELU, tied head)
 and the llama/Mistral stack (`llama_config`, `mistral_config`: rotary
 positions, RMSNorm, SwiGLU, no biases, an untied `lm_head`), each with GQA
-and sliding-window attention; the paged KV cache (rotary keys are cached
-after rotation), unbucketed paged prefill, the paged decode step and
-per-row sampling; dense KV-cache generation (`init_kv_cache`,
-`make_prefill`, `make_decode_step`, `sample_logits`, `generate`,
-`make_generate`, `make_beam_search`; the decode position stays on the
-device); for training `hidden_states`, `forward`, `loss_fn`,
-`opt_init`, `opt_state_from_jax`, `make_train_step` (Adam, clipping,
-accumulation) and `flops_per_token`; and `make_eval_step`/`evaluate`.
-Quantised weights and KV caches, speculative decoding and meshes raise
-`NotImplementedError` naming their ROADMAP.md item. Training attention
+and sliding-window attention; serving: quantized decode weights
+(`prepare_decode_params(quant=)`: W8A8 "int8", W4A16 "int4") and the int8
+KV cache ("int8-kv"; the dense-slot programs take it too, where JAX's
+refuse it), the dense KV cache (`init_kv_cache`, `make_prefill`,
+`make_decode_step`, `sample_logits`, `generate`, `make_generate`,
+`make_beam_search`, `make_speculative_generate`; the decode position stays
+on the device), the dense-slot programs (`init_slot_cache`,
+`make_slot_prefill`, `_multi`, `_suffix_`, `_chunk_`, `make_slot_decode_
+step`, `_many`), the paged ones (`init_paged_cache`, `make_paged_prefill`,
+`_multi`, `_suffix_`, `_chunk_`, `make_paged_decode_step`, `_many`: K11 on
+every decode step) and per-row sampling and LoRA adapters; for training
+`hidden_states`, `forward`, `loss_fn`, `opt_init`, `opt_state_from_jax`,
+`make_train_step` (Adam, clipping, accumulation) and `flops_per_token`;
+and `make_eval_step`/`evaluate`. Meshes raise `NotImplementedError`
+naming their ROADMAP.md item, as does the int8 KV cache on the paged
+programs (JAX's refusal). Training attention
 runs the packed flash op (K1/K2) for learned positions without a window,
 and the split flash op (K5-K7, `ops/flash_attention.py`) on q/k/v split
 out of the packed projection, rotated under rope, with or without a
@@ -398,12 +404,6 @@ def _lm_head(x, params, cfg: GPTConfig):
     return _dot_f32(x, _head_w(params, cfg).to(x.dtype).T)
 
 
-def _qdot(x, w, cfg: GPTConfig):
-    """x @ w in the compute dtype (the plain branch of JAX's `_qdot`;
-    quantized weights are not ported, see `_check_quant`)."""
-    return torch.matmul(x, w.to(cfg.dtype))
-
-
 def _mlp(x, blk, cfg: GPTConfig, dot=None):
     """Dense MLP (JAX's `_mlp` / `_decode_mlp`): GELU, whose tanh
     approximation is `jax.nn.gelu`'s default, or SwiGLU, silu(g) * h with
@@ -598,20 +598,57 @@ def _cast_decode_params(params, cfg: GPTConfig):
     return p
 
 
-def _quant_w4(w, group: int = 128):
+# --------------------------------------------------------------------------
+# quantized serving weights and the int8 KV cache
+
+
+# JAX's serving programs divide by the constants 127 and 7 under jit,
+# where XLA rewrites a division by a constant into a product with its f32
+# reciprocal; the port multiplies by that reciprocal, so its scales are
+# the compiled programs' bit for bit (`_quant_w4` keeps the division for
+# QLoRA, whose JAX quantizer runs eagerly)
+_INV127 = 1.0 / 127.0
+_INV7 = 1.0 / 7.0
+
+
+def _quant_kv(t):
+    """Per-(token, head) symmetric int8 over the hd axis: (..., hd) ->
+    int8 values and an f32 scale (..., 1), round half to even (JAX's
+    `_quant_kv`)."""
+    t32 = t.float()
+    s = t32.abs().amax(-1, keepdim=True).clamp(min=1e-8) * _INV127
+    return torch.round(t32 / s).clamp(-127, 127).to(torch.int8), s
+
+
+def _quant_w(w, axis: int):
+    """Symmetric per-out-channel int8: {"q8": int8, "s": f32}; `axis` is
+    the contraction (input) axis reduced for the scales (JAX's
+    `_quant_w`). Each (K, N) matrix of "q8" is stored column-major (its
+    transpose contiguous), the layout `torch._int_mm` reads faster on the
+    card (`chip_smoke.py` phase 18 times both)."""
+    w32 = w.float()
+    s = w32.abs().amax(axis, keepdim=True).clamp(min=1e-8) * _INV127
+    q = torch.round(w32 / s).clamp(-127, 127).to(torch.int8)
+    return {"q8": q.mT.contiguous().mT, "s": s}
+
+
+def _quant_w4(w, group: int = 128, compiled: bool = False):
     """Group-wise symmetric int4 over the contraction axis (the second to
     last): values in [-7, 7], one f32 scale per `group` rows of that axis
     (all of it when `group` does not divide it), round half to even, two
     consecutive rows packed into one int8 byte, the even row in the low
-    nibble; JAX's `_quant_w4`, bit for bit. Returns {"q4p": int8 (...,
-    K/g, g/2, N), "s4": f32 (..., K/g, 1, N)}."""
+    nibble; JAX's `_quant_w4`, bit for bit: as it runs eagerly, or with
+    `compiled` as it runs inside a jitted program (the scale a product
+    with 1/7). Returns {"q4p": int8 (..., K/g, g/2, N), "s4": f32 (...,
+    K/g, 1, N)}."""
     K, N = w.shape[-2], w.shape[-1]
     if K % 2:
         raise ValueError(f"int4 packing needs an even contraction dim, "
                          f"got {K}")
     g = group if K % group == 0 else K
     w32 = w.float().reshape(w.shape[:-2] + (K // g, g, N))
-    s = w32.abs().amax(-2, keepdim=True).clamp(min=1e-8) / 7.0
+    amax = w32.abs().amax(-2, keepdim=True).clamp(min=1e-8)
+    s = amax * _INV7 if compiled else amax / 7.0
     q = torch.round(w32 / s).clamp(-7, 7).to(torch.int8)
     lo, hi = q[..., 0::2, :], q[..., 1::2, :]
     return {"q4p": (lo & 0x0F) | (hi << 4), "s4": s}
@@ -630,75 +667,239 @@ def dequant_w4(w: dict, dtype) -> torch.Tensor:
     return wd.reshape(wd.shape[:-3] + (-1, wd.shape[-1]))
 
 
-def _check_quant(quant) -> None:
-    if quant not in (None, "none"):
-        raise NotImplementedError(f"quant={quant!r} is not ported yet "
-                                  f"(ROADMAP.md queue 1 item 4)")
+def _quant_decode_params(params, cfg: GPTConfig, bits: int = 8):
+    """Serving weights (JAX's `_quant_decode_params`). `bits=8`: W8A8,
+    per-out-channel int8 body weights and a per-token activation scale
+    (`_qdot`); `bits=4`: W4A16, group-wise int4 body weights dequantized
+    to the compute dtype on read. Both: the embedding stays in the compute
+    dtype, the LM head becomes its own int8 (D, V) matrix "head" (the
+    untied `lm_head` is folded into it), norms and biases stay f32, MoE
+    expert tensors are cast only."""
+    p = dict(params)
+    p["wte"] = params["wte"].to(cfg.dtype)
+    if "wpe" in params:
+        p["wpe"] = params["wpe"].to(cfg.dtype)
+    p["head"] = _quant_w(_head_w(params, cfg).T, 0)       # (D, V), s (1, V)
+    p.pop("lm_head", None)
+    b = dict(params["blocks"])
+    for name in ("qkv", "proj", "fc_in", "fc_out", "fc_gate"):
+        if name in b and torch.is_tensor(b[name]) and b[name].dim() == 3:
+            b[name] = (_quant_w(b[name], 1) if bits == 8
+                       else _quant_w4(b[name], compiled=True))
+    if "gate" in b:
+        b["gate"] = b["gate"].to(cfg.dtype)
+    for name in ("fc_in", "fc_out"):          # MoE experts: cast only
+        if name in b and torch.is_tensor(b[name]):
+            b[name] = b[name].to(cfg.dtype)
+    p["blocks"] = b
+    return p
 
 
-def prepare_decode_params(params, cfg: GPTConfig, quant: str | None = None):
-    """Cast training params for serving once. `quant` other than None or
-    "none" is not ported. Casting prepared params again is free (`.to` of a
-    tensor already in the dtype returns it)."""
-    _check_quant(quant)
+QUANT_MODES = (None, "none", "int8", "int8-kv", "int4")
+
+
+def _check_mode(quant) -> None:
+    if quant not in QUANT_MODES:
+        raise ValueError(f"unknown quant mode {quant!r}")
+
+
+def _prep_decode_params(params, cfg: GPTConfig, quant):
+    """Params for a decode program: prepared trees (the quantized "head"
+    marks them) pass through, else quantize for `quant` or cast."""
+    if "head" in params:
+        return params
+    if quant in ("int8", "int8-kv"):
+        return _quant_decode_params(params, cfg, bits=8)
+    if quant == "int4":
+        return _quant_decode_params(params, cfg, bits=4)
+    _check_mode(quant)
     return _cast_decode_params(params, cfg)
 
 
-def _decode_qkv(x, blk, cfg: GPTConfig, pos):
+@torch.no_grad()
+def prepare_decode_params(params, cfg: GPTConfig, quant: str | None = None):
+    """Quantize or cast training params for serving ONCE, on their device.
+    Every serving program accepts the result (pass the same `quant` to
+    both); casting prepared params again is free."""
+    return _prep_decode_params(params, cfg, quant)
+
+
+def _int8_mm(xq, q8):
+    """xq (M, K) int8 @ q8 (K, N) int8 -> (M, N) int32, exact:
+    `torch._int_mm`. Its CUDA shape rules (more than 16 rows, K and N
+    multiples of 8) are met by zero padding, which adds nothing to the
+    sums; decode has as few as one row."""
+    if xq.device.type != "cuda":
+        return torch._int_mm(xq, q8)
+    M, K = xq.shape
+    N = q8.shape[1]
+    Mp, Kp, Np = max(32, -(-M // 8) * 8), -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp) != (M, K):
+        xq = F.pad(xq, (0, Kp - K, 0, Mp - M))
+    if (Kp, Np) != (K, N):
+        q8 = F.pad(q8, (0, Np - N, 0, Kp - K))
+    return torch._int_mm(xq, q8)[:M, :N]
+
+
+def _qdot(x, w, cfg: GPTConfig):
+    """Decode matmul (JAX's `_qdot`): a plain compute-dtype dot; W8A8 when
+    `w` came from `_quant_w` (x quantized per token, an int8 product summed
+    exactly in int32, then rescaled in f32: an f32 result); W4A16 when `w`
+    came from `_quant_w4` (dequantized to the compute dtype, then a plain
+    dot). The plain and W4A16 products come back in the compute dtype."""
+    if isinstance(w, dict) and "q4p" in w:
+        return torch.matmul(x.to(cfg.dtype), dequant_w4(w, cfg.dtype))
+    if isinstance(w, dict):
+        x32 = x.float()
+        xs = x32.abs().amax(-1, keepdim=True).clamp(min=1e-8) * _INV127
+        xq = torch.round(x32 / xs).clamp(-127, 127).to(torch.int8)
+        y = _int8_mm(xq.reshape(-1, x.shape[-1]), w["q8"])
+        y = y.reshape(x.shape[:-1] + (y.shape[-1],))
+        return y.float() * xs * w["s"].reshape(-1)
+    return torch.matmul(x, w.to(cfg.dtype))
+
+
+def _logits(x, params, cfg: GPTConfig):
+    """f32 logits of a decode program: the quantized head when the params
+    carry one, else `_lm_head`."""
+    head = params.get("head")
+    return _lm_head(x, params, cfg) if head is None else _qdot(x, head, cfg)
+
+
+# --------------------------------------------------------------------------
+# per-request LoRA adapters (S-LoRA): a stacked tree indexed per row
+
+
+def _lora_delta(h, ab, name, sel, cfg: GPTConfig):
+    """Low-rank correction (h @ A[sel]) @ B[sel] for rows that each name an
+    adapter (JAX's `_lora_delta`): `ab` holds ONE layer's stacked adapters
+    {name: {"A": (NA, d_in, r), "B": (NA, r, d_out)}} with alpha/r folded
+    into B, `sel` (B,) int64 each row's adapter (0: the zero adapter, the
+    base model). None when `name` carries no adapter."""
+    if ab is None or name not in ab:
+        return None
+    A = ab[name]["A"][sel].to(cfg.dtype)             # (B, d_in, r)
+    Bm = ab[name]["B"][sel].to(cfg.dtype)            # (B, r, d_out)
+    return torch.bmm(torch.bmm(h.to(cfg.dtype), A), Bm)
+
+
+def _ldot(h, blk, name, cfg: GPTConfig, ab=None, sel=None):
+    """`_qdot` plus the per-row LoRA correction, if any."""
+    y = _qdot(h, blk[name], cfg)
+    d = _lora_delta(h, ab, name, sel, cfg)
+    return y if d is None else y + d
+
+
+def _layer_ab(adapters, i: int):
+    """Layer i's slice of a stacked adapter tree (None stays None)."""
+    return None if adapters is None else _layer(adapters, i)
+
+
+def _decode_qkv(x, blk, cfg: GPTConfig, pos, ab=None, sel=None):
     """q (B,KV,G,1,hd), new-token k/v (B,KV,1,hd) for one layer. Under
-    rope, q and k are rotated by their positions `pos` (B,), so keys enter
-    the cache after rotation and cached reads need none."""
+    rope, q and k are rotated by their positions `pos` (B,) or a 0-d
+    tensor, so keys enter the cache after rotation and cached reads need
+    none."""
     h = _layer_norm(x, blk["ln1"], cfg.norm_eps)
-    qkv = _badd(_qdot(h, blk["qkv"], cfg), blk, "qkv_b", cfg)
+    qkv = _badd(_ldot(h, blk, "qkv", cfg, ab, sel), blk, "qkv_b", cfg)
     # grouped-query attention without repeating K/V: the group axis is
     # folded into the query side (G = H/KV queries share a KV head)
     q, k, v = _unpack_qkv(qkv, cfg)      # q (B,1,KV,G,hd), k/v (B,1,KV,hd)
     if cfg.pos_emb == "rope":
-        cos, sin = _rope_cos_sin(cfg, pos)                  # (B, hd/2)
+        cos, sin = _rope_cos_sin(cfg, pos.reshape(-1))  # (B or 1, hd/2)
         q = _apply_rope(q, cos[:, None, None, None], sin[:, None, None, None])
         k = _apply_rope(k, cos[:, None, None], sin[:, None, None])
     return (q.permute(0, 2, 3, 1, 4), k.permute(0, 2, 1, 3),
             v.permute(0, 2, 1, 3))
 
 
-def _decode_block(x, blk, q, lk, lv, pos, cfg: GPTConfig):
+def _decode_block(x, blk, q, lk, lv, pos, cfg: GPTConfig, ab=None,
+                  sel=None):
     """Attention + MLP for a single new token x (B, 1, D) over a gathered
     cache `lk`/`lv` (B, KV, S, hd) that ALREADY holds the new token at
-    `pos` (B,). Scores and PV in f32; the softmax is cast to the compute
-    dtype before PV, as in JAX."""
+    `pos` ((B,) or 0-d). Scores and PV in f32; the softmax is cast to the
+    compute dtype before PV, as in JAX."""
     B = x.shape[0]
     hd = cfg.d_model // cfg.n_head
     att = torch.einsum("bkgqd,bksd->bkgqs", q.float(), lk.float())
     att = att / math.sqrt(hd)
     idx = torch.arange(att.shape[-1], device=att.device)
-    pos_b = pos.long().view(B, 1, 1, 1, 1)
+    pos_b = pos.long().reshape(-1, 1, 1, 1, 1)
     keep = idx <= pos_b
     if cfg.window:
         keep &= pos_b - idx < cfg.window
     att = torch.softmax(att.masked_fill(~keep, -1e30), -1).to(cfg.dtype)
     ctx = torch.einsum("bkgqs,bksd->bkgqd", att.float(), lv.float())
     ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(B, 1, cfg.d_model)
-    return _decode_post(x, blk, ctx, cfg)
+    return _decode_post(x, blk, ctx, cfg, ab, sel)
 
 
-def _decode_post(x, blk, ctx, cfg: GPTConfig):
+def _decode_post(x, blk, ctx, cfg: GPTConfig, ab=None, sel=None):
     """Post-attention half of a decode block: output projection,
     residual, MLP. `ctx` is the merged-heads attention output (B, 1, D)."""
-    ctx = _qdot(ctx, blk["proj"], cfg)
+    ctx = _ldot(ctx, blk, "proj", cfg, ab, sel)
     x = x + _badd(ctx, blk, "proj_b", cfg)
-    return x + _mlp(_layer_norm(x, blk["ln2"], cfg.norm_eps), blk, cfg)
+    return x + _decode_mlp(_layer_norm(x, blk["ln2"], cfg.norm_eps), blk,
+                           cfg, ab, sel)
 
 
-def _prefill_body(params, cache, prompt, cfg: GPTConfig):
+def _decode_mlp(x, blk, cfg: GPTConfig, ab=None, sel=None):
+    """The serving MLP (JAX's `_decode_mlp`): through `_ldot` when the
+    weights are quantized or an adapter targets the MLP, else `_mlp`."""
+    mlp_lora = ab is not None and any(
+        k in ab for k in ("fc_in", "fc_out", "fc_gate"))
+    if not (isinstance(blk["fc_in"], dict) or mlp_lora):
+        return _mlp(x, blk, cfg)
+    h = _badd(_ldot(x, blk, "fc_in", cfg, ab, sel), blk, "fc_in_b", cfg)
+    if cfg.mlp == "swiglu":
+        g = _badd(_ldot(x, blk, "fc_gate", cfg, ab, sel), blk, "fc_gate_b",
+                  cfg)
+        h = (F.silu(g.float()) * h).to(cfg.dtype)
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return _badd(_ldot(h, blk, "fc_out", cfg, ab, sel), blk, "fc_out_b", cfg)
+
+
+def _kv_names(cache):
+    """The cache's K/V tensors: ("k", "v"), with the int8 cache's scales."""
+    return ("k", "v", "ks", "vs") if "ks" in cache else ("k", "v")
+
+
+def _kv_layer(cache, i: int, cfg: GPTConfig):
+    """Layer i's K/V (B, KV, S, hd) in the compute dtype; the int8 cache
+    is dequantized on read (int8 times scale in the compute dtype)."""
+    if "ks" not in cache:
+        return cache["k"][i], cache["v"][i]
+    return tuple(cache[n][i].to(cfg.dtype) * cache[s][i].to(cfg.dtype)
+                 for n, s in (("k", "ks"), ("v", "vs")))
+
+
+def _kv_entries(k, v, quant_kv: bool):
+    """(name, tensor) pairs to store for new K/V: as they are, or int8
+    values and scales."""
+    if not quant_kv:
+        return (("k", k), ("v", v))
+    (k8, ks), (v8, vs) = _quant_kv(k), _quant_kv(v)
+    return (("k", k8), ("v", v8), ("ks", ks), ("vs", vs))
+
+
+def _prefill_body(params, cache, prompt, cfg: GPTConfig, ab=None, sel=None,
+                  last=None):
     """Batched prefill: ONE pass over the whole prompt (B, P) writes each
-    layer's K/V into `cache` (L, B, KV, S>=P, hd) in place at positions
-    0..P-1 and returns the last position's f32 logits (B, V) and the
-    cache. Attention here is plain torch, as it is an einsum outside any
-    kernel in JAX."""
+    layer's K/V into `cache` (L, B, KV, S>=P, hd; int8 with scales for the
+    int8 cache) in place at positions 0..P-1 and returns the f32 logits
+    (B, V) of position `last` (an int, a (B,) tensor, or None: P-1) and
+    the cache. Bucketed prefill pads the prompt and asks for its true last
+    position; the padded tail's K/V are dead (the causal mask keeps real
+    positions blind to them and decode overwrites them first). `ab`
+    (stacked adapters, leading layer axis) and `sel` (B,) apply per-row
+    LoRA corrections. Attention here is plain torch, as it is an einsum
+    outside any kernel in JAX."""
     B, P = prompt.shape
     hd = cfg.d_model // cfg.n_head
     dev = prompt.device
-    x = params["wte"][prompt]
+    quant_kv = "ks" in cache
+    x = params["wte"][prompt.long()]
     if cfg.pos_emb == "learned":
         x = x + params["wpe"][:P]
     x = x.to(cfg.dtype)
@@ -711,8 +912,9 @@ def _prefill_body(params, cache, prompt, cfg: GPTConfig):
         keep &= iq - ik < cfg.window
     for i in range(cfg.n_layer):
         blk = _layer(params["blocks"], i)
+        ab_l = _layer_ab(ab, i)
         h = _layer_norm(x, blk["ln1"], cfg.norm_eps)
-        qkv = _badd(_qdot(h, blk["qkv"], cfg), blk, "qkv_b", cfg)
+        qkv = _badd(_ldot(h, blk, "qkv", cfg, ab_l, sel), blk, "qkv_b", cfg)
         q, k, v = _unpack_qkv(qkv, cfg)
         if cfg.pos_emb == "rope":      # q/k (B,P,KV,{G,}hd): rotate by P
             q = _apply_rope(q, r_cos[:, None, None], r_sin[:, None, None])
@@ -726,13 +928,77 @@ def _prefill_body(params, cache, prompt, cfg: GPTConfig):
         ctx = torch.einsum("bkgqs,bksd->bkgqd", att.float(), v.float())
         ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(
             B, P, cfg.d_model)
-        x = x + _badd(_qdot(ctx, blk["proj"], cfg), blk, "proj_b", cfg)
-        x = x + _mlp(_layer_norm(x, blk["ln2"], cfg.norm_eps), blk, cfg)
-        cache["k"][i, :, :, :P] = k
-        cache["v"][i, :, :, :P] = v
-    x = _layer_norm(x[:, -1], params["ln_f"], cfg.norm_eps)
+        x = x + _badd(_ldot(ctx, blk, "proj", cfg, ab_l, sel), blk,
+                      "proj_b", cfg)
+        x = x + _decode_mlp(_layer_norm(x, blk["ln2"], cfg.norm_eps), blk,
+                            cfg, ab_l, sel)
+        for name, t in _kv_entries(k, v, quant_kv):
+            cache[name][i, :, :, :P] = t
+    if last is None:
+        x_last = x[:, -1]
+    elif isinstance(last, int):
+        x_last = x[:, last]
+    else:
+        rows = torch.arange(B, device=dev)
+        x_last = x[rows, last.long().to(dev).expand(B)]
+    x = _layer_norm(x_last, params["ln_f"], cfg.norm_eps)
     cache["pos"] = cache["pos"] + P
-    return _lm_head(x, params, cfg), cache
+    return _logits(x, params, cfg), cache
+
+
+def _verify_body(params, cache, tokens, cfg: GPTConfig, ab=None, sel=None):
+    """Chunked decode (JAX's `_verify_body`): `tokens` (B, C) go through
+    the model in ONE pass starting at cache position `pos` (an int or a 0-d
+    tensor): their K/V are written at pos..pos+C-1 in place, and the query
+    at pos+i attends cache keys <= pos+i. Speculative verification, suffix
+    prefill after a cached prefix and chunked prefill all run it. Returns
+    (logits (B, C, V) f32, cache with pos advanced by C)."""
+    B, C = tokens.shape
+    hd = cfg.d_model // cfg.n_head
+    dev = tokens.device
+    pos = cache["pos"]
+    quant_kv = "ks" in cache
+    at = torch.arange(C, device=dev)
+    at = at + (pos if isinstance(pos, int) else pos.long())
+    x = params["wte"][tokens.long()]
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"].index_select(0, at)[None]
+    x = x.to(cfg.dtype)
+    if cfg.pos_emb == "rope":
+        r_cos, r_sin = _rope_cos_sin(cfg, at)                # (C, hd/2)
+    S = cache["k"].shape[3]
+    keep = torch.arange(S, device=dev)[None, :] <= at[:, None]   # (C, S)
+    if cfg.window:
+        keep &= at[:, None] - torch.arange(S, device=dev)[None, :] \
+            < cfg.window
+    for i in range(cfg.n_layer):
+        blk = _layer(params["blocks"], i)
+        ab_l = _layer_ab(ab, i)
+        h = _layer_norm(x, blk["ln1"], cfg.norm_eps)
+        qkv = _badd(_ldot(h, blk, "qkv", cfg, ab_l, sel), blk, "qkv_b", cfg)
+        q, k, v = _unpack_qkv(qkv, cfg)
+        if cfg.pos_emb == "rope":
+            q = _apply_rope(q, r_cos[:, None, None], r_sin[:, None, None])
+            k = _apply_rope(k, r_cos[:, None], r_sin[:, None])
+        q = q.permute(0, 2, 3, 1, 4)                     # (B,KV,G,C,hd)
+        k = k.permute(0, 2, 1, 3)                        # (B,KV,C,hd)
+        v = v.permute(0, 2, 1, 3)
+        for name, t in _kv_entries(k, v, quant_kv):
+            cache[name][i].index_copy_(2, at, t)
+        lk, lv = _kv_layer(cache, i, cfg)
+        att = torch.einsum("bkgqd,bksd->bkgqs", q.float(), lk.float())
+        att = att / math.sqrt(hd)
+        att = torch.softmax(att.masked_fill(~keep, -1e30), -1).to(cfg.dtype)
+        ctx = torch.einsum("bkgqs,bksd->bkgqd", att.float(), lv.float())
+        ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(
+            B, C, cfg.d_model)
+        x = x + _badd(_ldot(ctx, blk, "proj", cfg, ab_l, sel), blk,
+                      "proj_b", cfg)
+        x = x + _decode_mlp(_layer_norm(x, blk["ln2"], cfg.norm_eps), blk,
+                            cfg, ab_l, sel)
+    x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
+    cache["pos"] = pos + C
+    return _logits(x, params, cfg), cache
 
 
 # --------------------------------------------------------------------------
@@ -744,11 +1010,20 @@ def init_kv_cache(cfg: GPTConfig, batch: int, quant: str | None = None,
     """Per-layer K/V buffers (L, B, KV, max_seq, hd) in the compute dtype
     and the position, a 0-d int32 tensor, on `device` (default
     `config.device`). With GQA the cache is n_head/n_kv_head times smaller.
-    `quant` other than None or "none" is not ported."""
-    _check_quant(quant)
+    With `quant="int8-kv"` K/V are int8 with an f32 scale per (token, head)
+    in "ks"/"vs" (..., 1); every other mode keeps the compute dtype."""
+    _check_mode(quant)
     dev = resolve(config.device if device is None else device)
     hd = cfg.d_model // cfg.n_head
     shape = (cfg.n_layer, batch, _kv_heads(cfg), cfg.max_seq, hd)
+    if quant == "int8-kv":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "ks": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                  device=dev),
+                "vs": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                  device=dev),
+                "pos": torch.zeros((), dtype=torch.int32, device=dev)}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -763,6 +1038,7 @@ def _decode_step_body(params, cache, token, cfg: GPTConfig):
     pos = cache["pos"]
     B = token.shape[0]
     at = pos.view(1).long()
+    quant_kv = "ks" in cache
     x = params["wte"][token.long()][:, None, :]
     if cfg.pos_emb == "learned":
         x = x + params["wpe"].index_select(0, at)
@@ -771,27 +1047,29 @@ def _decode_step_body(params, cache, token, cfg: GPTConfig):
     for i in range(cfg.n_layer):
         blk = _layer(params["blocks"], i)
         q, k_new, v_new = _decode_qkv(x, blk, cfg, pos_b)
-        lk, lv = cache["k"][i], cache["v"][i]
-        lk.index_copy_(2, at, k_new)
-        lv.index_copy_(2, at, v_new)
+        for name, t in _kv_entries(k_new, v_new, quant_kv):
+            cache[name][i].index_copy_(2, at, t)
+        lk, lv = _kv_layer(cache, i, cfg)
         x = _decode_block(x, blk, q, lk, lv, pos_b, cfg)
     x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
     cache["pos"] = pos + 1
-    return _lm_head(x[:, 0], params, cfg), cache
+    return _logits(x[:, 0], params, cfg), cache
 
 
 def make_decode_step(cfg: GPTConfig, quant: str | None = None):
     """Single-token decode: (params, cache, token (B,)) -> (logits (B, V),
     cache). The cache is updated in place (JAX donates it). The params are
-    cast to the compute dtype on each call, as JAX casts them in-program;
-    `prepare_decode_params` once makes that cast free."""
+    quantized or cast for `quant` on each call, as JAX does in-program;
+    `prepare_decode_params` once makes that free. `quant="int8"` is W8A8,
+    `"int8-kv"` also an int8 cache (`init_kv_cache(..., quant="int8-kv")`),
+    `"int4"` W4A16 with an int8 head."""
     _require_causal(cfg, "kv-cache decoding/serving")
-    _check_quant(quant)
+    _check_mode(quant)
 
     @torch.no_grad()
     def step(params, cache, token):
-        return _decode_step_body(_cast_decode_params(params, cfg), cache,
-                                 token, cfg)
+        return _decode_step_body(_prep_decode_params(params, cfg, quant),
+                                 cache, token, cfg)
 
     return step
 
@@ -801,11 +1079,11 @@ def make_prefill(cfg: GPTConfig, quant: str | None = None):
     logits (B, V), cache filled through position P-1), in place. Pair with
     `make_decode_step` of the same quant mode."""
     _require_causal(cfg, "kv-cache decoding/serving")
-    _check_quant(quant)
+    _check_mode(quant)
 
     @torch.no_grad()
     def pre(params, cache, prompt):
-        return _prefill_body(_cast_decode_params(params, cfg), cache,
+        return _prefill_body(_prep_decode_params(params, cfg, quant), cache,
                              prompt, cfg)
 
     return pre
@@ -853,6 +1131,12 @@ def _prompt_tensor(prompt, cfg: GPTConfig, max_new: int, dev):
     return prompt
 
 
+def _mesh_refused(what: str):
+    return NotImplementedError(f"{what}(mesh=...): tensor-parallel serving "
+                               f"is not ported yet (ROADMAP.md queue 1 item "
+                               f"5)")
+
+
 def make_generate(cfg: GPTConfig, max_new: int, temperature: float = 0.0,
                   top_k: int = 0, top_p: float = 0.0, min_p: float = 0.0,
                   repetition_penalty: float = 1.0,
@@ -865,26 +1149,26 @@ def make_generate(cfg: GPTConfig, max_new: int, temperature: float = 0.0,
     Sampling controls: `temperature`/`top_k`/`top_p`/`min_p` (see
     `sample_logits`) and `repetition_penalty` (CTRL-style: logits of tokens
     already in the prompt or generated so far are divided by the penalty
-    when positive, multiplied when negative; 1.0 disables).
+    when positive, multiplied when negative; 1.0 disables). `quant` as
+    `make_decode_step` (the weights quantized once a call, outside the
+    loop).
 
     Returns gen(params, prompt (B, P), generator=None) -> (B, P + max_new)
-    int32 on the params' device; P + max_new must fit cfg.max_seq. `quant`
-    and `mesh` (tensor-parallel serving) are not ported."""
+    int32 on the params' device; P + max_new must fit cfg.max_seq. `mesh`
+    (tensor-parallel serving) is not ported."""
     _require_causal(cfg, "kv-cache decoding/serving")
-    _check_quant(quant)
+    _check_mode(quant)
     if mesh is not None:
-        raise NotImplementedError("make_generate(mesh=...): tensor-parallel "
-                                  "serving is not ported yet (ROADMAP.md "
-                                  "queue 1 item 5)")
+        raise _mesh_refused("make_generate")
     rp = repetition_penalty
 
     @torch.no_grad()
     def gen(params, prompt, generator: torch.Generator | None = None):
-        params = _cast_decode_params(params, cfg)   # once, outside the loop
+        params = _prep_decode_params(params, cfg, quant)  # outside the loop
         dev = params["wte"].device
         prompt = _prompt_tensor(prompt, cfg, max_new, dev)
         B, P = prompt.shape
-        cache = init_kv_cache(cfg, B, device=dev)
+        cache = init_kv_cache(cfg, B, quant=quant, device=dev)
         logits, cache = _prefill_body(params, cache, prompt, cfg)
         out = torch.empty((B, P + max_new), dtype=torch.int32, device=dev)
         out[:, :P] = prompt
@@ -938,28 +1222,29 @@ def make_beam_search(cfg: GPTConfig, max_new: int, n_beams: int,
     """Beam search on the device: a batched prefill, then `max_new` steps,
     each expanding every beam over the vocabulary, keeping the `n_beams`
     highest-scoring continuations per batch row and reordering the KV
-    cache to the surviving parents (a batch-axis gather, as JAX's).
+    cache (and the int8 cache's scales) to the surviving parents (a
+    batch-axis gather, as JAX's).
 
     Returns search(params, prompt (B, P)) -> (tokens (B, K, P + max_new)
     int32, scores (B, K) f32), beams best first by total log-probability.
     Ties between equal scores go to the lower flat index (beam-major over
     the vocabulary), as `lax.top_k` breaks them: a stable sort."""
     _require_causal(cfg, "kv-cache decoding/serving")
-    _check_quant(quant)
+    _check_mode(quant)
     K = n_beams
 
     @torch.no_grad()
     def search(params, prompt):
-        params = _cast_decode_params(params, cfg)
+        params = _prep_decode_params(params, cfg, quant)
         dev = params["wte"].device
         prompt = _prompt_tensor(prompt, cfg, max_new, dev)
         B, P = prompt.shape
         V = cfg.vocab_size
-        cache = init_kv_cache(cfg, B, device=dev)
+        cache = init_kv_cache(cfg, B, quant=quant, device=dev)
         logits, cache = _prefill_body(params, cache, prompt, cfg)
         # replicate to B*K rows, b-major: row = b*K + k
-        cache["k"] = cache["k"].repeat_interleave(K, dim=1)
-        cache["v"] = cache["v"].repeat_interleave(K, dim=1)
+        for n in _kv_names(cache):
+            cache[n] = cache[n].repeat_interleave(K, dim=1)
         logits = logits.repeat_interleave(K, dim=0)
         # only beam 0 is live at first (the others are copies of it)
         scores = torch.full((B, K), float("-inf"), device=dev)
@@ -975,8 +1260,8 @@ def make_beam_search(cfg: GPTConfig, max_new: int, n_beams: int,
             parent = top_i // V
             token = (top_i % V).to(torch.int32)
             flat = (rows * K + parent).reshape(-1)
-            cache["k"] = cache["k"].index_select(1, flat)
-            cache["v"] = cache["v"].index_select(1, flat)
+            for n in _kv_names(cache):
+                cache[n] = cache[n].index_select(1, flat)
             buf = buf[rows, parent]
             buf[:, :, t] = token
             scores = top_s
@@ -989,15 +1274,340 @@ def make_beam_search(cfg: GPTConfig, max_new: int, n_beams: int,
     return search
 
 
-def make_speculative_generate(*args, **kwargs):
-    """Greedy speculative decoding: not ported yet."""
-    raise NotImplementedError("speculative decoding "
-                              "(make_speculative_generate) is not ported yet "
-                              "(ROADMAP.md queue 1 item 4)")
+def make_speculative_generate(cfg_target: GPTConfig, cfg_draft: GPTConfig,
+                              max_new: int, gamma: int = 4,
+                              quant: str | None = None,
+                              draft_quant: str | None = None):
+    """Greedy speculative decoding (one stream, B=1; JAX's
+    `make_speculative_generate`): the draft proposes `gamma` tokens by
+    decode steps, the target scores all of them in ONE chunked pass
+    (`_verify_body`), and the longest matching prefix plus the target's
+    own next token is emitted. Rolling back is setting `pos`: the mask
+    never reads past it.
+
+    The output is EXACTLY the target's greedy continuation for ANY draft;
+    the draft only changes how many target passes it takes. Needs
+    prompt_len + max_new + gamma + 1 <= both models' max_seq and a shared
+    vocabulary. Each round reads the accepted length back to the host
+    once.
+
+    Returns spec(params_target, params_draft, prompt (1, P)) -> (tokens
+    (1, P + max_new) int32 on the target's device, n_target_steps), the
+    number of verify passes (an int)."""
+    for c in (cfg_target, cfg_draft):
+        _require_causal(c, "speculative decoding")
+    _check_mode(quant)
+    _check_mode(draft_quant)
+
+    @torch.no_grad()
+    def spec(params_t, params_d, prompt):
+        dev = params_t["wte"].device
+        prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+        if prompt.dim() != 2 or prompt.shape[0] != 1:
+            raise ValueError("speculative decoding is single-stream (B=1)")
+        P = prompt.shape[1]
+        if P + max_new + gamma + 1 > min(cfg_target.max_seq,
+                                         cfg_draft.max_seq):
+            raise ValueError("prompt + max_new + gamma + 1 exceeds max_seq")
+        pt = _prep_decode_params(params_t, cfg_target, quant)
+        pd = _prep_decode_params(params_d, cfg_draft, draft_quant)
+        cache_t = init_kv_cache(cfg_target, 1, quant=quant, device=dev)
+        cache_d = init_kv_cache(cfg_draft, 1, quant=draft_quant, device=dev)
+        lg_t, cache_t = _prefill_body(pt, cache_t, prompt, cfg_target)
+        _, cache_d = _prefill_body(pd, cache_d, prompt, cfg_draft)
+        buf = torch.zeros((max_new + gamma + 1,), dtype=torch.int32,
+                          device=dev)
+        buf[0] = lg_t[0].argmax()
+        n, iters = 1, 0
+        while n < max_new:
+            last = buf[n - 1:n]
+            tok, props = last, []
+            for _ in range(gamma):
+                lg, cache_d = _decode_step_body(pd, cache_d, tok, cfg_draft)
+                tok = lg.argmax(-1).to(torch.int32)
+                props.append(tok)
+            # the draft consumes its last proposal too, so its cache is
+            # whole when every proposal is accepted
+            _, cache_d = _decode_step_body(pd, cache_d, tok, cfg_draft)
+            props = torch.cat(props)                            # (gamma,)
+            lg, cache_t = _verify_body(pt, cache_t,
+                                       torch.cat([last, props])[None],
+                                       cfg_target)
+            g = lg[0].argmax(-1).to(torch.int32)                # (gamma+1,)
+            match = props == g[:gamma]
+            j = torch.where(match.all(), gamma,
+                            torch.argmin(match.to(torch.int32)))
+            # emit g[0..j]: j accepted and the target's correction (or
+            # bonus); what lies past j is overwritten next round
+            buf[n:n + gamma + 1] = g
+            n += int(j) + 1                                     # the sync
+            for c in (cache_t, cache_d):
+                c["pos"] = torch.full((), P + n - 1, dtype=torch.int32,
+                                      device=dev)
+            iters += 1
+        return torch.cat([prompt, buf[None, :max_new]], dim=1), iters
+
+    return spec
+
+
+# --------------------------------------------------------------------------
+# dense-slot serving: one (L, n_slots, KV, max_seq, hd) cache, a position
+# per slot (continuous batching's `ContinuousBatcher`)
+
+
+def init_slot_cache(cfg: GPTConfig, n_slots: int, quant: str | None = None,
+                    device=None):
+    """KV cache for slot-based serving: `init_kv_cache`'s layout (the int8
+    one for "int8-kv") with a PER-SLOT position vector (n_slots,) int32:
+    each slot advances on its own."""
+    cache = init_kv_cache(cfg, n_slots, quant=quant, device=device)
+    cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
+                               device=cache["k"].device)
+    return cache
+
+
+def _slot_prefill_run(params, cache, prompt, slots, plen, last, cfg,
+                      quant, ab, sel):
+    """Prefill `prompt` (m, P) into a fresh mini cache and copy each row's
+    whole K/V row (the zeros past P included, as JAX's
+    `dynamic_update_slice`) into `slots` (an int or an (m,) tensor);
+    pos[slots] = plen."""
+    if isinstance(slots, int):
+        slots = slice(slots, slots + 1)
+    mini = init_kv_cache(cfg, prompt.shape[0], quant=quant,
+                         device=prompt.device)
+    logits, mini = _prefill_body(params, mini, prompt, cfg, ab, sel, last)
+    for n in _kv_names(cache):
+        cache[n][:, slots] = mini[n]
+    cache["pos"][slots] = plen
+    return logits, cache
+
+
+def make_slot_prefill(cfg: GPTConfig, quant: str | None = None,
+                      bucketed: bool = False):
+    """Per-request prefill for slot serving: (params, cache, prompt (1, P),
+    slot) -> (last-position logits (V,), cache with the slot's K/V row
+    replaced and pos[slot] = P); other slots are untouched, so a request
+    joins a running batch. With `bucketed=True`: (params, cache, prompt
+    (1, Pb), plen, slot): the prompt is zero-padded to a bucket Pb and the
+    logits are position plen-1's; pos[slot] = plen. Trailing (adapters,
+    sel) apply per-request LoRA. The cache is updated in place."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_mode(quant)
+
+    @torch.no_grad()
+    def pre(params, cache, prompt, slot, adapters=None, sel=None):
+        params = _prep_decode_params(params, cfg, quant)
+        logits, cache = _slot_prefill_run(
+            params, cache, prompt, slot, prompt.shape[1], None, cfg, quant,
+            adapters, sel)
+        return logits[0], cache
+
+    @torch.no_grad()
+    def pre_bucketed(params, cache, prompt, plen, slot, adapters=None,
+                     sel=None):
+        params = _prep_decode_params(params, cfg, quant)
+        logits, cache = _slot_prefill_run(
+            params, cache, prompt, slot, int(plen), int(plen) - 1, cfg,
+            quant, adapters, sel)
+        return logits[0], cache
+
+    return pre_bucketed if bucketed else pre
+
+
+def make_slot_prefill_multi(cfg: GPTConfig, quant: str | None = None):
+    """Multi-request prefill for slot serving (grouped admission):
+    (params, cache, prompts (m, Pb), plens (m,), slots (m,)) -> (logits
+    (m, V) at each row's plen-1, cache with the m slots' rows replaced and
+    pos[slots] = plens). One pass reads the weights once for the group.
+    Rows padding the group to a power of two replicate row 0 (prompt,
+    plen, slot), so their duplicate writes carry the same values."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_mode(quant)
+
+    @torch.no_grad()
+    def pre(params, cache, prompts, plens, slots):
+        params = _prep_decode_params(params, cfg, quant)
+        return _slot_prefill_run(params, cache, prompts, slots.long(),
+                                 plens, plens - 1, cfg, quant, None, None)
+
+    return pre
+
+
+def make_slot_suffix_prefill(cfg: GPTConfig, quant: str | None = None,
+                             bucketed: bool = False):
+    """Suffix prefill after a cached prefix (slot serving): (params,
+    cache, pk, pv, plen, suffix (1, C), slot) -> (last-position logits
+    (V,), cache); with `bucketed=True` (..., plen, suffix (1, Cb), cs,
+    slot): the suffix padded to a bucket, true length cs. `pk`/`pv` are
+    the prefix's K/V ((L, 1, KV, max_seq, hd), positions < plen valid;
+    `scales=(ks, vs)` beside them for the int8 cache). The slot's row
+    becomes the prefix's, then the suffix runs as one chunked pass from
+    plen (`_verify_body`): the same state as a full prefill of the whole
+    prompt for the cost of the suffix. pos[slot] = plen + C."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_mode(quant)
+
+    def body(params, cache, pk, pv, plen, suffix, slot, cs, last, scales):
+        params = _prep_decode_params(params, cfg, quant)
+        pre_kv = {"k": pk, "v": pv}
+        if scales is not None:
+            pre_kv["ks"], pre_kv["vs"] = scales
+        row = {}
+        for n in _kv_names(cache):
+            cache[n][:, slot] = pre_kv[n][:, 0]
+            row[n] = cache[n][:, slot:slot + 1]          # views: in place
+        row["pos"] = int(plen)
+        logits, _ = _verify_body(params, row, suffix, cfg)
+        cache["pos"][slot] = int(plen) + cs
+        return logits[0, last], cache
+
+    @torch.no_grad()
+    def pre(params, cache, pk, pv, plen, suffix, slot, scales=None):
+        return body(params, cache, pk, pv, plen, suffix, slot,
+                    suffix.shape[1], -1, scales)
+
+    @torch.no_grad()
+    def pre_bucketed(params, cache, pk, pv, plen, suffix, cs, slot,
+                     scales=None):
+        # the caller caps the bucket at max_seq - plen, so the dead tail's
+        # writes stay in range
+        return body(params, cache, pk, pv, plen, suffix, slot, int(cs),
+                    int(cs) - 1, scales)
+
+    return pre_bucketed if bucketed else pre
+
+
+def make_slot_chunk_prefill(cfg: GPTConfig, quant: str | None = None):
+    """Chunked prefill for slot serving (SARATHI-style): (params, cache,
+    chunk (1, C), slot, start) -> (logits (V,) at the chunk's last
+    position, cache). The chunk continues the slot's own partial K/V: its
+    queries attend positions < start and the chunk's causal range
+    (`_verify_body`), its K/V land at start..start+C-1, pos[slot] =
+    start + C. The scheduler sends aligned chunks and a final chunk of the
+    row's LAST C tokens (start = P - C): the overlap rewrites the same
+    K/V, so no chunk is padded. Trailing (adapters, sel) serve per-request
+    LoRA."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_mode(quant)
+
+    @torch.no_grad()
+    def pre(params, cache, chunk, slot, start, adapters=None, sel=None):
+        params = _prep_decode_params(params, cfg, quant)
+        row = {n: cache[n][:, slot:slot + 1] for n in _kv_names(cache)}
+        row["pos"] = int(start)
+        logits, _ = _verify_body(params, row, chunk, cfg, adapters, sel)
+        cache["pos"][slot] = int(start) + chunk.shape[1]
+        return logits[0, -1], cache
+
+    return pre
+
+
+def _slot_decode_body(params, cache, tokens, active, cfg: GPTConfig,
+                      adapters=None, sel=None):
+    """One slot-decode step on PREPARED params (the body of
+    `make_slot_decode_step` and `make_slot_decode_many`): each active slot
+    writes its K/V at its own position and attends its own causal range;
+    inactive slots rewrite their own values and keep their position."""
+    pos = cache["pos"]                                   # (B,) int32
+    B = tokens.shape[0]
+    pos_w = pos.clamp(max=cfg.max_seq - 1)               # clamp idle slots
+    pw = pos_w.long()
+    x = params["wte"][tokens.long()]
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"][pw]
+    x = x.to(cfg.dtype)[:, None, :]
+    bar = torch.arange(B, device=tokens.device)
+    keep = active[:, None, None]
+    quant_kv = "ks" in cache
+    for i in range(cfg.n_layer):
+        blk = _layer(params["blocks"], i)
+        ab_l = _layer_ab(adapters, i)
+        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos, ab_l, sel)
+        for name, t in _kv_entries(k_new, v_new, quant_kv):
+            c = cache[name][i]
+            # two advanced indices split by a slice: (B, KV, last)
+            c[bar, :, pw] = torch.where(keep, t[:, :, 0], c[bar, :, pw])
+        lk, lv = _kv_layer(cache, i, cfg)
+        x = _decode_block(x, blk, q, lk, lv, pos_w, cfg, ab_l, sel)
+    x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
+    cache["pos"] = torch.where(active, (pos + 1).clamp(max=cfg.max_seq), pos)
+    return _logits(x[:, 0], params, cfg), cache
+
+
+def make_slot_decode_step(cfg: GPTConfig, quant: str | None = None):
+    """Decode across slots with PER-SLOT positions (continuous batching):
+    (params, cache, tokens (B,), active (B,) bool) -> (logits (B, V) f32,
+    cache), the cache updated in place; trailing (adapters, sel) route
+    per-slot LoRA adapters."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_mode(quant)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, active, adapters=None, sel=None):
+        params = _prep_decode_params(params, cfg, quant)
+        return _slot_decode_body(params, cache, tokens, active, cfg,
+                                 adapters, sel)
+
+    return step
+
+
+def _decode_window(k, body, tokens, active, seeds, steps0, temperature,
+                   top_k, top_p, min_p):
+    """k decode steps and per-row sampling without a host read: `body(tok)`
+    runs one step and returns its logits. Row b's token at step i is drawn
+    from (seeds[b], steps0[b] + i), as the per-step path draws it.
+    Returns the (k, B) int32 tokens on the device."""
+    toks = []
+    tok = tokens
+    for i in range(k):
+        logits = body(tok)
+        nxt = sample_logits_batched(logits, seeds,
+                                    [s + i for s in steps0], temperature,
+                                    top_k, top_p, min_p).to(torch.int32)
+        tok = torch.where(active, nxt, tok)
+        toks.append(nxt)
+    return torch.stack(toks)
+
+
+def make_slot_decode_many(cfg: GPTConfig, k: int, quant: str | None = None):
+    """k slot-decode steps and per-row sampling in one call with no host
+    read between steps (multi-step scheduling): (params, cache, tokens
+    (B,), active (B,), seeds, steps0, temperature, top_k, top_p, min_p
+    (host sequences of length B)) -> (tokens (k, B) int32 on the device,
+    cache). The caller reads the tokens once a window; they are the
+    per-step path's exactly (each row's draw depends on its own seed and
+    step count and its own causal lane), and the host discards what a row
+    emits past its stop, eos or budget."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _check_mode(quant)
+
+    @torch.no_grad()
+    def many(params, cache, tokens, active, seeds, steps0, temperature,
+             top_k, top_p, min_p, adapters=None, sel=None):
+        params = _prep_decode_params(params, cfg, quant)
+
+        def body(tok):
+            return _slot_decode_body(params, cache, tok, active, cfg,
+                                     adapters, sel)[0]
+
+        return _decode_window(k, body, tokens, active, seeds, steps0,
+                              temperature, top_k, top_p, min_p), cache
+
+    return many
 
 
 # --------------------------------------------------------------------------
 # paged KV cache (block tables; vLLM-style memory management)
+
+
+def _paged_mode(quant) -> None:
+    """The paged programs take every mode but the int8 cache (JAX's
+    refusal, with its message)."""
+    _check_mode(quant)
+    if quant == "int8-kv":
+        raise NotImplementedError("paged serving supports "
+                                  "quant=None/'int8'/'int4'")
 
 
 def init_paged_cache(cfg: GPTConfig, n_blocks: int, block_size: int,
@@ -1016,43 +1626,193 @@ def init_paged_cache(cfg: GPTConfig, n_blocks: int, block_size: int,
     }
 
 
+def _mini(cfg: GPTConfig, m: int, S: int, dev):
+    """A dense (L, m, KV, S, hd) K/V scratch cache in the compute dtype."""
+    shape = (cfg.n_layer, m, _kv_heads(cfg), S, cfg.d_model // cfg.n_head)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "pos": 0}
+
+
+def _to_blocks(t, BS: int):
+    """(L, m, KV, nb*BS, hd) -> (L, m*nb, KV, BS, hd): positions cut into
+    blocks, each row's blocks in order."""
+    L, m, KV, S, hd = t.shape
+    nb = S // BS
+    return t.reshape(L, m, KV, nb, BS, hd).permute(0, 1, 3, 2, 4, 5).reshape(
+        L, m * nb, KV, BS, hd)
+
+
+def _from_blocks(t):
+    """(L, nb, KV, BS, hd) pool blocks in order -> (L, 1, KV, nb*BS, hd)."""
+    L, nb, KV, BS, hd = t.shape
+    return t.permute(0, 2, 1, 3, 4).reshape(L, 1, KV, nb * BS, hd)
+
+
+def _scatter_blocks(cache, mini_k, mini_v, idx, BS: int):
+    """Write dense K/V rows into the pool blocks `idx` (one per BS
+    positions, rows in order)."""
+    for name, src in (("pk", mini_k), ("pv", mini_v)):
+        cache[name][:, idx] = _to_blocks(src, BS).to(cache[name].dtype)
+
+
 def make_paged_prefill(cfg: GPTConfig, block_size: int,
-                       quant: str | None = None):
+                       quant: str | None = None, bucketed: bool = False):
     """Prefill into pool blocks: (params, cache, prompt (1, P), slot,
     blocks (>= ceil(P/BS),) int) -> (last-position logits (V,), cache).
     One pass computes the prompt's K/V (`_prefill_body`), which is then
-    scattered into the slot's first ceil(P/BS) blocks; pos[slot] = P. The
-    cache is updated in place."""
+    scattered into the first ceil(P/BS) blocks; pos[slot] = P. With
+    `bucketed=True`: (params, cache, prompt (1, Pb), plen, slot, blocks):
+    `blocks` is padded past its real ceil(plen/BS) entries with scratch
+    block 0, where the padded tail's K/V land; pos[slot] = plen. Trailing
+    (adapters, sel) apply per-request LoRA. The cache is updated in
+    place."""
     _require_causal(cfg, "kv-cache decoding/serving")
-    _check_quant(quant)
+    _paged_mode(quant)
     BS = block_size
 
-    def pre(params, cache, prompt, slot, blocks):
-        params = _cast_decode_params(params, cfg)
-        P = prompt.shape[1]
-        nb = -(-P // BS)
-        L, KV = cfg.n_layer, _kv_heads(cfg)
-        hd = cfg.d_model // cfg.n_head
-        shape = (L, 1, KV, max(nb * BS, BS), hd)
-        mini = {"k": torch.zeros(shape, dtype=cfg.dtype, device=prompt.device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=prompt.device),
-                "pos": 0}
-        logits, mini = _prefill_body(params, mini, prompt, cfg)
-        idx = blocks[:nb].long()
-        for name, src in (("pk", mini["k"]), ("pv", mini["v"])):
-            t = src[:, 0].reshape(L, KV, nb, BS, hd).permute(0, 2, 1, 3, 4)
-            cache[name][:, idx] = t.to(cache[name].dtype)
-        cache["pos"][slot] = P
+    def body(params, cache, prompt, slot, blocks, ab, sel, plen, last):
+        params = _prep_decode_params(params, cfg, quant)
+        nb = -(-prompt.shape[1] // BS)
+        mini = _mini(cfg, 1, max(nb * BS, BS), prompt.device)
+        logits, mini = _prefill_body(params, mini, prompt, cfg, ab, sel,
+                                     last)
+        _scatter_blocks(cache, mini["k"], mini["v"], blocks[:nb].long(), BS)
+        cache["pos"][slot] = plen
         return logits[0], cache
 
+    @torch.no_grad()
+    def pre(params, cache, prompt, slot, blocks, adapters=None, sel=None):
+        return body(params, cache, prompt, slot, blocks, adapters, sel,
+                    prompt.shape[1], None)
+
+    @torch.no_grad()
+    def pre_bucketed(params, cache, prompt, plen, slot, blocks,
+                     adapters=None, sel=None):
+        return body(params, cache, prompt, slot, blocks, adapters, sel,
+                    int(plen), int(plen) - 1)
+
+    return pre_bucketed if bucketed else pre
+
+
+def make_paged_prefill_multi(cfg: GPTConfig, block_size: int,
+                             quant: str | None = None):
+    """Multi-request prefill into pool blocks (grouped admission):
+    (params, cache, prompts (m, Pb), plens (m,), slots (m,), tables (m,
+    ceil(Pb/BS)) int32) -> (logits (m, V) at each row's plen-1, cache).
+    One pass computes every row's K/V, which scatter through each row's
+    table; entries past a row's real blocks are scratch block 0, and rows
+    padding the group replicate row 0 (prompt, plen, slot and table)."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _paged_mode(quant)
+    BS = block_size
+
+    @torch.no_grad()
+    def pre(params, cache, prompts, plens, slots, tables):
+        params = _prep_decode_params(params, cfg, quant)
+        m, P = prompts.shape
+        nb = -(-P // BS)
+        mini = _mini(cfg, m, max(nb * BS, BS), prompts.device)
+        logits, mini = _prefill_body(params, mini, prompts, cfg,
+                                     last=plens - 1)
+        _scatter_blocks(cache, mini["k"][:, :, :, :nb * BS],
+                        mini["v"][:, :, :, :nb * BS],
+                        tables.reshape(-1).long(), BS)
+        cache["pos"][slots.long()] = plens
+        return logits, cache
+
     return pre
+
+
+def make_paged_suffix_prefill(cfg: GPTConfig, block_size: int,
+                              quant: str | None = None,
+                              bucketed: bool = False):
+    """Suffix prefill after a shared prefix in the block pool: (params,
+    cache, suffix (1, C), slot, own_blocks (nb,) int, prefix_blocks (nf,)
+    int) -> (last-position logits (V,), cache); with `bucketed=True`
+    (params, cache, suffix (1, Cb), cs, slot, own_blocks, prefix_blocks):
+    the suffix padded to a bucket, true length cs, own_blocks padded with
+    scratch block 0. The prefix's nf FULL blocks are gathered into a dense
+    mini cache, the suffix runs from nf*BS (`_verify_body`), and its K/V
+    scatter into the request's own blocks; the shared blocks are read,
+    never written. pos[slot] = nf*BS + cs."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _paged_mode(quant)
+    BS = block_size
+
+    def body(params, cache, suffix, slot, own, prefix, cs, last):
+        params = _prep_decode_params(params, cfg, quant)
+        nf, nb = prefix.shape[0], own.shape[0]
+        cut = nf * BS
+        pad = (0, 0, 0, nb * BS)             # whole blocks cover cut + C
+        mini = {"k": F.pad(_from_blocks(cache["pk"][:, prefix.long()]), pad),
+                "v": F.pad(_from_blocks(cache["pv"][:, prefix.long()]), pad),
+                "pos": cut}
+        logits, mini = _verify_body(params, mini, suffix, cfg)
+        _scatter_blocks(cache, mini["k"][:, :, :, cut:],
+                        mini["v"][:, :, :, cut:], own.long(), BS)
+        cache["pos"][slot] = cut + cs
+        return logits[0, last], cache
+
+    @torch.no_grad()
+    def pre(params, cache, suffix, slot, own_blocks, prefix_blocks):
+        return body(params, cache, suffix, slot, own_blocks, prefix_blocks,
+                    suffix.shape[1], -1)
+
+    @torch.no_grad()
+    def pre_bucketed(params, cache, suffix, cs, slot, own_blocks,
+                     prefix_blocks):
+        return body(params, cache, suffix, slot, own_blocks, prefix_blocks,
+                    int(cs), int(cs) - 1)
+
+    return pre_bucketed if bucketed else pre
+
+
+def make_paged_chunk_prefill(cfg: GPTConfig, block_size: int,
+                             quant: str | None = None):
+    """Chunked prefill over the block pool: (params, cache, chunk (1, C),
+    slot, start, row (MB,) int32) -> (logits (V,) at the chunk's last
+    position, cache). `row` is the slot's FULL table row (unallocated
+    entries scratch block 0): the row is gathered into a dense mini cache,
+    the chunk runs from `start`, and the row is scattered back (scratch
+    block 0 takes whatever its duplicates carry). Trailing (adapters, sel)
+    serve per-request LoRA."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _paged_mode(quant)
+    BS = block_size
+
+    @torch.no_grad()
+    def pre(params, cache, chunk, slot, start, row, adapters=None,
+            sel=None):
+        params = _prep_decode_params(params, cfg, quant)
+        idx = row.long()
+        mini = {"k": _from_blocks(cache["pk"][:, idx]),
+                "v": _from_blocks(cache["pv"][:, idx]), "pos": int(start)}
+        logits, mini = _verify_body(params, mini, chunk, cfg, adapters, sel)
+        _scatter_blocks(cache, mini["k"], mini["v"], idx, BS)
+        cache["pos"][slot] = int(start) + chunk.shape[1]
+        return logits[0, -1], cache
+
+    return pre
+
+
+def _kernel_mode(kernel: str) -> None:
+    if kernel not in ("auto", "on", "off"):
+        raise ValueError(f"kernel must be auto/on/off, got {kernel!r}")
+
+
+def _refuse_cpu_on(kernel: str, cache) -> None:
+    if kernel == "on" and cache["pk"].device.type != "cuda":
+        raise ValueError("kernel='on' needs CUDA tensors; on the CPU use "
+                         "kernel='auto' (plain version) or 'off'")
 
 
 def make_paged_decode_step(cfg: GPTConfig, block_size: int,
                            quant: str | None = None, kernel: str = "auto"):
     """Decode over the block pool: (params, cache, tokens (B,), active (B,)
-    bool, table (B, MB) int32) -> (logits (B, V) f32, cache). The cache is
-    updated in place (JAX donates it).
+    bool, table (B, MB) int32) -> (logits (B, V) f32, cache); trailing
+    (adapters, sel) route per-slot LoRA adapters. The cache is updated in
+    place (JAX donates it).
 
     `table[s, m]` names the pool block holding slot s's logical positions
     [m*BS, (m+1)*BS). Inactive lanes rewrite scratch block 0 with its own
@@ -1061,27 +1821,28 @@ def make_paged_decode_step(cfg: GPTConfig, block_size: int,
     `kernel` picks the attention path: "auto" runs the CUDA kernel
     (`ops/paged_attention.py`) for CUDA tensors and its plain version for
     CPU tensors; "on" is the same but refuses CPU tensors; "off" runs the
-    gather path (JAX's XLA branch)."""
+    gather path (JAX's XLA branch). Quantized weights and adapters keep
+    the kernel."""
     _require_causal(cfg, "kv-cache decoding/serving")
-    _check_quant(quant)
-    if kernel not in ("auto", "on", "off"):
-        raise ValueError(f"kernel must be auto/on/off, got {kernel!r}")
+    _paged_mode(quant)
+    _kernel_mode(kernel)
     BS = block_size
 
-    def step(params, cache, tokens, active, table):
-        if kernel == "on" and cache["pk"].device.type != "cuda":
-            raise ValueError("kernel='on' needs CUDA tensors; on the CPU "
-                             "use kernel='auto' (plain version) or 'off'")
-        params = _cast_decode_params(params, cfg)
+    @torch.no_grad()
+    def step(params, cache, tokens, active, table, adapters=None, sel=None):
+        _refuse_cpu_on(kernel, cache)
+        params = _prep_decode_params(params, cfg, quant)
         return _paged_decode_body(params, cache, tokens, active, table, cfg,
-                                  kernel != "off", BS)
+                                  kernel != "off", BS, adapters, sel)
 
     return step
 
 
 def _paged_decode_body(params, cache, tokens, active, table,
-                       cfg: GPTConfig, use_kernel: bool, BS: int):
-    """One paged-decode step on PREPARED params."""
+                       cfg: GPTConfig, use_kernel: bool, BS: int,
+                       adapters=None, sel=None):
+    """One paged-decode step on PREPARED params (the body of
+    `make_paged_decode_step` and `make_paged_decode_many`)."""
     pos = cache["pos"]                                   # (B,) int32
     B = tokens.shape[0]
     MB = table.shape[1]
@@ -1099,7 +1860,8 @@ def _paged_decode_body(params, cache, tokens, active, table,
     keep = active[:, None, None]
     for i in range(cfg.n_layer):
         blk = _layer(params["blocks"], i)
-        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos)
+        ab_l = _layer_ab(adapters, i)
+        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos, ab_l, sel)
         pk_l, pv_l = cache["pk"][i], cache["pv"][i]
         # two advanced indices split by a slice: the batch axis comes first,
         # (B, KV, hd), matching k_new[:, :, 0]
@@ -1109,17 +1871,49 @@ def _paged_decode_body(params, cache, tokens, active, table,
             ctx = paged_attention(q[:, :, :, 0].contiguous(), pk_l, pv_l,
                                   table, pos_w, window=cfg.window)
             # kv-group-major (B, KV, G, hd) == head-major merge
-            x = _decode_post(x, blk, ctx.reshape(B, 1, cfg.d_model), cfg)
+            x = _decode_post(x, blk, ctx.reshape(B, 1, cfg.d_model), cfg,
+                             ab_l, sel)
         else:
             lk = pk_l[t_long].permute(0, 2, 1, 3, 4).reshape(
                 B, KV, MB * BS, hd)
             lv = pv_l[t_long].permute(0, 2, 1, 3, 4).reshape(
                 B, KV, MB * BS, hd)
-            x = _decode_block(x, blk, q, lk, lv, pos_w, cfg)
+            x = _decode_block(x, blk, q, lk, lv, pos_w, cfg, ab_l, sel)
     x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = _lm_head(x[:, 0], params, cfg)
+    logits = _logits(x[:, 0], params, cfg)
     cache["pos"] = torch.where(active, pos + 1, pos)
     return logits, cache
+
+
+def make_paged_decode_many(cfg: GPTConfig, block_size: int, k: int,
+                           quant: str | None = None, kernel: str = "auto"):
+    """k paged-decode steps and per-row sampling with no host read between
+    them: the paged twin of `make_slot_decode_many`, (params, cache,
+    tokens, active, table, seeds, steps0, temperature, top_k, top_p,
+    min_p, adapters=None, sel=None) -> (tokens (k, B) int32 on the device,
+    cache). The table is FIXED for the window, so the scheduler allocates
+    every active slot's blocks through pos+k first (`PagedBatcher`'s
+    `_grow_many`). Each step runs `kernel`'s attention path, K11 on the
+    card under "auto" and "on", as the per-step program does."""
+    _require_causal(cfg, "kv-cache decoding/serving")
+    _paged_mode(quant)
+    _kernel_mode(kernel)
+    BS = block_size
+
+    @torch.no_grad()
+    def many(params, cache, tokens, active, table, seeds, steps0,
+             temperature, top_k, top_p, min_p, adapters=None, sel=None):
+        _refuse_cpu_on(kernel, cache)
+        params = _prep_decode_params(params, cfg, quant)
+
+        def body(tok):
+            return _paged_decode_body(params, cache, tok, active, table, cfg,
+                                      kernel != "off", BS, adapters, sel)[0]
+
+        return _decode_window(k, body, tokens, active, seeds, steps0,
+                              temperature, top_k, top_p, min_p), cache
+
+    return many
 
 
 # --------------------------------------------------------------------------
@@ -1136,7 +1930,10 @@ def _sample_row(logits, generator, temperature, top_k, top_p, min_p):
     """Sample one token from one row of logits (V,) with per-request
     controls (Python scalars), in JAX's filter order: min-p, top-k, top-p
     on the temperature-scaled logits; each filter keeps the top token.
-    temperature <= 0 is greedy (exact argmax, first index on ties)."""
+    temperature <= 0 is greedy (exact argmax, first index on ties). No
+    host sync: the draw is `torch.multinomial`'s for one sample, argmax of
+    p / E with E ~ Exp(1) from `generator`, without its validity check
+    (which reads the row back)."""
     l32 = logits.float()
     if temperature <= 0.0:
         return l32.argmax()
@@ -1151,9 +1948,11 @@ def _sample_row(logits, generator, temperature, top_k, top_p, min_p):
         sorted_desc = torch.sort(lt, descending=True).values
         probs_s = torch.softmax(sorted_desc, -1)
         keep = torch.cumsum(probs_s, -1) - probs_s < top_p
-        lt = lt.masked_fill(lt < sorted_desc[keep].min(), float("-inf"))
-    return torch.multinomial(torch.softmax(lt, -1), 1,
-                             generator=generator)[0]
+        cutoff = torch.where(keep, sorted_desc, float("inf")).amin()
+        lt = lt.masked_fill(lt < cutoff, float("-inf"))
+    p = torch.softmax(lt, -1)
+    e = torch.empty_like(p).exponential_(1, generator=generator)
+    return (p / e).argmax()
 
 
 def sample_logits_batched(logits, seeds, steps, temperature, top_k, top_p,
@@ -1162,9 +1961,9 @@ def sample_logits_batched(logits, seeds, steps, temperature, top_k, top_p,
     sequences of length B) -> (B,) int64 tokens on the logits' device.
     Row b's randomness is a `torch.Generator` seeded from
     (seeds[b], steps[b]), so a request's tokens depend only on its own
-    seed and step count, never on its batchmates. The draws do not
-    reproduce JAX's `fold_in(key(seed), step)` bits; greedy rows are
-    exact."""
+    seed and step count, never on its batchmates. No host sync. The draws
+    do not reproduce JAX's `fold_in(key(seed), step)` bits; greedy rows
+    are exact."""
     out = logits.float().argmax(-1)
     for b, t in enumerate(temperature):
         if t > 0.0:

@@ -55,7 +55,11 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch.models", "neuronika_tpu_torch.models.bert",
            "neuronika_tpu_torch.models.t5", "neuronika_tpu_torch.models.vit",
            "neuronika_tpu_torch.models.lora",
-           "neuronika_tpu_torch.examples.resnet_cifar")
+           "neuronika_tpu_torch.examples.resnet_cifar",
+           "neuronika_tpu_torch.examples.serving",
+           "neuronika_tpu_torch.examples.speculative_decode",
+           "neuronika_tpu_torch.examples.serve_http",
+           "neuronika_tpu_torch.examples.finetune_qlora")
 
 
 def _cfg(**kw):
@@ -104,33 +108,65 @@ def test_package_exposes_the_define_by_run_surface(name):
     assert name in nk.__all__ and getattr(nk, name) is not None
 
 
-@pytest.mark.parametrize("kw", [dict(quant="int8"), dict(quant="int4"),
-                                dict(prefill_chunk=8),
-                                dict(prefill_bucket="pow2"),
-                                dict(mesh=object())],
-                         ids=["quant-int8", "quant-int4", "prefill_chunk",
-                              "prefill_bucket", "mesh"])
+@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_unported_batcher_options_raise(params, kw):
-    with pytest.raises(NotImplementedError):
+    """Only the tensor-parallel mesh is refused, naming its queue item."""
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 1 item 5"):
         _batcher(params, **kw)
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 1 item 5"):
+        ContinuousBatcher(params, _cfg(), 2, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("call", [
-    lambda pb: pb.register_prefix([1, 2, 3, 4, 5, 6, 7, 8]),
-    lambda pb: pb.register_adapter({}),
-    lambda pb: pb.step_many(4),
-    lambda pb: pb.run(multi_step=4),
-    lambda pb: pb.submit([1, 2], 4, adapter=1),
-], ids=["register_prefix", "register_adapter", "step_many",
+def _lora(params, rank=2):
+    from neuronika_tpu_torch.models.lora import lora_init
+
+    ad = lora_init(torch.Generator().manual_seed(1), params, rank)
+    for ab in ad.values():
+        ab["B"] += 0.05
+    return ad
+
+
+# what these options and methods refused before they were ported: each now
+# serves a request (tests/test_torch_serving_*.py hold them against JAX)
+@pytest.mark.parametrize("make, drive", [
+    (dict(quant="int8"), None), (dict(quant="int4"), None),
+    (dict(prefill_chunk=8), None), (dict(prefill_bucket="pow2"), None),
+    (None, lambda pb, p: pb.register_prefix(list(range(1, 9)))),
+    (None, lambda pb, p: pb.register_adapter(_lora(p))),
+    (None, lambda pb, p: pb.step_many(4)),
+    (None, lambda pb, p: pb.run(multi_step=4)),
+    (None, lambda pb, p: (pb.register_adapter(_lora(p)),
+                          pb.submit([1, 2], 4, adapter=1))),
+], ids=["quant-int8", "quant-int4", "prefill_chunk", "prefill_bucket",
+        "register_prefix", "register_adapter", "step_many",
         "run-multi_step", "submit-adapter"])
-def test_unported_batcher_methods_raise(params, call):
-    with pytest.raises(NotImplementedError):
-        call(_batcher(params))
+def test_ported_batcher_options_and_methods_serve(params, make, drive):
+    pb = _batcher(params, **(make or {}))
+    if drive is not None:
+        drive(pb, params)
+    rid = pb.submit(list(range(1, 13)), 4)
+    out = pb.run(multi_step=2)
+    assert out[rid].shape == (4,)
+    assert pb.block_stats[0] == 0
 
 
-def test_dense_slot_batcher_is_not_ported(params):
-    with pytest.raises(NotImplementedError, match="PagedBatcher"):
-        ContinuousBatcher(params, _cfg(), 2, device="cpu")
+def test_dense_slot_batcher_serves(params):
+    cb = ContinuousBatcher(params, _cfg(), 2, quant="int8-kv", device="cpu")
+    rids = [cb.submit([1, 2, 3], 5), cb.submit([4, 5], 3)]
+    out = cb.run()
+    assert [out[r].shape for r in rids] == [(5,), (3,)]
+    assert cb.cache["k"].dtype == torch.int8
+
+
+def test_paged_int8_kv_is_refused_like_jax(params):
+    for call in (lambda: _batcher(params, quant="int8-kv"),
+                 lambda: T.make_paged_decode_many(_cfg(), 8, 4,
+                                                  quant="int8-kv")):
+        with pytest.raises(NotImplementedError,
+                           match="paged serving supports"):
+            call()
 
 
 @pytest.mark.parametrize("kw, item", [(dict(seq_parallel=True), 5),
@@ -146,23 +182,35 @@ def test_unported_model_variants_raise(kw, item):
 
 
 @pytest.mark.parametrize("call", [
+    lambda: T.make_generate(_cfg(), 4, mesh=object()),
+    lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object()),
+    lambda: Trainer(_cfg(), generator=torch.Generator(), fsdp=True),
+], ids=["make_generate-mesh", "Trainer-mesh", "Trainer-fsdp"])
+def test_unported_loop_options_raise_and_name_their_queue_item(call):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 "
+                                                  r"item 5"):
+        call()
+
+
+@pytest.mark.parametrize("call", [
     lambda: T.init_kv_cache(_cfg(), 2, quant="int8-kv", device="cpu"),
     lambda: T.make_decode_step(_cfg(), quant="int8"),
     lambda: T.make_prefill(_cfg(), quant="int4"),
     lambda: T.make_generate(_cfg(), 4, quant="int8"),
-    lambda: T.make_generate(_cfg(), 4, mesh=object()),
     lambda: T.make_beam_search(_cfg(), 4, 2, quant="int8"),
     lambda: T.make_speculative_generate(_cfg(), _cfg(), 4),
-    lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object()),
-    lambda: Trainer(_cfg(), generator=torch.Generator(), fsdp=True),
 ], ids=["init_kv_cache-quant", "make_decode_step-quant",
-        "make_prefill-quant", "make_generate-quant", "make_generate-mesh",
-        "make_beam_search-quant", "make_speculative_generate",
-        "Trainer-mesh", "Trainer-fsdp"])
-def test_unported_loop_options_raise_and_name_their_queue_item(call):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 "
-                                                  r"item [45]"):
-        call()
+        "make_prefill-quant", "make_generate-quant",
+        "make_beam_search-quant", "make_speculative_generate"])
+def test_ported_loop_options_build(call):
+    """(tests/test_torch_serving_quant.py and _speculative.py hold them
+    against JAX.)"""
+    assert call() is not None
+
+
+def test_unknown_quant_mode_raises():
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        T.make_decode_step(_cfg(), quant="int3")
 
 
 def test_kernel_on_refuses_cpu_tensors(params):
