@@ -164,7 +164,30 @@ nvidia-smi. Phases, each printing one line or a few:
      draft and its first two blocks as a draft); and f32 greedy tokens of
      every option (all at once, multi-step, grouped, prefix, chunked,
      bucketed) equal to the plain per-step PagedBatcher's, speculative
-     equal to make_generate's.
+     equal to make_generate's;
+ 19. the attention kernels at every head dim (1-256) and group size that
+     JAX's kernels take: K1, K2a+K2b and the fused K2 at hd 32, 36
+     (unaligned rows), 72, 80, 96 and 256 and at G 16 (hd 128 and 96),
+     K5-K7 at hd 32, 36, 72, 80, 96 and 256 (windows, full Sq != Skv,
+     strided views), K11 at G 1-32 and hd 32-256, each in f32 and bf16
+     (K1-K7 also at dropout 0.1) against its plain version at phase 3's
+     bounds, G 16's K2b, fused K2 and K11 twice for the same bits; each
+     held against its plain version again and timed at the models'
+     shapes beside it, SDPA (k and v repeated to H, or the band as a
+     mask) and its bound; then the GPT train step at StarCoderBase-1B's
+     published widths (bigcode/starcoderbase-1b: d2048 L24, 16 heads over
+     1 kv head, d_ff 8192, V49152), full depth, S2048 B8 bf16, flash "on"
+     and "auto" (K1 2 L, K2a and K2b L launches a step: remat "full"),
+     its gradients through K1/K2a/K2b against the composite's, and both
+     routes at a larger Adam rate (the rate's witness); llama_config at
+     Phi-3-mini-4k's (microsoft/Phi-3-mini-4k-instruct: d3072, 32 heads,
+     hd 96, d_ff 8192, V32064, window 2047) cut to 4 layers, S4096 B2,
+     two timed steps under each remat policy ("full", "flash", "names",
+     "dots", "flash_dots": K5 2 L a step under "full" and "dots", L under
+     the others; losses within 2^-8 of "full"'s; step time and peak
+     memory each); and PagedBatcher (kernel "on") serving 4 requests on
+     both (K11 at G 16 hd 128 and at G 1 hd 96), with f32 greedy tokens
+     at 4 layers equal to the gather path's.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -370,12 +393,26 @@ def paged_bound(args, window=0):
                     4 * rows * KV * G * hd, q.dtype)
 
 
+def paged_held(out, ref, tol):
+    """(max abs err, ||err||/||ref||, whether out is within bounds): each
+    entry within tol; bf16 also in norm (SPLIT_BF16_REL of ||ref|| plus
+    SPLIT_BF16_FLOOR an entry), since at the long shape an entry of out is
+    ~0.03 and one split's 192 of 8192 keys move it by less than
+    BF16_TOL."""
+    err = float((out.float() - ref.float()).abs().max())
+    if ref.dtype != torch.bfloat16:
+        return err, None, err <= tol
+    rel, bound = norm_reading([diff_stats(out.float(), ref.float())])[:2]
+    return err, rel, err <= tol and rel <= bound
+
+
 def paged_fault(PA, args, window):
     """The plain version with one split's partial dropped (split 1, which
     holds attended keys of the long lanes), as a kernel that lost it would
     merge: the planted fault phase 3 reads."""
     q, pk, pv, table, pos = args
-    bps = PA._plan(q.shape[0], q.shape[1], table.shape[1], q.device)[1]
+    bps = PA._plan(q.shape[0], q.shape[1] * PA.group_chunks(q.shape[2]),
+                   table.shape[1], q.device)[1]
     m, l, acc = PA._split_partials(q, pk, pv, table, pos, window, bps)
     m[..., 1] = -math.inf
     return PA._merge_splits(m, l, acc).to(q.dtype)
@@ -389,19 +426,7 @@ def phase_kernels(rng, PA):
     and {shape: (kernel ms, plain ms, (bound_ms, bound_by), the kernel's
     ms a call back to back)}, the first two device times."""
     reference = PA.paged_attention_reference
-
-    def held(out, ref, tol):
-        """(max abs err, ||err||/||ref||, whether out is within bounds):
-        each entry within tol; bf16 also in norm (SPLIT_BF16_REL of ||ref||
-        plus SPLIT_BF16_FLOOR an entry), since at the long shape an entry
-        of out is ~0.03 and one split's 192 of 8192 keys move it by less
-        than BF16_TOL."""
-        err = float((out.float() - ref.float()).abs().max())
-        if ref.dtype != torch.bfloat16:
-            return err, None, err <= tol
-        rel, bound = norm_reading([diff_stats(out.float(), ref.float())])[:2]
-        return err, rel, err <= tol and rel <= bound
-
+    held = paged_held
     errs, rels, faults = {}, {}, {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         cases = [(f"table-{name}", dict(PAGED_TABLE, KV=KV, G=G), window)
@@ -695,23 +720,10 @@ def phase_flash_kernels(rng, FA):
         FA.flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, H, stats=st)
 
     pair_ms = min(cuda_ms(split_pair, 5), cuda_ms(split_pair, 5))
-    # matmul passes per (q, k) tile: fwd s, pv; dq s, dp, dq; dkv s, dp,
-    # dv, dk; fused all five. Causal: half of the S x S pairs.
-    passes = {"flash_fwd_qkv": 2, "flash_bwd_dq_qkv": 3,
-              "flash_bwd_dkv_qkv": 4, "flash_bwd_fused_qkv": 5}
     lib_fwd, lib_bwd = sdpa_ms(qkv, do, H, hd)
-    # bytes each kernel must move: qkv (and out, lse, do in the backward)
-    # read once, its outputs written once
-    W, D = 3 * H * hd, H * hd
-    el = B * S * 2
-    nbytes = {"flash_fwd_qkv": el * (W + D) + B * H * S * 4,
-              "flash_bwd_dq_qkv": el * (W + 2 * D + D) + B * H * S * 4,
-              "flash_bwd_dkv_qkv": el * (W + 2 * D + 2 * D) + B * H * S * 4,
-              "flash_bwd_fused_qkv": el * (W + 2 * D + W) + B * H * S * 4}
     result, line = {}, []
     for kname, (k_ms, p_ms) in times.items():
-        flops = 2 * passes[kname] * B * H * S * S * hd / 2
-        bound = bound_ms(nbytes[kname], flops, torch.bfloat16)
+        bound, flops = packed_bound(kname, B, H, H, hd, S)
         lib = lib_fwd if kname == "flash_fwd_qkv" else lib_bwd
         result[kname] = (errs[kname], k_ms, p_ms, lib, bound)
         # SDPA's forward runs K1's 2 products, its backward the fused 5
@@ -3728,8 +3740,9 @@ def loop_generate(T, PA, PagedBatcher, prompts):
 
 def loop_examples(FA, text_pipeline, gpt_train):
     """Phase 16 (c): the twins of the JAX package's text_pipeline and
-    gpt_train examples at their sizes on the card; returns the flash
-    launches and a summary line."""
+    gpt_train examples at their sizes on the card; returns gpt_train's
+    flash launches and a summary line (text_pipeline's K5-K7 are held
+    exact here and left out of the kernels line)."""
     kernels = FA.KERNELS + FA.SPLIT_KERNELS
     for k in kernels:
         k.launches = 0
@@ -3737,9 +3750,17 @@ def loop_examples(FA, text_pipeline, gpt_train):
     tp = text_pipeline.main(device="cuda")
     tp_s = time.perf_counter() - t0
     tp_launch = {k.__name__: k.launches for k in kernels}
-    # head dim 32: "auto" flash takes the composite on the card
-    check(not any(tp_launch.values()), f"phase 16: text_pipeline launches "
-                                       f"{tp_launch}")
+    # f32 rope hd 32 on the split op: K5 twice a layer and step (remat)
+    # and once a layer in the one eval batch, K6 and K7 once a layer and
+    # step
+    n, L = len(tp["losses"]), 2
+    want = dict.fromkeys(tp_launch, 0)
+    want.update(flash_fwd=2 * L * n + L, flash_bwd_dq=L * n,
+                flash_bwd_dkv=L * n)
+    check(tp_launch == want, f"phase 16: text_pipeline launches "
+                             f"{tp_launch}, want {want}")
+    for k in kernels:
+        k.launches = 0
     check(tp["losses"][-1] < tp["losses"][0] and np.isfinite(
         tp["eval"]["loss"]), f"phase 16: text_pipeline losses "
                              f"{tp['losses'][::20]}, eval {tp['eval']}")
@@ -3748,7 +3769,7 @@ def loop_examples(FA, text_pipeline, gpt_train):
     gt_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     # bf16 hd 64, remat: K1 twice a layer and step, K2a and K2b once
-    n, L = len(gt["losses"]), 2
+    n = len(gt["losses"])
     want = dict.fromkeys(launches, 0)
     want.update(flash_fwd_qkv=2 * L * n, flash_bwd_dq_qkv=L * n,
                 flash_bwd_dkv_qkv=L * n)
@@ -4719,6 +4740,539 @@ def phase_serving_rest(T, PA, S, LR, smi_line, n_req=32, f32_req=8,
     return k11
 
 
+# --------------------------------------------------------------------------
+# phase 19: the attention kernels at every head dim and group size JAX's
+# take, the remat policies, StarCoderBase-1B and Phi-3-mini
+
+# K1/K2 cases (name, H, KV, hd, S, causal, fast): hd 36 rows are not
+# 16-byte aligned (element loads), S 257 is ragged, G 16 is MQA past the
+# Hopper kernels' 8; all on the mma.sync/FFMA kernels' head-dim tiers
+WIDE_FLASH_CASES = (
+    ("hd32-gqa", 8, 2, 32, 384, True, False),
+    ("hd36-gqa-S257", 6, 3, 36, 257, True, False),
+    ("hd72-full", 4, 4, 72, 384, False, False),
+    ("hd80", 4, 4, 80, 384, True, False),
+    ("hd96-fast", 4, 4, 96, 384, True, True),
+    ("hd256", 2, 2, 256, 384, True, False),
+    ("g16-hd128", 16, 1, 128, 384, True, False),
+    ("g16-hd96-S257", 16, 1, 96, 257, True, False),
+)
+# K5-K7 cases (name, B, H, Sq, Skv, causal, window, hd), strided views
+WIDE_SPLIT_CASES = (
+    ("hd32-window50", 2, 4, 384, 384, True, 50, 32),
+    ("hd36-causal-S257", 2, 3, 257, 257, True, 0, 36),
+    ("hd72-full-Sq130-Skv300", 2, 4, 130, 300, False, 0, 72),
+    ("hd80-window100", 2, 4, 384, 384, True, 100, 80),
+    ("hd96-window127-S300", 2, 4, 300, 300, True, 127, 96),
+    ("hd256-causal", 2, 2, 384, 384, True, 0, 256),
+)
+# K11 cases (name, KV, G, hd) at phase 3's table shape (B8 BS16 MB64)
+WIDE_PAGED_CASES = (
+    ("g1-hd96", 4, 1, 96), ("g3-hd72", 2, 3, 72), ("g8-hd32", 2, 8, 32),
+    ("g12-hd36", 2, 12, 36), ("g16-hd128", 1, 16, 128),
+    ("g16-hd256", 1, 16, 256), ("g32-hd80", 1, 32, 80),
+)
+WIDE_RATE, WIDE_SEED = 0.1, 2 ** 33 + 5
+
+
+def wide_flash_checks(rng, FA):
+    """K1, K2a+K2b and the fused K2 at WIDE_FLASH_CASES, f32 and bf16,
+    without and with dropout at WIDE_RATE, each at check_flash's bounds;
+    then at G 16 (bf16, hd 128) two launches of the fused K2 and of K2b
+    must give the same bits. Returns {kernel: worst max abs err}."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, H, KV, hd, S, causal, fast in WIDE_FLASH_CASES:
+            qkv, do = flash_case(rng, 2, H, KV, hd, S, dtype)
+            for rate in (0.0, WIDE_RATE):
+                errs, _, _ = check_flash(
+                    FA, f"{str(dtype)[6:]}/{name}/p{rate}", qkv, do, H, KV,
+                    causal, fast, seed=WIDE_SEED, rate=rate)
+                for k, e in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), e)
+            del qkv, do
+    qkv, do = flash_case(rng, 2, 16, 1, 128, 1000, torch.bfloat16)
+    out, lse = FA.flash_fwd_qkv(qkv, 16, 1)
+    again = [FA.flash_bwd_fused_qkv(qkv, out, lse, do, 16, 1)
+             for _ in range(2)]
+    check(torch.equal(*again), "flash_bwd_fused_qkv G16: two launches on "
+          "the same inputs differ")
+    again = [FA.flash_bwd_dkv_qkv(qkv, out, lse, do, torch.zeros_like(qkv),
+                                  16, 1) for _ in range(2)]
+    check(torch.equal(*again), "flash_bwd_dkv_qkv G16: two launches on the "
+          "same inputs differ")
+    return worst
+
+
+def wide_split_checks(FA):
+    """K5-K7 at WIDE_SPLIT_CASES, f32 and bf16, without and with dropout at
+    WIDE_RATE, at check_split's bounds. Returns {kernel: worst max abs
+    err}."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, H, Sq, Skv, causal, window, hd in WIDE_SPLIT_CASES:
+            q, k, v, do = split_case(g, B, H, Sq, Skv, hd, dtype)
+            for rate in (0.0, WIDE_RATE):
+                errs, _ = check_split(FA, f"{str(dtype)[6:]}/{name}/p{rate}",
+                                      q, k, v, do, causal, window,
+                                      seed=WIDE_SEED, rate=rate)
+                for kname, e in errs.items():
+                    worst[kname] = max(worst.get(kname, 0.0), e)
+            del q, k, v, do
+    return worst
+
+
+def wide_paged_checks(rng, PA):
+    """K11 at WIDE_PAGED_CASES, f32 and bf16, windows 0 and 9, against the
+    plain version at phase 3's bounds (paged_held); at G 16 hd 128 two
+    launches must give the same bits. Returns the worst max abs err."""
+    worst = 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for name, KV, G, hd in WIDE_PAGED_CASES:
+            args = paged_case(rng, dtype=dtype,
+                              **dict(PAGED_TABLE, KV=KV, G=G, hd=hd))
+            for window in (0, 9):
+                out = PA.paged_attention(*args, window=window)
+                ref = PA.paged_attention_reference(*args, window=window)
+                err, rel, ok = paged_held(out, ref, tol)
+                check(ok, f"paged_attention {str(dtype)[6:]}/{name}/w"
+                          f"{window}: max abs err {err}, ||err||/||ref|| "
+                          f"{rel}")
+                worst = max(worst, err)
+                if window == 0 and name == "g16-hd128":
+                    check(torch.equal(out, PA.paged_attention(*args)),
+                          f"paged_attention {name}: two launches differ")
+    return worst
+
+
+def packed_bound(name, B, H, KV, hd, S):
+    """(bound_ms, FLOPs) of one K1/K2 kernel on bf16 packed (B, S, (H + 2
+    KV) hd), causal: qkv (and out, lse, do in the backward) read once, the
+    outputs written once; 2 FLOPs a multiply-add over half the S x S pairs
+    of each of the kernel's products (fwd s, pv; dq s, dp, dq; dk/dv s,
+    dp, dv, dk; fused all five)."""
+    W, D = (H + 2 * KV) * hd, H * hd
+    el, lse = B * S * 2, B * H * S * 4
+    moved = {"flash_fwd_qkv": W + D, "flash_bwd_dq_qkv": W + 3 * D,
+             "flash_bwd_dkv_qkv": W + 2 * D + 2 * KV * hd,
+             "flash_bwd_fused_qkv": 2 * W + 2 * D}
+    passes = {"flash_fwd_qkv": 2, "flash_bwd_dq_qkv": 3,
+              "flash_bwd_dkv_qkv": 4, "flash_bwd_fused_qkv": 5}
+    flops = 2 * passes[name] * B * H * S * S * hd / 2
+    return bound_ms(el * moved[name] + lse, flops, torch.bfloat16), flops
+
+
+def wide_packed_times(rng, FA, B, H, KV, hd, S):
+    """K1, K2a, K2b and the fused K2 at a bf16 causal packed shape: first
+    each against the plain versions on the same input (check_flash, phase
+    3's bounds), then each kernel's CUDA-event time (kernel, kernel between
+    plain, plain), the plain forward's and backward's, SDPA's forward and
+    backward on the same q with k and v repeated to H (repeated before
+    timing), and the bound. Returns {kernel: (ms, plain_ms, library_ms,
+    bound, max abs err)}."""
+    import torch.nn.functional as F
+
+    qkv, do = flash_case(rng, B, H, KV, hd, S, torch.bfloat16)
+    errs, (out, lse), _ = check_flash(
+        FA, f"bfloat16/model-B{B}-S{S}-H{H}-KV{KV}-hd{hd}-causal", qkv, do,
+        H, KV, True, False)
+    d_qkv = torch.empty_like(qkv)
+    kern = {"flash_fwd_qkv": lambda: FA.flash_fwd_qkv(qkv, H, KV),
+            "flash_bwd_dq_qkv": lambda: FA.flash_bwd_dq_qkv(
+                qkv, out, lse, do, d_qkv, H, KV),
+            "flash_bwd_dkv_qkv": lambda: FA.flash_bwd_dkv_qkv(
+                qkv, out, lse, do, d_qkv, H, KV),
+            "flash_bwd_fused_qkv": lambda: FA.flash_bwd_fused_qkv(
+                qkv, out, lse, do, H, KV)}
+    plain = {"fwd": lambda: FA.flash_attention_qkv_fwd_reference(qkv, H, KV),
+             "bwd": lambda: FA.flash_attention_qkv_bwd_reference(
+                 qkv, out, lse, do, H, KV)}
+    p_ms = {k: [cuda_ms(fn, 1)] for k, fn in plain.items()}
+    k_ms = {k: min(cuda_ms(fn, 5), cuda_ms(fn, 5)) for k, fn in kern.items()}
+    for k, fn in plain.items():
+        p_ms[k].append(cuda_ms(fn, 1))
+    q, kk, v = FA._unpack(qkv, H, KV)
+    G = H // KV
+    q = q.reshape(B, H, S, hd).detach().requires_grad_()
+    kk, v = (t.repeat_interleave(G, 1).detach().requires_grad_()
+             for t in (kk, v))
+    lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kk, v, is_causal=True), 5)
+    o = F.scaled_dot_product_attention(q, kk, v, is_causal=True)
+    g = torch.randn_like(o)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(o, (q, kk, v), g,
+                                                retain_graph=True), 5)
+    del o, q, kk, v, g
+    res = {}
+    for name, ms in k_ms.items():
+        fwd = name == "flash_fwd_qkv"
+        res[name] = (ms, min(p_ms["fwd" if fwd else "bwd"]),
+                     lib_f if fwd else lib_b,
+                     packed_bound(name, B, H, KV, hd, S)[0], errs[name])
+    return res
+
+
+def wide_split_times(FA, B, H, S, hd, window):
+    """K5, K6 and K7 at a bf16 causal windowed split shape: first each
+    against the plain versions on the same input (check_split, phase 3's
+    bounds), then CUDA-event times as wide_packed_times, the plain
+    versions', SDPA's with the band as a boolean mask (sdpa_band_ms) and
+    split_bound. Returns {kernel: (ms, plain_ms, library_ms, bound, max
+    abs err)}."""
+    g = torch.Generator(device="cuda").manual_seed(96)
+    q, k, v, do = split_case(g, B, H, S, S, hd, torch.bfloat16,
+                             strided=False)
+    errs, _ = check_split(FA, f"bfloat16/model-B{B}-H{H}-S{S}-hd{hd}-window"
+                              f"{window}", q, k, v, do, True, window)
+    out, lse = FA.flash_fwd(q, k, v, True, window=window)
+    delta = (do.float() * out.float()).sum(-1)
+    kern = {"flash_fwd": lambda: FA.flash_fwd(q, k, v, True, window=window),
+            "flash_bwd_dq": lambda: FA.flash_bwd_dq(
+                q, k, v, do, lse, delta, True, window=window),
+            "flash_bwd_dkv": lambda: FA.flash_bwd_dkv(
+                q, k, v, do, lse, delta, True, window=window)}
+    plain = {"fwd": lambda: FA.flash_attention_fwd_reference(
+                 q, k, v, True, window=window),
+             "bwd": lambda: FA.flash_attention_bwd_reference(
+                 q, k, v, do, lse, delta, True, window=window)}
+    p_ms = {n: [cuda_ms(fn, 1)] for n, fn in plain.items()}
+    k_ms = {n: min(cuda_ms(fn, 5), cuda_ms(fn, 5)) for n, fn in kern.items()}
+    for n, fn in plain.items():
+        p_ms[n].append(cuda_ms(fn, 1))
+    lib_f, lib_b = sdpa_band_ms(q, k, v, do, window)
+    return {name: (ms, min(p_ms["fwd" if name == "flash_fwd" else "bwd"]),
+                   lib_f if name == "flash_fwd" else lib_b,
+                   split_bound(name, B, H, S, hd, True, window)[0],
+                   errs[name])
+            for name, ms in k_ms.items()}
+
+
+def wide_paged_times(rng, PA, KV, G, hd, MB, pos):
+    """K11 at a bf16 decode shape (B = len(pos), BS 16): first against the
+    plain version on the same input (paged_held, phase 3's bounds), then
+    the kernel's and the plain version's device times (profiler; plain,
+    kernel, kernel, plain) and paged_bound. Returns (ms, plain_ms, None,
+    bound, max abs err)."""
+    args = paged_case(rng, B=len(pos), KV=KV, G=G, hd=hd, BS=16, MB=MB,
+                      pos=pos, inactive=[], dtype=torch.bfloat16)
+    ref = lambda: PA.paged_attention_reference(*args)  # noqa: E731
+    kern = lambda: PA.paged_attention(*args)  # noqa: E731
+    err, rel, ok = paged_held(kern(), ref(), BF16_TOL)
+    check(ok, f"paged_attention bfloat16/model-KV{KV}-G{G}-hd{hd}-MB{MB}: "
+              f"max abs err {err}, ||err||/||ref|| {rel}")
+    pa = device_ms(ref, 10)
+    ka, kb = device_ms(kern, 100), device_ms(kern, 100)
+    pb = device_ms(ref, 10)
+    return min(ka, kb), min(pa, pb), None, paged_bound(args), err
+
+
+# StarCoderBase-1B (bigcode/starcoderbase-1b config.json: n_embd 2048,
+# n_layer 24, n_head 16, multi_query -> 1 kv head, n_inner 8192, vocab
+# 49152, n_positions 8192; learned positions, LayerNorm, tanh GELU, biases,
+# tied head): full depth
+STARCODER_1B = dict(vocab_size=49152, n_layer=24, n_head=16, n_kv_head=1,
+                    d_model=2048, d_ff=8192, max_seq=8192)
+# Phi-3-mini-4k (microsoft/Phi-3-mini-4k-instruct config.json: hidden
+# 3072, 32 heads over 32 kv heads (hd 96), intermediate 8192, vocab 32064,
+# 4096 positions, rope_theta 10000, rms_norm_eps 1e-5, sliding_window
+# 2047, untied head) cut from 32 to 4 layers
+PHI3_MINI = dict(vocab_size=32064, n_layer=4, n_head=32, d_model=3072,
+                 d_ff=8192, max_seq=4096, rope_theta=10000.0, norm_eps=1e-5,
+                 window=2047)
+# every remat policy's losses against "full"'s, relative: the policies
+# keep or recompute the same deterministic kernels and GEMMs, so this
+# allows one bf16 ulp where a GEMM's reduction order differs
+REMAT_LOSS_REL = 2 ** -8
+# phase 19's Adam rate: a random 24-layer model takes sign-like first Adam
+# steps without warmup, and at 1e-4 its third loss rose above its first
+# (PERF.md); phase 19 (a) runs both attention routes at WITNESS_LR and
+# prints whether the composite's loss rises the same way
+WIDE_LR = 2e-5
+WITNESS_LR = 1e-4
+# the bf16 loss of the kernel route against the composite's, relative:
+# the two round p to bf16 in other places and sum in other orders
+ROUTE_BF16_REL = 2 ** -7
+
+
+def lm_batch(rng, vocab, B, S):
+    """Uniform tokens and their next-token targets on the card."""
+    toks = rng.integers(0, vocab, size=(B, S))
+    return (torch.from_numpy(toks).to("cuda"),
+            torch.from_numpy(np.roll(toks, -1, axis=1)).to("cuda"))
+
+
+def phase_starcoder(T, FA, CE):
+    """Phase 19 (a): the GPT train step at StarCoderBase-1B's published
+    widths, full depth, S 2048, B 8, bf16, the GPTConfig defaults (remat
+    "full", split backward, f32 Adam) with flash "on" (1 warm-up, 2 timed
+    steps) and "auto" (1 warm-up, 1 counted step): K1 and K2a/K2b at G 16
+    (the mma.sync kernels' 128 tier), 2 L, L and L launches a step, no
+    composite; first the forward loss through K1 against the composite's
+    (ROUTE_BF16_REL), and the gradients through K1, K2a and K2b against
+    the composite's (printed: ||g - g_off|| / ||g_off||, overall and the
+    worst leaf). Last, the witness for WIDE_LR: both routes from the same
+    seed and batch at WITNESS_LR (1 warm-up, 2 timed steps), their losses
+    printed with whether the third rose above the first, the kernel
+    route's each within ROUTE_BF16_REL of the composite's. Returns the
+    launches of the kernel runs, summed."""
+    rng = np.random.default_rng(1)
+    B, S = 8, 2048
+    batch = lm_batch(rng, STARCODER_1B["vocab_size"], B, S)
+    kernels = train_kernels(FA, CE)
+    # first the forward loss through K1 against the composite's, on the
+    # step's initial params
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **STARCODER_1B)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    with torch.no_grad():
+        fwd = {f: float(T.loss_fn(params, *batch,
+                                  dataclasses.replace(cfg, flash=f)))
+               for f in ("on", "off")}
+    grad_rel = route_grad_gap(T, params, batch, cfg)
+    del params
+    torch.cuda.empty_cache()
+    rel = abs(fwd["on"] - fwd["off"]) / fwd["off"]
+    check(rel <= ROUTE_BF16_REL, f"phase 19 StarCoder: the loss through K1 "
+          f"{fwd['on']} against the composite's {fwd['off']}")
+    total, parts = {}, [f"the forward loss through K1 {fwd['on']:.5f}, "
+                        f"the composite's {fwd['off']:.5f} (bound "
+                        f"{ROUTE_BF16_REL:.3g} relative); gradients through "
+                        f"K1/K2a/K2b against the composite's: ||g - g_off||"
+                        f" / ||g_off|| {grad_rel[0]:.4g}, worst leaf "
+                        f"{grad_rel[1]:.4g} ({grad_rel[2]})"]
+    for flash, n in (("on", 2), ("auto", 1)):
+        cfg = T.GPTConfig(dtype=torch.bfloat16, flash=flash, **STARCODER_1B)
+        losses, launches, step_s, peak, _ = train_steps(
+            T, kernels, cfg, 1, n, batch, WIDE_LR)
+        L = cfg.n_layer
+        want = want_launches(kernels, flash_fwd_qkv=2 * L * n,
+                             flash_bwd_dq_qkv=L * n, flash_bwd_dkv_qkv=L * n)
+        check(all(np.isfinite(losses)), f"phase 19 StarCoder {flash}: "
+                                        f"loss {losses}")
+        check(losses[-1] < losses[0], f"phase 19 StarCoder {flash}: loss "
+                                      f"did not fall: {losses}")
+        check(launches == want, f"phase 19 StarCoder {flash}: launches "
+                                f"{launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        tok_s = B * S / step_s
+        mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
+        parts.append(f"flash={flash!r}: step {step_s * 1e3:.1f} ms, "
+                     f"{tok_s:.0f} tokens/s, MFU {mfu:.4f}, peak "
+                     f"{peak:.2f} GiB, losses "
+                     f"{[round(l, 4) for l in losses]}, K1 "
+                     f"{launches['flash_fwd_qkv']} K2a "
+                     f"{launches['flash_bwd_dq_qkv']} K2b "
+                     f"{launches['flash_bwd_dkv_qkv']} in {n} step(s)")
+    wit = {}
+    for flash in ("off", "on"):
+        cfg = T.GPTConfig(dtype=torch.bfloat16, flash=flash, **STARCODER_1B)
+        losses, launches, _, peak, _ = train_steps(
+            T, kernels, cfg, 1, 2, batch, WITNESS_LR)
+        wit[flash] = losses
+        L = cfg.n_layer
+        want = want_launches(kernels, **({} if flash == "off" else dict(
+            flash_fwd_qkv=4 * L, flash_bwd_dq_qkv=2 * L,
+            flash_bwd_dkv_qkv=2 * L)))
+        check(all(np.isfinite(losses)), f"phase 19 StarCoder witness "
+                                        f"{flash}: loss {losses}")
+        check(launches == want, f"phase 19 StarCoder witness {flash}: "
+                                f"launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        parts.append(f"witness at lr {WITNESS_LR}, flash={flash!r}: losses "
+                     f"{[round(l, 4) for l in losses]}, third "
+                     f"{'above' if losses[2] > losses[0] else 'below'} the "
+                     f"first, peak {peak:.2f} GiB")
+    rel = max(abs(a - b) / b for a, b in zip(wit["on"], wit["off"]))
+    check(rel <= ROUTE_BF16_REL, f"phase 19 StarCoder witness: the kernel "
+          f"route's losses {wit['on']} against the composite's {wit['off']}")
+    line = ("phase 19 train: StarCoderBase-1B widths (d2048 L24 H16 KV1 "
+            "hd128 d_ff 8192 V49152, learned positions, tied head), S2048 "
+            f"B8 bf16, remat full, split bwd, f32 Adam at {WIDE_LR}; "
+            + "; ".join(parts))
+    print(line)
+    return total
+
+
+def route_grad_gap(T, params, batch, cfg):
+    """The train loss's gradients through the kernels (flash "on") against
+    the composite's (flash "off") on the same params and batch: (||g -
+    g_off|| / ||g_off|| over all leaves, the worst leaf's, its index)."""
+    from neuronika_tpu_torch._tree import tree_leaves, tree_unflatten
+
+    def grads(flash):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = T.loss_fn(tree_unflatten(params, leaves), *batch,
+                         dataclasses.replace(cfg, flash=flash), train=True)
+        return torch.autograd.grad(loss, leaves)
+
+    g_off = grads("off")
+    g_on = grads("on")
+    e2 = [float((a.double() - b.double()).square().sum())
+          for a, b in zip(g_on, g_off)]
+    r2 = [float(b.double().square().sum()) for b in g_off]
+    del g_on, g_off
+    rel = [math.sqrt(e / max(r, 1e-300)) for e, r in zip(e2, r2)]
+    worst = int(np.argmax(rel))
+    return math.sqrt(sum(e2) / sum(r2)), rel[worst], worst
+
+
+def phase_phi3(T, FA, CE):
+    """Phase 19 (b): `llama_config` at Phi-3-mini-4k's published widths,
+    cut to 4 layers, S 4096, B 2, bf16, K5-K7 at hd 96 under the window:
+    1 warm-up and 2 timed steps under each remat policy from the same seed
+    and batch. Every policy's losses within REMAT_LOSS_REL of "full"'s; K5
+    launched 2 L a step under "full" and "dots" (the recompute reruns it),
+    L under "flash", "names" and "flash_dots" (its outputs kept); K6 and
+    K7 L each. Returns the launches summed over the policies and
+    {policy: (step ms, peak GiB)}."""
+    rng = np.random.default_rng(2)
+    B, S, n = 2, 4096, 2
+    batch = lm_batch(rng, PHI3_MINI["vocab_size"], B, S)
+    kernels = train_kernels(FA, CE)
+    total, per, ref = {}, {}, None
+    for policy in ("full", "flash", "names", "dots", "flash_dots"):
+        cfg = T.llama_config(dtype=torch.bfloat16, flash="on",
+                             remat_policy=policy, **PHI3_MINI)
+        losses, launches, step_s, peak, _ = train_steps(
+            T, kernels, cfg, 1, n, batch, WIDE_LR)
+        L = cfg.n_layer
+        fwd = L if policy in ("flash", "names", "flash_dots") else 2 * L
+        want = want_launches(kernels, flash_fwd=fwd * n, flash_bwd_dq=L * n,
+                             flash_bwd_dkv=L * n)
+        check(all(np.isfinite(losses)), f"phase 19 Phi-3 {policy}: loss "
+                                        f"{losses}")
+        check(launches == want, f"phase 19 Phi-3 {policy}: launches "
+                                f"{launches}, want {want}")
+        ref = ref or losses
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        check(rel <= REMAT_LOSS_REL, f"phase 19 Phi-3 {policy}: losses "
+              f"{losses} differ from full's {ref} by {rel}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        per[policy] = (step_s * 1e3, peak, launches["flash_fwd"] // n, rel)
+    print(f"phase 19 train: Phi-3-mini-4k widths (d3072 H32 hd96 d_ff 8192 "
+          f"V32064, rope, RMSNorm, SwiGLU, window 2047) at L4, S4096 B2 "
+          f"bf16, f32 Adam at {WIDE_LR}, 1 warm-up and {n} timed steps a "
+          f"remat policy: "
+          + "; ".join(f"{p} step {ms:.1f} ms, peak {pk:.2f} GiB, K5 {k5} a "
+                      f"step, losses within {rel:.2g} of full's"
+                      for p, (ms, pk, k5, rel) in per.items())
+          + f" (bound {REMAT_LOSS_REL:.3g}); full's losses "
+          f"{[round(l, 4) for l in ref]}")
+    return total, per
+
+
+def phase_wide_serving(T, PA, PagedBatcher):
+    """Phase 19 (c): PagedBatcher (kernel "on") serving 4 greedy requests
+    (prompts 64-200 tokens, 24 new each) on StarCoderBase-1B (full depth,
+    K11 at G 16 hd 128) and Phi-3-mini (L4, K11 at G 1 hd 96) in bf16, K11
+    launched n_layer times a decode step; then in f32 at 4 layers each the
+    greedy tokens the same as the gather path's (kernel "off"). Returns
+    K11's launches."""
+    rng = np.random.default_rng(3)
+    launches, parts = 0, []
+    for name, make, widths in (
+            ("StarCoderBase-1B", T.GPTConfig, STARCODER_1B),
+            ("Phi-3-mini", T.llama_config, PHI3_MINI)):
+        cfg = make(dtype=torch.bfloat16, **widths)
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(4),
+                               cfg, "cuda")
+        prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+                   for n in (64, 200, 97, 150)]
+        pool = dict(n_slots=4, n_blocks=4 * 16 + 1, block_size=16)
+        PA.paged_attention.launches = 0
+        _, outs, steps, finite, wall = serve(PagedBatcher, params, cfg,
+                                             prompts, [24] * 4, kernel="on",
+                                             **pool)
+        k11 = PA.paged_attention.launches
+        check(finite, f"phase 19 serving {name}: non-finite logits")
+        check(all(o.shape == (24,) for o in outs),
+              f"phase 19 serving {name}: a request came back short")
+        check(k11 == cfg.n_layer * steps, f"phase 19 serving {name}: K11 "
+              f"{k11} != n_layer {cfg.n_layer} x steps {steps}")
+        launches += k11
+        del params
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layer=4)
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(5),
+                               cfg32, "cuda")
+        toks = {}
+        for kernel in ("on", "off"):
+            PA.paged_attention.launches = 0
+            _, toks[kernel], _, ok, _ = serve(
+                PagedBatcher, params, cfg32, prompts, [16] * 4,
+                kernel=kernel, **pool)
+            check(ok, f"phase 19 serving {name} f32 {kernel}: non-finite")
+            launches += PA.paged_attention.launches
+        check(all(np.array_equal(a, b) for a, b in zip(toks["on"],
+                                                       toks["off"])),
+              f"phase 19 serving {name}: f32 greedy tokens differ between "
+              f"K11 and the gather path")
+        del params
+        torch.cuda.empty_cache()
+        n_tok = 24 * len(prompts)
+        parts.append(f"{name} bf16 {n_tok} tokens in {wall:.3f} s "
+                     f"({n_tok / wall:.1f} tok/s), {steps} decode steps, K11 "
+                     f"{k11}; f32 L4 greedy tokens identical to the gather "
+                     f"path's")
+    print("phase 19 serving: PagedBatcher kernel='on', 4 requests: "
+          + "; ".join(parts))
+    return launches
+
+
+def wide_row(shape, err, times):
+    """The JSON line's "phase19" entry of a kernel: its worst error over
+    phase 19's widened shapes, and its error against the plain version
+    and its times at the models' shapes."""
+    return {"shape": shape, "max_abs_err": err, "times": {
+        k: {"max_abs_err": e, "ms": ms, "plain_ms": p_ms, "library_ms": lib,
+            "bound_ms": b[0], "bound_by": b[1]}
+        for k, (ms, p_ms, lib, b, e) in times.items()}}
+
+
+def phase_wide_kernels(FA, PA):
+    """Phase 19 (d): every widened kernel against its plain version
+    (wide_flash_checks, wide_split_checks, wide_paged_checks), then held
+    against it again and timed at the shapes phase 19's models give them: K1/K2 at StarCoderBase-1B's
+    (B8 S2048 H16 KV1 hd128), K5-K7 at Phi-3-mini's (B1 H32 S4096 hd96,
+    window 2047), K11 at StarCoderBase-1B's decode (G16 hd128) and
+    Phi-3-mini's (KV32 G1 hd96). Returns ({kernel: worst max abs err},
+    {row: {kernel: (ms, plain_ms, library_ms, bound, max abs err)}})."""
+    rng = np.random.default_rng(19)
+    t0 = time.perf_counter()
+    errs = wide_flash_checks(rng, FA)
+    errs.update(wide_split_checks(FA))
+    errs["paged_attention"] = wide_paged_checks(rng, PA)
+    check_s = time.perf_counter() - t0
+    times = {"starcoder": wide_packed_times(rng, FA, 8, 16, 1, 128, 2048),
+             "phi3": wide_split_times(FA, 1, 32, 4096, 96, 2047)}
+    pos = [2047, 1500, 700, 64, 1900, 33, 1024, 2000]
+    times["paged"] = {
+        "g16-hd128": wide_paged_times(rng, PA, 1, 16, 128, 128, pos),
+        "g1-hd96": wide_paged_times(rng, PA, 32, 1, 96, 128, pos)}
+    torch.cuda.synchronize()
+
+    def fmt(name, t):
+        ms, p_ms, lib, (b_ms, b_by), e = t
+        return (f"{name} {ms:.4f} ms (plain {p_ms:.3f} ms, library "
+                + (f"{lib:.4f} ms" if lib is not None else "none")
+                + f", bound {b_ms:.4f} ms by {b_by}; max abs err {e:.3g} "
+                f"against plain)")
+
+    print(f"phase 19 kernels: K1/K2 at {len(WIDE_FLASH_CASES)} shapes, "
+          f"K5-K7 at {len(WIDE_SPLIT_CASES)}, K11 at "
+          f"{len(WIDE_PAGED_CASES)}, f32 and bf16, dropout 0 and "
+          f"{WIDE_RATE} (K1-K7), within phase 3's bounds in {check_s:.1f} "
+          f"s; worst max abs err {json.dumps(errs)}; G16 fused K2 and K2b "
+          f"and K11 bit-identical over two launches")
+    for row, ts in times.items():
+        print(f"phase 19 times ({row}, bf16): "
+              + "; ".join(fmt(n, t) for n, t in ts.items()))
+    return errs, times
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
@@ -4878,6 +5432,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving18 = phase_serving_rest(T, PA, S, LR, smi[0])
 
+    # 19. the attention kernels at every head dim and group size JAX's
+    # take: each against its plain version, then StarCoderBase-1B (G 16)
+    # and Phi-3-mini (hd 96) training under the remat policies, and both
+    # served through K11
+    gc.collect()
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    wide_errs, wide_times = phase_wide_kernels(FA, PA)
+    star = phase_starcoder(T, FA, CE)
+    phi3, _ = phase_phi3(T, FA, CE)
+    wide_k11 = phase_wide_serving(T, PA, PagedBatcher)
+    print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -4888,22 +5455,27 @@ def main() -> int:
         "source": "neuronika_tpu_torch/csrc/paged_attention.cu",
         "replaces": "neuronika_tpu/ops/pallas/paged_attention.py:44",
         "launches": (launches + loop_k11 + models["paged_attention"]
-                     + serving18),
+                     + serving18 + wide_k11),
         "launches_by_phase": {"4": launches, "16": loop_k11,
                               "17": models["paged_attention"],
-                              "18": serving18},
+                              "18": serving18, "19": wide_k11},
         "max_abs_err": err, "ms": kern_ms,
         "plain_ms": plain_ms, "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None,
         "back_to_back_ms": paged["table"][3],
         "long_ms": paged["long"][0], "long_bound_ms": paged["long"][2][0],
         "serving_ms": paged["serving"][0],
-        "serving_bound_ms": paged["serving"][2][0]}]
+        "serving_bound_ms": paged["serving"][2][0],
+        "phase19": wide_row("G16 hd128 and G1 hd96 (B8 MB128 BS16)",
+                            wide_errs["paged_attention"],
+                            wide_times["paged"])}]
     # K2c (:1109) and K2d (:1194) are one CUDA kernel; it names the first.
     # Phase 6's launches (the headline, or for K2a/K2b the defaults run),
     # phase 16's (the Trainer: K1, K2c; gpt_train's twin: K1, K2a, K2b) and
     # phase 17's (BERT, the T5 encoder, the MoE GPT: K1, K2a, K2b; LoRA and
-    # QLoRA: K1, K2c)
+    # QLoRA: K1, K2c) and phase 19's (StarCoderBase-1B: K1, K2a, K2b at G
+    # 16); "phase19" holds the widened shapes' worst error, and the error
+    # against the plain versions and the times at StarCoderBase-1B's shape
     for name, line, counts in (("flash_fwd_qkv", 639, head),
                                ("flash_bwd_dq_qkv", 708, split),
                                ("flash_bwd_dkv_qkv", 755, split),
@@ -4911,15 +5483,21 @@ def main() -> int:
         e, ms, p_ms, lib, bound = flash[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{at}{line}",
-                        "launches": counts[name] + loop[name] + models[name],
+                        "launches": (counts[name] + loop[name] + models[name]
+                                     + star[name]),
                         "launches_by_phase": {"6": counts[name],
                                               "16": loop[name],
-                                              "17": models[name]},
+                                              "17": models[name],
+                                              "19": star[name]},
                         "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,
                         "dropout_ms": dflash[name][1],
-                        "dropout_max_abs_err": dflash[name][0]})
+                        "dropout_max_abs_err": dflash[name][0],
+                        "phase19": wide_row(
+                            "G16 hd128 B8 S2048 (StarCoderBase-1B)",
+                            wide_errs[name],
+                            {name: wide_times["starcoder"][name]})})
     # K3 runs on the 2-d model's path, K4 on both Var paths (phases 8, 9);
     # both on the layer kit's (phase 15)
     for name, source, replaces in (
@@ -4934,23 +5512,31 @@ def main() -> int:
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib})
-    # K5-K7 run on phase 11's path and phase 17's (the T5 decoder); their
-    # errors are at phase 11's B2 H32 S8192, their times at B1 H8 S8192
-    # (where the plain versions fit)
+    # K5-K7 run on phase 11's path, phase 17's (the T5 decoder) and phase
+    # 19's (Phi-3-mini under the five remat policies); their errors are at
+    # phase 11's B2 H32 S8192, their times at B1 H8 S8192 (where the plain
+    # versions fit); "phase19" holds the widened shapes' worst error, and
+    # the error against the plain versions and the times at Phi-3-mini's
+    # shape
     for name, line in (("flash_fwd", 91), ("flash_bwd_dq", 177),
                        ("flash_bwd_dkv", 243)):
         e, ms, p_ms, lib, bound = sflash[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}flash_attention.cu",
                         "replaces": f"{at}{line}",
-                        "launches": mistral[name] + models[name],
+                        "launches": mistral[name] + models[name] + phi3[name],
                         "launches_by_phase": {"11": mistral[name],
-                                              "17": models[name]},
+                                              "17": models[name],
+                                              "19": phi3[name]},
                         "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,
                         "dropout_ms": dflash[name][1],
-                        "dropout_max_abs_err": dflash[name][0]})
+                        "dropout_max_abs_err": dflash[name][0],
+                        "phase19": wide_row(
+                            "hd96 B1 H32 S4096 window 2047 (Phi-3-mini)",
+                            wide_errs[name],
+                            {name: wide_times["phi3"][name]})})
     # K12 and K13 run on phase 13's path (launches, and errors on its
     # operands brought to unit scale), K14 and K15 on phase 14's Var graphs
     # (launches; errors at bench.py's shapes); K12, K14 and K15 on the layer

@@ -102,8 +102,10 @@ def load_library() -> ctypes.CDLL:
     f = ctypes.c_float
     # every flash kernel's dropout: seed, threshold, inv_keep
     drop = [ctypes.c_uint64, ctypes.c_uint32, f]
+    # every flash entry but the stats pre-pass: dtype, then the route
+    # (sm90), which the caller picks (ops/flash_attention.py::_sm90_route)
     fn = lib.nk_flash_fwd_qkv
-    fn.argtypes = [i, p, p, p,                   # dtype, qkv, out, lse
+    fn.argtypes = [i, i, p, p, p,                # dtype sm90, qkv, out, lse
                    i, i, i, i, i,                # B S H KV hd
                    f, i, i, *drop, p]            # scale causal fast, drop,
     fn.restype = i                               # stream
@@ -113,30 +115,30 @@ def load_library() -> ctypes.CDLL:
     fn.restype = i
     for name in ("nk_flash_bwd_dq_qkv", "nk_flash_bwd_dkv_qkv"):
         fn = getattr(lib, name)
-        fn.argtypes = [i, p, p, p, p, p, i, p,   # dtype, qkv o lse do stats
-                       i, i, i, i, i,            # have_stats dqkv; B S H KV
-                       f, i, *drop, p]           # hd; scale causal, drop,
-        fn.restype = i                           # stream
+        fn.argtypes = [i, i, p, p, p, p, p, i, p,  # dtype sm90, qkv o lse do
+                       i, i, i, i, i,            # stats have_stats dqkv; B
+                       f, i, *drop, p]           # S H KV hd; scale causal,
+        fn.restype = i                           # drop, stream
     fn = lib.nk_flash_bwd_fused_qkv
-    fn.argtypes = [i, p, p, p, p, p, p, p, p,    # dtype, qkv o lse do stats
-                   i, i, i, i, i,                # dq_acc turn dqkv; B S H
-                   f, i, *drop, p]               # KV hd; scale causal, drop,
-    fn.restype = i                               # stream
+    fn.argtypes = [i, i, p, p, p, p, p, p, p, p,  # dtype sm90, qkv o lse do
+                   i, i, i, i, i,                # stats dq_acc turn dqkv; B
+                   f, i, *drop, p]               # S H KV hd; scale causal,
+    fn.restype = i                               # drop, stream
     fn = lib.nk_flash_fwd
-    fn.argtypes = [i, p, p, p, p, p, p,          # dtype, q k v out lse,
+    fn.argtypes = [i, i, p, p, p, p, p, p,       # dtype sm90, q k v out lse,
                    i, i, i, i, i,                # strides; B H Sq Skv hd
                    f, i, i, *drop, p]            # scale causal window, drop,
     fn.restype = i                               # stream
     fn = lib.nk_flash_bwd_dq
-    fn.argtypes = [i, p, p, p, p, p, p, p, p,    # dtype, q k v do lse delta
-                   i, i, i, i, i,                # dq strides; B H Sq Skv hd
-                   f, i, i, *drop, p]            # scale causal window, drop,
-    fn.restype = i                               # stream
-    fn = lib.nk_flash_bwd_dkv
-    fn.argtypes = [i, p, p, p, p, p, p, p, p, p,  # dtype, q k v do lse
-                   i, i, i, i, i,                # delta dk dv strides; B H
-                   f, i, i, *drop, p]            # Sq Skv hd; scale causal
+    fn.argtypes = [i, i, p, p, p, p, p, p, p, p,  # dtype sm90, q k v do lse
+                   i, i, i, i, i,                # delta dq strides; B H Sq
+                   f, i, i, *drop, p]            # Skv hd; scale causal
     fn.restype = i                               # window, drop, stream
+    fn = lib.nk_flash_bwd_dkv
+    fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p,  # dtype sm90, q k v do
+                   i, i, i, i, i,                # lse delta dk dv strides;
+                   f, i, i, *drop, p]            # B H Sq Skv hd; scale
+    fn.restype = i                               # causal window, drop, stream
     ll = ctypes.c_longlong
     fn = lib.nk_matmul
     fn.argtypes = [i, p, p, p,                   # dtype, a, b, c

@@ -10,10 +10,11 @@
 //
 // Contract (that of ops/flash_attention.py's flash_fwd, flash_bwd_dq and
 // flash_bwd_dkv):
-//   q (B, H, Sq, hd), k and v (B, H, Skv, hd), do (B, H, Sq, hd): strided
-//        views are read through their (batch, head, row) strides; the last
-//        axis has stride 1, and base and strides are 16-byte aligned (no
-//        stride 0 on an axis longer than 1);
+//   q (B, H, Sq, hd), k and v (B, H, Skv, hd), do (B, H, Sq, hd), hd 1 to
+//        256: strided views are read through their (batch, head, row)
+//        strides; the last axis has stride 1 and no axis longer than 1 has
+//        stride 0; on the Hopper route base and strides are 16-byte
+//        aligned (the other route reads elements where they are not);
 //   out, dq (B, H, Sq, hd) and dk, dv (B, H, Skv, hd): contiguous, in the
 //        inputs' dtype;
 //   lse, delta (B, H, Sq) f32, contiguous; lse is base 2 (m + log2(l)).
@@ -50,23 +51,28 @@
 // q tiles, from the diagonal to the last row whose window holds the CTA's
 // last key. Each CTA owns its output rows: no atomics, the same bits every
 // run.
-// f32 (K5, K6, K7) runs mma.sync-shaped tiles from shared memory, each
-// warp owning 16 rows of a 64-row tile (flash_tiles.cuh), with synchronous
-// tile loads, on FFMA (wgmma has no FFMA path, and f32 is the oracle
-// route). p and ds are rounded to the input dtype before their products,
-// where the TPU kernels round them.
+// f32 (K5, K6, K7), and bf16 off the Hopper route, run mma.sync-shaped
+// tiles from shared memory, each warp owning 16 rows of a 64-row tile
+// (flash_tiles.cuh), with synchronous tile loads: on FFMA in f32 (wgmma
+// has no FFMA path, and f32 is the oracle route), on mma.sync in bf16. p
+// and ds are rounded to the input dtype before their products, where the
+// TPU kernels round them.
 // Attention dropout (dropout.cuh): each kernel has a DROPOUT template flag;
 // set, the keep bit of every (q row, key) is drawn on every tile of the
 // band, K5 zeroes the dropped p before P V and scales the output by 1 / (1 -
 // rate), K6 and K7 drop dp and the p of dV; unset, the code is that of no
 // dropout. The mask is keyed by the q head h, as the model repeats k/v over
 // a GQA group before this layout.
+// Head dims: the Hopper kernels take bf16 at hd 64 and 128; f32, and bf16
+// at every other hd from 1 to 256, run the mma.sync/FFMA kernels (the
+// first half, now in bf16 too), instantiated at the head-dim tiers of
+// hd_tier (flash_tiles.cuh) and masking the runtime hd, as the packed
+// layout's do (flash_attention_qkv.cu says how). At the 256 tier the f32
+// K6 steps over 32-row k tiles (dq_bk) to stay within shared memory.
 // Not done yet: GQA without the repeated k/v (K2b's walk over a kv group's
 // G heads per k tile carries over).
 
 #include <math.h>
-
-#include <type_traits>
 
 #include "flash_sm90.cuh"
 
@@ -80,6 +86,13 @@ struct Strides {  // elements between batches, heads and rows
   long long b, h, s;
 };
 
+// K6's k rows per tile: 32 in f32 above the 128 tier, where four 64-row
+// tiles of 256 f32 columns would pass the 227 KB of shared memory
+template <typename T, int HD>
+__host__ __device__ constexpr int dq_bk() {
+  return sizeof(T) == 4 && HD > 128 ? 32 : kBK;
+}
+
 // ---------------------------------------------------------------- K5, f32
 // grid (ceil(Sq / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15.
 template <typename T, int HD, bool DROPOUT>
@@ -87,10 +100,8 @@ __global__ void __launch_bounds__(kThreads)
     split_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, Strides sq, Strides sk,
-                     Strides sv, int H, Band band, float qscale,
+                     Strides sv, int H, int hd, Band band, float qscale,
                      Dropout drop) {
-  static_assert(std::is_same<T, float>::value,
-                "bf16 runs split_fwd_kernel_sm90");
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBK + Ty<T>::kPad;
   constexpr int NTS = kBK / 8, NTO = HD / 8;
@@ -105,7 +116,8 @@ __global__ void __launch_bounds__(kThreads)
   const int r = lane >> 2, c = (lane & 3) * 2;
   const T* ksrc = k + b * sk.b + h * sk.h;
   const T* vsrc = v + b * sv.b + h * sv.h;
-  load_tile<T, HD>(Qs, LD, q + b * sq.b + h * sq.h, sq.s, i0, kBQ, band.Sq);
+  load_tile<T, HD>(Qs, LD, q + b * sq.b + h * sq.h, sq.s, i0, kBQ, band.Sq,
+                   hd);
 
   const T* Qw = Qs + warp * 16 * LD;
   T* Pw = Ps + warp * 16 * LDP;
@@ -120,8 +132,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kt0; kt < kt1; ++kt) {
     const int j0 = kt * kBK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, HD>(Ks, LD, ksrc, sk.s, j0, kBK, band.Skv);
-    load_tile<T, HD>(Vs, LD, vsrc, sv.s, j0, kBK, band.Skv);
+    load_tile<T, HD>(Ks, LD, ksrc, sk.s, j0, kBK, band.Skv, hd);
+    load_tile<T, HD>(Vs, LD, vsrc, sv.s, j0, kBK, band.Skv, hd);
     __syncthreads();
     float s[NTS][4];
     zero(s);
@@ -179,12 +191,13 @@ __global__ void __launch_bounds__(kThreads)
     if (rw >= band.Sq) continue;
     const float inv = (DROPOUT ? drop.inv_keep : 1.f) / l[x];
     const size_t at = ((size_t)b * H + h) * band.Sq + rw;
-    T* orow = out + at * HD;
+    T* orow = out + at * hd;
 #pragma unroll
-    for (int nt = 0; nt < NTO; ++nt) {
-      orow[nt * 8 + c] = Ty<T>::from(acc[nt][2 * x] * inv);
-      orow[nt * 8 + c + 1] = Ty<T>::from(acc[nt][2 * x + 1] * inv);
-    }
+    for (int nt = 0; nt < NTO; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (nt * 8 + c + e < hd)
+          orow[nt * 8 + c + e] = Ty<T>::from(acc[nt][2 * x + e] * inv);
     if ((lane & 3) == 0) lse[at] = m[x] + log2f(l[x]);
   }
 }
@@ -211,19 +224,18 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
-                        int H, Band band, float scale, float qscale,
+                        int H, int hd, Band band, float scale, float qscale,
                         Dropout drop) {
-  static_assert(std::is_same<T, float>::value,
-                "bf16 runs split_bwd_dq_kernel_sm90");
+  constexpr int BK = dq_bk<T, HD>();
   constexpr int LD = HD + Ty<T>::kPad;
-  constexpr int LDP = kBK + Ty<T>::kPad;
-  constexpr int NTS = kBK / 8, NTO = HD / 8;
+  constexpr int LDP = BK + Ty<T>::kPad;
+  constexpr int NTS = BK / 8, NTO = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* dOs = Qs + kBQ * LD;
   T* Ks = dOs + kBQ * LD;
-  T* Vs = Ks + kBK * LD;
-  T* dSs = Vs + kBK * LD;
+  T* Vs = Ks + BK * LD;
+  T* dSs = Vs + BK * LD;
   float* lse_s = reinterpret_cast<float*>(dSs + kBQ * LDP);
   float* delta_s = lse_s + kBQ;
 
@@ -233,9 +245,10 @@ __global__ void __launch_bounds__(kThreads)
   const T* ksrc = k + b * sk.b + h * sk.h;
   const T* vsrc = v + b * sv.b + h * sv.h;
   const size_t rows = ((size_t)b * H + h) * band.Sq;
-  load_tile<T, HD>(Qs, LD, q + b * sq.b + h * sq.h, sq.s, i0, kBQ, band.Sq);
+  load_tile<T, HD>(Qs, LD, q + b * sq.b + h * sq.h, sq.s, i0, kBQ, band.Sq,
+                   hd);
   load_tile<T, HD>(dOs, LD, dout + b * sdo.b + h * sdo.h, sdo.s, i0, kBQ,
-                   band.Sq);
+                   band.Sq, hd);
   load_rows(lse_s, delta_s, lse, delta, rows, i0, kBQ, band.Sq);
 
   const T* Qw = Qs + warp * 16 * LD;
@@ -246,19 +259,19 @@ __global__ void __launch_bounds__(kThreads)
   zero(dqa);
 
   int kt0, kt1;
-  band.k_tiles(i0, kBQ, kBK, &kt0, &kt1);
+  band.k_tiles(i0, kBQ, BK, &kt0, &kt1);
   for (int kt = kt0; kt < kt1; ++kt) {
-    const int j0 = kt * kBK;
+    const int j0 = kt * BK;
     __syncthreads();  // row stats written; previous K/V tile read
-    load_tile<T, HD>(Ks, LD, ksrc, sk.s, j0, kBK, band.Skv);
-    load_tile<T, HD>(Vs, LD, vsrc, sv.s, j0, kBK, band.Skv);
+    load_tile<T, HD>(Ks, LD, ksrc, sk.s, j0, BK, band.Skv, hd);
+    load_tile<T, HD>(Vs, LD, vsrc, sv.s, j0, BK, band.Skv, hd);
     __syncthreads();
     float s[NTS][4], dp[NTS][4];
     zero(s);
     zero(dp);
     warp_gemm<T, NTS, HD, false, false>(s, Qw, LD, Ks, LD, lane);
     warp_gemm<T, NTS, HD, false, false>(dp, dOw, LD, Vs, LD, lane);
-    const bool edge = band.edge(i0, kBQ, j0, kBK);
+    const bool edge = band.edge(i0, kBQ, j0, BK);
     bool kp[2][2];  // DROPOUT: keep bits of this column pair in both rows
 #pragma unroll
     for (int nt = 0; nt < NTS; ++nt)
@@ -284,19 +297,20 @@ __global__ void __launch_bounds__(kThreads)
         dSw[(r + 8 * (e >> 1)) * LDP + nt * 8 + c + (e & 1)] = Ty<T>::from(ds);
       }
     __syncwarp();
-    warp_gemm<T, NTO, kBK, false, true>(dqa, dSw, LDP, Ks, LD, lane);
+    warp_gemm<T, NTO, BK, false, true>(dqa, dSw, LDP, Ks, LD, lane);
   }
 
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int rw = i0 + lr[x];
     if (rw >= band.Sq) continue;
-    T* drow = dq + (rows + rw) * HD;
+    T* drow = dq + (rows + rw) * hd;
 #pragma unroll
-    for (int nt = 0; nt < NTO; ++nt) {
-      drow[nt * 8 + c] = Ty<T>::from(dqa[nt][2 * x]);
-      drow[nt * 8 + c + 1] = Ty<T>::from(dqa[nt][2 * x + 1]);
-    }
+    for (int nt = 0; nt < NTO; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (nt * 8 + c + e < hd)
+          drow[nt * 8 + c + e] = Ty<T>::from(dqa[nt][2 * x + e]);
   }
 }
 
@@ -311,10 +325,8 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, Strides sq, Strides sk,
-                         Strides sv, Strides sdo, int H, Band band,
+                         Strides sv, Strides sdo, int H, int hd, Band band,
                          float scale, float qscale, Dropout drop) {
-  static_assert(std::is_same<T, float>::value,
-                "bf16 runs split_bwd_dkv_kernel_sm90");
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBQb + Ty<T>::kPad;
   constexpr int NTS = kBQb / 8, NTO = HD / 8;
@@ -334,8 +346,10 @@ __global__ void __launch_bounds__(kThreads)
   const T* qsrc = q + b * sq.b + h * sq.h;
   const T* dosrc = dout + b * sdo.b + h * sdo.h;
   const size_t rows = ((size_t)b * H + h) * band.Sq;
-  load_tile<T, HD>(Ks, LD, k + b * sk.b + h * sk.h, sk.s, j0, kBK, band.Skv);
-  load_tile<T, HD>(Vs, LD, v + b * sv.b + h * sv.h, sv.s, j0, kBK, band.Skv);
+  load_tile<T, HD>(Ks, LD, k + b * sk.b + h * sk.h, sk.s, j0, kBK, band.Skv,
+                   hd);
+  load_tile<T, HD>(Vs, LD, v + b * sv.b + h * sv.h, sv.s, j0, kBK, band.Skv,
+                   hd);
 
   const T* Kw = Ks + warp * 16 * LD;
   const T* Vw = Vs + warp * 16 * LD;
@@ -351,8 +365,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int it = it0; it < it1; ++it) {
     const int i0 = it * kBQb;
     __syncthreads();  // the previous q tile is no longer read
-    load_tile<T, HD>(Qs, LD, qsrc, sq.s, i0, kBQb, band.Sq);
-    load_tile<T, HD>(dOs, LD, dosrc, sdo.s, i0, kBQb, band.Sq);
+    load_tile<T, HD>(Qs, LD, qsrc, sq.s, i0, kBQb, band.Sq, hd);
+    load_tile<T, HD>(dOs, LD, dosrc, sdo.s, i0, kBQb, band.Sq, hd);
     load_rows(lse_s, delta_s, lse, delta, rows, i0, kBQb, band.Sq);
     __syncthreads();
     float sT[NTS][4], dpT[NTS][4];
@@ -393,14 +407,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int x = 0; x < 2; ++x) {
     const int j = jr[x];
     if (j >= band.Skv) continue;
-    const size_t at = (((size_t)b * H + h) * band.Skv + j) * HD;
+    const size_t at = (((size_t)b * H + h) * band.Skv + j) * hd;
 #pragma unroll
-    for (int nt = 0; nt < NTO; ++nt) {
-      dk[at + nt * 8 + c] = Ty<T>::from(dka[nt][2 * x]);
-      dk[at + nt * 8 + c + 1] = Ty<T>::from(dka[nt][2 * x + 1]);
-      dv[at + nt * 8 + c] = Ty<T>::from(dva[nt][2 * x]);
-      dv[at + nt * 8 + c + 1] = Ty<T>::from(dva[nt][2 * x + 1]);
-    }
+    for (int nt = 0; nt < NTO; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (nt * 8 + c + e < hd) {
+          dk[at + nt * 8 + c + e] = Ty<T>::from(dka[nt][2 * x + e]);
+          dv[at + nt * 8 + c + e] = Ty<T>::from(dva[nt][2 * x + e]);
+        }
   }
 }
 
@@ -567,8 +582,9 @@ constexpr size_t fwd_smem() {
 
 template <typename T, int HD>
 constexpr size_t dq_smem() {
-  return ((size_t)(2 * kBQ + 2 * kBK) * (HD + Ty<T>::kPad) +
-          (size_t)kBQ * (kBK + Ty<T>::kPad)) * sizeof(T) +
+  constexpr int BK = dq_bk<T, HD>();
+  return ((size_t)(2 * kBQ + 2 * BK) * (HD + Ty<T>::kPad) +
+          (size_t)kBQ * (BK + Ty<T>::kPad)) * sizeof(T) +
          2 * kBQ * sizeof(float);
 }
 
@@ -609,7 +625,7 @@ cudaError_t fwd(const Args& a) {
   split_fwd_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse_out, a.sq,
-      a.sk, a.sv, a.H, a.band, a.scale * kLog2e, a.drop);
+      a.sk, a.sv, a.H, a.hd, a.band, a.scale * kLog2e, a.drop);
   return cudaGetLastError();
 }
 
@@ -622,8 +638,8 @@ cudaError_t bwd_dq(const Args& a) {
   split_bwd_dq_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
-      a.delta, static_cast<T*>(a.out), a.sq, a.sk, a.sv, a.sdo, a.H, a.band,
-      a.scale, a.scale * kLog2e, a.drop);
+      a.delta, static_cast<T*>(a.out), a.sq, a.sk, a.sv, a.sdo, a.H, a.hd,
+      a.band, a.scale, a.scale * kLog2e, a.drop);
   return cudaGetLastError();
 }
 
@@ -637,7 +653,7 @@ cudaError_t bwd_dkv(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse_in,
       a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk,
-      a.sv, a.sdo, a.H, a.band, a.scale, a.scale * kLog2e, a.drop);
+      a.sv, a.sdo, a.H, a.hd, a.band, a.scale, a.scale * kLog2e, a.drop);
   return cudaGetLastError();
 }
 
@@ -731,44 +747,64 @@ cudaError_t bwd_dkv_sm90(const Args& a) {
 
 enum Which { kFwd, kDq, kDkv };
 
-// bf16 takes the Hopper kernels; f32 the FFMA ones
+// The routes. The caller picks one (ops/flash_attention.py::_sm90_route)
+// and passes it as `sm90`, since its operand alignment depends on it: the
+// Hopper kernels, built for bf16 at hd 64 or 128 (a launch asking for them
+// elsewhere is refused), or the mma.sync/FFMA kernels, which take f32 and
+// bf16 at any hd from 1 to 256, instantiated at the head-dim tiers of
+// hd_tier and masking the runtime hd
+template <int HD, bool DROP>
+cudaError_t dispatch_sm90(Which w, const Args& a) {
+  if (w == kFwd) return fwd_sm90<HD, DROP>(a);
+  if (w == kDq) return bwd_dq_sm90<HD, DROP>(a);
+  if (w == kDkv) return bwd_dkv_sm90<HD, DROP>(a);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, int HD, bool DROP>
-cudaError_t dispatch(Which w, const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (w == kFwd) return fwd_sm90<HD, DROP>(a);
-    if (w == kDq) return bwd_dq_sm90<HD, DROP>(a);
-    if (w == kDkv) return bwd_dkv_sm90<HD, DROP>(a);
-  } else {
-    if (w == kFwd) return fwd<T, HD, DROP>(a);
-    if (w == kDq) return bwd_dq<T, HD, DROP>(a);
-    if (w == kDkv) return bwd_dkv<T, HD, DROP>(a);
+cudaError_t dispatch_core(Which w, const Args& a) {
+  if (w == kFwd) return fwd<T, HD, DROP>(a);
+  if (w == kDq) return bwd_dq<T, HD, DROP>(a);
+  if (w == kDkv) return bwd_dkv<T, HD, DROP>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, bool DROP>
+cudaError_t dispatch_tier(Which w, const Args& a) {
+  switch (hd_tier(a.hd)) {
+#ifndef NK_FLASH_TIERS_3
+    case 32: return dispatch_core<T, 32, DROP>(w, a);
+    case 96: return dispatch_core<T, 96, DROP>(w, a);
+#endif
+    case 64: return dispatch_core<T, 64, DROP>(w, a);
+    case 128: return dispatch_core<T, 128, DROP>(w, a);
+    case 256: return dispatch_core<T, 256, DROP>(w, a);
   }
   return cudaErrorInvalidValue;
 }
 
-// the DROPOUT instantiations when the threshold is not 0
-template <typename T, int HD>
-cudaError_t dispatch_drop(Which w, const Args& a) {
-  if (a.drop.threshold != 0) return dispatch<T, HD, true>(w, a);
-  return dispatch<T, HD, false>(w, a);
-}
-
-template <typename T>
-cudaError_t dispatch_hd(Which w, const Args& a) {
-  if (a.hd == 64) return dispatch_drop<T, 64>(w, a);
-  if (a.hd == 128) return dispatch_drop<T, 128>(w, a);
+template <bool DROP>
+cudaError_t dispatch(int dtype, int sm90, Which w, const Args& a) {
+  if (sm90) {
+    if (dtype != 1 || (a.hd != 64 && a.hd != 128))
+      return cudaErrorInvalidValue;
+    return a.hd == 64 ? dispatch_sm90<64, DROP>(w, a)
+                      : dispatch_sm90<128, DROP>(w, a);
+  }
+  if (dtype == 0) return dispatch_tier<float, DROP>(w, a);
+  if (dtype == 1) return dispatch_tier<__nv_bfloat16, DROP>(w, a);
   return cudaErrorInvalidValue;
 }
 
-int run(int dtype, Which w, const Args& a) {
+int run(int dtype, int sm90, Which w, const Args& a) {
   const Band& n = a.band;
   if (a.B < 1 || a.H < 1 || n.Sq < 1 || n.Skv < 1 || a.B > 65535 ||
       a.H > 65535 || n.window < 0 || (n.causal && n.Sq != n.Skv) ||
-      (n.window && !n.causal))
+      (n.window && !n.causal) || a.hd < 1 || a.hd > 256)
     return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch_hd<float>(w, a);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(w, a);
-  return cudaErrorInvalidValue;
+  // the DROPOUT instantiations when the threshold is not 0
+  if (a.drop.threshold != 0) return dispatch<true>(dtype, sm90, w, a);
+  return dispatch<false>(dtype, sm90, w, a);
 }
 
 Strides strides_of(const long long* s, int i) {
@@ -782,16 +818,17 @@ Dropout dropout_of(unsigned long long seed, unsigned threshold,
 
 }  // namespace
 
-// C entry points (bound with ctypes). dtype: 0 = float32, 1 = bfloat16; hd
-// 64 or 128. `strides` holds (batch, head, row) strides in elements: q, k, v
+// C entry points (bound with ctypes). dtype: 0 = float32, 1 = bfloat16;
+// sm90: 1 for the Hopper kernels, 0 for the others (see the routes above);
+// hd 1 to 256. `strides` holds (batch, head, row) strides in elements: q, k, v
 // for the forward, then do for the backward. Attention dropout
 // (dropout.cuh): seed, threshold = min(floor(rate 2^32), 2^32 - 1) and
 // inv_keep = 1 / (1 - rate); threshold 0 runs without it. Each returns a
 // cudaError_t: 0 when the launch was accepted.
 
 // out (B, H, Sq, hd) and lse (B, H, Sq) f32
-extern "C" int nk_flash_fwd(int dtype, const void* q, const void* k,
-                            const void* v, void* out, void* lse,
+extern "C" int nk_flash_fwd(int dtype, int sm90, const void* q,
+                            const void* k, const void* v, void* out, void* lse,
                             const long long* strides, int B, int H, int Sq,
                             int Skv, int hd, float scale, int causal,
                             int window, unsigned long long seed,
@@ -808,12 +845,12 @@ extern "C" int nk_flash_fwd(int dtype, const void* q, const void* k,
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
   a.drop = dropout_of(seed, threshold, inv_keep);
-  return run(dtype, kFwd, a);
+  return run(dtype, sm90, kFwd, a);
 }
 
 // dq (B, H, Sq, hd) from lse and delta (B, H, Sq) f32
-extern "C" int nk_flash_bwd_dq(int dtype, const void* q, const void* k,
-                               const void* v, const void* dout,
+extern "C" int nk_flash_bwd_dq(int dtype, int sm90, const void* q,
+                               const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq,
                                const long long* strides, int B, int H, int Sq,
                                int Skv, int hd, float scale, int causal,
@@ -833,12 +870,13 @@ extern "C" int nk_flash_bwd_dq(int dtype, const void* q, const void* k,
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
   a.drop = dropout_of(seed, threshold, inv_keep);
-  return run(dtype, kDq, a);
+  return run(dtype, sm90, kDq, a);
 }
 
 // dk and dv (B, H, Skv, hd) from lse and delta (B, H, Sq) f32
-extern "C" int nk_flash_bwd_dkv(int dtype, const void* q, const void* k,
-                                const void* v, const void* dout,
+extern "C" int nk_flash_bwd_dkv(int dtype, int sm90, const void* q,
+                                const void* k, const void* v,
+                                const void* dout,
                                 const void* lse, const void* delta, void* dk,
                                 void* dv, const long long* strides, int B,
                                 int H, int Sq, int Skv, int hd, float scale,
@@ -858,5 +896,5 @@ extern "C" int nk_flash_bwd_dkv(int dtype, const void* q, const void* k,
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
   a.drop = dropout_of(seed, threshold, inv_keep);
-  return run(dtype, kDkv, a);
+  return run(dtype, sm90, kDkv, a);
 }

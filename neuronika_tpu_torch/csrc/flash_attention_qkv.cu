@@ -66,6 +66,19 @@
 // sums dq in a fixed k-tile order (turn counters on a persistent grid of
 // resident CTAs, plain loads and stores), so it too is bit-identical from
 // run to run.
+// Head dims and groups: the Hopper kernels take bf16 at hd 64 and 128 with
+// at most 8 q heads per kv head. Every other shape JAX's kernels take (hd
+// 1 to 256, any group size, f32 or bf16) runs the first half's kernels,
+// which are instantiated at five head-dim tiers (32, 64, 96, 128, 256;
+// hd_tier in flash_tiles.cuh) and mask the runtime hd: tiles are loaded
+// with zeros past hd, which add nothing to q.k, dO.v or the P V columns,
+// and columns past hd are never stored. Element loads replace the 16-byte
+// ones where hd breaks their alignment. The dk/dv walk sums the G heads of
+// a kv group in head order inside the CTA, so G > 8 needs no atomics and
+// the result stays the same bits every run. At the 256 tier the f32 dq
+// walk steps over 32-row k tiles (dq_bk) to stay within shared memory, and
+// the dk/dv walk's accumulators spill (dK and dV alone are 256 f32 a
+// thread): slow but right, measured in PERF.md.
 // Helpers: flash_tiles.cuh (the mma.sync tiles, shared with the
 // split-layout kernels of flash_attention.cu), hopper.cuh (PTX for TMA,
 // mbarriers, wgmma) and flash_sm90.cuh (the K1, K2a and K2b/K2c walks,
@@ -96,18 +109,19 @@ constexpr int kBQb = 32;  // dk/dv and fused: q rows per inner tile
 
 // delta = rowsum(dO . O) and the saved lse for the q rows row0 .. row0 +
 // nrows - 1 of head h; dO comes from its shared-memory tile
-template <typename T, int HD>
+template <typename T>
 __device__ __forceinline__ void row_stats(float* delta_s, float* lse_s,
                                           const T* dOs, int ld, const T* o,
                                           const float* lse, int b, int h,
-                                          int H, int S, int row0, int nrows) {
+                                          int H, int S, int row0, int nrows,
+                                          int hd) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int rr = warp; rr < nrows; rr += kWarps) {
     const int row = row0 + rr;
     float acc = 0.f;
     if (row < S) {
-      const T* orow = o + ((size_t)b * S + row) * H * HD + (size_t)h * HD;
-      for (int d = lane; d < HD; d += 32)
+      const T* orow = o + ((size_t)b * S + row) * H * hd + (size_t)h * hd;
+      for (int d = lane; d < hd; d += 32)
         acc += Ty<T>::f(dOs[rr * ld + d]) * Ty<T>::f(orow[d]);
     }
     acc = warp_sum(acc);
@@ -119,11 +133,14 @@ __device__ __forceinline__ void row_stats(float* delta_s, float* lse_s,
 }
 
 // ---------------------------------------------------------------- forward
-// grid (ceil(S / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15.
+// grid (ceil(S / kBQ), H, B); warp w owns q rows w*16 .. w*16 + 15. HD is
+// the head-dim tier, hd <= HD the operands' head dim (hd_tier): the tiles
+// hold HD columns, those past hd zero, and only columns below hd are
+// stored; so for the rest of this file.
 template <typename T, int HD, bool DROPOUT>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                     float* __restrict__ lse, int S, int H, int G,
+                     float* __restrict__ lse, int S, int H, int G, int hd,
                      float qscale, int causal, int fast, Dropout drop) {
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBK + Ty<T>::kPad;
@@ -138,12 +155,12 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = lane >> 2, c = (lane & 3) * 2;
   const int g = h / G;
-  const size_t W = (size_t)(H + 2 * (H / G)) * HD;
+  const size_t W = (size_t)(H + 2 * (H / G)) * hd;
   const T* base = qkv + (size_t)b * S * W;
-  const T* ksrc = base + (size_t)(g * (G + 2) + G) * HD;
-  const T* vsrc = ksrc + HD;
-  load_tile<T, HD>(Qs, LD, base + (size_t)(g * (G + 2) + h % G) * HD, W, i0,
-                   kBQ, S);
+  const T* ksrc = base + (size_t)(g * (G + 2) + G) * hd;
+  const T* vsrc = ksrc + hd;
+  load_tile<T, HD>(Qs, LD, base + (size_t)(g * (G + 2) + h % G) * hd, W, i0,
+                   kBQ, S, hd);
 
   const T* Qw = Qs + warp * 16 * LD;
   T* Pw = Ps + warp * 16 * LDP;
@@ -159,8 +176,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int j0 = kt * kBK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, HD>(Ks, LD, ksrc, W, j0, kBK, S);
-    load_tile<T, HD>(Vs, LD, vsrc, W, j0, kBK, S);
+    load_tile<T, HD>(Ks, LD, ksrc, W, j0, kBK, S, hd);
+    load_tile<T, HD>(Vs, LD, vsrc, W, j0, kBK, S, hd);
     __syncthreads();
     float s[NTS][4];
     zero(s);
@@ -221,15 +238,23 @@ __global__ void __launch_bounds__(kThreads)
     const int rw = row[x];
     if (rw >= S) continue;
     const float inv = (DROPOUT ? drop.inv_keep : 1.f) / l[x];
-    T* orow = out + ((size_t)b * S + rw) * H * HD + (size_t)h * HD;
+    T* orow = out + ((size_t)b * S + rw) * H * hd + (size_t)h * hd;
 #pragma unroll
-    for (int nt = 0; nt < NTO; ++nt) {
-      orow[nt * 8 + c] = Ty<T>::from(acc[nt][2 * x] * inv);
-      orow[nt * 8 + c + 1] = Ty<T>::from(acc[nt][2 * x + 1] * inv);
-    }
+    for (int nt = 0; nt < NTO; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (nt * 8 + c + e < hd)
+          orow[nt * 8 + c + e] = Ty<T>::from(acc[nt][2 * x + e] * inv);
     if ((lane & 3) == 0)
       lse[((size_t)b * H + h) * S + rw] = m[x] + log2f(l[x]);
   }
+}
+
+// the dq walk's k rows per tile: 32 in f32 above the 128 tier, where four
+// 64-row tiles of 256 f32 columns would pass the 227 KB of shared memory
+template <typename T, int HD>
+__host__ __device__ constexpr int dq_bk() {
+  return sizeof(T) == 4 && HD > 128 ? 32 : kBK;
 }
 
 // -------------------------------------------------------- backward: dq only
@@ -240,17 +265,18 @@ __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
                         const float* __restrict__ lse,
                         const T* __restrict__ dout, T* __restrict__ dqkv,
-                        int S, int H, int G, float scale, float qscale,
-                        int causal, Dropout drop) {
+                        int S, int H, int G, int hd, float scale,
+                        float qscale, int causal, Dropout drop) {
+  constexpr int BK = dq_bk<T, HD>();
   constexpr int LD = HD + Ty<T>::kPad;
-  constexpr int LDP = kBK + Ty<T>::kPad;
-  constexpr int NTS = kBK / 8, NTO = HD / 8;
+  constexpr int LDP = BK + Ty<T>::kPad;
+  constexpr int NTS = BK / 8, NTO = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* dOs = Qs + kBQ * LD;
   T* Ks = dOs + kBQ * LD;
-  T* Vs = Ks + kBK * LD;
-  T* dSs = Vs + kBK * LD;
+  T* Vs = Ks + BK * LD;
+  T* dSs = Vs + BK * LD;
   float* lse_s = reinterpret_cast<float*>(dSs + kBQ * LDP);
   float* delta_s = lse_s + kBQ;
 
@@ -258,16 +284,16 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = lane >> 2, c = (lane & 3) * 2;
   const int g = h / G;
-  const size_t W = (size_t)(H + 2 * (H / G)) * HD;
+  const size_t W = (size_t)(H + 2 * (H / G)) * hd;
   const T* base = qkv + (size_t)b * S * W;
-  const size_t qoff = (size_t)(g * (G + 2) + h % G) * HD;
-  const T* ksrc = base + (size_t)(g * (G + 2) + G) * HD;
-  const T* vsrc = ksrc + HD;
-  load_tile<T, HD>(Qs, LD, base + qoff, W, i0, kBQ, S);
-  load_tile<T, HD>(dOs, LD, dout + (size_t)b * S * H * HD + (size_t)h * HD,
-                   (size_t)H * HD, i0, kBQ, S);
+  const size_t qoff = (size_t)(g * (G + 2) + h % G) * hd;
+  const T* ksrc = base + (size_t)(g * (G + 2) + G) * hd;
+  const T* vsrc = ksrc + hd;
+  load_tile<T, HD>(Qs, LD, base + qoff, W, i0, kBQ, S, hd);
+  load_tile<T, HD>(dOs, LD, dout + (size_t)b * S * H * hd + (size_t)h * hd,
+                   (size_t)H * hd, i0, kBQ, S, hd);
   __syncthreads();
-  row_stats<T, HD>(delta_s, lse_s, dOs, LD, o, lse, b, h, H, S, i0, kBQ);
+  row_stats<T>(delta_s, lse_s, dOs, LD, o, lse, b, h, H, S, i0, kBQ, hd);
 
   const T* Qw = Qs + warp * 16 * LD;
   const T* dOw = dOs + warp * 16 * LD;
@@ -276,13 +302,13 @@ __global__ void __launch_bounds__(kThreads)
   float dq[NTO][4];
   zero(dq);
 
-  const int n_all = (S + kBK - 1) / kBK;
-  const int n_kt = causal ? min((i0 + kBQ - 1) / kBK + 1, n_all) : n_all;
+  const int n_all = (S + BK - 1) / BK;
+  const int n_kt = causal ? min((i0 + kBQ - 1) / BK + 1, n_all) : n_all;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int j0 = kt * kBK;
+    const int j0 = kt * BK;
     __syncthreads();  // row stats written; previous K/V tile read
-    load_tile<T, HD>(Ks, LD, ksrc, W, j0, kBK, S);
-    load_tile<T, HD>(Vs, LD, vsrc, W, j0, kBK, S);
+    load_tile<T, HD>(Ks, LD, ksrc, W, j0, BK, S, hd);
+    load_tile<T, HD>(Vs, LD, vsrc, W, j0, BK, S, hd);
     __syncthreads();
     float s[NTS][4], dp[NTS][4];
     zero(s);
@@ -311,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
         dSw[(r + 8 * (e >> 1)) * LDP + nt * 8 + c + (e & 1)] = Ty<T>::from(ds);
       }
     __syncwarp();
-    warp_gemm<T, NTO, kBK, false, true>(dq, dSw, LDP, Ks, LD, lane);
+    warp_gemm<T, NTO, BK, false, true>(dq, dSw, LDP, Ks, LD, lane);
   }
 
 #pragma unroll
@@ -320,10 +346,11 @@ __global__ void __launch_bounds__(kThreads)
     if (rw >= S) continue;
     T* drow = dqkv + ((size_t)b * S + rw) * W + qoff;
 #pragma unroll
-    for (int nt = 0; nt < NTO; ++nt) {
-      drow[nt * 8 + c] = Ty<T>::from(dq[nt][2 * x]);
-      drow[nt * 8 + c + 1] = Ty<T>::from(dq[nt][2 * x + 1]);
-    }
+    for (int nt = 0; nt < NTO; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (nt * 8 + c + e < hd)
+          drow[nt * 8 + c + e] = Ty<T>::from(dq[nt][2 * x + e]);
   }
 }
 
@@ -347,8 +374,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ lse,
                         const T* __restrict__ dout, T* __restrict__ dqkv,
                         float* __restrict__ dq_acc, int* __restrict__ dq_turn,
-                        int B, int S, int H, int G, float scale, float qscale,
-                        int causal, Dropout drop) {
+                        int B, int S, int H, int G, int hd, float scale,
+                        float qscale, int causal, Dropout drop) {
   constexpr int LD = HD + Ty<T>::kPad;
   constexpr int LDP = kBQb + Ty<T>::kPad;
   constexpr int NTS = kBQb / 8, NTO = HD / 8;
@@ -370,13 +397,13 @@ __global__ void __launch_bounds__(kThreads)
     const int j0 = kt * kBK;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int r = lane >> 2, c = (lane & 3) * 2;
-    const size_t W = (size_t)(H + 2 * KV) * HD;
-    const size_t HHD = (size_t)H * HD;
+    const size_t W = (size_t)(H + 2 * KV) * hd;
+    const size_t HHD = (size_t)H * hd;
     const T* base = qkv + (size_t)b * S * W;
-    const size_t koff = (size_t)(g * (G + 2) + G) * HD;
+    const size_t koff = (size_t)(g * (G + 2) + G) * hd;
     __syncthreads();  // the previous item's tiles are no longer read
-    load_tile<T, HD>(Ks, LD, base + koff, W, j0, kBK, S);
-    load_tile<T, HD>(Vs, LD, base + koff + HD, W, j0, kBK, S);
+    load_tile<T, HD>(Ks, LD, base + koff, W, j0, kBK, S, hd);
+    load_tile<T, HD>(Vs, LD, base + koff + hd, W, j0, kBK, S, hd);
 
     const T* Kw = Ks + warp * 16 * LD;
     const T* Vw = Vs + warp * 16 * LD;
@@ -391,16 +418,16 @@ __global__ void __launch_bounds__(kThreads)
     const int it0 = causal ? j0 / kBQb : 0;
     for (int mem = 0; mem < G; ++mem) {
       const int h = g * G + mem;
-      const T* qsrc = base + (size_t)(g * (G + 2) + mem) * HD;
-      const T* dosrc = dout + (size_t)b * S * HHD + (size_t)h * HD;
+      const T* qsrc = base + (size_t)(g * (G + 2) + mem) * hd;
+      const T* dosrc = dout + (size_t)b * S * HHD + (size_t)h * hd;
       for (int it = it0; it < n_it; ++it) {
         const int i0 = it * kBQb;
         __syncthreads();  // the previous q tile is no longer read
-        load_tile<T, HD>(Qs, LD, qsrc, W, i0, kBQb, S);
-        load_tile<T, HD>(dOs, LD, dosrc, HHD, i0, kBQb, S);
+        load_tile<T, HD>(Qs, LD, qsrc, W, i0, kBQb, S, hd);
+        load_tile<T, HD>(dOs, LD, dosrc, HHD, i0, kBQb, S, hd);
         __syncthreads();
-        row_stats<T, HD>(delta_s, lse_s, dOs, LD, o, lse, b, h, H, S, i0,
-                         kBQb);
+        row_stats<T>(delta_s, lse_s, dOs, LD, o, lse, b, h, H, S, i0, kBQb,
+                     hd);
         __syncthreads();
         float sT[NTS][4], dpT[NTS][4];
         zero(sT);
@@ -438,43 +465,37 @@ __global__ void __launch_bounds__(kThreads)
         if (FUSED) {
           // dq[i] += sum_j dS[i][j] K[j]: every warp's dS^T rows are needed,
           // so the CTA syncs; warps split the (kBQb x HD) result into RB row
-          // blocks of 16 and CG column groups, 32 columns at a time
+          // blocks of 16 and CG column groups of CW columns
           __syncthreads();
           constexpr int RB = kBQb / 16, CG = kWarps / RB, CW = HD / CG;
+          static_assert(CW % 8 == 0, "a column group is whole n-tiles");
           const int rb = warp % RB, cg = warp / RB;
-          float part[CW / 32][4][4];
-#pragma unroll
-          for (int cc = 0; cc < CW / 32; ++cc) {
-            zero(part[cc]);
-            warp_gemm<T, 4, kBK, true, true>(part[cc], dSTs + rb * 16, LDP,
-                                             Ks + cg * CW + 32 * cc, LD, lane);
-          }
+          float part[CW / 8][4];
+          zero(part);
+          warp_gemm<T, CW / 8, kBK, true, true>(part, dSTs + rb * 16, LDP,
+                                                Ks + cg * CW, LD, lane);
           // this k tile's turn on the q tile's rows of dq
           int* turn = dq_turn + ((size_t)b * H + h) * n_it + it;
           if (threadIdx.x == 0 && kt > 0)
             while (ld_acquire(turn) < kt) __nanosleep(32);
           __syncthreads();
 #pragma unroll
-          for (int cc = 0; cc < CW / 32; ++cc)
+          for (int x = 0; x < 2; ++x) {
+            const int i = i0 + rb * 16 + r + 8 * x;
+            if (i >= S) continue;
+            float* drow =
+                dq_acc + ((size_t)b * S + i) * HHD + (size_t)h * hd + cg * CW;
 #pragma unroll
-            for (int x = 0; x < 2; ++x) {
-              const int i = i0 + rb * 16 + r + 8 * x;
-              if (i >= S) continue;
-              float* drow = dq_acc + ((size_t)b * S + i) * HHD +
-                            (size_t)h * HD + cg * CW + 32 * cc;
+            for (int nt = 0; nt < CW / 8; ++nt)
 #pragma unroll
-              for (int nt = 0; nt < 4; ++nt) {
-                float2* at = reinterpret_cast<float2*>(drow + nt * 8 + c);
-                float2 v = make_float2(part[cc][nt][2 * x],
-                                       part[cc][nt][2 * x + 1]);
-                if (kt > 0) {  // from L2, not a stale L1 line
-                  const float2 was = __ldcg(at);
-                  v.x += was.x;
-                  v.y += was.y;
-                }
+              for (int e = 0; e < 2; ++e) {
+                if (cg * CW + nt * 8 + c + e >= hd) continue;
+                float* at = drow + nt * 8 + c + e;
+                float v = part[nt][2 * x + e];
+                if (kt > 0) v += __ldcg(at);  // from L2, not a stale L1 line
                 *at = v;
               }
-            }
+          }
           __threadfence();
           __syncthreads();
           if (threadIdx.x == 0) st_release(turn, kt + 1);
@@ -488,12 +509,13 @@ __global__ void __launch_bounds__(kThreads)
       if (j >= S) continue;
       T* drow = dqkv + ((size_t)b * S + j) * W + koff;
 #pragma unroll
-      for (int nt = 0; nt < NTO; ++nt) {
-        drow[nt * 8 + c] = Ty<T>::from(dk[nt][2 * x]);
-        drow[nt * 8 + c + 1] = Ty<T>::from(dk[nt][2 * x + 1]);
-        drow[HD + nt * 8 + c] = Ty<T>::from(dv[nt][2 * x]);
-        drow[HD + nt * 8 + c + 1] = Ty<T>::from(dv[nt][2 * x + 1]);
-      }
+      for (int nt = 0; nt < NTO; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (nt * 8 + c + e < hd) {
+            drow[nt * 8 + c + e] = Ty<T>::from(dk[nt][2 * x + e]);
+            drow[hd + nt * 8 + c + e] = Ty<T>::from(dv[nt][2 * x + e]);
+          }
     }
   }  // items
 }
@@ -744,8 +766,9 @@ constexpr size_t fwd_smem() {
 
 template <typename T, int HD>
 constexpr size_t dq_smem() {
-  return ((size_t)(2 * kBQ + 2 * kBK) * (HD + Ty<T>::kPad) +
-          (size_t)kBQ * (kBK + Ty<T>::kPad)) * sizeof(T) +
+  constexpr int BK = dq_bk<T, HD>();
+  return ((size_t)(2 * kBQ + 2 * BK) * (HD + Ty<T>::kPad) +
+          (size_t)kBQ * (BK + Ty<T>::kPad)) * sizeof(T) +
          2 * kBQ * sizeof(float);
 }
 
@@ -789,7 +812,7 @@ cudaError_t fwd(const Args& a) {
   const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, a.B);
   flash_fwd_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.qkv), static_cast<T*>(a.out),
-      static_cast<float*>(a.lse_out), a.S, a.H, a.H / a.KV,
+      static_cast<float*>(a.lse_out), a.S, a.H, a.H / a.KV, a.hd,
       a.scale * kLog2e, a.causal, a.fast, a.drop);
   return cudaGetLastError();
 }
@@ -803,7 +826,7 @@ cudaError_t bwd_dq(const Args& a) {
   flash_bwd_dq_kernel<T, HD, DROP><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.qkv), static_cast<const T*>(a.o),
       static_cast<const float*>(a.lse), static_cast<const T*>(a.dout),
-      static_cast<T*>(a.out), a.S, a.H, a.H / a.KV, a.scale,
+      static_cast<T*>(a.out), a.S, a.H, a.H / a.KV, a.hd, a.scale,
       a.scale * kLog2e, a.causal, a.drop);
   return cudaGetLastError();
 }
@@ -831,13 +854,13 @@ cudaError_t bwd_kv(const Args& a) {
       static_cast<const T*>(a.qkv), static_cast<const T*>(a.o),
       static_cast<const float*>(a.lse), static_cast<const T*>(a.dout),
       static_cast<T*>(a.out), a.dq_acc, a.turn, a.B, a.S, a.H, a.H / a.KV,
-      a.scale, a.scale * kLog2e, a.causal, a.drop);
+      a.hd, a.scale, a.scale * kLog2e, a.causal, a.drop);
   err = cudaGetLastError();
   if (err || !FUSED) return err;
-  const size_t n = (size_t)a.B * a.S * a.H * HD;
+  const size_t n = (size_t)a.B * a.S * a.H * a.hd;
   const int blocks = (int)((n + 255) / 256 < 65535 ? (n + 255) / 256 : 65535);
   dq_store_kernel<T><<<blocks, 256, 0, a.stream>>>(
-      a.dq_acc, static_cast<T*>(a.out), n, a.H, a.H / a.KV, HD);
+      a.dq_acc, static_cast<T*>(a.out), n, a.H, a.H / a.KV, a.hd);
   return cudaGetLastError();
 }
 
@@ -942,51 +965,79 @@ cudaError_t bwd_kv_sm90(const Args& a) {
 
 enum Which { kFwd, kStats, kDq, kDkv, kFused };
 
-// bf16 takes the Hopper kernels; f32 keeps the mma.sync/FFMA ones
-template <typename T, int HD, bool DROP>
-cudaError_t dispatch(Which w, const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    switch (w) {
-      case kFwd: return fwd_sm90<HD, DROP>(a);
-      case kStats: return bwd_stats<HD>(a);
-      case kDq: return bwd_dq_sm90<HD, DROP>(a);
-      case kDkv: return bwd_kv_sm90<HD, false, DROP>(a);
-      case kFused: return bwd_kv_sm90<HD, true, DROP>(a);
-    }
-  } else {
-    switch (w) {
-      case kFwd: return fwd<T, HD, DROP>(a);
-      case kDq: return bwd_dq<T, HD, DROP>(a);
-      case kDkv: return bwd_kv<T, HD, false, DROP>(a);
-      case kFused: return bwd_kv<T, HD, true, DROP>(a);
-      case kStats: break;
-    }
+// The routes. The caller picks one (ops/flash_attention.py::_sm90_route)
+// and passes it as `sm90`, since its scratch layouts depend on it: the
+// Hopper kernels, built for bf16 at hd 64 or 128 with at most 8 q heads
+// per kv head (sm90_takes; a launch asking for them elsewhere is
+// refused), or the mma.sync/FFMA kernels of the first half, which take
+// every shape (f32 and bf16, hd 1 to 256, any group), instantiated at the
+// head-dim tiers of hd_tier and masking the runtime hd. Their dk/dv walk
+// sums a group's G heads inside the CTA in head order, whatever G, so no
+// group size needs atomics.
+bool sm90_takes(int dtype, const Args& a) {
+  return dtype == 1 && (a.hd == 64 || a.hd == 128) && a.H / a.KV <= 8;
+}
+
+template <int HD, bool DROP>
+cudaError_t dispatch_sm90(Which w, const Args& a) {
+  switch (w) {
+    case kFwd: return fwd_sm90<HD, DROP>(a);
+    case kStats: return bwd_stats<HD>(a);
+    case kDq: return bwd_dq_sm90<HD, DROP>(a);
+    case kDkv: return bwd_kv_sm90<HD, false, DROP>(a);
+    case kFused: return bwd_kv_sm90<HD, true, DROP>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-// the pre-pass has no dropout; every other kernel runs its DROPOUT
-// instantiation when the threshold is not 0
-template <typename T, int HD>
-cudaError_t dispatch_drop(Which w, const Args& a) {
-  if (a.drop.threshold != 0 && w != kStats) return dispatch<T, HD, true>(w, a);
-  return dispatch<T, HD, false>(w, a);
-}
-
-template <typename T>
-cudaError_t dispatch_hd(Which w, const Args& a) {
-  if (a.hd == 64) return dispatch_drop<T, 64>(w, a);
-  if (a.hd == 128) return dispatch_drop<T, 128>(w, a);
+template <typename T, int HD, bool DROP>
+cudaError_t dispatch_core(Which w, const Args& a) {
+  switch (w) {
+    case kFwd: return fwd<T, HD, DROP>(a);
+    case kDq: return bwd_dq<T, HD, DROP>(a);
+    case kDkv: return bwd_kv<T, HD, false, DROP>(a);
+    case kFused: return bwd_kv<T, HD, true, DROP>(a);
+    case kStats: break;  // the core kernels form their own row stats
+  }
   return cudaErrorInvalidValue;
 }
 
-int run(int dtype, Which w, const Args& a) {
+template <typename T, bool DROP>
+cudaError_t dispatch_tier(Which w, const Args& a) {
+  switch (hd_tier(a.hd)) {
+#ifndef NK_FLASH_TIERS_3
+    case 32: return dispatch_core<T, 32, DROP>(w, a);
+    case 96: return dispatch_core<T, 96, DROP>(w, a);
+#endif
+    case 64: return dispatch_core<T, 64, DROP>(w, a);
+    case 128: return dispatch_core<T, 128, DROP>(w, a);
+    case 256: return dispatch_core<T, 256, DROP>(w, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool DROP>
+cudaError_t dispatch(int dtype, int sm90, Which w, const Args& a) {
+  if (sm90) {
+    if (!sm90_takes(dtype, a)) return cudaErrorInvalidValue;
+    return a.hd == 64 ? dispatch_sm90<64, DROP>(w, a)
+                      : dispatch_sm90<128, DROP>(w, a);
+  }
+  if (dtype == 0) return dispatch_tier<float, DROP>(w, a);
+  if (dtype == 1) return dispatch_tier<__nv_bfloat16, DROP>(w, a);
+  return cudaErrorInvalidValue;
+}
+
+int run(int dtype, int sm90, Which w, const Args& a) {
   if (a.B < 1 || a.S < 1 || a.H < 1 || a.KV < 1 || a.H % a.KV ||
-      a.B > 65535 || a.H > 65535 || a.KV > 65535)
+      a.B > 65535 || a.H > 65535 || a.KV > 65535 || a.hd < 1 ||
+      a.hd > 256)
     return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch_hd<float>(w, a);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(w, a);
-  return cudaErrorInvalidValue;
+  // the pre-pass has no dropout; every other kernel runs its DROPOUT
+  // instantiation when the threshold is not 0
+  if (a.drop.threshold != 0 && w != kStats)
+    return dispatch<true>(dtype, sm90, w, a);
+  return dispatch<false>(dtype, sm90, w, a);
 }
 
 Dropout dropout_of(unsigned long long seed, unsigned threshold,
@@ -997,13 +1048,15 @@ Dropout dropout_of(unsigned long long seed, unsigned threshold,
 }  // namespace
 
 // C entry points (bound with ctypes). dtype: 0 = float32, 1 = bfloat16;
-// hd 64 or 128; any KV dividing H. Attention dropout (dropout.cuh): seed,
+// sm90: 1 for the Hopper kernels, 0 for the others (see the routes above);
+// hd 1 to 256; any KV dividing H. Attention dropout (dropout.cuh): seed,
 // threshold = min(floor(rate 2^32), 2^32 - 1) and inv_keep = 1 / (1 -
 // rate); threshold 0 runs without it. Each returns a cudaError_t: 0 when
 // the launch was accepted.
 
 // out (B, S, H hd) and lse (B, H, S) f32 from qkv (B, S, W)
-extern "C" int nk_flash_fwd_qkv(int dtype, const void* qkv, void* out,
+extern "C" int nk_flash_fwd_qkv(int dtype, int sm90, const void* qkv,
+                                void* out,
                                 void* lse, int B, int S, int H, int KV,
                                 int hd, float scale, int causal, int fast,
                                 unsigned long long seed, unsigned threshold,
@@ -1012,12 +1065,12 @@ extern "C" int nk_flash_fwd_qkv(int dtype, const void* qkv, void* out,
          0, B, S, H, KV, hd, causal, fast, scale,
          static_cast<cudaStream_t>(stream),
          dropout_of(seed, threshold, inv_keep)};
-  return run(dtype, kFwd, a);
+  return run(dtype, sm90, kFwd, a);
 }
 
-// bf16 only: the backward's pre-pass, stats f32 (B, H, 64 ceil(S / 64), 2)
-// = (lse, rowsum(dO . O)) per row, rows past S (0, 0); K2a and K2b take it
-// with have_stats = 1, so a split backward runs it once
+// the Hopper route only: the backward's pre-pass, stats f32 (B, H, 64
+// ceil(S / 64), 2) = (lse, rowsum(dO . O)) per row, rows past S (0, 0); K2a
+// and K2b take it with have_stats = 1, so a split backward runs it once
 extern "C" int nk_flash_bwd_stats_qkv(int dtype, const void* o,
                                       const void* lse, const void* dout,
                                       void* stats, int B, int S, int H,
@@ -1025,12 +1078,13 @@ extern "C" int nk_flash_bwd_stats_qkv(int dtype, const void* o,
   Args a{nullptr, o, lse, dout, nullptr, nullptr, nullptr, stats, nullptr,
          0, B, S, H, H, hd, 0, 0, 0.f, static_cast<cudaStream_t>(stream),
          Dropout{}};
-  return run(dtype, kStats, a);
+  return run(dtype, 1, kStats, a);
 }
 
-// the q chunks of dqkv (B, S, W); bf16: stats as above, filled here unless
-// have_stats (unused in f32)
-extern "C" int nk_flash_bwd_dq_qkv(int dtype, const void* qkv, const void* o,
+// the q chunks of dqkv (B, S, W); the Hopper route: stats as above, filled
+// here unless have_stats (unused on the other route)
+extern "C" int nk_flash_bwd_dq_qkv(int dtype, int sm90, const void* qkv,
+                                   const void* o,
                                    const void* lse, const void* dout,
                                    void* stats, int have_stats, void* dqkv,
                                    int B, int S, int H, int KV, int hd,
@@ -1042,11 +1096,11 @@ extern "C" int nk_flash_bwd_dq_qkv(int dtype, const void* qkv, const void* o,
          have_stats, B, S, H, KV, hd, causal, 0, scale,
          static_cast<cudaStream_t>(stream),
          dropout_of(seed, threshold, inv_keep)};
-  return run(dtype, kDq, a);
+  return run(dtype, sm90, kDq, a);
 }
 
 // the k and v chunks of dqkv (B, S, W); stats as for dq
-extern "C" int nk_flash_bwd_dkv_qkv(int dtype, const void* qkv,
+extern "C" int nk_flash_bwd_dkv_qkv(int dtype, int sm90, const void* qkv,
                                     const void* o, const void* lse,
                                     const void* dout, void* stats,
                                     int have_stats, void* dqkv, int B, int S,
@@ -1058,16 +1112,16 @@ extern "C" int nk_flash_bwd_dkv_qkv(int dtype, const void* qkv,
          have_stats, B, S, H, KV, hd, causal, 0, scale,
          static_cast<cudaStream_t>(stream),
          dropout_of(seed, threshold, inv_keep)};
-  return run(dtype, kDkv, a);
+  return run(dtype, sm90, kDkv, a);
 }
 
 // all of dqkv (B, S, W); dq is summed over k tiles in a fixed order, so the
-// result is the same bits every run. bf16: stats as above (always filled
-// here), dq_acc f32 (B, H, ceil(S / 64), 64, hd + 8) scratch and turn,
-// int32 (B, H, ceil(S / 64)) that the caller zeroes. f32: dq_acc f32 (B, S,
-// H hd) scratch and turn, int32 (B, H, ceil(S / 32)) that the caller
-// zeroes (stats unused).
-extern "C" int nk_flash_bwd_fused_qkv(int dtype, const void* qkv,
+// result is the same bits every run. The Hopper route: stats as above
+// (always filled here), dq_acc f32 (B, H, ceil(S / 64), 64, hd + 8) scratch
+// and turn, int32 (B, H, ceil(S / 64)) that the caller zeroes. The other
+// route: dq_acc f32 (B, S, H hd) scratch and turn, int32 (B, H, ceil(S /
+// 32)) that the caller zeroes (stats unused).
+extern "C" int nk_flash_bwd_fused_qkv(int dtype, int sm90, const void* qkv,
                                       const void* o, const void* lse,
                                       const void* dout, void* stats,
                                       void* dq_acc, void* turn, void* dqkv,
@@ -1081,5 +1135,5 @@ extern "C" int nk_flash_bwd_fused_qkv(int dtype, const void* qkv,
          B, S, H, KV, hd, causal, 0, scale,
          static_cast<cudaStream_t>(stream),
          dropout_of(seed, threshold, inv_keep)};
-  return run(dtype, kFused, a);
+  return run(dtype, sm90, kFused, a);
 }

@@ -136,21 +136,49 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
 }
 
 // rows row0 .. row0 + nrows - 1 of an hd-wide column block (row stride rs
-// elements) into shared memory (row stride ld); rows at or past S read as 0
+// elements) into an HD-wide tile of shared memory (row stride ld), HD the
+// head-dim tier (hd <= HD); rows at or past S and columns at or past hd
+// read as 0, so the padded columns add nothing to any product. 16-byte
+// loads where every row start is 16-byte aligned (hd and rs multiples of
+// the vector, an aligned base), else element loads.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           size_t rs, int row0, int nrows,
-                                          int S) {
+                                          int S, int hd) {
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int VPR = HD / E;
+  const bool vec = hd % E == 0 && rs % E == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0;
   for (int idx = threadIdx.x; idx < nrows * VPR; idx += kThreads) {
     const int r = idx / VPR, v = idx % VPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * rs +
-                                                 v * E));
+    const T* row = src + (size_t)(row0 + r) * rs + v * E;
+    if (row0 + r < S && v * E < hd) {
+      if (vec) {
+        val = __ldg(reinterpret_cast<const uint4*>(row));
+      } else {
+        T* e = reinterpret_cast<T*>(&val);
+#pragma unroll
+        for (int x = 0; x < E; ++x)
+          if (v * E + x < hd) e[x] = row[x];
+      }
+    }
     *reinterpret_cast<uint4*>(dst + r * ld + v * E) = val;
   }
+}
+
+// the head-dim tier of the CUDA-core flash kernels: the smallest of 32,
+// 64, 96, 128 and 256 that holds hd (1 <= hd <= 256), 0 above; the
+// kernels are instantiated at the tiers and mask the runtime hd. Built
+// with NK_FLASH_TIERS_3, only 64, 128 and 256 (tools/torch_diag.py tiers
+// times the two builds against each other)
+__host__ __device__ constexpr int hd_tier(int hd) {
+#ifdef NK_FLASH_TIERS_3
+  return hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256 : 0;
+#else
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 96 ? 96 : hd <= 128 ? 128
+                                                   : hd <= 256 ? 256 : 0;
+#endif
 }
 
 __device__ __forceinline__ float quad_max(float x) {

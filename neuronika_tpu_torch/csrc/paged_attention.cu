@@ -48,7 +48,19 @@
 // (cp.async.bulk) in place of the register loads ran slower at walks of
 // 11-12 blocks a CTA on an H100 (its 48 KB ring and 288 threads left 3-4
 // CTAs an SM): 0.0200 against 0.0172 ms at B8 KV12 hd128 bf16. Tensor
-// cores stay idle by design: G <= 8 query rows.
+// cores stay idle by design: at most kMaxG query rows a CTA.
+//
+// Head dims and groups, as JAX's kernel takes them: any hd from 1 to 256
+// and any G. The kernel is instantiated at four head-dim tiers (32, 64,
+// 128, 256: a row group's lanes split a power-of-two width) and masks the
+// runtime hd: a lane's 16-byte chunk past hd is not read and counts as 0,
+// and element loads replace the 16-byte ones where hd breaks their
+// alignment. A group larger than kMaxG is cut into chunks of kMaxG query
+// heads, each a CTA of its own (grid.x = KV chunks): a chunk reads the kv
+// head's K and V again, from L2 when its neighbours run beside it, and
+// keeps every register bound of the 8-head kernel. Each chunk is a
+// (sequence, kv head) of the split-and-merge above, with its own partials
+// and counter, merged in split order as one kv head's are.
 //
 // Inactive decode lanes come with an all-zero table row and pos clamped to
 // MB*BS-1: they read scratch block 0, which is valid memory, and their output
@@ -106,7 +118,7 @@ __device__ __forceinline__ float safe_max(float m) {
 }
 
 // After a split's partial is written (pb: the first of the n partials of
-// its (sequence, kv head) that take part, G (HD + 2) floats a split):
+// its (sequence, kv head, chunk) that take part, `stride` floats apart):
 // count the split in; the CTA that counts last merges the n in split order
 // into ob and resets the counter. The other CTAs' partials are read from L2
 // (they are not in this SM's L1), the splits' m and l all at once into
@@ -114,9 +126,27 @@ __device__ __forceinline__ float safe_max(float m) {
 // over the splits, the acc loads of several splits in flight together. A
 // split whose blocks were all outside the pool (m = -inf: weight 0) adds
 // nothing.
-template <typename T, int HD, int MAXG>
+// 16 bytes from p, the elements at or past `avail` as 0 (none read when
+// avail <= 0); `vec`: p is 16-byte aligned and avail, when positive, at
+// least a vector
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p, int avail, bool vec) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (avail <= 0) return r;
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i)
+    if (i < avail) e[i] = p[i];
+  return r;
+}
+
+// (pb advances `stride` floats a split; a split's partial is m[G], l[G],
+// acc[G][hd])
+template <typename T, int MAXG>
 __device__ __forceinline__ void count_and_merge(const float* pb, int n,
-                                                int G, int* cnt, T* ob) {
+                                                int G, int hd, int stride,
+                                                int* cnt, T* ob) {
   __shared__ bool last;
   __shared__ float sw[kMaxSplits * MAXG], sl[kMaxSplits * MAXG];
   __threadfence();   // the partial is visible before it is counted
@@ -125,9 +155,8 @@ __device__ __forceinline__ void count_and_merge(const float* pb, int n,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const int pw = G * (HD + 2);
   for (int t = threadIdx.x; t < n * G; t += kThreads) {
-    const float* py = pb + (size_t)(t / G) * pw;
+    const float* py = pb + (size_t)(t / G) * stride;
     sw[t] = __ldcg(py + t % G);
     sl[t] = __ldcg(py + G + t % G);
   }
@@ -144,15 +173,15 @@ __device__ __forceinline__ void count_and_merge(const float* pb, int n,
       sw[y * G + warp] = exp2f(sw[y * G + warp] - mu);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
-    const int g = i / HD;
+  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
+    const int g = i / hd;
     float l = 0.f, a = 0.f;
 #pragma unroll 4
     for (int y = 0; y < n; ++y) {
       const float w = sw[y * G + g];
       if (w == 0.f) continue;   // adds exactly 0
       l += sl[y * G + g] * w;
-      a += __ldcg(pb + (size_t)y * pw + 2 * G + i) * w;
+      a += __ldcg(pb + (size_t)y * stride + 2 * G + i) * w;
     }
     ob[i] = Vec<T>::store(a / l);
   }
@@ -160,16 +189,19 @@ __device__ __forceinline__ void count_and_merge(const float* pb, int n,
 }
 
 // G = 1 at hd <= 128 (the decode path) fits 4 CTAs an SM in 64 registers a
-// thread: paged_split_plan's SPLIT_CTAS_PER_SM, one wave at the long shape
+// thread: paged_split_plan's SPLIT_CTAS_PER_SM, one wave at the long shape.
+// HD is the head-dim tier, hd <= HD the pool's; blockIdx.x is (kv head,
+// chunk of up to MAXG of its G query heads), NC chunks a kv head.
 template <typename T, int HD, int MAXG>
 __global__ void __launch_bounds__(kThreads, MAXG == 1 && HD <= 128 ? 4 : 1)
     paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                            const T* __restrict__ pv,
                            const int* __restrict__ table,
                            const int* __restrict__ pos_arr,
-                           T* __restrict__ out, int KV, int G, int NB, int BS,
-                           int MB, int window, float qscale, int bps,
-                           float* __restrict__ part, int* __restrict__ count) {
+                           T* __restrict__ out, int KV, int G_all, int NC,
+                           int hd, int NB, int BS, int MB, int window,
+                           float qscale, int bps, float* __restrict__ part,
+                           int* __restrict__ count) {
   constexpr int VEC = Vec<T>::N;
   constexpr int LPT = (HD / VEC < 32) ? HD / VEC : 32;  // lanes per row
   constexpr int CH = HD / (LPT * VEC);  // 16-byte chunks per lane and row
@@ -182,7 +214,8 @@ __global__ void __launch_bounds__(kThreads, MAXG == 1 && HD <= 128 ? 4 : 1)
   constexpr int kUnroll = MAXG == 1 ? 4 : 2;
   static_assert(HD % (LPT * VEC) == 0, "head dim must split into 16B chunks");
 
-  const int kv = blockIdx.x;
+  const int kv = blockIdx.x / NC, g0 = blockIdx.x % NC * MAXG;
+  const int G = min(MAXG, G_all - g0);  // this CTA's query heads
   const int b = blockIdx.y;
   const int z = blockIdx.z, splits = (int)gridDim.z;
   const int warp = threadIdx.x / 32;
@@ -204,26 +237,31 @@ __global__ void __launch_bounds__(kThreads, MAXG == 1 && HD <= 128 ? 4 : 1)
   // (every CTA of the sequence knows which): a split outside them ends
   // here, its partial would be m = -inf, l = 0; a split alone in them
   // writes the output itself; otherwise each writes its partial m[G], l[G],
-  // acc[G][HD] (G (HD + 2) floats at [b][kv][z]) and the last merges them
+  // acc[G][hd] (in the slot of [b][kv chunk][z]) and the last merges them
   const int z_lo = lo / BS / bps, z_hi = pos < 0 ? z_lo : pos / BS / bps;
   if (z < z_lo || z > z_hi) return;
-  const int pw = G * (HD + 2);
-  float* pb = part + (((size_t)b * KV + kv) * splits + z_lo) * pw;
-  float* pz = pb + (size_t)(z - z_lo) * pw;
-  int* cnt = count + (size_t)b * KV + kv;
-  T* ob = out + ((size_t)b * KV + kv) * G * HD;
+  // every chunk's slot holds min(G_all, MAXG) heads, so slots are uniform
+  const int stride = min(G_all, MAXG) * (hd + 2);
+  const size_t xb = (size_t)b * KV * NC + blockIdx.x;
+  float* pb = part + (xb * splits + z_lo) * stride;
+  float* pz = pb + (size_t)(z - z_lo) * stride;
+  int* cnt = count + xb;
+  const size_t q0 = ((size_t)b * KV + kv) * G_all + g0;  // first q head
+  T* ob = out + q0 * hd;
+  // 16-byte loads where every row start is aligned (the wrapper checks
+  // the bases)
+  const bool vec = hd % VEC == 0;
 
   float qr[MAXG][EPL];
-  const T* qb = q + ((size_t)b * KV + kv) * G * HD;
+  const T* qb = q + q0 * hd;
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       float f[VEC];
       if (g < G) {
-        Vec<T>::to_float(*reinterpret_cast<const uint4*>(
-                             qb + (size_t)g * HD + (c * LPT + li) * VEC),
-                         f);
+        const int cs = (c * LPT + li) * VEC;
+        Vec<T>::to_float(load16(qb + (size_t)g * hd + cs, hd - cs, vec), f);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) f[e] = 0.f;
@@ -266,10 +304,11 @@ __global__ void __launch_bounds__(kThreads, MAXG == 1 && HD <= 128 ? 4 : 1)
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         if (live) {
-          const size_t at = (((size_t)blk * KV + kv) * BS + col % BS) * HD +
-                            (c * LPT + li) * VEC;
-          kr[u][c] = __ldg(reinterpret_cast<const uint4*>(pk + at));
-          vr[u][c] = __ldg(reinterpret_cast<const uint4*>(pv + at));
+          const int cs = (c * LPT + li) * VEC;
+          const size_t at =
+              (((size_t)blk * KV + kv) * BS + col % BS) * hd + cs;
+          kr[u][c] = load16(pk + at, hd - cs, vec);
+          vr[u][c] = load16(pv + at, hd - cs, vec);
         } else {
           kr[u][c] = make_uint4(0u, 0u, 0u, 0u);
           vr[u][c] = make_uint4(0u, 0u, 0u, 0u);
@@ -375,14 +414,14 @@ __global__ void __launch_bounds__(kThreads, MAXG == 1 && HD <= 128 ? 4 : 1)
   }
 
   if (z_lo == z_hi) {
-    for (int i = threadIdx.x; i < G * HD; i += kThreads) {
-      const int g = i / HD;
-      ob[i] = Vec<T>::store(sm_acc[g][i % HD] / sm_l[g]);
+    for (int i = threadIdx.x; i < G * hd; i += kThreads) {
+      const int g = i / hd;
+      ob[i] = Vec<T>::store(sm_acc[g][i % hd] / sm_l[g]);
     }
     return;
   }
-  for (int i = threadIdx.x; i < G * HD; i += kThreads)
-    pz[2 * G + i] = sm_acc[i / HD][i % HD];
+  for (int i = threadIdx.x; i < G * hd; i += kThreads)
+    pz[2 * G + i] = sm_acc[i / hd][i % hd];
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int g = 0; g < MAXG; ++g)
@@ -391,13 +430,14 @@ __global__ void __launch_bounds__(kThreads, MAXG == 1 && HD <= 128 ? 4 : 1)
         pz[G + g] = sm_l[g];
       }
   }
-  count_and_merge<T, HD, MAXG>(pb, z_hi - z_lo + 1, G, cnt, ob);
+  count_and_merge<T, MAXG>(pb, z_hi - z_lo + 1, G, hd, stride, cnt, ob);
 }
 
 // the launch's shape beside the pointers: splits CTAs of bps logical blocks
-// each per (sequence, kv head); part and count only with splits > 1
+// each per (sequence, kv head, chunk of the group); part and count only
+// with splits > 1
 struct Shape {
-  int B, KV, G, NB, BS, MB, window, splits, bps;
+  int B, KV, G, hd, NB, BS, MB, window, splits, bps;
   float qscale;
   float* part;
   int* count;
@@ -407,12 +447,13 @@ template <typename T, int HD, int MAXG>
 cudaError_t launch(const void* q, const void* pk, const void* pv,
                    const void* table, const void* pos, void* out,
                    const Shape& s, cudaStream_t stream) {
-  const dim3 grid(s.KV, s.B, s.splits);
+  const int NC = (s.G + MAXG - 1) / MAXG;
+  const dim3 grid(s.KV * NC, s.B, s.splits);
   paged_attention_kernel<T, HD, MAXG><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pk),
       static_cast<const T*>(pv), static_cast<const int*>(table),
-      static_cast<const int*>(pos), static_cast<T*>(out), s.KV, s.G, s.NB,
-      s.BS, s.MB, s.window, s.qscale, s.bps, s.part, s.count);
+      static_cast<const int*>(pos), static_cast<T*>(out), s.KV, s.G, NC,
+      s.hd, s.NB, s.BS, s.MB, s.window, s.qscale, s.bps, s.part, s.count);
   return cudaGetLastError();
 }
 
@@ -427,29 +468,29 @@ cudaError_t launch_g(const void* q, const void* pk, const void* pv,
   return launch<T, HD, kMaxG>(q, pk, pv, table, pos, out, s, stream);
 }
 
+// the head-dim tiers: the smallest of 32, 64, 128 and 256 that holds hd
 template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* pk, const void* pv,
+cudaError_t launch_hd(const void* q, const void* pk, const void* pv,
                       const void* table, const void* pos, void* out,
                       const Shape& s, cudaStream_t stream) {
-  switch (hd) {
-    case 64:
-      return launch_g<T, 64>(q, pk, pv, table, pos, out, s, stream);
-    case 128:
-      return launch_g<T, 128>(q, pk, pv, table, pos, out, s, stream);
-    case 256:
-      return launch_g<T, 256>(q, pk, pv, table, pos, out, s, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (s.hd <= 32) return launch_g<T, 32>(q, pk, pv, table, pos, out, s, stream);
+  if (s.hd <= 64) return launch_g<T, 64>(q, pk, pv, table, pos, out, s, stream);
+  if (s.hd <= 128)
+    return launch_g<T, 128>(q, pk, pv, table, pos, out, s, stream);
+  if (s.hd <= 256)
+    return launch_g<T, 256>(q, pk, pv, table, pos, out, s, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// splits CTAs of bps logical blocks each per (sequence, kv head), splits =
-// ceil(MB / bps); with splits > 1, part is f32 scratch of B KV splits G
-// (hd + 2) floats and count B KV int32 zeros, which the kernel leaves at 0.
-// Returns a cudaError_t: 0 when the launch was accepted.
+// C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16; hd
+// 1 to 256, any G. With NC = ceil(G / 8) chunks of a group (1 when G = 1)
+// and GS = min(G, 8): splits CTAs of bps logical blocks each per
+// (sequence, kv head, chunk), splits = ceil(MB / bps); with splits > 1,
+// part is f32 scratch of B KV NC splits GS (hd + 2) floats and count B KV
+// NC int32 zeros, which the kernel leaves at 0. Returns a cudaError_t: 0
+// when the launch was accepted.
 extern "C" int nk_paged_attention(int dtype, const void* q, const void* pk,
                                   const void* pv, const void* table,
                                   const void* pos, void* out, int B, int KV,
@@ -457,19 +498,20 @@ extern "C" int nk_paged_attention(int dtype, const void* q, const void* pk,
                                   int window, float scale, int splits,
                                   int bps, void* part, void* count,
                                   void* stream) {
-  if (B < 1 || KV < 1 || G < 1 || G > kMaxG || NB < 1 || BS < 1 || MB < 1 ||
-      window < 0 || B > 65535 || bps < 1 || splits < 1 ||
+  if (B < 1 || KV < 1 || G < 1 || hd < 1 || hd > 256 || NB < 1 || BS < 1 ||
+      MB < 1 || window < 0 || B > 65535 || bps < 1 || splits < 1 ||
       splits > kMaxSplits ||
       splits != (MB + bps - 1) / bps ||
       (splits > 1 && (part == nullptr || count == nullptr)))
     return cudaErrorInvalidValue;
-  const Shape s{B,   KV,     G,      NB,  BS,
-                MB,  window, splits, bps, scale * kLog2e,
+  const Shape s{B,      KV,     G,   hd,
+                NB,     BS,     MB,  window,
+                splits, bps,    scale * kLog2e,
                 static_cast<float*>(part), static_cast<int*>(count)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_hd<float>(hd, q, pk, pv, table, pos, out, s, st);
+    return launch_hd<float>(q, pk, pv, table, pos, out, s, st);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, pk, pv, table, pos, out, s, st);
+    return launch_hd<__nv_bfloat16>(q, pk, pv, table, pos, out, s, st);
   return cudaErrorInvalidValue;
 }

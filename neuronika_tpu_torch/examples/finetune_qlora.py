@@ -1,10 +1,10 @@
 """Fine-tune with QLoRA, then serve the tuned model (twin of the JAX
 package's `examples/finetune_qlora.py`).
 
-1. a base model: the JAX example converts a Hugging Face GPT-2 when
-   `transformers` is installed; the port's converter (`utils/hf.py`) is
-   not ported yet (ROADMAP.md queue 1 item 3), so the base is the JAX
-   example's fallback, a random d64 L2 GPT with a 256-token vocabulary;
+1. a base model: as in the JAX example, a small random-init Hugging Face
+   GPT-2 (d64 L2, a 256-token vocabulary) converted by
+   `utils.hf.from_huggingface` when `transformers` is installed, else a
+   random GPT of the same widths;
 2. the frozen base quantized to int4 (`lora.qlora_quantize_base`) and
    rank-8 adapters attached (`lora.lora_init`);
 3. the adapters alone fine-tuned (`lora.make_qlora_train_step`) on a toy
@@ -25,6 +25,7 @@ from neuronika_tpu_torch.device import resolve
 from neuronika_tpu_torch.models import lora as LR
 from neuronika_tpu_torch.models import transformer as T
 from neuronika_tpu_torch.serving import ContinuousBatcher
+from neuronika_tpu_torch.utils.hf import from_huggingface
 from neuronika_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -33,9 +34,23 @@ def main(device=None, steps: int = 50, verbose: bool = True):
     dict with the losses and the served tokens."""
     dev = resolve(config.device if device is None else device)
     # 1. the base
-    cfg = T.GPTConfig(vocab_size=256, n_layer=2, n_head=4, d_model=64,
-                      d_ff=256, max_seq=64, dtype=torch.float32)
-    params = T.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    try:
+        import transformers
+
+        torch.manual_seed(0)
+        hf_model = transformers.GPT2LMHeadModel(transformers.GPT2Config(
+            vocab_size=256, n_positions=64, n_embd=64, n_layer=2,
+            n_head=4)).eval()
+        params, cfg = from_huggingface(hf_model, dtype=torch.float32,
+                                       device=dev)
+        if verbose:
+            print(f"imported GPT-2: L={cfg.n_layer} d={cfg.d_model} "
+                  f"V={cfg.vocab_size}")
+    except ImportError:   # transformers not installed: a random base
+        cfg = T.GPTConfig(vocab_size=256, n_layer=2, n_head=4, d_model=64,
+                          d_ff=256, max_seq=64, dtype=torch.float32)
+        params = T.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                               dev)
 
     # 2. int4 base and adapters
     qbase = LR.qlora_quantize_base(params)

@@ -26,8 +26,8 @@ import torch.nn.functional as F
 
 from .._tree import tree_leaves, tree_unflatten
 from ..device import resolve
-from ..ops.flash_attention import (_DTYPES as _FLASH_DTYPES, _HEAD_DIMS,
-                                   flash_attention)
+from ..ops.flash_attention import (MAX_HEAD_DIM, flash_attention,
+                                   kernels_take)
 from ..optim.functional import adam_update, clip_by_global_norm
 from . import transformer as T
 
@@ -112,7 +112,7 @@ def encode(params, src, cfg: Seq2SeqConfig, *, train: bool = False,
 def _use_flash(cfg: Seq2SeqConfig, x) -> bool:
     """The port's GPT rule (`transformer._use_flash`): a flash op unless
     flash is "off", or "auto" on the card where the kernels cannot take
-    the shape (head dim not 64 or 128, a dtype other than f32 and bf16);
+    the shape (a head dim above 256, a dtype other than f32 and bf16);
     "on" raises there. CPU tensors take the ops' plain versions. JAX's
     gate also asks Sq and Skv to divide into `flash_block` tiles and to be
     at least 8 (TPU tiling: the CUDA kernels mask any ragged length, down
@@ -122,14 +122,13 @@ def _use_flash(cfg: Seq2SeqConfig, x) -> bool:
     if cfg.flash == "off":
         return False
     hd = cfg.d_model // cfg.n_head
-    if x.device.type != "cuda" or (cfg.dtype in _FLASH_DTYPES
-                                   and hd in _HEAD_DIMS):
+    if x.device.type != "cuda" or kernels_take(cfg.dtype, hd):
         return True
     if cfg.flash == "auto":
         return False
     raise NotImplementedError(
-        f"flash='on' on the card: the kernels take {tuple(_FLASH_DTYPES)} "
-        f"and head dim {_HEAD_DIMS}, not {cfg.dtype}, head dim {hd}; "
+        f"flash='on' on the card: the kernels take f32 and bf16 at head "
+        f"dims 1..{MAX_HEAD_DIM}, not {cfg.dtype}, head dim {hd}; "
         f"flash='auto' takes the composite (ROADMAP.md queue 1 item 3)")
 
 

@@ -41,8 +41,14 @@ expert capacity, one-hot dispatch) and "sort" (the same routing by a
 stable argsort and row scatter/gather); "ep" takes the sparse path, as
 JAX's does without a mesh, and a decode step (S == 1) always takes the
 dense, no-drop routing. The expert GEMMs run on cuBLAS, as JAX's on XLA.
-Sequence parallelism and remat policies other than "full" raise
-`NotImplementedError` from `GPTConfig`.
+Sequence parallelism raises `NotImplementedError` from `GPTConfig`.
+With `remat`, each block is checkpointed under JAX's five remat policies
+(`_remat_context`): "full" keeps only the block's input; "flash" also the
+flash forwards' (out, lse), so the backward does not rerun K1 or K5;
+"names" those and the tagged activations (`_tagged`: ln1_out, ln2_out,
+ffn_pre, ffn_gate, attn_q/k/v, attn_qkv); "dots" the outputs of
+matmuls without batch dims; "flash_dots" the union of "flash" and
+"dots".
 
 Rounding that differs from the JAX package in bf16 (f32 is unaffected):
 * a bf16 matmul here returns bf16 (f32 accumulation inside), where JAX
@@ -71,12 +77,14 @@ from .._tree import tree_leaves, tree_map, tree_unflatten
 from ..config import config
 from ..device import resolve
 from ..ops.cross_entropy import fused_linear_cross_entropy
-from ..ops.flash_attention import (_DTYPES as _FLASH_DTYPES, _HEAD_DIMS,
-                                   _MAX_G, flash_attention,
+from ..ops.flash_attention import (FWD_OPS, MAX_HEAD_DIM, flash_attention,
                                    flash_attention_dropout,
-                                   flash_attention_qkv, keep_mask)
+                                   flash_attention_qkv, keep_mask,
+                                   kernels_take)
 from ..ops.paged_attention import paged_attention
 from ..optim.functional import adam_init, adam_update, clip_by_global_norm
+
+REMAT_POLICIES = ("full", "flash", "names", "dots", "flash_dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,10 +130,11 @@ class GPTConfig:
     dtype: torch.dtype = torch.bfloat16
     # "on": the flash-attention ops (the CUDA kernels for CUDA tensors,
     # their plain versions on the CPU); "auto": the same, but the composite
-    # where the kernels cannot take the shape on the card (head dim not 64
-    # or 128, f16, more than 8 q heads per kv head); "off": the composite
+    # where the kernels cannot take the shape on the card (a head dim above
+    # 256, f16); "off": the composite
     flash: str = "auto"
-    # checkpoint each block in training (policy "full" only)
+    # checkpoint each block in training, keeping what the policy names:
+    # "full", "flash", "names", "dots" or "flash_dots" (`_remat_context`)
     remat: bool = True
     remat_policy: str = "full"
     # TPU tile size; accepted, the CUDA kernels choose their own tiles
@@ -162,14 +171,11 @@ class GPTConfig:
                               ("logits_dtype", ("f32", "compute")),
                               ("flash_softmax", ("safe", "fast")),
                               ("flash_bwd", ("split", "fused")),
-                              ("opt_state_dtype", ("f32", "bf16"))):
+                              ("opt_state_dtype", ("f32", "bf16")),
+                              ("remat_policy", REMAT_POLICIES)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: want one "
                                  f"of {allowed}")
-        if self.remat and self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} is not ported yet (only "
-                f"'full'; ROADMAP.md queue 1 item 3)")
 
 
 def llama_config(**kw) -> GPTConfig:
@@ -404,18 +410,21 @@ def _lm_head(x, params, cfg: GPTConfig):
     return _dot_f32(x, _head_w(params, cfg).to(x.dtype).T)
 
 
-def _mlp(x, blk, cfg: GPTConfig, dot=None):
+def _mlp(x, blk, cfg: GPTConfig, dot=None, tag=False):
     """Dense MLP (JAX's `_mlp` / `_decode_mlp`): GELU, whose tanh
     approximation is `jax.nn.gelu`'s default, or SwiGLU, silu(g) * h with
     g in f32 (the product promotes to f32 before the cast, as in JAX).
-    `dot` is the matmul: `_qdot` for serving, `_body_dot` in training.
-    With experts, the mixture (`_moe_mlp`) without its aux loss."""
+    `dot` is the matmul: `_qdot` for serving, `_body_dot` in training;
+    `tag`: tag ffn_pre and ffn_gate (`_tagged`). With experts, the mixture
+    (`_moe_mlp`) without its aux loss."""
     if cfg.n_experts:
         return _moe_mlp(x, blk, cfg)[0]
     dot = dot or _qdot
-    h = _badd(dot(x, blk["fc_in"], cfg), blk, "fc_in_b", cfg)
+    h = _tagged(_badd(dot(x, blk["fc_in"], cfg), blk, "fc_in_b", cfg),
+                "ffn_pre", tag)
     if cfg.mlp == "swiglu":
-        g = _badd(dot(x, blk["fc_gate"], cfg), blk, "fc_gate_b", cfg)
+        g = _tagged(_badd(dot(x, blk["fc_gate"], cfg), blk, "fc_gate_b",
+                          cfg), "ffn_gate", tag)
         h = (F.silu(g.float()) * h).to(cfg.dtype)
     else:
         h = F.gelu(h, approximate="tanh")
@@ -1979,24 +1988,22 @@ def sample_logits_batched(logits, seeds, steps, temperature, top_k, top_p,
 
 def _use_flash(cfg: GPTConfig, x) -> bool:
     """A flash op unless cfg.flash is "off", or "auto" on the card where
-    the kernels cannot take the shape (head dim not 64 or 128, a dtype
-    other than f32 and bf16, more than 8 q heads per kv head), as JAX's
-    "auto" takes the composite where its kernel does not qualify; "on"
-    raises there. The ops route by device: the CUDA kernels for CUDA
+    the kernels cannot take the shape (a head dim above 256, a dtype other
+    than f32 and bf16), as JAX's "auto" takes the composite where its
+    kernel does not qualify; "on" raises there. Every group size goes to
+    the kernels. The ops route by device: the CUDA kernels for CUDA
     tensors, the plain versions, which take any shape, for CPU tensors."""
     if cfg.flash == "off":
         return False
-    hd, G = cfg.d_model // cfg.n_head, cfg.n_head // _kv_heads(cfg)
-    if (x.device.type != "cuda" or cfg.dtype in _FLASH_DTYPES
-            and hd in _HEAD_DIMS and G <= _MAX_G):
+    hd = cfg.d_model // cfg.n_head
+    if x.device.type != "cuda" or kernels_take(cfg.dtype, hd):
         return True
     if cfg.flash == "auto":
         return False
     raise NotImplementedError(
-        f"flash='on' on the card: the kernels take {tuple(_FLASH_DTYPES)}, "
-        f"head dim {_HEAD_DIMS} and at most {_MAX_G} q heads per kv head, "
-        f"not {cfg.dtype}, head dim {hd}, {G}; flash='auto' takes the "
-        f"composite (ROADMAP.md queue 1 item 3)")
+        f"flash='on' on the card: the kernels take f32 and bf16 at head "
+        f"dims 1..{MAX_HEAD_DIM}, not {cfg.dtype}, head dim {hd}; "
+        f"flash='auto' takes the composite (ROADMAP.md queue 1 item 3)")
 
 
 def _split_qkv(qkv, cfg: GPTConfig, B, S):
@@ -2029,7 +2036,9 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
     B, S, D = x.shape
     H = cfg.n_head
     hd = D // H
-    qkv = _badd(_body_dot(x, blk["qkv"], cfg), blk, "qkv_b", cfg)
+    tag = _names_policy(cfg, train)
+    qkv = _tagged(_badd(_body_dot(x, blk["qkv"], cfg), blk, "qkv_b", cfg),
+                  "attn_qkv", tag)
     drop = cfg.dropout if train else 0.0
     if drop > 0.0 and seed is None:
         raise ValueError("dropout in training needs a generator")
@@ -2048,6 +2057,8 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
         cos, sin = _rope_cos_sin(cfg, torch.arange(S, device=x.device))
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
+    q, k, v = (_tagged(t, n, tag) for t, n in zip(
+        (q, k, v), ("attn_q", "attn_k", "attn_v")))
     if flash and drop > 0.0:
         out = flash_attention_dropout(q, k, v, seed, cfg.causal, None,
                                       cfg.flash_block, cfg.flash_block, drop,
@@ -2073,16 +2084,88 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
     return _badd(_body_dot(out, blk["proj"], cfg), blk, "proj_b", cfg)
 
 
+# --------------------------------------------------------------------------
+# remat policies (JAX's `_remat_policy`): what a checkpointed block keeps
+# for its backward. PyTorch's selective checkpointing decides op by op, so
+# the policies name ops: "flash" the flash forwards' custom ops (JAX saves
+# its Pallas and custom-VJP calls' outputs), "dots" the 2-d matmuls (JAX's
+# dots without batch dims: q.k and p.v run batched and are recomputed),
+# and "names" those of "flash" and the tag op (`_tagged`), a copy of each
+# tagged activation and nothing else of the ops that made it, as JAX's
+# `save_only_these_names` keeps only the tagged values. Eager PyTorch has
+# no dead-code pass, so the recompute still runs the ops that made a
+# tagged value (and drops their result for the kept copy): "names" keeps
+# JAX's memory, not its saved work.
+
+# JAX's `_MATMUL_INPUT_NAMES`; "ffn_act" is left out there, as here
+_MATMUL_INPUT_NAMES = ("ln1_out", "ln2_out", "ffn_pre", "ffn_gate",
+                       "attn_q", "attn_k", "attn_v", "attn_qkv")
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+@torch.library.custom_op("neuronika_tpu_torch::checkpoint_tag",
+                         mutates_args=())
+def _tag_op(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x: the op that remat_policy "names" keeps."""
+    return x.clone()
+
+
+@_tag_op.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_tag_op.register_autograd(lambda ctx, grad: grad)
+_TAG = torch.ops.neuronika_tpu_torch.checkpoint_tag.default
+
+
+def _names_policy(cfg: GPTConfig, train: bool) -> bool:
+    """True where the block runs under a "names" checkpoint."""
+    return train and cfg.remat and cfg.remat_policy == "names"
+
+
+def _tagged(x, name: str, tag: bool):
+    """x tagged `name` (JAX's `checkpoint_name`): with `tag` (a "names"
+    checkpoint) a copy through the tag op, which that policy keeps; else
+    x itself."""
+    return _tag_op(x) if tag and name in _MATMUL_INPUT_NAMES else x
+
+
+@functools.cache
+def _remat_context(policy: str):
+    """`torch.utils.checkpoint.checkpoint` keywords for `policy`: none
+    for "full" (keep only the inputs), else a selective-checkpoint
+    context whose policy keeps the ops named above."""
+    if policy == "full":
+        return {}
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    flash = policy in ("flash", "names", "flash_dots")
+    dots = policy in ("dots", "flash_dots")
+    names = policy == "names"
+
+    def keep(ctx, op, *args, **kwargs):
+        if (flash and op in FWD_OPS or dots and op.overloadpacket in _DOTS
+                or names and op == _TAG):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, keep)}
+
+
 def _block(x, blk, cfg: GPTConfig, train: bool, seed):
     """(x, aux): the block's output and, with experts, its layer's MoE aux
     loss (None without)."""
-    h1 = _layer_norm(x, blk["ln1"], cfg.norm_eps)
+    tag = _names_policy(cfg, train)
+    h1 = _tagged(_layer_norm(x, blk["ln1"], cfg.norm_eps), "ln1_out", tag)
     x = x + _attention(h1, blk, cfg, train, seed)
-    h2 = _layer_norm(x, blk["ln2"], cfg.norm_eps)
+    h2 = _tagged(_layer_norm(x, blk["ln2"], cfg.norm_eps), "ln2_out", tag)
     if cfg.n_experts:
         m, aux = _moe_mlp(h2, blk, cfg)
         return x + m, aux
-    return x + _mlp(h2, blk, cfg, _body_dot), None
+    return x + _mlp(h2, blk, cfg, _body_dot, tag), None
 
 
 def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
@@ -2090,8 +2173,8 @@ def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
     """tokens (B, S) int -> final hidden states (B, S, D) in the compute
     dtype. The embedding sum is taken in f32, then cast (as JAX). Layers
     run as a Python loop (`scan_layers` has no effect); with cfg.remat in
-    training each block is checkpointed (policy "full": only its input is
-    kept). `generator` draws each layer's attention-dropout seed. MoE aux
+    training each block is checkpointed under cfg.remat_policy
+    (`_remat_context`). `generator` draws each layer's attention-dropout seed. MoE aux
     losses are dropped here (`_hidden_aux` keeps them)."""
     return _hidden_aux(params, tokens, cfg, train, generator)[0]
 
@@ -2114,7 +2197,8 @@ def _hidden_aux(params, tokens, cfg: GPTConfig, train: bool = False,
         blk = _layer(params["blocks"], i)
         if cfg.remat and train:
             x, a = torch.utils.checkpoint.checkpoint(
-                _block, x, blk, cfg, train, seeds[i], use_reentrant=False)
+                _block, x, blk, cfg, train, seeds[i], use_reentrant=False,
+                **_remat_context(cfg.remat_policy))
         else:
             x, a = _block(x, blk, cfg, train, seeds[i])
         if a is not None:

@@ -31,25 +31,55 @@ unmasked, the dropped p are zeroed before P V and the output is scaled by
 1 / (1 - rate); the backward drops dp and the p of dV the same way.
 
 Both ops are differentiable. CUDA tensors launch the kernels or raise:
-head dims 64 and 128, f32 and bf16; other head dims and f16 raise
-`NotImplementedError` (ROADMAP.md queue 1 item 3). CPU tensors take the
-plain versions below, which use the kernels' own math (exp2 domain, `p`
-and `ds` rounded to the input dtype before their products) and keep every
-sum in f32.
+f32 and bf16, every head dim from 1 to 256 and any number of query heads
+per kv head, as JAX's kernels take them; f16 and head dims above 256
+raise `NotImplementedError` (ROADMAP.md queue 1 item 3). Two routes
+(`_sm90_route`): bf16 at hd 64 or 128 with at most 8 query heads per kv
+head runs the Hopper kernels (wgmma, TMA); every other shape runs the
+mma.sync/FFMA kernels, instantiated at head-dim tiers that mask the
+runtime hd. CPU tensors take the plain versions below, which use the
+kernels' own math (exp2 domain, `p` and `ds` rounded to the input dtype
+before their products) and keep every sum in f32.
+
+The forward launches go through two custom ops, `neuronika_tpu_torch::
+flash_fwd_qkv` and `::flash_fwd` (`FWD_OPS`), which also take the plain
+forward on CPU tensors: a selective-checkpoint policy sees them as ops, so
+remat_policy "flash" can keep their (out, lse) and the backward does not
+rerun K1 or K5 (models/transformer.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
-_MAX_G = 8
+MAX_HEAD_DIM = 256
+# the Hopper kernels' shapes (csrc/flash_attention_qkv.cu::sm90_takes)
+_SM90_HEAD_DIMS = (64, 128)
+_SM90_MAX_G = 8
+
+
+def kernels_take(dtype, hd: int) -> bool:
+    """True where the CUDA kernels take the dtype and head dim (any group
+    size with H % KV == 0 and any S)."""
+    return dtype in _DTYPES and 1 <= hd <= MAX_HEAD_DIM
+
+
+def _sm90_route(dtype, hd: int, G: int = 1) -> bool:
+    """True where the Hopper kernels run (bf16, hd 64 or 128, at most 8
+    query heads per kv head); else the mma.sync/FFMA kernels. The one
+    place the route is chosen: it decides the scratch layouts and operand
+    copies here and is passed to every launch as `sm90`, which the CUDA
+    side dispatches on (and refuses where the Hopper kernels are not
+    built)."""
+    return dtype == torch.bfloat16 and hd in _SM90_HEAD_DIMS \
+        and G <= _SM90_MAX_G
 
 
 def _qkv_geometry(qkv, n_head, n_kv_head):
@@ -362,12 +392,9 @@ def _check(qkv, n_head, n_kv_head, *others):
     B, S, W, KV, hd = _qkv_geometry(qkv, n_head, n_kv_head)
     if n_head % KV:
         raise ValueError(f"kv heads {KV} do not divide heads {n_head}")
-    G = n_head // KV
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported by the kernels "
-                         f"{_HEAD_DIMS}")
-    if not 1 <= G <= _MAX_G:
-        raise ValueError(f"query group size {G} outside 1..{_MAX_G}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} outside the kernels' 1.."
+                         f"{MAX_HEAD_DIM}")
     if not 1 <= B <= 65535 or S < 1:
         raise ValueError(f"batch {B} outside 1..65535 or empty sequence")
     for name, t, dtype, shape in others:
@@ -428,6 +455,7 @@ def flash_fwd_qkv(qkv, n_head, n_kv_head=0, causal=True, scale=None,
     lse = torch.empty((B, n_head, S), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         _launch(lib.nk_flash_fwd_qkv, "flash_fwd_qkv", _DTYPES[qkv.dtype],
+                int(_sm90_route(qkv.dtype, hd, n_head // KV)),
                 qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, S, n_head,
                 KV, hd, _scale(scale, hd), int(causal), int(fast_softmax),
                 *drop, _stream(qkv))
@@ -435,12 +463,13 @@ def flash_fwd_qkv(qkv, n_head, n_kv_head=0, causal=True, scale=None,
     return out, lse
 
 
-def _bwd_stats(qkv, n_head):
-    """bf16: the backward's (lse, delta) scratch, (B, H, S padded to 64, 2)
-    f32, which its pre-pass fills; f32 needs none (None)."""
-    if qkv.dtype != torch.bfloat16:
+def _bwd_stats(qkv, n_head, n_kv_head):
+    """The Hopper route's backward (lse, delta) scratch, (B, H, S padded to
+    64, 2) f32, which its pre-pass fills; the other route needs none
+    (None)."""
+    B, S, _, KV, hd = _qkv_geometry(qkv, n_head, n_kv_head)
+    if not _sm90_route(qkv.dtype, hd, n_head // KV):
         return None
-    B, S = qkv.shape[:2]
     return torch.empty((B, n_head, -(-S // 64) * 64, 2), dtype=torch.float32,
                        device=qkv.device)
 
@@ -450,12 +479,12 @@ def _ptr(t):
 
 
 def flash_bwd_stats_qkv(qkv, out, lse, do, n_head, n_kv_head=0):
-    """The bf16 backward's pre-pass, (lse, rowsum(dO.O)) per row into a
-    new (B, H, S padded to 64, 2) f32 tensor, which K2a and K2b take as
-    `stats` so that a split backward runs it once; None in f32, whose
-    kernels compute their own."""
+    """The Hopper route's backward pre-pass, (lse, rowsum(dO.O)) per row
+    into a new (B, H, S padded to 64, 2) f32 tensor, which K2a and K2b take
+    as `stats` so that a split backward runs it once; None on the other
+    route, whose kernels compute their own."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
-    stats = _bwd_stats(qkv, n_head)
+    stats = _bwd_stats(qkv, n_head, n_kv_head)
     if stats is not None:
         from .._build import load_library
 
@@ -469,8 +498,8 @@ def flash_bwd_stats_qkv(qkv, out, lse, do, n_head, n_kv_head=0):
 
 def _split_bwd(entry, name, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
                causal, scale, stats, seed, rate):
-    """Launch K2a or K2b (`entry`) into `d_qkv`; bf16 runs the pre-pass
-    itself unless given `stats` from `flash_bwd_stats_qkv`."""
+    """Launch K2a or K2b (`entry`) into `d_qkv`; the Hopper route runs the
+    pre-pass itself unless given `stats` from `flash_bwd_stats_qkv`."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
     drop = _drop(seed, rate)
     _check(qkv, n_head, n_kv_head, ("d_qkv", d_qkv, qkv.dtype, (B, S, W)))
@@ -480,11 +509,12 @@ def _split_bwd(entry, name, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
                ("stats", stats, torch.float32,
                 (B, n_head, -(-S // 64) * 64, 2)))
     else:
-        stats = _bwd_stats(qkv, n_head)
+        stats = _bwd_stats(qkv, n_head, n_kv_head)
     from .._build import load_library
 
     with torch.cuda.device(qkv.device):
         _launch(getattr(load_library(), entry), name, _DTYPES[qkv.dtype],
+                int(_sm90_route(qkv.dtype, hd, n_head // KV)),
                 qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
                 _ptr(stats), int(have), d_qkv.data_ptr(), B, S, n_head, KV,
                 hd, _scale(scale, hd), int(causal), *drop, _stream(qkv))
@@ -494,7 +524,8 @@ def _split_bwd(entry, name, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
 def flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
                      causal=True, scale=None, stats=None, seed=0, rate=0.0):
     """K2a on the card: writes the q chunks of `d_qkv` (B, S, W). `stats`:
-    the pre-pass's result (bf16), or None to run it here; `seed`, `rate`:
+    the pre-pass's result (the Hopper route), or None to run it here (or
+    where the route needs none); `seed`, `rate`:
     the forward's dropout. Adds one to `flash_bwd_dq_qkv.launches`."""
     _split_bwd("nk_flash_bwd_dq_qkv", "flash_bwd_dq_qkv", qkv, out, lse, do,
                d_qkv, n_head, n_kv_head, causal, scale, stats, seed, rate)
@@ -525,8 +556,8 @@ def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
     from .._build import load_library
 
     d_qkv = torch.empty_like(qkv)
-    stats = _bwd_stats(qkv, n_head)
-    if stats is None:   # f32: 32-row q tiles, dq rows as in d_qkv
+    stats = _bwd_stats(qkv, n_head, n_kv_head)
+    if stats is None:   # mma.sync/FFMA: 32-row q tiles, dq rows as in d_qkv
         dq_acc = torch.empty((B, S, n_head * hd), dtype=torch.float32,
                              device=qkv.device)
         n_qt = -(-S // 32)
@@ -538,7 +569,8 @@ def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
                        device=qkv.device)
     with torch.cuda.device(qkv.device):
         _launch(load_library().nk_flash_bwd_fused_qkv,
-                "flash_bwd_fused_qkv", _DTYPES[qkv.dtype], qkv.data_ptr(),
+                "flash_bwd_fused_qkv", _DTYPES[qkv.dtype],
+                int(stats is not None), qkv.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), do.data_ptr(), _ptr(stats),
                 dq_acc.data_ptr(), _ptr(turn), d_qkv.data_ptr(), B, S,
                 n_head, KV, hd, _scale(scale, hd), int(causal), *drop,
@@ -557,8 +589,8 @@ KERNELS = (flash_fwd_qkv, flash_bwd_dq_qkv, flash_bwd_dkv_qkv,
 
 def _split_operands(q, k, v, causal, window, *grads):
     """Checks of the split-layout kernels. Returns (B, H, Sq, Skv, hd) and
-    q, k, v (then do) with their last axis unit-strided and their base and
-    strides 16-byte aligned (a copy of any that is not)."""
+    q, k, v (then do) as the route reads them (`_aligned`: a copy of any
+    that it cannot)."""
     B, H, Sq, Skv, hd = _split_geometry(q, k, v, causal, window)
     dev = q.device
     if dev.type != "cuda":
@@ -572,7 +604,8 @@ def _split_operands(q, k, v, causal, window, *grads):
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"operands on {t.device} {t.dtype}, q on {dev} "
                              f"{q.dtype}")
-    return (B, H, Sq, Skv, hd), tuple(_aligned(t) for t in ts)
+    sm90 = _sm90_route(q.dtype, hd)
+    return (B, H, Sq, Skv, hd), tuple(_aligned(t, sm90) for t in ts)
 
 
 def _kernel_dtype_and_hd(dtype, hd):
@@ -580,19 +613,20 @@ def _kernel_dtype_and_hd(dtype, hd):
         raise NotImplementedError(
             f"{dtype} on the split flash kernels is not ported (f32 and "
             f"bf16 only; ROADMAP.md queue 1 item 3)")
-    if hd not in _HEAD_DIMS:
+    if not 1 <= hd <= MAX_HEAD_DIM:
         raise NotImplementedError(
             f"head dim {hd} on the split flash kernels is not ported "
-            f"({_HEAD_DIMS}; ROADMAP.md queue 1 item 3)")
+            f"(1..{MAX_HEAD_DIM}; ROADMAP.md queue 1 item 3)")
 
 
-def _aligned(t):
-    """t itself if the kernels can read it through its strides (a unit last
-    axis, 16-byte base and strides, which is also what a TMA map needs, and
-    no stride 0 on an axis longer than 1, which a map cannot step), else a
-    contiguous copy."""
-    unit = 16 // t.element_size()
-    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+def _aligned(t, sm90=True):
+    """t itself if the kernels can read it through its strides, else a
+    contiguous copy. Every route wants a unit last axis and no stride 0 on
+    an axis longer than 1; the Hopper route (`sm90`) also a 16-byte base
+    and strides, which its TMA maps need (the other route reads elements
+    where rows are not aligned)."""
+    unit = 16 // t.element_size() if sm90 else 1
+    ok = (t.stride(-1) == 1 and t.data_ptr() % (16 if sm90 else 1) == 0
           and all(st % unit == 0 and (st or n == 1)
                   for st, n in zip(t.stride()[:-1], t.shape[:-1])))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
@@ -696,10 +730,10 @@ def flash_fwd(q, k, v, causal=True, scale=None, window=0, seed=0, rate=0.0):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _launch(load_library().nk_flash_fwd, "flash_fwd", _DTYPES[q.dtype],
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), _strides(q, k, v), B, H, Sq, Skv, hd,
-                _scale(scale, hd), int(causal), int(window), *drop,
-                _stream(q))
+                int(_sm90_route(q.dtype, hd)), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                _strides(q, k, v), B, H, Sq, Skv, hd, _scale(scale, hd),
+                int(causal), int(window), *drop, _stream(q))
     flash_fwd.launches += 1
     return out, lse
 
@@ -719,7 +753,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None,
     dq = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         _launch(load_library().nk_flash_bwd_dq, "flash_bwd_dq",
-                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _DTYPES[q.dtype], int(_sm90_route(q.dtype, hd)),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), _strides(q, k, v, do), B, H, Sq, Skv, hd,
                 _scale(scale, hd), int(causal), int(window), *drop,
@@ -744,7 +779,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=None,
     dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):
         _launch(load_library().nk_flash_bwd_dkv, "flash_bwd_dkv",
-                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _DTYPES[q.dtype], int(_sm90_route(q.dtype, hd)),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do), B, H,
                 Sq, Skv, hd, _scale(scale, hd), int(causal), int(window),
@@ -772,9 +808,65 @@ def _on_cpu(*ts):
     return False
 
 
+# The forward launches as custom ops (see the module docstring). A seed is
+# a u64; the schema's int is signed, so it travels as its two's complement.
+
+
+def _i64(seed: int) -> int:
+    seed = int(seed) & ((1 << 64) - 1)
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
+@torch.library.custom_op("neuronika_tpu_torch::flash_fwd_qkv",
+                         mutates_args=())
+def _fwd_qkv_op(qkv: torch.Tensor, n_head: int, n_kv_head: int,
+                causal: bool, scale: Optional[float], fast_softmax: bool,
+                seed: int, rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of K1 on CUDA tensors, of the plain forward on CPU
+    tensors."""
+    drop = dict(seed=seed & ((1 << 64) - 1), rate=rate)
+    if _on_cpu(qkv):
+        return flash_attention_qkv_fwd_reference(
+            qkv, n_head, n_kv_head, causal, scale, fast_softmax, **drop)
+    return flash_fwd_qkv(qkv, n_head, n_kv_head, causal, scale,
+                         fast_softmax, **drop)
+
+
+@_fwd_qkv_op.register_fake
+def _(qkv, n_head, n_kv_head, causal, scale, fast_softmax, seed, rate):
+    B, S, _, _, hd = _qkv_geometry(qkv, n_head, n_kv_head)
+    return (qkv.new_empty((B, S, n_head * hd)),
+            qkv.new_empty((B, n_head, S), dtype=torch.float32))
+
+
+@torch.library.custom_op("neuronika_tpu_torch::flash_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: Optional[float], window: int, seed: int,
+            rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of K5 on CUDA tensors, of the plain forward on CPU
+    tensors."""
+    drop = dict(seed=seed & ((1 << 64) - 1), rate=rate)
+    if _on_cpu(q, k, v):
+        return flash_attention_fwd_reference(q, k, v, causal, scale, window,
+                                             **drop)
+    return flash_fwd(q, k, v, causal, scale, window, **drop)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, scale, window, seed, rate):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3],
+                                             dtype=torch.float32)
+
+
+# the ops whose outputs remat_policy "flash" keeps
+FWD_OPS = (torch.ops.neuronika_tpu_torch.flash_fwd_qkv.default,
+           torch.ops.neuronika_tpu_torch.flash_fwd.default)
+
+
 class FlashAttentionQKV(torch.autograd.Function):
     """out = attention(qkv); saves (qkv, out, lse) and the dropout seed.
-    Forward: K1 on CUDA tensors, the plain forward on CPU tensors.
+    Forward: K1 on CUDA tensors, the plain forward on CPU tensors (both
+    through the custom op `flash_fwd_qkv`).
     Backward: the split K2a + K2b pair, or the fused kernel with
     `fused_bwd`; the plain backward on CPU tensors. Every one regenerates
     the forward's dropout mask from the seed."""
@@ -783,12 +875,8 @@ class FlashAttentionQKV(torch.autograd.Function):
     def forward(ctx, qkv, n_head, n_kv_head, causal, scale, fast_softmax,
                 fused_bwd, seed, rate):
         drop = dict(seed=seed, rate=rate)
-        if _on_cpu(qkv):
-            out, lse = flash_attention_qkv_fwd_reference(
-                qkv, n_head, n_kv_head, causal, scale, fast_softmax, **drop)
-        else:
-            out, lse = flash_fwd_qkv(qkv, n_head, n_kv_head, causal, scale,
-                                     fast_softmax, **drop)
+        out, lse = _fwd_qkv_op(qkv, n_head, n_kv_head, causal, scale,
+                               fast_softmax, _i64(seed), rate)
         ctx.save_for_backward(qkv, out, lse)
         ctx.args = (n_head, n_kv_head, causal, scale, fused_bwd, drop)
         return out
@@ -839,17 +927,14 @@ def flash_attention_qkv(qkv, n_head: int, n_kv_head: int = 0,
 class FlashAttention(torch.autograd.Function):
     """out = attention(q, k, v) in the split layout; saves (q, k, v, out,
     lse) and the dropout seed. Forward: K5 on CUDA tensors, the plain
-    forward on CPU tensors. Backward: delta = rowsum(dO.O) in f32 by a
+    forward on CPU tensors (both through the custom op `flash_fwd`).
+    Backward: delta = rowsum(dO.O) in f32 by a
     plain reduction, then K6 and K7; the plain backward on CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, seed, rate):
         drop = dict(seed=seed, rate=rate)
-        if _on_cpu(q, k, v):
-            out, lse = flash_attention_fwd_reference(q, k, v, causal, scale,
-                                                     window, **drop)
-        else:
-            out, lse = flash_fwd(q, k, v, causal, scale, window, **drop)
+        out, lse = _fwd_op(q, k, v, causal, scale, window, _i64(seed), rate)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, window, drop)
         return out

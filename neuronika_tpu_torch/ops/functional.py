@@ -55,8 +55,8 @@ import torch.nn.functional as F
 from ..config import config
 from .conv import (conv1d_direct_nwc, conv2d_direct, conv3d_direct_ndhwc,
                    route_conv2d)
-from .flash_attention import (_DTYPES as _FLASH_DTYPES, _HEAD_DIMS, _MAX_G,
-                              flash_bwd_fused_qkv, flash_fwd_qkv, keep_mask)
+from .flash_attention import (flash_bwd_fused_qkv, flash_fwd_qkv, keep_mask,
+                              kernels_take)
 from .matmul import matmul as kernel_matmul
 from .softmax import softmax_last_axis
 
@@ -430,7 +430,7 @@ def _attn_xla(qkv, n_head, n_kv_head, causal, rate, key):
 
 def _attn_use_kernel(qkv, n_head, n_kv_head, rate):
     """True on the card where the kernels take the shape, and the op runs
-    K1/K2: f32 or bf16, head dim 64 or 128, at most 8 query heads per kv
+    K1/K2: f32 or bf16, head dim 1 to 256, any number of query heads per kv
     head, a dropout rate below 1. False elsewhere, and for CPU and meta
     tensors: those run the composite, as JAX's op takes its composite where
     the backend is no TPU or the shape does not qualify (JAX gates on the
@@ -438,8 +438,7 @@ def _attn_use_kernel(qkv, n_head, n_kv_head, rate):
     if qkv.device.type != "cuda" or rate >= 1.0:
         return False
     kv, hd = _attn_geometry(n_head, n_kv_head, qkv.shape[-1])
-    return (qkv.dtype in _FLASH_DTYPES and hd in _HEAD_DIMS
-            and n_head % kv == 0 and n_head // kv <= _MAX_G)
+    return kernels_take(qkv.dtype, hd) and n_head % kv == 0
 
 
 def _attn_fwd(e, qkv, *, key, train):

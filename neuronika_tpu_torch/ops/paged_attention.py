@@ -19,7 +19,10 @@ in f32 the two agree to 1e-5.
 The kernel splits each sequence's logical blocks over CTAs
 (flash-decoding): `paged_split_plan` picks the cut from the shapes alone,
 and `paged_attention_split_reference` is the plain twin of its math, each
-split's partial softmax merged in split order.
+split's partial softmax merged in split order. It takes every head dim
+from 1 to 256 and any group size, as JAX's kernel does: a group larger
+than 8 query heads runs as chunks of 8 (`group_chunks`), each chunk a CTA
+of its own over the same kv head, with its own splits and merge.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ import math
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
-_MAX_G = 8
+MAX_HEAD_DIM = 256
+CHUNK_G = 8     # query heads a CTA (csrc/paged_attention.cu: kMaxG)
 LOG2E = 1.4426950408889634
 # the split plan: CTAs wanted a card SM (256 threads each), the fewest
 # logical blocks a split walks (a split's fixed cost, its q load and its
@@ -50,6 +53,12 @@ def _gather(pk, pv, table):
     t = table.long()
     return (p[t].permute(0, 2, 1, 3, 4).reshape(B, KV, MB * BS, hd)
             for p in (pk, pv))
+
+
+def group_chunks(G: int) -> int:
+    """The CTAs that share a kv head: ceil(G / CHUNK_G) chunks of at most
+    CHUNK_G query heads."""
+    return -(-G // CHUNK_G)
 
 
 def paged_split_plan(B: int, KV: int, MB: int, sms: int = H100_SMS):
@@ -113,11 +122,12 @@ def paged_attention_split_reference(q, pk, pv, table, pos, *,
                                     window: int = 0, bps: int | None = None):
     """Plain twin of the kernel's split-and-merge math: the keys cut into
     splits of `bps` logical blocks (by default `paged_split_plan`'s for an
-    H100), each split's partial softmax, merged in f32 in split order.
-    Result in q's dtype. Runs on any device."""
-    B, KV = q.shape[:2]
+    H100, over the kernel's (kv head, group chunk) CTAs), each split's
+    partial softmax, merged in f32 in split order. Result in q's dtype.
+    Runs on any device."""
+    B, KV, G = q.shape[:3]
     if bps is None:
-        bps = paged_split_plan(B, KV, table.shape[1])[1]
+        bps = paged_split_plan(B, KV * group_chunks(G), table.shape[1])[1]
     out = _merge_splits(*_split_partials(q, pk, pv, table, pos, window,
                                          bps))
     return out.to(q.dtype)
@@ -167,11 +177,12 @@ def _check(q, pk, pv, table, pos, window):
     if table.dim() != 2 or table.shape[0] != B or tuple(pos.shape) != (B,):
         raise ValueError(f"want table (B, MB), pos (B,) with B={B}; got "
                          f"{tuple(table.shape)}, {tuple(pos.shape)}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported by the kernel "
-                         f"{_HEAD_DIMS}; use the gather path (kernel='off')")
-    if not 1 <= G <= _MAX_G:
-        raise ValueError(f"query group size {G} outside 1..{_MAX_G}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} outside the kernel's 1.."
+                         f"{MAX_HEAD_DIM}; use the gather path "
+                         f"(kernel='off')")
+    if G < 1:
+        raise ValueError(f"query group size {G} < 1")
     if not 1 <= B <= 65535:
         raise ValueError(f"batch {B} outside 1..65535")
     if window < 0:
@@ -203,12 +214,14 @@ def paged_attention(q, pk, pv, table, pos, *, window: int = 0):
     B, KV, G, hd = q.shape
     NB, _, BS, _ = pk.shape
     MB = table.shape[1]
-    splits, bps = _plan(B, KV, MB, q.device)
+    NC = group_chunks(G)
+    splits, bps = _plan(B, KV * NC, MB, q.device)
     out = torch.empty_like(q)
     part_ptr = count_ptr = None
     if splits > 1:
-        part, count = _scratch(q.device, B * KV * splits * G * (hd + 2),
-                               B * KV)
+        part, count = _scratch(
+            q.device, B * KV * NC * splits * min(G, CHUNK_G) * (hd + 2),
+            B * KV * NC)
         part_ptr, count_ptr = part.data_ptr(), count.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -3,13 +3,17 @@ NPZ serialization of variables, layers, models, optimizer state and
 functional params trees (`serde`, `save_pytree`/`load_pytree` in the JAX
 package's layout), train-state checkpoints (`checkpoint.Checkpointer`,
 torch-native where the JAX package uses orbax), the JSONL metrics logger
-(`metrics.MetricsLogger`) and finite-difference gradient checking
-(`gradcheck`). The JAX package's hub, aot, profiler and hf modules are not
-ported yet (ROADMAP.md queue 1 items 3 and 5)."""
+(`metrics.MetricsLogger`), finite-difference gradient checking
+(`gradcheck`) and Hugging Face import and export (`hf`: `from_hf_gpt2`,
+`from_hf_llama`, `from_huggingface`, `to_hf_gpt2`, `to_hf_llama`,
+`to_huggingface`). The JAX package's hub, aot and profiler modules are not
+ported yet (ROADMAP.md queue 1 item 5)."""
 
-from . import checkpoint, metrics, serde
+from . import checkpoint, hf, metrics, serde
 from .checkpoint import Checkpointer, restore_train_state, save_train_state
 from .gradcheck import gradcheck
+from .hf import (from_hf_gpt2, from_hf_llama, from_huggingface, to_hf_gpt2,
+                 to_hf_llama, to_huggingface)
 from .metrics import MetricsLogger
 from .serde import (dumps, load_layer, load_npz, load_optimizer,
                     load_pytree, load_state_dict, loads, save_layer,
@@ -22,4 +26,6 @@ __all__ = [
     "save_npz", "load_npz", "save_optimizer", "load_optimizer",
     "save_pytree", "load_pytree", "metrics", "MetricsLogger",
     "checkpoint", "Checkpointer", "save_train_state", "restore_train_state",
+    "hf", "from_hf_gpt2", "from_hf_llama", "from_huggingface", "to_hf_gpt2",
+    "to_hf_llama", "to_huggingface",
 ]

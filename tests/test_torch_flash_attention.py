@@ -341,9 +341,9 @@ def test_kernel_wrappers_refuse_what_they_cannot_run(cuda):
     with pytest.raises(TypeError):
         FA.flash_fwd_qkv(qkv.half(), 2)
     with pytest.raises(ValueError, match="head dim"):
-        FA.flash_fwd_qkv(torch.zeros(1, 64, 6 * 32, device=cuda), 2)
-    with pytest.raises(ValueError, match="group size"):
-        FA.flash_fwd_qkv(torch.zeros(1, 8, 18 * 64, device=cuda), 16, 1)
+        FA.flash_fwd_qkv(torch.zeros(1, 64, 6 * 320, device=cuda), 2)
+    with pytest.raises(ValueError, match="divide"):
+        FA.flash_fwd_qkv(torch.zeros(1, 8, 7 * 64, device=cuda), 3, 2)
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_fwd_qkv(qkv.expand(2, -1, -1), 2)
     with pytest.raises(ValueError, match="CUDA"):

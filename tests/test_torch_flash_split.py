@@ -483,9 +483,9 @@ def test_op_routes_cuda_tensors_to_the_kernels(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,dtype", [(32, torch.float32),
+@pytest.mark.parametrize("hd,dtype", [(320, torch.float32),
                                       (128, torch.float16)],
-                         ids=["hd32", "f16"])
+                         ids=["hd320", "f16"])
 def test_shapes_the_kernels_cannot_take_are_refused(cuda, hd, dtype):
     q = torch.zeros(1, 2, 16, hd, device=cuda, dtype=dtype)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

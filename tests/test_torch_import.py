@@ -7,6 +7,7 @@ every option that is not ported yet must raise rather than be ignored."""
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -169,16 +170,21 @@ def test_paged_int8_kv_is_refused_like_jax(params):
             call()
 
 
-@pytest.mark.parametrize("kw, item", [(dict(seq_parallel=True), 5),
-                                      (dict(remat_policy="flash"), 3)],
-                         ids=["seq_parallel", "remat-flash"])
+@pytest.mark.parametrize("kw, item", [
+    (dict(seq_parallel=True), 5),
+    (dict(remat_policy="flash", dtype=torch.float16, flash="on"), 3)],
+    ids=["seq_parallel", "remat-flash"])
 def test_unported_model_variants_raise(kw, item):
-    """(rope, rms, swiglu, an untied head and mixture-of-experts are
-    ported: test_torch_llama.py and test_torch_moe.py hold them against
-    JAX.)"""
+    """Sequence parallelism is refused by the config; f16 by the flash
+    gate on the card under flash="on" (a stand-in with a CUDA device: the
+    gate reads only that), with remat_policy "flash", which is ported.
+    (rope, rms, swiglu, an untied head, mixture-of-experts and every remat
+    policy are ported: test_torch_llama.py, test_torch_moe.py and
+    test_torch_remat.py hold them against JAX.)"""
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue 1 item {item}"):
-        _cfg(**kw)
+        T._use_flash(_cfg(**kw), types.SimpleNamespace(
+            device=torch.device("cuda")))
 
 
 @pytest.mark.parametrize("call", [

@@ -214,9 +214,10 @@ def test_kernel_wrapper_refuses_what_it_cannot_run(cuda):
         paged_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
                         pk, pv, table, pos)
     with pytest.raises(ValueError, match="head dim"):
-        paged_attention(q[..., :96].contiguous(),
-                        pk[..., :96].contiguous(),
-                        pv[..., :96].contiguous(), table, pos)
+        wide = (320,)
+        paged_attention(q.new_zeros(q.shape[:-1] + wide),
+                        pk.new_zeros(pk.shape[:-1] + wide),
+                        pv.new_zeros(pv.shape[:-1] + wide), table, pos)
     with pytest.raises(ValueError, match="is on"):
         paged_attention(q, pk.cpu(), pv, table, pos)
 

@@ -7,6 +7,7 @@ the options the port refuses. Params come from the JAX tree through
 `params_from_jax`; tokens from numpy."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -363,8 +364,14 @@ def test_flash_window_matches_jax(train):
                                 dict(remat_policy="dots")],
                          ids=["remat-names", "remat-dots"])
 def test_unported_training_options_raise(kw):
+    """The remat policies are ported (test_torch_remat.py); what is left
+    of their ROADMAP item, f16 on the flash kernels, raises under
+    flash="on" on the card, and an unknown policy is refused."""
+    cfg = TT.GPTConfig(dtype=torch.float16, flash="on", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.GPTConfig(**kw)
+        TT._use_flash(cfg, types.SimpleNamespace(device=torch.device("cuda")))
+    with pytest.raises(ValueError, match="remat_policy"):
+        TT.GPTConfig(remat_policy=kw["remat_policy"] + "-offload")
     TT.GPTConfig(remat=False, remat_policy="names")   # policy unused
 
 
@@ -425,12 +432,13 @@ def test_kernel_route_matches_plain_route_on_gpu(cuda, bwd):
 
 @pytest.mark.cuda
 def test_auto_flash_takes_the_composite_at_head_dim_32_on_gpu(cuda):
-    """ROADMAP.md open fault 1 on the card: at head dim 32 the kernels
-    cannot run, so flash="auto" takes the composite (no kernel launches,
-    the loss of flash="off" with the same mask) where "on" raises."""
+    """ROADMAP.md open fault 1 on the card, in f16: the kernels take
+    head dim 32 in f32 and bf16 but not f16, so flash="auto" takes the
+    composite (no kernel launches, the loss of flash="off" with the same
+    mask) where "on" raises."""
     from neuronika_tpu_torch.ops import flash_attention as FA
 
-    cfg = TT.GPTConfig(dtype=torch.float32, **FAULT1)
+    cfg = TT.GPTConfig(dtype=torch.float16, **FAULT1)
     tp = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
                         cuda)
     toks, tgts = (torch.from_numpy(a).to(cuda) for a in _batch(cfg, S=16))

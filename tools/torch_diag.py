@@ -1,4 +1,4 @@
-"""Fourteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Fifteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -94,6 +94,15 @@ make, run on one CUDA card from the root of a checkout:
         library replaced by a stub that launches nothing (the Python
         wrapper alone), beside the device time (CUDA events for K3, the
         profiler for the convs).
+    python3 tools/torch_diag.py tiers TREE_ROOT five|three
+        what the CUDA-core flash kernels' 32 and 96 head-dim tiers buy:
+        builds the checkout's kernels with all five tiers, or with
+        NK_FLASH_TIERS_3 (only 64, 128 and 256, so hd 32 runs masked at
+        64 and hd 96 at 128), printing nvcc's wall time when it builds,
+        then CUDA-event times (the best of two runs of 5 launches) of K1,
+        K2a and K2b at bf16 B8 S2048 H16 causal at hd 32 and at hd 96, and
+        of K5, K6 and K7 at Phi-3-mini's shape (bf16 B1 H32 S4096 hd96,
+        window 2047); run five, three, three, five in one call to compare.
 """
 
 import functools
@@ -249,6 +258,56 @@ def kernels(root):
             qkv, out, lse, do, H)))]
     print(f"{root}: bf16 B{B} S{S} H{H} hd{hd} causal fast: "
           + "; ".join(line), flush=True)
+
+
+def tiers(root, which):
+    import numpy as np
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import chip_smoke as cs
+    from neuronika_tpu_torch import _build
+    from neuronika_tpu_torch.ops import flash_attention as FA
+
+    if which == "three":
+        _build.NVCC_FLAGS += ("-DNK_FLASH_TIERS_3",)
+    built = not _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.build()
+    build_s = time.perf_counter() - t0
+    _build.load_library()
+
+    def best(fn):
+        return min(cs.cuda_ms(fn, 5), cs.cuda_ms(fn, 5))
+
+    line = [f"nvcc {build_s:.1f} s" if built else "library reused"]
+    B, H, S = 8, 16, 2048
+    for hd in (32, 96):
+        qkv, do = cs.flash_case(np.random.default_rng(0), B, H, H, hd, S,
+                                torch.bfloat16)
+        out, lse = FA.flash_fwd_qkv(qkv, H)
+        d_qkv = torch.empty_like(qkv)
+        line += [f"{name} hd{hd} {best(fn):.4f} ms" for name, fn in (
+            ("flash_fwd_qkv", lambda: FA.flash_fwd_qkv(qkv, H)),
+            ("flash_bwd_dq_qkv", lambda: FA.flash_bwd_dq_qkv(
+                qkv, out, lse, do, d_qkv, H)),
+            ("flash_bwd_dkv_qkv", lambda: FA.flash_bwd_dkv_qkv(
+                qkv, out, lse, do, d_qkv, H)))]
+        del qkv, do, out, lse, d_qkv
+    g = torch.Generator(device="cuda").manual_seed(96)
+    W = 2047
+    q, k, v, do = cs.split_case(g, 1, 32, 4096, 4096, 96, torch.bfloat16,
+                                False)
+    out, lse = FA.flash_fwd(q, k, v, window=W)
+    delta = (do.float() * out.float()).sum(-1)
+    line += [f"{name} hd96 {best(fn):.4f} ms" for name, fn in (
+        ("flash_fwd", lambda: FA.flash_fwd(q, k, v, window=W)),
+        ("flash_bwd_dq", lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                 window=W)),
+        ("flash_bwd_dkv", lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                   window=W)))]
+    print(f"{root} tiers {which}: " + "; ".join(line), flush=True)
 
 
 def ce(root):
@@ -783,5 +842,8 @@ if __name__ == "__main__":
         conv1d(sys.argv[2])
     elif sys.argv[1:2] == ["resnet"] and len(sys.argv) == 3:
         resnet(sys.argv[2])
+    elif (sys.argv[1:2] == ["tiers"] and len(sys.argv) == 4
+          and sys.argv[3] in ("five", "three")):
+        tiers(sys.argv[2], sys.argv[3])
     else:
         sys.exit(__doc__)
