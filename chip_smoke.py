@@ -171,7 +171,10 @@ nvidia-smi. Phases, each printing one line or a few:
      K5-K7 at hd 32, 36, 72, 80, 96 and 256 (windows, full Sq != Skv,
      strided views), K11 at G 1-32 and hd 32-256, each in f32 and bf16
      (K1-K7 also at dropout 0.1) against its plain version at phase 3's
-     bounds, G 16's K2b, fused K2 and K11 twice for the same bits; each
+     bounds, then in bf16 K1, K2a+K2b and the fused K2 at G 9, 12 and 32
+     (hd 64 and 128), the route each kernel took printed and held (K1 and
+     K2a on the Hopper kernels, K2b on its cluster walk, the fused K2 on
+     mma.sync), G 16's K2b, fused K2 and K11 twice for the same bits; each
      held against its plain version again and timed at the models'
      shapes beside it, SDPA (k and v repeated to H, or the band as a
      mask) and its bound; then the GPT train step at StarCoderBase-1B's
@@ -247,12 +250,13 @@ its bytes over 3.35 TB/s and its FLOPs over the peak of its type (989
 TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM; for K3 in f32, the least time of
 f32-accurate products on the card, 3 TF32 products at 495 TFLOP/s (165).
 With --profile, one more step of phases 6 (the headline, the dropout run,
-the defaults and the fused-CE run), 8, 9, 11, 13 and 17 (BERT, T5, ViT,
-MoE, LoRA, QLoRA) runs under torch.profiler: each one's device time by
-kernel kind is printed and its kernel table written to TABLE_PATH (the
-others beside it, "_dropout", "_split", "_fused_ce", "_var", "_var2d",
-"_mistral", "_resnet", "_bert", "_t5", "_vit", "_moe", "_lora" and
-"_qlora" added to the name).
+the defaults and the fused-CE run), 8, 9, 11, 13, 17 (BERT, T5, ViT,
+MoE, LoRA, QLoRA) and 19 (StarCoderBase-1B) runs under torch.profiler:
+each one's device time by kernel kind is printed and its kernel table
+written to TABLE_PATH (the others beside it, "_dropout", "_split",
+"_fused_ce", "_var", "_var2d", "_mistral", "_resnet", "_bert", "_t5",
+"_vit", "_moe", "_lora", "_qlora" and "_starcoder" added to the
+name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -854,6 +858,7 @@ def profile_step(run, label, path):
                 else "K6 dq" if "split_bwd_dq" in n
                 else "K7 dk/dv" if "split_bwd_dkv" in n
                 else "K2 pre-pass" if "bwd_stats" in n
+                else "K2b dk/dv (cluster)" if "kv_kernel_sm90_cluster" in n
                 else "K2c fused" if "flash_bwd_kv_kernel" in n
                 and fused_walk(n) or "dq_store" in n or "dq_cast" in n
                 else "K2b dk/dv" if "flash_bwd_kv_kernel" in n
@@ -4746,7 +4751,8 @@ def phase_serving_rest(T, PA, S, LR, smi_line, n_req=32, f32_req=8,
 
 # K1/K2 cases (name, H, KV, hd, S, causal, fast): hd 36 rows are not
 # 16-byte aligned (element loads), S 257 is ragged, G 16 is MQA past the
-# Hopper kernels' 8; all on the mma.sync/FFMA kernels' head-dim tiers
+# fused K2's Hopper limit of 8; in f32, and in bf16 but at G 16 hd 128,
+# on the mma.sync/FFMA kernels' head-dim tiers
 WIDE_FLASH_CASES = (
     ("hd32-gqa", 8, 2, 32, 384, True, False),
     ("hd36-gqa-S257", 6, 3, 36, 257, True, False),
@@ -4756,6 +4762,17 @@ WIDE_FLASH_CASES = (
     ("hd256", 2, 2, 256, 384, True, False),
     ("g16-hd128", 16, 1, 128, 384, True, False),
     ("g16-hd96-S257", 16, 1, 96, 257, True, False),
+)
+# bf16 K1/K2 cases past 8 q heads a kv head on the Hopper route (name, H,
+# KV, hd, S, causal, fast): K1 and K2a a CTA per q tile, K2b the group
+# split over a cluster (G 9 and 12 unevenly), the fused K2 on mma.sync
+WIDE_SM90_CASES = (
+    ("g9-hd64-S257", 9, 1, 64, 257, True, False),
+    ("g9-hd128-full", 18, 2, 128, 384, False, False),
+    ("g12-hd64-full-S257", 12, 1, 64, 257, False, False),
+    ("g12-hd128", 24, 2, 128, 384, True, False),
+    ("g32-hd64-fast", 32, 1, 64, 384, True, True),
+    ("g32-hd128-S257", 32, 1, 128, 257, True, False),
 )
 # K5-K7 cases (name, B, H, Sq, Skv, causal, window, hd), strided views
 WIDE_SPLIT_CASES = (
@@ -4801,6 +4818,40 @@ def wide_flash_checks(rng, FA):
                                   16, 1) for _ in range(2)]
     check(torch.equal(*again), "flash_bwd_dkv_qkv G16: two launches on the "
           "same inputs differ")
+    check(FA.flash_bwd_dkv_qkv.route.startswith("sm90 cluster"),
+          f"flash_bwd_dkv_qkv G16 ran {FA.flash_bwd_dkv_qkv.route}")
+    return worst
+
+
+def flash_routes(FA):
+    """{kernel: the route of its last launch} of K1, K2a, K2b, fused K2."""
+    return {k.__name__: k.route for k in FA.KERNELS}
+
+
+def wide_sm90_checks(rng, FA):
+    """K1, K2a+K2b and the fused K2 at WIDE_SM90_CASES (bf16), without and
+    with dropout at WIDE_RATE, at check_flash's bounds; each case prints
+    the route each kernel took, and fails unless K1 and K2a ran the Hopper
+    kernels, K2b its cluster walk at dkv_cluster's size and the fused K2
+    the mma.sync body. Returns {kernel: worst max abs err}."""
+    worst = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, H, KV, hd, S, causal, fast in WIDE_SM90_CASES:
+        qkv, do = flash_case(rng, 2, H, KV, hd, S, torch.bfloat16)
+        C = FA.dkv_cluster(2, KV, S, H // KV, sms)
+        want = {"flash_fwd_qkv": "sm90", "flash_bwd_dq_qkv": "sm90",
+                "flash_bwd_dkv_qkv": f"sm90 cluster {C}",
+                "flash_bwd_fused_qkv": "mma.sync"}
+        for rate in (0.0, WIDE_RATE):
+            key = f"bfloat16/{name}/p{rate}"
+            errs, _, _ = check_flash(FA, key, qkv, do, H, KV, causal, fast,
+                                     seed=WIDE_SEED, rate=rate)
+            routes = flash_routes(FA)
+            print(f"  {key} routes: {json.dumps(routes)}")
+            check(routes == want, f"{key}: routes {routes}, want {want}")
+            for k, e in errs.items():
+                worst[k] = max(worst.get(k, 0.0), e)
+        del qkv, do
     return worst
 
 
@@ -4870,13 +4921,21 @@ def wide_packed_times(rng, FA, B, H, KV, hd, S):
     plain, plain), the plain forward's and backward's, SDPA's forward and
     backward on the same q with k and v repeated to H (repeated before
     timing), and the bound. Returns {kernel: (ms, plain_ms, library_ms,
-    bound, max abs err)}."""
+    bound, max abs err)}; prints the route each kernel took and, past 8
+    q heads a kv head, holds K2b to the same bits over two launches."""
     import torch.nn.functional as F
 
     qkv, do = flash_case(rng, B, H, KV, hd, S, torch.bfloat16)
-    errs, (out, lse), _ = check_flash(
-        FA, f"bfloat16/model-B{B}-S{S}-H{H}-KV{KV}-hd{hd}-causal", qkv, do,
-        H, KV, True, False)
+    key = f"bfloat16/model-B{B}-S{S}-H{H}-KV{KV}-hd{hd}-causal"
+    errs, (out, lse), _ = check_flash(FA, key, qkv, do, H, KV, True, False)
+    print(f"  {key} routes: {json.dumps(flash_routes(FA))}")
+    if H // KV > 8:
+        again = [FA.flash_bwd_dkv_qkv(qkv, out, lse, do,
+                                      torch.zeros_like(qkv), H, KV)
+                 for _ in range(2)]
+        check(torch.equal(*again), f"flash_bwd_dkv_qkv {key}: two launches "
+              "on the same inputs differ")
+        del again
     d_qkv = torch.empty_like(qkv)
     kern = {"flash_fwd_qkv": lambda: FA.flash_fwd_qkv(qkv, H, KV),
             "flash_bwd_dq_qkv": lambda: FA.flash_bwd_dq_qkv(
@@ -5002,12 +5061,13 @@ def lm_batch(rng, vocab, B, S):
             torch.from_numpy(np.roll(toks, -1, axis=1)).to("cuda"))
 
 
-def phase_starcoder(T, FA, CE):
+def phase_starcoder(T, FA, CE, profile=None):
     """Phase 19 (a): the GPT train step at StarCoderBase-1B's published
     widths, full depth, S 2048, B 8, bf16, the GPTConfig defaults (remat
     "full", split backward, f32 Adam) with flash "on" (1 warm-up, 2 timed
-    steps) and "auto" (1 warm-up, 1 counted step): K1 and K2a/K2b at G 16
-    (the mma.sync kernels' 128 tier), 2 L, L and L launches a step, no
+    steps, and with a `profile` path one more under the profiler) and
+    "auto" (1 warm-up, 1 counted step): K1 and K2a/K2b at G 16 (the Hopper
+    kernels, K2b on its cluster walk), 2 L, L and L launches a step, no
     composite; first the forward loss through K1 against the composite's
     (ROUTE_BF16_REL), and the gradients through K1, K2a and K2b against
     the composite's (printed: ||g - g_off|| / ||g_off||, overall and the
@@ -5044,7 +5104,9 @@ def phase_starcoder(T, FA, CE):
     for flash, n in (("on", 2), ("auto", 1)):
         cfg = T.GPTConfig(dtype=torch.bfloat16, flash=flash, **STARCODER_1B)
         losses, launches, step_s, peak, _ = train_steps(
-            T, kernels, cfg, 1, n, batch, WIDE_LR)
+            T, kernels, cfg, 1, n, batch, WIDE_LR,
+            profile_path(profile, "starcoder") if flash == "on" else None,
+            "one StarCoderBase-1B step")
         L = cfg.n_layer
         want = want_launches(kernels, flash_fwd_qkv=2 * L * n,
                              flash_bwd_dq_qkv=L * n, flash_bwd_dkv_qkv=L * n)
@@ -5243,11 +5305,18 @@ def phase_wide_kernels(FA, PA):
     rng = np.random.default_rng(19)
     t0 = time.perf_counter()
     errs = wide_flash_checks(rng, FA)
+    for k, e in wide_sm90_checks(rng, FA).items():
+        errs[k] = max(errs[k], e)
     errs.update(wide_split_checks(FA))
     errs["paged_attention"] = wide_paged_checks(rng, PA)
     check_s = time.perf_counter() - t0
-    times = {"starcoder": wide_packed_times(rng, FA, 8, 16, 1, 128, 2048),
-             "phi3": wide_split_times(FA, 1, 32, 4096, 96, 2047)}
+    times = {"starcoder": wide_packed_times(rng, FA, 8, 16, 1, 128, 2048)}
+    star_routes = flash_routes(FA)
+    check(star_routes["flash_fwd_qkv"] == star_routes["flash_bwd_dq_qkv"]
+          == "sm90" and star_routes["flash_bwd_dkv_qkv"].startswith(
+              "sm90 cluster"), f"phase 19: StarCoderBase-1B's K1/K2a/K2b "
+          f"routes {star_routes}")
+    times["phi3"] = wide_split_times(FA, 1, 32, 4096, 96, 2047)
     pos = [2047, 1500, 700, 64, 1900, 33, 1024, 2000]
     times["paged"] = {
         "g16-hd128": wide_paged_times(rng, PA, 1, 16, 128, 128, pos),
@@ -5261,12 +5330,17 @@ def phase_wide_kernels(FA, PA):
                 + f", bound {b_ms:.4f} ms by {b_by}; max abs err {e:.3g} "
                 f"against plain)")
 
-    print(f"phase 19 kernels: K1/K2 at {len(WIDE_FLASH_CASES)} shapes, "
-          f"K5-K7 at {len(WIDE_SPLIT_CASES)}, K11 at "
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"phase 19 kernels: K1/K2 at {len(WIDE_FLASH_CASES)} shapes and "
+          f"{len(WIDE_SM90_CASES)} bf16 shapes past G 8 on the Hopper "
+          f"route, K5-K7 at {len(WIDE_SPLIT_CASES)}, K11 at "
           f"{len(WIDE_PAGED_CASES)}, f32 and bf16, dropout 0 and "
           f"{WIDE_RATE} (K1-K7), within phase 3's bounds in {check_s:.1f} "
           f"s; worst max abs err {json.dumps(errs)}; G16 fused K2 and K2b "
-          f"and K11 bit-identical over two launches")
+          f"and K11 bit-identical over two launches; at StarCoderBase-1B's "
+          f"shape (B8 S2048 KV1 G16) routes {json.dumps(star_routes)}, K2b "
+          f"cluster size {FA.dkv_cluster(8, 1, 2048, 16, sms)} on {sms} "
+          f"SMs (two launches the same bits)")
     for row, ts in times.items():
         print(f"phase 19 times ({row}, bf16): "
               + "; ".join(fmt(n, t) for n, t in ts.items()))
@@ -5280,12 +5354,13 @@ def main() -> int:
                              "dropout headline step, defaults (split "
                              "backward) step, fused-CE headline step, Var "
                              "flagship step, Var 2-d step, Mistral 7B step, "
-                             "ResNet-18 step and phase 17's BERT, T5, ViT, "
-                             "MoE, LoRA and QLoRA steps and write their "
+                             "ResNet-18 step, phase 17's BERT, T5, ViT, "
+                             "MoE, LoRA and QLoRA steps and phase 19's "
+                             "StarCoderBase-1B step and write their "
                              "kernel tables here (and *_dropout, *_split, "
                              "*_fused_ce, *_var, *_var2d, *_mistral, "
                              "*_resnet, *_bert, *_t5, *_vit, *_moe, "
-                             "*_lora, *_qlora)")
+                             "*_lora, *_qlora, *_starcoder)")
     profile = parser.parse_args().profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -5440,7 +5515,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t19 = time.perf_counter()
     wide_errs, wide_times = phase_wide_kernels(FA, PA)
-    star = phase_starcoder(T, FA, CE)
+    star = phase_starcoder(T, FA, CE, profile)
     phi3, _ = phase_phi3(T, FA, CE)
     wide_k11 = phase_wide_serving(T, PA, PagedBatcher)
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")

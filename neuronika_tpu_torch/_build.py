@@ -117,8 +117,9 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [i, i, p, p, p, p, p, i, p,  # dtype sm90, qkv o lse do
                        i, i, i, i, i,            # stats have_stats dqkv; B
-                       f, i, *drop, p]           # S H KV hd; scale causal,
-        fn.restype = i                           # drop, stream
+                       f, i, *drop,              # S H KV hd; scale causal,
+                       *([i] if "dkv" in name else []), p]  # drop, (dk/dv:
+        fn.restype = i                           # cluster), stream
     fn = lib.nk_flash_bwd_fused_qkv
     fn.argtypes = [i, i, p, p, p, p, p, p, p, p,  # dtype sm90, qkv o lse do
                    i, i, i, i, i,                # stats dq_acc turn dqkv; B

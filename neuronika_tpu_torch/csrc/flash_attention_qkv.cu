@@ -7,7 +7,9 @@
 //   K2a _bwd_dq_kernel_qkv            -> flash_bwd_dq_kernel_sm90 (bf16),
 //                                        flash_bwd_dq_kernel (f32)
 //   K2b _bwd_dkv_kernel_qkv           -> flash_bwd_kv_kernel_sm90<FUSED =
-//                                        false> (bf16), flash_bwd_kv_kernel
+//                                        false> (bf16; past 8 q heads per
+//                                        kv head flash_bwd_kv_kernel_sm90_
+//                                        cluster), flash_bwd_kv_kernel
 //                                        <FUSED = false> (f32)
 //   K2c _bwd_fused_kernel_qkv and
 //   K2d _bwd_fused_kernel_qkv_blocked -> the same two with FUSED = true
@@ -66,16 +68,22 @@
 // sums dq in a fixed k-tile order (turn counters on a persistent grid of
 // resident CTAs, plain loads and stores), so it too is bit-identical from
 // run to run.
-// Head dims and groups: the Hopper kernels take bf16 at hd 64 and 128 with
-// at most 8 q heads per kv head. Every other shape JAX's kernels take (hd
-// 1 to 256, any group size, f32 or bf16) runs the first half's kernels,
+// Head dims and groups: the Hopper kernels take bf16 at hd 64 and 128 at
+// any group size, but the fused backward at most 8 q heads per kv head.
+// K1 and K2a run a CTA per (q head, batch, q tile) and find the head's k/v
+// as h / G. K2b past 8 q heads per kv head splits the group over a
+// cluster of 2, 4 or 8 CTAs (kv_walk's CLUSTER): K and V multicast to the
+// cluster once, each CTA's partial dK and dV summed by rank 0 in rank
+// order over distributed shared memory, so no atomics and the same bits
+// every run. Every other shape JAX's kernels take (hd 1 to 256, f32 or
+// bf16) runs the first half's kernels,
 // which are instantiated at five head-dim tiers (32, 64, 96, 128, 256;
 // hd_tier in flash_tiles.cuh) and mask the runtime hd: tiles are loaded
 // with zeros past hd, which add nothing to q.k, dO.v or the P V columns,
 // and columns past hd are never stored. Element loads replace the 16-byte
-// ones where hd breaks their alignment. The dk/dv walk sums the G heads of
-// a kv group in head order inside the CTA, so G > 8 needs no atomics and
-// the result stays the same bits every run. At the 256 tier the f32 dq
+// ones where hd breaks their alignment. Their dk/dv walk sums the G heads
+// of a kv group in head order inside the CTA, so any G needs no atomics
+// and the result stays the same bits every run. At the 256 tier the f32 dq
 // walk steps over 32-row k tiles (dq_bk) to stay within shared memory, and
 // the dk/dv walk's accumulators spill (dK and dV alone are 256 f32 a
 // thread): slow but right, measured in PERF.md.
@@ -545,18 +553,23 @@ __global__ void dq_store_kernel(const float* __restrict__ dq_acc,
 // producer to the consumers.
 
 // a ROWS x (64 P) tile at (col, row) of batch b, as P panels of ROWS rows,
-// each loaded as 64-row boxes; rows past S arrive as zeros
+// each loaded as 64-row boxes; rows past S arrive as zeros. A `mask` other
+// than 0 multicasts the boxes to those CTAs of the cluster
 template <int ROWS, int P>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map,
                                          uint64_t* bar, int col, int row,
-                                         int b) {
+                                         int b, uint16_t mask = 0) {
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int rb = 0; rb < ROWS / 64; ++rb)
-      tma_load_3d(dst + p * panel_bytes(ROWS) + rb * panel_bytes(64), map,
-                  bar, col + 64 * p, row + 64 * rb, b);
+    for (int rb = 0; rb < ROWS / 64; ++rb) {
+      unsigned char* at = dst + p * panel_bytes(ROWS) + rb * panel_bytes(64);
+      if (mask)
+        tma_load_3d_mc(at, map, bar, col + 64 * p, row + 64 * rb, b, mask);
+      else
+        tma_load_3d(at, map, bar, col + 64 * p, row + 64 * rb, b);
+    }
 }
 
 // ------------------------------------- K2 pre-pass: (lse, delta) per row
@@ -627,15 +640,17 @@ struct PackedTiles {
                           int row) const {
     tma_tile<ROWS, P>(dst, dout, bar, h * HD, row, b);
   }
+  // k and v: `mask` multicasts them to those CTAs of the cluster (K2b
+  // past 8 q heads a kv head)
   template <int ROWS>
   __device__ void k_tile(unsigned char* dst, uint64_t* bar, int b, int g,
-                         int row) const {
-    tma_tile<ROWS, P>(dst, qkv, bar, kcol(g), row, b);
+                         int row, uint16_t mask = 0) const {
+    tma_tile<ROWS, P>(dst, qkv, bar, kcol(g), row, b, mask);
   }
   template <int ROWS>
   __device__ void v_tile(unsigned char* dst, uint64_t* bar, int b, int g,
-                         int row) const {
-    tma_tile<ROWS, P>(dst, qkv, bar, kcol(g) + HD, row, b);
+                         int row, uint16_t mask = 0) const {
+    tma_tile<ROWS, P>(dst, qkv, bar, kcol(g) + HD, row, b, mask);
   }
   // the pre-pass's rows stop at S padded to 64, a multiple of 64 past row0
   __device__ uint32_t stats_tx(int, int, int row0, int n) const {
@@ -731,6 +746,25 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                               qscale, drop);
 }
 
+// ------------------------ K2b dk/dv walk past 8 q heads a kv head, Hopper
+// a persistent grid of whole clusters over (k tile, batch, kv group)
+// items; each CTA of a cluster walks its share of the group's heads, and
+// rank 0 sums the partials in rank order (kv_walk's CLUSTER)
+template <int HD, bool DROPOUT>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_bwd_kv_kernel_sm90_cluster(
+        const __grid_constant__ CUtensorMap qkv_map,
+        const __grid_constant__ CUtensorMap do_map,
+        const float2* __restrict__ stats, bf16* __restrict__ dqkv, int B,
+        int S, int H, int G, float scale, float qscale, int causal,
+        Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const PackedTiles<HD> t{&qkv_map, &do_map, stats, dqkv,
+                          Band{S, S, causal, 0}, B, H, G, H / G};
+  kv_walk<HD, false, DROPOUT, PackedTiles<HD>, true>(
+      t, align1024(smem_raw), nullptr, nullptr, scale, qscale, drop);
+}
+
 // the bf16 fused walk's f32 dq scratch (B, H, ceil(S / 64), 64, LDQ) ->
 // the dq chunks of dqkv (B, S, W)
 template <int HD, int LDQ>
@@ -794,6 +828,7 @@ struct Args {
   float scale;
   cudaStream_t stream;
   Dropout drop;  // threshold 0: no dropout
+  int cluster = 1;  // bf16 K2b: CTAs an item (dkv_plan), 1 up to G 8
 };
 
 // above 48 KB a kernel's dynamic shared memory must be allowed explicitly
@@ -929,8 +964,47 @@ cudaError_t bwd_dq_sm90(const Args& a) {
   return cudaGetLastError();
 }
 
+// K2b past 8 q heads a kv head: items of a.cluster CTAs
+// (ops/flash_attention.py::dkv_plan) on a persistent grid of as many whole
+// clusters as the card holds at once (at most one an item)
+template <int HD, bool DROP>
+cudaError_t bwd_kv_cluster_sm90(const Args& a, const CUtensorMap& qkv_map,
+                                const CUtensorMap& do_map) {
+  const auto kernel = flash_bwd_kv_kernel_sm90_cluster<HD, DROP>;
+  const size_t smem = KvSmem<HD, false, true>::kBytes;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster);
+  cfg.blockDim = dim3(kHopperThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (err) return err;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  const long long items =
+      (long long)((a.S + kBN - 1) / kBN) * a.B * a.KV;
+  const long long clusters = items < fit ? items : fit;
+  cfg.gridDim = dim3((unsigned)(clusters * a.cluster));
+  err = cudaLaunchKernelEx(&cfg, kernel, qkv_map, do_map,
+                           static_cast<const float2*>(a.stats),
+                           static_cast<bf16*>(a.out), a.B, a.S, a.H,
+                           a.H / a.KV, a.scale, a.scale * kLog2e, a.causal,
+                           a.drop);
+  if (err) return err;
+  return cudaGetLastError();
+}
+
 // the pre-pass (unless the caller ran it; the fused walk always runs it),
-// then the walk on a persistent grid
+// then the walk on a persistent grid (of clusters past 8 q heads a kv head)
 template <int HD, bool FUSED, bool DROP>
 cudaError_t bwd_kv_sm90(const Args& a) {
   cudaError_t err =
@@ -940,6 +1014,8 @@ cudaError_t bwd_kv_sm90(const Args& a) {
   err = packed_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
   if (!err) err = packed_map(&do_map, a.dout, a.H * HD, a.S, a.B);
   if (err) return err;
+  if (!FUSED && a.cluster > 1)
+    return bwd_kv_cluster_sm90<HD, DROP>(a, qkv_map, do_map);
   const size_t smem = KvSmem<HD, FUSED>::kBytes;
   err = allow_smem(flash_bwd_kv_kernel_sm90<HD, FUSED, DROP>, smem);
   if (err) return err;
@@ -967,15 +1043,29 @@ enum Which { kFwd, kStats, kDq, kDkv, kFused };
 
 // The routes. The caller picks one (ops/flash_attention.py::_sm90_route)
 // and passes it as `sm90`, since its scratch layouts depend on it: the
-// Hopper kernels, built for bf16 at hd 64 or 128 with at most 8 q heads
-// per kv head (sm90_takes; a launch asking for them elsewhere is
-// refused), or the mma.sync/FFMA kernels of the first half, which take
-// every shape (f32 and bf16, hd 1 to 256, any group), instantiated at the
-// head-dim tiers of hd_tier and masking the runtime hd. Their dk/dv walk
-// sums a group's G heads inside the CTA in head order, whatever G, so no
-// group size needs atomics.
-bool sm90_takes(int dtype, const Args& a) {
-  return dtype == 1 && (a.hd == 64 || a.hd == 128) && a.H / a.KV <= 8;
+// Hopper kernels, built for bf16 at hd 64 or 128, at any group size but
+// for the fused backward's at most 8 q heads per kv head (sm90_takes; a
+// launch asking for them elsewhere is refused), or the mma.sync/FFMA
+// kernels of the first half, which take every shape (f32 and bf16, hd 1
+// to 256, any group), instantiated at the head-dim tiers of hd_tier and
+// masking the runtime hd. K1 and K2a run a CTA per q tile of a head
+// whatever G; K2b past 8 q heads a kv head splits the group over a
+// cluster of `cluster` CTAs (1, 2, 4 or 8, at most G; 1 on every other
+// kernel and route), summed in rank order; the mma.sync dk/dv walk sums
+// a group's G heads inside the CTA in head order. So no group size needs
+// atomics.
+constexpr int kFusedMaxG = 8;
+
+bool sm90_takes(int dtype, Which w, const Args& a) {
+  return dtype == 1 && (a.hd == 64 || a.hd == 128) &&
+         (w != kFused || a.H / a.KV <= kFusedMaxG);
+}
+
+bool cluster_ok(int sm90, Which w, const Args& a) {
+  const int c = a.cluster;
+  if (c == 1) return true;
+  return sm90 && w == kDkv && (c == 2 || c == 4 || c == 8) &&
+         c <= a.H / a.KV;
 }
 
 template <int HD, bool DROP>
@@ -1019,7 +1109,7 @@ cudaError_t dispatch_tier(Which w, const Args& a) {
 template <bool DROP>
 cudaError_t dispatch(int dtype, int sm90, Which w, const Args& a) {
   if (sm90) {
-    if (!sm90_takes(dtype, a)) return cudaErrorInvalidValue;
+    if (!sm90_takes(dtype, w, a)) return cudaErrorInvalidValue;
     return a.hd == 64 ? dispatch_sm90<64, DROP>(w, a)
                       : dispatch_sm90<128, DROP>(w, a);
   }
@@ -1031,7 +1121,7 @@ cudaError_t dispatch(int dtype, int sm90, Which w, const Args& a) {
 int run(int dtype, int sm90, Which w, const Args& a) {
   if (a.B < 1 || a.S < 1 || a.H < 1 || a.KV < 1 || a.H % a.KV ||
       a.B > 65535 || a.H > 65535 || a.KV > 65535 || a.hd < 1 ||
-      a.hd > 256)
+      a.hd > 256 || !cluster_ok(sm90, w, a))
     return cudaErrorInvalidValue;
   // the pre-pass has no dropout; every other kernel runs its DROPOUT
   // instantiation when the threshold is not 0
@@ -1099,7 +1189,9 @@ extern "C" int nk_flash_bwd_dq_qkv(int dtype, int sm90, const void* qkv,
   return run(dtype, sm90, kDq, a);
 }
 
-// the k and v chunks of dqkv (B, S, W); stats as for dq
+// the k and v chunks of dqkv (B, S, W); stats as for dq; cluster: the
+// Hopper route's CTAs an item (ops/flash_attention.py::dkv_plan: 1 up to
+// 8 q heads a kv head, else 2, 4 or 8, at most H / KV), 1 on the other
 extern "C" int nk_flash_bwd_dkv_qkv(int dtype, int sm90, const void* qkv,
                                     const void* o, const void* lse,
                                     const void* dout, void* stats,
@@ -1107,11 +1199,12 @@ extern "C" int nk_flash_bwd_dkv_qkv(int dtype, int sm90, const void* qkv,
                                     int H, int KV, int hd, float scale,
                                     int causal, unsigned long long seed,
                                     unsigned threshold, float inv_keep,
-                                    void* stream) {
+                                    int cluster, void* stream) {
   Args a{qkv, o, lse, dout, dqkv, nullptr, nullptr, stats, nullptr,
          have_stats, B, S, H, KV, hd, causal, 0, scale,
          static_cast<cudaStream_t>(stream),
          dropout_of(seed, threshold, inv_keep)};
+  a.cluster = cluster;
   return run(dtype, sm90, kDkv, a);
 }
 

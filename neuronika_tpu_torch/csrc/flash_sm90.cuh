@@ -536,7 +536,7 @@ __device__ __forceinline__ void dq_walk(const Tiles& t, unsigned char* smem,
   }
 }
 
-template <int HD, bool FUSED>
+template <int HD, bool FUSED, bool CLUSTER = false>
 struct KvSmem {
   static constexpr int P = HD / 64;
   static constexpr int LDQ = HD + 8;  // f32 dq rows, padded against conflicts
@@ -549,9 +549,12 @@ struct KvSmem {
   static constexpr uint32_t kOffStats =
       kOffDS + (FUSED ? panel_bytes(kBN) : 0);
   static constexpr uint32_t kOffDQ = kOffStats + kStages * kBQh * 8;
-  static constexpr uint32_t kOffBar =
+  // CLUSTER: one f32 partial (dK or dV) of the CTA's kBN k rows
+  static constexpr uint32_t kOffStage =
       kOffDQ + (FUSED ? 2 * kBQh * LDQ * 4 : 0);
-  static constexpr size_t kBytes = kOffBar + 8 * (6 + 2 * kStages) + 1024;
+  static constexpr uint32_t kOffBar = kOffStage + (CLUSTER ? kBN * HD * 4 : 0);
+  static constexpr size_t kBytes =
+      kOffBar + 8 * (6 + 2 * kStages + (CLUSTER ? 3 : 0)) + 1024;
 };
 
 // One item of the dk/dv walk: k tile kt (128 k rows) of k/v head g, batch
@@ -601,13 +604,30 @@ struct KvItem {
 // L2. No deadlock: an item waits only on the item before it (same b, g, k
 // tile kt - 1), and each CTA takes its items in order, so the lowest
 // unfinished item can always run.
-template <int HD, bool FUSED, bool DROPOUT, class Tiles>
+// CLUSTER (not FUSED; the packed layout's K2b past 8 q heads a kv head)
+// runs an item on a cluster of C CTAs, launched as a persistent grid of
+// whole clusters: CTA r walks the group's heads [r G / C, (r + 1) G / C)
+// in head order, each for the item's q tiles. Rank 0 loads the item's K
+// and V once, by TMA multicast into every CTA of the cluster, when all C
+// have freed their buffers and announced the bytes (kv_free). After its
+// walk each CTA but rank 0 stages its partial dK as f32 in its own shared
+// memory (kStage: a consumer thread's 16-byte chunk j at 16 (256 j + t)
+// bytes, so that a warp's reads are contiguous) and arrives on rank 0's
+// red_full; rank 0 adds ranks 1 .. C - 1 into its registers in rank order
+// over distributed shared memory, then frees each stage (red_free); then
+// the same for dV, and rank 0 stores. The sum has a fixed order and no
+// atomics: the same bits every launch. Each CTA waits for rank 0 to have
+// read its stage before it moves on or exits, and rank 0 waits for every
+// arrival on its barriers, so no CTA's shared memory is touched after it
+// exits.
+template <int HD, bool FUSED, bool DROPOUT, class Tiles, bool CLUSTER = false>
 __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
                                         float* __restrict__ dq_acc,
                                         int* __restrict__ dq_turn,
                                         float scale, float qscale,
                                         const Dropout& drop) {
-  using Sm = KvSmem<HD, FUSED>;
+  static_assert(!(CLUSTER && FUSED), "the fused walk runs one CTA an item");
+  using Sm = KvSmem<HD, FUSED, CLUSTER>;
   constexpr int P = Sm::P;
   unsigned char* Ks = smem;
   unsigned char* Vs = smem + Sm::kOffV;
@@ -622,12 +642,24 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
   uint64_t* empty = full + kStages;
   uint64_t* dq_full = empty + kStages;  // FUSED: the two dq buffers
   uint64_t* dq_empty = dq_full + 2;
+  // CLUSTER: rank 0's kv_free (C arrivals) and red_full (C - 1), every
+  // other rank's red_free (1)
+  uint64_t* kv_free = dq_empty + 2;
+  uint64_t* red_full = kv_free + 1;
+  uint64_t* red_free = red_full + 1;
+  float4* stage = reinterpret_cast<float4*>(smem + Sm::kOffStage);
 
   const Band& band = t.band;
   const int G = t.G;
   const int n_kt = (band.Skv + kBN - 1) / kBN;
   const int n_qt = (band.Sq + kBQh - 1) / kBQh;
   const int n_items = n_kt * t.B * t.KV;
+  // the cluster (1 CTA without CLUSTER): size, this CTA's rank, its first
+  // item and the items' stride, its heads of the group [m0, m1)
+  const int C = CLUSTER ? (int)cluster_size() : 1;
+  const int rank = CLUSTER ? (int)cluster_rank() : 0;
+  const int first = blockIdx.x / C, stride = gridDim.x / C;
+  const int m0 = rank * G / C, m1 = (rank + 1) * G / C;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     mbar_init(kv_empty, kConsumers);
@@ -639,9 +671,18 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
       mbar_init(dq_full + s, kConsumers);
       mbar_init(dq_empty + s, 1);
     }
+    if constexpr (CLUSTER) {
+      mbar_init(kv_free, C);
+      mbar_init(red_full, C - 1);
+      mbar_init(red_free, 1);
+    }
     mbar_fence_init();
   }
-  __syncthreads();
+  // CLUSTER: every CTA's barriers ready before any arrives from afar
+  if constexpr (CLUSTER)
+    cluster_sync_all();
+  else
+    __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {  // producer warpgroup
@@ -649,14 +690,23 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
     const int pw = (threadIdx.x - kConsumers) / 32, lane = threadIdx.x % 32;
     if (pw == kTmaWarp && lane == 0) {
       int it = 0, n = 0;
-      for (int item = blockIdx.x; item < n_items;
-           item += gridDim.x, ++n) {
+      for (int item = first; item < n_items; item += stride, ++n) {
         const KvItem w = KvItem::of<FUSED>(t, item, n_kt);
         mbar_wait(kv_empty, (n & 1) ^ 1);
         mbar_expect_tx(kv_full, 2 * Sm::kKV);
-        t.template k_tile<kBN>(Ks, kv_full, w.b, w.g, w.kt * kBN);
-        t.template v_tile<kBN>(Vs, kv_full, w.b, w.g, w.kt * kBN);
-        for (int mem = 0; mem < G; ++mem) {
+        if constexpr (CLUSTER) {
+          mbar_arrive_cluster(map_rank(kv_free, 0));
+          if (rank == 0) {
+            mbar_wait_cluster(kv_free, n & 1);
+            const uint16_t all = (uint16_t)((1u << C) - 1);
+            t.template k_tile<kBN>(Ks, kv_full, w.b, w.g, w.kt * kBN, all);
+            t.template v_tile<kBN>(Vs, kv_full, w.b, w.g, w.kt * kBN, all);
+          }
+        } else {
+          t.template k_tile<kBN>(Ks, kv_full, w.b, w.g, w.kt * kBN);
+          t.template v_tile<kBN>(Vs, kv_full, w.b, w.g, w.kt * kBN);
+        }
+        for (int mem = m0; mem < m1; ++mem) {
           const int h = w.g * G + mem;
           for (int qq = 0; qq < w.qt1 - w.qt0; ++qq, ++it) {
             const int s = it % kStages, i0 = w.qt<FUSED>(qq) * kBQh;
@@ -672,9 +722,9 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
       }
     } else if (Tiles::kStatsWarp && pw == kStatsWarpId) {
       int it = 0;
-      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      for (int item = first; item < n_items; item += stride) {
         const KvItem w = KvItem::of<FUSED>(t, item, n_kt);
-        for (int mem = 0; mem < G; ++mem) {
+        for (int mem = m0; mem < m1; ++mem) {
           const int h = w.g * G + mem;
           for (int qq = 0; qq < w.qt1 - w.qt0; ++qq, ++it) {
             const int s = it % kStages, i0 = w.qt<FUSED>(qq) * kBQh;
@@ -701,9 +751,9 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
           mbar_arrive(dq_empty + buf);
         }
       };
-      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      for (int item = first; item < n_items; item += stride) {
         const KvItem w = KvItem::of<FUSED>(t, item, n_kt);
-        for (int mem = 0; mem < G; ++mem) {
+        for (int mem = m0; mem < m1; ++mem) {
           const int h = w.g * G + mem;
           for (int qq = 0; qq < w.qt1 - w.qt0; ++qq, ++it) {
             const int buf = it % 2, qt = w.qt<FUSED>(qq);
@@ -737,7 +787,7 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
     const int r = lane >> 2, c = (lane & 3) * 2;
     const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
     int it = 0, n = 0;
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
+    for (int item = first; item < n_items; item += stride, ++n) {
       const KvItem w = KvItem::of<FUSED>(t, item, n_kt);
       const int jw = w.kt * kBN + wg * 64;  // this warpgroup's first key
       const int krow0 = jw + warp * 16 + r;  // and krow0 + 8
@@ -748,7 +798,7 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
         for (int i = 0; i < 32; ++i) dk[p][i] = dv[p][i] = 0.f;
       mbar_wait(kv_full, n & 1);
 
-      for (int mem = 0; mem < G; ++mem) {
+      for (int mem = m0; mem < m1; ++mem) {
         for (int qq = 0; qq < w.qt1 - w.qt0; ++qq, ++it) {
           const int s = it % kStages, ph = (it / kStages) & 1;
           const int i0 = w.qt<FUSED>(qq) * kBQh;
@@ -881,6 +931,49 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
         }
       }
       mbar_arrive(kv_empty);
+      if constexpr (CLUSTER) {
+        const int tid = threadIdx.x;  // 0 .. kConsumers - 1
+        // part 0 sums dK, part 1 dV; each completes one phase of red_full
+        // (rank 0) and of red_free (the others), so its parity is `part`
+        auto reduce = [&](float (&a)[P][32], int part) {
+          if (rank != 0) {
+#pragma unroll
+            for (int p = 0; p < P; ++p)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                stage[(p * 8 + j) * kConsumers + tid] =
+                    make_float4(a[p][4 * j], a[p][4 * j + 1],
+                                a[p][4 * j + 2], a[p][4 * j + 3]);
+            fence_cluster();
+            named_sync(1, kConsumers);  // the whole partial is staged
+            if (tid == 0) mbar_arrive_cluster(map_rank(red_full, 0));
+            mbar_wait_cluster(red_free, part);  // rank 0 has read it
+            return;
+          }
+          mbar_wait_cluster(red_full, part);
+          for (int rk = 1; rk < C; ++rk) {
+            const uint32_t peer = map_rank(stage, rk) + tid * 16;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              uint32_t v[8][4];
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                ld_cluster(v[j], peer + (p * 8 + j) * kConsumers * 16);
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  a[p][4 * j + e] += __uint_as_float(v[j][e]);
+            }
+          }
+          named_sync(1, kConsumers);  // every stage read
+          if (tid >= 1 && tid < C)
+            mbar_arrive_cluster(map_rank(red_free, tid));
+        };
+        reduce(dk, 0);
+        reduce(dv, 1);
+        if (rank != 0) continue;
+      }
 
 #pragma unroll
       for (int x = 0; x < 2; ++x) {

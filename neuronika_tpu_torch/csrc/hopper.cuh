@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the warp-specialised
 // kernels of flash_attention_qkv.cu, flash_attention.cu, matmul.cu,
 // conv_sm90.cu and cross_entropy_sm90.cu: mbarriers (also across a
-// cluster), TMA tile loads (3-d and 4-d maps) and im2col loads (3-d, 4-d
+// cluster), TMA tile loads (3-d and 4-d maps; 3-d also multicast to a
+// cluster) and im2col loads (3-d, 4-d
 // and 5-d), 2-d tile stores, bulk copies, distributed shared memory, wgmma descriptors and
 // products (bf16 and TF32), register reallocation and named barriers; on
 // the host, TMA map encoding (tiled and im2col) and the SM count. Plain C++ and PTX: no CUTLASS, so
@@ -85,6 +86,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// tma_load_3d into the same shared-memory offset of every CTA of the
+// cluster whose bit is set in `mask`, each counting the bytes on its own
+// barrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_3d_mc(void* dst, const void* map,
+                                               uint64_t* bar, int c0, int c1,
+                                               int c2, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -220,6 +236,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the number of CTAs in this CTA's cluster
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
   return r;
 }
 

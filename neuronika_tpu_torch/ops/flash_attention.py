@@ -34,12 +34,14 @@ Both ops are differentiable. CUDA tensors launch the kernels or raise:
 f32 and bf16, every head dim from 1 to 256 and any number of query heads
 per kv head, as JAX's kernels take them; f16 and head dims above 256
 raise `NotImplementedError` (ROADMAP.md queue 1 item 3). Two routes
-(`_sm90_route`): bf16 at hd 64 or 128 with at most 8 query heads per kv
-head runs the Hopper kernels (wgmma, TMA); every other shape runs the
-mma.sync/FFMA kernels, instantiated at head-dim tiers that mask the
-runtime hd. CPU tensors take the plain versions below, which use the
-kernels' own math (exp2 domain, `p` and `ds` rounded to the input dtype
-before their products) and keep every sum in f32.
+(`_sm90_route`): bf16 at hd 64 or 128 runs the Hopper kernels (wgmma,
+TMA) at any group size, but the fused backward only up to 8 query heads
+per kv head; past 8, K2b splits each group over a cluster of CTAs
+(`dkv_plan`). Every other shape runs the mma.sync/FFMA kernels,
+instantiated at head-dim tiers that mask the runtime hd. CPU tensors take
+the plain versions below, which use the kernels' own math (exp2 domain,
+`p` and `ds` rounded to the input dtype before their products) and keep
+every sum in f32.
 
 The forward launches go through two custom ops, `neuronika_tpu_torch::
 flash_fwd_qkv` and `::flash_fwd` (`FWD_OPS`), which also take the plain
@@ -60,9 +62,16 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# the Hopper kernels' shapes (csrc/flash_attention_qkv.cu::sm90_takes)
+# the Hopper kernels' shapes (csrc/flash_attention_qkv.cu::sm90_takes):
+# the fused backward's walk takes at most 8 query heads per kv head
 _SM90_HEAD_DIMS = (64, 128)
-_SM90_MAX_G = 8
+_SM90_FUSED_MAX_G = 8
+# K2b's cluster plan (csrc/flash_sm90.cuh::kv_walk, CLUSTER): k rows an
+# item, the cluster sizes it takes (the portable limit is 8) and the SMs
+# of an H100 SXM, the plan's default card
+DKV_BN = 128
+DKV_CLUSTERS = (2, 4, 8)
+H100_SMS = 132
 
 
 def kernels_take(dtype, hd: int) -> bool:
@@ -71,15 +80,47 @@ def kernels_take(dtype, hd: int) -> bool:
     return dtype in _DTYPES and 1 <= hd <= MAX_HEAD_DIM
 
 
-def _sm90_route(dtype, hd: int, G: int = 1) -> bool:
-    """True where the Hopper kernels run (bf16, hd 64 or 128, at most 8
-    query heads per kv head); else the mma.sync/FFMA kernels. The one
-    place the route is chosen: it decides the scratch layouts and operand
-    copies here and is passed to every launch as `sm90`, which the CUDA
-    side dispatches on (and refuses where the Hopper kernels are not
-    built)."""
+def _sm90_route(dtype, hd: int, G: int = 1, fused: bool = False) -> bool:
+    """True where the Hopper kernels run (bf16, hd 64 or 128; any G, but
+    the fused backward at most 8 query heads per kv head); else the
+    mma.sync/FFMA kernels. The one place the route is chosen: it decides
+    the scratch layouts and operand copies here and is passed to every
+    launch as `sm90`, which the CUDA side dispatches on (and refuses where
+    the Hopper kernels are not built)."""
     return dtype == torch.bfloat16 and hd in _SM90_HEAD_DIMS \
-        and G <= _SM90_MAX_G
+        and (not fused or G <= _SM90_FUSED_MAX_G)
+
+
+def dkv_cluster(B: int, KV: int, S: int, G: int, sms: int = H100_SMS) -> int:
+    """K2b's CTAs an item on the Hopper route: 1 up to 8 query heads per kv
+    head; past that the least of 2 and 4 whose CTAs (items x C, an item
+    being a 128-row k tile of one batch and kv head) fill two waves of
+    `sms` SMs, else 8."""
+    if G <= _SM90_FUSED_MAX_G:
+        return 1
+    items = -(-S // DKV_BN) * B * KV
+    return next((c for c in DKV_CLUSTERS[:-1] if items * c >= 2 * sms),
+                DKV_CLUSTERS[-1])
+
+
+def dkv_plan(B: int, KV: int, S: int, G: int, sms: int = H100_SMS):
+    """K2b's work on the Hopper route, as `kv_walk` takes it: (C, items),
+    the items in the order the persistent grid starts them (k-tile-major,
+    the longest causal walks first), each (kt, b, g, heads) with heads[r]
+    = (h0, h1), the group's query heads [h0, h1) that CTA r of the item's
+    cluster walks (relative to the group's first)."""
+    C = dkv_cluster(B, KV, S, G, sms)
+    heads = tuple((r * G // C, (r + 1) * G // C) for r in range(C))
+    items = [(i // (B * KV), i % (B * KV) // KV, i % KV, heads)
+             for i in range(-(-S // DKV_BN) * B * KV)]
+    return C, items
+
+
+def _route(fn, sm90: bool, cluster: int = 1) -> None:
+    """Record the route of `fn`'s launch as `fn.route`: "sm90" (with its
+    cluster size past 1) or "mma.sync"."""
+    fn.route = ("sm90" if sm90 else "mma.sync") + \
+        (f" cluster {cluster}" if cluster > 1 else "")
 
 
 def _qkv_geometry(qkv, n_head, n_kv_head):
@@ -453,22 +494,23 @@ def flash_fwd_qkv(qkv, n_head, n_kv_head=0, causal=True, scale=None,
     out = torch.empty((B, S, n_head * hd), dtype=qkv.dtype,
                       device=qkv.device)
     lse = torch.empty((B, n_head, S), dtype=torch.float32, device=qkv.device)
+    sm90 = _sm90_route(qkv.dtype, hd, n_head // KV)
     with torch.cuda.device(qkv.device):
         _launch(lib.nk_flash_fwd_qkv, "flash_fwd_qkv", _DTYPES[qkv.dtype],
-                int(_sm90_route(qkv.dtype, hd, n_head // KV)),
-                qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, S, n_head,
-                KV, hd, _scale(scale, hd), int(causal), int(fast_softmax),
-                *drop, _stream(qkv))
+                int(sm90), qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                B, S, n_head, KV, hd, _scale(scale, hd), int(causal),
+                int(fast_softmax), *drop, _stream(qkv))
     flash_fwd_qkv.launches += 1
+    _route(flash_fwd_qkv, sm90)
     return out, lse
 
 
-def _bwd_stats(qkv, n_head, n_kv_head):
+def _bwd_stats(qkv, n_head, n_kv_head, fused=False):
     """The Hopper route's backward (lse, delta) scratch, (B, H, S padded to
     64, 2) f32, which its pre-pass fills; the other route needs none
-    (None)."""
+    (None). `fused`: for the fused backward's route."""
     B, S, _, KV, hd = _qkv_geometry(qkv, n_head, n_kv_head)
-    if not _sm90_route(qkv.dtype, hd, n_head // KV):
+    if not _sm90_route(qkv.dtype, hd, n_head // KV, fused):
         return None
     return torch.empty((B, n_head, -(-S // 64) * 64, 2), dtype=torch.float32,
                        device=qkv.device)
@@ -496,10 +538,12 @@ def flash_bwd_stats_qkv(qkv, out, lse, do, n_head, n_kv_head=0):
     return stats
 
 
-def _split_bwd(entry, name, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
-               causal, scale, stats, seed, rate):
-    """Launch K2a or K2b (`entry`) into `d_qkv`; the Hopper route runs the
-    pre-pass itself unless given `stats` from `flash_bwd_stats_qkv`."""
+def _split_bwd(fn, qkv, out, lse, do, d_qkv, n_head, n_kv_head, causal,
+               scale, stats, seed, rate):
+    """Launch K2a or K2b (the C entry `nk_` + the name of wrapper `fn`)
+    into `d_qkv`; the Hopper route runs the pre-pass itself unless given
+    `stats` from `flash_bwd_stats_qkv`. K2b passes its cluster size
+    (`dkv_cluster`; 1 off the Hopper route). Records the route."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
     drop = _drop(seed, rate)
     _check(qkv, n_head, n_kv_head, ("d_qkv", d_qkv, qkv.dtype, (B, S, W)))
@@ -512,12 +556,21 @@ def _split_bwd(entry, name, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
         stats = _bwd_stats(qkv, n_head, n_kv_head)
     from .._build import load_library
 
+    G = n_head // KV
+    sm90 = _sm90_route(qkv.dtype, hd, G)
+    cluster = []
+    if fn is flash_bwd_dkv_qkv:
+        sms = torch.cuda.get_device_properties(
+            qkv.device).multi_processor_count
+        cluster = [dkv_cluster(B, KV, S, G, sms) if sm90 else 1]
     with torch.cuda.device(qkv.device):
-        _launch(getattr(load_library(), entry), name, _DTYPES[qkv.dtype],
-                int(_sm90_route(qkv.dtype, hd, n_head // KV)),
-                qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
-                _ptr(stats), int(have), d_qkv.data_ptr(), B, S, n_head, KV,
-                hd, _scale(scale, hd), int(causal), *drop, _stream(qkv))
+        _launch(getattr(load_library(), f"nk_{fn.__name__}"), fn.__name__,
+                _DTYPES[qkv.dtype], int(sm90), qkv.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), do.data_ptr(), _ptr(stats),
+                int(have), d_qkv.data_ptr(), B, S, n_head, KV, hd,
+                _scale(scale, hd), int(causal), *drop, *cluster,
+                _stream(qkv))
+    _route(fn, sm90, *cluster)
     return d_qkv
 
 
@@ -527,8 +580,8 @@ def flash_bwd_dq_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
     the pre-pass's result (the Hopper route), or None to run it here (or
     where the route needs none); `seed`, `rate`:
     the forward's dropout. Adds one to `flash_bwd_dq_qkv.launches`."""
-    _split_bwd("nk_flash_bwd_dq_qkv", "flash_bwd_dq_qkv", qkv, out, lse, do,
-               d_qkv, n_head, n_kv_head, causal, scale, stats, seed, rate)
+    _split_bwd(flash_bwd_dq_qkv, qkv, out, lse, do, d_qkv, n_head, n_kv_head,
+               causal, scale, stats, seed, rate)
     flash_bwd_dq_qkv.launches += 1
     return d_qkv
 
@@ -538,8 +591,8 @@ def flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
     """K2b on the card: writes the k and v chunks of `d_qkv`. `stats`,
     `seed` and `rate` as for `flash_bwd_dq_qkv`. Adds one to
     `flash_bwd_dkv_qkv.launches`."""
-    _split_bwd("nk_flash_bwd_dkv_qkv", "flash_bwd_dkv_qkv", qkv, out, lse,
-               do, d_qkv, n_head, n_kv_head, causal, scale, stats, seed, rate)
+    _split_bwd(flash_bwd_dkv_qkv, qkv, out, lse, do, d_qkv, n_head,
+               n_kv_head, causal, scale, stats, seed, rate)
     flash_bwd_dkv_qkv.launches += 1
     return d_qkv
 
@@ -556,7 +609,7 @@ def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
     from .._build import load_library
 
     d_qkv = torch.empty_like(qkv)
-    stats = _bwd_stats(qkv, n_head, n_kv_head)
+    stats = _bwd_stats(qkv, n_head, n_kv_head, fused=True)
     if stats is None:   # mma.sync/FFMA: 32-row q tiles, dq rows as in d_qkv
         dq_acc = torch.empty((B, S, n_head * hd), dtype=torch.float32,
                              device=qkv.device)
@@ -576,12 +629,14 @@ def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
                 n_head, KV, hd, _scale(scale, hd), int(causal), *drop,
                 _stream(qkv))
     flash_bwd_fused_qkv.launches += 1
+    _route(flash_bwd_fused_qkv, stats is not None)
     return d_qkv
 
 
 for _fn in (flash_fwd_qkv, flash_bwd_dq_qkv, flash_bwd_dkv_qkv,
             flash_bwd_fused_qkv):
     _fn.launches = 0
+    _fn.route = None
 
 KERNELS = (flash_fwd_qkv, flash_bwd_dq_qkv, flash_bwd_dkv_qkv,
            flash_bwd_fused_qkv)

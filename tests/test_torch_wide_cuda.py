@@ -2,8 +2,11 @@
 (`cuda` marker; skips without a CUDA GPU and nvcc): the port's GPT with
 flash "on" at hd 80 under rope and a window (K5-K7) and at 16 query heads
 over one kv head (K1/K2) gives the loss and gradients of flash "off" in
-f32, under remat policy "flash" with K5 launched once a layer; then
-`chip_smoke.py` phase 19's kernel checks. This file imports no JAX."""
+f32, under remat policy "flash" with K5 launched once a layer; K1, K2a
+and K2b in bf16 past 8 query heads a kv head (G 9, 12, 16, 32; hd 64 and
+128) against their plain versions on the Hopper route, K2b on its cluster
+walk; then `chip_smoke.py` phase 19's kernel checks. This file imports no
+JAX."""
 
 import dataclasses
 import os
@@ -58,6 +61,42 @@ def test_kernel_route_matches_plain_route(cuda, make, kw, kernel):
     assert abs(float(on[0]) - float(off[0])) <= TOL
     assert max(float((a - b).abs().max())
                for a, b in zip(on[1], off[1])) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [257, 384])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [9, 12, 16, 32])
+def test_hopper_route_past_8_heads_matches_plain(cuda, G, hd, S, causal,
+                                                 rate):
+    """K1, K2a and K2b (and the fused K2, which keeps the mma.sync body
+    past 8) against the plain versions at phase 3's bf16 bounds
+    (chip_smoke.check_flash: per entry and in norm), with K1, K2a and K2b
+    on the Hopper kernels and K2b on dkv_cluster's cluster, which two
+    launches must give the same bits."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    KV = 2 if G <= 12 else 1
+    H = G * KV
+    qkv, do = chip_smoke.flash_case(np.random.default_rng(G * hd + S), 2, H,
+                                    KV, hd, S, torch.bfloat16)
+    _, (out, lse), _ = chip_smoke.check_flash(
+        FA, f"G{G}-hd{hd}-S{S}", qkv, do, H, KV, causal, False, seed=7,
+        rate=rate)
+    C = FA.dkv_cluster(2, KV, S, G, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert FA.flash_fwd_qkv.route == FA.flash_bwd_dq_qkv.route == "sm90"
+    assert FA.flash_bwd_dkv_qkv.route == f"sm90 cluster {C}" and C > 1
+    assert FA.flash_bwd_fused_qkv.route == "mma.sync"
+    again = [FA.flash_bwd_dkv_qkv(qkv, out, lse, do, torch.zeros_like(qkv),
+                                  H, KV, causal, seed=7, rate=rate)
+             for _ in range(2)]
+    assert torch.equal(*again)
 
 
 @pytest.mark.cuda

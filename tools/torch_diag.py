@@ -1,4 +1,4 @@
-"""Fifteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Sixteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -103,6 +103,21 @@ make, run on one CUDA card from the root of a checkout:
         K2a and K2b at bf16 B8 S2048 H16 causal at hd 32 and at hd 96, and
         of K5, K6 and K7 at Phi-3-mini's shape (bf16 B1 H32 S4096 hd96,
         window 2047); run five, three, three, five in one call to compare.
+    python3 tools/torch_diag.py starcoder TREE_ROOT [TABLE_PATH]
+        chip_smoke.py phase 19's StarCoderBase-1B shapes for the checkout
+        at TREE_ROOT: K1, K2a and K2b (and the fused K2) at bf16 B8 S2048
+        H16 KV1 hd128 causal, first against their plain versions, then
+        their CUDA-event times (the best of two runs of 5 launches) beside
+        the plain versions', SDPA's (k and v repeated) and the bounds
+        (chip_smoke.wide_packed_times), with the route each kernel took
+        where the checkout records it, and K2b's time at each cluster
+        size 1, 2, 4 and 8 where it has a cluster plan; then the train
+        step at StarCoderBase-1B's widths (full depth, S2048 B8 bf16,
+        flash "on", the GPTConfig defaults; 1 warm-up and 2 timed steps):
+        step time, tokens/s and MFU, and with TABLE_PATH one more step
+        under torch.profiler (chip_smoke.profile_step: device time by
+        kernel kind, the kernel table written there); run it for two
+        checkouts in turns to compare them.
 """
 
 import functools
@@ -258,6 +273,62 @@ def kernels(root):
             qkv, out, lse, do, H)))]
     print(f"{root}: bf16 B{B} S{S} H{H} hd{hd} causal fast: "
           + "; ".join(line), flush=True)
+
+
+def starcoder(root, table=None):
+    import json
+
+    import numpy as np
+
+    here = os.getcwd()
+    root, cs, FA = _tree(root)
+    from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.ops import cross_entropy as CE
+
+    times = cs.wide_packed_times(np.random.default_rng(19), FA, 8, 16, 1,
+                                 128, 2048)
+    routes = {k.__name__: getattr(k, "route", "not recorded")
+              for k in FA.KERNELS}
+    print(f"{root}: StarCoderBase-1B's attention (bf16 B8 S2048 H16 KV1 "
+          f"hd128 causal): " + "; ".join(
+              f"{n} {ms:.4f} ms (plain {p_ms:.3f}, SDPA {lib:.4f}, bound "
+              f"{b[0]:.4f}; max abs err {e:.3g})"
+              for n, (ms, p_ms, lib, b, e) in times.items())
+          + f"; routes {json.dumps(routes)}", flush=True)
+    if hasattr(FA, "dkv_cluster"):   # K2b at each cluster size, 1 included
+        qkv, do = cs.flash_case(np.random.default_rng(21), 8, 16, 1, 128,
+                                2048, torch.bfloat16)
+        out, lse = FA.flash_fwd_qkv(qkv, 16, 1)
+        d_qkv = torch.empty_like(qkv)
+        plan, line = FA.dkv_cluster, []
+        try:
+            for c in (1, 2, 4, 8):
+                FA.dkv_cluster = lambda *a, c=c: c
+                ms = min(cs.cuda_ms(lambda: FA.flash_bwd_dkv_qkv(
+                    qkv, out, lse, do, d_qkv, 16, 1), 5) for _ in range(2))
+                line.append(f"{FA.flash_bwd_dkv_qkv.route} {ms:.4f} ms")
+        finally:
+            FA.dkv_cluster = plan
+        print(f"{root}: K2b at StarCoderBase-1B's shape by cluster size "
+              f"(the plan takes {plan(8, 1, 2048, 16)}): " + "; ".join(line),
+              flush=True)
+        del qkv, do, out, lse, d_qkv
+    torch.cuda.empty_cache()
+    B, S = 8, 2048
+    batch = cs.lm_batch(np.random.default_rng(1),
+                        cs.STARCODER_1B["vocab_size"], B, S)
+    cfg = T.GPTConfig(dtype=torch.bfloat16, flash="on", **cs.STARCODER_1B)
+    if table:
+        table = os.path.abspath(os.path.join(here, table))
+    losses, launches, step_s, peak, _ = cs.train_steps(
+        T, cs.train_kernels(FA, CE), cfg, 1, 2, batch, cs.WIDE_LR, table,
+        f"one StarCoderBase-1B step of {root}")
+    tok_s = B * S / step_s
+    mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
+    print(f"{root}: StarCoderBase-1B step {step_s * 1e3:.2f} ms, {tok_s:.0f} "
+          f"tokens/s, MFU {mfu:.4f}, peak {peak:.2f} GiB, losses "
+          f"{[round(l, 4) for l in losses]}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
 
 
 def tiers(root, which):
@@ -842,6 +913,8 @@ if __name__ == "__main__":
         conv1d(sys.argv[2])
     elif sys.argv[1:2] == ["resnet"] and len(sys.argv) == 3:
         resnet(sys.argv[2])
+    elif sys.argv[1:2] == ["starcoder"] and len(sys.argv) in (3, 4):
+        starcoder(*sys.argv[2:])
     elif (sys.argv[1:2] == ["tiers"] and len(sys.argv) == 4
           and sys.argv[3] in ("five", "three")):
         tiers(sys.argv[2], sys.argv[3])
