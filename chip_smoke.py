@@ -858,6 +858,8 @@ def profile_step(run, label, path):
                 else "K6 dq" if "split_bwd_dq" in n
                 else "K7 dk/dv" if "split_bwd_dkv" in n
                 else "K2 pre-pass" if "bwd_stats" in n
+                else "K2c fused (cluster)" if "kv_kernel_sm90_cluster" in n
+                and fused_walk(n)
                 else "K2b dk/dv (cluster)" if "kv_kernel_sm90_cluster" in n
                 else "K2c fused" if "flash_bwd_kv_kernel" in n
                 and fused_walk(n) or "dq_store" in n or "dq_cast" in n
@@ -4750,9 +4752,9 @@ def phase_serving_rest(T, PA, S, LR, smi_line, n_req=32, f32_req=8,
 # take, the remat policies, StarCoderBase-1B and Phi-3-mini
 
 # K1/K2 cases (name, H, KV, hd, S, causal, fast): hd 36 rows are not
-# 16-byte aligned (element loads), S 257 is ragged, G 16 is MQA past the
-# fused K2's Hopper limit of 8; in f32, and in bf16 but at G 16 hd 128,
-# on the mma.sync/FFMA kernels' head-dim tiers
+# 16-byte aligned (element loads), S 257 is ragged, G 16 is MQA, past 8
+# q heads a kv head (K2b and the fused K2 on a cluster); in f32, and in
+# bf16 but at G 16 hd 128, on the mma.sync/FFMA kernels' head-dim tiers
 WIDE_FLASH_CASES = (
     ("hd32-gqa", 8, 2, 32, 384, True, False),
     ("hd36-gqa-S257", 6, 3, 36, 257, True, False),
@@ -4764,8 +4766,8 @@ WIDE_FLASH_CASES = (
     ("g16-hd96-S257", 16, 1, 96, 257, True, False),
 )
 # bf16 K1/K2 cases past 8 q heads a kv head on the Hopper route (name, H,
-# KV, hd, S, causal, fast): K1 and K2a a CTA per q tile, K2b the group
-# split over a cluster (G 9 and 12 unevenly), the fused K2 on mma.sync
+# KV, hd, S, causal, fast): K1 and K2a a CTA per q tile, K2b and the fused
+# K2 the group split over a cluster (G 9 and 12 unevenly)
 WIDE_SM90_CASES = (
     ("g9-hd64-S257", 9, 1, 64, 257, True, False),
     ("g9-hd128-full", 18, 2, 128, 384, False, False),
@@ -4795,8 +4797,9 @@ WIDE_RATE, WIDE_SEED = 0.1, 2 ** 33 + 5
 def wide_flash_checks(rng, FA):
     """K1, K2a+K2b and the fused K2 at WIDE_FLASH_CASES, f32 and bf16,
     without and with dropout at WIDE_RATE, each at check_flash's bounds;
-    then at G 16 (bf16, hd 128) two launches of the fused K2 and of K2b
-    must give the same bits. Returns {kernel: worst max abs err}."""
+    then at G 16 (bf16, hd 128) two launches of the fused K2 and of K2b,
+    each on its cluster walk, must give the same bits. Returns {kernel:
+    worst max abs err}."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, H, KV, hd, S, causal, fast in WIDE_FLASH_CASES:
@@ -4818,8 +4821,9 @@ def wide_flash_checks(rng, FA):
                                   16, 1) for _ in range(2)]
     check(torch.equal(*again), "flash_bwd_dkv_qkv G16: two launches on the "
           "same inputs differ")
-    check(FA.flash_bwd_dkv_qkv.route.startswith("sm90 cluster"),
-          f"flash_bwd_dkv_qkv G16 ran {FA.flash_bwd_dkv_qkv.route}")
+    for k in (FA.flash_bwd_dkv_qkv, FA.flash_bwd_fused_qkv):
+        check(k.route.startswith("sm90 cluster"),
+              f"{k.__name__} G16 ran {k.route}")
     return worst
 
 
@@ -4833,15 +4837,17 @@ def wide_sm90_checks(rng, FA):
     with dropout at WIDE_RATE, at check_flash's bounds; each case prints
     the route each kernel took, and fails unless K1 and K2a ran the Hopper
     kernels, K2b its cluster walk at dkv_cluster's size and the fused K2
-    the mma.sync body. Returns {kernel: worst max abs err}."""
+    its cluster walk at fused_cluster's. Returns {kernel: worst max abs
+    err}."""
     worst = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, H, KV, hd, S, causal, fast in WIDE_SM90_CASES:
         qkv, do = flash_case(rng, 2, H, KV, hd, S, torch.bfloat16)
         C = FA.dkv_cluster(2, KV, S, H // KV, sms)
+        Cf = FA.fused_cluster(2, KV, S, H // KV, sms)
         want = {"flash_fwd_qkv": "sm90", "flash_bwd_dq_qkv": "sm90",
                 "flash_bwd_dkv_qkv": f"sm90 cluster {C}",
-                "flash_bwd_fused_qkv": "mma.sync"}
+                "flash_bwd_fused_qkv": f"sm90 cluster {Cf}"}
         for rate in (0.0, WIDE_RATE):
             key = f"bfloat16/{name}/p{rate}"
             errs, _, _ = check_flash(FA, key, qkv, do, H, KV, causal, fast,
@@ -4922,7 +4928,9 @@ def wide_packed_times(rng, FA, B, H, KV, hd, S):
     backward on the same q with k and v repeated to H (repeated before
     timing), and the bound. Returns {kernel: (ms, plain_ms, library_ms,
     bound, max abs err)}; prints the route each kernel took and, past 8
-    q heads a kv head, holds K2b to the same bits over two launches."""
+    q heads a kv head, holds K2b and the fused K2 to the same bits over two
+    launches and every kernel to check_flash's bounds at dropout WIDE_RATE
+    too."""
     import torch.nn.functional as F
 
     qkv, do = flash_case(rng, B, H, KV, hd, S, torch.bfloat16)
@@ -4930,11 +4938,17 @@ def wide_packed_times(rng, FA, B, H, KV, hd, S):
     errs, (out, lse), _ = check_flash(FA, key, qkv, do, H, KV, True, False)
     print(f"  {key} routes: {json.dumps(flash_routes(FA))}")
     if H // KV > 8:
+        check_flash(FA, f"{key}/p{WIDE_RATE}", qkv, do, H, KV, True, False,
+                    seed=WIDE_SEED, rate=WIDE_RATE)
         again = [FA.flash_bwd_dkv_qkv(qkv, out, lse, do,
                                       torch.zeros_like(qkv), H, KV)
                  for _ in range(2)]
         check(torch.equal(*again), f"flash_bwd_dkv_qkv {key}: two launches "
               "on the same inputs differ")
+        again = [FA.flash_bwd_fused_qkv(qkv, out, lse, do, H, KV)
+                 for _ in range(2)]
+        check(torch.equal(*again), f"flash_bwd_fused_qkv {key}: two "
+              "launches on the same inputs differ")
         del again
     d_qkv = torch.empty_like(qkv)
     kern = {"flash_fwd_qkv": lambda: FA.flash_fwd_qkv(qkv, H, KV),
@@ -5052,6 +5066,10 @@ WITNESS_LR = 1e-4
 # the bf16 loss of the kernel route against the composite's, relative:
 # the two round p to bf16 in other places and sum in other orders
 ROUTE_BF16_REL = 2 ** -7
+# the bf16 gradients of a kernel route against the composite's, ||g -
+# g_off|| / ||g_off|| over all leaves of StarCoderBase-1B: the split route
+# reads 0.0149 on an H100 (PERF.md); twice that, rounded up to a power of 2
+ROUTE_GRAD_BF16_REL = 2 ** -5
 
 
 def lm_batch(rng, vocab, B, S):
@@ -5065,17 +5083,19 @@ def phase_starcoder(T, FA, CE, profile=None):
     """Phase 19 (a): the GPT train step at StarCoderBase-1B's published
     widths, full depth, S 2048, B 8, bf16, the GPTConfig defaults (remat
     "full", split backward, f32 Adam) with flash "on" (1 warm-up, 2 timed
-    steps, and with a `profile` path one more under the profiler) and
-    "auto" (1 warm-up, 1 counted step): K1 and K2a/K2b at G 16 (the Hopper
-    kernels, K2b on its cluster walk), 2 L, L and L launches a step, no
-    composite; first the forward loss through K1 against the composite's
-    (ROUTE_BF16_REL), and the gradients through K1, K2a and K2b against
-    the composite's (printed: ||g - g_off|| / ||g_off||, overall and the
-    worst leaf). Last, the witness for WIDE_LR: both routes from the same
-    seed and batch at WITNESS_LR (1 warm-up, 2 timed steps), their losses
-    printed with whether the third rose above the first, the kernel
-    route's each within ROUTE_BF16_REL of the composite's. Returns the
-    launches of the kernel runs, summed."""
+    steps, and with a `profile` path one more under the profiler), the
+    same with flash_bwd "fused" (likewise) and "auto" (1 warm-up, 1
+    counted step): K1 and K2a/K2b at G 16 (the Hopper kernels, K2b on its
+    cluster walk), 2 L, L and L launches a step, or K1 and the fused K2 (on
+    its cluster walk) 2 L and L, no composite; first the forward loss
+    through K1 against the composite's (ROUTE_BF16_REL), and the gradients
+    through K1 and the split pair, then through K1 and the fused K2,
+    against the composite's (||g - g_off|| / ||g_off||, overall held to
+    ROUTE_GRAD_BF16_REL, and the worst leaf). Last, the witness for
+    WIDE_LR: both routes from the same seed and batch at WITNESS_LR (1
+    warm-up, 2 timed steps), their losses printed with whether the third
+    rose above the first, the kernel route's each within ROUTE_BF16_REL of
+    the composite's. Returns the launches of the kernel runs, summed."""
     rng = np.random.default_rng(1)
     B, S = 8, 2048
     batch = lm_batch(rng, STARCODER_1B["vocab_size"], B, S)
@@ -5089,44 +5109,58 @@ def phase_starcoder(T, FA, CE, profile=None):
         fwd = {f: float(T.loss_fn(params, *batch,
                                   dataclasses.replace(cfg, flash=f)))
                for f in ("on", "off")}
-    grad_rel = route_grad_gap(T, params, batch, cfg)
+    gaps = route_grad_gap(T, params, batch, [
+        cfg, dataclasses.replace(cfg, flash_bwd="fused")])
     del params
     torch.cuda.empty_cache()
     rel = abs(fwd["on"] - fwd["off"]) / fwd["off"]
     check(rel <= ROUTE_BF16_REL, f"phase 19 StarCoder: the loss through K1 "
           f"{fwd['on']} against the composite's {fwd['off']}")
+    for bwd, gap in zip(("K2a/K2b", "the fused K2"), gaps):
+        check(gap[0] <= ROUTE_GRAD_BF16_REL, f"phase 19 StarCoder: the "
+              f"gradients through K1 and {bwd} against the composite's, "
+              f"||g - g_off|| / ||g_off|| {gap[0]}")
     total, parts = {}, [f"the forward loss through K1 {fwd['on']:.5f}, "
                         f"the composite's {fwd['off']:.5f} (bound "
-                        f"{ROUTE_BF16_REL:.3g} relative); gradients through "
-                        f"K1/K2a/K2b against the composite's: ||g - g_off||"
-                        f" / ||g_off|| {grad_rel[0]:.4g}, worst leaf "
-                        f"{grad_rel[1]:.4g} ({grad_rel[2]})"]
-    for flash, n in (("on", 2), ("auto", 1)):
-        cfg = T.GPTConfig(dtype=torch.bfloat16, flash=flash, **STARCODER_1B)
+                        f"{ROUTE_BF16_REL:.3g} relative); gradients against "
+                        f"the composite's, ||g - g_off|| / ||g_off|| (bound "
+                        f"{ROUTE_GRAD_BF16_REL:.3g}): through K1/K2a/K2b "
+                        f"{gaps[0][0]:.4g}, worst leaf {gaps[0][1]:.4g} "
+                        f"({gaps[0][2]}); through K1 and the fused K2 "
+                        f"{gaps[1][0]:.4g}, worst leaf {gaps[1][1]:.4g} "
+                        f"({gaps[1][2]})"]
+    steps = []
+    for flash, bwd, n in (("on", "split", 2), ("on", "fused", 2),
+                          ("auto", "split", 1)):
+        cfg = T.GPTConfig(dtype=torch.bfloat16, flash=flash, flash_bwd=bwd,
+                          **STARCODER_1B)
         losses, launches, step_s, peak, _ = train_steps(
             T, kernels, cfg, 1, n, batch, WIDE_LR,
-            profile_path(profile, "starcoder") if flash == "on" else None,
-            "one StarCoderBase-1B step")
+            profile_path(profile, "starcoder" if bwd == "split"
+                         else "starcoder_fused") if flash == "on" else None,
+            f"one StarCoderBase-1B step, {bwd} backward")
         L = cfg.n_layer
-        want = want_launches(kernels, flash_fwd_qkv=2 * L * n,
-                             flash_bwd_dq_qkv=L * n, flash_bwd_dkv_qkv=L * n)
-        check(all(np.isfinite(losses)), f"phase 19 StarCoder {flash}: "
-                                        f"loss {losses}")
-        check(losses[-1] < losses[0], f"phase 19 StarCoder {flash}: loss "
-                                      f"did not fall: {losses}")
-        check(launches == want, f"phase 19 StarCoder {flash}: launches "
-                                f"{launches}, want {want}")
+        want = want_launches(kernels, flash_fwd_qkv=2 * L * n, **(
+            dict(flash_bwd_dq_qkv=L * n, flash_bwd_dkv_qkv=L * n)
+            if bwd == "split" else dict(flash_bwd_fused_qkv=L * n)))
+        key = f"phase 19 StarCoder {flash} {bwd}"
+        check(all(np.isfinite(losses)), f"{key}: loss {losses}")
+        check(losses[-1] < losses[0], f"{key}: loss did not fall: {losses}")
+        check(launches == want, f"{key}: launches {launches}, want {want}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         tok_s = B * S / step_s
         mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
-        parts.append(f"flash={flash!r}: step {step_s * 1e3:.1f} ms, "
-                     f"{tok_s:.0f} tokens/s, MFU {mfu:.4f}, peak "
-                     f"{peak:.2f} GiB, losses "
-                     f"{[round(l, 4) for l in losses]}, K1 "
-                     f"{launches['flash_fwd_qkv']} K2a "
-                     f"{launches['flash_bwd_dq_qkv']} K2b "
-                     f"{launches['flash_bwd_dkv_qkv']} in {n} step(s)")
+        steps.append(f"flash={flash!r} flash_bwd={bwd!r}: step "
+                     f"{step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU "
+                     f"{mfu:.4f}, peak {peak:.2f} GiB, losses "
+                     f"{[round(l, 4) for l in losses]}, "
+                     + " ".join(f"{name} {launches[k]}" for name, k in (
+                         ("K1", "flash_fwd_qkv"), ("K2a", "flash_bwd_dq_qkv"),
+                         ("K2b", "flash_bwd_dkv_qkv"),
+                         ("fused K2", "flash_bwd_fused_qkv")))
+                     + f" in {n} step(s)")
+    parts.append(" | ".join(steps))
     wit = {}
     for flash in ("off", "on"):
         cfg = T.GPTConfig(dtype=torch.bfloat16, flash=flash, **STARCODER_1B)
@@ -5152,33 +5186,37 @@ def phase_starcoder(T, FA, CE, profile=None):
           f"route's losses {wit['on']} against the composite's {wit['off']}")
     line = ("phase 19 train: StarCoderBase-1B widths (d2048 L24 H16 KV1 "
             "hd128 d_ff 8192 V49152, learned positions, tied head), S2048 "
-            f"B8 bf16, remat full, split bwd, f32 Adam at {WIDE_LR}; "
+            f"B8 bf16, remat full, f32 Adam at {WIDE_LR}; "
             + "; ".join(parts))
     print(line)
     return total
 
 
-def route_grad_gap(T, params, batch, cfg):
-    """The train loss's gradients through the kernels (flash "on") against
-    the composite's (flash "off") on the same params and batch: (||g -
-    g_off|| / ||g_off|| over all leaves, the worst leaf's, its index)."""
+def route_grad_gap(T, params, batch, cfgs):
+    """The train loss's gradients through the kernels (flash "on") of each
+    config of `cfgs` against the composite's (flash "off", of the first)
+    on the same params and batch: [(||g - g_off|| / ||g_off|| over all
+    leaves, the worst leaf's, its index)], one a config."""
     from neuronika_tpu_torch._tree import tree_leaves, tree_unflatten
 
-    def grads(flash):
+    def grads(cfg, flash):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         loss = T.loss_fn(tree_unflatten(params, leaves), *batch,
                          dataclasses.replace(cfg, flash=flash), train=True)
         return torch.autograd.grad(loss, leaves)
 
-    g_off = grads("off")
-    g_on = grads("on")
-    e2 = [float((a.double() - b.double()).square().sum())
-          for a, b in zip(g_on, g_off)]
+    g_off = grads(cfgs[0], "off")
     r2 = [float(b.double().square().sum()) for b in g_off]
-    del g_on, g_off
-    rel = [math.sqrt(e / max(r, 1e-300)) for e, r in zip(e2, r2)]
-    worst = int(np.argmax(rel))
-    return math.sqrt(sum(e2) / sum(r2)), rel[worst], worst
+    gaps = []
+    for cfg in cfgs:
+        g_on = grads(cfg, "on")
+        e2 = [float((a.double() - b.double()).square().sum())
+              for a, b in zip(g_on, g_off)]
+        del g_on
+        rel = [math.sqrt(e / max(r, 1e-300)) for e, r in zip(e2, r2)]
+        worst = int(np.argmax(rel))
+        gaps.append((math.sqrt(sum(e2) / sum(r2)), rel[worst], worst))
+    return gaps
 
 
 def phase_phi3(T, FA, CE):
@@ -5312,10 +5350,14 @@ def phase_wide_kernels(FA, PA):
     check_s = time.perf_counter() - t0
     times = {"starcoder": wide_packed_times(rng, FA, 8, 16, 1, 128, 2048)}
     star_routes = flash_routes(FA)
-    check(star_routes["flash_fwd_qkv"] == star_routes["flash_bwd_dq_qkv"]
-          == "sm90" and star_routes["flash_bwd_dkv_qkv"].startswith(
-              "sm90 cluster"), f"phase 19: StarCoderBase-1B's K1/K2a/K2b "
-          f"routes {star_routes}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {"flash_fwd_qkv": "sm90", "flash_bwd_dq_qkv": "sm90",
+            "flash_bwd_dkv_qkv":
+                f"sm90 cluster {FA.dkv_cluster(8, 1, 2048, 16, sms)}",
+            "flash_bwd_fused_qkv":
+                f"sm90 cluster {FA.fused_cluster(8, 1, 2048, 16, sms)}"}
+    check(star_routes == want, f"phase 19: StarCoderBase-1B's K1/K2 routes "
+          f"{star_routes}, want {want}")
     times["phi3"] = wide_split_times(FA, 1, 32, 4096, 96, 2047)
     pos = [2047, 1500, 700, 64, 1900, 33, 1024, 2000]
     times["paged"] = {
@@ -5330,7 +5372,6 @@ def phase_wide_kernels(FA, PA):
                 + f", bound {b_ms:.4f} ms by {b_by}; max abs err {e:.3g} "
                 f"against plain)")
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"phase 19 kernels: K1/K2 at {len(WIDE_FLASH_CASES)} shapes and "
           f"{len(WIDE_SM90_CASES)} bf16 shapes past G 8 on the Hopper "
           f"route, K5-K7 at {len(WIDE_SPLIT_CASES)}, K11 at "
@@ -5339,8 +5380,9 @@ def phase_wide_kernels(FA, PA):
           f"s; worst max abs err {json.dumps(errs)}; G16 fused K2 and K2b "
           f"and K11 bit-identical over two launches; at StarCoderBase-1B's "
           f"shape (B8 S2048 KV1 G16) routes {json.dumps(star_routes)}, K2b "
-          f"cluster size {FA.dkv_cluster(8, 1, 2048, 16, sms)} on {sms} "
-          f"SMs (two launches the same bits)")
+          f"cluster size {FA.dkv_cluster(8, 1, 2048, 16, sms)}, fused K2 "
+          f"cluster size {FA.fused_cluster(8, 1, 2048, 16, sms)} on {sms} "
+          f"SMs (two launches of each the same bits)")
     for row, ts in times.items():
         print(f"phase 19 times ({row}, bf16): "
               + "; ".join(fmt(n, t) for n, t in ts.items()))
@@ -5548,8 +5590,8 @@ def main() -> int:
     # Phase 6's launches (the headline, or for K2a/K2b the defaults run),
     # phase 16's (the Trainer: K1, K2c; gpt_train's twin: K1, K2a, K2b) and
     # phase 17's (BERT, the T5 encoder, the MoE GPT: K1, K2a, K2b; LoRA and
-    # QLoRA: K1, K2c) and phase 19's (StarCoderBase-1B: K1, K2a, K2b at G
-    # 16); "phase19" holds the widened shapes' worst error, and the error
+    # QLoRA: K1, K2c) and phase 19's (StarCoderBase-1B: K1, K2a, K2b and,
+    # with flash_bwd "fused", K2c at G 16); "phase19" holds the widened shapes' worst error, and the error
     # against the plain versions and the times at StarCoderBase-1B's shape
     for name, line, counts in (("flash_fwd_qkv", 639, head),
                                ("flash_bwd_dq_qkv", 708, split),

@@ -123,8 +123,8 @@ def load_library() -> ctypes.CDLL:
     fn = lib.nk_flash_bwd_fused_qkv
     fn.argtypes = [i, i, p, p, p, p, p, p, p, p,  # dtype sm90, qkv o lse do
                    i, i, i, i, i,                # stats dq_acc turn dqkv; B
-                   f, i, *drop, p]               # S H KV hd; scale causal,
-    fn.restype = i                               # drop, stream
+                   f, i, *drop, i, p]            # S H KV hd; scale causal,
+    fn.restype = i                               # drop, cluster, stream
     fn = lib.nk_flash_fwd
     fn.argtypes = [i, i, p, p, p, p, p, p,       # dtype sm90, q k v out lse,
                    i, i, i, i, i,                # strides; B H Sq Skv hd

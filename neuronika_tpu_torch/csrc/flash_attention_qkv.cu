@@ -9,8 +9,9 @@
 //   K2b _bwd_dkv_kernel_qkv           -> flash_bwd_kv_kernel_sm90<FUSED =
 //                                        false> (bf16; past 8 q heads per
 //                                        kv head flash_bwd_kv_kernel_sm90_
-//                                        cluster), flash_bwd_kv_kernel
-//                                        <FUSED = false> (f32)
+//                                        cluster<FUSED = false>),
+//                                        flash_bwd_kv_kernel<FUSED =
+//                                        false> (f32)
 //   K2c _bwd_fused_kernel_qkv and
 //   K2d _bwd_fused_kernel_qkv_blocked -> the same two with FUSED = true
 // K2c and K2d compute the same function and differ only in how the TPU's
@@ -69,13 +70,13 @@
 // resident CTAs, plain loads and stores), so it too is bit-identical from
 // run to run.
 // Head dims and groups: the Hopper kernels take bf16 at hd 64 and 128 at
-// any group size, but the fused backward at most 8 q heads per kv head.
-// K1 and K2a run a CTA per (q head, batch, q tile) and find the head's k/v
-// as h / G. K2b past 8 q heads per kv head splits the group over a
-// cluster of 2, 4 or 8 CTAs (kv_walk's CLUSTER): K and V multicast to the
-// cluster once, each CTA's partial dK and dV summed by rank 0 in rank
-// order over distributed shared memory, so no atomics and the same bits
-// every run. Every other shape JAX's kernels take (hd 1 to 256, f32 or
+// any group size. K1 and K2a run a CTA per (q head, batch, q tile) and
+// find the head's k/v as h / G. K2b and the fused K2 past 8 q heads per kv
+// head split the group over a cluster of 2, 4 or 8 CTAs (kv_walk's
+// CLUSTER): K and V multicast to the cluster once, each CTA's partial dK
+// and dV summed by rank 0 in rank order over distributed shared memory,
+// so no atomics and the same bits every run; the fused K2's CTAs add the
+// dq of their own heads through the same turn chain as the one-CTA walk. Every other shape JAX's kernels take (hd 1 to 256, f32 or
 // bf16) runs the first half's kernels,
 // which are instantiated at five head-dim tiers (32, 64, 96, 128, 256;
 // hd_tier in flash_tiles.cuh) and mask the runtime hd: tiles are loaded
@@ -641,7 +642,7 @@ struct PackedTiles {
     tma_tile<ROWS, P>(dst, dout, bar, h * HD, row, b);
   }
   // k and v: `mask` multicasts them to those CTAs of the cluster (K2b
-  // past 8 q heads a kv head)
+  // and the fused K2 past 8 q heads a kv head)
   template <int ROWS>
   __device__ void k_tile(unsigned char* dst, uint64_t* bar, int b, int g,
                          int row, uint16_t mask = 0) const {
@@ -746,23 +747,24 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                               qscale, drop);
 }
 
-// ------------------------ K2b dk/dv walk past 8 q heads a kv head, Hopper
+// ---------------- K2 dk/dv walk (and fused dq) past 8 q heads a kv head
 // a persistent grid of whole clusters over (k tile, batch, kv group)
 // items; each CTA of a cluster walks its share of the group's heads, and
-// rank 0 sums the partials in rank order (kv_walk's CLUSTER)
-template <int HD, bool DROPOUT>
+// rank 0 sums the partials in rank order (kv_walk's CLUSTER); FUSED = the
+// fused K2, each CTA adding the dq of its heads
+template <int HD, bool FUSED, bool DROPOUT>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     flash_bwd_kv_kernel_sm90_cluster(
         const __grid_constant__ CUtensorMap qkv_map,
         const __grid_constant__ CUtensorMap do_map,
-        const float2* __restrict__ stats, bf16* __restrict__ dqkv, int B,
-        int S, int H, int G, float scale, float qscale, int causal,
-        Dropout drop) {
+        const float2* __restrict__ stats, bf16* __restrict__ dqkv,
+        float* __restrict__ dq_acc, int* __restrict__ dq_turn, int B, int S,
+        int H, int G, float scale, float qscale, int causal, Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const PackedTiles<HD> t{&qkv_map, &do_map, stats, dqkv,
                           Band{S, S, causal, 0}, B, H, G, H / G};
-  kv_walk<HD, false, DROPOUT, PackedTiles<HD>, true>(
-      t, align1024(smem_raw), nullptr, nullptr, scale, qscale, drop);
+  kv_walk<HD, FUSED, DROPOUT, PackedTiles<HD>, true>(
+      t, align1024(smem_raw), dq_acc, dq_turn, scale, qscale, drop);
 }
 
 // the bf16 fused walk's f32 dq scratch (B, H, ceil(S / 64), 64, LDQ) ->
@@ -828,7 +830,7 @@ struct Args {
   float scale;
   cudaStream_t stream;
   Dropout drop;  // threshold 0: no dropout
-  int cluster = 1;  // bf16 K2b: CTAs an item (dkv_plan), 1 up to G 8
+  int cluster = 1;  // bf16 K2b, fused K2: CTAs an item, 1 up to G 8
 };
 
 // above 48 KB a kernel's dynamic shared memory must be allowed explicitly
@@ -964,14 +966,15 @@ cudaError_t bwd_dq_sm90(const Args& a) {
   return cudaGetLastError();
 }
 
-// K2b past 8 q heads a kv head: items of a.cluster CTAs
-// (ops/flash_attention.py::dkv_plan) on a persistent grid of as many whole
-// clusters as the card holds at once (at most one an item)
-template <int HD, bool DROP>
+// K2b and the fused K2 past 8 q heads a kv head: items of a.cluster CTAs
+// (ops/flash_attention.py::dkv_plan, fused_plan) on a persistent grid of
+// as many whole clusters as the card holds at once (at most one an item;
+// the fused walk's turns need every cluster resident)
+template <int HD, bool FUSED, bool DROP>
 cudaError_t bwd_kv_cluster_sm90(const Args& a, const CUtensorMap& qkv_map,
                                 const CUtensorMap& do_map) {
-  const auto kernel = flash_bwd_kv_kernel_sm90_cluster<HD, DROP>;
-  const size_t smem = KvSmem<HD, false, true>::kBytes;
+  const auto kernel = flash_bwd_kv_kernel_sm90_cluster<HD, FUSED, DROP>;
+  const size_t smem = KvSmem<HD, FUSED, true>::kBytes;
   cudaError_t err = allow_smem(kernel, smem);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
@@ -996,28 +999,21 @@ cudaError_t bwd_kv_cluster_sm90(const Args& a, const CUtensorMap& qkv_map,
   cfg.gridDim = dim3((unsigned)(clusters * a.cluster));
   err = cudaLaunchKernelEx(&cfg, kernel, qkv_map, do_map,
                            static_cast<const float2*>(a.stats),
-                           static_cast<bf16*>(a.out), a.B, a.S, a.H,
-                           a.H / a.KV, a.scale, a.scale * kLog2e, a.causal,
-                           a.drop);
+                           static_cast<bf16*>(a.out), a.dq_acc, a.turn, a.B,
+                           a.S, a.H, a.H / a.KV, a.scale, a.scale * kLog2e,
+                           a.causal, a.drop);
   if (err) return err;
   return cudaGetLastError();
 }
 
-// the pre-pass (unless the caller ran it; the fused walk always runs it),
-// then the walk on a persistent grid (of clusters past 8 q heads a kv head)
+// up to 8 q heads a kv head: a CTA an item on a persistent grid of at most
+// one CTA an SM
 template <int HD, bool FUSED, bool DROP>
-cudaError_t bwd_kv_sm90(const Args& a) {
-  cudaError_t err =
-      a.have_stats && !FUSED ? cudaSuccess : bwd_stats<HD>(a);
-  if (err) return err;
-  CUtensorMap qkv_map, do_map;
-  err = packed_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
-  if (!err) err = packed_map(&do_map, a.dout, a.H * HD, a.S, a.B);
-  if (err) return err;
-  if (!FUSED && a.cluster > 1)
-    return bwd_kv_cluster_sm90<HD, DROP>(a, qkv_map, do_map);
+cudaError_t bwd_kv_one_sm90(const Args& a, const CUtensorMap& qkv_map,
+                            const CUtensorMap& do_map) {
   const size_t smem = KvSmem<HD, FUSED>::kBytes;
-  err = allow_smem(flash_bwd_kv_kernel_sm90<HD, FUSED, DROP>, smem);
+  cudaError_t err = allow_smem(flash_bwd_kv_kernel_sm90<HD, FUSED, DROP>,
+                               smem);
   if (err) return err;
   int sms = 0;
   err = sm_count(&sms);
@@ -1030,7 +1026,24 @@ cudaError_t bwd_kv_sm90(const Args& a) {
       qkv_map, do_map, static_cast<const float2*>(a.stats),
       static_cast<bf16*>(a.out), a.dq_acc, a.turn, a.B, a.S, a.H,
       a.H / a.KV, a.scale, a.scale * kLog2e, a.causal, a.drop);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// the pre-pass (unless the caller ran it; the fused walk always runs it),
+// then the walk on a persistent grid (of clusters past 8 q heads a kv
+// head), then the fused walk's dq cast
+template <int HD, bool FUSED, bool DROP>
+cudaError_t bwd_kv_sm90(const Args& a) {
+  cudaError_t err =
+      a.have_stats && !FUSED ? cudaSuccess : bwd_stats<HD>(a);
+  if (err) return err;
+  CUtensorMap qkv_map, do_map;
+  err = packed_map(&qkv_map, a.qkv, (a.H + 2 * a.KV) * HD, a.S, a.B);
+  if (!err) err = packed_map(&do_map, a.dout, a.H * HD, a.S, a.B);
+  if (err) return err;
+  err = a.cluster > 1
+            ? bwd_kv_cluster_sm90<HD, FUSED, DROP>(a, qkv_map, do_map)
+            : bwd_kv_one_sm90<HD, FUSED, DROP>(a, qkv_map, do_map);
   if (err || !FUSED) return err;
   const size_t n = (size_t)a.B * a.S * a.H * HD / 2;
   const int blocks = (int)((n + 255) / 256 < 65535 ? (n + 255) / 256 : 65535);
@@ -1043,29 +1056,25 @@ enum Which { kFwd, kStats, kDq, kDkv, kFused };
 
 // The routes. The caller picks one (ops/flash_attention.py::_sm90_route)
 // and passes it as `sm90`, since its scratch layouts depend on it: the
-// Hopper kernels, built for bf16 at hd 64 or 128, at any group size but
-// for the fused backward's at most 8 q heads per kv head (sm90_takes; a
-// launch asking for them elsewhere is refused), or the mma.sync/FFMA
-// kernels of the first half, which take every shape (f32 and bf16, hd 1
-// to 256, any group), instantiated at the head-dim tiers of hd_tier and
-// masking the runtime hd. K1 and K2a run a CTA per q tile of a head
-// whatever G; K2b past 8 q heads a kv head splits the group over a
-// cluster of `cluster` CTAs (1, 2, 4 or 8, at most G; 1 on every other
-// kernel and route), summed in rank order; the mma.sync dk/dv walk sums
-// a group's G heads inside the CTA in head order. So no group size needs
-// atomics.
-constexpr int kFusedMaxG = 8;
-
-bool sm90_takes(int dtype, Which w, const Args& a) {
-  return dtype == 1 && (a.hd == 64 || a.hd == 128) &&
-         (w != kFused || a.H / a.KV <= kFusedMaxG);
+// Hopper kernels, built for bf16 at hd 64 or 128 at any group size
+// (sm90_takes; a launch asking for them elsewhere is refused), or the
+// mma.sync/FFMA kernels of the first half, which take every shape (f32
+// and bf16, hd 1 to 256, any group), instantiated at the head-dim tiers
+// of hd_tier and masking the runtime hd. K1 and K2a run a CTA per q tile
+// of a head whatever G; K2b and the fused K2 past 8 q heads a kv head
+// split the group over a cluster of `cluster` CTAs (1, 2, 4 or 8, at most
+// G; 1 on every other kernel and route), summed in rank order; the
+// mma.sync dk/dv walk sums a group's G heads inside the CTA in head order.
+// So no group size needs atomics.
+bool sm90_takes(int dtype, const Args& a) {
+  return dtype == 1 && (a.hd == 64 || a.hd == 128);
 }
 
 bool cluster_ok(int sm90, Which w, const Args& a) {
   const int c = a.cluster;
   if (c == 1) return true;
-  return sm90 && w == kDkv && (c == 2 || c == 4 || c == 8) &&
-         c <= a.H / a.KV;
+  return sm90 && (w == kDkv || w == kFused) &&
+         (c == 2 || c == 4 || c == 8) && c <= a.H / a.KV;
 }
 
 template <int HD, bool DROP>
@@ -1109,7 +1118,7 @@ cudaError_t dispatch_tier(Which w, const Args& a) {
 template <bool DROP>
 cudaError_t dispatch(int dtype, int sm90, Which w, const Args& a) {
   if (sm90) {
-    if (!sm90_takes(dtype, w, a)) return cudaErrorInvalidValue;
+    if (!sm90_takes(dtype, a)) return cudaErrorInvalidValue;
     return a.hd == 64 ? dispatch_sm90<64, DROP>(w, a)
                       : dispatch_sm90<128, DROP>(w, a);
   }
@@ -1211,9 +1220,10 @@ extern "C" int nk_flash_bwd_dkv_qkv(int dtype, int sm90, const void* qkv,
 // all of dqkv (B, S, W); dq is summed over k tiles in a fixed order, so the
 // result is the same bits every run. The Hopper route: stats as above
 // (always filled here), dq_acc f32 (B, H, ceil(S / 64), 64, hd + 8) scratch
-// and turn, int32 (B, H, ceil(S / 64)) that the caller zeroes. The other
-// route: dq_acc f32 (B, S, H hd) scratch and turn, int32 (B, H, ceil(S /
-// 32)) that the caller zeroes (stats unused).
+// and turn, int32 (B, H, ceil(S / 64)) that the caller zeroes; cluster as
+// for dk/dv (ops/flash_attention.py::fused_plan). The other route: dq_acc
+// f32 (B, S, H hd) scratch and turn, int32 (B, H, ceil(S / 32)) that the
+// caller zeroes (stats unused), cluster 1.
 extern "C" int nk_flash_bwd_fused_qkv(int dtype, int sm90, const void* qkv,
                                       const void* o, const void* lse,
                                       const void* dout, void* stats,
@@ -1222,11 +1232,12 @@ extern "C" int nk_flash_bwd_fused_qkv(int dtype, int sm90, const void* qkv,
                                       float scale, int causal,
                                       unsigned long long seed,
                                       unsigned threshold, float inv_keep,
-                                      void* stream) {
+                                      int cluster, void* stream) {
   Args a{qkv, o, lse, dout, dqkv, nullptr, static_cast<float*>(dq_acc),
          stats, static_cast<int*>(turn), 0,
          B, S, H, KV, hd, causal, 0, scale,
          static_cast<cudaStream_t>(stream),
          dropout_of(seed, threshold, inv_keep)};
+  a.cluster = cluster;
   return run(dtype, sm90, kFused, a);
 }

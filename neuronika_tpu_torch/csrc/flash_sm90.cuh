@@ -549,10 +549,14 @@ struct KvSmem {
   static constexpr uint32_t kOffStats =
       kOffDS + (FUSED ? panel_bytes(kBN) : 0);
   static constexpr uint32_t kOffDQ = kOffStats + kStages * kBQh * 8;
-  // CLUSTER: one f32 partial (dK or dV) of the CTA's kBN k rows
-  static constexpr uint32_t kOffStage =
-      kOffDQ + (FUSED ? 2 * kBQh * LDQ * 4 : 0);
-  static constexpr uint32_t kOffBar = kOffStage + (CLUSTER ? kBN * HD * 4 : 0);
+  static constexpr uint32_t kDQ = FUSED ? 2 * kBQh * LDQ * 4 : 0;
+  // CLUSTER: one f32 partial (dK or dV) of the CTA's kBN k rows; FUSED
+  // and CLUSTER: in the two dq buffers, which are larger (kv_walk)
+  static constexpr uint32_t kStage = CLUSTER ? kBN * HD * 4 : 0;
+  static_assert(!(FUSED && CLUSTER) || kStage <= kDQ, "stage past dq");
+  static constexpr uint32_t kOffStage = kOffDQ;
+  static constexpr uint32_t kOffBar =
+      kOffDQ + (kStage > kDQ ? kStage : kDQ);
   static constexpr size_t kBytes =
       kOffBar + 8 * (6 + 2 * kStages + (CLUSTER ? 3 : 0)) + 1024;
 };
@@ -604,11 +608,11 @@ struct KvItem {
 // L2. No deadlock: an item waits only on the item before it (same b, g, k
 // tile kt - 1), and each CTA takes its items in order, so the lowest
 // unfinished item can always run.
-// CLUSTER (not FUSED; the packed layout's K2b past 8 q heads a kv head)
-// runs an item on a cluster of C CTAs, launched as a persistent grid of
-// whole clusters: CTA r walks the group's heads [r G / C, (r + 1) G / C)
-// in head order, each for the item's q tiles. Rank 0 loads the item's K
-// and V once, by TMA multicast into every CTA of the cluster, when all C
+// CLUSTER (the packed layout past 8 q heads a kv head: K2b, and with FUSED
+// the fused K2) runs an item on a cluster of C CTAs, launched as a
+// persistent grid of whole clusters: CTA r walks the group's heads [r G /
+// C, (r + 1) G / C), each for the item's q tiles. Rank 0 loads the item's
+// K and V once, by TMA multicast into every CTA of the cluster, when all C
 // have freed their buffers and announced the bytes (kv_free). After its
 // walk each CTA but rank 0 stages its partial dK as f32 in its own shared
 // memory (kStage: a consumer thread's 16-byte chunk j at 16 (256 j + t)
@@ -620,14 +624,50 @@ struct KvItem {
 // read its stage before it moves on or exits, and rank 0 waits for every
 // arrival on its barriers, so no CTA's shared memory is touched after it
 // exits.
+// FUSED and CLUSTER together: each CTA computes dQ for its own heads and
+// its writer warp keeps the turn chain of those (b, h, q tile)s as above;
+// the turns and the dq scratch are those of the one-CTA walk. Three
+// changes:
+//   * the stage lies in the two dq buffers. At hd 128 the one-CTA fused
+//     walk already holds ~213 KB (K, V 64; the Q and dO rings 64; dS^T 16;
+//     dq 68), so a separate 64 KB stage would pass the 227 KB cap; halves
+//     (32 KB) would too. Aliasing the Q/dO ring would stop the producer
+//     from loading the next item's first tiles during the reduction, while
+//     the dq buffers are idle then anyway: at the end of an item the
+//     writer finishes its last tile at once (waits for its bulk add and
+//     passes the turn) instead of when the next tile is staged, and every
+//     rank but 0 waits for both buffers to be free before it stages.
+//   * the walk is q-tile-major: every head of the CTA's share at q tile
+//     qt, then at qt - 1. Head-major, item kt - 1 walks two more q tiles a
+//     head than item kt (causal), so at each head it falls further behind
+//     and the chain holds every item of a (b, g) until its k tile 0 has
+//     reached the last head. Q-tile-major, (head, q tile) is the same step
+//     of every item's walk, and item kt trails item kt - 1 by about one
+//     step, then ends when its own walk does.
+//   * the clusters take the rows of `stride` items forth and back: item n
+//     stride + x on cluster x for even n, on cluster stride - 1 - x for
+//     odd n. Under a causal mask the items of a (b, g) run from 2 n_kt q
+//     tiles a head (kt 0) down to 2; dealt round robin, the cluster that
+//     draws k tile 0 of one (b, g) tends to draw it of the next, and sums
+//     twice the mean walk; dealt forth and back, the long walks of one row
+//     meet the short of the next.
+// No deadlock, clusters included: an item's rank r waits only on rank r
+// of the item before it (same b, g, k tile kt - 1: a lower index); rank
+// 0's kv_free waits for the cluster's own previous item, and the
+// reduction for the ranks of the same item; every cluster of the grid is
+// resident (sized by occupancy) and takes its items in increasing order
+// (forth and back keeps that: row n + 1's items all lie above row n's).
+// So the lowest unfinished item can always run.
 template <int HD, bool FUSED, bool DROPOUT, class Tiles, bool CLUSTER = false>
 __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
                                         float* __restrict__ dq_acc,
                                         int* __restrict__ dq_turn,
                                         float scale, float qscale,
                                         const Dropout& drop) {
-  static_assert(!(CLUSTER && FUSED), "the fused walk runs one CTA an item");
   using Sm = KvSmem<HD, FUSED, CLUSTER>;
+  // FUSED and CLUSTER: the walk q-tile-major, the items dealt forth and
+  // back (above)
+  constexpr bool kQMajor = FUSED && CLUSTER;
   constexpr int P = Sm::P;
   unsigned char* Ks = smem;
   unsigned char* Vs = smem + Sm::kOffV;
@@ -660,6 +700,15 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
   const int rank = CLUSTER ? (int)cluster_rank() : 0;
   const int first = blockIdx.x / C, stride = gridDim.x / C;
   const int m0 = rank * G / C, m1 = (rank + 1) * G / C;
+  // the cluster's n-th item (n_items or more past its last)
+  auto item_at = [&](int n) {
+    return n * stride + (kQMajor && (n & 1) ? stride - 1 - first : first);
+  };
+  // a walk of n_q q tiles a head takes (m1 - m0) n_q steps, `so` outer
+  // and `si` inner: the head m0 + si and the q tile so (kQMajor), else the
+  // head m0 + so and the q tile si
+  auto outer = [&](int n_q) { return kQMajor ? n_q : m1 - m0; };
+  auto inner = [&](int n_q) { return kQMajor ? m1 - m0 : n_q; };
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     mbar_init(kv_empty, kConsumers);
@@ -689,8 +738,8 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
     regs_dec<Tiles::kRegsProducer>();
     const int pw = (threadIdx.x - kConsumers) / 32, lane = threadIdx.x % 32;
     if (pw == kTmaWarp && lane == 0) {
-      int it = 0, n = 0;
-      for (int item = first; item < n_items; item += stride, ++n) {
+      int it = 0;
+      for (int n = 0, item = first; item < n_items; item = item_at(++n)) {
         const KvItem w = KvItem::of<FUSED>(t, item, n_kt);
         mbar_wait(kv_empty, (n & 1) ^ 1);
         mbar_expect_tx(kv_full, 2 * Sm::kKV);
@@ -706,10 +755,12 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
           t.template k_tile<kBN>(Ks, kv_full, w.b, w.g, w.kt * kBN);
           t.template v_tile<kBN>(Vs, kv_full, w.b, w.g, w.kt * kBN);
         }
-        for (int mem = m0; mem < m1; ++mem) {
-          const int h = w.g * G + mem;
-          for (int qq = 0; qq < w.qt1 - w.qt0; ++qq, ++it) {
-            const int s = it % kStages, i0 = w.qt<FUSED>(qq) * kBQh;
+        const int n_q = w.qt1 - w.qt0;
+        for (int so = 0; so < outer(n_q); ++so) {
+          for (int si = 0; si < inner(n_q); ++si, ++it) {
+            const int h = w.g * G + m0 + (kQMajor ? si : so);
+            const int s = it % kStages;
+            const int i0 = w.qt<FUSED>(kQMajor ? so : si) * kBQh;
             mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
             mbar_expect_tx(full + s,
                            2 * Sm::kQ + t.stats_tx(w.b, h, i0, kBQh));
@@ -722,12 +773,14 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
       }
     } else if (Tiles::kStatsWarp && pw == kStatsWarpId) {
       int it = 0;
-      for (int item = first; item < n_items; item += stride) {
+      for (int n = 0, item = first; item < n_items; item = item_at(++n)) {
         const KvItem w = KvItem::of<FUSED>(t, item, n_kt);
-        for (int mem = m0; mem < m1; ++mem) {
-          const int h = w.g * G + mem;
-          for (int qq = 0; qq < w.qt1 - w.qt0; ++qq, ++it) {
-            const int s = it % kStages, i0 = w.qt<FUSED>(qq) * kBQh;
+        const int n_q = w.qt1 - w.qt0;
+        for (int so = 0; so < outer(n_q); ++so) {
+          for (int si = 0; si < inner(n_q); ++si, ++it) {
+            const int h = w.g * G + m0 + (kQMajor ? si : so);
+            const int s = it % kStages;
+            const int i0 = w.qt<FUSED>(kQMajor ? so : si) * kBQh;
             mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
             t.stats(stats_s + s * kBQh, full + s, w.b, h, i0, kBQh, lane);
             mbar_arrive(full + s);
@@ -737,8 +790,9 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
     } else if (FUSED && pw == kWriterWarp) {
       // the dq writer warp. A tile's adds are finished (waited for, turn
       // passed on, buffer freed) once the next tile is staged, so they fly
-      // while the consumers compute; and always before the writer waits
-      // for a turn, so that it never holds one back while it waits.
+      // while the consumers compute (with CLUSTER an item's last tile at
+      // the item's end); and always before the writer waits for a turn, so
+      // that it never holds one back while it waits.
       const int wl = lane;
       int it = 0, prev_kt = -1;
       int* prev_turn = nullptr;
@@ -751,12 +805,13 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
           mbar_arrive(dq_empty + buf);
         }
       };
-      for (int item = first; item < n_items; item += stride) {
+      for (int n = 0, item = first; item < n_items; item = item_at(++n)) {
         const KvItem w = KvItem::of<FUSED>(t, item, n_kt);
-        for (int mem = m0; mem < m1; ++mem) {
-          const int h = w.g * G + mem;
-          for (int qq = 0; qq < w.qt1 - w.qt0; ++qq, ++it) {
-            const int buf = it % 2, qt = w.qt<FUSED>(qq);
+        const int n_q = w.qt1 - w.qt0;
+        for (int so = 0; so < outer(n_q); ++so) {
+          for (int si = 0; si < inner(n_q); ++si, ++it) {
+            const int h = w.g * G + m0 + (kQMajor ? si : so);
+            const int buf = it % 2, qt = w.qt<FUSED>(kQMajor ? so : si);
             int* turn = dq_turn + ((size_t)w.b * t.H + h) * n_qt + qt;
             mbar_wait(dq_full + buf, (it / 2) & 1);
             if (prev_turn) finish(buf ^ 1);
@@ -778,6 +833,10 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
             prev_kt = w.kt;
           }
         }
+        if constexpr (CLUSTER) {  // the stage reuses the dq buffers: free
+          if (prev_turn) finish((it - 1) % 2);  // them with the item
+          prev_turn = nullptr;
+        }
       }
       if (prev_turn) finish((it - 1) % 2);
     }
@@ -786,8 +845,8 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int r = lane >> 2, c = (lane & 3) * 2;
     const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
-    int it = 0, n = 0;
-    for (int item = first; item < n_items; item += stride, ++n) {
+    int it = 0;
+    for (int n = 0, item = first; item < n_items; item = item_at(++n)) {
       const KvItem w = KvItem::of<FUSED>(t, item, n_kt);
       const int jw = w.kt * kBN + wg * 64;  // this warpgroup's first key
       const int krow0 = jw + warp * 16 + r;  // and krow0 + 8
@@ -798,10 +857,12 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
         for (int i = 0; i < 32; ++i) dk[p][i] = dv[p][i] = 0.f;
       mbar_wait(kv_full, n & 1);
 
-      for (int mem = m0; mem < m1; ++mem) {
-        for (int qq = 0; qq < w.qt1 - w.qt0; ++qq, ++it) {
+      const int n_q = w.qt1 - w.qt0;
+      for (int so = 0; so < outer(n_q); ++so) {
+        for (int si = 0; si < inner(n_q); ++si, ++it) {
+          const int mem = m0 + (kQMajor ? si : so);
           const int s = it % kStages, ph = (it / kStages) & 1;
-          const int i0 = w.qt<FUSED>(qq) * kBQh;
+          const int i0 = w.qt<FUSED>(kQMajor ? so : si) * kBQh;
           if (!FUSED && band.none(i0, kBQh, jw, 64)) {  // as in dq_walk
             mbar_wait(full + s, ph);
             mbar_arrive(empty + s);
@@ -933,6 +994,10 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
       mbar_arrive(kv_empty);
       if constexpr (CLUSTER) {
         const int tid = threadIdx.x;  // 0 .. kConsumers - 1
+        if (FUSED && rank != 0) {  // the stage is the dq buffers: both free
+          mbar_wait(dq_empty + it % 2, ((it / 2) & 1) ^ 1);
+          mbar_wait(dq_empty + (it + 1) % 2, (((it + 1) / 2) & 1) ^ 1);
+        }
         // part 0 sums dK, part 1 dV; each completes one phase of red_full
         // (rank 0) and of red_free (the others), so its parity is `part`
         auto reduce = [&](float (&a)[P][32], int part) {

@@ -35,9 +35,9 @@ f32 and bf16, every head dim from 1 to 256 and any number of query heads
 per kv head, as JAX's kernels take them; f16 and head dims above 256
 raise `NotImplementedError` (ROADMAP.md queue 1 item 3). Two routes
 (`_sm90_route`): bf16 at hd 64 or 128 runs the Hopper kernels (wgmma,
-TMA) at any group size, but the fused backward only up to 8 query heads
-per kv head; past 8, K2b splits each group over a cluster of CTAs
-(`dkv_plan`). Every other shape runs the mma.sync/FFMA kernels,
+TMA) at any group size; past 8 query heads per kv head, K2b and the
+fused backward split each group over a cluster of CTAs (`dkv_plan`,
+`fused_plan`). Every other shape runs the mma.sync/FFMA kernels,
 instantiated at head-dim tiers that mask the runtime hd. CPU tensors take
 the plain versions below, which use the kernels' own math (exp2 domain,
 `p` and `ds` rounded to the input dtype before their products) and keep
@@ -62,14 +62,15 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# the Hopper kernels' shapes (csrc/flash_attention_qkv.cu::sm90_takes):
-# the fused backward's walk takes at most 8 query heads per kv head
+# the Hopper kernels' head dims (csrc/flash_attention_qkv.cu::sm90_takes)
 _SM90_HEAD_DIMS = (64, 128)
-_SM90_FUSED_MAX_G = 8
-# K2b's cluster plan (csrc/flash_sm90.cuh::kv_walk, CLUSTER): k rows an
-# item, the cluster sizes it takes (the portable limit is 8) and the SMs
-# of an H100 SXM, the plan's default card
+# the cluster plans of K2b and the fused K2 (csrc/flash_sm90.cuh::kv_walk,
+# CLUSTER): the most query heads per kv head an item runs on one CTA, k
+# and q rows a tile, the cluster sizes the walk takes (the portable limit
+# is 8) and the SMs of an H100 SXM, the plans' default card
+DKV_ONE_CTA_MAX_G = 8
 DKV_BN = 128
+DKV_BQ = 64
 DKV_CLUSTERS = (2, 4, 8)
 H100_SMS = 132
 
@@ -80,15 +81,13 @@ def kernels_take(dtype, hd: int) -> bool:
     return dtype in _DTYPES and 1 <= hd <= MAX_HEAD_DIM
 
 
-def _sm90_route(dtype, hd: int, G: int = 1, fused: bool = False) -> bool:
-    """True where the Hopper kernels run (bf16, hd 64 or 128; any G, but
-    the fused backward at most 8 query heads per kv head); else the
-    mma.sync/FFMA kernels. The one place the route is chosen: it decides
-    the scratch layouts and operand copies here and is passed to every
-    launch as `sm90`, which the CUDA side dispatches on (and refuses where
-    the Hopper kernels are not built)."""
-    return dtype == torch.bfloat16 and hd in _SM90_HEAD_DIMS \
-        and (not fused or G <= _SM90_FUSED_MAX_G)
+def _sm90_route(dtype, hd: int) -> bool:
+    """True where the Hopper kernels run (bf16, hd 64 or 128, any group
+    size); else the mma.sync/FFMA kernels. The one place the route is
+    chosen: it decides the scratch layouts and operand copies here and is
+    passed to every launch as `sm90`, which the CUDA side dispatches on
+    (and refuses where the Hopper kernels are not built)."""
+    return dtype == torch.bfloat16 and hd in _SM90_HEAD_DIMS
 
 
 def dkv_cluster(B: int, KV: int, S: int, G: int, sms: int = H100_SMS) -> int:
@@ -96,7 +95,7 @@ def dkv_cluster(B: int, KV: int, S: int, G: int, sms: int = H100_SMS) -> int:
     head; past that the least of 2 and 4 whose CTAs (items x C, an item
     being a 128-row k tile of one batch and kv head) fill two waves of
     `sms` SMs, else 8."""
-    if G <= _SM90_FUSED_MAX_G:
+    if G <= DKV_ONE_CTA_MAX_G:
         return 1
     items = -(-S // DKV_BN) * B * KV
     return next((c for c in DKV_CLUSTERS[:-1] if items * c >= 2 * sms),
@@ -114,6 +113,52 @@ def dkv_plan(B: int, KV: int, S: int, G: int, sms: int = H100_SMS):
     items = [(i // (B * KV), i % (B * KV) // KV, i % KV, heads)
              for i in range(-(-S // DKV_BN) * B * KV)]
     return C, items
+
+
+def fused_cluster(B: int, KV: int, S: int, G: int,
+                  sms: int = H100_SMS) -> int:
+    """The fused K2's CTAs an item on the Hopper route: K2b's rule
+    (`dkv_cluster`), as its items are K2b's."""
+    return dkv_cluster(B, KV, S, G, sms)
+
+
+def fused_plan(B: int, KV: int, S: int, G: int, causal: bool = True,
+               sms: int = H100_SMS, clusters: Optional[int] = None):
+    """The fused K2's work on the Hopper route, as `kv_walk` (FUSED) takes
+    it: (C, items, deal). `items` in the kernel's item order ((b, g)-major,
+    k tiles ascending), each (kt, b, g, walks): walks[r] the (head of the
+    group, 64-row q tile) steps of CTA r of the item's cluster, in order.
+    C 1 (up to 8 query heads a kv head): one walk, head-major, each head's
+    q tiles from the last down. C > 1: CTA r takes the heads [r G / C, (r
+    + 1) G / C), q-tile-major (every head of its share at the last q tile,
+    then at the one before). `deal[c]`: the item indices persistent CTA
+    (C 1) or cluster c takes, in order, when `clusters` of them are
+    resident (default: `sms` // C, the most a card of `sms` SMs holds):
+    round robin at C 1, item i on i % clusters; past that forth and back,
+    the n-th row of `clusters` items dealt to clusters 0, 1, .. for even n
+    and in reverse for odd n."""
+    C = fused_cluster(B, KV, S, G, sms)
+    R = clusters or sms // C
+    n_kt, n_qt = -(-S // DKV_BN), -(-S // DKV_BQ)
+    shares = [range(r * G // C, (r + 1) * G // C) for r in range(C)]
+    items = []
+    for b in range(B):
+        for g in range(KV):
+            for kt in range(n_kt):
+                qts = range(n_qt - 1, kt * DKV_BN // DKV_BQ - 1 if causal
+                            else -1, -1)
+                walks = tuple(
+                    tuple((m, qt) for m in heads for qt in qts) if C == 1
+                    else tuple((m, qt) for qt in qts for m in heads)
+                    for heads in shares)
+                items.append((kt, b, g, walks))
+    deal = [[] for _ in range(R)]
+    for n in range(-(-len(items) // R)):
+        for x in range(R):
+            i = n * R + x
+            if i < len(items):
+                deal[R - 1 - x if C > 1 and n % 2 else x].append(i)
+    return C, items, deal
 
 
 def _route(fn, sm90: bool, cluster: int = 1) -> None:
@@ -494,7 +539,7 @@ def flash_fwd_qkv(qkv, n_head, n_kv_head=0, causal=True, scale=None,
     out = torch.empty((B, S, n_head * hd), dtype=qkv.dtype,
                       device=qkv.device)
     lse = torch.empty((B, n_head, S), dtype=torch.float32, device=qkv.device)
-    sm90 = _sm90_route(qkv.dtype, hd, n_head // KV)
+    sm90 = _sm90_route(qkv.dtype, hd)
     with torch.cuda.device(qkv.device):
         _launch(lib.nk_flash_fwd_qkv, "flash_fwd_qkv", _DTYPES[qkv.dtype],
                 int(sm90), qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -505,12 +550,12 @@ def flash_fwd_qkv(qkv, n_head, n_kv_head=0, causal=True, scale=None,
     return out, lse
 
 
-def _bwd_stats(qkv, n_head, n_kv_head, fused=False):
+def _bwd_stats(qkv, n_head, n_kv_head):
     """The Hopper route's backward (lse, delta) scratch, (B, H, S padded to
     64, 2) f32, which its pre-pass fills; the other route needs none
-    (None). `fused`: for the fused backward's route."""
+    (None)."""
     B, S, _, KV, hd = _qkv_geometry(qkv, n_head, n_kv_head)
-    if not _sm90_route(qkv.dtype, hd, n_head // KV, fused):
+    if not _sm90_route(qkv.dtype, hd):
         return None
     return torch.empty((B, n_head, -(-S // 64) * 64, 2), dtype=torch.float32,
                        device=qkv.device)
@@ -557,7 +602,7 @@ def _split_bwd(fn, qkv, out, lse, do, d_qkv, n_head, n_kv_head, causal,
     from .._build import load_library
 
     G = n_head // KV
-    sm90 = _sm90_route(qkv.dtype, hd, G)
+    sm90 = _sm90_route(qkv.dtype, hd)
     cluster = []
     if fn is flash_bwd_dkv_qkv:
         sms = torch.cuda.get_device_properties(
@@ -600,16 +645,17 @@ def flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, n_head, n_kv_head=0,
 def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
                         scale=None, seed=0, rate=0.0):
     """K2c/K2d on the card: all of d_qkv (B, S, W) from one walk, with the
-    forward's dropout (`seed`, `rate`). The k tiles add their dq terms in a
-    fixed order (turn counters), so the result is the same bits from run
-    to run, in f32 and in bf16. Adds one to
-    `flash_bwd_fused_qkv.launches`."""
+    forward's dropout (`seed`, `rate`); on the Hopper route past 8 query
+    heads a kv head each item runs on a cluster (`fused_plan`). The k
+    tiles add their dq terms in a fixed order (turn counters), so the
+    result is the same bits from run to run, in f32 and in bf16. Adds one
+    to `flash_bwd_fused_qkv.launches`; records the route."""
     B, S, W, KV, hd = _bwd_operands(qkv, out, lse, do, n_head, n_kv_head)
     drop = _drop(seed, rate)
     from .._build import load_library
 
     d_qkv = torch.empty_like(qkv)
-    stats = _bwd_stats(qkv, n_head, n_kv_head, fused=True)
+    stats = _bwd_stats(qkv, n_head, n_kv_head)
     if stats is None:   # mma.sync/FFMA: 32-row q tiles, dq rows as in d_qkv
         dq_acc = torch.empty((B, S, n_head * hd), dtype=torch.float32,
                              device=qkv.device)
@@ -620,16 +666,21 @@ def flash_bwd_fused_qkv(qkv, out, lse, do, n_head, n_kv_head=0, causal=True,
                              dtype=torch.float32, device=qkv.device)
     turn = torch.zeros((B, n_head, n_qt), dtype=torch.int32,
                        device=qkv.device)
+    sm90 = stats is not None
+    cluster = 1
+    if sm90:
+        cluster = fused_cluster(B, KV, S, n_head // KV,
+                                torch.cuda.get_device_properties(
+                                    qkv.device).multi_processor_count)
     with torch.cuda.device(qkv.device):
         _launch(load_library().nk_flash_bwd_fused_qkv,
-                "flash_bwd_fused_qkv", _DTYPES[qkv.dtype],
-                int(stats is not None), qkv.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), do.data_ptr(), _ptr(stats),
-                dq_acc.data_ptr(), _ptr(turn), d_qkv.data_ptr(), B, S,
-                n_head, KV, hd, _scale(scale, hd), int(causal), *drop,
-                _stream(qkv))
+                "flash_bwd_fused_qkv", _DTYPES[qkv.dtype], int(sm90),
+                qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                do.data_ptr(), _ptr(stats), dq_acc.data_ptr(), _ptr(turn),
+                d_qkv.data_ptr(), B, S, n_head, KV, hd, _scale(scale, hd),
+                int(causal), *drop, cluster, _stream(qkv))
     flash_bwd_fused_qkv.launches += 1
-    _route(flash_bwd_fused_qkv, stats is not None)
+    _route(flash_bwd_fused_qkv, sm90, cluster)
     return d_qkv
 
 

@@ -8,8 +8,9 @@ with learned positions; PagedBatcher's greedy tokens against JAX's at hd
 96 and G 16; the gates that send these shapes to the kernels on the card
 (`kernels_take`, `_sm90_route`, `_use_flash`, `_attn_use_kernel`, the
 paged kernel's checks) and refuse a head dim above 256 under "on"; and
-K2b's cluster plan past 8 query heads a kv head (`dkv_plan`). f32;
-params from the JAX tree, tokens from numpy."""
+the cluster plans of K2b and the fused K2 past 8 query heads a kv head
+(`dkv_plan`, `fused_plan`). f32; params from the JAX tree, tokens from
+numpy."""
 
 import types
 
@@ -103,14 +104,15 @@ def _on_card(dtype, *shape):
 def test_gates_send_every_head_dim_and_group_to_the_kernels(hd, G):
     """f32 and bf16 at hd 8-256 and any G: the model's flash gate, the Var
     op's and the paged kernel's checks all take the shape; bf16 at hd
-    64/128 runs the Hopper K1, K2a and K2b at any G, the Hopper fused K2
-    only with G <= 8."""
+    64/128 runs the Hopper K1, K2a, K2b and fused K2 at any G, K2b and the
+    fused K2 past G 8 on a cluster."""
     for dtype in (torch.float32, torch.bfloat16):
         assert FA.kernels_take(dtype, hd)
         hopper = dtype == torch.bfloat16 and hd in (64, 128)
-        assert FA._sm90_route(dtype, hd, G) == hopper
-        assert FA._sm90_route(dtype, hd, G, fused=True) == (hopper
-                                                             and G <= 8)
+        assert FA._sm90_route(dtype, hd) == hopper
+        clusters = {FA.dkv_cluster(8, 1, 2048, G),
+                    FA.fused_cluster(8, 1, 2048, G)}
+        assert clusters == ({1} if G <= 8 else {4})
         cfg = TT.GPTConfig(n_head=G * 2, n_kv_head=2, d_model=G * 2 * hd,
                            dtype=dtype, flash="on")
         assert TT._use_flash(cfg, _on_card(dtype))
@@ -203,3 +205,103 @@ def test_dkv_cluster_plan_covers_every_head_once(G, B, KV, S):
     # StarCoderBase-1B's shape (B8 S2048, one kv head, G 16): 128 items
     # on clusters of 4, 512 CTAs
     assert FA.dkv_cluster(8, 1, 2048, 16) == 4
+
+
+FUSED_SHAPES = [(8, 1, 2048, True), (2, 1, 384, False), (2, 2, 257, True),
+                (1, 4, 4096, True), (3, 1, 100, False)]
+
+
+@pytest.mark.parametrize("G", [1, 8, 9, 12, 16, 32])
+@pytest.mark.parametrize("B, KV, S, causal", FUSED_SHAPES)
+def test_fused_plan_shares_every_group(G, B, KV, S, causal):
+    """The fused K2's plan: C 1 up to 8 query heads a kv head, past that 2,
+    4 or 8 and at most G; every (k tile, b, kv head) once, (b, g)-major;
+    the ranks' heads contiguous shares that partition the group, each
+    walking the item's band of q tiles (from the diagonal's tile under a
+    causal mask) once a head, from the last."""
+    C, items, _ = FA.fused_plan(B, KV, S, G, causal)
+    n_kt, n_qt = -(-S // 128), -(-S // 64)
+    if G <= 8:
+        assert C == 1
+    else:
+        assert C in (2, 4, 8) and C <= G
+    assert C == FA.fused_cluster(B, KV, S, G)
+    assert [it[:3] for it in items] == [(kt, b, g) for b in range(B)
+                                        for g in range(KV)
+                                        for kt in range(n_kt)]
+    for kt, _, _, walks in items:
+        assert len(walks) == C
+        qts = list(range(2 * kt if causal else 0, n_qt))
+        shares = [sorted({m for m, _ in w}) for w in walks]
+        assert [m for share in shares for m in share] == list(range(G))
+        for w, share in zip(walks, shares):
+            assert share and share == list(range(share[0], share[-1] + 1))
+            assert sorted(w) == [(m, qt) for m in share for qt in qts]
+            for m in share:    # each head's q tiles from the last down
+                assert [qt for mm, qt in w if mm == m] == qts[::-1]
+
+
+@pytest.mark.parametrize("G", [1, 8, 9, 16, 32])
+@pytest.mark.parametrize("B, KV, S, causal", FUSED_SHAPES)
+def test_fused_plan_chains_dq_in_k_tile_order(G, B, KV, S, causal):
+    """Every (b, q head, q tile) gets its dq terms from k tiles 0 .. n - 1,
+    each from one CTA, in the order of the kernel's item index (the turn
+    counter of kt 0 stores, each later kt adds after the one before); past
+    8 query heads a kv head the walks are q-tile-major, so a (head, q
+    tile) is the same step of every item's walk that holds it (each walk
+    starts at the last q tile)."""
+    C, items, _ = FA.fused_plan(B, KV, S, G, causal)
+    terms, step = {}, {}
+    for i, (kt, b, g, walks) in enumerate(items):
+        for r, w in enumerate(walks):
+            for n, (m, qt) in enumerate(w):
+                terms.setdefault((b, g * G + m, qt), []).append((i, kt, r))
+                step.setdefault((b, g, r, m, qt), set()).add(n)
+    n_qt = -(-S // 64)
+    assert len(terms) == B * KV * G * n_qt
+    for (b, h, qt), got in terms.items():
+        kts = [kt for _, kt, _ in got]
+        assert kts == list(range(len(kts)))
+        assert [i for i, _, _ in got] == sorted(i for i, _, _ in got)
+        assert len(kts) == (min(qt // 2 + 1, -(-S // 128)) if causal
+                            else -(-S // 128))
+        assert len({r for _, _, r in got}) == 1     # the same rank each
+    if C > 1:
+        assert all(len(s) == 1 for s in step.values())
+
+
+@pytest.mark.parametrize("clusters", [1, 2, 5, 16, 32, 33, 66, 200])
+@pytest.mark.parametrize("G", [8, 16])
+def test_fused_deal_runs_every_item_in_order(clusters, G):
+    """The deal of items to the resident CTAs (G 8, round robin) or
+    clusters (G 16, forth and back): each takes its items in increasing
+    order, every item once; and a schedule in which an item starts only
+    once the item before it in its (b, g) chain has finished, each
+    cluster running its items in turn, runs them all (no deadlock)."""
+    B, KV, S = 8, 1, 2048
+    C, items, deal = FA.fused_plan(B, KV, S, G, clusters=clusters)
+    assert len(deal) == clusters
+    assert sorted(i for d in deal for i in d) == list(range(len(items)))
+    assert all(d == sorted(d) for d in deal)
+    if C == 1:
+        assert all(d == list(range(c, len(items), clusters))
+                   for c, d in enumerate(deal))
+    done, pos = set(), [0] * clusters
+    while True:
+        moved = False
+        for c, d in enumerate(deal):
+            if pos[c] < len(d):
+                i = d[pos[c]]
+                kt, b, g, _ = items[i]
+                if kt == 0 or (b, g, kt - 1) in done:
+                    done.add((b, g, kt))
+                    pos[c] += 1
+                    moved = True
+        if not moved:
+            break
+    assert len(done) == len(items)
+    # forth and back: at StarCoderBase-1B's shape on 32 clusters of 4 the
+    # clusters' causal walks (q tiles summed over their items) are level
+    if C > 1 and clusters == 32:
+        work = [sum(len(items[i][3][0]) for i in d) for d in deal]
+        assert max(work) == min(work)

@@ -1,4 +1,4 @@
-"""Sixteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Seventeen measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -111,13 +111,28 @@ make, run on one CUDA card from the root of a checkout:
         the plain versions', SDPA's (k and v repeated) and the bounds
         (chip_smoke.wide_packed_times), with the route each kernel took
         where the checkout records it, and K2b's time at each cluster
-        size 1, 2, 4 and 8 where it has a cluster plan; then the train
-        step at StarCoderBase-1B's widths (full depth, S2048 B8 bf16,
-        flash "on", the GPTConfig defaults; 1 warm-up and 2 timed steps):
-        step time, tokens/s and MFU, and with TABLE_PATH one more step
-        under torch.profiler (chip_smoke.profile_step: device time by
-        kernel kind, the kernel table written there); run it for two
-        checkouts in turns to compare them.
+        size 1, 2, 4 and 8 where it has a cluster plan, the fused K2's
+        likewise where it has one (`fused_cluster`); then the train step
+        at StarCoderBase-1B's widths (full depth, S2048 B8 bf16, flash
+        "on", the GPTConfig defaults, split backward, then the same with
+        flash_bwd "fused"; 1 warm-up and 2 timed steps each): step time,
+        tokens/s and MFU, and with TABLE_PATH one more step of each under
+        torch.profiler (chip_smoke.profile_step: device time by kernel
+        kind, the kernel tables written there, "_fused" before the fused
+        step's extension); run it for two checkouts in turns to compare
+        them;
+    python3 tools/torch_diag.py fused-parts TREE_ROOT
+        where the bf16 fused K2's walk spends its time: copies the
+        checkout's package and chip_smoke.py into temporary directories,
+        takes one part of csrc/flash_sm90.cuh::kv_walk's FUSED walk out of
+        each copy (FUSED_CUTS: the dq writer's bulk stores and adds, its
+        turn waits, both, the dQ = dS K product; their results are wrong
+        and only their times are read), builds all at once, then times
+        the fused K2 of the whole checkout and of each copy in turns
+        (whole, cuts, whole, cuts reversed, whole; the best of two runs
+        of 5 launches each) at StarCoderBase-1B's shape (bf16 B8 S2048 H16
+        KV1 hd128 causal: the cluster walk) and at the headline (B16 H12
+        KV12, fast softmax: one CTA an item).
 """
 
 import functools
@@ -295,40 +310,122 @@ def starcoder(root, table=None):
               f"{b[0]:.4f}; max abs err {e:.3g})"
               for n, (ms, p_ms, lib, b, e) in times.items())
           + f"; routes {json.dumps(routes)}", flush=True)
-    if hasattr(FA, "dkv_cluster"):   # K2b at each cluster size, 1 included
-        qkv, do = cs.flash_case(np.random.default_rng(21), 8, 16, 1, 128,
-                                2048, torch.bfloat16)
-        out, lse = FA.flash_fwd_qkv(qkv, 16, 1)
-        d_qkv = torch.empty_like(qkv)
-        plan, line = FA.dkv_cluster, []
+    # K2b, then the fused K2, at each cluster size (1 included) where the
+    # checkout has the kernel's plan
+    qkv, do = cs.flash_case(np.random.default_rng(21), 8, 16, 1, 128, 2048,
+                            torch.bfloat16)
+    out, lse = FA.flash_fwd_qkv(qkv, 16, 1)
+    d_qkv = torch.empty_like(qkv)
+    for label, attr, fn, run in (
+            ("K2b", "dkv_cluster", FA.flash_bwd_dkv_qkv,
+             lambda: FA.flash_bwd_dkv_qkv(qkv, out, lse, do, d_qkv, 16, 1)),
+            ("the fused K2", "fused_cluster", FA.flash_bwd_fused_qkv,
+             lambda: FA.flash_bwd_fused_qkv(qkv, out, lse, do, 16, 1))):
+        if not hasattr(FA, attr):
+            continue
+        plan, line = getattr(FA, attr), []
         try:
             for c in (1, 2, 4, 8):
-                FA.dkv_cluster = lambda *a, c=c: c
-                ms = min(cs.cuda_ms(lambda: FA.flash_bwd_dkv_qkv(
-                    qkv, out, lse, do, d_qkv, 16, 1), 5) for _ in range(2))
-                line.append(f"{FA.flash_bwd_dkv_qkv.route} {ms:.4f} ms")
+                setattr(FA, attr, lambda *a, c=c: c)
+                ms = min(cs.cuda_ms(run, 5) for _ in range(2))
+                line.append(f"{fn.route} {ms:.4f} ms")
         finally:
-            FA.dkv_cluster = plan
-        print(f"{root}: K2b at StarCoderBase-1B's shape by cluster size "
+            setattr(FA, attr, plan)
+        print(f"{root}: {label} at StarCoderBase-1B's shape by cluster size "
               f"(the plan takes {plan(8, 1, 2048, 16)}): " + "; ".join(line),
               flush=True)
-        del qkv, do, out, lse, d_qkv
+    del qkv, do, out, lse, d_qkv
     torch.cuda.empty_cache()
     B, S = 8, 2048
     batch = cs.lm_batch(np.random.default_rng(1),
                         cs.STARCODER_1B["vocab_size"], B, S)
-    cfg = T.GPTConfig(dtype=torch.bfloat16, flash="on", **cs.STARCODER_1B)
     if table:
         table = os.path.abspath(os.path.join(here, table))
-    losses, launches, step_s, peak, _ = cs.train_steps(
-        T, cs.train_kernels(FA, CE), cfg, 1, 2, batch, cs.WIDE_LR, table,
-        f"one StarCoderBase-1B step of {root}")
-    tok_s = B * S / step_s
-    mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
-    print(f"{root}: StarCoderBase-1B step {step_s * 1e3:.2f} ms, {tok_s:.0f} "
-          f"tokens/s, MFU {mfu:.4f}, peak {peak:.2f} GiB, losses "
-          f"{[round(l, 4) for l in losses]}, launches "
-          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for bwd in ("split", "fused"):
+        cfg = T.GPTConfig(dtype=torch.bfloat16, flash="on", flash_bwd=bwd,
+                          **cs.STARCODER_1B)
+        path = table
+        if table and bwd == "fused":
+            path = "{0}_fused{1}".format(*os.path.splitext(table))
+        losses, launches, step_s, peak, _ = cs.train_steps(
+            T, cs.train_kernels(FA, CE), cfg, 1, 2, batch, cs.WIDE_LR, path,
+            f"one StarCoderBase-1B step of {root}, {bwd} backward")
+        tok_s = B * S / step_s
+        mfu = T.flops_per_token(cfg, S) * tok_s / 989e12
+        print(f"{root}: StarCoderBase-1B step, {bwd} backward, "
+              f"{step_s * 1e3:.2f} ms, {tok_s:.0f} tokens/s, MFU {mfu:.4f}, "
+              f"peak {peak:.2f} GiB, losses {[round(l, 4) for l in losses]}, "
+              f"launches { {k: v for k, v in launches.items() if v} }",
+              flush=True)
+
+
+# kv_walk's FUSED walk with one part taken out (fused-parts): the text of
+# csrc/flash_sm90.cuh each cut replaces with an empty statement
+_BULK = ("                bulk_store(dst, src, kBQh * Sm::LDQ * 4);",
+         "                bulk_add_f32(dst, src, kBQh * Sm::LDQ * 4);")
+_TURN = "              while (ld_acquire(turn) < w.kt) __nanosleep(32);"
+_DQ = ("                wgmma_ss<1, 1>(dq, mnmajor<kBN>(smem_u32(dSt), 0, k),\n"
+       "                               mnmajor<kBN>(k_addr, wg, k), k > 0);")
+FUSED_CUTS = {"no dq adds": _BULK, "no turn waits": (_TURN,),
+              "no writer": _BULK + (_TURN,), "no dQ product": (_DQ,)}
+
+
+def fused_parts(root):
+    import shutil
+    import subprocess
+    import tempfile
+
+    root = os.path.abspath(root)
+    tmp = tempfile.mkdtemp(prefix="fused_parts_")
+    trees = {"whole": root}
+    try:
+        for i, (name, cuts) in enumerate(FUSED_CUTS.items()):
+            tree = os.path.join(tmp, f"cut{i}")
+            shutil.copytree(os.path.join(root, "neuronika_tpu_torch"),
+                            os.path.join(tree, "neuronika_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(os.path.join(root, "chip_smoke.py"), tree)
+            path = os.path.join(tree, "neuronika_tpu_torch", "csrc",
+                                "flash_sm90.cuh")
+            with open(path) as f:
+                text = f.read()
+            for cut in cuts:
+                if text.count(cut) != 1:
+                    sys.exit(f"fused-parts: {name}: the walk no longer "
+                             f"holds {cut!r} once")
+                text = text.replace(cut, "                ;")
+            with open(path, "w") as f:
+                f.write(text)
+            trees[name] = tree
+        build = ("import sys; sys.path.insert(0, '.'); from "
+                 "neuronika_tpu_torch import _build; _build.build()")
+        procs = [subprocess.Popen([sys.executable, "-c", build], cwd=t)
+                 for t in trees.values()]
+        if any(p.wait() for p in procs):
+            sys.exit("fused-parts: a build failed")
+        cuts = list(FUSED_CUTS)
+        for name in ["whole"] + cuts + ["whole"] + cuts[::-1] + ["whole"]:
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "fused-time", trees[name], name], check=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fused_time(root, name):
+    import numpy as np
+
+    root, cs, FA = _tree(root)
+    line = []
+    for B, H, KV, fast in ((8, 16, 1, False), (16, 12, 12, True)):
+        qkv, do = cs.flash_case(np.random.default_rng(21), B, H, KV, 128,
+                                2048, torch.bfloat16)
+        out, lse = FA.flash_fwd_qkv(qkv, H, KV, fast_softmax=fast)
+        ms = min(cs.cuda_ms(lambda: FA.flash_bwd_fused_qkv(
+            qkv, out, lse, do, H, KV), 5) for _ in range(2))
+        line.append(f"B{B} H{H} KV{KV} {ms:.4f} ms "
+                    f"({FA.flash_bwd_fused_qkv.route})")
+        del qkv, do, out, lse
+    print(f"fused K2, {name}: " + "; ".join(line), flush=True)
 
 
 def tiers(root, which):
@@ -915,6 +1012,10 @@ if __name__ == "__main__":
         resnet(sys.argv[2])
     elif sys.argv[1:2] == ["starcoder"] and len(sys.argv) in (3, 4):
         starcoder(*sys.argv[2:])
+    elif sys.argv[1:2] == ["fused-parts"] and len(sys.argv) == 3:
+        fused_parts(sys.argv[2])
+    elif sys.argv[1:2] == ["fused-time"] and len(sys.argv) == 4:
+        fused_time(sys.argv[2], sys.argv[3])
     elif (sys.argv[1:2] == ["tiers"] and len(sys.argv) == 4
           and sys.argv[3] in ("five", "three")):
         tiers(sys.argv[2], sys.argv[3])
