@@ -87,9 +87,11 @@ nvidia-smi. Phases, each printing one line or a few:
      conv_impl "pallas", 224x224 images at batch 64 from a seed, SGD with
      momentum 0.9 and lr 0.1: 2 warm-up and 5 timed steps with a finite,
      falling loss and K12 launched once a conv forward and once a stride-1
-     conv's dx, K13 once a stride-1 conv's dw, every call but the stem's
-     on the Hopper kernels of csrc/conv_sm90.cu (counts derived from the
-     config); step time, images/s, conv MFU, peak memory. One more step
+     conv's dx, K13 once a stride-1 conv's dw, every call on the Hopper
+     kernels of csrc/conv_sm90.cu, the stem's forward after the pre-pass
+     that stacks its taps into channels (counts derived from the config,
+     the pre-pass's too); step time, images/s, conv MFU, peak
+     memory. One more step
      records the operands of every K12 and K13 call at each distinct
      shape (forward, stride-1 dx, dw), and each is held against its plain
      version, bf16 per entry and in norm, with a planted fault in each
@@ -103,7 +105,9 @@ nvidia-smi. Phases, each printing one line or a few:
      bf16 Var 1-d and 3-d convs under "force" on the Hopper K14 and K15,
      their forwards held against their plain versions, the 1-d conv's
      gradients (the library's transposed convolutions) against the plain
-     route's;
+     route's; and the small ResNet of both stems in bf16 on the card, its
+     stem on the stacked K12 (launches held exact, the stem's forward
+     against its plain version);
  15. the define-by-run layer kit (nn, optim, data, utils) on the card
      under use_kernels, launches held exact: the twins of the JAX
      package's quickstart (5 epochs, K3), MNIST CNN (MnistCNN at its class
@@ -220,9 +224,13 @@ Hopper K14 with channel tails, dilation 2, tiles across samples, the
 table's widths at batch 2 and (k - 1) d at the rank-3 corner range's
 32768 (32769 runs csrc/conv.cu), and the Hopper K15 with ragged boxes,
 channel tails, dilation 2 and (k - 1) d at the rank-5 corner range's 16
-(18 runs csrc/conv.cu), each call's kernel counted against conv_route's
-choice) against their plain
-versions in f32 and bf16, and at bench.py's
+(18 runs csrc/conv.cu), and the Hopper K12 at Ci < 8 on stacked taps
+(both ResNet stems at B64, 1, 5 and 7 channels, dilation 2, stride 3x2,
+tails, two panels of stacked channels), each call's kernel counted
+against conv_route's choice, the stacking pre-passes too) against their
+plain versions in f32 and bf16; the stacked K12 at both stems against
+its plain version, twice the same bits, a planted fault, its pre-pass
+bit for bit, timed beside cuDNN and its bound; and at bench.py's
 conv shapes checks them on the Hopper kernels, reads two launches' bits
 (the same) and a planted fault per kernel against the same
 norm bound and times each beside its plain version and one library call
@@ -291,6 +299,11 @@ BF16_TOL = 2e-2
 
 # H100 SXM: HBM bytes/s and dense peaks by operand type (NVIDIA's data
 # sheet; f32 is FFMA outside the tensor cores)
+# the host calls that each put one event on the device's trace
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                "cuMemcpy", "cuMemset")
+# spin kernels that open each profiled window (`profiled`)
+PROFILE_PRIMERS = 64
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the least time for f32-accurate products on this card, whatever computes
@@ -328,23 +341,63 @@ def cuda_ms(fn, iters: int) -> float:
 
 def device_ms(fn, iters: int) -> float:
     """Mean device time of the kernels one fn() launches, from
-    torch.profiler over `iters` calls after 3 warm-up calls: where a
-    call's host work takes longer than its kernels (K11 at decode shapes),
-    back-to-back CUDA events time the host's issue rate instead."""
+    torch.profiler over `iters` calls after 3 warm-up calls (`profiled`):
+    where a call's host work takes longer than its kernels (K11 at decode
+    shapes), back-to-back CUDA events time the host's issue rate
+    instead."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+
     us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+             for e in profiled(calls)[0]
+             if e.device_type == DeviceType.CUDA and not primer(e.key))
     return us / iters / 1e3
+
+
+def primer(name):
+    return "spin_kernel" in name
+
+
+def profiled(run, tries=3):
+    """(key averages, host ms, device events, launch calls) of run() under
+    torch.profiler, its window opened by PROFILE_PRIMERS spin kernels
+    (`primer`; left out of the events and calls counted). In this
+    script's process torch.profiler drops kernel events of a window, most
+    often its first ones, from a few to more than 70 (the ResNet-18 step's
+    first five, the stem's K12 among them, in phase 13's table; PERF.md
+    section 5): the primers take most of those places, and a window whose
+    trace still holds fewer device events than launch calls is taken
+    again, up to `tries` times (the last one is returned as it is)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PRIMERS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        averages = prof.key_averages()
+        events = sum(e.count for e in averages
+                     if e.device_type == DeviceType.CUDA
+                     and not primer(e.key))
+        launched = sum(e.count for e in averages
+                       if e.device_type != DeviceType.CUDA
+                       and e.key.startswith(LAUNCH_CALLS)) - PROFILE_PRIMERS
+        if events >= launched:
+            break
+    return averages, wall_ms, events, launched
 
 
 def paged_case(rng, *, B, KV, G, hd, BS, MB, pos, inactive, dtype):
@@ -819,21 +872,16 @@ def fused_walk(name):
 
 
 def profile_step(run, label, path):
-    """One more step, `run()`, under torch.profiler: prints its device time
-    by kernel kind and the device's idle share of the step, and writes the
-    kernel table to `path`."""
+    """One more step, `run()`, under torch.profiler (`profiled`): prints
+    its device time by kernel kind, the device's idle share of the step
+    and whether the trace holds a device event for each launch of the step
+    (launch and copy calls), and writes the kernel table to `path`."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages, wall_ms, events, launched = profiled(run)
     kinds = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in averages:
+        if e.device_type != DeviceType.CUDA or primer(e.key):
             continue
         n = e.key
         ms = getattr(e, "self_device_time_total",
@@ -847,6 +895,8 @@ def profile_step(run, label, path):
                 else "K10 ce dw" if "ce_grad_kernel" in n
                 else "K15 conv3d (sm90)" if "conv3d_sm90" in n
                 else "K14 conv1d (sm90)" if "conv1d_sm90" in n
+                else "K12 conv stacked (sm90)" if "conv_sm90_stacked" in n
+                else "K12 stack pre-pass" if "conv_stack_taps" in n
                 else "K12 conv (sm90)" if "conv_sm90_fwd" in n
                 else "K13 conv dw" if "conv_sm90_dw" in n
                 or "conv_mma<true>" in n or "conv_ffma<true>" in n
@@ -879,11 +929,13 @@ def profile_step(run, label, path):
     busy = sum(kinds.values())
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=200))
+        f.write(averages.table(sort_by="self_cuda_time_total",
+                               row_limit=200))
     print(f"profile: {label}, {wall_ms:.1f} ms host time under "
           f"the profiler, {busy:.1f} ms on the device (idle share "
-          f"{1 - busy / wall_ms:.3f}): " + ", ".join(
+          f"{1 - busy / wall_ms:.3f}); {events} device events of {launched} "
+          f"launched{'' if events >= launched else ', SOME LOST'}: "
+          + ", ".join(
               f"{k} {v:.1f} ms ({v / busy:.1%})"
               for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
           + f"; table in {path}")
@@ -2120,7 +2172,34 @@ CONV_CASES = (
     ("tails", "k12", (3, 11, 13, 200), (3, 3, 200, 200), (1, 1), (1, 1), 1),
     ("k3x2-dil2x1", "k12", (2, 13, 11, 24), (3, 2, 24, 136), (1, 1), (2, 1),
      1),
+    # bf16 K12 at Ci < 8 on the Hopper kernel after the stacking pre-pass
+    # (conv_route "sm90_stacked"): both ResNet stems at B64 (ImageNet's
+    # padded 229x229, 7x7/2: two rows a stacked pixel; CIFAR's 34x34,
+    # 3x3/1), 1, 5 and 7 channels (7 with 5x5 taps: 40 stacked channels),
+    # dilation 2 on both axes, stride 3x2 (three rows a stacked pixel, one k
+    # step, an input row no output reads) and 7x7 taps at stride 3, M and Co
+    # tails (M 297, Co 72), 11 taps of 6 channels (72 stacked channels: two
+    # panels)
+    ("stem-imagenet-B64", "k12", (64, 229, 229, 3), (7, 7, 3, 64), (2, 2),
+     (1, 1), 1),
+    ("stem-cifar-B64", "k12", (64, 34, 34, 3), (3, 3, 3, 32), (1, 1), (1, 1),
+     1),
+    ("ci1", "k12", (2, 20, 21, 1), (3, 3, 1, 16), (1, 1), (1, 1), 1),
+    ("ci5", "k12", (2, 19, 18, 5), (3, 3, 5, 24), (1, 1), (1, 1), 1),
+    ("ci7-k5", "k12", (2, 20, 22, 7), (5, 5, 7, 8), (1, 1), (1, 1), 1),
+    ("ci3-dil2x2", "k12", (2, 21, 23, 3), (3, 3, 3, 16), (1, 1), (2, 2), 1),
+    ("ci3-s3x2", "k12", (2, 25, 24, 3), (3, 3, 3, 16), (3, 2), (1, 1), 1),
+    ("ci3-k7-s3", "k12", (2, 40, 30, 3), (7, 7, 3, 8), (3, 2), (1, 1), 1),
+    ("ci3-tails", "k12", (3, 13, 11, 3), (3, 3, 3, 72), (1, 1), (1, 1), 1),
+    ("ci6-k3x11", "k12", (2, 16, 30, 6), (3, 11, 6, 136), (1, 1), (1, 1), 1),
 )
+STACK_CASES = ("stem-imagenet-B64", "stem-cifar-B64", "ci1", "ci5", "ci7-k5",
+               "ci3-dil2x2", "ci3-s3x2", "ci3-k7-s3", "ci3-tails",
+               "ci6-k3x11")
+# both ResNet stems at B64, SAME (the kernels on the padded input): (name,
+# x padded, w, stride)
+STEMS = (("imagenet", (64, 229, 229, 3), (7, 7, 3, 64), (2, 2)),
+         ("cifar", (64, 34, 34, 3), (3, 3, 3, 32), (1, 1)))
 # K13: (name, x shape, g shape, (kh, kw), dilation)
 DW_CASES = (
     ("k3", (3, 10, 10, 24), (3, 8, 8, 20), (3, 3), (1, 1)),
@@ -2195,14 +2274,119 @@ def conv_fault(C, name, x, w, ref):
     return rel
 
 
+def phase_conv_stem(C, rnd):
+    """Phase 3, the stacked K12 at both ResNet stems (STEMS, bf16): on the
+    "sm90_stacked" route (one K12 launch, on the Hopper kernel, and one
+    pre-pass), against its plain version by conv_within, the same bits
+    twice, the pre-pass equal to `stack_taps_reference` bit for bit, and a
+    planted fault (the first tap, channels 0-2 of the stacked rows, dropped)
+    failing the norm bound; then timed beside its plain version, cuDNN
+    (F.conv2d on a channels-last view of the same padded input) and its
+    bound: the whole call (pre-pass, weight pad, K12) and the K12 alone
+    (device time from torch.profiler, and the whole call by CUDA events),
+    the pre-pass beside its plain version and its bytes bound. Returns
+    {stem: {...}}."""
+    import torch.nn.functional as F
+
+    res = {}
+    for stem, xs, ws, st in STEMS:
+        kh, kw, ci, co = ws
+        x, w = rnd(*xs), rnd(*ws, scale=(kh * kw * ci) ** -0.5)
+        check(C.conv_route("fwd", torch.bfloat16, ci, co, 1, st, (1, 1),
+                           (kh, kw)) == "sm90_stacked",
+              f"phase 3 {stem} stem: not on the stacked route")
+        k12, pre = C.conv2d_direct_nhwc, C.stack_taps_nhwc
+        before = k12.launches, k12.sm90_launches, pre.launches
+        out = k12(x, w, (1, 1), st)
+        after = k12.launches, k12.sm90_launches, pre.launches
+        check(tuple(a - b for a, b in zip(after, before)) == (1, 1, 1),
+              f"phase 3 {stem} stem: launches K12, Hopper, pre-pass "
+              f"{before} -> {after}")
+        ref = C.conv_nd_reference(x, w, st, (1, 1))
+        err, rel, bound_n = conv_within(out, ref, f"{stem} stem",
+                                        torch.bfloat16)
+        check(torch.equal(k12(x, w, (1, 1), st), out),
+              f"phase 3 {stem} stem: other bits a second time")
+        rows, h2, cs = C.stack_plan(xs[1], ci, (kh, kw), st, (1, 1))
+        args = (x, kw, st[1], 1, cs, rows, h2)
+        xs_k = pre(*args)
+        xs_p = C.stack_taps_reference(*args)
+        pre_err = float((xs_k.float() - xs_p.float()).abs().max())
+        check(torch.equal(xs_k, xs_p) and torch.equal(pre(*args), xs_k),
+              f"phase 3 {stem} stem: the pre-pass differs from its plain "
+              f"version or from itself")
+        del xs_p
+        w0 = w.clone()
+        w0[0, 0] = 0
+        bad = k12(x, w0, (1, 1), st)
+        fault, fault_bound, _, _ = norm_reading([diff_stats(bad, ref)])
+        check(fault > fault_bound, f"phase 3 {stem} stem: a planted fault "
+                                   f"reads {fault} <= {fault_bound}")
+        n_out = out.numel()
+        del out, ref, bad, w0
+        ws_k = C.stack_weights(w, rows, cs)
+        hw = (x.shape[1] - kh) // st[0] + 1, (x.shape[2] - kw) // st[1] + 1
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        calls = {
+            "whole": lambda: k12(x, w, (1, 1), st),
+            "k12": lambda: C._launch(k12, "nk_conv2d_stacked_sm90", xs_k,
+                                     ws_k, (st[0] // rows, 1), (1, 1), 1,
+                                     hw),
+            "pre": lambda: pre(*args),
+            "plain": lambda: C.conv_nd_reference(x, w, st, (1, 1)),
+            "pre_plain": lambda: C.stack_taps_reference(*args),
+            "cudnn": lambda: F.conv2d(xn, wn, stride=st)}
+        # in turns: plain, kernel, kernel, plain
+        p_a = cuda_ms(calls["plain"], 2)
+        t = {k: device_ms(f, 20) for k, f in calls.items()
+             if k not in ("plain", "pre_plain")}
+        t2 = {k: device_ms(f, 20) for k, f in calls.items()
+              if k not in ("plain", "pre_plain")}
+        ev = min(cuda_ms(calls["whole"], 20), cuda_ms(calls["whole"], 20))
+        pp = min(cuda_ms(calls["pre_plain"], 5), cuda_ms(calls["pre_plain"],
+                                                         5))
+        p_b = cuda_ms(calls["plain"], 2)
+        t = {k: min(v, t2[k]) for k, v in t.items()}
+        flops = 2 * n_out * kh * kw * ci
+        bound = bound_ms((x.numel() + w.numel() + n_out) * 2, flops,
+                         torch.bfloat16)
+        pre_bound = bound_ms((x.numel() + xs_k.numel()) * 2, 0,
+                             torch.bfloat16)
+        res[stem] = dict(
+            shape=f"{tuple(xs)} * {tuple(ws)} s{st[0]}", rows=rows, cs=cs,
+            max_abs_err=err, rel=rel, rel_bound=bound_n, fault=fault,
+            pre_err=pre_err, ms=t["whole"], events_ms=ev, k12_ms=t["k12"],
+            pre_ms=t["pre"], plain_ms=min(p_a, p_b), library_ms=t["cudnn"],
+            bound=bound, pre_plain_ms=pp, pre_bound=pre_bound, flops=flops)
+        del x, w, xs_k, ws_k, xn, wn, calls
+        torch.cuda.empty_cache()
+    print("phase 3 kernels, the stacked K12 at both ResNet stems (bf16 B64, "
+          "SAME; route sm90_stacked; the same bits twice; the pre-pass equal "
+          "to its plain version; fault: the first tap dropped): " + "; ".join(
+              f"{k} {r['shape']} ({r['rows']} rows of taps in "
+              f"{r['cs']} channels): whole call {r['ms']:.4f} ms device "
+              f"({r['events_ms']:.4f} by CUDA events; "
+              f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s), of it the "
+              f"pre-pass {r['pre_ms']:.4f} ms (plain {r['pre_plain_ms']:.4f}"
+              f", bound {r['pre_bound'][0]:.4f} bytes) and the K12 "
+              f"{r['k12_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms, cuDNN "
+              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}); max abs err {r['max_abs_err']:.3g}, "
+              f"||err||/||ref|| {r['rel']:.3g} (bound {r['rel_bound']:.3g}), "
+              f"planted fault {r['fault']:.3g}" for k, r in res.items()))
+    return res
+
+
 def phase_conv_kernels(C):
     """Phase 3, conv part: K12-K15 against their plain versions over the
     small cases in f32 and bf16, then at bench.py's conv shapes in bf16
     (:817-888, SAME: the kernels on the padded input), where each runs its
     Hopper kernel, gives the same bits twice, is held against a planted
     fault and is timed beside its plain version, one library call and its
-    bound. Returns {kernel: (max_abs_err, ms,
-    plain_ms, library_ms, (bound_ms, bound_by))} at those shapes."""
+    bound; between them the stacked K12 at both ResNet stems
+    (phase_conv_stem). Returns {kernel: (max_abs_err, ms, plain_ms,
+    library_ms, (bound_ms, bound_by))} at those shapes, and under "stems"
+    phase_conv_stem's readings."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -2212,16 +2396,19 @@ def phase_conv_kernels(C):
                 * scale).to(dtype)
 
     errs = {}
-    sm90 = dict.fromkeys((k.__name__ for k in C.KERNELS), 0)
-    for k in C.KERNELS:
+    hopper = [k for k in C.KERNELS if hasattr(k, "sm90_launches")]
+    sm90 = dict.fromkeys((k.__name__ for k in hopper), 0)
+    for k in hopper:
         k.sm90_launches = 0
+    stacked, stack0 = 0, C.stack_taps_nhwc.launches
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
         for name, kind, xs, ws, stride, dil, groups in CONV_CASES:
-            sm90["conv2d_direct_nhwc"] += kind in ("k12", "k12-1d") and \
-                C.conv_route("fwd", dtype, xs[-1], ws[-1], groups,
-                             ((1,) + stride)[-2:], ((1,) + dil)[-2:],
-                             ((1,) + ws[:-2])[-2:]) == "sm90"
+            route = kind in ("k12", "k12-1d") and C.conv_route(
+                "fwd", dtype, xs[-1], ws[-1], groups, ((1,) + stride)[-2:],
+                ((1,) + dil)[-2:], ((1,) + ws[:-2])[-2:])
+            sm90["conv2d_direct_nhwc"] += route in ("sm90", "sm90_stacked")
+            stacked += route == "sm90_stacked"
             sm90["conv1d_direct_nwc"] += kind == "k14" and C.conv_route(
                 "fwd", dtype, xs[-1], ws[-1], groups, stride, dil,
                 ws[:1]) == "sm90"
@@ -2243,16 +2430,21 @@ def phase_conv_kernels(C):
                 C.conv_dw_reference(x, gg, k, dil), f"k13 {dt}/{name}",
                 dtype)[:2]
     torch.cuda.synchronize()
-    ran = {k.__name__: k.sm90_launches for k in C.KERNELS}
-    check(ran == sm90 and min(sm90.values()) > 0,
+    ran = {k.__name__: k.sm90_launches for k in hopper}
+    ran_stacked = C.stack_taps_nhwc.launches - stack0
+    check(ran == sm90 and min(sm90.values()) > 0 and ran_stacked == stacked
+          and stacked >= len(STACK_CASES),
           f"phase 3: Hopper K12-K15 launches {ran}, conv_route sends "
-          f"{sm90}")
+          f"{sm90}; stacking pre-passes {ran_stacked}, want {stacked}")
     print("phase 3 kernels: conv K12-K15 within bounds (f32 1e-5 of max "
           "|entry|; bf16 one ulp of it and in norm "
           f"{SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry); "
-          f"on the Hopper K12-K15 (csrc/conv_sm90.cu): {ran}; max "
-          "abs err, ||err||/||ref||: " + ", ".join(
+          f"on the Hopper K12-K15 (csrc/conv_sm90.cu): {ran}, of them K12 "
+          f"{stacked} times stacked (Ci < 8: "
+          f"{', '.join(STACK_CASES)}, and ci3-7x7-s2); max abs err, "
+          "||err||/||ref||: " + ", ".join(
               f"{k} {a:.3g}, {r:.2g}" for k, (a, r) in errs.items()))
+    stem = phase_conv_stem(C, rnd)
 
     # bench.py's shapes, SAME, bf16: (kernel, x padded, w, library call)
     B = 64
@@ -2335,6 +2527,7 @@ def phase_conv_kernels(C):
           "its Hopper kernel, the same bits twice; faults: K12/K14/K15 "
           "without their first tap, K13 without its first split's "
           "partial): " + "; ".join(line))
+    result["stems"] = stem
     return result
 
 
@@ -2672,22 +2865,25 @@ def resnet_conv_flops(cfg, B, size):
 def conv_launch_want(R, cfg, steps):
     """K12-K15 launches of `steps` ResNet train steps on conv_impl "pallas":
     K12 once a conv forward and once a stride-1 conv's dx (the stem's input,
-    the image, needs none), K13 once a stride-1 conv's dw."""
+    the image, needs none), K13 once a stride-1 conv's dw; in bf16 the
+    stem's forward (3 input channels) runs the stacking pre-pass once."""
     strides = R.conv_strides(cfg)
     dx = strides[1:].count(1)
     return {"conv2d_direct_nhwc": steps * (len(strides) + dx),
             "conv2d_dw_nhwc": steps * strides.count(1),
-            "conv1d_direct_nwc": 0, "conv3d_direct_ndhwc": 0}
+            "conv1d_direct_nwc": 0, "conv3d_direct_ndhwc": 0,
+            "stack_taps_nhwc": steps * (cfg.dtype == torch.bfloat16)}
 
 
 def conv_sm90_want(R, cfg, steps):
     """The K12 and K13 calls of `steps` bf16 ResNet train steps that
-    conv_route sends to the Hopper kernels: every conv but the stem (its 3
-    input channels give TMA a 6-byte row) forward, and every stride-1
-    conv's dx and dw (conv_launch_want's, none of them the stem's)."""
+    conv_route sends to the Hopper kernels: every conv forward (the stem's,
+    3 input channels, with its taps stacked into channels) and
+    every stride-1 conv's dx and dw but the stem's dw (the CIFAR stem's
+    stride 1: K13 at 3 channels stays on csrc/conv.cu)."""
     strides = R.conv_strides(cfg)
     s1 = strides[1:].count(1)
-    return {"conv2d_direct_nhwc": steps * (len(strides) - 1 + s1),
+    return {"conv2d_direct_nhwc": steps * (len(strides) + s1),
             "conv2d_dw_nhwc": steps * s1}
 
 
@@ -2842,6 +3038,11 @@ def phase_resnet(R, C, profile):
     want = conv_sm90_want(R, cfg, n)
     check(sm90 == want, f"phase 13: Hopper K12/K13 launches {sm90}, want "
                         f"{want}")
+    # every K12 and K13 call of the step on the Hopper kernels: none on
+    # csrc/conv.cu
+    check(all(sm90[k] == launches[k] for k in sm90),
+          f"phase 13: conv.cu launches on the ResNet-18 path: {launches}, "
+          f"Hopper {sm90}")
     flops = resnet_conv_flops(cfg, B, size)
     mfu = 3 * flops / step_s / 989e12
     print(f"phase 13 ResNet-18: imagenet stem, widths 64-512, 1000 classes, "
@@ -2851,8 +3052,10 @@ def phase_resnet(R, C, profile):
           f"of 989 TFLOP/s), peak {peak:.2f} GiB; losses "
           f"{[round(v, 4) for v in losses]}; launches in {n} steps: K12 "
           f"{launches['conv2d_direct_nhwc']} (on the Hopper kernel "
-          f"{sm90['conv2d_direct_nhwc']}), K13 {launches['conv2d_dw_nhwc']} "
-          f"(Hopper {sm90['conv2d_dw_nhwc']})")
+          f"{sm90['conv2d_direct_nhwc']}, the stem's "
+          f"{launches['stack_taps_nhwc']} after as many stacking "
+          f"pre-passes), K13 {launches['conv2d_dw_nhwc']} (Hopper "
+          f"{sm90['conv2d_dw_nhwc']})")
     records = record_convs(C, lambda: step(params, buf, x, y, 0.1))
     roles = [k[0] for k in records]
     errs, line, read = check_recorded_convs(C, records)
@@ -2920,8 +3123,11 @@ def phase_conv_routes(nk, R, C):
     "auto" picks for the shapes bench.py names. Last, the same route in
     bf16 on the card: a Var 3-d conv on the Hopper K15, held against its
     plain version, and a Var 1-d conv on the Hopper K14, its forward held
-    against its plain version and its gradients against the plain route's.
-    Returns the Var graphs' launches on the card (f32 and bf16)."""
+    against its plain version and its gradients against the plain route's;
+    and the small ResNet of both stems in bf16 on the card, launches held
+    exact (each stem on the stacked K12), the stem's forward against its
+    plain version. Returns the Var graphs' launches on the card (f32 and
+    bf16)."""
     from neuronika_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
 
     def zero_counts():
@@ -3085,6 +3291,52 @@ def phase_conv_routes(nk, R, C):
     launches["conv1d_direct_nwc"] += 1
     launches["conv1d_direct_nwc.sm90"] += 1
 
+    # the small ResNet of both stems in bf16 on the card: each stem (3
+    # input channels) on the stacked K12, every K12/K13 call counted
+    # exact, the stem's forward held against its plain version by phase
+    # 3's bf16 rule
+    stems = {}
+    for stem, size in (("cifar", 16), ("imagenet", 32)):
+        cfg = R.ResNetConfig(stages=(1, 1), width=16, num_classes=10,
+                             stem=stem, conv_impl="pallas",
+                             dtype=torch.bfloat16)
+        params = R.init_params(torch.Generator("cuda").manual_seed(3), cfg,
+                               "cuda")
+        rng = np.random.default_rng(5)
+        x = torch.from_numpy(rng.uniform(0.0, 1.0, (2, size, size, 3)).astype(
+            np.float32)).cuda()
+        y = torch.from_numpy(rng.integers(0, cfg.num_classes, 2)).cuda()
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in tree_leaves(params)]
+        zero_counts()
+        for k in hopper:
+            k.sm90_launches = 0
+
+        def run():
+            loss = R.loss_fn(tree_unflatten(params, leaves), x, y, cfg)
+            torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(loss)),
+                  f"phase 14 bf16 resnet-{stem}: loss {loss}")
+
+        run()
+        got = {**counts(), **{f"{k.__name__}.sm90": k.sm90_launches
+                              for k in (C.conv2d_direct_nhwc,
+                                        C.conv2d_dw_nhwc)}}
+        want = conv_launch_want(R, cfg, 1)
+        want.update({f"{k}.sm90": v
+                     for k, v in conv_sm90_want(R, cfg, 1).items()})
+        check(got == want and want["stack_taps_nhwc"] == 1,
+              f"phase 14 bf16 resnet-{stem}: launches {got}, want {want}")
+        records = record_convs(C, run)
+        (key, (xr, wr)), = [(k, v) for k, v in records.items()
+                            if k[0] == "fwd" and k[1][-1] == 3]
+        stems[stem] = conv_within(
+            C.conv2d_direct_nhwc(xr, wr, key[4], key[3]),
+            C.conv_nd_reference(xr, wr, key[3], key[4]),
+            f"phase 14 bf16 resnet-{stem} stem", torch.bfloat16)
+        del params, leaves, records
+
     nk.config.conv_route = "auto"
     routes = {name: C.route_conv2d(nd, stride, (1,) * nd, 1, on_card=True,
                                    **kw)
@@ -3105,6 +3357,11 @@ def phase_conv_routes(nk, R, C):
           f"version; dk, dx against the plain route's): max abs err, "
           f"||err||/||ref|| (bound) "
           + ", ".join(f"{a:.3g}, {r:.3g} ({b:.3g})" for a, r, b in e_1d)
+          + "; bf16 ResNets (stages (1, 1), width 16 B2), launches held "
+          f"exact, each stem on the stacked K12 (one pre-pass a step), its "
+          f"forward against its plain version: max abs err, ||err||/||ref|| "
+          f"(bound) " + ", ".join(f"{k} {a:.3g}, {r:.3g} ({b:.3g})"
+                                  for k, (a, r, b) in stems.items())
           + "; "
           f"conv_route auto on the card "
           f"picks {json.dumps(routes)} (the JAX package's table with its "
@@ -4330,7 +4587,8 @@ def models_resnet_cifar(R, C, resnet_cifar):
     steps, B64, 32x32, stages (2, 2, 2), width 32; bf16, conv_impl
     "pallas"), K12/K13 launches derived from the config and held exact.
     Returns its launches (with "name.sm90" counts) and a summary line."""
-    cfg = R.ResNetConfig(stages=(2, 2, 2), width=32, num_classes=10)
+    cfg = R.ResNetConfig(stages=(2, 2, 2), width=32, num_classes=10,
+                         dtype=torch.bfloat16)
     k12, k13 = C.conv2d_direct_nhwc, C.conv2d_dw_nhwc
     for k in C.KERNELS:
         k.launches = 0
@@ -4343,11 +4601,14 @@ def models_resnet_cifar(R, C, resnet_cifar):
     launches = {k.__name__: k.launches for k in C.KERNELS}
     want = conv_launch_want(R, cfg, steps)
     want["conv2d_direct_nhwc"] += fwd            # the eval forward
+    want["stack_taps_nhwc"] += 1                 # its stem's pre-pass
     check(launches == want, f"phase 17 resnet_cifar: launches {launches}, "
                             f"want {want}")
     sm90 = {k.__name__: k.sm90_launches for k in (k12, k13)}
     want = conv_sm90_want(R, cfg, steps)
-    want["conv2d_direct_nhwc"] += fwd - 1        # all but the stem
+    # the eval forward's every conv, the stem's too: its 3 input channels
+    # run the Hopper K12 with the taps stacked into channels
+    want["conv2d_direct_nhwc"] += fwd
     check(sm90 == want, f"phase 17 resnet_cifar: Hopper launches {sm90}, "
                         f"want {want}")
     losses = out["losses"]
@@ -4360,7 +4621,8 @@ def models_resnet_cifar(R, C, resnet_cifar):
         f"{losses[0]:.3f} -> {np.mean(losses[-20:]):.3f} (mean of the last "
         f"20), synthetic accuracy {out['accuracy']:.3f}; K12 "
         f"{launches['conv2d_direct_nhwc']} (Hopper "
-        f"{sm90['conv2d_direct_nhwc']}), K13 {launches['conv2d_dw_nhwc']} "
+        f"{sm90['conv2d_direct_nhwc']}, stacking pre-passes "
+        f"{launches['stack_taps_nhwc']}), K13 {launches['conv2d_dw_nhwc']} "
         f"(Hopper {sm90['conv2d_dw_nhwc']})")
 
 
@@ -5658,13 +5920,14 @@ def main() -> int:
     # operands brought to unit scale), K14 and K15 on phase 14's Var graphs
     # (launches; errors at bench.py's shapes); K12, K14 and K15 on the layer
     # kit's too (phase 15's launches added), K12 and K13 on phase 17's
-    # resnet_cifar twin (added; its stem on csrc/conv.cu); times at
-    # bench.py's shapes
-    # (phase 3); all four there, K12 and K13 on phase 13's path in bf16 but
-    # for the stem, and K14 and K15 in phase 14's bf16 Var convs, run
-    # csrc/conv_sm90.cu; the f32 launches (the stem, phase 14's f32 Var
-    # graph, all of phase 15's) run csrc/conv.cu: launches_by_source splits
-    # `launches` by the wrappers' sm90_launches
+    # resnet_cifar twin (added); times at bench.py's shapes (phase 3); all
+    # four there, K12 and K13 on phase 13's path in bf16 (the stem's K12
+    # with its taps stacked into channels: "stems", route "sm90_stacked",
+    # its launches those of the pre-pass, whose own entry follows), and K14
+    # and K15 in phase 14's bf16 Var convs, run csrc/conv_sm90.cu; the f32
+    # launches (phase 14's f32 Var graph, all of phase 15's) and the CIFAR
+    # stem's dw run csrc/conv.cu: launches_by_source splits `launches` by
+    # the wrappers' sm90_launches
     for name, line, path, source in (
             ("conv2d_direct_nhwc", 46, resnet, "conv_sm90.cu"),
             ("conv2d_dw_nhwc", 334, resnet, "conv_sm90.cu"),
@@ -5684,6 +5947,30 @@ def main() -> int:
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib})
+    stems, pre = convk["stems"], "stack_taps_nhwc"
+    k12_entry, = (k for k in kernels if k["name"] == "conv2d_direct_nhwc")
+    k12_entry["stems"] = {
+        k: {"route": "sm90_stacked", "shape": r["shape"],
+            "launches": (resnet[pre] if k == "imagenet"
+                         else models.get(pre, 0)),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "k12_ms": r["k12_ms"], "pre_ms": r["pre_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+        for k, r in stems.items()}
+    # the stacked K12's pre-pass (part of K12's port at Ci < 8; no TPU
+    # kernel of its own): its launches on phases 13 and 17's paths, timed
+    # at the ImageNet stem (phase 3)
+    r = stems["imagenet"]
+    kernels.append({"name": pre, "route": "cuda",
+                    "source": f"{csrc}conv_sm90.cu",
+                    "replaces": "neuronika_tpu/ops/pallas/conv.py:46",
+                    "part_of": "conv2d_direct_nhwc",
+                    "launches": resnet[pre] + models.get(pre, 0),
+                    "max_abs_err": r["pre_err"], "ms": r["pre_ms"],
+                    "plain_ms": r["pre_plain_ms"],
+                    "bound_ms": r["pre_bound"][0],
+                    "bound_by": r["pre_bound"][1], "library_ms": None})
     # K8-K10 run on phase 6's fused-CE path (launches), checked and timed
     # at its LM head (phase 3); library_ms is the composite head's time
     # (forward for K8, its backward for K9 and K10), several calls. In

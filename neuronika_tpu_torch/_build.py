@@ -153,10 +153,15 @@ def load_library() -> ctypes.CDLL:
     fn.restype = i                               # log, stream
     geo = ctypes.POINTER(ctypes.c_int)           # 19 ints, csrc/conv.cu
     for name in ("nk_conv1d", "nk_conv2d", "nk_conv3d", "nk_conv1d_sm90",
-                 "nk_conv2d_sm90", "nk_conv3d_sm90"):  # and conv_sm90.cu
+                 "nk_conv2d_sm90", "nk_conv3d_sm90",  # and conv_sm90.cu
+                 "nk_conv2d_stacked_sm90"):
         fn = getattr(lib, name)
         fn.argtypes = [i, p, p, p, geo, p]       # dtype, x, w, out, geo,
         fn.restype = i                           # stream
+    fn = lib.nk_conv_stack_taps
+    fn.argtypes = [p, p, i, i, i, i, i, i,       # x, xs; N H W Ci H2 Wo
+                   i, i, i, i, i, p]             # rows kw sw dw Cs, stream
+    fn.restype = i
     for name in ("nk_conv_dw", "nk_conv_dw_sm90"):
         fn = getattr(lib, name)
         fn.argtypes = [i, p, p, p, p, geo,       # dtype, x, g, ws, out,

@@ -16,10 +16,14 @@
 //                            with (k - 1) d <= 16 (the rank-5 im2col corner
 //                            range)                   -> nk_conv3d_sm90
 // (The rank-4 corner range bounds K12's (k - 1) d at 128 on each axis.)
-// Every other conv (f32, groups, the ImageNet stem's 3 channels, wider
-// taps) stays on csrc/conv.cu; ops/conv.py::conv_route decides by shape
-// alone. The TPU kernels sum shifted MXU matmuls over flat VMEM windows;
-// none of that carries over.
+// A bf16 2-d conv of groups 1 with fewer than 8 input channels (both
+// ResNet stems: Ci = 3 gives TMA a 6-byte row) runs K12 here too, its
+// horizontal taps (and the rows of a vertical stride) stacked into
+// channels (nk_conv_stack_taps, then nk_conv2d_stacked_sm90; below).
+// Every other conv (f32, groups, Ci >= 8 not a multiple of 8, Co not a
+// multiple of 8, wider taps) stays on csrc/conv.cu; ops/conv.py::conv_route
+// decides by shape alone. The TPU kernels sum shifted MXU matmuls over
+// flat VMEM windows; none of that carries over.
 //
 //   forward (K12, K14, K15): M = output pixels (n, od, oh, ow), N = Co,
 //     K = (tap, 64-channel panel) steps; A(m, (t, c)) = x[n, oh sh + th dh,
@@ -71,6 +75,22 @@
 //     next split); each split writes an f32 partial and a second pass sums
 //     them in split order: the same bits every launch. The splits fill at
 //     most one wave of the SMs (ops/conv.py::_dw_plan_sm90).
+//   * K12 at Ci < 8, stacked: a pre-pass (conv_stack_taps_kernel) writes
+//     xs (N, H2, Wo, Cs), xs[n, r, ow, (i kw + tw) Ci + c] = x[n, r rows +
+//     i, ow sw + tw dw, c]: the kw horizontal taps of `rows` input rows
+//     (rows = sh where dh is 1, else 1; ops/conv.py::stack_plan) in the
+//     channels of one pixel, zeros past rows kw Ci up to Cs, a multiple of
+//     8 (a legal TMA row: 48 channels, 96 bytes, at the ImageNet stem,
+//     whose two rows of a stride-2 step share a pixel); then the forward
+//     body runs the (ceil(kh / rows) x 1) conv of xs at stride (sh / rows,
+//     1) and dilation (dh, 1). The horizontal stride and dilation, and a
+//     grouped vertical stride, are the pre-pass's: the ImageNet stem's K12
+//     walks 4 k steps a tile, not 49 taps or 7 rows. (A k step of
+//     ceil(Cs / 16) k16 products in place of 4 measured the same: the
+//     step's own cost, not its products, sets the time.) The pre-pass
+//     moves bytes only (the stem's x 20.1 MB in, xs 79.1 MB out): a CTA
+//     stages the input columns of 64 pixels of xs in shared memory and
+//     writes them out as 16-byte chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -280,14 +300,23 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& x_map,
   if (lead) bulk_wait();   // the stores have read shared memory and landed
 }
 
-// three entry points over one body, so that a profile tells K12, K14 and
-// K15 apart
+// four entry points over one body, so that a profile tells K12, the
+// stacked K12, K14 and K15 apart
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_sm90_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
                          const __grid_constant__ CUtensorMap w_map,
                          const __grid_constant__ CUtensorMap o_map,
                          const Geo g) {
+  fwd_body<BN, 4>(x_map, w_map, o_map, g);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_sm90_stacked_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
+                                 const __grid_constant__ CUtensorMap w_map,
+                                 const __grid_constant__ CUtensorMap o_map,
+                                 const Geo g) {
   fwd_body<BN, 4>(x_map, w_map, o_map, g);
 }
 
@@ -442,6 +471,57 @@ __global__ void conv_sm90_dw_reduce(const float4* __restrict__ ws,
   }
 }
 
+// the stacking pre-pass of the stacked K12: xs (N, H2, Wo, Cs) from x (N,
+// H, W, Ci). A CTA writes kStackOw pixels of one row (n, r) of xs: it
+// stages the input columns they read, from each of `rows` rows, in shared
+// memory with coalesced loads (span columns a row), and a table of each
+// stacked channel's place in a pixel's window; then each thread writes
+// 16-byte chunks of xs from shared memory. A thread a chunk straight from
+// device memory spent ~40 instructions an element on its index math.
+constexpr int kStackOw = 64;
+constexpr int kStackThreads = 128;
+
+__global__ void __launch_bounds__(kStackThreads)
+    conv_stack_taps_kernel(const uint16_t* __restrict__ x,
+                           uint4* __restrict__ xs, int H, int W, int Ci,
+                           int H2, int Wo, int rows, int kw, int sw, int dw,
+                           int Cs, int span) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* off = reinterpret_cast<int*>(smem_raw);  // Cs entries, -1: a zero
+  uint16_t* buf = reinterpret_cast<uint16_t*>(smem_raw + 4 * Cs);
+  const int blocks_w = (Wo + kStackOw - 1) / kStackOw;
+  const int q = blockIdx.x / blocks_w;          // n H2 + r
+  const int ow0 = (blockIdx.x - q * blocks_w) * kStackOw;
+  const int n = q / H2, r = q - n * H2;
+  const int npx = min(kStackOw, Wo - ow0);
+  const int run = ((npx - 1) * sw + (kw - 1) * dw + 1) * Ci;
+  for (int j = threadIdx.x; j < Cs; j += kStackThreads) {
+    const int t = j / Ci, c = j - t * Ci, i = t / kw, tw = t - i * kw;
+    off[j] = i < rows ? (i * span + tw * dw) * Ci + c : -1;
+  }
+  for (int i = 0; i < rows; ++i) {
+    const int h = r * rows + i;
+    const uint16_t* src = x + (((ll)n * H + h) * W + (ll)ow0 * sw) * Ci;
+    for (int k = threadIdx.x; k < run; k += kStackThreads)
+      buf[i * span * Ci + k] = h < H ? src[k] : 0;
+  }
+  __syncthreads();
+  const int per = Cs / 8;
+  uint4* dst = xs + ((ll)q * Wo + ow0) * per;
+  for (int k = threadIdx.x; k < npx * per; k += kStackThreads) {
+    const int px = k / per, j0 = (k - px * per) * 8;
+    const uint16_t* win = buf + px * sw * Ci;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      const int o0 = off[j0 + e], o1 = off[j0 + e + 1];
+      v[e / 2] = (o0 < 0 ? 0u : win[o0]) |
+                 (o1 < 0 ? 0u : (uint32_t)win[o1] << 16);
+    }
+    dst[k] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 // geo: N D H W Ci  Do Ho Wo Co  kd kh kw  sd sh sw  dd dh dw  groups, as
 // csrc/conv.cu reads it. Returns false unless the conv is of groups 1,
 // every size positive, the channels multiples of 8, every output window
@@ -500,18 +580,21 @@ cudaError_t prepare(size_t smem, int* sms) {
   return err;
 }
 
-// the entry point of a rank (only that one is instantiated)
-template <int BN, int RANK>
+// the entry point of a rank (only that one is instantiated), or the
+// stacked K12's
+template <int BN, int RANK, bool STACKED>
 constexpr auto fwd_kernel() {
   if constexpr (RANK == 3)
     return conv1d_sm90_fwd_kernel<BN>;
   else if constexpr (RANK == 5)
     return conv3d_sm90_fwd_kernel<BN>;
+  else if constexpr (STACKED)
+    return conv_sm90_stacked_fwd_kernel<BN>;
   else
     return conv_sm90_fwd_kernel<BN>;
 }
 
-template <int BN, int RANK>
+template <int BN, int RANK, bool STACKED = false>
 cudaError_t fwd(const Geo& g, const bf16* x, const bf16* w, bf16* out,
                 cudaStream_t stream) {
   CUtensorMap x_map, w_map, o_map;
@@ -537,7 +620,7 @@ cudaError_t fwd(const Geo& g, const bf16* x, const bf16* w, bf16* out,
   if (!err)
     err = make_map(&o_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, odims,
                    ostrides, obox);
-  constexpr auto kernel = fwd_kernel<BN, RANK>();
+  constexpr auto kernel = fwd_kernel<BN, RANK, STACKED>();
   constexpr size_t smem = FwdCfg<BN>::kSmem;
   int sms = 0;
   if (!err) err = prepare<kernel>(smem, &sms);
@@ -589,6 +672,55 @@ extern "C" int nk_conv2d_sm90(int dtype, const void* x, const void* w,
   bf16* ob = static_cast<bf16*>(out);
   return g.Co <= 64 ? fwd<64, 4>(g, xb, wb, ob, s)
                     : fwd<128, 4>(g, xb, wb, ob, s);
+}
+
+// the stacked K12's pre-pass: xs (N, H2, Wo, Cs) bf16 from x (N, H, W,
+// Ci) bf16, xs[n, r, ow, (i kw + tw) Ci + c] = x[n, r rows + i, ow sw + tw
+// dw, c] for i < rows, tw < kw (zero past row H), zeros in channels rows
+// kw Ci .. Cs - 1; Cs a multiple of 8 and at least rows kw Ci, every
+// window inside the row, xs 16-byte aligned, a CTA's staged columns within
+// a block's shared memory. H2 is ops/conv.py::stack_plan's: the rows the
+// conv of xs reads and no more (the body's im2col walk takes every row of
+// xs as a base row).
+extern "C" int nk_conv_stack_taps(const void* x, void* xs, int N, int H,
+                                  int W, int Ci, int H2, int Wo, int rows,
+                                  int kw, int sw, int dw, int Cs,
+                                  void* stream) {
+  const ll ctas = (ll)N * H2 * ((Wo + kStackOw - 1) / kStackOw);
+  const int span = (kStackOw - 1) * sw + (kw - 1) * dw + 1;
+  const size_t smem = 4 * (size_t)Cs + 2 * (size_t)rows * span * Ci;
+  if (N < 1 || H < 1 || W < 1 || Ci < 1 || H2 < 1 || Wo < 1 || rows < 1 ||
+      kw < 1 || sw < 1 || dw < 1 || Cs < 8 || Cs % 8 ||
+      Cs < (ll)rows * kw * Ci ||
+      (ll)(Wo - 1) * sw + (ll)(kw - 1) * dw >= W || ctas > INT32_MAX ||
+      smem > kSmemMax || !aligned16(xs))
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = prepare<conv_stack_taps_kernel>(kSmemMax, &sms);
+  if (err) return err;
+  conv_stack_taps_kernel<<<(int)ctas, kStackThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(x), static_cast<uint4*>(xs), H, W, Ci, H2,
+      Wo, rows, kw, sw, dw, Cs, span);
+  return cudaGetLastError();
+}
+
+// the stacked K12: the (kq x 1) conv of xs (N, H2, Wo, Cs) by w (kq, 1,
+// Cs, Co) -> out (N, Ho, Wo, Co), as nk_conv2d_sm90 with kw, sw and dw 1
+// (the pre-pass took them)
+extern "C" int nk_conv2d_stacked_sm90(int dtype, const void* x,
+                                      const void* w, void* out,
+                                      const int* geo, void* stream) {
+  Geo g;
+  if (dtype != 1 || !parse(geo, g, 4) || g.kw != 1 || g.sw != 1 ||
+      g.dw != 1 || !aligned16(x) || !aligned16(w) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  return g.Co <= 64 ? fwd<64, 4, true>(g, xb, wb, ob, s)
+                    : fwd<128, 4, true>(g, xb, wb, ob, s);
 }
 
 // K14: x (N, L, Ci) * w (k, Ci, Co) -> out (N, Lo, Co), stride 1,

@@ -12,16 +12,20 @@ Co), VALID (a caller pads first). The kernel wrappers:
                         dilation; a strided 1-d conv runs on K12 as a
                         (1, L) image;
   `conv3d_direct_ndhwc` K15: x (N, D, H, W, Ci) * w (kd, kh, kw, Ci, Co),
-                        stride 1.
+                        stride 1;
+  `stack_taps_nhwc`     the pre-pass of K12 at Ci < 8: x's horizontal taps
+                        (and the rows of a vertical stride) stacked into
+                        channels (replaces no TPU kernel).
 For CUDA tensors each launches a kernel and adds one to its `launches`;
 other tensors take the plain version beside it, an im2col built from
 strided views and one f32 product, rounded once. `conv_route` picks the
 kernel of a K12, K13, K14 or K15 call by its shape: the Hopper kernels of
 `csrc/conv_sm90.cu` (wgmma fed by TMA im2col loads of rank 3, 4 or 5;
-bf16, groups 1, channels multiples of 8), which also add one to the
-wrapper's `sm90_launches`, or `csrc/conv.cu`'s (FFMA for f32, mma.sync
-for bf16), which run every other call. Both accumulate in f32 and give
-the output in x's dtype. The block-size and `interpret`
+bf16, groups 1, channels multiples of 8, or for K12 Ci < 8 by stacking
+the taps), which also add one to the wrapper's `sm90_launches`, or
+`csrc/conv.cu`'s (FFMA for f32, mma.sync for bf16), which run every other
+call. Both accumulate in f32 and give the output in x's dtype. The
+block-size and `interpret`
 arguments of the JAX functions size the TPU's VMEM blocks and are
 accepted and ignored.
 
@@ -135,6 +139,96 @@ def conv_dw_reference(x, g, ksize, dilation):
     return dw.reshape(*ksize, ci, co)
 
 
+def stack_plan(h, ci, ksize, stride, dilation):
+    """(rows, h2, cs) of the stacked K12 for an input of h rows and ci
+    channels, taps ksize (kh, kw) at stride (sh, sw) and dilation (dh, dw):
+    the pre-pass stacks `rows` input rows (sh where dh is 1 and kh > 1,
+    else 1) of kw taps each into the channels of one pixel of xs, cs = rows
+    kw ci rounded up to a multiple of 8 (a legal TMA row), and writes h2
+    rows of such pixels: h where rows is 1, else exactly the Ho +
+    ceil(kh / rows) - 1 that the stride-1 conv of xs reads (the kernel's
+    im2col walk takes every row of its input as a base row)."""
+    kh, kw = ksize
+    rows = stride[0] if dilation[0] == 1 and kh > 1 else 1
+    h2 = h if rows == 1 else (
+        _out_len(h, kh, stride[0], 1) + -(-kh // rows) - 1)
+    return rows, h2, -(-rows * kw * ci // 8) * 8
+
+
+def stack_taps_reference(x, kw, sw, dw, cs, rows=1, h2=None):
+    """Plain version of the stacked K12's pre-pass: x (N, H, W, Ci) -> xs
+    (N, h2, Wo, cs) (h2 by default ceil(H / rows)), xs[n, r, ow, (i kw +
+    tw) Ci + c] = x[n, r rows + i, ow sw + tw dw, c] for i < rows, tw < kw
+    (zero past row H), zeros in channels rows kw Ci .. cs - 1. Then the
+    VALID conv of x by w (kh, kw, Ci, Co) at stride (sh, sw) and dilation
+    (dh, dw), with rows and h2 from `stack_plan`, is the (ceil(kh / rows)
+    x 1) conv of xs by `stack_weights(w, rows, cs)` at stride (sh / rows,
+    1) and dilation (dh, 1). Runs on any device."""
+    n, h, w, ci = x.shape
+    wo = _out_len(w, kw, sw, dw)
+    h2 = -(-h // rows) if h2 is None else h2
+    if wo <= 0 or h2 <= 0 or cs < rows * kw * ci:
+        raise ValueError(f"stack_taps: {kw} taps of dilation {dw} do not "
+                         f"fit a row of {w}, or {cs} < {rows} x {kw} x {ci} "
+                         f"channels, or {h2} rows")
+    xc = F.pad(x[:, :h2 * rows], (0, 0, 0, 0, 0, max(0, h2 * rows - h)))
+    xc = xc.contiguous()
+    st = xc.stride()
+    xs = xc.as_strided((n, h2, wo, rows, kw, ci),
+                       (st[0], rows * st[1], sw * st[2], st[1], dw * st[2],
+                        st[3]))
+    return F.pad(xs.reshape(n, h2, wo, rows * kw * ci),
+                 (0, cs - rows * kw * ci))
+
+
+def stack_weights(w, rows, cs):
+    """w (kh, kw, Ci, Co) as the stacked K12's (ceil(kh / rows), 1, cs, Co)
+    weights: tap row q, channel (i kw + tw) Ci + c holds w[q rows + i, tw,
+    c], zero past row kh and past channel rows kw Ci."""
+    kh, kw, ci, co = w.shape
+    kq = -(-kh // rows)
+    wq = F.pad(w, (0, 0, 0, 0, 0, 0, 0, kq * rows - kh))
+    return F.pad(wq.reshape(kq, 1, rows * kw * ci, co),
+                 (0, 0, 0, cs - rows * kw * ci))
+
+
+def stack_taps_nhwc(x, kw: int, sw: int, dw: int, cs: int, rows: int = 1,
+                    h2=None):
+    """The stacked K12's pre-pass (`stack_taps_reference`'s function).
+    CUDA tensors: `csrc/conv_sm90.cu`'s kernel, bf16 only, cs a multiple of
+    8, adding one to `stack_taps_nhwc.launches`; others: the plain
+    version."""
+    if x.dim() != 4:
+        raise ValueError(f"stack_taps takes x (N, H, W, Ci), got "
+                         f"{tuple(x.shape)}")
+    if x.device.type != "cuda":
+        return stack_taps_reference(x, kw, sw, dw, cs, rows, h2)
+    if x.dtype != torch.bfloat16 or cs % 8:
+        raise TypeError(f"stack_taps_nhwc takes bf16 and cs a multiple of "
+                        f"8, got {x.dtype}, cs {cs}")
+    n, h, w, ci = x.shape
+    wo = _out_len(w, kw, sw, dw)
+    h2 = -(-h // rows) if h2 is None else h2
+    if (wo <= 0 or rows < 1 or h2 < 1 or cs < rows * kw * ci
+            or n * h2 * wo * cs // 8 > _INT_MAX - 2 ** 28):
+        raise ValueError(f"stack_taps: {rows} rows of {kw} taps of dilation "
+                         f"{dw} over a row of {w} into {cs} channels, "
+                         f"{n * h2 * wo} pixels")
+    xc = x.contiguous()
+    xs = torch.empty((n, h2, wo, cs), dtype=x.dtype, device=x.device)
+    from .._build import load_library
+
+    with torch.cuda.device(x.device):
+        err = load_library().nk_conv_stack_taps(
+            xc.data_ptr(), xs.data_ptr(), n, h, w, ci, h2, wo, rows, kw, sw,
+            dw, cs, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"stack_taps_nhwc kernel launch failed: cudaError "
+                           f"{err}")
+    stack_taps_nhwc.launches += 1
+    return xs
+
+
 def conv_route(kind: str, dtype, ci: int, co: int, groups: int = 1,
                stride=(1, 1), dilation=(1, 1), ksize=(1, 1)) -> str:
     """The kernel that runs, on the card, a K14 call ("fwd" with 1-d taps: a
@@ -152,9 +246,18 @@ def conv_route(kind: str, dtype, ci: int, co: int, groups: int = 1,
                   dilation. Every stride-1 conv, dx and dw of ResNet-18,
                   its strided 3x3 and 1x1 convs, k3 1-d convs up to
                   dilation 16384 and k3 3-d convs up to dilation 8;
+      "sm90_stacked"
+                  the same Hopper K12 after a pre-pass that stacks the
+                  horizontal taps, and at dilation 1 the sh rows of a
+                  vertical stride, into channels (`stack_plan`,
+                  `stack_taps_nhwc`; a (ceil(kh / rows) x 1) conv of rows kw
+                  Ci channels, padded to a multiple of 8):
+                  "fwd" of a 2-d conv in bf16, groups 1, Ci < 8, Co a
+                  multiple of 8, with "sm90"'s stride and corner limits.
+                  Both ResNet stems (7x7/2 and 3x3/1, Ci = 3);
       "conv_mma"  `csrc/conv.cu`'s mma.sync kernel: every other bf16 call
-                  (groups; the ImageNet stem, Ci = 3; channel counts not
-                  multiples of 8; wider taps);
+                  (groups; Ci >= 8 or Co not multiples of 8; "dw" at any
+                  Ci < 8, the CIFAR stem's; wider taps);
       "conv_ffma" `csrc/conv.cu`'s FFMA kernel: f32.
     Not a fallback: a failure of the chosen kernel raises."""
     if kind not in ("fwd", "dw"):
@@ -169,11 +272,15 @@ def conv_route(kind: str, dtype, ci: int, co: int, groups: int = 1,
     if dtype == torch.float32:
         return "conv_ffma"
     corner = _SM90_CORNER[rank]
-    sm90 = (dtype == torch.bfloat16 and groups == 1 and ci % 8 == 0
-            and co % 8 == 0 and max(stride) <= (8 if rank == 4 else 1)
+    sm90 = (dtype == torch.bfloat16 and groups == 1 and co % 8 == 0
+            and max(stride) <= (8 if rank == 4 else 1)
             and (kind == "fwd" or tuple(stride) == (1, 1))
             and all((k - 1) * d <= corner for k, d in zip(ksize, dilation)))
-    return "sm90" if sm90 else "conv_mma"
+    if sm90 and ci % 8 == 0:
+        return "sm90"
+    if sm90 and ci < 8 and kind == "fwd" and rank == 4:
+        return "sm90_stacked"
+    return "conv_mma"
 
 
 def _dw_plan_sm90(taps, ci, co, pixels):
@@ -267,12 +374,22 @@ def conv2d_direct_nhwc(x, w, dilation=(1, 1), stride=(1, 1), *,
     out = _check(x, w, stride, dilation, groups)
     if x.device.type != "cuda":
         return conv_nd_reference(x, w, stride, dilation, groups)
-    sm90 = conv_route("fwd", torch.promote_types(x.dtype, w.dtype),
-                      x.shape[-1], w.shape[-1], groups, stride, dilation,
-                      w.shape[:2]) == "sm90"
+    route = conv_route("fwd", torch.promote_types(x.dtype, w.dtype),
+                       x.shape[-1], w.shape[-1], groups, stride, dilation,
+                       w.shape[:2])
+    if route == "sm90_stacked":
+        # the (ceil(kh / rows) x 1) conv of the stacked taps
+        # (stack_taps_reference)
+        rows, h2, cs = stack_plan(x.shape[1], x.shape[-1], w.shape[:2],
+                                  stride, dilation)
+        xs = stack_taps_nhwc(x, w.shape[1], stride[1], dilation[1], cs, rows,
+                             h2)
+        return _launch(conv2d_direct_nhwc, "nk_conv2d_stacked_sm90", xs,
+                       stack_weights(w, rows, cs), (stride[0] // rows, 1),
+                       (dilation[0], 1), 1, out)
     return _launch(conv2d_direct_nhwc,
-                   "nk_conv2d_sm90" if sm90 else "nk_conv2d", x, w, stride,
-                   dilation, groups, out)
+                   "nk_conv2d_sm90" if route == "sm90" else "nk_conv2d", x,
+                   w, stride, dilation, groups, out)
 
 
 def conv1d_direct_nwc(x, w, dilation=1, stride=1, *, out_ncw=False,
@@ -390,11 +507,13 @@ def conv2d_dw_nhwc(x, g, kh: int, kw: int, dilation=(1, 1), *,
 for _fn in (conv2d_direct_nhwc, conv2d_dw_nhwc, conv1d_direct_nwc,
             conv3d_direct_ndhwc):
     _fn.launches = 0
-    # the calls that ran the Hopper kernels (conv_route "sm90")
+    # the calls that ran the Hopper kernels (conv_route "sm90" and
+    # "sm90_stacked")
     _fn.sm90_launches = 0
+stack_taps_nhwc.launches = 0
 
 KERNELS = (conv2d_direct_nhwc, conv2d_dw_nhwc, conv1d_direct_nwc,
-           conv3d_direct_ndhwc)
+           conv3d_direct_ndhwc, stack_taps_nhwc)
 
 
 # --------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 JAX's Pallas kernels run in interpret mode (as tests/test_pallas.py runs
 them on the CPU), the NCHW facade and the composed stride-1 gradients,
 `conv2d_pallas_nhwc` with its gradients against `jax.vjp` of JAX's, the
+stacked K12's decomposition at Ci < 8 (`stack_plan`, the pre-pass's and
+the weights' plain versions, the (kq x 1) conv) against JAX's K12, the
 route table, the kernel route of every ResNet-18 conv, the Hopper K13's
 split plan and SAME padding; and, on the card, each CUDA kernel against
 its plain version (the Hopper K12 and K13 at ResNet-18's stage shapes and
@@ -77,6 +79,105 @@ def test_plain_conv2d_strided_and_dilated_matches_lax(d, s):
         dimension_numbers=("NHWC", "HWIO", "NHWC"))
     _close(TC.conv2d_direct_nhwc(torch.from_numpy(x), torch.from_numpy(w),
                                  d, s), ref)
+
+
+# K12 at Ci < 8 on the card: the horizontal taps stacked into channels,
+# then a (kh x 1) conv (conv_route "sm90_stacked"); (x shape, kernel,
+# stride, dilation): the ImageNet stem's 7x7/2 and the CIFAR stem's 3x3/1
+# at 3 channels, 1, 5 and 7 channels, dilation (2, 2), stride (3, 2)
+STACK_CASES = {
+    "imagenet-7x7-s2": ((2, 16, 16, 3), (7, 7, 3, 8), (2, 2), (1, 1)),
+    "cifar-3x3": ((2, 10, 10, 3), (3, 3, 3, 16), (1, 1), (1, 1)),
+    "ci1": ((2, 9, 10, 1), (3, 3, 1, 8), (1, 1), (1, 1)),
+    "ci5": ((1, 9, 11, 5), (2, 3, 5, 8), (1, 1), (1, 1)),
+    "ci7": ((1, 11, 12, 7), (3, 3, 7, 8), (1, 1), (1, 1)),
+    "dil2": ((1, 14, 13, 3), (3, 3, 3, 8), (1, 1), (2, 2)),
+    "s3x2": ((1, 16, 15, 3), (3, 3, 3, 8), (3, 2), (1, 1)),
+}
+
+
+def _stacked(x, w, stride, dil):
+    """The stacked route's function in plain torch: the (ceil(kh / rows) x
+    1) conv of stack_taps_reference's xs by stack_weights(w), rows, h2 and
+    cs from stack_plan (the extra channels zero on both sides; h2 rows of
+    xs give exactly the conv's Ho output rows)."""
+    kh, kw, ci, co = w.shape
+    rows, h2, cs = TC.stack_plan(x.shape[1], ci, (kh, kw), stride, dil)
+    assert rows == (stride[0] if dil[0] == 1 and kh > 1 else 1)
+    xs = TC.stack_taps_reference(x, kw, stride[1], dil[1], cs, rows, h2)
+    assert xs.shape[-1] == cs and not xs[..., rows * kw * ci:].any()
+    return TC.conv_nd_reference(xs, TC.stack_weights(w, rows, cs),
+                                (stride[0] // rows, 1), (dil[0], 1))
+
+
+@pytest.mark.parametrize("name,dtype", [
+    *((n, "f32") for n in STACK_CASES),
+    *((n, "bf16") for n, c in STACK_CASES.items() if c[2] == (1, 1))])
+def test_stacked_conv2d_matches_jax_kernel(name, dtype):
+    """The stacked decomposition against JAX's K12 in interpret mode: f32
+    within TOL; bf16 within one bf16 ulp of the largest entry (both round
+    one f32 sum), at stride 1 only: JAX splits a strided conv into phases,
+    each rounded to bf16 and summed in bf16."""
+    xs, ws, stride, dil = STACK_CASES[name]
+    x, w = _randn(*xs), _randn(*ws, seed=1, scale=0.3)
+    jd, td = ((jnp.float32, torch.float32) if dtype == "f32"
+              else (jnp.bfloat16, torch.bfloat16))
+    ref = np.asarray(JC.conv2d_direct_nhwc(
+        jnp.asarray(x, jd), jnp.asarray(w, jd), dil, stride,
+        interpret=True), np.float32)
+    out = _stacked(torch.from_numpy(x).to(td), torch.from_numpy(w).to(td),
+                   stride, dil)
+    assert out.dtype == td
+    if td == torch.float32:
+        _close(out, ref)
+    else:
+        top = np.abs(ref).max()
+        assert np.abs(out.float().numpy() - ref).max() <= 2.0 ** (
+            np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("kw,sw,dw,ci,rows", [
+    (7, 2, 1, 3, 2), (7, 2, 1, 3, 1), (3, 1, 1, 3, 1), (3, 2, 2, 1, 3),
+    (2, 3, 1, 7, 1)])
+def test_stack_taps_reference_gathers_the_taps(kw, sw, dw, ci, rows):
+    """xs[n, r, ow, (i kw + tw) Ci + c] = x[n, r rows + i, ow sw + tw dw, c],
+    zero past row H and past rows kw Ci, against a loop over every
+    entry."""
+    x = torch.from_numpy(_randn(2, 5, 17, ci))
+    cs = -(-rows * kw * ci // 8) * 8
+    xs = TC.stack_taps_reference(x, kw, sw, dw, cs, rows).numpy()
+    wo, h2 = (17 - dw * (kw - 1) - 1) // sw + 1, -(-5 // rows)
+    want = np.zeros((2, h2, wo, cs), np.float32)
+    for r in range(h2):
+        for i in range(rows):
+            if r * rows + i >= 5:
+                continue
+            for ow in range(wo):
+                for tw in range(kw):
+                    j = (i * kw + tw) * ci
+                    want[:, r, ow, j:j + ci] = \
+                        x.numpy()[:, r * rows + i, ow * sw + tw * dw]
+    assert np.array_equal(xs, want)
+    # the wrapper on a CPU tensor takes it and counts nothing
+    before = TC.stack_taps_nhwc.launches
+    assert np.array_equal(TC.stack_taps_nhwc(x, kw, sw, dw, cs, rows).numpy(),
+                          want)
+    assert TC.stack_taps_nhwc.launches == before
+
+
+def test_stack_weights_regroup_the_taps():
+    """stack_weights' tap row q, channel (i kw + tw) Ci + c is w[q rows + i,
+    tw, c], zero past row kh and past channel rows kw Ci."""
+    w = torch.from_numpy(_randn(7, 7, 3, 8))
+    ws = TC.stack_weights(w, 2, 48)
+    assert tuple(ws.shape) == (4, 1, 48, 8)
+    for q in range(4):
+        for i in range(2):
+            for tw in range(7):
+                j = (i * 7 + tw) * 3
+                want = w[q * 2 + i, tw] if q * 2 + i < 7 else 0 * w[0, 0]
+                assert torch.equal(ws[q, 0, j:j + 3], want)
+    assert not ws[:, :, 42:].any()
 
 
 def test_plain_conv2d_bf16_matches_jax_kernel():
@@ -260,8 +361,12 @@ def test_route_table_is_jaxs(route, monkeypatch):
     (lambda: TC.conv2d_pallas_nhwc(torch.zeros(1, 5, 5, 4),
                                    torch.zeros(3, 3, 4, 8), 1, "FULL"),
      "padding"),
+    (lambda: TC.stack_taps_nhwc(torch.zeros(1, 5, 5, 3), 3, 1, 1, 16, 2),
+     "channels"),
+    (lambda: TC.stack_taps_nhwc(torch.zeros(1, 5, 5, 3), 3, 1, 3, 16),
+     "row"),
 ], ids=["ci", "groups", "small", "rank", "1d-ci", "3d-ci", "dw-shape",
-        "padding"])
+        "padding", "stack-cs", "stack-row"])
 def test_wrappers_refuse_bad_arguments(call, match):
     with pytest.raises(ValueError, match=match):
         call()
@@ -287,12 +392,13 @@ def _resnet18_convs():
 
 @pytest.mark.parametrize("conv", _resnet18_convs(), ids=lambda c: c[0])
 def test_conv_route_of_resnet18(conv):
-    """bf16: every conv but the stem (Ci = 3) on the Hopper kernel, and so
-    every stride-1 conv's dx (K12 on the flipped, io-swapped kernel) and dw
-    (K13); f32 on the FFMA kernel."""
+    """bf16: every conv on the Hopper kernel, the stem (Ci = 3) after
+    stacking its horizontal taps into channels, and every stride-1 conv's
+    dx (K12 on the flipped, io-swapped kernel) and dw (K13); f32 on the
+    FFMA kernel."""
     _, ci, co, k, s = conv
     bf = torch.bfloat16
-    want = "conv_mma" if ci == 3 else "sm90"
+    want = "sm90_stacked" if ci == 3 else "sm90"
     assert TC.conv_route("fwd", bf, ci, co, 1, (s, s), (1, 1),
                          (k, k)) == want
     assert TC.conv_route("fwd", torch.float32, ci, co, 1, (s, s), (1, 1),
@@ -318,9 +424,33 @@ def test_conv_route_of_resnet18(conv):
      "conv_mma"),                                               # corner
     (("dw", torch.bfloat16, 64, 64, 1, (2, 2)), "conv_mma"),
     (("fwd", torch.float16, 64, 64), "conv_mma"),
+    # Ci < 8: the Hopper K12 on the stacked taps ("fwd" of a 2-d conv only)
+    (("fwd", torch.bfloat16, 3, 64, 1, (2, 2), (1, 1), (7, 7)),
+     "sm90_stacked"),                                           # ImageNet
+    (("fwd", torch.bfloat16, 3, 32, 1, (1, 1), (1, 1), (3, 3)),
+     "sm90_stacked"),                                           # CIFAR
+    *((("fwd", torch.bfloat16, ci, 16, 1, (1, 1), (2, 2), (3, 3)),
+       "sm90_stacked") for ci in (1, 2, 4, 5, 6, 7)),
+    (("fwd", torch.bfloat16, 3, 16, 1, (3, 2)), "sm90_stacked"),
+    (("fwd", torch.bfloat16, 3, 20), "conv_mma"),               # Co % 8
+    (("fwd", torch.bfloat16, 4, 16, 2), "conv_mma"),            # groups
+    (("fwd", torch.float16, 3, 64), "conv_mma"),
+    (("fwd", torch.float32, 3, 64), "conv_ffma"),
+    (("fwd", torch.bfloat16, 3, 64, 1, (9, 1)), "conv_mma"),    # stride > 8
+    (("fwd", torch.bfloat16, 3, 64, 1, (1, 1), (65, 1), (3, 1)),
+     "conv_mma"),                                               # corner
+    (("dw", torch.bfloat16, 3, 32, 1, (1, 1), (1, 1), (3, 3)), "conv_mma"),
+    (("dw", torch.bfloat16, 1, 64), "conv_mma"),
 ], ids=["groups", "ci12", "co20", "tails", "dw-tails", "dw-ci3", "dw-f32",
-        "dil2", "s3x2", "s9", "dil65", "dw-s2", "f16"])
+        "dil2", "s3x2", "s9", "dil65", "dw-s2", "f16", "stack-imagenet",
+        "stack-cifar", "stack-ci1", "stack-ci2", "stack-ci4", "stack-ci5",
+        "stack-ci6", "stack-ci7", "stack-s3x2", "ci3-co20", "ci4-g2",
+        "ci3-f16", "ci3-f32", "ci3-s9", "ci3-dil65", "dw-cifar-stem",
+        "dw-ci1"])
 def test_conv_route_by_shape(args, want):
+    """The route of a K12 or K13 call; Ci 1-7 take the stacked Hopper K12,
+    except a grouped conv, Co not a multiple of 8, f16, or past the stride
+    and corner limits, and every "dw" (K13 has no stacked form)."""
     assert TC.conv_route(*args) == want
 
 
@@ -413,6 +543,9 @@ def test_counters_do_not_move_on_the_cpu():
     # a shape conv_route sends to the Hopper K14 on the card
     TC.conv1d_direct_nwc(torch.from_numpy(_randn(1, 64, 8)).bfloat16(),
                          torch.from_numpy(_randn(3, 8, 8)).bfloat16())
+    # and one it sends to the stacked K12 (the CIFAR stem)
+    TC.conv2d_direct_nhwc(torch.from_numpy(_randn(1, 8, 8, 3)).bfloat16(),
+                          torch.from_numpy(_randn(3, 3, 3, 8)).bfloat16())
     assert [k.launches for k in TC.KERNELS] == before
     assert TC.conv2d_direct_nhwc.sm90_launches == 0
     assert TC.conv2d_dw_nhwc.sm90_launches == 0

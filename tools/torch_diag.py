@@ -1,4 +1,4 @@
-"""Seventeen measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Nineteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -42,6 +42,26 @@ make, run on one CUDA card from the root of a checkout:
         function (F.conv2d, torch.nn.grad.conv2d_weight; TF32 off) and
         its bound, and the sums over the step's calls; device time a call
         from torch.profiler, the best of two runs of 20 calls each;
+    python3 tools/torch_diag.py stem TREE_ROOT
+        the checkout's K12 at both ResNet stems (bf16 B64, SAME: the
+        padded 229x229x3 input, 7x7/2 -> 64, and 34x34x3, 3x3/1 -> 32):
+        the whole call by CUDA events (the best of two runs of 20) and by
+        the profiler's device time a kernel, beside cuDNN's (F.conv2d on a
+        channels-last view of the same input, TF32 off) and the bound;
+        where the checkout stacks the stem's taps (`stack_taps_nhwc`), the
+        pre-pass and the stacked K12 alone too; the stem's weight gradient
+        as the strided backward runs it (torch.nn.grad.conv2d_weight on
+        contiguous NCHW copies), by kernel; run it for two checkouts in
+        turns to compare them;
+    python3 tools/torch_diag.py profile-window TREE_ROOT SECONDS
+        whether torch.profiler keeps the first kernels of a window late in
+        a long process: runs phase 13's ResNet-18 train step of the
+        checkout for SECONDS, then profiles one step at a time, three
+        times without and three times with 0.1 s of idle time at each end
+        of the window, in turns (a clock drift between host and card would
+        drop the first kernels of the unpadded window only), printing the
+        kernels the window holds, whether the stem's kernels are among
+        them, and when the first one starts after the window opens;
     python3 tools/torch_diag.py ce TREE_ROOT
         CUDA-event times of the checkout's K8, K9 and K10 at chip_smoke.py
         phase 6's LM head (bf16 N32768 D1536 V16384; the best of two runs
@@ -918,6 +938,134 @@ def conv(root):
               flush=True)
 
 
+def _kernel_ms(fn, n=20):
+    """{kernel name: device ms a call} of fn() from torch.profiler (n
+    calls after 3 warm-up calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / n / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def stem(root):
+    import torch.nn.functional as F
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import chip_smoke as cs
+    from neuronika_tpu_torch import _build
+    from neuronika_tpu_torch.ops import conv as C
+
+    _build.load_library()
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(23)
+    stacked = hasattr(C, "stack_taps_nhwc")
+
+    def best(fn):
+        return min(cs.cuda_ms(fn, 20), cs.cuda_ms(fn, 20))
+
+    for name, xs, ws, st in (("imagenet", (64, 229, 229, 3), (7, 7, 3, 64),
+                              (2, 2)),
+                             ("cifar", (64, 34, 34, 3), (3, 3, 3, 32),
+                              (1, 1))):
+        kh, kw, ci, co = ws
+        x = torch.randn(*xs, generator=g, device="cuda").bfloat16()
+        w = (torch.randn(*ws, generator=g, device="cuda")
+             * (kh * kw * ci) ** -0.5).bfloat16()
+        whole = functools.partial(C.conv2d_direct_nhwc, x, w, (1, 1), st)
+        out = whole()
+        ref = C.conv_nd_reference(x, w, st, (1, 1))
+        err = float((out.float() - ref.float()).abs().max())
+        lib = functools.partial(F.conv2d, x.permute(0, 3, 1, 2),
+                                w.permute(3, 2, 0, 1), stride=st)
+        bound = cs.bound_ms((x.numel() + w.numel() + out.numel()) * 2,
+                            2 * out.numel() * kh * kw * ci, torch.bfloat16)
+        line = [f"whole call {best(whole):.4f} ms (events), kernels "
+                + ", ".join(f"{k.split('(')[0].split(' ')[-1]} {v:.4f}"
+                            for k, v in _kernel_ms(whole).items())]
+        if stacked:
+            rows, h2, cs_ = C.stack_plan(xs[1], ci, (kh, kw), st, (1, 1))
+            args = (x, kw, st[1], 1, cs_, rows, h2)
+            xs_k = C.stack_taps_nhwc(*args)
+            k12 = functools.partial(
+                C._launch, C.conv2d_direct_nhwc, "nk_conv2d_stacked_sm90",
+                xs_k, C.stack_weights(w, rows, cs_), (st[0] // rows, 1),
+                (1, 1), 1, tuple(out.shape[1:3]))
+            line.append(f"{rows} rows of taps in {cs_} channels: pre-pass "
+                        f"{best(lambda: C.stack_taps_nhwc(*args)):.4f} ms, "
+                        f"stacked K12 {best(k12):.4f} ms")
+            pre_bound = cs.bound_ms((x.numel() + xs_k.numel()) * 2, 0,
+                                    torch.bfloat16)
+            line.append(f"pre-pass bound {pre_bound[0]:.4f} ms")
+        line.append(f"cuDNN {best(lib):.4f} ms (events), "
+                    f"{sum(_kernel_ms(lib).values()):.4f} ms (device)")
+        # the stem's weight gradient as the port's strided backward runs
+        # it (ops/conv.py::_ConvNHWC.backward: the library's, on
+        # contiguous NCHW copies)
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        gn = torch.randn(out.shape[0], co, *out.shape[1:3], generator=g,
+                         device="cuda").bfloat16()
+        wgrad = functools.partial(torch.nn.grad.conv2d_weight, xn,
+                                  (co, ci, kh, kw), gn, st)
+        line.append("wgrad (conv2d_weight) kernels " + ", ".join(
+            f"{k.split('(')[0].split(' ')[-1][:60]} {v:.4f}"
+            for k, v in _kernel_ms(wgrad).items()) + " ms")
+        line.append(f"bound {bound[0]:.4f} ms ({bound[1]}); max abs err "
+                    f"against plain {err:.3g}")
+        print(f"{root}: {name} stem {xs}*{ws} s{st[0]}: " + "; ".join(line),
+              flush=True)
+        del x, w, out, ref, xn, gn
+        torch.cuda.empty_cache()
+
+
+# idle time at each end of a window, profile-window's second variant
+_PAD_S = 0.1
+
+
+def profile_window(root, seconds):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    root, cs, C, R, cfg, params, buf, x, y, step = _resnet(root)
+    t0, n = time.perf_counter(), 0
+    while time.perf_counter() - t0 < seconds:
+        params, buf, _ = step(params, buf, x, y, 0.1)
+        n += 1
+        if n % 50 == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    print(f"{root}: {n} ResNet-18 steps in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    stem = ("conv_mma<false>", "conv_stack_taps", "conv_sm90_stacked")
+    for pad in (0.0, _PAD_S) * 3:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            step(params, buf, x, y, 0.1)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        names = {k for e in dev for k in stem if k in e.name}
+        first = min((e.time_range.start for e in dev), default=float("nan"))
+        op0 = min(e.time_range.start for e in prof.events()
+                  if e.device_type != DeviceType.CUDA
+                  and e.name.startswith("aten::"))
+        print(f"{root}: pad {pad} s: {len(dev)} kernels, "
+              f"{sum(e.time_range.elapsed_us() for e in dev) / 1e3:.3f} ms;"
+              f" stem kernels {sorted(names)}; the first kernel starts "
+              f"{(first - op0) / 1e3:.3f} ms after the step's first op",
+              flush=True)
+
+
 def exact_backward(qkv, do, H, KV):
     """d_qkv of causal attention on the packed layout, all in f64."""
     B, S, W = qkv.shape
@@ -998,6 +1146,10 @@ if __name__ == "__main__":
         host(sys.argv[2])
     elif sys.argv[1:2] == ["conv"] and len(sys.argv) == 3:
         conv(sys.argv[2])
+    elif sys.argv[1:2] == ["stem"] and len(sys.argv) == 3:
+        stem(sys.argv[2])
+    elif sys.argv[1:2] == ["profile-window"] and len(sys.argv) == 4:
+        profile_window(sys.argv[2], float(sys.argv[3]))
     elif sys.argv[1:2] == ["ce"] and len(sys.argv) == 3:
         ce(sys.argv[2])
     elif sys.argv[1:2] == ["paged"] and len(sys.argv) == 3:
