@@ -191,8 +191,9 @@ nvidia-smi. Phases, each printing one line or a few:
      hd 96, d_ff 8192, V32064, window 2047) cut to 4 layers, S4096 B2,
      two timed steps under each remat policy ("full", "flash", "names",
      "dots", "flash_dots": K5 2 L a step under "full" and "dots", L under
-     the others; losses within 2^-8 of "full"'s; step time and peak
-     memory each); and PagedBatcher (kernel "on") serving 4 requests on
+     the others, K6 and K7 L each on the Hopper walks, K5 on mma.sync;
+     losses within 2^-8 of "full"'s; step time and peak memory each); and
+     PagedBatcher (kernel "on") serving 4 requests on
      both (K11 at G 16 hd 128 and at G 1 hd 96), with f32 greedy tokens
      at 4 layers equal to the gather path's.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
@@ -208,11 +209,14 @@ their plain versions over f32 and bf16, causal, windows 1, 6, 100 and
 128-row CTAs (63, 64, 65, 127, 128, 129), full attention with Sq != Skv,
 hd 64 and 128 and ragged S, then at B1 H8 S8192 hd128 window 4096 bf16,
 where each is timed beside its plain version and SDPA (with the band as
-a boolean mask), and at phase 11's shape (B2 H32 S8192), where they are
-checked (the plain versions over 8 heads at a time), three planted faults
-are read against the same bound and must fail it, two launches of K5, of
-K6 and of K7 must give the same bits, and each is timed alone; the bf16
-K5-K7 run the Hopper walks of csrc/flash_sm90.cuh. Their bf16 results are
+a boolean mask), at Phi-3-mini's (B1 H32 S4096 hd96 window 2047) and at
+phase 11's shape (B2 H32 S8192), where they are checked (the plain
+versions over 8 heads at a time) and three planted faults are read
+against the same bound and must fail it; at phase 11's two launches of
+K5, of K6 and of K7 must give the same bits, and each is timed alone; the
+bf16 K5-K7 run the Hopper walks of csrc/flash_sm90.cuh at hd 64 and 128,
+K6 and K7 also at hd 96 (each case holds every kernel to its route, the
+JSON line lists them). Their bf16 results are
 also held in norm: ||kernel - plain|| <= 1e-2 ||plain|| + 2^-15
 sqrt(numel), and so are K1's and K2's, with three planted faults (K1, K2a,
 the fused K2) read at the headline shape. Phase 3 then holds the direct convolutions (K12 at strides
@@ -1660,6 +1664,27 @@ def split_faults(q, k, v, do, out, lse, delta, dq, dk, dv, window):
     return out_f, dq_f, dk_f, dv_f
 
 
+# the bf16 head dims at which each split kernel runs the Hopper walks
+# (csrc/flash_sm90.cuh); every other head dim and f32 run mma.sync/FFMA
+SPLIT_SM90_HD = {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 96, 128),
+                 "flash_bwd_dkv": (64, 96, 128)}
+
+
+def split_routes(FA):
+    """{kernel: the route of its last launch} of K5, K6 and K7."""
+    return {k.__name__: k.route for k in FA.SPLIT_KERNELS}
+
+
+def check_split_routes(FA, key, dtype, hd):
+    """Prints the route of each split kernel's last launch and fails unless
+    it is the one SPLIT_SM90_HD gives `dtype` and `hd`."""
+    routes = split_routes(FA)
+    want = {n: "sm90" if dtype == torch.bfloat16 and hd in hds
+            else "mma.sync" for n, hds in SPLIT_SM90_HD.items()}
+    print(f"  {key} routes: {json.dumps(routes)}")
+    check(routes == want, f"{key}: routes {routes}, want {want}")
+
+
 def check_split(FA, key, q, k, v, do, causal, window, faults=False, seed=0,
                 rate=0.0):
     """K5, K6 and K7 against their plain versions on one input, with
@@ -1774,16 +1799,20 @@ def phase_split_flash(FA):
     """Phase 3, split-layout flash part: K5, K6 and K7 against their plain
     versions over the small cases, then checked and timed at B1 H8 S8192
     hd128 window 4096 bf16 (beside the plain versions and SDPA; the times
-    the JSON line reports), then checked, with the planted faults read, and
-    timed alone at phase 11's shape (B2 H32 S8192; the errors the JSON line
-    reports). Returns {kernel: (max_abs_err at B2 H32, ms, plain_ms,
-    library_ms, bound at B1 H8)}."""
+    the JSON line reports), then checked with the planted faults read at
+    Phi-3-mini's shape (B1 H32 S4096 hd96 window 2047: K6 and K7 on the
+    Hopper walks, K5 on mma.sync), then checked, with the planted faults
+    read, and timed alone at phase 11's shape (B2 H32 S8192; the errors the
+    JSON line reports). Every case holds each kernel to its route
+    (check_split_routes). Returns {kernel: (max_abs_err at B2 H32, ms,
+    plain_ms, library_ms, bound at B1 H8)}."""
     g = torch.Generator(device="cuda").manual_seed(5)
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, H, Sq, Skv, causal, window, hd in SPLIT_CASES:
             q, k, v, do = split_case(g, B, H, Sq, Skv, hd, dtype)
-            check_split(FA, f"{str(dtype)[6:]}/{name}", q, k, v, do, causal,
-                        window)
+            key = f"{str(dtype)[6:]}/{name}"
+            check_split(FA, key, q, k, v, do, causal, window)
+            check_split_routes(FA, key, dtype, hd)
     B, H, S, hd, W = 1, 8, 8192, 128, 4096
     q, k, v, do = split_case(g, B, H, S, S, hd, torch.bfloat16, False)
     _, (lse, delta) = check_split(FA, "bfloat16/B1-H8-S8192-hd128-w4096",
@@ -1820,6 +1849,16 @@ def phase_split_flash(FA):
           + "; ".join(line) + " (the plain backward and SDPA's backward "
           "compute dq, dk and dv together)")
     del q, k, v, do, lse, delta, kern, plain
+    torch.cuda.empty_cache()
+
+    # Phi-3-mini's shape (phase 19's model): K6 and K7 on the Hopper walks
+    # at hd 96, K5 on mma.sync; the planted faults must fail the bf16
+    # bound there too
+    key = "bfloat16/B1-H32-S4096-hd96-w2047"
+    q, k, v, do = split_case(g, 1, 32, 4096, 4096, 96, torch.bfloat16, False)
+    check_split(FA, key, q, k, v, do, True, 2047, faults=True)
+    check_split_routes(FA, key, torch.bfloat16, 96)
+    del q, k, v, do
     torch.cuda.empty_cache()
 
     B, H = 2, 32
@@ -5125,17 +5164,19 @@ def wide_sm90_checks(rng, FA):
 
 def wide_split_checks(FA):
     """K5-K7 at WIDE_SPLIT_CASES, f32 and bf16, without and with dropout at
-    WIDE_RATE, at check_split's bounds. Returns {kernel: worst max abs
-    err}."""
+    WIDE_RATE, at check_split's bounds, each kernel on the route
+    SPLIT_SM90_HD gives (bf16 hd 96: K6 and K7 on the Hopper walks, K5 on
+    mma.sync). Returns {kernel: worst max abs err}."""
     g = torch.Generator(device="cuda").manual_seed(19)
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, H, Sq, Skv, causal, window, hd in WIDE_SPLIT_CASES:
             q, k, v, do = split_case(g, B, H, Sq, Skv, hd, dtype)
             for rate in (0.0, WIDE_RATE):
-                errs, _ = check_split(FA, f"{str(dtype)[6:]}/{name}/p{rate}",
-                                      q, k, v, do, causal, window,
+                key = f"{str(dtype)[6:]}/{name}/p{rate}"
+                errs, _ = check_split(FA, key, q, k, v, do, causal, window,
                                       seed=WIDE_SEED, rate=rate)
+                check_split_routes(FA, key, dtype, hd)
                 for kname, e in errs.items():
                     worst[kname] = max(worst.get(kname, 0.0), e)
             del q, k, v, do
@@ -5488,8 +5529,9 @@ def phase_phi3(T, FA, CE):
     and batch. Every policy's losses within REMAT_LOSS_REL of "full"'s; K5
     launched 2 L a step under "full" and "dots" (the recompute reruns it),
     L under "flash", "names" and "flash_dots" (its outputs kept); K6 and
-    K7 L each. Returns the launches summed over the policies and
-    {policy: (step ms, peak GiB)}."""
+    K7 L each, on the Hopper walks, K5 on mma.sync (check_split_routes).
+    Returns the launches summed over the policies and {policy: (step ms,
+    peak GiB, K5 a step, losses' gap to full's)}."""
     rng = np.random.default_rng(2)
     B, S, n = 2, 4096, 2
     batch = lm_batch(rng, PHI3_MINI["vocab_size"], B, S)
@@ -5508,6 +5550,8 @@ def phase_phi3(T, FA, CE):
                                         f"{losses}")
         check(launches == want, f"phase 19 Phi-3 {policy}: launches "
                                 f"{launches}, want {want}")
+        check_split_routes(FA, f"phase 19 Phi-3 {policy}", torch.bfloat16,
+                           96)
         ref = ref or losses
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
         check(rel <= REMAT_LOSS_REL, f"phase 19 Phi-3 {policy}: losses "
@@ -5710,6 +5754,7 @@ def main() -> int:
     flash = phase_flash_kernels(rng, FA)
     mm_sm = phase_mm_softmax(MM, SM)
     sflash = phase_split_flash(FA)
+    routes3 = split_routes(FA)
     dflash = phase_dropout_kernels(FA)
     convk = phase_conv_kernels(C)
     phase_conv_route_times(C)
@@ -5821,6 +5866,7 @@ def main() -> int:
     wide_errs, wide_times = phase_wide_kernels(FA, PA)
     star = phase_starcoder(T, FA, CE, profile)
     phi3, _ = phase_phi3(T, FA, CE)
+    routes19 = split_routes(FA)
     wide_k11 = phase_wide_serving(T, PA, PagedBatcher)
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
 
@@ -5896,7 +5942,8 @@ def main() -> int:
     # phase 11's B2 H32 S8192, their times at B1 H8 S8192 (where the plain
     # versions fit); "phase19" holds the widened shapes' worst error, and
     # the error against the plain versions and the times at Phi-3-mini's
-    # shape
+    # shape; "routes" the Hopper ("sm90") or mma.sync body each ran on its
+    # last launch of phase 3 (hd 128) and of phase 19's Phi-3-mini step
     for name, line in (("flash_fwd", 91), ("flash_bwd_dq", 177),
                        ("flash_bwd_dkv", 243)):
         e, ms, p_ms, lib, bound = sflash[name]
@@ -5912,6 +5959,9 @@ def main() -> int:
                         "bound_by": bound[1], "library_ms": lib,
                         "dropout_ms": dflash[name][1],
                         "dropout_max_abs_err": dflash[name][0],
+                        "routes": {"phase 3 hd128": routes3[name],
+                                   "phase 19 Phi-3-mini hd96":
+                                       routes19[name]},
                         "phase19": wide_row(
                             "hd96 B1 H32 S4096 window 2047 (Phi-3-mini)",
                             wide_errs[name],

@@ -1,6 +1,8 @@
 // The Hopper (sm_90a) flash walks, shared by both layouts:
 // flash_attention_qkv.cu runs them on the packed qkv projection (K1, K2a,
 // K2b, K2c/K2d), flash_attention.cu on (B, H, S, hd) q, k, v (K5, K6, K7).
+// Head dims 64 and 128; the dq and dk/dv walks without FUSED and CLUSTER
+// also 96 (K6 and K7: see panels below).
 // The walks (fwd_walk, dq_walk, kv_walk) are written once; a layout is a
 // "tile policy" that says where a tile comes from and where a result goes:
 //   kStatsWarp  false when the rows' (lse, delta) arrive by bulk copy with
@@ -138,6 +140,42 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int p, int k) {
   return sw128_desc(base + p * panel_bytes(ROWS) + k * panel_bytes(16));
 }
 
+// The head dim in panels: 64 columns each, the last one HD % 64 wide where
+// HD is not a multiple of 64 (hd 96: 64 + 32). The dq and dk/dv walks take
+// HD 64, 96 and 128, the forward 64 and 128. K-major products loop over
+// HD / 16 slices, so none reads the zero columns of a narrow panel;
+// MN-major products into the head dim run one wgmma a panel at its width,
+// an accumulator's narrow panel in the first panel_cols / 2 of its 32
+// entries.
+__host__ __device__ constexpr int panels(int hd) { return (hd + 63) / 64; }
+
+template <int HD>
+__host__ __device__ constexpr int panel_cols(int p) {
+  return HD - 64 * p < 64 ? HD - 64 * p : 64;
+}
+
+// d (64 rows x panel p's columns) += A (64 x 16, registers) . B (16 rows x
+// panel p's columns, MN-major)
+template <int HD>
+__device__ __forceinline__ void wgmma_panel(float (&d)[32], int p,
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  static_assert(HD % 64 == 0 || HD % 64 == 32, "panels of 64 or 32 columns");
+  if (panel_cols<HD>(p) == 64)
+    wgmma_rs<1>(d, a, db);
+  else
+    wgmma_rs<1>(reinterpret_cast<float(&)[16]>(d), a, db);
+}
+
+// keep() of the entries of panel p that its products write
+template <int HD>
+__device__ __forceinline__ void keep_panel(float (&d)[32], int p) {
+  if (panel_cols<HD>(p) == 64)
+    keep(d);
+  else
+    keep(reinterpret_cast<float(&)[16]>(d));
+}
+
 // the A fragments of an accumulator's 16-column slices, rounded to bf16
 template <int N>
 __device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4],
@@ -167,6 +205,7 @@ __device__ __forceinline__ float band_p(bool out, float e) {
 
 template <int HD>
 struct FwdSmem {
+  static_assert(HD % 64 == 0, "the forward walk takes hd 64 and 128");
   static constexpr int P = HD / 64;
   static constexpr uint32_t kQ = P * panel_bytes(kBM);
   static constexpr uint32_t kKV = P * panel_bytes(kBN);
@@ -363,7 +402,7 @@ __device__ __forceinline__ void fwd_walk(const Tiles& t, unsigned char* smem,
 
 template <int HD>
 struct DqSmem {
-  static constexpr int P = HD / 64;
+  static constexpr int P = panels(HD);
   static constexpr uint32_t kQ = P * panel_bytes(kBM);
   static constexpr uint32_t kKV = P * panel_bytes(kBKd);
   static constexpr uint32_t kOffDO = kQ;
@@ -385,10 +424,11 @@ struct DqSmem {
 // K-major from the TMA tiles), p = exp2(S scale log2e - lse) and dS = p (dP
 // - delta) scale on the accumulator registers, rounded to bf16 into A
 // fragments as the TPU kernels round ds, then dQ += dS K (wgmma, A from
-// registers, K MN-major). 64-row k tiles keep S, dP and dQ (32 + 32 + 64 P
-// f32 a thread) within the consumers' 240 registers. A warpgroup whose 64
-// rows miss a tile of the walk (above its diagonal, below its window, past
-// Sq) only waits for the tile and frees it; interior tiles skip the mask.
+// registers, K MN-major). 64-row k tiles keep S, dP and dQ (32 + 32 +
+// HD / 2 f32 a thread) within the consumers' 232-240 registers. A
+// warpgroup whose 64 rows miss a tile of the walk (above its diagonal,
+// below its window, past Sq) only waits for the tile and frees it;
+// interior tiles skip the mask.
 template <int HD, bool DROPOUT, class Tiles>
 __device__ __forceinline__ void dq_walk(const Tiles& t, unsigned char* smem,
                                         int h, int b, int i0, float scale,
@@ -514,11 +554,11 @@ __device__ __forceinline__ void dq_walk(const Tiles& t, unsigned char* smem,
       for (int k = 0; k < kBKd / 16; ++k)
 #pragma unroll
         for (int p = 0; p < P; ++p)
-          wgmma_rs<1>(dq[p], ds[k], mnmajor<kBKd>(k_addr, p, k));
+          wgmma_panel<HD>(dq[p], p, ds[k], mnmajor<kBKd>(k_addr, p, k));
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int p = 0; p < P; ++p) keep(dq[p]);
+      for (int p = 0; p < P; ++p) keep_panel<HD>(dq[p], p);
       keep(ds);
       mbar_arrive(empty + s);
     }
@@ -530,15 +570,18 @@ __device__ __forceinline__ void dq_walk(const Tiles& t, unsigned char* smem,
       for (int p = 0; p < P; ++p)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          t.store_dq(b, h, row[x], 64 * p + 8 * j + c, dq[p][4 * j + 2 * x],
-                     dq[p][4 * j + 2 * x + 1]);
+          if (8 * j < panel_cols<HD>(p))
+            t.store_dq(b, h, row[x], 64 * p + 8 * j + c,
+                       dq[p][4 * j + 2 * x], dq[p][4 * j + 2 * x + 1]);
     }
   }
 }
 
 template <int HD, bool FUSED, bool CLUSTER = false>
 struct KvSmem {
-  static constexpr int P = HD / 64;
+  // FUSED's dQ = dS K and CLUSTER's stage take whole 64-column panels
+  static_assert(HD % 64 == 0 || !(FUSED || CLUSTER), "hd 96: kv_walk only");
+  static constexpr int P = panels(HD);
   static constexpr int LDQ = HD + 8;  // f32 dq rows, padded against conflicts
   static constexpr uint32_t kKV = P * panel_bytes(kBN);
   static constexpr uint32_t kQ = P * panel_bytes(kBQh);
@@ -926,8 +969,8 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
           for (int k = 0; k < kBQh / 16; ++k)
 #pragma unroll
             for (int p = 0; p < P; ++p) {
-              wgmma_rs<1>(dv[p], pt[k], mnmajor<kBQh>(do_addr, p, k));
-              wgmma_rs<1>(dk[p], dst[k], mnmajor<kBQh>(q_addr, p, k));
+              wgmma_panel<HD>(dv[p], p, pt[k], mnmajor<kBQh>(do_addr, p, k));
+              wgmma_panel<HD>(dk[p], p, dst[k], mnmajor<kBQh>(q_addr, p, k));
             }
           wgmma_commit();
           if constexpr (!FUSED) {
@@ -936,8 +979,8 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
             keep(dst);
 #pragma unroll
             for (int p = 0; p < P; ++p) {
-              keep(dk[p]);
-              keep(dv[p]);
+              keep_panel<HD>(dk[p], p);
+              keep_panel<HD>(dv[p], p);
             }
             mbar_arrive(empty + s);
           } else {
@@ -1048,6 +1091,7 @@ __device__ __forceinline__ void kv_walk(const Tiles& t, unsigned char* smem,
         for (int p = 0; p < P; ++p)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
+            if (8 * j >= panel_cols<HD>(p)) continue;
             const int i = 4 * j + 2 * x;
             t.store_dkv(w.b, w.g, krow, 64 * p + 8 * j + c, dk[p][i],
                         dk[p][i + 1], dv[p][i], dv[p][i + 1]);

@@ -12,7 +12,8 @@
 // CU_TENSOR_MAP_SWIZZLE_128B: 64 bf16 columns (128 bytes) a row, rows
 // stacked, the 16-byte chunks of row r XOR-ed with r % 8, each tile
 // aligned to 1024 bytes. A head-dim-128 row is two such 64-column
-// "panels", one after the other.
+// "panels", one after the other; a head-dim-96 row too, the second
+// panel's columns 96-127 zeros (TMA fills past the tensor's last column).
 
 #pragma once
 
@@ -517,6 +518,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB));
+}
+
+// the same at N = 32 (d: 64 x 32 f32, the first 16 entries of the N = 64
+// layout); an MN-major B may be the first 32 columns (64 bytes a row) of a
+// 128-byte-swizzled 64-column panel: the swizzle is of the address bits
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, 1, 1, 1, %21;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB));
 }
 

@@ -35,10 +35,12 @@ f32 and bf16, every head dim from 1 to 256 and any number of query heads
 per kv head, as JAX's kernels take them; f16 and head dims above 256
 raise `NotImplementedError` (ROADMAP.md queue 1 item 3). Two routes
 (`_sm90_route`): bf16 at hd 64 or 128 runs the Hopper kernels (wgmma,
-TMA) at any group size; past 8 query heads per kv head, K2b and the
-fused backward split each group over a cluster of CTAs (`dkv_plan`,
-`fused_plan`). Every other shape runs the mma.sync/FFMA kernels,
-instantiated at head-dim tiers that mask the runtime hd. CPU tensors take
+TMA) at any group size, and the split backward's K6 and K7 also at hd 96;
+past 8 query heads per kv head, K2b and the fused backward split each
+group over a cluster of CTAs (`dkv_plan`, `fused_plan`). Every other
+shape runs the mma.sync/FFMA kernels, instantiated at head-dim tiers that
+mask the runtime hd. Each wrapper records its last launch's route in
+`fn.route`. CPU tensors take
 the plain versions below, which use the kernels' own math (exp2 domain,
 `p` and `ds` rounded to the input dtype before their products) and keep
 every sum in f32.
@@ -62,8 +64,12 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# the Hopper kernels' head dims (csrc/flash_attention_qkv.cu::sm90_takes)
+# the Hopper kernels' head dims (csrc/flash_attention_qkv.cu::sm90_takes);
+# the split backward's K6 and K7 also take hd 96, as a 64-column and a
+# 32-column panel (csrc/flash_attention.cu::dispatch, flash_sm90.cuh::
+# panels)
 _SM90_HEAD_DIMS = (64, 128)
+_SM90_SPLIT_BWD_HEAD_DIMS = (64, 96, 128)
 # the cluster plans of K2b and the fused K2 (csrc/flash_sm90.cuh::kv_walk,
 # CLUSTER): the most query heads per kv head an item runs on one CTA, k
 # and q rows a tile, the cluster sizes the walk takes (the portable limit
@@ -81,13 +87,15 @@ def kernels_take(dtype, hd: int) -> bool:
     return dtype in _DTYPES and 1 <= hd <= MAX_HEAD_DIM
 
 
-def _sm90_route(dtype, hd: int) -> bool:
-    """True where the Hopper kernels run (bf16, hd 64 or 128, any group
-    size); else the mma.sync/FFMA kernels. The one place the route is
-    chosen: it decides the scratch layouts and operand copies here and is
-    passed to every launch as `sm90`, which the CUDA side dispatches on
-    (and refuses where the Hopper kernels are not built)."""
-    return dtype == torch.bfloat16 and hd in _SM90_HEAD_DIMS
+def _sm90_route(dtype, hd: int, split_bwd: bool = False) -> bool:
+    """True where the Hopper kernels run: bf16 at hd 64 or 128 (any group
+    size) for K1, K2 and K5, and with `split_bwd` (K6, K7) also at hd 96;
+    else the mma.sync/FFMA kernels. The one place the route is chosen: it
+    decides the scratch layouts and operand copies here and is passed to
+    every launch as `sm90`, which the CUDA side dispatches on (and refuses
+    where the Hopper kernels are not built)."""
+    return dtype == torch.bfloat16 and hd in (
+        _SM90_SPLIT_BWD_HEAD_DIMS if split_bwd else _SM90_HEAD_DIMS)
 
 
 def dkv_cluster(B: int, KV: int, S: int, G: int, sms: int = H100_SMS) -> int:
@@ -694,9 +702,10 @@ KERNELS = (flash_fwd_qkv, flash_bwd_dq_qkv, flash_bwd_dkv_qkv,
 
 
 def _split_operands(q, k, v, causal, window, *grads):
-    """Checks of the split-layout kernels. Returns (B, H, Sq, Skv, hd) and
-    q, k, v (then do) as the route reads them (`_aligned`: a copy of any
-    that it cannot)."""
+    """Checks of the split-layout kernels. Returns (B, H, Sq, Skv, hd), the
+    route (`_sm90_route`: K5's for q, k, v alone, K6's and K7's with do)
+    and q, k, v (then do) as the route reads them (`_aligned`: a copy of
+    any that it cannot)."""
     B, H, Sq, Skv, hd = _split_geometry(q, k, v, causal, window)
     dev = q.device
     if dev.type != "cuda":
@@ -710,8 +719,8 @@ def _split_operands(q, k, v, causal, window, *grads):
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"operands on {t.device} {t.dtype}, q on {dev} "
                              f"{q.dtype}")
-    sm90 = _sm90_route(q.dtype, hd)
-    return (B, H, Sq, Skv, hd), tuple(_aligned(t, sm90) for t in ts)
+    sm90 = _sm90_route(q.dtype, hd, split_bwd=bool(grads))
+    return (B, H, Sq, Skv, hd), sm90, tuple(_aligned(t, sm90) for t in ts)
 
 
 def _kernel_dtype_and_hd(dtype, hd):
@@ -826,9 +835,9 @@ def _rows(name, t, shape, dev):
 def flash_fwd(q, k, v, causal=True, scale=None, window=0, seed=0, rate=0.0):
     """K5 on the card: (out (B, H, Sq, hd) in q's dtype, lse (B, H, Sq) f32
     base 2), with attention dropout at `rate` drawn from `seed`. Adds one
-    to `flash_fwd.launches`."""
-    (B, H, Sq, Skv, hd), (q, k, v) = _split_operands(q, k, v, causal,
-                                                     window)
+    to `flash_fwd.launches`; records the route."""
+    (B, H, Sq, Skv, hd), sm90, (q, k, v) = _split_operands(q, k, v, causal,
+                                                           window)
     drop = _drop(seed, rate)
     from .._build import load_library
 
@@ -836,11 +845,12 @@ def flash_fwd(q, k, v, causal=True, scale=None, window=0, seed=0, rate=0.0):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _launch(load_library().nk_flash_fwd, "flash_fwd", _DTYPES[q.dtype],
-                int(_sm90_route(q.dtype, hd)), q.data_ptr(), k.data_ptr(),
+                int(sm90), q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 _strides(q, k, v), B, H, Sq, Skv, hd, _scale(scale, hd),
                 int(causal), int(window), *drop, _stream(q))
     flash_fwd.launches += 1
+    _route(flash_fwd, sm90)
     return out, lse
 
 
@@ -848,8 +858,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None,
                  window=0, seed=0, rate=0.0):
     """K6 on the card: dq (B, H, Sq, hd) from the saved lse and delta (B,
     H, Sq) f32, with the forward's dropout (`seed`, `rate`). Adds one to
-    `flash_bwd_dq.launches`."""
-    (B, H, Sq, Skv, hd), (q, k, v, do) = _split_operands(
+    `flash_bwd_dq.launches`; records the route."""
+    (B, H, Sq, Skv, hd), sm90, (q, k, v, do) = _split_operands(
         q, k, v, causal, window, do)
     drop = _drop(seed, rate)
     lse, delta = (_rows(n, t, (B, H, Sq), q.device)
@@ -859,13 +869,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=None,
     dq = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         _launch(load_library().nk_flash_bwd_dq, "flash_bwd_dq",
-                _DTYPES[q.dtype], int(_sm90_route(q.dtype, hd)),
+                _DTYPES[q.dtype], int(sm90),
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), _strides(q, k, v, do), B, H, Sq, Skv, hd,
                 _scale(scale, hd), int(causal), int(window), *drop,
                 _stream(q))
     flash_bwd_dq.launches += 1
+    _route(flash_bwd_dq, sm90)
     return dq
 
 
@@ -873,8 +884,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=None,
                   window=0, seed=0, rate=0.0):
     """K7 on the card: (dk, dv), each (B, H, Skv, hd), from the saved lse
     and delta (B, H, Sq) f32, with the forward's dropout (`seed`, `rate`).
-    Adds one to `flash_bwd_dkv.launches`."""
-    (B, H, Sq, Skv, hd), (q, k, v, do) = _split_operands(
+    Adds one to `flash_bwd_dkv.launches`; records the route."""
+    (B, H, Sq, Skv, hd), sm90, (q, k, v, do) = _split_operands(
         q, k, v, causal, window, do)
     drop = _drop(seed, rate)
     lse, delta = (_rows(n, t, (B, H, Sq), q.device)
@@ -885,18 +896,20 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=None,
     dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):
         _launch(load_library().nk_flash_bwd_dkv, "flash_bwd_dkv",
-                _DTYPES[q.dtype], int(_sm90_route(q.dtype, hd)),
+                _DTYPES[q.dtype], int(sm90),
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do), B, H,
                 Sq, Skv, hd, _scale(scale, hd), int(causal), int(window),
                 *drop, _stream(q))
     flash_bwd_dkv.launches += 1
+    _route(flash_bwd_dkv, sm90)
     return dk, dv
 
 
 for _fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
     _fn.launches = 0
+    _fn.route = None
 
 SPLIT_KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 

@@ -5,8 +5,9 @@ over one kv head (K1/K2) gives the loss and gradients of flash "off" in
 f32, under remat policy "flash" with K5 launched once a layer; K1, K2a,
 K2b and the fused K2 in bf16 past 8 query heads a kv head (G 9, 12, 16,
 32; hd 64 and 128) against their plain versions on the Hopper route, K2b
-and the fused K2 on their cluster walks; then `chip_smoke.py` phase 19's
-kernel checks. This file imports no JAX."""
+and the fused K2 on their cluster walks; K6 and K7 in bf16 at hd 96 on the
+Hopper walks (K5 on mma.sync) against their plain versions; then
+`chip_smoke.py` phase 19's kernel checks. This file imports no JAX."""
 
 import dataclasses
 import os
@@ -100,6 +101,40 @@ def test_hopper_route_past_8_heads_matches_plain(cuda, G, hd, S, causal,
     assert torch.equal(*again)
     again = [FA.flash_bwd_fused_qkv(qkv, out, lse, do, H, KV, causal, seed=7,
                                     rate=rate) for _ in range(2)]
+    assert torch.equal(*again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Sq, Skv, causal, window", [
+    (384, 384, True, 0), (300, 300, True, 127), (1000, 1000, True, 63),
+    (130, 300, False, 0), (512, 200, False, 0)],
+    ids=["causal-S384", "window127-S300", "window63-S1000",
+         "full-Sq130-Skv300", "full-Sq512-Skv200"])
+def test_split_bwd_hd96_on_hopper_matches_plain(cuda, Sq, Skv, causal,
+                                                window, rate):
+    """K6 and K7 in bf16 at hd 96 (strided views, as the model hands
+    them) against their plain versions at phase 3's bf16 bounds
+    (chip_smoke.check_split: per entry and in norm), on route "sm90",
+    with K5 on "mma.sync"; two launches of each give the same bits."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv + window)
+    q, k, v, do = chip_smoke.split_case(g, 2, 4, Sq, Skv, 96,
+                                        torch.bfloat16)
+    drop = dict(seed=7, rate=rate)
+    _, (lse, delta) = chip_smoke.check_split(
+        FA, f"hd96-Sq{Sq}-Skv{Skv}-w{window}-p{rate}", q, k, v, do, causal,
+        window, **drop)
+    assert FA.flash_fwd.route == "mma.sync"
+    assert FA.flash_bwd_dq.route == FA.flash_bwd_dkv.route == "sm90"
+    again = [FA.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                             window=window, **drop) for _ in range(2)]
+    assert torch.equal(*again)
+    again = [torch.cat(FA.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                        window=window, **drop))
+             for _ in range(2)]
     assert torch.equal(*again)
 
 

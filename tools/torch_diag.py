@@ -1,4 +1,4 @@
-"""Nineteen measurements of the PyTorch/CUDA port that chip_smoke.py does not
+"""Twenty measurements of the PyTorch/CUDA port that chip_smoke.py does not
 make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
@@ -123,6 +123,21 @@ make, run on one CUDA card from the root of a checkout:
         K2a and K2b at bf16 B8 S2048 H16 causal at hd 32 and at hd 96, and
         of K5, K6 and K7 at Phi-3-mini's shape (bf16 B1 H32 S4096 hd96,
         window 2047); run five, three, three, five in one call to compare.
+    python3 tools/torch_diag.py hd96 TREE_ROOT [TABLE_PATH]
+        the split flash kernels at Phi-3-mini's head dim for the checkout
+        at TREE_ROOT: CUDA-event times (the best of two runs of 5
+        launches) of K5, K6 and K7, and of K6 and K7 at dropout 0.1, at
+        bf16 B1 H32 S4096 hd96 window 2047 (chip_smoke.py phase 19's
+        shape) beside SDPA's band-masked backward and each kernel's bound,
+        with the route each took where the checkout records it; as
+        controls the same at B1 H8 S8192 hd128 window 4096 (phase 3's;
+        and SDPA's band-masked forward and backward at phase 11's B2 H32
+        there) and K1, K2a, K2b and the fused K2 at bf16 S2048 causal, B16 H12
+        hd128 and B8 H16 hd64; then phase 19's Phi-3-mini
+        L4 train step (S4096 B2 bf16, remat "full", 1 warm-up and 3 timed
+        steps) and, with TABLE_PATH, one more step under torch.profiler
+        (chip_smoke.profile_step); run it for two checkouts in turns to
+        compare them;
     python3 tools/torch_diag.py starcoder TREE_ROOT [TABLE_PATH]
         chip_smoke.py phase 19's StarCoderBase-1B shapes for the checkout
         at TREE_ROOT: K1, K2a and K2b (and the fused K2) at bf16 B8 S2048
@@ -496,6 +511,87 @@ def tiers(root, which):
         ("flash_bwd_dkv", lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                    window=W)))]
     print(f"{root} tiers {which}: " + "; ".join(line), flush=True)
+
+
+def hd96(root, table=None):
+    import numpy as np
+
+    root, cs, FA = _tree(root)
+    from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.ops import cross_entropy as CE
+
+    def best(fn):
+        return min(cs.cuda_ms(fn, 5), cs.cuda_ms(fn, 5))
+
+    def route(fn):
+        return getattr(fn, "route", None) or "route not recorded"
+
+    g = torch.Generator(device="cuda").manual_seed(96)
+    for B, H, S, hd, W in ((1, 32, 4096, 96, 2047), (1, 8, 8192, 128, 4096)):
+        q, k, v, do = cs.split_case(g, B, H, S, S, hd, torch.bfloat16, False)
+        out, lse = FA.flash_fwd(q, k, v, window=W)
+        delta = (do.float() * out.float()).sum(-1)
+        line = []
+        for name, fn in (
+                ("flash_fwd", lambda: FA.flash_fwd(q, k, v, window=W)),
+                ("flash_bwd_dq", lambda: FA.flash_bwd_dq(
+                    q, k, v, do, lse, delta, window=W)),
+                ("flash_bwd_dkv", lambda: FA.flash_bwd_dkv(
+                    q, k, v, do, lse, delta, window=W)),
+                ("flash_bwd_dq dropout 0.1", lambda: FA.flash_bwd_dq(
+                    q, k, v, do, lse, delta, window=W, seed=3, rate=0.1)),
+                ("flash_bwd_dkv dropout 0.1", lambda: FA.flash_bwd_dkv(
+                    q, k, v, do, lse, delta, window=W, seed=3, rate=0.1))):
+            ms = best(fn)
+            kname = name.split()[0]
+            bound, flops = cs.split_bound(kname, B, H, S, hd, True, W)
+            line.append(f"{name} {ms:.4f} ms ({route(getattr(FA, kname))}, "
+                        f"{flops / ms / 1e9:.1f} TFLOP/s, bound "
+                        f"{bound[0]:.4f})")
+        line.append(f"SDPA band-masked backward "
+                    f"{cs.sdpa_band_ms(q, k, v, do, W)[1]:.4f} ms")
+        print(f"{root}: bf16 B{B} H{H} S{S} hd{hd} window {W}: "
+              + "; ".join(line), flush=True)
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    q, k, v, do = cs.split_case(g, 2, 32, 8192, 8192, 128, torch.bfloat16,
+                                False)
+    print(f"{root}: bf16 B2 H32 S8192 hd128 window 4096: SDPA band-masked "
+          "forward %.4f ms, backward %.4f ms"
+          % cs.sdpa_band_ms(q, k, v, do, 4096), flush=True)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    for B, H, hd in ((16, 12, 128), (8, 16, 64)):
+        qkv, do = cs.flash_case(np.random.default_rng(0), B, H, H, hd, 2048,
+                                torch.bfloat16)
+        out, lse = FA.flash_fwd_qkv(qkv, H)
+        d_qkv = torch.empty_like(qkv)
+        line = []
+        for fn, call in (
+                (FA.flash_fwd_qkv, lambda: FA.flash_fwd_qkv(qkv, H)),
+                (FA.flash_bwd_dq_qkv, lambda: FA.flash_bwd_dq_qkv(
+                    qkv, out, lse, do, d_qkv, H)),
+                (FA.flash_bwd_dkv_qkv, lambda: FA.flash_bwd_dkv_qkv(
+                    qkv, out, lse, do, d_qkv, H)),
+                (FA.flash_bwd_fused_qkv, lambda: FA.flash_bwd_fused_qkv(
+                    qkv, out, lse, do, H))):
+            line.append(f"{fn.__name__} {best(call):.4f} ms ({route(fn)})")
+        print(f"{root}: bf16 B{B} S2048 H{H} hd{hd} causal: "
+              + "; ".join(line), flush=True)
+        del qkv, do, out, lse, d_qkv
+        torch.cuda.empty_cache()
+    batch = cs.lm_batch(np.random.default_rng(2), cs.PHI3_MINI["vocab_size"],
+                        2, 4096)
+    cfg = T.llama_config(dtype=torch.bfloat16, flash="on",
+                         remat_policy="full", **cs.PHI3_MINI)
+    losses, launches, step_s, peak, _ = cs.train_steps(
+        T, cs.train_kernels(FA, CE), cfg, 1, 3, batch, cs.WIDE_LR, table,
+        "one Phi-3-mini L4 step, remat full")
+    print(f"{root}: Phi-3-mini L4 S4096 B2 step {step_s * 1e3:.2f} ms, peak "
+          f"{peak:.2f} GiB, losses {[round(l, 4) for l in losses]}, "
+          f"launches { {k: v for k, v in launches.items() if v} }, routes "
+          f"{ {k.__name__: route(k) for k in FA.SPLIT_KERNELS} }",
+          flush=True)
 
 
 def ce(root):
@@ -1162,6 +1258,8 @@ if __name__ == "__main__":
         conv1d(sys.argv[2])
     elif sys.argv[1:2] == ["resnet"] and len(sys.argv) == 3:
         resnet(sys.argv[2])
+    elif sys.argv[1:2] == ["hd96"] and len(sys.argv) in (3, 4):
+        hd96(*sys.argv[2:])
     elif sys.argv[1:2] == ["starcoder"] and len(sys.argv) in (3, 4):
         starcoder(*sys.argv[2:])
     elif sys.argv[1:2] == ["fused-parts"] and len(sys.argv) == 3:
