@@ -191,7 +191,7 @@ nvidia-smi. Phases, each printing one line or a few:
      hd 96, d_ff 8192, V32064, window 2047) cut to 4 layers, S4096 B2,
      two timed steps under each remat policy ("full", "flash", "names",
      "dots", "flash_dots": K5 2 L a step under "full" and "dots", L under
-     the others, K6 and K7 L each on the Hopper walks, K5 on mma.sync;
+     the others, K6 and K7 L each, all three on the Hopper walks;
      losses within 2^-8 of "full"'s; step time and peak memory each); and
      PagedBatcher (kernel "on") serving 4 requests on
      both (K11 at G 16 hd 128 and at G 1 hd 96), with f32 greedy tokens
@@ -214,9 +214,9 @@ phase 11's shape (B2 H32 S8192), where they are checked (the plain
 versions over 8 heads at a time) and three planted faults are read
 against the same bound and must fail it; at phase 11's two launches of
 K5, of K6 and of K7 must give the same bits, and each is timed alone; the
-bf16 K5-K7 run the Hopper walks of csrc/flash_sm90.cuh at hd 64 and 128,
-K6 and K7 also at hd 96 (each case holds every kernel to its route, the
-JSON line lists them). Their bf16 results are
+bf16 K5-K7 run the Hopper walks of csrc/flash_sm90.cuh at hd 64, 96 and
+128 (each case holds every kernel to its route, the JSON line lists
+them). Their bf16 results are
 also held in norm: ||kernel - plain|| <= 1e-2 ||plain|| + 2^-15
 sqrt(numel), and so are K1's and K2's, with three planted faults (K1, K2a,
 the fused K2) read at the headline shape. Phase 3 then holds the direct convolutions (K12 at strides
@@ -435,6 +435,11 @@ PAGED_LONG = dict(B=1, KV=12, G=1, hd=128, BS=16, MB=512, pos=[8191],
                   inactive=[])
 PAGED_SERVING = dict(B=8, KV=12, G=1, hd=128, BS=16, MB=64,
                      pos=[33, 57, 96, 128, 150, 170, 192, 80], inactive=[])
+# StarCoderBase-1B's decode (phase 19's model): 16 query heads over one kv
+# head, contexts up to 2048; bf16 runs the tensor-core body (route "mma",
+# paged_mma_plan), f32 the chunked one
+PAGED_G16 = dict(B=8, KV=1, G=16, hd=128, BS=16, MB=128,
+                 pos=[2047, 1500, 700, 64, 1900, 33, 1024, 2000], inactive=[])
 
 
 def paged_bound(args, window=0):
@@ -467,13 +472,20 @@ def paged_held(out, ref, tol):
     return err, rel, err <= tol and rel <= bound
 
 
+def paged_bps(PA, q, table):
+    """The logical blocks a split of the kernel's launch on q walks, on the
+    body paged_route picks for it."""
+    B, KV, G, hd = q.shape
+    return PA._plan(PA.paged_route(q.dtype, G, hd), B, KV, G, table.shape[1],
+                    q.device)[1]
+
+
 def paged_fault(PA, args, window):
     """The plain version with one split's partial dropped (split 1, which
     holds attended keys of the long lanes), as a kernel that lost it would
     merge: the planted fault phase 3 reads."""
     q, pk, pv, table, pos = args
-    bps = PA._plan(q.shape[0], q.shape[1] * PA.group_chunks(q.shape[2]),
-                   table.shape[1], q.device)[1]
+    bps = paged_bps(PA, q, table)
     m, l, acc = PA._split_partials(q, pk, pv, table, pos, window, bps)
     m[..., 1] = -math.inf
     return PA._merge_splits(m, l, acc).to(q.dtype)
@@ -481,21 +493,25 @@ def paged_fault(PA, args, window):
 
 def phase_kernels(rng, PA):
     """Phase 3: the paged-attention kernel (K11) against its plain version
-    at the table shape and the long shape, a planted fault per shape (one
-    split's partial dropped) and the same bits twice; then timed at the
-    table, long and serving shapes. Returns the table shape's bf16 error
-    and {shape: (kernel ms, plain ms, (bound_ms, bound_by), the kernel's
-    ms a call back to back)}, the first two device times."""
+    at the table shape, the long shape and StarCoderBase-1B's decode
+    (PAGED_G16: route "mma" in bf16), each on the route paged_route gives,
+    a planted fault per shape (one split's partial dropped) and the same
+    bits twice; then timed at the table, long, serving and G16 shapes.
+    Returns the table shape's bf16 error, {shape: (kernel ms, plain ms,
+    (bound_ms, bound_by), the kernel's ms a call back to back)}, the first
+    two device times, and {case: route}."""
     reference = PA.paged_attention_reference
     held = paged_held
-    errs, rels, faults = {}, {}, {}
+    errs, rels, faults, routes = {}, {}, {}, {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         cases = [(f"table-{name}", dict(PAGED_TABLE, KV=KV, G=G), window)
                  for name, KV, G in (("mha", 12, 1), ("gqa", 2, 6))
                  for window in (0, 9)]
         # the long sequence, also under a window across a split boundary
-        # (splits of 192 keys)
-        cases += [("long", PAGED_LONG, 0), ("long", PAGED_LONG, 300)]
+        # (splits of 192 keys); StarCoderBase-1B's decode, also under a
+        # window across the mma body's splits of 128 keys
+        cases += [("long", PAGED_LONG, 0), ("long", PAGED_LONG, 300),
+                  ("g16", PAGED_G16, 0), ("g16", PAGED_G16, 300)]
         for name, shape, window in cases:
             args = paged_case(rng, dtype=dtype, **shape)
             out = PA.paged_attention(*args, window=window)
@@ -504,10 +520,15 @@ def phase_kernels(rng, PA):
             check(out.dtype == dtype and out.shape == ref.shape,
                   f"kernel output {out.dtype} {tuple(out.shape)}")
             key = f"{str(dtype)[6:]}/{name}/w{window}"
+            routes[key] = PA.paged_attention.route
+            want = ("mma" if name == "g16" and dtype == torch.bfloat16
+                    else "chunked")
+            check(routes[key] == want, f"paged_attention {key} ran route "
+                                       f"{routes[key]}, want {want}")
             errs[key], rels[key], ok = held(out, ref, tol)
             check(ok, f"paged_attention {key}: max abs err {errs[key]}, "
                       f"||err||/||ref|| {rels[key]}: out of bounds")
-            if window == 0 and name in ("table-mha", "long"):
+            if window == 0 and name in ("table-mha", "long", "g16"):
                 reading = held(paged_fault(PA, args, window), ref, tol)
                 faults[key] = reading[:2]
                 check(not reading[2], f"paged_attention {key}: a planted "
@@ -520,7 +541,8 @@ def phase_kernels(rng, PA):
     # events: the host's issue rate where that is slower)
     times = {}
     for name, shape in (("table", dict(PAGED_TABLE, KV=12, G=1)),
-                        ("long", PAGED_LONG), ("serving", PAGED_SERVING)):
+                        ("long", PAGED_LONG), ("serving", PAGED_SERVING),
+                        ("g16", PAGED_G16)):
         args = paged_case(rng, dtype=torch.bfloat16, **shape)
 
         def kern():
@@ -531,21 +553,25 @@ def phase_kernels(rng, PA):
         plain_b = device_ms(lambda: reference(*args), 20)
         times[name] = (min(kern_a, kern_b), min(plain_a, plain_b),
                        paged_bound(args), cuda_ms(kern, 200))
+    g16 = paged_case(rng, dtype=torch.bfloat16, **PAGED_G16)
+    splits = -(-PAGED_G16["MB"] // paged_bps(PA, g16[0], g16[3]))
     print(f"phase 3 kernels: paged_attention max_abs_err "
           f"{json.dumps(errs)} (tol f32 {F32_TOL}, bf16 {BF16_TOL} and in "
           f"norm {SPLIT_BF16_REL} of ||ref|| + {SPLIT_BF16_FLOOR} an entry: "
           f"bf16 ||err||/||ref|| "
           f"{json.dumps({k: v for k, v in rels.items() if v is not None})}); "
+          f"routes {json.dumps(routes)}; "
           f"planted faults (split 1's partial dropped; max abs err, "
           f"||err||/||ref||) {json.dumps(faults)}, each two launches the "
-          f"same bits; bf16 G1 "
-          f"hd128 BS16 (split as paged_split_plan cuts it; device time, "
+          f"same bits; bf16 BS16, G1 hd128 but g16 (KV1 G16 hd128, "
+          f"{splits} splits of {paged_bps(PA, g16[0], g16[3])} blocks) "
+          f"(split as the route's plan cuts it; device time, "
           f"warm L2 but at the long shape's 50 MB): " + "; ".join(
               f"{name} kernel {k:.4f} ms ({b2b:.4f} ms a call back to "
               f"back), plain {p:.4f} ms, bound {b[0]:.4f} ms ({b[1]})"
               for name, (k, p, b, b2b) in times.items())
           + "; no single PyTorch call computes a paged decode step")
-    return errs["bfloat16/table-mha/w0"], times
+    return errs["bfloat16/table-mha/w0"], times, routes
 
 
 def serve(PagedBatcher, params, cfg, prompts, max_news, **kw):
@@ -1666,7 +1692,7 @@ def split_faults(q, k, v, do, out, lse, delta, dq, dk, dv, window):
 
 # the bf16 head dims at which each split kernel runs the Hopper walks
 # (csrc/flash_sm90.cuh); every other head dim and f32 run mma.sync/FFMA
-SPLIT_SM90_HD = {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 96, 128),
+SPLIT_SM90_HD = {"flash_fwd": (64, 96, 128), "flash_bwd_dq": (64, 96, 128),
                  "flash_bwd_dkv": (64, 96, 128)}
 
 
@@ -1800,8 +1826,8 @@ def phase_split_flash(FA):
     versions over the small cases, then checked and timed at B1 H8 S8192
     hd128 window 4096 bf16 (beside the plain versions and SDPA; the times
     the JSON line reports), then checked with the planted faults read at
-    Phi-3-mini's shape (B1 H32 S4096 hd96 window 2047: K6 and K7 on the
-    Hopper walks, K5 on mma.sync), then checked, with the planted faults
+    Phi-3-mini's shape (B1 H32 S4096 hd96 window 2047: K5, K6 and K7 on
+    the Hopper walks), then checked, with the planted faults
     read, and timed alone at phase 11's shape (B2 H32 S8192; the errors the
     JSON line reports). Every case holds each kernel to its route
     (check_split_routes). Returns {kernel: (max_abs_err at B2 H32, ms,
@@ -1851,9 +1877,9 @@ def phase_split_flash(FA):
     del q, k, v, do, lse, delta, kern, plain
     torch.cuda.empty_cache()
 
-    # Phi-3-mini's shape (phase 19's model): K6 and K7 on the Hopper walks
-    # at hd 96, K5 on mma.sync; the planted faults must fail the bf16
-    # bound there too
+    # Phi-3-mini's shape (phase 19's model): K5, K6 and K7 on the Hopper
+    # walks at hd 96; the planted faults must fail the bf16 bound there
+    # too
     key = "bfloat16/B1-H32-S4096-hd96-w2047"
     q, k, v, do = split_case(g, 1, 32, 4096, 4096, 96, torch.bfloat16, False)
     check_split(FA, key, q, k, v, do, True, 2047, faults=True)
@@ -5086,11 +5112,14 @@ WIDE_SPLIT_CASES = (
     ("hd96-window127-S300", 2, 4, 300, 300, True, 127, 96),
     ("hd256-causal", 2, 2, 384, 384, True, 0, 256),
 )
-# K11 cases (name, KV, G, hd) at phase 3's table shape (B8 BS16 MB64)
+# K11 cases (name, KV, G, hd) at phase 3's table shape (B8 BS16 MB64);
+# bf16 past G 8 at hd 64 and 128 on the tensor-core body (route "mma":
+# G 12 pads its tile, G 32 is two chunks), the rest on the chunked one
 WIDE_PAGED_CASES = (
     ("g1-hd96", 4, 1, 96), ("g3-hd72", 2, 3, 72), ("g8-hd32", 2, 8, 32),
-    ("g12-hd36", 2, 12, 36), ("g16-hd128", 1, 16, 128),
-    ("g16-hd256", 1, 16, 256), ("g32-hd80", 1, 32, 80),
+    ("g12-hd36", 2, 12, 36), ("g12-hd64", 2, 12, 64),
+    ("g16-hd128", 1, 16, 128), ("g16-hd256", 1, 16, 256),
+    ("g32-hd80", 1, 32, 80), ("g32-hd128", 1, 32, 128),
 )
 WIDE_RATE, WIDE_SEED = 0.1, 2 ** 33 + 5
 
@@ -5165,8 +5194,8 @@ def wide_sm90_checks(rng, FA):
 def wide_split_checks(FA):
     """K5-K7 at WIDE_SPLIT_CASES, f32 and bf16, without and with dropout at
     WIDE_RATE, at check_split's bounds, each kernel on the route
-    SPLIT_SM90_HD gives (bf16 hd 96: K6 and K7 on the Hopper walks, K5 on
-    mma.sync). Returns {kernel: worst max abs err}."""
+    SPLIT_SM90_HD gives (bf16 hd 96: K5, K6 and K7 on the Hopper walks).
+    Returns {kernel: worst max abs err}."""
     g = torch.Generator(device="cuda").manual_seed(19)
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -5185,24 +5214,31 @@ def wide_split_checks(FA):
 
 def wide_paged_checks(rng, PA):
     """K11 at WIDE_PAGED_CASES, f32 and bf16, windows 0 and 9, against the
-    plain version at phase 3's bounds (paged_held); at G 16 hd 128 two
-    launches must give the same bits. Returns the worst max abs err."""
+    plain version at phase 3's bounds (paged_held), each on the route
+    paged_route gives ("mma" for bf16 past G 8 at hd 64 and 128, else
+    "chunked"); at G 16 and 32 hd 128 two launches must give the same
+    bits. Returns the worst max abs err."""
     worst = 0.0
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         for name, KV, G, hd in WIDE_PAGED_CASES:
             args = paged_case(rng, dtype=dtype,
                               **dict(PAGED_TABLE, KV=KV, G=G, hd=hd))
+            want = ("mma" if dtype == torch.bfloat16 and G > 8
+                    and hd in (64, 128) else "chunked")
             for window in (0, 9):
+                key = f"{str(dtype)[6:]}/{name}/w{window}"
                 out = PA.paged_attention(*args, window=window)
                 ref = PA.paged_attention_reference(*args, window=window)
                 err, rel, ok = paged_held(out, ref, tol)
-                check(ok, f"paged_attention {str(dtype)[6:]}/{name}/w"
-                          f"{window}: max abs err {err}, ||err||/||ref|| "
-                          f"{rel}")
+                check(ok, f"paged_attention {key}: max abs err {err}, "
+                          f"||err||/||ref|| {rel}")
+                check(PA.paged_attention.route == want, f"paged_attention "
+                      f"{key} ran route {PA.paged_attention.route}, want "
+                      f"{want}")
                 worst = max(worst, err)
-                if window == 0 and name == "g16-hd128":
+                if window == 0 and name in ("g16-hd128", "g32-hd128"):
                     check(torch.equal(out, PA.paged_attention(*args)),
-                          f"paged_attention {name}: two launches differ")
+                          f"paged_attention {key}: two launches differ")
     return worst
 
 
@@ -5335,6 +5371,10 @@ def wide_paged_times(rng, PA, KV, G, hd, MB, pos):
     ref = lambda: PA.paged_attention_reference(*args)  # noqa: E731
     kern = lambda: PA.paged_attention(*args)  # noqa: E731
     err, rel, ok = paged_held(kern(), ref(), BF16_TOL)
+    want = PA.paged_route(torch.bfloat16, G, hd)
+    check(PA.paged_attention.route == want, f"paged_attention bfloat16/"
+          f"model-KV{KV}-G{G}-hd{hd}: route {PA.paged_attention.route}, "
+          f"want {want}")
     check(ok, f"paged_attention bfloat16/model-KV{KV}-G{G}-hd{hd}-MB{MB}: "
               f"max abs err {err}, ||err||/||ref|| {rel}")
     pa = device_ms(ref, 10)
@@ -5529,7 +5569,7 @@ def phase_phi3(T, FA, CE):
     and batch. Every policy's losses within REMAT_LOSS_REL of "full"'s; K5
     launched 2 L a step under "full" and "dots" (the recompute reruns it),
     L under "flash", "names" and "flash_dots" (its outputs kept); K6 and
-    K7 L each, on the Hopper walks, K5 on mma.sync (check_split_routes).
+    K7 L each; all three on the Hopper walks (check_split_routes).
     Returns the launches summed over the policies and {policy: (step ms,
     peak GiB, K5 a step, losses' gap to full's)}."""
     rng = np.random.default_rng(2)
@@ -5574,12 +5614,13 @@ def phase_phi3(T, FA, CE):
 def phase_wide_serving(T, PA, PagedBatcher):
     """Phase 19 (c): PagedBatcher (kernel "on") serving 4 greedy requests
     (prompts 64-200 tokens, 24 new each) on StarCoderBase-1B (full depth,
-    K11 at G 16 hd 128) and Phi-3-mini (L4, K11 at G 1 hd 96) in bf16, K11
-    launched n_layer times a decode step; then in f32 at 4 layers each the
-    greedy tokens the same as the gather path's (kernel "off"). Returns
-    K11's launches."""
+    K11 at G 16 hd 128, every launch on route "mma") and Phi-3-mini (L4,
+    K11 at G 1 hd 96, route "chunked") in bf16, K11 launched n_layer times
+    a decode step; then in f32 at 4 layers each the greedy tokens the same
+    as the gather path's (kernel "off"), every launch on "chunked".
+    Returns K11's launches and those on "mma"."""
     rng = np.random.default_rng(3)
-    launches, parts = 0, []
+    launches, mma, parts = 0, 0, []
     for name, make, widths in (
             ("StarCoderBase-1B", T.GPTConfig, STARCODER_1B),
             ("Phi-3-mini", T.llama_config, PHI3_MINI)):
@@ -5589,28 +5630,36 @@ def phase_wide_serving(T, PA, PagedBatcher):
         prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
                    for n in (64, 200, 97, 150)]
         pool = dict(n_slots=4, n_blocks=4 * 16 + 1, block_size=16)
-        PA.paged_attention.launches = 0
+        PA.paged_attention.launches = PA.paged_attention.mma_launches = 0
         _, outs, steps, finite, wall = serve(PagedBatcher, params, cfg,
                                              prompts, [24] * 4, kernel="on",
                                              **pool)
-        k11 = PA.paged_attention.launches
+        k11, k11_mma = (PA.paged_attention.launches,
+                        PA.paged_attention.mma_launches)
         check(finite, f"phase 19 serving {name}: non-finite logits")
         check(all(o.shape == (24,) for o in outs),
               f"phase 19 serving {name}: a request came back short")
         check(k11 == cfg.n_layer * steps, f"phase 19 serving {name}: K11 "
               f"{k11} != n_layer {cfg.n_layer} x steps {steps}")
+        want = k11 if cfg.n_head // (cfg.n_kv_head or cfg.n_head) > 8 \
+            else 0
+        check(k11_mma == want, f"phase 19 serving {name}: K11 on route "
+              f"mma {k11_mma} times of {k11}, want {want}")
         launches += k11
+        mma += k11_mma
         del params
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layer=4)
         params = T.init_params(torch.Generator(device="cuda").manual_seed(5),
                                cfg32, "cuda")
         toks = {}
         for kernel in ("on", "off"):
-            PA.paged_attention.launches = 0
+            PA.paged_attention.launches = PA.paged_attention.mma_launches = 0
             _, toks[kernel], _, ok, _ = serve(
                 PagedBatcher, params, cfg32, prompts, [16] * 4,
                 kernel=kernel, **pool)
             check(ok, f"phase 19 serving {name} f32 {kernel}: non-finite")
+            check(PA.paged_attention.mma_launches == 0, f"phase 19 serving "
+                  f"{name} f32: K11 ran route mma")
             launches += PA.paged_attention.launches
         check(all(np.array_equal(a, b) for a, b in zip(toks["on"],
                                                        toks["off"])),
@@ -5621,11 +5670,11 @@ def phase_wide_serving(T, PA, PagedBatcher):
         n_tok = 24 * len(prompts)
         parts.append(f"{name} bf16 {n_tok} tokens in {wall:.3f} s "
                      f"({n_tok / wall:.1f} tok/s), {steps} decode steps, K11 "
-                     f"{k11}; f32 L4 greedy tokens identical to the gather "
-                     f"path's")
+                     f"{k11} ({k11_mma} on route mma); f32 L4 greedy tokens "
+                     f"identical to the gather path's (route chunked)")
     print("phase 19 serving: PagedBatcher kernel='on', 4 requests: "
           + "; ".join(parts))
-    return launches
+    return launches, mma
 
 
 def wide_row(shape, err, times):
@@ -5750,7 +5799,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
-    err, paged = phase_kernels(rng, PA)
+    err, paged, paged_routes = phase_kernels(rng, PA)
     flash = phase_flash_kernels(rng, FA)
     mm_sm = phase_mm_softmax(MM, SM)
     sflash = phase_split_flash(FA)
@@ -5867,7 +5916,7 @@ def main() -> int:
     star = phase_starcoder(T, FA, CE, profile)
     phi3, _ = phase_phi3(T, FA, CE)
     routes19 = split_routes(FA)
-    wide_k11 = phase_wide_serving(T, PA, PagedBatcher)
+    wide_k11, wide_k11_mma = phase_wide_serving(T, PA, PagedBatcher)
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
 
     csrc = "neuronika_tpu_torch/csrc/"
@@ -5891,6 +5940,10 @@ def main() -> int:
         "long_ms": paged["long"][0], "long_bound_ms": paged["long"][2][0],
         "serving_ms": paged["serving"][0],
         "serving_bound_ms": paged["serving"][2][0],
+        "g16_ms": paged["g16"][0], "g16_plain_ms": paged["g16"][1],
+        "g16_bound_ms": paged["g16"][2][0],
+        "routes": {"phase 3": paged_routes,
+                   "phase 19 mma launches": wide_k11_mma},
         "phase19": wide_row("G16 hd128 and G1 hd96 (B8 MB128 BS16)",
                             wide_errs["paged_attention"],
                             wide_times["paged"])}]

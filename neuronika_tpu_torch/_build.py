@@ -94,10 +94,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.nk_paged_attention
-    fn.argtypes = [i, p, p, p, p, p, p,          # dtype, q, pk, pv, table,
-                   i, i, i, i, i, i, i, i,       # pos, out; B KV G hd NB BS
-                   ctypes.c_float, i, i, p, p,   # MB window; scale, splits,
-                   p]                            # bps, part, count, stream
+    fn.argtypes = [i, i, p, p, p, p, p, p,       # dtype route, q, pk, pv,
+                   i, i, i, i, i, i, i, i,       # table, pos, out; B KV G
+                   ctypes.c_float, i, i, p, p,   # hd NB BS MB window; scale,
+                   p]                            # splits bps, part count,
+                                                 # stream
     fn.restype = i
     f = ctypes.c_float
     # every flash kernel's dropout: seed, threshold, inv_keep

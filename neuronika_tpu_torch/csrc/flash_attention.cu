@@ -45,13 +45,13 @@
 // 16-byte-aligned rows, which a ragged Sq breaks), 0 past Sq. K5: 128 q
 // rows a CTA, O in registers over the band's 128-row k tiles, from
 // max(0, i0 - window + 1) / 128, K and V through a two-stage ring, P
-// rounded to bf16 in registers as the A operand of P V (hd 64 and 128);
+// rounded to bf16 in registers as the A operand of P V;
 // K6: 128 q rows a CTA, dQ in registers over the band's 64-row k tiles;
 // K7: 128 k rows a CTA on a persistent grid, dK and dV in registers over
 // the band's 64-row q tiles, from the diagonal to the last row whose
-// window holds the CTA's last key (K6 and K7 at hd 64, 96 and 128: hd 96
-// as a 64-column and a 32-column panel, flash_sm90.cuh::panels). Each CTA
-// owns its output rows: no atomics, the same bits every run.
+// window holds the CTA's last key (K5, K6 and K7 at hd 64, 96 and 128: hd
+// 96 as a 64-column and a 32-column panel, flash_sm90.cuh::panels). Each
+// CTA owns its output rows: no atomics, the same bits every run.
 // f32 (K5, K6, K7), and bf16 off the Hopper route, run mma.sync-shaped
 // tiles from shared memory, each warp owning 16 rows of a 64-row tile
 // (flash_tiles.cuh), with synchronous tile loads: on FFMA in f32 (wgmma
@@ -64,9 +64,9 @@
 // rate), K6 and K7 drop dp and the p of dV; unset, the code is that of no
 // dropout. The mask is keyed by the q head h, as the model repeats k/v over
 // a GQA group before this layout.
-// Head dims: the Hopper kernels take bf16 at hd 64 and 128, K6 and K7 also
-// at hd 96 (Phi-3-mini's); f32, and bf16 at every other hd from 1 to 256
-// (K5 at hd 96 too), run the mma.sync/FFMA kernels (the
+// Head dims: the Hopper kernels take bf16 at hd 64, 96 (Phi-3-mini's) and
+// 128; f32, and bf16 at every other hd from 1 to 256, run the
+// mma.sync/FFMA kernels (the
 // first half, now in bf16 too), instantiated at the head-dim tiers of
 // hd_tier (flash_tiles.cuh) and masking the runtime hd, as the packed
 // layout's do (flash_attention_qkv.cu says how). At the 256 tier the f32
@@ -754,19 +754,13 @@ enum Which { kFwd, kDq, kDkv };
 
 // The routes. The caller picks one (ops/flash_attention.py::_sm90_route)
 // and passes it as `sm90`, since its operand alignment depends on it: the
-// Hopper kernels, built for bf16 at hd 64 or 128, and K6 and K7 also at hd
-// 96 (a launch asking for them elsewhere, K5 at hd 96 included, is
-// refused), or the mma.sync/FFMA kernels, which take f32 and bf16 at any
-// hd from 1 to 256, instantiated at the head-dim tiers of hd_tier and
-// masking the runtime hd
+// Hopper kernels, built for bf16 at hd 64, 96 and 128 (a launch asking for
+// them elsewhere is refused), or the mma.sync/FFMA kernels, which take f32
+// and bf16 at any hd from 1 to 256, instantiated at the head-dim tiers of
+// hd_tier and masking the runtime hd
 template <int HD, bool DROP>
 cudaError_t dispatch_sm90(Which w, const Args& a) {
-  if (w == kFwd) {
-    if constexpr (HD % 64 == 0)
-      return fwd_sm90<HD, DROP>(a);
-    else
-      return cudaErrorInvalidValue;  // no Hopper forward at this hd
-  }
+  if (w == kFwd) return fwd_sm90<HD, DROP>(a);
   if (w == kDq) return bwd_dq_sm90<HD, DROP>(a);
   if (w == kDkv) return bwd_dkv_sm90<HD, DROP>(a);
   return cudaErrorInvalidValue;

@@ -1,8 +1,8 @@
 // The Hopper (sm_90a) flash walks, shared by both layouts:
 // flash_attention_qkv.cu runs them on the packed qkv projection (K1, K2a,
 // K2b, K2c/K2d), flash_attention.cu on (B, H, S, hd) q, k, v (K5, K6, K7).
-// Head dims 64 and 128; the dq and dk/dv walks without FUSED and CLUSTER
-// also 96 (K6 and K7: see panels below).
+// Head dims 64 and 128; the forward walk and the dq and dk/dv walks
+// without FUSED and CLUSTER also 96 (K5, K6 and K7: see panels below).
 // The walks (fwd_walk, dq_walk, kv_walk) are written once; a layout is a
 // "tile policy" that says where a tile comes from and where a result goes:
 //   kStatsWarp  false when the rows' (lse, delta) arrive by bulk copy with
@@ -141,8 +141,9 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int p, int k) {
 }
 
 // The head dim in panels: 64 columns each, the last one HD % 64 wide where
-// HD is not a multiple of 64 (hd 96: 64 + 32). The dq and dk/dv walks take
-// HD 64, 96 and 128, the forward 64 and 128. K-major products loop over
+// HD is not a multiple of 64 (hd 96: 64 + 32). The forward, dq and dk/dv
+// walks take HD 64, 96 and 128 (FUSED and CLUSTER 64 and 128 only; the
+// packed layout's dispatch takes 64 and 128). K-major products loop over
 // HD / 16 slices, so none reads the zero columns of a narrow panel;
 // MN-major products into the head dim run one wgmma a panel at its width,
 // an accumulator's narrow panel in the first panel_cols / 2 of its 32
@@ -205,8 +206,7 @@ __device__ __forceinline__ float band_p(bool out, float e) {
 
 template <int HD>
 struct FwdSmem {
-  static_assert(HD % 64 == 0, "the forward walk takes hd 64 and 128");
-  static constexpr int P = HD / 64;
+  static constexpr int P = panels(HD);
   static constexpr uint32_t kQ = P * panel_bytes(kBM);
   static constexpr uint32_t kKV = P * panel_bytes(kBN);
   static constexpr uint32_t kOffK = kQ;
@@ -223,7 +223,9 @@ struct FwdSmem {
 // has landed. Per k tile: S = Q K^T (wgmma, both operands K-major from the
 // TMA tiles), the online softmax on the accumulator registers (exp2
 // domain), P rounded to bf16 into A fragments, O += P V (wgmma, A from
-// registers, V MN-major). Only edge tiles (Band::edge) evaluate the mask,
+// registers, V MN-major; at hd 96 m64n64k16 into panel 0 and m64n32k16
+// into panel 1, whose O is the first 16 entries of o[1], the only ones
+// rescaled and stored). Only edge tiles (Band::edge) evaluate the mask,
 // from each row's key interval [lo, hi); a masked score is the finite
 // kNegInf, so a row whose first tile holds none of its keys sums p = 1
 // there, and alpha = 0 wipes that on its first real key (with -inf it
@@ -365,7 +367,8 @@ __device__ __forceinline__ void fwd_walk(const Tiles& t, unsigned char* smem,
 #pragma unroll
         for (int p = 0; p < P; ++p)
 #pragma unroll
-          for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i >> 1) & 1];
+          for (int i = 0; i < 32; ++i)
+            if (i < panel_cols<HD>(p) / 2) o[p][i] *= alpha[(i >> 1) & 1];
       }
       uint32_t pa[kBN / 16][4];
       to_a_frags<kBN>(pa, sc);
@@ -376,11 +379,11 @@ __device__ __forceinline__ void fwd_walk(const Tiles& t, unsigned char* smem,
       for (int k = 0; k < kBN / 16; ++k)
 #pragma unroll
         for (int p = 0; p < P; ++p)
-          wgmma_rs<1>(o[p], pa[k], mnmajor<kBN>(v_addr, p, k));
+          wgmma_panel<HD>(o[p], p, pa[k], mnmajor<kBN>(v_addr, p, k));
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int p = 0; p < P; ++p) keep(o[p]);
+      for (int p = 0; p < P; ++p) keep_panel<HD>(o[p], p);
       keep(pa);
       mbar_arrive(empty + s);
     }
@@ -393,8 +396,10 @@ __device__ __forceinline__ void fwd_walk(const Tiles& t, unsigned char* smem,
       for (int p = 0; p < P; ++p)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          t.store_o(b, h, row[x], 64 * p + 8 * j + c,
-                    o[p][4 * j + 2 * x] * inv, o[p][4 * j + 2 * x + 1] * inv);
+          if (8 * j < panel_cols<HD>(p))
+            t.store_o(b, h, row[x], 64 * p + 8 * j + c,
+                      o[p][4 * j + 2 * x] * inv,
+                      o[p][4 * j + 2 * x + 1] * inv);
       if ((lane & 3) == 0) t.store_lse(b, h, row[x], m[x] + log2f(l[x]));
     }
   }

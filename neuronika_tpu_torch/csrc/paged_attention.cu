@@ -47,8 +47,11 @@
 // A producer warp feeding an mbarrier ring by 1-d bulk copies
 // (cp.async.bulk) in place of the register loads ran slower at walks of
 // 11-12 blocks a CTA on an H100 (its 48 KB ring and 288 threads left 3-4
-// CTAs an SM): 0.0200 against 0.0172 ms at B8 KV12 hd128 bf16. Tensor
-// cores stay idle by design: at most kMaxG query rows a CTA.
+// CTAs an SM): 0.0200 against 0.0172 ms at B8 KV12 hd128 bf16. This body
+// (route "chunked") keeps the tensor cores idle: at most kMaxG query rows a
+// CTA. Past 8 query heads a kv head in bf16 at hd 64 and 128 the second
+// body below (route "mma", paged_attention_mma_kernel) runs the group's
+// rows as one m16 tile on mma.sync.
 //
 // Head dims and groups, as JAX's kernel takes them: any hd from 1 to 256
 // and any G. The kernel is instantiated at four head-dim tiers (32, 64,
@@ -71,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -433,6 +438,412 @@ __global__ void __launch_bounds__(kThreads, MAXG == 1 && HD <= 128 ? 4 : 1)
   count_and_merge<T, MAXG>(pb, z_hi - z_lo + 1, G, hd, stride, cnt, ob);
 }
 
+// ------------------------------------------------ the tensor-core body
+// Route "mma" (ops/paged_attention.py::paged_route): bf16 at hd 64 and 128,
+// meant for groups past 8 query heads a kv head (StarCoderBase-1B's 16
+// over 1). Replaces the same TPU kernel, _kernel of
+// neuronika_tpu/ops/pallas/paged_attention.py, which computes s =
+// dot(q, k^T) in q's dtype with f32 accumulation, scales it by
+// log2(e)/sqrt(hd) in f32 and rounds p to v's dtype for dot(p, v): so does
+// this body.
+//
+// What bounds it: device memory, as the chunked body; at G 16 hd 128 the
+// K and V rows of a decode step are a few MB, ~1 us at 3.35 TB/s. The
+// chunked body took ~50x that there: its 8-head chunks read each kv head's
+// K and V twice, ran four waves of 256-thread CTAs at one an SM, each
+// merging 16 row groups' 8 x hd accumulators by shuffles and 8 warps
+// through shared memory in turn, and the last CTA of a sequence merged 32
+// partials with a few loads in flight. Here:
+//   * one CTA a (sequence, kv head, chunk of up to 16 query heads,
+//     split) holds the chunk's heads as one m16 tile (rows past G are
+//     zeros whose output is dropped), so each K and V row is read once
+//     a chunk, and a group of 16 is one chunk;
+//   * 4 warps take interleaved 16-key tiles of the split's keys; each
+//     warp keeps kMmaStages tiles in flight in its own ring in shared
+//     memory, each row addressed through the block table (any block
+//     size works) and copied by a 1-d bulk copy (cp.async.bulk) of its
+//     own, lanes 0-15 a tile's K rows and 16-31 its V rows, completing
+//     on an mbarrier a warp and stage; a row past the split's end or of
+//     a block outside the pool is zeroed by its lane and masked. Loads of
+//     16 bytes a lane by cp.async read 6-10% slower at StarCoderBase-1B's
+//     decode on an H100 (tools/torch_diag.py paged-loads);
+//   * S = Q K^T is mma.sync.m16n8k16 bf16 with f32 accumulation, Q the A
+//     fragments, held unscaled in registers for the whole walk, K from
+//     shared memory by ldmatrix (rows padded by 16 bytes: no bank
+//     conflicts); the online softmax runs on the accumulator registers
+//     (quad shuffles, exp2 domain); P is rounded to bf16 into the A
+//     fragment of O += P V, whose V comes by ldmatrix.trans;
+//   * the warps merge their (m, l, O) through shared memory in warp
+//     order; the split's partial (acc, m, l of 16 rows, f32) is counted
+//     in as the chunked body's, and the last CTA merges the partials in
+//     split order, float4 loads of several splits in flight together.
+//     Every partial and the order are fixed: the same bits every launch.
+// The host's plan (paged_mma_plan) gives one wave of CTAs that walk
+// several blocks each, from B, KV, G, MB and the SM count, never pos.
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRows = 16;    // query heads a CTA: one m16 tile
+constexpr int kMmaKeys = 16;    // keys a warp's tile: the k16 of P V
+constexpr int kMmaStages = 2;   // a warp's tiles in flight
+
+template <int HD>
+struct MmaSmem {
+  static constexpr int LD = HD + 8;          // bf16 a K or V row, padded
+  static constexpr int kTile = kMmaKeys * LD;  // bf16 of a K or V tile
+  static constexpr size_t kRing =
+      (size_t)kMmaWarps * kMmaStages * 2 * kTile * 2;
+  // after the walk, over the ring: each warp's m[16], l[16], O[16][LDO]
+  static constexpr int LDO = HD + 4;
+  static constexpr int kWarpPart = 2 * kMmaRows + kMmaRows * LDO;
+  static constexpr size_t kMerge = (size_t)kMmaWarps * kWarpPart * 4;
+  // then the last CTA's split weights and sums, kMaxSplits x 16 each
+  static constexpr size_t kSplits = 2 * (size_t)kMaxSplits * kMmaRows * 4;
+  // the ring's mbarriers, a warp and stage, after both
+  static constexpr size_t kOffBar =
+      kRing > kMerge + kSplits ? kRing : kMerge + kSplits;
+  static constexpr size_t kBytes = kOffBar + 8 * kMmaWarps * kMmaStages;
+  // floats of a split's partial: acc[16][HD], m[16], l[16]
+  static constexpr int kStride = kMmaRows * (HD + 2);
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// HD is the pool's head dim (64 or 128); blockIdx.x is (kv head, chunk of
+// up to 16 of its G query heads), NC chunks a kv head
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+    paged_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ pk,
+                               const __nv_bfloat16* __restrict__ pv,
+                               const int* __restrict__ table,
+                               const int* __restrict__ pos_arr,
+                               __nv_bfloat16* __restrict__ out, int KV,
+                               int G_all, int NC, int NB, int BS, int MB,
+                               int window, float qscale, int bps,
+                               float* __restrict__ part,
+                               int* __restrict__ count) {
+  using Sm = MmaSmem<HD>;
+  constexpr int LD = Sm::LD;
+  constexpr int CPR = HD / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last;
+
+  const int kv = blockIdx.x / NC, g0 = blockIdx.x % NC * kMmaRows;
+  const int G = min(kMmaRows, G_all - g0);  // this CTA's query heads
+  const int b = blockIdx.y;
+  const int z = blockIdx.z, splits = (int)gridDim.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = lane >> 2, c = (lane & 3) * 2;
+
+  // the split's keys and the splits that meet the attended blocks, as the
+  // chunked body has them
+  int pos = pos_arr[b];
+  pos = min(pos, MB * BS - 1);
+  const int lo = window > 0 ? max(pos - window + 1, 0) : 0;
+  const int t_begin = max((lo / BS) * BS, z * bps * BS);
+  const int t_end = min(pos < 0 ? t_begin : (pos / BS + 1) * BS,
+                        min(MB, (z + 1) * bps) * BS);
+  const int z_lo = lo / BS / bps, z_hi = pos < 0 ? z_lo : pos / BS / bps;
+  if (z < z_lo || z > z_hi) return;
+  const size_t xb = (size_t)b * KV * NC + blockIdx.x;
+  float* pb = part + (xb * splits + z_lo) * Sm::kStride;
+  float* pz = pb + (size_t)(z - z_lo) * Sm::kStride;
+  const size_t q0 = ((size_t)b * KV + kv) * G_all + g0;  // first q head
+  __nv_bfloat16* ob = out + q0 * HD;
+
+  // Q's A fragments (rows r and r + 8, columns 16 k + c and + 8), 0 past G
+  uint32_t qa[HD / 16][4];
+  {
+    const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q + q0 * HD);
+#pragma unroll
+    for (int k = 0; k < HD / 16; ++k) {
+      const int col = 16 * k + c;
+      qa[k][0] = r < G ? __ldg(q32 + (r * HD + col) / 2) : 0u;
+      qa[k][1] = r + 8 < G ? __ldg(q32 + ((r + 8) * HD + col) / 2) : 0u;
+      qa[k][2] = r < G ? __ldg(q32 + (r * HD + col + 8) / 2) : 0u;
+      qa[k][3] = r + 8 < G ? __ldg(q32 + ((r + 8) * HD + col + 8) / 2) : 0u;
+    }
+  }
+
+  // this warp's tiles: keys t_begin + 16 (warp + 4 i) .. + 15
+  const int ntiles = (t_end - t_begin + kMmaKeys - 1) / kMmaKeys;
+  const int mine = ntiles > warp ? (ntiles - 1 - warp) / kMmaWarps + 1 : 0;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) +
+                        (size_t)warp * kMmaStages * 2 * Sm::kTile;
+  const int* trow = table + (size_t)b * MB;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + Sm::kOffBar) + warp * kMmaStages;
+  if (lane < kMmaStages) mbar_init(bars + lane, 1);
+  mbar_fence_init();
+  __syncwarp();
+  // copies tile i of this warp into stage i % kMmaStages: lane l's row is
+  // K row l (l < 16) or V row l - 16, one bulk copy on the stage's
+  // barrier, or zeros; returns the tile's rows that hold pool keys, a bit
+  // each
+  auto issue = [&](int i) -> uint32_t {
+    const int base = t_begin + (warp + kMmaWarps * i) * kMmaKeys;
+    const int row = lane % kMmaKeys, col = base + row;
+    const int blk = col < t_end ? __ldg(trow + col / BS) : -1;
+    const bool ok = blk >= 0 && blk < NB;
+    const uint32_t live = __ballot_sync(kFull, ok) & 0xffffu;
+    __nv_bfloat16* dst = ring + (i % kMmaStages) * 2 * Sm::kTile +
+                         (lane >= kMmaKeys ? Sm::kTile : 0) + row * LD;
+    if (!ok)
+#pragma unroll
+      for (int ch = 0; ch < CPR; ++ch)
+        reinterpret_cast<uint4*>(dst)[ch] = make_uint4(0u, 0u, 0u, 0u);
+    fence_proxy_async();  // the zeros and this stage's last reads, then
+    __syncwarp();         // the copies
+    uint64_t* bar = bars + i % kMmaStages;
+    if (lane == 0) mbar_expect_tx(bar, __popc(live) * 2 * 2 * HD);
+    if (ok)
+      bulk_load(dst,
+                (lane >= kMmaKeys ? pv : pk) +
+                    (((size_t)blk * KV + kv) * BS + col % BS) * HD,
+                2 * HD, bar);
+    return live;
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int t = 0; t < HD / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  // ldmatrix rows: K as the B operand of S (keys 8 (lane / 16) + lane % 8,
+  // columns + 8 ((lane / 8) % 2)), V as the B operand of P V, transposed
+  // (keys 8 ((lane / 8) % 2) + lane % 8, columns + 8 (lane / 16))
+  const int krow = (lane & 7) + ((lane >> 4) << 3);
+  const int kcol = ((lane >> 3) & 1) << 3;
+  const int vrow = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int vcol = (lane >> 4) << 3;
+
+  uint32_t live[kMmaStages];
+#pragma unroll
+  for (int s = 0; s + 1 < kMmaStages; ++s) live[s] = s < mine ? issue(s) : 0;
+  for (int i = 0; i < mine; ++i) {
+    live[kMmaStages - 1] =
+        i + kMmaStages - 1 < mine ? issue(i + kMmaStages - 1) : 0;
+    mbar_wait(bars + i % kMmaStages, (i / kMmaStages) & 1);
+    __syncwarp();
+    const int base = t_begin + (warp + kMmaWarps * i) * kMmaKeys;
+    const uint32_t ka = smem_u32(ring + (i % kMmaStages) * 2 * Sm::kTile);
+    const uint32_t va = ka + Sm::kTile * 2;
+
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int k = 0; k < HD / 16; ++k) {
+      uint32_t kb[4];
+      ldsm_x4(kb, ka + (krow * LD + 16 * k + kcol) * 2);
+      mma16816(s[0], qa[k], kb[0], kb[1]);
+      mma16816(s[1], qa[k], kb[2], kb[3]);
+    }
+    // entry (j, e): row r + 8 (e / 2), key base + 8 j + c + e % 2
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * j + c + (e & 1), col = base + key;
+        const bool in = ((live[0] >> key) & 1) && col >= lo && col <= pos;
+        const float v = in ? s[j][e] * qscale : -INFINITY;
+        s[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    float mu[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float m_new = fmaxf(m[x], quad_max(mx[x]));
+      mu[x] = safe_max(m_new);
+      alpha[x] = exp2f(m[x] - mu[x]);
+      m[x] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - mu[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) l[x] = l[x] * alpha[x] + sum[x];
+#pragma unroll
+    for (int t = 0; t < HD / 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[t][e] *= alpha[e >> 1];
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                            pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]),
+                            pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int t = 0; t < HD / 16; ++t) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, va + (vrow * LD + 16 * t + vcol) * 2);
+      mma16816(o[2 * t], pa, vb[0], vb[1]);
+      mma16816(o[2 * t + 1], pa, vb[2], vb[3]);
+    }
+    __syncwarp();  // the stage is read before a later tile overwrites it
+#pragma unroll
+    for (int s2 = 0; s2 + 1 < kMmaStages; ++s2) live[s2] = live[s2 + 1];
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) l[x] = quad_sum(l[x]);
+
+  // the warps' (m, l, O) into shared memory (over the ring)
+  __syncthreads();
+  float* wp = reinterpret_cast<float*>(smem);
+  {
+    float* w = wp + warp * Sm::kWarpPart;
+    if ((lane & 3) == 0) {
+      w[r] = m[0];
+      w[r + 8] = m[1];
+      w[kMmaRows + r] = l[0];
+      w[kMmaRows + r + 8] = l[1];
+    }
+    float* wo = w + 2 * kMmaRows;
+#pragma unroll
+    for (int t = 0; t < HD / 8; ++t) {
+      *reinterpret_cast<float2*>(wo + r * Sm::LDO + 8 * t + c) =
+          make_float2(o[t][0], o[t][1]);
+      *reinterpret_cast<float2*>(wo + (r + 8) * Sm::LDO + 8 * t + c) =
+          make_float2(o[t][2], o[t][3]);
+    }
+  }
+  __syncthreads();
+  // merged in warp order: the output itself where the split is alone in
+  // the attended blocks, else its partial
+  const bool alone = z_lo == z_hi;
+  for (int i = threadIdx.x; i < G * HD; i += kMmaThreads) {
+    const int g = i / HD, d = i % HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) M = fmaxf(M, wp[w * Sm::kWarpPart + g]);
+    const float mw = safe_max(M);
+    float acc = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) {
+      const float* ww = wp + w * Sm::kWarpPart;
+      const float f = exp2f(ww[g] - mw);
+      L += ww[kMmaRows + g] * f;
+      acc += ww[2 * kMmaRows + g * Sm::LDO + d] * f;
+    }
+    if (alone) {
+      ob[i] = __float2bfloat16(acc / L);
+    } else {
+      pz[i] = acc;
+      if (d == 0) {
+        pz[kMmaRows * HD + g] = M;
+        pz[kMmaRows * HD + kMmaRows + g] = L;
+      }
+    }
+  }
+  if (alone) return;
+
+  // count the split in; the last of the n merges them in split order
+  const int n = z_hi - z_lo + 1;
+  int* cnt = count + xb;
+  __threadfence();  // the partial is visible before it is counted
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(cnt, 1) == n - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* sw = wp + kMmaWarps * Sm::kWarpPart;  // [split][16] weights
+  float* sl = sw + kMaxSplits * kMmaRows;      // [split][16] sums
+  for (int t = threadIdx.x; t < n * G; t += kMmaThreads) {
+    const float* py = pb + (size_t)(t / G) * Sm::kStride + kMmaRows * HD;
+    sw[t / G * kMmaRows + t % G] = __ldcg(py + t % G);
+    sl[t / G * kMmaRows + t % G] = __ldcg(py + kMmaRows + t % G);
+  }
+  __syncthreads();
+  for (int g = warp; g < G; g += kMmaWarps) {  // m into weights, row g
+    float mm = -INFINITY;
+    for (int y = lane; y < n; y += 32) mm = fmaxf(mm, sw[y * kMmaRows + g]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(kFull, mm, off));
+    const float mu = safe_max(mm);
+    for (int y = lane; y < n; y += 32)
+      sw[y * kMmaRows + g] = exp2f(sw[y * kMmaRows + g] - mu);
+  }
+  __syncthreads();
+  // each thread sums kPer float4 of the output over the splits, their
+  // loads of one split in flight together
+  constexpr int kPer = kMmaRows * HD / 4 / kMmaThreads;
+  float4 a[kPer];
+  float L[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    L[k] = 0.f;
+  }
+#pragma unroll 4
+  for (int y = 0; y < n; ++y) {
+    const float* py = pb + (size_t)y * Sm::kStride;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e0 = 4 * (threadIdx.x + kMmaThreads * k);
+      if (e0 >= G * HD) continue;
+      const int g = e0 / HD;
+      const float w = sw[y * kMmaRows + g];
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(py + e0));
+      a[k].x += v.x * w;
+      a[k].y += v.y * w;
+      a[k].z += v.z * w;
+      a[k].w += v.w * w;
+      L[k] += sl[y * kMmaRows + g] * w;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e0 = 4 * (threadIdx.x + kMmaThreads * k);
+    if (e0 >= G * HD) continue;
+    const __nv_bfloat162 lo2 = __floats2bfloat162_rn(a[k].x / L[k],
+                                                     a[k].y / L[k]);
+    const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a[k].z / L[k],
+                                                     a[k].w / L[k]);
+    uint2 st;
+    st.x = *reinterpret_cast<const uint32_t*>(&lo2);
+    st.y = *reinterpret_cast<const uint32_t*>(&hi2);
+    *reinterpret_cast<uint2*>(ob + e0) = st;
+  }
+  if (threadIdx.x == 0) *cnt = 0;  // ready for the next launch
+}
+
 // the launch's shape beside the pointers: splits CTAs of bps logical blocks
 // each per (sequence, kv head, chunk of the group); part and count only
 // with splits > 1
@@ -482,22 +893,47 @@ cudaError_t launch_hd(const void* q, const void* pk, const void* pv,
   return cudaErrorInvalidValue;
 }
 
+// the tensor-core body at head dim HD: NC chunks of up to 16 query heads
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* pk, const void* pv,
+                       const void* table, const void* pos, void* out,
+                       const Shape& s, cudaStream_t stream) {
+  const auto kernel = paged_attention_mma_kernel<HD>;
+  const size_t smem = MmaSmem<HD>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const int NC = (s.G + kMmaRows - 1) / kMmaRows;
+  const dim3 grid(s.KV * NC, s.B, s.splits);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(pk),
+      static_cast<const __nv_bfloat16*>(pv), static_cast<const int*>(table),
+      static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(out), s.KV,
+      s.G, NC, s.NB, s.BS, s.MB, s.window, s.qscale, s.bps, s.part,
+      s.count);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16; hd
-// 1 to 256, any G. With NC = ceil(G / 8) chunks of a group (1 when G = 1)
-// and GS = min(G, 8): splits CTAs of bps logical blocks each per
-// (sequence, kv head, chunk), splits = ceil(MB / bps); with splits > 1,
-// part is f32 scratch of B KV NC splits GS (hd + 2) floats and count B KV
-// NC int32 zeros, which the kernel leaves at 0. Returns a cudaError_t: 0
-// when the launch was accepted.
-extern "C" int nk_paged_attention(int dtype, const void* q, const void* pk,
-                                  const void* pv, const void* table,
-                                  const void* pos, void* out, int B, int KV,
-                                  int G, int hd, int NB, int BS, int MB,
-                                  int window, float scale, int splits,
-                                  int bps, void* part, void* count,
-                                  void* stream) {
+// C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16;
+// route (ops/paged_attention.py::paged_route): 0 the chunked body, any hd
+// from 1 to 256 and any G; 1 the tensor-core body, bf16 at hd 64 or 128
+// and any G (a launch asking for it elsewhere is refused). With the
+// route's chunks NC (chunked: ceil(G / 8), 1 when G = 1; mma: ceil(G /
+// 16)) and slot rows GS (chunked: min(G, 8); mma: 16): splits CTAs of bps
+// logical blocks each per (sequence, kv head, chunk), splits = ceil(MB /
+// bps); with splits > 1, part is f32 scratch of B KV NC splits GS (hd + 2)
+// floats and count B KV NC int32 zeros, which the kernel leaves at 0.
+// Returns a cudaError_t: 0 when the launch was accepted.
+extern "C" int nk_paged_attention(int dtype, int route, const void* q,
+                                  const void* pk, const void* pv,
+                                  const void* table, const void* pos,
+                                  void* out, int B, int KV, int G, int hd,
+                                  int NB, int BS, int MB, int window,
+                                  float scale, int splits, int bps,
+                                  void* part, void* count, void* stream) {
   if (B < 1 || KV < 1 || G < 1 || hd < 1 || hd > 256 || NB < 1 || BS < 1 ||
       MB < 1 || window < 0 || B > 65535 || bps < 1 || splits < 1 ||
       splits > kMaxSplits ||
@@ -509,6 +945,13 @@ extern "C" int nk_paged_attention(int dtype, const void* q, const void* pk,
                 splits, bps,    scale * kLog2e,
                 static_cast<float*>(part), static_cast<int*>(count)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1) return cudaErrorInvalidValue;
+    if (hd == 64) return launch_mma<64>(q, pk, pv, table, pos, out, s, st);
+    if (hd == 128) return launch_mma<128>(q, pk, pv, table, pos, out, s, st);
+    return cudaErrorInvalidValue;
+  }
+  if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_hd<float>(q, pk, pv, table, pos, out, s, st);
   if (dtype == 1)

@@ -35,7 +35,7 @@ f32 and bf16, every head dim from 1 to 256 and any number of query heads
 per kv head, as JAX's kernels take them; f16 and head dims above 256
 raise `NotImplementedError` (ROADMAP.md queue 1 item 3). Two routes
 (`_sm90_route`): bf16 at hd 64 or 128 runs the Hopper kernels (wgmma,
-TMA) at any group size, and the split backward's K6 and K7 also at hd 96;
+TMA) at any group size, and the split kernels K5-K7 also at hd 96;
 past 8 query heads per kv head, K2b and the fused backward split each
 group over a cluster of CTAs (`dkv_plan`, `fused_plan`). Every other
 shape runs the mma.sync/FFMA kernels, instantiated at head-dim tiers that
@@ -64,12 +64,12 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# the Hopper kernels' head dims (csrc/flash_attention_qkv.cu::sm90_takes);
-# the split backward's K6 and K7 also take hd 96, as a 64-column and a
-# 32-column panel (csrc/flash_attention.cu::dispatch, flash_sm90.cuh::
-# panels)
+# the Hopper kernels' head dims: the packed layout's (csrc/
+# flash_attention_qkv.cu::sm90_takes), and the split layout's, which also
+# takes hd 96 as a 64-column and a 32-column panel (csrc/
+# flash_attention.cu::dispatch, flash_sm90.cuh::panels)
 _SM90_HEAD_DIMS = (64, 128)
-_SM90_SPLIT_BWD_HEAD_DIMS = (64, 96, 128)
+_SM90_SPLIT_HEAD_DIMS = (64, 96, 128)
 # the cluster plans of K2b and the fused K2 (csrc/flash_sm90.cuh::kv_walk,
 # CLUSTER): the most query heads per kv head an item runs on one CTA, k
 # and q rows a tile, the cluster sizes the walk takes (the portable limit
@@ -87,15 +87,16 @@ def kernels_take(dtype, hd: int) -> bool:
     return dtype in _DTYPES and 1 <= hd <= MAX_HEAD_DIM
 
 
-def _sm90_route(dtype, hd: int, split_bwd: bool = False) -> bool:
+def _sm90_route(dtype, hd: int, split: bool = False) -> bool:
     """True where the Hopper kernels run: bf16 at hd 64 or 128 (any group
-    size) for K1, K2 and K5, and with `split_bwd` (K6, K7) also at hd 96;
-    else the mma.sync/FFMA kernels. The one place the route is chosen: it
-    decides the scratch layouts and operand copies here and is passed to
-    every launch as `sm90`, which the CUDA side dispatches on (and refuses
-    where the Hopper kernels are not built)."""
+    size) for the packed K1 and K2, and with `split` (the split layout's
+    K5, K6 and K7) also at hd 96; else the mma.sync/FFMA kernels. The one
+    place the route is chosen: it decides the scratch layouts and operand
+    copies here and is passed to every launch as `sm90`, which the CUDA
+    side dispatches on (and refuses where the Hopper kernels are not
+    built)."""
     return dtype == torch.bfloat16 and hd in (
-        _SM90_SPLIT_BWD_HEAD_DIMS if split_bwd else _SM90_HEAD_DIMS)
+        _SM90_SPLIT_HEAD_DIMS if split else _SM90_HEAD_DIMS)
 
 
 def dkv_cluster(B: int, KV: int, S: int, G: int, sms: int = H100_SMS) -> int:
@@ -703,9 +704,9 @@ KERNELS = (flash_fwd_qkv, flash_bwd_dq_qkv, flash_bwd_dkv_qkv,
 
 def _split_operands(q, k, v, causal, window, *grads):
     """Checks of the split-layout kernels. Returns (B, H, Sq, Skv, hd), the
-    route (`_sm90_route`: K5's for q, k, v alone, K6's and K7's with do)
-    and q, k, v (then do) as the route reads them (`_aligned`: a copy of
-    any that it cannot)."""
+    route (`_sm90_route` of the split layout, one for K5, K6 and K7) and
+    q, k, v (then do) as the route reads them (`_aligned`: a copy of any
+    that it cannot)."""
     B, H, Sq, Skv, hd = _split_geometry(q, k, v, causal, window)
     dev = q.device
     if dev.type != "cuda":
@@ -719,7 +720,7 @@ def _split_operands(q, k, v, causal, window, *grads):
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"operands on {t.device} {t.dtype}, q on {dev} "
                              f"{q.dtype}")
-    sm90 = _sm90_route(q.dtype, hd, split_bwd=bool(grads))
+    sm90 = _sm90_route(q.dtype, hd, split=True)
     return (B, H, Sq, Skv, hd), sm90, tuple(_aligned(t, sm90) for t in ts)
 
 

@@ -20,9 +20,14 @@ The kernel splits each sequence's logical blocks over CTAs
 (flash-decoding): `paged_split_plan` picks the cut from the shapes alone,
 and `paged_attention_split_reference` is the plain twin of its math, each
 split's partial softmax merged in split order. It takes every head dim
-from 1 to 256 and any group size, as JAX's kernel does: a group larger
-than 8 query heads runs as chunks of 8 (`group_chunks`), each chunk a CTA
-of its own over the same kv head, with its own splits and merge.
+from 1 to 256 and any group size, as JAX's kernel does, through two
+bodies, which `paged_route` picks: "chunked" runs a group larger than 8
+query heads as chunks of 8 (`group_chunks`), each chunk a CTA of its own
+over the same kv head, with its own splits and merge, on CUDA cores;
+"mma" (bf16 past 8 query heads a kv head at hd 64 and 128) holds up to 16
+of a group's heads as one tensor-core tile, with its own plan
+(`paged_mma_plan`). The wrapper records its last launch's route in
+`paged_attention.route`.
 """
 
 from __future__ import annotations
@@ -35,6 +40,15 @@ import torch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 CHUNK_G = 8     # query heads a CTA (csrc/paged_attention.cu: kMaxG)
+# the tensor-core body (csrc/paged_attention.cu::paged_attention_mma_kernel):
+# query heads a CTA (kMmaRows), its head dims, and its plan: CTAs wanted an
+# SM (128 threads and ~70 KB of shared memory each) and the fewest
+# logical blocks a split walks
+MMA_G = 16
+MMA_HEAD_DIMS = (64, 128)
+MMA_CTAS_PER_SM = 1
+MMA_MIN_BLOCKS = 8
+ROUTES = {"chunked": 0, "mma": 1}
 LOG2E = 1.4426950408889634
 # the split plan: CTAs wanted a card SM (256 threads each), the fewest
 # logical blocks a split walks (a split's fixed cost, its q load and its
@@ -55,10 +69,20 @@ def _gather(pk, pv, table):
             for p in (pk, pv))
 
 
-def group_chunks(G: int) -> int:
+def paged_route(dtype, G: int, hd: int) -> str:
+    """The body that runs a launch: "mma" (the tensor-core body) for bf16
+    past CHUNK_G query heads a kv head at the head dims MMA_HEAD_DIMS, else
+    "chunked". The one place the body is picked: the wrapper passes it to
+    the kernel, which launches that body or refuses."""
+    if dtype == torch.bfloat16 and G > CHUNK_G and hd in MMA_HEAD_DIMS:
+        return "mma"
+    return "chunked"
+
+
+def group_chunks(G: int, route: str = "chunked") -> int:
     """The CTAs that share a kv head: ceil(G / CHUNK_G) chunks of at most
-    CHUNK_G query heads."""
-    return -(-G // CHUNK_G)
+    CHUNK_G query heads on the chunked body, ceil(G / MMA_G) on "mma"."""
+    return -(-G // (MMA_G if route == "mma" else CHUNK_G))
 
 
 def paged_split_plan(B: int, KV: int, MB: int, sms: int = H100_SMS):
@@ -73,6 +97,28 @@ def paged_split_plan(B: int, KV: int, MB: int, sms: int = H100_SMS):
     splits = max(1, min(want, MB // SPLIT_MIN_BLOCKS, SPLIT_MAX))
     bps = -(-MB // splits)
     return -(-MB // bps), bps
+
+
+def paged_mma_plan(B: int, KV: int, G: int, MB: int, sms: int = H100_SMS):
+    """(splits, bps) of the tensor-core body: each (sequence, kv head, chunk
+    of MMA_G query heads) runs `splits` CTAs, split z walking the logical
+    blocks [z bps, min(MB, (z + 1) bps)). From the shapes and the card's
+    SM count only, never from pos: one wave of MMA_CTAS_PER_SM CTAs an SM,
+    no split under MMA_MIN_BLOCKS blocks, at most SPLIT_MAX splits, and no
+    empty split at the end."""
+    items = B * KV * group_chunks(G, "mma")
+    want = -(-MMA_CTAS_PER_SM * sms // items)
+    splits = max(1, min(want, MB // MMA_MIN_BLOCKS, SPLIT_MAX))
+    bps = -(-MB // splits)
+    return -(-MB // bps), bps
+
+
+def paged_plan(route: str, B: int, KV: int, G: int, MB: int,
+               sms: int = H100_SMS):
+    """(splits, bps) of a launch on `route`'s body."""
+    if route == "mma":
+        return paged_mma_plan(B, KV, G, MB, sms)
+    return paged_split_plan(B, KV * group_chunks(G), MB, sms)
 
 
 def _split_partials(q, pk, pv, table, pos, window, bps):
@@ -121,13 +167,15 @@ def _merge_splits(m, l, acc):
 def paged_attention_split_reference(q, pk, pv, table, pos, *,
                                     window: int = 0, bps: int | None = None):
     """Plain twin of the kernel's split-and-merge math: the keys cut into
-    splits of `bps` logical blocks (by default `paged_split_plan`'s for an
-    H100, over the kernel's (kv head, group chunk) CTAs), each split's
-    partial softmax, merged in f32 in split order. Result in q's dtype.
-    Runs on any device."""
-    B, KV, G = q.shape[:3]
+    splits of `bps` logical blocks (by default the plan of the body
+    `paged_route` picks for q, for an H100: `paged_split_plan` over the
+    chunked body's (kv head, group chunk) CTAs, or `paged_mma_plan`), each
+    split's partial softmax, merged in f32 in split order. Result in q's
+    dtype. Runs on any device."""
+    B, KV, G, hd = q.shape
     if bps is None:
-        bps = paged_split_plan(B, KV * group_chunks(G), table.shape[1])[1]
+        bps = paged_plan(paged_route(q.dtype, G, hd), B, KV, G,
+                         table.shape[1])[1]
     out = _merge_splits(*_split_partials(q, pk, pv, table, pos, window,
                                          bps))
     return out.to(q.dtype)
@@ -198,8 +246,10 @@ def _check(q, pk, pv, table, pos, window):
 
 def paged_attention(q, pk, pv, table, pos, *, window: int = 0):
     """One decode step of attention over a paged KV pool (see the module
-    docstring for the layout). CUDA tensors launch the kernel and add one
-    to `paged_attention.launches`; CPU tensors take the plain version."""
+    docstring for the layout). CUDA tensors launch the kernel on the body
+    `paged_route` picks, add one to `paged_attention.launches` (and to
+    `paged_attention.mma_launches` on "mma") and record the route in
+    `paged_attention.route`; CPU tensors take the plain version."""
     if q.device.type == "cpu":
         if any(t.device.type != "cpu" for t in (pk, pv, table, pos)):
             raise ValueError("q is on the CPU but the pool is not")
@@ -214,30 +264,35 @@ def paged_attention(q, pk, pv, table, pos, *, window: int = 0):
     B, KV, G, hd = q.shape
     NB, _, BS, _ = pk.shape
     MB = table.shape[1]
-    NC = group_chunks(G)
-    splits, bps = _plan(B, KV * NC, MB, q.device)
+    route = paged_route(q.dtype, G, hd)
+    NC = group_chunks(G, route)
+    splits, bps = _plan(route, B, KV, G, MB, q.device)
+    rows = MMA_G if route == "mma" else min(G, CHUNK_G)
     out = torch.empty_like(q)
     part_ptr = count_ptr = None
     if splits > 1:
         part, count = _scratch(
-            q.device, B * KV * NC * splits * min(G, CHUNK_G) * (hd + 2),
-            B * KV * NC)
+            q.device, B * KV * NC * splits * rows * (hd + 2), B * KV * NC)
         part_ptr, count_ptr = part.data_ptr(), count.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.nk_paged_attention(
-            _DTYPES[q.dtype], q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(), B, KV, G, hd,
-            NB, BS, MB, window, 1.0 / math.sqrt(hd), splits, bps,
-            part_ptr, count_ptr, stream)
+            _DTYPES[q.dtype], ROUTES[route], q.data_ptr(), pk.data_ptr(),
+            pv.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            B, KV, G, hd, NB, BS, MB, window, 1.0 / math.sqrt(hd), splits,
+            bps, part_ptr, count_ptr, stream)
     if err:
-        raise RuntimeError(f"paged_attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"paged_attention kernel launch failed "
+                           f"(route {route}): cudaError {err}")
     paged_attention.launches += 1
+    paged_attention.mma_launches += route == "mma"
+    paged_attention.route = route
     return out
 
 
 paged_attention.launches = 0
+paged_attention.mma_launches = 0   # those of the launches on route "mma"
+paged_attention.route = None
 
 
 # A decode loop calls the wrapper every layer of every host-bound step, so
@@ -247,10 +302,10 @@ paged_attention.launches = 0
 
 
 @functools.cache
-def _plan(B: int, KV: int, MB: int, device):
-    """paged_split_plan for `device`'s SM count."""
+def _plan(route: str, B: int, KV: int, G: int, MB: int, device):
+    """paged_plan for `device`'s SM count."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return paged_split_plan(B, KV, MB, sms)
+    return paged_plan(route, B, KV, G, MB, sms)
 
 
 _SCRATCH: dict = {}

@@ -257,7 +257,9 @@ def test_split_kernel_matches_plain_version_on_gpu(cuda, name, kw, window,
     by the last one in) against the plain version and its split twin."""
     args = _long_case(dtype, cuda, **kw)
     B, KV = args[0].shape[:2]
-    assert PA._plan(B, KV, args[3].shape[1], args[0].device)[0] > 1
+    G, hd = args[0].shape[2:]
+    assert PA._plan(PA.paged_route(dtype, G, hd), B, KV, G,
+                    args[3].shape[1], args[0].device)[0] > 1
     before = paged_attention.launches
     out = paged_attention(*args, window=window)
     ref = paged_attention_reference(*args, window=window)

@@ -1,6 +1,6 @@
-"""The split backward's K6 and K7 at head dim 96, Phi-3-mini's: the gate
-that sends bf16 hd 64, 96 and 128 to the Hopper dq and dk/dv walks while
-hd 96 keeps K5 and the packed kernels off them (`_sm90_route`), and the
+"""The split kernels K5-K7 at head dim 96, Phi-3-mini's: the gate that
+sends bf16 hd 64, 96 and 128 to the Hopper forward, dq and dk/dv walks
+while hd 96 keeps the packed kernels off them (`_sm90_route`), and the
 plain versions of K5-K7 at hd 96 against JAX's Pallas kernels `_fwd_call`
 / `_bwd_call` (`_fwd_kernel`, `_bwd_dq_kernel`, `_bwd_dkv_kernel`) in
 interpret mode, under Phi-3-mini's band (causal with a window, S not a
@@ -29,14 +29,15 @@ IDS = [c[0] for c in CASES]
 
 @pytest.mark.parametrize("hd", [8, 32, 64, 72, 80, 96, 128, 256])
 def test_gate_per_kernel(hd):
-    """bf16 at hd 64, 96 and 128 sends K6 and K7 to the Hopper walks; K1,
-    K2 and K5 go there at hd 64 and 128 only; f32 never does."""
+    """bf16 at hd 64, 96 and 128 sends the split K5, K6 and K7 to the
+    Hopper walks; the packed K1 and K2 go there at hd 64 and 128 only; f32
+    never does."""
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        assert FA._sm90_route(dtype, hd, split_bwd=True) == (
+        assert FA._sm90_route(dtype, hd, split=True) == (
             bf16 and hd in (64, 96, 128))
         assert FA._sm90_route(dtype, hd) == (bf16 and hd in (64, 128))
-        assert FA._sm90_route(dtype, hd, split_bwd=False) == \
+        assert FA._sm90_route(dtype, hd, split=False) == \
             FA._sm90_route(dtype, hd)
 
 

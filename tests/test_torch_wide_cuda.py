@@ -5,9 +5,11 @@ over one kv head (K1/K2) gives the loss and gradients of flash "off" in
 f32, under remat policy "flash" with K5 launched once a layer; K1, K2a,
 K2b and the fused K2 in bf16 past 8 query heads a kv head (G 9, 12, 16,
 32; hd 64 and 128) against their plain versions on the Hopper route, K2b
-and the fused K2 on their cluster walks; K6 and K7 in bf16 at hd 96 on the
-Hopper walks (K5 on mma.sync) against their plain versions; then
-`chip_smoke.py` phase 19's kernel checks. This file imports no JAX."""
+and the fused K2 on their cluster walks; K5, K6 and K7 in bf16 at hd 96 on
+the Hopper walks against their plain versions, and K5's dropout mask read
+back there; K11's tensor-core body past 8 query heads a kv head (route
+"mma") against its plain version; then `chip_smoke.py` phase 19's kernel
+checks. This file imports no JAX."""
 
 import dataclasses
 import os
@@ -113,10 +115,10 @@ def test_hopper_route_past_8_heads_matches_plain(cuda, G, hd, S, causal,
          "full-Sq130-Skv300", "full-Sq512-Skv200"])
 def test_split_bwd_hd96_on_hopper_matches_plain(cuda, Sq, Skv, causal,
                                                 window, rate):
-    """K6 and K7 in bf16 at hd 96 (strided views, as the model hands
+    """K5, K6 and K7 in bf16 at hd 96 (strided views, as the model hands
     them) against their plain versions at phase 3's bf16 bounds
-    (chip_smoke.check_split: per entry and in norm), on route "sm90",
-    with K5 on "mma.sync"; two launches of each give the same bits."""
+    (chip_smoke.check_split: per entry and in norm), all on route "sm90";
+    two launches of each give the same bits."""
     sys.path.insert(0, ROOT)
     import chip_smoke
 
@@ -127,8 +129,11 @@ def test_split_bwd_hd96_on_hopper_matches_plain(cuda, Sq, Skv, causal,
     _, (lse, delta) = chip_smoke.check_split(
         FA, f"hd96-Sq{Sq}-Skv{Skv}-w{window}-p{rate}", q, k, v, do, causal,
         window, **drop)
-    assert FA.flash_fwd.route == "mma.sync"
-    assert FA.flash_bwd_dq.route == FA.flash_bwd_dkv.route == "sm90"
+    assert FA.flash_fwd.route == FA.flash_bwd_dq.route == \
+        FA.flash_bwd_dkv.route == "sm90"
+    (o1, l1), (o2, l2) = [FA.flash_fwd(q, k, v, causal, window=window,
+                                       **drop) for _ in range(2)]
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
     again = [FA.flash_bwd_dq(q, k, v, do, lse, delta, causal,
                              window=window, **drop) for _ in range(2)]
     assert torch.equal(*again)
@@ -136,6 +141,55 @@ def test_split_bwd_hd96_on_hopper_matches_plain(cuda, Sq, Skv, causal,
                                         window=window, **drop))
              for _ in range(2)]
     assert torch.equal(*again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("G, KV, hd, MB, pos", [
+    (16, 1, 128, 128, [2047, 1500, 700, 64, 1900, 33, 1024, 2000]),
+    (12, 2, 64, 64, [1023, 0, 511, 700]),
+    (32, 1, 128, 37, [591, 130]),
+    (16, 2, 64, 512, [8191])],
+    ids=["G16-hd128-starcoder", "G12-hd64", "G32-hd128-MB37",
+         "G16-hd64-long"])
+def test_paged_mma_matches_plain(cuda, G, KV, hd, MB, pos, window):
+    """K11 in bf16 past 8 query heads a kv head on its tensor-core body
+    (route "mma"), against its plain version at phase 3's bounds
+    (chip_smoke.paged_held: per entry and in norm) and its split twin
+    under the body's plan; two launches give the same bits and leave the
+    split counters at 0."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import numpy as np
+
+    args = chip_smoke.paged_case(
+        np.random.default_rng(G + hd + MB), B=len(pos), KV=KV, G=G, hd=hd,
+        BS=16, MB=MB, pos=pos, inactive=[], dtype=torch.bfloat16)
+    before = PA.paged_attention.mma_launches
+    out = PA.paged_attention(*args, window=window)
+    assert PA.paged_attention.route == "mma"
+    assert PA.paged_attention.mma_launches == before + 1
+    ref = PA.paged_attention_reference(*args, window=window)
+    err, rel, ok = chip_smoke.paged_held(out, ref, chip_smoke.BF16_TOL)
+    assert ok, (err, rel)
+    twin = PA.paged_attention_split_reference(*args, window=window)
+    assert chip_smoke.paged_held(out, twin, chip_smoke.BF16_TOL)[2]
+    assert torch.equal(out, PA.paged_attention(*args, window=window))
+    torch.cuda.synchronize()
+    assert int(PA._scratch(args[0].device, 0, 64)[1][:64].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [11, 2 ** 40 + 3])
+def test_flash_fwd_hd96_dropout_mask_reads_back(cuda, seed):
+    """K5's dropout mask at hd 96 on the Hopper walk (and K1's on the
+    packed layout's mma.sync body) read back with q = 0 and a one-hot v,
+    equal to `keep_mask` bit for bit (chip_smoke.readout_masks)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    assert chip_smoke.readout_masks(FA, torch.bfloat16, 96, 0.1, seed) > 0
+    assert FA.flash_fwd.route == "sm90"
 
 
 @pytest.mark.cuda

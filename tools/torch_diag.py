@@ -1,5 +1,5 @@
-"""Twenty measurements of the PyTorch/CUDA port that chip_smoke.py does not
-make, run on one CUDA card from the root of a checkout:
+"""Twenty-two measurements of the PyTorch/CUDA port that chip_smoke.py does
+not make, run on one CUDA card from the root of a checkout:
 
     python3 tools/torch_diag.py step TREE_ROOT
         the GPTConfig defaults train step (split flash backward; d1536 L8
@@ -81,6 +81,23 @@ make, run on one CUDA card from the root of a checkout:
         host's work for a call takes longer than the kernel, that is the
         host's issue rate); run it for two checkouts in turns to compare
         them;
+    python3 tools/torch_diag.py paged-g16 TREE_ROOT
+        K11 at StarCoderBase-1B's decode (bf16 B8, 16 query heads over one
+        kv head, hd128 BS16 MB128, contexts up to 2048) for the checkout
+        at TREE_ROOT: the device time a call from torch.profiler (the best
+        of two runs of 200) and the time a call issued back to back (CUDA
+        events), the route it took and its error against the plain
+        version, under the checkout's plan and, where the checkout has the
+        tensor-core body's plan (`paged_mma_plan`), under 8, 16, 32 and 64
+        splits of the 128 blocks; then the `paged` mode's G1 shapes; run
+        it for two checkouts in turns to compare them;
+    python3 tools/torch_diag.py paged-loads TREE_ROOT
+        the tensor-core K11 body's loads two ways: copies the checkout's
+        package and chip_smoke.py into a temporary directory, replaces
+        the body's 1-d bulk copies (a K or V row a lane, on an mbarrier a
+        warp and stage) there with cp.async loads of 16 bytes a lane
+        (PAGED_CP_ASYNC), builds both, then runs the `paged-g16` mode on
+        the checkout, the copy, the copy and the checkout;
     python3 tools/torch_diag.py serve TREE_ROOT
         chip_smoke.py phase 4's serving run of the checkout at TREE_ROOT
         (16 greedy requests through PagedBatcher at d1536 L8 bf16, after
@@ -660,6 +677,184 @@ def paged(root):
         ms = min(cs.cuda_ms(run, 200), cs.cuda_ms(run, 200))
         line.append(f"{name} device {dev:.4f} ms, back to back {ms:.4f} ms")
     print(f"{root}: K11 bf16 G1 hd128 BS16: " + "; ".join(line), flush=True)
+
+
+# StarCoderBase-1B's decode step (chip_smoke.py phase 3's PAGED_G16 and
+# phase 19's K11 row): 16 query heads over one kv head, B8 MB128, contexts
+# up to 2048
+PAGED_G16 = dict(B=8, KV=1, G=16, hd=128, BS=16, MB=128, inactive=[],
+                 pos=[2047, 1500, 700, 64, 1900, 33, 1024, 2000])
+# the tensor-core body's plans timed beside its own: splits of the 128
+# blocks
+PAGED_G16_SPLITS = (8, 16, 32, 64)
+
+
+def paged_g16(root):
+    import numpy as np
+
+    root, cs, _ = _tree(root)
+    from neuronika_tpu_torch.ops import paged_attention as PA
+
+    args = cs.paged_case(np.random.default_rng(0), dtype=torch.bfloat16,
+                         **PAGED_G16)
+    ref = PA.paged_attention_reference(*args).float()
+
+    def timed(label):
+        def run():
+            PA.paged_attention(*args)
+
+        err = float((PA.paged_attention(*args).float() - ref).abs().max())
+        route = getattr(PA.paged_attention, "route", None) or "chunked"
+        dev = min(_device_ms(run, 200), _device_ms(run, 200))
+        ms = min(cs.cuda_ms(run, 200), cs.cuda_ms(run, 200))
+        print(f"{root}: K11 bf16 B8 KV1 G16 hd128 BS16 MB128 {label}: device "
+              f"{dev:.4f} ms, back to back {ms:.4f} ms, route {route}, max "
+              f"abs err against plain {err:.3g}", flush=True)
+
+    timed("plan " + str(PA.paged_mma_plan(8, 1, 16, 128)
+                        if hasattr(PA, "paged_mma_plan") else
+                        PA.paged_split_plan(8, 2, 128)))
+    if hasattr(PA, "paged_mma_plan"):
+        plan = PA._plan
+        MB = PAGED_G16["MB"]
+        for n in PAGED_G16_SPLITS:
+            bps = -(-MB // n)
+            PA._plan = lambda *a, bps=bps: (-(-MB // bps), bps)
+            timed(f"{-(-MB // bps)} splits of {bps} blocks")
+        PA._plan = plan
+    paged(root)
+
+
+# paged-loads: the tensor-core K11 body's K/V loads as cp.async 16 bytes a
+# lane (rows outside the pool zero-filled by the copy, one commit group a
+# tile) in place of its 1-d bulk copies (a K or V row a lane on an
+# mbarrier a warp and stage); (text of csrc/paged_attention.cu, its
+# replacement) pairs
+_CP_HELPERS = ("""// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16)""", """\
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\\n" ::"n"(N) : "memory");
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16)""")
+_CP_ISSUE = ("""\
+  auto issue = [&](int i) -> uint32_t {
+    const int base = t_begin + (warp + kMmaWarps * i) * kMmaKeys;
+    const int row = lane % kMmaKeys, col = base + row;
+    const int blk = col < t_end ? __ldg(trow + col / BS) : -1;
+    const bool ok = blk >= 0 && blk < NB;
+    const uint32_t live = __ballot_sync(kFull, ok) & 0xffffu;
+    __nv_bfloat16* dst = ring + (i % kMmaStages) * 2 * Sm::kTile +
+                         (lane >= kMmaKeys ? Sm::kTile : 0) + row * LD;
+    if (!ok)
+#pragma unroll
+      for (int ch = 0; ch < CPR; ++ch)
+        reinterpret_cast<uint4*>(dst)[ch] = make_uint4(0u, 0u, 0u, 0u);
+    fence_proxy_async();  // the zeros and this stage's last reads, then
+    __syncwarp();         // the copies
+    uint64_t* bar = bars + i % kMmaStages;
+    if (lane == 0) mbar_expect_tx(bar, __popc(live) * 2 * 2 * HD);
+    if (ok)
+      bulk_load(dst,
+                (lane >= kMmaKeys ? pv : pk) +
+                    (((size_t)blk * KV + kv) * BS + col % BS) * HD,
+                2 * HD, bar);
+    return live;
+  };""", """\
+  auto issue = [&](int i) -> uint32_t {
+    const int base = t_begin + (warp + kMmaWarps * i) * kMmaKeys;
+    __nv_bfloat16* ks = ring + (i % kMmaStages) * 2 * Sm::kTile;
+    __nv_bfloat16* vs = ks + Sm::kTile;
+    uint32_t live = 0;
+#pragma unroll
+    for (int it = 0; it < kMmaKeys * CPR / 32; ++it) {
+      const int j = lane + 32 * it;
+      const int row = j / CPR, ch = j % CPR, col = base + row;
+      const int blk = col < t_end ? __ldg(trow + col / BS) : -1;
+      const bool ok = blk >= 0 && blk < NB;
+      const size_t at =
+          ok ? (((size_t)blk * KV + kv) * BS + col % BS) * HD + ch * 8 : 0;
+      cp_async16(ks + row * LD + ch * 8, pk + at, ok);
+      cp_async16(vs + row * LD + ch * 8, pv + at, ok);
+      if (ok) live |= 1u << row;
+    }
+    cp_async_commit();
+    return __reduce_or_sync(kFull, live);
+  };""")
+_CP_LOOP = ("""\
+  for (int s = 0; s + 1 < kMmaStages; ++s) live[s] = s < mine ? issue(s) : 0;
+  for (int i = 0; i < mine; ++i) {
+    live[kMmaStages - 1] =
+        i + kMmaStages - 1 < mine ? issue(i + kMmaStages - 1) : 0;
+    mbar_wait(bars + i % kMmaStages, (i / kMmaStages) & 1);""", """\
+  for (int s = 0; s + 1 < kMmaStages; ++s) {
+    if (s < mine) {
+      live[s] = issue(s);
+    } else {
+      cp_async_commit();
+      live[s] = 0;
+    }
+  }
+  for (int i = 0; i < mine; ++i) {
+    if (i + kMmaStages - 1 < mine) {
+      live[kMmaStages - 1] = issue(i + kMmaStages - 1);
+    } else {
+      cp_async_commit();
+      live[kMmaStages - 1] = 0;
+    }
+    cp_async_wait<kMmaStages - 1>();""")
+PAGED_CP_ASYNC = (_CP_HELPERS, _CP_ISSUE, _CP_LOOP)
+
+
+def paged_loads(root):
+    import shutil
+    import subprocess
+    import tempfile
+
+    root = os.path.abspath(root)
+    tmp = tempfile.mkdtemp(prefix="paged_loads_")
+    try:
+        tree = os.path.join(tmp, "cp_async")
+        shutil.copytree(os.path.join(root, "neuronika_tpu_torch"),
+                        os.path.join(tree, "neuronika_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(root, "chip_smoke.py"), tree)
+        path = os.path.join(tree, "neuronika_tpu_torch", "csrc",
+                            "paged_attention.cu")
+        with open(path) as f:
+            text = f.read()
+        for old, new in PAGED_CP_ASYNC:
+            if text.count(old) != 1:
+                sys.exit(f"paged-loads: the body no longer holds {old!r} "
+                         f"once")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+        build = ("import sys; sys.path.insert(0, '.'); from "
+                 "neuronika_tpu_torch import _build; _build.build()")
+        procs = [subprocess.Popen([sys.executable, "-c", build], cwd=t)
+                 for t in (root, tree)]
+        if any(p.wait() for p in procs):
+            sys.exit("paged-loads: a build failed")
+        for t in (root, tree, tree, root):
+            print(f"paged-loads: {'cp.async' if t == tree else 'bulk copies'}"
+                  f" ({t})", flush=True)
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "paged-g16", t], check=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def serve(root):
@@ -1250,6 +1445,10 @@ if __name__ == "__main__":
         ce(sys.argv[2])
     elif sys.argv[1:2] == ["paged"] and len(sys.argv) == 3:
         paged(sys.argv[2])
+    elif sys.argv[1:2] == ["paged-g16"] and len(sys.argv) == 3:
+        paged_g16(sys.argv[2])
+    elif sys.argv[1:2] == ["paged-loads"] and len(sys.argv) == 3:
+        paged_loads(sys.argv[2])
     elif sys.argv[1:2] == ["serve"] and len(sys.argv) == 3:
         serve(sys.argv[2])
     elif sys.argv[1:2] == ["conv3d"] and len(sys.argv) == 3:
