@@ -195,7 +195,22 @@ nvidia-smi. Phases, each printing one line or a few:
      losses within 2^-8 of "full"'s; step time and peak memory each); and
      PagedBatcher (kernel "on") serving 4 requests on
      both (K11 at G 16 hd 128 and at G 1 hd 96), with f32 greedy tokens
-     at 4 layers equal to the gather path's.
+     at 4 layers equal to the gather path's;
+ 20. the sharded train step (`make_sharded_train_step`, torch.distributed):
+     (a) a one-rank NCCL group in this process and a dp1 x tp1 mesh, the
+     headline step (phase 6's config, fused CE off) with and without
+     fsdp=True, 2 warm-up and 5 timed steps each, its losses and params
+     held against `make_train_step`'s from the same params within
+     phase 19's bf16 route bounds, K1 and the fused K2 L launches a step;
+     (b) ring attention's per-hop code (`parallel.ring.ring_forward` and
+     `ring_backward`) for 4 virtual ranks at Mistral 7B's attention (B1,
+     32 query heads over 8 kv heads repeated, hd 128, bf16, causal, S
+     4 x 4096): o, lse, dq, dk, dv against one whole-sequence K5/K6/K7
+     call at phase 3's bf16 bounds, and at S 4 x 1024 against the plain
+     version; K5, K6 and K7 each 10 launches (the live hops), both timed;
+     (c) with two or more cards, dp x tp and cp steps on spawned NCCL
+     ranks at the headline against (a)'s first loss (with one card it
+     says so and runs nothing).
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -5744,6 +5759,297 @@ def phase_wide_kernels(FA, PA):
     return errs, times
 
 
+# phase 20: the sharded train step over torch.distributed. (a) runs the
+# step on a one-rank group in this process at the headline; (b) the ring's
+# per-hop code for 4 virtual ranks at Mistral 7B's attention; (c) real
+# ranks where there are cards for them
+SHARDED_WARM, SHARDED_TIMED = 2, 5
+SHARDED_LR = 5e-4
+# (a): the sharded step on one rank runs the unsharded step's kernels on
+# the same operands, so its losses and params should agree within phase
+# 19's bf16 route bounds (loss relative, params relative to the leaf's
+# largest |value|)
+SHARDED_LOSS_REL = ROUTE_BF16_REL
+SHARDED_PARAM_REL = ROUTE_BF16_REL
+# (b): Mistral 7B's attention (B1, 32 query heads over 8 kv heads, hd 128)
+# over a ring of 4 with 4096 rows a rank; the plain version at 1024
+RING_CASE = dict(B=1, H=32, KV=8, hd=128, n=4)
+RING_ROWS, RING_PLAIN_ROWS = 4096, 1024
+# lse (base 2, f32): both sides sum exp2 of the same f32 scores in f32
+RING_LSE_TOL = 1e-3
+
+
+def sharded_steps(T, cfg, step, params, batch, kernels):
+    """2 warm-up and 5 timed steps of `step` from `params`: (losses,
+    launches of `kernels` in the timed steps, step s, peak GiB, the final
+    params on the host in f32)."""
+    opt = T.opt_init(params, cfg)
+
+    def run():
+        nonlocal params, opt
+        params, opt, loss = step(params, opt, *batch, SHARDED_LR, None)
+        return loss
+
+    losses, launches, step_s, peak = model_steps(
+        run, kernels, SHARDED_WARM, SHARDED_TIMED)
+    from neuronika_tpu_torch._tree import tree_map
+
+    host = tree_map(lambda t: (t.full_tensor() if hasattr(t, "full_tensor")
+                               else t).detach().float().cpu(), params)
+    del params, opt, run
+    torch.cuda.empty_cache()
+    return losses, launches, step_s, peak, host
+
+
+def tree_gap(a, b) -> float:
+    """Largest |a - b| of a leaf over that leaf's largest |b|."""
+    from neuronika_tpu_torch._tree import tree_leaves
+
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def sharded_headline(T, P, FA, CE, batch):
+    """(a): the headline step on a dp1 x tp1 mesh of this process's
+    one-rank group, with and without fsdp, against make_train_step from the
+    same params. Returns the launches of the two sharded runs, the
+    reference's losses and the printed line's numbers."""
+    cfg = T.GPTConfig(dtype=torch.bfloat16, fused_ce="off", **TRAIN_CFG,
+                      **HEADLINE)
+    kernels = train_kernels(FA, CE)
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return T.init_params(gen, cfg, "cuda")
+
+    ref = sharded_steps(T, cfg, T.make_train_step(cfg), fresh(), batch,
+                        kernels)
+    mesh = P.make_mesh([("dp", 1), ("tp", 1)])
+    runs, total = {}, {}
+    for fsdp in (False, True):
+        step = T.make_sharded_train_step(mesh, cfg, fsdp=fsdp)
+        losses, launches, step_s, peak, host = sharded_steps(
+            T, cfg, step, fresh(), batch, kernels)
+        L, n = cfg.n_layer, SHARDED_TIMED
+        want = want_launches(kernels, flash_fwd_qkv=L * n,
+                             flash_bwd_fused_qkv=L * n)
+        tag = "fsdp" if fsdp else "tp layout"
+        check(launches == want, f"phase 20 (a) {tag}: launches {launches}, "
+                                f"want {want}")
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref[0])]
+        check(max(gaps) <= SHARDED_LOSS_REL,
+              f"phase 20 (a) {tag}: losses {losses} vs {ref[0]}")
+        pgap = tree_gap(host, ref[4])
+        check(pgap <= SHARDED_PARAM_REL,
+              f"phase 20 (a) {tag}: params {pgap} of their largest |value| "
+              f"from make_train_step's")
+        runs[tag] = (step_s, peak, max(gaps), pgap, losses)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    B, S = batch[0].shape
+    return total, ref, runs, B * S
+
+
+def ring_inputs(rows, g):
+    """(q, k, v, do) bf16 (B, H, n * rows, hd), k and v of KV heads
+    repeated to H as the GPT's split layout gives them."""
+    c = RING_CASE
+    S = c["n"] * rows
+    shape = (c["B"], c["H"], S, c["hd"])
+
+    def randn(*sh):
+        return torch.randn(sh, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    kv = [randn(c["B"], c["KV"], S, c["hd"]).repeat_interleave(
+        c["H"] // c["KV"], 1) for _ in range(2)]
+    return randn(*shape), kv[0], kv[1], randn(*shape)
+
+
+def virtual_ring(R, q, k, v, do):
+    """The ring's per-hop code for RING_CASE's n ranks held in this
+    process: (out, lse, dq, dk, dv) over the whole sequence."""
+    n = RING_CASE["n"]
+    blocks = [list(t.chunk(n, 2)) for t in (q, k, v)]
+    outs, lses = R.ring_forward(*blocks, range(n), n, True, None, R.rotate)
+    grads = R.ring_backward(*blocks, outs, list(do.chunk(n, 2)), lses,
+                            range(n), n, True, None, R.rotate)
+    return [torch.cat(ts, 2) for ts in (outs, lses, *grads)]
+
+
+def ring_errs(got, want, what):
+    """Max abs errors of (out, lse, dq, dk, dv), checked: out and the
+    gradients within phase 3's bf16 bounds of their largest |value|, lse
+    within RING_LSE_TOL."""
+    errs = {}
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        err = float((a.float() - b.float()).abs().max())
+        tol = (RING_LSE_TOL if name == "lse" else FLASH_BF16_REL[
+            "out" if name == "out" else "d_qkv"] * float(b.float().abs()
+                                                           .max()))
+        check(err <= tol, f"phase 20 (b) {what}: {name} max abs err {err} "
+                          f"> {tol}")
+        errs[name] = err
+    return errs
+
+
+def whole_split(FA, q, k, v, do, plain=False):
+    """One whole-sequence call of K5, K6 and K7 (or of their plain
+    versions): (out, lse, dq, dk, dv)."""
+    if plain:
+        o, lse = FA.flash_attention_fwd_reference(q, k, v, True)
+    else:
+        o, lse = FA.flash_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    if plain:
+        return (o, lse) + FA.flash_attention_bwd_reference(
+            q, k, v, do, lse, delta, True)
+    return (o, lse, FA.flash_bwd_dq(q, k, v, do, lse, delta, True)) + \
+        FA.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+
+
+def sharded_ring(FA, R):
+    """(b): the ring's hops at Mistral 7B's attention, S 4 x 4096 bf16
+    causal. Returns the launches of K5-K7 on the ring's run (10 each: rank
+    i runs i + 1 live hops), the errors against the whole-sequence kernels
+    and against the plain version (S 4 x 1024), and both times."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, do = ring_inputs(RING_ROWS, g)
+    for fn in FA.SPLIT_KERNELS:
+        fn.launches = 0
+    got = virtual_ring(R, q, k, v, do)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in FA.SPLIT_KERNELS}
+    n = RING_CASE["n"]
+    live = n * (n + 1) // 2
+    check(launches == dict.fromkeys(launches, live),
+          f"phase 20 (b): launches {launches}, want {live} each")
+    errs = ring_errs(got, whole_split(FA, q, k, v, do), "vs K5-K7")
+    ring_ms = cuda_ms(lambda: virtual_ring(R, q, k, v, do), 3)
+    whole_ms = cuda_ms(lambda: whole_split(FA, q, k, v, do), 3)
+    del got, q, k, v, do
+    torch.cuda.empty_cache()
+    small = ring_inputs(RING_PLAIN_ROWS, g)
+    plain = ring_errs(virtual_ring(R, *small),
+                      whole_split(FA, *small, plain=True), "vs plain")
+    return launches, errs, plain, ring_ms, whole_ms
+
+
+def _sharded_rank(rank, meshes, batch, cfg_kw):
+    """(c), on each spawned rank: one warm-up and 3 timed steps of the
+    sharded headline step on each mesh: (first loss, step s) a mesh."""
+    from neuronika_tpu_torch import _build
+    from neuronika_tpu_torch import parallel as P
+    from neuronika_tpu_torch.models import transformer as T
+
+    _build.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **cfg_kw)
+    toks, tgts = (torch.from_numpy(a).to("cuda") for a in batch)
+    out = []
+    for axes in meshes:
+        step = T.make_sharded_train_step(P.make_mesh(axes), cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = T.init_params(gen, cfg, "cuda")
+        opt = T.opt_init(params, cfg)
+        params, opt, loss = step(params, opt, toks, tgts, SHARDED_LR)
+        first = float(loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            params, opt, loss = step(params, opt, toks, tgts, SHARDED_LR)
+        float(loss)
+        out.append((first, (time.perf_counter() - t0) / 3))
+        del params, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_ranks(P, batch, first_loss, smi_line):
+    """(c): dp x tp and cp steps on spawned NCCL ranks (up to 4 cards),
+    their first loss against (a)'s reference. Returns the printed part."""
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        return ("(c) did not run: one CUDA device is visible, and real "
+                "ranks need one card each")
+    n = 4 if n == 4 else 2
+    meshes = [[("dp", n // 2), ("tp", 2)], [("cp", n)]]
+    with tempfile.TemporaryDirectory() as tmp:
+        res = P.mesh.spawn(
+            _sharded_rank, n, (meshes, [a.cpu().numpy() for a in batch],
+                               dict(fused_ce="off", **TRAIN_CFG,
+                                    **HEADLINE)),
+            init_file=os.path.join(tmp, "store"), backend="nccl",
+            timeout=300.0, limit=600.0)
+    parts = []
+    for j, axes in enumerate(meshes):
+        first = res[0][j][0]
+        check(all(r[j][0] == first for r in res),
+              f"phase 20 (c) {axes}: the ranks' losses differ")
+        gap = abs(first - first_loss) / abs(first_loss)
+        check(gap <= SHARDED_LOSS_REL, f"phase 20 (c) {axes}: first loss "
+                                       f"{first} vs {first_loss}")
+        name = " x ".join(f"{a}{s}" for a, s in axes)
+        parts.append(f"{name}: first loss {first:.5f} ({gap:.2e} from "
+                     f"(a)'s), step {res[0][j][1] * 1e3:.1f} ms")
+    return f"(c) on {n} NCCL ranks ({smi_line}), " + "; ".join(parts)
+
+
+def phase_sharded(T, FA, CE, smi_line):
+    """Phase 20 (see the module docstring). Returns the launches of the
+    phase's path by kernel name: (a)'s K1 and fused K2, (b)'s K5-K7."""
+    import torch.distributed as dist
+
+    from neuronika_tpu_torch import parallel as P
+    from neuronika_tpu_torch.parallel import ring as R
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    B, S = 16, 2048
+    toks = rng.integers(0, TRAIN_CFG["vocab_size"], size=(B, S))
+    batch = (torch.from_numpy(toks).to("cuda"),
+             torch.from_numpy(np.roll(toks, -1, axis=1)).to("cuda"))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1)
+        try:
+            launches, ref, runs, tokens = sharded_headline(T, P, FA, CE,
+                                                           batch)
+        finally:
+            dist.destroy_process_group()
+    ref_s = ref[2]
+    print(f"phase 20 (a) sharded step, one NCCL rank, dp1 x tp1, the "
+          f"headline (d1536 L8 H12 V16384 S2048 B16 bf16, fused CE off; "
+          f"{smi_line}): make_train_step {ref_s * 1e3:.1f} ms, "
+          + "; ".join(
+              f"{tag} {st * 1e3:.1f} ms ({tokens / st:.0f} tokens/s, peak "
+              f"{pk:.2f} GiB), losses {lg:.2e} and params {pg:.2e} "
+              f"(relative) from make_train_step's"
+              for tag, (st, pk, lg, pg, _) in runs.items())
+          + f"; launches {launches}")
+    ring_launches, errs, plain, ring_ms, whole_ms = sharded_ring(FA, R)
+    c = RING_CASE
+    print(f"phase 20 (b) ring hops, 4 virtual ranks, Mistral 7B attention "
+          f"(B{c['B']} H{c['H']} over KV{c['KV']} repeated, hd{c['hd']}, "
+          f"bf16, causal, S 4 x {RING_ROWS}; {smi_line}): max abs err vs "
+          f"one whole-sequence K5/K6/K7 call {errs}, vs the plain version "
+          f"at S 4 x {RING_PLAIN_ROWS} {plain}; ring fwd+bwd "
+          f"{ring_ms:.3f} ms, whole-sequence K5+K6+K7 {whole_ms:.3f} ms; "
+          f"launches {ring_launches}")
+    print(f"phase 20 {sharded_ranks(P, batch, ref[0][0], smi_line)}")
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+    launches.update(ring_launches)
+    ring = {"shape": f"ring of 4 x {RING_ROWS} rows, B{c['B']} H{c['H']} "
+                     f"(KV{c['KV']} repeated) hd{c['hd']} bf16 causal",
+            "max_abs_err": errs, "plain_max_abs_err": plain,
+            "ring_ms": ring_ms, "whole_sequence_ms": whole_ms}
+    return {name: launches.get(name, 0) for name in (
+        "flash_fwd_qkv", "flash_bwd_dq_qkv", "flash_bwd_dkv_qkv",
+        "flash_bwd_fused_qkv", "flash_fwd", "flash_bwd_dq",
+        "flash_bwd_dkv")}, ring
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
@@ -5919,6 +6225,12 @@ def main() -> int:
     wide_k11, wide_k11_mma = phase_wide_serving(T, PA, PagedBatcher)
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
 
+    # 20. the sharded train step: one rank in this process, the ring's
+    # hops on a virtual ring, real ranks where there are cards for them
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded, ring20 = phase_sharded(T, FA, CE, smi[0])
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -5962,11 +6274,12 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{at}{line}",
                         "launches": (counts[name] + loop[name] + models[name]
-                                     + star[name]),
+                                     + star[name] + sharded[name]),
                         "launches_by_phase": {"6": counts[name],
                                               "16": loop[name],
                                               "17": models[name],
-                                              "19": star[name]},
+                                              "19": star[name],
+                                              "20": sharded[name]},
                         "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,
@@ -6003,10 +6316,12 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": f"{csrc}flash_attention.cu",
                         "replaces": f"{at}{line}",
-                        "launches": mistral[name] + models[name] + phi3[name],
+                        "launches": (mistral[name] + models[name]
+                                     + phi3[name] + sharded[name]),
                         "launches_by_phase": {"11": mistral[name],
                                               "17": models[name],
-                                              "19": phi3[name]},
+                                              "19": phi3[name],
+                                              "20": sharded[name]},
                         "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,
@@ -6018,7 +6333,8 @@ def main() -> int:
                         "phase19": wide_row(
                             "hd96 B1 H32 S4096 window 2047 (Phi-3-mini)",
                             wide_errs[name],
-                            {name: wide_times["phi3"][name]})})
+                            {name: wide_times["phi3"][name]}),
+                        "phase20": ring20})
     # K12 and K13 run on phase 13's path (launches, and errors on its
     # operands brought to unit scale), K14 and K15 on phase 14's Var graphs
     # (launches; errors at bench.py's shapes); K12, K14 and K15 on the layer

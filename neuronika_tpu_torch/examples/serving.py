@@ -6,7 +6,7 @@ weights from a seed).
     python -m neuronika_tpu_torch.examples.serving
 
 The JAX example's last block, tensor-parallel serving over a mesh, waits
-for the port's parallelism (ROADMAP.md queue 1 item 5).
+for the port's tensor-parallel serving (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -23,9 +23,15 @@ step`, `_many`), the paged ones (`init_paged_cache`, `make_paged_prefill`,
 every decode step) and per-row sampling and LoRA adapters; for training
 `hidden_states`, `forward`, `loss_fn`, `opt_init`, `opt_state_from_jax`,
 `make_train_step` (Adam, clipping, accumulation) and `flops_per_token`;
-and `make_eval_step`/`evaluate`. Meshes raise `NotImplementedError`
-naming their ROADMAP.md item, as does the int8 KV cache on the paged
-programs (JAX's refusal). Training attention
+and `make_eval_step`/`evaluate`. The sharded train step
+(`make_sharded_train_step`, `param_shardings`, `fsdp_param_shardings`)
+runs one process a rank over a mesh with dp, tp and cp axes: the batch
+over dp, Megatron column and row splits over tp (with `seq_parallel` the
+residual stream sequence-sharded over tp), ZeRO-3 with fsdp, and the
+sequence over cp with attention on the ring (`_Shards` holds a rank's
+view and its collectives). Serving meshes, pipeline and expert axes
+raise `NotImplementedError` naming their ROADMAP.md item, as does the
+int8 KV cache on the paged programs (JAX's refusal). Training attention
 runs the packed flash op (K1/K2) for learned positions without a window,
 and the split flash op (K5-K7, `ops/flash_attention.py`) on q/k/v split
 out of the packed projection, rotated under rope, with or without a
@@ -41,7 +47,6 @@ expert capacity, one-hot dispatch) and "sort" (the same routing by a
 stable argsort and row scatter/gather); "ep" takes the sparse path, as
 JAX's does without a mesh, and a decode step (S == 1) always takes the
 dense, no-drop routing. The expert GEMMs run on cuBLAS, as JAX's on XLA.
-Sequence parallelism raises `NotImplementedError` from `GPTConfig`.
 With `remat`, each block is checkpointed under JAX's five remat policies
 (`_remat_context`): "full" keeps only the block's input; "flash" also the
 flash forwards' (out, lse), so the backward does not rerun K1 or K5;
@@ -123,7 +128,10 @@ class GPTConfig:
     moe_impl: str = "dense"
     moe_capacity: float = 2.0
     moe_aux_weight: float = 0.0
-    # sequence parallelism (JAX's field): only False, one device, is ported
+    # sequence parallelism (sharded step only): the residual stream, norms
+    # and head run sequence-sharded over the mesh's tp axis, gathered
+    # before and reduce-scattered after each attention and MLP; no effect
+    # without a mesh or under a cp axis (JAX's field and meaning)
     seq_parallel: bool = False
     # training fields (JAX names and defaults; see the JAX GPTConfig)
     dropout: float = 0.0
@@ -157,10 +165,6 @@ class GPTConfig:
     opt_state_dtype: str = "f32"
 
     def __post_init__(self):
-        if self.seq_parallel:
-            raise NotImplementedError(
-                "seq_parallel=True is not ported yet (sequence parallelism "
-                "needs a mesh; ROADMAP.md queue 1 item 5)")
         for name, allowed in (("pos_emb", ("learned", "rope")),
                               ("moe_impl", ("dense", "sparse", "sort", "ep")),
                               ("norm", ("layer", "rms")),
@@ -213,6 +217,63 @@ def _require_causal(cfg: GPTConfig, what: str) -> None:
 # params (per-layer tensors are STACKED with a leading n_layer axis)
 
 
+def _param_tree(cfg: GPTConfig, normal, fill) -> Dict:
+    """The params tree of `cfg` with leaves normal(shape, std) and
+    fill(shape, value), made in `init_params`' draw order."""
+    std = 0.02
+    resid_std = std / math.sqrt(2.0 * cfg.n_layer)
+    L, D, F_ = cfg.n_layer, cfg.d_model, cfg.d_ff
+    W = _qkv_width(cfg)
+
+    def zeros(*shape):
+        return fill(shape, 0.0)
+
+    def ln(*shape):
+        p = {"scale": fill(shape, 1.0)}
+        if cfg.norm == "layer":
+            p["bias"] = zeros(*shape)
+        return p
+
+    blocks = {
+        "ln1": ln(L, D),
+        "ln2": ln(L, D),
+        "qkv": normal((L, D, W), std),
+        "qkv_b": zeros(L, W),
+        "proj": normal((L, D, D), resid_std),
+        "proj_b": zeros(L, D),
+    }
+    if cfg.n_experts:
+        if cfg.mlp != "gelu":
+            raise ValueError("mlp='swiglu' is dense-MLP only (n_experts=0)")
+        E = cfg.n_experts
+        blocks.update({
+            "gate": normal((L, D, E), std),
+            "fc_in": normal((L, E, D, F_), std),
+            "fc_in_b": zeros(L, E, F_),
+            "fc_out": normal((L, E, F_, D), resid_std),
+            "fc_out_b": zeros(L, E, D),
+        })
+    else:
+        blocks.update({
+            "fc_in": normal((L, D, F_), std),
+            "fc_in_b": zeros(L, F_),
+            "fc_out": normal((L, F_, D), resid_std),
+            "fc_out_b": zeros(L, D),
+        })
+    if cfg.mlp == "swiglu":
+        blocks["fc_gate"] = normal((L, D, F_), std)
+        blocks["fc_gate_b"] = zeros(L, F_)
+    if not cfg.bias:
+        blocks = {k: v for k, v in blocks.items() if not k.endswith("_b")}
+    params = {"wte": normal((cfg.vocab_size, D), std), "ln_f": ln(D),
+              "blocks": blocks}
+    if cfg.pos_emb == "learned":
+        params["wpe"] = normal((cfg.max_seq, D), std)
+    if not cfg.tied_head:
+        params["lm_head"] = normal((cfg.vocab_size, D), std)
+    return params
+
+
 def init_params(generator: torch.Generator, cfg: GPTConfig,
                 device) -> Dict:
     """GPT-2 style init: N(0, 0.02), residual projections scaled by
@@ -223,63 +284,108 @@ def init_params(generator: torch.Generator, cfg: GPTConfig,
     are drawn on `generator`'s device and placed on `device`. They do not
     reproduce JAX's draws from a key."""
     dev = resolve(device)
-    std = 0.02
-    resid_std = std / math.sqrt(2.0 * cfg.n_layer)
-    L, D, F_ = cfg.n_layer, cfg.d_model, cfg.d_ff
-    W = _qkv_width(cfg)
 
-    def normal(shape, s=std):
+    def normal(shape, s):
         t = torch.randn(shape, generator=generator, device=generator.device,
                         dtype=torch.float32)
         return (t * s).to(dev)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    def fill(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
 
-    def ln(*shape):
-        p = {"scale": torch.ones(shape, dtype=torch.float32, device=dev)}
-        if cfg.norm == "layer":
-            p["bias"] = zeros(*shape)
-        return p
+    return _param_tree(cfg, normal, fill)
 
-    blocks = {
-        "ln1": ln(L, D),
-        "ln2": ln(L, D),
-        "qkv": normal((L, D, W)),
-        "qkv_b": zeros(L, W),
-        "proj": normal((L, D, D), resid_std),
-        "proj_b": zeros(L, D),
-    }
+
+def param_shapes(cfg: GPTConfig) -> Dict:
+    """The params tree of `cfg` as tensors on the meta device: shapes and
+    dtypes, no storage (JAX's `eval_shape` of `init_params`)."""
+    def meta(shape, _):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    return _param_tree(cfg, meta, meta)
+
+
+def _refuse_experts(cfg: GPTConfig) -> None:
     if cfg.n_experts:
-        if cfg.mlp != "gelu":
-            raise ValueError("mlp='swiglu' is dense-MLP only (n_experts=0)")
-        E = cfg.n_experts
-        blocks.update({
-            "gate": normal((L, D, E)),
-            "fc_in": normal((L, E, D, F_)),
-            "fc_in_b": zeros(L, E, F_),
-            "fc_out": normal((L, E, F_, D), resid_std),
-            "fc_out_b": zeros(L, E, D),
-        })
-    else:
-        blocks.update({
-            "fc_in": normal((L, D, F_)),
-            "fc_in_b": zeros(L, F_),
-            "fc_out": normal((L, F_, D), resid_std),
-            "fc_out_b": zeros(L, D),
-        })
+        raise NotImplementedError(
+            "n_experts on a mesh (JAX's _moe_mlp_ep and its layouts) is not "
+            "ported yet (ROADMAP.md queue 1 item 5)")
+
+
+def param_shardings(mesh, cfg: GPTConfig) -> Dict:
+    """Megatron-style tp layout, replicated small params: a tree of
+    `parallel.NamedSharding` over `mesh` (JAX's `param_shardings`). The
+    stacked block leaves keep their leading layer axis unsplit: qkv,
+    fc_in (fc_gate) and their biases split their output columns over tp,
+    proj and fc_out their input rows; wte and lm_head split d_model.
+    Experts have no layout yet (JAX's `ep` layouts come with
+    `_moe_mlp_ep`)."""
+    from ..parallel.mesh import NamedSharding
+
+    _refuse_experts(cfg)
+    tp = "tp" if "tp" in mesh.mesh_dim_names else None
+
+    def ns(*spec):
+        return NamedSharding(mesh, [tp if a == "tp" else a for a in spec])
+
+    rep = ns()
+    ln = ({"scale": rep, "bias": rep} if cfg.norm == "layer"
+          else {"scale": rep})
+    shard = {
+        "wte": ns(None, "tp"),
+        "ln_f": dict(ln),
+        "blocks": {
+            "ln1": dict(ln),
+            "ln2": dict(ln),
+            "qkv": ns(None, None, "tp"),
+            "qkv_b": ns(None, "tp"),
+            "proj": ns(None, "tp", None),
+            "proj_b": rep,
+            "fc_in": ns(None, None, "tp"),
+            "fc_in_b": ns(None, "tp"),
+            "fc_out": ns(None, "tp", None),
+            "fc_out_b": rep,
+        },
+    }
     if cfg.mlp == "swiglu":
-        blocks["fc_gate"] = normal((L, D, F_))
-        blocks["fc_gate_b"] = zeros(L, F_)
+        shard["blocks"]["fc_gate"] = ns(None, None, "tp")
+        shard["blocks"]["fc_gate_b"] = ns(None, "tp")
     if not cfg.bias:
-        blocks = {k: v for k, v in blocks.items() if not k.endswith("_b")}
-    params = {"wte": normal((cfg.vocab_size, D)), "ln_f": ln(D),
-              "blocks": blocks}
+        shard["blocks"] = {k: v for k, v in shard["blocks"].items()
+                           if not k.endswith("_b")}
     if cfg.pos_emb == "learned":
-        params["wpe"] = normal((cfg.max_seq, D))
+        shard["wpe"] = rep
     if not cfg.tied_head:
-        params["lm_head"] = normal((cfg.vocab_size, D))
-    return params
+        shard["lm_head"] = ns(None, "tp")
+    return shard
+
+
+def fsdp_param_shardings(mesh, cfg: GPTConfig, *, axis: str = "dp",
+                         min_size: int = 1 << 16) -> Dict:
+    """ZeRO-3 layout (JAX's `fsdp_param_shardings`): the tp layout widened
+    so that every large leaf is also split over the data-parallel `axis`.
+    As the sharded step's layout it keeps params, gradients and Adam
+    moments at 1/dp a rank; the step gathers each weight where it is used
+    and reduce-scatters its gradient. Per leaf the largest dim not already
+    split and divisible by the axis size takes `axis` (ties: the later
+    dim); leaves under `min_size` elements stay as they were. Shapes come
+    from `param_shapes` (the meta device)."""
+    from ..parallel.mesh import NamedSharding
+
+    base = param_shardings(mesh, cfg)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+
+    def widen(shape_leaf, s):
+        shape = shape_leaf.shape
+        spec = list(s.spec) + [None] * (len(shape) - len(s.spec))
+        cands = [(shape[i], i) for i in range(len(spec))
+                 if spec[i] is None and shape[i] % n == 0]
+        if not cands or shape_leaf.numel() < min_size:
+            return s
+        spec[max(cands)[1]] = axis
+        return NamedSharding(mesh, spec)
+
+    return tree_map(widen, param_shapes(cfg), base)
 
 
 def params_from_jax(tree, device="cpu") -> Dict:
@@ -343,12 +449,13 @@ def _badd(t, blk, name, cfg: GPTConfig):
     return (t if b is None else t + b).to(cfg.dtype)
 
 
-def _unpack_qkv(qkv, cfg: GPTConfig):
+def _unpack_qkv(qkv, cfg: GPTConfig, KV: int | None = None):
     """Group-major packed (..., W) -> q (..., KV, G, hd), k/v (..., KV, hd).
     The packed layout is kv-group-major: KV groups of (G+2) hd-wide chunks,
-    group g = [q_{gG} ... q_{gG+G-1} | k_g | v_g]."""
-    KV = _kv_heads(cfg)
-    G = cfg.n_head // KV
+    group g = [q_{gG} ... q_{gG+G-1} | k_g | v_g]; a tp shard of whole
+    groups is such a tensor with its own KV (`KV`, default all)."""
+    G = cfg.n_head // _kv_heads(cfg)
+    KV = KV or _kv_heads(cfg)
     hd = cfg.d_model // cfg.n_head
     parts = qkv.reshape(qkv.shape[:-1] + (KV, G + 2, hd))
     return parts[..., :G, :], parts[..., G, :], parts[..., G + 1, :]
@@ -410,16 +517,21 @@ def _lm_head(x, params, cfg: GPTConfig):
     return _dot_f32(x, _head_w(params, cfg).to(x.dtype).T)
 
 
-def _mlp(x, blk, cfg: GPTConfig, dot=None, tag=False):
+def _mlp(x, blk, cfg: GPTConfig, dot=None, tag=False, mesh=None):
     """Dense MLP (JAX's `_mlp` / `_decode_mlp`): GELU, whose tanh
     approximation is `jax.nn.gelu`'s default, or SwiGLU, silu(g) * h with
     g in f32 (the product promotes to f32 before the cast, as in JAX).
     `dot` is the matmul: `_qdot` for serving, `_body_dot` in training;
     `tag`: tag ffn_pre and ffn_gate (`_tagged`). With experts, the mixture
-    (`_moe_mlp`) without its aux loss."""
+    (`_moe_mlp`) without its aux loss. Under a `mesh` (`_Shards`) the
+    weights are this rank's column (fc_in, fc_gate) and row (fc_out)
+    shards: the input enters the tp region and the output leaves it
+    (`tp_in`, `tp_out`) before fc_out's bias."""
     if cfg.n_experts:
         return _moe_mlp(x, blk, cfg)[0]
     dot = dot or _qdot
+    if mesh is not None:
+        x = mesh.tp_in(x)
     h = _tagged(_badd(dot(x, blk["fc_in"], cfg), blk, "fc_in_b", cfg),
                 "ffn_pre", tag)
     if cfg.mlp == "swiglu":
@@ -428,7 +540,10 @@ def _mlp(x, blk, cfg: GPTConfig, dot=None, tag=False):
         h = (F.silu(g.float()) * h).to(cfg.dtype)
     else:
         h = F.gelu(h, approximate="tanh")
-    return _badd(dot(h, blk["fc_out"], cfg), blk, "fc_out_b", cfg)
+    out = dot(h, blk["fc_out"], cfg)
+    if mesh is not None:
+        out = mesh.tp_out(out)
+    return _badd(out, blk, "fc_out_b", cfg)
 
 
 # --------------------------------------------------------------------------
@@ -2006,13 +2121,14 @@ def _use_flash(cfg: GPTConfig, x) -> bool:
         f"flash='auto' takes the composite (ROADMAP.md queue 1 item 3)")
 
 
-def _split_qkv(qkv, cfg: GPTConfig, B, S):
+def _split_qkv(qkv, cfg: GPTConfig, B, S, KV: int | None = None):
     """Group-major packed (B, S, W) -> q (B,H,S,hd), k/v (B,H,S,hd), KV
-    heads repeated up to H (GQA) for the composite path."""
-    H = cfg.n_head
-    KV = _kv_heads(cfg)
-    hd = cfg.d_model // H
-    q, k, v = _unpack_qkv(qkv, cfg)
+    heads repeated up to H (GQA) for the composite path. `KV`: the kv
+    heads qkv holds (a tp shard of whole groups), default all."""
+    KV = KV or _kv_heads(cfg)
+    H = KV * (cfg.n_head // _kv_heads(cfg))
+    hd = cfg.d_model // cfg.n_head
+    q, k, v = _unpack_qkv(qkv, cfg, KV)
     q = q.reshape(B, S, H, hd).transpose(1, 2)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -2022,44 +2138,94 @@ def _split_qkv(qkv, cfg: GPTConfig, B, S):
     return q, k, v
 
 
-def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
-    """Attention sublayer of the training forward (JAX's `_attention`,
-    single device). Learned positions without a window take the packed
-    flash op; rope or a window split q/k/v out of the packed projection
-    (rotating q and k under rope) for the split flash op or, with
-    flash="off", the composite. `seed` (an int or None) keys the dropout
-    mask (`keep_mask`) of the kernels and of the composite alike, so a
-    checkpointed block redraws the same mask when it is recomputed."""
+def _proj(out, blk, cfg: GPTConfig, mesh):
+    """The attention's output projection; under a mesh proj holds this
+    rank's input rows, and the product leaves the tp region before the
+    bias."""
+    out = _body_dot(out, blk["proj"], cfg)
+    if mesh is not None:
+        out = mesh.tp_out(out)
+    return _badd(out, blk, "proj_b", cfg)
+
+
+def _attention(x, blk, cfg: GPTConfig, train: bool, seed, mesh=None):
+    """Attention sublayer of the training forward (JAX's `_attention`).
+    Learned positions without a window take the packed flash op; rope or a
+    window split q/k/v out of the packed projection (rotating q and k under
+    rope) for the split flash op or, with flash="off", the composite.
+    `seed` (an int or None) keys the dropout mask (`keep_mask`) of the
+    kernels and of the composite alike, so a checkpointed block redraws
+    the same mask when it is recomputed.
+
+    Under a `mesh` (`_Shards`, inside the sharded step) the weights are this
+    rank's tp shards and x its rows: each rank runs its H/tp heads. Where
+    tp divides the kv heads, the rank's columns of qkv are whole kv groups
+    and feed the kernels directly (the packed op with H/tp and KV/tp
+    heads, under learned positions, no window and no cp); else qkv is
+    gathered over tp and the rank takes its heads. A cp axis runs the
+    split layout on the ring (`parallel.ring_flash_attention`) at the
+    rows' global positions. Dropout seeds are offset by the rank's dp and
+    tp coordinates, as JAX's."""
     if cfg.window and not cfg.causal:
         raise ValueError(
             "cfg.window (sliding-window attention) requires causal=True")
-    B, S, D = x.shape
     H = cfg.n_head
-    hd = D // H
+    hd = cfg.d_model // H
+    KV = _kv_heads(cfg)
+    tp = cp = 1
+    if mesh is not None:
+        x = mesh.tp_in(x)
+        tp, cp = mesh.tp, mesh.cp
+    B, S, _ = x.shape
+    H_l, KV_l = H // tp, (KV // tp if KV % tp == 0 else None)
     tag = _names_policy(cfg, train)
     qkv = _tagged(_badd(_body_dot(x, blk["qkv"], cfg), blk, "qkv_b", cfg),
                   "attn_qkv", tag)
     drop = cfg.dropout if train else 0.0
     if drop > 0.0 and seed is None:
         raise ValueError("dropout in training needs a generator")
+    if seed is not None and mesh is not None:
+        seed = mesh.seed(seed)
     flash = _use_flash(cfg, x)
-    if flash and cfg.pos_emb == "learned" and not cfg.window:
+    if (flash and cfg.pos_emb == "learned" and not cfg.window
+            and KV_l is not None and cp == 1):
         # the packed kernels read head blocks straight from qkv: no split,
         # transpose or GQA-repeat copies
         out = flash_attention_qkv(
-            qkv, H, _kv_heads(cfg), cfg.causal, None, cfg.flash_block,
+            qkv, H_l, KV_l, cfg.causal, None, cfg.flash_block,
             cfg.flash_block, fast_softmax=cfg.flash_softmax == "fast",
             fused_bwd=cfg.flash_bwd == "fused", dropout=drop,
             seed=seed or 0)
-        return _badd(_body_dot(out, blk["proj"], cfg), blk, "proj_b", cfg)
-    q, k, v = _split_qkv(qkv, cfg, B, S)
+        return _proj(out, blk, cfg, mesh)
+    if KV_l is not None:
+        q, k, v = _split_qkv(qkv, cfg, B, S, KV_l)
+    else:       # tp splits kv groups: every rank gathers qkv, keeps its heads
+        from ..parallel.collectives import gather
+
+        q, k, v = _split_qkv(gather(qkv, 2, mesh.tp_group), cfg, B, S)
+        heads = slice(mesh.tp_rank * H_l, (mesh.tp_rank + 1) * H_l)
+        q, k, v = q[:, heads], k[:, heads], v[:, heads]
+    off = 0 if mesh is None else mesh.cp_offset(S)
     if cfg.pos_emb == "rope":
-        cos, sin = _rope_cos_sin(cfg, torch.arange(S, device=x.device))
+        cos, sin = _rope_cos_sin(cfg, torch.arange(off, off + S,
+                                                   device=x.device))
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
     q, k, v = (_tagged(t, n, tag) for t, n in zip(
         (q, k, v), ("attn_q", "attn_k", "attn_v")))
-    if flash and drop > 0.0:
+    if flash and cp > 1:
+        if drop > 0.0:
+            raise ValueError(
+                "attention dropout is not supported with context "
+                "parallelism (cp mesh axis); set dropout=0.0")
+        if cfg.window:
+            raise ValueError(
+                "sliding-window attention is not supported with context "
+                "parallelism (cp mesh axis)")
+        from ..parallel.ring import ring_flash_attention
+
+        out = ring_flash_attention(q, k, v, mesh.cp_group, cp, cfg.causal)
+    elif flash and drop > 0.0:
         out = flash_attention_dropout(q, k, v, seed, cfg.causal, None,
                                       cfg.flash_block, cfg.flash_block, drop,
                                       cfg.window)
@@ -2067,21 +2233,28 @@ def _attention(x, blk, cfg: GPTConfig, train: bool, seed):
         out = flash_attention(q, k, v, cfg.causal, None, cfg.flash_block,
                               cfg.flash_block, cfg.window)
     else:
+        if cp > 1:      # the composite sees every key: gather them over cp
+            from ..parallel.collectives import gather
+
+            k, v = (gather(t, 2, mesh.cp_group) for t in (k, v))
+        Skv = k.shape[2]
         att = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
         att = att / math.sqrt(hd)
         if cfg.causal:
-            mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+            rows = torch.arange(off, off + S, device=x.device)[:, None]
+            cols = torch.arange(Skv, device=x.device)[None, :]
+            mask = cols <= rows
             if cfg.window:
-                mask &= ~torch.ones(S, S, dtype=torch.bool,
-                                    device=x.device).tril(-cfg.window)
+                mask &= rows - cols < cfg.window
             att = att.masked_fill(~mask, -1e30)
         att = torch.softmax(att, -1).to(cfg.dtype)
         if drop > 0.0:   # the kernels' mask: the routes drop alike
-            keep = keep_mask(seed, B, H, S, S, drop, x.device)
+            keep = keep_mask(seed, B, H_l, off + S, Skv, drop,
+                             x.device)[:, :, off:]
             att = torch.where(keep, att / (1.0 - drop), 0.0).to(cfg.dtype)
         out = torch.einsum("bhqk,bhkd->bhqd", att.float(), v.float())
-    out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, D)
-    return _badd(_body_dot(out, blk["proj"], cfg), blk, "proj_b", cfg)
+    out = out.to(cfg.dtype).transpose(1, 2).reshape(B, S, H_l * hd)
+    return _proj(out, blk, cfg, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -2155,38 +2328,48 @@ def _remat_context(policy: str):
         create_selective_checkpoint_contexts, keep)}
 
 
-def _block(x, blk, cfg: GPTConfig, train: bool, seed):
+def _block(x, blk, cfg: GPTConfig, train: bool, seed, mesh=None):
     """(x, aux): the block's output and, with experts, its layer's MoE aux
-    loss (None without)."""
+    loss (None without). Under a mesh, `blk` holds this rank's shards of
+    the layer, gathered here where the layout splits them over dp (so a
+    checkpointed block gathers them again for its backward)."""
+    if mesh is not None:
+        blk = mesh.layer(blk)
     tag = _names_policy(cfg, train)
     h1 = _tagged(_layer_norm(x, blk["ln1"], cfg.norm_eps), "ln1_out", tag)
-    x = x + _attention(h1, blk, cfg, train, seed)
+    x = x + _attention(h1, blk, cfg, train, seed, mesh)
     h2 = _tagged(_layer_norm(x, blk["ln2"], cfg.norm_eps), "ln2_out", tag)
     if cfg.n_experts:
         m, aux = _moe_mlp(h2, blk, cfg)
         return x + m, aux
-    return x + _mlp(h2, blk, cfg, _body_dot, tag), None
+    return x + _mlp(h2, blk, cfg, _body_dot, tag, mesh), None
 
 
 def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None, mesh=None):
     """tokens (B, S) int -> final hidden states (B, S, D) in the compute
     dtype. The embedding sum is taken in f32, then cast (as JAX). Layers
     run as a Python loop (`scan_layers` has no effect); with cfg.remat in
     training each block is checkpointed under cfg.remat_policy
-    (`_remat_context`). `generator` draws each layer's attention-dropout seed. MoE aux
-    losses are dropped here (`_hidden_aux` keeps them)."""
-    return _hidden_aux(params, tokens, cfg, train, generator)[0]
+    (`_remat_context`). `generator` draws each layer's attention-dropout
+    seed. MoE aux losses are dropped here (`_hidden_aux` keeps them).
+    `mesh` is the sharded step's per-rank view (`_Shards`): params are then
+    this rank's working shards and the result its rows of the hidden
+    states (its sequence chunk under seq_parallel or cp)."""
+    return _hidden_aux(params, tokens, cfg, train, generator, mesh)[0]
 
 
 def _hidden_aux(params, tokens, cfg: GPTConfig, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, mesh=None):
     """`hidden_states` and the MoE aux losses summed over layers (JAX's
     `hidden_states` pair); the sum is None without experts."""
+    if mesh is not None:
+        tokens = mesh.rows(tokens)
     B, S = tokens.shape
     x = params["wte"][tokens.long()]
     if cfg.pos_emb == "learned":
-        x = x + params["wpe"][:S]
+        off = 0 if mesh is None else mesh.seq_offset(S)
+        x = x + params["wpe"][off:off + S]
     x = x.to(cfg.dtype)
     seeds = [None] * cfg.n_layer
     if train and cfg.dropout > 0.0 and generator is not None:
@@ -2197,10 +2380,10 @@ def _hidden_aux(params, tokens, cfg: GPTConfig, train: bool = False,
         blk = _layer(params["blocks"], i)
         if cfg.remat and train:
             x, a = torch.utils.checkpoint.checkpoint(
-                _block, x, blk, cfg, train, seeds[i], use_reentrant=False,
-                **_remat_context(cfg.remat_policy))
+                _block, x, blk, cfg, train, seeds[i], mesh,
+                use_reentrant=False, **_remat_context(cfg.remat_policy))
         else:
-            x, a = _block(x, blk, cfg, train, seeds[i])
+            x, a = _block(x, blk, cfg, train, seeds[i], mesh)
         if a is not None:
             aux = a if aux is None else aux + a
     return _layer_norm(x, params["ln_f"], cfg.norm_eps), aux
@@ -2222,17 +2405,22 @@ def _use_fused_ce(cfg: GPTConfig, rows: int) -> bool:
 
 
 def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
-            generator: torch.Generator | None = None):
+            generator: torch.Generator | None = None, mesh=None):
     """Mean token cross-entropy. Under `_use_fused_ce`: the fused linear
     cross-entropy (K8-K10) on the hidden states and the head weight in the
     compute dtype, whatever `logits_dtype` says, as JAX. Otherwise the LM
     head (a compute-dtype GEMM with an f32 result, or a compute-dtype
     result with logits_dtype="compute"), then logsumexp minus the gathered
     target logit on f32 logits. With experts, `moe_aux_weight` times the
-    summed aux loss is added."""
+    summed aux loss is added.
+
+    Under a `mesh` (the sharded step's per-rank view, `_Shards`) the
+    params are this rank's working shards and tokens its rows; the result
+    is this rank's share of the global mean, the sum of its positions'
+    losses over the global token count (the step sums the shares)."""
     B, S = tokens.shape
-    x, aux = _hidden_aux(params, tokens, cfg, train, generator)
-    if _use_fused_ce(cfg, B * S):
+    x, aux = _hidden_aux(params, tokens, cfg, train, generator, mesh)
+    if mesh is None and _use_fused_ce(cfg, B * S):
         ce = fused_linear_cross_entropy(
             x.reshape(B * S, cfg.d_model), _head_w(params, cfg).to(cfg.dtype),
             targets.reshape(B * S))
@@ -2243,8 +2431,11 @@ def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
             logits = _lm_head(x, params, cfg)
         logits32 = logits.float()
         lse = torch.logsumexp(logits32, -1)
+        if mesh is not None:
+            targets = mesh.rows(targets)
         tgt = logits32.gather(-1, targets.long()[..., None])[..., 0]
-        ce = (lse - tgt).mean()
+        ce = ((lse - tgt).mean() if mesh is None
+              else (lse - tgt).sum() / mesh.global_rows(lse.numel()))
     return ce if aux is None else ce + cfg.moe_aux_weight * aux
 
 
@@ -2351,6 +2542,205 @@ def make_train_step(cfg: GPTConfig, grad_clip: float = 0.0,
             grads, _ = clip_by_global_norm(grads, grad_clip)
         params, opt_state = adam_update(params, grads, opt_state, lr)
         return params, opt_state, loss
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# the sharded train step (JAX's `make_sharded_train_step`): one process a
+# rank, each running the step on its shards with explicit collectives
+
+
+SHARDED_AXES = ("dp", "tp", "cp")
+
+
+class _Shards:
+    """One rank's view of the mesh inside the sharded step (what JAX's
+    `mesh` argument stands for inside its program): each axis's group, size
+    and this rank's coordinate, and how the working params are made from
+    the rank's shards.
+
+    Tokens are split over dp and cp everywhere, and also over tp in the
+    norms, residuals and head under seq_parallel (`token_groups`). Every
+    leaf enters through `copy_to` over the token axes it is not split
+    over, so its gradient is the sum of the ranks' contributions; a dp
+    (FSDP) split is gathered where the weight is used (per layer inside
+    the checkpointed block), its gradient reduce-scattered; wte and
+    lm_head are gathered over tp for the embedding and the head. The tp
+    region of each attention and MLP is entered and left by Megatron's
+    conjugate ops, or by an all-gather and a reduce-scatter of the
+    sequence under seq_parallel (`tp_in`, `tp_out`)."""
+
+    def __init__(self, mesh, cfg: GPTConfig, shardings):
+        names = mesh.mesh_dim_names
+
+        def axis(a):
+            if a not in names:
+                return None, 1, 0
+            return (mesh.get_group(a), mesh.size(names.index(a)),
+                    mesh.get_local_rank(a))
+
+        self.dp_group, self.dp, self.dp_rank = axis("dp")
+        self.tp_group, self.tp, self.tp_rank = axis("tp")
+        self.cp_group, self.cp, self.cp_rank = axis("cp")
+        self.seq_tp = cfg.seq_parallel and self.tp > 1 and self.cp == 1
+        self.token_groups = {"dp": self.dp_group, "cp": self.cp_group}
+        if self.seq_tp:
+            self.token_groups["tp"] = self.tp_group
+        self.blocks = shardings["blocks"]
+
+    def enter(self, name: str, t, sh):
+        """The working form of a leaf from this rank's shard `t` (laid out
+        by `sh`); its gradient reaches `t` summed as the layout needs."""
+        from ..parallel.collectives import copy_to, gather
+
+        split = {a for a in sh.spec if a is not None}
+        t = copy_to(t, [g for a, g in self.token_groups.items()
+                        if a not in split])
+        d = sh.dim_of("dp")
+        if d is not None and (name != "blocks" or d == 0):
+            t = gather(t, d, self.dp_group)
+        d = sh.dim_of("tp")
+        if d is not None and name != "blocks":
+            t = gather(t, d, self.tp_group,
+                       "sum" if self.seq_tp else "slice")
+        return t
+
+    def layer(self, blk):
+        """One layer's block params with their dp splits gathered (a split
+        of the layer axis itself was gathered by `enter`)."""
+        from ..parallel.collectives import gather
+
+        def leaf(t, sh):
+            d = sh.dim_of("dp")
+            return gather(t, d - 1, self.dp_group) if d else t
+
+        return tree_map(leaf, blk, self.blocks)
+
+    def tp_in(self, x):
+        from ..parallel.collectives import copy_to, gather
+
+        if self.seq_tp:
+            return gather(x, 1, self.tp_group)
+        return copy_to(x, [self.tp_group])
+
+    def tp_out(self, y):
+        from ..parallel.collectives import reduce_from, scatter
+
+        if self.seq_tp:
+            return scatter(y, 1, self.tp_group)
+        return reduce_from(y, self.tp_group)
+
+    def rows(self, t):
+        """This rank's sequence chunk of a (B, S) batch it holds over tp."""
+        return t.chunk(self.tp, 1)[self.tp_rank] if self.seq_tp else t
+
+    def seq_offset(self, S: int) -> int:
+        """Global position of this rank's first row (S rows a rank)."""
+        if self.cp > 1:
+            return self.cp_rank * S
+        return self.tp_rank * S if self.seq_tp else 0
+
+    def cp_offset(self, S: int) -> int:
+        return self.cp_rank * S
+
+    def seed(self, seed: int) -> int:
+        """Dropout seeds decorrelated across shards (JAX's offsets): local
+        batch and head indices repeat on every rank."""
+        return seed + self.dp_rank * 1000003 + self.tp_rank * 7919
+
+    def global_rows(self, n: int) -> int:
+        """Positions over all ranks, this rank holding n of them."""
+        return n * math.prod(
+            {"dp": self.dp, "cp": self.cp, "tp": self.tp}[a]
+            for a in self.token_groups)
+
+    def reduce_loss(self, loss):
+        from ..parallel.collectives import all_reduce
+
+        return all_reduce(loss.clone(), list(self.token_groups.values()))
+
+
+def _check_sharded(mesh, cfg: GPTConfig) -> None:
+    names = mesh.mesh_dim_names
+    extra = [a for a in names if a not in SHARDED_AXES]
+    if extra:
+        raise NotImplementedError(
+            f"mesh axes {extra}: the sharded step takes dp, tp and cp "
+            f"(pipeline and expert axes are not ported yet; ROADMAP.md "
+            f"queue 1 item 5)")
+    _refuse_experts(cfg)
+    tp = mesh.size(names.index("tp")) if "tp" in names else 1
+    for what, n in (("n_head", cfg.n_head), ("d_model", cfg.d_model),
+                    ("d_ff", cfg.d_ff), ("qkv width", _qkv_width(cfg))):
+        if n % tp:
+            raise ValueError(f"tp {tp} does not divide {what} {n}")
+
+
+def make_sharded_train_step(mesh, cfg: GPTConfig, *, fsdp: bool = False,
+                            fsdp_min_size: int = 1 << 16):
+    """The train step sharded over `mesh` (a DeviceMesh with axes among dp,
+    tp and cp): the batch split over dp, Megatron column and row splits
+    over tp, the sequence over tp in the residual stream under
+    cfg.seq_parallel, and over cp with attention on the ring. It computes
+    what `make_train_step` computes (Adam, no clipping or accumulation,
+    as JAX's sharded step), with the fused CE off.
+
+    Returns step(params, opt_state, tokens, targets, lr, generator=None)
+    -> (params, opt_state, loss), run by every rank. params and the Adam
+    moments come back as DTensors in the stated layout (`param_shardings`,
+    or with `fsdp=True` `fsdp_param_shardings(min_size=fsdp_min_size)`:
+    ZeRO-3, params, gradients and moments at 1/dp a rank) and are updated
+    in place from the second call on; plain tensors passed in (the same
+    full value on every rank) or DTensors in another layout are placed
+    first. tokens and targets are the global (B, S) batch, the same on
+    every rank, or DTensors (`make_global_batch`). The loss is the global
+    mean, the same 0-d tensor on every rank. Each rank runs the loss and
+    its gradient on its shards with the collectives of `_Shards`; the
+    flash kernels run on each rank's heads and rows (K1/K2 on whole kv
+    groups, K5-K7 on the split layout and on every ring hop)."""
+    from ..parallel.mesh import NamedSharding, shard_map_compat
+
+    if cfg.fused_ce != "off":
+        cfg = dataclasses.replace(cfg, fused_ce="off")
+    _check_sharded(mesh, cfg)
+    names = mesh.mesh_dim_names
+    shard = (fsdp_param_shardings(mesh, cfg, min_size=fsdp_min_size)
+             if fsdp else param_shardings(mesh, cfg))
+    rep = NamedSharding(mesh, ())
+    opt_shard = {"m": shard, "v": shard, "step": rep}
+    batch_axes = [a if a in names else None for a in ("dp", "cp")]
+    data = NamedSharding(mesh, batch_axes)
+    view = _Shards(mesh, cfg, shard)
+    split = {a: mesh.size(names.index(a)) for a in names}
+
+    def local_step(params, opt_state, tokens, targets, lr, generator):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        work = {name: tree_map(functools.partial(view.enter, name), sub,
+                               shard[name])
+                for name, sub in tree_unflatten(params, leaves).items()}
+        loss = loss_fn(work, tokens, targets, cfg, train=True,
+                       generator=generator, mesh=view)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            loss = view.reduce_loss(loss.detach())
+        params, opt_state = adam_update(
+            params, tree_unflatten(params, list(grads)), opt_state, lr)
+        return params, opt_state, loss
+
+    mapped = shard_map_compat(
+        local_step, mesh=mesh,
+        in_specs=(shard, opt_shard, data, data, None, None),
+        out_specs=(shard, opt_shard, None))
+
+    def step(params, opt_state, tokens, targets, lr, generator=None):
+        B, S = tokens.shape
+        for a, n, what in (("dp", B, "batch"), ("cp", S, "sequence"),
+                           ("tp" if view.seq_tp else "", S, "sequence")):
+            if n % split.get(a, 1):
+                raise ValueError(f"{a} {split[a]} does not divide the "
+                                 f"{what} {n}")
+        return mapped(params, opt_state, tokens, targets, lr, generator)
 
     return step
 

@@ -1,0 +1,160 @@
+"""Differentiable collectives over process groups: the explicit form of
+what GSPMD inserts from JAX's stated shardings.
+
+Each op names what its backward does, so the gradient of a sharded
+program is the gradient of the whole program: Megatron's two conjugate
+ops (`copy_to`: identity forward, all-reduce backward; `reduce_from`:
+all-reduce forward, identity backward), the sequence-parallel pair
+(`gather`: all-gather forward, reduce-scatter backward; `scatter`:
+reduce-scatter forward, all-gather backward) and `gather(...,
+grad="slice")`, an all-gather whose consumers compute the same gradient
+on every rank, so that each keeps its own slice of it. A group of one
+rank, or None, makes every op the identity.
+
+`ring_shift` moves tensors one rank forward around a group with
+`batch_isend_irecv` (ring attention's hop)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["copy_to", "reduce_from", "gather", "scatter", "all_reduce",
+           "ring_shift"]
+
+
+# torch 2.13 names them *_single and deprecates the older names, which
+# are the only ones before it
+_all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def _live(group) -> bool:
+    return group is not None and dist.get_world_size(group) > 1
+
+
+def all_reduce(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """x summed over every group in `groups`, in place (not differentiable).
+    Sums over groups of independent mesh axes compose: their product is the
+    sum over the product of the axes."""
+    for g in groups:
+        if _live(g):
+            dist.all_reduce(x, group=g)
+    return x
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    _all_gather(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    if xt.shape[0] % n:
+        raise ValueError(f"dim {dim} of size {xt.shape[0]} does not split "
+                         f"over {n} ranks")
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    _reduce_scatter(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _slice_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return x.chunk(n, dim)[r].contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.groups), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), (group,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, grad):
+        ctx.args = (dim, group, grad)
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, grad = ctx.args
+        fn = _scatter_dim if grad == "sum" else _slice_dim
+        return fn(g, dim, group), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.args = (dim, group)
+        return _scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.args
+        return _gather_dim(g, dim, group), None, None
+
+
+def copy_to(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """x itself; its gradient is summed over `groups` (the ranks whose
+    contributions to it differ)."""
+    groups = tuple(g for g in groups if _live(g))
+    return _CopyTo.apply(x, groups) if groups else x
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over `group`; the gradient passes unchanged."""
+    return _ReduceFrom.apply(x, group) if _live(group) else x
+
+
+def gather(x: torch.Tensor, dim: int, group, grad: str = "sum"):
+    """The ranks' x concatenated along `dim` in rank order. Backward:
+    `grad="sum"` reduce-scatters (the ranks' gradients differ and add up),
+    `grad="slice"` keeps this rank's slice (they are the same)."""
+    if grad not in ("sum", "slice"):
+        raise ValueError(f"grad={grad!r}: want 'sum' or 'slice'")
+    return _Gather.apply(x, dim, group, grad) if _live(group) else x
+
+
+def scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """x summed over `group`, this rank keeping its slice of `dim`; the
+    backward all-gathers."""
+    return _Scatter.apply(x, dim, group) if _live(group) else x
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group) -> list:
+    """Each tensor sent to the next rank of `group` and replaced by the one
+    the previous rank sent (rank i's go to rank i + 1 mod n), by one
+    `batch_isend_irecv`."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    dst = dist.get_global_rank(group, (r + 1) % n)
+    src = dist.get_global_rank(group, (r - 1) % n)
+    sends = [t.contiguous() for t in tensors]
+    outs = [torch.empty_like(t) for t in sends]
+    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends]
+           + [dist.P2POp(dist.irecv, o, src, group) for o in outs])
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs

@@ -19,8 +19,16 @@ moved there, and `generator`, JAX's `key`, must be a `torch.Generator` on
 that device; it draws the attention-dropout seeds. `resume()` restores
 the params, the Adam state, the step and the generator's state from the
 latest checkpoint, so a killed run continues exactly where it stopped
-(the same dropout masks included). One device only: `mesh` and `fsdp`
-are not ported.
+(the same dropout masks included).
+
+With `mesh` (a `parallel.make_mesh` DeviceMesh; every rank builds its own
+Trainer and feeds it the same batches) the trainer runs
+`make_sharded_train_step`: params and Adam moments live as DTensors in the
+tp layout, or the ZeRO-3 layout with `fsdp=True` (JAX's `Trainer(mesh=,
+fsdp=)`), placed from rank 0's initial params; evaluation runs unsharded on
+the gathered params and checkpoints hold full leaves (`Checkpointer`).
+Clipping and accumulation are not ported on a mesh (JAX's sharded step
+has neither and ignores them).
 
 Everything here is host-side orchestration around the same step a
 hand-written loop would call; `fit` reads each step's loss once
@@ -81,11 +89,15 @@ class Trainer:
                  eval_every: int = 0,
                  eval_batches: Optional[Callable[[], Iterable]] = None,
                  pad_id: Optional[int] = None):
-        if mesh is not None or fsdp:
+        if mesh is not None and (grad_clip > 0.0 or accum_steps > 1):
             raise NotImplementedError(
-                "Trainer(mesh=..., fsdp=...): sharded training is not "
-                "ported yet (ROADMAP.md queue 1 item 5)")
+                "Trainer(mesh=...) with grad_clip or accum_steps: clipping "
+                "and accumulation are not ported on a mesh (ROADMAP.md "
+                "queue 1 item 5)")
+        if fsdp and mesh is None:
+            raise ValueError("fsdp=True needs a mesh")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve(config.device)
         if resolve(generator.device) != self.device:
             raise ValueError(f"the generator is on {generator.device}, the "
@@ -94,9 +106,18 @@ class Trainer:
         self.params = (T.init_params(generator, cfg, self.device)
                        if params is None
                        else tree_map(lambda t: t.to(self.device), params))
+        if mesh is None:
+            self._step = T.make_train_step(cfg, grad_clip=grad_clip,
+                                           accum_steps=accum_steps)
+        else:
+            from .parallel.mesh import place
+
+            sh = (T.fsdp_param_shardings(mesh, cfg) if fsdp
+                  else T.param_shardings(mesh, cfg))
+            self.params = tree_map(place, self.params, sh)
+            self._step = T.make_sharded_train_step(mesh, cfg, fsdp=fsdp)
+        # over DTensors the moments follow the params' layout
         self.opt_state = T.opt_init(self.params, cfg)
-        self._step = T.make_train_step(cfg, grad_clip=grad_clip,
-                                       accum_steps=accum_steps)
         self.lr_fn = warmup_cosine(lr, warmup_steps, total_steps, min_lr)
         self.step_num = 0
         self._ckpt = None
@@ -166,8 +187,12 @@ class Trainer:
 
     def evaluate(self, batches: Iterable) -> dict:
         """Exact dataset loss and perplexity over `batches` (one cached eval
-        step; one sync per batch)."""
-        return T.evaluate(self.params, self.cfg, batches, pad_id=self.pad_id)
+        step; one sync per batch). On a mesh every rank evaluates the
+        gathered params."""
+        params = self.params
+        if self.mesh is not None:
+            params = tree_map(lambda t: t.full_tensor(), params)
+        return T.evaluate(params, self.cfg, batches, pad_id=self.pad_id)
 
     # ------------------------------------------------------------ ckpt api
     def _state(self) -> dict:

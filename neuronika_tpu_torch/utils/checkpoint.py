@@ -27,6 +27,14 @@ what it raised. A write goes to a temporary directory that is renamed to
 rename, so a run killed mid-save leaves the previous checkpoint whole (a
 leftover temporary directory is removed by the next `Checkpointer` on the
 same directory).
+
+Sharded states (DTensor leaves, `make_sharded_train_step`'s params and
+moments): every rank calls `save` and `restore` alike. A save gathers
+each DTensor's full value (a collective) and rank 0 writes it; `wait()`
+then holds every rank until the write is done. `restore(like=...)` puts
+each leaf straight into the placement of `like`'s DTensor, each rank
+reading its own shard out of the file (JAX's restore into a stated
+sharding).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import config
 from ..device import resolve
@@ -79,12 +88,35 @@ def _skeleton(spec):
     return None if spec is None else 0
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _host_copy(leaf):
     """A leaf copied to host memory, so later in-place updates of the live
-    tensor do not reach the checkpoint."""
+    tensor do not reach the checkpoint; a DTensor's full value (gathered:
+    every rank takes part)."""
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
+
+
+def _like(t: torch.Tensor, like):
+    """A restored leaf in the device, dtype and (for a DTensor) placement
+    of `like`'s leaf; each rank cuts its shard from its own copy."""
+    if not isinstance(like, torch.Tensor):
+        return t
+    if _is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+
+        mesh = like.device_mesh
+        return distribute_tensor(t.to(mesh.device_type, like.dtype), mesh,
+                                 like.placements, src_data_rank=None)
+    return t.to(like.device, like.dtype)
 
 
 class Checkpointer:
@@ -112,6 +144,7 @@ class Checkpointer:
             if n.isdigit() and os.path.isdir(os.path.join(self._dir, n)))
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sharded = False      # a sharded save awaits wait()'s barrier
 
     def _path(self, step: int) -> str:
         return os.path.join(self._dir, str(step))
@@ -129,10 +162,14 @@ class Checkpointer:
         if step in self._steps:
             raise ValueError(f"a checkpoint of step {step} exists already "
                              f"in {self._dir}")
-        snap = (_structure(state), [_host_copy(l) for l in _jax_order(state)])
+        leaves = _jax_order(state)
+        snap = (_structure(state), [_host_copy(l) for l in leaves])
         steps = self._steps + [step]         # in the order of saving
         drop = [] if self.keep is None else steps[:-self.keep]
         self._steps = steps[len(drop):]
+        self._sharded = any(_is_dtensor(l) for l in leaves)
+        if self._sharded and dist.get_rank() != 0:
+            return True                      # rank 0 writes
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write_bg, args=(step, snap, drop),
@@ -201,8 +238,7 @@ class Checkpointer:
             dev = resolve(config.device)
             flat = [t.to(dev) for t in flat]
         else:
-            flat = [t.to(l.device, l.dtype) if isinstance(l, torch.Tensor)
-                    else t for t, l in zip(flat, _jax_order(like))]
+            flat = [_like(t, l) for t, l in zip(flat, _jax_order(like))]
         return _jax_unflatten(skeleton, flat)
 
     # ----------------------------------------------------------- inventory
@@ -216,10 +252,14 @@ class Checkpointer:
 
     # ----------------------------------------------------------- lifecycle
     def wait(self) -> None:
-        """Block until a pending save is on disk; raise what it raised."""
+        """Block until a pending save is on disk (after a sharded save, on
+        every rank); raise what it raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -60,7 +60,11 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch.examples.serving",
            "neuronika_tpu_torch.examples.speculative_decode",
            "neuronika_tpu_torch.examples.serve_http",
-           "neuronika_tpu_torch.examples.finetune_qlora")
+           "neuronika_tpu_torch.examples.finetune_qlora",
+           "neuronika_tpu_torch.parallel",
+           "neuronika_tpu_torch.parallel.mesh",
+           "neuronika_tpu_torch.parallel.ring",
+           "neuronika_tpu_torch.parallel.collectives")
 
 
 def _cfg(**kw):
@@ -171,28 +175,38 @@ def test_paged_int8_kv_is_refused_like_jax(params):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(seq_parallel=True), 5),
+    (dict(seq_parallel=True, n_experts=2), 5),
     (dict(remat_policy="flash", dtype=torch.float16, flash="on"), 3)],
     ids=["seq_parallel", "remat-flash"])
 def test_unported_model_variants_raise(kw, item):
-    """Sequence parallelism is refused by the config; f16 by the flash
-    gate on the card under flash="on" (a stand-in with a CUDA device: the
-    gate reads only that), with remat_policy "flash", which is ported.
-    (rope, rms, swiglu, an untied head, mixture-of-experts and every remat
-    policy are ported: test_torch_llama.py, test_torch_moe.py and
-    test_torch_remat.py hold them against JAX.)"""
+    """Sequence parallelism is ported (test_torch_parallel.py); what its
+    sharded step still refuses is experts on a mesh, checked before the
+    mesh is touched. f16 is refused by the flash gate on the card under
+    flash="on" (a stand-in with a CUDA device: the gate reads only that),
+    with remat_policy "flash", which is ported. (rope, rms, swiglu, an
+    untied head, mixture-of-experts and every remat policy are ported:
+    test_torch_llama.py, test_torch_moe.py and test_torch_remat.py hold
+    them against JAX.)"""
+    mesh = types.SimpleNamespace(mesh_dim_names=("dp", "tp"))
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue 1 item {item}"):
-        T._use_flash(_cfg(**kw), types.SimpleNamespace(
-            device=torch.device("cuda")))
+        if kw.get("seq_parallel"):
+            T.make_sharded_train_step(mesh, _cfg(**kw))
+        else:
+            T._use_flash(_cfg(**kw), types.SimpleNamespace(
+                device=torch.device("cuda")))
 
 
 @pytest.mark.parametrize("call", [
     lambda: T.make_generate(_cfg(), 4, mesh=object()),
-    lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object()),
-    lambda: Trainer(_cfg(), generator=torch.Generator(), fsdp=True),
+    lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object(),
+                    grad_clip=1.0),
+    lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object(),
+                    fsdp=True, accum_steps=2),
 ], ids=["make_generate-mesh", "Trainer-mesh", "Trainer-fsdp"])
 def test_unported_loop_options_raise_and_name_their_queue_item(call):
+    """Tensor-parallel serving, and clipping or accumulation on a mesh
+    (Trainer(mesh=, fsdp=) itself is ported: test_torch_parallel.py)."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 "
                                                   r"item 5"):
         call()

@@ -137,9 +137,14 @@ def test_resume_is_bit_identical(tmp_path):
                        whole.generator.get_state())
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(fsdp=True)],
+@pytest.mark.parametrize("kw", [dict(mesh=object(), grad_clip=1.0),
+                                dict(mesh=object(), fsdp=True,
+                                     accum_steps=2)],
                          ids=["mesh", "fsdp"])
 def test_sharding_options_raise(kw):
+    """Trainer(mesh=, fsdp=) is ported (test_torch_parallel.py holds it);
+    clipping and accumulation on a mesh are not, and raise before the
+    mesh is touched."""
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ttrain.Trainer(TT.GPTConfig(dtype=torch.float32, **BASE),
                        generator=torch.Generator(), **kw)
