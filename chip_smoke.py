@@ -210,7 +210,31 @@ nvidia-smi. Phases, each printing one line or a few:
      version; K5, K6 and K7 each 10 launches (the live hops), both timed;
      (c) with two or more cards, dp x tp and cp steps on spawned NCCL
      ranks at the headline against (a)'s first loss (with one card it
-     says so and runs nothing).
+     says so and runs nothing);
+ 21. pipeline and expert parallelism: (a) the headline step (phase 6's
+     config) through `make_pipelined_train_step` (GPipe) and
+     `make_pipelined_train_step_1f1b` on a virtual pipeline of 4 stages
+     of 2 layers in this process, 8 microbatches of 2, 2 warm-up and 3
+     timed steps each beside `make_train_step`'s from the same params:
+     the first loss within 2^-8 relative, every loss within phase 19's
+     bf16 route bound, the first step's gradient a leaf in norm within
+     phase 19's bf16 gradient bound and its moves within 2^-3 of the
+     update's norm, 1F1B against GPipe likewise, step time and peak
+     memory of each, K1 8 (GPipe) or 16
+     (1F1B: the stage rerun at backward time) and the fused K2 8 launches
+     a layer and step; in f32 at d256 L4 (hd 128) both schedules' loss and
+     gradient (Adam's first moment) within 1e-5 of make_train_step's; (b)
+     the MoE GPT (phase 17's width, 8 experts, moe_impl "ep", capacity
+     8.0: C = N, no row can drop) on a one-rank NCCL group and a dp1 x
+     ep1 mesh at B16 S2048, and at B2 against make_train_step with the
+     one-hot sparse dispatch ((a)'s bounds), K1 2 L and K2a, K2b L
+     launches a step; its all-to-all
+     dispatch (`ep_dispatch`) over 4 virtual ep ranks on layer 0 (B16
+     S2048) against the dense dispatch of every token, the output, aux
+     loss and gradients in norm within phase 17 (f)'s 2^-6; (c) with two
+     or more cards, the 1F1B headline step on pp n and the MoE GPT on
+     dp (n / 2) x ep2 spawned NCCL ranks, each first loss against (a)'s
+     1F1B or (b)'s ep run.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -278,12 +302,12 @@ TFLOP/s bf16, 67 TFLOP/s f32), H100 SXM; for K3 in f32, the least time of
 f32-accurate products on the card, 3 TF32 products at 495 TFLOP/s (165).
 With --profile, one more step of phases 6 (the headline, the dropout run,
 the defaults and the fused-CE run), 8, 9, 11, 13, 17 (BERT, T5, ViT,
-MoE, LoRA, QLoRA) and 19 (StarCoderBase-1B) runs under torch.profiler:
-each one's device time by kernel kind is printed and its kernel table
-written to TABLE_PATH (the others beside it, "_dropout", "_split",
-"_fused_ce", "_var", "_var2d", "_mistral", "_resnet", "_bert", "_t5",
-"_vit", "_moe", "_lora", "_qlora" and "_starcoder" added to the
-name).
+MoE, LoRA, QLoRA), 19 (StarCoderBase-1B) and 21 (GPipe, 1F1B) runs
+under torch.profiler: each one's device time by kernel kind is printed
+and its kernel table written to TABLE_PATH (the others beside it,
+"_dropout", "_split", "_fused_ce", "_var", "_var2d", "_mistral",
+"_resnet", "_bert", "_t5", "_vit", "_moe", "_lora", "_qlora",
+"_starcoder", "_gpipe" and "_1f1b" added to the name).
 Then a JSON line of per-kernel results and, last, one JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without CUDA it exits 1 and prints no result.
@@ -6050,6 +6074,419 @@ def phase_sharded(T, FA, CE, smi_line):
         "flash_bwd_dkv")}, ring
 
 
+# phase 21: pipeline and expert parallelism over torch.distributed. (a)
+# runs the GPipe and 1F1B steps on a virtual pipeline of 4 stages in this
+# process at the headline; (b) the expert-parallel MoE step on a one-rank
+# NCCL group at the MoE GPT's width, and its all-to-all dispatch over 4
+# virtual ep ranks; (c) real ranks where there are cards for them
+PIPE_STAGES, PIPE_MICRO = 4, 8
+PIPE_WARM, PIPE_TIMED = 2, 3
+# (a) against make_train_step from the same params: the first loss (no
+# update yet; microbatches and stages only reorder the same bf16 sums)
+# within phase 19's 2^-8 relative and every loss within phase 20 (a)'s
+# bound (ROUTE_BF16_REL); the first step's gradient, read as Adam's first
+# moment (0.1 g), each leaf within phase 19's bf16 gradient bound in norm
+# (ROUTE_GRAD_BF16_REL); and the first step's moves: ||p - p_ref|| /
+# ||p_ref - p_0|| over all leaves within PIPE_UPDATE_REL. Adam moves a
+# param by about lr whatever its gradient's size, so where a gradient is
+# rounding noise (the k part of qkv_b's is 0 analytically) the two runs
+# move it apart by up to 2 lr: the params are held against the size of
+# the update, not entry by entry. The measure is 2 sqrt(f), f the share of
+# entries whose sign flips: a wrong gradient reads ~1.4, and the ep step
+# against the one-hot sparse dispatch at B2 (its gradient rounds to bf16
+# at other points) read 0.0735, f 0.14% (NVIDIA H100 80GB HBM3 at 700 W;
+# PERF.md): the bound takes f up to 0.4%
+PIPE_FIRST_REL = REMAT_LOSS_REL
+PIPE_UPDATE_REL = 2 ** -3
+# (a)'s f32 case (4 layers of d256, hd 128, S256 B8 as 4 microbatches of
+# 2): the loss and the gradient (Adam's first moment, 0.1 g) within JAX's
+# pipeline tests' 1e-5 (the gradient relative to the leaf's largest |g|)
+PIPE_F32 = dict(vocab_size=512, n_layer=4, n_head=2, d_model=256, d_ff=512,
+                max_seq=256)
+PIPE_F32_TOL = 1e-5
+# (b): capacity 8.0, JAX's ep test's: each rank's C = N, so no token can
+# drop. At 2.0 the
+# MoE GPT's random init sends up to 48% of a layer's tokens to one expert
+# (its layer 4 at B2 S2048), and drops. The ep step at B16 (the main
+# path), and at B2 against make_train_step with the one-hot sparse
+# dispatch (its (N, E, C) products take O(N^2) memory: 34 GB a tensor at
+# B16 and capacity 8) within (a)'s bounds
+EP_CAPACITY = 8.0
+EP_SPARSE_B = 2
+# the 4 virtual ep ranks' layer against the dense dispatch of every token:
+# phase 17 (f)'s bf16 bound in norm (both sides round to bf16 at the same
+# points, GEMMs of other shapes sum in other orders)
+EP_RANKS = 4
+
+
+def pipe_cfg(T, **kw):
+    return T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **HEADLINE, **kw)
+
+
+def fresh_params(T, cfg, seed=0):
+    return T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                         cfg, "cuda")
+
+
+def train_run(T, cfg, step, params, batch, kernels, warm=PIPE_WARM,
+              timed=PIPE_TIMED, unstage=None, profile=None, label="",
+              snapshot=True):
+    """Warm-up and timed steps of `step(params, opt, tokens, targets, lr)`
+    from `params` (and a profiled one with a `profile` path): (losses,
+    launches of the timed steps, step s, peak GiB, and with `snapshot` the
+    params and Adam's first moment after the first step on the host in
+    f32, their staged blocks back to (L, ...) by `unstage`; kept off the
+    card, so that they do not count in a later run's peak)."""
+    from neuronika_tpu_torch._tree import tree_map
+
+    opt = T.opt_init(params, cfg)
+    first = [] if snapshot else [None, None]
+
+    def host(tree):
+        out = tree_map(lambda t: (t.full_tensor() if hasattr(
+            t, "full_tensor") else t).detach().to("cpu", torch.float32,
+                                                  copy=True), tree)
+        if unstage is not None:
+            out["blocks"] = tree_map(unstage, out["blocks"])
+        return out
+
+    def run():
+        nonlocal params, opt
+        params, opt, loss = step(params, opt, *batch, SHARDED_LR)
+        if not first:
+            first.extend((host(params), host(opt["m"])))
+        return loss
+
+    losses, launches, step_s, peak = model_steps(run, kernels, warm, timed,
+                                                 profile, label)
+    res = (losses, launches, step_s, peak) + tuple(first)
+    del params, opt, run
+    torch.cuda.empty_cache()
+    return res
+
+
+def pipe_steps(T, cfg, make, batch, kernels, **kw):
+    """`train_run` of a pipelined step (`make`: GPipe or 1F1B on
+    PIPE_STAGES virtual stages), or of make_train_step (`make` None), from
+    fresh params (seed 0)."""
+    p = fresh_params(T, cfg)
+    if make is None:
+        step0 = T.make_train_step(cfg)
+        return train_run(T, cfg, lambda *a: step0(*a, None), p, batch,
+                         kernels, **kw)
+    step, reshape = make(None, cfg, PIPE_MICRO, n_stages=PIPE_STAGES)
+    return train_run(T, cfg, step, reshape(p), batch, kernels,
+                     unstage=lambda t: t.reshape((-1,) + tuple(t.shape[2:])),
+                     **kw)
+
+
+def run_gaps(T, cfg, got, ref, what):
+    """Checks `got` (a train_run) against `ref` by (a)'s bounds: every
+    loss, the first apart, the first step's moves and gradient.
+    Returns (first loss gap, largest loss gap, update gap, gradient
+    gap)."""
+    from neuronika_tpu_torch._tree import tree_leaves
+
+    first = abs(got[0][0] - ref[0][0]) / abs(ref[0][0])
+    lgap = max(abs(a - b) / abs(b) for a, b in zip(got[0], ref[0]))
+    p0 = fresh_params(T, cfg)
+    p, pr = tree_leaves(got[4]), tree_leaves(ref[4])
+    num = sum(float((a - b).norm()) ** 2 for a, b in zip(p, pr))
+    den = sum(float((b - c.cpu()).norm()) ** 2
+              for b, c in zip(pr, tree_leaves(p0)))
+    del p0
+    upd = (num / den) ** 0.5
+    ggap = max(float((a - b).norm() / b.norm()) for a, b in zip(
+        tree_leaves(got[5]), tree_leaves(ref[5])))
+    check(first <= PIPE_FIRST_REL, f"{what}: first loss {got[0][0]} vs "
+                                   f"{ref[0][0]}")
+    check(lgap <= ROUTE_BF16_REL, f"{what}: losses {got[0]} vs {ref[0]}")
+    check(upd <= PIPE_UPDATE_REL, f"{what}: ||p - p_ref|| / ||p_ref - p_0|| "
+                                  f"{upd}")
+    check(ggap <= ROUTE_GRAD_BF16_REL, f"{what}: Adam's first moment "
+                                       f"{ggap} of a leaf's norm")
+    return first, lgap, upd, ggap
+
+
+def pipe_headline(T, FA, CE, batch, profile=None):
+    """(a), bf16 at the headline: make_train_step, then GPipe and 1F1B on
+    4 virtual stages of 2 layers, 8 microbatches of 2 (each profiled one
+    step more with a `profile` path). Returns the launches of the two
+    pipelined runs, the printed parts and the runs."""
+    cfg = pipe_cfg(T)
+    kernels = train_kernels(FA, CE)
+    ref = pipe_steps(T, cfg, None, batch, kernels)
+    L, n = cfg.n_layer, PIPE_TIMED
+    runs, total = {}, {}
+    for name, make, k1 in (("GPipe", T.make_pipelined_train_step, 1),
+                           ("1F1B", T.make_pipelined_train_step_1f1b, 2)):
+        got = pipe_steps(T, cfg, make, batch, kernels,
+                         profile=profile_path(profile, name.lower()),
+                         label=f"one {name} step (4 virtual stages)")
+        want = want_launches(kernels,
+                             flash_fwd_qkv=k1 * L * PIPE_MICRO * n,
+                             flash_bwd_fused_qkv=L * PIPE_MICRO * n)
+        check(got[1] == want, f"phase 21 (a) {name}: launches {got[1]}, "
+                              f"want {want}")
+        runs[name] = (got, run_gaps(T, cfg, got, ref,
+                                    f"phase 21 (a) {name}"))
+        for k, v in got[1].items():
+            total[k] = total.get(k, 0) + v
+    between = run_gaps(T, cfg, runs["1F1B"][0], runs["GPipe"][0],
+                       "phase 21 (a) 1F1B against GPipe")
+    B, S = batch[0].shape
+    parts = [f"make_train_step {ref[2] * 1e3:.1f} ms (peak {ref[3]:.2f} "
+             f"GiB)"] + [
+        f"{name} {got[2] * 1e3:.1f} ms ({B * S / got[2]:.0f} tokens/s, "
+        f"peak {got[3]:.2f} GiB), first loss {g[0]:.2e}, losses "
+        f"{g[1]:.2e}, update {g[2]:.2e}, gradient {g[3]:.2e} (relative) "
+        f"from make_train_step's" for name, (got, g) in runs.items()] + [
+        "1F1B from GPipe: first loss {:.2e}, losses {:.2e}, update {:.2e}, "
+        "gradient {:.2e}".format(*between)]
+    return total, parts, runs
+
+
+def pipe_f32(T):
+    """(a), f32 at PIPE_F32: GPipe and 1F1B (one step each) against
+    make_train_step on the whole batch: the loss and Adam's first moment
+    (0.1 x the gradient). Returns the largest errors."""
+    cfg = T.GPTConfig(dtype=torch.float32, remat=False, **PIPE_F32)
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, cfg.vocab_size, size=(8, cfg.max_seq))
+    batch = (torch.from_numpy(toks).cuda(),
+             torch.from_numpy(np.roll(toks, -1, axis=1)).cuda())
+    ref = pipe_steps(T, cfg, None, batch, [], warm=0, timed=1)
+    errs = {}
+    for name, make in (("GPipe", T.make_pipelined_train_step),
+                       ("1F1B", T.make_pipelined_train_step_1f1b)):
+        got = pipe_steps(T, cfg, make, batch, [], warm=0, timed=1)
+        e_loss = abs(got[0][0] - ref[0][0])
+        e_grad = tree_gap(got[5], ref[5])
+        check(e_loss <= PIPE_F32_TOL and e_grad <= PIPE_F32_TOL,
+              f"phase 21 (a) f32 {name}: loss {got[0][0]} vs "
+              f"{ref[0][0]}, gradient {e_grad} of its largest |g|")
+        errs[name] = (e_loss, e_grad)
+    return errs
+
+
+def ep_cfg(T, **kw):
+    return T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **dict(
+        MOE, moe_impl="ep", moe_capacity=EP_CAPACITY), **kw)
+
+
+def ep_batch(B):
+    toks = np.random.default_rng(17).integers(
+        0, TRAIN_CFG["vocab_size"], size=(B, 2048))
+    return torch.from_numpy(toks), torch.from_numpy(np.roll(toks, -1, 1))
+
+
+def ep_step(T, P, FA, CE, B, impl_ref=None):
+    """(b), on a one-rank NCCL group: the MoE GPT (phase 17's width, 8
+    experts, moe_impl "ep", capacity EP_CAPACITY) on a dp1 x ep1 mesh at
+    B S2048, its launches checked; with `impl_ref`
+    against make_train_step with that dispatch at the same batch. Returns
+    (the ep run, its gaps or None, the reference run or None)."""
+    cfg = ep_cfg(T)
+    kernels = train_kernels(FA, CE)
+    batch = tuple(t.cuda() for t in ep_batch(B))
+    ref = None
+    if impl_ref is not None:
+        ref_cfg = dataclasses.replace(cfg, moe_impl=impl_ref)
+        step0 = T.make_train_step(ref_cfg)
+        ref = train_run(T, ref_cfg, lambda *a: step0(*a, None),
+                        fresh_params(T, cfg), batch, kernels)
+    step = T.make_sharded_train_step(P.make_mesh([("dp", 1), ("ep", 1)]),
+                                     cfg)
+    got = train_run(T, cfg, step, fresh_params(T, cfg), batch, kernels,
+                    snapshot=ref is not None)
+    L, n = cfg.n_layer, PIPE_TIMED
+    want = want_launches(kernels, flash_fwd_qkv=2 * L * n,
+                         flash_bwd_dq_qkv=L * n, flash_bwd_dkv_qkv=L * n)
+    check(got[1] == want, f"phase 21 (b) ep B{B}: launches {got[1]}, want "
+                          f"{want}")
+    if ref is None:
+        return got, None, None
+    return got, run_gaps(T, cfg, got, ref, f"phase 21 (b) ep B{B} against "
+                                           f"{impl_ref}"), ref
+
+
+def ep_virtual(T):
+    """(b): layer 0 of the MoE GPT (fresh params, capacity EP_CAPACITY) on
+    x (B16 S2048 D1536, bf16) split over EP_RANKS virtual ep ranks along
+    the sequence, each holding E / EP_RANKS experts (`ep_dispatch` with
+    `virtual_all_to_all`), against `_moe_mlp_dense` on every token: y, the
+    aux loss and the gradients of (y . r) + aux to x and fc_in, in norm.
+    Returns the ratios, the bound and the time of each side's forward and
+    backward."""
+    cfg = ep_cfg(T)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    blk = T._layer(T.init_params(g, cfg, "cuda")["blocks"], 0)
+    blk = {k: blk[k].clone().requires_grad_() for k in T._MOE_LEAVES}
+    x0 = torch.randn((16, 2048, cfg.d_model), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    r = torch.randn(x0.shape, generator=g, device="cuda")
+    E, n = cfg.n_experts, EP_RANKS
+
+    def virtual(x):
+        blks = [{k: (v if k == "gate" else v.chunk(n, 0)[j])
+                 for k, v in blk.items()} for j in range(n)]
+        xs = [t.reshape(-1, cfg.d_model) for t in x.chunk(n, 1)]
+        ys, auxes = T.ep_dispatch(
+            xs, blks, cfg, T.virtual_all_to_all,
+            lambda ts: [sum(ts) / len(ts)] * len(ts))
+        y = torch.cat([t.reshape(16, -1, cfg.d_model) for t in ys], 1)
+        return y, auxes[0]
+
+    def dense(x):
+        return T._moe_mlp_dense(x, blk, cfg)
+
+    def run(fn):
+        x = x0.clone().requires_grad_()
+        y, aux = fn(x)
+        loss = (y.float() * r).mean() + aux
+        gx, gw = torch.autograd.grad(loss, [x, blk["fc_in"]])
+        return [t.detach().float() for t in (y, aux, gx, gw)]
+
+    got, ref = run(virtual), run(dense)
+    ratios = {k: float((a - b).norm() / b.norm()) for k, a, b in zip(
+        ("y", "aux", "dx", "d fc_in"), got, ref)}
+    check(max(ratios.values()) <= MOE_BF16_REL,
+          f"phase 21 (b) virtual ep: ||err||/||ref|| {ratios} > "
+          f"{MOE_BF16_REL}")
+    times = {name: cuda_ms(lambda fn=fn: run(fn), 3)
+             for name, fn in (("ep", virtual), ("dense", dense))}
+    return ratios, times
+
+
+def _parallel_rank(rank, n, batch, moe_batch):
+    """(c), on each spawned rank: one warm-up and 3 timed steps of the
+    1F1B step on a pp n mesh at the headline, then of the MoE GPT's ep
+    step on a dp (n / 2) x ep2 mesh: (first loss, step s, peak GiB) of
+    each."""
+    from neuronika_tpu_torch import _build
+    from neuronika_tpu_torch import parallel as P
+    from neuronika_tpu_torch.models import transformer as T
+
+    _build.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for kind, b in (("pp", batch), ("ep", moe_batch)):
+        toks, tgts = (torch.from_numpy(a).to("cuda") for a in b)
+        if kind == "pp":
+            cfg = pipe_cfg(T)
+            step, reshape = T.make_pipelined_train_step_1f1b(
+                P.make_mesh([("pp", n)]), cfg, PIPE_MICRO)
+            params = reshape(fresh_params(T, cfg))
+        else:
+            cfg = ep_cfg(T)
+            step = T.make_sharded_train_step(
+                P.make_mesh([("dp", n // 2), ("ep", 2)]), cfg)
+            params = fresh_params(T, cfg)
+        opt = T.opt_init(params, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, loss = step(params, opt, toks, tgts, SHARDED_LR)
+        first = float(loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            params, opt, loss = step(params, opt, toks, tgts, SHARDED_LR)
+        float(loss)
+        out.append((first, (time.perf_counter() - t0) / 3,
+                    torch.cuda.max_memory_allocated() / 2 ** 30))
+        del params, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_ranks(P, batch, firsts, smi_line):
+    """(c): the 1F1B headline step on pp n and the MoE GPT on dp (n / 2) x
+    ep2, n = 4 (or 2) spawned NCCL ranks, each first loss against (a)'s
+    1F1B and (b)'s ep first loss."""
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        return ("(c) did not run: one CUDA device is visible, and real "
+                "ranks need one card each")
+    n = 4 if n == 4 else 2
+    with tempfile.TemporaryDirectory() as tmp:
+        res = P.mesh.spawn(
+            _parallel_rank, n, (n, [a.cpu().numpy() for a in batch],
+                                [a.numpy() for a in ep_batch(16)]),
+            init_file=os.path.join(tmp, "store"), backend="nccl",
+            timeout=300.0, limit=600.0)
+    parts = []
+    for j, name in enumerate((f"pp{n} 1F1B", f"dp{n // 2} x ep2 MoE GPT")):
+        first = res[0][j][0]
+        check(all(r[j][0] == first for r in res),
+              f"phase 21 (c) {name}: the ranks' losses differ")
+        gap = abs(first - firsts[j]) / abs(firsts[j])
+        check(gap <= ROUTE_BF16_REL, f"phase 21 (c) {name}: first loss "
+                                     f"{first} vs {firsts[j]}")
+        parts.append(f"{name}: first loss {first:.5f} ({gap:.2e} from the "
+                     f"one-card run's), step {res[0][j][1] * 1e3:.1f} ms, "
+                     f"peak {max(r[j][2] for r in res):.2f} GiB a rank")
+    return f"(c) on {n} NCCL ranks ({smi_line}), " + "; ".join(parts)
+
+
+def phase_parallel(T, FA, CE, smi_line, profile=None):
+    """Phase 21 (see the module docstring; `profile`: a table path, as
+    --profile's, for one more GPipe and 1F1B step). Returns the launches
+    of the phase's path by kernel name: (a)'s GPipe and 1F1B runs, (b)'s
+    ep run at B16."""
+    import torch.distributed as dist
+
+    from neuronika_tpu_torch import parallel as P
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    B, S = 16, 2048
+    toks = rng.integers(0, TRAIN_CFG["vocab_size"], size=(B, S))
+    batch = (torch.from_numpy(toks).to("cuda"),
+             torch.from_numpy(np.roll(toks, -1, axis=1)).to("cuda"))
+    launches, parts, runs = pipe_headline(T, FA, CE, batch, profile)
+    f32 = pipe_f32(T)
+    t_a = time.perf_counter() - t0
+    print(f"phase 21 (a) ({t_a:.1f} s) pipelined steps, {PIPE_STAGES} "
+          f"virtual stages of 2 layers, {PIPE_MICRO} microbatches of 2, "
+          f"the headline (d1536 "
+          f"L8 H12 V16384 S2048 B16 bf16; {smi_line}): " + "; ".join(parts)
+          + f"; f32 (d256 L4 hd128 S256 B8) against make_train_step, "
+          f"|loss err| and gradient err / largest |g|: {f32}; launches "
+          f"{launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1)
+        try:
+            sparse = ep_step(T, P, FA, CE, EP_SPARSE_B, "sparse")
+            ep = ep_step(T, P, FA, CE, B)[0]
+        finally:
+            dist.destroy_process_group()
+    ratios, times = ep_virtual(T)
+    t_b = time.perf_counter() - t0 - t_a
+    print(f"phase 21 (b) ({t_b:.1f} s) expert parallelism, the MoE GPT's "
+          f"width (8 experts, moe_impl ep, capacity {EP_CAPACITY}: C = N, "
+          f"no row dropped; {smi_line}): one NCCL rank, dp1 x ep1, B16 "
+          f"S2048: step "
+          f"{ep[2] * 1e3:.1f} ms ({B * S / ep[2]:.0f} tokens/s, peak "
+          f"{ep[3]:.2f} GiB), losses {[round(v, 5) for v in ep[0]]}; at "
+          f"B{EP_SPARSE_B} against make_train_step with the sparse "
+          f"dispatch, first loss, losses, update, gradient (relative) "
+          f"{sparse[1]}, steps {sparse[0][2] * 1e3:.1f} / "
+          f"{sparse[2][2] * 1e3:.1f} ms; {EP_RANKS} virtual ep ranks "
+          f"(layer 0, B16 S2048) against the dense dispatch of every token, "
+          f"||err||/||ref|| {ratios} (bound {MOE_BF16_REL}), fwd+bwd ep "
+          f"{times['ep']:.3f} ms, dense {times['dense']:.3f} ms; launches "
+          f"{ep[1]}")
+    for k, v in ep[1].items():
+        launches[k] = launches.get(k, 0) + v
+    firsts = (runs["1F1B"][0][0][0], ep[0][0])
+    print(f"phase 21 {parallel_ranks(P, batch, firsts, smi_line)}")
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+    return {name: launches.get(name, 0) for name in (
+        "flash_fwd_qkv", "flash_bwd_dq_qkv", "flash_bwd_dkv_qkv",
+        "flash_bwd_fused_qkv")}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
@@ -6059,11 +6496,13 @@ def main() -> int:
                              "flagship step, Var 2-d step, Mistral 7B step, "
                              "ResNet-18 step, phase 17's BERT, T5, ViT, "
                              "MoE, LoRA and QLoRA steps and phase 19's "
-                             "StarCoderBase-1B step and write their "
+                             "StarCoderBase-1B step and phase 21's GPipe "
+                             "and 1F1B steps and write their "
                              "kernel tables here (and *_dropout, *_split, "
                              "*_fused_ce, *_var, *_var2d, *_mistral, "
                              "*_resnet, *_bert, *_t5, *_vit, *_moe, "
-                             "*_lora, *_qlora, *_starcoder)")
+                             "*_lora, *_qlora, *_starcoder, *_gpipe, "
+                             "*_1f1b)")
     profile = parser.parse_args().profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -6231,6 +6670,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded, ring20 = phase_sharded(T, FA, CE, smi[0])
 
+    # 21. pipeline and expert parallelism: GPipe and 1F1B on a virtual
+    # pipeline, the ep step on one rank and its dispatch on virtual ep
+    # ranks, real ranks where there are cards for them
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel21 = phase_parallel(T, FA, CE, smi[0], profile)
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -6264,8 +6710,11 @@ def main() -> int:
     # phase 16's (the Trainer: K1, K2c; gpt_train's twin: K1, K2a, K2b) and
     # phase 17's (BERT, the T5 encoder, the MoE GPT: K1, K2a, K2b; LoRA and
     # QLoRA: K1, K2c) and phase 19's (StarCoderBase-1B: K1, K2a, K2b and,
-    # with flash_bwd "fused", K2c at G 16); "phase19" holds the widened shapes' worst error, and the error
-    # against the plain versions and the times at StarCoderBase-1B's shape
+    # with flash_bwd "fused", K2c at G 16), phase 20's (the sharded
+    # headline: K1, K2c) and phase 21's (the pipelined headline: K1, K2c;
+    # the ep MoE GPT: K1, K2a, K2b); "phase19" holds the widened shapes'
+    # worst error, and the error against the plain versions and the times
+    # at StarCoderBase-1B's shape
     for name, line, counts in (("flash_fwd_qkv", 639, head),
                                ("flash_bwd_dq_qkv", 708, split),
                                ("flash_bwd_dkv_qkv", 755, split),
@@ -6274,12 +6723,14 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{at}{line}",
                         "launches": (counts[name] + loop[name] + models[name]
-                                     + star[name] + sharded[name]),
+                                     + star[name] + sharded[name]
+                                     + parallel21[name]),
                         "launches_by_phase": {"6": counts[name],
                                               "16": loop[name],
                                               "17": models[name],
                                               "19": star[name],
-                                              "20": sharded[name]},
+                                              "20": sharded[name],
+                                              "21": parallel21[name]},
                         "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,

@@ -25,13 +25,18 @@ every decode step) and per-row sampling and LoRA adapters; for training
 `make_train_step` (Adam, clipping, accumulation) and `flops_per_token`;
 and `make_eval_step`/`evaluate`. The sharded train step
 (`make_sharded_train_step`, `param_shardings`, `fsdp_param_shardings`)
-runs one process a rank over a mesh with dp, tp and cp axes: the batch
-over dp, Megatron column and row splits over tp (with `seq_parallel` the
-residual stream sequence-sharded over tp), ZeRO-3 with fsdp, and the
-sequence over cp with attention on the ring (`_Shards` holds a rank's
-view and its collectives). Serving meshes, pipeline and expert axes
-raise `NotImplementedError` naming their ROADMAP.md item, as does the
-int8 KV cache on the paged programs (JAX's refusal). Training attention
+runs one process a rank over a mesh with dp, tp, cp and ep axes: the
+batch over dp, Megatron column and row splits over tp (with
+`seq_parallel` the residual stream sequence-sharded over tp), ZeRO-3 with
+fsdp, the sequence over cp with attention on the ring, and experts over
+ep with the all-to-all dispatch (`_moe_mlp_ep`; `_Shards` holds a rank's
+view and its collectives). The pipelined steps
+(`make_pipelined_train_step`: GPipe; `make_pipelined_train_step_1f1b`)
+split the blocks into stages over a pp axis, one process a stage, or run
+every stage of a virtual pipeline in one process. Serving meshes and a pp
+axis in the sharded step raise `NotImplementedError` naming their
+ROADMAP.md item, as does the int8 KV cache on the paged programs (JAX's
+refusal). Training attention
 runs the packed flash op (K1/K2) for learned positions without a window,
 and the split flash op (K5-K7, `ops/flash_attention.py`) on q/k/v split
 out of the packed projection, rotated under rope, with or without a
@@ -45,8 +50,9 @@ Mixture-of-experts (`n_experts`; top-1 gated, Switch-style) routes by
 `moe_impl`: "dense" (every expert on every token, gated), "sparse" (per-
 expert capacity, one-hot dispatch) and "sort" (the same routing by a
 stable argsort and row scatter/gather); "ep" takes the sparse path, as
-JAX's does without a mesh, and a decode step (S == 1) always takes the
-dense, no-drop routing. The expert GEMMs run on cuBLAS, as JAX's on XLA.
+JAX's does without a mesh, and on a mesh with an ep axis the all-to-all
+dispatch; a decode step (S == 1) always takes the dense, no-drop
+routing. The expert GEMMs run on cuBLAS, as JAX's on XLA.
 With `remat`, each block is checkpointed under JAX's five remat policies
 (`_remat_context`): "full" keeps only the block's input; "flash" also the
 flash forwards' (out, lse), so the backward does not rerun K1 or K5;
@@ -121,7 +127,8 @@ class GPTConfig:
     window: int = 0
     # mixture-of-experts FFN: 0 = dense MLP; > 0 = top-1 gated experts
     # (gelu only), dispatched by moe_impl ("dense", "sparse", "sort"; "ep"
-    # runs "sparse" on one device) with per-expert capacity
+    # runs "sparse" on one device and the all-to-all on a mesh with an ep
+    # axis) with per-expert capacity
     # ceil(moe_capacity * tokens / n_experts) and the Switch load-balancing
     # loss E * sum_e f_e P_e added to the training loss at moe_aux_weight
     n_experts: int = 0
@@ -305,28 +312,22 @@ def param_shapes(cfg: GPTConfig) -> Dict:
     return _param_tree(cfg, meta, meta)
 
 
-def _refuse_experts(cfg: GPTConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "n_experts on a mesh (JAX's _moe_mlp_ep and its layouts) is not "
-            "ported yet (ROADMAP.md queue 1 item 5)")
-
-
 def param_shardings(mesh, cfg: GPTConfig) -> Dict:
     """Megatron-style tp layout, replicated small params: a tree of
     `parallel.NamedSharding` over `mesh` (JAX's `param_shardings`). The
     stacked block leaves keep their leading layer axis unsplit: qkv,
     fc_in (fc_gate) and their biases split their output columns over tp,
     proj and fc_out their input rows; wte and lm_head split d_model.
-    Experts have no layout yet (JAX's `ep` layouts come with
-    `_moe_mlp_ep`)."""
+    With experts (JAX's ep layouts): the gate replicated, the experts
+    split over ep on their expert axis (where the mesh has one) and
+    Megatron-split over tp inside each expert."""
     from ..parallel.mesh import NamedSharding
 
-    _refuse_experts(cfg)
-    tp = "tp" if "tp" in mesh.mesh_dim_names else None
+    names = mesh.mesh_dim_names
+    axes = {a: (a if a in names else None) for a in ("tp", "ep")}
 
     def ns(*spec):
-        return NamedSharding(mesh, [tp if a == "tp" else a for a in spec])
+        return NamedSharding(mesh, [axes.get(a, a) for a in spec])
 
     rep = ns()
     ln = ({"scale": rep, "bias": rep} if cfg.norm == "layer"
@@ -341,12 +342,23 @@ def param_shardings(mesh, cfg: GPTConfig) -> Dict:
             "qkv_b": ns(None, "tp"),
             "proj": ns(None, "tp", None),
             "proj_b": rep,
+        },
+    }
+    if cfg.n_experts:
+        shard["blocks"].update({
+            "gate": rep,
+            "fc_in": ns(None, "ep", None, "tp"),
+            "fc_in_b": ns(None, "ep", "tp"),
+            "fc_out": ns(None, "ep", "tp", None),
+            "fc_out_b": ns(None, "ep", None),
+        })
+    else:
+        shard["blocks"].update({
             "fc_in": ns(None, None, "tp"),
             "fc_in_b": ns(None, "tp"),
             "fc_out": ns(None, "tp", None),
             "fc_out_b": rep,
-        },
-    }
+        })
     if cfg.mlp == "swiglu":
         shard["blocks"]["fc_gate"] = ns(None, None, "tp")
         shard["blocks"]["fc_gate_b"] = ns(None, "tp")
@@ -550,18 +562,25 @@ def _mlp(x, blk, cfg: GPTConfig, dot=None, tag=False, mesh=None):
 # mixture-of-experts FFN (top-1 gate; JAX's `_moe_*`)
 
 
-def _moe_mlp(x, blk, cfg: GPTConfig):
+def _moe_mlp(x, blk, cfg: GPTConfig, mesh=None):
     """(out, aux) of the expert FFN on x (B, S, D). A single-token step (S
     == 1) always takes the dense, no-drop routing: capacity would count
     over the batch there and drop tokens mid-generation. Otherwise
-    `moe_impl` picks; "ep" has no mesh here, so it is "sparse"."""
+    `moe_impl` picks (`_MOE_DISPATCH`; "ep" without an ep axis is
+    "sparse"). Under a `mesh` (`_Shards`) "ep" on a mesh with an ep axis
+    is the all-to-all dispatch (`_moe_mlp_ep`); the others run on the
+    rank's routing tokens (`_Shards.moe_rows`) with every expert (an ep
+    split gathered first, as GSPMD moves the weights to the tokens), the
+    capacity counted over those tokens."""
     if x.shape[1] == 1:
         return _moe_mlp_dense(x, blk, cfg)
-    if cfg.moe_impl in ("sparse", "ep"):
-        return _moe_mlp_sparse(x, blk, cfg)
-    if cfg.moe_impl == "sort":
-        return _moe_mlp_sort(x, blk, cfg)
-    return _moe_mlp_dense(x, blk, cfg)
+    if mesh is None:
+        return _MOE_DISPATCH[cfg.moe_impl](x, blk, cfg)
+    if cfg.moe_impl == "ep" and mesh.has_ep:
+        return _moe_mlp_ep(x, blk, cfg, mesh)
+    y, aux = _MOE_DISPATCH[cfg.moe_impl](
+        mesh.moe_rows(x), mesh.all_experts(blk), cfg, mesh)
+    return mesh.moe_back(y), aux
 
 
 def _moe_gate(x, blk, cfg: GPTConfig):
@@ -571,10 +590,21 @@ def _moe_gate(x, blk, cfg: GPTConfig):
     return probs.amax(-1), probs.argmax(-1), probs
 
 
-def _moe_aux_loss(sel, probs, n_experts: int):
-    """Switch load-balancing loss: E * sum_e f_e P_e (uniform routing: 1)."""
+def _moe_stats(sel, probs, n_experts: int):
+    """The routing statistics of the load-balancing loss: the share of
+    tokens each expert takes (no gradient) and the mean probability."""
     f = F.one_hot(sel.reshape(-1), n_experts).float().mean(0)
-    p = probs.reshape(-1, n_experts).mean(0)
+    return f, probs.reshape(-1, n_experts).mean(0)
+
+
+def _moe_aux_loss(sel, probs, n_experts: int, mesh=None):
+    """Switch load-balancing loss: E * sum_e f_e P_e (uniform routing: 1).
+    Under a mesh the statistics are averaged over the ranks' tokens
+    first (`_Shards.moe_mean`), never the per-rank losses: the loss is
+    not linear in them."""
+    f, p = _moe_stats(sel, probs, n_experts)
+    if mesh is not None:
+        f, p = mesh.moe_mean(f), mesh.moe_mean(p)
     return n_experts * (f * p).sum()
 
 
@@ -618,29 +648,36 @@ def _expert_dot(x, w):
     return torch.matmul(x.float(), w.float())
 
 
-def _experts(xe, blk, cfg: GPTConfig):
+def _experts(xe, blk, cfg: GPTConfig, mesh=None):
     """The expert FFNs on their rows xe (E or 1, N, D) in the compute
     dtype -> (E, N, D) in the compute dtype: fc_in (f32 result, bias in
-    f32), GELU in the compute dtype, fc_out (f32 result, bias in f32)."""
+    f32), GELU in the compute dtype, fc_out (f32 result, bias in f32).
+    Under a mesh the experts are this rank's tp columns (fc_in) and rows
+    (fc_out): the rows enter the tp region and the product leaves it
+    before fc_out's bias (JAX's psum over tp)."""
+    if mesh is not None:
+        xe = mesh.tp_enter(xe)
     h = _expert_dot(xe, blk["fc_in"].to(cfg.dtype))
     if "fc_in_b" in blk:
         h = h + blk["fc_in_b"][:, None, :]
     h = F.gelu(h.to(cfg.dtype), approximate="tanh")
     o = _expert_dot(h, blk["fc_out"].to(cfg.dtype))
+    if mesh is not None:
+        o = mesh.tp_leave(o)
     if "fc_out_b" in blk:
         o = o + blk["fc_out_b"][:, None, :]
     return o.to(cfg.dtype)
 
 
-def _moe_mlp_dense(x, blk, cfg: GPTConfig):
+def _moe_mlp_dense(x, blk, cfg: GPTConfig, mesh=None):
     """Dense dispatch: every expert runs every token and the top-1 gate
     weights the combine (E x the FFN FLOPs, no token dropped)."""
     B, S, D = x.shape
     E = cfg.n_experts
     top, sel, probs = _moe_gate(x, blk, cfg)
-    aux = _moe_aux_loss(sel, probs, E)
+    aux = _moe_aux_loss(sel, probs, E, mesh)
     combine = (F.one_hot(sel, E).float() * top[..., None]).to(cfg.dtype)
-    o = _experts(x.reshape(1, B * S, D), blk, cfg)            # (E, N, D)
+    o = _experts(x.reshape(1, B * S, D), blk, cfg, mesh)      # (E, N, D)
     y = torch.einsum("end,ne->nd", o.float(),
                      combine.reshape(B * S, E).float())
     return y.to(cfg.dtype).reshape(B, S, D), aux
@@ -650,7 +687,7 @@ def _capacity(cfg: GPTConfig, N: int) -> int:
     return max(int(math.ceil(cfg.moe_capacity * N / cfg.n_experts)), 1)
 
 
-def _moe_mlp_sparse(x, blk, cfg: GPTConfig):
+def _moe_mlp_sparse(x, blk, cfg: GPTConfig, mesh=None):
     """Switch-style capacity dispatch by one-hot products: token n goes to
     slot (e, c) of its top expert e, c its rank among e's tokens in
     position order; tokens past the capacity C are dropped (their output
@@ -660,7 +697,7 @@ def _moe_mlp_sparse(x, blk, cfg: GPTConfig):
     C = _capacity(cfg, N)
     xf = x.reshape(N, D)
     top, sel, probs = _moe_gate(xf, blk, cfg)
-    aux = _moe_aux_loss(sel, probs, E)
+    aux = _moe_aux_loss(sel, probs, E, mesh)
     onehot = F.one_hot(sel, E).float()                        # (N, E)
     pos = torch.cumsum(onehot, 0) * onehot - 1.0
     keep = (pos < C) & (onehot > 0)
@@ -669,41 +706,127 @@ def _moe_mlp_sparse(x, blk, cfg: GPTConfig):
     dt = cfg.dtype
     expert_in = torch.einsum("nec,nd->ecd", slot.to(dt).float(),
                              xf.to(dt).float()).to(dt)        # (E, C, D)
-    o = _experts(expert_in, blk, cfg)
+    o = _experts(expert_in, blk, cfg, mesh)
     combine = slot * top[:, None, None]
     y = torch.einsum("nec,ecd->nd", combine.to(dt).float(), o.float())
     return y.to(dt).reshape(B, S, D), aux
 
 
-def _moe_mlp_sort(x, blk, cfg: GPTConfig):
-    """The sparse routing by a stable argsort on the expert id and row
-    scatter/gather: the same kept tokens (a stable sort keeps position
-    order within an expert) without the (N, E, C) one-hot products."""
-    B, S, D = x.shape
-    E, N = cfg.n_experts, B * S
-    C = _capacity(cfg, N)
-    dt = cfg.dtype
-    xf = x.reshape(N, D)
-    top, sel, probs = _moe_gate(xf, blk, cfg)
-    aux = _moe_aux_loss(sel, probs, E)
+def _sort_dispatch(xf, sel, E: int, C: int, dt):
+    """The capacity buffer (E, C, D) of the sparse routing, made by a
+    stable argsort on the expert id and a row scatter, and how to take
+    its rows back: (buffer, (order, dst, keep)). Row gathers go through
+    index_select, whose backward is an index_add (advanced indexing's
+    sorts the indices first)."""
+    N, D = xf.shape
     order = torch.argsort(sel, stable=True)
     sel_sorted = sel[order]
     counts = torch.bincount(sel, minlength=E)
     starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(N, device=x.device) - starts[sel_sorted]
+    rank = torch.arange(N, device=xf.device) - starts[sel_sorted]
     keep = rank < C
     dst = torch.where(keep, sel_sorted * C + rank, E * C)    # E*C: trash
-    # row gathers by index_select: its backward is an index_add, where
-    # advanced indexing's sorts the indices first
-    buf = torch.zeros((E * C + 1, D), dtype=dt, device=x.device)
+    buf = torch.zeros((E * C + 1, D), dtype=dt, device=xf.device)
     expert_in = buf.index_copy(0, dst, xf.index_select(0, order).to(dt))
-    o = _experts(expert_in[:-1].reshape(E, C, D), blk, cfg).reshape(E * C, D)
+    return expert_in[:-1].reshape(E, C, D), (order, dst, keep)
+
+
+def _sort_combine(o, route, top, dt):
+    """The expert outputs o (E, C, D) back in token order, scaled by the
+    top gate probability; a dropped token's row is 0."""
+    order, dst, keep = route
+    E, C, D = o.shape
+    o = o.reshape(E * C, D)
     gathered = torch.where(keep[:, None],
                            o.index_select(0, dst.clamp(max=E * C - 1)),
-                           torch.zeros((), dtype=dt, device=x.device))
-    y = torch.zeros((N, D), dtype=dt, device=x.device).index_copy(
-        0, order, gathered)
-    return (y * top[:, None].to(dt)).reshape(B, S, D), aux
+                           torch.zeros((), dtype=dt, device=o.device))
+    y = torch.zeros((order.shape[0], D), dtype=dt,
+                    device=o.device).index_copy(0, order, gathered)
+    return y * top[:, None].to(dt)
+
+
+def _moe_mlp_sort(x, blk, cfg: GPTConfig, mesh=None):
+    """The sparse routing by a stable argsort and row scatter/gather: the
+    same kept tokens (a stable sort keeps position order within an
+    expert) without the (N, E, C) one-hot products."""
+    B, S, D = x.shape
+    E, N = cfg.n_experts, B * S
+    dt = cfg.dtype
+    xf = x.reshape(N, D)
+    top, sel, probs = _moe_gate(xf, blk, cfg)
+    aux = _moe_aux_loss(sel, probs, E, mesh)
+    expert_in, route = _sort_dispatch(xf, sel, E, _capacity(cfg, N), dt)
+    o = _experts(expert_in, blk, cfg, mesh)
+    return _sort_combine(o, route, top, dt).reshape(B, S, D), aux
+
+
+_MOE_DISPATCH = {"dense": _moe_mlp_dense, "sparse": _moe_mlp_sparse,
+                 "sort": _moe_mlp_sort, "ep": _moe_mlp_sparse}
+
+
+def ep_dispatch(xfs, blks, cfg: GPTConfig, a2a, mean, mesh=None):
+    """The GShard/Switch expert-parallel MoE (JAX's `_moe_mlp_ep`'s
+    `local_fn`) for the ep ranks in a list: rank j's tokens xfs[j] (N_j,
+    D), its params blks[j] (the gate, and its E/ep experts in fc_in,
+    fc_out and their biases). Each rank routes its tokens into an (E, C,
+    D) buffer, C = ceil(moe_capacity N_j / E), by `_sort_dispatch` (the
+    sparse routing's kept tokens); `a2a(list, split_dim, concat_dim)`
+    regroups the ranks' buffers to (E/ep, ep C, D), each rank's own
+    experts' tokens; the experts run (`_experts`, tp-split under `mesh`);
+    a second all-to-all brings the rows home for the combine. `mean`
+    averages a list of the ranks' routing statistics over every ep rank
+    (and, on a mesh, every routing shard): the aux loss comes from those
+    means. Returns ([y_j (N_j, D)], [aux_j])."""
+    E, dt = cfg.n_experts, cfg.dtype
+    routes, bufs, fs, ps = [], [], [], []
+    for xf, blk in zip(xfs, blks):
+        top, sel, probs = _moe_gate(xf, blk, cfg)
+        f, p = _moe_stats(sel, probs, E)
+        fs.append(f)
+        ps.append(p)
+        buf, route = _sort_dispatch(xf, sel, E, _capacity(cfg, xf.shape[0]),
+                                    dt)
+        bufs.append(buf)
+        routes.append((route, top))
+    auxes = [E * (f * p).sum() for f, p in zip(mean(fs), mean(ps))]
+    outs = [_experts(b, blk, cfg, mesh)
+            for b, blk in zip(a2a(bufs, 0, 1), blks)]
+    ys = [_sort_combine(o, route, top, dt)
+          for o, (route, top) in zip(a2a(outs, 1, 0), routes)]
+    return ys, auxes
+
+
+def virtual_all_to_all(items, split_dim: int, concat_dim: int) -> list:
+    """`collectives.all_to_all` over the ranks of a list held in one
+    process: rank j gets block j of every rank's `split_dim`, in rank
+    order along `concat_dim`."""
+    n = len(items)
+    blocks = [t.chunk(n, split_dim) for t in items]
+    return [torch.cat([blocks[i][j] for i in range(n)], concat_dim)
+            for j in range(n)]
+
+
+def _moe_mlp_ep(x, blk, cfg: GPTConfig, mesh):
+    """Expert-parallel Switch MoE on a mesh with an ep axis (JAX's
+    `_moe_mlp_ep`): the rank's routing tokens (`_Shards.moe_rows`: its dp
+    and cp rows, its ep slice of the sequence) through `ep_dispatch` with
+    the ep group's all-to-all (`collectives.all_to_all`); the experts'
+    weights never move. Capacity is counted over the rank's tokens, so
+    with overflow the dispatch may drop tokens the one-device dispatches
+    keep; with none it gives their outputs."""
+    from ..parallel.collectives import all_to_all
+
+    E = cfg.n_experts
+    if E % mesh.ep:
+        raise ValueError(f"moe_impl='ep' needs n_experts ({E}) % ep "
+                         f"({mesh.ep}) == 0")
+    xs = mesh.moe_rows(x)
+    B, S, D = xs.shape
+    (y,), (aux,) = ep_dispatch(
+        [xs.reshape(B * S, D)], [blk], cfg,
+        lambda ts, s, c: [all_to_all(ts[0], s, c, mesh.ep_group)],
+        lambda ts: [mesh.moe_mean(ts[0])], mesh)
+    return mesh.moe_back(y.reshape(B, S, D)), aux
 
 
 def _cast_decode_params(params, cfg: GPTConfig):
@@ -2340,7 +2463,7 @@ def _block(x, blk, cfg: GPTConfig, train: bool, seed, mesh=None):
     x = x + _attention(h1, blk, cfg, train, seed, mesh)
     h2 = _tagged(_layer_norm(x, blk["ln2"], cfg.norm_eps), "ln2_out", tag)
     if cfg.n_experts:
-        m, aux = _moe_mlp(h2, blk, cfg)
+        m, aux = _moe_mlp(h2, blk, cfg, mesh)
         return x + m, aux
     return x + _mlp(h2, blk, cfg, _body_dot, tag, mesh), None
 
@@ -2359,18 +2482,23 @@ def hidden_states(params, tokens, cfg: GPTConfig, *, train: bool = False,
     return _hidden_aux(params, tokens, cfg, train, generator, mesh)[0]
 
 
+def _embed(params, tokens, cfg: GPTConfig, off: int = 0):
+    """Token and (learned) position embeddings of tokens (B, S) at
+    positions off.., summed in f32, then cast (as JAX)."""
+    x = params["wte"][tokens.long()]
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"][off:off + tokens.shape[1]]
+    return x.to(cfg.dtype)
+
+
 def _hidden_aux(params, tokens, cfg: GPTConfig, train: bool = False,
                 generator: torch.Generator | None = None, mesh=None):
     """`hidden_states` and the MoE aux losses summed over layers (JAX's
     `hidden_states` pair); the sum is None without experts."""
     if mesh is not None:
         tokens = mesh.rows(tokens)
-    B, S = tokens.shape
-    x = params["wte"][tokens.long()]
-    if cfg.pos_emb == "learned":
-        off = 0 if mesh is None else mesh.seq_offset(S)
-        x = x + params["wpe"][off:off + S]
-    x = x.to(cfg.dtype)
+    x = _embed(params, tokens, cfg,
+               0 if mesh is None else mesh.seq_offset(tokens.shape[1]))
     seeds = [None] * cfg.n_layer
     if train and cfg.dropout > 0.0 and generator is not None:
         seeds = torch.randint(0, 2 ** 62, (cfg.n_layer,), generator=generator,
@@ -2417,7 +2545,8 @@ def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
     Under a `mesh` (the sharded step's per-rank view, `_Shards`) the
     params are this rank's working shards and tokens its rows; the result
     is this rank's share of the global mean, the sum of its positions'
-    losses over the global token count (the step sums the shares)."""
+    losses over the global token count (the step sums the shares), and
+    with experts its share of the aux term."""
     B, S = tokens.shape
     x, aux = _hidden_aux(params, tokens, cfg, train, generator, mesh)
     if mesh is None and _use_fused_ce(cfg, B * S):
@@ -2436,7 +2565,15 @@ def loss_fn(params, tokens, targets, cfg: GPTConfig, *, train: bool = False,
         tgt = logits32.gather(-1, targets.long()[..., None])[..., 0]
         ce = ((lse - tgt).mean() if mesh is None
               else (lse - tgt).sum() / mesh.global_rows(lse.numel()))
-    return ce if aux is None else ce + cfg.moe_aux_weight * aux
+    if aux is None:
+        return ce
+    aux = cfg.moe_aux_weight * aux
+    if mesh is None:
+        return ce + aux
+    # the aux is whole on every rank: its value joins the summed loss once
+    # (a share a rank), its gradient on each rank is its own tokens' part
+    # (`_Shards.moe_mean`)
+    return ce + aux + aux.detach() * (1.0 / mesh.global_rows(1) - 1.0)
 
 
 @functools.lru_cache(maxsize=32)
@@ -2551,7 +2688,9 @@ def make_train_step(cfg: GPTConfig, grad_clip: float = 0.0,
 # rank, each running the step on its shards with explicit collectives
 
 
-SHARDED_AXES = ("dp", "tp", "cp")
+SHARDED_AXES = ("dp", "tp", "cp", "ep")
+# the MoE's leaves: used on the MoE's routing tokens (`_Shards.moe_rows`)
+_MOE_LEAVES = ("gate", "fc_in", "fc_in_b", "fc_out", "fc_out_b")
 
 
 class _Shards:
@@ -2561,15 +2700,20 @@ class _Shards:
     the rank's shards.
 
     Tokens are split over dp and cp everywhere, and also over tp in the
-    norms, residuals and head under seq_parallel (`token_groups`). Every
-    leaf enters through `copy_to` over the token axes it is not split
-    over, so its gradient is the sum of the ranks' contributions; a dp
-    (FSDP) split is gathered where the weight is used (per layer inside
-    the checkpointed block), its gradient reduce-scattered; wte and
-    lm_head are gathered over tp for the embedding and the head. The tp
-    region of each attention and MLP is entered and left by Megatron's
-    conjugate ops, or by an all-gather and a reduce-scatter of the
-    sequence under seq_parallel (`tp_in`, `tp_out`)."""
+    norms, residuals and head under seq_parallel (`token_groups`); ep ranks
+    hold the same tokens (JAX splits the batch over dp and cp only) except
+    inside the MoE, whose routing tokens are split over dp, cp and ep and
+    held alike by the tp ranks (`moe_groups`, `moe_rows`). Every leaf
+    enters through `copy_to` over the axes whose ranks hold other tokens
+    where it is used and that it is not split over, so its gradient is the
+    sum of the ranks' contributions; a dp (FSDP) split is gathered where
+    the weight is used (per layer inside the checkpointed block), its
+    gradient reduce-scattered; wte and lm_head are gathered over tp for
+    the embedding and the head. The tp region of each attention and MLP is
+    entered and left by Megatron's conjugate ops, or by an all-gather and
+    a reduce-scatter of the sequence under seq_parallel (`tp_in`,
+    `tp_out`); an expert FFN's by the conjugate ops alone (`tp_enter`,
+    `tp_leave`)."""
 
     def __init__(self, mesh, cfg: GPTConfig, shardings):
         names = mesh.mesh_dim_names
@@ -2583,20 +2727,28 @@ class _Shards:
         self.dp_group, self.dp, self.dp_rank = axis("dp")
         self.tp_group, self.tp, self.tp_rank = axis("tp")
         self.cp_group, self.cp, self.cp_rank = axis("cp")
+        self.ep_group, self.ep, self.ep_rank = axis("ep")
+        self.has_ep = "ep" in names
         self.seq_tp = cfg.seq_parallel and self.tp > 1 and self.cp == 1
         self.token_groups = {"dp": self.dp_group, "cp": self.cp_group}
         if self.seq_tp:
             self.token_groups["tp"] = self.tp_group
+        self.moe_groups = {"dp": self.dp_group, "cp": self.cp_group,
+                           "ep": self.ep_group}
+        self.moe_leaves = _MOE_LEAVES if cfg.n_experts else ()
+        self.shardings = shardings
         self.blocks = shardings["blocks"]
 
-    def enter(self, name: str, t, sh):
+    def enter(self, name: str, t, sh, key: str = ""):
         """The working form of a leaf from this rank's shard `t` (laid out
-        by `sh`); its gradient reaches `t` summed as the layout needs."""
+        by `sh`; `key` its name under "blocks"); its gradient reaches `t`
+        summed as the layout needs."""
         from ..parallel.collectives import copy_to, gather
 
         split = {a for a in sh.spec if a is not None}
-        t = copy_to(t, [g for a, g in self.token_groups.items()
-                        if a not in split])
+        groups = (self.moe_groups if key in self.moe_leaves
+                  else self.token_groups)
+        t = copy_to(t, [g for a, g in groups.items() if a not in split])
         d = sh.dim_of("dp")
         if d is not None and (name != "blocks" or d == 0):
             t = gather(t, d, self.dp_group)
@@ -2605,6 +2757,17 @@ class _Shards:
             t = gather(t, d, self.tp_group,
                        "sum" if self.seq_tp else "slice")
         return t
+
+    def working(self, params):
+        """The working tree (`enter` on every leaf) of this rank's
+        shards."""
+        return {name: ({k: tree_map(functools.partial(self.enter, name,
+                                                      key=k),
+                                    v, self.blocks[k])
+                        for k, v in sub.items()} if name == "blocks"
+                       else tree_map(functools.partial(self.enter, name),
+                                     sub, self.shardings[name]))
+                for name, sub in params.items()}
 
     def layer(self, blk):
         """One layer's block params with their dp splits gathered (a split
@@ -2630,6 +2793,63 @@ class _Shards:
         if self.seq_tp:
             return scatter(y, 1, self.tp_group)
         return reduce_from(y, self.tp_group)
+
+    def tp_enter(self, x):
+        """x, held alike by the tp ranks, into a tp-split product."""
+        from ..parallel.collectives import copy_to
+
+        return copy_to(x, [self.tp_group])
+
+    def tp_leave(self, y):
+        """A tp-split product's partial sums, summed over tp."""
+        from ..parallel.collectives import reduce_from
+
+        return reduce_from(y, self.tp_group)
+
+    def moe_rows(self, x):
+        """The MoE's routing tokens from this rank's rows x (B, S, D): the
+        whole sequence over tp under seq_parallel, then this rank's ep
+        slice of it (JAX's P("dp", "ep") tokens), held alike by the tp
+        ranks."""
+        from ..parallel.collectives import gather, split
+
+        if self.seq_tp:
+            x = gather(x, 1, self.tp_group, "slice")
+        return split(x, 1, self.ep_group)
+
+    def moe_back(self, y):
+        """The MoE's output back in this rank's rows (`moe_rows` undone)."""
+        from ..parallel.collectives import gather, split
+
+        y = gather(y, 1, self.ep_group, "slice")
+        return split(y, 1, self.tp_group) if self.seq_tp else y
+
+    def moe_mean(self, t):
+        """The mean of a routing statistic over the routing shards (dp,
+        cp, ep): all-reduced forward; the gradient each rank takes is its
+        own tokens' part (`loss_fn` adds the aux value once)."""
+        from ..parallel.collectives import reduce_from
+
+        n = 1
+        for g, size in ((self.dp_group, self.dp), (self.cp_group, self.cp),
+                        (self.ep_group, self.ep)):
+            t = reduce_from(t, g)
+            n *= size
+        return t / n
+
+    def all_experts(self, blk):
+        """A layer's expert leaves with an ep split gathered (their
+        gradients reduce-scattered back)."""
+        from ..parallel.collectives import gather
+
+        if self.ep == 1:
+            return blk
+        out = dict(blk)
+        for k in _MOE_LEAVES[1:]:
+            if k in blk and self.blocks[k].dim_of("ep") is not None:
+                out[k] = gather(blk[k], self.blocks[k].dim_of("ep") - 1,
+                                self.ep_group)
+        return out
 
     def rows(self, t):
         """This rank's sequence chunk of a (B, S) batch it holds over tp."""
@@ -2666,25 +2886,33 @@ def _check_sharded(mesh, cfg: GPTConfig) -> None:
     extra = [a for a in names if a not in SHARDED_AXES]
     if extra:
         raise NotImplementedError(
-            f"mesh axes {extra}: the sharded step takes dp, tp and cp "
-            f"(pipeline and expert axes are not ported yet; ROADMAP.md "
-            f"queue 1 item 5)")
-    _refuse_experts(cfg)
+            f"mesh axes {extra}: the sharded step takes dp, tp, cp and ep; "
+            f"a pp axis trains through make_pipelined_train_step or "
+            f"make_pipelined_train_step_1f1b, as JAX's (a pp axis in the "
+            f"sharded step: ROADMAP.md queue 1 item 5)")
     tp = mesh.size(names.index("tp")) if "tp" in names else 1
     for what, n in (("n_head", cfg.n_head), ("d_model", cfg.d_model),
                     ("d_ff", cfg.d_ff), ("qkv width", _qkv_width(cfg))):
         if n % tp:
             raise ValueError(f"tp {tp} does not divide {what} {n}")
+    ep = mesh.size(names.index("ep")) if "ep" in names else 1
+    if cfg.n_experts and cfg.n_experts % ep:
+        raise ValueError(f"ep {ep} does not divide n_experts "
+                         f"{cfg.n_experts}")
 
 
 def make_sharded_train_step(mesh, cfg: GPTConfig, *, fsdp: bool = False,
                             fsdp_min_size: int = 1 << 16):
     """The train step sharded over `mesh` (a DeviceMesh with axes among dp,
-    tp and cp): the batch split over dp, Megatron column and row splits
+    tp, cp and ep): the batch split over dp, Megatron column and row splits
     over tp, the sequence over tp in the residual stream under
-    cfg.seq_parallel, and over cp with attention on the ring. It computes
-    what `make_train_step` computes (Adam, no clipping or accumulation,
-    as JAX's sharded step), with the fused CE off.
+    cfg.seq_parallel, over cp with attention on the ring, and with experts
+    their expert axis over ep (moe_impl "ep": the all-to-all dispatch,
+    `_moe_mlp_ep`; ep ranks hold the same tokens outside the MoE, as JAX's
+    batch is split over dp and cp only). It computes what
+    `make_train_step` computes (Adam, no clipping or accumulation, as
+    JAX's sharded step), with the fused CE off; the MoE's capacity counts
+    each rank's routing tokens.
 
     Returns step(params, opt_state, tokens, targets, lr, generator=None)
     -> (params, opt_state, loss), run by every rank. params and the Adam
@@ -2698,7 +2926,9 @@ def make_sharded_train_step(mesh, cfg: GPTConfig, *, fsdp: bool = False,
     mean, the same 0-d tensor on every rank. Each rank runs the loss and
     its gradient on its shards with the collectives of `_Shards`; the
     flash kernels run on each rank's heads and rows (K1/K2 on whole kv
-    groups, K5-K7 on the split layout and on every ring hop)."""
+    groups, K5-K7 on the split layout and on every ring hop). A pp axis
+    is refused: pipelines train through `make_pipelined_train_step` and
+    `make_pipelined_train_step_1f1b`."""
     from ..parallel.mesh import NamedSharding, shard_map_compat
 
     if cfg.fused_ce != "off":
@@ -2716,9 +2946,7 @@ def make_sharded_train_step(mesh, cfg: GPTConfig, *, fsdp: bool = False,
 
     def local_step(params, opt_state, tokens, targets, lr, generator):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        work = {name: tree_map(functools.partial(view.enter, name), sub,
-                               shard[name])
-                for name, sub in tree_unflatten(params, leaves).items()}
+        work = view.working(tree_unflatten(params, leaves))
         loss = loss_fn(work, tokens, targets, cfg, train=True,
                        generator=generator, mesh=view)
         grads = torch.autograd.grad(loss, leaves)
@@ -2735,14 +2963,202 @@ def make_sharded_train_step(mesh, cfg: GPTConfig, *, fsdp: bool = False,
 
     def step(params, opt_state, tokens, targets, lr, generator=None):
         B, S = tokens.shape
+        moe = "ep" if cfg.n_experts else ""
         for a, n, what in (("dp", B, "batch"), ("cp", S, "sequence"),
-                           ("tp" if view.seq_tp else "", S, "sequence")):
+                           ("tp" if view.seq_tp else "", S, "sequence"),
+                           (moe, S // split.get("cp", 1), "MoE's rows")):
             if n % split.get(a, 1):
                 raise ValueError(f"{a} {split[a]} does not divide the "
                                  f"{what} {n}")
         return mapped(params, opt_state, tokens, targets, lr, generator)
 
     return step
+
+
+# --------------------------------------------------------------------------
+# the pipelined train steps (JAX's `make_pipelined_train_step` and
+# `make_pipelined_train_step_1f1b`): the stacked blocks split into stages
+# over a pp axis, one process a stage, or every stage of a virtual
+# pipeline in one process
+
+
+def _pipeline_parts(mesh, cfg: GPTConfig, n_micro: int, n_stages):
+    """(stages, reshape_params, the staged layout's shardings or None)."""
+    from ..parallel.mesh import NamedSharding, place
+    from ..parallel.pipeline import Stages
+
+    st = Stages(mesh, "pp", n_stages)
+    P = st.n
+    if not cfg.tied_head:
+        raise ValueError("pipeline-parallel steps require tied_head=True "
+                         "(embedding/head run replicated on one tensor)")
+    if cfg.n_layer % P:
+        raise ValueError("n_layer must be divisible by the pp stage count")
+    if n_micro < 1:
+        raise ValueError(f"n_micro {n_micro}: want >= 1")
+    per_stage = cfg.n_layer // P
+    shard = None
+    if mesh is not None:
+        rep = NamedSharding(mesh, ())
+        shard = {"wte": rep, "ln_f": ({"scale": rep, "bias": rep}
+                                      if cfg.norm == "layer"
+                                      else {"scale": rep}),
+                 "blocks": tree_map(lambda _: NamedSharding(mesh, ("pp",)),
+                                    param_shapes(cfg)["blocks"])}
+        if cfg.pos_emb == "learned":
+            shard["wpe"] = rep
+
+    def reshape_params(params):
+        """The staged layout: block leaves (P, n_layer / P, ...), on a mesh
+        each rank holding its own stage (DTensors split over pp; wte, wpe
+        and ln_f replicated)."""
+        staged = dict(params)
+        staged["blocks"] = tree_map(
+            lambda l: l.reshape((P, per_stage) + tuple(l.shape[1:])),
+            params["blocks"])
+        if shard is None:
+            return staged
+        return tree_map(lambda t, sh: place(t, sh, src_data_rank=None),
+                        staged, {k: shard[k] for k in staged})
+
+    return st, reshape_params, shard
+
+
+def _stage_layers(cfg: GPTConfig, stage_blocks, x):
+    """One stage's layers (`_block`, train=False as JAX's: no dropout, no
+    remat; the flash ops K1/K2 or K5-K7) -> (y, the MoE aux summed, f32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = tree_leaves(stage_blocks)[0].shape[0]
+    for i in range(n):
+        x, a = _block(x, _layer(stage_blocks, i), cfg, False, None)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _head_ce(y, targets, lp, cfg: GPTConfig):
+    """ln_f, the tied head (f32 logits) and the mean token CE: JAX's
+    pipelined head (the composite logsumexp)."""
+    y = _layer_norm(y, lp["ln_f"], cfg.norm_eps)
+    logits32 = _lm_head(y, lp, cfg).float()
+    tgt = logits32.gather(-1, targets.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits32, -1) - tgt).mean()
+
+
+def _staged_step(mesh, cfg: GPTConfig, shard, loss_grads):
+    """step(staged, opt_state, tokens, targets, lr) -> (staged, opt_state,
+    loss) from loss_grads(staged, tokens, targets) -> (loss, grads): Adam
+    in place; on a mesh run by every rank on its shards (`shard_map_compat`;
+    DTensors in, DTensors out, as `make_sharded_train_step`'s)."""
+    from ..parallel.mesh import NamedSharding, shard_map_compat
+
+    def local_step(staged, opt_state, tokens, targets, lr):
+        loss, grads = loss_grads(staged, tokens, targets)
+        staged, opt_state = adam_update(staged, grads, opt_state, lr)
+        return staged, opt_state, loss
+
+    if mesh is None:
+        return local_step
+    rep = NamedSharding(mesh, ())
+
+    def step(staged, opt_state, tokens, targets, lr):
+        sh = {k: shard[k] for k in staged}
+        osh = {"m": sh, "v": sh, "step": rep}
+        return shard_map_compat(
+            local_step, mesh=mesh, in_specs=(sh, osh, None, None, None),
+            out_specs=(sh, osh, None))(staged, opt_state, tokens, targets,
+                                       lr)
+
+    return step
+
+
+def _micro(t, n_micro: int):
+    B = t.shape[0]
+    if B % n_micro:
+        raise ValueError(f"n_micro {n_micro} does not divide the batch {B}")
+    return t.reshape((n_micro, B // n_micro) + tuple(t.shape[1:]))
+
+
+def make_pipelined_train_step(mesh, cfg: GPTConfig, n_micro: int, *,
+                              n_stages: int | None = None):
+    """Pipeline-parallel train step over the `pp` axis of `mesh` (JAX's
+    `make_pipelined_train_step`): the stacked blocks split into n_stages =
+    the pp size stages of n_layer / n_stages layers, the batch into
+    `n_micro` microbatches through the GPipe schedule
+    (`parallel.pipeline.pipeline_forward`), differentiated through it.
+    Each rank runs its stage (K1 forward, K2 backward for each of its
+    layers and live microbatches) and, on the outputs every stage
+    receives, the replicated embedding, ln_f, tied head and CE; MoE aux
+    losses are dropped (use moe_aux_weight 0, or the 1F1B step). With
+    `mesh=None`, one process runs every stage of a virtual pipeline of
+    `n_stages`.
+
+    Returns (step_fn, reshape_params): reshape_params turns
+    `init_params`' tree into the staged layout (`_pipeline_parts`), and
+    step_fn(staged, opt_state, tokens, targets, lr) -> (staged,
+    opt_state, loss) takes Adam's step (in place; the moments in the
+    staged layout, `opt_init` of the staged tree) on the global batch
+    (the same on every rank). The loss is the batch's mean token CE."""
+    from ..parallel.pipeline import pipeline_forward
+
+    st, reshape_params, shard = _pipeline_parts(mesh, cfg, n_micro,
+                                                n_stages)
+    pipe = pipeline_forward(lambda blk, x: _stage_layers(cfg, blk, x)[0],
+                            mesh, n_stages=st.n)
+
+    def loss_grads(staged, tokens, targets):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(staged)]
+        p = tree_unflatten(staged, leaves)
+        B, S = tokens.shape
+        micro = _micro(_embed(p, tokens, cfg), n_micro)
+        y = pipe(p["blocks"], micro).reshape(B, S, cfg.d_model)
+        loss = _head_ce(y, targets, p, cfg)
+        return loss.detach(), tree_unflatten(
+            staged, list(torch.autograd.grad(loss, leaves)))
+
+    return _staged_step(mesh, cfg, shard, loss_grads), reshape_params
+
+
+def make_pipelined_train_step_1f1b(mesh, cfg: GPTConfig, n_micro: int, *,
+                                   n_stages: int | None = None):
+    """Pipeline-parallel train step with the 1F1B schedule (JAX's
+    `make_pipelined_train_step_1f1b`, `parallel.pipeline.
+    pipeline_train_1f1b`): the activation footprint O(stages), not
+    O(microbatches) (each stage keeps its inputs and reruns its forward
+    at backward time: K1 twice, K2 once a layer and microbatch); MoE aux
+    losses join the objective at moe_aux_weight (aux_weight / n_micro x
+    the aux summed over stages and microbatches); the tied wte takes the
+    head's gradient from the last stage and the embedding's from the
+    microbatch inputs' cotangents. The loss is the mean over microbatches
+    of their mean token CE, plus the aux term. Returns (step_fn,
+    reshape_params) as `make_pipelined_train_step`."""
+    from ..parallel.pipeline import pipeline_train_1f1b
+
+    st, reshape_params, shard = _pipeline_parts(mesh, cfg, n_micro,
+                                                n_stages)
+    pipe = pipeline_train_1f1b(
+        lambda blk, x: _stage_layers(cfg, blk, x),
+        lambda y, t, lp: _head_ce(y, t, lp, cfg), mesh,
+        aux_weight=cfg.moe_aux_weight, n_stages=st.n)
+
+    def loss_grads(staged, tokens, targets):
+        lp = {"wte": staged["wte"], "ln_f": staged["ln_f"]}
+        emb = {k: staged[k] for k in ("wte", "wpe") if k in staged}
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(emb)]
+        with torch.enable_grad():
+            micro_x = _micro(_embed(tree_unflatten(emb, leaves), tokens,
+                                    cfg), n_micro)
+        loss, gblocks, gloss, dmicro = pipe(
+            staged["blocks"], lp, micro_x.detach(), _micro(targets, n_micro))
+        gemb = tree_unflatten(emb, list(torch.autograd.grad(
+            micro_x, leaves, dmicro.to(micro_x.dtype))))
+        grads = {"wte": gloss["wte"] + gemb["wte"], "ln_f": gloss["ln_f"],
+                 "blocks": gblocks}
+        if "wpe" in gemb:
+            grads["wpe"] = gemb["wpe"]
+        return loss, {k: grads[k] for k in staged}
+
+    return _staged_step(mesh, cfg, shard, loss_grads), reshape_params
 
 
 def flops_per_token(cfg: GPTConfig, seq: int) -> float:

@@ -6,13 +6,19 @@ program is the gradient of the whole program: Megatron's two conjugate
 ops (`copy_to`: identity forward, all-reduce backward; `reduce_from`:
 all-reduce forward, identity backward), the sequence-parallel pair
 (`gather`: all-gather forward, reduce-scatter backward; `scatter`:
-reduce-scatter forward, all-gather backward) and `gather(...,
+reduce-scatter forward, all-gather backward), `gather(...,
 grad="slice")`, an all-gather whose consumers compute the same gradient
-on every rank, so that each keeps its own slice of it. A group of one
-rank, or None, makes every op the identity.
+on every rank, so that each keeps its own slice of it, and its
+conjugate `split` (this rank's slice forward, all-gather backward).
+`all_to_all` is JAX's tiled `lax.all_to_all` (backward: the reverse
+all-to-all). A group of one rank, or None, makes every op the identity.
 
 `ring_shift` moves tensors one rank forward around a group with
-`batch_isend_irecv` (ring attention's hop)."""
+`batch_isend_irecv` (ring attention's hop); `pp_exchange` is one tick of
+a pipeline's traffic, activations to the next stage and cotangents to
+the previous one in one `batch_isend_irecv`, and `send_next` its
+differentiable form (JAX's `lax.ppermute` to stage s + 1, whose
+backward sends the cotangent to s - 1)."""
 
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["copy_to", "reduce_from", "gather", "scatter", "all_reduce",
-           "ring_shift"]
+__all__ = ["copy_to", "reduce_from", "gather", "scatter", "split",
+           "all_to_all", "all_reduce", "ring_shift", "pp_exchange",
+           "send_next"]
 
 
 # torch 2.13 names them *_single and deprecates the older names, which
@@ -117,6 +124,47 @@ class _Scatter(torch.autograd.Function):
         return _gather_dim(g, dim, group), None, None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.args = (dim, group)
+        return _slice_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.args
+        return _gather_dim(g.contiguous(), dim, group), None, None
+
+
+def _all_to_all(x: torch.Tensor, split: int, concat: int, group):
+    n = dist.get_world_size(group)
+    xt = x.movedim(split, 0)
+    if xt.shape[0] % n:
+        raise ValueError(f"dim {split} of size {xt.shape[0]} does not split "
+                         f"over {n} ranks")
+    xt = xt.reshape((n, xt.shape[0] // n) + tuple(xt.shape[1:])).contiguous()
+    out = torch.empty_like(xt)
+    dist.all_to_all_single(out, xt, group=group)
+    # out[i] is rank i's block: put the split dim back, then rank i's block
+    # i-th along `concat`
+    out = out.movedim(1, split + 1).movedim(0, concat)
+    shape = tuple(out.shape)
+    return out.reshape(shape[:concat] + (n * shape[concat + 1],)
+                       + shape[concat + 2:])
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, concat, group):
+        ctx.args = (split, concat, group)
+        return _all_to_all(x, split, concat, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, concat, group = ctx.args
+        return _all_to_all(g, concat, split, group), None, None, None
+
+
 def copy_to(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     """x itself; its gradient is summed over `groups` (the ranks whose
     contributions to it differ)."""
@@ -144,6 +192,23 @@ def scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _Scatter.apply(x, dim, group) if _live(group) else x
 
 
+def split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice of `dim` (x the same on every rank of `group`);
+    the backward all-gathers the ranks' gradients of their slices."""
+    return _Split.apply(x, dim, group) if _live(group) else x
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+               group) -> torch.Tensor:
+    """JAX's `lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)`:
+    `split_dim` cut into one block a rank of `group`, block j sent to rank
+    j, the blocks received concatenated along `concat_dim` in rank order.
+    The backward is the reverse all-to-all."""
+    if not _live(group):
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
 def ring_shift(tensors: Sequence[torch.Tensor], group) -> list:
     """Each tensor sent to the next rank of `group` and replaced by the one
     the previous rank sent (rank i's go to rank i + 1 mod n), by one
@@ -158,3 +223,54 @@ def ring_shift(tensors: Sequence[torch.Tensor], group) -> list:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return outs
+
+
+def pp_exchange(to_next, to_prev, group):
+    """One tick of a pipeline over `group` (its stages in rank order), by
+    one `batch_isend_irecv`: `to_next` goes to the next stage and
+    `to_prev` to the previous one. Returns (what the previous stage sent,
+    what the next stage sent), None where there is no such stage or where
+    nothing travels that way: every rank passes a tensor, or None, for
+    each direction on the same tick, and receives into a tensor shaped
+    like the one it sends."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    ops, got = [], [None, None]
+    for i, (t, peer) in enumerate(((to_next, r + 1), (to_prev, r - 1))):
+        if t is None:
+            continue
+        src = r - 1 if i == 0 else r + 1
+        if 0 <= peer < n:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  dist.get_global_rank(group, peer), group))
+        if 0 <= src < n:
+            got[i] = torch.empty_like(t, memory_format=torch.contiguous_format)
+            ops.append(dist.P2POp(dist.irecv, got[i],
+                                  dist.get_global_rank(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return got[0], got[1]
+
+
+class _SendNext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        got, _ = pp_exchange(x, None, group)
+        return torch.zeros_like(x) if got is None else got
+
+    @staticmethod
+    def backward(ctx, g):
+        _, got = pp_exchange(None, g, ctx.group)
+        return (torch.zeros_like(g) if got is None else got), None
+
+
+def send_next(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX's `lax.ppermute(x, axis, [(i, i + 1) ...])`: x sent to the next
+    rank of `group`, the previous rank's x returned (zeros on rank 0). The
+    backward sends the cotangent to the previous rank (ppermute's
+    transpose; the last rank's input gets zeros). Every rank of the group
+    must call it, and run its backward, in the same order."""
+    if not _live(group):
+        return torch.zeros_like(x)
+    return _SendNext.apply(x, group)

@@ -21,11 +21,12 @@ the params, the Adam state, the step and the generator's state from the
 latest checkpoint, so a killed run continues exactly where it stopped
 (the same dropout masks included).
 
-With `mesh` (a `parallel.make_mesh` DeviceMesh; every rank builds its own
-Trainer and feeds it the same batches) the trainer runs
-`make_sharded_train_step`: params and Adam moments live as DTensors in the
-tp layout, or the ZeRO-3 layout with `fsdp=True` (JAX's `Trainer(mesh=,
-fsdp=)`), placed from rank 0's initial params; evaluation runs unsharded on
+With `mesh` (a `parallel.make_mesh` DeviceMesh over dp, tp, cp and ep
+axes; every rank builds its own Trainer and feeds it the same batches) the
+trainer runs `make_sharded_train_step`: params and Adam moments live as
+DTensors in the tp (and ep) layout, or the ZeRO-3 layout with `fsdp=True`
+(JAX's `Trainer(mesh=, fsdp=)`), placed from rank 0's initial params; a pp
+axis is refused, as JAX's Trainer has none; evaluation runs unsharded on
 the gathered params and checkpoints hold full leaves (`Checkpointer`).
 Clipping and accumulation are not ported on a mesh (JAX's sharded step
 has neither and ignores them).
@@ -112,10 +113,10 @@ class Trainer:
         else:
             from .parallel.mesh import place
 
+            self._step = T.make_sharded_train_step(mesh, cfg, fsdp=fsdp)
             sh = (T.fsdp_param_shardings(mesh, cfg) if fsdp
                   else T.param_shardings(mesh, cfg))
             self.params = tree_map(place, self.params, sh)
-            self._step = T.make_sharded_train_step(mesh, cfg, fsdp=fsdp)
         # over DTensors the moments follow the params' layout
         self.opt_state = T.opt_init(self.params, cfg)
         self.lr_fn = warmup_cosine(lr, warmup_steps, total_steps, min_lr)

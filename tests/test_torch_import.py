@@ -64,7 +64,8 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch.parallel",
            "neuronika_tpu_torch.parallel.mesh",
            "neuronika_tpu_torch.parallel.ring",
-           "neuronika_tpu_torch.parallel.collectives")
+           "neuronika_tpu_torch.parallel.collectives",
+           "neuronika_tpu_torch.parallel.pipeline")
 
 
 def _cfg(**kw):
@@ -179,15 +180,16 @@ def test_paged_int8_kv_is_refused_like_jax(params):
     (dict(remat_policy="flash", dtype=torch.float16, flash="on"), 3)],
     ids=["seq_parallel", "remat-flash"])
 def test_unported_model_variants_raise(kw, item):
-    """Sequence parallelism is ported (test_torch_parallel.py); what its
-    sharded step still refuses is experts on a mesh, checked before the
+    """Sequence parallelism and experts on a mesh are ported
+    (test_torch_parallel.py); what the sharded step still refuses is a pp
+    axis (pipelines train through the pipelined steps), checked before the
     mesh is touched. f16 is refused by the flash gate on the card under
     flash="on" (a stand-in with a CUDA device: the gate reads only that),
     with remat_policy "flash", which is ported. (rope, rms, swiglu, an
     untied head, mixture-of-experts and every remat policy are ported:
     test_torch_llama.py, test_torch_moe.py and test_torch_remat.py hold
     them against JAX.)"""
-    mesh = types.SimpleNamespace(mesh_dim_names=("dp", "tp"))
+    mesh = types.SimpleNamespace(mesh_dim_names=("dp", "pp"))
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue 1 item {item}"):
         if kw.get("seq_parallel"):

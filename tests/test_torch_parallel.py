@@ -33,6 +33,13 @@ LR = 1e-3
 
 TINY = dict(vocab_size=32, n_layer=2, n_head=2, d_model=32, d_ff=64,
             max_seq=16)
+# test_parallel.py's expert-parallel config: capacity 8.0 drops no token,
+# so the ep dispatch must give the dense dispatch's results
+MOE = dict(TINY, flash="off", n_experts=4, moe_impl="ep", moe_capacity=8.0,
+           moe_aux_weight=0.01)
+# the gate scaled as JAX's test scales it, so that no f32 reduction order
+# flips an argmax
+GATE_SCALE = 30.0
 # (mesh axes, GPTConfig fields, make_sharded_train_step keywords, batch B,
 # S): test_parallel.py's cases at 4 ranks
 STEPS = {
@@ -55,14 +62,27 @@ STEPS = {
     "fsdp": ([("dp", 4)], TINY, dict(fsdp=True, fsdp_min_size=0), 8, 16),
     "fsdp_tp": ([("dp", 2), ("tp", 2)], TINY,
                 dict(fsdp=True, fsdp_min_size=0), 8, 16),
+    # expert parallelism (test_parallel.py's ep test at 4 ranks): the
+    # all-to-all dispatch at a capacity that drops no token, with sequence
+    # parallelism over tp (JAX's multi-device run pairs them) and over dp;
+    # and the sort dispatch on an ep mesh (every expert gathered)
+    "tp2ep2_sp": ([("tp", 2), ("ep", 2)], dict(MOE, seq_parallel=True), {},
+                  4, 16),
+    "dp2ep2": ([("dp", 2), ("ep", 2)], MOE, {}, 4, 16),
+    "dp2ep2_sort": ([("dp", 2), ("ep", 2)], dict(MOE, moe_impl="sort"), {},
+                    4, 16),
 }
-# JAX's sharded step is run for these (the rest: its unsharded step)
-JAX_SHARDED = ("dp2tp2", "fsdp")
+# JAX's sharded step is run for these (the rest: its unsharded step), on
+# the same mesh shape (JAX's sharded step splits the batch over a dp axis:
+# one of size 1 where the port's mesh has none)
+JAX_SHARDED = ("dp2tp2", "fsdp", "tp2ep2_sp", "dp2ep2")
+JAX_MESH = {"tp2ep2_sp": [("dp", 1), ("tp", 2), ("ep", 2)]}
 
 
 def _np_params(cfg_kw, seed=0):
     """A params tree of the JAX structure (the port's `param_shapes`),
-    drawn with numpy: N(0, 0.02) matrices, unit scales, small biases."""
+    drawn with numpy: N(0, 0.02) matrices, unit scales, small biases; an
+    MoE gate GATE_SCALE x that."""
     rng = np.random.default_rng(seed)
 
     def draw(path, t):
@@ -76,7 +96,10 @@ def _np_params(cfg_kw, seed=0):
             return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
         return draw(path, tree)
 
-    return walk(T.param_shapes(T.GPTConfig(**cfg_kw)))
+    params = walk(T.param_shapes(T.GPTConfig(**cfg_kw)))
+    if "gate" in params["blocks"]:
+        params["blocks"]["gate"] *= GATE_SCALE
+    return params
 
 
 def _batch(vocab, B, S, seed=1):
@@ -166,12 +189,12 @@ def _job_meshes(rank):
                            g.full_tensor().numpy())
     sh = T.fsdp_param_shardings(mesh2, T.GPTConfig(**TINY), min_size=0)
     big = T.fsdp_param_shardings(mesh2, T.GPTConfig(**TINY))
-    try:
-        T.fsdp_param_shardings(mesh2, T.GPTConfig(**TINY, n_experts=4),
-                               min_size=0)
-        moe = "no error"
-    except NotImplementedError as e:
-        moe = str(e)
+    moe = T.fsdp_param_shardings(mesh2, T.GPTConfig(**TINY, n_experts=4),
+                                 min_size=0)["blocks"]["fc_in"].spec
+    ep = T.param_shardings(P.make_mesh([("dp", 2), ("ep", 2)]),
+                           T.GPTConfig(**TINY, n_experts=4))["blocks"]
+    res["ep_specs"] = {k: ep[k].spec for k in ("gate", "fc_in", "fc_in_b",
+                                                 "fc_out", "fc_out_b")}
     llama = T.fsdp_param_shardings(
         mesh2, T.llama_config(**dict(TINY, d_ff=48)), min_size=0)
     res["fsdp_specs"] = {
@@ -261,13 +284,62 @@ def _job_checkpoint(rank, directory):
             "saved": x.full_tensor().numpy()}
 
 
+def _job_ep_overflow(rank):
+    """test_parallel.py's ep overflow test at 4 ranks (dp2 x ep2, capacity
+    1.0, so tokens drop): six steps on one batch, each rank's losses."""
+    cfg = T.GPTConfig(dtype=torch.float32, **dict(MOE, n_layer=1,
+                                                  moe_capacity=1.0))
+    params = T.params_from_jax(_np_params(dict(MOE, n_layer=1)))
+    toks, tgts = (torch.from_numpy(a) for a in _batch(32, 4, 16))
+    step = T.make_sharded_train_step(P.make_mesh([("dp", 2), ("ep", 2)]),
+                                     cfg)
+    opt, losses = T.opt_init(params, cfg), []
+    for _ in range(6):
+        params, opt, loss = step(params, opt, toks, tgts, 5e-3)
+        losses.append(float(loss))
+    return losses
+
+
+def _job_accepted(rank):
+    """What the sharded tier refused before experts and pipelines were
+    ported: a pp axis (through the pipelined step, on a dp2 x pp2 mesh)
+    and experts on a mesh without an ep axis (the dense dispatch on dp4,
+    against the unsharded step)."""
+    cfg = T.GPTConfig(dtype=torch.float32, **dict(TINY, flash="off"))
+    toks, tgts = (torch.from_numpy(a) for a in _batch(32, 4, 16))
+    step, reshape = T.make_pipelined_train_step(
+        P.make_mesh([("dp", 2), ("pp", 2)]), cfg, 2)
+    staged = reshape(T.params_from_jax(_np_params(TINY)))
+    _, _, pp_loss = step(staged, T.opt_init(staged, cfg), toks, tgts, LR)
+    ref_loss = T.loss_fn(T.params_from_jax(_np_params(TINY)), toks, tgts,
+                         cfg)
+    moe = T.GPTConfig(dtype=torch.float32, **dict(MOE, moe_impl="dense"))
+    params = T.params_from_jax(_np_params(MOE))
+    _, _, loss = T.make_sharded_train_step(P.make_mesh([("dp", 4)]), moe)(
+        params, T.opt_init(params, moe), toks, tgts, LR)
+    params = T.params_from_jax(_np_params(MOE))
+    _, _, dense = T.make_train_step(moe)(params, T.opt_init(params, moe),
+                                         toks, tgts, LR)
+    from neuronika_tpu_torch.train import Trainer
+
+    tr = Trainer(T.GPTConfig(dtype=torch.float32, **MOE),
+                 generator=torch.Generator().manual_seed(0), lr=1e-2,
+                 mesh=P.make_mesh([("dp", 2), ("ep", 2)]))
+    trainer = [float(tr.train_step(toks, tgts)) for _ in range(4)]
+    return {"pp": (float(pp_loss), float(ref_loss)),
+            "experts": (float(loss), float(dense)),
+            "trainer_ep": (trainer, str(tr.params["blocks"]["fc_in"]
+                                        .placements))}
+
+
 def _rank(rank, jobs):
     import neuronika_tpu_torch as nk
 
     nk.config.device = "cpu"
     fns = {"steps": _job_steps, "meshes": _job_meshes,
            "data_parallel": _job_data_parallel, "trainer": _job_trainer,
-           "checkpoint": _job_checkpoint}
+           "checkpoint": _job_checkpoint, "ep_overflow": _job_ep_overflow,
+           "accepted": _job_accepted}
     out = {name: fns[name](rank, *args) for name, args in jobs}
     out["jax_loaded"] = [m for m in ("jax", "neuronika_tpu")
                          if m in sys.modules]
@@ -293,7 +365,8 @@ def launched(inputs, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ranks")
     jobs = [("steps", inputs), ("meshes", ()), ("data_parallel", ()),
             ("trainer", (str(tmp / "trainer"),)),
-            ("checkpoint", (str(tmp / "ck"),))]
+            ("checkpoint", (str(tmp / "ck"),)), ("ep_overflow", ()),
+            ("accepted", ())]
     pool = concurrent.futures.ThreadPoolExecutor(1)
     future = pool.submit(P.mesh.spawn, _rank, WORLD, (jobs,),
                          init_file=str(tmp / "store"), timeout=PG_TIMEOUT,
@@ -322,9 +395,11 @@ def jax_steps(launched, inputs):
     out, unsharded = {}, {}
     for name, (axes, kw, step_kw, B, S) in STEPS.items():
         # the port's CPU flash ops are plain versions; JAX's composite is
-        # the same math without interpret-mode kernels
+        # the same math without interpret-mode kernels. With experts the
+        # unsharded reference is the dense dispatch (every token kept)
         jcfg = JT.GPTConfig(dtype=jnp.float32, **dict(
-            kw, flash="off", seq_parallel=False))
+            kw, flash="off", seq_parallel=False,
+            **({"moe_impl": "dense"} if kw.get("n_experts") else {})))
         toks, tgts = (jnp.asarray(a) for a in batches[name])
         p0 = jax.tree.map(jnp.asarray, params[name])
 
@@ -341,9 +416,11 @@ def jax_steps(launched, inputs):
             unsharded[key] = run(JT.make_train_step(jcfg))
         out[name] = {"unsharded": unsharded[key]}
         if name in JAX_SHARDED:
-            mesh = JP.make_mesh(axes, devices=jax.devices()[:WORLD])
+            mesh = JP.make_mesh(JAX_MESH.get(name, axes),
+                                devices=jax.devices()[:WORLD])
+            scfg = JT.GPTConfig(dtype=jnp.float32, **dict(kw, flash="off"))
             out[name]["sharded"] = run(JT.make_sharded_train_step(
-                mesh, jcfg, **step_kw))
+                mesh, scfg, **step_kw))
     return out
 
 
@@ -389,8 +466,10 @@ def _moments_close(port, ref):
 @pytest.mark.parametrize("name", list(STEPS))
 def test_sharded_step_matches_jax(ranks, jax_steps, name):
     """Loss (the same on every rank), updated params and Adam's first
-    moment of the port's sharded step against JAX's unsharded step, and for dp2xtp2 and dp4
-    with fsdp also against JAX's sharded step on the same mesh shape."""
+    moment of the port's sharded step against JAX's unsharded step (with
+    experts its dense dispatch, and fc_in and the gate entry by entry
+    within TOL), and for the JAX_SHARDED cases also against JAX's sharded
+    step on the same mesh shape."""
     port = [r["steps"][name] for r in ranks]
     assert len({p["loss"] for p in port}) == 1
     assert port[0]["loss_type"] == "Tensor"
@@ -398,6 +477,11 @@ def test_sharded_step_matches_jax(ranks, jax_steps, name):
         assert abs(port[0]["loss"] - jloss) <= TOL, key
         _params_close(port[0]["params"], jparams)
         _moments_close(port[0]["m"], jm)
+        if "gate" in jparams["blocks"]:     # test_parallel.py's ep checks
+            for leaf in ("fc_in", "gate"):
+                err = np.abs(port[0]["params"]["blocks"][leaf]
+                             - np.asarray(jparams["blocks"][leaf])).max()
+                assert err <= TOL, (key, leaf, err)
 
 
 def test_ranks_load_no_jax(ranks):
@@ -429,9 +513,25 @@ def test_fsdp_param_shardings_widen_the_tp_layout(ranks):
     assert "dp" in sp["wte"] and "tp" in sp["wte"]
     assert "dp" in sp["qkv"] and "dp" in sp["fc_out"]
     assert "dp" not in sp["ln1_big"]          # under the default min_size
-    # expert layouts come with _moe_mlp_ep
-    assert "queue 1 item 5" in sp["moe_fc_in"]
+    # the experts' tp layout (no ep axis on this mesh) widened too
+    assert "dp" in sp["moe_fc_in"] and "tp" in sp["moe_fc_in"]
     assert "dp" in sp["lm_head"] and "dp" in sp["fc_gate"]
+
+
+def test_param_shardings_split_the_experts_over_ep(ranks):
+    """JAX's ep layouts: the gate replicated, the expert axis over ep."""
+    sp = ranks[0]["meshes"]["ep_specs"]
+    assert all(a is None for a in sp["gate"])
+    for k in ("fc_in", "fc_in_b", "fc_out", "fc_out_b"):
+        assert sp[k][:2] == (None, "ep"), (k, sp[k])
+
+
+def test_ep_overflow_trains(ranks):
+    """Tokens dropped (capacity 1.0, counted per rank): the ep step stays
+    finite and its loss falls over six steps, the same on every rank."""
+    losses = ranks[0]["ep_overflow"]
+    assert all(r["ep_overflow"] == losses for r in ranks)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 
 def test_make_mesh_factorizations(ranks):
@@ -504,16 +604,37 @@ def test_sharded_checkpoint_restores_into_a_placement(ranks):
 
 
 def test_refusals_name_their_queue_item():
-    """What the sharded step does not take yet raises before any
-    collective: pipeline and expert axes, and experts on a mesh."""
+    """What the sharded tier still refuses raises before any collective:
+    a pp axis in the sharded step (pipelines train through the pipelined
+    steps, as JAX's) and tensor-parallel serving."""
     class Mesh:
         mesh_dim_names = ("dp", "pp")
 
     with pytest.raises(NotImplementedError, match=r"queue 1 item 5"):
         T.make_sharded_train_step(Mesh(), T.GPTConfig(**TINY))
-    Mesh.mesh_dim_names = ("dp",)
     with pytest.raises(NotImplementedError, match=r"queue 1 item 5"):
-        T.make_sharded_train_step(Mesh(), T.GPTConfig(**TINY, n_experts=2))
+        T.make_generate(T.GPTConfig(**TINY), 4, mesh=Mesh())
+
+
+@pytest.mark.parametrize("case", ["pp", "experts"])
+def test_formerly_refused_cases_run(ranks, case):
+    """The two cases the sharded tier refused before: a pp mesh trains
+    through make_pipelined_train_step (its first loss is the unsharded
+    loss), and experts train on a mesh without an ep axis (the dense
+    dispatch, against the unsharded step)."""
+    for r in ranks:
+        got, want = r["accepted"][case]
+        assert abs(got - want) <= TOL, (case, got, want)
+
+
+def test_sharded_trainer_takes_an_ep_mesh(ranks):
+    """Trainer(mesh=) on a dp2 x ep2 mesh (JAX's Trainer takes any mesh of
+    the sharded step): the experts split over ep, the loss falling over
+    four steps, the same on every rank."""
+    losses, placements = ranks[0]["accepted"]["trainer_ep"]
+    assert all(r["accepted"]["trainer_ep"][0] == losses for r in ranks)
+    assert "Shard(dim=1)" in placements, placements
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 
 def test_seq_parallel_config_builds_without_a_mesh():
