@@ -234,7 +234,22 @@ nvidia-smi. Phases, each printing one line or a few:
      loss and gradients in norm within phase 17 (f)'s 2^-6; (c) with two
      or more cards, the 1F1B headline step on pp n and the MoE GPT on
      dp (n / 2) x ep2 spawned NCCL ranks, each first loss against (a)'s
-     1F1B or (b)'s ep run.
+     1F1B or (b)'s ep run;
+ 22. tensor-parallel serving: (a) phase 4's model and requests through
+     `PagedBatcher(mesh=)` (K11), `ContinuousBatcher(mesh=)` and
+     `make_generate(mesh=)` (B16, 32 + 32 tokens) on a one-rank NCCL
+     group and a dp1 x tp1 mesh, each run's tokens bit for bit its
+     unsharded run's (every collective is an identity), tok/s beside the
+     unsharded runs' and phase 4's, K11 n_layer launches a decode step;
+     (b) Mistral 7B's width at 4 layers (max_seq 1024) served by
+     `PagedBatcher(mesh=, kernel="on")`, 8 requests x 32 greedy tokens,
+     on dp2 x tp2 and dp1 x tp4 meshes of 4 spawned ranks sharing the
+     card over gloo (a mesh of gloo groups; the tensors stay on the
+     card), K11 on each rank's KV/tp heads: the f32 tokens equal to the
+     unsharded run's, the bf16 prefill logits within 2x the unsharded
+     bf16 run's own distance from f32 in norm, K11 n_layer launches a
+     decode step on every rank, its launches and route printed; (c) with
+     two or more cards, the same on spawned NCCL ranks.
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -6487,6 +6502,268 @@ def phase_parallel(T, FA, CE, smi_line, profile=None):
         "flash_bwd_fused_qkv")}
 
 
+# phase 22: tensor-parallel serving over torch.distributed. (a) serves
+# phase 4's configuration and requests through make_generate(mesh=),
+# ContinuousBatcher(mesh=) and PagedBatcher(mesh=) on a one-rank NCCL
+# group (dp1 x tp1: every collective an identity), each bit for bit its
+# unsharded run; (b) Mistral 7B's width at 4 layers served by
+# PagedBatcher with K11 on each rank's heads, on tp2 (two dp replicas) and
+# tp4 meshes of 4 spawned ranks sharing the one card over gloo (NCCL
+# refuses two ranks on one device; gloo's collectives take CUDA
+# tensors), against the unsharded run; (c) the same on real NCCL ranks
+# where there are cards for them
+TP_MISTRAL = dict(MISTRAL_7B, max_seq=1024)
+TP_REQUESTS, TP_NEW = 8, 32
+TP_POOL = dict(n_slots=8, n_blocks=129, block_size=16)
+TP_RANKS = 4
+TP_MESHES = ([("dp", 2), ("tp", 2)], [("dp", 1), ("tp", 4)])
+# bf16: the tp ranks' partial products each round to bf16 before the f32
+# sum over tp (one rounding where the unsharded product has one for the
+# whole row): the prefill logits of every request, in norm, at most
+# TP_LOGITS_GAP x as far from the unsharded bf16 run's as those are from
+# the unsharded f32 run's (bf16's own error; a CPU rehearsal at d256 L2
+# read 0.93x). f32 greedy tokens: equal
+TP_LOGITS_GAP = 2.0
+
+
+def tp_requests(vocab, n=TP_REQUESTS, seed=22):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(m), dtype=np.int32)
+            for m in rng.choice([64, 96, 128], size=n)]
+
+
+def tp_rate(run) -> float:
+    """Generated tokens a second of a `tp_serve_run` result."""
+    return sum(len(t) for t in run[0]) / run[5]
+
+
+def tp_serve_run(PagedBatcher, PA, params, cfg, prompts, mesh=None):
+    """The requests through a PagedBatcher (K11 "on"), after a one-request
+    warm-up on the same batcher: (tokens, every request's prefill logits
+    (n, V) f32 on the host, decode steps, K11 launches, route, wall s)."""
+    b = PagedBatcher(params, cfg, kernel="on", device="cuda", mesh=mesh,
+                     **TP_POOL)
+    b.submit(prompts[0][:8], 2)
+    b.run()
+    pre, step = b._prefill, b._step
+    logits, steps = [], [0]
+
+    def prefill(*a):
+        out = pre(*a)
+        logits.append(out[0].float().cpu())
+        return out
+
+    def counted(*a):
+        steps[0] += 1
+        return step(*a)
+
+    b._prefill, b._step = prefill, counted
+    PA.paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [b.submit(p, TP_NEW) for p in prompts]
+    done = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([done[r] for r in rids], torch.stack(logits).numpy(), steps[0],
+            PA.paged_attention.launches, PA.paged_attention.route, wall)
+
+
+def _tp_rank(rank, meshes, gloo):
+    """(b) and (c), on each spawned rank: Mistral 7B's width served on each
+    mesh in f32 and bf16 (the same seeded f32 params on every rank)."""
+    import neuronika_tpu_torch as nk
+    from neuronika_tpu_torch import _build
+    from neuronika_tpu_torch import parallel as P
+    from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.ops import paged_attention as PA
+    from neuronika_tpu_torch.serving import PagedBatcher
+
+    _build.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = T.mistral_config(dtype=torch.float32, **TP_MISTRAL)
+    prompts = tp_requests(cfg.vocab_size)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    out = {}
+    for axes in meshes:
+        # gloo's groups on one card: a mesh of CPU device type (the
+        # batcher's tensors stay on the card; gloo stages them)
+        nk.config.device = "cpu" if gloo else "cuda"
+        mesh = P.make_mesh(axes)
+        nk.config.device = "cuda"
+        for dtype in (torch.float32, torch.bfloat16):
+            toks, logits, steps, k11, route, wall = tp_serve_run(
+                PagedBatcher, PA, params,
+                dataclasses.replace(cfg, dtype=dtype), prompts, mesh)
+            out[(str(axes), str(dtype))] = (
+                [t.tolist() for t in toks], logits, steps, k11, route, wall)
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_ranks(P, n, backend, ref, what):
+    """(b) or (c): the ranks' runs against the unsharded `ref` {dtype:
+    (tokens, logits, ...)}; returns (printed part, K11 launches of all
+    ranks)."""
+    meshes = (TP_MESHES if n == 4 else
+              ([("dp", 1), ("tp", n)],))
+    with tempfile.TemporaryDirectory() as tmp:
+        res = P.mesh.spawn(_tp_rank, n, (meshes, backend == "gloo"),
+                           init_file=os.path.join(tmp, "store"),
+                           backend=backend, timeout=300.0, limit=600.0)
+    parts, k11_all = [], 0
+    for axes in meshes:
+        for dtype in (torch.float32, torch.bfloat16):
+            key = (str(axes), str(dtype))
+            runs = [r[key] for r in res]
+            rtoks, rlog = ref[dtype][0], ref[dtype][1]
+            toks, logits, _, _, route, _ = runs[0]
+            check(all(r[0] == toks for r in runs),
+                  f"phase 22 {what} {key}: the ranks' tokens differ")
+            for r in runs:
+                check(r[3] == TP_MISTRAL["n_layer"] * r[2],
+                      f"phase 22 {what} {key}: K11 launches {r[3]}, want "
+                      f"n_layer x {r[2]} decode steps")
+                k11_all += r[3]
+            rel = float(np.linalg.norm(logits - rlog) / np.linalg.norm(rlog))
+            own = float(np.linalg.norm(rlog - ref[torch.float32][1])
+                        / np.linalg.norm(ref[torch.float32][1]))
+            same = np.mean([a == b.tolist() for a, b in zip(toks, rtoks)])
+            if dtype == torch.float32:
+                check(all(a == b.tolist() for a, b in zip(toks, rtoks)),
+                      f"phase 22 {what} {key}: f32 greedy tokens differ "
+                      f"from the unsharded run's")
+            else:
+                check(rel <= TP_LOGITS_GAP * own,
+                      f"phase 22 {what} {key}: bf16 prefill logits "
+                      f"{rel:.3e} from the unsharded run's in norm (bf16's "
+                      f"own {own:.3e} from f32)")
+            name = " x ".join(f"{a}{s}" for a, s in axes)
+            gap = (f" (unsharded bf16 from f32 {own:.2e})"
+                   if dtype == torch.bfloat16 else "")
+            parts.append(
+                f"{name} {str(dtype)[6:]}: {tp_rate(runs[0]):.1f} tok/s, "
+                f"logits {rel:.2e} from unsharded in norm{gap}, requests "
+                f"with the unsharded tokens {same:.3f}, K11 "
+                f"{[r[3] for r in runs]} a rank on route {route}")
+    return "; ".join(parts), k11_all
+
+
+def tp_dense_run(ContinuousBatcher, params, cfg, prompts, max_news,
+                 mesh=None):
+    b = ContinuousBatcher(params, cfg, n_slots=8, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [b.submit(p, m) for p, m in zip(prompts, max_news)]
+    done = b.run()
+    torch.cuda.synchronize()
+    return [done[r] for r in rids], time.perf_counter() - t0
+
+
+def phase_tp_serving(T, PA, S, prompts, max_news, outs4, tok_s4, smi_line):
+    """Phase 22 (see the module docstring): `prompts`, `max_news` and
+    `outs4` are phase 4's requests and tokens, `tok_s4` its rate (printed
+    beside (a)'s, which holds the mesh runs against unsharded runs of its
+    own). Returns K11's launches on the phase's path."""
+    import torch.distributed as dist
+
+    from neuronika_tpu_torch import parallel as P
+
+    t0 = time.perf_counter()
+    cfg = T.GPTConfig(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
+                      d_ff=6144, max_seq=1024, dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    pool = dict(n_slots=8, n_blocks=513, block_size=16)
+    batch = torch.from_numpy(np.stack([p[:32] for p in prompts])).to("cuda")
+    gen_new = 32
+    _, paged_ref, _, _, paged_wall = serve(S.PagedBatcher, params, cfg,
+                                           prompts, max_news, **pool)
+    dense_ref, dense_wall = tp_dense_run(S.ContinuousBatcher, params, cfg,
+                                         prompts, max_news)
+    gen_ref = T.make_generate(cfg, gen_new)(params, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1)
+        try:
+            mesh = P.make_mesh([("dp", 1), ("tp", 1)])
+            PA.paged_attention.launches = 0
+            pb, outs, steps, finite, wall = serve(
+                S.PagedBatcher, params, cfg, prompts, max_news, mesh=mesh,
+                **pool)
+            k11_a = PA.paged_attention.launches
+            dense, dense_wall_tp = tp_dense_run(
+                S.ContinuousBatcher, params, cfg, prompts, max_news, mesh)
+            gen = T.make_generate(cfg, gen_new, mesh=mesh)(params, batch)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    check(finite, "phase 22 (a): non-finite logits")
+    check(k11_a == cfg.n_layer * steps, f"phase 22 (a): K11 launches "
+                                        f"{k11_a} != n_layer x {steps}")
+    for what, got, want in (("PagedBatcher", outs, paged_ref),
+                            ("ContinuousBatcher", dense, dense_ref)):
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"phase 22 (a) {what}(mesh=): tokens differ from the "
+              f"unsharded run's")
+    check(torch.equal(gen, gen_ref), "phase 22 (a) make_generate(mesh=): "
+                                     "tokens differ from the unsharded "
+                                     "program's")
+    n_tok = sum(len(o) for o in outs)
+    n_dense = sum(len(o) for o in dense)
+    as4 = ("equal to" if all(np.array_equal(a, b) for a, b in
+                             zip(outs, outs4)) else "other than")
+    del pb, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+    print(f"phase 22 (a) ({t_a:.1f} s) tensor-parallel serving on one NCCL "
+          f"rank, dp1 x tp1, phase 4's model and 16 requests ({smi_line}): "
+          f"PagedBatcher(mesh=) {n_tok / wall:.1f} tok/s (unsharded "
+          f"{n_tok / paged_wall:.1f}; phase 4's {tok_s4:.1f}, its tokens "
+          f"{as4} these), ContinuousBatcher(mesh=) "
+          f"{n_dense / dense_wall_tp:.1f} tok/s (unsharded "
+          f"{n_dense / dense_wall:.1f}), make_generate(mesh=) B16 32 + "
+          f"{gen_new}; tokens of all three bit for bit the unsharded "
+          f"runs'; K11 {k11_a} launches ({steps} decode steps)")
+
+    # (b): the unsharded reference in this process, then 4 gloo ranks
+    mcfg = T.mistral_config(dtype=torch.float32, **TP_MISTRAL)
+    mparams = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            mcfg, "cuda")
+    ref = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ref[dtype] = tp_serve_run(S.PagedBatcher, PA, mparams,
+                                  dataclasses.replace(mcfg, dtype=dtype),
+                                  tp_requests(mcfg.vocab_size))
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    b_part, k11_b = tp_ranks(P, TP_RANKS, "gloo", ref, "(b)")
+    t_b = time.perf_counter() - t0 - t_a
+    print(f"phase 22 (b) ({t_b:.1f} s) PagedBatcher(mesh=), Mistral 7B's "
+          f"width (d4096 H32 KV8 hd128 d_ff 14336 V32000, window 4096, 4 "
+          f"of 32 layers), {TP_REQUESTS} requests x {TP_NEW} greedy tokens "
+          f"(prompts 64-128), K11 'on', {TP_RANKS} spawned ranks sharing "
+          f"the card over gloo ({smi_line}): unsharded f32 "
+          f"{tp_rate(ref[torch.float32]):.1f} and bf16 "
+          f"{tp_rate(ref[torch.bfloat16]):.1f} tok/s; {b_part}")
+    n = min(4, torch.cuda.device_count())
+    k11_c = 0
+    if n < 2:
+        c_part = ("(c) did not run: one CUDA device is visible, and real "
+                  "ranks need one card each")
+    else:
+        n = 4 if n == 4 else 2
+        part, k11_c = tp_ranks(P, n, "nccl", ref, "(c)")
+        c_part = f"(c) on {n} NCCL ranks ({smi_line}): {part}"
+    print(f"phase 22 {c_part}")
+    print(f"phase 22 took {time.perf_counter() - t0:.1f} s")
+    return k11_a + k11_b + k11_c
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
@@ -6677,6 +6954,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel21 = phase_parallel(T, FA, CE, smi[0], profile)
 
+    # 22. tensor-parallel serving: the three entry points on one rank,
+    # Mistral 7B's width on 4 ranks sharing the card, real ranks where
+    # there are cards for them
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_k11 = phase_tp_serving(T, PA, S, prompts, max_news, outs,
+                              n_tok / wall, smi[0])
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -6687,10 +6972,11 @@ def main() -> int:
         "source": "neuronika_tpu_torch/csrc/paged_attention.cu",
         "replaces": "neuronika_tpu/ops/pallas/paged_attention.py:44",
         "launches": (launches + loop_k11 + models["paged_attention"]
-                     + serving18 + wide_k11),
+                     + serving18 + wide_k11 + tp_k11),
         "launches_by_phase": {"4": launches, "16": loop_k11,
                               "17": models["paged_attention"],
-                              "18": serving18, "19": wide_k11},
+                              "18": serving18, "19": wide_k11,
+                              "22": tp_k11},
         "max_abs_err": err, "ms": kern_ms,
         "plain_ms": plain_ms, "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None,

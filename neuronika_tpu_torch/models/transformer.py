@@ -988,17 +988,23 @@ def _int8_mm(xq, q8):
     return torch._int_mm(xq, q8)[:M, :N]
 
 
-def _qdot(x, w, cfg: GPTConfig):
+def _qdot(x, w, cfg: GPTConfig, tp=None):
     """Decode matmul (JAX's `_qdot`): a plain compute-dtype dot; W8A8 when
     `w` came from `_quant_w` (x quantized per token, an int8 product summed
     exactly in int32, then rescaled in f32: an f32 result); W4A16 when `w`
     came from `_quant_w4` (dequantized to the compute dtype, then a plain
-    dot). The plain and W4A16 products come back in the compute dtype."""
+    dot). The plain and W4A16 products come back in the compute dtype.
+    With `tp` (`_ServeTP`; x this rank's part of each row, `w` its rows of
+    a row-parallel leaf) W8A8 scales a token by the amax of its whole row,
+    the max over the tp ranks, as JAX's program does."""
     if isinstance(w, dict) and "q4p" in w:
         return torch.matmul(x.to(cfg.dtype), dequant_w4(w, cfg.dtype))
     if isinstance(w, dict):
         x32 = x.float()
-        xs = x32.abs().amax(-1, keepdim=True).clamp(min=1e-8) * _INV127
+        xs = x32.abs().amax(-1, keepdim=True)
+        if tp is not None:
+            xs = tp.amax(xs)
+        xs = xs.clamp(min=1e-8) * _INV127
         xq = torch.round(x32 / xs).clamp(-127, 127).to(torch.int8)
         y = _int8_mm(xq.reshape(-1, x.shape[-1]), w["q8"])
         y = y.reshape(x.shape[:-1] + (y.shape[-1],))
@@ -1011,6 +1017,156 @@ def _logits(x, params, cfg: GPTConfig):
     carry one, else `_lm_head`."""
     head = params.get("head")
     return _lm_head(x, params, cfg) if head is None else _qdot(x, head, cfg)
+
+
+# --------------------------------------------------------------------------
+# tensor-parallel serving: a rank runs its kv heads (JAX's GSPMD serving
+# over a "tp" mesh axis, with the collectives written out)
+
+
+class _ServeTP:
+    """One rank's tensor-parallel serving context, the one the serving
+    bodies take (prepared params sliced for the rank carry it under "tp",
+    `_tp_params`): the mesh's "tp" group, its size and this rank's
+    coordinate.
+
+    A rank holds KV/tp kv heads, H/tp query heads of the same hd: its
+    columns of the kv-group-major qkv are whole kv groups, fc_in and
+    fc_gate its columns, proj and fc_out its input rows (`splits`:
+    `param_shardings`' Megatron layout). The products of proj and fc_out
+    are partial sums, all-reduced in f32 before their biases (`tp_out`; in
+    `_mlp` too, through `tp_in` and `tp_out`, `_Shards`' names). W8A8
+    scales a token by the amax of its whole row (`amax`), and the ranks
+    take tp rank 0's sampled tokens (`tokens`), so that no tie broken
+    otherwise desynchronises their schedules. wte, wpe and the head stay
+    whole on every rank: each samples from the whole logits."""
+
+    def __init__(self, mesh, cfg: GPTConfig):
+        from ..parallel.mesh import mesh_axis
+
+        self.group, self.size, self.rank = mesh_axis(mesh, "tp")
+        self.kv = _kv_heads(cfg) // self.size
+        specs = param_shardings(mesh, cfg)["blocks"]
+        moe = _MOE_LEAVES if cfg.n_experts else ()
+        self.splits = {k: sh.dim_of("tp") for k, sh in specs.items()
+                       if k not in moe and not isinstance(sh, dict)
+                       and sh.dim_of("tp") is not None}
+
+    def tp_in(self, x):
+        return x
+
+    def tp_out(self, y):
+        """The ranks' partial sums y summed over tp, in f32."""
+        from ..parallel.collectives import all_reduce
+
+        if self.size == 1:
+            return y
+        return all_reduce(y.float().contiguous(), [self.group])
+
+    def amax(self, s):
+        from ..parallel.collectives import all_reduce
+
+        return all_reduce(s.contiguous(), [self.group], op="max")
+
+    def tokens(self, t):
+        from ..parallel.collectives import broadcast
+
+        return broadcast(t.contiguous(), self.group)
+
+
+def _local_kv(cfg: GPTConfig, tp) -> int:
+    """The kv heads a serving body runs: all, or a tp rank's."""
+    return _kv_heads(cfg) if tp is None else tp.kv
+
+
+def _tp_tokens(tp, t):
+    """Sampled tokens `t`, tp rank 0's on every rank under `tp`."""
+    return t if tp is None else tp.tokens(t)
+
+
+def _check_serving_mesh(mesh, cfg: GPTConfig, dp: bool = False) -> None:
+    """JAX's refusals of a serving mesh, with its messages (a mesh with dp
+    and tp for `make_generate`, a tp axis for the batchers), and the
+    splits this port cannot make (JAX's GSPMD pads an uneven split)."""
+    names = mesh.mesh_dim_names
+    if dp and not {"dp", "tp"} <= set(names):
+        raise ValueError(
+            "sharded serving needs a mesh with 'dp' and 'tp' axes "
+            "(either may have size 1)")
+    if "tp" not in names:
+        raise ValueError("sharded serving needs a 'tp' mesh axis")
+    tp = mesh.size(names.index("tp"))
+    if _kv_heads(cfg) % tp:
+        raise ValueError("tensor-parallel serving needs kv_heads % tp == 0")
+    if not cfg.n_experts and cfg.d_ff % tp:
+        raise ValueError(f"tp {tp} does not divide d_ff {cfg.d_ff}")
+
+
+def _tp_chunk(t, dim: int, tp: _ServeTP):
+    return t.tensor_split(tp.size, dim)[tp.rank]
+
+
+def _tp_w4_rows(w: dict, tp: _ServeTP) -> dict:
+    """A rank's rows of an int4 leaf ({"q4p": (..., K/g, g/2, N), "s4":
+    (..., K/g, 1, N)}): the packed row pairs of rows r0..r0+K/tp regrouped
+    into groups of g (or of K/tp where tp splits one group: each keeps its
+    whole group's scale), so `dequant_w4` gives the whole leaf's rows."""
+    q, s4 = w["q4p"], w["s4"]
+    ng, half, N = q.shape[-3:]
+    g, K = 2 * half, ng * 2 * half
+    k = K // tp.size
+    gl = g if k % g == 0 else k
+    if k % 2 or g % gl:
+        raise ValueError(f"tp {tp.size} cuts int4 groups of {g} rows "
+                         f"unevenly ({K} rows)")
+    r0 = tp.rank * k
+    lead = q.shape[:-3]
+    pairs = q.reshape(lead + (ng * half, N))[..., r0 // 2:(r0 + k) // 2, :]
+    groups = torch.arange(r0, r0 + k, gl, device=q.device) // g
+    return {"q4p": pairs.reshape(lead + (k // gl, gl // 2, N)).contiguous(),
+            "s4": s4[..., groups, :, :].contiguous()}
+
+
+def _tp_leaf(leaf, dim: int, tp: _ServeTP):
+    """A rank's slice of a prepared block leaf split over tp on `dim` (2:
+    output columns, 1: input rows, of the stacked (L, in, out) matrix; 1
+    of a stacked (L, out) bias). The int8 values keep their column-major
+    layout; a row split keeps the whole per-column scales."""
+    if not isinstance(leaf, dict):
+        return _tp_chunk(leaf, dim, tp).contiguous()
+    if "q8" in leaf:
+        q8 = _tp_chunk(leaf["q8"], dim, tp).mT.contiguous().mT
+        s = leaf["s"] if dim == 1 else _tp_chunk(leaf["s"], 2, tp)
+        return {"q8": q8, "s": s.contiguous()}
+    if dim == 1:
+        return _tp_w4_rows(leaf, tp)
+    return {n: _tp_chunk(t, -1, tp).contiguous() for n, t in leaf.items()}
+
+
+def _tp_params(params, cfg: GPTConfig, tp: _ServeTP):
+    """A tp rank's slice of PREPARED params (`prepare_decode_params`: the
+    whole tree quantized or cast first, so that the scales are the whole
+    weight's, bit for bit JAX's), carrying the context under "tp". The
+    embedding, positions, head, norms, the row-parallel biases and MoE
+    experts stay whole. A tree that already carries a context passes."""
+    if "tp" in params:
+        return params
+    blocks = {k: (_tp_leaf(v, tp.splits[k], tp) if k in tp.splits else v)
+              for k, v in params["blocks"].items()}
+    return dict(params, blocks=blocks, tp=tp)
+
+
+def _tp_adapter(name: str, A, B, tp):
+    """A target's stacked adapter factors (A (..., d_in, r), B (..., r,
+    d_out)) as a tp rank uses them: B split by columns on a
+    column-parallel leaf, A by rows on a row-parallel one (its correction
+    then joins the partial sum before the reduce)."""
+    dim = None if tp is None else tp.splits.get(name)
+    if dim == 2:
+        return A, _tp_chunk(B, -1, tp).contiguous()
+    if dim == 1:
+        return _tp_chunk(A, -2, tp).contiguous(), B
+    return A, B
 
 
 # --------------------------------------------------------------------------
@@ -1030,11 +1186,15 @@ def _lora_delta(h, ab, name, sel, cfg: GPTConfig):
     return torch.bmm(torch.bmm(h.to(cfg.dtype), A), Bm)
 
 
-def _ldot(h, blk, name, cfg: GPTConfig, ab=None, sel=None):
-    """`_qdot` plus the per-row LoRA correction, if any."""
-    y = _qdot(h, blk[name], cfg)
+def _ldot(h, blk, name, cfg: GPTConfig, ab=None, sel=None, tp=None):
+    """`_qdot` plus the per-row LoRA correction, if any. With `tp` (a
+    row-parallel leaf, proj or fc_out, on a tp rank) the product and the
+    correction are this rank's partial sums, all-reduced over tp together
+    (`_ServeTP.tp_out`: f32)."""
+    y = _qdot(h, blk[name], cfg, tp)
     d = _lora_delta(h, ab, name, sel, cfg)
-    return y if d is None else y + d
+    y = y if d is None else y + d
+    return y if tp is None else tp.tp_out(y)
 
 
 def _layer_ab(adapters, i: int):
@@ -1042,16 +1202,17 @@ def _layer_ab(adapters, i: int):
     return None if adapters is None else _layer(adapters, i)
 
 
-def _decode_qkv(x, blk, cfg: GPTConfig, pos, ab=None, sel=None):
-    """q (B,KV,G,1,hd), new-token k/v (B,KV,1,hd) for one layer. Under
-    rope, q and k are rotated by their positions `pos` (B,) or a 0-d
-    tensor, so keys enter the cache after rotation and cached reads need
-    none."""
+def _decode_qkv(x, blk, cfg: GPTConfig, pos, ab=None, sel=None, tp=None):
+    """q (B,KV,G,1,hd), new-token k/v (B,KV,1,hd) for one layer (KV this
+    rank's kv heads under `tp`). Under rope, q and k are rotated by their
+    positions `pos` (B,) or a 0-d tensor, so keys enter the cache after
+    rotation and cached reads need none."""
     h = _layer_norm(x, blk["ln1"], cfg.norm_eps)
     qkv = _badd(_ldot(h, blk, "qkv", cfg, ab, sel), blk, "qkv_b", cfg)
     # grouped-query attention without repeating K/V: the group axis is
     # folded into the query side (G = H/KV queries share a KV head)
-    q, k, v = _unpack_qkv(qkv, cfg)      # q (B,1,KV,G,hd), k/v (B,1,KV,hd)
+    # q (B,1,KV,G,hd), k/v (B,1,KV,hd)
+    q, k, v = _unpack_qkv(qkv, cfg, _local_kv(cfg, tp))
     if cfg.pos_emb == "rope":
         cos, sin = _rope_cos_sin(cfg, pos.reshape(-1))  # (B or 1, hd/2)
         q = _apply_rope(q, cos[:, None, None, None], sin[:, None, None, None])
@@ -1061,11 +1222,11 @@ def _decode_qkv(x, blk, cfg: GPTConfig, pos, ab=None, sel=None):
 
 
 def _decode_block(x, blk, q, lk, lv, pos, cfg: GPTConfig, ab=None,
-                  sel=None):
+                  sel=None, tp=None):
     """Attention + MLP for a single new token x (B, 1, D) over a gathered
     cache `lk`/`lv` (B, KV, S, hd) that ALREADY holds the new token at
-    `pos` ((B,) or 0-d). Scores and PV in f32; the softmax is cast to the
-    compute dtype before PV, as in JAX."""
+    `pos` ((B,) or 0-d); under `tp` the rank's kv heads. Scores and PV in
+    f32; the softmax is cast to the compute dtype before PV, as in JAX."""
     B = x.shape[0]
     hd = cfg.d_model // cfg.n_head
     att = torch.einsum("bkgqd,bksd->bkgqs", q.float(), lk.float())
@@ -1077,26 +1238,31 @@ def _decode_block(x, blk, q, lk, lv, pos, cfg: GPTConfig, ab=None,
         keep &= pos_b - idx < cfg.window
     att = torch.softmax(att.masked_fill(~keep, -1e30), -1).to(cfg.dtype)
     ctx = torch.einsum("bkgqs,bksd->bkgqd", att.float(), lv.float())
-    ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(B, 1, cfg.d_model)
-    return _decode_post(x, blk, ctx, cfg, ab, sel)
+    ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(B, 1, -1)
+    return _decode_post(x, blk, ctx, cfg, ab, sel, tp)
 
 
-def _decode_post(x, blk, ctx, cfg: GPTConfig, ab=None, sel=None):
+def _decode_post(x, blk, ctx, cfg: GPTConfig, ab=None, sel=None, tp=None):
     """Post-attention half of a decode block: output projection,
-    residual, MLP. `ctx` is the merged-heads attention output (B, 1, D)."""
-    ctx = _ldot(ctx, blk, "proj", cfg, ab, sel)
+    residual, MLP. `ctx` is the merged-heads attention output (B, 1, D),
+    under `tp` the rank's heads (B, 1, D/tp), whose projection is summed
+    over tp before its bias."""
+    ctx = _ldot(ctx, blk, "proj", cfg, ab, sel, tp)
     x = x + _badd(ctx, blk, "proj_b", cfg)
     return x + _decode_mlp(_layer_norm(x, blk["ln2"], cfg.norm_eps), blk,
-                           cfg, ab, sel)
+                           cfg, ab, sel, tp)
 
 
-def _decode_mlp(x, blk, cfg: GPTConfig, ab=None, sel=None):
+def _decode_mlp(x, blk, cfg: GPTConfig, ab=None, sel=None, tp=None):
     """The serving MLP (JAX's `_decode_mlp`): through `_ldot` when the
-    weights are quantized or an adapter targets the MLP, else `_mlp`."""
+    weights are quantized or an adapter targets the MLP, else `_mlp`.
+    Under `tp` fc_in and fc_gate hold the rank's columns and fc_out its
+    rows, whose product is summed over tp before fc_out's bias; experts
+    are held whole on every rank."""
     mlp_lora = ab is not None and any(
         k in ab for k in ("fc_in", "fc_out", "fc_gate"))
     if not (isinstance(blk["fc_in"], dict) or mlp_lora):
-        return _mlp(x, blk, cfg)
+        return _mlp(x, blk, cfg, mesh=tp)
     h = _badd(_ldot(x, blk, "fc_in", cfg, ab, sel), blk, "fc_in_b", cfg)
     if cfg.mlp == "swiglu":
         g = _badd(_ldot(x, blk, "fc_gate", cfg, ab, sel), blk, "fc_gate_b",
@@ -1104,7 +1270,8 @@ def _decode_mlp(x, blk, cfg: GPTConfig, ab=None, sel=None):
         h = (F.silu(g.float()) * h).to(cfg.dtype)
     else:
         h = F.gelu(h, approximate="tanh")
-    return _badd(_ldot(h, blk, "fc_out", cfg, ab, sel), blk, "fc_out_b", cfg)
+    return _badd(_ldot(h, blk, "fc_out", cfg, ab, sel, tp), blk, "fc_out_b",
+                 cfg)
 
 
 def _kv_names(cache):
@@ -1141,11 +1308,14 @@ def _prefill_body(params, cache, prompt, cfg: GPTConfig, ab=None, sel=None,
     positions blind to them and decode overwrites them first). `ab`
     (stacked adapters, leading layer axis) and `sel` (B,) apply per-row
     LoRA corrections. Attention here is plain torch, as it is an einsum
-    outside any kernel in JAX."""
+    outside any kernel in JAX. Params sliced for a tp rank (`_tp_params`)
+    carry their context: the pass then runs the rank's heads."""
     B, P = prompt.shape
     hd = cfg.d_model // cfg.n_head
     dev = prompt.device
     quant_kv = "ks" in cache
+    tp = params.get("tp")
+    KV = _local_kv(cfg, tp)
     x = params["wte"][prompt.long()]
     if cfg.pos_emb == "learned":
         x = x + params["wpe"][:P]
@@ -1162,7 +1332,7 @@ def _prefill_body(params, cache, prompt, cfg: GPTConfig, ab=None, sel=None,
         ab_l = _layer_ab(ab, i)
         h = _layer_norm(x, blk["ln1"], cfg.norm_eps)
         qkv = _badd(_ldot(h, blk, "qkv", cfg, ab_l, sel), blk, "qkv_b", cfg)
-        q, k, v = _unpack_qkv(qkv, cfg)
+        q, k, v = _unpack_qkv(qkv, cfg, KV)
         if cfg.pos_emb == "rope":      # q/k (B,P,KV,{G,}hd): rotate by P
             q = _apply_rope(q, r_cos[:, None, None], r_sin[:, None, None])
             k = _apply_rope(k, r_cos[:, None], r_sin[:, None])
@@ -1173,12 +1343,11 @@ def _prefill_body(params, cache, prompt, cfg: GPTConfig, ab=None, sel=None,
         att = att / math.sqrt(hd)
         att = torch.softmax(att.masked_fill(~keep, -1e30), -1).to(cfg.dtype)
         ctx = torch.einsum("bkgqs,bksd->bkgqd", att.float(), v.float())
-        ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(
-            B, P, cfg.d_model)
-        x = x + _badd(_ldot(ctx, blk, "proj", cfg, ab_l, sel), blk,
+        ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(B, P, -1)
+        x = x + _badd(_ldot(ctx, blk, "proj", cfg, ab_l, sel, tp), blk,
                       "proj_b", cfg)
         x = x + _decode_mlp(_layer_norm(x, blk["ln2"], cfg.norm_eps), blk,
-                            cfg, ab_l, sel)
+                            cfg, ab_l, sel, tp)
         for name, t in _kv_entries(k, v, quant_kv):
             cache[name][i, :, :, :P] = t
     if last is None:
@@ -1205,6 +1374,8 @@ def _verify_body(params, cache, tokens, cfg: GPTConfig, ab=None, sel=None):
     dev = tokens.device
     pos = cache["pos"]
     quant_kv = "ks" in cache
+    tp = params.get("tp")
+    KV = _local_kv(cfg, tp)
     at = torch.arange(C, device=dev)
     at = at + (pos if isinstance(pos, int) else pos.long())
     x = params["wte"][tokens.long()]
@@ -1223,7 +1394,7 @@ def _verify_body(params, cache, tokens, cfg: GPTConfig, ab=None, sel=None):
         ab_l = _layer_ab(ab, i)
         h = _layer_norm(x, blk["ln1"], cfg.norm_eps)
         qkv = _badd(_ldot(h, blk, "qkv", cfg, ab_l, sel), blk, "qkv_b", cfg)
-        q, k, v = _unpack_qkv(qkv, cfg)
+        q, k, v = _unpack_qkv(qkv, cfg, KV)
         if cfg.pos_emb == "rope":
             q = _apply_rope(q, r_cos[:, None, None], r_sin[:, None, None])
             k = _apply_rope(k, r_cos[:, None], r_sin[:, None])
@@ -1237,12 +1408,11 @@ def _verify_body(params, cache, tokens, cfg: GPTConfig, ab=None, sel=None):
         att = att / math.sqrt(hd)
         att = torch.softmax(att.masked_fill(~keep, -1e30), -1).to(cfg.dtype)
         ctx = torch.einsum("bkgqs,bksd->bkgqd", att.float(), lv.float())
-        ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(
-            B, C, cfg.d_model)
-        x = x + _badd(_ldot(ctx, blk, "proj", cfg, ab_l, sel), blk,
+        ctx = ctx.to(cfg.dtype).permute(0, 3, 1, 2, 4).reshape(B, C, -1)
+        x = x + _badd(_ldot(ctx, blk, "proj", cfg, ab_l, sel, tp), blk,
                       "proj_b", cfg)
         x = x + _decode_mlp(_layer_norm(x, blk["ln2"], cfg.norm_eps), blk,
-                            cfg, ab_l, sel)
+                            cfg, ab_l, sel, tp)
     x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
     cache["pos"] = pos + C
     return _logits(x, params, cfg), cache
@@ -1253,16 +1423,17 @@ def _verify_body(params, cache, tokens, cfg: GPTConfig, ab=None, sel=None):
 
 
 def init_kv_cache(cfg: GPTConfig, batch: int, quant: str | None = None,
-                  device=None):
+                  device=None, tp=None):
     """Per-layer K/V buffers (L, B, KV, max_seq, hd) in the compute dtype
     and the position, a 0-d int32 tensor, on `device` (default
     `config.device`). With GQA the cache is n_head/n_kv_head times smaller.
     With `quant="int8-kv"` K/V are int8 with an f32 scale per (token, head)
-    in "ks"/"vs" (..., 1); every other mode keeps the compute dtype."""
+    in "ks"/"vs" (..., 1); every other mode keeps the compute dtype. With
+    `tp` (`_ServeTP`) KV is the rank's KV/tp heads."""
     _check_mode(quant)
     dev = resolve(config.device if device is None else device)
     hd = cfg.d_model // cfg.n_head
-    shape = (cfg.n_layer, batch, _kv_heads(cfg), cfg.max_seq, hd)
+    shape = (cfg.n_layer, batch, _local_kv(cfg, tp), cfg.max_seq, hd)
     if quant == "int8-kv":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -1291,13 +1462,14 @@ def _decode_step_body(params, cache, token, cfg: GPTConfig):
         x = x + params["wpe"].index_select(0, at)
     x = x.to(cfg.dtype)
     pos_b = at.repeat(B)
+    tp = params.get("tp")
     for i in range(cfg.n_layer):
         blk = _layer(params["blocks"], i)
-        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos_b)
+        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos_b, tp=tp)
         for name, t in _kv_entries(k_new, v_new, quant_kv):
             cache[name][i].index_copy_(2, at, t)
         lk, lv = _kv_layer(cache, i, cfg)
-        x = _decode_block(x, blk, q, lk, lv, pos_b, cfg)
+        x = _decode_block(x, blk, q, lk, lv, pos_b, cfg, tp=tp)
     x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
     cache["pos"] = pos + 1
     return _logits(x[:, 0], params, cfg), cache
@@ -1338,14 +1510,16 @@ def make_prefill(cfg: GPTConfig, quant: str | None = None):
 
 def sample_logits(logits, generator: torch.Generator | None = None,
                   temperature: float = 0.0, top_k: int = 0,
-                  top_p: float = 0.0, min_p: float = 0.0):
+                  top_p: float = 0.0, min_p: float = 0.0, rows=None):
     """One sampling step over (B, V) logits -> (B,) int32 tokens, all rows
     at once: greedy at temperature 0 (argmax, the first index on ties),
     else the temperature-scaled logits filtered in JAX's order (min-p, then
     top-k, then top-p; each keeps the top token) and sampled by Gumbel-max,
     as `jax.random.categorical`, with noise from `generator` (on the
-    logits' device; None draws from torch's default generator). No host
-    sync. The draws do not reproduce JAX's bits."""
+    logits' device; None draws from torch's default generator). `rows`
+    (start, n): the logits are rows start.. of a batch of n, and the noise
+    drawn is the whole batch's (a dp shard samples as the whole batch
+    does). No host sync. The draws do not reproduce JAX's bits."""
     if temperature <= 0.0:
         return logits.argmax(-1).to(torch.int32)
     lt = logits.float() / temperature
@@ -1363,7 +1537,11 @@ def sample_logits(logits, generator: torch.Generator | None = None,
         cutoff = torch.where(keep, sorted_desc, float("inf")).amin(
             -1, keepdim=True)
         lt = lt.masked_fill(lt < cutoff, neg)
-    u = torch.rand(lt.shape, generator=generator, device=lt.device)
+    if rows is None:
+        u = torch.rand(lt.shape, generator=generator, device=lt.device)
+    else:
+        u = torch.rand((rows[1], lt.shape[-1]), generator=generator,
+                       device=lt.device)[rows[0]:rows[0] + lt.shape[0]]
     gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
     return (lt + gumbel).argmax(-1).to(torch.int32)
 
@@ -1376,12 +1554,6 @@ def _prompt_tensor(prompt, cfg: GPTConfig, max_new: int, dev):
         raise ValueError(f"prompt length {prompt.shape[1]} + max_new "
                          f"{max_new} exceeds max_seq {cfg.max_seq}")
     return prompt
-
-
-def _mesh_refused(what: str):
-    return NotImplementedError(f"{what}(mesh=...): tensor-parallel serving "
-                               f"is not ported yet (ROADMAP.md queue 1 item "
-                               f"5)")
 
 
 def make_generate(cfg: GPTConfig, max_new: int, temperature: float = 0.0,
@@ -1400,22 +1572,48 @@ def make_generate(cfg: GPTConfig, max_new: int, temperature: float = 0.0,
     `make_decode_step` (the weights quantized once a call, outside the
     loop).
 
+    With `mesh` (a DeviceMesh with "dp" and "tp" axes, either of size 1;
+    every rank calls gen with the same whole params and prompt), serving
+    runs tensor-parallel, as JAX's: each rank takes its dp rows of the
+    batch (B % dp == 0) and its tp slice of the prepared params
+    (`_tp_params`: Megatron's layout, kv heads over tp, KV % tp == 0), its
+    cache holds those rows and heads, each layer all-reduces proj's and
+    fc_out's products over tp, the tp ranks take tp rank 0's tokens, and
+    the rows are gathered over dp: every rank returns the whole (B, P +
+    max_new). A sampled dp shard draws the whole batch's noise and keeps
+    its rows, so with the same generator state the tokens are the
+    unsharded program's.
+
     Returns gen(params, prompt (B, P), generator=None) -> (B, P + max_new)
-    int32 on the params' device; P + max_new must fit cfg.max_seq. `mesh`
-    (tensor-parallel serving) is not ported."""
+    int32 on the params' device; P + max_new must fit cfg.max_seq."""
     _require_causal(cfg, "kv-cache decoding/serving")
     _check_mode(quant)
+    tp = dp_group = None
+    dp, dp_rank = 1, 0
     if mesh is not None:
-        raise _mesh_refused("make_generate")
+        from ..parallel.mesh import mesh_axis
+
+        _check_serving_mesh(mesh, cfg, dp=True)
+        tp = _ServeTP(mesh, cfg)
+        dp_group, dp, dp_rank = mesh_axis(mesh, "dp")
     rp = repetition_penalty
 
     @torch.no_grad()
     def gen(params, prompt, generator: torch.Generator | None = None):
         params = _prep_decode_params(params, cfg, quant)  # outside the loop
+        if tp is not None:
+            params = _tp_params(params, cfg, tp)
         dev = params["wte"].device
         prompt = _prompt_tensor(prompt, cfg, max_new, dev)
         B, P = prompt.shape
-        cache = init_kv_cache(cfg, B, quant=quant, device=dev)
+        rows = None
+        if tp is not None:
+            if B % dp:
+                raise ValueError(f"dp {dp} does not divide the batch {B}")
+            rows = (dp_rank * (B // dp), B)
+            prompt = prompt[rows[0]:rows[0] + B // dp]
+            B = B // dp
+        cache = init_kv_cache(cfg, B, quant=quant, device=dev, tp=tp)
         logits, cache = _prefill_body(params, cache, prompt, cfg)
         out = torch.empty((B, P + max_new), dtype=torch.int32, device=dev)
         out[:, :P] = prompt
@@ -1429,13 +1627,17 @@ def make_generate(cfg: GPTConfig, max_new: int, temperature: float = 0.0,
             if seen is not None:
                 lg = torch.where(seen, torch.where(lg > 0, lg / rp, lg * rp),
                                  lg)
-            nxt = sample_logits(lg, generator, temperature, top_k, top_p,
-                                min_p)
+            nxt = _tp_tokens(tp, sample_logits(lg, generator, temperature,
+                                               top_k, top_p, min_p, rows))
             out[:, P + t] = nxt
             if seen is not None:
                 seen.scatter_(1, nxt[:, None].long(), True)
             if t + 1 < max_new:      # the last token's logits go unused
                 logits, cache = _decode_step_body(params, cache, nxt, cfg)
+        if tp is not None:
+            from ..parallel.collectives import gather
+
+            out = gather(out, 0, dp_group)
         return out
 
     return gen
@@ -1603,11 +1805,11 @@ def make_speculative_generate(cfg_target: GPTConfig, cfg_draft: GPTConfig,
 
 
 def init_slot_cache(cfg: GPTConfig, n_slots: int, quant: str | None = None,
-                    device=None):
+                    device=None, tp=None):
     """KV cache for slot-based serving: `init_kv_cache`'s layout (the int8
-    one for "int8-kv") with a PER-SLOT position vector (n_slots,) int32:
-    each slot advances on its own."""
-    cache = init_kv_cache(cfg, n_slots, quant=quant, device=device)
+    one for "int8-kv"; a tp rank's heads under `tp`) with a PER-SLOT
+    position vector (n_slots,) int32: each slot advances on its own."""
+    cache = init_kv_cache(cfg, n_slots, quant=quant, device=device, tp=tp)
     cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
                                device=cache["k"].device)
     return cache
@@ -1622,7 +1824,7 @@ def _slot_prefill_run(params, cache, prompt, slots, plen, last, cfg,
     if isinstance(slots, int):
         slots = slice(slots, slots + 1)
     mini = init_kv_cache(cfg, prompt.shape[0], quant=quant,
-                         device=prompt.device)
+                         device=prompt.device, tp=params.get("tp"))
     logits, mini = _prefill_body(params, mini, prompt, cfg, ab, sel, last)
     for n in _kv_names(cache):
         cache[n][:, slots] = mini[n]
@@ -1767,16 +1969,17 @@ def _slot_decode_body(params, cache, tokens, active, cfg: GPTConfig,
     bar = torch.arange(B, device=tokens.device)
     keep = active[:, None, None]
     quant_kv = "ks" in cache
+    tp = params.get("tp")
     for i in range(cfg.n_layer):
         blk = _layer(params["blocks"], i)
         ab_l = _layer_ab(adapters, i)
-        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos, ab_l, sel)
+        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos, ab_l, sel, tp)
         for name, t in _kv_entries(k_new, v_new, quant_kv):
             c = cache[name][i]
             # two advanced indices split by a slice: (B, KV, last)
             c[bar, :, pw] = torch.where(keep, t[:, :, 0], c[bar, :, pw])
         lk, lv = _kv_layer(cache, i, cfg)
-        x = _decode_block(x, blk, q, lk, lv, pos_w, cfg, ab_l, sel)
+        x = _decode_block(x, blk, q, lk, lv, pos_w, cfg, ab_l, sel, tp)
     x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
     cache["pos"] = torch.where(active, (pos + 1).clamp(max=cfg.max_seq), pos)
     return _logits(x[:, 0], params, cfg), cache
@@ -1800,18 +2003,19 @@ def make_slot_decode_step(cfg: GPTConfig, quant: str | None = None):
 
 
 def _decode_window(k, body, tokens, active, seeds, steps0, temperature,
-                   top_k, top_p, min_p):
+                   top_k, top_p, min_p, tp=None):
     """k decode steps and per-row sampling without a host read: `body(tok)`
     runs one step and returns its logits. Row b's token at step i is drawn
-    from (seeds[b], steps0[b] + i), as the per-step path draws it.
-    Returns the (k, B) int32 tokens on the device."""
+    from (seeds[b], steps0[b] + i), as the per-step path draws it; under
+    `tp` every rank takes tp rank 0's tokens. Returns the (k, B) int32
+    tokens on the device."""
     toks = []
     tok = tokens
     for i in range(k):
         logits = body(tok)
-        nxt = sample_logits_batched(logits, seeds,
-                                    [s + i for s in steps0], temperature,
-                                    top_k, top_p, min_p).to(torch.int32)
+        nxt = _tp_tokens(tp, sample_logits_batched(
+            logits, seeds, [s + i for s in steps0], temperature, top_k,
+            top_p, min_p)).to(torch.int32)
         tok = torch.where(active, nxt, tok)
         toks.append(nxt)
     return torch.stack(toks)
@@ -1839,7 +2043,8 @@ def make_slot_decode_many(cfg: GPTConfig, k: int, quant: str | None = None):
                                      adapters, sel)[0]
 
         return _decode_window(k, body, tokens, active, seeds, steps0,
-                              temperature, top_k, top_p, min_p), cache
+                              temperature, top_k, top_p, min_p,
+                              params.get("tp")), cache
 
     return many
 
@@ -1858,14 +2063,15 @@ def _paged_mode(quant) -> None:
 
 
 def init_paged_cache(cfg: GPTConfig, n_blocks: int, block_size: int,
-                     n_slots: int, device):
+                     n_slots: int, device, tp=None):
     """Block-pool KV cache: K/V live in a shared pool of `n_blocks`
     fixed-size blocks (L, NB, KV, BS, hd) instead of a dense per-slot
-    reservation. Block 0 is scratch for inactive decode lanes; the
-    allocator (serving.PagedBatcher) never hands it out."""
+    reservation; under `tp` the rank's KV/tp heads, a plain local tensor.
+    Block 0 is scratch for inactive decode lanes; the allocator
+    (serving.PagedBatcher) never hands it out."""
     dev = resolve(device)
     hd = cfg.d_model // cfg.n_head
-    shape = (cfg.n_layer, n_blocks, _kv_heads(cfg), block_size, hd)
+    shape = (cfg.n_layer, n_blocks, _local_kv(cfg, tp), block_size, hd)
     return {
         "pk": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "pv": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -1873,9 +2079,11 @@ def init_paged_cache(cfg: GPTConfig, n_blocks: int, block_size: int,
     }
 
 
-def _mini(cfg: GPTConfig, m: int, S: int, dev):
-    """A dense (L, m, KV, S, hd) K/V scratch cache in the compute dtype."""
-    shape = (cfg.n_layer, m, _kv_heads(cfg), S, cfg.d_model // cfg.n_head)
+def _mini(cfg: GPTConfig, m: int, S: int, dev, tp=None):
+    """A dense (L, m, KV, S, hd) K/V scratch cache in the compute dtype
+    (KV the rank's heads under `tp`)."""
+    shape = (cfg.n_layer, m, _local_kv(cfg, tp), S,
+             cfg.d_model // cfg.n_head)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "pos": 0}
@@ -1921,7 +2129,8 @@ def make_paged_prefill(cfg: GPTConfig, block_size: int,
     def body(params, cache, prompt, slot, blocks, ab, sel, plen, last):
         params = _prep_decode_params(params, cfg, quant)
         nb = -(-prompt.shape[1] // BS)
-        mini = _mini(cfg, 1, max(nb * BS, BS), prompt.device)
+        mini = _mini(cfg, 1, max(nb * BS, BS), prompt.device,
+                     params.get("tp"))
         logits, mini = _prefill_body(params, mini, prompt, cfg, ab, sel,
                                      last)
         _scatter_blocks(cache, mini["k"], mini["v"], blocks[:nb].long(), BS)
@@ -1959,7 +2168,8 @@ def make_paged_prefill_multi(cfg: GPTConfig, block_size: int,
         params = _prep_decode_params(params, cfg, quant)
         m, P = prompts.shape
         nb = -(-P // BS)
-        mini = _mini(cfg, m, max(nb * BS, BS), prompts.device)
+        mini = _mini(cfg, m, max(nb * BS, BS), prompts.device,
+                     params.get("tp"))
         logits, mini = _prefill_body(params, mini, prompts, cfg,
                                      last=plens - 1)
         _scatter_blocks(cache, mini["k"][:, :, :, :nb * BS],
@@ -2089,11 +2299,14 @@ def _paged_decode_body(params, cache, tokens, active, table,
                        cfg: GPTConfig, use_kernel: bool, BS: int,
                        adapters=None, sel=None):
     """One paged-decode step on PREPARED params (the body of
-    `make_paged_decode_step` and `make_paged_decode_many`)."""
+    `make_paged_decode_step` and `make_paged_decode_many`). On a tp rank
+    the pool holds the rank's kv heads whole, so K11 runs on it as on one
+    card, at (B, KV/tp, G, hd)."""
     pos = cache["pos"]                                   # (B,) int32
     B = tokens.shape[0]
     MB = table.shape[1]
-    KV = _kv_heads(cfg)
+    tp = params.get("tp")
+    KV = _local_kv(cfg, tp)
     hd = cfg.d_model // cfg.n_head
     pos_w = pos.clamp(max=MB * BS - 1)                   # clamp idle slots
     x = params["wte"][tokens.long()]
@@ -2108,7 +2321,7 @@ def _paged_decode_body(params, cache, tokens, active, table,
     for i in range(cfg.n_layer):
         blk = _layer(params["blocks"], i)
         ab_l = _layer_ab(adapters, i)
-        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos, ab_l, sel)
+        q, k_new, v_new = _decode_qkv(x, blk, cfg, pos, ab_l, sel, tp)
         pk_l, pv_l = cache["pk"][i], cache["pv"][i]
         # two advanced indices split by a slice: the batch axis comes first,
         # (B, KV, hd), matching k_new[:, :, 0]
@@ -2118,14 +2331,14 @@ def _paged_decode_body(params, cache, tokens, active, table,
             ctx = paged_attention(q[:, :, :, 0].contiguous(), pk_l, pv_l,
                                   table, pos_w, window=cfg.window)
             # kv-group-major (B, KV, G, hd) == head-major merge
-            x = _decode_post(x, blk, ctx.reshape(B, 1, cfg.d_model), cfg,
-                             ab_l, sel)
+            x = _decode_post(x, blk, ctx.reshape(B, 1, -1), cfg, ab_l, sel,
+                             tp)
         else:
             lk = pk_l[t_long].permute(0, 2, 1, 3, 4).reshape(
                 B, KV, MB * BS, hd)
             lv = pv_l[t_long].permute(0, 2, 1, 3, 4).reshape(
                 B, KV, MB * BS, hd)
-            x = _decode_block(x, blk, q, lk, lv, pos_w, cfg, ab_l, sel)
+            x = _decode_block(x, blk, q, lk, lv, pos_w, cfg, ab_l, sel, tp)
     x = _layer_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _logits(x[:, 0], params, cfg)
     cache["pos"] = torch.where(active, pos + 1, pos)
@@ -2158,7 +2371,8 @@ def make_paged_decode_many(cfg: GPTConfig, block_size: int, k: int,
                                       kernel != "off", BS, adapters, sel)[0]
 
         return _decode_window(k, body, tokens, active, seeds, steps0,
-                              temperature, top_k, top_p, min_p), cache
+                              temperature, top_k, top_p, min_p,
+                              params.get("tp")), cache
 
     return many
 
@@ -2716,19 +2930,13 @@ class _Shards:
     `tp_leave`)."""
 
     def __init__(self, mesh, cfg: GPTConfig, shardings):
-        names = mesh.mesh_dim_names
+        from ..parallel.mesh import mesh_axis
 
-        def axis(a):
-            if a not in names:
-                return None, 1, 0
-            return (mesh.get_group(a), mesh.size(names.index(a)),
-                    mesh.get_local_rank(a))
-
-        self.dp_group, self.dp, self.dp_rank = axis("dp")
-        self.tp_group, self.tp, self.tp_rank = axis("tp")
-        self.cp_group, self.cp, self.cp_rank = axis("cp")
-        self.ep_group, self.ep, self.ep_rank = axis("ep")
-        self.has_ep = "ep" in names
+        self.dp_group, self.dp, self.dp_rank = mesh_axis(mesh, "dp")
+        self.tp_group, self.tp, self.tp_rank = mesh_axis(mesh, "tp")
+        self.cp_group, self.cp, self.cp_rank = mesh_axis(mesh, "cp")
+        self.ep_group, self.ep, self.ep_rank = mesh_axis(mesh, "ep")
+        self.has_ep = "ep" in mesh.mesh_dim_names
         self.seq_tp = cfg.seq_parallel and self.tp > 1 and self.cp == 1
         self.token_groups = {"dp": self.dp_group, "cp": self.cp_group}
         if self.seq_tp:

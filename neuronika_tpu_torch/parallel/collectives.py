@@ -12,6 +12,8 @@ on every rank, so that each keeps its own slice of it, and its
 conjugate `split` (this rank's slice forward, all-gather backward).
 `all_to_all` is JAX's tiled `lax.all_to_all` (backward: the reverse
 all-to-all). A group of one rank, or None, makes every op the identity.
+`all_reduce` (a sum, or a max) and `broadcast` are the plain collectives
+the tensor-parallel serving programs run under `torch.no_grad`.
 
 `ring_shift` moves tensors one rank forward around a group with
 `batch_isend_irecv` (ring attention's hop); `pp_exchange` is one tick of
@@ -28,8 +30,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["copy_to", "reduce_from", "gather", "scatter", "split",
-           "all_to_all", "all_reduce", "ring_shift", "pp_exchange",
-           "send_next"]
+           "all_to_all", "all_reduce", "broadcast", "ring_shift",
+           "pp_exchange", "send_next"]
 
 
 # torch 2.13 names them *_single and deprecates the older names, which
@@ -44,13 +46,26 @@ def _live(group) -> bool:
     return group is not None and dist.get_world_size(group) > 1
 
 
-def all_reduce(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
-    """x summed over every group in `groups`, in place (not differentiable).
-    Sums over groups of independent mesh axes compose: their product is the
-    sum over the product of the axes."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, groups: Sequence,
+               op: str = "sum") -> torch.Tensor:
+    """x summed (`op="sum"`) or its elementwise max taken (`op="max"`)
+    over every group in `groups`, in place (not differentiable). Over
+    groups of independent mesh axes either composes: the result is the
+    reduction over the product of the axes."""
     for g in groups:
         if _live(g):
-            dist.all_reduce(x, group=g)
+            dist.all_reduce(x, op=_OPS[op], group=g)
+    return x
+
+
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """x as rank `src` of `group` holds it, on every rank of the group, in
+    place (not differentiable)."""
+    if _live(group):
+        dist.broadcast(x, dist.get_global_rank(group, src), group=group)
     return x
 
 

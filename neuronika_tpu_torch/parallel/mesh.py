@@ -40,7 +40,7 @@ __all__ = [
     "make_mesh", "make_hybrid_mesh", "distributed_init",
     "make_global_batch", "data_parallel_sharding", "replicated",
     "shard_batch", "DataParallel", "shard_map_compat", "NamedSharding",
-    "spawn",
+    "mesh_axis", "spawn",
 ]
 
 
@@ -206,6 +206,16 @@ class NamedSharding:
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh.mesh_dim_names}, {self.spec})"
+
+
+def mesh_axis(mesh, axis: str) -> tuple:
+    """(process group, size, this rank's coordinate) of the mesh axis
+    `axis`; (None, 1, 0) where the mesh has no such axis."""
+    names = mesh.mesh_dim_names
+    if axis not in names:
+        return None, 1, 0
+    return (mesh.get_group(axis), mesh.size(names.index(axis)),
+            mesh.get_local_rank(axis))
 
 
 def _batch_spec(ndim: int, axis: str) -> tuple:

@@ -22,9 +22,14 @@ Serving options, as in JAX: quantized weights (`quant="int8"` W8A8,
 chunked prefill (`prefill_chunk`), bucketed prefill (`prefill_bucket`), a
 prefix cache (`register_prefix`), grouped admission of a deferred burst
 (`defer_admission`), multi-step decode windows (`step_many`,
-`run(multi_step=)`) and per-request LoRA adapters (`register_adapter`,
-`submit(adapter=)`). Tensor-parallel meshes (`mesh=`) are not ported and
-raise `NotImplementedError`.
+`run(multi_step=)`), per-request LoRA adapters (`register_adapter`,
+`submit(adapter=)`) and tensor-parallel serving (`mesh=`: a DeviceMesh
+with a "tp" axis). On a mesh every rank runs the same scheduler on the
+same requests and holds its tp slice of the prepared params and its
+KV/tp heads of the cache (`models.transformer._ServeTP`); block tables,
+slots and positions are whole and the same on every rank, the tp ranks
+take tp rank 0's sampled tokens, and dp ranks hold replicas (JAX's
+batcher leaves dp unsplit).
 """
 
 from __future__ import annotations
@@ -99,10 +104,12 @@ class ContinuousBatcher:
                  prefill_chunk: Optional[int] = None,
                  mesh=None,
                  prefill_bucket=None, *, device):
+        # tensor-parallel serving: JAX's refusals first, before any
+        # collective
+        self._tp = None
         if mesh is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}(mesh=...): tensor-parallel serving "
-                f"is not ported yet (ROADMAP.md queue 1 item 5)")
+            T._check_serving_mesh(mesh, cfg)
+            self._tp = T._ServeTP(mesh, cfg)
         # prefill shape bucketing: "pow2" pads prompts to the next power of
         # two, an int N to the next multiple of N; the padded tail's K/V
         # are dead, so outputs are those of exact shapes
@@ -116,9 +123,12 @@ class ContinuousBatcher:
         self.cfg = cfg
         self.device = resolve(device)
         self.prefill_bucket = prefill_bucket
-        # quantize or cast ONCE, on the device: the step is called per token
+        # quantize or cast ONCE, on the device: the step is called per token;
+        # a tp rank then takes its slice of the prepared tree
         self.params = T.prepare_decode_params(
             tree_map(lambda t: t.to(self.device), params), cfg, quant)
+        if self._tp is not None:
+            self.params = T._tp_params(self.params, cfg, self._tp)
         self.n_slots = n_slots
         self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk
@@ -178,7 +188,8 @@ class ContinuousBatcher:
             self.cfg, self._quant, bucketed=self.prefill_bucket is not None)
         self._step = T.make_slot_decode_step(self.cfg, self._quant)
         self.cache = T.init_slot_cache(self.cfg, self.n_slots,
-                                       quant=self._quant, device=self.device)
+                                       quant=self._quant, device=self.device,
+                                       tp=self._tp)
 
     # ------------------------------------------------------------- prefix
     def register_prefix(self, tokens) -> int:
@@ -196,7 +207,7 @@ class ContinuousBatcher:
                 bucketed=self.prefill_bucket is not None)
             self._prefix_fill = T.make_prefill(self.cfg, self._quant)
         mini = T.init_kv_cache(self.cfg, 1, quant=self._quant,
-                               device=self.device)
+                               device=self.device, tp=self._tp)
         _, mini = self._prefix_fill(self.params, mini,
                                     self._dev(tokens[None]))
         scales = (mini["ks"], mini["vs"]) if "ks" in mini else None
@@ -264,8 +275,12 @@ class ContinuousBatcher:
                 r = e[0].shape[2]
                 A[:, i, :, :r] = e[0]
                 B[:, i, :r, :] = e[1]
-            out[name] = {"A": self._dev(A).to(self.cfg.dtype),
-                         "B": self._dev(B).to(self.cfg.dtype)}
+            # a tp rank keeps its rows of A (row-parallel leaves) or its
+            # columns of B (column-parallel ones)
+            A, B = T._tp_adapter(name, torch.from_numpy(A),
+                                 torch.from_numpy(B), self._tp)
+            out[name] = {"A": A.to(self.device).to(self.cfg.dtype),
+                         "B": B.to(self.device).to(self.cfg.dtype)}
         self._adapters = out
 
     def _lora_args(self) -> tuple:
@@ -336,12 +351,15 @@ class ContinuousBatcher:
         return _ctx()
 
     # ----------------------------------------------------------- sampling
+    def _sample(self, logits, reqs):
+        """Per-row sampling of (m, V) logits for `reqs` (None: an idle
+        row) -> (m,) tokens on the device; on a tp mesh tp rank 0's."""
+        return T._tp_tokens(self._tp, T.sample_logits_batched(
+            logits, *self._controls(reqs)))
+
     def _sample_one(self, logits, req: _Request) -> int:
         """Sample the next token for one request from (V,) logits."""
-        out = T.sample_logits_batched(
-            logits.reshape(1, -1), [req.seed], [len(req.tokens)],
-            [req.temperature], [req.top_k], [req.top_p], [req.min_p])
-        return int(out[0])
+        return int(self._sample(logits.reshape(1, -1), [req])[0])
 
     def _controls(self, reqs) -> tuple:
         """(seeds, steps, temperature, top_k, top_p, min_p) host lists for
@@ -360,8 +378,7 @@ class ContinuousBatcher:
 
     def _sample_batch(self, logits) -> np.ndarray:
         """Sample every running slot's next token from (B, V) logits."""
-        out = T.sample_logits_batched(logits,
-                                      *self._controls(self._slot_reqs()))
+        out = self._sample(logits, self._slot_reqs())
         return out.cpu().numpy().astype(np.int32)
 
     def _can_admit(self, req: _Request) -> bool:
@@ -546,8 +563,7 @@ class ContinuousBatcher:
         logits, self.cache = self._group_prefill_call(
             prompts, plens, slots, group)
         reqs = [req for req, _ in group] + [group[0][0]] * pad
-        toks = T.sample_logits_batched(logits, *self._controls(reqs))
-        toks = toks.cpu().numpy()
+        toks = self._sample(logits, reqs).cpu().numpy()
         for i, (req, slot) in enumerate(group):
             self._running[slot] = req
             self._next_tok[slot] = int(toks[i])
@@ -776,8 +792,11 @@ class PagedBatcher(ContinuousBatcher):
     Block 0 is scratch for inactive decode lanes and is never handed out.
     The block table is kept on the host and passed to the decode step each
     call. `kernel` is the decode attention path ("auto", "on", "off"), in
-    per-step and multi-step decode alike. `quant="int8-kv"` is refused, as
-    JAX refuses it.
+    per-step and multi-step decode alike, and on a mesh too: a tp rank's
+    pool is a plain local tensor holding its kv heads whole, so "auto" and
+    "on" run K11 on it (JAX's Pallas call cannot take a GSPMD-sharded pool
+    and falls back to its gather path there). `quant="int8-kv"` is
+    refused, as JAX refuses it.
 
     >>> pb = PagedBatcher(params, cfg, n_slots=8, n_blocks=128,
     ...                   block_size=16, quant="int8", device="cuda")
@@ -821,7 +840,7 @@ class PagedBatcher(ContinuousBatcher):
                                               kernel=self.kernel)
         self.cache = T.init_paged_cache(self.cfg, self.n_blocks,
                                         self.block_size, self.n_slots,
-                                        self.device)
+                                        self.device, tp=self._tp)
 
     def register_prefix(self, tokens) -> int:
         """Precompute a shared prompt prefix's K/V into dedicated pool
@@ -853,7 +872,7 @@ class PagedBatcher(ContinuousBatcher):
         blocks = np.asarray(
             [self._free_blocks.popleft() for _ in range(nf)], np.int32)
         self._n_reserved += nf
-        mini = T.init_kv_cache(self.cfg, 1, device=self.device)
+        mini = T.init_kv_cache(self.cfg, 1, device=self.device, tp=self._tp)
         _, mini = self._prefix_fill(self.params, mini,
                                     self._dev(tokens[None, :cut]))
         T._scatter_blocks(self.cache, mini["k"][:, :, :, :cut],

@@ -114,14 +114,22 @@ def test_package_exposes_the_define_by_run_surface(name):
     assert name in nk.__all__ and getattr(nk, name) is not None
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
+class _DpMesh:
+    """A mesh's axis names without a "tp" axis (checked before any
+    collective, so no process group is needed)."""
+    mesh_dim_names = ("dp",)
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=_DpMesh())], ids=["mesh"])
 def test_unported_batcher_options_raise(params, kw):
-    """Only the tensor-parallel mesh is refused, naming its queue item."""
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 5"):
+    """The batchers' mesh, refused here until tensor-parallel serving was
+    ported (tests/test_torch_serving_tp.py runs it on 4 ranks), now raises
+    only JAX's ValueError for a mesh without a "tp" axis, in its words."""
+    with pytest.raises(ValueError,
+                       match="sharded serving needs a 'tp' mesh axis"):
         _batcher(params, **kw)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 5"):
+    with pytest.raises(ValueError,
+                       match="sharded serving needs a 'tp' mesh axis"):
         ContinuousBatcher(params, _cfg(), 2, device="cpu", **kw)
 
 
@@ -199,18 +207,24 @@ def test_unported_model_variants_raise(kw, item):
                 device=torch.device("cuda")))
 
 
-@pytest.mark.parametrize("call", [
-    lambda: T.make_generate(_cfg(), 4, mesh=object()),
-    lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object(),
-                    grad_clip=1.0),
-    lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object(),
-                    fsdp=True, accum_steps=2),
+_ITEM5 = (NotImplementedError, r"ROADMAP\.md queue 1 item 5")
+
+
+@pytest.mark.parametrize("call, raises", [
+    (lambda: T.make_generate(_cfg(), 4, mesh=_DpMesh()),
+     (ValueError, "sharded serving needs a mesh with 'dp' and 'tp' axes")),
+    (lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object(),
+                     grad_clip=1.0), _ITEM5),
+    (lambda: Trainer(_cfg(), generator=torch.Generator(), mesh=object(),
+                     fsdp=True, accum_steps=2), _ITEM5),
 ], ids=["make_generate-mesh", "Trainer-mesh", "Trainer-fsdp"])
-def test_unported_loop_options_raise_and_name_their_queue_item(call):
-    """Tensor-parallel serving, and clipping or accumulation on a mesh
-    (Trainer(mesh=, fsdp=) itself is ported: test_torch_parallel.py)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 "
-                                                  r"item 5"):
+def test_unported_loop_options_raise_and_name_their_queue_item(call, raises):
+    """Clipping or accumulation on a mesh name their queue item
+    (Trainer(mesh=, fsdp=) itself is ported: test_torch_parallel.py).
+    make_generate(mesh=), refused here until tensor-parallel serving was
+    ported (tests/test_torch_serving_tp.py), raises only JAX's ValueError
+    for a mesh without dp and tp axes, in its words."""
+    with pytest.raises(raises[0], match=raises[1]):
         call()
 
 

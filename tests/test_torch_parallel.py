@@ -606,13 +606,15 @@ def test_sharded_checkpoint_restores_into_a_placement(ranks):
 def test_refusals_name_their_queue_item():
     """What the sharded tier still refuses raises before any collective:
     a pp axis in the sharded step (pipelines train through the pipelined
-    steps, as JAX's) and tensor-parallel serving."""
+    steps, as JAX's), naming its queue item. Tensor-parallel serving,
+    refused here before, runs (tests/test_torch_serving_tp.py); a mesh
+    without dp and tp axes gets JAX's ValueError."""
     class Mesh:
         mesh_dim_names = ("dp", "pp")
 
     with pytest.raises(NotImplementedError, match=r"queue 1 item 5"):
         T.make_sharded_train_step(Mesh(), T.GPTConfig(**TINY))
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 5"):
+    with pytest.raises(ValueError, match="'dp' and 'tp' axes"):
         T.make_generate(T.GPTConfig(**TINY), 4, mesh=Mesh())
 
 

@@ -16,6 +16,9 @@ def test_serving_walkthrough():
     assert out["one_shot"].shape == (1, 20)
     assert [t.shape for t in out["batched"]] == [(8,), (12,), (4,)]
     assert [t.shape for t in out["burst"]] == [(8,)] * 6
+    # the JAX example's mesh block: dp1 x tp2 on two spawned gloo ranks
+    assert out["tp"].shape == (1, 20)
+    np.testing.assert_array_equal(out["tp"], out["greedy"])
 
 
 def test_speculative_decode_is_greedy_identical():
