@@ -250,6 +250,30 @@ nvidia-smi. Phases, each printing one line or a few:
      bf16 run's own distance from f32 in norm, K11 n_layer launches a
      decode step on every rank, its launches and route printed; (c) with
      two or more cards, the same on spawned NCCL ranks.
+ 23. the host-side rest of the port: (a) `entry()`'s forward (JAX's
+     flagship: V512 L4 H4 d256 S128 bf16, B4) with K1 once a layer on the
+     Hopper route, its logits within phase 3's bf16 bound of the plain
+     route's (flash "off"); (b) the Var flagship on dp-sharded ids
+     (`parallel.shard_batch`): phase 8's width, B16 split over 2 spawned
+     ranks (NCCL with 2 cards, else gloo ranks sharing the card), the
+     first fused step's loss and every parameter gradient against the
+     one-rank run (phase 19's bf16 bounds), then Adam steps with K1, the
+     fused K2 and K4 counted exact on each rank; and an f32 `mm_t`/
+     `relu`/`mse` tape on sharded rows that reaches K3 (3 launches a
+     rank), within 1e-5 of the unsharded run; each rank's K1, fused K2,
+     K3 and K4 wrappers must get only that rank's rows (their operand
+     shapes recorded); (c) a `utils.hub` bundle
+     of phase 6's headline GPT, saved and loaded, logits bit for bit;
+     (d) `utils.aot`: phase 4's greedy `make_generate` program exported
+     and loaded, its tokens bit for bit the eager program's, both
+     programs' tok/s (median of 5 calls in turns, 4 new tokens), and the
+     exported forward of the same model (K1 n_layer launches inside the
+     loaded program, logits bit for bit), timed beside the eager forward
+     by CUDA events (20 calls, twice in turns); (e)
+     `utils.profiler.StepTimer` over phase 6's headline step beside CUDA
+     events, and `trace` writing a Chrome trace with the step's kernels;
+     (f) `entry.dryrun_multichip(4)` on the card (gloo ranks sharing the
+     card where there are fewer than 4).
 Phase 3 also holds the matmul (K3) and row-softmax (K4) kernels against
 their plain versions (ragged, transposed views, the 2-d model's forward
 products and the VJP products of its LM head and MLP as the VJPs lay them
@@ -6764,6 +6788,483 @@ def phase_tp_serving(T, PA, S, prompts, max_news, outs4, tok_s4, smi_line):
     return k11_a + k11_b + k11_c
 
 
+
+# --------------------------------------------------------------------------
+# phase 23: the sharded Var leaves, utils.hub, utils.aot, utils.profiler,
+# entry() and dryrun_multichip()
+
+VAR_DP_RANKS = 2
+VAR_DP_B, VAR_DP_S, VAR_DP_STEPS = 16, 2048, 3
+# the f32 twin tape (test_parallel.py's, widened to reach K3): x (N, D)
+# split over the ranks, w (O, D) whole
+VAR_DP_TWIN = (4096, 1024, 1024)
+VAR_DP_TWIN_TOL = 1e-5
+AOT_B, AOT_P, AOT_NEW = 16, 32, 4
+AOT_REPEATS, AOT_FWD_ITERS = 5, 20
+
+
+# the kernel wrappers the Var ops call, by their names in ops/functional.py
+VAR_WRAPPERS = ("flash_fwd_qkv", "flash_bwd_fused_qkv", "kernel_matmul",
+                "softmax_last_axis")
+
+
+@contextlib.contextmanager
+def wrapper_shapes():
+    """{wrapper: sorted distinct operand shapes of its calls} of
+    VAR_WRAPPERS, recorded while the block runs (each call's tensor
+    operands, as the wrapper gets them: a rank's local tensors)."""
+    from neuronika_tpu_torch.ops import functional as F
+
+    seen = {n: set() for n in VAR_WRAPPERS}
+    real = {n: getattr(F, n) for n in VAR_WRAPPERS}
+
+    def spy(name):
+        def call(*args, **kw):
+            seen[name].add(tuple(tuple(a.shape) for a in args
+                                 if isinstance(a, torch.Tensor)))
+            return real[name](*args, **kw)
+        return call
+
+    shapes = {}
+    for n in VAR_WRAPPERS:
+        setattr(F, n, spy(n))
+    try:
+        yield shapes
+    finally:
+        for n in VAR_WRAPPERS:
+            setattr(F, n, real[n])
+        shapes.update({n: sorted(v) for n, v in seen.items()})
+
+
+def var_dp_want_shapes():
+    """The operand shapes phase 23 (b)'s kernels must get on each rank:
+    the flagship's K1 and fused K2 B / ranks sequences, K4 B S / ranks
+    rows; the twin tape's K3 N / ranks rows of x or of the gradient."""
+    d, V, H = (VAR_FLAGSHIP[k] for k in ("d_model", "vocab_size", "n_head"))
+    b, S = VAR_DP_B // VAR_DP_RANKS, VAR_DP_S
+    qkv = (b, S, 3 * d)
+    n, D, O = VAR_DP_TWIN
+    n //= VAR_DP_RANKS
+    return {"flash_fwd_qkv": [(qkv,)],
+            "flash_bwd_fused_qkv": [(qkv, (b, S, d), (b, H, S), (b, S, d))],
+            "softmax_last_axis": [((b * S, V),)],
+            "kernel_matmul": sorted({((n, D), (D, O)), ((n, O), (O, D)),
+                                     ((O, n), (n, D))})}
+
+
+def capture_optimizer(optim):
+    """An optimizer whose fused step keeps the gradients it is handed and
+    updates nothing: the first step's loss and gradients, read through the
+    fused path (which frees the tape's values as it goes)."""
+
+    class Capture(optim.SGD):
+        grads = None
+
+        def _apply_update(self, datas, grads, inplace):
+            self.grads = [None if g is None else g.detach().clone()
+                          for g in grads]
+            return grads
+
+    return Capture(0.0)
+
+
+def var_dp_graph(nk, T, P, ids_split, mesh=None):
+    """Phase 8's Var flagship graph (np.random seed 0 for weights and
+    ids); with `mesh`, the ids split over its dp ranks."""
+    cfg = T.GPTConfig(dtype=torch.bfloat16, dropout=0.0, flash_block=512,
+                      **VAR_FLAGSHIP)
+    np.random.seed(0)
+    params, fwd = T.build_var_model_batched(cfg, batch=VAR_DP_B,
+                                            seq=VAR_DP_S, device="cuda")
+    V = cfg.vocab_size
+    ids = np.random.randint(0, V, (VAR_DP_B, VAR_DP_S)).astype("float32")
+    tgt = np.roll(ids, -1, axis=1).reshape(-1)
+    x = nk.from_ndarray(ids, device="cuda")
+    if ids_split:
+        x.node.value = P.shard_batch(x.node.value, mesh)
+    loss = fwd(x).reshape((VAR_DP_B * VAR_DP_S, V)).log_softmax(1).t().nll(
+        nk.from_ndarray(tgt, device="cuda"), nk.Reduction.Mean)
+    return cfg, params, loss
+
+
+def var_dp_twin(nk, P, mesh, MM):
+    """The f32 mm_t/relu/mse tape with kernels on, x split over the ranks
+    and whole: (loss, w grad, K3 launches, K3 operand shapes) of each."""
+    N, D, O = VAR_DP_TWIN
+    rng = np.random.default_rng(23)
+    X = rng.standard_normal((N, D)).astype(np.float32)
+    W = (rng.standard_normal((O, D)) / np.sqrt(D)).astype(np.float32)
+    out = {}
+    for split in (True, False):
+        MM.matmul.launches = 0
+        x = nk.from_ndarray(X, device="cuda")
+        if split:
+            x.node.value = P.shard_batch(x.node.value, mesh)
+        w = nk.from_ndarray(W, device="cuda").requires_grad()
+        loss = x.mm_t(w).relu().mse(nk.zeros((N, O), device="cuda"),
+                                    nk.Reduction.Mean)
+        with wrapper_shapes() as shapes:
+            loss.forward()
+            loss.backward(1.0)
+        out[split] = (loss.data().double(), w.grad().double(),
+                      MM.matmul.launches, shapes["kernel_matmul"])
+    return out
+
+
+def _var_dp_rank(rank, cards):
+    """Phase 23 (b) on each spawned rank: the capture step and timed Adam
+    steps of the sharded Var flagship, the f32 twin tape; rank 0 then runs
+    the one-rank flagship (the other ranks wait) and compares."""
+    import torch.distributed as dist
+
+    import neuronika_tpu_torch as nk
+    from neuronika_tpu_torch import _build, optim
+    from neuronika_tpu_torch import parallel as P
+    from neuronika_tpu_torch.models import transformer as T
+    from neuronika_tpu_torch.ops import flash_attention as FA
+    from neuronika_tpu_torch.ops import matmul as MM
+    from neuronika_tpu_torch.ops import softmax as SM
+
+    torch.cuda.set_device(rank % cards)
+    _build.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nk.config.device = "cuda"
+    mesh = P.make_mesh([("dp", VAR_DP_RANKS)])
+    kernels = var_kernels(FA, MM, SM)
+    nk.enable_kernels(True)
+    cfg, params, loss = var_dp_graph(nk, T, P, True, mesh)
+    L, n = cfg.n_layer, VAR_DP_STEPS
+    cap = capture_optimizer(optim)
+    cap.register_all(params)
+    with wrapper_shapes() as shapes:
+        first = cap.train_step(loss)
+    grads = cap.grads
+    opt = optim.Adam(1e-4)
+    opt.register_all(params)
+    opt.train_step(loss)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    vals = []
+    for _ in range(n):
+        opt.train_step(loss, block=False)
+        vals.append(loss.data())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    launches = [k.launches for k in kernels]
+    losses = [first] + [float(v) for v in vals]
+    del opt, cap, loss, params, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = var_dp_twin(nk, P, mesh, MM)
+    twin_k3 = twin[True][2]
+    shapes["kernel_matmul"] = twin[True][3]
+    (tl, tg, _, _), (ul, ug, _, _) = twin[True], twin[False]
+    scale_g = max(1.0, float(ug.abs().max()))
+    twin_err = (float((tl - ul).abs()) / max(1.0, float(ul.abs())),
+                float((tg - ug).abs().max()) / scale_g)
+    out = {"losses": losses, "step_s": step_s, "launches": launches,
+           "want": [2 * L * n, L * n, 0, n], "twin_k3": twin_k3,
+           "twin_err": twin_err, "shapes": shapes,
+           "grad_sum": float(sum(g.double().square().sum()
+                                 for g in grads if g is not None))}
+    dist.barrier()
+    if rank == 0:         # the one-rank run, while the other ranks wait
+        _, rparams, rloss = var_dp_graph(nk, T, P, False)
+        rcap = capture_optimizer(optim)
+        rcap.register_all(rparams)
+        ref_first = rcap.train_step(rloss)
+        e2 = r2 = 0.0
+        for g, r in zip(grads, rcap.grads):
+            e2 += float((g.double() - r.double()).square().sum())
+            r2 += float(r.double().square().sum())
+        out["ref_first"] = ref_first
+        out["grad_rel"] = math.sqrt(e2 / r2)
+        del rparams, rloss, rcap
+    nk.enable_kernels(False)
+    dist.barrier()
+    return out
+
+
+def host_rest_var_dp(P, smi_line):
+    """Phase 23 (b): the ranks' readings checked; returns (printed part,
+    summed launches of [K1, fused K2, K3, K4])."""
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= VAR_DP_RANKS else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        res = P.mesh.spawn(_var_dp_rank, VAR_DP_RANKS, (cards,),
+                           init_file=os.path.join(tmp, "store"),
+                           backend=backend, timeout=300.0, limit=600.0)
+    r0 = res[0]
+    want_shapes = var_dp_want_shapes()
+    loss_rel = abs(r0["losses"][0] - r0["ref_first"]) / abs(r0["ref_first"])
+    check(loss_rel <= ROUTE_BF16_REL,
+          f"phase 23 (b): first loss {r0['losses'][0]} vs the one-rank "
+          f"run's {r0['ref_first']}")
+    check(r0["grad_rel"] <= ROUTE_GRAD_BF16_REL,
+          f"phase 23 (b): gradients {r0['grad_rel']:.3e} from the one-rank "
+          f"run's in norm")
+    for r in res:
+        check(r["losses"] == r0["losses"] and r["grad_sum"] == r0["grad_sum"],
+              "phase 23 (b): the ranks' losses or gradients differ")
+        check(all(np.isfinite(r["losses"])) and r["losses"][-1]
+              < r["losses"][0], f"phase 23 (b): losses {r['losses']}")
+        check(r["launches"] == r["want"], f"phase 23 (b): launches "
+              f"{r['launches']}, want {r['want']} ({', '.join(VAR_KERNELS)})")
+        check(r["twin_k3"] == 3, f"phase 23 (b): f32 tape K3 launches "
+                                 f"{r['twin_k3']}, want 3")
+        check(max(r["twin_err"]) <= VAR_DP_TWIN_TOL,
+              f"phase 23 (b): f32 tape (loss, grad) err {r['twin_err']}")
+        check(r["shapes"] == want_shapes, f"phase 23 (b): the kernels' "
+              f"operands {r['shapes']}, want each rank's rows "
+              f"{want_shapes}")
+    launches = [sum(r["launches"][i] for r in res) for i in range(4)]
+    launches[2] += sum(r["twin_k3"] for r in res)
+    tok_s = VAR_DP_B * VAR_DP_S / r0["step_s"]
+    how = ("NCCL, a card a rank" if backend == "nccl" else
+           f"gloo ranks sharing {cards} card(s)")
+    part = (f"(b) Var flagship on dp-sharded ids, d1536 L8 H12 V16384 S2048 "
+            f"B16 bf16 over {VAR_DP_RANKS} ranks ({how}; {smi_line}): first "
+            f"loss {r0['losses'][0]:.6f} vs one-rank {r0['ref_first']:.6f} "
+            f"(rel {loss_rel:.2e} <= {ROUTE_BF16_REL}), gradients "
+            f"{r0['grad_rel']:.3e} from the one-rank run's in norm (<= "
+            f"{ROUTE_GRAD_BF16_REL}); Adam(1e-4) step {r0['step_s'] * 1e3:.1f}"
+            f" ms = {tok_s:.0f} tokens/s of the global batch, losses "
+            f"{[round(v, 4) for v in r0['losses']]}; launches a rank in "
+            f"{VAR_DP_STEPS} steps {[r['launches'] for r in res]} (K1, "
+            f"fused K2, K3, K4); f32 mm_t/relu/mse tape {VAR_DP_TWIN} "
+            f"(loss, grad) rel err {tuple(f'{e:.1e}' for e in r0['twin_err'])}"
+            f", K3 {[r['twin_k3'] for r in res]} a rank; each rank's "
+            f"kernels got its rows: K1 and the fused K2 qkv "
+            f"{want_shapes['flash_fwd_qkv'][0][0]}, K4 "
+            f"{want_shapes['softmax_last_axis'][0][0]}, K3 "
+            f"{want_shapes['kernel_matmul']}")
+    return part, launches
+
+
+def host_rest_entry(T, FA):
+    """Phase 23 (a): entry()'s forward through K1 against the plain
+    route."""
+    from neuronika_tpu_torch.entry import FLAGSHIP, entry
+
+    fwd, (params, tokens) = entry()
+    toks = torch.from_numpy(np.random.default_rng(23).integers(
+        0, FLAGSHIP["vocab_size"], tuple(tokens.shape))).to("cuda")
+    k0 = FA.flash_fwd_qkv.launches
+    with torch.no_grad():
+        out = fwd(params, toks)
+        k1 = FA.flash_fwd_qkv.launches - k0
+        route = FA.flash_fwd_qkv.route
+        plain = T.forward(params, toks, T.GPTConfig(
+            dtype=torch.bfloat16, flash="off", **FLAGSHIP))
+        ms = cuda_ms(lambda: fwd(params, toks), 10)
+    check(k1 == FLAGSHIP["n_layer"], f"phase 23 (a): K1 launches {k1}")
+    check(route == "sm90", f"phase 23 (a): K1 route {route}")
+    err = float((out.float() - plain.float()).abs().max())
+    tol = FLASH_BF16_REL["out"] * float(plain.float().abs().max())
+    rel, bound, _, _ = norm_reading([diff_stats(out.float(), plain.float())])
+    check(bool(torch.isfinite(out).all()) and err <= tol and rel <= bound,
+          f"phase 23 (a): logits max err {err} (bound {tol}), in norm "
+          f"{rel:.3e} (bound {bound:.3e})")
+    return (f"(a) entry(): V512 L4 H4 d256 S128 bf16 B4 forward "
+            f"{ms:.3f} ms, K1 {k1} launches on route {route}, logits max err "
+            f"{err:.3e} (<= {tol:.3e}) and {rel:.2e} in norm (<= "
+            f"{bound:.2e}) from the plain route")
+
+
+def host_rest_hub(T, utils_hub):
+    """Phase 23 (c): phase 6's headline GPT through a bundle."""
+    from neuronika_tpu_torch._tree import tree_leaves
+
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **HEADLINE)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (2, 256))).to("cuda")
+    with torch.no_grad():
+        want = T.forward(params, toks, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        utils_hub.save_model(tmp, params, cfg)
+        t_save = time.perf_counter() - t0
+        size = dir_bytes(tmp)
+        t0 = time.perf_counter()
+        p2, cfg2, tok = utils_hub.load_model(tmp)
+        t_load = time.perf_counter() - t0
+    check(cfg2 == cfg and tok is None, "phase 23 (c): config or tokenizer")
+    check(all(a.device.type == "cuda" for a in tree_leaves(p2)),
+          "phase 23 (c): load_model left a leaf off the card")
+    with torch.no_grad():
+        got = T.forward(p2, toks, cfg2)
+    check(torch.equal(got, want), "phase 23 (c): logits of the loaded "
+                                  "bundle differ")
+    del params, p2
+    return (f"(c) hub: phase 6's headline GPT (d1536 L8 V16384 bf16), "
+            f"{size / 2 ** 20:.0f} MiB bundle saved in {t_save:.2f} s and "
+            f"loaded onto the card in {t_load:.2f} s, logits (B2 S256) bit "
+            f"for bit")
+
+
+def host_rest_aot(T, FA, aot, prompts):
+    """Phase 23 (d): phase 4's model, its greedy generate program and its
+    forward exported and loaded."""
+    cfg = T.GPTConfig(vocab_size=16384, n_layer=8, n_head=12, d_model=1536,
+                      d_ff=6144, max_seq=1024, dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    batch = torch.from_numpy(np.stack([p[:AOT_P] for p in
+                                       prompts[:AOT_B]])).to("cuda")
+    gen = T.make_generate(cfg, AOT_NEW)
+    want = gen(params, batch)
+    t0 = time.perf_counter()
+    blob = aot.export_fn(gen, params, batch, None)
+    export_s = time.perf_counter() - t0
+    call = aot.load_exported(blob)
+    got = call(params, batch, None)
+    check(torch.equal(got, want), "phase 23 (d): the loaded program's "
+                                  "tokens differ from the eager run's")
+    # the generate programs' wall time, AOT_REPEATS calls each in turns
+    walls = {"eager": [], "loaded": []}
+    for _ in range(AOT_REPEATS):
+        for name, fn in (("eager", lambda: gen(params, batch)),
+                         ("loaded", lambda: call(params, batch, None))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    n_tok = AOT_B * AOT_NEW
+    tok_s = {k: n_tok / float(np.median(v)) for k, v in walls.items()}
+    # the forward: K1 inside the loaded program; CUDA events over
+    # AOT_FWD_ITERS calls, eager and loaded in turns
+    fwd = lambda p, t: T.forward(p, t, cfg)   # noqa: E731
+    with torch.no_grad():
+        ref = fwd(params, batch)
+    fcall = aot.load_exported(aot.export_fn(fwd, params, batch))
+    k0 = FA.flash_fwd_qkv.launches
+    with torch.no_grad():
+        out = fcall(params, batch)
+    torch.cuda.synchronize()
+    k1 = FA.flash_fwd_qkv.launches - k0
+    check(k1 == cfg.n_layer, f"phase 23 (d): K1 launches in the loaded "
+                             f"forward {k1}, want {cfg.n_layer}")
+    check(torch.equal(out, ref), "phase 23 (d): the loaded forward's "
+                                 "logits differ")
+    fwd_ms = {"eager": [], "loaded": []}
+    with torch.no_grad():
+        for _ in range(2):
+            fwd_ms["eager"].append(cuda_ms(lambda: fwd(params, batch),
+                                           AOT_FWD_ITERS))
+            fwd_ms["loaded"].append(cuda_ms(lambda: fcall(params, batch),
+                                            AOT_FWD_ITERS))
+    del params
+    ratio = [e / l for e, l in zip(fwd_ms["eager"], fwd_ms["loaded"])]
+    return (f"(d) aot: phase 4's model, greedy make_generate B{AOT_B} "
+            f"{AOT_P} + {AOT_NEW} exported in {export_s:.1f} s "
+            f"({len(blob) / 2 ** 20:.1f} MiB), tokens bit for bit; "
+            f"median of {AOT_REPEATS} calls in turns: loaded "
+            f"{tok_s['loaded']:.1f} tok/s, eager {tok_s['eager']:.1f} tok/s "
+            f"(wall s loaded {[round(v, 4) for v in walls['loaded']]}, "
+            f"eager {[round(v, 4) for v in walls['eager']]}); the exported "
+            f"forward (B{AOT_B} S{AOT_P}) ran K1 {k1} times inside the loaded "
+            f"program, logits bit for bit, {AOT_FWD_ITERS} calls by CUDA "
+            f"events in turns: loaded {[round(v, 3) for v in fwd_ms['loaded']]}"
+            f" ms, eager {[round(v, 3) for v in fwd_ms['eager']]} ms "
+            f"(eager / loaded {[round(v, 3) for v in ratio]})")
+
+
+def host_rest_profiler(T, profiler):
+    """Phase 23 (e): StepTimer over phase 6's headline step beside CUDA
+    events; trace writes a Chrome trace holding the step's kernels."""
+    cfg = T.GPTConfig(dtype=torch.bfloat16, **TRAIN_CFG, **HEADLINE)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(gen, cfg, "cuda")
+    opt = T.opt_init(params, cfg)
+    step = T.make_train_step(cfg)
+    toks, tgts = lm_batch(np.random.default_rng(6), cfg.vocab_size, 16,
+                          2048)
+    state = [params, opt]
+
+    def run():
+        state[0], state[1], loss = step(state[0], state[1], toks, tgts,
+                                        1e-4, gen)
+        return loss
+
+    run()
+    timer = profiler.StepTimer()
+    ev = []
+    for _ in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with timer:
+            a.record()
+            loss = run()
+            b.record()
+            timer.observe(loss)
+        ev.append(a.elapsed_time(b))
+    summ = timer.summary(skip_first=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler.trace(tmp) as rec:
+            float(run())
+        path = rec.path
+        check(os.path.exists(path), "phase 23 (e): no trace file")
+        with open(path) as f:
+            text = f.read()
+        size = len(text)
+    n_kern = text.count('"cat": "kernel"')
+    check(n_kern > 0, "phase 23 (e): the trace holds no kernel")
+    del state, params, opt
+    return (f"(e) profiler: StepTimer over phase 6's headline step (B16 "
+            f"S2048), {summ['steps']} steps mean {summ['mean_ms']:.1f} ms "
+            f"(p50 {summ['p50_ms']:.1f}) beside CUDA events "
+            f"{np.mean(ev[1:]):.1f} ms; trace wrote {size / 2 ** 20:.1f} MiB "
+            f"of Chrome trace with {n_kern} kernel events")
+
+
+def phase_host_rest(T, FA, prompts, smi_line):
+    """Phase 23 (see the module docstring). Returns the phase's launches
+    by kernel wrapper name."""
+    from neuronika_tpu_torch import parallel as P
+    from neuronika_tpu_torch.entry import dryrun_multichip, kernel_launches
+    from neuronika_tpu_torch.utils import aot, hub, profiler
+
+    t0 = time.perf_counter()
+    before = kernel_launches()
+    var_launches, dry = [], []
+
+    def var_dp():
+        part, counts = host_rest_var_dp(P, smi_line)
+        var_launches.extend(counts)
+        return part
+
+    def dryrun():
+        dry.append(dryrun_multichip(4))
+        lines = dry[0].lines
+        check(len(lines) == 11, f"phase 23 (f): {len(lines)} lines")
+        return (f"(f) dryrun_multichip(4) on the card: {len(lines) - 1} "
+                f"sections ok ({lines[0]})")
+
+    for run in (lambda: host_rest_entry(T, FA), var_dp,
+                lambda: host_rest_hub(T, hub),
+                lambda: host_rest_aot(T, FA, aot, prompts),
+                lambda: host_rest_profiler(T, profiler), dryrun):
+        t = time.perf_counter()
+        part = run()
+        print(f"phase 23 {part} [{time.perf_counter() - t:.1f} s]",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    after = kernel_launches()
+    launches = {k: after[k] - before[k] + dry[0].launches[k] for k in after}
+    for name, n in zip(("flash_fwd_qkv", "flash_bwd_fused_qkv", "matmul",
+                        "softmax_last_axis"), var_launches):
+        launches[name] += n
+    print(f"phase 23 launches: {launches}")
+    print(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="TABLE_PATH",
@@ -6962,6 +7463,12 @@ def main() -> int:
     tp_k11 = phase_tp_serving(T, PA, S, prompts, max_news, outs,
                               n_tok / wall, smi[0])
 
+    # 23. the sharded Var leaves, hub, aot, profiler, entry() and
+    # dryrun_multichip()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest = phase_host_rest(T, FA, prompts, smi[0])
+
     csrc = "neuronika_tpu_torch/csrc/"
     src = f"{csrc}flash_attention_qkv.cu"
     at = "neuronika_tpu/ops/pallas/attention.py:"
@@ -6972,11 +7479,12 @@ def main() -> int:
         "source": "neuronika_tpu_torch/csrc/paged_attention.cu",
         "replaces": "neuronika_tpu/ops/pallas/paged_attention.py:44",
         "launches": (launches + loop_k11 + models["paged_attention"]
-                     + serving18 + wide_k11 + tp_k11),
+                     + serving18 + wide_k11 + tp_k11
+                     + rest["paged_attention"]),
         "launches_by_phase": {"4": launches, "16": loop_k11,
                               "17": models["paged_attention"],
                               "18": serving18, "19": wide_k11,
-                              "22": tp_k11},
+                              "22": tp_k11, "23": rest["paged_attention"]},
         "max_abs_err": err, "ms": kern_ms,
         "plain_ms": plain_ms, "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None,
@@ -7010,13 +7518,14 @@ def main() -> int:
                         "replaces": f"{at}{line}",
                         "launches": (counts[name] + loop[name] + models[name]
                                      + star[name] + sharded[name]
-                                     + parallel21[name]),
+                                     + parallel21[name] + rest[name]),
                         "launches_by_phase": {"6": counts[name],
                                               "16": loop[name],
                                               "17": models[name],
                                               "19": star[name],
                                               "20": sharded[name],
-                                              "21": parallel21[name]},
+                                              "21": parallel21[name],
+                                              "23": rest[name]},
                         "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,
@@ -7027,16 +7536,22 @@ def main() -> int:
                             wide_errs[name],
                             {name: wide_times["starcoder"][name]})})
     # K3 runs on the 2-d model's path, K4 on both Var paths (phases 8, 9);
-    # both on the layer kit's (phase 15)
-    for name, source, replaces in (
-            ("matmul", "neuronika_tpu_torch/csrc/matmul.cu",
+    # both on the layer kit's (phase 15) and on phase 23's sharded tapes
+    for name, wrapper, source, replaces in (
+            ("matmul", "matmul", "neuronika_tpu_torch/csrc/matmul.cu",
              "neuronika_tpu/ops/pallas/matmul.py:30"),
-            ("softmax", "neuronika_tpu_torch/csrc/softmax.cu",
+            ("softmax", "softmax_last_axis",
+             "neuronika_tpu_torch/csrc/softmax.cu",
              "neuronika_tpu/ops/pallas/softmax.py:19")):
         e, ms, p_ms, lib, bound = mm_sm[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": flag[name] + legacy[name] + kit[name],
+                        "launches": (flag[name] + legacy[name] + kit[name]
+                                     + rest[wrapper]),
+                        "launches_by_phase": {"8": flag[name],
+                                              "9": legacy[name],
+                                              "15": kit[name],
+                                              "23": rest[wrapper]},
                         "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib})
@@ -7054,11 +7569,13 @@ def main() -> int:
                         "source": f"{csrc}flash_attention.cu",
                         "replaces": f"{at}{line}",
                         "launches": (mistral[name] + models[name]
-                                     + phi3[name] + sharded[name]),
+                                     + phi3[name] + sharded[name]
+                                     + rest[name]),
                         "launches_by_phase": {"11": mistral[name],
                                               "17": models[name],
                                               "19": phi3[name],
-                                              "20": sharded[name]},
+                                              "20": sharded[name],
+                                              "23": rest[name]},
                         "max_abs_err": e,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": lib,

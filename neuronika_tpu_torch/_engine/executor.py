@@ -8,6 +8,14 @@ list eagerly. The signature, the LRU bound and `cache_stats` keep the JAX
 contract, so a rebuilt graph of the same structure reuses its entry. There
 is no native tape walker: the Python walk is the only one.
 
+Sharded leaves: a leaf whose value is a `DTensor` (`parallel.shard_batch`)
+mixes with whole leaves in one tape. Its placement is part of the
+signature, the whole leaves are lifted to Replicate on its mesh and the
+tape replays on DTensors (`ops/sharded.py`), as GSPMD runs JAX's staged
+tape; the root's partial sums are reduced once, and the gradient of a
+leaf with a whole value comes back whole (all-reduced once), so
+`.data()` and `.grad()` read the unsharded run's values on every rank.
+
 Gradient semantics, as in the reference:
 * `backward(seed)` fills the root gradient with `seed` and replays VJPs in
   reverse topological order, accumulating into every differentiable node;
@@ -19,12 +27,14 @@ Gradient semantics, as in the reference:
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 from typing import List, Sequence, Tuple
 
 import torch
 
 from ..config import config
+from ..ops import sharded
 from .node import DEAD_GRADIENT_MSG, FORWARD_NOT_CALLED_MSG, Node
 
 
@@ -107,9 +117,18 @@ def _signature(tape: Sequence[Node], leaves: Sequence[Node]) -> Tuple:
         pos[n.id] = ("N", i)
         entries.append((n.op, n.extra, tuple(pos[p.id] for p in n.parents),
                         n.differentiable, n.grad_alive, n.rng, _train(n)))
-    leaf_sig = tuple((n.shape, str(n.dtype), n.differentiable)
-                     for n in leaves)
+    leaf_sig = tuple((n.shape, str(n.dtype), n.differentiable,
+                      _placement(n.value)) for n in leaves)
     return (tuple(entries), leaf_sig)
+
+
+def _placement(value):
+    """A sharded leaf's layout: its mesh (dim names and sizes) and
+    placements; None for a whole value."""
+    if not sharded.is_dtensor(value):
+        return None
+    mesh = value.device_mesh
+    return (mesh.mesh_dim_names, tuple(mesh.shape), tuple(value.placements))
 
 
 def _plan_and_sign(root: Node):
@@ -151,6 +170,19 @@ def _build_backward(tape, leaves):
               slot[n.id], keys.get(n.id), _train(n))
              for n in reversed(tape) if n.differentiable]
     return specs, slot[tape[-1].id]
+
+
+def _lifted(vals):
+    """(leaf values as the steps take them, the mesh or None): with a
+    sharded leaf, every whole value lifted to Replicate on its mesh."""
+    mesh = sharded.leaf_mesh(vals)
+    return (vals, None) if mesh is None else (sharded.lift(vals, mesh), mesh)
+
+
+def _on(mesh):
+    """The context a tape replays in: DTensor's implicit replication on a
+    mesh, nothing otherwise."""
+    return sharded.spmd() if mesh is not None else contextlib.nullcontext()
 
 
 def _call(fn, extra, args, kidx, train, keys):
@@ -216,10 +248,13 @@ def forward(root: Node) -> None:
     rng_nodes = [n for n in tape if n.rng]
     for n, k in zip(rng_nodes, keys):
         n.value_key = k
-    env = _run_forward(steps, [l.get_value() for l in leaves], keys)
+    leaf_vals, mesh = _lifted([l.get_value() for l in leaves])
+    with _on(mesh):
+        env = _run_forward(steps, leaf_vals, keys)
     for n, v in zip(tape, env[len(leaves):]):
         n.value = v
         n.computed = True
+    root.value = sharded.settled(root.value)
 
 
 def backward(root: Node, seed: float) -> None:
@@ -246,16 +281,21 @@ def backward(root: Node, seed: float) -> None:
         entry = _build_backward(tape, leaves)
         _BWD_CACHE[sig] = entry
     specs, root_slot = entry
-    values = [l.get_value() for l in leaves] + [n.get_value() for n in tape]
+    leaf_vals, mesh = _lifted([l.get_value() for l in leaves])
+    values = leaf_vals + [n.get_value() for n in tape]
     keys = [n.value_key for n in tape if n.rng]
-    grads = _run_backward(specs, values, keys, root_slot,
-                          torch.full(root.shape, seed, dtype=root.dtype,
-                                     device=root.device))
+    with _on(mesh):
+        grads = _run_backward(specs, values, keys, root_slot,
+                              torch.full(root.shape, seed, dtype=root.dtype,
+                                         device=root.device))
     slotted = list(leaves) + list(tape)
     for s, g in grads.items():
         node = slotted[s]
         if not node.differentiable:
             continue
+        if mesh is not None and node.is_leaf() and not sharded.is_dtensor(
+                node.value):
+            g = sharded.whole(g)    # a whole leaf's gradient, reduced once
         if node is root:
             node.grad = g      # the root gradient is filled, not summed
         else:
@@ -317,18 +357,31 @@ def fused_train_step(root: Node, optimizer, seed: float = 1.0,
 
     keys = [config.next_seed() for n in tape if n.rng]
     leaf_vals = [l.get_value() for l in leaves]
-    env = _run_forward(steps, leaf_vals, keys)
-    loss = env[root_slot]
-    grads = _run_backward(specs, env, keys, root_slot,
-                          torch.full(root.shape, seed, dtype=root.dtype,
-                                     device=root.device), frees)
+    run_vals, mesh = _lifted(leaf_vals)
+    if mesh is not None and any(sharded.is_dtensor(leaf_vals[i])
+                                for i in param_pos):
+        raise ValueError("a fused step updates whole parameters: shard the "
+                         "inputs (parallel.shard_batch), not a registered "
+                         "parameter")
+    with _on(mesh):
+        env = _run_forward(steps, run_vals, keys)
+        loss = env[root_slot]
+        grads = _run_backward(specs, env, keys, root_slot,
+                              torch.full(root.shape, seed, dtype=root.dtype,
+                                         device=root.device), frees)
     del env
+    # each replicated parameter's gradient all-reduced once; the update
+    # (and any penalty) then runs on whole values, the same on every rank
+    param_grads = [grads.pop(i, None) for i in param_pos]
+    if mesh is not None:
+        param_grads = [None if g is None else sharded.whole(g)
+                       for g in param_grads]
+        loss = sharded.settled(loss)
     optimizer._step_count += 1
-    optimizer._apply_update([leaf_vals[i] for i in param_pos],
-                            [grads.pop(i, None) for i in param_pos],
+    optimizer._apply_update([leaf_vals[i] for i in param_pos], param_grads,
                             inplace=True)
     root.value = loss
     root.computed = True
     if not block:
         return None
-    return float(loss)
+    return float(sharded.whole(loss))

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from ..config import config
 from .conv import (conv1d_direct_nwc, conv2d_direct, conv3d_direct_ndhwc,
                    route_conv2d)
+from . import sharded
 from .flash_attention import (flash_bwd_fused_qkv, flash_fwd_qkv, keep_mask,
                               kernels_take)
 from .matmul import matmul as kernel_matmul
@@ -190,10 +191,18 @@ def _log_softmax_vjp(e, p, o, g):
     return (g - torch.exp(o) * g.sum(dim=e[0], keepdim=True),)
 
 
+def _softmax_last(a, log):
+    return softmax_last_axis(a.contiguous(), log=log)
+
+
 def _softmax_fwd(e, a, *, log=False):
     axis = e[0]
     if config.use_kernels and axis in (-1, a.dim() - 1):
-        return softmax_last_axis(a.contiguous(), log=log)
+        if sharded.is_dtensor(a):       # K4 on each rank's rows
+            p = sharded.rows_placements(a, range(a.dim() - 1))
+            return sharded.run_local(lambda x: _softmax_last(x, log), (a,),
+                                     (p,), p)
+        return _softmax_last(a, log)
     return torch.log_softmax(a, axis) if log else torch.softmax(a, axis)
 
 
@@ -293,6 +302,9 @@ _register("multi_stack", lambda e, *xs: torch.stack(xs, dim=e[0]),
 
 def _mm(e, a, b):
     if config.use_kernels and a.dim() == 2 and b.dim() == 2:
+        if sharded.is_dtensor(a) or sharded.is_dtensor(b):
+            pa, pb, out = sharded.matmul_placements(a, b)   # K3 a rank
+            return sharded.run_local(kernel_matmul, (a, b), (pa, pb), out)
         return kernel_matmul(a, b)
     x, y = _promote(a, b)
     return torch.matmul(x, y).to(a.dtype)
@@ -441,9 +453,7 @@ def _attn_use_kernel(qkv, n_head, n_kv_head, rate):
     return kernels_take(qkv.dtype, hd) and n_head % kv == 0
 
 
-def _attn_fwd(e, qkv, *, key, train):
-    n_head, n_kv_head, causal, rate, _ = e
-    rate = float(rate) if train else 0.0
+def _attn_local(qkv, n_head, n_kv_head, causal, rate, key):
     if _attn_use_kernel(qkv, n_head, n_kv_head, rate):
         # `block` sizes the TPU's tiles; the CUDA kernels choose their own.
         # The mask is keyed by the executor's seed, as the composite's.
@@ -453,10 +463,7 @@ def _attn_fwd(e, qkv, *, key, train):
     return _attn_xla(qkv, n_head, n_kv_head, causal, rate, key)
 
 
-def _attn_vjp(e, p, o, g, *, key, train):
-    n_head, n_kv_head, causal, rate, _ = e
-    qkv = p[0]
-    rate = float(rate) if train else 0.0
+def _attn_vjp_local(qkv, o, g, n_head, n_kv_head, causal, rate, key):
     if _attn_use_kernel(qkv, n_head, n_kv_head, rate):
         # The tape keeps the op's output but not K1's lse, so K1 runs again
         # for it (JAX's `jax.vjp` re-traces the forward the same way): each
@@ -465,14 +472,54 @@ def _attn_vjp(e, p, o, g, *, key, train):
         qkv = qkv.contiguous()
         _, lse = flash_fwd_qkv(qkv, n_head, n_kv_head, causal,
                                fast_softmax=True, seed=key, rate=rate)
-        return (flash_bwd_fused_qkv(qkv, o.contiguous(), lse,
-                                    g.to(qkv.dtype).contiguous(), n_head,
-                                    n_kv_head, causal, seed=key, rate=rate),)
+        return flash_bwd_fused_qkv(qkv, o.contiguous(), lse,
+                                   g.to(qkv.dtype).contiguous(), n_head,
+                                   n_kv_head, causal, seed=key, rate=rate)
     with torch.enable_grad():
         q = qkv.detach().requires_grad_()
         out = _attn_xla(q, n_head, n_kv_head, causal, rate, key)
         (dq,) = torch.autograd.grad(out, q, g)
-    return (dq,)
+    return dq
+
+
+def _attn_rows(qkv, rate):
+    """A sharded qkv's placements for the per-rank kernels: the batch
+    split kept, any other split gathered. The dropout mask counts the
+    batch row from 0 in every launch, so a split batch would draw other
+    rows than the unsharded run's: refused."""
+    p = sharded.rows_placements(qkv, (0,))
+    if rate > 0.0 and any(x.is_shard(0) for x in p):
+        raise NotImplementedError(
+            "flash_attention with dropout on a batch split over ranks: the "
+            "kernels' mask counts the batch from 0 on each rank; train the "
+            "sharded tape at dropout 0 or with whole leaves (ROADMAP.md "
+            "queue 1 item 5)")
+    return p
+
+
+def _attn_fwd(e, qkv, *, key, train):
+    n_head, n_kv_head, causal, rate, _ = e
+    rate = float(rate) if train else 0.0
+    if sharded.is_dtensor(qkv):         # K1 on each rank's rows
+        p = _attn_rows(qkv, rate)
+        return sharded.run_local(
+            lambda t: _attn_local(t, n_head, n_kv_head, causal, rate, key),
+            (qkv,), (p,), p)
+    return _attn_local(qkv, n_head, n_kv_head, causal, rate, key)
+
+
+def _attn_vjp(e, p, o, g, *, key, train):
+    n_head, n_kv_head, causal, rate, _ = e
+    qkv = p[0]
+    rate = float(rate) if train else 0.0
+    if sharded.is_dtensor(qkv):         # K1 and the fused K2 a rank
+        pl = _attn_rows(qkv, rate)
+        return (sharded.run_local(
+            lambda q, out, dout: _attn_vjp_local(
+                q, out, dout, n_head, n_kv_head, causal, rate, key),
+            (qkv, o, g), (pl, pl, pl), pl),)
+    return (_attn_vjp_local(qkv, o, g, n_head, n_kv_head, causal, rate,
+                            key),)
 
 
 _register("flash_attention", _attn_fwd, _attn_vjp, rng=True)
@@ -744,10 +791,25 @@ def _class_index(tgt):
     return tgt.to(torch.int64).unsqueeze(0)
 
 
+def _nll_picked(inp, tgt):
+    return inp.gather(0, _class_index(tgt)).sum()
+
+
+def _nll_onehot(inp, tgt, val):
+    idx = _class_index(tgt)
+    return torch.zeros_like(inp).scatter_(0, idx,
+                                          val.to(inp.dtype).expand(idx.shape))
+
+
 def _nll_fwd(e, inp, tgt):
     # class axis FIRST: input (C, ...), target (...); total = sum over j of
     # input[target[j], j]; `mean` divides by C, as the reference does
-    total = inp.gather(0, _class_index(tgt)).sum()
+    if sharded.is_dtensor(inp) or sharded.is_dtensor(tgt):
+        # each rank picks its own columns: a partial sum
+        pi, pt, out = sharded.class_axis_placements(inp, tgt, partial=True)
+        total = sharded.run_local(_nll_picked, (inp, tgt), (pi, pt), out)
+    else:
+        total = _nll_picked(inp, tgt)
     return -total / inp.shape[0] if e[0] == "mean" else -total
 
 
@@ -755,10 +817,15 @@ def _nll_vjp(e, p, o, g):
     inp, tgt = p
     # -onehot * g, divided by target.numel() (not C) for `mean`; the
     # one-hot is a scatter into zeros in the input's dtype
-    idx = _class_index(tgt)
     val = -g / tgt.numel() if e[0] == "mean" else -g
-    d = torch.zeros_like(inp).scatter_(0, idx,
-                                       val.to(inp.dtype).expand(idx.shape))
+    if sharded.is_dtensor(inp) or sharded.is_dtensor(tgt):
+        # each rank scatters into its own columns
+        pi, pt, out = sharded.class_axis_placements(inp, tgt)
+        mesh = sharded.leaf_mesh((inp, tgt))
+        d = sharded.run_local(_nll_onehot, (inp, tgt, val),
+                              (pi, pt, sharded.replicate(mesh)), out)
+    else:
+        d = _nll_onehot(inp, tgt, val)
     return (d, None)
 
 
@@ -772,11 +839,20 @@ _register("reshape", lambda e, a: a.reshape(e[0]),
 
 # embedding: operands (weight (V, D), float ids (...)); the VJP scatter-adds
 # into the table
+def _embedding_grad(w, ids, g):
+    return torch.zeros_like(w).index_put_((ids.to(torch.int64),),
+                                          g.to(w.dtype), accumulate=True)
+
+
 def _embedding_vjp(e, p, o, g):
     w, ids = p
-    dw = torch.zeros_like(w).index_put_((ids.to(torch.int64),), g.to(w.dtype),
-                                        accumulate=True)
-    return (dw, None)
+    if sharded.is_dtensor(ids) or sharded.is_dtensor(g):
+        # each rank scatters its own rows: the table's gradient is the
+        # sum of the ranks' (a partial sum over each split mesh dim)
+        pi, pw, pg, out = sharded.embedding_placements(w, ids, g)
+        return (sharded.run_local(_embedding_grad, (w, ids, g),
+                                  (pw, pi, pg), out), None)
+    return (_embedding_grad(w, ids, g), None)
 
 
 _register("embedding", lambda e, w, ids: w[ids.to(torch.int64)],

@@ -224,6 +224,27 @@ def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     return _AllToAll.apply(x, split_dim, concat_dim, group)
 
 
+def _send_recv(sends, recvs, group) -> None:
+    """One `batch_isend_irecv` of `sends` [(tensor, global dst)] and
+    `recvs` [(out tensor, global src)]. Gloo's point-to-point ops read
+    host memory only, so over gloo CUDA tensors travel through host
+    copies (ranks sharing a card)."""
+    stage = dist.get_backend(group) == "gloo" and any(
+        t.is_cuda for t, _ in (*sends, *recvs))
+    if stage:
+        sends = [(t.cpu(), d) for t, d in sends]
+        host = [(torch.empty(o.shape, dtype=o.dtype), s) for o, s in recvs]
+    ops = ([dist.P2POp(dist.isend, t, d, group) for t, d in sends]
+           + [dist.P2POp(dist.irecv, o, s, group)
+              for o, s in (host if stage else recvs)])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if stage:
+        for (o, _), (h, _) in zip(recvs, host):
+            o.copy_(h)
+
+
 def ring_shift(tensors: Sequence[torch.Tensor], group) -> list:
     """Each tensor sent to the next rank of `group` and replaced by the one
     the previous rank sent (rank i's go to rank i + 1 mod n), by one
@@ -233,10 +254,7 @@ def ring_shift(tensors: Sequence[torch.Tensor], group) -> list:
     src = dist.get_global_rank(group, (r - 1) % n)
     sends = [t.contiguous() for t in tensors]
     outs = [torch.empty_like(t) for t in sends]
-    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends]
-           + [dist.P2POp(dist.irecv, o, src, group) for o in outs])
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    _send_recv([(t, dst) for t in sends], [(o, src) for o in outs], group)
     return outs
 
 
@@ -249,21 +267,17 @@ def pp_exchange(to_next, to_prev, group):
     each direction on the same tick, and receives into a tensor shaped
     like the one it sends."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    ops, got = [], [None, None]
+    sends, recvs, got = [], [], [None, None]
     for i, (t, peer) in enumerate(((to_next, r + 1), (to_prev, r - 1))):
         if t is None:
             continue
         src = r - 1 if i == 0 else r + 1
         if 0 <= peer < n:
-            ops.append(dist.P2POp(dist.isend, t.contiguous(),
-                                  dist.get_global_rank(group, peer), group))
+            sends.append((t.contiguous(), dist.get_global_rank(group, peer)))
         if 0 <= src < n:
             got[i] = torch.empty_like(t, memory_format=torch.contiguous_format)
-            ops.append(dist.P2POp(dist.irecv, got[i],
-                                  dist.get_global_rank(group, src), group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+            recvs.append((got[i], dist.get_global_rank(group, src)))
+    _send_recv(sends, recvs, group)
     return got[0], got[1]
 
 

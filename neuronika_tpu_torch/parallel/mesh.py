@@ -358,10 +358,38 @@ def _reduced(t):
 # local ranks
 
 
+_GLOO_CUDA_LIB = None
+
+
+def _gloo_cuda_all_gather() -> None:
+    """Route the functional all-gather of CUDA tensors (what DTensor's
+    Shard -> Replicate runs) through c10d's all_gather_into_tensor. On
+    gloo ranks sharing a card, torch 2.11's functional op (CUDA 12.8)
+    kills the process with SIGSEGV in its wait, while c10d's synchronous
+    call of the same collective completes; the result is the same
+    gathered tensor."""
+    global _GLOO_CUDA_LIB
+    if _GLOO_CUDA_LIB is not None:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gather(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, "CUDA")
+    _GLOO_CUDA_LIB = lib
+
+
 def _rank_main(fn, rank, world, backend, init_file, timeout, results, args):
     try:
         if backend == "gloo":
             torch.set_num_threads(1)
+            if torch.cuda.is_available():
+                _gloo_cuda_all_gather()
         else:
             torch.cuda.set_device(rank)
         dist.init_process_group(

@@ -4,12 +4,15 @@ functional params trees (`serde`, `save_pytree`/`load_pytree` in the JAX
 package's layout), train-state checkpoints (`checkpoint.Checkpointer`,
 torch-native where the JAX package uses orbax), the JSONL metrics logger
 (`metrics.MetricsLogger`), finite-difference gradient checking
-(`gradcheck`) and Hugging Face import and export (`hf`: `from_hf_gpt2`,
+(`gradcheck`), Hugging Face import and export (`hf`: `from_hf_gpt2`,
 `from_hf_llama`, `from_huggingface`, `to_hf_gpt2`, `to_hf_llama`,
-`to_huggingface`). The JAX package's hub, aot and profiler modules are not
-ported yet (ROADMAP.md queue 1 item 5)."""
+`to_huggingface`), model bundles in a local directory (`hub.save_model`,
+`load_model`, the JAX package's layout), ahead-of-time export on
+`torch.export` (`aot.export_fn`, `load_exported`, `save_exported`) and
+tracing and step timing (`profiler.trace`, `StepTimer`)."""
 
-from . import checkpoint, hf, metrics, serde
+from . import aot, checkpoint, hf, hub, metrics, profiler, serde
+from .aot import export_fn, load_exported, save_exported
 from .checkpoint import Checkpointer, restore_train_state, save_train_state
 from .gradcheck import gradcheck
 from .hf import (from_hf_gpt2, from_hf_llama, from_huggingface, to_hf_gpt2,
@@ -27,5 +30,6 @@ __all__ = [
     "save_pytree", "load_pytree", "metrics", "MetricsLogger",
     "checkpoint", "Checkpointer", "save_train_state", "restore_train_state",
     "hf", "from_hf_gpt2", "from_hf_llama", "from_huggingface", "to_hf_gpt2",
-    "to_hf_llama", "to_huggingface",
+    "to_hf_llama", "to_huggingface", "hub", "aot", "export_fn",
+    "load_exported", "save_exported", "profiler",
 ]

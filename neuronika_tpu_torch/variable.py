@@ -25,6 +25,7 @@ import torch
 from ._engine import executor
 from ._engine.executor import LRUCache
 from ._engine.node import Node
+from .ops import sharded
 from .ops.functional import OPS, as_dtype, dtype_name
 
 
@@ -164,8 +165,9 @@ class Var:
         return self.node.device
 
     def data(self) -> torch.Tensor:
-        """Current buffer contents (zeros until the first `forward()`)."""
-        return self.node.get_value()
+        """Current buffer contents (zeros until the first `forward()`); a
+        sharded value is read whole, the same on every rank."""
+        return sharded.whole(self.node.get_value())
 
     def data_mut(self):
         """Mutable access: a numpy copy that is written back on exit of the
@@ -457,8 +459,9 @@ class VarDiff(Var):
     __slots__ = ()
 
     def grad(self) -> torch.Tensor:
-        """Accumulated gradient (zeros before the first backward)."""
-        return self.node.get_grad()
+        """Accumulated gradient (zeros before the first backward); a
+        sharded gradient is read whole, the same on every rank."""
+        return sharded.whole(self.node.get_grad())
 
     def grad_mut(self):
         node = self.node

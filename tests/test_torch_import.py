@@ -65,7 +65,11 @@ MODULES = ("neuronika_tpu_torch", "neuronika_tpu_torch._build",
            "neuronika_tpu_torch.parallel.mesh",
            "neuronika_tpu_torch.parallel.ring",
            "neuronika_tpu_torch.parallel.collectives",
-           "neuronika_tpu_torch.parallel.pipeline")
+           "neuronika_tpu_torch.parallel.pipeline",
+           "neuronika_tpu_torch.ops.sharded",
+           "neuronika_tpu_torch.utils.hub", "neuronika_tpu_torch.utils.aot",
+           "neuronika_tpu_torch.utils.profiler",
+           "neuronika_tpu_torch.entry")
 
 
 def _cfg(**kw):
